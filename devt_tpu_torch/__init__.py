@@ -1,0 +1,24 @@
+"""devt_tpu_torch — the PyTorch/CUDA port of :mod:`devt_tpu`.
+
+A second package beside the JAX one, with the same module names so each
+counterpart is easy to find.  It imports ``torch`` and numpy, and nothing
+of JAX or of ``devt_tpu``: host code it needs from there is copied.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Every Pallas kernel that a ported path runs is a hand-written Hopper
+kernel here (``ops/csrc``), with a plain PyTorch version of the same
+function beside it; a wrapper takes the plain version only for tensors
+that lie on the CPU.
+
+Ported so far (see ROADMAP.md for what is not):
+  - :mod:`devt_tpu_torch.config`   — own copy of the typed config
+  - :mod:`devt_tpu_torch.data`     — u8 wire dequantize, normalization constants
+  - :mod:`devt_tpu_torch.ops`      — fused ViT-block forward (CUDA), attention
+  - :mod:`devt_tpu_torch.models`   — ViViT and its transformer layers
+  - :mod:`devt_tpu_torch.serve`    — bucketed ``Predictor``
+  - :mod:`devt_tpu_torch.utils`    — JAX-variables ↔ ``state_dict`` bridge
+"""
+
+from devt_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

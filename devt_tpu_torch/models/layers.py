@@ -1,0 +1,206 @@
+"""Core transformer building blocks: port of ``devt_tpu/models/layers.py``.
+
+Batch-major layouts ``(B, S, D)`` throughout, as in the JAX package.
+Parameters stay f32; ``dtype`` is the compute type that activations and
+weights are cast to at each product, as flax's ``dtype=`` does.  Module
+and parameter names follow the flax tree (``attn_norm``, ``attn.to_qkv``,
+``attn.to_out``, ``ff_norm``, ``ff.fc1``, ``ff.fc2``, ``blocks.<i>`` for
+``block_<i>``, ``norm``), so ``utils/jax_bridge.py`` maps one onto the
+other by name.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from devt_tpu_torch.ops.attention import packed_mha
+from devt_tpu_torch.ops.flash_attention import fits_single_block
+from devt_tpu_torch.ops.fused_block import fused_vit_block
+
+# torch's LayerNorm eps, which the reference uses everywhere
+LN_EPS = 1e-5
+
+_LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to ±2
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal``: truncated normal of variance 1/fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / _LECUN_TRUNC
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initializers over every Linear and LayerNorm below
+    ``module``: lecun-normal kernels, zero biases, unit LN scales."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            lecun_normal_(m.weight, m.in_features, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=...)``: f32 statistics, output in ``dtype``."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(dtype)
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=...)``: input, kernel and bias cast to ``dtype``."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+class FeedForward(nn.Module):
+    """Linear→GELU (exact erf)→Dropout→Linear→Dropout."""
+
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, dim)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.gelu(dense(self.fc1, x, self.dtype))
+        x = self.drop(x)
+        return self.drop(dense(self.fc2, x, self.dtype))
+
+
+class ViTAttention(nn.Module):
+    """Multi-head attention, ViT flavour: one bias-free qkv projection, an
+    output projection unless ``heads == 1 and dim_head == dim``."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
+                 dropout: float = 0.0, attention_impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.attention_impl = attention_impl
+        self.dtype = dtype
+        self.project_out = not (heads == 1 and dim_head == dim)
+        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        if self.project_out:
+            self.to_out = nn.Linear(inner, dim)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor,
+                kv_len: int | None = None) -> torch.Tensor:
+        qkv = dense(self.to_qkv, x, self.dtype)
+        out = packed_mha(qkv, heads=self.heads, scale=self.dim_head ** -0.5,
+                         impl=self.attention_impl, kv_len=kv_len)
+        if self.project_out:
+            out = self.drop(dense(self.to_out, out, self.dtype))
+        return out
+
+
+class ViTBlock(nn.Module):
+    """One pre-norm layer: x += attn(norm(x)); x += ff(norm(x)).
+
+    Where eligible the whole block is one call of ``fused_vit_block``
+    (the CUDA kernel on the card, its plain version on the CPU), which
+    uses tanh GELU like the JAX fused kernel; otherwise the unfused
+    modules run, with exact-erf GELU.  The parameters are the same on
+    both paths."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
+                 dropout: float = 0.0, attention_impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.dropout = dropout
+        self.attention_impl = attention_impl
+        self.dtype = dtype
+        self.attn_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = ViTAttention(dim, heads, dim_head, dropout,
+                                 attention_impl, dtype)
+        self.ff_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.ff = FeedForward(dim, mlp_dim, dropout, dtype)
+
+    def fused_eligible(self, x: torch.Tensor) -> bool:
+        """``devt_tpu/models/layers.py:ViTBlock._fused_eligible`` without
+        its TPU and mesh gates."""
+        if self.attention_impl == "xla":
+            return False
+        if self.dropout > 0.0 and self.training:
+            return False      # in-kernel dropout comes with training
+        if self.heads * self.dim_head != self.dim:
+            return False
+        if self.heads == 1 and self.dim_head == self.dim:
+            return False      # the fused path always applies to_out
+        return fits_single_block(x.shape[1]) and x.shape[1] % 16 == 0
+
+    def block_params(self) -> dict[str, torch.Tensor]:
+        """The kernel's parameter dict: matrices (K, N) in the compute
+        dtype, LN parameters and biases (1, N) f32."""
+        def row(t):
+            return t.float().reshape(1, -1)
+
+        def mat(lin):
+            return lin.weight.t().to(self.dtype).contiguous()
+
+        return {
+            "g1": row(self.attn_norm.weight), "b1": row(self.attn_norm.bias),
+            "wqkv": mat(self.attn.to_qkv), "wo": mat(self.attn.to_out),
+            "bo": row(self.attn.to_out.bias),
+            "g2": row(self.ff_norm.weight), "b2": row(self.ff_norm.bias),
+            "w1": mat(self.ff.fc1), "bb1": row(self.ff.fc1.bias),
+            "w2": mat(self.ff.fc2), "bb2": row(self.ff.fc2.bias),
+        }
+
+    def forward(self, x: torch.Tensor,
+                kv_len: int | None = None) -> torch.Tensor:
+        if self.fused_eligible(x):
+            y, _, _ = fused_vit_block(
+                x.to(self.dtype).contiguous(), self.block_params(),
+                self.heads, self.dim_head ** -0.5,
+                kv_len if kv_len is not None else x.shape[1])
+            return y
+        h = layer_norm(self.attn_norm, x, self.dtype)
+        x = x + self.attn(h, kv_len)
+        h = layer_norm(self.ff_norm, x, self.dtype)
+        return x + self.ff(h)
+
+
+class ViTTransformer(nn.Module):
+    """Pre-norm residual transformer with a trailing LayerNorm: a dense
+    stack of ``depth`` ViTBlocks.  The MoE, pipeline, sequence-parallel
+    and remat variants of the JAX module are not ported yet."""
+
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
+                 mlp_dim: int, dropout: float = 0.0,
+                 attention_impl: str = "auto", remat: bool = False,
+                 moe_experts: int = 0, pipeline_stages: int = 0,
+                 sequence_parallel: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        todo = {"moe_experts > 0": moe_experts > 0,
+                "pipeline_stages > 1": pipeline_stages > 1,
+                "sequence_parallel": sequence_parallel,
+                "remat": remat}
+        for what, asked in todo.items():
+            if asked:
+                raise NotImplementedError(
+                    f"ViTTransformer({what}) is not ported yet — ROADMAP.md "
+                    f"queue 1")
+        self.dtype = dtype
+        self.blocks = nn.ModuleList(
+            ViTBlock(dim, heads, dim_head, mlp_dim, dropout, attention_impl,
+                     dtype) for _ in range(depth))
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor,
+                kv_len: int | None = None) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x, kv_len)
+        return layer_norm(self.norm, x, self.dtype)

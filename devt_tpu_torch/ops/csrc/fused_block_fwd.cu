@@ -1,0 +1,1106 @@
+// Fused pre-norm ViT block forward for Hopper (sm_90a).
+//
+// Computes what devt_tpu/ops/fused_block.py:_fwd_kernel computes with
+// dropout_rate == 0, for x (B, S, D) in bfloat16 or float:
+//
+//   a   = LN1(x)                                   (f32 statistics)
+//   qkv = a @ Wqkv                                 (no bias; columns (3, H, d))
+//   att = per head: softmax(q k^T * scale + mask) v, normalised after PV
+//   u   = x + (att @ Wo + bo)
+//   b   = LN2(u)
+//   y   = u + (gelu_tanh(b @ W1 + bb1) @ W2 + bb2)
+//   res = [lse (H), mu1, rstd1, mu2, rstd2, 0...]  per row, f32
+//
+// Every matrix operand is rounded to the type of x and every product
+// accumulates in f32, as preferred_element_type=f32 does in the JAX
+// kernel.  The mask is an additive -1e30 on key columns >= kv_len; pad
+// query rows are computed like any other row.
+//
+// Design.  The TPU kernel keeps G = 8 whole sequences in up to 100 MB of
+// VMEM per grid step.  A Hopper block has at most 227 KB of shared
+// memory, and one sequence's f32 qkv alone (208 x 576 x 4 = 479 KB) does
+// not fit, so the block is split into three launches that hand their
+// intermediates over through global memory (mostly L2):
+//
+//   1. LN1 + qkv:   per 128 rows: LN1 of the rows into shared memory,
+//                   then the qkv product 64 columns at a time with the
+//                   next Wqkv slice loading (cp.async) meanwhile; writes
+//                   qkv in x's type (the rounding the TPU kernel applies
+//                   before its attention products) and mu1, rstd1.
+//   2. attention:   per (64 queries, head, sequence), 16 queries a warp:
+//                   K and V in shared memory; a first pass over the keys
+//                   takes the exact row max, a second recomputes the
+//                   scores, exponentiates, sums l in f32 and multiplies
+//                   the bf16 probabilities into V — the same arithmetic
+//                   as the one-shot softmax of the TPU kernel.  Key blocks
+//                   wholly past kv_len are skipped: their probabilities
+//                   are exactly 0.  Writes att in x's type and the lse.
+//   3. out + FFN:   per 128 rows, 16 warps: att @ Wo + bo + x = u in
+//                   registers (and in f32 scratch for the last residual),
+//                   LN2 with the row sums shared across warps, then the
+//                   FFN over 64 hidden columns at a time.  Wo slices, then
+//                   W1/W2 slices, stream through a two-stage cp.async
+//                   ring; the hidden slice sits in shared memory and the
+//                   W2 product accumulates in registers.  Writes y, u,
+//                   mu2, rstd2.
+//
+// The bfloat16 products are warp-level mma.sync m16n8k16 tiles fed by
+// ldmatrix from shared memory (CUDA C++ in this file; no library GEMM).
+// The float route keeps plain FMA loops (exact f32, no TF32) and is not
+// on the serving path.
+//
+// Bound at the main-path shape (B=512, S=208, D=192, H=3, MLP 768):
+// 110-111 GFLOP per launch against about 127 MB of inputs and outputs,
+// so the card is compute-bound (about 0.11 ms at 989 TFLOP/s bf16).
+// mma.sync reaches a fraction of that peak, which only wgmma reaches;
+// the times are in PERF.md.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kLnEps = 1e-5f;
+constexpr float kNegInf = -1e30f;
+constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
+constexpr float kGeluK = 0.044715f;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+__host__ __device__ constexpr size_t align128(size_t n) {
+  return (n + 127) & ~static_cast<size_t>(127);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// reductions over the 4 lanes of a quad, which hold one row of an
+// mma accumulator tile
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float gelu_tanh(float z) {
+  return 0.5f * z * (1.0f + tanhf(kGeluC * (z + kGeluK * z * z * z)));
+}
+
+// Mean and 1/sqrt(var + eps) of one row, computed by one warp in two
+// passes (mean, then mean of squared deviations) as the reference does.
+// Lane l touches only the columns c == l (mod 32).
+template <typename Src>
+__device__ __forceinline__ void warp_row_stats(const Src* row, int n,
+                                               float& mu, float& rstd) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int c = lane; c < n; c += 32) s += to_f32(row[c]);
+  mu = warp_sum(s) / n;
+  float v = 0.f;
+  for (int c = lane; c < n; c += 32) {
+    const float dv = to_f32(row[c]) - mu;
+    v += dv * dv;
+  }
+  rstd = rsqrtf(warp_sum(v) / n + kLnEps);
+}
+
+// ===========================================================================
+// bfloat16 route: mma.sync m16n8k16, ldmatrix, cp.async
+// ===========================================================================
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared, asynchronous; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows x cols (cols a multiple of 8) from global (row stride ldg) into
+// shared (row stride lds); rows >= valid_rows become zero
+__device__ __forceinline__ void cp_tile(bf16* dst, int lds, const bf16* src,
+                                        size_t ldg, int rows, int cols,
+                                        int valid_rows) {
+  const int vecs = cols >> 3;
+  for (int i = threadIdx.x; i < rows * vecs; i += blockDim.x) {
+    const int r = i / vecs, c = (i - r * vecs) << 3;
+    const bool ok = r < valid_rows;
+    cp_async16(dst + r * lds + c, src + (ok ? r : 0) * ldg + c, ok);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A fragment of rows m0..m0+15, columns k..k+15 of a row-major tile
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* A,
+                                       int lda, int m0, int k) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, A + (m0 + (lane & 15)) * lda + k + ((lane >> 4) << 3));
+}
+
+// B fragments of two n8 blocks (n0..n0+15), rows k..k+15, from a tile
+// stored [k][n] (weights in the JAX layout): r[0..1] block n0, r[2..3]
+// block n0 + 8
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* B,
+                                          int ldb, int k, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(b, B + (k + (lane & 7) + (((lane >> 3) & 1) << 3)) * ldb + n0 +
+                   ((lane >> 4) << 3));
+}
+
+// the same from a tile stored [n][k] (keys: one row per key)
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* B,
+                                          int ldb, int k, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(b, B + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ldb + k +
+                 (((lane >> 3) & 1) << 3));
+}
+
+// acc (16*MI x 8*NI warp tile at rows m0, columns n0) += A[:, 0:K] * B,
+// A row-major bf16 in shared memory, B [k][n] bf16 in shared memory
+template <int MI, int NI>
+__device__ __forceinline__ void warp_mma_kn(float (&acc)[MI][NI][4],
+                                            const bf16* A, int lda, int m0,
+                                            const bf16* B, int ldb, int n0,
+                                            int K) {
+  static_assert(NI % 2 == 0, "B fragments come in pairs of n8 blocks");
+  for (int k = 0; k < K; k += 16) {
+    uint32_t a[MI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) load_a(a[i], A, lda, m0 + 16 * i, k);
+#pragma unroll
+    for (int j = 0; j < NI; j += 2) {
+      uint32_t b[4];
+      load_b_kn(b, B, ldb, k, n0 + 8 * j);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        mma_bf16(acc[i][j], a[i], b[0], b[1]);
+        mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Accumulator element e of tile (i, j): row m0 + 16i + lane/4 (+8 for
+// e >= 2), column n0 + 8j + 2*(lane%4) + (e & 1).
+
+// ---------------------------------------------------------------------------
+// 1. LN1 + qkv
+// ---------------------------------------------------------------------------
+
+constexpr int kQkvRows = 128, kQkvCols = 64, kQkvThreads = 256;
+
+__host__ __device__ constexpr size_t qkv_stage_bf16(int D) {
+  return align128(sizeof(bf16) * D * (kQkvCols + 8));
+}
+
+__host__ __device__ constexpr size_t qkv_smem_bf16(int D) {
+  return align128(sizeof(bf16) * kQkvRows * (D + 8)) + 2 * qkv_stage_bf16(D);
+}
+
+__global__ void __launch_bounds__(kQkvThreads)
+    ln_qkv_bf16(const bf16* __restrict__ x, const float* __restrict__ g1,
+                const float* __restrict__ b1, const bf16* __restrict__ wqkv,
+                bf16* __restrict__ qkv, float* __restrict__ res, int rows,
+                int D, int N, int H, int lanes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lda = D + 8, ldw = kQkvCols + 8;
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  unsigned char* ring = smem + align128(sizeof(bf16) * kQkvRows * lda);
+  const int row0 = blockIdx.x * kQkvRows;
+  const int valid = min(kQkvRows, rows - row0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = N / kQkvCols;
+
+  cp_tile(As, lda, x + static_cast<size_t>(row0) * D, D, kQkvRows, D, valid);
+  cp_tile(reinterpret_cast<bf16*>(ring), ldw, wqkv, N, D, kQkvCols, D);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // LN1 in place, a warp per row
+  for (int r = warp; r < valid; r += kQkvThreads / 32) {
+    bf16* ar = As + r * lda;
+    float mu, rstd;
+    warp_row_stats(ar, D, mu, rstd);
+    for (int c = lane; c < D; c += 32)
+      ar[c] = __float2bfloat16((to_f32(ar[c]) - mu) * rstd * g1[c] + b1[c]);
+    if (lane == 0) {
+      const size_t g = static_cast<size_t>(row0 + r) * lanes;
+      res[g + H] = mu;
+      res[g + H + 1] = rstd;
+    }
+  }
+
+  // 64 qkv columns at a time, the next weight slice loading meanwhile;
+  // 8 warps as 4 x 2, each a 32 x 32 tile
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      cp_tile(reinterpret_cast<bf16*>(ring + ((c + 1) & 1) *
+                                                 qkv_stage_bf16(D)),
+              ldw, wqkv + (c + 1) * kQkvCols, N, D, kQkvCols, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // slice c (and, at c = 0, LN1) visible
+    float acc[2][4][4] = {};
+    warp_mma_kn<2, 4>(acc, As, lda, wm,
+                      reinterpret_cast<bf16*>(ring + (c & 1) *
+                                                         qkv_stage_bf16(D)),
+                      ldw, wn, D);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + wm + 16 * i + gq + 8 * h;
+          const int col = c * kQkvCols + wn + 8 * j + 2 * tq;
+          if (r < rows)
+            *reinterpret_cast<uint32_t*>(qkv + static_cast<size_t>(r) * N +
+                                         col) =
+                pack_bf16(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+    __syncthreads();  // slice c free for the load two steps on
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. attention
+// ---------------------------------------------------------------------------
+
+constexpr int kAttnQ = 64, kAttnKeys = 32, kAttnThreads = 128;
+
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+__host__ __device__ constexpr size_t attn_smem_bf16(int hd, int kv_len) {
+  return align128(sizeof(bf16) * kAttnQ * (hd + 8)) +
+         2 * align128(sizeof(bf16) * round_up(kv_len, kAttnKeys) * (hd + 8));
+}
+
+// scores of the warp's 16 queries against keys kc..kc+31 (f32, unscaled)
+template <int HD>
+__device__ __forceinline__ void score_block(float (&s)[4][4],
+                                            const uint32_t (&qa)[HD / 16][4],
+                                            const bf16* Ks, int kc) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      uint32_t b[4];
+      load_b_nk(b, Ks, HD + 8, 16 * kk, kc + 8 * j);
+      mma_bf16(s[j], qa[kk], b[0], b[1]);
+      mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
+    }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kAttnThreads)
+    attention_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ att,
+                   float* __restrict__ res, int S, int H, int kv_len,
+                   int lanes, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int ld = HD + 8;
+  const int kp = round_up(kv_len, kAttnKeys);  // keys staged and visited
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = reinterpret_cast<bf16*>(
+      smem + align128(sizeof(bf16) * kAttnQ * ld));
+  bf16* Vs = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(Ks) +
+                                     align128(sizeof(bf16) * kp * ld));
+  const int q0 = blockIdx.x * kAttnQ, h = blockIdx.y, b = blockIdx.z;
+  const int N3 = 3 * H * HD;
+  const bf16* base = qkv + static_cast<size_t>(b) * S * N3;
+
+  // q of head h at column h*HD, k at (H+h)*HD, v at (2H+h)*HD; rows past
+  // S are zero (V's must be: 0 * garbage could be NaN)
+  cp_tile(Qs, ld, base + static_cast<size_t>(q0) * N3 + h * HD, N3, kAttnQ,
+          HD, S - q0);
+  cp_tile(Ks, ld, base + (H + h) * HD, N3, kp, HD, S);
+  cp_tile(Vs, ld, base + (2 * H + h) * HD, N3, kp, HD, S);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16;
+  if (q0 + r0 >= S) return;  // no barrier follows
+  const int gq = lane >> 2, tq = lane & 3;
+
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) load_a(qa[kk], Qs, ld, r0, 16 * kk);
+
+  // pass 1: exact row max of the masked, scaled scores
+  float m[2] = {-3.0e38f, -3.0e38f};
+  for (int kc = 0; kc < kp; kc += kAttnKeys) {
+    float s[4][4];
+    score_block<HD>(s, qa, Ks, kc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kc + 8 * j + 2 * tq + (e & 1);
+        m[e >> 1] = fmaxf(m[e >> 1],
+                          s[j][e] * scale + (key < kv_len ? 0.f : kNegInf));
+      }
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+
+  // pass 2: p = exp(s - m), l = sum p in f32, o += bf16(p) @ v
+  float l[2] = {0.f, 0.f};
+  float o[HD / 8][4] = {};
+  for (int kc = 0; kc < kp; kc += kAttnKeys) {
+    float s[4][4];
+    score_block<HD>(s, qa, Ks, kc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kc + 8 * j + 2 * tq + (e & 1);
+        const float p = expf(s[j][e] * scale +
+                             (key < kv_len ? 0.f : kNegInf) - m[e >> 1]);
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+    // the accumulator layout of two n8 score tiles is the A layout of
+    // one k16 probability fragment
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int jn = 0; jn < HD / 8; jn += 2) {
+        uint32_t bv[4];
+        load_b_kn(bv, Vs, ld, kc + 16 * kk, 8 * jn);
+        mma_bf16(o[jn], pa, bv[0], bv[1]);
+        mma_bf16(o[jn + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+
+  const int HDt = H * HD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int q = q0 + r0 + gq + 8 * hh;
+    if (q >= S) continue;
+    const size_t row = static_cast<size_t>(b) * S + q;
+#pragma unroll
+    for (int jn = 0; jn < HD / 8; ++jn)
+      *reinterpret_cast<uint32_t*>(att + row * HDt + h * HD + 8 * jn +
+                                   2 * tq) =
+          pack_bf16(o[jn][2 * hh] / l[hh], o[jn][2 * hh + 1] / l[hh]);
+    if (tq == 0) res[row * lanes + h] = m[hh] + logf(l[hh]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. out-projection, residual, LN2, FFN, residual
+// ---------------------------------------------------------------------------
+
+constexpr int kFfnRows = 128, kFfnHidden = 64, kFfnSlice = 64;
+constexpr int kFfnThreads = 512;
+
+struct FfnSmem {
+  size_t off_h, off_red, off_ring, stage, bytes;
+};
+
+template <int D>
+__host__ __device__ constexpr FfnSmem ffn_smem_bf16() {
+  FfnSmem s{};
+  s.off_h = align128(sizeof(bf16) * kFfnRows * (D + 8));
+  s.off_red = s.off_h + align128(sizeof(bf16) * kFfnRows * (kFfnHidden + 8));
+  s.off_ring = s.off_red + align128(sizeof(float) * 2 * kFfnRows * 4);
+  // a stage holds W1[:, chunk] (D x 64) then W2[chunk, :] (64 x D); a
+  // slice of 64 Wo rows (64 x D) fits in it as well
+  s.stage = align128(sizeof(bf16) * D * (kFfnHidden + 8)) +
+            align128(sizeof(bf16) * kFfnHidden * (D + 8));
+  s.bytes = s.off_ring + 2 * s.stage;
+  return s;
+}
+
+template <int D>
+__device__ __forceinline__ bf16* ring_stage(unsigned char* ring, int s) {
+  return reinterpret_cast<bf16*>(ring + (s & 1) * ffn_smem_bf16<D>().stage);
+}
+
+// W2[chunk, :] sits after W1[:, chunk] in a stage
+template <int D>
+__device__ __forceinline__ bf16* ring_w2(unsigned char* ring, int s) {
+  return reinterpret_cast<bf16*>(
+      reinterpret_cast<unsigned char*>(ring_stage<D>(ring, s)) +
+      align128(sizeof(bf16) * D * (kFfnHidden + 8)));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFfnThreads, 1)
+    out_ffn_bf16(const bf16* __restrict__ x, const bf16* __restrict__ att,
+                 const bf16* __restrict__ wo, const float* __restrict__ bo,
+                 const float* __restrict__ g2, const float* __restrict__ b2,
+                 const bf16* __restrict__ w1, const float* __restrict__ bb1,
+                 const bf16* __restrict__ w2, const float* __restrict__ bb2,
+                 bf16* __restrict__ y, bf16* __restrict__ u,
+                 float* __restrict__ u32, float* __restrict__ res, int rows,
+                 int F, int H, int lanes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr FfnSmem L = ffn_smem_bf16<D>();
+  constexpr int lda = D + 8, ldh = kFfnHidden + 8;
+  constexpr int ldw1 = kFfnHidden + 8, ldw2 = D + 8;
+  constexpr int NI = D / 32;  // warp tile 32 x D/4 → NI n8 blocks
+  constexpr int slices = D / kFfnSlice;
+  bf16* As = reinterpret_cast<bf16*>(smem);            // att, then LN2(u)
+  bf16* Hs = reinterpret_cast<bf16*>(smem + L.off_h);  // GELU slice
+  float* red = reinterpret_cast<float*>(smem + L.off_red);  // row partials
+  unsigned char* ring = smem + L.off_ring;             // weight stages
+  const int row0 = blockIdx.x * kFfnRows;
+  const int valid = min(kFfnRows, rows - row0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3, wq = warp & 3;
+  const int wm = (warp >> 2) * 32;  // 16 warps as 4 x 4
+  const int wn = wq * (D / 4), wz = wq * 16;
+  const int chunks = F / kFfnHidden;
+
+  // Weight steps run through a two-stage ring: the Wo slices, then the
+  // FFN chunks; each step loads the next while it computes.
+  auto load_wo = [&](int s) {  // Wo rows 64s..64s+63
+    cp_tile(ring_stage<D>(ring, s), ldw2,
+            wo + static_cast<size_t>(s) * kFfnSlice * D, D, kFfnSlice, D,
+            kFfnSlice);
+  };
+  auto load_ffn = [&](int step, int c) {
+    cp_tile(ring_stage<D>(ring, step), ldw1, w1 + c * kFfnHidden, F, D,
+            kFfnHidden, D);
+    cp_tile(ring_w2<D>(ring, step), ldw2,
+            w2 + static_cast<size_t>(c) * kFfnHidden * D, D, kFfnHidden, D,
+            kFfnHidden);
+  };
+
+  cp_tile(As, lda, att + static_cast<size_t>(row0) * D, D, kFfnRows, D,
+          valid);
+  load_wo(0);
+  cp_async_commit();
+
+  float acc[2][NI][4] = {};
+  for (int s = 0; s < slices; ++s) {
+    if (s + 1 < slices)
+      load_wo(s + 1);
+    else
+      load_ffn(s + 1, 0);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // slice s (and the att tile) visible
+    warp_mma_kn<2, NI>(acc, As + kFfnSlice * s, lda, wm,
+                       ring_stage<D>(ring, s), ldw2, wn, kFfnSlice);
+    __syncthreads();  // slice s free; As no longer read
+  }
+
+  // u = x + (att @ Wo + bo) into acc, to u (x's type) and u32 (f32, read
+  // back for y); LN2 statistics across the 4 warps sharing each row
+  float part[2][2] = {};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm + 16 * i + gq + 8 * h, c = wn + 8 * j + 2 * tq;
+        float u0 = 0.f, u1 = 0.f;
+        if (r < valid) {
+          const size_t g = static_cast<size_t>(row0 + r) * D + c;
+          const __nv_bfloat162 xv =
+              *reinterpret_cast<const __nv_bfloat162*>(x + g);
+          u0 = __low2float(xv) + (acc[i][j][2 * h] + bo[c]);
+          u1 = __high2float(xv) + (acc[i][j][2 * h + 1] + bo[c + 1]);
+          *reinterpret_cast<uint32_t*>(u + g) = pack_bf16(u0, u1);
+          *reinterpret_cast<float2*>(u32 + g) = make_float2(u0, u1);
+        }
+        acc[i][j][2 * h] = u0;
+        acc[i][j][2 * h + 1] = u1;
+        part[i][h] += u0 + u1;
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float p = quad_sum(part[i][h]);
+      if (tq == 0) red[(wm + 16 * i + gq + 8 * h) * 4 + wq] = p;
+    }
+  __syncthreads();
+  float mu[2][2], rstd[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* rr = red + (wm + 16 * i + gq + 8 * h) * 4;
+      mu[i][h] = (rr[0] + rr[1] + rr[2] + rr[3]) / D;
+      float v = 0.f;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const float d0 = acc[i][j][2 * h] - mu[i][h];
+        const float d1 = acc[i][j][2 * h + 1] - mu[i][h];
+        v += d0 * d0 + d1 * d1;
+      }
+      v = quad_sum(v);
+      if (tq == 0) red[(kFfnRows + wm + 16 * i + gq + 8 * h) * 4 + wq] = v;
+    }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm + 16 * i + gq + 8 * h;
+      const float* rr = red + (kFfnRows + r) * 4;
+      rstd[i][h] = rsqrtf((rr[0] + rr[1] + rr[2] + rr[3]) / D + kLnEps);
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int c = wn + 8 * j + 2 * tq;
+        *reinterpret_cast<uint32_t*>(As + r * lda + c) = pack_bf16(
+            (acc[i][j][2 * h] - mu[i][h]) * rstd[i][h] * g2[c] + b2[c],
+            (acc[i][j][2 * h + 1] - mu[i][h]) * rstd[i][h] * g2[c + 1] +
+                b2[c + 1]);
+      }
+      if (wq == 0 && tq == 0 && r < valid) {
+        const size_t g = static_cast<size_t>(row0 + r) * lanes;
+        res[g + H + 2] = mu[i][h];
+        res[g + H + 3] = rstd[i][h];
+        for (int l = H + 4; l < lanes; ++l) res[g + l] = 0.f;
+      }
+    }
+
+  float yacc[2][NI][4] = {};
+  for (int c = 0; c < chunks; ++c) {
+    const int step = slices + c;
+    if (c + 1 < chunks) {
+      load_ffn(step + 1, c + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c and LN2(u) visible
+    float z[2][2][4] = {};
+    warp_mma_kn<2, 2>(z, As, lda, wm, ring_stage<D>(ring, step), ldw1, wz,
+                      D);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm + 16 * i + gq + 8 * h, col = wz + 8 * j + 2 * tq;
+          const int hc = c * kFfnHidden + col;
+          *reinterpret_cast<uint32_t*>(Hs + r * ldh + col) =
+              pack_bf16(gelu_tanh(z[i][j][2 * h] + bb1[hc]),
+                        gelu_tanh(z[i][j][2 * h + 1] + bb1[hc + 1]));
+        }
+    __syncthreads();  // GELU slice complete
+    warp_mma_kn<2, NI>(yacc, Hs, ldh, wm, ring_w2<D>(ring, step), ldw2, wn,
+                       kFfnHidden);
+    __syncthreads();  // chunk c and Hs free for reuse
+  }
+
+  // y = u + (h @ W2 + bb2); each thread reads back the u32 it wrote
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm + 16 * i + gq + 8 * h, c = wn + 8 * j + 2 * tq;
+        if (r < valid) {
+          const size_t g = static_cast<size_t>(row0 + r) * D + c;
+          const float2 uv = *reinterpret_cast<const float2*>(u32 + g);
+          *reinterpret_cast<uint32_t*>(y + g) =
+              pack_bf16(uv.x + (yacc[i][j][2 * h] + bb2[c]),
+                        uv.y + (yacc[i][j][2 * h + 1] + bb2[c + 1]));
+        }
+      }
+}
+
+// ===========================================================================
+// float route: the same three stages with exact f32 FMA products
+// ===========================================================================
+
+constexpr int kF32Rows = 32, kF32Threads = 256;
+
+__host__ __device__ constexpr int pad_f32(int n) { return n + 4; }
+
+// C (M x N, ldc) = [C +] A (M x K, lda) * op(B): op(B) is B (K x N, ldb)
+// or, with kBT, B^T with B stored N x K.  M and N multiples of 4; each
+// thread owns 4x4 outputs.  No barrier inside.
+template <bool kBT>
+__device__ void block_gemm_f32(const float* A, int lda, const float* B,
+                               int ldb, float* C, int ldc, int M, int N,
+                               int K, bool acc) {
+  const int cols = N >> 2, tiles = (M >> 2) * cols;
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
+    const int i0 = (t / cols) << 2, j0 = (t % cols) << 2;
+    float c[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        c[r][s] = acc ? C[(i0 + r) * ldc + j0 + s] : 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = A[(i0 + r) * lda + k];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        b[s] = kBT ? B[(j0 + s) * ldb + k] : B[k * ldb + j0 + s];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) c[r][s] = fmaf(a[r], b[s], c[r][s]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) C[(i0 + r) * ldc + j0 + s] = c[r][s];
+  }
+}
+
+// W[k0:k0+kr, n0:n0+nc] (row-major, ldw) into a shared tile (ld)
+__device__ __forceinline__ void load_tile_f32(float* dst, int ld,
+                                              const float* W, int ldw,
+                                              int k0, int n0, int kr,
+                                              int nc) {
+  for (int i = threadIdx.x; i < kr * nc; i += blockDim.x) {
+    const int k = i / nc, j = i - k * nc;
+    dst[k * ld + j] = W[static_cast<size_t>(k0 + k) * ldw + n0 + j];
+  }
+}
+
+// Largest of 64, 32, 16 that is at most cap and divides a and b.
+int pick_tile(int cap, int a, int b) {
+  for (int t = 64; t >= 16; t >>= 1)
+    if (t <= cap && a % t == 0 && b % t == 0) return t;
+  return 0;
+}
+
+__host__ __device__ constexpr size_t f32_qkv_smem(int D, int NT) {
+  return align128(sizeof(float) * kF32Rows * pad_f32(D)) +
+         align128(sizeof(float) * D * pad_f32(NT)) +
+         align128(sizeof(float) * kF32Rows * pad_f32(NT));
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+    ln_qkv_f32(const float* __restrict__ x, const float* __restrict__ g1,
+               const float* __restrict__ b1, const float* __restrict__ wqkv,
+               float* __restrict__ qkv, float* __restrict__ res, int rows,
+               int D, int N, int H, int lanes, int NT) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lda = pad_f32(D), ldb = pad_f32(NT), ldc = pad_f32(NT);
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + align128(sizeof(float) * kF32Rows * lda) / sizeof(float);
+  float* Cs = Bs + align128(sizeof(float) * D * ldb) / sizeof(float);
+  const int row0 = blockIdx.x * kF32Rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int r = warp; r < kF32Rows; r += kF32Threads / 32) {
+    const int gr = row0 + r;
+    float* ar = As + r * lda;
+    if (gr < rows) {
+      const float* xr = x + static_cast<size_t>(gr) * D;
+      float mu, rstd;
+      warp_row_stats(xr, D, mu, rstd);
+      for (int c = lane; c < D; c += 32)
+        ar[c] = (xr[c] - mu) * rstd * g1[c] + b1[c];
+      if (lane == 0) {
+        res[static_cast<size_t>(gr) * lanes + H] = mu;
+        res[static_cast<size_t>(gr) * lanes + H + 1] = rstd;
+      }
+    } else {
+      for (int c = lane; c < D; c += 32) ar[c] = 0.f;
+    }
+  }
+  for (int n0 = 0; n0 < N; n0 += NT) {
+    load_tile_f32(Bs, ldb, wqkv, N, 0, n0, D, NT);
+    __syncthreads();
+    block_gemm_f32<false>(As, lda, Bs, ldb, Cs, ldc, kF32Rows, NT, D, false);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kF32Rows * NT; i += blockDim.x) {
+      const int r = i / NT, j = i - r * NT, gr = row0 + r;
+      if (gr < rows) qkv[static_cast<size_t>(gr) * N + n0 + j] = Cs[r * ldc + j];
+    }
+  }
+}
+
+__host__ __device__ constexpr size_t f32_attn_smem(int Sp, int d) {
+  // Q, K, V tiles, the score tile (probabilities in place), O, m, l
+  return align128(sizeof(float) * kF32Rows * pad_f32(d)) +
+         2 * align128(sizeof(float) * Sp * pad_f32(d)) +
+         align128(sizeof(float) * kF32Rows * pad_f32(Sp)) +
+         align128(sizeof(float) * kF32Rows * pad_f32(d)) +
+         2 * align128(sizeof(float) * kF32Rows);
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+    attention_f32(const float* __restrict__ qkv, float* __restrict__ att,
+                  float* __restrict__ res, int S, int Sp, int H, int d,
+                  int kv_len, int lanes, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ldq = pad_f32(d), lds = pad_f32(Sp);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + align128(sizeof(float) * kF32Rows * ldq) / sizeof(float);
+  float* Vs = Ks + align128(sizeof(float) * Sp * ldq) / sizeof(float);
+  float* Sc = Vs + align128(sizeof(float) * Sp * ldq) / sizeof(float);
+  float* Os = Sc + align128(sizeof(float) * kF32Rows * lds) / sizeof(float);
+  float* row_m = Os + align128(sizeof(float) * kF32Rows * ldq) / sizeof(float);
+  float* row_l = row_m + align128(sizeof(float) * kF32Rows) / sizeof(float);
+  const int q0 = blockIdx.x * kF32Rows, h = blockIdx.y, b = blockIdx.z;
+  const int N3 = 3 * H * d, HD = H * d;
+  const float* base = qkv + static_cast<size_t>(b) * S * N3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int i = threadIdx.x; i < kF32Rows * d; i += blockDim.x) {
+    const int r = i / d, j = i - r * d, q = q0 + r;
+    Qs[r * ldq + j] = q < S ? base[static_cast<size_t>(q) * N3 + h * d + j]
+                            : 0.f;
+  }
+  for (int i = threadIdx.x; i < Sp * d; i += blockDim.x) {
+    const int r = i / d, j = i - r * d;
+    const bool ok = r < S;
+    const size_t row = static_cast<size_t>(r) * N3;
+    Ks[r * ldq + j] = ok ? base[row + (H + h) * d + j] : 0.f;
+    Vs[r * ldq + j] = ok ? base[row + (2 * H + h) * d + j] : 0.f;
+  }
+  __syncthreads();
+  block_gemm_f32<true>(Qs, ldq, Ks, ldq, Sc, lds, kF32Rows, Sp, d, false);
+  __syncthreads();
+  for (int r = warp; r < kF32Rows; r += kF32Threads / 32) {
+    float* sr = Sc + r * lds;
+    float m = -3.0e38f;
+    for (int c = lane; c < S; c += 32) {
+      const float s = sr[c] * scale + (c < kv_len ? 0.f : kNegInf);
+      sr[c] = s;
+      m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+    for (int c = lane; c < Sp; c += 32) {
+      const float p = c < S ? expf(sr[c] - m) : 0.f;
+      l += p;
+      sr[c] = p;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      row_m[r] = m;
+      row_l[r] = l;
+    }
+  }
+  __syncthreads();
+  block_gemm_f32<false>(Sc, lds, Vs, ldq, Os, ldq, kF32Rows, d, Sp, false);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kF32Rows * d; i += blockDim.x) {
+    const int r = i / d, j = i - r * d, q = q0 + r;
+    if (q < S)
+      att[(static_cast<size_t>(b) * S + q) * HD + h * d + j] =
+          Os[r * ldq + j] / row_l[r];
+  }
+  for (int r = threadIdx.x; r < kF32Rows; r += blockDim.x) {
+    const int q = q0 + r;
+    if (q < S)
+      res[(static_cast<size_t>(b) * S + q) * lanes + h] =
+          row_m[r] + logf(row_l[r]);
+  }
+}
+
+__host__ __device__ constexpr size_t f32_ffn_smem(int D, int F, int NT,
+                                                  int KT) {
+  const int ldb = pad_f32(D > NT ? D : NT);
+  return 2 * align128(sizeof(float) * kF32Rows * pad_f32(D)) +
+         align128(sizeof(float) * kF32Rows * pad_f32(F)) +
+         align128(sizeof(float) * kF32Rows * pad_f32(NT)) +
+         align128(sizeof(float) * KT * ldb);
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+    out_ffn_f32(const float* __restrict__ x, const float* __restrict__ att,
+                const float* __restrict__ wo, const float* __restrict__ bo,
+                const float* __restrict__ g2, const float* __restrict__ b2,
+                const float* __restrict__ w1, const float* __restrict__ bb1,
+                const float* __restrict__ w2, const float* __restrict__ bb2,
+                float* __restrict__ y, float* __restrict__ u,
+                float* __restrict__ res, int rows, int D, int F, int H,
+                int lanes, int NT, int KT) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lda = pad_f32(D), ldh = pad_f32(F), ldc = pad_f32(NT);
+  const int ldb = pad_f32(D > NT ? D : NT);
+  float* As = reinterpret_cast<float*>(smem);  // att, then LN2(u)
+  float* Us = As + align128(sizeof(float) * kF32Rows * lda) / sizeof(float);
+  float* Hs = Us + align128(sizeof(float) * kF32Rows * lda) / sizeof(float);
+  float* Cs = Hs + align128(sizeof(float) * kF32Rows * ldh) / sizeof(float);
+  float* Bs = Cs + align128(sizeof(float) * kF32Rows * ldc) / sizeof(float);
+  const int row0 = blockIdx.x * kF32Rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int i = threadIdx.x; i < kF32Rows * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D, gr = row0 + r;
+    As[r * lda + c] = gr < rows ? att[static_cast<size_t>(gr) * D + c] : 0.f;
+  }
+  for (int k0 = 0; k0 < D; k0 += KT) {  // Us = att @ Wo
+    load_tile_f32(Bs, ldb, wo, D, k0, 0, KT, D);
+    __syncthreads();
+    block_gemm_f32<false>(As + k0, lda, Bs, ldb, Us, lda, kF32Rows, D, KT,
+                          k0 > 0);
+    __syncthreads();
+  }
+  // u = x + (Us + bo); LN2(u) → As; Us holds u
+  for (int r = warp; r < kF32Rows; r += kF32Threads / 32) {
+    const int gr = row0 + r;
+    float* ur = Us + r * lda;
+    float* ar = As + r * lda;
+    if (gr < rows) {
+      const size_t g = static_cast<size_t>(gr);
+      for (int c = lane; c < D; c += 32) {
+        ur[c] = x[g * D + c] + (ur[c] + bo[c]);
+        u[g * D + c] = ur[c];
+      }
+      float mu, rstd;
+      warp_row_stats(ur, D, mu, rstd);
+      for (int c = lane; c < D; c += 32)
+        ar[c] = (ur[c] - mu) * rstd * g2[c] + b2[c];
+      if (lane == 0) {
+        res[g * lanes + H + 2] = mu;
+        res[g * lanes + H + 3] = rstd;
+        for (int l = H + 4; l < lanes; ++l) res[g * lanes + l] = 0.f;
+      }
+    } else {
+      for (int c = lane; c < D; c += 32) ar[c] = ur[c] = 0.f;
+    }
+  }
+  for (int n0 = 0; n0 < F; n0 += NT) {  // Hs = gelu(As @ W1 + bb1)
+    for (int k0 = 0; k0 < D; k0 += KT) {
+      load_tile_f32(Bs, ldb, w1, F, k0, n0, KT, NT);
+      __syncthreads();
+      block_gemm_f32<false>(As + k0, lda, Bs, ldb, Cs, ldc, kF32Rows, NT, KT,
+                            k0 > 0);
+      __syncthreads();
+    }
+    for (int i = threadIdx.x; i < kF32Rows * NT; i += blockDim.x) {
+      const int r = i / NT, j = i - r * NT;
+      Hs[r * ldh + n0 + j] = gelu_tanh(Cs[r * ldc + j] + bb1[n0 + j]);
+    }
+  }
+  // Cs-free accumulation of Hs @ W2 into As (LN2 output no longer needed)
+  for (int k0 = 0; k0 < F; k0 += KT) {
+    load_tile_f32(Bs, ldb, w2, D, k0, 0, KT, D);
+    __syncthreads();
+    block_gemm_f32<false>(Hs + k0, ldh, Bs, ldb, As, lda, kF32Rows, D, KT,
+                          k0 > 0);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < kF32Rows * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D, gr = row0 + r;
+    if (gr < rows)
+      y[static_cast<size_t>(gr) * D + c] =
+          Us[r * lda + c] + (As[r * lda + c] + bb2[c]);
+  }
+}
+
+// ===========================================================================
+// launches
+// ===========================================================================
+
+struct Args {
+  const void *x, *g1, *b1, *wqkv, *wo, *bo, *g2, *b2, *w1, *bb1, *w2, *bb2;
+  void *y, *u, *res, *qkv, *att, *u32;
+  int B, S, D, H, F, kv_len, lanes;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+#define DEVT_TRY(expr)                       \
+  do {                                       \
+    const cudaError_t e_ = (expr);           \
+    if (e_ != cudaSuccess) return e_;        \
+  } while (0)
+
+template <int D, int HD>
+cudaError_t launch_bf16_shape(const Args& a) {
+  const int rows = a.B * a.S, N3 = 3 * D;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+
+  const size_t s1 = qkv_smem_bf16(D);
+  DEVT_TRY(set_smem(ln_qkv_bf16, s1));
+  ln_qkv_bf16<<<(rows + kQkvRows - 1) / kQkvRows, kQkvThreads, s1,
+                a.stream>>>(
+      h(a.x), f(a.g1), f(a.b1), h(a.wqkv), static_cast<bf16*>(a.qkv),
+      static_cast<float*>(a.res), rows, D, N3, a.H, a.lanes);
+  DEVT_TRY(cudaGetLastError());
+
+  const size_t s2 = attn_smem_bf16(HD, a.kv_len);
+  DEVT_TRY(set_smem(attention_bf16<HD>, s2));
+  attention_bf16<HD><<<dim3((a.S + kAttnQ - 1) / kAttnQ, a.H, a.B),
+                       kAttnThreads, s2, a.stream>>>(
+      h(a.qkv), static_cast<bf16*>(a.att), static_cast<float*>(a.res), a.S,
+      a.H, a.kv_len, a.lanes, a.scale);
+  DEVT_TRY(cudaGetLastError());
+
+  constexpr size_t s3 = ffn_smem_bf16<D>().bytes;
+  DEVT_TRY(set_smem(out_ffn_bf16<D>, s3));
+  out_ffn_bf16<D><<<(rows + kFfnRows - 1) / kFfnRows, kFfnThreads, s3,
+                    a.stream>>>(
+      h(a.x), h(a.att), h(a.wo), f(a.bo), f(a.g2), f(a.b2), h(a.w1),
+      f(a.bb1), h(a.w2), f(a.bb2), static_cast<bf16*>(a.y),
+      static_cast<bf16*>(a.u), static_cast<float*>(a.u32),
+      static_cast<float*>(a.res), rows, a.F, a.H, a.lanes);
+  return cudaGetLastError();
+}
+
+// the bfloat16 kernels are compiled for these widths (dim, head dim)
+cudaError_t launch_bf16(const Args& a) {
+  const int hd = a.D / a.H;
+  if (a.F % kFfnHidden) return cudaErrorInvalidValue;
+  if (a.D == 192 && hd == 64) return launch_bf16_shape<192, 64>(a);
+  if (a.D == 64 && hd == 32) return launch_bf16_shape<64, 32>(a);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_f32(const Args& a) {
+  const int d = a.D / a.H, rows = a.B * a.S, N3 = 3 * a.D;
+  const int Sp = round_up(a.S, 16);
+  const int nt_qkv = pick_tile(64, N3, N3), nt_ffn = pick_tile(64, a.F, a.F);
+  const int kt = pick_tile(32, a.D, a.F);
+  if (!nt_qkv || !nt_ffn || !kt) return cudaErrorInvalidValue;
+  const int row_blocks = (rows + kF32Rows - 1) / kF32Rows;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  float* qkv = static_cast<float*>(a.qkv);
+  float* att = static_cast<float*>(a.att);
+  float* res = static_cast<float*>(a.res);
+
+  const size_t s1 = f32_qkv_smem(a.D, nt_qkv);
+  DEVT_TRY(set_smem(ln_qkv_f32, s1));
+  ln_qkv_f32<<<row_blocks, kF32Threads, s1, a.stream>>>(
+      f(a.x), f(a.g1), f(a.b1), f(a.wqkv), qkv, res, rows, a.D, N3, a.H,
+      a.lanes, nt_qkv);
+  DEVT_TRY(cudaGetLastError());
+
+  const size_t s2 = f32_attn_smem(Sp, d);
+  DEVT_TRY(set_smem(attention_f32, s2));
+  attention_f32<<<dim3((a.S + kF32Rows - 1) / kF32Rows, a.H, a.B),
+                  kF32Threads, s2, a.stream>>>(qkv, att, res, a.S, Sp, a.H,
+                                               d, a.kv_len, a.lanes, a.scale);
+  DEVT_TRY(cudaGetLastError());
+
+  const size_t s3 = f32_ffn_smem(a.D, a.F, nt_ffn, kt);
+  DEVT_TRY(set_smem(out_ffn_f32, s3));
+  out_ffn_f32<<<row_blocks, kF32Threads, s3, a.stream>>>(
+      f(a.x), att, f(a.wo), f(a.bo), f(a.g2), f(a.b2), f(a.w1), f(a.bb1),
+      f(a.w2), f(a.bb2), static_cast<float*>(a.y), static_cast<float*>(a.u),
+      res, rows, a.D, a.F, a.H, a.lanes, nt_ffn, kt);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Weight matrices are in x's type and
+// in the (K, N) layout of the JAX kernel; LN parameters and biases are
+// f32.  qkv (B, S, 3D) and att (B, S, D) are scratch in x's type; u32
+// (B, S, D) is f32 scratch for the bfloat16 route (u before rounding),
+// unused by the float route.
+// Returns the CUDA error of the launches (0 on success); the launches are
+// asynchronous on `stream`.
+extern "C" int devt_fused_block_fwd(
+    int dtype, const void* x, const void* g1, const void* b1,
+    const void* wqkv, const void* wo, const void* bo, const void* g2,
+    const void* b2, const void* w1, const void* bb1, const void* w2,
+    const void* bb2, void* y, void* u, void* res, void* qkv, void* att,
+    void* u32, int B, int S, int D, int H, int F, int kv_len, int lanes,
+    float scale, void* stream) {
+  const Args a{x,   g1,  b1,  wqkv, wo,  bo,  g2, b2, w1, bb1, w2,
+               bb2, y,   u,   res,  qkv, att, u32, B, S, D,  H,  F,
+               kv_len, lanes, scale, static_cast<cudaStream_t>(stream)};
+  if (D % H || (D / H) % 16 || D % 16 || F % 16 || kv_len < 1 ||
+      kv_len > S || lanes < H + 4)
+    return cudaErrorInvalidValue;
+  if (dtype == 0) return launch_f32(a);
+  if (dtype == 1) return launch_bf16(a);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" const char* devt_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,128 @@
+"""Batch inference / serving: port of ``devt_tpu/serve.py:Predictor``.
+
+  * requests are padded up to the nearest bucket, so every forward runs
+    at one of a few batch shapes;
+  * ``vid`` (or ``vid_tokens``) may arrive as raw uint8 pixels and is
+    normalized on the device (``data/device_norm.py``);
+  * outputs are sigmoid scores plus the genre labels whose score passes
+    the threshold (0.3, the reference's callback semantics).
+
+The predictor runs on ``cuda`` unless the caller passes ``device="cpu"``;
+with no CUDA device and no explicit device it raises.  Quantized serving,
+data-parallel meshes, export and checkpoint loading are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from devt_tpu_torch.config import MMX_GENRES_15, MMX_GENRES_19, Config
+from devt_tpu_torch.data.device_norm import maybe_dequantize_batch
+from devt_tpu_torch.registry import build_model
+
+
+def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
+    if x.shape[0] == n:
+        return x
+    pad = [(0, n - x.shape[0])] + [(0, 0)] * (x.ndim - 1)
+    return np.pad(x, pad)
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` means the card; there is no silent fallback to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run the plain PyTorch path on the CPU")
+    return torch.device("cuda")
+
+
+def _todo(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet — ROADMAP.md "
+                               f"queue 1, item 9")
+
+
+class Predictor:
+    """Eager inference over bucketed batch sizes."""
+
+    def __init__(self, config: Config,
+                 state_dict: Mapping[str, torch.Tensor],
+                 buckets: Sequence[int] = (1, 8, 32),
+                 threshold: float = 0.3, mesh=None,
+                 quantize: bool = False, quant_site_pred=None,
+                 device: str | torch.device | None = None):
+        """``state_dict``: the port model's weights (``build_model``'s
+        names; ``utils.jax_bridge`` converts JAX variables)."""
+        if quantize or quant_site_pred is not None:
+            raise _todo("Predictor(quantize=True), the int8 serving path")
+        if mesh is not None:
+            raise _todo("Predictor(mesh=...), data-parallel serving")
+        self.device = resolve_device(device)
+        self.config = config
+        self.model = build_model(config)
+        self.model.load_state_dict(state_dict)
+        self.model.to(self.device).eval()
+        self.threshold = threshold
+        self.buckets = sorted(buckets)
+        self.target_names = (MMX_GENRES_19 if config.n_classes == 19
+                             else MMX_GENRES_15)
+
+    @classmethod
+    def from_checkpoint(cls, config: Config, ckpt_path: str,
+                        **kw) -> "Predictor":
+        raise _todo("Predictor.from_checkpoint (Orbax checkpoints)")
+
+    @classmethod
+    def from_lightning_checkpoint(cls, config: Config, ckpt_path: str,
+                                  **kw) -> "Predictor":
+        raise _todo("Predictor.from_lightning_checkpoint")
+
+    def export(self, path: str, batch_size: int | None = None,
+               platforms: Sequence[str] | None = None) -> None:
+        raise _todo("Predictor.export")
+
+    def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Scores for one already-padded batch of device tensors."""
+        batch = maybe_dequantize_batch(dict(batch), dtype=torch.float32)
+        if "vid_tokens" in batch:
+            out = self.model(batch["vid_tokens"], tokens_in=True)
+        else:
+            out = self.model(batch["vid"])
+        return torch.sigmoid(out)
+
+    def _invoke(self, chunk: Mapping[str, np.ndarray]) -> np.ndarray:
+        tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                       self.device, non_blocking=True)
+                   for k, v in chunk.items()}
+        with torch.inference_mode():
+            return self.forward(tensors).float().cpu().numpy()
+
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def predict(self, batch: Mapping[str, np.ndarray]) -> dict[str, Any]:
+        """batch: model-keyed arrays with leading batch dim (any size).
+        Returns {"scores": (N, C), "labels": [[genre, ...], ...]}."""
+        n = next(iter(batch.values())).shape[0]
+        scores = []
+        start = 0
+        while start < n:
+            take = min(self._bucket(n - start), n - start)
+            bucket = self._bucket(take)
+            chunk = {k: _pad_to(np.asarray(v[start:start + take]), bucket)
+                     for k, v in batch.items()}
+            scores.append(self._invoke(chunk)[:take])
+            start += take
+        scores = np.concatenate(scores) if scores else np.zeros((0, 0))
+        labels = [[self.target_names[i] for i, s in enumerate(row)
+                   if s > self.threshold and i < len(self.target_names)]
+                  for row in scores]
+        return {"scores": scores, "labels": labels}
