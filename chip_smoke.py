@@ -6,7 +6,8 @@
 Phases, each printing a line of its own; any failure exits non-zero:
 
   1. device  — the card's name, and its name and power limit from nvidia-smi.
-  2. build   — compiles every kernel in devt_tpu_torch/ops/csrc with nvcc.
+  2. build   — compiles every kernel in devt_tpu_torch/ops/csrc with nvcc,
+               one nvcc per source, all started together.
   3. kernel  — the fused ViT-block forward at the ViViT main-path shape
                (512 sequences, 208 tokens, dim 192, kv_len 197), bf16 and
                f32, held against its plain PyTorch version on the card;
@@ -17,6 +18,21 @@ Phases, each printing a line of its own; any failure exits non-zero:
                behind Predictor(buckets=(1, 8, 32)) on 37 uint8 clips; checks
                the kernel launches (4 per bucket call), the scores, and the
                first clips against the same model run on the CPU.
+  5. kernel-bwd — the fused ViT-block backward at the same shape, bf16 and
+               f32: dx and all 11 parameter gradients against the plain
+               backward; two runs compared bit for bit; times of the kernel,
+               the plain version and autograd through the library layer, the
+               bound, and the sub-kernels' times.
+  6. dropout — both kernels at rate 0.1 against the plain versions given
+               the masks that the library exports for the seed; the dropped
+               share at each of the three sites.
+  7. train   — the same ViViT, batch 32, bf16, AdamW: one make_train_step
+               step and make_multi_step(8) on a fixed synthetic batch;
+               checks 4 forward and 4 backward launches per step, a finite
+               loss that falls on the fixed batch, and one step's gradients
+               on 2 clips against the CPU's plain path; clips/s as the best
+               of 3 windows with the host's share of a step, and a profile
+               of one step; then a few steps with dropout 0.1.
 
 The last lines are a JSON line of the kernels, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  With no CUDA device, or without the
@@ -26,6 +42,7 @@ package beside it, the script fails before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,6 +60,30 @@ PEAK_BYTES = 3.35e12
 TOL = {"f32": (1e-4, 1e-4), "bf16": (1e-2, 1.6e-2)}
 # scores on the card against the same model on the CPU, both bf16
 SCORE_ATOL = 2e-2
+# Backward: per tensor, |kernel - plain| <= ulps * eps * max|plain|.  f32
+# (eps 2^-23): the sums over the 106,496 rows run in other orders.  bf16
+# (eps 2^-8): the same roundings, but an intermediate next to a rounding
+# boundary may land on the other side and move what it feeds by an ulp,
+# and dx and the weight gradients are stored in bf16.
+BWD_ULPS = {"f32": 1024, "bf16": 4}
+EPS = {"f32": 2.0 ** -23, "bf16": 2.0 ** -8}
+DROPOUT = 0.1
+# the fused block's sub-kernels as the profiler names them
+FWD_KERNELS = ("ln_qkv_bf16<false>", "attention_bf16", "out_ffn_bf16")
+BWD_KERNELS = ("ln_qkv_bf16<true>", "ffn_dual_bf16", "row_nk_bf16",
+               "attention_bwd_bf16", "wgrad_bf16", "reduce_parts")
+# training: the JAX bench's configuration (batch 32, multi-step of 8)
+TRAIN_BATCH, MULTI_STEPS, TRAIN_ITERS, DROP_STEPS = 32, 8, 3, 4
+# Gradients of one bf16 step on the card against the same step on the CPU
+# (plain path), per leaf: max|card - cpu| <= GRAD_RTOL * max(max|cpu|,
+# GRAD_FLOOR).  Both round to bf16 at the same places, but the library
+# products of the unfused parts and the kernels' sums run in other orders,
+# and a bf16 activation that lands on the other side of a rounding boundary
+# moves everything behind it.
+GRAD_RTOL, GRAD_FLOOR = 5e-2, 1e-6
+# the measured drop share of a site must be within this of the rate (4
+# standard deviations at the smallest site, 20.4 M elements, is 2.7e-4)
+DROP_BAND = 1e-3
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -61,10 +102,13 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_profile(fn, reps: int = 3) -> tuple[list, float, float]:
+def _device_profile(fn, reps: int = 3, host: list | None = None
+                    ) -> tuple[list, float, float]:
     """torch.profiler over ``reps`` calls of ``fn``: [(kernel, ms per call,
     launches per call)] by device time, the device-busy share of the wall
-    time, and the wall ms per call.  Memory copies count as busy."""
+    time, and the wall ms per call.  Memory copies count as busy.  ``host``,
+    when given, receives [(operator, self CPU ms per call, calls per call)]
+    by the host's own time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -81,12 +125,17 @@ def _device_profile(fn, reps: int = 3) -> tuple[list, float, float]:
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
+            if host is not None:
+                host.append((ev.key[:60], ev.self_cpu_time_total / 1e3 / reps,
+                             ev.count / reps))
             continue
         name = ev.key.replace("(anonymous namespace)::", "")
         name = name.replace("void ", "").split("(")[0][:70]
         rows.append((name, ev.device_time_total / 1e3 / reps,
                      ev.count / reps))
     rows.sort(key=lambda r: -r[1])
+    if host is not None:
+        host.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) * reps / 1e3 / wall
     return rows, busy, wall * 1e3 / reps
 
@@ -141,6 +190,21 @@ def _bound_ms(itemsize: int, kind: str) -> tuple[float, str]:
     flops = 2 * rows * (4 * D * D + 2 * KV_LEN * D + 2 * D * MLP)
     bytes_ = (3 * rows * D * itemsize + rows * 8 * 4
               + (4 * D * D + 2 * D * MLP) * itemsize + (6 * D + MLP) * 4)
+    t_ops, t_bytes = flops / PEAK_FLOPS[kind], bytes_ / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _bound_bwd_ms(itemsize: int, kind: str) -> tuple[float, str]:
+    """Least time for one block backward.  Operations per row: the qkv
+    and z1 recompute, four data gradients and four weight gradients
+    (11 D^2 + 5 D MLP multiply-adds) and six S x S products per head over
+    the live keys.  Bytes: x, u, dy read and dx written, the residual
+    lanes and the weights read, the 11 gradients written."""
+    rows = B * S
+    flops = 2 * rows * (11 * D * D + 5 * D * MLP + 6 * KV_LEN * D)
+    weights = (4 * D * D + 2 * D * MLP) * itemsize + (6 * D + MLP) * 4
+    bytes_ = 4 * rows * D * itemsize + rows * 8 * 4 + 2 * weights
     t_ops, t_bytes = flops / PEAK_FLOPS[kind], bytes_ / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -213,6 +277,149 @@ def phase_kernel(kind: str) -> dict:
     return out
 
 
+def _check_bwd(kind: str, tag: str, got, want) -> tuple[float, float]:
+    """dx and the 11 gradients of the kernel against the plain version;
+    returns the largest absolute error, and the largest error as a share
+    of its tensor's largest element."""
+    import torch
+
+    from devt_tpu_torch.ops.fused_block import PARAM_NAMES
+
+    worst = worst_rel = 0.0
+    pairs = [("dx", got[0], want[0])] + [(k, got[1][k], want[1][k])
+                                         for k in PARAM_NAMES]
+    for name, g, w in pairs:
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{tag} {name}: {g.dtype} {tuple(g.shape)} "
+                                 f"vs {w.dtype} {tuple(w.shape)}")
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{tag} {name}: non-finite kernel output")
+        err = _max_err(g, w)
+        largest = w.float().abs().max().item()
+        bound = BWD_ULPS[kind] * EPS[kind] * largest
+        if not err <= bound:
+            raise AssertionError(f"{tag} {name}: max abs err {err:.3e} > "
+                                 f"{bound:.3e} ({BWD_ULPS[kind]} ulps of the "
+                                 f"largest element)")
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / largest)
+    return worst, worst_rel
+
+
+def phase_kernel_bwd(kind: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from devt_tpu_torch.ops import fused_block as fb
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    gen = torch.Generator().manual_seed(SEED + 1)
+    x, params = _block_inputs(dtype, gen)
+    dy = torch.randn(B, S, D, generator=gen).to(dtype).cuda()
+    scale = (D // HEADS) ** -0.5
+    with torch.no_grad():
+        _, u, res = fb.fused_vit_block(x, params, HEADS, scale, KV_LEN)
+        run = lambda: fb._bwd_cuda(x, params, u, res, dy, HEADS, scale,  # noqa: E731
+                                   KV_LEN, 0.0, 0)
+        got = run()
+        want = fb.fused_vit_block_bwd_plain(x, params, u, res, dy, HEADS,
+                                            scale, KV_LEN)
+        torch.cuda.synchronize()
+        err, rel = _check_bwd(kind, f"bwd {kind}", got, want)
+        again = run()
+        torch.cuda.synchronize()
+        same_bits = torch.equal(got[0], again[0]) and all(
+            torch.equal(got[1][k], again[1][k]) for k in fb.PARAM_NAMES)
+        if not same_bits:
+            raise AssertionError(f"bwd {kind}: two runs differ in their bits")
+        del want, again
+        slow = kind == "f32"
+        kernel_ms = _time_ms(run, iters=3 if slow else 20,
+                             warmup=1 if slow else 3)
+        plain_ms = _time_ms(
+            lambda: fb.fused_vit_block_bwd_plain(x, params, u, res, dy,
+                                                 HEADS, scale, KV_LEN),
+            iters=2, warmup=1)
+        _print_profile(f"fused_vit_block backward {kind}",
+                       *_device_profile(run, reps=1 if slow else 3), top=12)
+
+    # the yardstick: autograd through one library encoder layer
+    layer = torch.nn.TransformerEncoderLayer(
+        D, HEADS, MLP, dropout=0.0, layer_norm_eps=1e-5,
+        activation=lambda t: F.gelu(t, approximate="tanh"),
+        batch_first=True, norm_first=True, device="cuda", dtype=dtype)
+    pad_mask = (torch.arange(S, device="cuda") >= KV_LEN).expand(B, S)
+    xr = x.clone().requires_grad_(True)
+    y = layer(xr, src_key_padding_mask=pad_mask)
+    leaves = (xr, *layer.parameters())
+    library_ms = _time_ms(
+        lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+        iters=5, warmup=2)
+    del y
+
+    bound_ms, bound_by = _bound_bwd_ms(x.element_size(), kind)
+    print(f"[kernel-bwd] fused_vit_block_bwd {kind} ({B},{S},{D}) kv_len "
+          f"{KV_LEN}: dx and 11 grads within {BWD_ULPS[kind]} ulps of the "
+          f"largest element, max_abs_err={err:.3e} ({rel:.3e} of its tensor's "
+          f"largest element) | two runs bit-equal: "
+          f"{same_bits} | kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (autograd of nn.TransformerEncoder"
+          f"Layer) bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+    return {"dtype": kind, "max_abs_err": err, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_dropout() -> dict:
+    """Both kernels at rate 0.1 against the plain versions given the masks
+    that the library exports for the seed; drop share per site."""
+    import torch
+
+    from devt_tpu_torch.ops import fused_block as fb
+
+    kind, seed = "bf16", 20260
+    gen = torch.Generator().manual_seed(SEED + 2)
+    x, params = _block_inputs(torch.bfloat16, gen)
+    dy = torch.randn(B, S, D, generator=gen).to(torch.bfloat16).cuda()
+    scale = (D // HEADS) ** -0.5
+    with torch.no_grad():
+        keep = fb.dropout_masks(seed, DROPOUT, B, S, D, MLP, "cuda")
+        shares = [1.0 - k.float().mean().item() for k in keep]
+        for site, share in zip(("out-proj", "hidden", "ffn-out"), shares):
+            if abs(share - DROPOUT) > DROP_BAND:
+                raise AssertionError(f"dropout site {site}: dropped "
+                                     f"{share:.5f}, rate {DROPOUT}")
+        fwd = lambda: fb.fused_vit_block(x, params, HEADS, scale, KV_LEN,  # noqa: E731
+                                         DROPOUT, seed)
+        got = fwd()
+        want = fb.fused_vit_block_fwd_plain(x, params, HEADS, scale, KV_LEN,
+                                            keep, DROPOUT)
+        torch.cuda.synchronize()
+        atol, rtol = TOL[kind]
+        fwd_err = 0.0
+        for name, g, w in zip(("y", "u", "res"), got, want):
+            _check_close(f"dropout {name}", g, w, atol, rtol)
+            fwd_err = max(fwd_err, _max_err(g, w))
+        _, u, res = got
+        bwd = lambda: fb._bwd_cuda(x, params, u, res, dy, HEADS, scale,  # noqa: E731
+                                   KV_LEN, DROPOUT, seed)
+        bgot = bwd()
+        bwant = fb.fused_vit_block_bwd_plain(x, params, u, res, dy, HEADS,
+                                             scale, KV_LEN, keep, DROPOUT)
+        torch.cuda.synchronize()
+        bwd_err, bwd_rel = _check_bwd(kind, "dropout bwd", bgot, bwant)
+        del want, bwant, keep
+        fwd_ms, bwd_ms = _time_ms(fwd), _time_ms(bwd)
+    print(f"[dropout] rate {DROPOUT} bf16: dropped share out-proj "
+          f"{shares[0]:.5f} hidden {shares[1]:.5f} ffn-out {shares[2]:.5f} "
+          f"(band {DROP_BAND}) | forward max_abs_err={fwd_err:.3e}, backward "
+          f"max_abs_err={bwd_err:.3e} ({bwd_rel:.3e} of its tensor's largest "
+          f"element) against the plain versions given the "
+          f"exported masks | fwd_ms={fwd_ms:.4f} bwd_ms={bwd_ms:.4f}",
+          flush=True)
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "shares": shares}
+
+
 def phase_serve() -> dict:
     import numpy as np
     import torch
@@ -270,6 +477,177 @@ def phase_serve() -> dict:
             "clips_per_s": clips_per_s}
 
 
+def _train_batch(n: int, seed: int):
+    """A fixed synthetic batch as the JAX bench draws it: normal clips in
+    bf16 (channels-last) and 19 multi-hot genre labels, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    vid = torch.from_numpy(rng.standard_normal((n, 16, 224, 224, 3),
+                                               dtype=np.float32))
+    label = (rng.random((n, 19)) < 0.3).astype(np.float32)
+    return {"vid": vid.cuda().to(torch.bfloat16),
+            "label": torch.from_numpy(label).cuda()}
+
+
+def phase_train() -> dict:
+    import copy
+
+    import torch
+
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.models.vivit import ViViT
+    from devt_tpu_torch.ops.fused_block import fused_vit_block
+    from devt_tpu_torch.parallel.train_step import (make_eval_step,
+                                                    make_multi_step,
+                                                    make_train_step)
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    cfg = Config(model="vivit", batch_size=TRAIN_BATCH, frame_len=16,
+                 n_classes=19, opt="adamW", learning_rate=1e-4,
+                 precision="bf16", accum_steps=1)
+    model = build_model(cfg, torch.Generator().manual_seed(SEED))
+    depth = len(model.space_transformer.blocks)
+    reference = copy.deepcopy(model)          # the same weights, for the CPU
+
+    # gradients of one step on 2 clips: the card against the CPU's plain path
+    small = _train_batch(2, SEED + 3)
+
+    def step_grads(m, batch):
+        params = dict(m.named_parameters())
+        loss, _, _ = forward_and_loss(m, cfg, {"params": params}, batch,
+                                      DropoutRng(0), train=True)
+        return loss.item(), dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    model.cuda()
+    card_loss, card = step_grads(model, small)
+    cpu_loss, cpu = step_grads(reference, {k: v.cpu()
+                                           for k, v in small.items()})
+    worst, worst_leaf = 0.0, ""
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"train: non-finite gradient of {name}")
+        ratio = (got - want).abs().max().item() / max(
+            want.abs().max().item(), GRAD_FLOOR)
+        if ratio > worst:
+            worst, worst_leaf = ratio, name
+    if not worst <= GRAD_RTOL or abs(card_loss - cpu_loss) > SCORE_ATOL:
+        raise AssertionError(
+            f"train: card vs CPU gradients differ by {worst:.3e} of the "
+            f"leaf's largest element at {worst_leaf} (bound {GRAD_RTOL}); "
+            f"loss {card_loss:.5f} vs {cpu_loss:.5f}")
+    del reference, card, cpu
+
+    # the main path: one step, then the multi-step executor
+    batch = _train_batch(TRAIN_BATCH, SEED + 4)
+    stacked = {k: v[None].expand(MULTI_STEPS, *v.shape)
+               for k, v in batch.items()}
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    step = make_train_step(model, cfg)
+    multi = make_multi_step(model, cfg, MULTI_STEPS)
+    evaluate = make_eval_step(model, cfg)
+    loss_before = evaluate(state, batch)[0].item()
+
+    fused_vit_block.launches = fused_vit_block.bwd_launches = 0
+    state, first = step(state, batch, SEED)
+    state, metrics = multi(state, stacked, SEED)
+    torch.cuda.synchronize()
+    fwd_launches = fused_vit_block.launches
+    bwd_launches = fused_vit_block.bwd_launches
+
+    steps = 1 + MULTI_STEPS
+    if fwd_launches != depth * steps or bwd_launches != depth * steps:
+        raise AssertionError(
+            f"train: {fwd_launches} forward and {bwd_launches} backward "
+            f"launches in {steps} steps, expected {depth} of each per step")
+    loss_after = evaluate(state, batch)[0].item()
+    losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
+    if not all(map(math.isfinite, losses)) or not loss_after < loss_before \
+            or state.step != steps:
+        raise AssertionError(f"train: loss {loss_before:.5f} before, "
+                             f"{losses} during and after {state.step} steps")
+
+    # throughput: best of 3 windows of multi-step calls, host clock, one
+    # read of the loss at the end of each window
+    multi(state, stacked, SEED)[1]["loss"].item()
+    windows, enqueue = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_ITERS):
+            state, metrics = multi(state, stacked, SEED)
+        enqueue.append(time.perf_counter() - t0)   # the host's share alone
+        metrics["loss"].item()
+        windows.append(time.perf_counter() - t0)
+    n_steps = TRAIN_ITERS * MULTI_STEPS
+    step_ms = min(windows) / n_steps * 1e3
+    host_ms = enqueue[windows.index(min(windows))] / n_steps * 1e3
+    clips_per_s = TRAIN_BATCH * n_steps / min(windows)
+    host: list = []
+    rows, busy, wall_ms = _device_profile(lambda: step(state, batch, SEED),
+                                          host=host)
+    _print_profile("train step, B=32", rows, busy, wall_ms, top=14)
+    fwd_ms = sum(ms for name, ms, _ in rows if name.startswith(FWD_KERNELS))
+    bwd_ms = sum(ms for name, ms, _ in rows if name.startswith(BWD_KERNELS))
+    device_ms = sum(ms for _, ms, _ in rows)
+    print(f"[profile]   device total {device_ms:.3f} ms per step: fused "
+          f"block forward {fwd_ms:.3f}, fused block backward {bwd_ms:.3f}, "
+          f"everything else {device_ms - fwd_ms - bwd_ms:.3f} "
+          f"({sum(n for _, _, n in rows):.0f} launches)")
+    print(f"[profile]   host, under the profiler: "
+          f"{sum(ms for _, ms, _ in host):.3f} ms of its own time per step; "
+          f"top operators: " + "; ".join(
+              f"{name} {ms:.3f} ms x{n:g}" for name, ms, n in host[:8]))
+    print(f"[train] ViViT bf16 AdamW B={TRAIN_BATCH}: {steps} steps (1 + "
+          f"make_multi_step({MULTI_STEPS})), fused block launches "
+          f"{fwd_launches} forward + {bwd_launches} backward ({depth} of "
+          f"each per step); loss on the fixed batch {loss_before:.5f} -> "
+          f"{loss_after:.5f}; card vs CPU gradients on 2 clips: worst "
+          f"{worst:.3e} of the leaf's largest element at {worst_leaf} "
+          f"(bound {GRAD_RTOL}), loss {card_loss:.5f} vs {cpu_loss:.5f} | "
+          f"{clips_per_s:.2f} clips/s, step_ms={step_ms:.3f}, of which the "
+          f"host needs {host_ms:.3f} ms to enqueue a step (best of 3 "
+          f"windows of {n_steps} steps, host clock; windows "
+          f"{', '.join(f'{TRAIN_BATCH * n_steps / w:.1f}' for w in windows)})",
+          flush=True)
+
+    # the second configuration of the path: dropout 0.1 in both kernels
+    drop_model = ViViT(num_classes=19, num_frames=16, channels_last=True,
+                       dropout=DROPOUT, dtype=torch.bfloat16).init_weights(
+                           torch.Generator().manual_seed(SEED))
+    drop_state = TrainState.create(dict(drop_model.named_parameters()),
+                                   build_optimizer(cfg))
+    drop_multi = make_multi_step(drop_model, cfg, DROP_STEPS)
+    drop_stacked = {k: v[:DROP_STEPS] for k, v in stacked.items()}
+    fused_vit_block.launches = fused_vit_block.bwd_launches = 0
+    drop_state, drop_metrics = drop_multi(drop_state, drop_stacked, SEED)
+    drop_loss = drop_metrics["loss"].item()
+    drop_counts = (fused_vit_block.launches, fused_vit_block.bwd_launches)
+    if drop_counts != (depth * DROP_STEPS,) * 2 \
+            or not math.isfinite(drop_loss):
+        raise AssertionError(f"train with dropout: launches {drop_counts} in "
+                             f"{DROP_STEPS} steps, loss {drop_loss}")
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_ITERS):
+        drop_state, drop_metrics = drop_multi(drop_state, drop_stacked, SEED)
+    drop_metrics["loss"].item()
+    drop_ms = (time.perf_counter() - t0) / (TRAIN_ITERS * DROP_STEPS) * 1e3
+    print(f"[train] the same with dropout {DROPOUT}: {DROP_STEPS} steps, "
+          f"launches {drop_counts[0]} forward + {drop_counts[1]} backward, "
+          f"mean loss {drop_loss:.5f} | step_ms={drop_ms:.3f} (one window "
+          f"of {TRAIN_ITERS * DROP_STEPS} steps, host clock)", flush=True)
+    return {"fwd_launches": fwd_launches, "bwd_launches": bwd_launches,
+            "clips_per_s": clips_per_s, "step_ms": step_ms,
+            "host_ms": host_ms}
+
+
 def main() -> int:
     import torch
 
@@ -299,19 +677,32 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
 
-    bf16 = phase_kernel("bf16")
+    fwd = phase_kernel("bf16")
     phase_kernel("f32")
     serve = phase_serve()
+    bwd = phase_kernel_bwd("bf16")
+    phase_kernel_bwd("f32")
+    phase_dropout()
+    train = phase_train()
 
     kernels = [{
         "name": "fused_vit_block_fwd", "route": "cuda",
         "source": "devt_tpu_torch/ops/csrc/fused_block_fwd.cu",
         "replaces": "devt_tpu/ops/fused_block.py:177",
-        "launches": serve["launches"],
-        "max_abs_err": max(bf16["max_abs_err"].values()),
-        "ms": bf16["kernel_ms"], "plain_ms": bf16["plain_ms"],
-        "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
-        "library_ms": bf16["library_ms"],
+        "launches": serve["launches"] + train["fwd_launches"],
+        "max_abs_err": max(fwd["max_abs_err"].values()),
+        "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"],
+    }, {
+        "name": "fused_vit_block_bwd", "route": "cuda",
+        "source": "devt_tpu_torch/ops/csrc/fused_block_bwd.cu",
+        "replaces": "devt_tpu/ops/fused_block.py:240",
+        "launches": train["bwd_launches"],
+        "max_abs_err": bwd["max_abs_err"],
+        "ms": bwd["kernel_ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")

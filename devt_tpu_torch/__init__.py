@@ -13,9 +13,13 @@ that lie on the CPU.
 Ported so far (see ROADMAP.md for what is not):
   - :mod:`devt_tpu_torch.config`   — own copy of the typed config
   - :mod:`devt_tpu_torch.data`     — u8 wire dequantize, normalization constants
-  - :mod:`devt_tpu_torch.ops`      — fused ViT-block forward (CUDA), attention
-  - :mod:`devt_tpu_torch.models`   — ViViT and its transformer layers
+  - :mod:`devt_tpu_torch.ops`      — fused ViT block, forward and backward
+                                     (CUDA, in-kernel dropout), attention
+  - :mod:`devt_tpu_torch.models`   — ViViT, its transformer layers, losses
   - :mod:`devt_tpu_torch.serve`    — bucketed ``Predictor``
+  - :mod:`devt_tpu_torch.train`    — step logic, optimizers, ``TrainState``
+  - :mod:`devt_tpu_torch.parallel` — train/multi/eval step executors (one
+                                     device)
   - :mod:`devt_tpu_torch.utils`    — JAX-variables ↔ ``state_dict`` bridge
 """
 

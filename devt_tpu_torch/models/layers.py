@@ -7,6 +7,11 @@ and parameter names follow the flax tree (``attn_norm``, ``attn.to_qkv``,
 ``attn.to_out``, ``ff_norm``, ``ff.fc1``, ``ff.fc2``, ``blocks.<i>`` for
 ``block_<i>``, ``norm``), so ``utils/jax_bridge.py`` maps one onto the
 other by name.
+
+Dropout is explicit, as flax's ``rngs={"dropout": key}`` is: a training
+forward takes a ``DropoutRng`` and hands it down to every dropout site.
+Nothing draws from PyTorch's global random state, so a step's masks
+depend only on the seed the caller made the ``DropoutRng`` from.
 """
 
 from __future__ import annotations
@@ -23,6 +28,47 @@ from devt_tpu_torch.ops.fused_block import fused_vit_block
 LN_EPS = 1e-5
 
 _LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to ±2
+
+
+class DropoutRng:
+    """The randomness of one training forward.
+
+    Seeds for the fused block's in-kernel dropout come from a host
+    generator (one ``randint(0, 2**30)`` per block call, as the JAX wrapper
+    draws, with no device synchronisation); masks of the unfused sites come
+    from a generator on the tensor's device.  Both are seeded from
+    ``seed`` alone."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+        self._host = torch.Generator().manual_seed(self.seed)
+        self._device: dict[torch.device, torch.Generator] = {}
+
+    def block_seed(self) -> int:
+        return int(torch.randint(0, 1 << 30, (1,), generator=self._host))
+
+    def keep(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if x.device.type == "cpu":
+            gen = self._host
+        else:
+            gen = self._device.get(x.device)
+            if gen is None:
+                gen = torch.Generator(device=x.device).manual_seed(self.seed)
+                self._device[x.device] = gen
+        return torch.rand(x.shape, generator=gen, device=x.device) >= rate
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            rng: DropoutRng | None) -> torch.Tensor:
+    """Inverted dropout from an explicit ``DropoutRng``; the identity in
+    evaluation or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("a training forward with dropout needs rng=, a "
+                         "DropoutRng (models/layers.py)")
+    return torch.where(rng.keep(x, rate), x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -68,12 +114,14 @@ class FeedForward(nn.Module):
         self.dtype = dtype
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: DropoutRng | None = None) -> torch.Tensor:
         x = F.gelu(dense(self.fc1, x, self.dtype))
-        x = self.drop(x)
-        return self.drop(dense(self.fc2, x, self.dtype))
+        x = dropout(x, self.dropout, self.training, rng)
+        return dropout(dense(self.fc2, x, self.dtype), self.dropout,
+                       self.training, rng)
 
 
 class ViTAttention(nn.Module):
@@ -92,15 +140,16 @@ class ViTAttention(nn.Module):
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         if self.project_out:
             self.to_out = nn.Linear(inner, dim)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor,
-                kv_len: int | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv_len: int | None = None,
+                rng: DropoutRng | None = None) -> torch.Tensor:
         qkv = dense(self.to_qkv, x, self.dtype)
         out = packed_mha(qkv, heads=self.heads, scale=self.dim_head ** -0.5,
                          impl=self.attention_impl, kv_len=kv_len)
         if self.project_out:
-            out = self.drop(dense(self.to_out, out, self.dtype))
+            out = dropout(dense(self.to_out, out, self.dtype), self.dropout,
+                          self.training, rng)
         return out
 
 
@@ -111,7 +160,11 @@ class ViTBlock(nn.Module):
     (the CUDA kernel on the card, its plain version on the CPU), which
     uses tanh GELU like the JAX fused kernel; otherwise the unfused
     modules run, with exact-erf GELU.  The parameters are the same on
-    both paths."""
+    both paths.  The fused call is differentiable: ``block_params``'
+    transposes and casts carry the kernel's gradients back to the f32
+    ``nn.Linear``/``nn.LayerNorm`` parameters by ordinary autograd.
+    Training dropout runs inside the kernel, from a seed drawn from
+    ``rng``."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
                  dropout: float = 0.0, attention_impl: str = "auto",
@@ -132,8 +185,6 @@ class ViTBlock(nn.Module):
         its TPU and mesh gates."""
         if self.attention_impl == "xla":
             return False
-        if self.dropout > 0.0 and self.training:
-            return False      # in-kernel dropout comes with training
         if self.heads * self.dim_head != self.dim:
             return False
         if self.heads == 1 and self.dim_head == self.dim:
@@ -146,8 +197,10 @@ class ViTBlock(nn.Module):
         def row(t):
             return t.float().reshape(1, -1)
 
-        def mat(lin):
-            return lin.weight.t().to(self.dtype).contiguous()
+        def mat(lin):            # transpose and cast in one copy
+            w = lin.weight
+            return torch.empty((w.shape[1], w.shape[0]), dtype=self.dtype,
+                               device=w.device).copy_(w.t())
 
         return {
             "g1": row(self.attn_norm.weight), "b1": row(self.attn_norm.bias),
@@ -158,18 +211,24 @@ class ViTBlock(nn.Module):
             "w2": mat(self.ff.fc2), "bb2": row(self.ff.fc2.bias),
         }
 
-    def forward(self, x: torch.Tensor,
-                kv_len: int | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv_len: int | None = None,
+                rng: DropoutRng | None = None) -> torch.Tensor:
         if self.fused_eligible(x):
+            rate = self.dropout if self.training else 0.0
+            if rate > 0.0 and rng is None:
+                raise ValueError("a training forward with dropout needs "
+                                 "rng=, a DropoutRng (models/layers.py)")
             y, _, _ = fused_vit_block(
                 x.to(self.dtype).contiguous(), self.block_params(),
                 self.heads, self.dim_head ** -0.5,
-                kv_len if kv_len is not None else x.shape[1])
+                kv_len if kv_len is not None else x.shape[1],
+                dropout_rate=rate,
+                seed=rng.block_seed() if rate > 0.0 else None)
             return y
         h = layer_norm(self.attn_norm, x, self.dtype)
-        x = x + self.attn(h, kv_len)
+        x = x + self.attn(h, kv_len, rng)
         h = layer_norm(self.ff_norm, x, self.dtype)
-        return x + self.ff(h)
+        return x + self.ff(h, rng)
 
 
 class ViTTransformer(nn.Module):
@@ -199,8 +258,8 @@ class ViTTransformer(nn.Module):
                      dtype) for _ in range(depth))
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor,
-                kv_len: int | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv_len: int | None = None,
+                rng: DropoutRng | None = None) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x, kv_len)
+            x = block(x, kv_len, rng)
         return layer_norm(self.norm, x, self.dtype)

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from devt_tpu_torch.models.layers import (LN_EPS, ViTTransformer, dense,
+from devt_tpu_torch.models.layers import (LN_EPS, DropoutRng,
+                                          ViTTransformer, dense, dropout,
                                           init_weights, layer_norm,
                                           lecun_normal_)
 
@@ -105,7 +106,7 @@ class ViViT(nn.Module):
         self.temporal_transformer = ViTTransformer(
             dim, depth, heads, dim_head, dim * scale_dim, dropout=dropout,
             attention_impl=t_impl, remat=remat, dtype=dtype)
-        self.emb_drop = nn.Dropout(emb_dropout)
+        self.emb_dropout = emb_dropout
         self.head_norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.head = nn.Linear(dim, num_classes)
 
@@ -120,11 +121,13 @@ class ViViT(nn.Module):
             nn.init.normal_(p, 0.0, 1.0, generator=generator)
         return self
 
-    def forward(self, x: torch.Tensor,
-                tokens_in: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tokens_in: bool = False,
+                rng: DropoutRng | None = None) -> torch.Tensor:
         """x: (B, T, C, H, W) — or (B, T, H, W, C) with ``channels_last`` —
         → (B, num_classes) logits.  ``tokens_in=True``: x is pre-patchified
-        (B, T, N, p*p*c) tokens (``patchify`` layout)."""
+        (B, T, N, p*p*c) tokens (``patchify`` layout).  ``rng``: the
+        dropout randomness of a training forward (needed only when a
+        dropout rate is set)."""
         dtype = self.dtype
         if not tokens_in and not self.channels_last:
             x = x.permute(0, 1, 3, 4, 2)            # → (B, T, H, W, C)
@@ -135,14 +138,14 @@ class ViViT(nn.Module):
         cls_space = self.space_token.to(dtype).expand(b, t, 1, d)
         x = torch.cat([cls_space, x], dim=2)      # (b, t, n+1, d)
         x = x + self.pos_embedding[:, :, :n + 1].to(dtype)
-        x = self.emb_drop(x)
+        x = dropout(x, self.emb_dropout, self.training, rng)
 
         # space attention, frames folded into the batch, tokens tile-padded
         x = x.reshape(b * t, n + 1, d)
         kv_len = None
         if self.token_pad:
             x, kv_len = _pad_tokens(x, self.token_pad)
-        x = self.space_transformer(x, kv_len)
+        x = self.space_transformer(x, kv_len, rng)
         x = x[:, 0].reshape(b, t, d)                # per-frame CLS
 
         cls_temporal = self.temporal_token.to(dtype).expand(b, 1, d)
@@ -150,7 +153,7 @@ class ViViT(nn.Module):
         kv_len = None
         if self.token_pad:
             x, kv_len = _pad_tokens(x, self.token_pad)
-        x = self.temporal_transformer(x, kv_len)
+        x = self.temporal_transformer(x, kv_len, rng)
         x = x[:, :t + 1]                            # drop pad rows
 
         x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]

@@ -7,14 +7,17 @@ the wrapper runs for CPU tensors.  ``_build`` compiles the sources with
 """
 
 from devt_tpu_torch.ops.attention import packed_mha, xla_attention
-from devt_tpu_torch.ops.fused_block import (fused_vit_block,
+from devt_tpu_torch.ops.fused_block import (FusedViTBlock, fused_vit_block,
+                                            fused_vit_block_bwd_plain,
                                             fused_vit_block_fwd_plain,
                                             reference_vit_block)
 
 __all__ = [
     "packed_mha",
     "xla_attention",
+    "FusedViTBlock",
     "fused_vit_block",
+    "fused_vit_block_bwd_plain",
     "fused_vit_block_fwd_plain",
     "reference_vit_block",
 ]

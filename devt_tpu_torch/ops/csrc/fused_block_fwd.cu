@@ -1,15 +1,19 @@
 // Fused pre-norm ViT block forward for Hopper (sm_90a).
 //
-// Computes what devt_tpu/ops/fused_block.py:_fwd_kernel computes with
-// dropout_rate == 0, for x (B, S, D) in bfloat16 or float:
+// Computes what devt_tpu/ops/fused_block.py:_fwd_kernel computes, for
+// x (B, S, D) in bfloat16 or float:
 //
 //   a   = LN1(x)                                   (f32 statistics)
 //   qkv = a @ Wqkv                                 (no bias; columns (3, H, d))
 //   att = per head: softmax(q k^T * scale + mask) v, normalised after PV
-//   u   = x + (att @ Wo + bo)
+//   u   = x + drop(att @ Wo + bo)
 //   b   = LN2(u)
-//   y   = u + (gelu_tanh(b @ W1 + bb1) @ W2 + bb2)
+//   y   = u + drop(drop(gelu_tanh(b @ W1 + bb1)) @ W2 + bb2)
 //   res = [lse (H), mu1, rstd1, mu2, rstd2, 0...]  per row, f32
+//
+// drop is the identity at rate 0; otherwise the Philox masks of
+// fused_block_common.cuh at the three sites, which the backward kernel
+// regenerates from the same seed.
 //
 // Every matrix operand is rounded to the type of x and every product
 // accumulates in f32, as preferred_element_type=f32 does in the JAX
@@ -55,287 +59,15 @@
 // mma.sync reaches a fraction of that peak, which only wgmma reaches;
 // the times are in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_block_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr float kLnEps = 1e-5f;
-constexpr float kNegInf = -1e30f;
-constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
-constexpr float kGeluK = 0.044715f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-__host__ __device__ constexpr size_t align128(size_t n) {
-  return (n + 127) & ~static_cast<size_t>(127);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// reductions over the 4 lanes of a quad, which hold one row of an
-// mma accumulator tile
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float gelu_tanh(float z) {
-  return 0.5f * z * (1.0f + tanhf(kGeluC * (z + kGeluK * z * z * z)));
-}
-
-// Mean and 1/sqrt(var + eps) of one row, computed by one warp in two
-// passes (mean, then mean of squared deviations) as the reference does.
-// Lane l touches only the columns c == l (mod 32).
-template <typename Src>
-__device__ __forceinline__ void warp_row_stats(const Src* row, int n,
-                                               float& mu, float& rstd) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.f;
-  for (int c = lane; c < n; c += 32) s += to_f32(row[c]);
-  mu = warp_sum(s) / n;
-  float v = 0.f;
-  for (int c = lane; c < n; c += 32) {
-    const float dv = to_f32(row[c]) - mu;
-    v += dv * dv;
-  }
-  rstd = rsqrtf(warp_sum(v) / n + kLnEps);
-}
-
-// ===========================================================================
-// bfloat16 route: mma.sync m16n8k16, ldmatrix, cp.async
-// ===========================================================================
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, asynchronous; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows x cols (cols a multiple of 8) from global (row stride ldg) into
-// shared (row stride lds); rows >= valid_rows become zero
-__device__ __forceinline__ void cp_tile(bf16* dst, int lds, const bf16* src,
-                                        size_t ldg, int rows, int cols,
-                                        int valid_rows) {
-  const int vecs = cols >> 3;
-  for (int i = threadIdx.x; i < rows * vecs; i += blockDim.x) {
-    const int r = i / vecs, c = (i - r * vecs) << 3;
-    const bool ok = r < valid_rows;
-    cp_async16(dst + r * lds + c, src + (ok ? r : 0) * ldg + c, ok);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A fragment of rows m0..m0+15, columns k..k+15 of a row-major tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* A,
-                                       int lda, int m0, int k) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(a, A + (m0 + (lane & 15)) * lda + k + ((lane >> 4) << 3));
-}
-
-// B fragments of two n8 blocks (n0..n0+15), rows k..k+15, from a tile
-// stored [k][n] (weights in the JAX layout): r[0..1] block n0, r[2..3]
-// block n0 + 8
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* B,
-                                          int ldb, int k, int n0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_t(b, B + (k + (lane & 7) + (((lane >> 3) & 1) << 3)) * ldb + n0 +
-                   ((lane >> 4) << 3));
-}
-
-// the same from a tile stored [n][k] (keys: one row per key)
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* B,
-                                          int ldb, int k, int n0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(b, B + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ldb + k +
-                 (((lane >> 3) & 1) << 3));
-}
-
-// acc (16*MI x 8*NI warp tile at rows m0, columns n0) += A[:, 0:K] * B,
-// A row-major bf16 in shared memory, B [k][n] bf16 in shared memory
-template <int MI, int NI>
-__device__ __forceinline__ void warp_mma_kn(float (&acc)[MI][NI][4],
-                                            const bf16* A, int lda, int m0,
-                                            const bf16* B, int ldb, int n0,
-                                            int K) {
-  static_assert(NI % 2 == 0, "B fragments come in pairs of n8 blocks");
-  for (int k = 0; k < K; k += 16) {
-    uint32_t a[MI][4];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) load_a(a[i], A, lda, m0 + 16 * i, k);
-#pragma unroll
-    for (int j = 0; j < NI; j += 2) {
-      uint32_t b[4];
-      load_b_kn(b, B, ldb, k, n0 + 8 * j);
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        mma_bf16(acc[i][j], a[i], b[0], b[1]);
-        mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// Accumulator element e of tile (i, j): row m0 + 16i + lane/4 (+8 for
-// e >= 2), column n0 + 8j + 2*(lane%4) + (e & 1).
-
-// ---------------------------------------------------------------------------
-// 1. LN1 + qkv
-// ---------------------------------------------------------------------------
-
-constexpr int kQkvRows = 128, kQkvCols = 64, kQkvThreads = 256;
-
-__host__ __device__ constexpr size_t qkv_stage_bf16(int D) {
-  return align128(sizeof(bf16) * D * (kQkvCols + 8));
-}
-
-__host__ __device__ constexpr size_t qkv_smem_bf16(int D) {
-  return align128(sizeof(bf16) * kQkvRows * (D + 8)) + 2 * qkv_stage_bf16(D);
-}
-
-__global__ void __launch_bounds__(kQkvThreads)
-    ln_qkv_bf16(const bf16* __restrict__ x, const float* __restrict__ g1,
-                const float* __restrict__ b1, const bf16* __restrict__ wqkv,
-                bf16* __restrict__ qkv, float* __restrict__ res, int rows,
-                int D, int N, int H, int lanes) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = D + 8, ldw = kQkvCols + 8;
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  unsigned char* ring = smem + align128(sizeof(bf16) * kQkvRows * lda);
-  const int row0 = blockIdx.x * kQkvRows;
-  const int valid = min(kQkvRows, rows - row0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunks = N / kQkvCols;
-
-  cp_tile(As, lda, x + static_cast<size_t>(row0) * D, D, kQkvRows, D, valid);
-  cp_tile(reinterpret_cast<bf16*>(ring), ldw, wqkv, N, D, kQkvCols, D);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // LN1 in place, a warp per row
-  for (int r = warp; r < valid; r += kQkvThreads / 32) {
-    bf16* ar = As + r * lda;
-    float mu, rstd;
-    warp_row_stats(ar, D, mu, rstd);
-    for (int c = lane; c < D; c += 32)
-      ar[c] = __float2bfloat16((to_f32(ar[c]) - mu) * rstd * g1[c] + b1[c]);
-    if (lane == 0) {
-      const size_t g = static_cast<size_t>(row0 + r) * lanes;
-      res[g + H] = mu;
-      res[g + H + 1] = rstd;
-    }
-  }
-
-  // 64 qkv columns at a time, the next weight slice loading meanwhile;
-  // 8 warps as 4 x 2, each a 32 x 32 tile
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int gq = lane >> 2, tq = lane & 3;
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      cp_tile(reinterpret_cast<bf16*>(ring + ((c + 1) & 1) *
-                                                 qkv_stage_bf16(D)),
-              ldw, wqkv + (c + 1) * kQkvCols, N, D, kQkvCols, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // slice c (and, at c = 0, LN1) visible
-    float acc[2][4][4] = {};
-    warp_mma_kn<2, 4>(acc, As, lda, wm,
-                      reinterpret_cast<bf16*>(ring + (c & 1) *
-                                                         qkv_stage_bf16(D)),
-                      ldw, wn, D);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = row0 + wm + 16 * i + gq + 8 * h;
-          const int col = c * kQkvCols + wn + 8 * j + 2 * tq;
-          if (r < rows)
-            *reinterpret_cast<uint32_t*>(qkv + static_cast<size_t>(r) * N +
-                                         col) =
-                pack_bf16(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        }
-    __syncthreads();  // slice c free for the load two steps on
-  }
-}
 
 // ---------------------------------------------------------------------------
 // 2. attention
 // ---------------------------------------------------------------------------
 
 constexpr int kAttnQ = 64, kAttnKeys = 32, kAttnThreads = 128;
-
-__host__ __device__ constexpr int round_up(int n, int m) {
-  return (n + m - 1) / m * m;
-}
 
 __host__ __device__ constexpr size_t attn_smem_bf16(int hd, int kv_len) {
   return align128(sizeof(bf16) * kAttnQ * (hd + 8)) +
@@ -513,7 +245,7 @@ __global__ void __launch_bounds__(kFfnThreads, 1)
                  const bf16* __restrict__ w2, const float* __restrict__ bb2,
                  bf16* __restrict__ y, bf16* __restrict__ u,
                  float* __restrict__ u32, float* __restrict__ res, int rows,
-                 int F, int H, int lanes) {
+                 int F, int H, int lanes, Drop drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr FfnSmem L = ffn_smem_bf16<D>();
   constexpr int lda = D + 8, ldh = kFfnHidden + 8;
@@ -581,8 +313,11 @@ __global__ void __launch_bounds__(kFfnThreads, 1)
           const size_t g = static_cast<size_t>(row0 + r) * D + c;
           const __nv_bfloat162 xv =
               *reinterpret_cast<const __nv_bfloat162*>(x + g);
-          u0 = __low2float(xv) + (acc[i][j][2 * h] + bo[c]);
-          u1 = __high2float(xv) + (acc[i][j][2 * h + 1] + bo[c + 1]);
+          float o0 = acc[i][j][2 * h] + bo[c];
+          float o1 = acc[i][j][2 * h + 1] + bo[c + 1];
+          drop_pair(drop, kSiteOut, g, o0, o1);
+          u0 = __low2float(xv) + o0;
+          u1 = __high2float(xv) + o1;
           *reinterpret_cast<uint32_t*>(u + g) = pack_bf16(u0, u1);
           *reinterpret_cast<float2*>(u32 + g) = make_float2(u0, u1);
         }
@@ -661,9 +396,12 @@ __global__ void __launch_bounds__(kFfnThreads, 1)
         for (int h = 0; h < 2; ++h) {
           const int r = wm + 16 * i + gq + 8 * h, col = wz + 8 * j + 2 * tq;
           const int hc = c * kFfnHidden + col;
-          *reinterpret_cast<uint32_t*>(Hs + r * ldh + col) =
-              pack_bf16(gelu_tanh(z[i][j][2 * h] + bb1[hc]),
-                        gelu_tanh(z[i][j][2 * h + 1] + bb1[hc + 1]));
+          float h0 = gelu_tanh(z[i][j][2 * h] + bb1[hc]);
+          float h1 = gelu_tanh(z[i][j][2 * h + 1] + bb1[hc + 1]);
+          drop_pair(drop, kSiteHidden,
+                    static_cast<unsigned long long>(row0 + r) * F + hc, h0,
+                    h1);
+          *reinterpret_cast<uint32_t*>(Hs + r * ldh + col) = pack_bf16(h0, h1);
         }
     __syncthreads();  // GELU slice complete
     warp_mma_kn<2, NI>(yacc, Hs, ldh, wm, ring_w2<D>(ring, step), ldw2, wn,
@@ -682,9 +420,11 @@ __global__ void __launch_bounds__(kFfnThreads, 1)
         if (r < valid) {
           const size_t g = static_cast<size_t>(row0 + r) * D + c;
           const float2 uv = *reinterpret_cast<const float2*>(u32 + g);
+          float z0 = yacc[i][j][2 * h] + bb2[c];
+          float z1 = yacc[i][j][2 * h + 1] + bb2[c + 1];
+          drop_pair(drop, kSiteFfnOut, g, z0, z1);
           *reinterpret_cast<uint32_t*>(y + g) =
-              pack_bf16(uv.x + (yacc[i][j][2 * h] + bb2[c]),
-                        uv.y + (yacc[i][j][2 * h + 1] + bb2[c + 1]));
+              pack_bf16(uv.x + z0, uv.y + z1);
         }
       }
 }
@@ -896,7 +636,7 @@ __global__ void __launch_bounds__(kF32Threads)
                 const float* __restrict__ w2, const float* __restrict__ bb2,
                 float* __restrict__ y, float* __restrict__ u,
                 float* __restrict__ res, int rows, int D, int F, int H,
-                int lanes, int NT, int KT) {
+                int lanes, int NT, int KT, Drop drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int lda = pad_f32(D), ldh = pad_f32(F), ldc = pad_f32(NT);
   const int ldb = pad_f32(D > NT ? D : NT);
@@ -927,7 +667,8 @@ __global__ void __launch_bounds__(kF32Threads)
     if (gr < rows) {
       const size_t g = static_cast<size_t>(gr);
       for (int c = lane; c < D; c += 32) {
-        ur[c] = x[g * D + c] + (ur[c] + bo[c]);
+        ur[c] = x[g * D + c] +
+                drop_one(drop, kSiteOut, g * D + c, ur[c] + bo[c]);
         u[g * D + c] = ur[c];
       }
       float mu, rstd;
@@ -953,7 +694,10 @@ __global__ void __launch_bounds__(kF32Threads)
     }
     for (int i = threadIdx.x; i < kF32Rows * NT; i += blockDim.x) {
       const int r = i / NT, j = i - r * NT;
-      Hs[r * ldh + n0 + j] = gelu_tanh(Cs[r * ldc + j] + bb1[n0 + j]);
+      Hs[r * ldh + n0 + j] = drop_one(
+          drop, kSiteHidden,
+          static_cast<unsigned long long>(row0 + r) * F + n0 + j,
+          gelu_tanh(Cs[r * ldc + j] + bb1[n0 + j]));
     }
   }
   // Cs-free accumulation of Hs @ W2 into As (LN2 output no longer needed)
@@ -966,9 +710,11 @@ __global__ void __launch_bounds__(kF32Threads)
   }
   for (int i = threadIdx.x; i < kF32Rows * D; i += blockDim.x) {
     const int r = i / D, c = i - r * D, gr = row0 + r;
-    if (gr < rows)
-      y[static_cast<size_t>(gr) * D + c] =
-          Us[r * lda + c] + (As[r * lda + c] + bb2[c]);
+    if (gr < rows) {
+      const size_t g = static_cast<size_t>(gr) * D + c;
+      y[g] = Us[r * lda + c] +
+             drop_one(drop, kSiteFfnOut, g, As[r * lda + c] + bb2[c]);
+    }
   }
 }
 
@@ -981,21 +727,9 @@ struct Args {
   void *y, *u, *res, *qkv, *att, *u32;
   int B, S, D, H, F, kv_len, lanes;
   float scale;
+  Drop drop;
   cudaStream_t stream;
 };
-
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-#define DEVT_TRY(expr)                       \
-  do {                                       \
-    const cudaError_t e_ = (expr);           \
-    if (e_ != cudaSuccess) return e_;        \
-  } while (0)
 
 template <int D, int HD>
 cudaError_t launch_bf16_shape(const Args& a) {
@@ -1004,11 +738,11 @@ cudaError_t launch_bf16_shape(const Args& a) {
   auto h = [](const void* p) { return static_cast<const bf16*>(p); };
 
   const size_t s1 = qkv_smem_bf16(D);
-  DEVT_TRY(set_smem(ln_qkv_bf16, s1));
-  ln_qkv_bf16<<<(rows + kQkvRows - 1) / kQkvRows, kQkvThreads, s1,
-                a.stream>>>(
+  DEVT_TRY(set_smem(ln_qkv_bf16<false>, s1));
+  ln_qkv_bf16<false><<<(rows + kQkvRows - 1) / kQkvRows, kQkvThreads, s1,
+                       a.stream>>>(
       h(a.x), f(a.g1), f(a.b1), h(a.wqkv), static_cast<bf16*>(a.qkv),
-      static_cast<float*>(a.res), rows, D, N3, a.H, a.lanes);
+      static_cast<float*>(a.res), nullptr, rows, D, N3, a.H, a.lanes);
   DEVT_TRY(cudaGetLastError());
 
   const size_t s2 = attn_smem_bf16(HD, a.kv_len);
@@ -1026,7 +760,7 @@ cudaError_t launch_bf16_shape(const Args& a) {
       h(a.x), h(a.att), h(a.wo), f(a.bo), f(a.g2), f(a.b2), h(a.w1),
       f(a.bb1), h(a.w2), f(a.bb2), static_cast<bf16*>(a.y),
       static_cast<bf16*>(a.u), static_cast<float*>(a.u32),
-      static_cast<float*>(a.res), rows, a.F, a.H, a.lanes);
+      static_cast<float*>(a.res), rows, a.F, a.H, a.lanes, a.drop);
   return cudaGetLastError();
 }
 
@@ -1070,8 +804,24 @@ cudaError_t launch_f32(const Args& a) {
   out_ffn_f32<<<row_blocks, kF32Threads, s3, a.stream>>>(
       f(a.x), att, f(a.wo), f(a.bo), f(a.g2), f(a.b2), f(a.w1), f(a.bb1),
       f(a.w2), f(a.bb2), static_cast<float*>(a.y), static_cast<float*>(a.u),
-      res, rows, a.D, a.F, a.H, a.lanes, nt_ffn, kt);
+      res, rows, a.D, a.F, a.H, a.lanes, nt_ffn, kt, a.drop);
   return cudaGetLastError();
+}
+
+// keep masks (1 = kept) of the three dropout sites for `rows` rows, from
+// the same device function the kernels draw from
+__global__ void dropout_masks_kernel(uint8_t* keep_o, uint8_t* keep_h,
+                                     uint8_t* keep_y, size_t n_d, size_t n_f,
+                                     Drop drop) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_d || i < n_f; i += stride) {
+    if (i < n_f) keep_h[i] = drop_keep(drop, kSiteHidden, i);
+    if (i < n_d) {
+      keep_o[i] = drop_keep(drop, kSiteOut, i);
+      keep_y[i] = drop_keep(drop, kSiteFfnOut, i);
+    }
+  }
 }
 
 }  // namespace
@@ -1080,7 +830,8 @@ cudaError_t launch_f32(const Args& a) {
 // in the (K, N) layout of the JAX kernel; LN parameters and biases are
 // f32.  qkv (B, S, 3D) and att (B, S, D) are scratch in x's type; u32
 // (B, S, D) is f32 scratch for the bfloat16 route (u before rounding),
-// unused by the float route.
+// unused by the float route.  rate > 0 turns the dropout of the three
+// sites on, drawn from `seed`.
 // Returns the CUDA error of the launches (0 on success); the launches are
 // asynchronous on `stream`.
 extern "C" int devt_fused_block_fwd(
@@ -1089,16 +840,32 @@ extern "C" int devt_fused_block_fwd(
     const void* b2, const void* w1, const void* bb1, const void* w2,
     const void* bb2, void* y, void* u, void* res, void* qkv, void* att,
     void* u32, int B, int S, int D, int H, int F, int kv_len, int lanes,
-    float scale, void* stream) {
+    float scale, double rate, unsigned long long seed, void* stream) {
+  if (rate < 0.0 || rate >= 1.0) return cudaErrorInvalidValue;
   const Args a{x,   g1,  b1,  wqkv, wo,  bo,  g2, b2, w1, bb1, w2,
                bb2, y,   u,   res,  qkv, att, u32, B, S, D,  H,  F,
-               kv_len, lanes, scale, static_cast<cudaStream_t>(stream)};
+               kv_len, lanes, scale, make_drop(rate, seed),
+               static_cast<cudaStream_t>(stream)};
   if (D % H || (D / H) % 16 || D % 16 || F % 16 || kv_len < 1 ||
       kv_len > S || lanes < H + 4)
     return cudaErrorInvalidValue;
   if (dtype == 0) return launch_f32(a);
   if (dtype == 1) return launch_bf16(a);
   return cudaErrorInvalidValue;
+}
+
+// The keep masks (uint8, 1 = kept) that a call with this seed and rate
+// applies: keep_o and keep_y (rows, D), keep_h (rows, F), rows = B * S.
+extern "C" int devt_dropout_masks(void* keep_o, void* keep_h, void* keep_y,
+                                  int rows, int D, int F, double rate,
+                                  unsigned long long seed, void* stream) {
+  if (rate <= 0.0 || rate >= 1.0) return cudaErrorInvalidValue;
+  const size_t n_d = static_cast<size_t>(rows) * D;
+  const size_t n_f = static_cast<size_t>(rows) * F;
+  dropout_masks_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(keep_o), static_cast<uint8_t*>(keep_h),
+      static_cast<uint8_t*>(keep_y), n_d, n_f, make_drop(rate, seed));
+  return cudaGetLastError();
 }
 
 extern "C" const char* devt_cuda_error_string(int code) {

@@ -1,23 +1,28 @@
-"""Fused pre-norm ViT block forward: a CUDA kernel and its plain version.
+"""Fused pre-norm ViT block: CUDA kernels for both passes, and their
+plain versions.
 
-Port of ``devt_tpu/ops/fused_block.py:_fwd_kernel`` (the Pallas kernel
-that ``fused_vit_block`` launches once per ViT block, 4 times per ViViT
-serving forward):
+Port of ``devt_tpu/ops/fused_block.py`` (``_fwd_kernel`` and
+``_bwd_kernel``, the Pallas kernels that ``fused_vit_block`` launches
+once per ViT block and pass: 4 forward and 4 backward launches per ViViT
+training step):
 
     a   = LN1(x)                      (γ1, β1; f32 stats)
     qkv = a @ Wqkv                    (no bias; columns ordered (3, H, d))
     att = MHA(qkv)                    (per head, additive -1e30 key mask,
                                        softmax normalised after PV)
-    u   = x + att @ Wo + bo
+    u   = x + drop(att @ Wo + bo)
     b   = LN2(u)
-    y   = u + gelu_tanh(b @ W1 + bb1) @ W2 + bb2
+    y   = u + drop(drop(gelu_tanh(b @ W1 + bb1)) @ W2 + bb2)
 
 Outputs y and u in x's dtype, and the residual lanes (B, S, 8) f32
-``[lse (H), mu1, rstd1, mu2, rstd2, 0…]`` that the backward kernel of the
-training slice reads.  Matrix operands are rounded to x's dtype and
-products accumulate in f32; LN statistics and softmax are f32.
+``[lse (H), mu1, rstd1, mu2, rstd2, 0…]`` that the backward reads.
+Matrix operands are rounded to x's dtype and products accumulate in f32;
+LN statistics and softmax are f32.  The backward recomputes the forward
+from (x, u, res) and returns dx and the 11 parameter gradients; the bias
+and LN-parameter gradients are sums of unrounded f32 values, and each
+gradient is cast to the dtype of the parameter tensor it belongs to.
 
-The kernel (``csrc/fused_block_fwd.cu``, CUDA C++ for sm_90a):
+The forward kernel (``csrc/fused_block_fwd.cu``, CUDA C++ for sm_90a):
   * Replaces ``devt_tpu/ops/fused_block.py:177 _fwd_kernel``, launched
     from ``_fwd_call`` (``:414``).
   * Bound at the main-path shape (512, 208, 192, 3 heads, MLP 768): per
@@ -35,13 +40,38 @@ The kernel (``csrc/fused_block_fwd.cu``, CUDA C++ for sm_90a):
     kernel's one-shot softmax; out-projection+LN2+FFN per 128 rows with
     Wo, W1 and W2 slices double-buffered by cp.async.  The bf16 products are
     mma.sync m16n8k16 tiles fed by ldmatrix, accumulating in registers;
-    the f32 route uses FMA loops; no library GEMM.  The kernel reaches
-    about a tenth of the bound (mma.sync, not wgmma); its times are in
-    PERF.md.
+    the f32 route uses FMA loops; no library GEMM.
 
-``fused_vit_block`` launches the kernel for CUDA tensors (or raises) and
-runs ``fused_vit_block_fwd_plain`` only for CPU tensors.  Its ``launches``
-attribute counts kernel launches (one per call on the card).
+The backward kernel (``csrc/fused_block_bwd.cu``):
+  * Replaces ``devt_tpu/ops/fused_block.py:240 _bwd_kernel``, launched
+    from ``_bwd_call`` (``:455``).
+  * Bound at the same shape: 2·(11·D² + 5·D·MLP + 6·kv_len·D) operations
+    per row, 291.7 GFLOP, against about 0.17 GB moved: compute-bound,
+    about 0.295 ms at 989 TFLOP/s bf16.
+  * Design: the TPU grid runs in order and accumulates the parameter
+    gradients in resident output blocks; CUDA blocks run concurrently.
+    Row-tile kernels (LN1+qkv recompute; FFN recompute and backward to
+    dz1; dz1·W1ᵀ with the LN2 backward; doproj·Woᵀ; attention recompute
+    and backward per (head, sequence); dqkv·Wqkvᵀ with the LN1 backward)
+    leave the operands of the four weight gradients in global memory in
+    x's dtype — the roundings the TPU kernel applies before those
+    products — and the column sums of their 64 rows in a partial buffer.
+    The weight gradients are split-K products (64 × 64 output tile, 2048
+    rows a block) into f32 partials, and a last kernel sums all partials
+    in index order.  No atomics: **two runs give the same bits**.
+
+Dropout: counter-based Philox4x32-10 keyed by the call's seed, counter
+(site, flat element index), so an element's mask depends on neither grid
+nor launch and the backward regenerates the forward's masks.  The plain
+versions take the three ``keep`` masks as an argument; ``dropout_masks``
+returns the masks a call with a given seed applies (on the card from the
+kernels' own device function, on the CPU from a seeded
+``torch.Generator``).  The kernels' times are in PERF.md.
+
+``fused_vit_block`` launches the kernels for CUDA tensors (or raises) and
+runs the plain versions only for CPU tensors.  Its ``launches`` and
+``bwd_launches`` attributes count forward and backward kernel launches
+(one per call and pass on the card).
 """
 
 from __future__ import annotations
@@ -65,6 +95,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (dim, head dim) pairs the bfloat16 kernels are instantiated for
 # (csrc/fused_block_fwd.cu:launch_bf16): ViViT's, and a small test width
 _BF16_WIDTHS = ((192, 64), (64, 32))
+# dynamic shared memory one block can have on sm_90 (227 KB)
+_SMEM_PER_BLOCK = 232448
 
 
 def _ln(x32, gamma, beta):
@@ -82,17 +114,42 @@ def _gelu(z32):
     return 0.5 * z32 * (1.0 + t)
 
 
+def _dgelu(z32):
+    inner = _GELU_C * (z32 + _GELU_K * z32 * z32 * z32)
+    t = torch.tanh(inner)
+    dinner = _GELU_C * (1.0 + 3.0 * _GELU_K * z32 * z32)
+    return 0.5 * (1.0 + t) + 0.5 * z32 * (1.0 - t * t) * dinner
+
+
+def _ln_bwd(dy_hat, xhat, rstd):
+    """d/dx of LN given the upstream gradient through the scale (dy·γ)."""
+    m1 = dy_hat.mean(dim=-1, keepdim=True)
+    m2 = (dy_hat * xhat).mean(dim=-1, keepdim=True)
+    return rstd * (dy_hat - m1 - xhat * m2)
+
+
+def _drop(t, keep, rate):
+    """Dropout with a given keep mask: kept values scaled by 1/(1-rate)."""
+    if keep is None:
+        return t
+    return torch.where(keep.bool(), t * (1.0 / (1.0 - rate)),
+                       torch.zeros((), dtype=t.dtype, device=t.device))
+
+
 def _mm(a, w, dtype):
     """``a @ w`` with both operands rounded to ``dtype`` and an f32 result
     (``preferred_element_type=f32``)."""
     return a.to(dtype).float() @ w.to(dtype).float()
 
 
+def _mask_bias(s_len, kv_len, device):
+    col = torch.arange(s_len, device=device)
+    return torch.where(col < kv_len, 0.0, NEG_INF).to(torch.float32)
+
+
 def _mha_fwd(qkv, heads, d, scale, kv_len, dtype):
     """qkv (B, S, 3HD) f32 → (att (B, S, HD) f32, lse (B, S, H) f32)."""
-    s_len = qkv.shape[1]
-    col = torch.arange(s_len, device=qkv.device)
-    bias = torch.where(col < kv_len, 0.0, NEG_INF).to(torch.float32)
+    bias = _mask_bias(qkv.shape[1], kv_len, qkv.device)
     outs, lses = [], []
     for i in range(heads):
         q = qkv[..., i * d:(i + 1) * d]
@@ -107,22 +164,120 @@ def _mha_fwd(qkv, heads, d, scale, kv_len, dtype):
     return torch.cat(outs, dim=-1), torch.cat(lses, dim=-1)
 
 
-def fused_vit_block_fwd_plain(x, params, heads, scale, kv_len):
-    """Plain PyTorch version of the kernel: (y, u, res) as above."""
+def _mha_fwd_bwd(qkv, lse, datt, heads, d, scale, kv_len, dtype):
+    """Attention recompute and backward in one pass, as the JAX kernel's
+    ``_mha_fwd_bwd``: p = exp(s - lse) from the stored lse (no max pass),
+    every product's operands rounded to ``dtype``.  Returns (att, dqkv),
+    dqkv columns ordered like qkv's."""
+    bias = _mask_bias(qkv.shape[1], kv_len, qkv.device)
+    outs, dqs, dks, dvs = [], [], [], []
+    for i in range(heads):
+        q = qkv[..., i * d:(i + 1) * d]
+        k = qkv[..., (heads + i) * d:(heads + i + 1) * d]
+        v = qkv[..., (2 * heads + i) * d:(2 * heads + i + 1) * d]
+        do = datt[..., i * d:(i + 1) * d]
+        s = _mm(q, k.transpose(1, 2), dtype) * scale + bias
+        p = torch.exp(s - lse[..., i:i + 1])
+        o = _mm(p, v, dtype)
+        delta = (do * o).sum(dim=-1, keepdim=True)
+        dvs.append(_mm(p.transpose(1, 2), do, dtype))
+        dp = _mm(do, v.transpose(1, 2), dtype)
+        ds = p * (dp - delta) * scale
+        dqs.append(_mm(ds, k, dtype))
+        dks.append(_mm(ds.transpose(1, 2), q, dtype))
+        outs.append(o)
+    return torch.cat(outs, dim=-1), torch.cat(dqs + dks + dvs, dim=-1)
+
+
+def fused_vit_block_fwd_plain(x, params, heads, scale, kv_len, keep=None,
+                              dropout_rate=0.0):
+    """Plain PyTorch version of the forward kernel: (y, u, res) as above.
+    ``keep``: the three keep masks (out-projection (B, S, D), FFN hidden
+    (B, S, MLP), FFN output (B, S, D)) for ``dropout_rate`` > 0."""
     dtype = x.dtype
     d = x.shape[-1] // heads
+    keep_o, keep_h, keep_y = keep if keep is not None else (None,) * 3
     p = {k: params[k].float() for k in PARAM_NAMES}
     x32 = x.float()
     a, _, mu1, rstd1 = _ln(x32, p["g1"][0], p["b1"][0])
     qkv = _mm(a, params["wqkv"], dtype)
     att, lse = _mha_fwd(qkv, heads, d, scale, kv_len, dtype)
-    u = x32 + (_mm(att, params["wo"], dtype) + p["bo"][0])
+    u = x32 + _drop(_mm(att, params["wo"], dtype) + p["bo"][0], keep_o,
+                    dropout_rate)
     b, _, mu2, rstd2 = _ln(u, p["g2"][0], p["b2"][0])
-    h = _gelu(_mm(b, params["w1"], dtype) + p["bb1"][0])
-    y = u + (_mm(h, params["w2"], dtype) + p["bb2"][0])
+    h = _drop(_gelu(_mm(b, params["w1"], dtype) + p["bb1"][0]), keep_h,
+              dropout_rate)
+    y = u + _drop(_mm(h, params["w2"], dtype) + p["bb2"][0], keep_y,
+                  dropout_rate)
     res = torch.cat([lse, mu1, rstd1, mu2, rstd2], dim=-1)
     res = F.pad(res, (0, _round_up(heads + 4, 8) - heads - 4))
     return y.to(dtype), u.to(dtype), res
+
+
+def fused_vit_block_bwd_plain(x, params, u, res, dy, heads, scale, kv_len,
+                              keep=None, dropout_rate=0.0):
+    """Plain PyTorch version of the backward kernel, step by step with the
+    JAX ``_bwd_kernel``'s roundings (not autograd of the forward): LN
+    statistics and lse come from ``res``, ``u`` is the stored, rounded u,
+    every product's operands are rounded to x's dtype with f32
+    accumulation, and the bias and LN-parameter gradients are sums of the
+    unrounded f32 values.  Returns (dx in x's dtype, {name: gradient in
+    the dtype of ``params[name]``, rows shaped (1, N)})."""
+    dtype = x.dtype
+    dim = x.shape[-1]
+    d = dim // heads
+    keep_o, keep_h, keep_y = keep if keep is not None else (None,) * 3
+    rate = dropout_rate
+    p = {k: params[k].float() for k in PARAM_NAMES}
+    x32, u32, dy32 = x.float(), u.float(), dy.float()
+    lse = res[..., :heads]
+    mu1, rstd1 = res[..., heads:heads + 1], res[..., heads + 1:heads + 2]
+    mu2, rstd2 = res[..., heads + 2:heads + 3], res[..., heads + 3:heads + 4]
+    g1, g2 = p["g1"][0], p["g2"][0]
+
+    def flat(t):
+        return t.reshape(-1, t.shape[-1])
+
+    def rows(t):                       # sum over (B, S), keep (1, N)
+        return flat(t).sum(dim=0, keepdim=True)
+
+    # recompute the forward pieces
+    xhat1 = (x32 - mu1) * rstd1
+    a = xhat1 * g1 + p["b1"][0]
+    qkv = _mm(a, params["wqkv"], dtype)
+    xhat2 = (u32 - mu2) * rstd2
+    b = xhat2 * g2 + p["b2"][0]
+    z1 = _mm(b, params["w1"], dtype) + p["bb1"][0]
+    h = _drop(_gelu(z1), keep_h, rate)
+
+    grads = {}
+    # FFN backward
+    dz2 = _drop(dy32, keep_y, rate)
+    dh = _mm(dz2, params["w2"].t(), dtype)
+    grads["w2"] = _mm(flat(h).t(), flat(dz2), dtype)
+    grads["bb2"] = rows(dz2)
+    dz1 = _drop(dh, keep_h, rate) * _dgelu(z1)
+    grads["w1"] = _mm(flat(b).t(), flat(dz1), dtype)
+    grads["bb1"] = rows(dz1)
+    db = _mm(dz1, params["w1"].t(), dtype)
+    # LN2 backward
+    grads["g2"] = rows(db * xhat2)
+    grads["b2"] = rows(db)
+    du = dy32 + _ln_bwd(db * g2, xhat2, rstd2)
+    # attention out-projection and core backward
+    doproj = _drop(du, keep_o, rate)
+    datt = _mm(doproj, params["wo"].t(), dtype)
+    att, dqkv = _mha_fwd_bwd(qkv, lse, datt, heads, d, scale, kv_len, dtype)
+    grads["wo"] = _mm(flat(att).t(), flat(doproj), dtype)
+    grads["bo"] = rows(doproj)
+    # qkv projection and LN1 backward
+    da = _mm(dqkv, params["wqkv"].t(), dtype)
+    grads["wqkv"] = _mm(flat(a).t(), flat(dqkv), dtype)
+    grads["g1"] = rows(da * xhat1)
+    grads["b1"] = rows(da)
+    dx = du + _ln_bwd(da * g1, xhat1, rstd1)
+    return dx.to(dtype), {k: grads[k].to(params[k].dtype)
+                          for k in PARAM_NAMES}
 
 
 def reference_vit_block(x, params, heads, scale, kv_len):
@@ -136,6 +291,50 @@ def reference_vit_block(x, params, heads, scale, kv_len):
     b, _, _, _ = _ln(u, p["g2"], p["b2"])
     y = u + _gelu(b @ p["w1"] + p["bb1"]) @ p["w2"] + p["bb2"]
     return y.to(x.dtype)
+
+
+def dropout_cutoff(rate: float) -> int:
+    """keep where the 32 random bits are >= this (the JAX kernels' rule)."""
+    return min(int(rate * (1 << 32)), (1 << 32) - 1)
+
+
+def dropout_masks(seed: int, rate: float, bsz: int, s: int, dim: int,
+                  mlp: int, device) -> tuple[torch.Tensor, ...]:
+    """The three keep masks (bool: out-projection (B, S, D), FFN hidden
+    (B, S, MLP), FFN output (B, S, D)) that ``fused_vit_block`` applies on
+    ``device`` for this seed and rate: on the card the Philox masks of the
+    kernels, written by the library's own mask kernel; on the CPU masks
+    drawn from a ``torch.Generator`` seeded with ``seed``."""
+    device = torch.device(device)
+    shapes = ((bsz, s, dim), (bsz, s, mlp), (bsz, s, dim))
+    if device.type == "cpu":
+        gen = torch.Generator().manual_seed(seed)
+        cutoff = dropout_cutoff(rate)
+        return tuple(torch.randint(0, 1 << 32, shape, generator=gen) >= cutoff
+                     for shape in shapes)
+    from devt_tpu_torch.ops import _build
+
+    lib = _build.load("fused_block_fwd", _declare_fwd)
+    keep_o, keep_h, keep_y = (torch.empty(shape, dtype=torch.uint8,
+                                          device=device) for shape in shapes)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.devt_dropout_masks(
+            _ptr(keep_o), _ptr(keep_h), _ptr(keep_y), bsz * s, dim, mlp,
+            ctypes.c_double(rate), ctypes.c_ulonglong(seed),
+            ctypes.c_void_p(stream))
+    _check(lib, rc, "dropout_masks")
+    return keep_o.bool(), keep_h.bool(), keep_y.bool()
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(lib, rc, what):
+    if rc != 0:
+        msg = lib.devt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
 def _check_cuda_args(x, params, heads):
@@ -172,30 +371,11 @@ def _check_cuda_args(x, params, heads):
                          f"got dim={dim} d={d} mlp={mlp}")
 
 
-def fused_vit_block(x, params, heads, scale, kv_len, dropout_rate=0.0):
-    """One fused pre-norm ViT block forward → (y, u, res).
-
-    x (B, S, D); ``params`` holds g1/b1/wqkv/wo/bo/g2/b2/w1/bb1/w2/bb2 in
-    the JAX kernel's layout: weight matrices (K, N) in x's dtype, LN
-    parameters and biases (1, N) f32.  ``kv_len`` masks key padding.
-
-    A CUDA tensor launches the kernel (raising if the launch fails); a CPU
-    tensor runs the plain version.  The JAX function returns only y
-    because its custom_vjp keeps u and res for the backward; here they are
-    returned for the training slice's backward kernel."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "in-kernel dropout (Philox) comes with the training slice — "
-            "ROADMAP.md; serving runs with dropout_rate=0")
-    if x.device.type == "cpu":
-        return fused_vit_block_fwd_plain(x, params, heads, scale, kv_len)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_vit_block runs on cuda or cpu, not "
-                         f"{x.device}")
+def _fwd_cuda(x, params, heads, scale, kv_len, rate, seed):
     _check_cuda_args(x, params, heads)
     from devt_tpu_torch.ops import _build
 
-    lib = _build.load("fused_block_fwd", _declare)
+    lib = _build.load("fused_block_fwd", _declare_fwd)
     bsz, s, dim = x.shape
     lanes = _round_up(heads + 4, 8)
     y = torch.empty_like(x)
@@ -206,30 +386,174 @@ def fused_vit_block(x, params, heads, scale, kv_len, dropout_rate=0.0):
     # u before its rounding to bf16, for the last residual add
     u32 = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
         if x.dtype == torch.bfloat16 else None
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.devt_fused_block_fwd(
-            _DTYPE_CODE[x.dtype], ptr(x),
-            *(ptr(params[k]) for k in PARAM_NAMES),
-            ptr(y), ptr(u), ptr(res), ptr(qkv), ptr(att),
-            ptr(u32) if u32 is not None else None,
+            _DTYPE_CODE[x.dtype], _ptr(x),
+            *(_ptr(params[k]) for k in PARAM_NAMES),
+            _ptr(y), _ptr(u), _ptr(res), _ptr(qkv), _ptr(att),
+            _ptr(u32) if u32 is not None else None,
             bsz, s, dim, heads, params["w1"].shape[-1], int(kv_len), lanes,
-            ctypes.c_float(scale), ctypes.c_void_p(stream))
-    if rc != 0:
-        msg = lib.devt_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_block_fwd launch failed: {msg} ({rc})")
+            ctypes.c_float(scale), ctypes.c_double(rate),
+            ctypes.c_ulonglong(seed), ctypes.c_void_p(stream))
+    _check(lib, rc, "fused_block_fwd")
     fused_vit_block.launches += 1
     return y, u, res
 
 
+def _bwd_cuda(x, params, u, res, dy, heads, scale, kv_len, rate, seed):
+    _check_cuda_args(x, params, heads)
+    bsz, s, dim = x.shape
+    mlp = params["w1"].shape[-1]
+    for name, t, shape in (("u", u, x.shape), ("dy", dy, x.shape)):
+        if t.dtype != x.dtype or t.shape != shape or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {x.dtype} tensor of "
+                             f"shape {tuple(shape)} on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if res.dtype != torch.float32 or res.shape[:2] != x.shape[:2] \
+            or res.shape[2] < heads + 4 or res.device != x.device \
+            or not res.is_contiguous():
+        raise ValueError(f"res: need the contiguous f32 (B, S, >= heads+4) "
+                         f"residual lanes of the forward on {x.device}, got "
+                         f"{res.dtype} {tuple(res.shape)} on {res.device}")
+    if s % 16:
+        raise ValueError(f"the backward kernel needs a token count that is a "
+                         f"multiple of 16, got {s}")
+    if x.dtype == torch.bfloat16:
+        # q, k, v and datt of one head (rows padded by 8) plus lse and delta
+        need = 4 * s * (dim // heads + 8) * 2 + 2 * s * 4 + 512
+        if need > _SMEM_PER_BLOCK:
+            raise ValueError(
+                f"the bfloat16 backward keeps one head's q, k, v and datt in "
+                f"shared memory: {s} tokens of head dim {dim // heads} need "
+                f"{need} bytes, a block has {_SMEM_PER_BLOCK}")
+    from devt_tpu_torch.ops import _build
+
+    lib = _build.load("fused_block_bwd", _declare_bwd)
+    code = _DTYPE_CODE[x.dtype]
+    nbytes = lib.devt_fused_block_bwd_scratch(code, bsz, s, dim, heads, mlp)
+    if nbytes == 0:
+        raise RuntimeError(f"fused_block_bwd takes no shape "
+                           f"{(bsz, s, dim, heads, mlp)}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    dx = torch.empty_like(x)
+    grads = {k: torch.empty_like(params[k]) for k in PARAM_NAMES}
+    grad_ptrs = (ctypes.c_void_p * len(PARAM_NAMES))(
+        *(grads[k].data_ptr() for k in PARAM_NAMES))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.devt_fused_block_bwd(
+            code, _ptr(x), *(_ptr(params[k]) for k in PARAM_NAMES),
+            _ptr(u), _ptr(res), _ptr(dy), _ptr(dx), grad_ptrs, _ptr(scratch),
+            bsz, s, dim, heads, mlp, int(kv_len), res.shape[2],
+            ctypes.c_float(scale), ctypes.c_double(rate),
+            ctypes.c_ulonglong(seed), ctypes.c_void_p(stream))
+    _check(lib, rc, "fused_block_bwd")
+    fused_vit_block.bwd_launches += 1
+    return dx, grads
+
+
+class FusedViTBlock(torch.autograd.Function):
+    """The fused block with its backward: the kernels for CUDA tensors, the
+    plain versions for CPU tensors.  Saves (x, params, u, res) and the
+    seed; the backward regenerates the dropout masks from the seed."""
+
+    @staticmethod
+    def forward(ctx, x, heads, scale, kv_len, rate, seed, *tensors):
+        params = dict(zip(PARAM_NAMES, tensors))
+        if x.device.type == "cuda":
+            y, u, res = _fwd_cuda(x, params, heads, scale, kv_len, rate,
+                                  seed)
+        elif x.device.type == "cpu":
+            keep = None
+            if rate > 0.0:
+                keep = dropout_masks(seed, rate, *x.shape,
+                                     params["w1"].shape[-1], x.device)
+            y, u, res = fused_vit_block_fwd_plain(x, params, heads, scale,
+                                                  kv_len, keep, rate)
+        else:
+            raise ValueError(f"fused_vit_block runs on cuda or cpu, not "
+                             f"{x.device}")
+        ctx.save_for_backward(x, u, res, *tensors)
+        ctx.args = (heads, scale, kv_len, rate, seed)
+        ctx.mark_non_differentiable(u, res)
+        return y, u, res
+
+    @staticmethod
+    def backward(ctx, dy, _du, _dres):
+        x, u, res, *tensors = ctx.saved_tensors
+        heads, scale, kv_len, rate, seed = ctx.args
+        params = dict(zip(PARAM_NAMES, tensors))
+        # the gradient crosses the kernel boundary in x's dtype
+        dy = dy.to(x.dtype).contiguous()
+        if x.device.type == "cuda":
+            dx, grads = _bwd_cuda(x, params, u, res, dy, heads, scale,
+                                  kv_len, rate, seed)
+        else:
+            keep = None
+            if rate > 0.0:
+                keep = dropout_masks(seed, rate, *x.shape,
+                                     params["w1"].shape[-1], x.device)
+            dx, grads = fused_vit_block_bwd_plain(
+                x, params, u, res, dy, heads, scale, kv_len, keep, rate)
+        return (dx, None, None, None, None, None,
+                *(grads[k] for k in PARAM_NAMES))
+
+
+def fused_vit_block(x, params, heads, scale, kv_len, dropout_rate=0.0,
+                    seed=None):
+    """One fused pre-norm ViT block → (y, u, res), differentiable in x and
+    the 11 parameters.
+
+    x (B, S, D); ``params`` holds g1/b1/wqkv/wo/bo/g2/b2/w1/bb1/w2/bb2 in
+    the JAX kernel's layout: weight matrices (K, N) in x's dtype, LN
+    parameters and biases (1, N) f32.  ``kv_len`` masks key padding.
+    ``dropout_rate`` > 0 applies the three dropout sites inside the block
+    and needs ``seed`` (an int the caller draws once per call; the JAX
+    wrapper draws ``randint(0, 2**30)``); the backward uses the same seed.
+
+    A CUDA tensor launches the kernels (raising if a launch fails); a CPU
+    tensor runs the plain versions.  The JAX function returns only y
+    because its custom_vjp keeps u and res to itself; here they are
+    returned too (not differentiable)."""
+    rate = float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if rate > 0.0 and seed is None:
+        raise ValueError("dropout_rate > 0 needs a seed")
+    return FusedViTBlock.apply(x, heads, float(scale), int(kv_len), rate,
+                               int(seed) if rate > 0.0 else 0,
+                               *(params[k] for k in PARAM_NAMES))
+
+
 fused_vit_block.launches = 0
+fused_vit_block.bwd_launches = 0
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _declare_fwd(lib: ctypes.CDLL) -> None:
     lib.devt_fused_block_fwd.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_double, ctypes.c_ulonglong,
+           ctypes.c_void_p])
     lib.devt_fused_block_fwd.restype = ctypes.c_int
+    lib.devt_dropout_masks.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_double, ctypes.c_ulonglong, ctypes.c_void_p])
+    lib.devt_dropout_masks.restype = ctypes.c_int
+    lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.devt_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    lib.devt_fused_block_bwd_scratch.argtypes = [ctypes.c_int] * 6
+    lib.devt_fused_block_bwd_scratch.restype = ctypes.c_ulonglong
+    lib.devt_fused_block_bwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 16
+        + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_double, ctypes.c_ulonglong,
+           ctypes.c_void_p])
+    lib.devt_fused_block_bwd.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p

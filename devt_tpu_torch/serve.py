@@ -44,7 +44,7 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 def _todo(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet — ROADMAP.md "
-                               f"queue 1, item 9")
+                               f"queue 1, item 3")
 
 
 class Predictor:

@@ -1,0 +1,76 @@
+"""Train state: port of ``devt_tpu/train/state.py``.
+
+The step count, the model's parameters, its mutable collections (buffers
+such as BatchNorm statistics; ViViT has none) and the optimizer state.
+
+Unlike the JAX pytree, which every step replaces, the state here is
+updated **in place**: ``params`` are the model's own ``nn.Parameter``s by
+name (``dict(model.named_parameters())``), and ``apply_gradients`` adds the
+optimizer's updates to them and returns a state that shares their storage.
+``step`` is a host integer: folding it into the randomness of a step and
+into the schedules costs no device synchronisation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+def _map_tensors(tree: Any, fn):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: dict[str, torch.Tensor]
+    model_state: dict[str, torch.Tensor]   # e.g. BatchNorm buffers; {} if none
+    opt_state: Any
+    tx: Any                                # train.optimizers.Chain
+
+    @classmethod
+    def create(cls, params: dict[str, torch.Tensor], tx,
+               model_state: dict[str, torch.Tensor] | None = None
+               ) -> "TrainState":
+        params = dict(params)
+        return cls(step=0, params=params, model_state=dict(model_state or {}),
+                   opt_state=tx.init(list(params.values())), tx=tx)
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.params.values())).device
+
+    def to(self, device) -> "TrainState":
+        """Move parameters (in place, keeping the model's ``Parameter``
+        objects), model state and optimizer state to ``device``."""
+        device = torch.device(device)
+        with torch.no_grad():
+            for p in self.params.values():
+                p.data = p.data.to(device)
+            for b in self.model_state.values():
+                b.data = b.data.to(device)
+        self.opt_state = _map_tensors(self.opt_state,
+                                      lambda t: t.to(device))
+        return self
+
+    def apply_gradients(self, grads: dict[str, torch.Tensor],
+                        new_model_state: dict | None = None) -> "TrainState":
+        """One optimizer update, in place; ``grads`` by parameter name."""
+        params = list(self.params.values())
+        with torch.no_grad():
+            updates = self.tx.update([grads[k] for k in self.params],
+                                     self.opt_state, params)
+            torch._foreach_add_(params, updates)
+        return dataclasses.replace(
+            self, step=self.step + 1,
+            model_state=(self.model_state if new_model_state is None
+                         else new_model_state))

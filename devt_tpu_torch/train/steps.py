@@ -1,0 +1,59 @@
+"""Per-model forward + loss: port of ``devt_tpu/train/steps.py``.
+
+One function dispatches on the model name and returns ``(loss, aux,
+new_model_state)``.  ``aux`` carries ``probs`` (post-sigmoid/softmax
+scores) and ``label`` for the epoch-end evaluators.  Only ``vivit`` is
+ported; the other names raise until their models are (ROADMAP.md queue 1,
+item 5), and the MoE load-balance term comes with the MoE slice (item 6).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import torch
+from torch import nn
+
+from devt_tpu_torch.config import Config
+from devt_tpu_torch.data.device_norm import maybe_dequantize_batch
+from devt_tpu_torch.models import losses
+from devt_tpu_torch.registry import model_dtype
+
+
+def forward_and_loss(model: nn.Module, config: Config,
+                     variables: Mapping[str, Any],
+                     batch: Mapping[str, torch.Tensor], rng,
+                     train: bool):
+    """Returns (loss, aux, new_model_state).
+
+    ``variables``: ``{"params": {name: tensor}, **model_state}`` — the
+    tensors the forward runs with (``torch.func.functional_call``), so the
+    loss is differentiable in ``variables["params"]``.  ``rng``: the
+    forward's ``DropoutRng`` (``models/layers.py``) when training, else
+    None.  u8 ``vid``/``vid_tokens`` batches are normalized here, on the
+    device (``data/device_norm.py``)."""
+    name = config.model
+    if name != "vivit":
+        raise NotImplementedError(
+            f"no step logic for model {name!r} yet — ROADMAP.md queue 1, "
+            f"item 5 (only 'vivit' is ported)")
+    batch = maybe_dequantize_batch(dict(batch), dtype=model_dtype(config))
+    model_state = {k: v for k, v in variables.items() if k != "params"}
+    tensors = {**variables["params"], **model_state}
+    model.train(train)
+    label = batch["label"]
+    # "vid_tokens": pre-patchified (B, T, N, p*p*c) clips, the layout the
+    # native loader emits at decode time
+    if "vid_tokens" in batch:
+        args, kwargs = (batch["vid_tokens"],), {"tokens_in": True}
+    else:
+        args, kwargs = (batch["vid"],), {}
+    logits = torch.func.functional_call(
+        model, tensors, args, {**kwargs, "rng": rng if train else None})
+    if label.dim() == 1:       # single-label (MIT-style)
+        loss = losses.cross_entropy(logits, label)
+        probs = torch.softmax(logits, dim=-1)
+    else:                      # multi-hot genres (MMX-style)
+        loss = losses.bce_with_logits(logits, label)
+        probs = torch.sigmoid(logits)
+    return loss, {"probs": probs, "label": label}, model_state

@@ -11,6 +11,12 @@ the port's ``state_dict`` by name:
 
 Names follow ``devt_tpu/models/layers.py:117-160`` (``attn_norm``,
 ``attn/to_qkv``, ``attn/to_out``, ``ff_norm``, ``ff/fc1``, ``ff/fc2``).
+
+``jax_to_state_dict`` maps any tree shaped like the parameters, not only
+weights: a gradient tree (``jax.grad`` of the loss) and optax's ``mu`` /
+``nu`` moment trees come out keyed like ``named_parameters()``, each leaf
+transposed as its parameter is.  The training tests compare gradients and
+optimizer moments through it.
 """
 
 from __future__ import annotations

@@ -125,8 +125,14 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
 
 
 def test_wrapper_refuses_dropout():
+    """Dropout without a seed is refused: the caller draws the seed, so
+    that the forward and the backward of one call share it."""
     x, params = _make()
-    with pytest.raises(NotImplementedError, match="Philox"):
+    with pytest.raises(ValueError, match="needs a seed"):
         tfb.fused_vit_block(torch.tensor(x),
                             _torch_params(params, torch.float32), HEADS,
                             SCALE, 16, dropout_rate=0.1)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        tfb.fused_vit_block(torch.tensor(x),
+                            _torch_params(params, torch.float32), HEADS,
+                            SCALE, 16, dropout_rate=1.0, seed=1)

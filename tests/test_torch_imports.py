@@ -36,6 +36,53 @@ def test_port_imports_no_jax_and_no_devt_tpu(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_walk_covers_the_training_slice():
+    """The walk globs the package, so new directories are picked up; pin
+    the ones the training slice added."""
+    walked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("devt_tpu_torch/train/steps.py",
+                "devt_tpu_torch/train/optimizers.py",
+                "devt_tpu_torch/train/state.py",
+                "devt_tpu_torch/parallel/train_step.py",
+                "devt_tpu_torch/models/losses.py",
+                "devt_tpu_torch/ops/fused_block.py",
+                "devt_tpu_torch/ops/_build.py", "chip_smoke.py"):
+        assert rel in walked, rel
+
+
+def test_step_executors_need_a_card_unless_the_cpu_is_asked_for():
+    """``device=None`` means the card and raises without one;
+    ``device="cpu"`` runs the plain path."""
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.models.vivit import ViViT
+    from devt_tpu_torch.parallel import train_step as tts
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    cfg = tconfig.Config(model="vivit", precision="f32", n_classes=3,
+                         frame_len=2)
+    model = ViViT(image_size=16, patch_size=8, num_classes=3, num_frames=2,
+                  dim=32, depth=1, heads=2, dim_head=16, channels_last=True) \
+        .init_weights(torch.Generator().manual_seed(0))
+    if not torch.cuda.is_available():
+        for make in (tts.make_train_step, tts.make_eval_step):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make(model, cfg, device=None)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tts.make_multi_step(model, cfg, 2)
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    rng = np.random.default_rng(0)
+    batch = {"vid": rng.standard_normal((2, 2, 16, 16, 3)).astype(np.float32),
+             "label": np.eye(3, dtype=np.float32)[:2]}
+    state, metrics = tts.make_train_step(model, cfg, device="cpu")(
+        state, batch, 0)
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
+    assert state.device.type == "cpu"
+
+
 def test_forbidden_matcher():
     assert _forbidden("jax.numpy") and _forbidden("devt_tpu.ops")
     assert _forbidden("orbax.checkpoint") and _forbidden("devt_tpu")
