@@ -33,6 +33,27 @@ Phases, each printing a line of its own; any failure exits non-zero:
                on 2 clips against the CPU's plain path; clips/s as the best
                of 3 windows with the host's share of a step, and a profile
                of one step; then a few steps with dropout 0.1.
+  8. kernel-quant — the int8 fused ViT block at the shape of phase 3, bf16
+               and f32, against its plain version; times of the kernel, the
+               plain version and the bf16 fused block on the same input.
+  9. kernel-int8-matmul — the fused int8 matmul at PTN's two Linear shapes,
+               (3584, 2048) x (2048, 6144) and x (2048, 2048), bf16, bit for
+               bit against its plain version; F.linear in bf16 and
+               torch._int_mm with its own quantize pass as yardsticks.
+ 10. kernel-mha — the packed-qkv attention at PTN's shape (256, 16, 6144),
+               8 heads of 256, kv_len 14, and at the ViT shape
+               (512, 208, 576), 3 heads of 64, kv_len 197, bf16 and f32: o
+               and lse against the plain version;
+               F.scaled_dot_product_attention as a yardstick.
+ 11. serve-int8 — the ViViT of phase 4 behind Predictor(quantize=True):
+               4 int8-block launches per bucket call and none of the bf16
+               block, scores against the same quantized model on the CPU
+               and against phase 4's bf16 scores; clips/s and a profile.
+ 12. serve-ptn — PTN at full width (256 rows, 13 scenes, 2 experts, 2
+               layers, width 2048, 8 heads, bf16) behind three Predictors:
+               bf16, int8 with the default site policy, int8 at every site;
+               4 attention launches per forward and 0 / 4 / 16 int8-matmul
+               launches; the first rows against the CPU; rows/s of each.
 
 The last lines are a JSON line of the kernels, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  With no CUDA device, or without the
@@ -50,8 +71,9 @@ import time
 SEED = 1130
 # main-path shape of the fused block: ViViT space transformer at bucket 32
 B, S, D, HEADS, MLP, KV_LEN = 512, 208, 192, 3, 768, 197
-# NVIDIA H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 FMA, HBM
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# NVIDIA H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, f32
+# FMA, HBM
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 # |kernel - plain| <= atol + rtol * |plain|.  f32: the two sum in other
 # orders.  bf16: the same roundings, but a sum that lands on the other
@@ -84,6 +106,30 @@ GRAD_RTOL, GRAD_FLOOR = 5e-2, 1e-6
 # the measured drop share of a site must be within this of the rate (4
 # standard deviations at the smallest site, 20.4 M elements, is 2.7e-4)
 DROP_BAND = 1e-3
+
+
+# The int8 block against its plain version: the two quantize the same
+# LayerNorm outputs with the same formula, but an output within an ulp of a
+# half-integer after scaling may round to the neighbouring int8 code in one
+# of the two, which moves that row's qkv or hidden product by one
+# quantization step (1/127 of the row's largest LayerNorm output times a
+# weight) and, through the keys and values, the rows of its sequence a
+# little.  So: kernel 1's tolerance (TOL) on all but this share of y, and
+# this share of the largest |y| on every element.
+QUANT_FLIP_SHARE, QUANT_MAX_REL = 2e-2, 5e-2
+# lse of the attention kernel against the plain version (f32 sums in other
+# orders; the scores of bf16 inputs are products of exact values)
+LSE_TOL = (1e-4, 1e-4)
+# int8 serving.  Card against the same quantized model on the CPU, both
+# bf16: the bf16 bound of phase 4 plus the int8 codes that flip between two
+# machines.  Int8 against bf16 scores: the limit tests/test_quant.py gives
+# the JAX package's quantized Predictor against its full-precision one.
+QUANT_SCORE_ATOL = 4e-2
+INT8_VS_BF16_MAX_ERR = 8e-2
+LABEL_THRESHOLD = 0.3
+# PTN serving (bench.py's int8 serving configuration)
+PTN_ROWS, PTN_SEQ, PTN_WIDTH, PTN_HEADS, PTN_LAYERS = 256, 13, 2048, 8, 2
+PTN_EXPERTS = ("video-embeddings", "audio-embeddings")
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -182,17 +228,23 @@ def _block_inputs(dtype, gen):
     return x.to(dtype).cuda(), params
 
 
+def _bound(ops_by_kind: dict, bytes_: float) -> tuple[float, str]:
+    """Least time in ms for work of ``ops_by_kind`` operations (by the
+    peak rate they run at) and ``bytes_`` bytes moved (each input read
+    once, each output written once): the larger of the two times."""
+    t_ops = sum(n / PEAK_FLOPS[k] for k, n in ops_by_kind.items())
+    t_bytes = bytes_ / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def _bound_ms(itemsize: int, kind: str) -> tuple[float, str]:
-    """Least time for one block forward: operations over the peak rate of
-    their type against bytes (each input read once, each output written
-    once) over the memory rate.  Keys past kv_len need no work."""
+    """Least time for one block forward.  Keys past kv_len need no work."""
     rows = B * S
     flops = 2 * rows * (4 * D * D + 2 * KV_LEN * D + 2 * D * MLP)
     bytes_ = (3 * rows * D * itemsize + rows * 8 * 4
               + (4 * D * D + 2 * D * MLP) * itemsize + (6 * D + MLP) * 4)
-    t_ops, t_bytes = flops / PEAK_FLOPS[kind], bytes_ / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _bound({kind: flops}, bytes_)
 
 
 def _bound_bwd_ms(itemsize: int, kind: str) -> tuple[float, str]:
@@ -205,9 +257,7 @@ def _bound_bwd_ms(itemsize: int, kind: str) -> tuple[float, str]:
     flops = 2 * rows * (11 * D * D + 5 * D * MLP + 6 * KV_LEN * D)
     weights = (4 * D * D + 2 * D * MLP) * itemsize + (6 * D + MLP) * 4
     bytes_ = 4 * rows * D * itemsize + rows * 8 * 4 + 2 * weights
-    t_ops, t_bytes = flops / PEAK_FLOPS[kind], bytes_ / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _bound({kind: flops}, bytes_)
 
 
 def _max_err(a, b) -> float:
@@ -227,16 +277,12 @@ def _check_close(name, got, want, atol, rtol) -> None:
             f"atol={atol} rtol={rtol} (max abs err {_max_err(got, want):.3e})")
 
 
-def phase_kernel(kind: str) -> dict:
+def _library_layer(dtype):
+    """The library's pre-norm encoder layer at the block's shape, with its
+    key-padding mask: the one PyTorch call that computes a ViT block."""
     import torch
     import torch.nn.functional as F
 
-    from devt_tpu_torch.ops.fused_block import (fused_vit_block,
-                                                fused_vit_block_fwd_plain)
-
-    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
-    x, params = _block_inputs(dtype, torch.Generator().manual_seed(SEED))
-    scale = (D // HEADS) ** -0.5
     layer = torch.nn.TransformerEncoderLayer(
         D, HEADS, MLP, dropout=0.0, layer_norm_eps=1e-5,
         activation=lambda t: F.gelu(t, approximate="tanh"),
@@ -244,6 +290,19 @@ def phase_kernel(kind: str) -> dict:
     with torch.no_grad():
         layer.self_attn.in_proj_bias.zero_()     # Wqkv has no bias
     pad_mask = (torch.arange(S, device="cuda") >= KV_LEN).expand(B, S)
+    return layer, pad_mask
+
+
+def phase_kernel(kind: str) -> dict:
+    import torch
+
+    from devt_tpu_torch.ops.fused_block import (fused_vit_block,
+                                                fused_vit_block_fwd_plain)
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    x, params = _block_inputs(dtype, torch.Generator().manual_seed(SEED))
+    scale = (D // HEADS) ** -0.5
+    layer, pad_mask = _library_layer(dtype)
     with torch.inference_mode():
         got = fused_vit_block(x, params, HEADS, scale, KV_LEN)
         want = fused_vit_block_fwd_plain(x, params, HEADS, scale, KV_LEN)
@@ -474,7 +533,7 @@ def phase_serve() -> dict:
           f"(atol {SCORE_ATOL}) | {clips_per_s:.2f} clips/s at bucket 32 "
           f"(host clock, u8 upload included)", flush=True)
     return {"launches": launches, "score_err": score_err,
-            "clips_per_s": clips_per_s}
+            "clips_per_s": clips_per_s, "scores": scores}
 
 
 def _train_batch(n: int, seed: int):
@@ -648,6 +707,352 @@ def phase_train() -> dict:
             "host_ms": host_ms}
 
 
+def phase_kernel_quant(kind: str) -> dict:
+    import torch
+
+    from devt_tpu_torch.ops import quant as tq
+    from devt_tpu_torch.ops.fused_block import fused_vit_block
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    x, params = _block_inputs(dtype, torch.Generator().manual_seed(SEED + 5))
+    qp = tq.quant_block_params(params)
+    scale = (D // HEADS) ** -0.5
+    # the library has no int8 block: its yardstick is the same block in
+    # x's dtype, one call of the library layer on the same input
+    layer, pad_mask = _library_layer(dtype)
+    run = lambda: tq.quant_fused_vit_block(x, qp, HEADS, scale, KV_LEN)  # noqa: E731
+    with torch.inference_mode():
+        got = run()
+        want = tq.quant_fused_vit_block_plain(x, qp, HEADS, scale, KV_LEN)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"quant {kind}: non-finite kernel output")
+        atol, rtol = TOL[kind]
+        err = (got.float() - want.float()).abs()
+        share = (err > atol + rtol * want.float().abs()).float().mean().item()
+        max_err = err.max().item()
+        largest = want.float().abs().max().item()
+        if share > QUANT_FLIP_SHARE or max_err > QUANT_MAX_REL * largest:
+            raise AssertionError(
+                f"quant {kind}: {share:.3e} of y beyond atol={atol} "
+                f"rtol={rtol} (limit {QUANT_FLIP_SHARE}), max abs err "
+                f"{max_err:.3e} of largest |y| {largest:.3f} (limit "
+                f"{QUANT_MAX_REL})")
+        del want, err
+        kernel_ms = _time_ms(run, iters=20 if kind == "bf16" else 5)
+        plain_ms = _time_ms(
+            lambda: tq.quant_fused_vit_block_plain(x, qp, HEADS, scale,
+                                                   KV_LEN), iters=3, warmup=1)
+        control_ms = _time_ms(
+            lambda: fused_vit_block(x, params, HEADS, scale, KV_LEN),
+            iters=20 if kind == "bf16" else 3)
+        library_ms = _time_ms(lambda: layer(x, src_key_padding_mask=pad_mask))
+        _print_profile(f"quant_fused_vit_block {kind}",
+                       *_device_profile(run), top=7)
+    rows, item = B * S, x.element_size()
+    int8_ops = 2 * rows * (3 * D * D + D * MLP)
+    other_ops = 2 * rows * (D * D + 2 * KV_LEN * D + D * MLP)
+    bytes_ = (2 * rows * D * item + (3 * D * D + D * MLP)
+              + (D * D + D * MLP) * item + (3 * D + MLP) * 4
+              + (6 * D + MLP) * 4)
+    bound_ms, bound_by = _bound({"int8": int8_ops, kind: other_ops}, bytes_)
+    print(f"[kernel-quant] quant_fused_vit_block {kind} ({B},{S},{D}) kv_len "
+          f"{KV_LEN}: {share:.3e} of y beyond the bf16 block's tolerance "
+          f"(atol {atol}, rtol {rtol}; limit {QUANT_FLIP_SHARE}), "
+          f"max_abs_err={max_err:.3e} of largest |y| {largest:.3f} | "
+          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bf16_block_ms={control_ms:.4f} (fused_vit_block on the same "
+          f"input) library_ms={library_ms:.4f} (nn.TransformerEncoderLayer "
+          f"{kind}, the unquantized block) bound_ms={bound_ms:.4f} "
+          f"({bound_by})", flush=True)
+    return {"dtype": kind, "max_abs_err": max_err, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_int8_matmul(n: int) -> dict:
+    """(3584, 2048) bf16 x (2048, n) int8: the Linear sites of PTN at 256
+    rows of 14 tokens."""
+    import torch
+    import torch.nn.functional as F
+
+    from devt_tpu_torch.ops import quant as tq
+
+    m, k = PTN_ROWS * (PTN_SEQ + 1), PTN_WIDTH
+    gen = torch.Generator().manual_seed(SEED + 6)
+    x = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
+    w = (torch.randn(k, n, generator=gen) * k ** -0.5).cuda()
+    w_q, w_s = tq.quantize_weight(w.to(torch.bfloat16))
+    run = lambda: tq.int8_matmul_fused(x, w_q, w_s)  # noqa: E731
+    with torch.inference_mode():
+        got = run()
+        want = tq.int8_matmul_fused_plain(x, w_q, w_s)
+        torch.cuda.synchronize()
+        max_err = _max_err(got, want)
+        if not torch.isfinite(got.float()).all() \
+                or not torch.equal(got, want):
+            raise AssertionError(
+                f"int8 matmul n={n}: kernel and plain version differ in "
+                f"{int((got != want).sum())} elements, max abs err "
+                f"{max_err:.3e}; the int32 sums are exact, they must agree "
+                f"bit for bit")
+        del want
+        kernel_ms = _time_ms(run)
+        plain_ms = _time_ms(
+            lambda: tq.int8_matmul_fused_plain(x, w_q, w_s), iters=3,
+            warmup=1)
+        w_bf = w.to(torch.bfloat16).t().contiguous()       # Linear layout
+        linear_ms = _time_ms(lambda: F.linear(x, w_bf))
+
+        # not the kernels line's library_ms (that is F.linear, the one
+        # call a user would make): the library's int8 product needs its
+        # own quantize and dequantize passes
+        def int_mm():
+            x_q, x_s = tq.quantize_activation(x)
+            return (torch._int_mm(x_q, w_q).float() * x_s * w_s).to(x.dtype)
+
+        int_mm_ms = _time_ms(int_mm)
+        _print_profile(f"int8_matmul_fused n={n}", *_device_profile(run),
+                       top=3)
+    bytes_ = m * k * 2 + k * n + n * 4 + m * n * 2
+    bound_ms, bound_by = _bound({"int8": 2 * m * k * n}, bytes_)
+    print(f"[kernel-int8-matmul] int8_matmul_fused bf16 ({m},{k})x({k},{n}): "
+          f"bit-equal to the plain version (max_abs_err={max_err:.1e}) | "
+          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={linear_ms:.4f} (F.linear bf16); quantize + "
+          f"torch._int_mm + dequantize {int_mm_ms:.4f} ms | "
+          f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+    return {"max_abs_err": max_err, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": linear_ms,
+            "int_mm_ms": int_mm_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_mha(kind: str, b: int, s: int, heads: int, d: int,
+              kv_len: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from devt_tpu_torch.ops import flash_attention as tfa
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    gen = torch.Generator().manual_seed(SEED + 7)
+    qkv = torch.randn(b, s, 3 * heads * d, generator=gen).to(dtype).cuda()
+    scale = d ** -0.5
+    run = lambda: tfa.fused_mha(qkv, heads=heads, kv_len=kv_len,  # noqa: E731
+                                return_lse=True)
+    with torch.inference_mode():
+        o, lse = run()
+        want_o, want_lse = tfa.fused_mha_plain(qkv, heads, scale, kv_len)
+        torch.cuda.synchronize()
+        _check_close(f"mha {kind} o", o, want_o, *TOL[kind])
+        _check_close(f"mha {kind} lse", lse, want_lse, *LSE_TOL)
+        errs = (_max_err(o, want_o), _max_err(lse, want_lse))
+        del want_o, want_lse
+        kernel_ms = _time_ms(run)
+        plain_ms = _time_ms(
+            lambda: tfa.fused_mha_plain(qkv, heads, scale, kv_len), iters=3,
+            warmup=1)
+        split = qkv.reshape(b, s, 3, heads, d)
+        q, k, v = (split[:, :, i].transpose(1, 2) for i in range(3))
+
+        def sdpa():     # the library's fused attention on the live keys
+            out = F.scaled_dot_product_attention(
+                q, k[:, :, :kv_len], v[:, :, :kv_len], scale=scale)
+            return out.transpose(1, 2).reshape(b, s, heads * d)
+
+        library_ms = _time_ms(sdpa)
+    item = qkv.element_size()
+    flops = 4 * b * heads * s * kv_len * d
+    bytes_ = qkv.numel() * item + b * s * heads * d * item + b * s * heads * 4
+    bound_ms, bound_by = _bound({kind: flops}, bytes_)
+    print(f"[kernel-mha] fused_mha {kind} ({b},{s},{3 * heads * d}) "
+          f"{heads} heads of {d}, kv_len {kv_len}: max_abs_err o="
+          f"{errs[0]:.3e} (atol {TOL[kind][0]}, rtol {TOL[kind][1]}) lse="
+          f"{errs[1]:.3e} (atol {LSE_TOL[0]}, rtol {LSE_TOL[1]}) | "
+          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{library_ms:.4f} (F.scaled_dot_product_attention) "
+          f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+    return {"max_abs_err": max(errs), "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _agreement(a, b) -> tuple[float, float]:
+    """Label agreement at the serving threshold and the largest score
+    difference of two score arrays."""
+    import numpy as np
+
+    agree = float(np.mean((a > LABEL_THRESHOLD) == (b > LABEL_THRESHOLD)))
+    return agree, float(np.abs(a - b).max())
+
+
+def phase_serve_int8(bf16: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.ops.fused_block import fused_vit_block
+    from devt_tpu_torch.ops.quant import quant_fused_vit_block
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.serve import Predictor
+
+    cfg = Config(model="vivit", frame_len=16, n_classes=19, precision="bf16",
+                 dropout=0.0)
+    weights = build_model(cfg, torch.Generator().manual_seed(SEED)) \
+        .state_dict()
+    pred = Predictor(cfg, weights, buckets=(1, 8, 32), quantize=True)
+    clips = np.random.default_rng(SEED).integers(
+        0, 256, (37, cfg.frame_len, 224, 224, 3), dtype=np.uint8)
+    depth = len(pred.model.space_transformer.blocks)
+    sites = pred._qsites
+    if len(sites) != 2 * depth or not all(
+            qp[k].dtype == torch.int8 and qp[k].is_cuda
+            for qp in sites for k in ("wqkv_q", "wo_q", "w1_q", "w2_q")):
+        raise AssertionError("serve-int8: the quantized sites are not int8 "
+                             "tensors on the card")
+
+    quant_fused_vit_block.launches = fused_vit_block.launches = 0
+    out = pred.predict({"vid": clips})
+    launches = quant_fused_vit_block.launches
+    bucket_calls = 2                       # 37 clips = bucket 32 + bucket 8
+    if launches != depth * bucket_calls or fused_vit_block.launches != 0:
+        raise AssertionError(
+            f"serve-int8: {launches} int8-block and "
+            f"{fused_vit_block.launches} bf16-block launches, expected "
+            f"{depth} per bucket call and 0")
+    scores = out["scores"]
+    if scores.shape != (37, cfg.n_classes) or not np.isfinite(scores).all() \
+            or scores.min() <= 0.0 or scores.max() >= 1.0:
+        raise AssertionError(f"serve-int8: bad scores: shape {scores.shape}, "
+                             f"range [{scores.min()}, {scores.max()}]")
+    cpu = Predictor(cfg, weights, buckets=(2,), device="cpu", quantize=True)
+    ref = cpu.predict({"vid": clips[:2]})["scores"]
+    score_err = float(np.abs(scores[:2] - ref).max())
+    agree, max_err = _agreement(bf16["scores"], scores)
+    if not score_err <= QUANT_SCORE_ATOL or not max_err <= INT8_VS_BF16_MAX_ERR:
+        raise AssertionError(
+            f"serve-int8: card vs CPU scores differ by {score_err:.3e} "
+            f"(limit {QUANT_SCORE_ATOL}); int8 vs bf16 scores by "
+            f"{max_err:.3e} (limit {INT8_VS_BF16_MAX_ERR})")
+
+    batch = {"vid": clips[:32]}
+    pred.predict(batch)
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pred.predict(batch)
+    clips_per_s = 32 * reps / (time.perf_counter() - t0)
+    _print_profile("int8 predict, bucket 32", *_device_profile(
+        lambda: pred.predict(batch)), top=10)
+    print(f"[serve-int8] ViViT Predictor(quantize=True, buckets=(1, 8, 32)) "
+          f"on 37 u8 clips: int8 block launches {launches} ({depth} per "
+          f"bucket call x {bucket_calls}), bf16 block launches 0, "
+          f"{len(sites)} quantized sites made at construction; scores in "
+          f"({scores.min():.4f}, {scores.max():.4f}); card vs CPU max abs "
+          f"err {score_err:.3e} (limit {QUANT_SCORE_ATOL}); against the bf16 "
+          f"scores of phase 4: label agreement at {LABEL_THRESHOLD} "
+          f"{agree:.4f}, max score err {max_err:.3e} (limit "
+          f"{INT8_VS_BF16_MAX_ERR}) | {clips_per_s:.2f} clips/s at bucket 32 "
+          f"(host clock, u8 upload included) beside {bf16['clips_per_s']:.2f} "
+          f"in bf16", flush=True)
+    return {"launches": launches, "clips_per_s": clips_per_s}
+
+
+def phase_serve_ptn() -> dict:
+    import torch
+
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.ops.flash_attention import fused_mha
+    from devt_tpu_torch.ops.quant import int8_matmul_fused
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.serve import Predictor
+
+    cfg = Config(model="ptn", batch_size=PTN_ROWS, seq_len=PTN_SEQ,
+                 nlayers=PTN_LAYERS, nhid=PTN_WIDTH,
+                 input_dimension=PTN_WIDTH, nhead=PTN_HEADS, dropout=0.0,
+                 precision="bf16", experts=PTN_EXPERTS)
+    weights = build_model(cfg, torch.Generator().manual_seed(SEED)) \
+        .state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    experts = torch.randn(PTN_ROWS, PTN_SEQ, len(PTN_EXPERTS), PTN_WIDTH,
+                          generator=gen, device="cuda") * 0.5
+    request = {"experts": experts.cpu().numpy()}
+    encoders = len(PTN_EXPERTS) * PTN_LAYERS       # attention calls a forward
+    variants = (("bf16", False, None, 0),
+                ("int8", True, None, encoders),
+                ("int8_all_sites", True, lambda k, n: True, 4 * encoders))
+    out: dict = {"mha_launches": 0, "matmul_launches": 0}
+    scores = {}
+    for tag, quant, site_pred, want_matmuls in variants:
+        pred = Predictor(cfg, weights, buckets=(PTN_ROWS,), quantize=quant,
+                         quant_site_pred=site_pred)
+        fused_mha.launches = int8_matmul_fused.launches = 0
+        got = pred.predict(request)["scores"]
+        counts = (fused_mha.launches, int8_matmul_fused.launches)
+        if counts != (encoders, want_matmuls):
+            raise AssertionError(
+                f"serve-ptn {tag}: {counts[0]} attention and {counts[1]} "
+                f"int8-matmul launches in one forward, expected {encoders} "
+                f"and {want_matmuls}")
+        out["mha_launches"] += counts[0]
+        out["matmul_launches"] += counts[1]
+        if got.shape != (PTN_ROWS, cfg.n_classes) \
+                or not (got > 0.0).all() or not (got < 1.0).all():
+            raise AssertionError(f"serve-ptn {tag}: bad scores, shape "
+                                 f"{got.shape}")
+        scores[tag] = got
+        cpu = Predictor(cfg, weights, buckets=(4,), device="cpu",
+                        quantize=quant, quant_site_pred=site_pred)
+        ref = cpu.predict({"experts": request["experts"][:4]})["scores"]
+        cpu_err = float(abs(got[:4] - ref).max())
+        del cpu
+        if not cpu_err <= QUANT_SCORE_ATOL:
+            raise AssertionError(f"serve-ptn {tag}: card vs CPU scores "
+                                 f"differ by {cpu_err:.3e} (limit "
+                                 f"{QUANT_SCORE_ATOL})")
+        # rows/s on device-resident input: best of 3 windows of 10 forwards,
+        # one synchronisation a window
+        batch = {"experts": experts}
+        windows = []
+        with torch.inference_mode():
+            pred.forward(batch)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    pred.forward(batch)
+                torch.cuda.synchronize()
+                windows.append((time.perf_counter() - t0) / 10)
+            profile = _device_profile(lambda: pred.forward(batch))
+        _print_profile(f"PTN {tag} forward, {PTN_ROWS} rows", *profile, top=8)
+        out[tag] = {"rows_per_s": PTN_ROWS / min(windows),
+                    "forward_ms": min(windows) * 1e3, "cpu_err": cpu_err,
+                    "device_ms": sum(ms for _, ms, _ in profile[0])}
+        del pred
+    for tag in ("int8", "int8_all_sites"):
+        agree, max_err = _agreement(scores["bf16"], scores[tag])
+        out[tag]["agree"], out[tag]["max_err"] = agree, max_err
+        if not max_err <= INT8_VS_BF16_MAX_ERR:
+            raise AssertionError(f"serve-ptn {tag}: scores differ from bf16 "
+                                 f"by {max_err:.3e} (limit "
+                                 f"{INT8_VS_BF16_MAX_ERR})")
+    print(f"[serve-ptn] PTN bf16 ({PTN_ROWS} rows x {PTN_SEQ} scenes x "
+          f"{len(PTN_EXPERTS)} experts x {PTN_WIDTH}, {PTN_LAYERS} layers, "
+          f"{PTN_HEADS} heads) behind Predictor(buckets=({PTN_ROWS},)): "
+          f"attention launches {encoders} a forward in each variant, "
+          f"int8-matmul launches 0 / {encoders} / {4 * encoders}; " + "; ".join(
+              f"{tag}: {v['rows_per_s']:.1f} rows/s, forward "
+              f"{v['forward_ms']:.3f} ms (device {v['device_ms']:.3f} ms), "
+              f"card vs CPU {v['cpu_err']:.3e}" + (
+                  f", vs bf16 label agreement {v['agree']:.4f} max err "
+                  f"{v['max_err']:.3e}" if "agree" in v else "")
+              for tag, v in out.items() if isinstance(v, dict))
+          + f" (limits {QUANT_SCORE_ATOL} and {INT8_VS_BF16_MAX_ERR}; best of "
+          f"3 windows of 10 forwards on device-resident input, host clock)",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -684,6 +1089,29 @@ def main() -> int:
     phase_kernel_bwd("f32")
     phase_dropout()
     train = phase_train()
+    quant = phase_kernel_quant("bf16")
+    phase_kernel_quant("f32")
+    matmul = phase_int8_matmul(3 * PTN_WIDTH)
+    phase_int8_matmul(PTN_WIDTH)
+    # the shape the PTN serving path launches (S = 14, unpadded) gives the
+    # kernels line its numbers; S = 16 is the TPU wrapper's padded shape
+    mha = phase_mha("bf16", PTN_ROWS, PTN_SEQ + 1, PTN_HEADS,
+                    PTN_WIDTH // PTN_HEADS, PTN_SEQ + 1)
+    phase_mha("bf16", PTN_ROWS, 16, PTN_HEADS, PTN_WIDTH // PTN_HEADS,
+              PTN_SEQ + 1)
+    phase_mha("f32", PTN_ROWS, 16, PTN_HEADS, PTN_WIDTH // PTN_HEADS,
+              PTN_SEQ + 1)
+    phase_mha("bf16", B, S, HEADS, D // HEADS, KV_LEN)
+    phase_mha("f32", B, S, HEADS, D // HEADS, KV_LEN)
+    serve_int8 = phase_serve_int8(serve)
+    ptn = phase_serve_ptn()
+
+    def entry(name, source, replaces, launches, m):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
 
     kernels = [{
         "name": "fused_vit_block_fwd", "route": "cuda",
@@ -703,7 +1131,15 @@ def main() -> int:
         "ms": bwd["kernel_ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
-    }]
+    },
+        entry("fused_mha", "devt_tpu_torch/ops/csrc/mha_fwd.cu",
+              "devt_tpu/ops/flash_attention.py:558", ptn["mha_launches"],
+              mha),
+        entry("quant_fused_vit_block",
+              "devt_tpu_torch/ops/csrc/quant_block_fwd.cu",
+              "devt_tpu/ops/quant.py:275", serve_int8["launches"], quant),
+        entry("int8_matmul_fused", "devt_tpu_torch/ops/csrc/int8_matmul.cu",
+              "devt_tpu/ops/quant.py:348", ptn["matmul_launches"], matmul)]
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,17 @@ depend only on the seed the caller made the ``DropoutRng`` from.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from devt_tpu_torch.ops.attention import packed_mha
+from devt_tpu_torch.ops.attention import packed_mha, quant_active
 from devt_tpu_torch.ops.flash_attention import fits_single_block
 from devt_tpu_torch.ops.fused_block import fused_vit_block
+from devt_tpu_torch.ops.quant import (quant_block_params, quant_vit_block,
+                                      site_value)
 
 # torch's LayerNorm eps, which the reference uses everywhere
 LN_EPS = 1e-5
@@ -105,6 +109,40 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
+def sinusoidal_positional_encoding(max_len: int, d_model: int,
+                                   base: float = 1000.0) -> torch.Tensor:
+    """``(max_len, d_model)`` f32 table: sin in the even columns, cos in
+    the odd ones.  The default ``base=1000.0`` (not the usual 10000.0) is
+    the reference's, kept for logit parity."""
+    position = torch.arange(max_len, dtype=torch.float32)[:, None]
+    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32)
+                         * (-math.log(base) / d_model))
+    angles = position * div_term
+    pe = torch.zeros(max_len, d_model, dtype=torch.float32)
+    pe[:, 0::2] = torch.sin(angles)
+    pe[:, 1::2] = torch.cos(angles[:, : d_model // 2])
+    return pe
+
+
+class PositionalEncoding(nn.Module):
+    """Add sinusoidal PE along the sequence axis, then dropout.  Input
+    (B, S, D); the table is a constant (a non-persistent buffer), not a
+    parameter, and is absent from the ``state_dict``."""
+
+    def __init__(self, d_model: int, dropout: float = 0.1, max_len: int = 4,
+                 base: float = 1000.0):
+        super().__init__()
+        self.dropout = dropout
+        self.register_buffer(
+            "pe", sinusoidal_positional_encoding(max_len, d_model, base),
+            persistent=False)
+
+    def forward(self, x: torch.Tensor,
+                rng: DropoutRng | None = None) -> torch.Tensor:
+        x = x + self.pe[: x.shape[1]].to(x.dtype)[None]
+        return dropout(x, self.dropout, self.training, rng)
+
+
 class FeedForward(nn.Module):
     """Linear→GELU (exact erf)→Dropout→Linear→Dropout."""
 
@@ -164,7 +202,14 @@ class ViTBlock(nn.Module):
     transposes and casts carry the kernel's gradients back to the f32
     ``nn.Linear``/``nn.LayerNorm`` parameters by ordinary autograd.
     Training dropout runs inside the kernel, from a seed drawn from
-    ``rng``."""
+    ``rng``.
+
+    In eval mode inside ``ops.attention.quant_scope`` the block runs its
+    big products in int8 (``ops/quant.py``) from the same parameters:
+    ``quant_fused_vit_block`` where the shape is eligible, the unfused
+    ``quant_vit_block`` when the block is pinned to
+    ``attention_impl="xla"``.  The quantized parameter tree goes through
+    the site registry, so a quantized ``Predictor`` builds it once."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
                  dropout: float = 0.0, attention_impl: str = "auto",
@@ -213,6 +258,17 @@ class ViTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, kv_len: int | None = None,
                 rng: DropoutRng | None = None) -> torch.Tensor:
+        if not self.training and quant_active() \
+                and not (self.heads == 1 and self.dim_head == self.dim):
+            qp = site_value(
+                lambda: quant_block_params(self.block_params()), dict)
+            # a block pinned to "xla" stays off the fused kernel here too
+            impl = ("auto" if self.attention_impl == "fused_interpret"
+                    else self.attention_impl)
+            return quant_vit_block(
+                x.to(self.dtype).contiguous(), qp, self.heads,
+                self.dim_head ** -0.5,
+                kv_len if kv_len is not None else x.shape[1], impl=impl)
         if self.fused_eligible(x):
             rate = self.dropout if self.training else 0.0
             if rate > 0.0 and rng is None:

@@ -1,0 +1,130 @@
+"""Transformer encoder with torch ``nn.TransformerEncoder`` semantics.
+
+Port of ``devt_tpu/models/torch_encoder.py``: post-norm residual blocks
+with a ReLU feed-forward and attention-probability dropout, batch-major.
+
+    x = norm1(x + dropout(self_attn(x)))       # attn-prob dropout inside
+    x = norm2(x + dropout(linear2(dropout(relu(linear1(x))))))
+
+The modules are written out (not ``nn.TransformerEncoderLayer``) because
+the softmax runs through the port's dispatching attention (the packed-qkv
+kernel on the card) and the four Linear sites run int8 under
+``ops.attention.quant_scope`` in eval mode.  Module names follow the flax
+tree (``self_attn.in_proj``, ``self_attn.out_proj``, ``linear1``,
+``linear2``, ``norm1``, ``norm2``, ``layers.<i>`` for ``layer_<i>``), so
+``utils/jax_bridge.py`` maps one onto the other by name.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from devt_tpu_torch.models.layers import (LN_EPS, DropoutRng, dense, dropout,
+                                          layer_norm)
+from devt_tpu_torch.ops.attention import (packed_mha, quant_active,
+                                          quant_site_allowed)
+from devt_tpu_torch.ops.quant import int8_dot_general
+
+
+def site_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+               quant: bool) -> torch.Tensor:
+    """``dense`` for one of the four big Linear sites.  With ``quant``, a
+    site the scope's ``site_pred`` accepts runs its product through
+    ``int8_dot_general`` (same parameters, the weight quantized at the
+    site) and adds the bias in ``dtype``; a rejected site is the plain
+    ``dense``."""
+    if not quant or not quant_site_allowed(lin.in_features, lin.out_features):
+        return dense(lin, x, dtype)
+    return int8_dot_general(x.to(dtype), lin.weight.t()) + lin.bias.to(dtype)
+
+
+class TorchMultiheadAttention(nn.Module):
+    """Self-attention matching ``torch.nn.MultiheadAttention``: packed qkv
+    projection with bias (torch's ``in_proj_weight``, (3E, E)), scaled by
+    1/sqrt(head_dim), dropout on the softmax probabilities, biased output
+    projection."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 attention_impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dropout = dropout
+        self.attention_impl = attention_impl
+        self.dtype = dtype
+        self.in_proj = nn.Linear(embed_dim, 3 * embed_dim)
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, x: torch.Tensor,
+                rng: DropoutRng | None = None) -> torch.Tensor:
+        quant = not self.training and quant_active()
+        qkv = site_dense(self.in_proj, x, self.dtype, quant)
+        use_drop = self.dropout > 0.0 and self.training
+        if use_drop and rng is None:
+            raise ValueError("a training forward with dropout needs rng=, a "
+                             "DropoutRng (models/layers.py)")
+        head_dim = self.embed_dim // self.num_heads
+        out = packed_mha(qkv, heads=self.num_heads, scale=head_dim ** -0.5,
+                         impl=self.attention_impl,
+                         dropout_rate=self.dropout if use_drop else 0.0,
+                         rng=rng if use_drop else None)
+        return site_dense(self.out_proj, out, self.dtype, quant)
+
+
+class TorchEncoderLayer(nn.Module):
+    """Post-norm encoder layer = torch ``TransformerEncoderLayer``."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.1, attention_impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dropout = dropout
+        self.dtype = dtype
+        self.self_attn = TorchMultiheadAttention(d_model, nhead, dropout,
+                                                 attention_impl, dtype)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor,
+                rng: DropoutRng | None = None) -> torch.Tensor:
+        rate, training = self.dropout, self.training
+        attn = dropout(self.self_attn(x, rng), rate, training, rng)
+        x = layer_norm(self.norm1, x + attn, self.dtype)
+        quant = not training and quant_active()
+        h = torch.relu(site_dense(self.linear1, x, self.dtype, quant))
+        h = dropout(h, rate, training, rng)
+        h = dropout(site_dense(self.linear2, h, self.dtype, quant), rate,
+                    training, rng)
+        return layer_norm(self.norm2, x + h, self.dtype)
+
+
+class TorchTransformerEncoder(nn.Module):
+    """Stack of ``TorchEncoderLayer`` (= torch ``TransformerEncoder``):
+    independent weights per layer, no final norm.  Input and output are
+    batch-major (B, S, D)."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 num_layers: int, dropout: float = 0.1,
+                 attention_impl: str = "auto", remat: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "TorchTransformerEncoder(remat) is not ported yet — "
+                "ROADMAP.md queue 1")
+        self.layers = nn.ModuleList(
+            TorchEncoderLayer(d_model, nhead, dim_feedforward, dropout,
+                              attention_impl, dtype)
+            for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor,
+                rng: DropoutRng | None = None) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x, rng)
+        return x

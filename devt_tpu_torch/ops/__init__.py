@@ -6,15 +6,32 @@ the wrapper runs for CPU tensors.  ``_build`` compiles the sources with
 ``nvcc`` on first use.
 """
 
-from devt_tpu_torch.ops.attention import packed_mha, xla_attention
+from devt_tpu_torch.ops.attention import (packed_mha, quant_scope,
+                                          scaled_dot_product_attention,
+                                          xla_attention)
+from devt_tpu_torch.ops.flash_attention import fused_mha, fused_mha_plain
 from devt_tpu_torch.ops.fused_block import (FusedViTBlock, fused_vit_block,
                                             fused_vit_block_bwd_plain,
                                             fused_vit_block_fwd_plain,
                                             reference_vit_block)
+from devt_tpu_torch.ops.quant import (int8_matmul_fused,
+                                      int8_matmul_fused_plain,
+                                      quant_fused_vit_block,
+                                      quant_fused_vit_block_plain,
+                                      quant_vit_block)
 
 __all__ = [
     "packed_mha",
+    "quant_scope",
+    "scaled_dot_product_attention",
     "xla_attention",
+    "fused_mha",
+    "fused_mha_plain",
+    "int8_matmul_fused",
+    "int8_matmul_fused_plain",
+    "quant_fused_vit_block",
+    "quant_fused_vit_block_plain",
+    "quant_vit_block",
     "FusedViTBlock",
     "fused_vit_block",
     "fused_vit_block_bwd_plain",

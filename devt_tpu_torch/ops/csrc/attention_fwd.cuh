@@ -1,0 +1,317 @@
+// Single-block multi-head attention forward on the packed qkv layout, for
+// Hopper (sm_90a): the one attention body behind three wrappers.
+//
+//   fused_block_fwd.cu   the middle launch of the fused ViT block
+//   quant_block_fwd.cu   the same launch inside the int8 fused block
+//   mha_fwd.cu           fused_mha, the packed-qkv attention on its own
+//
+// qkv is (B, S, 3*H*HD) with columns ordered (3, H, HD); per (sequence,
+// head): s = q k^T * scale with key columns >= kv_len at -1e30,
+// p = exp(s - max s), l = sum p, lse = max s + log l.  The two callers
+// round in different places, as their TPU kernels do:
+//
+//   kNormFirst = false   o = (round(p) @ v) / l      (fused_block._mha_fwd)
+//   kNormFirst = true    o = round(p / l) @ v        (_mha_fwd_kernel)
+//
+// where round() is the cast to v's type.  The softmax is one-shot (exact
+// row max first), so the scores are recomputed per pass instead of kept:
+// a pass over the keys for the max, one for l when p is normalised before
+// the product, one for the product.  Head dims above 64 take the product
+// 64 output columns at a time, so the accumulators stay in registers.
+// K and V of one head sit in shared memory whole; key blocks wholly past
+// kv_len are skipped (their probabilities are exactly 0).  lse goes to
+// lse[row * lanes + h]: the residual lanes of the fused block, or a
+// (B, S, H) tensor with lanes = H.
+
+#pragma once
+
+#include "fused_block_common.cuh"
+
+namespace {
+
+// dynamic shared memory one block may ask for on sm_90
+constexpr size_t kSmemPerBlock = 232448;
+
+// ---------------------------------------------------------------------------
+// bfloat16: mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+
+constexpr int kAttnQ = 64, kAttnKeys = 32, kAttnThreads = 128;
+
+__host__ __device__ constexpr size_t attn_smem_bf16(int hd, int kv_len) {
+  return align128(sizeof(bf16) * kAttnQ * (hd + 8)) +
+         2 * align128(sizeof(bf16) * round_up(kv_len, kAttnKeys) * (hd + 8));
+}
+
+// scores of the warp's 16 queries against keys kc..kc+31 (f32, unscaled)
+template <int HD>
+__device__ __forceinline__ void score_block(float (&s)[4][4],
+                                            const uint32_t (&qa)[HD / 16][4],
+                                            const bf16* Ks, int kc) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      uint32_t b[4];
+      load_b_nk(b, Ks, HD + 8, 16 * kk, kc + 8 * j);
+      mma_bf16(s[j], qa[kk], b[0], b[1]);
+      mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
+    }
+}
+
+template <int HD, bool kNormFirst>
+__global__ void __launch_bounds__(kAttnThreads)
+    attention_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ att,
+                   float* __restrict__ lse, int S, int H, int kv_len,
+                   int lanes, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int ld = HD + 8;
+  constexpr int OC = HD > 64 ? 64 : HD;  // output columns per product pass
+  const int kp = round_up(kv_len, kAttnKeys);  // keys staged and visited
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = reinterpret_cast<bf16*>(
+      smem + align128(sizeof(bf16) * kAttnQ * ld));
+  bf16* Vs = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(Ks) +
+                                     align128(sizeof(bf16) * kp * ld));
+  const int q0 = blockIdx.x * kAttnQ, h = blockIdx.y, b = blockIdx.z;
+  const int N3 = 3 * H * HD;
+  const bf16* base = qkv + static_cast<size_t>(b) * S * N3;
+
+  // q of head h at column h*HD, k at (H+h)*HD, v at (2H+h)*HD; rows past
+  // S are zero (V's must be: 0 * garbage could be NaN)
+  cp_tile(Qs, ld, base + static_cast<size_t>(q0) * N3 + h * HD, N3, kAttnQ,
+          HD, S - q0);
+  cp_tile(Ks, ld, base + (H + h) * HD, N3, kp, HD, S);
+  cp_tile(Vs, ld, base + (2 * H + h) * HD, N3, kp, HD, S);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16;
+  if (q0 + r0 >= S) return;  // no barrier follows
+  const int gq = lane >> 2, tq = lane & 3;
+
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) load_a(qa[kk], Qs, ld, r0, 16 * kk);
+
+  // masked, scaled score of accumulator element e of n8 block j
+  auto masked = [&](float s, int kc, int j, int e) {
+    const int key = kc + 8 * j + 2 * tq + (e & 1);
+    return s * scale + (key < kv_len ? 0.f : kNegInf);
+  };
+
+  // pass 1: exact row max of the masked, scaled scores
+  float m[2] = {-3.0e38f, -3.0e38f};
+  for (int kc = 0; kc < kp; kc += kAttnKeys) {
+    float s[4][4];
+    score_block<HD>(s, qa, Ks, kc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        m[e >> 1] = fmaxf(m[e >> 1], masked(s[j][e], kc, j, e));
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+
+  // l = sum exp(s - m) in f32: a pass of its own when p is normalised
+  // before the product, else summed during the first product pass
+  float l[2] = {0.f, 0.f};
+  if (kNormFirst) {
+    for (int kc = 0; kc < kp; kc += kAttnKeys) {
+      float s[4][4];
+      score_block<HD>(s, qa, Ks, kc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          l[e >> 1] += expf(masked(s[j][e], kc, j, e) - m[e >> 1]);
+    }
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+  }
+
+  const int HDt = H * HD;
+#pragma unroll 1
+  for (int oc = 0; oc < HD; oc += OC) {
+    // o += bf16(p) @ v[:, oc:oc+OC]
+    float o[OC / 8][4] = {};
+    for (int kc = 0; kc < kp; kc += kAttnKeys) {
+      float s[4][4];
+      score_block<HD>(s, qa, Ks, kc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = expf(masked(s[j][e], kc, j, e) - m[e >> 1]);
+          if (kNormFirst)
+            p = p / l[e >> 1];
+          else if (oc == 0)
+            l[e >> 1] += p;
+          s[j][e] = p;
+        }
+      // the accumulator layout of two n8 score tiles is the A layout of
+      // one k16 probability fragment
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int jn = 0; jn < OC / 8; jn += 2) {
+          uint32_t bv[4];
+          load_b_kn(bv, Vs, ld, kc + 16 * kk, oc + 8 * jn);
+          mma_bf16(o[jn], pa, bv[0], bv[1]);
+          mma_bf16(o[jn + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+    if (!kNormFirst && oc == 0) {
+      l[0] = quad_sum(l[0]);
+      l[1] = quad_sum(l[1]);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int q = q0 + r0 + gq + 8 * hh;
+      if (q >= S) continue;
+      const size_t row = static_cast<size_t>(b) * S + q;
+      const float div = kNormFirst ? 1.f : l[hh];
+#pragma unroll
+      for (int jn = 0; jn < OC / 8; ++jn)
+        *reinterpret_cast<uint32_t*>(att + row * HDt + h * HD + oc + 8 * jn +
+                                     2 * tq) =
+            pack_bf16(o[jn][2 * hh] / div, o[jn][2 * hh + 1] / div);
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int q = q0 + r0 + gq + 8 * hh;
+    if (q < S && tq == 0)
+      lse[(static_cast<size_t>(b) * S + q) * lanes + h] = m[hh] + logf(l[hh]);
+  }
+}
+
+template <int HD, bool kNormFirst>
+cudaError_t launch_attention_bf16(const bf16* qkv, bf16* att, float* lse,
+                                  int B, int S, int H, int kv_len, int lanes,
+                                  float scale, cudaStream_t stream) {
+  const size_t bytes = attn_smem_bf16(HD, kv_len);
+  if (bytes > kSmemPerBlock) return cudaErrorInvalidValue;
+  DEVT_TRY(set_smem(attention_bf16<HD, kNormFirst>, bytes));
+  attention_bf16<HD, kNormFirst>
+      <<<dim3((S + kAttnQ - 1) / kAttnQ, H, B), kAttnThreads, bytes, stream>>>(
+          qkv, att, lse, S, H, kv_len, lanes, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float: exact f32 FMA products
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr size_t f32_attn_smem(int Sp, int d) {
+  // Q, K, V tiles, the score tile (probabilities in place), O, m, l
+  return align128(sizeof(float) * kF32Rows * pad_f32(d)) +
+         2 * align128(sizeof(float) * Sp * pad_f32(d)) +
+         align128(sizeof(float) * kF32Rows * pad_f32(Sp)) +
+         align128(sizeof(float) * kF32Rows * pad_f32(d)) +
+         2 * align128(sizeof(float) * kF32Rows);
+}
+
+template <bool kNormFirst>
+__global__ void __launch_bounds__(kF32Threads)
+    attention_f32(const float* __restrict__ qkv, float* __restrict__ att,
+                  float* __restrict__ lse, int S, int Sp, int H, int d,
+                  int kv_len, int lanes, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ldq = pad_f32(d), lds = pad_f32(Sp);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + align128(sizeof(float) * kF32Rows * ldq) / sizeof(float);
+  float* Vs = Ks + align128(sizeof(float) * Sp * ldq) / sizeof(float);
+  float* Sc = Vs + align128(sizeof(float) * Sp * ldq) / sizeof(float);
+  float* Os = Sc + align128(sizeof(float) * kF32Rows * lds) / sizeof(float);
+  float* row_m = Os + align128(sizeof(float) * kF32Rows * ldq) / sizeof(float);
+  float* row_l = row_m + align128(sizeof(float) * kF32Rows) / sizeof(float);
+  const int q0 = blockIdx.x * kF32Rows, h = blockIdx.y, b = blockIdx.z;
+  const int N3 = 3 * H * d, HD = H * d;
+  const float* base = qkv + static_cast<size_t>(b) * S * N3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int i = threadIdx.x; i < kF32Rows * d; i += blockDim.x) {
+    const int r = i / d, j = i - r * d, q = q0 + r;
+    Qs[r * ldq + j] = q < S ? base[static_cast<size_t>(q) * N3 + h * d + j]
+                            : 0.f;
+  }
+  for (int i = threadIdx.x; i < Sp * d; i += blockDim.x) {
+    const int r = i / d, j = i - r * d;
+    const bool ok = r < S;
+    const size_t row = static_cast<size_t>(r) * N3;
+    Ks[r * ldq + j] = ok ? base[row + (H + h) * d + j] : 0.f;
+    Vs[r * ldq + j] = ok ? base[row + (2 * H + h) * d + j] : 0.f;
+  }
+  __syncthreads();
+  block_gemm_f32<true>(Qs, ldq, Ks, ldq, Sc, lds, kF32Rows, Sp, d, false);
+  __syncthreads();
+  for (int r = warp; r < kF32Rows; r += kF32Threads / 32) {
+    float* sr = Sc + r * lds;
+    float m = -3.0e38f;
+    for (int c = lane; c < S; c += 32) {
+      const float s = sr[c] * scale + (c < kv_len ? 0.f : kNegInf);
+      sr[c] = s;
+      m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+    for (int c = lane; c < Sp; c += 32) {
+      const float p = c < S ? expf(sr[c] - m) : 0.f;
+      l += p;
+      sr[c] = p;
+    }
+    l = warp_sum(l);
+    if (kNormFirst)
+      for (int c = lane; c < Sp; c += 32) sr[c] = sr[c] / l;
+    if (lane == 0) {
+      row_m[r] = m;
+      row_l[r] = l;
+    }
+  }
+  __syncthreads();
+  block_gemm_f32<false>(Sc, lds, Vs, ldq, Os, ldq, kF32Rows, d, Sp, false);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kF32Rows * d; i += blockDim.x) {
+    const int r = i / d, j = i - r * d, q = q0 + r;
+    if (q < S)
+      att[(static_cast<size_t>(b) * S + q) * HD + h * d + j] =
+          kNormFirst ? Os[r * ldq + j] : Os[r * ldq + j] / row_l[r];
+  }
+  for (int r = threadIdx.x; r < kF32Rows; r += blockDim.x) {
+    const int q = q0 + r;
+    if (q < S)
+      lse[(static_cast<size_t>(b) * S + q) * lanes + h] =
+          row_m[r] + logf(row_l[r]);
+  }
+}
+
+// d a multiple of 4; one head's K and V (S rounded up to 16 rows) must
+// fit a block's shared memory
+template <bool kNormFirst>
+cudaError_t launch_attention_f32(const float* qkv, float* att, float* lse,
+                                 int B, int S, int H, int d, int kv_len,
+                                 int lanes, float scale, cudaStream_t stream) {
+  const int Sp = round_up(S, 16);
+  const size_t bytes = f32_attn_smem(Sp, d);
+  if (bytes > kSmemPerBlock) return cudaErrorInvalidValue;
+  DEVT_TRY(set_smem(attention_f32<kNormFirst>, bytes));
+  attention_f32<kNormFirst>
+      <<<dim3((S + kF32Rows - 1) / kF32Rows, H, B), kF32Threads, bytes,
+         stream>>>(qkv, att, lse, S, Sp, H, d, kv_len, lanes, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace

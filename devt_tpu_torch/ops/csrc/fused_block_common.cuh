@@ -1,5 +1,7 @@
-// Device code shared by the fused ViT-block forward and backward kernels
-// (fused_block_fwd.cu, fused_block_bwd.cu) for Hopper (sm_90a):
+// Device code shared by the hand-written kernels for Hopper (sm_90a): the
+// fused ViT-block forward and backward (fused_block_fwd.cu,
+// fused_block_bwd.cu) and, through attention_fwd.cuh and int8_common.cuh,
+// the packed-qkv attention and the int8 kernels:
 //
 //   * warp and quad reductions, tanh GELU and its derivative;
 //   * the bfloat16 tensor-core pieces: cp.async tile copies, ldmatrix
@@ -13,7 +15,8 @@
 //     values scaled by 1 / (1 - rate), at the three sites of the block:
 //     out-projection, FFN hidden, FFN output;
 //   * LN1 + qkv product per 128 rows, which the forward runs with its own
-//     statistics and the backward reruns from the stored ones.
+//     statistics and the backward reruns from the stored ones;
+//   * the float route's block-level FMA product on 32-row tiles.
 //
 // Everything sits in an anonymous namespace: each .cu that includes this
 // header compiles its own copy into its own shared library.
@@ -444,6 +447,68 @@ __global__ void __launch_bounds__(kQkvThreads)
         }
     __syncthreads();  // slice c free for the load two steps on
   }
+}
+
+// ===========================================================================
+// float route: exact f32 FMA products on 32-row tiles
+// ===========================================================================
+
+constexpr int kF32Rows = 32, kF32Threads = 256;
+
+__host__ __device__ constexpr int pad_f32(int n) { return n + 4; }
+
+// C (M x N, ldc) = [C +] A (M x K, lda) * op(B): op(B) is B (K x N, ldb)
+// or, with kBT, B^T with B stored N x K.  M and N multiples of 4; each
+// thread owns 4x4 outputs.  No barrier inside.
+template <bool kBT>
+__device__ void block_gemm_f32(const float* A, int lda, const float* B,
+                               int ldb, float* C, int ldc, int M, int N,
+                               int K, bool acc) {
+  const int cols = N >> 2, tiles = (M >> 2) * cols;
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
+    const int i0 = (t / cols) << 2, j0 = (t % cols) << 2;
+    float c[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        c[r][s] = acc ? C[(i0 + r) * ldc + j0 + s] : 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = A[(i0 + r) * lda + k];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        b[s] = kBT ? B[(j0 + s) * ldb + k] : B[k * ldb + j0 + s];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) c[r][s] = fmaf(a[r], b[s], c[r][s]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) C[(i0 + r) * ldc + j0 + s] = c[r][s];
+  }
+}
+
+// W[k0:k0+kr, n0:n0+nc] (row-major, ldw) into a shared tile (ld)
+__device__ __forceinline__ void load_tile_f32(float* dst, int ld,
+                                              const float* W, int ldw,
+                                              int k0, int n0, int kr,
+                                              int nc) {
+  for (int i = threadIdx.x; i < kr * nc; i += blockDim.x) {
+    const int k = i / nc, j = i - k * nc;
+    dst[k * ld + j] = W[static_cast<size_t>(k0 + k) * ldw + n0 + j];
+  }
+}
+
+// Largest of 64, 32, 16 that is at most cap and divides a and b.
+inline int pick_tile(int cap, int a, int b) {
+  for (int t = 64; t >= 16; t >>= 1)
+    if (t <= cap && a % t == 0 && b % t == 0) return t;
+  return 0;
 }
 
 // ===========================================================================

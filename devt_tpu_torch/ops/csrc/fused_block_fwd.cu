@@ -31,7 +31,9 @@
 //                   next Wqkv slice loading (cp.async) meanwhile; writes
 //                   qkv in x's type (the rounding the TPU kernel applies
 //                   before its attention products) and mu1, rstd1.
-//   2. attention:   per (64 queries, head, sequence), 16 queries a warp:
+//   2. attention:   (attention_fwd.cuh, shared with the int8 block and the
+//                   packed-qkv attention)
+//                   per (64 queries, head, sequence), 16 queries a warp:
 //                   K and V in shared memory; a first pass over the keys
 //                   takes the exact row max, a second recomputes the
 //                   scores, exponentiates, sums l in f32 and multiplies
@@ -59,144 +61,9 @@
 // mma.sync reaches a fraction of that peak, which only wgmma reaches;
 // the times are in PERF.md.
 
-#include "fused_block_common.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// 2. attention
-// ---------------------------------------------------------------------------
-
-constexpr int kAttnQ = 64, kAttnKeys = 32, kAttnThreads = 128;
-
-__host__ __device__ constexpr size_t attn_smem_bf16(int hd, int kv_len) {
-  return align128(sizeof(bf16) * kAttnQ * (hd + 8)) +
-         2 * align128(sizeof(bf16) * round_up(kv_len, kAttnKeys) * (hd + 8));
-}
-
-// scores of the warp's 16 queries against keys kc..kc+31 (f32, unscaled)
-template <int HD>
-__device__ __forceinline__ void score_block(float (&s)[4][4],
-                                            const uint32_t (&qa)[HD / 16][4],
-                                            const bf16* Ks, int kc) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; j += 2) {
-      uint32_t b[4];
-      load_b_nk(b, Ks, HD + 8, 16 * kk, kc + 8 * j);
-      mma_bf16(s[j], qa[kk], b[0], b[1]);
-      mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
-    }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kAttnThreads)
-    attention_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ att,
-                   float* __restrict__ res, int S, int H, int kv_len,
-                   int lanes, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ld = HD + 8;
-  const int kp = round_up(kv_len, kAttnKeys);  // keys staged and visited
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(
-      smem + align128(sizeof(bf16) * kAttnQ * ld));
-  bf16* Vs = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(Ks) +
-                                     align128(sizeof(bf16) * kp * ld));
-  const int q0 = blockIdx.x * kAttnQ, h = blockIdx.y, b = blockIdx.z;
-  const int N3 = 3 * H * HD;
-  const bf16* base = qkv + static_cast<size_t>(b) * S * N3;
-
-  // q of head h at column h*HD, k at (H+h)*HD, v at (2H+h)*HD; rows past
-  // S are zero (V's must be: 0 * garbage could be NaN)
-  cp_tile(Qs, ld, base + static_cast<size_t>(q0) * N3 + h * HD, N3, kAttnQ,
-          HD, S - q0);
-  cp_tile(Ks, ld, base + (H + h) * HD, N3, kp, HD, S);
-  cp_tile(Vs, ld, base + (2 * H + h) * HD, N3, kp, HD, S);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * 16;
-  if (q0 + r0 >= S) return;  // no barrier follows
-  const int gq = lane >> 2, tq = lane & 3;
-
-  uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) load_a(qa[kk], Qs, ld, r0, 16 * kk);
-
-  // pass 1: exact row max of the masked, scaled scores
-  float m[2] = {-3.0e38f, -3.0e38f};
-  for (int kc = 0; kc < kp; kc += kAttnKeys) {
-    float s[4][4];
-    score_block<HD>(s, qa, Ks, kc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kc + 8 * j + 2 * tq + (e & 1);
-        m[e >> 1] = fmaxf(m[e >> 1],
-                          s[j][e] * scale + (key < kv_len ? 0.f : kNegInf));
-      }
-  }
-  m[0] = quad_max(m[0]);
-  m[1] = quad_max(m[1]);
-
-  // pass 2: p = exp(s - m), l = sum p in f32, o += bf16(p) @ v
-  float l[2] = {0.f, 0.f};
-  float o[HD / 8][4] = {};
-  for (int kc = 0; kc < kp; kc += kAttnKeys) {
-    float s[4][4];
-    score_block<HD>(s, qa, Ks, kc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kc + 8 * j + 2 * tq + (e & 1);
-        const float p = expf(s[j][e] * scale +
-                             (key < kv_len ? 0.f : kNegInf) - m[e >> 1]);
-        l[e >> 1] += p;
-        s[j][e] = p;
-      }
-    // the accumulator layout of two n8 score tiles is the A layout of
-    // one k16 probability fragment
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int jn = 0; jn < HD / 8; jn += 2) {
-        uint32_t bv[4];
-        load_b_kn(bv, Vs, ld, kc + 16 * kk, 8 * jn);
-        mma_bf16(o[jn], pa, bv[0], bv[1]);
-        mma_bf16(o[jn + 1], pa, bv[2], bv[3]);
-      }
-    }
-  }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-
-  const int HDt = H * HD;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int q = q0 + r0 + gq + 8 * hh;
-    if (q >= S) continue;
-    const size_t row = static_cast<size_t>(b) * S + q;
-#pragma unroll
-    for (int jn = 0; jn < HD / 8; ++jn)
-      *reinterpret_cast<uint32_t*>(att + row * HDt + h * HD + 8 * jn +
-                                   2 * tq) =
-          pack_bf16(o[jn][2 * hh] / l[hh], o[jn][2 * hh + 1] / l[hh]);
-    if (tq == 0) res[row * lanes + h] = m[hh] + logf(l[hh]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // 3. out-projection, residual, LN2, FFN, residual
@@ -430,66 +297,9 @@ __global__ void __launch_bounds__(kFfnThreads, 1)
 }
 
 // ===========================================================================
-// float route: the same three stages with exact f32 FMA products
+// float route: the same three stages with exact f32 FMA products (the
+// attention stage is attention_fwd.cuh's)
 // ===========================================================================
-
-constexpr int kF32Rows = 32, kF32Threads = 256;
-
-__host__ __device__ constexpr int pad_f32(int n) { return n + 4; }
-
-// C (M x N, ldc) = [C +] A (M x K, lda) * op(B): op(B) is B (K x N, ldb)
-// or, with kBT, B^T with B stored N x K.  M and N multiples of 4; each
-// thread owns 4x4 outputs.  No barrier inside.
-template <bool kBT>
-__device__ void block_gemm_f32(const float* A, int lda, const float* B,
-                               int ldb, float* C, int ldc, int M, int N,
-                               int K, bool acc) {
-  const int cols = N >> 2, tiles = (M >> 2) * cols;
-  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
-    const int i0 = (t / cols) << 2, j0 = (t % cols) << 2;
-    float c[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        c[r][s] = acc ? C[(i0 + r) * ldc + j0 + s] : 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = A[(i0 + r) * lda + k];
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        b[s] = kBT ? B[(j0 + s) * ldb + k] : B[k * ldb + j0 + s];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) c[r][s] = fmaf(a[r], b[s], c[r][s]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s) C[(i0 + r) * ldc + j0 + s] = c[r][s];
-  }
-}
-
-// W[k0:k0+kr, n0:n0+nc] (row-major, ldw) into a shared tile (ld)
-__device__ __forceinline__ void load_tile_f32(float* dst, int ld,
-                                              const float* W, int ldw,
-                                              int k0, int n0, int kr,
-                                              int nc) {
-  for (int i = threadIdx.x; i < kr * nc; i += blockDim.x) {
-    const int k = i / nc, j = i - k * nc;
-    dst[k * ld + j] = W[static_cast<size_t>(k0 + k) * ldw + n0 + j];
-  }
-}
-
-// Largest of 64, 32, 16 that is at most cap and divides a and b.
-int pick_tile(int cap, int a, int b) {
-  for (int t = 64; t >= 16; t >>= 1)
-    if (t <= cap && a % t == 0 && b % t == 0) return t;
-  return 0;
-}
 
 __host__ __device__ constexpr size_t f32_qkv_smem(int D, int NT) {
   return align128(sizeof(float) * kF32Rows * pad_f32(D)) +
@@ -536,86 +346,6 @@ __global__ void __launch_bounds__(kF32Threads)
       const int r = i / NT, j = i - r * NT, gr = row0 + r;
       if (gr < rows) qkv[static_cast<size_t>(gr) * N + n0 + j] = Cs[r * ldc + j];
     }
-  }
-}
-
-__host__ __device__ constexpr size_t f32_attn_smem(int Sp, int d) {
-  // Q, K, V tiles, the score tile (probabilities in place), O, m, l
-  return align128(sizeof(float) * kF32Rows * pad_f32(d)) +
-         2 * align128(sizeof(float) * Sp * pad_f32(d)) +
-         align128(sizeof(float) * kF32Rows * pad_f32(Sp)) +
-         align128(sizeof(float) * kF32Rows * pad_f32(d)) +
-         2 * align128(sizeof(float) * kF32Rows);
-}
-
-__global__ void __launch_bounds__(kF32Threads)
-    attention_f32(const float* __restrict__ qkv, float* __restrict__ att,
-                  float* __restrict__ res, int S, int Sp, int H, int d,
-                  int kv_len, int lanes, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldq = pad_f32(d), lds = pad_f32(Sp);
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + align128(sizeof(float) * kF32Rows * ldq) / sizeof(float);
-  float* Vs = Ks + align128(sizeof(float) * Sp * ldq) / sizeof(float);
-  float* Sc = Vs + align128(sizeof(float) * Sp * ldq) / sizeof(float);
-  float* Os = Sc + align128(sizeof(float) * kF32Rows * lds) / sizeof(float);
-  float* row_m = Os + align128(sizeof(float) * kF32Rows * ldq) / sizeof(float);
-  float* row_l = row_m + align128(sizeof(float) * kF32Rows) / sizeof(float);
-  const int q0 = blockIdx.x * kF32Rows, h = blockIdx.y, b = blockIdx.z;
-  const int N3 = 3 * H * d, HD = H * d;
-  const float* base = qkv + static_cast<size_t>(b) * S * N3;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < kF32Rows * d; i += blockDim.x) {
-    const int r = i / d, j = i - r * d, q = q0 + r;
-    Qs[r * ldq + j] = q < S ? base[static_cast<size_t>(q) * N3 + h * d + j]
-                            : 0.f;
-  }
-  for (int i = threadIdx.x; i < Sp * d; i += blockDim.x) {
-    const int r = i / d, j = i - r * d;
-    const bool ok = r < S;
-    const size_t row = static_cast<size_t>(r) * N3;
-    Ks[r * ldq + j] = ok ? base[row + (H + h) * d + j] : 0.f;
-    Vs[r * ldq + j] = ok ? base[row + (2 * H + h) * d + j] : 0.f;
-  }
-  __syncthreads();
-  block_gemm_f32<true>(Qs, ldq, Ks, ldq, Sc, lds, kF32Rows, Sp, d, false);
-  __syncthreads();
-  for (int r = warp; r < kF32Rows; r += kF32Threads / 32) {
-    float* sr = Sc + r * lds;
-    float m = -3.0e38f;
-    for (int c = lane; c < S; c += 32) {
-      const float s = sr[c] * scale + (c < kv_len ? 0.f : kNegInf);
-      sr[c] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int c = lane; c < Sp; c += 32) {
-      const float p = c < S ? expf(sr[c] - m) : 0.f;
-      l += p;
-      sr[c] = p;
-    }
-    l = warp_sum(l);
-    if (lane == 0) {
-      row_m[r] = m;
-      row_l[r] = l;
-    }
-  }
-  __syncthreads();
-  block_gemm_f32<false>(Sc, lds, Vs, ldq, Os, ldq, kF32Rows, d, Sp, false);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kF32Rows * d; i += blockDim.x) {
-    const int r = i / d, j = i - r * d, q = q0 + r;
-    if (q < S)
-      att[(static_cast<size_t>(b) * S + q) * HD + h * d + j] =
-          Os[r * ldq + j] / row_l[r];
-  }
-  for (int r = threadIdx.x; r < kF32Rows; r += blockDim.x) {
-    const int q = q0 + r;
-    if (q < S)
-      res[(static_cast<size_t>(b) * S + q) * lanes + h] =
-          row_m[r] + logf(row_l[r]);
   }
 }
 
@@ -745,13 +475,9 @@ cudaError_t launch_bf16_shape(const Args& a) {
       static_cast<float*>(a.res), nullptr, rows, D, N3, a.H, a.lanes);
   DEVT_TRY(cudaGetLastError());
 
-  const size_t s2 = attn_smem_bf16(HD, a.kv_len);
-  DEVT_TRY(set_smem(attention_bf16<HD>, s2));
-  attention_bf16<HD><<<dim3((a.S + kAttnQ - 1) / kAttnQ, a.H, a.B),
-                       kAttnThreads, s2, a.stream>>>(
-      h(a.qkv), static_cast<bf16*>(a.att), static_cast<float*>(a.res), a.S,
-      a.H, a.kv_len, a.lanes, a.scale);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY((launch_attention_bf16<HD, false>(
+      h(a.qkv), static_cast<bf16*>(a.att), static_cast<float*>(a.res), a.B,
+      a.S, a.H, a.kv_len, a.lanes, a.scale, a.stream)));
 
   constexpr size_t s3 = ffn_smem_bf16<D>().bytes;
   DEVT_TRY(set_smem(out_ffn_bf16<D>, s3));
@@ -775,7 +501,6 @@ cudaError_t launch_bf16(const Args& a) {
 
 cudaError_t launch_f32(const Args& a) {
   const int d = a.D / a.H, rows = a.B * a.S, N3 = 3 * a.D;
-  const int Sp = round_up(a.S, 16);
   const int nt_qkv = pick_tile(64, N3, N3), nt_ffn = pick_tile(64, a.F, a.F);
   const int kt = pick_tile(32, a.D, a.F);
   if (!nt_qkv || !nt_ffn || !kt) return cudaErrorInvalidValue;
@@ -792,12 +517,8 @@ cudaError_t launch_f32(const Args& a) {
       a.lanes, nt_qkv);
   DEVT_TRY(cudaGetLastError());
 
-  const size_t s2 = f32_attn_smem(Sp, d);
-  DEVT_TRY(set_smem(attention_f32, s2));
-  attention_f32<<<dim3((a.S + kF32Rows - 1) / kF32Rows, a.H, a.B),
-                  kF32Threads, s2, a.stream>>>(qkv, att, res, a.S, Sp, a.H,
-                                               d, a.kv_len, a.lanes, a.scale);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY(launch_attention_f32<false>(qkv, att, res, a.B, a.S, a.H, d,
+                                       a.kv_len, a.lanes, a.scale, a.stream));
 
   const size_t s3 = f32_ffn_smem(a.D, a.F, nt_ffn, kt);
   DEVT_TRY(set_smem(out_ffn_f32, s3));

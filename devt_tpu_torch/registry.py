@@ -1,7 +1,8 @@
 """Model construction by config string: port of ``devt_tpu/registry.py``.
 
-Only ``vivit`` is ported; the other names of the model family raise
-``NotImplementedError`` until their slice lands (ROADMAP.md queue 1).
+``vivit``, ``ptn`` and ``ptn_shared`` are ported; the other names of the
+model family raise ``NotImplementedError`` until their slice lands
+(ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -13,7 +14,17 @@ import torch
 from torch import nn
 
 from devt_tpu_torch.config import Config
+from devt_tpu_torch.models.ptn import PTN
 from devt_tpu_torch.models.vivit import ViViT
+
+PORTED_MODELS = ("vivit", "ptn", "ptn_shared")
+
+
+def _check_ported(name: str) -> None:
+    if name not in PORTED_MODELS:
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet — ROADMAP.md queue 1, item 5 "
+            f"(ported: {', '.join(PORTED_MODELS)})")
 
 
 def model_dtype(config: Config) -> torch.dtype:
@@ -24,10 +35,18 @@ def build_model(config: Config,
                 generator: torch.Generator | None = None) -> nn.Module:
     """The model ``config.model`` names, on the CPU, with weights drawn
     from ``generator`` (default: one seeded with ``config.seed``)."""
-    if config.model != "vivit":
-        raise NotImplementedError(
-            f"model {config.model!r} is not ported yet — ROADMAP.md queue 1 "
-            f"(only 'vivit' is)")
+    _check_ported(config.model)
+    if generator is None:
+        generator = torch.Generator().manual_seed(config.seed)
+    if config.model in ("ptn", "ptn_shared"):
+        return PTN(input_dimension=config.input_dimension,
+                   nhead=config.nhead, nhid=config.nhid,
+                   nlayers=config.nlayers, num_experts=len(config.experts),
+                   seq_len=config.seq_len, n_classes=config.n_classes,
+                   dropout=config.dropout,
+                   shared=config.model == "ptn_shared",
+                   attention_impl=config.attention_impl, remat=config.remat,
+                   dtype=model_dtype(config)).init_weights(generator)
     # channels-last is what the frame pipeline emits, as in the JAX registry
     model = ViViT(num_classes=config.n_classes,
                   num_frames=config.frame_len,
@@ -37,8 +56,6 @@ def build_model(config: Config,
                   pipeline_stages=config.pp if config.pp > 1 else 0,
                   sequence_parallel=config.sp > 1,
                   remat=config.remat, dtype=model_dtype(config))
-    if generator is None:
-        generator = torch.Generator().manual_seed(config.seed)
     return model.init_weights(generator)
 
 
@@ -46,9 +63,7 @@ def example_batch(config: Config,
                   batch_size: int | None = None) -> dict[str, Any]:
     """Synthetic numpy batch with the right shapes for ``config.model``
     (channels-last), drawn like the JAX registry's."""
-    if config.model != "vivit":
-        raise NotImplementedError(
-            f"model {config.model!r} is not ported yet — ROADMAP.md queue 1")
+    _check_ported(config.model)
     rng = np.random.default_rng(config.seed)
     b = batch_size or config.batch_size
     f, n = config.frame_len, config.n_classes
@@ -58,6 +73,11 @@ def example_batch(config: Config,
         lab[:, 5] = 1.0     # Drama fallback keeps rows non-empty
         return lab
 
+    if config.model in ("ptn", "ptn_shared"):
+        return {"experts": rng.standard_normal(
+                    (b, config.seq_len, len(config.experts),
+                     config.input_dimension), dtype=np.float32),
+                "label": multi_hot()}
     if config.wire_format == "u8_tokens":
         return {"vid_tokens": rng.integers(0, 256, (b, f, 196, 768),
                                            dtype=np.uint8),

@@ -7,9 +7,12 @@
   * outputs are sigmoid scores plus the genre labels whose score passes
     the threshold (0.3, the reference's callback semantics).
 
-The predictor runs on ``cuda`` unless the caller passes ``device="cpu"``;
-with no CUDA device and no explicit device it raises.  Quantized serving,
-data-parallel meshes, export and checkpoint loading are not ported yet.
+``vivit``, ``ptn`` and ``ptn_shared`` are served, in the model dtype or,
+with ``quantize=True``, with the transformer hot path in int8
+(``ops/quant.py``).  The predictor runs on ``cuda`` unless the caller
+passes ``device="cpu"``; with no CUDA device and no explicit device it
+raises.  Data-parallel meshes, export and checkpoint loading are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import torch
 
 from devt_tpu_torch.config import MMX_GENRES_15, MMX_GENRES_19, Config
 from devt_tpu_torch.data.device_norm import maybe_dequantize_batch
-from devt_tpu_torch.registry import build_model
+from devt_tpu_torch.ops.attention import quant_scope
+from devt_tpu_torch.ops.quant import quant_sites_collect, quant_sites_provide
+from devt_tpu_torch.registry import build_model, example_batch
 
 
 def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
@@ -42,9 +47,9 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return torch.device("cuda")
 
 
-def _todo(what: str) -> NotImplementedError:
+def _todo(what: str, item: int = 3) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet — ROADMAP.md "
-                               f"queue 1, item 3")
+                               f"queue 1, item {item}")
 
 
 class Predictor:
@@ -57,11 +62,33 @@ class Predictor:
                  quantize: bool = False, quant_site_pred=None,
                  device: str | torch.device | None = None):
         """``state_dict``: the port model's weights (``build_model``'s
-        names; ``utils.jax_bridge`` converts JAX variables)."""
-        if quantize or quant_site_pred is not None:
-            raise _todo("Predictor(quantize=True), the int8 serving path")
+        names; ``utils.jax_bridge`` converts JAX variables).
+
+        ``quantize=True`` serves the transformer hot path in int8
+        (``ops/quant.py``): weights per output channel, activations
+        dynamic per row.  Every weight is quantized once, here: an eager
+        collect pass over a one-sample batch records each site's int8
+        weights and f32 scales on the device (call order is the site's
+        identity), and every forward takes them back from that list and
+        quantizes no weight.  So later writes to ``self.model``'s weights
+        do not reach a quantized predictor; build a new one instead.  (The
+        JAX package chooses between folding the int8 weights into the
+        compiled program and passing them as arguments by the size of the
+        tree; an eager program has no such distinction, and this list is
+        the only delivery.)
+
+        ``quant_site_pred``: optional ``(k, n) -> bool`` filter over the
+        Linear sites of the torch-semantics encoder
+        (``ops.attention.quant_scope``).  None applies the JAX package's
+        default policy ``n >= 2k``: a site is quantized only when its
+        output is at least twice as wide as its input, which on PTN keeps
+        the packed qkv projection and leaves the square sites in the model
+        dtype.  Pass ``lambda k, n: True`` to quantize every site.
+        Without ``quantize`` it is ignored."""
         if mesh is not None:
-            raise _todo("Predictor(mesh=...), data-parallel serving")
+            raise _todo("Predictor(mesh=...), data-parallel serving", item=7)
+        if quantize and quant_site_pred is None:
+            quant_site_pred = lambda k, n: n >= 2 * k  # noqa: E731
         self.device = resolve_device(device)
         self.config = config
         self.model = build_model(config)
@@ -71,29 +98,50 @@ class Predictor:
         self.buckets = sorted(buckets)
         self.target_names = (MMX_GENRES_19 if config.n_classes == 19
                              else MMX_GENRES_15)
+        self.quantize = quantize
+        self._quant_site_pred = quant_site_pred
+        self._qsites: list | None = None
+        if quantize:
+            tiny = {k: torch.from_numpy(v).to(self.device)
+                    for k, v in example_batch(config, batch_size=1).items()
+                    if k != "label"}
+            sites: list = []
+            with torch.inference_mode(), quant_scope(quant_site_pred), \
+                    quant_sites_collect(sites):
+                self._scores(tiny)
+            self._qsites = sites
 
     @classmethod
     def from_checkpoint(cls, config: Config, ckpt_path: str,
                         **kw) -> "Predictor":
-        raise _todo("Predictor.from_checkpoint (Orbax checkpoints)")
+        raise _todo("Predictor.from_checkpoint (Orbax checkpoints)", item=4)
 
     @classmethod
     def from_lightning_checkpoint(cls, config: Config, ckpt_path: str,
                                   **kw) -> "Predictor":
-        raise _todo("Predictor.from_lightning_checkpoint")
+        raise _todo("Predictor.from_lightning_checkpoint", item=8)
 
     def export(self, path: str, batch_size: int | None = None,
                platforms: Sequence[str] | None = None) -> None:
         raise _todo("Predictor.export")
 
-    def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """Scores for one already-padded batch of device tensors."""
+    def _scores(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         batch = maybe_dequantize_batch(dict(batch), dtype=torch.float32)
-        if "vid_tokens" in batch:
+        if self.config.model in ("ptn", "ptn_shared"):
+            out = self.model(batch["experts"])
+        elif "vid_tokens" in batch:
             out = self.model(batch["vid_tokens"], tokens_in=True)
         else:
             out = self.model(batch["vid"])
         return torch.sigmoid(out)
+
+    def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Scores for one already-padded batch of device tensors."""
+        if not self.quantize:
+            return self._scores(batch)
+        with quant_scope(self._quant_site_pred), \
+                quant_sites_provide(self._qsites):
+            return self._scores(batch)
 
     def _invoke(self, chunk: Mapping[str, np.ndarray]) -> np.ndarray:
         tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(

@@ -1,16 +1,21 @@
 """Weights carried between the JAX package and the port.
 
-The JAX ViViT's variables, given as a nested dict of numpy arrays (call
+A JAX model's variables, given as a nested dict of numpy arrays (call
 ``np.asarray`` on each leaf first; this module imports no JAX), map onto
 the port's ``state_dict`` by name:
 
-  * path segments join with ``.``, and ``block_<i>`` becomes ``blocks.<i>``;
+  * path segments join with ``.``; ``block_<i>`` becomes ``blocks.<i>`` and
+    ``layer_<i>`` becomes ``layers.<i>`` (the ``nn.ModuleList``s);
   * a flax Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
   * a LayerNorm ``scale`` becomes ``weight``; ``bias`` and the other
     leaves (``pos_embedding``, ``space_token``…) keep their names.
 
 Names follow ``devt_tpu/models/layers.py:117-160`` (``attn_norm``,
-``attn/to_qkv``, ``attn/to_out``, ``ff_norm``, ``ff/fc1``, ``ff/fc2``).
+``attn/to_qkv``, ``attn/to_out``, ``ff_norm``, ``ff/fc1``, ``ff/fc2``) for
+ViViT and ``devt_tpu/models/ptn.py`` / ``torch_encoder.py`` for PTN
+(``encoder_<i>/layer_<j>/self_attn/in_proj``, ``out_proj``, ``linear1``,
+``linear2``, ``norm1``, ``norm2``; ``cls``, ``norm``, ``head_norm``,
+``head``).
 
 ``jax_to_state_dict`` maps any tree shaped like the parameters, not only
 weights: a gradient tree (``jax.grad`` of the loss) and optax's ``mu`` /
@@ -26,6 +31,10 @@ from typing import Any, Iterator, Mapping
 
 import numpy as np
 import torch
+
+# flax names of numbered submodules → the port's ModuleList names
+_LISTS = {"block": "blocks", "layer": "layers"}
+_FLAX = {v: k for k, v in _LISTS.items()}
 
 
 def _leaves(tree: Mapping[str, Any],
@@ -44,8 +53,8 @@ def jax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     for path, leaf in _leaves(params):
         parts = []
         for seg in path[:-1]:
-            m = re.fullmatch(r"block_(\d+)", seg)
-            parts += ["blocks", m.group(1)] if m else [seg]
+            m = re.fullmatch(r"(block|layer)_(\d+)", seg)
+            parts += [_LISTS[m.group(1)], m.group(2)] if m else [seg]
         name = path[-1]
         arr = np.asarray(leaf, dtype=np.float32)
         if name == "kernel":
@@ -69,8 +78,8 @@ def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor]
             arr = arr.T if arr.ndim == 2 else arr
         segs, i = [], 0
         while i < len(parts) - 1:
-            if parts[i] == "blocks":
-                segs.append(f"block_{parts[i + 1]}")
+            if parts[i] in _FLAX:
+                segs.append(f"{_FLAX[parts[i]]}_{parts[i + 1]}")
                 i += 2
             else:
                 segs.append(parts[i])

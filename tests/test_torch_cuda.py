@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from devt_tpu_torch.ops import flash_attention as tfa
 from devt_tpu_torch.ops import fused_block as tfb
+from devt_tpu_torch.ops import quant as tq
 
 # the same bounds as chip_smoke.py: f32 sums in other orders; bf16 one
 # ulp where a sum lands on the other side of a rounding boundary
@@ -199,3 +201,148 @@ def test_vit_block_trains_through_the_kernels(card, rate):
             err = (grads[k].cpu() - p.grad).abs().max().item()
             bound = BWD_ULPS["bf16"] * EPS["bf16"] * p.grad.abs().max().item()
             assert err <= bound, f"{k}: {err:.3e} > {bound:.3e}"
+
+
+# --- the int8 block, the fused int8 matmul and the packed-qkv attention ---
+
+def _quant_block(dtype, heads, **kw):
+    x, params = _block(dtype, **kw)
+    qp = tq.quant_block_params(params)
+    return x, params, qp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("b,kv_len", [(6, 37), (6, 48), (50, 20)])
+def test_quant_block_kernel_matches_plain(card, kind, b, kv_len):
+    """The int8 fused block against its plain version.  Bound: kernel 1's,
+    on all but a small share of y: an LN output within an ulp of a
+    half-integer after scaling may round to the neighbouring int8 code in
+    one of the two, which moves that row's product by one quantization
+    step (1/127 of the row's largest LN output times a weight)."""
+    heads = 2
+    x, _, qp = _quant_block(DTYPE[kind], heads, b=b, kv_len=kv_len)
+    scale = (64 // heads) ** -0.5
+    before = tq.quant_fused_vit_block.launches
+    with torch.no_grad():
+        got = tq.quant_fused_vit_block(x, qp, heads, scale, kv_len)
+    want = tq.quant_fused_vit_block_plain(x, qp, heads, scale, kv_len)
+    torch.cuda.synchronize()
+    assert tq.quant_fused_vit_block.launches == before + 1
+    assert got.dtype == x.dtype and torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    tol = TOL[kind]["atol"] + TOL[kind]["rtol"] * want.float().abs()
+    assert (err > tol).float().mean().item() < 5e-3, err.max().item()
+    assert err.max().item() < 0.05 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_quant_block_kernel_rejects_unsupported_shapes(card):
+    x, _, qp = _quant_block(torch.bfloat16, 2)
+    with pytest.raises(ValueError, match="compiled for"):
+        tq.quant_fused_vit_block(x, qp, 4, 0.25, 37)     # head dim 16
+    qp["wqkv_q"] = qp["wqkv_q"].float()
+    with pytest.raises(ValueError, match="param wqkv_q"):
+        tq.quant_fused_vit_block(x, qp, 2, 0.25, 37)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(256, 512, 512), (100, 512, 768),
+                                   (300, 2048, 640), (64, 64, 64)])
+def test_int8_matmul_kernel_matches_plain_bit_for_bit(card, kind, m, k, n):
+    """The int32 sums are exact and the formula is the same, so on bf16
+    inputs (exact in f32) the two agree in every bit; f32 inputs too."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32)) \
+        .to(DTYPE[kind]).cuda()
+    x[3] = 0.0                                     # an all-zero row
+    w = torch.tensor((rng.standard_normal((k, n)) * 0.05).astype(np.float32))
+    w_q, w_s = tq.quantize_weight(w.cuda())
+    before = tq.int8_matmul_fused.launches
+    got = tq.int8_matmul_fused(x, w_q, w_s)
+    want = tq.int8_matmul_fused_plain(x, w_q, w_s)
+    torch.cuda.synchronize()
+    assert tq.int8_matmul_fused.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == (m, n)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.cuda
+def test_int8_matmul_kernel_rejects_unsupported_shapes(card):
+    x = torch.zeros(64, 96, device="cuda")
+    w_q = torch.zeros(96, 64, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tq.int8_matmul_fused(x, w_q, torch.ones(1, 64, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,s,heads,d,kv_len", [
+    (kind, *shape) for kind in ("f32", "bf16") for shape in (
+        (3, 14, 2, 256, 14), (3, 16, 2, 256, 14), (4, 48, 2, 32, 37),
+        (2, 208, 3, 64, 197), (2, 75, 2, 128, 75), (5, 3, 2, 256, 3),
+        (3, 40, 4, 16, 33))
+] + [("bf16", 1, 512, 1, 64, 500), ("f32", 1, 304, 1, 64, 300)])
+def test_mha_kernel_matches_plain(card, kind, b, s, heads, d, kv_len):
+    """o and lse of the packed-qkv attention against the plain version:
+    f32 sums in other orders; bf16 one ulp of o where a probability or a
+    sum lands on the other side of a rounding boundary.  The last two are
+    the longest sequences a block's shared memory takes at head dim 64
+    (the float route keeps K, V and the score tile in f32)."""
+    rng = np.random.default_rng(s + d)
+    qkv = torch.tensor(rng.standard_normal((b, s, 3 * heads * d))
+                       .astype(np.float32)).to(DTYPE[kind]).cuda()
+    before = tfa.fused_mha.launches
+    o, lse = tfa.fused_mha(qkv, heads=heads, kv_len=kv_len, return_lse=True)
+    wo, wlse = tfa.fused_mha_plain(qkv, heads, d ** -0.5, kv_len)
+    torch.cuda.synchronize()
+    assert tfa.fused_mha.launches == before + 1
+    assert o.dtype == qkv.dtype and o.shape == (b, s, heads * d)
+    assert lse.dtype == torch.float32 and lse.shape == (b, s, heads)
+    torch.testing.assert_close(o.float(), wo.float(), **TOL[kind])
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mha_kernel_refuses_gradients_dropout_and_shapes(card):
+    qkv = torch.zeros(2, 16, 3 * 2 * 64, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="kernel 4"):
+        tfa.fused_mha(qkv, heads=2)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tfa.fused_mha(qkv.detach(), heads=2, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.fused_mha(torch.zeros(2, 16, 3 * 2 * 48, device="cuda",
+                                  dtype=torch.bfloat16), heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,site_pred,matmuls", [
+    ("ptn", None, 4), ("ptn_shared", lambda k, n: True, 24)])
+def test_quantized_ptn_serves_through_the_kernels(card, name, site_pred,
+                                                  matmuls):
+    """A PTN wide enough for the fused int8 matmul (512) behind
+    Predictor(quantize=True) on the card: the attention and int8-matmul
+    launch counts of one forward (32 rows, so that the shared model's
+    second pass over 3 tokens a row still has the 64 rows the fused matmul
+    asks for), and the scores against the same quantized model on the CPU
+    (both bf16; a flipped int8 code or a bf16 rounding moves a score by up
+    to a few 1e-3)."""
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.registry import build_model, example_batch
+    from devt_tpu_torch.serve import Predictor
+
+    cfg = Config(model=name, seq_len=13, nlayers=2, nhid=512,
+                 input_dimension=512, nhead=8, dropout=0.0, precision="bf16",
+                 experts=("video-embeddings", "audio-embeddings"))
+    weights = build_model(cfg).state_dict()
+    request = {"experts": example_batch(cfg, 32)["experts"]}
+    kw = dict(buckets=(32,), quantize=True, quant_site_pred=site_pred)
+    pred = Predictor(cfg, weights, **kw)
+    tfa.fused_mha.launches = tq.int8_matmul_fused.launches = 0
+    got = pred.predict(request)["scores"]
+    passes = 3 if name == "ptn_shared" else 2
+    assert tfa.fused_mha.launches == 2 * passes
+    assert tq.int8_matmul_fused.launches == matmuls
+    want = Predictor(cfg, weights, device="cpu", **kw).predict(request)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want["scores"], atol=2e-2, rtol=0)

@@ -46,7 +46,14 @@ def test_walk_covers_the_training_slice():
                 "devt_tpu_torch/parallel/train_step.py",
                 "devt_tpu_torch/models/losses.py",
                 "devt_tpu_torch/ops/fused_block.py",
-                "devt_tpu_torch/ops/_build.py", "chip_smoke.py"):
+                "devt_tpu_torch/ops/_build.py", "chip_smoke.py",
+                # the int8 serving slice
+                "devt_tpu_torch/ops/quant.py",
+                "devt_tpu_torch/ops/flash_attention.py",
+                "devt_tpu_torch/ops/attention.py",
+                "devt_tpu_torch/models/torch_encoder.py",
+                "devt_tpu_torch/models/ptn.py",
+                "devt_tpu_torch/serve.py", "devt_tpu_torch/registry.py"):
         assert rel in walked, rel
 
 

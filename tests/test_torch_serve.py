@@ -84,16 +84,23 @@ def test_default_device_is_the_card(monkeypatch):
         Predictor(Config(**CFG), {})
 
 
-@pytest.mark.parametrize("kw", [dict(quantize=True),
+@pytest.mark.parametrize("kw", [dict(mesh=object(), quantize=True),
                                 dict(mesh=object())])
 def test_unported_serving_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor(Config(**CFG), {}, device="cpu", **kw)
+    for load in (Predictor.from_checkpoint,
+                 Predictor.from_lightning_checkpoint):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            load(Config(**CFG), "missing.ckpt")
 
 
 def test_other_models_are_not_ported():
+    for name in ("lstm", "tpn", "frame_transformer_vid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            treg.build_model(Config(model=name))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.build_model(Config(model="ptn"))
+        treg.example_batch(Config(model="lstm"))
 
 
 def test_seeded_build_is_deterministic():
