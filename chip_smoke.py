@@ -54,6 +54,25 @@ Phases, each printing a line of its own; any failure exits non-zero:
                bf16, int8 with the default site policy, int8 at every site;
                4 attention launches per forward and 0 / 4 / 16 int8-matmul
                launches; the first rows against the CPU; rows/s of each.
+ 13. kernel-mha-bwd — the packed-qkv attention backward at PTN's training
+               shape (32, 14, 6144), 8 heads of 256, bf16 and f32, at the
+               ViT shape (512, 208, 576), 3 heads of 64, kv_len 197, and at
+               (32, 160, 6144), the longest the forward takes at head dim
+               256: dq, dk, dv through fused_mha and autograd against the
+               plain backward on the forward's (o, lse); two runs bit for
+               bit; at dropout
+               0.5 both kernels against the plain versions given the masks
+               the library exports for the seed, and the dropped share; the
+               backward of F.scaled_dot_product_attention as a yardstick.
+ 14. train-ptn — PTN at full width (batch 32, 13 scenes, 2 experts, 2 layers,
+               width 2048, 8 heads, bf16, AdamW 1e-4; bench.py's two-modality
+               and dropout-training configurations) at dropout 0 and 0.5:
+               one make_train_step step and make_multi_step(8), 4 launches of
+               each attention kernel per step, a falling loss at dropout 0,
+               one step's gradients on 2 rows against the CPU's plain kernel
+               path, in bf16 and in f32; samples/s as the best of 3 windows, the host's
+               share and a profile of one step; then one ptn_shared step at
+               dropout 0.5 (6 + 6 launches).
 
 The last lines are a JSON line of the kernels, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  With no CUDA device, or without the
@@ -130,6 +149,13 @@ LABEL_THRESHOLD = 0.3
 # PTN serving (bench.py's int8 serving configuration)
 PTN_ROWS, PTN_SEQ, PTN_WIDTH, PTN_HEADS, PTN_LAYERS = 256, 13, 2048, 8, 2
 PTN_EXPERTS = ("video-embeddings", "audio-embeddings")
+# PTN training (bench.py:453 two-modality fusion, :473 dropout training):
+# batch 32, attention-probability dropout 0.5 in the reference's regime
+PTN_TRAIN_BATCH, PTN_DROPOUT = 32, 0.5
+# PTN gradients of one f32 step on the card against the CPU's plain kernel
+# path, per leaf: sums in other orders, amplified where a LayerNorm
+# backward cancels.  (bf16: _ptn_grad_check.)
+PTN_GRAD_RTOL = 1e-3
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1053,6 +1079,413 @@ def phase_serve_ptn() -> dict:
     return out
 
 
+def _traced(fn, reps: int = 3):
+    """``_device_profile`` three times, keeping the reading with the most
+    device time: the profiler can drop device events (phases 11 and 12
+    have shown fractional launch counts), which only ever lowers a
+    reading."""
+    readings = [_device_profile(fn, reps=reps) for _ in range(3)]
+    return max(readings, key=lambda r: sum(ms for _, ms, _ in r[0]))
+
+
+def _graph_ms(fn, n: int = 20, replays: int = 5) -> float:
+    """Device time per call of ``fn``: ``n`` calls captured in one CUDA
+    graph, replayed and timed with CUDA events.  At PTN's 32 sequences a
+    kernel takes less time on the card than its wrapper takes on the host,
+    so events around back-to-back eager calls would time the host, and the
+    profiler drops events now and then."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * n)
+
+
+def _check_dqkv(kind, tag, got, want, heads, d) -> tuple[float, float]:
+    """dq, dk and dv of the backward kernel against the plain version, per
+    tensor within BWD_ULPS of its largest element; returns the largest
+    absolute error and the largest as a share of its tensor's largest
+    element."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{tag}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    worst = worst_rel = 0.0
+    for i, name in enumerate(("dq", "dk", "dv")):
+        cols = slice(i * heads * d, (i + 1) * heads * d)
+        g, w = got[..., cols].float(), want[..., cols].float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{tag} {name}: non-finite kernel output")
+        err = (g - w).abs().max().item()
+        largest = w.abs().max().item()
+        bound = BWD_ULPS[kind] * EPS[kind] * largest
+        if not err <= bound:
+            raise AssertionError(f"{tag} {name}: max abs err {err:.3e} > "
+                                 f"{bound:.3e} ({BWD_ULPS[kind]} ulps of the "
+                                 f"largest element)")
+        worst, worst_rel = max(worst, err), max(worst_rel, err / largest)
+    return worst, worst_rel
+
+
+def phase_mha_bwd(kind: str, b: int, s: int, heads: int, d: int,
+                  kv_len: int, dropout: bool = False) -> dict:
+    """Kernel 4, through ``fused_mha`` and autograd, against its plain
+    backward on the forward's (o, lse); with ``dropout``, both attention
+    kernels at rate PTN_DROPOUT against the plain versions given the
+    exported masks."""
+    import torch
+    import torch.nn.functional as F
+
+    from devt_tpu_torch.ops import flash_attention as tfa
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    gen = torch.Generator().manual_seed(SEED + 8)
+    qkv = torch.randn(b, s, 3 * heads * d, generator=gen).to(dtype).cuda()
+    do = torch.randn(b, s, heads * d, generator=gen).to(dtype).cuda()
+    scale = d ** -0.5
+    tag = f"mha-bwd {kind} ({b},{s},{3 * heads * d})"
+
+    def through_autograd(rate=0.0, seed=0):
+        """o, lse and dqkv through fused_mha and autograd, as a training
+        step runs them: the wrapper's saved tensors, cast and seed."""
+        leaf = qkv.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out, lse_ = tfa.fused_mha(leaf, heads=heads, kv_len=kv_len,
+                                      dropout_rate=rate, seed=seed,
+                                      return_lse=True)
+            dqkv, = torch.autograd.grad(out, leaf, do)
+        return out.detach(), lse_, dqkv
+
+    with torch.no_grad():
+        o, lse, got = through_autograd()
+        want = tfa.fused_mha_bwd_plain(qkv, o, lse, do, heads, scale, kv_len)
+        torch.cuda.synchronize()
+        err, rel = _check_dqkv(kind, tag, got, want, heads, d)
+        same_bits = torch.equal(got, through_autograd()[2])
+        if not same_bits:
+            raise AssertionError(f"{tag}: two runs differ in their bits")
+        del want
+        # the kernel alone, for its times
+        run = lambda: tfa._mha_bwd_cuda(qkv, o, lse, do, heads, scale,  # noqa: E731
+                                        kv_len)
+        wall_ms = _time_ms(run)
+        kernel_ms = _graph_ms(run)
+        plain_ms = _time_ms(
+            lambda: tfa.fused_mha_bwd_plain(qkv, o, lse, do, heads, scale,
+                                            kv_len), iters=3, warmup=1)
+
+    # the yardstick: the library's fused attention on the same split q, k,
+    # v (live keys only) through autograd, forward + backward less forward
+    split = qkv.reshape(b, s, 3, heads, d)
+    q, k, v = (split[:, :, i].transpose(1, 2).detach().requires_grad_(True)
+               for i in range(3))
+    do_split = do.reshape(b, s, heads, d).transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q, k[:, :, :kv_len], v[:, :, :kv_len], scale=scale)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = _graph_ms(sdpa)
+    sdpa_fwd_bwd_ms = _graph_ms(
+        lambda: torch.autograd.grad(sdpa(), (q, k, v), do_split))
+    library_ms = sdpa_fwd_bwd_ms - sdpa_fwd_ms
+
+    item = qkv.element_size()
+    flops = 5 * 2 * b * heads * s * kv_len * d
+    bytes_ = 2 * qkv.numel() * item + 2 * o.numel() * item + lse.numel() * 4
+    bound_ms, bound_by = _bound({kind: flops}, bytes_)
+    out = {"dtype": kind, "max_abs_err": err, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    drop_text = ""
+    if dropout:
+        rate, seed = PTN_DROPOUT, 20261
+        with torch.no_grad():
+            keep = tfa.mha_dropout_masks(seed, rate, b, s, heads, "cuda")
+            share = 1.0 - keep.float().mean().item()
+            band = 4 * (rate * (1 - rate) / keep.numel()) ** 0.5
+            other = tfa.mha_dropout_masks(seed + 1, rate, b, s, heads, "cuda")
+            if abs(share - rate) > band or torch.equal(keep, other):
+                raise AssertionError(f"{tag}: dropped share {share:.5f} "
+                                     f"(rate {rate}, band {band:.2e}), or "
+                                     f"another seed gave the same mask")
+            del other
+            od, lsed, dgot = through_autograd(rate, seed)
+            wo, wlse = tfa.fused_mha_plain(qkv, heads, scale, kv_len, keep,
+                                           rate)
+            torch.cuda.synchronize()
+            _check_close(f"{tag} dropout o", od, wo, *TOL[kind])
+            _check_close(f"{tag} dropout lse", lsed, wlse, *LSE_TOL)
+            fwd_err = _max_err(od, wo)
+            dwant = tfa.fused_mha_bwd_plain(qkv, od, lsed, do, heads, scale,
+                                            kv_len, keep, rate)
+            torch.cuda.synchronize()
+            derr, _ = _check_dqkv(kind, f"{tag} dropout", dgot, dwant, heads,
+                                  d)
+            if not torch.equal(dgot, through_autograd(rate, seed)[2]):
+                raise AssertionError(f"{tag} dropout: two runs differ")
+            fwd = lambda: tfa.fused_mha(qkv, heads=heads, kv_len=kv_len,  # noqa: E731
+                                        dropout_rate=rate, seed=seed)
+            bwd = lambda: tfa._mha_bwd_cuda(qkv, od, lsed, do, heads, scale,  # noqa: E731
+                                            kv_len, rate, seed)
+            del keep, wo, dwant
+            fwd0_ms = _graph_ms(lambda: tfa.fused_mha(qkv, heads=heads,
+                                                      kv_len=kv_len))
+            fwd_drop_ms = _graph_ms(fwd)
+            bwd_drop_ms = _graph_ms(bwd)
+        out.update(fwd0_ms=fwd0_ms, fwd_drop_ms=fwd_drop_ms,
+                   bwd_drop_ms=bwd_drop_ms)
+        drop_text = (
+            f" | dropout {rate}: dropped share {share:.5f} (band {band:.1e}; "
+            f"another seed, another mask), forward max_abs_err="
+            f"{fwd_err:.3e} and backward {derr:.3e} against the plain "
+            f"versions given the exported mask, two runs bit-equal; device "
+            f"time of kernel 3 {fwd_drop_ms:.4f} ms at rate {rate} against "
+            f"{fwd0_ms:.4f} at 0, of kernel 4 {bwd_drop_ms:.4f} ms against "
+            f"{kernel_ms:.4f}")
+    print(f"[kernel-mha-bwd] fused_mha backward {kind} ({b},{s},"
+          f"{3 * heads * d}) {heads} heads of {d}, kv_len {kv_len}, through "
+          f"fused_mha and autograd against the plain backward on the "
+          f"forward's (o, lse): dq, dk, dv within {BWD_ULPS[kind]} ulps of the largest element, "
+          f"max_abs_err={err:.3e} ({rel:.3e} of its tensor's largest "
+          f"element) | two runs bit-equal: {same_bits} | kernel_ms="
+          f"{kernel_ms:.4f} (device time: 20 calls in a CUDA graph; CUDA "
+          f"events over back-to-back eager calls {wall_ms:.4f}) plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (device time, CUDA graph, of "
+          f"F.scaled_dot_product_attention through autograd: forward + "
+          f"backward {sdpa_fwd_bwd_ms:.4f} less forward {sdpa_fwd_ms:.4f}) "
+          f"bound_ms={bound_ms:.4f} ({bound_by})"
+          + drop_text, flush=True)
+    return out
+
+
+def _ptn_config(**kw):
+    from devt_tpu_torch.config import Config
+
+    base = dict(model="ptn", batch_size=PTN_TRAIN_BATCH, seq_len=PTN_SEQ,
+                nlayers=PTN_LAYERS, nhid=PTN_WIDTH,
+                input_dimension=PTN_WIDTH, nhead=PTN_HEADS,
+                experts=PTN_EXPERTS, opt="adamW", learning_rate=1e-4,
+                precision="bf16", dropout=0.0)
+    return Config(**{**base, **kw})
+
+
+def _ptn_batch(n: int, seed: int) -> dict:
+    """Normal expert embeddings and 15 multi-hot genre labels, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    experts = rng.standard_normal((n, PTN_SEQ, len(PTN_EXPERTS), PTN_WIDTH),
+                                  dtype=np.float32)
+    label = (rng.random((n, 15)) < 0.3).astype(np.float32)
+    return {"experts": torch.from_numpy(experts).cuda(),
+            "label": torch.from_numpy(label).cuda()}
+
+
+def _ptn_grad_gaps(kind: str, impl: str) -> tuple[dict, float]:
+    """One step's gradients on 2 rows in precision ``kind`` with attention
+    ``impl``, the card against the CPU, the same weights: per leaf the
+    largest difference as a share of the leaf's largest element, and the
+    loss difference."""
+    import torch
+
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    cfg = _ptn_config(precision=kind, attention_impl=impl)
+    small = _ptn_batch(2, SEED + 9)
+
+    def grads(m, batch):
+        params = dict(m.named_parameters())
+        loss, _, _ = forward_and_loss(m, cfg, {"params": params}, batch,
+                                      DropoutRng(0), train=True)
+        return loss.item(), dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    cpu_loss, cpu = grads(build_model(cfg, torch.Generator().manual_seed(
+        SEED)), {k: v.cpu() for k, v in small.items()})
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    card_loss, card = grads(model, small)
+    gaps = {}
+    for name, want in cpu.items():
+        got, want = card[name].cpu().float(), want.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"train-ptn: non-finite gradient of {name}")
+        gaps[name] = (got - want).abs().max().item() / max(
+            want.abs().max().item(), GRAD_FLOOR)
+    return gaps, abs(card_loss - cpu_loss)
+
+
+def _ptn_grad_check() -> str:
+    """The card's PTN step against the CPU's plain kernel path
+    (``attention_impl="pallas"``), per leaf.  f32: within PTN_GRAD_RTOL of
+    each leaf's largest element.  bf16: the two machines' products round
+    apart and a ReLU input near zero lands on either side, which moves a
+    last-layer FFN gradient of 2 rows by up to half its largest element;
+    the same step without the attention kernels (``"xla"``) shows the same
+    gap, so the worst leaf with the kernels must be within phase 7's bound
+    (GRAD_RTOL) of the worst leaf without them."""
+    gaps, dloss = _ptn_grad_gaps("f32", "pallas")
+    leaf = max(gaps, key=gaps.get)
+    if not gaps[leaf] <= PTN_GRAD_RTOL or dloss > 1e-4:
+        raise AssertionError(
+            f"train-ptn: card vs CPU f32 gradients differ by "
+            f"{gaps[leaf]:.3e} of the leaf's largest element at {leaf} "
+            f"(bound {PTN_GRAD_RTOL}); loss by {dloss:.3e}")
+    text = (f"card vs CPU gradients of one step on 2 rows, worst leaf as a "
+            f"share of its largest element: f32 {gaps[leaf]:.3e} at {leaf} "
+            f"(bound {PTN_GRAD_RTOL})")
+    (kern, kloss), (lib, _) = (_ptn_grad_gaps("bf16", impl)
+                               for impl in ("pallas", "xla"))
+    kleaf, lleaf = max(kern, key=kern.get), max(lib, key=lib.get)
+    attn = max((k for k in kern if "self_attn" in k), key=kern.get)
+    if not kern[kleaf] <= lib[lleaf] + GRAD_RTOL or kloss > SCORE_ATOL:
+        raise AssertionError(
+            f"train-ptn: card vs CPU bf16 gradients differ by "
+            f"{kern[kleaf]:.3e} at {kleaf} with the kernels, {lib[lleaf]:.3e} "
+            f"at {lleaf} without them (bound: that + {GRAD_RTOL}); loss by "
+            f"{kloss:.3e}")
+    return (text + f"; bf16 {kern[kleaf]:.3e} at {kleaf} with the kernels "
+            f"against {lib[lleaf]:.3e} at {lleaf} without them (bound: that "
+            f"+ {GRAD_RTOL}), attention leaves {kern[attn]:.3e} at {attn}")
+
+
+def phase_train_ptn() -> dict:
+    import torch
+
+    from devt_tpu_torch.ops.flash_attention import fused_mha
+    from devt_tpu_torch.parallel.train_step import (make_eval_step,
+                                                    make_multi_step,
+                                                    make_train_step)
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    grad_text = _ptn_grad_check()
+    per_step = len(PTN_EXPERTS) * PTN_LAYERS     # attention calls a step
+    batch = _ptn_batch(PTN_TRAIN_BATCH, SEED + 10)
+    stacked = {k: v[None].expand(MULTI_STEPS, *v.shape)
+               for k, v in batch.items()}
+    out: dict = {"fwd_launches": 0, "bwd_launches": 0}
+    for rate in (0.0, PTN_DROPOUT):
+        cfg = _ptn_config(dropout=rate)
+        model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+        state = TrainState.create(dict(model.named_parameters()),
+                                  build_optimizer(cfg))
+        step = make_train_step(model, cfg)
+        multi = make_multi_step(model, cfg, MULTI_STEPS)
+        evaluate = make_eval_step(model, cfg)
+        loss_before = evaluate(state, batch)[0].item()
+
+        fused_mha.launches = fused_mha.bwd_launches = 0
+        state, first = step(state, batch, SEED)
+        state, metrics = multi(state, stacked, SEED)
+        torch.cuda.synchronize()
+        counts = (fused_mha.launches, fused_mha.bwd_launches)
+        steps = 1 + MULTI_STEPS
+        if counts != (per_step * steps,) * 2:
+            raise AssertionError(
+                f"train-ptn dropout {rate}: {counts[0]} forward and "
+                f"{counts[1]} backward attention launches in {steps} steps, "
+                f"expected {per_step} of each per step")
+        out["fwd_launches"] += counts[0]
+        out["bwd_launches"] += counts[1]
+        loss_after = evaluate(state, batch)[0].item()
+        losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
+        if not all(map(math.isfinite, losses)) or state.step != steps or (
+                rate == 0.0 and not loss_after < loss_before):
+            raise AssertionError(f"train-ptn dropout {rate}: loss "
+                                 f"{loss_before:.5f} before, {losses} during "
+                                 f"and after {state.step} steps")
+
+        # throughput: best of 3 windows of multi-step calls, host clock
+        multi(state, stacked, SEED)[1]["loss"].item()
+        windows, enqueue = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_ITERS):
+                state, metrics = multi(state, stacked, SEED)
+            enqueue.append(time.perf_counter() - t0)
+            metrics["loss"].item()
+            windows.append(time.perf_counter() - t0)
+        n_steps = TRAIN_ITERS * MULTI_STEPS
+        best = min(windows)
+        step_ms = best / n_steps * 1e3
+        host_ms = enqueue[windows.index(best)] / n_steps * 1e3
+        samples_per_s = PTN_TRAIN_BATCH * n_steps / best
+        rows, busy, wall_ms = _traced(lambda: step(state, batch, SEED))
+        _print_profile(f"PTN train step, dropout {rate}, B={PTN_TRAIN_BATCH}",
+                       rows, busy, wall_ms, top=12)
+        device_ms = sum(ms for _, ms, _ in rows)
+        k3_ms = sum(ms for name, ms, _ in rows
+                    if name.startswith("attention_bf16<256, true"))
+        k4_ms = sum(ms for name, ms, _ in rows
+                    if name.startswith(("mha_bwd_delta", "mha_bwd_bf16")))
+        print(f"[profile]   device total {device_ms:.3f} ms per step: "
+              f"attention forward (kernel 3) {k3_ms:.3f}, attention "
+              f"backward (kernel 4) {k4_ms:.3f}, everything else "
+              f"{device_ms - k3_ms - k4_ms:.3f} "
+              f"({sum(n for _, _, n in rows):.0f} launches)")
+        tag = "bench.py:453" if rate == 0.0 else "bench.py:473"
+        extra = f"; {grad_text}" if rate == 0.0 else ""
+        print(f"[train-ptn] PTN bf16 AdamW B={PTN_TRAIN_BATCH} ({tag}) "
+              f"dropout {rate}: {steps} steps (1 + make_multi_step("
+              f"{MULTI_STEPS})), attention launches {counts[0]} forward + "
+              f"{counts[1]} backward ({per_step} of each per step); loss on "
+              f"the fixed batch {loss_before:.5f} -> {loss_after:.5f}{extra} "
+              f"| {samples_per_s:.2f} samples/s, step_ms={step_ms:.3f}, of "
+              f"which the host needs {host_ms:.3f} ms to enqueue a step; "
+              f"device {device_ms:.3f} ms a step, busy {busy:.1%} (best of 3 "
+              f"windows of {n_steps} steps, host clock; windows "
+              f"{', '.join(f'{PTN_TRAIN_BATCH * n_steps / w:.1f}' for w in windows)})",
+              flush=True)
+        out[rate] = {"samples_per_s": samples_per_s, "step_ms": step_ms,
+                     "host_ms": host_ms, "device_ms": device_ms,
+                     "busy": busy}
+        del model, state, step, multi, evaluate
+
+    # ptn_shared: one step at dropout 0.5
+    cfg = _ptn_config(model="ptn_shared", dropout=PTN_DROPOUT)
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    fused_mha.launches = fused_mha.bwd_launches = 0
+    state, metrics = make_train_step(model, cfg)(state, batch, SEED)
+    loss = metrics["loss"].item()
+    counts = (fused_mha.launches, fused_mha.bwd_launches)
+    shared = (len(PTN_EXPERTS) + 1) * PTN_LAYERS
+    if counts != (shared, shared) or not math.isfinite(loss):
+        raise AssertionError(f"train-ptn ptn_shared: launches {counts}, "
+                             f"expected {shared} of each; loss {loss}")
+    out["fwd_launches"] += counts[0]
+    out["bwd_launches"] += counts[1]
+    print(f"[train-ptn] ptn_shared bf16 dropout {PTN_DROPOUT}: one step, "
+          f"attention launches {counts[0]} forward + {counts[1]} backward, "
+          f"loss {loss:.5f}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1105,6 +1538,18 @@ def main() -> int:
     phase_mha("f32", B, S, HEADS, D // HEADS, KV_LEN)
     serve_int8 = phase_serve_int8(serve)
     ptn = phase_serve_ptn()
+    # kernel 4 at the shape PTN training launches gives the kernels line
+    # its numbers, with the dropout checks; then f32 and the ViT shape
+    mha_bwd = phase_mha_bwd("bf16", PTN_TRAIN_BATCH, PTN_SEQ + 1, PTN_HEADS,
+                            PTN_WIDTH // PTN_HEADS, PTN_SEQ + 1, dropout=True)
+    phase_mha_bwd("f32", PTN_TRAIN_BATCH, PTN_SEQ + 1, PTN_HEADS,
+                  PTN_WIDTH // PTN_HEADS, PTN_SEQ + 1)
+    phase_mha_bwd("bf16", B, S, HEADS, D // HEADS, KV_LEN)
+    # the longest sequence kernel 3 takes at PTN's head dim: several row
+    # tiles and streamed chunks in kernel 4
+    phase_mha_bwd("bf16", PTN_TRAIN_BATCH, 160, PTN_HEADS,
+                  PTN_WIDTH // PTN_HEADS, 160)
+    train_ptn = phase_train_ptn()
 
     def entry(name, source, replaces, launches, m):
         return {"name": name, "route": "cuda", "source": source,
@@ -1133,13 +1578,16 @@ def main() -> int:
         "library_ms": bwd["library_ms"],
     },
         entry("fused_mha", "devt_tpu_torch/ops/csrc/mha_fwd.cu",
-              "devt_tpu/ops/flash_attention.py:558", ptn["mha_launches"],
-              mha),
+              "devt_tpu/ops/flash_attention.py:558",
+              ptn["mha_launches"] + train_ptn["fwd_launches"], mha),
         entry("quant_fused_vit_block",
               "devt_tpu_torch/ops/csrc/quant_block_fwd.cu",
               "devt_tpu/ops/quant.py:275", serve_int8["launches"], quant),
         entry("int8_matmul_fused", "devt_tpu_torch/ops/csrc/int8_matmul.cu",
-              "devt_tpu/ops/quant.py:348", ptn["matmul_launches"], matmul)]
+              "devt_tpu/ops/quant.py:348", ptn["matmul_launches"], matmul),
+        entry("fused_mha_bwd", "devt_tpu_torch/ops/csrc/mha_bwd.cu",
+              "devt_tpu/ops/flash_attention.py:589",
+              train_ptn["bwd_launches"], mha_bwd)]
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ the same validation, so one YAML file configures either package.
     PyTorch version on the CPU): what the JAX package runs on the TPU.
   * ``"xla"`` — the unfused path (LayerNorm, Linear, materialised softmax
     attention, exact-erf GELU).
+  * in PTN's torch-semantics encoder: ``"auto"`` and ``"pallas"`` run the
+    packed-qkv attention kernels on the card, forward and backward; on the
+    CPU ``"pallas"`` runs their plain versions and ``"auto"``, like
+    ``"xla"``, the materialised softmax attention.
 
 Knobs of paths that are not ported yet (``pp``, ``sp``, ``moe_experts``,
 ``remat``…) are accepted here and refused where a model would need them.

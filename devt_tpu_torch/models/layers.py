@@ -37,10 +37,11 @@ _LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to ±2
 class DropoutRng:
     """The randomness of one training forward.
 
-    Seeds for the fused block's in-kernel dropout come from a host
-    generator (one ``randint(0, 2**30)`` per block call, as the JAX wrapper
-    draws, with no device synchronisation); masks of the unfused sites come
-    from a generator on the tensor's device.  Both are seeded from
+    Seeds for the in-kernel dropout of the fused block and of the
+    packed-qkv attention come from a host generator (one ``randint(0,
+    2**30)`` per kernel call, as the JAX wrappers draw, with no device
+    synchronisation); masks of the unfused sites come from a generator on
+    the tensor's device.  Both are seeded from
     ``seed`` alone."""
 
     def __init__(self, seed: int):

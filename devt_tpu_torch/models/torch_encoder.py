@@ -115,9 +115,11 @@ class TorchTransformerEncoder(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if remat:
+            # recomputing a layer would draw new dropout seeds from the
+            # DropoutRng, so its masks would not be the ones the loss saw
             raise NotImplementedError(
-                "TorchTransformerEncoder(remat) is not ported yet — "
-                "ROADMAP.md queue 1")
+                "TorchTransformerEncoder(remat) is not ported yet: it needs "
+                "the forward's dropout seeds saved — ROADMAP.md queue 1")
         self.layers = nn.ModuleList(
             TorchEncoderLayer(d_model, nhead, dim_feedforward, dropout,
                               attention_impl, dtype)

@@ -9,7 +9,10 @@ the wrapper runs for CPU tensors.  ``_build`` compiles the sources with
 from devt_tpu_torch.ops.attention import (packed_mha, quant_scope,
                                           scaled_dot_product_attention,
                                           xla_attention)
-from devt_tpu_torch.ops.flash_attention import fused_mha, fused_mha_plain
+from devt_tpu_torch.ops.flash_attention import (FusedMHA, fused_mha,
+                                                fused_mha_bwd_plain,
+                                                fused_mha_plain,
+                                                mha_dropout_masks)
 from devt_tpu_torch.ops.fused_block import (FusedViTBlock, fused_vit_block,
                                             fused_vit_block_bwd_plain,
                                             fused_vit_block_fwd_plain,
@@ -25,8 +28,11 @@ __all__ = [
     "quant_scope",
     "scaled_dot_product_attention",
     "xla_attention",
+    "FusedMHA",
     "fused_mha",
+    "fused_mha_bwd_plain",
     "fused_mha_plain",
+    "mha_dropout_masks",
     "int8_matmul_fused",
     "int8_matmul_fused_plain",
     "quant_fused_vit_block",

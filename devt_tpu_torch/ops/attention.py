@@ -9,22 +9,19 @@ Port of ``devt_tpu/ops/attention.py``.
                    input dtype, a -1e30 key-padding mask, softmax, optional
                    dropout on the probabilities, then P (cast to v's dtype)
                    times V.
-  * ``"pallas"`` — the hand-written kernel.  ``packed_mha`` reaches
-                   ``fused_mha`` (``ops/flash_attention.py``, the packed-qkv
-                   CUDA kernel) for single-kv-block sequences.  That kernel
-                   has no backward and no dropout yet, so an input that
-                   needs a gradient, or a dropout rate, raises
-                   ``NotImplementedError`` (kernel 4, ROADMAP.md queue 2).
-                   The split-q/k/v kernels that
+  * ``"pallas"`` — the hand-written kernels.  ``packed_mha`` reaches
+                   ``fused_mha`` (``ops/flash_attention.py``: the packed-qkv
+                   CUDA kernels, forward and backward, with the
+                   attention-probability dropout inside them) for
+                   single-kv-block sequences; on CPU tensors ``fused_mha``
+                   runs its plain versions.  The split-q/k/v kernels that
                    ``scaled_dot_product_attention`` would launch (kernels
                    9-13) are not ported, and it raises.
   * ``"auto"``   — in ``packed_mha``: ``"pallas"`` for CUDA tensors,
-                   with the same refusals (a module trained on the card
-                   before kernel 4 lands pins ``attention_impl="xla"``),
-                   the plain attention for CPU tensors.  In
-                   ``scaled_dot_product_attention``: likewise ``"pallas"``
-                   for CUDA tensors (it raises until kernels 9-13 are
-                   ported), the plain attention for CPU tensors.
+                   training and serving alike, the plain attention for CPU
+                   tensors.  In ``scaled_dot_product_attention``: likewise
+                   ``"pallas"`` for CUDA tensors (it raises until kernels
+                   9-13 are ported), the plain attention for CPU tensors.
   * ``"fused_interpret"`` — the JAX package's CPU-interpreter switch for the
                    fused block; where it reaches this module it means the
                    plain attention.
@@ -132,14 +129,14 @@ def packed_mha(qkv: torch.Tensor, *, heads: int, scale: float | None = None,
     qkv (B, S, 3*H*D) with feature order (3, H, D) → (B, S, H*D).
 
     On the card, ``"auto"`` and ``"pallas"`` feed single-kv-block
-    sequences to the packed-qkv kernel directly, with no head split or
-    merge.  The kernel has no backward and no dropout yet, so there an
-    input that needs a gradient, or ``dropout_rate > 0``, raises
-    ``NotImplementedError`` (kernel 4, ROADMAP.md queue 2) whichever of
-    the two was asked for: nothing on the card gives way to the plain
-    attention unasked.  ``"xla"``, and ``"auto"`` on CPU tensors, split
-    the heads for the materialised attention.  ``dropout_rate > 0`` needs
-    a ``rng`` (``models.layers.DropoutRng``)."""
+    sequences to ``fused_mha`` directly, with no head split or merge: its
+    forward kernel, and for an input that needs a gradient its backward
+    kernel, with the dropout inside both (the seed drawn from ``rng``).
+    Nothing on the card gives way to the plain attention unasked.
+    ``"pallas"`` on CPU tensors runs ``fused_mha``'s plain versions.
+    ``"xla"``, and ``"auto"`` on CPU tensors, split the heads for the
+    materialised attention.  ``dropout_rate > 0`` needs a ``rng``
+    (``models.layers.DropoutRng``)."""
     if impl not in ("auto", "xla", "pallas", "fused_interpret"):
         raise ValueError(f"unknown attention impl {impl!r}")
     b, s, f = qkv.shape
@@ -154,7 +151,9 @@ def packed_mha(qkv: torch.Tensor, *, heads: int, scale: float | None = None,
         resolved = "pallas" if qkv.device.type == "cuda" else "xla"
     if resolved == "pallas" and fits_single_block(s):
         return fused_mha(qkv.contiguous(), heads=heads, scale=scale,
-                         kv_len=kv_len, dropout_rate=dropout_rate)
+                         kv_len=kv_len, dropout_rate=dropout_rate,
+                         seed=rng.block_seed() if dropout_rate > 0.0
+                         else None)
     split = qkv.reshape(b, s, 3, heads, d)
     q, k, v = (split[:, :, i].transpose(1, 2) for i in range(3))
     out = scaled_dot_product_attention(

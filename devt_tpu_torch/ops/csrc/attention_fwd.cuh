@@ -13,7 +13,16 @@
 //   kNormFirst = false   o = (round(p) @ v) / l      (fused_block._mha_fwd)
 //   kNormFirst = true    o = round(p / l) @ v        (_mha_fwd_kernel)
 //
-// where round() is the cast to v's type.  The softmax is one-shot (exact
+// where round() is the cast to v's type.  With kDrop (kNormFirst only:
+// fused_mha's attention-probability dropout, _mha_fwd_kernel's
+// dropout_rate > 0) the normalised p of (sequence b, head h, query q,
+// key k) is then kept, times 1 / (1 - rate), where the Philox bits of
+// site kSiteAttn at the flat index ((b*H + h)*S + q)*S + k pass the
+// cutoff, and is 0 elsewhere: the mask depends on the seed and the
+// element alone, so the backward (mha_bwd.cu) regenerates it, and the TPU
+// wrapper's need for one grid grouping in both passes (_mha_group(bwd=
+// rate > 0)) does not arise.  lse is taken before the mask.  The two fused
+// blocks compile the body with kDrop off.  The softmax is one-shot (exact
 // row max first), so the scores are recomputed per pass instead of kept:
 // a pass over the keys for the max, one for l when p is normalised before
 // the product, one for the product.  Head dims above 64 take the product
@@ -37,6 +46,15 @@ constexpr size_t kSmemPerBlock = 232448;
 // ---------------------------------------------------------------------------
 
 constexpr int kAttnQ = 64, kAttnKeys = 32, kAttnThreads = 128;
+
+// keep bit of the attention probability (b, h, q, k) of a call over H
+// heads and S tokens
+__device__ __forceinline__ bool attn_keep(const Drop& d, int b, int h, int H,
+                                          int S, int q, int k) {
+  const unsigned long long flat =
+      ((static_cast<unsigned long long>(b) * H + h) * S + q) * S + k;
+  return drop_keep(d, kSiteAttn, flat);
+}
 
 __host__ __device__ constexpr size_t attn_smem_bf16(int hd, int kv_len) {
   return align128(sizeof(bf16) * kAttnQ * (hd + 8)) +
@@ -63,11 +81,12 @@ __device__ __forceinline__ void score_block(float (&s)[4][4],
     }
 }
 
-template <int HD, bool kNormFirst>
+template <int HD, bool kNormFirst, bool kDrop>
 __global__ void __launch_bounds__(kAttnThreads)
     attention_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ att,
                    float* __restrict__ lse, int S, int H, int kv_len,
-                   int lanes, float scale) {
+                   int lanes, float scale, Drop drop) {
+  static_assert(kNormFirst || !kDrop, "dropout follows the normalisation");
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ld = HD + 8;
   constexpr int OC = HD > 64 ? 64 : HD;  // output columns per product pass
@@ -154,6 +173,11 @@ __global__ void __launch_bounds__(kAttnThreads)
             p = p / l[e >> 1];
           else if (oc == 0)
             l[e >> 1] += p;
+          if (kDrop)
+            p = attn_keep(drop, b, h, H, S, q0 + r0 + gq + 8 * (e >> 1),
+                          kc + 8 * j + 2 * tq + (e & 1))
+                    ? p * drop.scale
+                    : 0.f;
           s[j][e] = p;
         }
       // the accumulator layout of two n8 score tiles is the A layout of
@@ -198,16 +222,17 @@ __global__ void __launch_bounds__(kAttnThreads)
   }
 }
 
-template <int HD, bool kNormFirst>
+template <int HD, bool kNormFirst, bool kDrop = false>
 cudaError_t launch_attention_bf16(const bf16* qkv, bf16* att, float* lse,
                                   int B, int S, int H, int kv_len, int lanes,
-                                  float scale, cudaStream_t stream) {
+                                  float scale, cudaStream_t stream,
+                                  Drop drop = Drop{}) {
   const size_t bytes = attn_smem_bf16(HD, kv_len);
   if (bytes > kSmemPerBlock) return cudaErrorInvalidValue;
-  DEVT_TRY(set_smem(attention_bf16<HD, kNormFirst>, bytes));
-  attention_bf16<HD, kNormFirst>
+  DEVT_TRY(set_smem(attention_bf16<HD, kNormFirst, kDrop>, bytes));
+  attention_bf16<HD, kNormFirst, kDrop>
       <<<dim3((S + kAttnQ - 1) / kAttnQ, H, B), kAttnThreads, bytes, stream>>>(
-          qkv, att, lse, S, H, kv_len, lanes, scale);
+          qkv, att, lse, S, H, kv_len, lanes, scale, drop);
   return cudaGetLastError();
 }
 
@@ -224,11 +249,12 @@ __host__ __device__ constexpr size_t f32_attn_smem(int Sp, int d) {
          2 * align128(sizeof(float) * kF32Rows);
 }
 
-template <bool kNormFirst>
+template <bool kNormFirst, bool kDrop>
 __global__ void __launch_bounds__(kF32Threads)
     attention_f32(const float* __restrict__ qkv, float* __restrict__ att,
                   float* __restrict__ lse, int S, int Sp, int H, int d,
-                  int kv_len, int lanes, float scale) {
+                  int kv_len, int lanes, float scale, Drop drop) {
+  static_assert(kNormFirst || !kDrop, "dropout follows the normalisation");
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldq = pad_f32(d), lds = pad_f32(Sp);
   float* Qs = reinterpret_cast<float*>(smem);
@@ -275,7 +301,12 @@ __global__ void __launch_bounds__(kF32Threads)
     }
     l = warp_sum(l);
     if (kNormFirst)
-      for (int c = lane; c < Sp; c += 32) sr[c] = sr[c] / l;
+      for (int c = lane; c < Sp; c += 32) {
+        float p = sr[c] / l;
+        if (kDrop) p = attn_keep(drop, b, h, H, S, q0 + r, c) ? p * drop.scale
+                                                               : 0.f;
+        sr[c] = p;
+      }
     if (lane == 0) {
       row_m[r] = m;
       row_l[r] = l;
@@ -300,17 +331,18 @@ __global__ void __launch_bounds__(kF32Threads)
 
 // d a multiple of 4; one head's K and V (S rounded up to 16 rows) must
 // fit a block's shared memory
-template <bool kNormFirst>
+template <bool kNormFirst, bool kDrop = false>
 cudaError_t launch_attention_f32(const float* qkv, float* att, float* lse,
                                  int B, int S, int H, int d, int kv_len,
-                                 int lanes, float scale, cudaStream_t stream) {
+                                 int lanes, float scale, cudaStream_t stream,
+                                 Drop drop = Drop{}) {
   const int Sp = round_up(S, 16);
   const size_t bytes = f32_attn_smem(Sp, d);
   if (bytes > kSmemPerBlock) return cudaErrorInvalidValue;
-  DEVT_TRY(set_smem(attention_f32<kNormFirst>, bytes));
-  attention_f32<kNormFirst>
+  DEVT_TRY(set_smem(attention_f32<kNormFirst, kDrop>, bytes));
+  attention_f32<kNormFirst, kDrop>
       <<<dim3((S + kF32Rows - 1) / kF32Rows, H, B), kF32Threads, bytes,
-         stream>>>(qkv, att, lse, S, Sp, H, d, kv_len, lanes, scale);
+         stream>>>(qkv, att, lse, S, Sp, H, d, kv_len, lanes, scale, drop);
   return cudaGetLastError();
 }
 

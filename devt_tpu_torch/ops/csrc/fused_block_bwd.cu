@@ -448,49 +448,6 @@ __host__ __device__ constexpr size_t attn_bwd_smem(int S, int hd) {
          2 * align128(sizeof(float) * S);
 }
 
-// the 16 x 16 tile of accumulators (two n8 tiles) as the A fragment of
-// the next product
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4],
-                                       const float (&t)[2][4]) {
-  a[0] = pack_bf16(t[0][0], t[0][1]);
-  a[1] = pack_bf16(t[0][2], t[0][3]);
-  a[2] = pack_bf16(t[1][0], t[1][1]);
-  a[3] = pack_bf16(t[1][2], t[1][3]);
-}
-
-// t (16 x 16, f32) = X[r0:r0+16, :] @ Y[c0:c0+16, :]^T over HD features
-template <int HD>
-__device__ __forceinline__ void tile_xyT(float (&t)[2][4], const bf16* X,
-                                         int r0, const bf16* Y, int c0) {
-  constexpr int ld = HD + 8;
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) t[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4], b[4];
-    load_a(a, X, ld, r0, 16 * kk);
-    load_b_nk(b, Y, ld, 16 * kk, c0);
-    mma_bf16(t[0], a, b[0], b[1]);
-    mma_bf16(t[1], a, b[2], b[3]);
-  }
-}
-
-// o (16 x HD) += a (16 x 16 fragment) @ Y[k0:k0+16, :]
-template <int HD>
-__device__ __forceinline__ void acc_ay(float (&o)[HD / 8][4],
-                                       const uint32_t (&a)[4], const bf16* Y,
-                                       int k0) {
-#pragma unroll
-  for (int jn = 0; jn < HD / 8; jn += 2) {
-    uint32_t b[4];
-    load_b_kn(b, Y, HD + 8, k0, 8 * jn);
-    mma_bf16(o[jn], a, b[0], b[1]);
-    mma_bf16(o[jn + 1], a, b[2], b[3]);
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(32 * kAttnMaxWarps)
     attention_bwd_bf16(const bf16* __restrict__ qkv,
@@ -552,7 +509,7 @@ __global__ void __launch_bounds__(32 * kAttnMaxWarps)
         }
       uint32_t pa[4];
       pack_a(pa, s);
-      acc_ay<HD>(o, pa, Vs, kc);
+      acc_ay<HD>(o, pa, Vs, ld, kc, 0);
     }
     float delta[2] = {0.f, 0.f};
 #pragma unroll
@@ -588,7 +545,7 @@ __global__ void __launch_bounds__(32 * kAttnMaxWarps)
         }
       uint32_t da[4];
       pack_a(da, s);
-      acc_ay<HD>(dq, da, Ks, kc);
+      acc_ay<HD>(dq, da, Ks, ld, kc, 0);
     }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -628,8 +585,8 @@ __global__ void __launch_bounds__(32 * kAttnMaxWarps)
         uint32_t pa[4], da[4];
         pack_a(pa, st);
         pack_a(da, ds);
-        acc_ay<HD>(dv, pa, DOs, qc);
-        acc_ay<HD>(dk, da, Qs, qc);
+        acc_ay<HD>(dv, pa, DOs, ld, qc, 0);
+        acc_ay<HD>(dk, da, Qs, ld, qc, 0);
       }
     }
     // strips wholly past kv_len have p = 0: their dk and dv are 0

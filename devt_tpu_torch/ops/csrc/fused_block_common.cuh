@@ -1,19 +1,22 @@
 // Device code shared by the hand-written kernels for Hopper (sm_90a): the
 // fused ViT-block forward and backward (fused_block_fwd.cu,
-// fused_block_bwd.cu) and, through attention_fwd.cuh and int8_common.cuh,
-// the packed-qkv attention and the int8 kernels:
+// fused_block_bwd.cu), the packed-qkv attention backward (mha_bwd.cu)
+// and, through attention_fwd.cuh and int8_common.cuh, the attention
+// forward and the int8 kernels:
 //
 //   * warp and quad reductions, tanh GELU and its derivative;
 //   * the bfloat16 tensor-core pieces: cp.async tile copies, ldmatrix
 //     fragment loads for every operand layout the two passes need, and
-//     mma.sync m16n8k16 with f32 accumulation;
+//     mma.sync m16n8k16 with f32 accumulation, and the 16 x 16 score
+//     tiles of the two attention backward kernels;
 //   * the dropout generator: counter-based Philox4x32-10 keyed by the
 //     call's seed, with the counter made of (site, flat element index).
 //     The mask of an element therefore does not depend on the grid, the
 //     tile shape or the launch, so the backward regenerates the forward's
 //     masks exactly.  keep = bits >= min(int(rate * 2^32), 2^32 - 1), kept
-//     values scaled by 1 / (1 - rate), at the three sites of the block:
-//     out-projection, FFN hidden, FFN output;
+//     values scaled by 1 / (1 - rate), at the three sites of the block
+//     (out-projection, FFN hidden, FFN output) and at the attention
+//     probabilities of the packed-qkv attention;
 //   * LN1 + qkv product per 128 rows, which the forward runs with its own
 //     statistics and the backward reruns from the stored ones;
 //   * the float route's block-level FMA product on 32-row tiles.
@@ -113,8 +116,10 @@ __device__ __forceinline__ void warp_row_stats(const Src* row, int n,
 // ===========================================================================
 
 // The three dropout sites of the block, in the order the reference draws
-// them.
-constexpr uint32_t kSiteOut = 0, kSiteHidden = 1, kSiteFfnOut = 2;
+// them, and the attention probabilities of the packed-qkv attention
+// (mha_fwd.cu, mha_bwd.cu), counted flat over (sequence, head, query, key).
+constexpr uint32_t kSiteOut = 0, kSiteHidden = 1, kSiteFfnOut = 2,
+                   kSiteAttn = 3;
 
 struct Drop {
   uint32_t key0, key1;  // the seed
@@ -350,6 +355,53 @@ __device__ __forceinline__ void warp_mma_nk(float (&acc)[MI][NI][4],
 
 // Accumulator element e of tile (i, j): row m0 + 16i + lane/4 (+8 for
 // e >= 2), column n0 + 8j + 2*(lane%4) + (e & 1).
+
+// --- 16 x 16 score tiles of the attention backward kernels ---
+
+// the 16 x 16 tile of accumulators (two n8 tiles) as the A fragment of
+// the next product
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4],
+                                       const float (&t)[2][4]) {
+  a[0] = pack_bf16(t[0][0], t[0][1]);
+  a[1] = pack_bf16(t[0][2], t[0][3]);
+  a[2] = pack_bf16(t[1][0], t[1][1]);
+  a[3] = pack_bf16(t[1][2], t[1][3]);
+}
+
+// t (16 x 16, f32) = X[r0:r0+16, :] @ Y[c0:c0+16, :]^T over HD features
+// (X and Y with row stride HD + 8)
+template <int HD>
+__device__ __forceinline__ void tile_xyT(float (&t)[2][4], const bf16* X,
+                                         int r0, const bf16* Y, int c0) {
+  constexpr int ld = HD + 8;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4], b[4];
+    load_a(a, X, ld, r0, 16 * kk);
+    load_b_nk(b, Y, ld, 16 * kk, c0);
+    mma_bf16(t[0], a, b[0], b[1]);
+    mma_bf16(t[1], a, b[2], b[3]);
+  }
+}
+
+// o (16 x NC) += a (16 x 16 fragment) @ Y[k0:k0+16, c0:c0+NC], Y with row
+// stride ld
+template <int NC>
+__device__ __forceinline__ void acc_ay(float (&o)[NC / 8][4],
+                                       const uint32_t (&a)[4], const bf16* Y,
+                                       int ld, int k0, int c0) {
+#pragma unroll
+  for (int jn = 0; jn < NC / 8; jn += 2) {
+    uint32_t b[4];
+    load_b_kn(b, Y, ld, k0, c0 + 8 * jn);
+    mma_bf16(o[jn], a, b[0], b[1]);
+    mma_bf16(o[jn + 1], a, b[2], b[3]);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // LN1 + qkv

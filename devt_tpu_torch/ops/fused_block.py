@@ -82,7 +82,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from devt_tpu_torch.ops.flash_attention import NEG_INF, _round_up
+from devt_tpu_torch.ops.flash_attention import (NEG_INF, _round_up,
+                                                dropout_cutoff)
 
 LN_EPS = 1e-5
 _GELU_C = math.sqrt(2.0 / math.pi)
@@ -291,11 +292,6 @@ def reference_vit_block(x, params, heads, scale, kv_len):
     b, _, _, _ = _ln(u, p["g2"], p["b2"])
     y = u + _gelu(b @ p["w1"] + p["bb1"]) @ p["w2"] + p["bb2"]
     return y.to(x.dtype)
-
-
-def dropout_cutoff(rate: float) -> int:
-    """keep where the 32 random bits are >= this (the JAX kernels' rule)."""
-    return min(int(rate * (1 << 32)), (1 << 32) - 1)
 
 
 def dropout_masks(seed: int, rate: float, bsz: int, s: int, dim: int,

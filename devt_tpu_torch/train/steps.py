@@ -2,9 +2,10 @@
 
 One function dispatches on the model name and returns ``(loss, aux,
 new_model_state)``.  ``aux`` carries ``probs`` (post-sigmoid/softmax
-scores) and ``label`` for the epoch-end evaluators.  Only ``vivit`` is
-ported; the other names raise until their models are (ROADMAP.md queue 1,
-item 5), and the MoE load-balance term comes with the MoE slice (item 6).
+scores) and ``label`` for the epoch-end evaluators.  ``vivit``, ``ptn``
+and ``ptn_shared`` are ported; the other names raise until their models
+are (ROADMAP.md queue 1, item 5), and the MoE load-balance term comes with
+the MoE slice (item 6).
 """
 
 from __future__ import annotations
@@ -31,29 +32,32 @@ def forward_and_loss(model: nn.Module, config: Config,
     loss is differentiable in ``variables["params"]``.  ``rng``: the
     forward's ``DropoutRng`` (``models/layers.py``) when training, else
     None.  u8 ``vid``/``vid_tokens`` batches are normalized here, on the
-    device (``data/device_norm.py``)."""
+    device (``data/device_norm.py``).  ``ptn`` / ``ptn_shared`` take the
+    ``experts`` (B, S, E, D) batch."""
     name = config.model
-    if name != "vivit":
+    if name not in ("vivit", "ptn", "ptn_shared"):
         raise NotImplementedError(
             f"no step logic for model {name!r} yet — ROADMAP.md queue 1, "
-            f"item 5 (only 'vivit' is ported)")
+            f"item 5 (only 'vivit', 'ptn' and 'ptn_shared' are ported)")
     batch = maybe_dequantize_batch(dict(batch), dtype=model_dtype(config))
     model_state = {k: v for k, v in variables.items() if k != "params"}
     tensors = {**variables["params"], **model_state}
     model.train(train)
     label = batch["label"]
+    if name in ("ptn", "ptn_shared"):
+        args, kwargs = (batch["experts"],), {}
     # "vid_tokens": pre-patchified (B, T, N, p*p*c) clips, the layout the
     # native loader emits at decode time
-    if "vid_tokens" in batch:
+    elif "vid_tokens" in batch:
         args, kwargs = (batch["vid_tokens"],), {"tokens_in": True}
     else:
         args, kwargs = (batch["vid"],), {}
     logits = torch.func.functional_call(
         model, tensors, args, {**kwargs, "rng": rng if train else None})
-    if label.dim() == 1:       # single-label (MIT-style)
+    if label.dim() == 1:       # single-label (MIT-style): CE, top-1
         loss = losses.cross_entropy(logits, label)
         probs = torch.softmax(logits, dim=-1)
-    else:                      # multi-hot genres (MMX-style)
+    else:                      # multi-hot genres (MMX-style): BCE
         loss = losses.bce_with_logits(logits, label)
         probs = torch.sigmoid(logits)
     return loss, {"probs": probs, "label": label}, model_state

@@ -305,14 +305,142 @@ def test_mha_kernel_matches_plain(card, kind, b, s, heads, d, kv_len):
 
 @pytest.mark.cuda
 def test_mha_kernel_refuses_gradients_dropout_and_shapes(card):
-    qkv = torch.zeros(2, 16, 3 * 2 * 64, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="kernel 4"):
-        tfa.fused_mha(qkv, heads=2)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfa.fused_mha(qkv.detach(), heads=2, dropout_rate=0.1)
+    """Gradients and dropout are taken; what the kernels do not cover
+    raises: a head dim with no bfloat16 instance, and a head whose
+    rows do not fit a block's shared memory in the backward (float at head
+    dim 384: 16 tokens, where the forward takes 32), before the forward
+    launches when the input needs a gradient."""
     with pytest.raises(ValueError, match="head dims"):
         tfa.fused_mha(torch.zeros(2, 16, 3 * 2 * 48, device="cuda",
                                   dtype=torch.bfloat16), heads=2)
+    wide = torch.zeros(1, 32, 3 * 384, device="cuda", requires_grad=True)
+    before = tfa.fused_mha.launches
+    with pytest.raises(ValueError, match="backward kernel.*shared memory"):
+        tfa.fused_mha(wide, heads=1)
+    assert tfa.fused_mha.launches == before
+    assert tfa.fused_mha(wide.detach(), heads=1).shape == (1, 32, 384)
+    with pytest.raises(ValueError, match="seed"):
+        tfa.fused_mha(wide.detach(), heads=1, dropout_rate=0.1)
+
+
+# the packed-qkv attention backward (kernel 4) and the dropout of both
+# kernels; short shapes, then the longest the forward takes: several
+# tiles of rows and streamed chunks in the backward
+MHA_BWD_SHAPES = [(kind, *shape) for kind in ("f32", "bf16") for shape in (
+    (3, 14, 2, 256, 14), (4, 48, 2, 32, 37), (5, 3, 2, 256, 3),
+    (3, 40, 4, 16, 33), (2, 30, 2, 128, 23))] + [
+    ("f32", 1, 256, 2, 64, 250), ("bf16", 2, 208, 3, 64, 197),
+    ("bf16", 1, 160, 2, 256, 150), ("bf16", 1, 512, 2, 64, 509)]
+MHA_RATE = 0.5
+
+
+def _mha_inputs(kind, b, s, heads, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * heads * d, generator=gen)
+    do = torch.randn(b, s, heads * d, generator=gen)
+    return qkv.to(DTYPE[kind]).cuda(), do.to(DTYPE[kind]).cuda()
+
+
+def _assert_dqkv_close(kind, got, want, heads, d):
+    """Per tensor (dq, dk, dv): the backward bound of the fused block."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    for i, name in enumerate(("dq", "dk", "dv")):
+        g = got[..., i * heads * d:(i + 1) * heads * d].float()
+        w = want[..., i * heads * d:(i + 1) * heads * d].float()
+        assert torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        bound = BWD_ULPS[kind] * EPS[kind] * w.abs().max().item()
+        assert err <= bound, f"{kind} {name}: {err:.3e} > {bound:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, MHA_RATE])
+@pytest.mark.parametrize("kind,b,s,heads,d,kv_len", MHA_BWD_SHAPES)
+def test_mha_bwd_kernel_matches_plain(card, kind, b, s, heads, d, kv_len,
+                                      rate):
+    """Autograd through ``fused_mha`` on the card: one launch of each
+    kernel; o against the plain forward and dqkv against the plain
+    backward from the kernel's own (o, lse), both given the mask the
+    library exports for the seed.  Keys past kv_len get exact zeros."""
+    seed = 4242
+    qkv, do = _mha_inputs(kind, b, s, heads, d, s + d)
+    keep = tfa.mha_dropout_masks(seed, rate, b, s, heads, "cuda") \
+        if rate > 0.0 else None
+    leaf = qkv.clone().requires_grad_(True)
+    before = (tfa.fused_mha.launches, tfa.fused_mha.bwd_launches)
+    o, lse = tfa.fused_mha(leaf, heads=heads, kv_len=kv_len,
+                           dropout_rate=rate, seed=seed, return_lse=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (tfa.fused_mha.launches, tfa.fused_mha.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    scale = d ** -0.5
+    wo, wlse = tfa.fused_mha_plain(qkv, heads, scale, kv_len, keep, rate)
+    torch.testing.assert_close(o.detach().float(), wo.float(), **TOL[kind])
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-4)
+    want = tfa.fused_mha_bwd_plain(qkv, o.detach(), lse, do, heads, scale,
+                                   kv_len, keep, rate)
+    _assert_dqkv_close(kind, leaf.grad, want, heads, d)
+    dead = leaf.grad.reshape(b, s, 3, heads * d)[:, kv_len:, 1:]
+    assert torch.equal(dead, torch.zeros_like(dead))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, MHA_RATE])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_mha_bwd_kernel_takes_every_single_block_length(card, kind, rate):
+    """S = 512 at head dim 256 (past what the forward kernel takes), the
+    longest sequence of a single kv block: the backward kernel from the
+    plain forward's (o, lse) against the plain backward."""
+    b, s, heads, d, kv_len, seed = 1, 512, 2, 256, 500, 77
+    qkv, do = _mha_inputs(kind, b, s, heads, d, 3)
+    keep = tfa.mha_dropout_masks(seed, rate, b, s, heads, "cuda") \
+        if rate > 0.0 else None
+    scale = d ** -0.5
+    o, lse = tfa.fused_mha_plain(qkv, heads, scale, kv_len, keep, rate)
+    got = tfa._mha_bwd_cuda(qkv, o, lse, do, heads, scale, kv_len, rate, seed)
+    want = tfa.fused_mha_bwd_plain(qkv, o, lse, do, heads, scale, kv_len,
+                                   keep, rate)
+    _assert_dqkv_close(kind, got, want, heads, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_mha_bwd_kernel_is_deterministic(card, kind):
+    """No atomics: two runs of the backward give the same bits."""
+    qkv, do = _mha_inputs(kind, 6, 14, 2, 256, 5)
+    with torch.no_grad():
+        o, lse = tfa.fused_mha(qkv, heads=2, kv_len=12,
+                               dropout_rate=MHA_RATE, seed=9,
+                               return_lse=True)
+    runs = [tfa._mha_bwd_cuda(qkv, o, lse, do, 2, 256 ** -0.5, 12,
+                              MHA_RATE, 9) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_mha_dropout_masks_on_the_card(card):
+    """The attention mask drops about the rate (within 4 standard
+    deviations), repeats for a seed, differs between seeds, and is the
+    mask the forward kernel applies: with v the identity's rows, o shows
+    which probabilities were kept."""
+    b, s, heads = 4, 14, 2
+    keep = tfa.mha_dropout_masks(11, MHA_RATE, b, s, heads, "cuda")
+    band = 4 * (MHA_RATE * (1 - MHA_RATE) / keep.numel()) ** 0.5
+    assert keep.shape == (b, heads, s, s)
+    assert abs((~keep).float().mean().item() - MHA_RATE) < band
+    assert torch.equal(keep, tfa.mha_dropout_masks(11, MHA_RATE, b, s, heads,
+                                                   "cuda"))
+    assert not torch.equal(keep, tfa.mha_dropout_masks(12, MHA_RATE, b, s,
+                                                       heads, "cuda"))
+    d = 16
+    qkv = torch.zeros(b, s, 3, heads, d)
+    qkv[:, :, 2, :, :s] = torch.eye(s)[None, :, None, :]   # v = I
+    with torch.no_grad():
+        o = tfa.fused_mha(qkv.reshape(b, s, -1).cuda(), heads=heads,
+                          dropout_rate=MHA_RATE, seed=11)
+    kept = o.reshape(b, s, heads, d)[..., :s].permute(0, 2, 1, 3) != 0
+    assert torch.equal(kept, keep)
 
 
 @pytest.mark.cuda
@@ -346,3 +474,78 @@ def test_quantized_ptn_serves_through_the_kernels(card, name, site_pred,
     want = Predictor(cfg, weights, device="cpu", **kw).predict(request)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want["scores"], atol=2e-2, rtol=0)
+
+
+# PTN gradients of one step on the card against the CPU, per leaf, as a
+# share of the leaf's largest element.  f32, with the kernels against the
+# CPU's plain kernel path: sums in other orders, amplified where a
+# LayerNorm backward cancels.  bf16: the two machines' products round
+# apart and a ReLU input near zero lands on either side, which moves a
+# last-layer FFN gradient of a few rows by a tenth of its largest element
+# and more; the same step without the attention kernels shows the same
+# gap, so the worst leaf with the kernels must be within the bound of
+# chip_smoke.py's phase 7 (GRAD_RTOL) of the worst leaf without them.
+PTN_F32_GRAD_RTOL, GRAD_RTOL = 1e-3, 5e-2
+
+
+def _ptn_grad_gaps(name, kind, impl, rate, launches):
+    """One PTN training step (width 512, 2 layers, 2 experts, 4 rows) on
+    the card and on the CPU from the same weights: the attention kernels'
+    launches on the card, and per leaf the largest difference as a share
+    of the leaf's largest element."""
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.registry import build_model, example_batch
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    cfg = Config(model=name, seq_len=13, nlayers=2, nhid=512,
+                 input_dimension=512, nhead=8, dropout=rate, precision=kind,
+                 attention_impl=impl,
+                 experts=("video-embeddings", "audio-embeddings"))
+    batch = {k: torch.as_tensor(v) for k, v in example_batch(cfg, 4).items()}
+
+    def grads(m, b):
+        params = dict(m.named_parameters())
+        loss, _, _ = forward_and_loss(m, cfg, {"params": params}, b,
+                                      DropoutRng(5), train=True)
+        return loss, dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    tfa.fused_mha.launches = tfa.fused_mha.bwd_launches = 0
+    loss, got = grads(build_model(cfg).cuda(),
+                      {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert (tfa.fused_mha.launches, tfa.fused_mha.bwd_launches) == (
+        launches, launches)
+    assert torch.isfinite(loss) and all(
+        torch.isfinite(g).all() for g in got.values())
+    if rate > 0.0:      # the card's dropout mask is not the CPU's
+        return {}
+    _, want = grads(build_model(cfg), batch)
+    return {k: (got[k].cpu().float() - w.float()).abs().max().item()
+            / max(w.float().abs().max().item(), 1e-6)
+            for k, w in want.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,launches", [("ptn", 4), ("ptn_shared", 6)])
+@pytest.mark.parametrize("kind,rate", [("f32", 0.0), ("bf16", 0.0),
+                                       ("bf16", MHA_RATE)])
+def test_ptn_trains_through_the_kernels(card, name, launches, kind, rate):
+    """One PTN training step on the card through the attention kernels
+    (``attention_impl="pallas"``): they launch once per encoder layer and
+    pass in each direction, the loss and the gradients are finite, and
+    without dropout the gradients match the CPU's plain kernel path within
+    the bound of their precision."""
+    gaps = _ptn_grad_gaps(name, kind, "pallas", rate, launches)
+    if rate > 0.0:
+        return
+    worst = max(gaps, key=gaps.get)
+    if kind == "f32":
+        assert gaps[worst] <= PTN_F32_GRAD_RTOL, f"{gaps[worst]:.3e} at {worst}"
+        return
+    floor = _ptn_grad_gaps(name, kind, "xla", rate, 0)
+    lib = max(floor, key=floor.get)
+    assert gaps[worst] <= floor[lib] + GRAD_RTOL, (
+        f"{gaps[worst]:.3e} at {worst} with the kernels, {floor[lib]:.3e} at "
+        f"{lib} without them")

@@ -57,6 +57,23 @@ def test_walk_covers_the_training_slice():
         assert rel in walked, rel
 
 
+def test_kernel_sources_build_alone_with_a_plain_c_interface():
+    """``_build`` makes one library per ``csrc/*.cu``: the six kernels'
+    sources, the PTN training slice's backward among them, each with its
+    ``extern "C"`` entry points and none with PyTorch's headers (which
+    would make nvcc take minutes instead of seconds)."""
+    from devt_tpu_torch.ops import _build
+
+    stems = {p.stem for p in _build.sources()}
+    assert stems == {"fused_block_fwd", "fused_block_bwd", "quant_block_fwd",
+                     "int8_matmul", "mha_fwd", "mha_bwd"}
+    for path in _build.CSRC.iterdir():
+        text = path.read_text()
+        assert "torch/" not in text and "ATen" not in text, path.name
+        if path.suffix == ".cu":
+            assert 'extern "C"' in text and "sm_90a" in text, path.name
+
+
 def test_step_executors_need_a_card_unless_the_cpu_is_asked_for():
     """``device=None`` means the card and raises without one;
     ``device="cpu"`` runs the plain path."""

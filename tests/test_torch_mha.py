@@ -110,45 +110,62 @@ def test_packed_mha_dispatch_matches_jax(impl):
 
 
 def test_packed_mha_kernel_route_refuses_gradients_and_dropout(monkeypatch):
-    """On the card "pallas" and "auto" alike raise, naming kernel 4, for
-    an input that needs a gradient and for attention dropout: neither
-    gives way to the plain attention while the tensors are on the card.
-    Checked here by letting the tensors claim to be CUDA tensors up to the
-    point where a kernel would launch.  On CPU tensors "auto" is the plain
+    """On the card "pallas" and "auto" alike take the kernels now, for an
+    input that needs a gradient and with attention dropout (a seed drawn
+    from the ``DropoutRng``): the forward and the backward launcher are
+    seen to launch, and nothing gives way to the plain attention while the
+    tensors are on the card.  Checked here by letting the tensors claim to
+    be CUDA tensors up to the point where a kernel would launch.  Dropout
+    without a ``rng`` is still refused.  On CPU tensors "auto" is the plain
     attention, differentiable and with dropout."""
     from devt_tpu_torch.models.layers import DropoutRng
 
     qkv = torch.tensor(_qkv(1, 8, 2, 16, seed=5), requires_grad=True)
-    launched = []
-    monkeypatch.setattr(
-        tfa, "_mha_cuda", lambda q, *a: launched.append(a)
-        or tfa.fused_mha_plain(q.as_subclass(torch.Tensor), *a))
+    fwd, bwd = [], []
+
+    def plain(t):
+        return t.as_subclass(torch.Tensor)
+
+    def fake_fwd(q, heads, scale, kv_len, rate=0.0, seed=0):
+        fwd.append((rate, seed))
+        keep = tfa.mha_dropout_masks(seed, rate, q.shape[0], q.shape[1],
+                                     heads, "cpu") if rate > 0.0 else None
+        return tfa.fused_mha_plain(plain(q), heads, scale, kv_len, keep, rate)
+
+    def fake_bwd(q, o, lse, do, heads, scale, kv_len, rate=0.0, seed=0):
+        bwd.append((rate, seed))
+        keep = tfa.mha_dropout_masks(seed, rate, q.shape[0], q.shape[1],
+                                     heads, "cpu") if rate > 0.0 else None
+        return tfa.fused_mha_bwd_plain(plain(q), o, lse, do, heads, scale,
+                                       kv_len, keep, rate)
+
+    monkeypatch.setattr(tfa, "_mha_cuda", fake_fwd)
+    monkeypatch.setattr(tfa, "_mha_bwd_cuda", fake_bwd)
 
     class OnCard(torch.Tensor):
         @property
         def device(self):
             return torch.device("cuda")
 
-    card = qkv.as_subclass(OnCard)
-    with pytest.raises(NotImplementedError, match="kernel 4.*ROADMAP"):
-        tfa.fused_mha(card, heads=2)
+    card = qkv.detach().as_subclass(OnCard).requires_grad_(True)
+    want = tatt.packed_mha(qkv, heads=2, impl="xla")
+    (want_grad,) = torch.autograd.grad(want.square().sum(), qkv)
     for impl in ("pallas", "auto"):
-        with pytest.raises(NotImplementedError, match="kernel 4.*ROADMAP"):
-            tatt.packed_mha(card, heads=2, impl=impl)
-        with torch.no_grad(), \
-                pytest.raises(NotImplementedError, match="dropout"):
-            tatt.packed_mha(card, heads=2, impl=impl, dropout_rate=0.1,
-                            rng=DropoutRng(0))
-    assert not launched
-    with torch.no_grad():
-        tfa.fused_mha(card, heads=2)
-        tatt.packed_mha(card, heads=2, impl="auto")
-    assert len(launched) == 2
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tatt.packed_mha(qkv.detach(), heads=2, impl="pallas",
-                        dropout_rate=0.1, rng=DropoutRng(0))
-    with pytest.raises(ValueError, match="rng"):
-        tatt.packed_mha(qkv.detach(), heads=2, impl="auto", dropout_rate=0.1)
+        out = tatt.packed_mha(card, heads=2, impl=impl)
+        (grad,) = torch.autograd.grad(out.square().sum(), card)
+        np.testing.assert_allclose(plain(out).detach().numpy(),
+                                   want.detach().numpy(), **TOL)
+        np.testing.assert_allclose(plain(grad).numpy(), want_grad.numpy(),
+                                   **TOL)
+        rng = DropoutRng(0)
+        seed = DropoutRng(0).block_seed()
+        dropped = tatt.packed_mha(card, heads=2, impl=impl, dropout_rate=0.1,
+                                  rng=rng)
+        torch.autograd.grad(dropped.sum(), card)
+        assert fwd[-1] == bwd[-1] == (0.1, seed)
+        with pytest.raises(ValueError, match="rng"):
+            tatt.packed_mha(card, heads=2, impl=impl, dropout_rate=0.1)
+    assert [r for r, _ in fwd] == [0.0, 0.1] * 2 and len(bwd) == 4
     # CPU tensors: "auto" is the plain attention
     out = tatt.packed_mha(qkv, heads=2, impl="auto")
     out.sum().backward()
@@ -156,7 +173,7 @@ def test_packed_mha_kernel_route_refuses_gradients_and_dropout(monkeypatch):
     dropped = tatt.packed_mha(qkv.detach(), heads=2, impl="auto",
                               dropout_rate=0.5, rng=DropoutRng(0))
     assert not torch.equal(dropped, out.detach())
-    assert len(launched) == 2
+    assert len(fwd) == 4
 
 
 def test_long_sequences_and_unknown_impls_raise():
