@@ -73,6 +73,26 @@ Phases, each printing a line of its own; any failure exits non-zero:
                path, in bf16 and in f32; samples/s as the best of 3 windows, the host's
                share and a profile of one step; then one ptn_shared step at
                dropout 0.5 (6 + 6 launches).
+ 15. kernel-attn-half — the attention half of the MoE block at the shape
+               of phase 3, bf16 and f32: kernel 7 (u and the residual lanes)
+               and kernel 8 (dx and the 5 gradients, two runs bit for bit)
+               against their plain versions; times of the kernels, the plain
+               versions and the half composed of library calls, the bounds.
+ 16. serve-moe — MoE-ViViT at full width (bench.py:1188: E=4, every second
+               space block's FFN a switch MoE, bf16) behind
+               Predictor(buckets=(1, 8, 32)) on 37 u8 clips: 2 launches of
+               kernels 1 and 7 per bucket call; 2 clips against the CPU in
+               bf16 (scores, and the share of tokens routed apart) and f32
+               (the same expert for every token); quantize=True (2 launches
+               of kernels 5 and 7); clips/s and a profile.
+ 17. train-moe — the same MoE-ViViT, batch 32, bf16, AdamW 1e-4:
+               make_train_step and make_multi_step(8) at dropout 0 (2
+               launches each of kernels 1, 2, 7 and 8 per step), a falling
+               loss with the load-balance term in it, one f32 step's
+               gradients on 2 clips against the CPU with identical routing;
+               clips/s as the best of 3 windows, the host's share and a
+               profile; then dropout 0.5 (kernels 3 and 4 in the MoE
+               blocks, none of 7 and 8).
 
 The last lines are a JSON line of the kernels, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  With no CUDA device, or without the
@@ -156,6 +176,12 @@ PTN_TRAIN_BATCH, PTN_DROPOUT = 32, 0.5
 # path, per leaf: sums in other orders, amplified where a LayerNorm
 # backward cancels.  (bf16: _ptn_grad_check.)
 PTN_GRAD_RTOL = 1e-3
+# MoE-ViViT (bench.py:1188): every second space block's FFN a switch MoE;
+# its training also at dropout 0.5, config.yaml's rate
+MOE_EXPERTS, MOE_EVERY, MOE_DROPOUT = 4, 2, 0.5
+# the fused blocks' and attention halves' sub-kernels, as the profiler
+# names them (kernels 1 and 7, and 2 and 8, share most of their launches)
+BLOCK_KERNELS = FWD_KERNELS + BWD_KERNELS + ("out_proj_bf16",)
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -362,17 +388,18 @@ def phase_kernel(kind: str) -> dict:
     return out
 
 
-def _check_bwd(kind: str, tag: str, got, want) -> tuple[float, float]:
-    """dx and the 11 gradients of the kernel against the plain version;
-    returns the largest absolute error, and the largest error as a share
-    of its tensor's largest element."""
+def _check_bwd(kind: str, tag: str, got, want,
+               names=None) -> tuple[float, float]:
+    """dx and the gradients ``names`` (default the block's 11) of the
+    kernel against the plain version; returns the largest absolute error,
+    and the largest error as a share of its tensor's largest element."""
     import torch
 
     from devt_tpu_torch.ops.fused_block import PARAM_NAMES
 
     worst = worst_rel = 0.0
     pairs = [("dx", got[0], want[0])] + [(k, got[1][k], want[1][k])
-                                         for k in PARAM_NAMES]
+                                         for k in names or PARAM_NAMES]
     for name, g, w in pairs:
         if g.dtype != w.dtype or g.shape != w.shape:
             raise AssertionError(f"{tag} {name}: {g.dtype} {tuple(g.shape)} "
@@ -1486,6 +1513,517 @@ def phase_train_ptn() -> dict:
     return out
 
 
+def _half_bounds(itemsize: int, kind: str):
+    """Least times of kernels 7 and 8 at the main-path shape.  Forward per
+    row: the qkv product (3 D^2 multiply-adds), the scores and the
+    probabilities times v over the live keys (2 kv_len D) and the
+    out-projection (D^2); bytes: x read, u and the residual lanes written,
+    the weights read.  Backward per row: the qkv recompute, datt, da and
+    the two weight gradients (11 D^2) and six S x S products per head over
+    the live keys (6 kv_len D); bytes: x, du and res read, dx written, the
+    weights read and their gradients written."""
+    rows = B * S
+    weights = 4 * D * D * itemsize + 3 * D * 4
+    fwd = _bound({kind: 2 * rows * (4 * D * D + 2 * KV_LEN * D)},
+                 2 * rows * D * itemsize + rows * 8 * 4 + weights)
+    bwd = _bound({kind: 2 * rows * (11 * D * D + 6 * KV_LEN * D)},
+                 3 * rows * D * itemsize + rows * 8 * 4 + 2 * weights)
+    return fwd, bwd
+
+
+def _composed_half(x, params):
+    """The attention half composed of library calls (F.layer_norm,
+    F.linear, F.scaled_dot_product_attention over the live keys, F.linear
+    and the residual) on the same input and weights, in x's dtype: no
+    single PyTorch call computes it.  Returns (forward, the leaves)."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    g1, b1, bo = (params[k][0].to(dt).detach().requires_grad_(True)
+                  for k in ("g1", "b1", "bo"))
+    wqkv = params["wqkv"].t().contiguous().requires_grad_(True)
+    wo = params["wo"].t().contiguous().requires_grad_(True)
+    d = D // HEADS
+
+    def fwd(xin):
+        a = F.layer_norm(xin, (D,), g1, b1, 1e-5)
+        q, k, v = F.linear(a, wqkv).view(B, S, 3, HEADS, d) \
+            .permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k[:, :, :KV_LEN],
+                                           v[:, :, :KV_LEN], scale=d ** -0.5)
+        return xin + F.linear(o.transpose(1, 2).reshape(B, S, D), wo, bo)
+
+    return fwd, (g1, b1, wqkv, wo, bo)
+
+
+def phase_kernel_attn_half(kind: str) -> tuple[dict, dict]:
+    """Kernels 7 and 8 at the MoE block's main-path shape against their
+    plain versions; their times beside the plain versions', the bound and
+    the attention half composed of library calls."""
+    import torch
+
+    from devt_tpu_torch.ops import fused_block as fb
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    gen = torch.Generator().manual_seed(SEED + 20)
+    x, full = _block_inputs(dtype, gen)
+    params = {k: full[k] for k in fb.HALF_NAMES}
+    du = torch.randn(B, S, D, generator=gen).to(dtype).cuda()
+    scale = (D // HEADS) ** -0.5
+    slow = kind == "f32"
+    tag = f"attn-half {kind} ({B},{S},{D})"
+    with torch.no_grad():
+        u, res = fb.fused_attn_half(x, params, HEADS, scale, KV_LEN)
+        want_u, want_res = fb.fused_attn_half_fwd_plain(x, params, HEADS,
+                                                        scale, KV_LEN)
+        torch.cuda.synchronize()
+        _check_close(f"{tag} u", u, want_u, *TOL[kind])
+        _check_close(f"{tag} res", res, want_res, *TOL[kind])
+        if res[..., HEADS + 2:].abs().max().item() != 0.0:
+            raise AssertionError(f"{tag}: residual lanes past heads+2 "
+                                 f"must be 0")
+        fwd_err = max(_max_err(u, want_u), _max_err(res, want_res))
+        del want_u, want_res
+        run_bwd = lambda: fb._half_bwd_cuda(x, params, res, du, HEADS,  # noqa: E731
+                                            scale, KV_LEN)
+        got = run_bwd()
+        want = fb.fused_attn_half_bwd_plain(x, params, res, du, HEADS, scale,
+                                            KV_LEN)
+        torch.cuda.synchronize()
+        bwd_err, bwd_rel = _check_bwd(kind, f"{tag} bwd", got, want,
+                                      fb.HALF_NAMES)
+        again = run_bwd()
+        torch.cuda.synchronize()
+        same_bits = torch.equal(got[0], again[0]) and all(
+            torch.equal(got[1][k], again[1][k]) for k in fb.HALF_NAMES)
+        if not same_bits:
+            raise AssertionError(f"{tag} bwd: two runs differ in their bits")
+        del want, again
+
+        run_fwd = lambda: fb.fused_attn_half(x, params, HEADS, scale,  # noqa: E731
+                                             KV_LEN)
+        fwd_ms = _time_ms(run_fwd, iters=3 if slow else 20,
+                          warmup=1 if slow else 3)
+        bwd_ms = _time_ms(run_bwd, iters=3 if slow else 20,
+                          warmup=1 if slow else 3)
+        fwd_plain_ms = _time_ms(
+            lambda: fb.fused_attn_half_fwd_plain(x, params, HEADS, scale,
+                                                 KV_LEN), iters=3, warmup=1)
+        bwd_plain_ms = _time_ms(
+            lambda: fb.fused_attn_half_bwd_plain(x, params, res, du, HEADS,
+                                                 scale, KV_LEN),
+            iters=2, warmup=1)
+        if not slow:
+            _print_profile(f"fused_attn_half forward {kind}",
+                           *_device_profile(run_fwd), top=4)
+            _print_profile(f"fused_attn_half backward {kind}",
+                           *_device_profile(run_bwd), top=8)
+
+    # the yardstick: the half composed of library calls, forward, and
+    # forward + backward less forward through autograd, in CUDA graphs
+    compose, leaves = _composed_half(x, params)
+    xr = x.clone().requires_grad_(True)
+    with torch.no_grad():
+        lib_fwd_ms = _graph_ms(lambda: compose(x), n=5)
+    lib_fwd_bwd_ms = _graph_ms(
+        lambda: torch.autograd.grad(compose(xr), (xr, *leaves), du), n=5)
+    lib_bwd_ms = lib_fwd_bwd_ms - lib_fwd_ms
+
+    (fb_ms, fb_by), (bb_ms, bb_by) = _half_bounds(x.element_size(), kind)
+    # no single PyTorch call computes the half: library_ms stays null, and
+    # the composition's times are printed beside it
+    fwd = {"dtype": kind, "max_abs_err": fwd_err, "kernel_ms": fwd_ms,
+           "plain_ms": fwd_plain_ms, "library_ms": None,
+           "composed_ms": lib_fwd_ms, "bound_ms": fb_ms, "bound_by": fb_by}
+    bwd = {"dtype": kind, "max_abs_err": bwd_err, "kernel_ms": bwd_ms,
+           "plain_ms": bwd_plain_ms, "library_ms": None,
+           "composed_ms": lib_bwd_ms, "bound_ms": bb_ms, "bound_by": bb_by}
+    print(f"[kernel-attn-half] fused_attn_half {kind} ({B},{S},{D}) kv_len "
+          f"{KV_LEN}: kernel 7 u and res against the plain version, max abs "
+          f"err {fwd_err:.3e} (atol {TOL[kind][0]} rtol {TOL[kind][1]}); "
+          f"kernel 8 dx and 5 grads within "
+          f"{BWD_ULPS[kind]} ulps of the largest element, max abs err "
+          f"{bwd_err:.3e} ({bwd_rel:.3e} of its tensor's largest element), "
+          f"two runs bit-equal: {same_bits} | forward kernel_ms={fwd_ms:.4f} "
+          f"plain_ms={fwd_plain_ms:.4f} composed_ms={lib_fwd_ms:.4f} "
+          f"bound_ms={fb_ms:.4f} ({fb_by}) | backward kernel_ms="
+          f"{bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} composed_ms="
+          f"{lib_bwd_ms:.4f} bound_ms={bb_ms:.4f} ({bb_by}) | composed: the "
+          f"half composed of library calls (layer_norm, linear, "
+          f"scaled_dot_product_attention over the live keys, linear, "
+          f"residual), device time in CUDA graphs; backward = forward + "
+          f"backward {lib_fwd_bwd_ms:.4f} less forward", flush=True)
+    return fwd, bwd
+
+
+class _Routing:
+    """Records the top-1 expert of every token that each MoE call routes
+    (the argmax of the router's f32 softmax), by wrapping
+    parallel/moe.py:switch_route for the duration of a ``with``."""
+
+    def __enter__(self):
+        import torch
+
+        from devt_tpu_torch.parallel import moe
+
+        self.moe, self.real, self.experts = moe, moe.switch_route, []
+
+        def record(x, w_router, *args, **kwargs):
+            logits = x.float() @ w_router.float()
+            self.experts.append(
+                torch.softmax(logits, dim=-1).argmax(dim=-1).cpu())
+            return self.real(x, w_router, *args, **kwargs)
+
+        moe.switch_route = record
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.switch_route = self.real
+
+
+def _routing_gap(card, cpu, rows: int) -> float:
+    """Share of the live tokens of the first ``rows`` sequences whose
+    expert differs between two recordings of the same forwards."""
+    import torch
+
+    if len(card) != len(cpu):
+        raise AssertionError(f"{len(card)} and {len(cpu)} MoE calls")
+    differ = total = 0
+    for a, b in zip(card, cpu):
+        a, b = a[:rows, :KV_LEN], b[:rows, :KV_LEN]
+        differ += int((a != b).sum())
+        total += a.numel()
+    return differ / max(total, 1)
+
+
+def _kernel_counts() -> dict:
+    from devt_tpu_torch.ops import flash_attention as tfa
+    from devt_tpu_torch.ops import fused_block as fb
+    from devt_tpu_torch.ops import quant as tq
+
+    return {"k1": fb.fused_vit_block.launches,
+            "k2": fb.fused_vit_block.bwd_launches,
+            "k3": tfa.fused_mha.launches, "k4": tfa.fused_mha.bwd_launches,
+            "k5": tq.quant_fused_vit_block.launches,
+            "k7": fb.fused_attn_half.launches,
+            "k8": fb.fused_attn_half.bwd_launches}
+
+
+def _zero_counts() -> None:
+    from devt_tpu_torch.ops import flash_attention as tfa
+    from devt_tpu_torch.ops import fused_block as fb
+    from devt_tpu_torch.ops import quant as tq
+
+    for fn in (fb.fused_vit_block, tfa.fused_mha, fb.fused_attn_half):
+        fn.launches = fn.bwd_launches = 0
+    tq.quant_fused_vit_block.launches = 0
+
+
+def _moe_config(**kw):
+    from devt_tpu_torch.config import Config
+
+    base = dict(model="vivit", batch_size=TRAIN_BATCH, frame_len=16,
+                n_classes=19, opt="adamW", learning_rate=1e-4,
+                precision="bf16", accum_steps=1, moe_experts=MOE_EXPERTS,
+                moe_every=MOE_EVERY)
+    return Config(**{**base, **kw})
+
+
+def phase_serve_moe() -> dict:
+    """MoE-ViViT behind Predictor: bf16 and int8 launches per bucket call,
+    scores and expert choices against the same model on the CPU (bf16, and
+    f32 where the choices must agree), clips/s."""
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.serve import Predictor
+
+    cfg = _moe_config()
+    weights = build_model(cfg, torch.Generator().manual_seed(SEED)) \
+        .state_dict()
+    clips = np.random.default_rng(SEED).integers(
+        0, 256, (37, cfg.frame_len, 224, 224, 3), dtype=np.uint8)
+    pred = Predictor(cfg, weights, buckets=(1, 8, 32))
+    n_moe = len(pred.model.space_transformer.blocks) // MOE_EVERY
+    n_dense = len(pred.model.space_transformer.blocks) - n_moe
+
+    bucket_calls = 2                       # 37 clips = bucket 32 + bucket 8
+    _zero_counts()
+    out = pred.predict({"vid": clips})
+    counts = _kernel_counts()
+    expect = {"k1": n_dense * bucket_calls, "k2": 0, "k3": 0, "k4": 0,
+              "k5": 0, "k7": n_moe * bucket_calls, "k8": 0}
+    if counts != expect:
+        raise AssertionError(f"serve-moe: launches {counts}, expected "
+                             f"{expect}")
+    scores = out["scores"]
+    if scores.shape != (37, cfg.n_classes) or not np.isfinite(scores).all() \
+            or scores.min() < 0.0 or scores.max() > 1.0:
+        raise AssertionError(f"serve-moe: bad scores: shape {scores.shape}, "
+                             f"range [{scores.min()}, {scores.max()}]")
+
+    # the first 2 clips on the card and on the CPU, with their routing
+    rows = 2 * cfg.frame_len
+    cpu = Predictor(cfg, weights, buckets=(2,), device="cpu")
+    with _Routing() as on_card:
+        card2 = pred.predict({"vid": clips[:2]})["scores"]
+    with _Routing() as on_cpu:
+        ref = cpu.predict({"vid": clips[:2]})["scores"]
+    score_err = float(np.abs(card2 - ref).max())
+    bf16_gap = _routing_gap(on_card.experts, on_cpu.experts, rows)
+    if not score_err <= SCORE_ATOL:
+        raise AssertionError(f"serve-moe: card vs CPU scores differ by "
+                             f"{score_err:.3e} > {SCORE_ATOL}")
+    # in f32 the two machines must route every live token alike
+    cfg32 = _moe_config(precision="f32")
+    pred32 = Predictor(cfg32, weights, buckets=(2,))
+    cpu32 = Predictor(cfg32, weights, buckets=(2,), device="cpu")
+    with _Routing() as on_card32:
+        s32 = pred32.predict({"vid": clips[:2]})["scores"]
+    with _Routing() as on_cpu32:
+        r32 = cpu32.predict({"vid": clips[:2]})["scores"]
+    f32_gap = _routing_gap(on_card32.experts, on_cpu32.experts, rows)
+    f32_err = float(np.abs(s32 - r32).max())
+    if f32_gap != 0.0 or not f32_err <= TOL["f32"][0]:
+        raise AssertionError(f"serve-moe f32: {f32_gap:.3e} of the live "
+                             f"tokens routed apart, scores differ by "
+                             f"{f32_err:.3e}")
+    del pred32, cpu32, cpu
+
+    batch = {"vid": clips[:32]}
+    pred.predict(batch)
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pred.predict(batch)
+    clips_per_s = 32 * reps / (time.perf_counter() - t0)
+    _print_profile("MoE predict, bucket 32", *_traced(
+        lambda: pred.predict(batch)), top=12)
+
+    # int8: the dense blocks on kernel 5, the MoE blocks keep kernel 7
+    qpred = Predictor(cfg, weights, buckets=(1, 8, 32), quantize=True)
+    _zero_counts()
+    qpred.predict(batch)
+    qcounts = _kernel_counts()
+    qexpect = dict(expect, k1=0, k5=n_dense, k7=n_moe)
+    if qcounts != qexpect:
+        raise AssertionError(f"serve-moe int8: launches {qcounts} in one "
+                             f"bucket call, expected {qexpect}")
+    qpred.predict(batch)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        qscores = qpred.predict(batch)["scores"]
+    q_clips_per_s = 32 * reps / (time.perf_counter() - t0)
+    agree, q_err = _agreement(scores[:32], qscores)
+    if not np.isfinite(qscores).all() or not q_err <= INT8_VS_BF16_MAX_ERR:
+        raise AssertionError(f"serve-moe int8: scores differ from bf16 by "
+                             f"{q_err:.3e} (limit {INT8_VS_BF16_MAX_ERR})")
+    print(f"[serve-moe] MoE-ViViT (E={MOE_EXPERTS}, moe_every={MOE_EVERY}) "
+          f"bf16 Predictor(buckets=(1, 8, 32)) on 37 u8 clips: launches "
+          f"{counts['k1']} of kernel 1 and {counts['k7']} of kernel 7 "
+          f"({n_dense} and {n_moe} per bucket call x {bucket_calls}), none "
+          f"of kernels 3 or 8; card vs CPU on 2 clips: max abs score err "
+          f"{score_err:.3e} (atol {SCORE_ATOL}), {bf16_gap:.4%} of the live "
+          f"tokens routed to another expert in bf16; in f32 {f32_gap:.4%} "
+          f"and max abs score err {f32_err:.3e} | {clips_per_s:.2f} clips/s "
+          f"at bucket 32 | quantize=True: {qcounts['k5']} launches of kernel "
+          f"5 and {qcounts['k7']} of kernel 7 per bucket call, against bf16 "
+          f"label agreement {agree:.4f}, max score err {q_err:.3e} (limit "
+          f"{INT8_VS_BF16_MAX_ERR}), {q_clips_per_s:.2f} clips/s (host clock, "
+          f"u8 upload included)", flush=True)
+    return {"counts": counts, "int8_counts": qcounts,
+            "clips_per_s": clips_per_s, "int8_clips_per_s": q_clips_per_s}
+
+
+def _moe_grad_check() -> str:
+    """One f32 step's gradients on 2 clips, the card against the CPU's
+    plain path, with the routing of both recorded; and the aux term's
+    share of the loss."""
+    import torch
+
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    cfg = _moe_config(precision="f32")
+    small = _train_batch(2, SEED + 3)
+    small["vid"] = small["vid"].float()
+
+    def grads(model, batch, config=cfg):
+        params = dict(model.named_parameters())
+        loss, aux, _ = forward_and_loss(model, config, {"params": params},
+                                        batch, DropoutRng(0), train=True)
+        return loss, aux, dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    card_model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    with _Routing() as on_card:
+        card_loss, card_aux, card = grads(card_model, small)
+    with _Routing() as on_cpu:
+        cpu_loss, cpu_aux, cpu = grads(
+            build_model(cfg, torch.Generator().manual_seed(SEED)),
+            {k: v.cpu() for k, v in small.items()})
+    gap = _routing_gap(on_card.experts, on_cpu.experts, 2 * 16)
+    worst, worst_leaf = 0.0, ""
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"train-moe: non-finite gradient of {name}")
+        ratio = (got - want).abs().max().item() / max(
+            want.abs().max().item(), GRAD_FLOOR)
+        if ratio > worst:
+            worst, worst_leaf = ratio, name
+    # the load-balance term is in the loss: the same step without it
+    plain_loss, _, _ = grads(card_model, small,
+                             _moe_config(precision="f32", moe_aux_weight=0.0))
+    in_loss = card_loss.item() - plain_loss.item()
+    want_in = cfg.moe_aux_weight * card_aux["moe_aux"].item()
+    if gap != 0.0 or not worst <= PTN_GRAD_RTOL \
+            or abs(in_loss - want_in) > 1e-5 \
+            or abs(card_aux["moe_aux"].item() - cpu_aux["moe_aux"].item()) \
+            > 1e-5:
+        raise AssertionError(
+            f"train-moe f32 on 2 clips: {gap:.3e} of the live tokens routed "
+            f"apart; worst gradient {worst:.3e} of the leaf's largest "
+            f"element at {worst_leaf} (bound {PTN_GRAD_RTOL}); aux in the "
+            f"loss {in_loss:.6f} against {want_in:.6f}; moe_aux "
+            f"{card_aux['moe_aux'].item():.6f} vs "
+            f"{cpu_aux['moe_aux'].item():.6f}")
+    return (f"one f32 step on 2 clips, card vs CPU: the same expert for "
+            f"every live token, worst gradient {worst:.3e} of the leaf's "
+            f"largest element at {worst_leaf} (bound {PTN_GRAD_RTOL}), loss "
+            f"{card_loss.item():.5f} vs {cpu_loss.item():.5f}, moe_aux "
+            f"{card_aux['moe_aux'].item():.5f} of which "
+            f"{cfg.moe_aux_weight} x is in the loss ({in_loss:.6f})")
+
+
+def phase_train_moe() -> dict:
+    import torch
+
+    from devt_tpu_torch.models.vivit import ViViT
+    from devt_tpu_torch.parallel.train_step import (make_eval_step,
+                                                    make_multi_step,
+                                                    make_train_step)
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    grad_text = _moe_grad_check()
+    cfg = _moe_config()
+    # bench.py:1188 builds through the registry, which sets no dropout on
+    # the ViViT: the MoE blocks train on the fused attention half
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    n_moe = len(model.space_transformer.blocks) // MOE_EVERY
+    n_dense = len(model.space_transformer.blocks) - n_moe
+    batch = _train_batch(TRAIN_BATCH, SEED + 4)
+    stacked = {k: v[None].expand(MULTI_STEPS, *v.shape)
+               for k, v in batch.items()}
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    step = make_train_step(model, cfg)
+    multi = make_multi_step(model, cfg, MULTI_STEPS)
+    evaluate = make_eval_step(model, cfg)
+    loss_before = evaluate(state, batch)[0].item()
+
+    _zero_counts()
+    state, first = step(state, batch, SEED)
+    state, metrics = multi(state, stacked, SEED)
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    steps = 1 + MULTI_STEPS
+    expect = {"k1": n_dense * steps, "k2": n_dense * steps, "k3": 0, "k4": 0,
+              "k5": 0, "k7": n_moe * steps, "k8": n_moe * steps}
+    if counts != expect:
+        raise AssertionError(f"train-moe: launches {counts} in {steps} "
+                             f"steps, expected {expect}")
+    loss_after = evaluate(state, batch)[0].item()
+    aux = (first["moe_aux"].item(), metrics["moe_aux"].item())
+    losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
+    if not all(map(math.isfinite, losses + aux)) \
+            or not loss_after < loss_before or state.step != steps:
+        raise AssertionError(f"train-moe: loss {loss_before:.5f} before, "
+                             f"{losses} during and after {state.step} steps; "
+                             f"moe_aux {aux}")
+
+    # throughput: best of 3 windows of multi-step calls, host clock
+    multi(state, stacked, SEED)[1]["loss"].item()
+    windows, enqueue = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_ITERS):
+            state, metrics = multi(state, stacked, SEED)
+        enqueue.append(time.perf_counter() - t0)
+        metrics["loss"].item()
+        windows.append(time.perf_counter() - t0)
+    n_steps = TRAIN_ITERS * MULTI_STEPS
+    best = min(windows)
+    step_ms = best / n_steps * 1e3
+    host_ms = enqueue[windows.index(best)] / n_steps * 1e3
+    clips_per_s = TRAIN_BATCH * n_steps / best
+    rows, busy, wall_ms = _traced(lambda: step(state, batch, SEED))
+    _print_profile(f"MoE train step, B={TRAIN_BATCH}", rows, busy, wall_ms,
+                   top=16)
+    device_ms = sum(ms for _, ms, _ in rows)
+    ours_ms = sum(ms for name, ms, _ in rows
+                  if name.startswith(BLOCK_KERNELS))
+    print(f"[profile]   device total {device_ms:.3f} ms per step "
+          f"({sum(n for _, _, n in rows):.0f} launches): kernels 1, 2, 7 and "
+          f"8 {ours_ms:.3f}, everything else (routing, expert products, "
+          f"optimizer, casts: PyTorch's kernels) {device_ms - ours_ms:.3f}")
+    print(f"[train-moe] MoE-ViViT bf16 AdamW B={TRAIN_BATCH} (bench.py:1188, "
+          f"E={MOE_EXPERTS}, moe_every={MOE_EVERY}, dropout 0): {steps} steps "
+          f"(1 + make_multi_step({MULTI_STEPS})), launches {counts} "
+          f"({n_dense} of kernels 1 and 2 and {n_moe} of kernels 7 and 8 per "
+          f"step); loss on the fixed batch {loss_before:.5f} -> "
+          f"{loss_after:.5f}, moe_aux {aux[0]:.5f} -> {aux[1]:.5f}; "
+          f"{grad_text} | {clips_per_s:.2f} clips/s, step_ms={step_ms:.3f}, "
+          f"of which the host needs {host_ms:.3f} ms to enqueue a step; "
+          f"device {device_ms:.3f} ms a step, busy {busy:.1%} (best of 3 "
+          f"windows of {n_steps} steps, host clock; windows "
+          f"{', '.join(f'{TRAIN_BATCH * n_steps / w:.1f}' for w in windows)})",
+          flush=True)
+    del model, state, step, multi, evaluate
+
+    # dropout 0.5 (the Config default, which the registry does not pass to
+    # the ViViT): the MoE blocks' attention runs unfused, on kernels 3 and 4
+    drop_model = ViViT(num_classes=19, num_frames=16, channels_last=True,
+                       dropout=MOE_DROPOUT, moe_experts=MOE_EXPERTS,
+                       moe_every=MOE_EVERY, dtype=torch.bfloat16) \
+        .init_weights(torch.Generator().manual_seed(SEED)).cuda()
+    drop_state = TrainState.create(dict(drop_model.named_parameters()),
+                                   build_optimizer(cfg))
+    drop_multi = make_multi_step(drop_model, cfg, DROP_STEPS)
+    drop_stacked = {k: v[:DROP_STEPS] for k, v in stacked.items()}
+    _zero_counts()
+    drop_state, drop_metrics = drop_multi(drop_state, drop_stacked, SEED)
+    drop_loss = drop_metrics["loss"].item()
+    drop_counts = _kernel_counts()
+    drop_expect = {"k1": n_dense * DROP_STEPS, "k2": n_dense * DROP_STEPS,
+                   "k3": n_moe * DROP_STEPS, "k4": n_moe * DROP_STEPS,
+                   "k5": 0, "k7": 0, "k8": 0}
+    if drop_counts != drop_expect or not math.isfinite(drop_loss) \
+            or not math.isfinite(drop_metrics["moe_aux"].item()):
+        raise AssertionError(f"train-moe dropout {MOE_DROPOUT}: launches "
+                             f"{drop_counts}, expected {drop_expect}; loss "
+                             f"{drop_loss}")
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_ITERS):
+        drop_state, drop_metrics = drop_multi(drop_state, drop_stacked, SEED)
+    drop_metrics["loss"].item()
+    drop_ms = (time.perf_counter() - t0) / (TRAIN_ITERS * DROP_STEPS) * 1e3
+    print(f"[train-moe] the same at dropout {MOE_DROPOUT}: {DROP_STEPS} "
+          f"steps, launches {drop_counts} ({n_moe} of kernels 3 and 4 and "
+          f"none of 7 and 8 per step), mean loss {drop_loss:.5f} | step_ms="
+          f"{drop_ms:.3f}, {TRAIN_BATCH / drop_ms * 1e3:.2f} clips/s (one "
+          f"window of {TRAIN_ITERS * DROP_STEPS} steps, host clock)",
+          flush=True)
+    return {"counts": counts, "drop_counts": drop_counts,
+            "clips_per_s": clips_per_s, "step_ms": step_ms,
+            "host_ms": host_ms, "device_ms": device_ms, "busy": busy}
+
+
 def main() -> int:
     import torch
 
@@ -1550,6 +2088,16 @@ def main() -> int:
     phase_mha_bwd("bf16", PTN_TRAIN_BATCH, 160, PTN_HEADS,
                   PTN_WIDTH // PTN_HEADS, 160)
     train_ptn = phase_train_ptn()
+    half_fwd, half_bwd = phase_kernel_attn_half("bf16")
+    phase_kernel_attn_half("f32")
+    serve_moe = phase_serve_moe()
+    train_moe = phase_train_moe()
+    # the MoE paths' launches of the earlier kernels
+    moe_runs = (serve_moe["counts"], serve_moe["int8_counts"],
+                train_moe["counts"], train_moe["drop_counts"])
+
+    def moe(k):
+        return sum(c[k] for c in moe_runs)
 
     def entry(name, source, replaces, launches, m):
         return {"name": name, "route": "cuda", "source": source,
@@ -1562,7 +2110,7 @@ def main() -> int:
         "name": "fused_vit_block_fwd", "route": "cuda",
         "source": "devt_tpu_torch/ops/csrc/fused_block_fwd.cu",
         "replaces": "devt_tpu/ops/fused_block.py:177",
-        "launches": serve["launches"] + train["fwd_launches"],
+        "launches": serve["launches"] + train["fwd_launches"] + moe("k1"),
         "max_abs_err": max(fwd["max_abs_err"].values()),
         "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -1571,7 +2119,7 @@ def main() -> int:
         "name": "fused_vit_block_bwd", "route": "cuda",
         "source": "devt_tpu_torch/ops/csrc/fused_block_bwd.cu",
         "replaces": "devt_tpu/ops/fused_block.py:240",
-        "launches": train["bwd_launches"],
+        "launches": train["bwd_launches"] + moe("k2"),
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["kernel_ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
@@ -1579,15 +2127,21 @@ def main() -> int:
     },
         entry("fused_mha", "devt_tpu_torch/ops/csrc/mha_fwd.cu",
               "devt_tpu/ops/flash_attention.py:558",
-              ptn["mha_launches"] + train_ptn["fwd_launches"], mha),
+              ptn["mha_launches"] + train_ptn["fwd_launches"] + moe("k3"),
+              mha),
         entry("quant_fused_vit_block",
               "devt_tpu_torch/ops/csrc/quant_block_fwd.cu",
-              "devt_tpu/ops/quant.py:275", serve_int8["launches"], quant),
+              "devt_tpu/ops/quant.py:275",
+              serve_int8["launches"] + moe("k5"), quant),
         entry("int8_matmul_fused", "devt_tpu_torch/ops/csrc/int8_matmul.cu",
               "devt_tpu/ops/quant.py:348", ptn["matmul_launches"], matmul),
         entry("fused_mha_bwd", "devt_tpu_torch/ops/csrc/mha_bwd.cu",
               "devt_tpu/ops/flash_attention.py:589",
-              train_ptn["bwd_launches"], mha_bwd)]
+              train_ptn["bwd_launches"] + moe("k4"), mha_bwd),
+        entry("fused_attn_half_fwd", "devt_tpu_torch/ops/csrc/attn_half.cu",
+              "devt_tpu/ops/fused_block.py:556", moe("k7"), half_fwd),
+        entry("fused_attn_half_bwd", "devt_tpu_torch/ops/csrc/attn_half.cu",
+              "devt_tpu/ops/fused_block.py:578", moe("k8"), half_bwd)]
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

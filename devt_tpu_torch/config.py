@@ -15,8 +15,11 @@ the same validation, so one YAML file configures either package.
     CPU ``"pallas"`` runs their plain versions and ``"auto"``, like
     ``"xla"``, the materialised softmax attention.
 
-Knobs of paths that are not ported yet (``pp``, ``sp``, ``moe_experts``,
-``remat``…) are accepted here and refused where a model would need them.
+Knobs of paths that are not ported yet (``pp``, ``sp``, ``remat``,
+``moe_ep`` across devices…) are accepted here and refused where a model
+or an executor would need them.  ``moe_experts`` gives the ViViT space
+transformer its switch-MoE blocks on one device; ``moe_ep`` changes
+nothing there, as in the JAX package on one device.
 """
 
 from __future__ import annotations
@@ -113,7 +116,7 @@ class Config(Mapping[str, Any]):
     dp_mode: str = "auto"
     remat: bool = False
     grad_clip_norm: float = 0.0
-    moe_experts: int = 0               # switch-MoE FFNs (not ported)
+    moe_experts: int = 0               # switch-MoE FFNs in the vivit
     moe_every: int = 2
     moe_aux_weight: float = 0.01
     moe_capacity_factor: float = 1.25

@@ -5,8 +5,9 @@ Parameters stay f32; ``dtype`` is the compute type that activations and
 weights are cast to at each product, as flax's ``dtype=`` does.  Module
 and parameter names follow the flax tree (``attn_norm``, ``attn.to_qkv``,
 ``attn.to_out``, ``ff_norm``, ``ff.fc1``, ``ff.fc2``, ``blocks.<i>`` for
-``block_<i>``, ``norm``), so ``utils/jax_bridge.py`` maps one onto the
-other by name.
+``block_<i>``, ``norm``; an MoE block's expert leaves ``moe_router``,
+``moe_w1``, ``moe_b1``, ``moe_w2``, ``moe_b2`` in the flax layout), so
+``utils/jax_bridge.py`` maps one onto the other by name.
 
 Dropout is explicit, as flax's ``rngs={"dropout": key}`` is: a training
 forward takes a ``DropoutRng`` and hands it down to every dropout site.
@@ -24,9 +25,10 @@ from torch import nn
 
 from devt_tpu_torch.ops.attention import packed_mha, quant_active
 from devt_tpu_torch.ops.flash_attention import fits_single_block
-from devt_tpu_torch.ops.fused_block import fused_vit_block
+from devt_tpu_torch.ops.fused_block import fused_attn_half, fused_vit_block
 from devt_tpu_torch.ops.quant import (quant_block_params, quant_vit_block,
                                       site_value)
+from devt_tpu_torch.parallel.moe import moe_ffn_dense
 
 # torch's LayerNorm eps, which the reference uses everywhere
 LN_EPS = 1e-5
@@ -85,8 +87,11 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """flax's default initializers over every Linear and LayerNorm below
-    ``module``: lecun-normal kernels, zero biases, unit LN scales."""
+    """flax's default initializers over every Linear, LayerNorm and MoE
+    block below ``module``: lecun-normal kernels, zero biases, unit LN
+    scales; an MoE block's router normal(0.01) and its (E, ...) expert
+    kernels lecun-normal with the expert axis counted in the fan-in, as
+    flax's ``lecun_normal`` counts it."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             lecun_normal_(m.weight, m.in_features, generator)
@@ -95,6 +100,12 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
+        elif isinstance(m, MoEViTBlock):
+            nn.init.normal_(m.moe_router, 0.0, 0.01, generator=generator)
+            for w in (m.moe_w1, m.moe_w2):
+                lecun_normal_(w, w.shape[0] * w.shape[1], generator)
+            nn.init.zeros_(m.moe_b1)
+            nn.init.zeros_(m.moe_b2)
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
@@ -108,6 +119,14 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=...)``: input, kernel and bias cast to ``dtype``."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def kernel_matrix(lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """A Linear weight in the fused kernels' (K, N) layout and the compute
+    dtype, transposed and cast in one copy (differentiable)."""
+    w = lin.weight
+    return torch.empty((w.shape[1], w.shape[0]), dtype=dtype,
+                       device=w.device).copy_(w.t())
 
 
 def sinusoidal_positional_encoding(max_len: int, d_model: int,
@@ -243,10 +262,8 @@ class ViTBlock(nn.Module):
         def row(t):
             return t.float().reshape(1, -1)
 
-        def mat(lin):            # transpose and cast in one copy
-            w = lin.weight
-            return torch.empty((w.shape[1], w.shape[0]), dtype=self.dtype,
-                               device=w.device).copy_(w.t())
+        def mat(lin):
+            return kernel_matrix(lin, self.dtype)
 
         return {
             "g1": row(self.attn_norm.weight), "b1": row(self.attn_norm.bias),
@@ -288,20 +305,117 @@ class ViTBlock(nn.Module):
         return x + self.ff(h, rng)
 
 
+class MoEViTBlock(nn.Module):
+    """Pre-norm layer whose FFN is a top-1-routed switch MoE
+    (``parallel/moe.py``): x += attn(norm(x)); x += moe(norm(x)).
+
+    Where eligible the attention half is one call of ``fused_attn_half``
+    (kernels 7 and 8 on the card, their plain versions on the CPU);
+    otherwise LayerNorm, ``ViTAttention`` (dropout on ``to_out``) and the
+    residual run unfused.  Both branches use the same parameters.  Each
+    sequence row is routed on its own (``group_size=S``), the pad tokens
+    past ``kv_len`` excluded; training uses ``capacity_factor``,
+    evaluation ``max(capacity_factor, eval_capacity_factor)``.  The
+    router's load-balance loss (the mean over the rows) is appended to
+    ``losses`` when the caller passes a list: the counterpart of flax's
+    ``"losses"`` collection, which ``train/steps.py`` weighs into the
+    objective.  The expert parameters ``moe_router`` (D, E), ``moe_w1``
+    (E, D, F), ``moe_b1`` (E, F), ``moe_w2`` (E, F, D), ``moe_b2`` (E, D)
+    sit on the block with the names and layout of the flax tree.  There
+    is no int8 branch, as in the JAX block."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
+                 n_experts: int, capacity_factor: float = 1.25,
+                 eval_capacity_factor: float = 2.0, dropout: float = 0.0,
+                 attention_impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.capacity_factor = capacity_factor
+        self.eval_capacity_factor = eval_capacity_factor
+        self.dropout = dropout
+        self.attention_impl = attention_impl
+        self.dtype = dtype
+        self.attn_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = ViTAttention(dim, heads, dim_head, dropout,
+                                 attention_impl, dtype)
+        self.ff_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.moe_router = nn.Parameter(torch.empty(dim, n_experts))
+        self.moe_w1 = nn.Parameter(torch.empty(n_experts, dim, mlp_dim))
+        self.moe_b1 = nn.Parameter(torch.zeros(n_experts, mlp_dim))
+        self.moe_w2 = nn.Parameter(torch.empty(n_experts, mlp_dim, dim))
+        self.moe_b2 = nn.Parameter(torch.zeros(n_experts, dim))
+
+    def fused_half_eligible(self, x: torch.Tensor) -> bool:
+        """``devt_tpu/models/layers.py:MoEViTBlock._fused_half_eligible``
+        without its TPU gate: the fused attention half has no dropout, so
+        training with dropout keeps the unfused path."""
+        if self.attention_impl == "xla":
+            return False
+        if self.dropout > 0.0 and self.training:
+            return False
+        if self.heads * self.dim_head != self.dim:
+            return False
+        if self.heads == 1 and self.dim_head == self.dim:
+            return False      # the fused path always applies to_out
+        return fits_single_block(x.shape[1]) and x.shape[1] % 16 == 0
+
+    def half_params(self) -> dict[str, torch.Tensor]:
+        """The attention half's parameter dict: matrices (K, N) in the
+        compute dtype, LN parameters and bias (1, N) f32."""
+        return {"g1": self.attn_norm.weight.float().reshape(1, -1),
+                "b1": self.attn_norm.bias.float().reshape(1, -1),
+                "wqkv": kernel_matrix(self.attn.to_qkv, self.dtype),
+                "wo": kernel_matrix(self.attn.to_out, self.dtype),
+                "bo": self.attn.to_out.bias.float().reshape(1, -1)}
+
+    def forward(self, x: torch.Tensor, kv_len: int | None = None,
+                rng: DropoutRng | None = None,
+                losses: list | None = None) -> torch.Tensor:
+        s = x.shape[1]
+        if self.fused_half_eligible(x):
+            x, _ = fused_attn_half(
+                x.to(self.dtype).contiguous(), self.half_params(),
+                self.heads, self.dim_head ** -0.5,
+                kv_len if kv_len is not None else s)
+        else:
+            h = layer_norm(self.attn_norm, x, self.dtype)
+            x = x + self.attn(h, kv_len, rng)
+        h = layer_norm(self.ff_norm, x, self.dtype)
+        # the tile-alignment pads (models/vivit.py:_pad_tokens) take no
+        # expert capacity and no part in the load-balance statistics
+        valid = None
+        if kv_len is not None and kv_len != s:
+            valid = (torch.arange(s, device=x.device) < kv_len).expand(
+                x.shape[0], s).reshape(-1)
+        cf = (self.capacity_factor if self.training
+              else max(self.capacity_factor, self.eval_capacity_factor))
+        params = {"router": self.moe_router, "w1": self.moe_w1,
+                  "b1": self.moe_b1, "w2": self.moe_w2, "b2": self.moe_b2}
+        y, aux = moe_ffn_dense(params, h.reshape(-1, self.dim),
+                               capacity_factor=cf, valid=valid, group_size=s)
+        if losses is not None:
+            losses.append(aux)
+        y = dropout(y.reshape(h.shape), self.dropout, self.training, rng)
+        return x + y
+
+
 class ViTTransformer(nn.Module):
-    """Pre-norm residual transformer with a trailing LayerNorm: a dense
-    stack of ``depth`` ViTBlocks.  The MoE, pipeline, sequence-parallel
-    and remat variants of the JAX module are not ported yet."""
+    """Pre-norm residual transformer with a trailing LayerNorm: ``depth``
+    ViTBlocks, with every ``moe_every``-th an MoEViTBlock when
+    ``moe_experts > 0`` (depth 4, moe_every 2: dense, MoE, dense, MoE).
+    The pipeline, sequence-parallel and remat variants of the JAX module
+    are not ported yet."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dropout: float = 0.0,
                  attention_impl: str = "auto", remat: bool = False,
-                 moe_experts: int = 0, pipeline_stages: int = 0,
-                 sequence_parallel: bool = False,
+                 moe_experts: int = 0, moe_every: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 pipeline_stages: int = 0, sequence_parallel: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        todo = {"moe_experts > 0": moe_experts > 0,
-                "pipeline_stages > 1": pipeline_stages > 1,
+        todo = {"pipeline_stages > 1": pipeline_stages > 1,
                 "sequence_parallel": sequence_parallel,
                 "remat": remat}
         for what, asked in todo.items():
@@ -310,13 +424,28 @@ class ViTTransformer(nn.Module):
                     f"ViTTransformer({what}) is not ported yet — ROADMAP.md "
                     f"queue 1")
         self.dtype = dtype
-        self.blocks = nn.ModuleList(
-            ViTBlock(dim, heads, dim_head, mlp_dim, dropout, attention_impl,
-                     dtype) for _ in range(depth))
+
+        def block(i):
+            if moe_experts > 0 and i % moe_every == moe_every - 1:
+                return MoEViTBlock(dim, heads, dim_head, mlp_dim,
+                                   n_experts=moe_experts,
+                                   capacity_factor=moe_capacity_factor,
+                                   dropout=dropout,
+                                   attention_impl=attention_impl, dtype=dtype)
+            return ViTBlock(dim, heads, dim_head, mlp_dim, dropout,
+                            attention_impl, dtype)
+
+        self.blocks = nn.ModuleList(block(i) for i in range(depth))
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, kv_len: int | None = None,
-                rng: DropoutRng | None = None) -> torch.Tensor:
+                rng: DropoutRng | None = None,
+                losses: list | None = None) -> torch.Tensor:
+        """``losses``: a list that each MoE block appends its load-balance
+        loss to (None: not collected)."""
         for block in self.blocks:
-            x = block(x, kv_len, rng)
+            if isinstance(block, MoEViTBlock):
+                x = block(x, kv_len, rng, losses)
+            else:
+                x = block(x, kv_len, rng)
         return layer_norm(self.norm, x, self.dtype)

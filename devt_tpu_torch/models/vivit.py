@@ -77,6 +77,7 @@ class ViViT(nn.Module):
                  temporal_attention_impl: str | None = "xla",
                  token_pad: int = 16, channels_last: bool = False,
                  remat: bool = False, moe_experts: int = 0,
+                 moe_every: int = 2, moe_capacity_factor: float = 1.25,
                  pipeline_stages: int = 0, sequence_parallel: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -91,6 +92,10 @@ class ViViT(nn.Module):
         self.token_pad = token_pad
         self.channels_last = channels_last
         self.dtype = dtype
+        # moe_experts > 0: every moe_every-th SPACE block's FFN is a switch
+        # MoE (models/layers.py:MoEViTBlock); the temporal transformer
+        # stays dense, its token count being tiny
+        self.moe_experts = moe_experts
         self.patch_embed = PatchEmbed(patch_size, in_channels, dim, dtype)
         self.pos_embedding = nn.Parameter(
             torch.empty(1, num_frames, num_patches + 1, dim))
@@ -99,7 +104,9 @@ class ViViT(nn.Module):
         self.space_transformer = ViTTransformer(
             dim, depth, heads, dim_head, dim * scale_dim, dropout=dropout,
             attention_impl=attention_impl, remat=remat,
-            moe_experts=moe_experts, pipeline_stages=pipeline_stages,
+            moe_experts=moe_experts, moe_every=moe_every,
+            moe_capacity_factor=moe_capacity_factor,
+            pipeline_stages=pipeline_stages,
             sequence_parallel=sequence_parallel, dtype=dtype)
         t_impl = (attention_impl if temporal_attention_impl is None
                   else temporal_attention_impl)
@@ -122,12 +129,14 @@ class ViViT(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor, tokens_in: bool = False,
-                rng: DropoutRng | None = None) -> torch.Tensor:
+                rng: DropoutRng | None = None,
+                losses: list | None = None) -> torch.Tensor:
         """x: (B, T, C, H, W) — or (B, T, H, W, C) with ``channels_last`` —
         → (B, num_classes) logits.  ``tokens_in=True``: x is pre-patchified
         (B, T, N, p*p*c) tokens (``patchify`` layout).  ``rng``: the
         dropout randomness of a training forward (needed only when a
-        dropout rate is set)."""
+        dropout rate is set).  ``losses``: a list the MoE blocks append
+        their load-balance losses to (None: not collected)."""
         dtype = self.dtype
         if not tokens_in and not self.channels_last:
             x = x.permute(0, 1, 3, 4, 2)            # → (B, T, H, W, C)
@@ -145,7 +154,7 @@ class ViViT(nn.Module):
         kv_len = None
         if self.token_pad:
             x, kv_len = _pad_tokens(x, self.token_pad)
-        x = self.space_transformer(x, kv_len, rng)
+        x = self.space_transformer(x, kv_len, rng, losses)
         x = x[:, 0].reshape(b, t, d)                # per-frame CLS
 
         cls_temporal = self.temporal_token.to(dtype).expand(b, 1, d)

@@ -297,57 +297,9 @@ __global__ void __launch_bounds__(kFfnThreads, 1)
 }
 
 // ===========================================================================
-// float route: the same three stages with exact f32 FMA products (the
-// attention stage is attention_fwd.cuh's)
+// float route: the same three stages with exact f32 FMA products (LN1 +
+// qkv is fused_block_common.cuh's, the attention attention_fwd.cuh's)
 // ===========================================================================
-
-__host__ __device__ constexpr size_t f32_qkv_smem(int D, int NT) {
-  return align128(sizeof(float) * kF32Rows * pad_f32(D)) +
-         align128(sizeof(float) * D * pad_f32(NT)) +
-         align128(sizeof(float) * kF32Rows * pad_f32(NT));
-}
-
-__global__ void __launch_bounds__(kF32Threads)
-    ln_qkv_f32(const float* __restrict__ x, const float* __restrict__ g1,
-               const float* __restrict__ b1, const float* __restrict__ wqkv,
-               float* __restrict__ qkv, float* __restrict__ res, int rows,
-               int D, int N, int H, int lanes, int NT) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = pad_f32(D), ldb = pad_f32(NT), ldc = pad_f32(NT);
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + align128(sizeof(float) * kF32Rows * lda) / sizeof(float);
-  float* Cs = Bs + align128(sizeof(float) * D * ldb) / sizeof(float);
-  const int row0 = blockIdx.x * kF32Rows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int r = warp; r < kF32Rows; r += kF32Threads / 32) {
-    const int gr = row0 + r;
-    float* ar = As + r * lda;
-    if (gr < rows) {
-      const float* xr = x + static_cast<size_t>(gr) * D;
-      float mu, rstd;
-      warp_row_stats(xr, D, mu, rstd);
-      for (int c = lane; c < D; c += 32)
-        ar[c] = (xr[c] - mu) * rstd * g1[c] + b1[c];
-      if (lane == 0) {
-        res[static_cast<size_t>(gr) * lanes + H] = mu;
-        res[static_cast<size_t>(gr) * lanes + H + 1] = rstd;
-      }
-    } else {
-      for (int c = lane; c < D; c += 32) ar[c] = 0.f;
-    }
-  }
-  for (int n0 = 0; n0 < N; n0 += NT) {
-    load_tile_f32(Bs, ldb, wqkv, N, 0, n0, D, NT);
-    __syncthreads();
-    block_gemm_f32<false>(As, lda, Bs, ldb, Cs, ldc, kF32Rows, NT, D, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Rows * NT; i += blockDim.x) {
-      const int r = i / NT, j = i - r * NT, gr = row0 + r;
-      if (gr < rows) qkv[static_cast<size_t>(gr) * N + n0 + j] = Cs[r * ldc + j];
-    }
-  }
-}
 
 __host__ __device__ constexpr size_t f32_ffn_smem(int D, int F, int NT,
                                                   int KT) {

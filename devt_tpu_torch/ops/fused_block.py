@@ -72,6 +72,21 @@ kernels' own device function, on the CPU from a seeded
 runs the plain versions only for CPU tensors.  Its ``launches`` and
 ``bwd_launches`` attributes count forward and backward kernel launches
 (one per call and pass on the card).
+
+The attention half (``fused_attn_half``, the MoE block's: u = x +
+MHA(LN1(x)) @ Wo + bo, no dropout) has kernels of its own in
+``csrc/attn_half.cu``:
+  * Kernel 7 replaces ``devt_tpu/ops/fused_block.py:556
+    _attn_half_fwd_kernel`` (launched at ``:643``): the first two launches
+    of the block forward, then the out-projection per 64 rows.  Bound at
+    the main-path shape: 2·(4·D² + 2·kv_len·D) operations per row, 47.5
+    GFLOP against about 85 MB: compute-bound, about 0.048 ms.
+  * Kernel 8 replaces ``:578 _attn_half_bwd_kernel`` (launched at
+    ``:667``): the block backward's launches without the FFN, sharing
+    their device code (``csrc/block_bwd_parts.cuh``); split-K weight
+    gradients and one fixed-order sum, so two runs give the same bits.
+    2·(11·D² + 6·kv_len·D) operations per row, 134.7 GFLOP: about 0.136 ms.
+``fused_attn_half`` keeps ``launches`` and ``bwd_launches`` counters too.
 """
 
 from __future__ import annotations
@@ -333,21 +348,23 @@ def _check(lib, rc, what):
         raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
-def _check_cuda_args(x, params, heads):
+def _check_cuda_args(x, params, heads, names=PARAM_NAMES):
+    """Checks x and the parameters ``names`` of the fused kernels (the
+    whole block's, or the attention half's)."""
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_vit_block takes float32 or bfloat16 x, "
+        raise TypeError(f"the fused kernels take float32 or bfloat16 x, "
                         f"got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (B, S, D) tensor, got "
                          f"shape {tuple(x.shape)}")
     dim = x.shape[-1]
-    mlp = params["w1"].shape[-1]
+    mlp = params["w1"].shape[-1] if "w1" in names else 64
     shapes = {"g1": (1, dim), "b1": (1, dim), "wqkv": (dim, 3 * dim),
               "wo": (dim, dim), "bo": (1, dim), "g2": (1, dim),
               "b2": (1, dim), "w1": (dim, mlp), "bb1": (1, mlp),
               "w2": (mlp, dim), "bb2": (1, dim)}
-    for name, shape in shapes.items():
-        t = params[name]
+    for name in names:
+        shape, t = shapes[name], params[name]
         want = x.dtype if name in _MATRICES else torch.float32
         if tuple(t.shape) != shape or t.dtype != want \
                 or t.device != x.device or not t.is_contiguous():
@@ -397,6 +414,22 @@ def _fwd_cuda(x, params, heads, scale, kv_len, rate, seed):
     return y, u, res
 
 
+def _check_bwd_shape(x, heads):
+    """The shapes the backward kernels (2 and 8) take."""
+    s, dim = x.shape[1], x.shape[2]
+    if s % 16:
+        raise ValueError(f"the backward kernel needs a token count that is a "
+                         f"multiple of 16, got {s}")
+    if x.dtype == torch.bfloat16:
+        # q, k, v and datt of one head (rows padded by 8) plus lse and delta
+        need = 4 * s * (dim // heads + 8) * 2 + 2 * s * 4 + 512
+        if need > _SMEM_PER_BLOCK:
+            raise ValueError(
+                f"the bfloat16 backward keeps one head's q, k, v and datt in "
+                f"shared memory: {s} tokens of head dim {dim // heads} need "
+                f"{need} bytes, a block has {_SMEM_PER_BLOCK}")
+
+
 def _bwd_cuda(x, params, u, res, dy, heads, scale, kv_len, rate, seed):
     _check_cuda_args(x, params, heads)
     bsz, s, dim = x.shape
@@ -413,17 +446,7 @@ def _bwd_cuda(x, params, u, res, dy, heads, scale, kv_len, rate, seed):
         raise ValueError(f"res: need the contiguous f32 (B, S, >= heads+4) "
                          f"residual lanes of the forward on {x.device}, got "
                          f"{res.dtype} {tuple(res.shape)} on {res.device}")
-    if s % 16:
-        raise ValueError(f"the backward kernel needs a token count that is a "
-                         f"multiple of 16, got {s}")
-    if x.dtype == torch.bfloat16:
-        # q, k, v and datt of one head (rows padded by 8) plus lse and delta
-        need = 4 * s * (dim // heads + 8) * 2 + 2 * s * 4 + 512
-        if need > _SMEM_PER_BLOCK:
-            raise ValueError(
-                f"the bfloat16 backward keeps one head's q, k, v and datt in "
-                f"shared memory: {s} tokens of head dim {dim // heads} need "
-                f"{need} bytes, a block has {_SMEM_PER_BLOCK}")
+    _check_bwd_shape(x, heads)
     from devt_tpu_torch.ops import _build
 
     lib = _build.load("fused_block_bwd", _declare_bwd)
@@ -527,6 +550,188 @@ fused_vit_block.launches = 0
 fused_vit_block.bwd_launches = 0
 
 
+# ---------------------------------------------------------------------------
+# The attention half: kernels 7 and 8
+# ---------------------------------------------------------------------------
+
+HALF_NAMES = ("g1", "b1", "wqkv", "wo", "bo")
+
+
+def fused_attn_half_fwd_plain(x, params, heads, scale, kv_len):
+    """Plain PyTorch version of kernel 7: (u, res), u = x + MHA(LN1(x) @
+    Wqkv) @ Wo + bo in x's dtype, res = [lse (H), mu1, rstd1, 0…] f32 in
+    ``round_up(H + 2, 8)`` lanes (JAX's ``_attn_half_fwd_kernel``)."""
+    dtype = x.dtype
+    d = x.shape[-1] // heads
+    p = {k: params[k].float() for k in HALF_NAMES}
+    x32 = x.float()
+    a, _, mu1, rstd1 = _ln(x32, p["g1"][0], p["b1"][0])
+    qkv = _mm(a, params["wqkv"], dtype)
+    att, lse = _mha_fwd(qkv, heads, d, scale, kv_len, dtype)
+    u = x32 + (_mm(att, params["wo"], dtype) + p["bo"][0])
+    res = torch.cat([lse, mu1, rstd1], dim=-1)
+    res = F.pad(res, (0, _round_up(heads + 2, 8) - heads - 2))
+    return u.to(dtype), res
+
+
+def fused_attn_half_bwd_plain(x, params, res, du, heads, scale, kv_len):
+    """Plain PyTorch version of kernel 8, step by step with the roundings
+    of JAX's ``_attn_half_bwd_kernel``: LN1 statistics and lse from
+    ``res``, every product's operands rounded to x's dtype with f32
+    accumulation, the bias and LN-parameter gradients sums of unrounded f32
+    values.  Returns (dx in x's dtype, {name: gradient in the dtype of
+    ``params[name]``, rows shaped (1, N)})."""
+    dtype = x.dtype
+    d = x.shape[-1] // heads
+    p = {k: params[k].float() for k in HALF_NAMES}
+    x32, du32 = x.float(), du.float()
+    lse = res[..., :heads]
+    mu1, rstd1 = res[..., heads:heads + 1], res[..., heads + 1:heads + 2]
+    g1 = p["g1"][0]
+
+    def flat(t):
+        return t.reshape(-1, t.shape[-1])
+
+    def rows(t):                       # sum over (B, S), keep (1, N)
+        return flat(t).sum(dim=0, keepdim=True)
+
+    xhat1 = (x32 - mu1) * rstd1
+    a = xhat1 * g1 + p["b1"][0]
+    qkv = _mm(a, params["wqkv"], dtype)
+    datt = _mm(du32, params["wo"].t(), dtype)
+    att, dqkv = _mha_fwd_bwd(qkv, lse, datt, heads, d, scale, kv_len, dtype)
+    grads = {"wo": _mm(flat(att).t(), flat(du32), dtype), "bo": rows(du32)}
+    da = _mm(dqkv, params["wqkv"].t(), dtype)
+    grads["wqkv"] = _mm(flat(a).t(), flat(dqkv), dtype)
+    grads["g1"] = rows(da * xhat1)
+    grads["b1"] = rows(da)
+    dx = du32 + _ln_bwd(da * g1, xhat1, rstd1)
+    return dx.to(dtype), {k: grads[k].to(params[k].dtype)
+                          for k in HALF_NAMES}
+
+
+def _half_fwd_cuda(x, params, heads, scale, kv_len):
+    _check_cuda_args(x, params, heads, HALF_NAMES)
+    from devt_tpu_torch.ops import _build
+
+    lib = _build.load("attn_half", _declare_half)
+    bsz, s, dim = x.shape
+    lanes = _round_up(heads + 2, 8)
+    u = torch.empty_like(x)
+    res = torch.empty((bsz, s, lanes), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((bsz, s, 3 * dim), dtype=x.dtype, device=x.device)
+    att = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.devt_attn_half_fwd(
+            _DTYPE_CODE[x.dtype], _ptr(x),
+            *(_ptr(params[k]) for k in HALF_NAMES), _ptr(u), _ptr(res),
+            _ptr(qkv), _ptr(att), bsz, s, dim, heads, int(kv_len), lanes,
+            ctypes.c_float(scale), ctypes.c_void_p(stream))
+    _check(lib, rc, "attn_half_fwd")
+    fused_attn_half.launches += 1
+    return u, res
+
+
+def _half_bwd_cuda(x, params, res, du, heads, scale, kv_len):
+    _check_cuda_args(x, params, heads, HALF_NAMES)
+    bsz, s, dim = x.shape
+    if du.dtype != x.dtype or du.shape != x.shape or du.device != x.device \
+            or not du.is_contiguous():
+        raise ValueError(f"du: need a contiguous {x.dtype} tensor of shape "
+                         f"{tuple(x.shape)} on {x.device}, got {du.dtype} "
+                         f"{tuple(du.shape)} on {du.device}")
+    if res.dtype != torch.float32 or res.shape[:2] != x.shape[:2] \
+            or res.shape[2] < heads + 2 or res.device != x.device \
+            or not res.is_contiguous():
+        raise ValueError(f"res: need the contiguous f32 (B, S, >= heads+2) "
+                         f"residual lanes of the forward on {x.device}, got "
+                         f"{res.dtype} {tuple(res.shape)} on {res.device}")
+    _check_bwd_shape(x, heads)
+    from devt_tpu_torch.ops import _build
+
+    lib = _build.load("attn_half", _declare_half)
+    code = _DTYPE_CODE[x.dtype]
+    nbytes = lib.devt_attn_half_bwd_scratch(code, bsz, s, dim, heads)
+    if nbytes == 0:
+        raise RuntimeError(f"attn_half_bwd takes no shape "
+                           f"{(bsz, s, dim, heads)}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    dx = torch.empty_like(x)
+    grads = {k: torch.empty_like(params[k]) for k in HALF_NAMES}
+    grad_ptrs = (ctypes.c_void_p * len(HALF_NAMES))(
+        *(grads[k].data_ptr() for k in HALF_NAMES))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.devt_attn_half_bwd(
+            code, _ptr(x), *(_ptr(params[k]) for k in HALF_NAMES),
+            _ptr(res), _ptr(du), _ptr(dx), grad_ptrs, _ptr(scratch), bsz, s,
+            dim, heads, int(kv_len), res.shape[2], ctypes.c_float(scale),
+            ctypes.c_void_p(stream))
+    _check(lib, rc, "attn_half_bwd")
+    fused_attn_half.bwd_launches += 1
+    return dx, grads
+
+
+class FusedAttnHalf(torch.autograd.Function):
+    """The attention half with its backward: kernels 7 and 8 for CUDA
+    tensors, the plain versions for CPU tensors.  Saves (x, params, res)."""
+
+    @staticmethod
+    def forward(ctx, x, heads, scale, kv_len, *tensors):
+        params = dict(zip(HALF_NAMES, tensors))
+        if x.device.type == "cuda":
+            if any(ctx.needs_input_grad):
+                _check_bwd_shape(x, heads)    # refuse before the forward runs
+            u, res = _half_fwd_cuda(x, params, heads, scale, kv_len)
+        elif x.device.type == "cpu":
+            u, res = fused_attn_half_fwd_plain(x, params, heads, scale,
+                                               kv_len)
+        else:
+            raise ValueError(f"fused_attn_half runs on cuda or cpu, not "
+                             f"{x.device}")
+        ctx.save_for_backward(x, res, *tensors)
+        ctx.args = (heads, scale, kv_len)
+        ctx.mark_non_differentiable(res)
+        return u, res
+
+    @staticmethod
+    def backward(ctx, du, _dres):
+        x, res, *tensors = ctx.saved_tensors
+        heads, scale, kv_len = ctx.args
+        params = dict(zip(HALF_NAMES, tensors))
+        # the gradient crosses the kernel boundary in x's dtype
+        du = du.to(x.dtype).contiguous()
+        if x.device.type == "cuda":
+            dx, grads = _half_bwd_cuda(x, params, res, du, heads, scale,
+                                       kv_len)
+        else:
+            dx, grads = fused_attn_half_bwd_plain(x, params, res, du, heads,
+                                                  scale, kv_len)
+        return (dx, None, None, None, *(grads[k] for k in HALF_NAMES))
+
+
+def fused_attn_half(x, params, heads, scale, kv_len):
+    """``x + attn(LN1(x))``: the attention half of a pre-norm ViT block →
+    (u, res), differentiable in x and the 5 parameters.
+
+    x (B, S, D); ``params`` holds g1/b1/wqkv/wo/bo in the layout of the
+    whole block's kernel: Wqkv (D, 3D) and Wo (D, D) in x's dtype, the LN
+    parameters and bo (1, D) f32.  ``kv_len`` masks key padding.  No
+    dropout (callers gate: ``models/layers.py:MoEViTBlock``).
+
+    A CUDA tensor launches kernel 7 forward and kernel 8 backward (raising
+    if a launch fails); a CPU tensor runs the plain versions.  The JAX
+    function returns only u because its custom_vjp keeps res to itself;
+    here res is returned too (not differentiable)."""
+    return FusedAttnHalf.apply(x, heads, float(scale), int(kv_len),
+                               *(params[k] for k in HALF_NAMES))
+
+
+fused_attn_half.launches = 0
+fused_attn_half.bwd_launches = 0
+
+
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     lib.devt_fused_block_fwd.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
@@ -551,5 +756,21 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
         + [ctypes.c_float, ctypes.c_double, ctypes.c_ulonglong,
            ctypes.c_void_p])
     lib.devt_fused_block_bwd.restype = ctypes.c_int
+    lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.devt_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _declare_half(lib: ctypes.CDLL) -> None:
+    lib.devt_attn_half_fwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.devt_attn_half_fwd.restype = ctypes.c_int
+    lib.devt_attn_half_bwd_scratch.argtypes = [ctypes.c_int] * 5
+    lib.devt_attn_half_bwd_scratch.restype = ctypes.c_ulonglong
+    lib.devt_attn_half_bwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 9
+        + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    lib.devt_attn_half_bwd.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p

@@ -53,6 +53,8 @@ def build_model(config: Config,
                   attention_impl=config.attention_impl,
                   channels_last=True,
                   moe_experts=config.moe_experts,
+                  moe_every=config.moe_every,
+                  moe_capacity_factor=config.moe_capacity_factor,
                   pipeline_stages=config.pp if config.pp > 1 else 0,
                   sequence_parallel=config.sp > 1,
                   remat=config.remat, dtype=model_dtype(config))

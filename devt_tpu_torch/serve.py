@@ -7,9 +7,11 @@
   * outputs are sigmoid scores plus the genre labels whose score passes
     the threshold (0.3, the reference's callback semantics).
 
-``vivit``, ``ptn`` and ``ptn_shared`` are served, in the model dtype or,
-with ``quantize=True``, with the transformer hot path in int8
-(``ops/quant.py``).  The predictor runs on ``cuda`` unless the caller
+``vivit`` (with switch-MoE blocks too, ``moe_experts > 0``), ``ptn`` and
+``ptn_shared`` are served, in the model dtype or, with ``quantize=True``,
+with the transformer hot path in int8 (``ops/quant.py``; an MoE block keeps
+its attention half and expert products in the model dtype, as in the JAX
+package).  The predictor runs on ``cuda`` unless the caller
 passes ``device="cpu"``; with no CUDA device and no explicit device it
 raises.  Data-parallel meshes, export and checkpoint loading are not
 ported yet.

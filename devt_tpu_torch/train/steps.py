@@ -4,8 +4,9 @@ One function dispatches on the model name and returns ``(loss, aux,
 new_model_state)``.  ``aux`` carries ``probs`` (post-sigmoid/softmax
 scores) and ``label`` for the epoch-end evaluators.  ``vivit``, ``ptn``
 and ``ptn_shared`` are ported; the other names raise until their models
-are (ROADMAP.md queue 1, item 5), and the MoE load-balance term comes with
-the MoE slice (item 6).
+are (ROADMAP.md queue 1, item 5).  A training forward of a ViViT with
+switch-MoE blocks adds their mean load-balance loss, weighted by
+``config.moe_aux_weight``, and reports it as ``aux["moe_aux"]``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,12 @@ def forward_and_loss(model: nn.Module, config: Config,
         args, kwargs = (batch["vid_tokens"],), {"tokens_in": True}
     else:
         args, kwargs = (batch["vid"],), {}
+    # the MoE blocks append their load-balance losses to this list, the
+    # counterpart of flax's "losses" collection, collected when training
+    moe_losses = None
+    if name == "vivit":
+        moe_losses = [] if train and getattr(model, "moe_experts", 0) else None
+        kwargs["losses"] = moe_losses
     logits = torch.func.functional_call(
         model, tensors, args, {**kwargs, "rng": rng if train else None})
     if label.dim() == 1:       # single-label (MIT-style): CE, top-1
@@ -60,4 +67,10 @@ def forward_and_loss(model: nn.Module, config: Config,
     else:                      # multi-hot genres (MMX-style): BCE
         loss = losses.bce_with_logits(logits, label)
         probs = torch.sigmoid(logits)
-    return loss, {"probs": probs, "label": label}, model_state
+    aux = {"probs": probs, "label": label}
+    if moe_losses:
+        # the mean of the per-layer losses, each the mean over row groups
+        moe_aux = sum(moe_losses) / len(moe_losses)
+        loss = loss + config.moe_aux_weight * moe_aux
+        aux["moe_aux"] = moe_aux
+    return loss, aux, model_state

@@ -8,7 +8,10 @@ the port's ``state_dict`` by name:
     ``layer_<i>`` becomes ``layers.<i>`` (the ``nn.ModuleList``s);
   * a flax Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
   * a LayerNorm ``scale`` becomes ``weight``; ``bias`` and the other
-    leaves (``pos_embedding``, ``space_token``…) keep their names.
+    leaves (``pos_embedding``, ``space_token``, an MoE block's
+    ``moe_router`` (D, E), ``moe_w1`` (E, D, F), ``moe_b1`` (E, F),
+    ``moe_w2`` (E, F, D), ``moe_b2`` (E, D)…) keep their names and layout,
+    untransposed both ways.
 
 Names follow ``devt_tpu/models/layers.py:117-160`` (``attn_norm``,
 ``attn/to_qkv``, ``attn/to_out``, ``ff_norm``, ``ff/fc1``, ``ff/fc2``) for

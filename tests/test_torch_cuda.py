@@ -77,10 +77,10 @@ def test_fused_block_kernel_rejects_bad_params(card):
         tfb.fused_vit_block(x, params, 2, 0.25, 37)
 
 
-def _assert_bwd_close(kind, got, want):
+def _assert_bwd_close(kind, got, want, names=tfb.PARAM_NAMES):
     (gdx, ggrads), (wdx, wgrads) = got, want
     for name, g, w in [("dx", gdx, wdx)] + [
-            (k, ggrads[k], wgrads[k]) for k in tfb.PARAM_NAMES]:
+            (k, ggrads[k], wgrads[k]) for k in names]:
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.isfinite(g.float()).all(), name
         err = (g.float() - w.float()).abs().max().item()
@@ -549,3 +549,159 @@ def test_ptn_trains_through_the_kernels(card, name, launches, kind, rate):
     assert gaps[worst] <= floor[lib] + GRAD_RTOL, (
         f"{gaps[worst]:.3e} at {worst} with the kernels, {floor[lib]:.3e} at "
         f"{lib} without them")
+
+
+# --- the attention half (kernels 7 and 8) and the MoE ViViT ---------------
+
+def _half(dtype, **kw):
+    x, params = _block(dtype, **kw)
+    return x, {k: params[k] for k in tfb.HALF_NAMES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("dim,heads,b,kv_len", [(64, 2, 6, 37), (64, 2, 6, 48),
+                                                (64, 2, 6, 20),
+                                                (64, 2, 50, 37),
+                                                (192, 3, 4, 197)])
+def test_attn_half_kernels_match_plain(card, kind, dim, heads, b, kv_len):
+    """Kernel 7 (u and the residual lanes) and kernel 8 (dx and the 5
+    gradients, through FusedAttnHalf and autograd) against the plain
+    versions; both bf16 widths, b=50 crossing a split of the weight
+    gradients, kv_len=20 leaving the last 16 keys wholly masked."""
+    s = 208 if dim == 192 else 48
+    x, params = _half(DTYPE[kind], dim=dim, b=b, s=s, kv_len=kv_len)
+    scale = (dim // heads) ** -0.5
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)) \
+        .to(x.dtype).cuda()
+    xr = x.clone().requires_grad_(True)
+    pr = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    before = (tfb.fused_attn_half.launches, tfb.fused_attn_half.bwd_launches)
+    u, res = tfb.fused_attn_half(xr, pr, heads, scale, kv_len)
+    u.backward(dy)
+    torch.cuda.synchronize()
+    assert (tfb.fused_attn_half.launches,
+            tfb.fused_attn_half.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want_u, want_res = tfb.fused_attn_half_fwd_plain(x, params, heads, scale,
+                                                     kv_len)
+    torch.testing.assert_close(u.detach().float(), want_u.float(),
+                               **TOL[kind])
+    torch.testing.assert_close(res, want_res, atol=1e-4, rtol=1e-4)
+    assert res[..., heads + 2:].abs().max().item() == 0.0
+    want = tfb.fused_attn_half_bwd_plain(x, params, res, dy, heads, scale,
+                                         kv_len)
+    _assert_bwd_close(kind, (xr.grad, {k: pr[k].grad
+                                       for k in tfb.HALF_NAMES}), want,
+                      tfb.HALF_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_attn_half_backward_is_deterministic(card, kind):
+    """No atomics: two runs of kernel 8 give the same bits."""
+    x, params = _half(DTYPE[kind], b=50)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)) \
+        .to(x.dtype).cuda()
+    with torch.no_grad():
+        _, res = tfb.fused_attn_half(x, params, 2, 0.25, 37)
+    runs = [tfb._half_bwd_cuda(x, params, res, dy, 2, 0.25, 37)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in tfb.HALF_NAMES:
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+
+
+@pytest.mark.cuda
+def test_attn_half_refuses_what_the_kernels_do_not_take(card):
+    x, params = _half(torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16 kernel is compiled"):
+        tfb.fused_attn_half(x, params, 4, 0.25, 37)      # head dim 16
+    params["wo"] = params["wo"].float()
+    with pytest.raises(ValueError, match="param wo"):
+        tfb.fused_attn_half(x, params, 2, 0.25, 37)
+    # a backward that would not fit is refused before the forward runs
+    # (400 tokens of head dim 64: q, k, v and datt of a head need more
+    # than a block's shared memory)
+    x, params = _half(torch.bfloat16, dim=192, s=400, kv_len=400)
+    before = tfb.fused_attn_half.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tfb.fused_attn_half(x.requires_grad_(True), params, 3, 0.125, 400)
+    assert tfb.fused_attn_half.launches == before
+
+
+def _moe_vivit(kind, dropout=0.0):
+    from devt_tpu_torch.models.vivit import ViViT
+
+    return ViViT(image_size=32, patch_size=8, num_classes=5, num_frames=2,
+                 dim=64, depth=4, heads=2, dim_head=32, channels_last=True,
+                 moe_experts=4, dropout=dropout, dtype=DTYPE[kind]) \
+        .init_weights(torch.Generator().manual_seed(0))
+
+
+def _moe_counts():
+    return (tfb.fused_vit_block.launches, tfb.fused_vit_block.bwd_launches,
+            tfb.fused_attn_half.launches, tfb.fused_attn_half.bwd_launches,
+            tfa.fused_mha.launches, tfa.fused_mha.bwd_launches)
+
+
+@pytest.mark.cuda
+def test_moe_vivit_forward_launches(card):
+    """An eval forward of a depth-4 MoE-ViViT (blocks dense, MoE, dense,
+    MoE) launches kernel 1 twice and kernel 7 twice, nothing backward."""
+    model = _moe_vivit("bf16").cuda().eval()
+    x = torch.randn(2, 2, 32, 32, 3, generator=torch.Generator()
+                    .manual_seed(1)).cuda()
+    before = _moe_counts()
+    with torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_moe_counts(), before)] == [2, 0, 2, 0,
+                                                              0, 0]
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dropout,counts", [
+    ("f32", 0.0, [2, 2, 2, 2, 0, 0]), ("bf16", 0.0, [2, 2, 2, 2, 0, 0]),
+    ("bf16", 0.5, [2, 2, 0, 0, 2, 2])])
+def test_moe_vivit_step_launches_and_gradients(card, kind, dropout, counts):
+    """One training step of the MoE-ViViT: at dropout 0 kernels 1, 2, 7
+    and 8 twice each; at dropout 0.5 the MoE blocks' attention runs
+    unfused, through kernels 3 and 4.  In f32 the gradients match the
+    CPU's plain path (the same routing) within 1e-3 of each leaf's largest
+    element; the load-balance loss is finite and in the loss."""
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    cfg = Config(model="vivit", precision=kind, n_classes=5, frame_len=2,
+                 moe_experts=4, dropout=dropout)
+    rng = np.random.default_rng(3)
+    batch = {"vid": torch.tensor(rng.standard_normal((2, 2, 32, 32, 3))
+                                 .astype(np.float32)),
+             "label": torch.tensor((rng.random((2, 5)) < 0.3)
+                                   .astype(np.float32))}
+
+    def grads(model, b):
+        params = dict(model.named_parameters())
+        loss, aux, _ = forward_and_loss(model, cfg, {"params": params}, b,
+                                        DropoutRng(5), train=True)
+        return loss, aux, dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    before = _moe_counts()
+    loss, aux, got = grads(_moe_vivit(kind, dropout).cuda(),
+                           {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_moe_counts(), before)] == counts
+    assert torch.isfinite(loss) and torch.isfinite(aux["moe_aux"])
+    assert all(torch.isfinite(g).all() for g in got.values())
+    if kind != "f32":
+        return
+    want_loss, want_aux, want = grads(_moe_vivit(kind, dropout), batch)
+    assert abs(aux["moe_aux"].item() - want_aux["moe_aux"].item()) < 1e-5
+    for k, w in want.items():
+        gap = (got[k].cpu() - w).abs().max().item() / max(
+            w.abs().max().item(), 1e-6)
+        assert gap <= PTN_F32_GRAD_RTOL, f"{k}: {gap:.3e}"

@@ -53,20 +53,22 @@ def test_walk_covers_the_training_slice():
                 "devt_tpu_torch/ops/attention.py",
                 "devt_tpu_torch/models/torch_encoder.py",
                 "devt_tpu_torch/models/ptn.py",
-                "devt_tpu_torch/serve.py", "devt_tpu_torch/registry.py"):
+                "devt_tpu_torch/serve.py", "devt_tpu_torch/registry.py",
+                # the MoE slice
+                "devt_tpu_torch/parallel/moe.py"):
         assert rel in walked, rel
 
 
 def test_kernel_sources_build_alone_with_a_plain_c_interface():
-    """``_build`` makes one library per ``csrc/*.cu``: the six kernels'
-    sources, the PTN training slice's backward among them, each with its
+    """``_build`` makes one library per ``csrc/*.cu``: the kernels'
+    sources, the MoE slice's attention half among them, each with its
     ``extern "C"`` entry points and none with PyTorch's headers (which
     would make nvcc take minutes instead of seconds)."""
     from devt_tpu_torch.ops import _build
 
     stems = {p.stem for p in _build.sources()}
     assert stems == {"fused_block_fwd", "fused_block_bwd", "quant_block_fwd",
-                     "int8_matmul", "mha_fwd", "mha_bwd"}
+                     "int8_matmul", "mha_fwd", "mha_bwd", "attn_half"}
     for path in _build.CSRC.iterdir():
         text = path.read_text()
         assert "torch/" not in text and "ATen" not in text, path.name

@@ -120,7 +120,8 @@ def test_packed_mha_pallas_is_not_ported():
     assert out.shape == (1, 4, DIM)
 
 
-@pytest.mark.parametrize("kw", [dict(moe_experts=2), dict(pipeline_stages=2),
+@pytest.mark.parametrize("kw", [dict(moe_experts=2, remat=True),
+                                dict(pipeline_stages=2),
                                 dict(sequence_parallel=True),
                                 dict(remat=True)])
 def test_unported_stack_variants_raise(kw):
