@@ -94,6 +94,35 @@ Phases, each printing a line of its own; any failure exits non-zero:
                profile; then dropout 0.5 (kernels 3 and 4 in the MoE
                blocks, none of 7 and 8).
 
+ 18. kernel-flash — the split-q/k/v attention: kernel 9 at (1536, 197,
+               64), kv_len 197 (the int8 ViViT at token_pad=0: 512
+               sequences x 3 heads, the head views of a packed qkv) and
+               kernel 11 at (1536, 592, 64), kv_len 577 (ViViT at image
+               384), bf16 and f32, against their plain versions; then a
+               ragged S with kv_len < S, head dim 256 at S = 512 (which
+               kernel 3 cannot take) and Sq != Skv (blockwise however
+               short); times of the kernels, the plain versions and
+               F.scaled_dot_product_attention, the bounds.
+ 19. kernel-flash-bwd — kernel 10 at (1536, 197, 64) and (64, 512, 256),
+               bf16 and f32, through flash_attention and autograd against
+               the plain backward on the forward's (o, lse), two runs bit
+               for bit; the public op forward and backward (one launch of
+               kernels 9 and 10); SDPA's backward as the yardstick.
+ 20. eval-long — ViViT at image 384 (577 space tokens; dim 192, depth 4,
+               3 heads, bf16, seeded weights) through make_eval_step at
+               batch 32: 4 launches of kernel 11 per step and nothing else,
+               in bf16 and under quant_scope; 2 clips against the CPU;
+               clips/s and a profile; make_train_step refused before any
+               launch of kernels 9-11 (its backward, kernels 12-13, is
+               not ported).
+ 21. serve-int8-unfused — ViViT at token_pad=0 (197 tokens) under
+               quant_scope at batch 32: 4 launches of kernel 9 per
+               forward, 2 clips against the CPU; dim 384 with 6 heads of 64
+               (no bf16 fused instance) served (kernel 3), trained one step
+               (kernels 3 and 4) and served in int8 (kernel 9) without
+               kernels 1, 2, 5; ViViT at image 320 (401 -> 416 tokens, more
+               than kernel 2 holds) trained one step through kernels 3, 4.
+
 The last lines are a JSON line of the kernels, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  With no CUDA device, or without the
 package beside it, the script fails before printing any result.
@@ -589,14 +618,14 @@ def phase_serve() -> dict:
             "clips_per_s": clips_per_s, "scores": scores}
 
 
-def _train_batch(n: int, seed: int):
+def _train_batch(n: int, seed: int, image: int = 224):
     """A fixed synthetic batch as the JAX bench draws it: normal clips in
     bf16 (channels-last) and 19 multi-hot genre labels, on the card."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    vid = torch.from_numpy(rng.standard_normal((n, 16, 224, 224, 3),
+    vid = torch.from_numpy(rng.standard_normal((n, 16, image, image, 3),
                                                dtype=np.float32))
     label = (rng.random((n, 19)) < 0.3).astype(np.float32)
     return {"vid": vid.cuda().to(torch.bfloat16),
@@ -1707,7 +1736,15 @@ def _kernel_counts() -> dict:
             "k3": tfa.fused_mha.launches, "k4": tfa.fused_mha.bwd_launches,
             "k5": tq.quant_fused_vit_block.launches,
             "k7": fb.fused_attn_half.launches,
-            "k8": fb.fused_attn_half.bwd_launches}
+            "k8": fb.fused_attn_half.bwd_launches,
+            "k9": tfa.flash_attention.single_launches,
+            "k10": tfa.flash_attention.single_bwd_launches,
+            "k11": tfa.flash_attention.blocked_launches}
+
+
+def _expect(**counts) -> dict:
+    """A launch count of every kernel: those named, and 0 for the rest."""
+    return {k: counts.get(k, 0) for k in _kernel_counts()}
 
 
 def _zero_counts() -> None:
@@ -1718,16 +1755,22 @@ def _zero_counts() -> None:
     for fn in (fb.fused_vit_block, tfa.fused_mha, fb.fused_attn_half):
         fn.launches = fn.bwd_launches = 0
     tq.quant_fused_vit_block.launches = 0
+    fa = tfa.flash_attention
+    fa.single_launches = fa.single_bwd_launches = fa.blocked_launches = 0
 
 
-def _moe_config(**kw):
+def _vivit_cfg(**kw):
     from devt_tpu_torch.config import Config
 
     base = dict(model="vivit", batch_size=TRAIN_BATCH, frame_len=16,
                 n_classes=19, opt="adamW", learning_rate=1e-4,
-                precision="bf16", accum_steps=1, moe_experts=MOE_EXPERTS,
-                moe_every=MOE_EVERY)
+                precision="bf16", accum_steps=1)
     return Config(**{**base, **kw})
+
+
+def _moe_config(**kw):
+    return _vivit_cfg(**{"moe_experts": MOE_EXPERTS, "moe_every": MOE_EVERY,
+                         **kw})
 
 
 def phase_serve_moe() -> dict:
@@ -1753,8 +1796,7 @@ def phase_serve_moe() -> dict:
     _zero_counts()
     out = pred.predict({"vid": clips})
     counts = _kernel_counts()
-    expect = {"k1": n_dense * bucket_calls, "k2": 0, "k3": 0, "k4": 0,
-              "k5": 0, "k7": n_moe * bucket_calls, "k8": 0}
+    expect = _expect(k1=n_dense * bucket_calls, k7=n_moe * bucket_calls)
     if counts != expect:
         raise AssertionError(f"serve-moe: launches {counts}, expected "
                              f"{expect}")
@@ -1933,8 +1975,8 @@ def phase_train_moe() -> dict:
     torch.cuda.synchronize()
     counts = _kernel_counts()
     steps = 1 + MULTI_STEPS
-    expect = {"k1": n_dense * steps, "k2": n_dense * steps, "k3": 0, "k4": 0,
-              "k5": 0, "k7": n_moe * steps, "k8": n_moe * steps}
+    expect = _expect(k1=n_dense * steps, k2=n_dense * steps,
+                     k7=n_moe * steps, k8=n_moe * steps)
     if counts != expect:
         raise AssertionError(f"train-moe: launches {counts} in {steps} "
                              f"steps, expected {expect}")
@@ -2000,9 +2042,8 @@ def phase_train_moe() -> dict:
     drop_state, drop_metrics = drop_multi(drop_state, drop_stacked, SEED)
     drop_loss = drop_metrics["loss"].item()
     drop_counts = _kernel_counts()
-    drop_expect = {"k1": n_dense * DROP_STEPS, "k2": n_dense * DROP_STEPS,
-                   "k3": n_moe * DROP_STEPS, "k4": n_moe * DROP_STEPS,
-                   "k5": 0, "k7": 0, "k8": 0}
+    drop_expect = _expect(k1=n_dense * DROP_STEPS, k2=n_dense * DROP_STEPS,
+                          k3=n_moe * DROP_STEPS, k4=n_moe * DROP_STEPS)
     if drop_counts != drop_expect or not math.isfinite(drop_loss) \
             or not math.isfinite(drop_metrics["moe_aux"].item()):
         raise AssertionError(f"train-moe dropout {MOE_DROPOUT}: launches "
@@ -2022,6 +2063,426 @@ def phase_train_moe() -> dict:
     return {"counts": counts, "drop_counts": drop_counts,
             "clips_per_s": clips_per_s, "step_ms": step_ms,
             "host_ms": host_ms, "device_ms": device_ms, "busy": busy}
+
+
+# the split-q/k/v attention's main-path shapes: the int8 ViViT's unfused
+# blocks at token_pad=0 (512 sequences x 3 heads, 197 tokens) for kernels 9
+# and 10, ViViT at image 384 (577 tokens, padded to 592) for kernel 11
+FLASH_SEQS, FLASH_S9, FLASH_S11, FLASH_KV11 = 512, 197, 592, 577
+# ViViT at image 384: 24^2 + 1 = 577 space tokens
+LONG_IMAGE = 384
+
+
+def _packed_heads(b, s, heads, d, dtype, seed):
+    """q, k, v as the (B, H, S, d) head views of one packed (B, S, 3, H, d)
+    tensor on the card, the strided layout packed_mha and the int8 block
+    hand to flash_attention."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, s, 3, heads, d, generator=gen).to(dtype).cuda()
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def _flash_bound(kind, bh, sq, skv, d, kv_len, backward=False):
+    """Least time of kernel 9 or 11 (two products over the live keys; q, k,
+    v read, o and lse written) or kernel 10 (five products; q, k, v, o, do
+    and lse read, dq, dk, dv written)."""
+    item = 4 if kind == "f32" else 2
+    if backward:
+        return _bound({kind: 10 * bh * sq * kv_len * d},
+                      8 * bh * sq * d * item + 4 * bh * sq)
+    return _bound({kind: 4 * bh * sq * kv_len * d},
+                  (2 * sq + 2 * skv) * bh * d * item + 4 * bh * sq)
+
+
+def phase_flash(kind: str, b: int, heads: int, sq: int, skv: int, d: int,
+                kv_len: int, timed: bool = True) -> dict:
+    """Kernel 9 (Sq == Skv <= 512) or 11 against its plain version: o at
+    the forward gate, lse at LSE_TOL in f32 and at kernel 1's forward limit
+    in bf16; the kernel's, the plain version's and SDPA's times."""
+    import torch
+    import torch.nn.functional as F
+
+    from devt_tpu_torch.ops import flash_attention as tfa
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    if sq == skv:
+        q, k, v = _packed_heads(b, sq, heads, d, dtype, SEED + sq + d)
+    else:
+        gen = torch.Generator().manual_seed(SEED + sq)
+        q = torch.randn(b, heads, sq, d, generator=gen).to(dtype).cuda()
+        k, v = (torch.randn(b, heads, skv, d, generator=gen).to(dtype).cuda()
+                for _ in range(2))
+    single = sq == skv and tfa.fits_single_block(sq)
+    name = "kernel 9" if single else "kernel 11"
+    plain = tfa.flash_single_fwd_plain if single \
+        else tfa.flash_blocked_fwd_plain
+    scale = d ** -0.5
+    run = lambda: tfa.flash_attention(q, k, v, kv_len=kv_len,  # noqa: E731
+                                      return_lse=True)
+    tag = f"flash {name} {kind} ({b * heads},{sq},{skv},{d}) kv_len {kv_len}"
+    with torch.inference_mode():
+        o, lse = run()
+        want_o, want_lse = plain(q, k, v, scale, kv_len)
+        torch.cuda.synchronize()
+        _check_close(f"{tag} o", o, want_o, *TOL[kind])
+        lse_tol = LSE_TOL if kind == "f32" else TOL["bf16"]
+        _check_close(f"{tag} lse", lse, want_lse, *lse_tol)
+        errs = (_max_err(o, want_o), _max_err(lse, want_lse))
+        del want_o, want_lse
+        out = {"max_abs_err": max(errs)}
+        if timed:
+            out["kernel_ms"] = _time_ms(run)
+            out["plain_ms"] = _time_ms(
+                lambda: plain(q, k, v, scale, kv_len), iters=3, warmup=1)
+            # the library's fused attention on the live keys
+            out["library_ms"] = _time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k[:, :, :kv_len], v[:, :, :kv_len], scale=scale))
+    out["bound_ms"], out["bound_by"] = _flash_bound(kind, b * heads, sq, skv,
+                                                    d, kv_len)
+    times = (f" | kernel_ms={out['kernel_ms']:.4f} plain_ms="
+             f"{out['plain_ms']:.4f} library_ms={out['library_ms']:.4f} "
+             f"(F.scaled_dot_product_attention over the live keys)"
+             if timed else "")
+    print(f"[kernel-flash] {tag}{' (head views of a packed qkv)' if sq == skv else ''}: "
+          f"max_abs_err o={errs[0]:.3e} (atol {TOL[kind][0]}, rtol "
+          f"{TOL[kind][1]}) lse={errs[1]:.3e} (atol {lse_tol[0]}, rtol "
+          f"{lse_tol[1]}){times} bound_ms={out['bound_ms']:.4f} "
+          f"({out['bound_by']})", flush=True)
+    return out
+
+
+def phase_flash_bwd(kind: str, b: int, heads: int, s: int, d: int,
+                    kv_len: int) -> dict:
+    """Kernel 10 through flash_attention and autograd against the plain
+    backward on the forward's (o, lse): dq, dk, dv within BWD_ULPS of
+    their largest elements, two runs bit-equal; the launches of the public
+    op (``ops.scaled_dot_product_attention``) forward and backward, as a
+    caller that differentiates it runs them; SDPA's backward as the
+    yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from devt_tpu_torch.ops import flash_attention as tfa
+    from devt_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    q, k, v = _packed_heads(b, s, heads, d, dtype, SEED + 9 + s)
+    do = torch.randn(b, heads, s, d, generator=torch.Generator().manual_seed(
+        SEED + 10)).to(dtype).cuda()
+    scale = d ** -0.5
+    tag = f"flash-bwd kernel 10 {kind} ({b * heads},{s},{d}) kv_len {kv_len}"
+
+    def through_autograd():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            o, lse = tfa.flash_attention(*leaves, kv_len=kv_len,
+                                         return_lse=True)
+            grads = torch.autograd.grad(o, leaves, do)
+        return o.detach(), lse, grads
+
+    # the op as a caller runs it: counts set to 0 just before, read after
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    _zero_counts()
+    with torch.enable_grad():
+        out = scaled_dot_product_attention(*leaves, kv_len=kv_len)
+        torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    if counts != _expect(k9=1, k10=1):
+        raise AssertionError(f"{tag}: the op launched {counts}")
+    del out, leaves
+
+    with torch.no_grad():
+        o, lse, got = through_autograd()
+        want = tfa.flash_single_bwd_plain(q, k, v, o, lse, do, scale, kv_len)
+        torch.cuda.synchronize()
+        worst = worst_rel = 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(g.float()).all():
+                raise AssertionError(f"{tag} {name}: non-finite output")
+            err = _max_err(g, w)
+            largest = w.float().abs().max().item()
+            bound = BWD_ULPS[kind] * EPS[kind] * largest
+            if not err <= bound:
+                raise AssertionError(f"{tag} {name}: max abs err {err:.3e} > "
+                                     f"{bound:.3e}")
+            worst, worst_rel = max(worst, err), max(worst_rel, err / largest)
+        again = through_autograd()[2]
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"{tag}: two runs differ in their bits")
+        del want, again
+        kernel_ms = _time_ms(lambda: tfa._flash_bwd_cuda(
+            q, k, v, o, lse, do, scale, kv_len))
+        plain_ms = _time_ms(lambda: tfa.flash_single_bwd_plain(
+            q, k, v, o, lse, do, scale, kv_len), iters=3, warmup=1)
+    # the yardstick: SDPA on the same views (live keys) through autograd,
+    # forward + backward less forward
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qs, ks[:, :, :kv_len], vs[:, :, :kv_len], scale=scale)
+
+    with torch.no_grad():
+        fwd_ms = _graph_ms(sdpa)
+    fwd_bwd_ms = _graph_ms(
+        lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do))
+    bound_ms, bound_by = _flash_bound(kind, b * heads, s, s, d, kv_len,
+                                      backward=True)
+    print(f"[kernel-flash-bwd] {tag} (head views of a packed qkv), through "
+          f"flash_attention and autograd against the plain backward on the "
+          f"forward's (o, lse): dq, dk, dv within {BWD_ULPS[kind]} ulps of "
+          f"the largest element, max_abs_err={worst:.3e} ({worst_rel:.3e} "
+          f"of its tensor's largest element), two runs bit-equal | the "
+          f"public op forward and backward: launches {counts['k9']} of "
+          f"kernel 9 and {counts['k10']} of kernel 10 | kernel_ms="
+          f"{kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{fwd_bwd_ms - fwd_ms:.4f} (device time, CUDA graph, of "
+          f"F.scaled_dot_product_attention through autograd: forward + "
+          f"backward {fwd_bwd_ms:.4f} less forward {fwd_ms:.4f}) "
+          f"bound_ms={bound_ms:.4f} ({bound_by})",
+          flush=True)
+    return {"max_abs_err": worst, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": fwd_bwd_ms - fwd_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches": counts["k10"]}
+
+
+def _vivit_model(**kw):
+    """ViViT at the registry's widths (dim 192, depth 4, 3 heads of 64,
+    MLP 768, 19 classes, 16 frames, bf16) unless ``kw`` says otherwise,
+    seeded weights, on the CPU."""
+    import torch
+
+    from devt_tpu_torch.models.vivit import ViViT
+
+    base = dict(num_classes=19, num_frames=16, channels_last=True,
+                dtype=torch.bfloat16)
+    return ViViT(**{**base, **kw}).init_weights(
+        torch.Generator().manual_seed(SEED))
+
+
+def _eval_on_card_and_cpu(model, cfg, image, scope, seed):
+    """make_eval_step on 2 clips on the card and on the CPU (the same
+    weights), inside ``scope``: the largest score difference."""
+    import copy
+
+    from devt_tpu_torch.parallel.train_step import make_eval_step
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    small = _train_batch(2, seed, image)
+    cpu = copy.deepcopy(model).cpu()
+    probs = []
+    for m, device in ((model, "cuda"), (cpu, "cpu")):
+        state = TrainState.create(dict(m.named_parameters()),
+                                  build_optimizer(cfg))
+        with scope():
+            probs.append(make_eval_step(m, cfg, device=device)(
+                state, small)[1]["probs"].float().cpu())
+    return (probs[0] - probs[1]).abs().max().item()
+
+
+def phase_eval_long() -> dict:
+    """ViViT at image 384 (577 space tokens, over one kv block) through
+    make_eval_step at batch 32: kernel 11 in every space block, in bf16 and
+    under quant_scope; 2 clips against the CPU; clips/s; training refused
+    before any launch of kernels 9-11."""
+    import contextlib
+
+    import torch
+
+    from devt_tpu_torch.ops.attention import quant_scope
+    from devt_tpu_torch.parallel.train_step import (make_eval_step,
+                                                    make_train_step)
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    cfg = _vivit_cfg()
+    model = _vivit_model(image_size=LONG_IMAGE)
+    depth = len(model.space_transformer.blocks)
+    errs = {"bf16": _eval_on_card_and_cpu(model.cuda(), cfg, LONG_IMAGE,
+                                          contextlib.nullcontext, SEED + 5),
+            "int8": _eval_on_card_and_cpu(model.cuda(), cfg, LONG_IMAGE,
+                                          quant_scope, SEED + 5)}
+    if not (errs["bf16"] <= SCORE_ATOL and errs["int8"] <= QUANT_SCORE_ATOL):
+        raise AssertionError(f"eval-long: card vs CPU scores differ by "
+                             f"{errs} (limits {SCORE_ATOL}, "
+                             f"{QUANT_SCORE_ATOL})")
+    batch = _train_batch(TRAIN_BATCH, SEED + 6, LONG_IMAGE)
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    evaluate = make_eval_step(model, cfg)
+    out = {}
+    for tag, scope in (("bf16", contextlib.nullcontext),
+                       ("int8", quant_scope)):
+        with scope():
+            _zero_counts()
+            loss, aux = evaluate(state, batch)
+            torch.cuda.synchronize()
+            counts = _kernel_counts()
+            if counts != _expect(k11=depth) \
+                    or not torch.isfinite(aux["probs"].float()).all():
+                raise AssertionError(f"eval-long {tag}: launches {counts}, "
+                                     f"expected {depth} of kernel 11 alone; "
+                                     f"loss {loss.item()}")
+            evaluate(state, batch)[0].item()
+            windows = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    loss, _ = evaluate(state, batch)
+                loss.item()
+                windows.append((time.perf_counter() - t0) / 3)
+            rows, busy, wall = _traced(lambda: evaluate(state, batch)[0]
+                                       .item())
+        _print_profile(f"eval-long {tag}, batch {TRAIN_BATCH}", rows, busy,
+                       wall, top=8)
+        flash_ms = sum(ms for n, ms, _ in rows if "flash_fwd" in n)
+        out[tag] = {"counts": counts, "step_ms": min(windows) * 1e3,
+                    "clips_per_s": TRAIN_BATCH / min(windows),
+                    "flash_ms": flash_ms}
+    # training above one kv block needs kernels 12 and 13: refused before
+    # any launch of kernels 9-11
+    step = make_train_step(model, cfg)
+    _zero_counts()
+    try:
+        step(state, batch, SEED)
+    except NotImplementedError as e:
+        if "ROADMAP" not in str(e):
+            raise
+        refused = str(e).split(" — ")[0]
+    else:
+        raise AssertionError("eval-long: a training step at 592 tokens ran")
+    counts = _kernel_counts()
+    if any(counts[k] for k in ("k9", "k10", "k11")):
+        raise AssertionError(f"eval-long: the refused step launched {counts}")
+    print(f"[eval-long] ViViT image {LONG_IMAGE} (577 space tokens, padded "
+          f"to 592; dim 192, depth {depth}, 3 heads of 64, bf16) through "
+          f"make_eval_step at batch {TRAIN_BATCH}: launches "
+          f"{out['bf16']['counts']['k11']} of kernel 11 and none of kernels "
+          f"1, 3, 9 per step; under quant_scope "
+          f"{out['int8']['counts']['k11']} of kernel 11 and none of kernel 5 "
+          f"| card vs CPU on 2 clips: max abs score err {errs['bf16']:.3e} "
+          f"(atol {SCORE_ATOL}), int8 {errs['int8']:.3e} (atol "
+          f"{QUANT_SCORE_ATOL}) | bf16 {out['bf16']['clips_per_s']:.2f} "
+          f"clips/s ({out['bf16']['step_ms']:.3f} ms a step, kernel 11 "
+          f"{out['bf16']['flash_ms']:.4f} ms of device time), int8 "
+          f"{out['int8']['clips_per_s']:.2f} clips/s "
+          f"({out['int8']['step_ms']:.3f} ms; best of 3 windows of 3 steps, "
+          f"host clock) | make_train_step refused before any launch of "
+          f"kernels 9-11: {refused!r}", flush=True)
+    return {"launches": out["bf16"]["counts"]["k11"]
+            + out["int8"]["counts"]["k11"], **out}
+
+
+def phase_serve_int8_unfused() -> dict:
+    """The int8 blocks off the fused path: ViViT at token_pad=0 (197
+    tokens) under quant_scope launches kernel 9 in every space block; the
+    repaired widths (dim 384, 6 heads of 64: no bf16 fused instance) serve,
+    train one step and serve in int8 without kernels 1, 2 or 5; ViViT at
+    image 320 (401 -> 416 tokens, more than kernel 2 holds) trains one step
+    through kernels 3 and 4."""
+    import contextlib
+
+    import torch
+
+    from devt_tpu_torch.ops.attention import quant_scope
+    from devt_tpu_torch.parallel.train_step import (make_eval_step,
+                                                    make_train_step)
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    cfg = _vivit_cfg()
+    model = _vivit_model(token_pad=0).cuda()
+    depth = len(model.space_transformer.blocks)
+    err = _eval_on_card_and_cpu(model, cfg, 224, quant_scope, SEED + 7)
+    if not err <= QUANT_SCORE_ATOL:
+        raise AssertionError(f"serve-int8-unfused: card vs CPU scores "
+                             f"differ by {err:.3e} > {QUANT_SCORE_ATOL}")
+    batch = _train_batch(TRAIN_BATCH, SEED + 8)
+
+    def fresh_state(m):
+        return TrainState.create(dict(m.named_parameters()),
+                                 build_optimizer(cfg))
+
+    state = fresh_state(model)
+    evaluate = make_eval_step(model, cfg)
+    with quant_scope():
+        _zero_counts()
+        evaluate(state, batch)[0].item()
+        counts = _kernel_counts()
+        if counts != _expect(k9=depth):
+            raise AssertionError(f"serve-int8-unfused: launches {counts}, "
+                                 f"expected {depth} of kernel 9 alone")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            loss, _ = evaluate(state, batch)
+        loss.item()
+        clips_per_s = 5 * TRAIN_BATCH / (time.perf_counter() - t0)
+        _print_profile(f"int8 ViViT token_pad=0, batch {TRAIN_BATCH}",
+                       *_traced(lambda: evaluate(state, batch)[0].item()),
+                       top=8)
+    del model, state, evaluate
+
+    # repair 1: a width the bf16 fused kernels are not compiled for
+    wide = _vivit_model(dim=384, heads=6, dim_head=64).cuda()
+    wstate = fresh_state(wide)
+    runs = {}
+    for tag, scope, fn in (
+            ("serve", contextlib.nullcontext, make_eval_step(wide, cfg)),
+            ("train", contextlib.nullcontext, make_train_step(wide, cfg)),
+            ("int8", quant_scope, make_eval_step(wide, cfg))):
+        with scope():
+            _zero_counts()
+            if tag == "train":
+                wstate, metrics = fn(wstate, batch, SEED)
+                loss = metrics["loss"]
+            else:
+                loss = fn(wstate, batch)[0]
+            if not math.isfinite(loss.item()):
+                raise AssertionError(f"serve-int8-unfused dim 384 {tag}: "
+                                     f"loss {loss.item()}")
+            runs[tag] = _kernel_counts()
+    want = {"serve": _expect(k3=depth), "int8": _expect(k9=depth),
+            "train": _expect(k3=depth, k4=depth)}
+    if runs != want:
+        raise AssertionError(f"serve-int8-unfused dim 384: launches {runs}, "
+                             f"expected {want}")
+    del wide, wstate
+
+    # repair 2: 416 tokens, over kernel 2's shared memory at head dim 64
+    tall = _vivit_model(image_size=320).cuda()
+    tbatch = _train_batch(TRAIN_BATCH, SEED + 9, 320)
+    tstate = fresh_state(tall)
+    _zero_counts()
+    tstate, metrics = make_train_step(tall, cfg)(tstate, tbatch, SEED)
+    tall_loss = metrics["loss"].item()
+    tall_counts = _kernel_counts()
+    if tall_counts != _expect(k3=depth, k4=depth) \
+            or not math.isfinite(tall_loss):
+        raise AssertionError(f"serve-int8-unfused image 320: launches "
+                             f"{tall_counts}, loss {tall_loss}")
+    print(f"[serve-int8-unfused] ViViT token_pad=0 (197 space tokens, no "
+          f"multiple of 16) under quant_scope through make_eval_step at "
+          f"batch {TRAIN_BATCH}: launches {counts['k9']} of kernel 9 and "
+          f"none of kernel 5 (the temporal blocks on their pinned 'xla'); "
+          f"card vs CPU on 2 clips: max abs score err {err:.3e} (atol "
+          f"{QUANT_SCORE_ATOL}); {clips_per_s:.2f} clips/s (one window of 5 "
+          f"steps, host clock) | dim 384, 6 heads of 64 (no bf16 fused "
+          f"instance): serving {runs['serve']['k3']} launches of kernel 3, "
+          f"a training step {runs['train']['k3']} + {runs['train']['k4']} of "
+          f"kernels 3 and 4, int8 {runs['int8']['k9']} of kernel 9, none of "
+          f"kernels 1, 2, 5 | image 320 (401 -> 416 tokens): a training "
+          f"step through {tall_counts['k3']} + {tall_counts['k4']} launches "
+          f"of kernels 3 and 4, none of kernel 2, loss {tall_loss:.5f}",
+          flush=True)
+    return {"launches": counts["k9"] + runs["int8"]["k9"],
+            "counts": [counts, *runs.values(), tall_counts],
+            "clips_per_s": clips_per_s}
 
 
 def main() -> int:
@@ -2092,12 +2553,34 @@ def main() -> int:
     phase_kernel_attn_half("f32")
     serve_moe = phase_serve_moe()
     train_moe = phase_train_moe()
-    # the MoE paths' launches of the earlier kernels
-    moe_runs = (serve_moe["counts"], serve_moe["int8_counts"],
-                train_moe["counts"], train_moe["drop_counts"])
+    # kernels 9 and 11 at the main-path shapes give the kernels line its
+    # numbers; then f32, and the shapes no earlier kernel takes
+    flash9 = phase_flash("bf16", FLASH_SEQS, HEADS, FLASH_S9, FLASH_S9,
+                         D // HEADS, FLASH_S9)
+    phase_flash("f32", FLASH_SEQS, HEADS, FLASH_S9, FLASH_S9, D // HEADS,
+                FLASH_S9)
+    flash11 = phase_flash("bf16", FLASH_SEQS, HEADS, FLASH_S11, FLASH_S11,
+                          D // HEADS, FLASH_KV11)
+    phase_flash("f32", FLASH_SEQS, HEADS, FLASH_S11, FLASH_S11, D // HEADS,
+                FLASH_KV11)
+    for dtype in ("bf16", "f32"):
+        phase_flash(dtype, 32, 3, 333, 333, 128, 320, timed=False)  # ragged
+        phase_flash(dtype, 32, 2, 512, 512, 256, 500, timed=False)
+        phase_flash(dtype, 32, 3, 40, 300, D // HEADS, 290, timed=False)
+    flash10 = phase_flash_bwd("bf16", FLASH_SEQS, HEADS, FLASH_S9,
+                              D // HEADS, FLASH_S9)
+    phase_flash_bwd("f32", FLASH_SEQS, HEADS, FLASH_S9, D // HEADS, FLASH_S9)
+    phase_flash_bwd("bf16", 32, 2, 512, 256, 500)
+    phase_flash_bwd("f32", 32, 2, 512, 256, 500)
+    eval_long = phase_eval_long()
+    int8_unfused = phase_serve_int8_unfused()
+    # the MoE and the later model paths' launches of the earlier kernels
+    later_runs = (serve_moe["counts"], serve_moe["int8_counts"],
+                  train_moe["counts"], train_moe["drop_counts"],
+                  *int8_unfused["counts"])
 
-    def moe(k):
-        return sum(c[k] for c in moe_runs)
+    def later(k):
+        return sum(c[k] for c in later_runs)
 
     def entry(name, source, replaces, launches, m):
         return {"name": name, "route": "cuda", "source": source,
@@ -2110,7 +2593,7 @@ def main() -> int:
         "name": "fused_vit_block_fwd", "route": "cuda",
         "source": "devt_tpu_torch/ops/csrc/fused_block_fwd.cu",
         "replaces": "devt_tpu/ops/fused_block.py:177",
-        "launches": serve["launches"] + train["fwd_launches"] + moe("k1"),
+        "launches": serve["launches"] + train["fwd_launches"] + later("k1"),
         "max_abs_err": max(fwd["max_abs_err"].values()),
         "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -2119,7 +2602,7 @@ def main() -> int:
         "name": "fused_vit_block_bwd", "route": "cuda",
         "source": "devt_tpu_torch/ops/csrc/fused_block_bwd.cu",
         "replaces": "devt_tpu/ops/fused_block.py:240",
-        "launches": train["bwd_launches"] + moe("k2"),
+        "launches": train["bwd_launches"] + later("k2"),
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["kernel_ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
@@ -2127,25 +2610,37 @@ def main() -> int:
     },
         entry("fused_mha", "devt_tpu_torch/ops/csrc/mha_fwd.cu",
               "devt_tpu/ops/flash_attention.py:558",
-              ptn["mha_launches"] + train_ptn["fwd_launches"] + moe("k3"),
+              ptn["mha_launches"] + train_ptn["fwd_launches"] + later("k3"),
               mha),
         entry("quant_fused_vit_block",
               "devt_tpu_torch/ops/csrc/quant_block_fwd.cu",
               "devt_tpu/ops/quant.py:275",
-              serve_int8["launches"] + moe("k5"), quant),
+              serve_int8["launches"] + later("k5"), quant),
         entry("int8_matmul_fused", "devt_tpu_torch/ops/csrc/int8_matmul.cu",
               "devt_tpu/ops/quant.py:348", ptn["matmul_launches"], matmul),
         entry("fused_mha_bwd", "devt_tpu_torch/ops/csrc/mha_bwd.cu",
               "devt_tpu/ops/flash_attention.py:589",
-              train_ptn["bwd_launches"] + moe("k4"), mha_bwd),
+              train_ptn["bwd_launches"] + later("k4"), mha_bwd),
         entry("fused_attn_half_fwd", "devt_tpu_torch/ops/csrc/attn_half.cu",
-              "devt_tpu/ops/fused_block.py:556", moe("k7"), half_fwd),
+              "devt_tpu/ops/fused_block.py:556", later("k7"), half_fwd),
         entry("fused_attn_half_bwd", "devt_tpu_torch/ops/csrc/attn_half.cu",
-              "devt_tpu/ops/fused_block.py:578", moe("k8"), half_bwd)]
+              "devt_tpu/ops/fused_block.py:578", later("k8"), half_bwd),
+        entry("flash_single_fwd", "devt_tpu_torch/ops/csrc/flash_fwd.cu",
+              "devt_tpu/ops/flash_attention.py:390",
+              int8_unfused["launches"], flash9),
+        entry("flash_single_bwd", "devt_tpu_torch/ops/csrc/flash_bwd.cu",
+              "devt_tpu/ops/flash_attention.py:413", flash10["launches"],
+              flash10),
+        entry("flash_fwd", "devt_tpu_torch/ops/csrc/flash_fwd.cu",
+              "devt_tpu/ops/flash_attention.py:69", eval_long["launches"],
+              flash11)]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']}: no launch on its path")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

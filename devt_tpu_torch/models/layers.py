@@ -25,7 +25,9 @@ from torch import nn
 
 from devt_tpu_torch.ops.attention import packed_mha, quant_active
 from devt_tpu_torch.ops.flash_attention import fits_single_block
-from devt_tpu_torch.ops.fused_block import fused_attn_half, fused_vit_block
+from devt_tpu_torch.ops.fused_block import (fused_attn_half,
+                                            fused_block_eligible,
+                                            fused_vit_block)
 from devt_tpu_torch.ops.quant import (quant_block_params, quant_vit_block,
                                       site_value)
 from devt_tpu_torch.parallel.moe import moe_ffn_dense
@@ -247,14 +249,25 @@ class ViTBlock(nn.Module):
 
     def fused_eligible(self, x: torch.Tensor) -> bool:
         """``devt_tpu/models/layers.py:ViTBlock._fused_eligible`` without
-        its TPU and mesh gates."""
+        its TPU and mesh gates, and on the card what kernels 1 and 2 take
+        (``ops/fused_block.py:fused_block_eligible``): the widths they are
+        compiled for, and kernel 2's shape rule when the forward will need
+        a gradient.  Any other block runs unfused (kernels 3 and 4 up to
+        512 tokens), as JAX's does wherever its fused path is not
+        eligible."""
         if self.attention_impl == "xla":
             return False
         if self.heads * self.dim_head != self.dim:
             return False
         if self.heads == 1 and self.dim_head == self.dim:
             return False      # the fused path always applies to_out
-        return fits_single_block(x.shape[1]) and x.shape[1] % 16 == 0
+        s = x.shape[1]
+        if not fits_single_block(s) or s % 16:
+            return False
+        return fused_block_eligible(
+            x.device.type, self.dtype, self.dim, self.dim_head, s,
+            self.training and torch.is_grad_enabled(),
+            self.ff.fc1.out_features)
 
     def block_params(self) -> dict[str, torch.Tensor]:
         """The kernel's parameter dict: matrices (K, N) in the compute
@@ -349,7 +362,9 @@ class MoEViTBlock(nn.Module):
     def fused_half_eligible(self, x: torch.Tensor) -> bool:
         """``devt_tpu/models/layers.py:MoEViTBlock._fused_half_eligible``
         without its TPU gate: the fused attention half has no dropout, so
-        training with dropout keeps the unfused path."""
+        training with dropout keeps the unfused path.  On the card also
+        what kernels 7 and 8 take (their widths, and kernel 8's shape rule
+        when the forward will need a gradient)."""
         if self.attention_impl == "xla":
             return False
         if self.dropout > 0.0 and self.training:
@@ -358,7 +373,12 @@ class MoEViTBlock(nn.Module):
             return False
         if self.heads == 1 and self.dim_head == self.dim:
             return False      # the fused path always applies to_out
-        return fits_single_block(x.shape[1]) and x.shape[1] % 16 == 0
+        s = x.shape[1]
+        if not fits_single_block(s) or s % 16:
+            return False
+        return fused_block_eligible(
+            x.device.type, self.dtype, self.dim, self.dim_head, s,
+            self.training and torch.is_grad_enabled())
 
     def half_params(self) -> dict[str, torch.Tensor]:
         """The attention half's parameter dict: matrices (K, N) in the

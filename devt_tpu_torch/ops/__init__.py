@@ -4,12 +4,22 @@ Each hand-written kernel has its CUDA source in ``csrc/``, a wrapper that
 launches it for CUDA tensors, and a plain PyTorch version beside it that
 the wrapper runs for CPU tensors.  ``_build`` compiles the sources with
 ``nvcc`` on first use.
+
+``flash_attention`` the function is not re-exported here: the name is
+its module's, ``ops.flash_attention``, which callers import as a module
+(the JAX package's re-export hides its module the same way).  Call it as
+``ops.flash_attention.flash_attention``, or through the dispatching
+``scaled_dot_product_attention``.
 """
 
 from devt_tpu_torch.ops.attention import (packed_mha, quant_scope,
                                           scaled_dot_product_attention,
                                           xla_attention)
-from devt_tpu_torch.ops.flash_attention import (FusedMHA, fused_mha,
+from devt_tpu_torch.ops.flash_attention import (FlashSingle, FusedMHA,
+                                                flash_blocked_fwd_plain,
+                                                flash_single_bwd_plain,
+                                                flash_single_fwd_plain,
+                                                fused_mha,
                                                 fused_mha_bwd_plain,
                                                 fused_mha_plain,
                                                 mha_dropout_masks)
@@ -28,7 +38,11 @@ __all__ = [
     "quant_scope",
     "scaled_dot_product_attention",
     "xla_attention",
+    "FlashSingle",
     "FusedMHA",
+    "flash_blocked_fwd_plain",
+    "flash_single_bwd_plain",
+    "flash_single_fwd_plain",
     "fused_mha",
     "fused_mha_bwd_plain",
     "fused_mha_plain",

@@ -10,18 +10,22 @@ Port of ``devt_tpu/ops/attention.py``.
                    dropout on the probabilities, then P (cast to v's dtype)
                    times V.
   * ``"pallas"`` — the hand-written kernels.  ``packed_mha`` reaches
-                   ``fused_mha`` (``ops/flash_attention.py``: the packed-qkv
-                   CUDA kernels, forward and backward, with the
+                   ``fused_mha`` (the packed-qkv kernels 3 and 4, with the
                    attention-probability dropout inside them) for
-                   single-kv-block sequences; on CPU tensors ``fused_mha``
-                   runs its plain versions.  The split-q/k/v kernels that
-                   ``scaled_dot_product_attention`` would launch (kernels
-                   9-13) are not ported, and it raises.
+                   single-kv-block sequences, and splits the heads for
+                   ``scaled_dot_product_attention`` above one kv block.
+                   ``scaled_dot_product_attention`` reaches
+                   ``flash_attention`` (``ops/flash_attention.py``: kernels
+                   9 and 10 for one kv block, kernel 11 beyond, which has
+                   no backward yet); it has no dropout, and with dropout it
+                   raises, as JAX's does.  CPU tensors run the kernels'
+                   plain versions.
   * ``"auto"``   — in ``packed_mha``: ``"pallas"`` for CUDA tensors,
                    training and serving alike, the plain attention for CPU
-                   tensors.  In ``scaled_dot_product_attention``: likewise
-                   ``"pallas"`` for CUDA tensors (it raises until kernels
-                   9-13 are ported), the plain attention for CPU tensors.
+                   tensors.  In ``scaled_dot_product_attention``: the
+                   kernels for CUDA tensors without dropout; with dropout,
+                   and for CPU tensors, the plain attention
+                   (``devt_tpu/ops/attention.py:155-180``).
   * ``"fused_interpret"`` — the JAX package's CPU-interpreter switch for the
                    fused block; where it reaches this module it means the
                    plain attention.
@@ -40,12 +44,9 @@ import threading
 import torch
 
 from devt_tpu_torch.ops.flash_attention import (NEG_INF, fits_single_block,
-                                                fused_mha)
+                                                flash_attention, fused_mha)
 
-_SDPA_KERNEL_TODO = ("the split-q/k/v attention kernels (devt_tpu/ops/"
-                     "flash_attention.py:_fwd_single_kernel and _fwd_kernel, "
-                     "kernels 9 and 11) are not ported yet — ROADMAP.md "
-                     "queue 2; use attention_impl='xla' until then")
+_IMPLS = ("auto", "xla", "pallas", "fused_interpret")
 
 _gate = threading.local()
 
@@ -103,21 +104,40 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhij,bhjd->bhid", p.to(v.dtype), v)
 
 
+def resolve_sdpa_impl(impl: str, device_type: str, dropout: bool) -> str:
+    """What ``scaled_dot_product_attention`` runs: ``"kernels"`` (the
+    flash kernels on CUDA tensors, their plain versions on CPU tensors) or
+    ``"plain"`` (the materialised attention).  JAX's rule
+    (``devt_tpu/ops/attention.py:164-172``), with "on the card" for its
+    TPU gate: ``"auto"`` takes the kernels only on the card and without
+    dropout; ``"pallas"`` with dropout raises ``NotImplementedError``."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "auto":
+        impl = "pallas" if device_type == "cuda" and not dropout else "xla"
+    if impl == "pallas":
+        if dropout:
+            raise NotImplementedError(
+                "attention-weight dropout is served by the xla impl; use "
+                "impl='xla' or 'auto' when training with attn dropout")
+        return "kernels"
+    return "plain"
+
+
 def scaled_dot_product_attention(q, k, v, *, scale: float | None = None,
                                  impl: str = "auto",
                                  kv_len: int | None = None,
                                  dropout_rate: float = 0.0,
                                  rng=None) -> torch.Tensor:
     """Dispatching attention on split heads.  q, k, v: (B, H, S, D) →
-    (B, H, Sq, D).  Until kernels 9-13 are ported ``"pallas"`` raises, and
-    so does ``"auto"`` on CUDA tensors, where it means the kernel;
-    ``"xla"``, and ``"auto"`` on CPU tensors, are the plain attention."""
+    (B, H, Sq, D); ``resolve_sdpa_impl`` picks the path.  The kernels are
+    ``flash_attention``'s; dropout (``dropout_rate > 0`` with a ``rng``)
+    runs only on the plain attention."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if impl not in ("auto", "xla", "pallas", "fused_interpret"):
-        raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "pallas" or (impl == "auto" and q.device.type == "cuda"):
-        raise NotImplementedError(_SDPA_KERNEL_TODO)
+    use_dropout = dropout_rate > 0.0 and rng is not None
+    if resolve_sdpa_impl(impl, q.device.type, use_dropout) == "kernels":
+        return flash_attention(q, k, v, scale=scale, kv_len=kv_len)
     return xla_attention(q, k, v, scale=scale, kv_len=kv_len,
                          dropout_rate=dropout_rate, rng=rng)
 
@@ -134,10 +154,11 @@ def packed_mha(qkv: torch.Tensor, *, heads: int, scale: float | None = None,
     kernel, with the dropout inside both (the seed drawn from ``rng``).
     Nothing on the card gives way to the plain attention unasked.
     ``"pallas"`` on CPU tensors runs ``fused_mha``'s plain versions.
-    ``"xla"``, and ``"auto"`` on CPU tensors, split the heads for the
-    materialised attention.  ``dropout_rate > 0`` needs a ``rng``
-    (``models.layers.DropoutRng``)."""
-    if impl not in ("auto", "xla", "pallas", "fused_interpret"):
+    Longer sequences, ``"xla"``, and ``"auto"`` on CPU tensors split the
+    heads for ``scaled_dot_product_attention`` (on the card above one kv
+    block: kernel 11, or with dropout the plain attention).
+    ``dropout_rate > 0`` needs a ``rng`` (``models.layers.DropoutRng``)."""
+    if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
     b, s, f = qkv.shape
     d = f // (3 * heads)

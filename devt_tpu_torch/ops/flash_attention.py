@@ -1,5 +1,5 @@
-"""Packed-qkv attention with its backward: the CUDA kernels and their plain
-versions.
+"""Attention kernels with their backwards, the CUDA kernels and their plain
+versions: packed-qkv (kernels 3, 4) and split-q/k/v (kernels 9, 10, 11).
 
 Port of ``devt_tpu/ops/flash_attention.py``: its constants, and
 ``fused_mha`` — the packed-qkv single-block attention, forward
@@ -45,8 +45,33 @@ so that the plain versions can be handed the same mask.
 ``fused_mha`` is a ``torch.autograd.Function``: CUDA tensors launch the
 kernels (or raise), CPU tensors run the plain versions.
 ``fused_mha.launches`` and ``fused_mha.bwd_launches`` count kernel
-launches.  The blockwise flash kernels for S > 512 and the split-qkv
-single-block kernels (ROADMAP.md queue 2, kernels 9-13) are not ported.
+launches.
+
+``flash_attention`` is the attention on split q, k, v (B, H, S, d) of the
+JAX package's ``flash_attention`` (``:326``), with its rule (``:349``):
+
+  * Sq == Skv <= 512 (``fits_single_block``): the single-block kernels,
+    forward ``_fwd_single_kernel`` (``:390``, kernel 9) and backward
+    ``_bwd_single_kernel`` (``:413``, kernel 10) under autograd; o =
+    round(p / l) @ v after the exact row max, as kernel 3.
+  * otherwise the blockwise online-softmax forward ``_fwd_kernel``
+    (``:69``, kernel 11): per 128-key block the running max m, alpha =
+    exp(m_old - m), acc = acc·alpha + round(p) @ v, l = l·alpha + Σp, and
+    o = acc / l (the CUDA kernel rescales per 32 keys, which moves a bf16
+    o by the rounding of p only).  Its backward (kernels 12 and 13) is not
+    ported: a call that needs a gradient raises before any launch.
+
+Kernels: ``csrc/flash_fwd.cu`` (9 and 11: a block per 64 queries of a
+head, K and V streamed through shared memory in 64-key tiles, so every
+length takes every head dim) and ``csrc/flash_bwd.cu`` (10: kernel 4's
+body on the split layout, ``csrc/attention_bwd.cuh``).  They read q, k, v
+through their strides, so the transposed head views that ``packed_mha``
+cuts from a packed qkv are not copied; o is (B, H, Sq, d) and lse (B·H,
+Sq) f32, contiguous, and nothing is padded in device memory (the TPU
+wrapper pads to its tiles; here the kernels mask).  Counters:
+``flash_attention.single_launches``, ``.single_bwd_launches`` and
+``.blocked_launches``.  ROADMAP.md queue 2 lists kernels 12-15, still to
+port.
 """
 
 from __future__ import annotations
@@ -61,8 +86,13 @@ NEG_INF = -1e30
 _LANES = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the bfloat16 kernels are instantiated for (csrc/mha_fwd.cu,
-# csrc/mha_bwd.cu)
+# csrc/mha_bwd.cu, csrc/flash_fwd.cu, csrc/flash_bwd.cu)
 _BF16_HEAD_DIMS = (16, 32, 64, 128, 256)
+# keys per block of the JAX package's blockwise kernel (block_kv)
+_BLOCK_KV = 128
+# rows of a float tile of the flash kernels (csrc/flash_fwd.cu kF32Rows,
+# kF32Keys)
+_F32_ROWS = 32
 # dynamic shared memory one block can have on sm_90 (227 KB)
 _SMEM_PER_BLOCK = 232448
 
@@ -412,5 +442,300 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
         + [ctypes.c_float, ctypes.c_double, ctypes.c_ulonglong,
            ctypes.c_void_p])
     lib.devt_mha_bwd.restype = ctypes.c_int
+    lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.devt_cuda_error_string.restype = ctypes.c_char_p
+
+
+# ---------------------------------------------------------------------------
+# Attention on split q, k, v: kernels 9, 10 and 11
+# ---------------------------------------------------------------------------
+
+_BLOCKED_BWD_TODO = (
+    "the gradient of flash_attention above one kv block (Sq != Skv or S > "
+    "512) needs the blockwise backward kernels 12 and 13 "
+    "(devt_tpu/ops/flash_attention.py:158 _bwd_dq_kernel, :198 "
+    "_bwd_dkv_kernel), which are not ported yet — ROADMAP.md queue 2; "
+    "evaluate under torch.no_grad(), or use attention_impl='xla' to train")
+
+
+def _scores(q, k, scale, kv_len, k0=0):
+    """f32 scores q kᵀ·scale of (…, Sq, d) and (…, n, d), key columns
+    k0 + j at or past kv_len at -1e30."""
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    col = torch.arange(k0, k0 + k.shape[-2], device=q.device)
+    return torch.where(col < kv_len, s,
+                       torch.full((), NEG_INF, device=q.device))
+
+
+def flash_single_fwd_plain(q, k, v, scale, kv_len):
+    """Plain PyTorch version of kernel 9 (``_fwd_single_kernel``): q, k, v
+    (B, H, S, d) → o (B, H, S, d) in q's dtype and lse (B·H, S) f32, with
+    the exact row max and p / l rounded to v's dtype before the product."""
+    s = _scores(q, k, scale, kv_len)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = ((p / l).to(v.dtype).float() @ v.float()).to(q.dtype)
+    return o, (m + torch.log(l)).reshape(-1, q.shape[-2])
+
+
+def flash_single_bwd_plain(q, k, v, o, lse, do, scale, kv_len):
+    """Plain PyTorch version of kernel 10 (``_bwd_single_kernel``): from
+    q, k, v, the stored o and its gradient do (B, H, S, d) and lse (B·H, S)
+    f32 →
+
+        delta = rowsum(f32(do) · f32(o));  p = exp(s - lse)
+        dv = round(p)ᵀ @ do;  dp = do @ vᵀ;  ds = p · (dp - delta) · scale
+        dq = round(ds) @ k;   dk = round(ds)ᵀ @ q
+
+    every product summed in f32, round() the cast to the other operand's
+    dtype; (dq, dk, dv) in the dtypes of (q, k, v)."""
+    do32 = do.float()
+    delta = (do32 * o.float()).sum(dim=-1, keepdim=True)
+    p = torch.exp(_scores(q, k, scale, kv_len) - lse.reshape(
+        *q.shape[:-1], 1))
+    dv = p.to(do.dtype).float().transpose(-1, -2) @ do32
+    dp = do32 @ v.float().transpose(-1, -2)
+    ds = p * (dp - delta) * scale
+    dq = ds.to(k.dtype).float() @ k.float()
+    dk = ds.to(q.dtype).float().transpose(-1, -2) @ q.float()
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_blocked_fwd_plain(q, k, v, scale, kv_len):
+    """Plain PyTorch version of kernel 11 (``_fwd_kernel``), block by block
+    as the TPU kernel runs: q (B, H, Sq, d), k and v (B, H, Skv, d) → o (B,
+    H, Sq, d) in q's dtype and lse (B·H, Sq) f32.  Per 128-key block:
+    m_new = max(m, max s), p = exp(s - m_new), alpha = exp(m - m_new),
+    l = alpha·l + Σp, acc = acc·alpha + round(p) @ v (round: the cast to
+    v's dtype); at the end o = acc / l, lse = m + log l."""
+    shape = (*q.shape[:-1], 1)
+    m = torch.full(shape, NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(shape, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, k.shape[-2], _BLOCK_KV):
+        kb, vb = k[..., k0:k0 + _BLOCK_KV, :], v[..., k0:k0 + _BLOCK_KV, :]
+        s = _scores(q, kb, scale, kv_len, k0)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).float() @ vb.float()
+        m = m_new
+    return (acc / l).to(q.dtype), (m + torch.log(l)).reshape(-1, q.shape[-2])
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a contiguous copy when its rows are not contiguous or, in
+    bfloat16, not 16-byte aligned (cp.async copies 16 bytes at a time).
+    The head views of a packed qkv with d a multiple of 8 need no copy."""
+    ok = t.stride(3) == 1
+    if ok and t.dtype == torch.bfloat16:
+        ok = t.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                            for st in _strides(t))
+    return t if ok else t.contiguous()
+
+
+def _check_flash_args(q, k, v, kv_len, backward: bool = False) -> int:
+    """Raise on what kernels 9 and 11 (with ``backward``, also kernel 10)
+    do not take; returns d."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, H, S, d); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, _, d = q.shape
+    skv = k.shape[2]
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device \
+                or tuple(t.shape) != (b, h, skv, d):
+            raise ValueError(f"{name}: need a {q.dtype} tensor of shape "
+                             f"{(b, h, skv, d)} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not 1 <= kv_len <= skv:
+        raise ValueError(f"kv_len must be in [1, {skv}], got {kv_len}")
+    if q.dtype == torch.bfloat16:
+        if d not in _BF16_HEAD_DIMS:
+            raise ValueError(f"the bfloat16 kernels are compiled for head "
+                             f"dims {_BF16_HEAD_DIMS}, got {d}")
+    else:
+        # q, k, v and o tiles of 32 rows, the 32 x 32 score tile, a row's
+        # alpha (csrc/flash_fwd.cu flash_smem_f32); the backward's tiles
+        # (attention_bwd.cuh mha_bwd_smem_f32) are smaller up to 512 keys
+        need = (4 * _align128(4 * _F32_ROWS * (d + 4))
+                + _align128(4 * _F32_ROWS * (_F32_ROWS + 4))
+                + _align128(4 * _F32_ROWS))
+        if backward:
+            # kernel 4's float tiles (csrc/attention_bwd.cuh)
+            sp = _round_up(q.shape[2], 16)
+            r = min(sp, _F32_ROWS)
+            need = max(need, 6 * _align128(4 * r * (d + 4))
+                       + 2 * _align128(4 * r * (r + 4))
+                       + 2 * _align128(4 * _round_up(sp, r)))
+        if d % 4 or need > _SMEM_PER_BLOCK:
+            raise ValueError(f"the float32 kernels need a head dim that is a "
+                             f"multiple of 4 whose tiles fit a block's "
+                             f"shared memory; got {d} ({need} bytes)")
+    return d
+
+
+def _flash_fwd_cuda(q, k, v, scale, kv_len, online):
+    d = _check_flash_args(q, k, v, kv_len)
+    from devt_tpu_torch.ops import _build
+
+    lib = _build.load("flash_fwd", _declare_flash_fwd)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    b, h, sq, _ = q.shape
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*_strides(q), *_strides(k),
+                                      *_strides(v))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.devt_flash_fwd(
+            _DTYPE_CODE[q.dtype], int(online), _ptr(q), _ptr(k), _ptr(v),
+            _ptr(o), _ptr(lse), b, h, sq, k.shape[2], d, int(kv_len),
+            strides, ctypes.c_float(scale), ctypes.c_void_p(stream))
+    _check_rc(lib, rc, "flash_fwd")
+    if online:
+        flash_attention.blocked_launches += 1
+    else:
+        flash_attention.single_launches += 1
+    return o, lse
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, scale, kv_len):
+    d = _check_flash_args(q, k, v, kv_len, backward=True)
+    b, h, s, _ = q.shape
+    for name, t, shape, dtype in (
+            ("o", o, (b, h, s, d), q.dtype), ("do", do, (b, h, s, d), q.dtype),
+            ("lse", lse, (b * h, s), torch.float32)):
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dtype} tensor of "
+                             f"shape {shape} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    from devt_tpu_torch.ops import _build
+
+    lib = _build.load("flash_bwd", _declare_flash_bwd)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*_strides(q), *_strides(k),
+                                      *_strides(v))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.devt_flash_bwd(
+            _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+            _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
+            b, h, s, d, int(kv_len), strides, ctypes.c_float(scale),
+            ctypes.c_void_p(stream))
+    _check_rc(lib, rc, "flash_bwd")
+    flash_attention.single_bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashSingle(torch.autograd.Function):
+    """The single-block attention with its backward: kernels 9 and 10 for
+    CUDA tensors, the plain versions for CPU tensors.  Saves (q, k, v, o,
+    lse), as the JAX ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_len):
+        if q.device.type == "cuda":
+            o, lse = _flash_fwd_cuda(q, k, v, scale, kv_len, online=False)
+        elif q.device.type == "cpu":
+            o, lse = flash_single_fwd_plain(q, k, v, scale, kv_len)
+        else:
+            raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                             f"{q.device}")
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (scale, kv_len)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        scale, kv_len = ctx.args
+        # the gradient crosses the kernel boundary in q's dtype
+        do = do.to(q.dtype).contiguous()
+        if q.device.type == "cuda":
+            dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, do, scale, kv_len)
+        else:
+            dq, dk, dv = flash_single_bwd_plain(q, k, v, o, lse, do, scale,
+                                                kv_len)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None, kv_len: int | None = None,
+                    return_lse: bool = False):
+    """Softmax attention on split heads: q (B, H, Sq, d), k and v (B, H,
+    Skv, d) → o (B, H, Sq, d) in q's dtype; with ``return_lse`` also lse
+    (B·H, Sq) f32 (not differentiable).  ``scale`` defaults to d^-0.5;
+    ``kv_len`` masks key positions at and beyond it (default Skv).
+
+    Sq == Skv ≤ 512 (the JAX rule, ``fits_single_block``) takes kernel 9,
+    differentiable through kernel 10; anything else kernel 11, whose
+    backward is not ported: an input that needs a gradient under grad mode
+    raises ``NotImplementedError`` before any launch, on either device.
+
+    A CUDA tensor launches the kernels (raising on a shape they do not
+    cover or a failed launch); a CPU tensor runs the plain versions."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, H, S, d), got {tuple(q.shape)}")
+    sq, d = q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    scale = float(d ** -0.5 if scale is None else scale)
+    kv_len = skv if kv_len is None else int(kv_len)
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if sq == skv and fits_single_block(sq):
+        if grad and q.device.type == "cuda":
+            # a shape the backward does not take fails before the work
+            _check_flash_args(q, k, v, kv_len, backward=True)
+        o, lse = FlashSingle.apply(q, k, v, scale, kv_len)
+        return (o, lse) if return_lse else o
+    if grad:
+        raise NotImplementedError(_BLOCKED_BWD_TODO)
+    if q.device.type == "cuda":
+        o, lse = _flash_fwd_cuda(q, k, v, scale, kv_len, online=True)
+    elif q.device.type == "cpu":
+        o, lse = flash_blocked_fwd_plain(q, k, v, scale, kv_len)
+    else:
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return (o, lse) if return_lse else o
+
+
+flash_attention.single_launches = 0
+flash_attention.single_bwd_launches = 0
+flash_attention.blocked_launches = 0
+
+
+def _declare_flash_fwd(lib: ctypes.CDLL) -> None:
+    lib.devt_flash_fwd.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+           ctypes.c_void_p])
+    lib.devt_flash_fwd.restype = ctypes.c_int
+    lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.devt_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _declare_flash_bwd(lib: ctypes.CDLL) -> None:
+    lib.devt_flash_bwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+           ctypes.c_void_p])
+    lib.devt_flash_bwd.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p

@@ -377,8 +377,7 @@ def _check_cuda_args(x, params, heads, names=PARAM_NAMES):
         raise ValueError(f"the kernel needs dim = heads*d with dim, d and "
                          f"mlp multiples of 16; got dim={dim} heads={heads} "
                          f"mlp={mlp}")
-    if x.dtype == torch.bfloat16 and ((dim, d) not in _BF16_WIDTHS
-                                      or mlp % 64):
+    if not kernels_take_width(x.dtype, dim, d, mlp):
         raise ValueError(f"the bfloat16 kernel is compiled for (dim, head "
                          f"dim) in {_BF16_WIDTHS} with mlp a multiple of 64; "
                          f"got dim={dim} d={d} mlp={mlp}")
@@ -414,20 +413,74 @@ def _fwd_cuda(x, params, heads, scale, kv_len, rate, seed):
     return y, u, res
 
 
+def _bwd_smem_bf16(s: int, head_dim: int) -> int:
+    """Shared memory of the bfloat16 attention backward of kernels 2 and 8:
+    q, k, v and datt of one head (rows padded by 8) plus lse and delta."""
+    return 4 * s * (head_dim + 8) * 2 + 2 * s * 4 + 512
+
+
+def kernels_take_width(dtype: torch.dtype, dim: int, head_dim: int,
+                       mlp: int = 64) -> bool:
+    """The widths the fused kernels (1, 2; 7, 8 with the default ``mlp``)
+    are compiled for: dim, head dim and MLP multiples of 16, and in
+    bfloat16 (dim, head dim) in ``_BF16_WIDTHS`` with an MLP a multiple
+    of 64."""
+    if dtype not in _DTYPE_CODE or dim % 16 or head_dim % 16 or mlp % 16:
+        return False
+    if dtype == torch.bfloat16:
+        return (dim, head_dim) in _BF16_WIDTHS and mlp % 64 == 0
+    return True
+
+
+def bwd_takes_shape(dtype: torch.dtype, head_dim: int, s: int) -> bool:
+    """The shapes the backward kernels (2 and 8) take: S a multiple of 16
+    and, in bfloat16, one head's attention operands in a block's shared
+    memory (up to 397 tokens at head dim 64)."""
+    if s % 16:
+        return False
+    return dtype != torch.bfloat16 \
+        or _bwd_smem_bf16(s, head_dim) <= _SMEM_PER_BLOCK
+
+
+def fused_block_eligible(device_type: str, dtype: torch.dtype, dim: int,
+                         head_dim: int, s: int, grad: bool,
+                         mlp: int = 64) -> bool:
+    """Whether the fused kernels take a block of S tokens: on CPU tensors
+    always (the plain versions take every width); on the card the width
+    table (``kernels_take_width``) and, when the forward will need a
+    gradient, the backward's shape rule (``bwd_takes_shape``).  The
+    models' eligibility checks read it, so a block the kernels do not take
+    runs unfused, as the JAX package's runs wherever its fused path is not
+    eligible."""
+    if device_type != "cuda":
+        return True
+    return kernels_take_width(dtype, dim, head_dim, mlp) \
+        and (not grad or bwd_takes_shape(dtype, head_dim, s))
+
+
 def _check_bwd_shape(x, heads):
-    """The shapes the backward kernels (2 and 8) take."""
+    """Raise on a shape the backward kernels (2 and 8) do not take."""
     s, dim = x.shape[1], x.shape[2]
     if s % 16:
         raise ValueError(f"the backward kernel needs a token count that is a "
                          f"multiple of 16, got {s}")
-    if x.dtype == torch.bfloat16:
-        # q, k, v and datt of one head (rows padded by 8) plus lse and delta
-        need = 4 * s * (dim // heads + 8) * 2 + 2 * s * 4 + 512
-        if need > _SMEM_PER_BLOCK:
-            raise ValueError(
-                f"the bfloat16 backward keeps one head's q, k, v and datt in "
-                f"shared memory: {s} tokens of head dim {dim // heads} need "
-                f"{need} bytes, a block has {_SMEM_PER_BLOCK}")
+    if not bwd_takes_shape(x.dtype, dim // heads, s):
+        raise ValueError(
+            f"the bfloat16 backward keeps one head's q, k, v and datt in "
+            f"shared memory: {s} tokens of head dim {dim // heads} need "
+            f"{_bwd_smem_bf16(s, dim // heads)} bytes, a block has "
+            f"{_SMEM_PER_BLOCK}")
+
+
+def _refuse_untrainable(x, tensors, heads) -> None:
+    """On the card, a call that will need a gradient (grad mode on and an
+    input that requires one) and whose shape the backward kernel does not
+    take is refused before the forward runs.  Asked here, outside the
+    autograd Function, whose forward sees neither grad mode nor, under
+    ``no_grad``, which inputs will really be differentiated."""
+    if x.device.type == "cuda" and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in (x, *tensors)):
+        _check_bwd_shape(x, heads)
 
 
 def _bwd_cuda(x, params, u, res, dy, heads, scale, kv_len, rate, seed):
@@ -541,9 +594,10 @@ def fused_vit_block(x, params, heads, scale, kv_len, dropout_rate=0.0,
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
     if rate > 0.0 and seed is None:
         raise ValueError("dropout_rate > 0 needs a seed")
+    tensors = [params[k] for k in PARAM_NAMES]
+    _refuse_untrainable(x, tensors, heads)
     return FusedViTBlock.apply(x, heads, float(scale), int(kv_len), rate,
-                               int(seed) if rate > 0.0 else 0,
-                               *(params[k] for k in PARAM_NAMES))
+                               int(seed) if rate > 0.0 else 0, *tensors)
 
 
 fused_vit_block.launches = 0
@@ -681,8 +735,6 @@ class FusedAttnHalf(torch.autograd.Function):
     def forward(ctx, x, heads, scale, kv_len, *tensors):
         params = dict(zip(HALF_NAMES, tensors))
         if x.device.type == "cuda":
-            if any(ctx.needs_input_grad):
-                _check_bwd_shape(x, heads)    # refuse before the forward runs
             u, res = _half_fwd_cuda(x, params, heads, scale, kv_len)
         elif x.device.type == "cpu":
             u, res = fused_attn_half_fwd_plain(x, params, heads, scale,
@@ -724,8 +776,9 @@ def fused_attn_half(x, params, heads, scale, kv_len):
     if a launch fails); a CPU tensor runs the plain versions.  The JAX
     function returns only u because its custom_vjp keeps res to itself;
     here res is returned too (not differentiable)."""
-    return FusedAttnHalf.apply(x, heads, float(scale), int(kv_len),
-                               *(params[k] for k in HALF_NAMES))
+    tensors = [params[k] for k in HALF_NAMES]
+    _refuse_untrainable(x, tensors, heads)
+    return FusedAttnHalf.apply(x, heads, float(scale), int(kv_len), *tensors)
 
 
 fused_attn_half.launches = 0

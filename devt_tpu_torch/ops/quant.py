@@ -289,6 +289,26 @@ def quant_fused_vit_block_plain(x, qp, heads: int, scale: float,
     return (u + z2).to(dtype)
 
 
+def quant_kernel_takes_width(dtype: torch.dtype, dim: int, head_dim: int,
+                             mlp: int) -> bool:
+    """The widths kernel 5 is compiled for: head dim a multiple of 16, dim
+    and MLP multiples of 64, and in bfloat16 (dim, head dim) in the fused
+    block's table (``fused_block._BF16_WIDTHS``, whose attention launch it
+    shares)."""
+    if dtype not in _DTYPE_CODE or head_dim % 16 or dim % 64 or mlp % 64:
+        return False
+    return dtype != torch.bfloat16 or (dim, head_dim) in fb._BF16_WIDTHS
+
+
+def quant_block_eligible(device_type: str, dtype: torch.dtype, dim: int,
+                         head_dim: int, mlp: int) -> bool:
+    """Whether the int8 fused block takes a block's widths: on CPU tensors
+    always (its plain version takes every width), on the card what kernel 5
+    is compiled for.  Serving only, so no gradient enters."""
+    return device_type != "cuda" \
+        or quant_kernel_takes_width(dtype, dim, head_dim, mlp)
+
+
 def _check_quant_block_args(x, qp, heads: int) -> None:
     """Raise on what the int8 block kernel does not take."""
     if x.dtype not in _DTYPE_CODE:
@@ -321,7 +341,7 @@ def _check_quant_block_args(x, qp, heads: int) -> None:
         raise ValueError(f"the kernel needs dim = heads*d with d a multiple "
                          f"of 16 and dim and mlp multiples of 64; got "
                          f"dim={dim} heads={heads} mlp={mlp}")
-    if x.dtype == torch.bfloat16 and (dim, d) not in fb._BF16_WIDTHS:
+    if not quant_kernel_takes_width(x.dtype, dim, d, mlp):
         raise ValueError(f"the bfloat16 kernel is compiled for (dim, head "
                          f"dim) in {fb._BF16_WIDTHS}; got dim={dim} d={d}")
 
@@ -473,10 +493,14 @@ int8_matmul_fused.launches = 0
 
 
 def _fused_quant_ok(x, qp, heads: int) -> bool:
+    """The JAX package's rule (``devt_tpu/ops/quant.py:404``), and on the
+    card the widths kernel 5 is compiled for."""
     _, s, dim = x.shape
     inner = qp["wqkv_q"].shape[1] // 3
     return (inner == dim and dim % heads == 0
-            and fits_single_block(s) and s % 16 == 0)
+            and fits_single_block(s) and s % 16 == 0
+            and quant_block_eligible(x.device.type, x.dtype, dim,
+                                     dim // heads, qp["w1_q"].shape[-1]))
 
 
 def quant_vit_block(x, qp, heads: int, scale: float, kv_len: int, *,
@@ -486,10 +510,13 @@ def quant_vit_block(x, qp, heads: int, scale: float, kv_len: int, *,
 
     ``impl`` is the block's ``attention_impl``.  Anything but ``"xla"``
     routes eligible shapes through :func:`quant_fused_vit_block`.  A block
-    pinned to ``"xla"``, or an ineligible shape, runs unfused: residual
-    stream and LN in f32, all four products through ``int8_matmul``, the
-    attention core in the model dtype through the dispatching attention,
-    tanh GELU as on the fused path."""
+    pinned to ``"xla"``, or an ineligible shape (a token count that is no
+    multiple of 16, more than one kv block, a width kernel 5 is not compiled
+    for), runs unfused: residual stream and LN in f32, all four products
+    through ``int8_matmul``, the attention core in the model dtype through
+    the dispatching attention (on the card kernel 9, or kernel 11 above one
+    kv block; the plain attention for ``"xla"``), tanh GELU as on the fused
+    path."""
     if impl != "xla" and _fused_quant_ok(x, qp, heads):
         return quant_fused_vit_block(x, qp, heads, scale, kv_len)
 

@@ -705,3 +705,248 @@ def test_moe_vivit_step_launches_and_gradients(card, kind, dropout, counts):
         gap = (got[k].cpu() - w).abs().max().item() / max(
             w.abs().max().item(), 1e-6)
         assert gap <= PTN_F32_GRAD_RTOL, f"{k}: {gap:.3e}"
+
+
+# ---------------------------------------------------------------------------
+# the split-q/k/v attention: kernels 9 and 10 (one kv block) and 11
+# ---------------------------------------------------------------------------
+
+# (b, h, sq, skv, d, kv_len, strided): head dims 16-256, ragged S, kv_len
+# < S, the transposed head views of a packed qkv, S = 512 at head dim 256
+# (which kernel 3 cannot take), Sq != Skv (blockwise however short)
+FLASH_SHAPES = [
+    (2, 3, 197, 197, 64, 197, True), (1, 2, 512, 512, 256, 500, False),
+    (2, 2, 45, 45, 16, 40, True), (1, 2, 75, 75, 128, 70, False),
+    (1, 2, 14, 14, 32, 14, True), (1, 3, 592, 592, 64, 577, True),
+    (1, 2, 40, 300, 32, 290, False), (1, 1, 600, 600, 256, 577, False),
+    (2, 2, 520, 520, 128, 519, True)]
+
+
+def _flash_inputs(kind, b, h, sq, skv, d, strided, seed=0):
+    """q, k, v on the card; ``strided``: the (B, H, S, d) head views of one
+    packed (B, S, 3, H, d) tensor, as packed_mha cuts them."""
+    gen = torch.Generator().manual_seed(seed)
+    if strided:
+        assert sq == skv
+        qkv = torch.randn(b, sq, 3, h, d, generator=gen).to(
+            DTYPE[kind]).cuda()
+        return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+    return (torch.randn(b, h, sq, d, generator=gen).to(DTYPE[kind]).cuda(),
+            *(torch.randn(b, h, skv, d, generator=gen).to(DTYPE[kind]).cuda()
+              for _ in range(2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,sq,skv,d,kv_len,strided", FLASH_SHAPES)
+def test_flash_kernels_match_plain(card, kind, b, h, sq, skv, d, kv_len,
+                                   strided):
+    """Kernel 9 (Sq == Skv <= 512) or 11 against its plain version: o at
+    the forward gate, lse at 1e-4 in f32 and at kernel 1's forward limit in
+    bf16 (q and k rounded to bf16 before sums in another order)."""
+    q, k, v = _flash_inputs(kind, b, h, sq, skv, d, strided, sq + d)
+    single = sq == skv and tfa.fits_single_block(sq)
+    before = (tfa.flash_attention.single_launches,
+              tfa.flash_attention.blocked_launches)
+    with torch.no_grad():
+        o, lse = tfa.flash_attention(q, k, v, kv_len=kv_len, return_lse=True)
+    plain = tfa.flash_single_fwd_plain if single \
+        else tfa.flash_blocked_fwd_plain
+    wo, wlse = plain(q, k, v, d ** -0.5, kv_len)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.single_launches,
+            tfa.flash_attention.blocked_launches) == (
+        before[0] + single, before[1] + (not single))
+    assert o.shape == (b, h, sq, d) and o.is_contiguous()
+    assert lse.shape == (b * h, sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), wo.float(), **TOL[kind])
+    lse_tol = dict(atol=1e-4, rtol=1e-4) if kind == "f32" else TOL["bf16"]
+    torch.testing.assert_close(lse, wlse, **lse_tol)
+
+
+FLASH_BWD_SHAPES = [(2, 3, 197, 64, 197, True), (1, 2, 512, 256, 500, False),
+                    (2, 2, 45, 16, 40, True), (1, 2, 75, 128, 70, False),
+                    (1, 1, 14, 32, 14, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,s,d,kv_len,strided", FLASH_BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain(card, kind, b, h, s, d, kv_len,
+                                        strided):
+    """Kernel 10 through ``flash_attention`` and autograd: dq, dk, dv
+    against the plain backward on the forward's (o, lse), per tensor within
+    the backward bound; keys past kv_len get exact zeros; two runs give the
+    same bits."""
+    q, k, v = _flash_inputs(kind, b, h, s, s, d, strided, s + d)
+    do = torch.randn(b, h, s, d, generator=torch.Generator().manual_seed(
+        9)).to(DTYPE[kind]).cuda()
+
+    def run():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o, lse = tfa.flash_attention(*leaves, kv_len=kv_len,
+                                     return_lse=True)
+        return (o.detach(), lse, *torch.autograd.grad(o, leaves, do))
+
+    before = tfa.flash_attention.single_bwd_launches
+    o, lse, *got = run()
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.single_bwd_launches == before + 1
+    want = tfa.flash_single_bwd_plain(q, k, v, o, lse, do, d ** -0.5,
+                                      kv_len)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        bound = BWD_ULPS[kind] * EPS[kind] * w.float().abs().max().item()
+        assert err <= bound, f"{kind} {name}: {err:.3e} > {bound:.3e}"
+    for g in got[1:]:
+        assert torch.equal(g[:, :, kv_len:], torch.zeros_like(
+            g[:, :, kv_len:]))
+    again = run()[2:]
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_refusals_and_dispatch(card):
+    """No bf16 instance at head dim 48; the blockwise gradient is refused
+    before any launch; ``"pallas"`` with dropout raises as JAX's does, and
+    ``"auto"`` with dropout runs the plain attention (no launch)."""
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.ops import attention as tatt
+
+    with pytest.raises(ValueError, match="head dims"):
+        z = torch.zeros(1, 2, 16, 48, device="cuda", dtype=torch.bfloat16)
+        tfa.flash_attention(z, z, z)
+    q = torch.zeros(1, 1, 520, 64, device="cuda", requires_grad=True)
+    counts = (tfa.flash_attention.single_launches,
+              tfa.flash_attention.blocked_launches,
+              tfa.flash_attention.single_bwd_launches)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.flash_attention(q, q, q)
+    x = torch.randn(2, 2, 40, 32, device="cuda")
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tatt.scaled_dot_product_attention(x, x, x, impl="pallas",
+                                          dropout_rate=0.1, rng=DropoutRng(0))
+    out = tatt.scaled_dot_product_attention(x, x, x, impl="auto",
+                                            dropout_rate=0.1,
+                                            rng=DropoutRng(0))
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert (tfa.flash_attention.single_launches,
+            tfa.flash_attention.blocked_launches,
+            tfa.flash_attention.single_bwd_launches) == counts
+    tatt.scaled_dot_product_attention(x, x, x)
+    assert tfa.flash_attention.single_launches == counts[0] + 1
+
+
+def _flash_counts():
+    return (tfb.fused_vit_block.launches, tfb.fused_vit_block.bwd_launches,
+            tfa.fused_mha.launches, tfa.fused_mha.bwd_launches,
+            tq.quant_fused_vit_block.launches,
+            tfa.flash_attention.single_launches,
+            tfa.flash_attention.single_bwd_launches,
+            tfa.flash_attention.blocked_launches)
+
+
+def _vivit_step(model, kind, image, n_classes=5):
+    """One forward and backward of the ViViT's training loss on the card."""
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    cfg = Config(model="vivit", precision=kind, n_classes=n_classes,
+                 frame_len=2)
+    rng = np.random.default_rng(4)
+    batch = {"vid": torch.tensor(rng.standard_normal(
+        (2, 2, image, image, 3)).astype(np.float32)).cuda(),
+        "label": torch.tensor((rng.random((2, n_classes)) < 0.3).astype(
+            np.float32)).cuda()}
+    params = dict(model.named_parameters())
+    loss, _, _ = forward_and_loss(model, cfg, {"params": params}, batch,
+                                  DropoutRng(5), train=True)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all()
+                                        for g in grads)
+
+
+def _vivit(kind, **kw):
+    from devt_tpu_torch.models.vivit import ViViT
+
+    base = dict(image_size=32, patch_size=8, num_classes=5, num_frames=2,
+                depth=2, channels_last=True, dtype=DTYPE[kind])
+    return ViViT(**{**base, **kw}).init_weights(
+        torch.Generator().manual_seed(0)).cuda()
+
+
+def _delta(before):
+    return [a - b for a, b in zip(_flash_counts(), before)]
+
+
+@pytest.mark.cuda
+def test_vivit_at_an_uncompiled_width_serves_and_trains(card):
+    """Repair 1: a bf16 ViViT at dim 384, 6 heads of 64 (no bf16 fused
+    instance) runs its space blocks unfused instead of raising: serving
+    through kernel 3, a training step through kernels 3 and 4, int8
+    serving through kernel 9; none of kernels 1, 2, 5."""
+    from devt_tpu_torch.ops.attention import quant_scope
+
+    model = _vivit("bf16", dim=384, heads=6, dim_head=64)
+    x = torch.randn(2, 2, 32, 32, 3, device="cuda")
+    before = _flash_counts()
+    with torch.no_grad():
+        assert torch.isfinite(model.eval()(x).float()).all()
+    assert _delta(before) == [0, 0, 2, 0, 0, 0, 0, 0]
+    before = _flash_counts()
+    _vivit_step(model.train(), "bf16", 32)
+    assert _delta(before) == [0, 0, 2, 2, 0, 0, 0, 0]
+    before = _flash_counts()
+    with torch.no_grad(), quant_scope():
+        assert torch.isfinite(model.eval()(x).float()).all()
+    assert _delta(before) == [0, 0, 0, 0, 0, 2, 0, 0]
+
+
+@pytest.mark.cuda
+def test_vivit_at_416_tokens_trains_through_kernels_3_and_4(card):
+    """Repair 2: 401 space tokens pad to 416, more than kernel 2 holds at
+    head dim 64: a training step takes the unfused block (kernels 3 and 4)
+    instead of raising after kernel 1's forward; serving keeps kernel 1."""
+    model = _vivit("bf16", image_size=320, patch_size=16, depth=1)
+    before = _flash_counts()
+    _vivit_step(model.train(), "bf16", 320)
+    assert _delta(before)[:4] == [0, 0, 1, 1]
+    before = _flash_counts()
+    with torch.no_grad():
+        model.eval()(torch.randn(2, 2, 320, 320, 3, device="cuda"))
+    assert _delta(before)[:4] == [1, 0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_vivit_above_one_kv_block_evaluates_and_refuses_training(card, kind):
+    """577 space tokens (pad 592): each space block's attention is one
+    launch of kernel 11 in evaluation, in the model dtype and in int8;
+    the scores agree with the CPU's plain path within chip_smoke's limits
+    (f32 1e-4; bf16 2e-2; int8 4e-2, where an activation next to a
+    rounding boundary takes the other int8 code on one machine); a
+    training step raises the ROADMAP refusal before any launch of
+    kernels 9-11."""
+    from devt_tpu_torch.ops.attention import quant_scope
+
+    model = _vivit(kind, image_size=96, patch_size=4, dim=64, heads=2,
+                   dim_head=32).eval()
+    x = torch.randn(2, 2, 96, 96, 3, generator=torch.Generator()
+                    .manual_seed(2))
+    cpu = _vivit(kind, image_size=96, patch_size=4, dim=64, heads=2,
+                 dim_head=32).cpu().eval()
+    for scope, atol in ((torch.no_grad, 2e-2 if kind == "bf16" else 1e-4),
+                        (quant_scope, 4e-2)):
+        before = _flash_counts()
+        with torch.no_grad(), scope():
+            got = torch.sigmoid(model(x.cuda()).float()).cpu()
+            want = torch.sigmoid(cpu(x).float())
+        assert _delta(before) == [0, 0, 0, 0, 0, 0, 0, 2]
+        torch.testing.assert_close(got, want, atol=atol, rtol=0)
+    before = _flash_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _vivit_step(model.train(), kind, 96)
+    assert _delta(before) == [0] * 8

@@ -61,14 +61,16 @@ def test_walk_covers_the_training_slice():
 
 def test_kernel_sources_build_alone_with_a_plain_c_interface():
     """``_build`` makes one library per ``csrc/*.cu``: the kernels'
-    sources, the MoE slice's attention half among them, each with its
-    ``extern "C"`` entry points and none with PyTorch's headers (which
-    would make nvcc take minutes instead of seconds)."""
+    sources, the MoE slice's attention half and the split-q/k/v attention
+    (kernels 9 and 11, kernel 10) among them, each with its ``extern "C"``
+    entry points and none with PyTorch's headers (which would make nvcc
+    take minutes instead of seconds)."""
     from devt_tpu_torch.ops import _build
 
     stems = {p.stem for p in _build.sources()}
     assert stems == {"fused_block_fwd", "fused_block_bwd", "quant_block_fwd",
-                     "int8_matmul", "mha_fwd", "mha_bwd", "attn_half"}
+                     "int8_matmul", "mha_fwd", "mha_bwd", "attn_half",
+                     "flash_fwd", "flash_bwd"}
     for path in _build.CSRC.iterdir():
         text = path.read_text()
         assert "torch/" not in text and "ATen" not in text, path.name

@@ -110,11 +110,16 @@ def test_packed_mha_matches_jax():
 
 
 def test_packed_mha_pallas_is_not_ported():
-    """Single-block sequences reach the packed-qkv kernel's wrapper; what
-    is left unported is the blockwise kernel behind longer ones."""
+    """Single-block sequences reach the packed-qkv kernel's wrapper, longer
+    ones the blockwise forward (kernel 11's plain version on the CPU); what
+    is left unported is the blockwise backward (kernels 12 and 13), so a
+    long sequence that needs a gradient is refused."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.packed_mha(torch.zeros(1, 520, 3 * DIM), heads=HEADS,
-                        impl="pallas")
+        tatt.packed_mha(torch.zeros(1, 520, 3 * DIM, requires_grad=True),
+                        heads=HEADS, impl="pallas")
+    long = tatt.packed_mha(torch.zeros(1, 520, 3 * DIM), heads=HEADS,
+                           impl="pallas")
+    assert long.shape == (1, 520, DIM)
     out = tatt.packed_mha(torch.zeros(1, 4, 3 * DIM), heads=HEADS,
                           impl="pallas")
     assert out.shape == (1, 4, DIM)

@@ -177,15 +177,21 @@ def test_packed_mha_kernel_route_refuses_gradients_and_dropout(monkeypatch):
 
 
 def test_long_sequences_and_unknown_impls_raise():
+    """``"pallas"`` above 512 tokens runs the blockwise forward (kernel
+    11's plain version on CPU tensors); its gradient (kernels 12 and 13)
+    is refused, and so is an unknown impl."""
     long = torch.zeros(1, 520, 3 * 16)
     assert not tfa.fits_single_block(520) and tfa.fits_single_block(512)
+    out = tatt.packed_mha(long, heads=1, impl="pallas")
+    assert out.shape == (1, 520, 16) and torch.isfinite(out).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.packed_mha(long, heads=1, impl="pallas")
+        tatt.packed_mha(long.clone().requires_grad_(True), heads=1,
+                        impl="pallas")
     with pytest.raises(ValueError, match="unknown attention impl"):
         tatt.packed_mha(long, heads=1, impl="flash")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown attention impl"):
         tatt.scaled_dot_product_attention(*(torch.zeros(1, 1, 4, 8),) * 3,
-                                          impl="pallas")
+                                          impl="flash")
 
 
 def test_cuda_argument_check_raises_on_unsupported_shapes():
