@@ -112,9 +112,7 @@ Phases, each printing a line of its own; any failure exits non-zero:
                3 heads, bf16, seeded weights) through make_eval_step at
                batch 32: 4 launches of kernel 11 per step and nothing else,
                in bf16 and under quant_scope; 2 clips against the CPU;
-               clips/s and a profile; make_train_step refused before any
-               launch of kernels 9-11 (its backward, kernels 12-13, is
-               not ported).
+               clips/s and a profile.
  21. serve-int8-unfused — ViViT at token_pad=0 (197 tokens) under
                quant_scope at batch 32: 4 launches of kernel 9 per
                forward, 2 clips against the CPU; dim 384 with 6 heads of 64
@@ -122,6 +120,27 @@ Phases, each printing a line of its own; any failure exits non-zero:
                (kernels 3 and 4) and served in int8 (kernel 9) without
                kernels 1, 2, 5; ViViT at image 320 (401 -> 416 tokens, more
                than kernel 2 holds) trained one step through kernels 3, 4.
+ 22. train-long — the ViViT of phase 20 trained at batch 32 (dropout 0)
+               through make_train_step and make_multi_step(8): 4 launches
+               each of kernels 11, 12 and 13 per step and none of kernels
+               1-10, a falling loss, one step's gradients on 2 clips
+               against the CPU; clips/s as the best of 3 windows, the
+               host's enqueue ms, a profile, the peak device memory.
+ 23. kernel-flash-blocked-bwd — kernels 12 and 13 at (1536, 592, 64),
+               kv_len 577 (the image-384 step's shape, head views of a
+               packed qkv), bf16 and f32, through flash_attention and
+               autograd against the plain backward, two runs bit for bit;
+               each kernel's time, the plain version's, SDPA's backward as
+               the yardstick, the bounds; untimed: Sq != Skv (40 x 300),
+               head dim 256 at S 600, head dim 128 at S 520.
+ 24. kernel-ring — kernels 14 and 15 at the sequence-parallel bench's
+               shape (512 sequences of 208 tokens, 197 live, 3 heads of
+               64), bf16 and f32, against their plain versions, two
+               backward runs bit for bit; times, bounds and
+               F.scaled_dot_product_attention with the same additive mask;
+               a 4-rank ring run hop by hop on the card (592 tokens in 4
+               chunks of 148, kv_len 577) against flash_attention and its
+               gradient; ring_mha_split at one rank under autograd.
 
 The last lines are a JSON line of the kernels, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  With no CUDA device, or without the
@@ -1739,7 +1758,11 @@ def _kernel_counts() -> dict:
             "k8": fb.fused_attn_half.bwd_launches,
             "k9": tfa.flash_attention.single_launches,
             "k10": tfa.flash_attention.single_bwd_launches,
-            "k11": tfa.flash_attention.blocked_launches}
+            "k11": tfa.flash_attention.blocked_launches,
+            "k12": tfa.flash_attention.blocked_dq_launches,
+            "k13": tfa.flash_attention.blocked_dkv_launches,
+            "k14": tfa.ring_step_fwd.launches,
+            "k15": tfa.ring_step_bwd.launches}
 
 
 def _expect(**counts) -> dict:
@@ -1757,6 +1780,8 @@ def _zero_counts() -> None:
     tq.quant_fused_vit_block.launches = 0
     fa = tfa.flash_attention
     fa.single_launches = fa.single_bwd_launches = fa.blocked_launches = 0
+    fa.blocked_dq_launches = fa.blocked_dkv_launches = 0
+    tfa.ring_step_fwd.launches = tfa.ring_step_bwd.launches = 0
 
 
 def _vivit_cfg(**kw):
@@ -2154,6 +2179,25 @@ def phase_flash(kind: str, b: int, heads: int, sq: int, skv: int, d: int,
     return out
 
 
+def _sdpa_bwd_ms(q, k, v, do, kv_len, scale) -> tuple[float, float]:
+    """Device time of F.scaled_dot_product_attention's backward on the live
+    keys (CUDA graph): forward + backward through autograd less forward."""
+    import torch
+    import torch.nn.functional as F
+
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qs, ks[:, :, :kv_len], vs[:, :, :kv_len], scale=scale)
+
+    with torch.no_grad():
+        fwd_ms = _graph_ms(sdpa)
+    both_ms = _graph_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs),
+                                                    do))
+    return both_ms - fwd_ms, both_ms
+
+
 def phase_flash_bwd(kind: str, b: int, heads: int, s: int, d: int,
                     kv_len: int) -> dict:
     """Kernel 10 through flash_attention and autograd against the plain
@@ -2163,7 +2207,6 @@ def phase_flash_bwd(kind: str, b: int, heads: int, s: int, d: int,
     caller that differentiates it runs them; SDPA's backward as the
     yardstick."""
     import torch
-    import torch.nn.functional as F
 
     from devt_tpu_torch.ops import flash_attention as tfa
     from devt_tpu_torch.ops.attention import scaled_dot_product_attention
@@ -2220,16 +2263,7 @@ def phase_flash_bwd(kind: str, b: int, heads: int, s: int, d: int,
             q, k, v, o, lse, do, scale, kv_len), iters=3, warmup=1)
     # the yardstick: SDPA on the same views (live keys) through autograd,
     # forward + backward less forward
-    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(
-            qs, ks[:, :, :kv_len], vs[:, :, :kv_len], scale=scale)
-
-    with torch.no_grad():
-        fwd_ms = _graph_ms(sdpa)
-    fwd_bwd_ms = _graph_ms(
-        lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do))
+    library_ms, fwd_bwd_ms = _sdpa_bwd_ms(q, k, v, do, kv_len, scale)
     bound_ms, bound_by = _flash_bound(kind, b * heads, s, s, d, kv_len,
                                       backward=True)
     print(f"[kernel-flash-bwd] {tag} (head views of a packed qkv), through "
@@ -2240,13 +2274,14 @@ def phase_flash_bwd(kind: str, b: int, heads: int, s: int, d: int,
           f"public op forward and backward: launches {counts['k9']} of "
           f"kernel 9 and {counts['k10']} of kernel 10 | kernel_ms="
           f"{kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-          f"{fwd_bwd_ms - fwd_ms:.4f} (device time, CUDA graph, of "
+          f"{library_ms:.4f} (device time, CUDA graph, of "
           f"F.scaled_dot_product_attention through autograd: forward + "
-          f"backward {fwd_bwd_ms:.4f} less forward {fwd_ms:.4f}) "
+          f"backward {fwd_bwd_ms:.4f} less forward "
+          f"{fwd_bwd_ms - library_ms:.4f}) "
           f"bound_ms={bound_ms:.4f} ({bound_by})",
           flush=True)
     return {"max_abs_err": worst, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": fwd_bwd_ms - fwd_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "launches": counts["k10"]}
 
@@ -2289,15 +2324,14 @@ def _eval_on_card_and_cpu(model, cfg, image, scope, seed):
 def phase_eval_long() -> dict:
     """ViViT at image 384 (577 space tokens, over one kv block) through
     make_eval_step at batch 32: kernel 11 in every space block, in bf16 and
-    under quant_scope; 2 clips against the CPU; clips/s; training refused
-    before any launch of kernels 9-11."""
+    under quant_scope; 2 clips against the CPU; clips/s.  (Its training
+    step is phase train-long.)"""
     import contextlib
 
     import torch
 
     from devt_tpu_torch.ops.attention import quant_scope
-    from devt_tpu_torch.parallel.train_step import (make_eval_step,
-                                                    make_train_step)
+    from devt_tpu_torch.parallel.train_step import make_eval_step
     from devt_tpu_torch.train.optimizers import build_optimizer
     from devt_tpu_torch.train.state import TrainState
 
@@ -2345,21 +2379,6 @@ def phase_eval_long() -> dict:
         out[tag] = {"counts": counts, "step_ms": min(windows) * 1e3,
                     "clips_per_s": TRAIN_BATCH / min(windows),
                     "flash_ms": flash_ms}
-    # training above one kv block needs kernels 12 and 13: refused before
-    # any launch of kernels 9-11
-    step = make_train_step(model, cfg)
-    _zero_counts()
-    try:
-        step(state, batch, SEED)
-    except NotImplementedError as e:
-        if "ROADMAP" not in str(e):
-            raise
-        refused = str(e).split(" — ")[0]
-    else:
-        raise AssertionError("eval-long: a training step at 592 tokens ran")
-    counts = _kernel_counts()
-    if any(counts[k] for k in ("k9", "k10", "k11")):
-        raise AssertionError(f"eval-long: the refused step launched {counts}")
     print(f"[eval-long] ViViT image {LONG_IMAGE} (577 space tokens, padded "
           f"to 592; dim 192, depth {depth}, 3 heads of 64, bf16) through "
           f"make_eval_step at batch {TRAIN_BATCH}: launches "
@@ -2373,8 +2392,7 @@ def phase_eval_long() -> dict:
           f"{out['bf16']['flash_ms']:.4f} ms of device time), int8 "
           f"{out['int8']['clips_per_s']:.2f} clips/s "
           f"({out['int8']['step_ms']:.3f} ms; best of 3 windows of 3 steps, "
-          f"host clock) | make_train_step refused before any launch of "
-          f"kernels 9-11: {refused!r}", flush=True)
+          f"host clock)", flush=True)
     return {"launches": out["bf16"]["counts"]["k11"]
             + out["int8"]["counts"]["k11"], **out}
 
@@ -2485,6 +2503,469 @@ def phase_serve_int8_unfused() -> dict:
             "clips_per_s": clips_per_s}
 
 
+def _blocked_bwd_bounds(kind, bh, sq, skv, d, kv_len):
+    """Least times of kernel 12 (delta, then dq: three products over the
+    live keys; q, o, do, k, v and lse read, dq and delta written) and
+    kernel 13 (four products; q, do, k, v, lse and delta read, dk and dv
+    written)."""
+    item = 4 if kind == "f32" else 2
+    work = bh * sq * kv_len * d
+    dq = _bound({kind: 6 * work},
+                (4 * sq + 2 * skv) * bh * d * item + 8 * bh * sq)
+    dkv = _bound({kind: 8 * work},
+                 (2 * sq + 4 * skv) * bh * d * item + 8 * bh * sq)
+    return dq, dkv
+
+
+def phase_flash_blocked_bwd(kind: str, b: int, heads: int, sq: int, skv: int,
+                            d: int, kv_len: int, timed: bool = True) -> dict:
+    """Kernels 12 and 13 through flash_attention and autograd against the
+    plain backward on the forward's (o, lse): dq, dk, dv within BWD_ULPS of
+    their largest elements, keys past kv_len exact zeros, two runs
+    bit-equal; each kernel's time, the plain version's, and SDPA's
+    backward as the yardstick of the pair."""
+    import torch
+
+    from devt_tpu_torch.ops import flash_attention as tfa
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    if sq == skv:
+        q, k, v = _packed_heads(b, sq, heads, d, dtype, SEED + 12 + sq + d)
+    else:
+        gen = torch.Generator().manual_seed(SEED + 12 + sq)
+        q = torch.randn(b, heads, sq, d, generator=gen).to(dtype).cuda()
+        k, v = (torch.randn(b, heads, skv, d, generator=gen).to(dtype).cuda()
+                for _ in range(2))
+    do = torch.randn(b, heads, sq, d, generator=torch.Generator().manual_seed(
+        SEED + 13)).to(dtype).cuda()
+    scale = d ** -0.5
+    tag = (f"flash-blocked-bwd kernels 12, 13 {kind} ({b * heads},{sq},"
+           f"{skv},{d}) kv_len {kv_len}")
+
+    def through_autograd():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            o, lse = tfa.flash_attention(*leaves, kv_len=kv_len,
+                                         return_lse=True)
+            grads = torch.autograd.grad(o, leaves, do)
+        return o.detach(), lse, grads
+
+    with torch.no_grad():
+        o, lse, got = through_autograd()
+        want = tfa.flash_blocked_bwd_plain(q, k, v, o, lse, do, scale,
+                                           kv_len)
+        torch.cuda.synchronize()
+        worst = worst_rel = 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(g.float()).all():
+                raise AssertionError(f"{tag} {name}: non-finite output")
+            err = _max_err(g, w)
+            largest = w.float().abs().max().item()
+            if not err <= BWD_ULPS[kind] * EPS[kind] * largest:
+                raise AssertionError(f"{tag} {name}: max abs err {err:.3e} > "
+                                     f"{BWD_ULPS[kind]} ulps of {largest:.3e}")
+            worst, worst_rel = max(worst, err), max(worst_rel, err / largest)
+        if any(g[:, :, kv_len:].any() for g in got[1:]):
+            raise AssertionError(f"{tag}: dk or dv past kv_len not zero")
+        again = through_autograd()[2]
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"{tag}: two runs differ in their bits")
+        del want, again
+        out = {"max_abs_err": worst}
+        if timed:
+            _, delta = tfa._flash_blocked_dq_cuda(q, k, v, o, lse, do, scale,
+                                                  kv_len)
+            out["dq_ms"] = _time_ms(lambda: tfa._flash_blocked_dq_cuda(
+                q, k, v, o, lse, do, scale, kv_len))
+            out["dkv_ms"] = _time_ms(lambda: tfa._flash_blocked_dkv_cuda(
+                q, k, v, o, lse, do, delta, scale, kv_len))
+            out["plain_ms"] = _time_ms(lambda: tfa.flash_blocked_bwd_plain(
+                q, k, v, o, lse, do, scale, kv_len), iters=3, warmup=1)
+    (out["dq_bound_ms"], out["dq_bound_by"]), \
+        (out["dkv_bound_ms"], out["dkv_bound_by"]) = _blocked_bwd_bounds(
+            kind, b * heads, sq, skv, d, kv_len)
+    times = ""
+    if timed:
+        out["library_ms"], both_ms = _sdpa_bwd_ms(q, k, v, do, kv_len, scale)
+        times = (f" | kernel 12 {out['dq_ms']:.4f} ms (delta included), "
+                 f"kernel 13 {out['dkv_ms']:.4f} ms; plain (both) "
+                 f"{out['plain_ms']:.4f} ms; library_ms="
+                 f"{out['library_ms']:.4f} (device time, CUDA graph, of "
+                 f"F.scaled_dot_product_attention's backward through "
+                 f"autograd on the live keys: forward + backward "
+                 f"{both_ms:.4f} less forward)")
+    print(f"[kernel-flash-blocked-bwd] {tag}"
+          f"{' (head views of a packed qkv)' if sq == skv else ''}, through "
+          f"flash_attention and autograd against the plain backward on the "
+          f"forward's (o, lse): dq, dk, dv within {BWD_ULPS[kind]} ulps of "
+          f"the largest element, max_abs_err={worst:.3e} ({worst_rel:.3e} "
+          f"of its tensor's largest element), dk and dv past kv_len zero, "
+          f"two runs bit-equal{times} | bound_ms kernel 12 "
+          f"{out['dq_bound_ms']:.4f} ({out['dq_bound_by']}), kernel 13 "
+          f"{out['dkv_bound_ms']:.4f} ({out['dkv_bound_by']})", flush=True)
+    return out
+
+
+def phase_train_long() -> dict:
+    """ViViT at image 384 (577 space tokens, padded to 592: every space
+    block unfused, its attention kernel 11 and, backward, kernels 12 and
+    13) trained at batch 32 through make_train_step and
+    make_multi_step(8): 4 launches each of kernels 11, 12 and 13 a step and
+    none of kernels 1-10; a falling loss; one step's gradients on 2 clips
+    against the CPU's plain path; clips/s as the best of 3 windows, the
+    host's share, a profile and the peak device memory."""
+    import copy
+
+    import torch
+
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.parallel.train_step import (make_eval_step,
+                                                    make_multi_step,
+                                                    make_train_step)
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    cfg = _vivit_cfg()
+    model = _vivit_model(image_size=LONG_IMAGE)
+    depth = len(model.space_transformer.blocks)
+    reference = copy.deepcopy(model)
+
+    def step_grads(m, batch):
+        params = dict(m.named_parameters())
+        loss, _, _ = forward_and_loss(m, cfg, {"params": params}, batch,
+                                      DropoutRng(0), train=True)
+        return loss.item(), dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    small = _train_batch(2, SEED + 11, LONG_IMAGE)
+    model.cuda()
+    card_loss, card = step_grads(model, small)
+    cpu_loss, cpu = step_grads(reference, {k: v.cpu()
+                                           for k, v in small.items()})
+    worst, worst_leaf = 0.0, ""
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"train-long: non-finite gradient of {name}")
+        ratio = (got - want).abs().max().item() / max(
+            want.abs().max().item(), GRAD_FLOOR)
+        if ratio > worst:
+            worst, worst_leaf = ratio, name
+    if not worst <= GRAD_RTOL or abs(card_loss - cpu_loss) > SCORE_ATOL:
+        raise AssertionError(
+            f"train-long: card vs CPU gradients differ by {worst:.3e} of the "
+            f"leaf's largest element at {worst_leaf} (bound {GRAD_RTOL}); "
+            f"loss {card_loss:.5f} vs {cpu_loss:.5f}")
+    del reference, card, cpu, small
+
+    # the main path: one step, then the multi-step executor, the counts set
+    # to 0 just before and read just after
+    batch = _train_batch(TRAIN_BATCH, SEED + 12, LONG_IMAGE)
+    stacked = {k: v[None].expand(MULTI_STEPS, *v.shape)
+               for k, v in batch.items()}
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    step = make_train_step(model, cfg)
+    multi = make_multi_step(model, cfg, MULTI_STEPS)
+    evaluate = make_eval_step(model, cfg)
+    loss_before = evaluate(state, batch)[0].item()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, first = step(state, batch, SEED)
+    state, metrics = multi(state, stacked, SEED)
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = 1 + MULTI_STEPS
+    if counts != _expect(k11=depth * steps, k12=depth * steps,
+                         k13=depth * steps):
+        raise AssertionError(f"train-long: launches {counts} in {steps} "
+                             f"steps, expected {depth} each of kernels 11, "
+                             f"12, 13 per step and nothing else")
+    loss_after = evaluate(state, batch)[0].item()
+    losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
+    if not all(map(math.isfinite, losses)) or not loss_after < loss_before:
+        raise AssertionError(f"train-long: loss {loss_before:.5f} before, "
+                             f"{losses} during and after {steps} steps")
+
+    multi(state, stacked, SEED)[1]["loss"].item()
+    windows, enqueue = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_ITERS):
+            state, metrics = multi(state, stacked, SEED)
+        enqueue.append(time.perf_counter() - t0)
+        metrics["loss"].item()
+        windows.append(time.perf_counter() - t0)
+    n_steps = TRAIN_ITERS * MULTI_STEPS
+    step_ms = min(windows) / n_steps * 1e3
+    host_ms = enqueue[windows.index(min(windows))] / n_steps * 1e3
+    clips_per_s = TRAIN_BATCH * n_steps / min(windows)
+    rows, busy, wall_ms = _traced(lambda: step(state, batch, SEED)[1]["loss"]
+                                  .item())
+    _print_profile(f"train-long step, B={TRAIN_BATCH}", rows, busy, wall_ms,
+                   top=14)
+    device_ms = sum(ms for _, ms, _ in rows)
+    fwd_ms = sum(ms for n, ms, _ in rows if n.startswith("flash_fwd"))
+    bwd_ms = sum(ms for n, ms, _ in rows if n.startswith("mha_bwd"))
+    print(f"[train-long] ViViT image {LONG_IMAGE} (577 space tokens, padded "
+          f"to 592; dim 192, depth {depth}, 3 heads of 64, MLP 768, 16 "
+          f"frames, bf16, AdamW) at B={TRAIN_BATCH}: {steps} steps (1 + "
+          f"make_multi_step({MULTI_STEPS})), launches {counts['k11']} of "
+          f"kernel 11, {counts['k12']} of kernel 12, {counts['k13']} of "
+          f"kernel 13 ({depth} of each per step), none of kernels 1-10; "
+          f"loss on the fixed batch {loss_before:.5f} -> {loss_after:.5f}; "
+          f"card vs CPU gradients on 2 clips: worst {worst:.3e} of the "
+          f"leaf's largest element at {worst_leaf} (bound {GRAD_RTOL}), "
+          f"loss {card_loss:.5f} vs {cpu_loss:.5f} | {clips_per_s:.2f} "
+          f"clips/s, step_ms={step_ms:.3f}, of which the host needs "
+          f"{host_ms:.3f} ms to enqueue a step (best of 3 windows of "
+          f"{n_steps} steps, host clock; windows "
+          f"{', '.join(f'{TRAIN_BATCH * n_steps / w:.1f}' for w in windows)})"
+          f" | one step under the profiler: device {device_ms:.3f} ms, busy "
+          f"{busy:.1%}, kernel 11 {fwd_ms:.3f} ms, kernels 12 + 13 with delta "
+          f"{bwd_ms:.3f} ms | peak device memory {peak_gb:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated over the {steps} steps)",
+          flush=True)
+    return {"counts": counts, "clips_per_s": clips_per_s, "step_ms": step_ms,
+            "host_ms": host_ms, "peak_gb": peak_gb}
+
+
+# one ring hop at the sequence-parallel bench's shape (bench.py:1086): the
+# ViT block's 512 sequences of 208 tokens, 197 of them live, 3 heads of 64
+RING_SEQS, RING_S, RING_LIVE = 512, 208, 197
+# the hop-by-hop ring: ViViT's 592 tokens (577 live) in 4 chunks of 148
+HOP_SEQS, HOP_S, HOP_KV, HOP_SHARDS = 32, 592, 577, 4
+
+
+def _ring_bounds(kind, b, s, heads, d, live):
+    """Least times of kernel 14 (two products over the live columns; q, kv
+    read, o written, lse and the mask) and kernel 15 (five products; q,
+    kv, o, do read, the f32 dq and dkv written, lse and the mask)."""
+    item = 4 if kind == "f32" else 2
+    rows, work = b * s, b * heads * s * live * d
+    hd = heads * d
+    fwd = _bound({kind: 4 * work},
+                 4 * rows * hd * item + 4 * rows * heads + 4 * s)
+    bwd = _bound({kind: 10 * work}, 5 * rows * hd * item + 12 * rows * hd
+                 + 4 * rows * heads + 4 * s)
+    return fwd, bwd
+
+
+def _hop_by_hop(kind) -> tuple[dict, dict]:
+    """A 4-rank ring run on one card, hop by hop: each query chunk meets
+    every kv chunk through ring_step_fwd and the flash combine, then
+    ring_step_bwd with the global lse, dkv summed per chunk; held against
+    flash_attention (kernel 11) and its gradient (kernels 12, 13) on the
+    same tokens.  Returns the errors and the launches of kernels 14, 15."""
+    import torch
+
+    from devt_tpu_torch.ops import flash_attention as tfa
+    from devt_tpu_torch.parallel.ring_attention import _colmask, _combine
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    heads, d = HEADS, D // HEADS
+    hd = heads * d
+    gen = torch.Generator().manual_seed(SEED + 14)
+    q = torch.randn(HOP_SEQS, HOP_S, hd, generator=gen).to(dtype).cuda()
+    kv = torch.randn(HOP_SEQS, HOP_S, 2 * hd, generator=gen).to(dtype).cuda()
+    do = torch.randn(HOP_SEQS, HOP_S, hd, generator=gen).to(dtype).cuda()
+    chunk = HOP_S // HOP_SHARDS
+    s_p = -(-chunk // 16) * 16
+    scale = d ** -0.5
+
+    def pad(t, i):
+        part = t[:, i * chunk:(i + 1) * chunk]
+        return torch.nn.functional.pad(part, (0, 0, 0, s_p - chunk))
+
+    qs, kvs, dos = ([pad(t, i) for i in range(HOP_SHARDS)]
+                    for t in (q, kv, do))
+    masks = [_colmask(i, chunk, s_p, HOP_KV, "cuda")
+             for i in range(HOP_SHARDS)]
+    _zero_counts()
+    outs, lses = [], []
+    for r in range(HOP_SHARDS):
+        o = torch.zeros(HOP_SEQS, s_p, hd, device="cuda")
+        lse = torch.full((HOP_SEQS, s_p, heads), -1e30, device="cuda")
+        for t in range(HOP_SHARDS):
+            blk = (r - t) % HOP_SHARDS
+            o_i, lse_i = tfa.ring_step_fwd(qs[r], kvs[blk], masks[blk],
+                                           heads=heads, scale=scale)
+            o, lse = _combine(o, lse, o_i, lse_i, heads)
+        outs.append(o.to(dtype))
+        lses.append(lse)
+    dq = [torch.zeros(HOP_SEQS, s_p, hd, device="cuda")
+          for _ in range(HOP_SHARDS)]
+    dkv = [torch.zeros(HOP_SEQS, s_p, 2 * hd, device="cuda")
+           for _ in range(HOP_SHARDS)]
+    for r in range(HOP_SHARDS):
+        for blk in range(HOP_SHARDS):
+            dq_p, dkv_p = tfa.ring_step_bwd(qs[r], kvs[blk], masks[blk],
+                                            outs[r], lses[r], dos[r],
+                                            heads=heads, scale=scale)
+            dq[r] += dq_p
+            dkv[blk] += dkv_p
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    if counts != _expect(k14=HOP_SHARDS ** 2, k15=HOP_SHARDS ** 2):
+        raise AssertionError(f"kernel-ring hop by hop: launches {counts}")
+
+    def cat(parts):
+        return torch.cat([p[:, :chunk] for p in parts], dim=1)
+
+    def heads_of(t, off=0):
+        return t[..., off:off + hd].reshape(HOP_SEQS, HOP_S, heads, d) \
+            .transpose(1, 2)
+
+    leaves = [heads_of(q), heads_of(kv), heads_of(kv, hd)]
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        ref, ref_lse = tfa.flash_attention(*leaves, kv_len=HOP_KV,
+                                           return_lse=True)
+        ref_grads = torch.autograd.grad(ref, leaves, heads_of(do))
+    got = {"o": heads_of(cat(outs)), "dq": heads_of(cat(dq)),
+           "dk": heads_of(cat(dkv)), "dv": heads_of(cat(dkv), hd)}
+    want = {"o": ref, "dq": ref_grads[0], "dk": ref_grads[1],
+            "dv": ref_grads[2]}
+    errs = {}
+    # the ring rounds every hop's o to the model dtype before the combine,
+    # the blockwise kernel once: in bf16 BWD_ULPS of headroom twice over
+    ulps = 2 * BWD_ULPS[kind] if kind == "bf16" else BWD_ULPS[kind]
+    for name, w in want.items():
+        g = got[name].float()
+        errs[name] = _max_err(g, w) / w.float().abs().max().item()
+        if not errs[name] <= ulps * EPS[kind] or not torch.isfinite(g).all():
+            raise AssertionError(f"kernel-ring hop by hop {kind} {name}: "
+                                 f"{errs[name]:.3e} of the largest element "
+                                 f"> {ulps} ulps")
+    lse_ring = cat(lses).transpose(1, 2).reshape(-1, HOP_S)
+    _check_close(f"kernel-ring hop by hop {kind} lse", lse_ring, ref_lse,
+                 *(LSE_TOL if kind == "f32" else TOL["bf16"]))
+    errs["lse"] = _max_err(lse_ring, ref_lse)
+    return errs, counts
+
+
+def phase_ring(kind: str) -> dict:
+    """Kernels 14 and 15 at the sequence-parallel bench shape against their
+    plain versions (o at the forward gate, lse at LSE_TOL / the forward
+    gate; the f32 dq and dkv within BWD_ULPS; two runs bit-equal); their
+    times, the plain versions' and F.scaled_dot_product_attention's with
+    the same additive mask.  Then the ring hop by hop (a 4-rank ring on one
+    card) against flash_attention and its gradient, and ring_mha_split
+    with one rank under autograd, each with its launches counted."""
+    import torch
+    import torch.nn.functional as F
+
+    from devt_tpu_torch.ops import flash_attention as tfa
+    from devt_tpu_torch.parallel.ring_attention import ring_mha_split
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    heads, d = HEADS, D // HEADS
+    hd = heads * d
+    gen = torch.Generator().manual_seed(SEED + 15)
+    q = torch.randn(RING_SEQS, RING_S, hd, generator=gen).to(dtype).cuda()
+    kv = torch.randn(RING_SEQS, RING_S, 2 * hd, generator=gen).to(
+        dtype).cuda()
+    do = torch.randn(RING_SEQS, RING_S, hd, generator=gen).to(dtype).cuda()
+    col = torch.arange(RING_S, device="cuda")[None]
+    mask = torch.where(col < RING_LIVE, 0.0, -1e30).float()
+    scale = d ** -0.5
+    tag = (f"ring kernels 14, 15 {kind} q ({RING_SEQS},{RING_S},{hd}) kv "
+           f"({RING_SEQS},{RING_S},{2 * hd}) mask {RING_LIVE} live")
+    fwd = lambda: tfa.ring_step_fwd(q, kv, mask, heads=heads,  # noqa: E731
+                                    scale=scale)
+    with torch.inference_mode():
+        o, lse = fwd()
+        wo, wlse = tfa.ring_step_fwd_plain(q, kv, mask, heads, scale)
+        torch.cuda.synchronize()
+        _check_close(f"{tag} o", o, wo, *TOL[kind])
+        lse_tol = LSE_TOL if kind == "f32" else TOL["bf16"]
+        _check_close(f"{tag} lse", lse, wlse, *lse_tol)
+        fwd_err = max(_max_err(o, wo), _max_err(lse, wlse))
+        bwd = lambda: tfa.ring_step_bwd(  # noqa: E731
+            q, kv, mask, o, lse, do, heads=heads, scale=scale)
+        got = bwd()
+        want = tfa.ring_step_bwd_plain(q, kv, mask, o, lse, do, heads, scale)
+        torch.cuda.synchronize()
+        bwd_err = 0.0
+        for name, g, w in zip(("dq", "dkv"), got, want):
+            err, largest = _max_err(g, w), w.abs().max().item()
+            if not torch.isfinite(g).all() \
+                    or not err <= BWD_ULPS[kind] * EPS[kind] * largest:
+                raise AssertionError(f"{tag} {name}: max abs err {err:.3e} > "
+                                     f"{BWD_ULPS[kind]} ulps of "
+                                     f"{largest:.3e}")
+            bwd_err = max(bwd_err, err)
+        if not all(torch.equal(a, c) for a, c in zip(got, bwd())):
+            raise AssertionError(f"{tag}: two backward runs differ")
+        del want
+        out = {"fwd": {"max_abs_err": fwd_err, "kernel_ms": _time_ms(fwd),
+                       "plain_ms": _time_ms(lambda: tfa.ring_step_fwd_plain(
+                           q, kv, mask, heads, scale), iters=3, warmup=1)},
+               "bwd": {"max_abs_err": bwd_err, "kernel_ms": _time_ms(bwd),
+                       "plain_ms": _time_ms(lambda: tfa.ring_step_bwd_plain(
+                           q, kv, mask, o, lse, do, heads, scale), iters=3,
+                           warmup=1)}}
+    # the library: SDPA on the head views with the same additive mask
+    qh, kh, vh = (t.reshape(RING_SEQS, RING_S, heads, d).transpose(1, 2)
+                  for t in (q, kv[..., :hd], kv[..., hd:]))
+    bias = mask.to(dtype)[None, None]
+
+    def sdpa(a, b_, c):
+        return F.scaled_dot_product_attention(a, b_, c, attn_mask=bias,
+                                              scale=scale)
+
+    with torch.no_grad():
+        out["fwd"]["library_ms"] = _graph_ms(lambda: sdpa(qh, kh, vh))
+    leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+    doh = do.reshape(RING_SEQS, RING_S, heads, d).transpose(1, 2)
+    both = _graph_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, doh))
+    out["bwd"]["library_ms"] = both - out["fwd"]["library_ms"]
+    for part, (bound, by) in zip(("fwd", "bwd"), _ring_bounds(
+            kind, RING_SEQS, RING_S, heads, d, RING_LIVE)):
+        out[part]["bound_ms"], out[part]["bound_by"] = bound, by
+
+    hop_errs, hop_counts = _hop_by_hop(kind)
+
+    # the one-rank ring under autograd: one launch of each kernel
+    small = [t[:8, :RING_LIVE].detach().requires_grad_(True) for t in (q, kv)]
+    _zero_counts()
+    with torch.enable_grad():
+        o1 = ring_mha_split(*small, heads=heads)
+        torch.autograd.grad(o1, small, do[:8, :RING_LIVE])
+    torch.cuda.synchronize()
+    one = _kernel_counts()
+    if one != _expect(k14=1, k15=1) or not torch.isfinite(o1.float()).all():
+        raise AssertionError(f"kernel-ring: ring_mha_split at one rank "
+                             f"launched {one}")
+    print(f"[kernel-ring] {tag}: kernel 14 max_abs_err o, lse={fwd_err:.3e} "
+          f"(atol {TOL[kind][0]}, rtol {TOL[kind][1]}); kernel 15 f32 dq, "
+          f"dkv within {BWD_ULPS[kind]} ulps, max_abs_err={bwd_err:.3e}, two "
+          f"runs bit-equal | kernel 14 {out['fwd']['kernel_ms']:.4f} ms "
+          f"(plain {out['fwd']['plain_ms']:.4f}, library_ms="
+          f"{out['fwd']['library_ms']:.4f}: F.scaled_dot_product_attention "
+          f"with the additive mask, CUDA graph; bound_ms="
+          f"{out['fwd']['bound_ms']:.4f} ({out['fwd']['bound_by']})); kernel "
+          f"15 {out['bwd']['kernel_ms']:.4f} ms (plain "
+          f"{out['bwd']['plain_ms']:.4f}, library_ms="
+          f"{out['bwd']['library_ms']:.4f}: its backward through autograd, "
+          f"forward + backward {both:.4f} less forward; bound_ms="
+          f"{out['bwd']['bound_ms']:.4f} ({out['bwd']['bound_by']})) | hop "
+          f"by hop, {HOP_SHARDS} chunks of {HOP_S // HOP_SHARDS} of a "
+          f"{HOP_S}-token sequence (kv_len {HOP_KV}), {HOP_SEQS} sequences: "
+          f"{hop_counts['k14']} + {hop_counts['k15']} launches; against "
+          f"flash_attention and its gradient (kernels 11-13), largest error "
+          f"as a share of the tensor's largest element: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in hop_errs.items() if k != "lse")
+          + f", lse max abs {hop_errs['lse']:.3e} | ring_mha_split at one "
+          f"rank under autograd: {one['k14']} + {one['k15']} launches",
+          flush=True)
+    launches = {"k14": hop_counts["k14"] + one["k14"],
+                "k15": hop_counts["k15"] + one["k15"]}
+    return {**out, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2574,6 +3055,20 @@ def main() -> int:
     phase_flash_bwd("f32", 32, 2, 512, 256, 500)
     eval_long = phase_eval_long()
     int8_unfused = phase_serve_int8_unfused()
+    train_long = phase_train_long()
+    # kernels 12 and 13 at the image-384 step's shape give the kernels line
+    # its numbers; then f32, and ragged shapes
+    flash_bwd = phase_flash_blocked_bwd("bf16", FLASH_SEQS, HEADS, FLASH_S11,
+                                        FLASH_S11, D // HEADS, FLASH_KV11)
+    phase_flash_blocked_bwd("f32", FLASH_SEQS, HEADS, FLASH_S11, FLASH_S11,
+                            D // HEADS, FLASH_KV11)
+    for dtype in ("bf16", "f32"):
+        phase_flash_blocked_bwd(dtype, 32, 3, 40, 300, D // HEADS, 290,
+                                timed=False)
+        phase_flash_blocked_bwd(dtype, 8, 1, 600, 600, 256, 577, timed=False)
+        phase_flash_blocked_bwd(dtype, 16, 2, 520, 520, 128, 519, timed=False)
+    ring = phase_ring("bf16")
+    phase_ring("f32")
     # the MoE and the later model paths' launches of the earlier kernels
     later_runs = (serve_moe["counts"], serve_moe["int8_counts"],
                   train_moe["counts"], train_moe["drop_counts"],
@@ -2632,8 +3127,28 @@ def main() -> int:
               "devt_tpu/ops/flash_attention.py:413", flash10["launches"],
               flash10),
         entry("flash_fwd", "devt_tpu_torch/ops/csrc/flash_fwd.cu",
-              "devt_tpu/ops/flash_attention.py:69", eval_long["launches"],
-              flash11)]
+              "devt_tpu/ops/flash_attention.py:69",
+              eval_long["launches"] + train_long["counts"]["k11"], flash11),
+        entry("flash_bwd_dq", "devt_tpu_torch/ops/csrc/flash_bwd.cu",
+              "devt_tpu/ops/flash_attention.py:158",
+              train_long["counts"]["k12"],
+              {**flash_bwd, "kernel_ms": flash_bwd["dq_ms"],
+               "bound_ms": flash_bwd["dq_bound_ms"],
+               "bound_by": flash_bwd["dq_bound_by"]}),
+        # SDPA's backward computes dq, dk and dv at once: it stands beside
+        # kernel 12, which it is named with, and kernel 13 has none
+        entry("flash_bwd_dkv", "devt_tpu_torch/ops/csrc/flash_bwd.cu",
+              "devt_tpu/ops/flash_attention.py:198",
+              train_long["counts"]["k13"],
+              {**flash_bwd, "kernel_ms": flash_bwd["dkv_ms"],
+               "bound_ms": flash_bwd["dkv_bound_ms"],
+               "bound_by": flash_bwd["dkv_bound_by"], "library_ms": None}),
+        entry("ring_step_fwd", "devt_tpu_torch/ops/csrc/ring_step.cu",
+              "devt_tpu/ops/flash_attention.py:792", ring["launches"]["k14"],
+              ring["fwd"]),
+        entry("ring_step_bwd", "devt_tpu_torch/ops/csrc/ring_step.cu",
+              "devt_tpu/ops/flash_attention.py:814", ring["launches"]["k15"],
+              ring["bwd"])]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']}: no launch on its path")

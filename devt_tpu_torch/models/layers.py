@@ -442,7 +442,10 @@ class ViTTransformer(nn.Module):
             if asked:
                 raise NotImplementedError(
                     f"ViTTransformer({what}) is not ported yet — ROADMAP.md "
-                    f"queue 1")
+                    f"queue 1" + (
+                        ", item 7 (multi-device): the ring it runs its "
+                        "blocks through is parallel/ring_attention.py"
+                        if what == "sequence_parallel" else ""))
         self.dtype = dtype
 
         def block(i):

@@ -15,14 +15,20 @@ its module's, ``ops.flash_attention``, which callers import as a module
 from devt_tpu_torch.ops.attention import (packed_mha, quant_scope,
                                           scaled_dot_product_attention,
                                           xla_attention)
-from devt_tpu_torch.ops.flash_attention import (FlashSingle, FusedMHA,
+from devt_tpu_torch.ops.flash_attention import (FlashBlocked, FlashSingle,
+                                                FusedMHA,
+                                                flash_blocked_bwd_plain,
                                                 flash_blocked_fwd_plain,
                                                 flash_single_bwd_plain,
                                                 flash_single_fwd_plain,
                                                 fused_mha,
                                                 fused_mha_bwd_plain,
                                                 fused_mha_plain,
-                                                mha_dropout_masks)
+                                                mha_dropout_masks,
+                                                ring_step_bwd,
+                                                ring_step_bwd_plain,
+                                                ring_step_fwd,
+                                                ring_step_fwd_plain)
 from devt_tpu_torch.ops.fused_block import (FusedViTBlock, fused_vit_block,
                                             fused_vit_block_bwd_plain,
                                             fused_vit_block_fwd_plain,
@@ -38,8 +44,10 @@ __all__ = [
     "quant_scope",
     "scaled_dot_product_attention",
     "xla_attention",
+    "FlashBlocked",
     "FlashSingle",
     "FusedMHA",
+    "flash_blocked_bwd_plain",
     "flash_blocked_fwd_plain",
     "flash_single_bwd_plain",
     "flash_single_fwd_plain",
@@ -47,6 +55,10 @@ __all__ = [
     "fused_mha_bwd_plain",
     "fused_mha_plain",
     "mha_dropout_masks",
+    "ring_step_bwd",
+    "ring_step_bwd_plain",
+    "ring_step_fwd",
+    "ring_step_fwd_plain",
     "int8_matmul_fused",
     "int8_matmul_fused_plain",
     "quant_fused_vit_block",

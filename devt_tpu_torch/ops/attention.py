@@ -16,10 +16,10 @@ Port of ``devt_tpu/ops/attention.py``.
                    ``scaled_dot_product_attention`` above one kv block.
                    ``scaled_dot_product_attention`` reaches
                    ``flash_attention`` (``ops/flash_attention.py``: kernels
-                   9 and 10 for one kv block, kernel 11 beyond, which has
-                   no backward yet); it has no dropout, and with dropout it
-                   raises, as JAX's does.  CPU tensors run the kernels'
-                   plain versions.
+                   9 and 10 for one kv block, kernel 11 beyond with kernels
+                   12 and 13 for its backward); it has no dropout, and with
+                   dropout it raises, as JAX's does.  CPU tensors run the
+                   kernels' plain versions.
   * ``"auto"``   — in ``packed_mha``: ``"pallas"`` for CUDA tensors,
                    training and serving alike, the plain attention for CPU
                    tensors.  In ``scaled_dot_product_attention``: the

@@ -1,11 +1,10 @@
-// Attention backward on split q, k and v for Hopper (sm_90a): kernel 10 of
-// the port, the backward of flash_attention's single-block path.
+// Attention backward on split q, k and v for Hopper (sm_90a): kernels 10,
+// 12 and 13 of the port, the backward of flash_attention.
 //
-// Computes what devt_tpu/ops/flash_attention.py:413 _bwd_single_kernel
-// computes (launched from _bwd_single, :484), for q, k, v (B, H, S, d)
-// given by their element strides over (sequence, head, row) with the rows
-// contiguous, the stored output o and its gradient do (B, H, S, d)
-// contiguous in q's type, and lse (B*H, S) f32, per (sequence, head):
+// For q (B, H, Sq, d), k and v (B, H, Skv, d) given by their element
+// strides over (sequence, head, row) with the rows contiguous, the stored
+// output o and its gradient do (B, H, Sq, d) contiguous in q's type, and
+// lse (B*H, Sq) f32, per (sequence, head):
 //
 //   delta = rowsum(f32(do) * f32(o))
 //   p     = exp(q k^T * scale - lse), keys at or past kv_len at 0
@@ -13,21 +12,44 @@
 //   ds    = p * (dp - delta) * scale
 //   dq    = round(ds) @ k;     dk = round(ds)^T @ q
 //
-// every product summed in f32, round() the cast to the operand type;
-// dq, dk, dv (B, H, S, d) contiguous in q's type.  The TPU kernel holds G
-// whole (S, S) score blocks in VMEM and computes delta inside; here the
-// body is attention_bwd.cuh's, which kernel 4 (mha_bwd.cu) shares on the
-// packed layout: a launch writes delta (B*H, S), then FlashAttention-2's
-// split, blocks that own 64 queries (dq) or 64 keys (dk, dv) and stream
-// the other side's rows through a double-buffered cp.async ring, so shared
-// memory does not grow with S; one owner per output, no atomics, two runs
-// give the same bits.  No dropout: the TPU kernel has none.
+// every product summed in f32, round() the cast to the operand type; dq
+// (B, H, Sq, d), dk and dv (B, H, Skv, d) contiguous in q's type.
 //
-// Bound at (1536, 197, 64), kv_len 197, bf16 (the backward of the int8
-// block's attention shape): five products of 2 * 197 * 197 * 64 per
-// (sequence, head), 38.2 GFLOP, against 310 MB (q, k, v, o, do read, dq,
-// dk, dv written, lse): bytes bind it, 0.092 ms at 3.35 TB/s.  The times
-// are in PERF.md.
+//   devt_flash_bwd          kernel 10, devt_tpu/ops/flash_attention.py:413
+//                           _bwd_single_kernel (Sq == Skv <= 512): delta,
+//                           then one launch of dq and dk/dv blocks
+//   devt_flash_blocked_bwd  kernels 12 and 13, flash_attention.py:158
+//                           _bwd_dq_kernel and :198 _bwd_dkv_kernel (any
+//                           Sq, Skv: the blockwise path's backward), as two
+//                           calls: part 1 writes delta and launches the dq
+//                           blocks (kernel 12), part 2 the dk/dv blocks
+//                           (kernel 13), reading the delta part 1 wrote
+//
+// The TPU kernels walk 128 x 128 blocks on a sequential grid, carrying dq
+// (or dk, dv) in VMEM scratch from one kv (or q) block to the next and
+// recomputing delta in each; here the body is attention_bwd.cuh's, which
+// kernel 4 (mha_bwd.cu) and the ring hop (ring_step.cu) share:
+// FlashAttention-2's split, blocks that own 64 queries (dq) or 64 keys
+// (dk, dv) and stream the other side's rows, with the queries' lse and
+// delta, through a double-buffered cp.async ring, so shared memory does
+// not grow with Sq or Skv; query rows past Sq and keys past kv_len are
+// masked in the kernel, nothing is padded in device memory.  One owner per
+// output, no atomics: two runs give the same bits.  No dropout: the TPU
+// kernels have none.
+//
+// Bounds (bf16): kernel 10 at (1536, 197, 64), kv_len 197 (the backward of
+// the int8 block's attention shape): five products of 2 * 197 * 197 * 64
+// per (sequence, head), 38.2 GFLOP, against 310 MB (q, k, v, o, do read,
+// dq, dk, dv written, lse): bytes bind it, 0.092 ms at 3.35 TB/s.  At
+// ViViT's image-384 shape (1536, 592, 64), kv_len 577: kernel 12 (delta
+// included) three products, 6 * 1536 * 592 * 577 * 64 = 201 GFLOP, against
+// q, k, v, o, do read, dq written, lse read and delta written (706 MB):
+// bytes, 0.21 ms; kernel 13 four products, 269 GFLOP, against q, k, v, do,
+// lse and delta read, dk and dv written (706 MB): operations, 0.27 ms.
+// What the design
+// leaves on the table: each score tile is computed twice (once in each
+// kernel), and the streamed side is re-read per block of 64 (from L2).
+// The times are in PERF.md.
 
 #include "attention_bwd.cuh"
 
@@ -36,56 +58,94 @@ namespace {
 template <typename T>
 BwdOperands<T> split(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, void* delta,
-                     void* dq, void* dk, void* dv, int H, int S, int d,
-                     const long long* st) {
-  const long long hs = static_cast<long long>(S) * d;
-  const Strides c{H * hs, hs, d}, sl{static_cast<long long>(H) * S, S, 1};
+                     void* dq, void* dk, void* dv, int H, int Sq, int Skv,
+                     int d, const long long* st) {
+  const long long hq = static_cast<long long>(Sq) * d,
+                  hk = static_cast<long long>(Skv) * d;
+  const Strides cq{H * hq, hq, d}, ck{H * hk, hk, d},
+      sl{static_cast<long long>(H) * Sq, Sq, 1};
   return {static_cast<const T*>(q),    static_cast<const T*>(k),
           static_cast<const T*>(v),    static_cast<const T*>(dout),
           static_cast<T*>(dq),         static_cast<T*>(dk),
           static_cast<T*>(dv),         static_cast<const float*>(lse),
           static_cast<float*>(delta),  Strides{st[0], st[1], st[2]},
           Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
-          c, c, c, c, sl};
+          cq, cq, ck, ck, sl, nullptr};
+}
+
+// delta (with_delta) and the blocks of `part`
+int run(int dtype, BwdPart part, bool with_delta, const void* q,
+        const void* k, const void* v, const void* o, const void* dout,
+        const void* lse, void* delta, void* dq, void* dk, void* dv, int B,
+        const BwdShape& sh, int d, const long long* strides,
+        cudaStream_t s) {
+  const Drop none{};
+  const int pairs = B * sh.H * sh.Sq;
+  if (dtype == 0) {
+    if (d % 4 || mha_bwd_smem_f32(sh, d) > kSmemPerBlock)
+      return cudaErrorInvalidValue;
+    const BwdOperands<float> a = split<float>(
+        q, k, v, dout, lse, delta, dq, dk, dv, sh.H, sh.Sq, sh.Skv, d,
+        strides);
+    if (with_delta)
+      DEVT_TRY(launch_delta<float>(o, dout, a.delta, pairs, d, s));
+    return launch_bwd_f32<false, false>(a, B, d, sh, part, none, s);
+  }
+  if (dtype != 1 || (d != 16 && d != 32 && d != 64 && d != 128 && d != 256))
+    return cudaErrorInvalidValue;
+  const BwdOperands<bf16> a = split<bf16>(
+      q, k, v, dout, lse, delta, dq, dk, dv, sh.H, sh.Sq, sh.Skv, d,
+      strides);
+  if (with_delta)
+    DEVT_TRY(launch_delta<bf16>(o, dout, a.delta, pairs, d, s));
+  return launch_bwd_bf16_d<false, false>(a, B, d, sh, part, none, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, k, v (B, H, S, d) by strides:
-// strides[0..2] q's (sequence, head, row) in elements, [3..5] k's, [6..8]
-// v's, the rows contiguous and, in bfloat16, 16-byte aligned; o, do, dq,
-// dk, dv (B, H, S, d) contiguous in that type; lse (B*H, S) f32; delta
-// (B*H, S) f32 scratch that the first launch fills.  The bfloat16 kernel
-// is compiled for head dims 16, 32, 64, 128 and 256, the float kernel
-// takes any multiple of 4 whose 32-row tiles fit shared memory.  Returns
-// the CUDA error of the launches (0 on success, invalid value for a shape
-// that is not covered); they are asynchronous on `stream`.
+// Kernel 10.  dtype: 0 = float32, 1 = bfloat16.  q, k, v (B, H, S, d) by
+// strides: strides[0..2] q's (sequence, head, row) in elements, [3..5]
+// k's, [6..8] v's, the rows contiguous and, in bfloat16, 16-byte aligned;
+// o, do, dq, dk, dv (B, H, S, d) contiguous in that type; lse (B*H, S)
+// f32; delta (B*H, S) f32 scratch that the first launch fills.  The
+// bfloat16 kernel is compiled for head dims 16, 32, 64, 128 and 256, the
+// float kernel takes any multiple of 4 whose 32-row tiles fit shared
+// memory.  Returns the CUDA error of the launches (0 on success, invalid
+// value for a shape that is not covered); they are asynchronous on
+// `stream`.
 extern "C" int devt_flash_bwd(int dtype, const void* q, const void* k,
                               const void* v, const void* o, const void* dout,
                               const void* lse, void* delta, void* dq,
                               void* dk, void* dv, int B, int H, int S, int d,
                               int kv_len, const long long* strides,
                               float scale, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || S < 1 || H < 1 || kv_len < 1 || kv_len > S || dtype < 0 ||
-      dtype > 1)
+  if (B < 1 || S < 1 || H < 1 || kv_len < 1 || kv_len > S)
     return cudaErrorInvalidValue;
-  const Drop none{};
-  const int pairs = B * H * S;
-  if (dtype == 0) {
-    if (d % 4 || mha_bwd_smem_f32(round_up(S, 16), d) > kSmemPerBlock)
-      return cudaErrorInvalidValue;
-    const BwdOperands<float> a = split<float>(q, k, v, dout, lse, delta, dq,
-                                              dk, dv, H, S, d, strides);
-    DEVT_TRY(launch_delta<float>(o, dout, a.delta, pairs, d, s));
-    return launch_bwd_f32<false>(a, B, S, H, d, kv_len, scale, none, s);
-  }
-  if (d != 16 && d != 32 && d != 64 && d != 128 && d != 256)
+  return run(dtype, kBwdBoth, true, q, k, v, o, dout, lse, delta, dq, dk, dv,
+             B, BwdShape{S, S, H, kv_len, scale}, d, strides,
+             static_cast<cudaStream_t>(stream));
+}
+
+// Kernels 12 (part 1: delta, then dq) and 13 (part 2: dk and dv, from the
+// delta of part 1).  q (B, H, Sq, d), k and v (B, H, Skv, d) by strides as
+// above; o, do and dq (B, H, Sq, d), dk and dv (B, H, Skv, d) contiguous;
+// lse and delta (B*H, Sq) f32.  Part 1 writes dq and delta and reads
+// neither dk nor dv; part 2 writes dk and dv and reads neither o nor dq.
+extern "C" int devt_flash_blocked_bwd(int dtype, int part, const void* q,
+                                      const void* k, const void* v,
+                                      const void* o, const void* dout,
+                                      const void* lse, void* delta, void* dq,
+                                      void* dk, void* dv, int B, int H,
+                                      int Sq, int Skv, int d, int kv_len,
+                                      const long long* strides, float scale,
+                                      void* stream) {
+  if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || kv_len < 1 || kv_len > Skv ||
+      (part != 1 && part != 2))
     return cudaErrorInvalidValue;
-  const BwdOperands<bf16> a = split<bf16>(q, k, v, dout, lse, delta, dq, dk,
-                                          dv, H, S, d, strides);
-  DEVT_TRY(launch_delta<bf16>(o, dout, a.delta, pairs, d, s));
-  return launch_bwd_bf16_d<false>(a, B, S, H, d, kv_len, scale, none, s);
+  return run(dtype, part == 1 ? kBwdDq : kBwdDkv, part == 1, q, k, v, o,
+             dout, lse, delta, dq, dk, dv, B,
+             BwdShape{Sq, Skv, H, kv_len, scale}, d, strides,
+             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* devt_cuda_error_string(int code) {

@@ -58,7 +58,8 @@ BwdOperands<T> packed(const void* qkv, const void* dout, const void* lse,
   T* dx = static_cast<T*>(dqkv);
   return {x,      x + hd, x + 2 * hd, static_cast<const T*>(dout),
           dx,     dx + hd, dx + 2 * hd, static_cast<const float*>(lse),
-          static_cast<float*>(delta), s3, s3, s3, so, s3, s3, s3, sl};
+          static_cast<float*>(delta), s3, s3, s3, so, s3, s3, s3, sl,
+          nullptr};
 }
 
 }  // namespace
@@ -68,7 +69,7 @@ BwdOperands<T> packed(const void* qkv, const void* dout, const void* lse,
 // that the first launch fills; rate in [0, 1) and the forward's seed.  The
 // bfloat16 kernel is compiled for head dims 16, 32, 64, 128 and 256, the
 // float kernel takes any multiple of 4; shared memory holds up to 64 rows
-// (float: 32) of a head at a time and grows with S only by lse and delta.
+// (float: 32) of a head at a time, with their lse and delta.
 // Returns the CUDA error of the launches (0 on success, invalid value for
 // a shape that is not covered); they are asynchronous on `stream`.
 extern "C" int devt_mha_bwd(int dtype, const void* qkv, const void* o,
@@ -81,27 +82,28 @@ extern "C" int devt_mha_bwd(int dtype, const void* qkv, const void* o,
       rate >= 1.0 || dtype < 0 || dtype > 1)
     return cudaErrorInvalidValue;
   const Drop drop = make_drop(rate, seed);
+  const BwdShape sh{S, S, H, kv_len, scale};
   const int pairs = B * S * H;
   if (dtype == 0) {
-    if (d % 4 || mha_bwd_smem_f32(round_up(S, 16), d) > kSmemPerBlock)
+    if (d % 4 || mha_bwd_smem_f32(sh, d) > kSmemPerBlock)
       return cudaErrorInvalidValue;
     const BwdOperands<float> a =
         packed<float>(qkv, dout, lse, delta, dqkv, S, H, d);
     DEVT_TRY(launch_delta<float>(o, dout, a.delta, pairs, d, s));
-    return drop.on ? launch_bwd_f32<true>(a, B, S, H, d, kv_len, scale, drop,
-                                          s)
-                   : launch_bwd_f32<false>(a, B, S, H, d, kv_len, scale,
-                                           drop, s);
+    return drop.on ? launch_bwd_f32<true, false>(a, B, d, sh, kBwdBoth, drop,
+                                                 s)
+                   : launch_bwd_f32<false, false>(a, B, d, sh, kBwdBoth,
+                                                  drop, s);
   }
   if (d != 16 && d != 32 && d != 64 && d != 128 && d != 256)
     return cudaErrorInvalidValue;
   const BwdOperands<bf16> a =
       packed<bf16>(qkv, dout, lse, delta, dqkv, S, H, d);
   DEVT_TRY(launch_delta<bf16>(o, dout, a.delta, pairs, d, s));
-  return drop.on ? launch_bwd_bf16_d<true>(a, B, S, H, d, kv_len, scale, drop,
-                                           s)
-                 : launch_bwd_bf16_d<false>(a, B, S, H, d, kv_len, scale,
-                                            drop, s);
+  return drop.on ? launch_bwd_bf16_d<true, false>(a, B, d, sh, kBwdBoth,
+                                                   drop, s)
+                 : launch_bwd_bf16_d<false, false>(a, B, d, sh, kBwdBoth,
+                                                    drop, s);
 }
 
 extern "C" const char* devt_cuda_error_string(int code) {

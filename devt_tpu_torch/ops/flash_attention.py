@@ -1,5 +1,6 @@
 """Attention kernels with their backwards, the CUDA kernels and their plain
-versions: packed-qkv (kernels 3, 4) and split-q/k/v (kernels 9, 10, 11).
+versions: packed-qkv (kernels 3, 4), split-q/k/v (kernels 9-13) and one hop
+of ring attention (kernels 14, 15).
 
 Port of ``devt_tpu/ops/flash_attention.py``: its constants, and
 ``fused_mha`` — the packed-qkv single-block attention, forward
@@ -58,20 +59,38 @@ JAX package's ``flash_attention`` (``:326``), with its rule (``:349``):
     (``:69``, kernel 11): per 128-key block the running max m, alpha =
     exp(m_old - m), acc = acc·alpha + round(p) @ v, l = l·alpha + Σp, and
     o = acc / l (the CUDA kernel rescales per 32 keys, which moves a bf16
-    o by the rounding of p only).  Its backward (kernels 12 and 13) is not
-    ported: a call that needs a gradient raises before any launch.
+    o by the rounding of p only); its backward, ``_flash_padded``'s VJP
+    (``:303-323``), is ``_bwd_dq_kernel`` (``:158``, kernel 12: delta and
+    dq summed over the key blocks) and ``_bwd_dkv_kernel`` (``:198``,
+    kernel 13: dk and dv summed over the query blocks),
+    ``flash_blocked_bwd_plain`` lists their roundings.
 
 Kernels: ``csrc/flash_fwd.cu`` (9 and 11: a block per 64 queries of a
 head, K and V streamed through shared memory in 64-key tiles, so every
-length takes every head dim) and ``csrc/flash_bwd.cu`` (10: kernel 4's
-body on the split layout, ``csrc/attention_bwd.cuh``).  They read q, k, v
-through their strides, so the transposed head views that ``packed_mha``
-cuts from a packed qkv are not copied; o is (B, H, Sq, d) and lse (B·H,
-Sq) f32, contiguous, and nothing is padded in device memory (the TPU
-wrapper pads to its tiles; here the kernels mask).  Counters:
-``flash_attention.single_launches``, ``.single_bwd_launches`` and
-``.blocked_launches``.  ROADMAP.md queue 2 lists kernels 12-15, still to
-port.
+length takes every head dim; the body is ``csrc/flash_fwd.cuh``) and
+``csrc/flash_bwd.cu`` (10, and 12 and 13 as two launches after a delta
+launch: kernel 4's body on the split layout, ``csrc/attention_bwd.cuh``,
+with separate query and key extents and the other side streamed, so
+shared memory does not grow with either).  They read q, k, v through
+their strides, so the transposed head views that ``packed_mha`` cuts from
+a packed qkv are not copied; o is (B, H, Sq, d) and lse (B·H, Sq) f32,
+contiguous, and nothing is padded in device memory (the TPU wrapper pads
+to its tiles; here the kernels mask query rows past Sq and keys past
+kv_len).  Counters: ``flash_attention.single_launches``,
+``.single_bwd_launches``, ``.blocked_launches``, ``.blocked_dq_launches``
+(kernel 12, its delta launch with it) and ``.blocked_dkv_launches`` (13).
+
+``ring_step_fwd`` and ``ring_step_bwd`` are one hop of ring attention
+(``_ring_fwd_kernel``, ``:792``, kernel 14; ``_ring_bwd_kernel``,
+``:814``, kernel 15), the building blocks of
+``parallel/ring_attention.py``: the local q (B, S, H·D) against the packed
+kv shard (B, S, 2·H·D) held now, with an additive f32 column mask (1, S)
+in place of kv_len.  Kernel 14 is kernel 9's math (exact row max, o =
+round(p / l) @ v); kernel 15 the flash backward against the global lse,
+with f32 partials dq and dkv that sum across hops.  Kernels:
+``csrc/ring_step.cu`` on the bodies of ``flash_fwd.cuh`` and
+``attention_bwd.cuh``, the heads addressed through strides on the packed
+layout.  Counters: ``ring_step_fwd.launches``, ``ring_step_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -86,11 +105,11 @@ NEG_INF = -1e30
 _LANES = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the bfloat16 kernels are instantiated for (csrc/mha_fwd.cu,
-# csrc/mha_bwd.cu, csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+# csrc/mha_bwd.cu, csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/ring_step.cu)
 _BF16_HEAD_DIMS = (16, 32, 64, 128, 256)
 # keys per block of the JAX package's blockwise kernel (block_kv)
 _BLOCK_KV = 128
-# rows of a float tile of the flash kernels (csrc/flash_fwd.cu kF32Rows,
+# rows of a float tile of the flash kernels (csrc/flash_fwd.cuh kF32Rows,
 # kF32Keys)
 _F32_ROWS = 32
 # dynamic shared memory one block can have on sm_90 (227 KB)
@@ -103,6 +122,33 @@ def _round_up(x: int, m: int) -> int:
 
 def _align128(n: int) -> int:
     return _round_up(n, 128)
+
+
+def _bwd_smem_bf16(sp: int, d: int) -> int:
+    """Shared memory of a bfloat16 backward block (csrc/attention_bwd.cuh
+    mha_bwd_smem_bf16) for sequences whose longer side rounds up to ``sp``
+    rows: own rows and two buffers of streamed rows (up to 64 rows, padded
+    by 8), two tensors each; lse and delta of two buffers of queries.  It
+    does not grow past 64 rows."""
+    r = min(sp, 64)
+    return 6 * _align128(2 * r * (d + 8)) + 4 * _align128(4 * r)
+
+
+def _bwd_smem_f32(sp: int, d: int) -> int:
+    """The same for a float backward block (mha_bwd_smem_f32): own rows,
+    streamed rows and outputs (up to 32 rows, two tensors each), p and ds,
+    lse and delta of the queries."""
+    r = min(sp, _F32_ROWS)
+    return (6 * _align128(4 * r * (d + 4)) + 2 * _align128(4 * r * (r + 4))
+            + 2 * _align128(4 * r))
+
+
+def _fwd_smem_f32(d: int) -> int:
+    """Shared memory of a float block of the streamed forward
+    (csrc/flash_fwd.cuh flash_smem_f32)."""
+    return (4 * _align128(4 * _F32_ROWS * (d + 4))
+            + _align128(4 * _F32_ROWS * (_F32_ROWS + 4))
+            + _align128(4 * _F32_ROWS))
 
 
 def fits_single_block(s: int) -> bool:
@@ -249,12 +295,7 @@ def _check_mha_args(qkv: torch.Tensor, heads: int, kv_len: int,
             raise ValueError(f"the bfloat16 kernel is compiled for head dims "
                              f"{_BF16_HEAD_DIMS}, got {d}")
         if backward:
-            # own rows and two buffers of streamed rows (up to 64 rows,
-            # padded by 8), two tensors each; lse and delta of the
-            # queries, in whole tiles
-            r = min(sp, 64)
-            need = (6 * _align128(2 * r * (d + 8))
-                    + 2 * _align128(4 * _round_up(sp, r)))
+            need = _bwd_smem_bf16(sp, d)
         else:
             # 64 queries, and K and V of kv_len rounded up to 32 rows,
             # rows padded by 8
@@ -264,12 +305,7 @@ def _check_mha_args(qkv: torch.Tensor, heads: int, kv_len: int,
             raise ValueError(f"the float32 kernel needs a head dim that is a "
                              f"multiple of 4, got {d}")
         if backward:
-            # own rows, streamed rows and outputs (up to 32 rows, two
-            # tensors each); p and ds; lse and delta of the queries
-            r = min(sp, 32)
-            need = (6 * _align128(4 * r * (d + 4))
-                    + 2 * _align128(4 * r * (r + 4))
-                    + 2 * _align128(4 * _round_up(sp, r)))
+            need = _bwd_smem_f32(sp, d)
         else:
             need = ((2 * 32 + 2 * sp) * (d + 4) + 32 * (sp + 4) + 64) * 4 \
                 + 1024
@@ -290,6 +326,17 @@ def _check_rc(lib, rc, what):
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _require(device, *specs) -> None:
+    """Raise unless each (name, tensor, shape, dtype) of ``specs`` is a
+    contiguous tensor of that shape and dtype on ``device``."""
+    for name, t, shape, dtype in specs:
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dtype} tensor of "
+                             f"shape {shape} on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def _mha_cuda(qkv, heads, scale, kv_len, rate=0.0, seed=0):
@@ -315,15 +362,9 @@ def _mha_cuda(qkv, heads, scale, kv_len, rate=0.0, seed=0):
 def _mha_bwd_cuda(qkv, o, lse, do, heads, scale, kv_len, rate=0.0, seed=0):
     d = _check_mha_args(qkv, heads, kv_len, backward=True)
     b, s, _ = qkv.shape
-    for name, t, shape, dtype in (
-            ("o", o, (b, s, heads * d), qkv.dtype),
-            ("do", do, (b, s, heads * d), qkv.dtype),
-            ("lse", lse, (b, s, heads), torch.float32)):
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or t.device != qkv.device or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} tensor of "
-                             f"shape {shape} on {qkv.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+    _require(qkv.device, ("o", o, (b, s, heads * d), qkv.dtype),
+             ("do", do, (b, s, heads * d), qkv.dtype),
+             ("lse", lse, (b, s, heads), torch.float32))
     from devt_tpu_torch.ops import _build
 
     lib = _build.load("mha_bwd", _declare_bwd)
@@ -450,14 +491,6 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
 # Attention on split q, k, v: kernels 9, 10 and 11
 # ---------------------------------------------------------------------------
 
-_BLOCKED_BWD_TODO = (
-    "the gradient of flash_attention above one kv block (Sq != Skv or S > "
-    "512) needs the blockwise backward kernels 12 and 13 "
-    "(devt_tpu/ops/flash_attention.py:158 _bwd_dq_kernel, :198 "
-    "_bwd_dkv_kernel), which are not ported yet — ROADMAP.md queue 2; "
-    "evaluate under torch.no_grad(), or use attention_impl='xla' to train")
-
-
 def _scores(q, k, scale, kv_len, k0=0):
     """f32 scores q kᵀ·scale of (…, Sq, d) and (…, n, d), key columns
     k0 + j at or past kv_len at -1e30."""
@@ -525,6 +558,44 @@ def flash_blocked_fwd_plain(q, k, v, scale, kv_len):
     return (acc / l).to(q.dtype), (m + torch.log(l)).reshape(-1, q.shape[-2])
 
 
+def flash_blocked_bwd_plain(q, k, v, o, lse, do, scale, kv_len):
+    """Plain PyTorch version of kernels 12 and 13 (``_bwd_dq_kernel``,
+    ``_bwd_dkv_kernel``), block by block as the TPU kernels run: from q
+    (B, H, Sq, d), k and v (B, H, Skv, d), the stored o and its gradient do
+    (B, H, Sq, d) and lse (B·H, Sq) f32, with delta = rowsum(f32(do) ·
+    f32(o)) and, per block, p = exp(s - lse) and ds = p · (do vᵀ - delta) ·
+    scale:
+
+        dq = Σ over 128-key blocks    round(ds) @ k    (to k's dtype)
+        dv = Σ over 128-query blocks  round(p)ᵀ @ do   (to do's dtype)
+        dk = Σ over 128-query blocks  round(ds)ᵀ @ q   (to q's dtype)
+
+    each product and each sum in f32; (dq, dk, dv) in the dtypes of (q, k,
+    v).  Key columns at or past kv_len have p = 0.  The TPU wrapper pads Sq
+    with zero rows, whose zero do makes their terms exact zeros; here the
+    last query block is short instead."""
+    do32 = do.float()
+    delta = (do32 * o.float()).sum(dim=-1, keepdim=True)
+    lse = lse.reshape(*q.shape[:-1], 1)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, k.shape[-2], _BLOCK_KV):
+        kb, vb = k[..., k0:k0 + _BLOCK_KV, :], v[..., k0:k0 + _BLOCK_KV, :]
+        p = torch.exp(_scores(q, kb, scale, kv_len, k0) - lse)
+        ds = p * (do32 @ vb.float().transpose(-1, -2) - delta) * scale
+        dq += ds.to(k.dtype).float() @ kb.float()
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, q.shape[-2], _BLOCK_KV):
+        rows = slice(q0, q0 + _BLOCK_KV)
+        qb, dob = q[..., rows, :], do32[..., rows, :]
+        p = torch.exp(_scores(qb, k, scale, kv_len) - lse[..., rows, :])
+        dv += p.to(do.dtype).float().transpose(-1, -2) @ dob
+        ds = p * (dob @ v.float().transpose(-1, -2)
+                  - delta[..., rows, :]) * scale
+        dk += ds.to(q.dtype).float().transpose(-1, -2) @ qb.float()
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
@@ -566,18 +637,12 @@ def _check_flash_args(q, k, v, kv_len, backward: bool = False) -> int:
                              f"dims {_BF16_HEAD_DIMS}, got {d}")
     else:
         # q, k, v and o tiles of 32 rows, the 32 x 32 score tile, a row's
-        # alpha (csrc/flash_fwd.cu flash_smem_f32); the backward's tiles
-        # (attention_bwd.cuh mha_bwd_smem_f32) are smaller up to 512 keys
-        need = (4 * _align128(4 * _F32_ROWS * (d + 4))
-                + _align128(4 * _F32_ROWS * (_F32_ROWS + 4))
-                + _align128(4 * _F32_ROWS))
+        # alpha (csrc/flash_fwd.cuh flash_smem_f32); with ``backward``
+        # also the backward's tiles
+        need = _fwd_smem_f32(d)
         if backward:
-            # kernel 4's float tiles (csrc/attention_bwd.cuh)
-            sp = _round_up(q.shape[2], 16)
-            r = min(sp, _F32_ROWS)
-            need = max(need, 6 * _align128(4 * r * (d + 4))
-                       + 2 * _align128(4 * r * (r + 4))
-                       + 2 * _align128(4 * _round_up(sp, r)))
+            need = max(need, _bwd_smem_f32(_round_up(max(q.shape[2], skv),
+                                                      16), d))
         if d % 4 or need > _SMEM_PER_BLOCK:
             raise ValueError(f"the float32 kernels need a head dim that is a "
                              f"multiple of 4 whose tiles fit a block's "
@@ -610,21 +675,23 @@ def _flash_fwd_cuda(q, k, v, scale, kv_len, online):
     return o, lse
 
 
+def _check_bwd_inputs(q, o, lse, do) -> None:
+    """Raise unless o and do are contiguous (B, H, Sq, d) in q's dtype and
+    lse a contiguous (B·H, Sq) f32 tensor, on q's device."""
+    b, h, sq, d = q.shape
+    _require(q.device, ("o", o, (b, h, sq, d), q.dtype),
+             ("do", do, (b, h, sq, d), q.dtype),
+             ("lse", lse, (b * h, sq), torch.float32))
+
+
 def _flash_bwd_cuda(q, k, v, o, lse, do, scale, kv_len):
     d = _check_flash_args(q, k, v, kv_len, backward=True)
-    b, h, s, _ = q.shape
-    for name, t, shape, dtype in (
-            ("o", o, (b, h, s, d), q.dtype), ("do", do, (b, h, s, d), q.dtype),
-            ("lse", lse, (b * h, s), torch.float32)):
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} tensor of "
-                             f"shape {shape} on {q.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+    _check_bwd_inputs(q, o, lse, do)
     from devt_tpu_torch.ops import _build
 
     lib = _build.load("flash_bwd", _declare_flash_bwd)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    b, h, s, _ = q.shape
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     delta = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
@@ -642,17 +709,70 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, scale, kv_len):
     return dq, dk, dv
 
 
-class FlashSingle(torch.autograd.Function):
-    """The single-block attention with its backward: kernels 9 and 10 for
-    CUDA tensors, the plain versions for CPU tensors.  Saves (q, k, v, o,
-    lse), as the JAX ``custom_vjp`` does."""
+def _flash_blocked_call(part, q, k, v, o, lse, do, delta, outs, scale,
+                        kv_len):
+    """One call of ``devt_flash_blocked_bwd``: part 1 writes delta and dq
+    (outs[0]), part 2 dk and dv (outs[1], outs[2]) from that delta."""
+    d = _check_flash_args(q, k, v, kv_len, backward=True)
+    _check_bwd_inputs(q, o, lse, do)
+    from devt_tpu_torch.ops import _build
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale, kv_len):
+    lib = _build.load("flash_bwd", _declare_flash_bwd)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    b, h, sq, _ = q.shape
+    strides = (ctypes.c_longlong * 9)(*_strides(q), *_strides(k),
+                                      *_strides(v))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.devt_flash_blocked_bwd(
+            _DTYPE_CODE[q.dtype], part, _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+            _ptr(do), _ptr(lse), _ptr(delta), *(_ptr(t) for t in outs), b,
+            h, sq, k.shape[2], d, int(kv_len), strides,
+            ctypes.c_float(scale), ctypes.c_void_p(stream))
+    _check_rc(lib, rc, f"flash_blocked_bwd part {part}")
+
+
+def _flash_blocked_dq_cuda(q, k, v, o, lse, do, scale, kv_len):
+    """Kernel 12: delta = rowsum(do · o), then dq → (dq, delta)."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    _flash_blocked_call(1, q, k, v, o, lse, do, delta, (dq, dq, dq), scale,
+                        kv_len)
+    flash_attention.blocked_dq_launches += 1
+    return dq, delta
+
+
+def _flash_blocked_dkv_cuda(q, k, v, o, lse, do, delta, scale, kv_len):
+    """Kernel 13: dk and dv from the delta of kernel 12."""
+    dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    _flash_blocked_call(2, q, k, v, o, lse, do, delta, (dk, dk, dv), scale,
+                        kv_len)
+    flash_attention.blocked_dkv_launches += 1
+    return dk, dv
+
+
+def _flash_blocked_bwd_cuda(q, k, v, o, lse, do, scale, kv_len):
+    dq, delta = _flash_blocked_dq_cuda(q, k, v, o, lse, do, scale, kv_len)
+    return (dq, *_flash_blocked_dkv_cuda(q, k, v, o, lse, do, delta, scale,
+                                         kv_len))
+
+
+class _Flash(torch.autograd.Function):
+    """The split-q/k/v attention with its backward, saving (q, k, v, o,
+    lse) as the JAX ``custom_vjp``s do: kernels for CUDA tensors, the plain
+    versions for CPU tensors.  ``FlashSingle`` and ``FlashBlocked`` name the
+    two pairs."""
+
+    fwd_plain = bwd_plain = bwd_cuda = None
+    online = False
+
+    @classmethod
+    def forward(cls, ctx, q, k, v, scale, kv_len):
         if q.device.type == "cuda":
-            o, lse = _flash_fwd_cuda(q, k, v, scale, kv_len, online=False)
+            o, lse = _flash_fwd_cuda(q, k, v, scale, kv_len, cls.online)
         elif q.device.type == "cpu":
-            o, lse = flash_single_fwd_plain(q, k, v, scale, kv_len)
+            o, lse = cls.fwd_plain(q, k, v, scale, kv_len)
         else:
             raise ValueError(f"flash_attention runs on cuda or cpu, not "
                              f"{q.device}")
@@ -661,32 +781,48 @@ class FlashSingle(torch.autograd.Function):
         ctx.mark_non_differentiable(lse)
         return o, lse
 
-    @staticmethod
-    def backward(ctx, do, _dlse):
+    @classmethod
+    def backward(cls, ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
         scale, kv_len = ctx.args
         # the gradient crosses the kernel boundary in q's dtype
         do = do.to(q.dtype).contiguous()
-        if q.device.type == "cuda":
-            dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, do, scale, kv_len)
-        else:
-            dq, dk, dv = flash_single_bwd_plain(q, k, v, o, lse, do, scale,
-                                                kv_len)
+        run = cls.bwd_cuda if q.device.type == "cuda" else cls.bwd_plain
+        dq, dk, dv = run(q, k, v, o, lse, do, scale, kv_len)
         return dq, dk, dv, None, None
+
+
+class FlashSingle(_Flash):
+    """Sq == Skv ≤ 512: kernels 9 and 10 (``_flash_single``'s VJP)."""
+
+    fwd_plain = staticmethod(flash_single_fwd_plain)
+    bwd_plain = staticmethod(flash_single_bwd_plain)
+    bwd_cuda = staticmethod(_flash_bwd_cuda)
+
+
+class FlashBlocked(_Flash):
+    """Above one kv block: kernel 11 and kernels 12, 13 (``_flash_padded``'s
+    VJP)."""
+
+    fwd_plain = staticmethod(flash_blocked_fwd_plain)
+    bwd_plain = staticmethod(flash_blocked_bwd_plain)
+    bwd_cuda = staticmethod(_flash_blocked_bwd_cuda)
+    online = True
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None, kv_len: int | None = None,
                     return_lse: bool = False):
-    """Softmax attention on split heads: q (B, H, Sq, d), k and v (B, H,
-    Skv, d) → o (B, H, Sq, d) in q's dtype; with ``return_lse`` also lse
-    (B·H, Sq) f32 (not differentiable).  ``scale`` defaults to d^-0.5;
-    ``kv_len`` masks key positions at and beyond it (default Skv).
+    """Softmax attention on split heads, differentiable in q, k and v: q
+    (B, H, Sq, d), k and v (B, H, Skv, d) → o (B, H, Sq, d) in q's dtype;
+    with ``return_lse`` also lse (B·H, Sq) f32 (not differentiable).
+    ``scale`` defaults to d^-0.5; ``kv_len`` masks key positions at and
+    beyond it (default Skv).
 
     Sq == Skv ≤ 512 (the JAX rule, ``fits_single_block``) takes kernel 9,
-    differentiable through kernel 10; anything else kernel 11, whose
-    backward is not ported: an input that needs a gradient under grad mode
-    raises ``NotImplementedError`` before any launch, on either device.
+    its backward kernel 10; anything else kernel 11, its backward kernels
+    12 and 13.  An input that needs a gradient, on the card, is checked
+    against the backward's limits before the forward runs.
 
     A CUDA tensor launches the kernels (raising on a shape they do not
     cover or a failed launch); a CPU tensor runs the plain versions."""
@@ -696,29 +832,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     skv = k.shape[2]
     scale = float(d ** -0.5 if scale is None else scale)
     kv_len = skv if kv_len is None else int(kv_len)
-    grad = torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v))
-    if sq == skv and fits_single_block(sq):
-        if grad and q.device.type == "cuda":
-            # a shape the backward does not take fails before the work
-            _check_flash_args(q, k, v, kv_len, backward=True)
-        o, lse = FlashSingle.apply(q, k, v, scale, kv_len)
-        return (o, lse) if return_lse else o
-    if grad:
-        raise NotImplementedError(_BLOCKED_BWD_TODO)
-    if q.device.type == "cuda":
-        o, lse = _flash_fwd_cuda(q, k, v, scale, kv_len, online=True)
-    elif q.device.type == "cpu":
-        o, lse = flash_blocked_fwd_plain(q, k, v, scale, kv_len)
-    else:
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
+    if q.device.type == "cuda" and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in (q, k, v)):
+        # a shape the backward does not take fails before the work
+        _check_flash_args(q, k, v, kv_len, backward=True)
+    fn = FlashSingle if sq == skv and fits_single_block(sq) else FlashBlocked
+    o, lse = fn.apply(q, k, v, scale, kv_len)
     return (o, lse) if return_lse else o
 
 
 flash_attention.single_launches = 0
 flash_attention.single_bwd_launches = 0
 flash_attention.blocked_launches = 0
+flash_attention.blocked_dq_launches = 0
+flash_attention.blocked_dkv_launches = 0
 
 
 def _declare_flash_fwd(lib: ctypes.CDLL) -> None:
@@ -737,5 +864,192 @@ def _declare_flash_bwd(lib: ctypes.CDLL) -> None:
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
            ctypes.c_void_p])
     lib.devt_flash_bwd.restype = ctypes.c_int
+    lib.devt_flash_blocked_bwd.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+           ctypes.c_void_p])
+    lib.devt_flash_blocked_bwd.restype = ctypes.c_int
+    lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.devt_cuda_error_string.restype = ctypes.c_char_p
+
+
+# ---------------------------------------------------------------------------
+# One hop of ring attention: kernels 14 and 15
+# ---------------------------------------------------------------------------
+
+def _ring_heads(q, kv, heads: int):
+    """Per head i: (q_i, k_i, v_i) column slices of q (B, S, H·D) and the
+    packed kv (B, S, 2·H·D): k_i at columns i·D, v_i at (H + i)·D."""
+    d = q.shape[-1] // heads
+    return [(q[..., i * d:(i + 1) * d], kv[..., i * d:(i + 1) * d],
+             kv[..., (heads + i) * d:(heads + i + 1) * d])
+            for i in range(heads)]
+
+
+def ring_step_fwd_plain(q, kv, mask, heads: int, scale: float):
+    """Plain PyTorch version of kernel 14 (``_ring_fwd_kernel``): q
+    (B, S, H·D) the local queries, kv (B, S, 2·H·D) the packed shard held
+    now, mask (1, S) an additive f32 column bias (0 or -1e30) → o
+    (B, S, H·D) in q's dtype and lse (B, S, H) f32, per head
+
+        s = q kᵀ · scale + mask;  m = max s;  p = exp(s - m);  l = Σ p
+        o = round(p / l) @ v (round: the cast to v's dtype);  lse = m + log l
+
+    A shard whose columns are all masked gives p = 1, l = S, a finite o
+    and lse = -1e30 + log S."""
+    outs, lses = [], []
+    bias = mask.reshape(1, 1, -1).float()
+    for qi, ki, vi in _ring_heads(q, kv, heads):
+        s = (qi.float() @ ki.float().transpose(1, 2)) * scale + bias
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        outs.append(((p / l).to(vi.dtype).float() @ vi.float()).to(q.dtype))
+        lses.append(m + torch.log(l))
+    return torch.cat(outs, dim=-1), torch.cat(lses, dim=-1)
+
+
+def ring_step_bwd_plain(q, kv, mask, o, lse, do, heads: int, scale: float):
+    """Plain PyTorch version of kernel 15 (``_ring_bwd_kernel``): with o and
+    do (B, S, H·D) in q's dtype and ``lse`` (B, S, H) f32, the GLOBAL
+    logsumexp of the whole ring, per head
+
+        delta = rowsum(f32(do) · f32(o));  p = exp(q kᵀ · scale + mask - lse)
+        dv = round(p)ᵀ @ do;   ds = p · (do vᵀ - delta) · scale
+        dq = round(ds) @ k;    dk = round(ds)ᵀ @ q
+
+    every product in f32, round() the cast to the other operand's dtype →
+    f32 partials dq (B, S, H·D) and dkv (B, S, 2·H·D), packed like kv."""
+    bias = mask.reshape(1, 1, -1).float()
+    d = q.shape[-1] // heads
+    dqs, dks, dvs = [], [], []
+    for i, (qi, ki, vi) in enumerate(_ring_heads(q, kv, heads)):
+        cols = slice(i * d, (i + 1) * d)
+        do32 = do[..., cols].float()
+        delta = (do32 * o[..., cols].float()).sum(dim=-1, keepdim=True)
+        s = (qi.float() @ ki.float().transpose(1, 2)) * scale + bias
+        p = torch.exp(s - lse[..., i:i + 1])
+        dvs.append(p.to(do.dtype).float().transpose(1, 2) @ do32)
+        ds = p * (do32 @ vi.float().transpose(1, 2) - delta) * scale
+        dqs.append(ds.to(ki.dtype).float() @ ki.float())
+        dks.append(ds.to(qi.dtype).float().transpose(1, 2) @ qi.float())
+    return torch.cat(dqs, dim=-1), torch.cat(dks + dvs, dim=-1)
+
+
+def _check_ring_args(q, kv, mask, heads: int, backward: bool = False) -> int:
+    """Raise on what kernels 14 (with ``backward``, also 15) do not take;
+    returns the head dim."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the ring step takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if q.dim() != 3 or q.shape[-1] % heads:
+        raise ValueError(f"q must be (B, S, H*D) with H = {heads}, got "
+                         f"{tuple(q.shape)}")
+    b, s, hd = q.shape
+    d = hd // heads
+    _require(q.device, ("q", q, (b, s, hd), q.dtype),
+             ("kv", kv, (b, s, 2 * hd), q.dtype),
+             ("mask", mask, (1, s), torch.float32))
+    if q.dtype == torch.bfloat16:
+        if d not in _BF16_HEAD_DIMS:
+            raise ValueError(f"the bfloat16 kernels are compiled for head "
+                             f"dims {_BF16_HEAD_DIMS}, got {d}")
+        if q.data_ptr() % 16 or kv.data_ptr() % 16:
+            raise ValueError("bfloat16 q and kv must be 16-byte aligned")
+    else:
+        need = _fwd_smem_f32(d)
+        if backward:
+            need = max(need, _bwd_smem_f32(_round_up(s, 16), d))
+        if d % 4 or need > _SMEM_PER_BLOCK:
+            raise ValueError(f"the float32 kernels need a head dim that is a "
+                             f"multiple of 4 whose tiles fit a block's "
+                             f"shared memory; got {d} ({need} bytes)")
+    return d
+
+
+def ring_step_fwd(q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor, *,
+                  heads: int, scale: float):
+    """One forward ring hop (JAX's ``ring_step_fwd``): q (B, S, H·D) local
+    queries, kv (B, S, 2·H·D) the packed shard held now, mask (1, S) the
+    additive f32 column bias → per-head block-normalised o (B, S, H·D) in
+    q's dtype and lse (B, S, H) f32.  The TPU kernel broadcasts lse over
+    128 lanes per head, (B, S, H·128); here it is one value per row and
+    head, what ``_lse_heads`` makes of the TPU layout.
+
+    A CUDA tensor launches kernel 14 (or raises); a CPU tensor runs its
+    plain version."""
+    if q.device.type == "cpu":
+        return ring_step_fwd_plain(q, kv, mask, heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_step_fwd runs on cuda or cpu, not {q.device}")
+    d = _check_ring_args(q, kv, mask, heads)
+    from devt_tpu_torch.ops import _build
+
+    lib = _build.load("ring_step", _declare_ring)
+    b, s, hd = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, s, heads), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.devt_ring_step_fwd(
+            _DTYPE_CODE[q.dtype], _ptr(q), _ptr(kv), _ptr(mask), _ptr(o),
+            _ptr(lse), b, s, heads, d, ctypes.c_float(scale),
+            ctypes.c_void_p(stream))
+    _check_rc(lib, rc, "ring_step_fwd")
+    ring_step_fwd.launches += 1
+    return o, lse
+
+
+def ring_step_bwd(q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  heads: int, scale: float):
+    """One backward ring hop (JAX's ``ring_step_bwd``): the gradients of the
+    global attention output with respect to the local q and the shard kv,
+    given the stored o, its gradient do (B, S, H·D) in q's dtype and the
+    global lse (B, S, H) f32 → f32 partials dq (B, S, H·D) and dkv
+    (B, S, 2·H·D), which sum across hops (in bf16 they would round n
+    times).
+
+    A CUDA tensor launches kernel 15 (or raises); a CPU tensor runs its
+    plain version."""
+    if q.device.type == "cpu":
+        return ring_step_bwd_plain(q, kv, mask, o, lse, do, heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_step_bwd runs on cuda or cpu, not {q.device}")
+    d = _check_ring_args(q, kv, mask, heads, backward=True)
+    b, s, hd = q.shape
+    _require(q.device, ("o", o, (b, s, hd), q.dtype),
+             ("do", do, (b, s, hd), q.dtype),
+             ("lse", lse, (b, s, heads), torch.float32))
+    from devt_tpu_torch.ops import _build
+
+    lib = _build.load("ring_step", _declare_ring)
+    dq = torch.empty((b, s, hd), dtype=torch.float32, device=q.device)
+    dkv = torch.empty((b, s, 2 * hd), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, s, heads), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.devt_ring_step_bwd(
+            _DTYPE_CODE[q.dtype], _ptr(q), _ptr(kv), _ptr(mask), _ptr(o),
+            _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dkv), b, s,
+            heads, d, ctypes.c_float(scale), ctypes.c_void_p(stream))
+    _check_rc(lib, rc, "ring_step_bwd")
+    ring_step_bwd.launches += 1
+    return dq, dkv
+
+
+ring_step_fwd.launches = 0
+ring_step_bwd.launches = 0
+
+
+def _declare_ring(lib: ctypes.CDLL) -> None:
+    lib.devt_ring_step_fwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.devt_ring_step_fwd.restype = ctypes.c_int
+    lib.devt_ring_step_bwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.devt_ring_step_bwd.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p

@@ -808,21 +808,25 @@ def test_flash_bwd_kernel_matches_plain(card, kind, b, h, s, d, kv_len,
 
 @pytest.mark.cuda
 def test_flash_refusals_and_dispatch(card):
-    """No bf16 instance at head dim 48; the blockwise gradient is refused
-    before any launch; ``"pallas"`` with dropout raises as JAX's does, and
-    ``"auto"`` with dropout runs the plain attention (no launch)."""
+    """No bf16 instance at head dim 48; a blockwise gradient whose float
+    tiles the backward cannot hold (head dim 288) is refused before any
+    launch; ``"pallas"`` with dropout raises as JAX's does, and ``"auto"``
+    with dropout runs the plain attention (no launch)."""
     from devt_tpu_torch.models.layers import DropoutRng
     from devt_tpu_torch.ops import attention as tatt
 
     with pytest.raises(ValueError, match="head dims"):
         z = torch.zeros(1, 2, 16, 48, device="cuda", dtype=torch.bfloat16)
         tfa.flash_attention(z, z, z)
-    q = torch.zeros(1, 1, 520, 64, device="cuda", requires_grad=True)
+    q = torch.zeros(1, 1, 520, 288, device="cuda", requires_grad=True)
     counts = (tfa.flash_attention.single_launches,
               tfa.flash_attention.blocked_launches,
               tfa.flash_attention.single_bwd_launches)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="shared memory"):
         tfa.flash_attention(q, q, q)
+    with torch.no_grad():  # the forward alone takes it
+        assert tfa.flash_attention(q, q, q).shape == q.shape
+    counts = (counts[0], counts[1] + 1, counts[2])
     x = torch.randn(2, 2, 40, 32, device="cuda")
     with pytest.raises(NotImplementedError, match="dropout"):
         tatt.scaled_dot_product_attention(x, x, x, impl="pallas",
@@ -927,9 +931,10 @@ def test_vivit_above_one_kv_block_evaluates_and_refuses_training(card, kind):
     launch of kernel 11 in evaluation, in the model dtype and in int8;
     the scores agree with the CPU's plain path within chip_smoke's limits
     (f32 1e-4; bf16 2e-2; int8 4e-2, where an activation next to a
-    rounding boundary takes the other int8 code on one machine); a
-    training step raises the ROADMAP refusal before any launch of
-    kernels 9-11."""
+    rounding boundary takes the other int8 code on one machine).  A
+    training step, refused before kernels 12 and 13 were ported, now runs
+    each space block through kernel 11 and its backward, kernels 12 and
+    13, and no kernel 1-10."""
     from devt_tpu_torch.ops.attention import quant_scope
 
     model = _vivit(kind, image_size=96, patch_size=4, dim=64, heads=2,
@@ -946,7 +951,194 @@ def test_vivit_above_one_kv_block_evaluates_and_refuses_training(card, kind):
             want = torch.sigmoid(cpu(x).float())
         assert _delta(before) == [0, 0, 0, 0, 0, 0, 0, 2]
         torch.testing.assert_close(got, want, atol=atol, rtol=0)
-    before = _flash_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _vivit_step(model.train(), kind, 96)
-    assert _delta(before) == [0] * 8
+    before, blocked = _flash_counts(), _blocked_bwd_counts()
+    _vivit_step(model.train(), kind, 96)
+    assert _delta(before) == [0] * 7 + [2]
+    assert [a - b for a, b in zip(_blocked_bwd_counts(), blocked)] == [2, 2]
+
+
+# ---------------------------------------------------------------------------
+# the blockwise backward (kernels 12 and 13) and the ring hop (14 and 15)
+# ---------------------------------------------------------------------------
+
+def _blocked_bwd_counts():
+    return (tfa.flash_attention.blocked_dq_launches,
+            tfa.flash_attention.blocked_dkv_launches)
+
+
+def _bwd_within(kind, tag, got, want):
+    """Each gradient within BWD_ULPS of its plain version's largest
+    element."""
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = (g.float() - w.float()).abs().max().item()
+        bound = BWD_ULPS[kind] * EPS[kind] * w.float().abs().max().item()
+        assert err <= bound, f"{kind} {tag} {name}: {err:.3e} > {bound:.3e}"
+
+
+# (b, h, sq, skv, d, kv_len, strided): ViViT's 592 tokens as head views of
+# a packed qkv, Sq != Skv, head dims 256 and 128 above one kv block
+FLASH_BLOCKED_SHAPES = [
+    (2, 3, 592, 592, 64, 577, True), (1, 2, 40, 300, 32, 290, False),
+    (1, 1, 600, 600, 256, 577, False), (2, 2, 520, 520, 128, 519, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,sq,skv,d,kv_len,strided", FLASH_BLOCKED_SHAPES)
+def test_flash_blocked_bwd_kernels_match_plain(card, kind, b, h, sq, skv, d,
+                                               kv_len, strided):
+    """Kernels 12 and 13 through ``flash_attention`` and autograd, one
+    launch each: dq, dk, dv against the plain backward on the forward's
+    (o, lse) within the backward bound; keys past kv_len get exact zeros;
+    two runs give the same bits."""
+    q, k, v = _flash_inputs(kind, b, h, sq, skv, d, strided, sq + skv + d)
+    do = torch.randn(b, h, sq, d, generator=torch.Generator().manual_seed(
+        11)).to(DTYPE[kind]).cuda()
+
+    def run():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o, lse = tfa.flash_attention(*leaves, kv_len=kv_len,
+                                     return_lse=True)
+        return (o.detach(), lse, *torch.autograd.grad(o, leaves, do))
+
+    before = _blocked_bwd_counts()
+    o, lse, *got = run()
+    torch.cuda.synchronize()
+    assert [a - b_ for a, b_ in zip(_blocked_bwd_counts(), before)] == [1, 1]
+    want = tfa.flash_blocked_bwd_plain(q, k, v, o, lse, do, d ** -0.5,
+                                       kv_len)
+    _bwd_within(kind, f"({b},{h},{sq},{skv},{d})", got, want)
+    for g in got[1:]:
+        assert not g[:, :, kv_len:].any()
+    again = run()[2:]
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+# (b, s, heads, d, live columns of the shard): the sequence-parallel
+# bench's shape with its 197 live of 208, a partial and a wholly masked
+# small shard, head dim 256
+RING_SHAPES = [(4, 208, 3, 64, 197), (2, 48, 2, 16, 30), (2, 48, 2, 16, 0),
+               (1, 160, 1, 256, 150)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("b,s,heads,d,live", RING_SHAPES)
+def test_ring_step_kernels_match_plain(card, kind, b, s, heads, d, live):
+    """Kernel 14 against its plain version (o at the forward gate, lse at
+    1e-4 in f32 and the forward gate in bf16; a masked shard's o finite,
+    its lse -1e30 + log S), and kernel 15 against its plain version on the
+    global lse (the unmasked shard's): f32 dq and dkv within the backward
+    bound, exact zeros for a masked shard, two runs bit-equal."""
+    gen = torch.Generator().manual_seed(s + d + live)
+    q = torch.randn(b, s, heads * d, generator=gen).to(DTYPE[kind]).cuda()
+    kv = torch.randn(b, s, 2 * heads * d, generator=gen).to(
+        DTYPE[kind]).cuda()
+    do = torch.randn(b, s, heads * d, generator=gen).to(DTYPE[kind]).cuda()
+    col = torch.arange(s, device="cuda")[None]
+    mask = torch.where(col < live, 0.0, tfa.NEG_INF).float()
+    full = torch.zeros(1, s, device="cuda")
+    scale = d ** -0.5
+    before = (tfa.ring_step_fwd.launches, tfa.ring_step_bwd.launches)
+    o, lse = tfa.ring_step_fwd(q, kv, mask, heads=heads, scale=scale)
+    wo, wlse = tfa.ring_step_fwd_plain(q, kv, mask, heads, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), wo.float(), **TOL[kind])
+    lse_tol = dict(atol=1e-4, rtol=1e-4) if kind == "f32" else TOL["bf16"]
+    torch.testing.assert_close(lse, wlse, **lse_tol)
+    og, lse_g = tfa.ring_step_fwd(q, kv, full, heads=heads, scale=scale)
+
+    def bwd():
+        return tfa.ring_step_bwd(q, kv, mask, og, lse_g, do, heads=heads,
+                                 scale=scale)
+
+    got = bwd()
+    want = tfa.ring_step_bwd_plain(q, kv, mask, og, lse_g, do, heads, scale)
+    torch.cuda.synchronize()
+    assert (tfa.ring_step_fwd.launches, tfa.ring_step_bwd.launches) == (
+        before[0] + 2, before[1] + 1)
+    for name, g, w in zip(("dq", "dkv"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = (g - w).abs().max().item()
+        bound = BWD_ULPS[kind] * EPS[kind] * w.abs().max().item()
+        assert err <= bound, f"{kind} {name}: {err:.3e} > {bound:.3e}"
+    if live == 0:
+        assert not got[0].any() and not got[1].any()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, bwd()))
+
+
+@pytest.mark.cuda
+def test_one_rank_ring_runs_kernels_14_and_15(card):
+    """``ring_mha_split`` with ``group=None`` under autograd: one launch of
+    kernel 14 and one of kernel 15, and the CPU's plain path's output and
+    gradients (f32: sums in other orders)."""
+    from devt_tpu_torch.parallel.ring_attention import ring_mha_split
+
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 197, 3 * 64, generator=gen)
+    kv = torch.randn(2, 197, 6 * 64, generator=gen)
+    w = torch.randn(2, 197, 3 * 64, generator=gen)
+    out = []
+    for device in ("cuda", "cpu"):
+        leaves = [t.to(device).requires_grad_(True) for t in (q, kv)]
+        before = (tfa.ring_step_fwd.launches, tfa.ring_step_bwd.launches)
+        o = ring_mha_split(*leaves, heads=3, kv_len=190)
+        (o * w.to(device)).sum().backward()
+        counts = (tfa.ring_step_fwd.launches - before[0],
+                  tfa.ring_step_bwd.launches - before[1])
+        assert counts == ((1, 1) if device == "cuda" else (0, 0))
+        out.append([o.detach().cpu(), *(t.grad.cpu() for t in leaves)])
+    for g, c in zip(*out):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_vivit_at_image_384_trains_through_kernels_11_12_13(card):
+    """ViViT at image 384 (577 space tokens; dim 192, depth 4, 3 heads of
+    64, bf16; 2 frames) through make_train_step: 4 launches each of
+    kernels 11, 12 and 13 and none of kernels 1-10; the gradients on 2
+    clips against the CPU's plain path within chip_smoke's bf16 limit
+    (5e-2 of each leaf's largest element)."""
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.models.vivit import ViViT
+    from devt_tpu_torch.parallel.train_step import make_train_step
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    def vivit():
+        return ViViT(image_size=384, patch_size=16, num_classes=19,
+                     num_frames=2, dim=192, depth=4, heads=3, dim_head=64,
+                     channels_last=True, dtype=torch.bfloat16).init_weights(
+            torch.Generator().manual_seed(0))
+
+    cfg = Config(model="vivit", precision="bf16", n_classes=19, frame_len=2)
+    rng = np.random.default_rng(7)
+    batch = {"vid": rng.standard_normal((2, 2, 384, 384, 3)).astype(
+        np.float32), "label": (rng.random((2, 19)) < 0.3).astype(np.float32)}
+    model = vivit().cuda()
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    before, blocked = _flash_counts(), _blocked_bwd_counts()
+    state, metrics = make_train_step(model, cfg)(state, batch, 0)
+    torch.cuda.synchronize()
+    assert _delta(before) == [0] * 7 + [4]
+    assert [a - b for a, b in zip(_blocked_bwd_counts(), blocked)] == [4, 4]
+    assert torch.isfinite(metrics["loss"])
+
+    grads = []
+    for m, device in ((vivit().cuda(), "cuda"), (vivit(), "cpu")):
+        params = dict(m.named_parameters())
+        loss, _, _ = forward_and_loss(
+            m, cfg, {"params": params},
+            {k: torch.tensor(v, device=device) for k, v in batch.items()},
+            DropoutRng(0), train=True)
+        grads.append(dict(zip(params, torch.autograd.grad(
+            loss, list(params.values())))))
+    for name, c in grads[1].items():
+        gap = (grads[0][name].float().cpu() - c.float()).abs().max().item()
+        assert gap <= GRAD_RTOL * max(c.float().abs().max().item(), 1e-6), \
+            f"{name}: {gap:.3e}"

@@ -16,6 +16,7 @@ bf16: one bf16 ulp (2^-8) of each tensor's largest element, where a sum
 in another order moves a probability across a rounding boundary.
 """
 
+import functools
 import importlib
 
 import jax
@@ -167,25 +168,25 @@ def test_op_gradients_match_jax_grad(b, h, s, d, kv_len):
                                    **GRAD_TOL)
 
 
-def test_blocked_gradient_raises_before_the_forward(monkeypatch):
-    """Above one kv block the backward (kernels 12, 13) is not ported: an
-    input that needs a gradient is refused before any work; evaluation is
-    not."""
-    def no_work(*a, **k):
-        raise AssertionError("the forward ran")
-
-    monkeypatch.setattr(tfa, "flash_blocked_fwd_plain", no_work)
-    monkeypatch.setattr(tfa, "_flash_fwd_cuda", no_work)
-    q = torch.zeros(1, 1, 520, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="12 and 13"):
-        tfa.flash_attention(torch.zeros(1, 1, 8, 16, requires_grad=True),
-                            torch.zeros(1, 1, 20, 16),
-                            torch.zeros(1, 1, 20, 16))
-    monkeypatch.undo()
+def test_blocked_gradient_raises_before_the_forward():
+    """Above one kv block the gradient (kernels 12 and 13, here their plain
+    versions) is computed, where it was refused before the forward until
+    they were ported: S = 520 and Sq != Skv, against autograd through the
+    materialised attention; evaluation runs as before."""
+    for sq, skv, kv_len in ((520, 520, 517), (8, 20, 20)):
+        q, k, v = (torch.tensor(_rand((1, 2, s, 16), i))
+                   for i, s in enumerate((sq, skv, skv)))
+        w = torch.tensor(_rand((1, 2, sq, 16), 3))
+        grads = []
+        for attend in (tfa.flash_attention, functools.partial(
+                tatt.xla_attention, scale=0.25)):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            (attend(*leaves, kv_len=kv_len) * w).sum().backward()
+            grads.append([t.grad for t in leaves])
+        for got, want in zip(*grads):
+            torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-4)
     with torch.no_grad():
-        assert tfa.flash_attention(q, q, q).shape == (1, 1, 520, 16)
+        assert tfa.flash_attention(q, k, v).shape == (1, 2, 8, 16)
 
 
 # (impl, on the accelerator, dropout)

@@ -55,22 +55,25 @@ def test_walk_covers_the_training_slice():
                 "devt_tpu_torch/models/ptn.py",
                 "devt_tpu_torch/serve.py", "devt_tpu_torch/registry.py",
                 # the MoE slice
-                "devt_tpu_torch/parallel/moe.py"):
+                "devt_tpu_torch/parallel/moe.py",
+                # the ring attention slice
+                "devt_tpu_torch/parallel/ring_attention.py"):
         assert rel in walked, rel
 
 
 def test_kernel_sources_build_alone_with_a_plain_c_interface():
     """``_build`` makes one library per ``csrc/*.cu``: the kernels'
-    sources, the MoE slice's attention half and the split-q/k/v attention
-    (kernels 9 and 11, kernel 10) among them, each with its ``extern "C"``
-    entry points and none with PyTorch's headers (which would make nvcc
-    take minutes instead of seconds)."""
+    sources, the MoE slice's attention half, the split-q/k/v attention
+    (kernels 9 and 11; 10, 12 and 13) and the ring hop (kernels 14 and 15)
+    among them, each with its ``extern "C"`` entry points and none with
+    PyTorch's headers (which would make nvcc take minutes instead of
+    seconds)."""
     from devt_tpu_torch.ops import _build
 
     stems = {p.stem for p in _build.sources()}
     assert stems == {"fused_block_fwd", "fused_block_bwd", "quant_block_fwd",
                      "int8_matmul", "mha_fwd", "mha_bwd", "attn_half",
-                     "flash_fwd", "flash_bwd"}
+                     "flash_fwd", "flash_bwd", "ring_step"}
     for path in _build.CSRC.iterdir():
         text = path.read_text()
         assert "torch/" not in text and "ATen" not in text, path.name

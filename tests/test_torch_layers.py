@@ -111,15 +111,20 @@ def test_packed_mha_matches_jax():
 
 def test_packed_mha_pallas_is_not_ported():
     """Single-block sequences reach the packed-qkv kernel's wrapper, longer
-    ones the blockwise forward (kernel 11's plain version on the CPU); what
-    is left unported is the blockwise backward (kernels 12 and 13), so a
-    long sequence that needs a gradient is refused."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.packed_mha(torch.zeros(1, 520, 3 * DIM, requires_grad=True),
-                        heads=HEADS, impl="pallas")
-    long = tatt.packed_mha(torch.zeros(1, 520, 3 * DIM), heads=HEADS,
-                           impl="pallas")
-    assert long.shape == (1, 520, DIM)
+    ones the blockwise kernels (11, and 12 and 13 for the gradient; their
+    plain versions on the CPU), which since the blockwise backward was
+    ported give a long sequence its gradient, the materialised
+    attention's."""
+    qkv = torch.tensor(np.random.default_rng(6).standard_normal(
+        (1, 520, 3 * DIM)).astype(np.float32))
+    grads = []
+    for impl in ("pallas", "xla"):
+        leaf = qkv.clone().requires_grad_(True)
+        out = tatt.packed_mha(leaf, heads=HEADS, impl=impl)
+        assert out.shape == (1, 520, DIM)
+        out.square().sum().backward()
+        grads.append(leaf.grad)
+    torch.testing.assert_close(*grads, atol=5e-5, rtol=5e-4)
     out = tatt.packed_mha(torch.zeros(1, 4, 3 * DIM), heads=HEADS,
                           impl="pallas")
     assert out.shape == (1, 4, DIM)

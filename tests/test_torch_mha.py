@@ -178,15 +178,21 @@ def test_packed_mha_kernel_route_refuses_gradients_and_dropout(monkeypatch):
 
 def test_long_sequences_and_unknown_impls_raise():
     """``"pallas"`` above 512 tokens runs the blockwise forward (kernel
-    11's plain version on CPU tensors); its gradient (kernels 12 and 13)
-    is refused, and so is an unknown impl."""
-    long = torch.zeros(1, 520, 3 * 16)
+    11's plain version on CPU tensors) and its gradient (kernels 12 and
+    13's), which match the materialised attention's; an unknown impl is
+    refused."""
+    long = torch.tensor(np.random.default_rng(5).standard_normal(
+        (1, 520, 3 * 16)).astype(np.float32))
     assert not tfa.fits_single_block(520) and tfa.fits_single_block(512)
     out = tatt.packed_mha(long, heads=1, impl="pallas")
     assert out.shape == (1, 520, 16) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.packed_mha(long.clone().requires_grad_(True), heads=1,
-                        impl="pallas")
+    grads = []
+    for impl in ("pallas", "xla"):
+        leaf = long.clone().requires_grad_(True)
+        tatt.packed_mha(leaf, heads=1, impl=impl, kv_len=509).square() \
+            .sum().backward()
+        grads.append(leaf.grad)
+    torch.testing.assert_close(*grads, atol=5e-5, rtol=5e-4)
     with pytest.raises(ValueError, match="unknown attention impl"):
         tatt.packed_mha(long, heads=1, impl="flash")
     with pytest.raises(ValueError, match="unknown attention impl"):
