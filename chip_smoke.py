@@ -101,8 +101,12 @@ Phases, each printing a line of its own; any failure exits non-zero:
                384), bf16 and f32, against their plain versions; then a
                ragged S with kv_len < S, head dim 256 at S = 512 (which
                kernel 3 cannot take) and Sq != Skv (blockwise however
-               short); times of the kernels, the plain versions and
-               F.scaled_dot_product_attention, the bounds.
+               short); which body each launch ran (kernel 9: the wgmma
+               one-shot body of flash_fwd_sm90.cuh where
+               one_shot_on_wgmma says, else the streamed one) and ptxas'
+               registers and spills of the wgmma body; the kernels', the
+               plain versions' and F.scaled_dot_product_attention's times,
+               all by CUDA graph replay; the bounds.
  19. kernel-flash-bwd — kernel 10 at (1536, 197, 64) and (64, 512, 256),
                bf16 and f32, through flash_attention and autograd against
                the plain backward on the forward's (o, lse), two runs bit
@@ -136,7 +140,8 @@ Phases, each printing a line of its own; any failure exits non-zero:
  24. kernel-ring — kernels 14 and 15 at the sequence-parallel bench's
                shape (512 sequences of 208 tokens, 197 live, 3 heads of
                64), bf16 and f32, against their plain versions, two
-               backward runs bit for bit; times, bounds and
+               backward runs bit for bit; kernel 14's body and ptxas
+               report; times (CUDA graph replay), bounds and
                F.scaled_dot_product_attention with the same additive mask;
                a 4-rank ring run hop by hop on the card (592 tokens in 4
                chunks of 148, kv_len 577) against flash_attention and its
@@ -1780,8 +1785,55 @@ def _zero_counts() -> None:
     tq.quant_fused_vit_block.launches = 0
     fa = tfa.flash_attention
     fa.single_launches = fa.single_bwd_launches = fa.blocked_launches = 0
+    fa.single_wgmma_launches = fa.single_streamed_launches = 0
     fa.blocked_dq_launches = fa.blocked_dkv_launches = 0
     tfa.ring_step_fwd.launches = tfa.ring_step_bwd.launches = 0
+    tfa.ring_step_fwd.wgmma_launches = tfa.ring_step_fwd.streamed_launches = 0
+
+
+def _body_counts() -> dict:
+    """Launches of kernels 9 and 14 by body: the wgmma one-shot body
+    (csrc/flash_fwd_sm90.cuh) and the streamed one (csrc/flash_fwd.cuh)."""
+    from devt_tpu_torch.ops import flash_attention as tfa
+
+    fa, ring = tfa.flash_attention, tfa.ring_step_fwd
+    return {"k9_wgmma": fa.single_wgmma_launches,
+            "k9_streamed": fa.single_streamed_launches,
+            "k14_wgmma": ring.wgmma_launches,
+            "k14_streamed": ring.streamed_launches}
+
+
+def _ptxas(stem: str) -> str:
+    """ptxas' registers and spill bytes of each instance of the wgmma
+    one-shot body in csrc/<stem>.cu (template <head dim, score-row width,
+    mask>), and how many wgmma serialisation warnings the build gave, from
+    the build log (-Xptxas -v)."""
+    import re
+
+    from devt_tpu_torch.ops import _build
+
+    log = _build.build_all()[stem].with_suffix(".log").read_text()
+    rows, name, spill = [], None, "?"
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = re.search(r"flash_one_shotILi(\d+)ELi(\d+)ELb(\d)E",
+                             found.group(1))
+            continue
+        if name is None:
+            continue
+        found = re.search(r"(\d+) bytes spill stores", line)
+        if found:
+            spill = found.group(1)
+        found = re.search(r"Used (\d+) registers", line)
+        if found:
+            d, n, mask = name.groups()
+            rows.append(f"<{d},{n},{mask}> {found.group(1)} regs "
+                        f"{spill} spill bytes")
+            name = None
+    return (f"ptxas flash_one_shot<d, width, mask>: {'; '.join(rows)}; "
+            f"wgmma serialisation warnings (C7511): "
+            f"{log.count('C7511')}")
 
 
 def _vivit_cfg(**kw):
@@ -2148,7 +2200,9 @@ def phase_flash(kind: str, b: int, heads: int, sq: int, skv: int, d: int,
                                       return_lse=True)
     tag = f"flash {name} {kind} ({b * heads},{sq},{skv},{d}) kv_len {kv_len}"
     with torch.inference_mode():
+        before = _body_counts()
         o, lse = run()
+        body = {k: v - before[k] for k, v in _body_counts().items()}
         want_o, want_lse = plain(q, k, v, scale, kv_len)
         torch.cuda.synchronize()
         _check_close(f"{tag} o", o, want_o, *TOL[kind])
@@ -2158,24 +2212,40 @@ def phase_flash(kind: str, b: int, heads: int, sq: int, skv: int, d: int,
         del want_o, want_lse
         out = {"max_abs_err": max(errs)}
         if timed:
-            out["kernel_ms"] = _time_ms(run)
-            out["plain_ms"] = _time_ms(
-                lambda: plain(q, k, v, scale, kv_len), iters=3, warmup=1)
+            # device time, every side by CUDA graph replay: a kernel of
+            # 0.07 ms takes less time on the card than its wrapper on the
+            # host
+            out["kernel_ms"] = _graph_ms(run)
+            out["plain_ms"] = _graph_ms(
+                lambda: plain(q, k, v, scale, kv_len), n=2, replays=2)
             # the library's fused attention on the live keys
-            out["library_ms"] = _time_ms(
+            out["library_ms"] = _graph_ms(
                 lambda: F.scaled_dot_product_attention(
                     q, k[:, :, :kv_len], v[:, :, :kv_len], scale=scale))
     out["bound_ms"], out["bound_by"] = _flash_bound(kind, b * heads, sq, skv,
                                                     d, kv_len)
-    times = (f" | kernel_ms={out['kernel_ms']:.4f} plain_ms="
+    times = (f" | CUDA graph: kernel_ms={out['kernel_ms']:.4f} plain_ms="
              f"{out['plain_ms']:.4f} library_ms={out['library_ms']:.4f} "
              f"(F.scaled_dot_product_attention over the live keys)"
              if timed else "")
+    if not single:
+        where = "blockwise body (flash_fwd.cuh, online)"
+    elif body["k9_wgmma"]:
+        where = "wgmma body (flash_fwd_sm90.cuh)"
+    else:
+        where = "streamed body (flash_fwd.cuh)"
+    want_wgmma = single and tfa.one_shot_on_wgmma(dtype, d, kv_len)
+    if single and body != {**dict.fromkeys(body, 0),
+                           "k9_wgmma": int(want_wgmma),
+                           "k9_streamed": int(not want_wgmma)}:
+        raise AssertionError(f"{tag}: launches by body {body}")
     print(f"[kernel-flash] {tag}{' (head views of a packed qkv)' if sq == skv else ''}: "
-          f"max_abs_err o={errs[0]:.3e} (atol {TOL[kind][0]}, rtol "
+          f"{where}; max_abs_err o={errs[0]:.3e} (atol {TOL[kind][0]}, rtol "
           f"{TOL[kind][1]}) lse={errs[1]:.3e} (atol {lse_tol[0]}, rtol "
           f"{lse_tol[1]}){times} bound_ms={out['bound_ms']:.4f} "
-          f"({out['bound_by']})", flush=True)
+          f"({out['bound_by']})"
+          + (f" | {_ptxas('flash_fwd')}" if want_wgmma and timed else ""),
+          flush=True)
     return out
 
 
@@ -2436,6 +2506,11 @@ def phase_serve_int8_unfused() -> dict:
         if counts != _expect(k9=depth):
             raise AssertionError(f"serve-int8-unfused: launches {counts}, "
                                  f"expected {depth} of kernel 9 alone")
+        body = _body_counts()
+        if body["k9_wgmma"] != depth:
+            raise AssertionError(f"serve-int8-unfused: kernel 9 launches by "
+                                 f"body {body}, expected {depth} on the "
+                                 f"wgmma body")
         t0 = time.perf_counter()
         for _ in range(5):
             loss, _ = evaluate(state, batch)
@@ -2486,7 +2561,8 @@ def phase_serve_int8_unfused() -> dict:
                              f"{tall_counts}, loss {tall_loss}")
     print(f"[serve-int8-unfused] ViViT token_pad=0 (197 space tokens, no "
           f"multiple of 16) under quant_scope through make_eval_step at "
-          f"batch {TRAIN_BATCH}: launches {counts['k9']} of kernel 9 and "
+          f"batch {TRAIN_BATCH}: launches {counts['k9']} of kernel 9 "
+          f"({body['k9_wgmma']} on the wgmma body) and "
           f"none of kernel 5 (the temporal blocks on their pinned 'xla'); "
           f"card vs CPU on 2 clips: max abs score err {err:.3e} (atol "
           f"{QUANT_SCORE_ATOL}); {clips_per_s:.2f} clips/s (one window of 5 "
@@ -2810,6 +2886,11 @@ def _hop_by_hop(kind) -> tuple[dict, dict]:
     counts = _kernel_counts()
     if counts != _expect(k14=HOP_SHARDS ** 2, k15=HOP_SHARDS ** 2):
         raise AssertionError(f"kernel-ring hop by hop: launches {counts}")
+    wgmma = tfa.one_shot_on_wgmma(dtype, d, s_p)
+    counts["k14_wgmma"] = _body_counts()["k14_wgmma"]
+    if counts["k14_wgmma"] != (HOP_SHARDS ** 2 if wgmma else 0):
+        raise AssertionError(f"kernel-ring hop by hop: {counts['k14_wgmma']} "
+                             f"launches of kernel 14 on the wgmma body")
 
     def cat(parts):
         return torch.cat([p[:, :chunk] for p in parts], dim=1)
@@ -2876,7 +2957,13 @@ def phase_ring(kind: str) -> dict:
     fwd = lambda: tfa.ring_step_fwd(q, kv, mask, heads=heads,  # noqa: E731
                                     scale=scale)
     with torch.inference_mode():
+        before = _body_counts()
         o, lse = fwd()
+        body = {k: v - before[k] for k, v in _body_counts().items()}
+        want_wgmma = tfa.one_shot_on_wgmma(dtype, d, RING_S)
+        if body != {**dict.fromkeys(body, 0), "k14_wgmma": int(want_wgmma),
+                    "k14_streamed": int(not want_wgmma)}:
+            raise AssertionError(f"{tag}: kernel 14 launches by body {body}")
         wo, wlse = tfa.ring_step_fwd_plain(q, kv, mask, heads, scale)
         torch.cuda.synchronize()
         _check_close(f"{tag} o", o, wo, *TOL[kind])
@@ -2900,13 +2987,14 @@ def phase_ring(kind: str) -> dict:
         if not all(torch.equal(a, c) for a, c in zip(got, bwd())):
             raise AssertionError(f"{tag}: two backward runs differ")
         del want
-        out = {"fwd": {"max_abs_err": fwd_err, "kernel_ms": _time_ms(fwd),
-                       "plain_ms": _time_ms(lambda: tfa.ring_step_fwd_plain(
-                           q, kv, mask, heads, scale), iters=3, warmup=1)},
-               "bwd": {"max_abs_err": bwd_err, "kernel_ms": _time_ms(bwd),
-                       "plain_ms": _time_ms(lambda: tfa.ring_step_bwd_plain(
-                           q, kv, mask, o, lse, do, heads, scale), iters=3,
-                           warmup=1)}}
+        # device time, every side by CUDA graph replay
+        out = {"fwd": {"max_abs_err": fwd_err, "kernel_ms": _graph_ms(fwd),
+                       "plain_ms": _graph_ms(lambda: tfa.ring_step_fwd_plain(
+                           q, kv, mask, heads, scale), n=2, replays=2)},
+               "bwd": {"max_abs_err": bwd_err, "kernel_ms": _graph_ms(bwd),
+                       "plain_ms": _graph_ms(lambda: tfa.ring_step_bwd_plain(
+                           q, kv, mask, o, lse, do, heads, scale), n=2,
+                           replays=2)}}
     # the library: SDPA on the head views with the same additive mask
     qh, kh, vh = (t.reshape(RING_SEQS, RING_S, heads, d).transpose(1, 2)
                   for t in (q, kv[..., :hd], kv[..., hd:]))
@@ -2927,6 +3015,8 @@ def phase_ring(kind: str) -> dict:
         out[part]["bound_ms"], out[part]["bound_by"] = bound, by
 
     hop_errs, hop_counts = _hop_by_hop(kind)
+    body14 = ("wgmma body (flash_fwd_sm90.cuh)" if want_wgmma
+              else "streamed body (flash_fwd.cuh)")
 
     # the one-rank ring under autograd: one launch of each kernel
     small = [t[:8, :RING_LIVE].detach().requires_grad_(True) for t in (q, kv)]
@@ -2951,10 +3041,15 @@ def phase_ring(kind: str) -> dict:
           f"{out['bwd']['plain_ms']:.4f}, library_ms="
           f"{out['bwd']['library_ms']:.4f}: its backward through autograd, "
           f"forward + backward {both:.4f} less forward; bound_ms="
-          f"{out['bwd']['bound_ms']:.4f} ({out['bwd']['bound_by']})) | hop "
+          f"{out['bwd']['bound_ms']:.4f} ({out['bwd']['bound_by']})); kernel "
+          f"14 ran the {body14}; every time by CUDA graph replay"
+          + (f"; {_ptxas('ring_step')}" if want_wgmma else "")
+          + f" | hop "
           f"by hop, {HOP_SHARDS} chunks of {HOP_S // HOP_SHARDS} of a "
           f"{HOP_S}-token sequence (kv_len {HOP_KV}), {HOP_SEQS} sequences: "
-          f"{hop_counts['k14']} + {hop_counts['k15']} launches; against "
+          f"{hop_counts['k14']} + {hop_counts['k15']} launches "
+          f"({hop_counts['k14_wgmma']} of kernel 14 on the wgmma body); "
+          f"against "
           f"flash_attention and its gradient (kernels 11-13), largest error "
           f"as a share of the tensor's largest element: "
           + ", ".join(f"{k} {v:.3e}" for k, v in hop_errs.items() if k != "lse")
@@ -3120,7 +3215,7 @@ def main() -> int:
               "devt_tpu/ops/fused_block.py:556", later("k7"), half_fwd),
         entry("fused_attn_half_bwd", "devt_tpu_torch/ops/csrc/attn_half.cu",
               "devt_tpu/ops/fused_block.py:578", later("k8"), half_bwd),
-        entry("flash_single_fwd", "devt_tpu_torch/ops/csrc/flash_fwd.cu",
+        entry("flash_single_fwd", "devt_tpu_torch/ops/csrc/flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:390",
               int8_unfused["launches"], flash9),
         entry("flash_single_bwd", "devt_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -3143,7 +3238,7 @@ def main() -> int:
               {**flash_bwd, "kernel_ms": flash_bwd["dkv_ms"],
                "bound_ms": flash_bwd["dkv_bound_ms"],
                "bound_by": flash_bwd["dkv_bound_by"], "library_ms": None}),
-        entry("ring_step_fwd", "devt_tpu_torch/ops/csrc/ring_step.cu",
+        entry("ring_step_fwd", "devt_tpu_torch/ops/csrc/flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:792", ring["launches"]["k14"],
               ring["fwd"]),
         entry("ring_step_bwd", "devt_tpu_torch/ops/csrc/ring_step.cu",

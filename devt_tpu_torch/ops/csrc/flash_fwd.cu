@@ -15,23 +15,27 @@
 //   online = 1   kernel 11, flash_attention.py:69 _fwd_kernel (longer or
 //                unequal sequences): one pass with the online softmax
 //
-// The body, and its design, is flash_fwd.cuh's, which the ring hop
-// (ring_step.cu, kernel 14) shares: a block per 64 queries of a head, K and
-// V streamed in 64-key tiles through a double-buffered cp.async ring, so
-// every length takes every head dim; mma.sync bf16 products, an f32 FMA
-// route.
+// Two bodies.  Kernel 9 in bfloat16 at head dim 16, 32 or 64 with at most
+// 256 live keys (one_shot_on_wgmma: every main-path shape) runs
+// flash_fwd_sm90.cuh: a CTA per two query tiles of a head, q, k and v
+// loaded by TMA, the whole score row of 64 queries in wgmma accumulators, one
+// exponential per score, P V on wgmma from registers.  Every other shape,
+// kernel 11 and the float route run flash_fwd.cuh's streamed body (a block
+// per 64 queries, K and V streamed in 64-key tiles through a
+// double-buffered cp.async ring, mma.sync bf16 products), so every length
+// takes every head dim; the ring hop (ring_step.cu, kernel 14) shares both.
 //
-// Bound at the main-path shapes (bf16): kernel 9 at (1536, 197, 64),
+// Bound at the main-path shapes (bf16) on an NVIDIA H100 80GB HBM3 at
+// 700 W (data sheet: 3.35 TB/s, 989 TFLOP/s): kernel 9 at (1536, 197, 64),
 // kv_len 197 (the int8 ViViT at token_pad=0): 4 products' worth of
 // 2 * 197 * 197 * 64 per row pair = 15.3 GFLOP against 155 MB of q, k, v
 // and o, so bytes bind it (0.046 ms at 3.35 TB/s); kernel 11 at
 // (1536, 592, 64), kv_len 577 (ViViT at image 384): 134 GFLOP against
-// 466 MB, bytes (0.139 ms) just above operations (0.136 ms).  Kernel 9's
-// three passes over K (two over V) and the re-streamed tiles (one read of
-// K and V per block of 64 queries, from L2 after the first) are what the
-// design leaves on the table.  The times are in PERF.md.
+// 466 MB, bytes (0.139 ms) just above operations (0.136 ms).  Kernel 11's
+// online body still re-streams K and V for every 64 queries and runs
+// mma.sync; the times are in PERF.md.
 
-#include "flash_fwd.cuh"
+#include "flash_fwd_sm90.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16; online: 0 for kernel 9 (Sq == Skv),
 // 1 for kernel 11.  q (B, H, Sq, d), k and v (B, H, Skv, d) by strides:
@@ -40,9 +44,11 @@
 // pointers, and the strides multiples of 8).  o (B, H, Sq, d) in that type
 // and lse (B*H, Sq) f32, both contiguous.  The bfloat16 kernels are
 // compiled for head dims 16, 32, 64, 128 and 256, the float kernels take
-// any multiple of 4 up to about 400.  Returns the CUDA error of the launch
-// (0 on success, invalid value for a shape that is not covered); the
-// launch is asynchronous on `stream`.
+// any multiple of 4 up to about 400; kernel 9's bfloat16 shapes inside
+// one_shot_on_wgmma take the wgmma body, which first encodes TMA maps of
+// q, k and v on the host.  Returns the CUDA error of the launch (0 on
+// success, invalid value for a shape that is not covered); the launch is
+// asynchronous on `stream`.
 extern "C" int devt_flash_fwd(int dtype, int online, const void* q,
                               const void* k, const void* v, void* o,
                               void* lse, int B, int H, int Sq, int Skv,
@@ -71,8 +77,16 @@ extern "C" int devt_flash_fwd(int dtype, int online, const void* q,
   a.kv_len = kv_len;
   a.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!online && one_shot_on_wgmma(dtype, d, kv_len))
+    return launch_one_shot<false>(a, B, d, s);
   return online ? launch_flash<true, false>(dtype, a, B * H, d, s)
                 : launch_flash<false, false>(dtype, a, B * H, d, s);
+}
+
+// 1 when a one-shot forward (kernel 9 or 14) of this dtype (0 float32,
+// 1 bfloat16), head dim and live key count takes flash_fwd_sm90.cuh's body
+extern "C" int devt_one_shot_route(int dtype, int d, int keys) {
+  return one_shot_on_wgmma(dtype, d, keys) ? 1 : 0;
 }
 
 extern "C" const char* devt_cuda_error_string(int code) {

@@ -19,11 +19,16 @@
 // a mask) counts as absent, not as masked.
 //
 //   kOnline = false  kernels 9 and 14, devt_tpu/ops/flash_attention.py:390
-//                    _fwd_single_kernel and :792 _ring_fwd_kernel: the
-//                    exact row max and l first, then o = round(p / l) @ v,
-//                    p normalised and cast to v's type before the product.
+//                    _fwd_single_kernel and :792 _ring_fwd_kernel, at the
+//                    shapes flash_fwd_sm90.cuh does not take (float; head
+//                    dim 128 or 256; more than 256 live keys): the exact
+//                    row max and l first, then o = round(p / l) @ v, p
+//                    normalised and cast to v's type before the product.
 //                    A row whose every key is masked has m = -1e30, p = 1,
-//                    l = Skv and a finite o, as the TPU kernel's.
+//                    l = Skv and a finite o, as the TPU kernel's.  This
+//                    branch computes each score twice (a max/sum pass over
+//                    K, then a pass over K and V); the wgmma body holds the
+//                    whole score row and computes it once.
 //   kOnline = true   kernel 11, flash_attention.py:69 _fwd_kernel (longer
 //                    or unequal sequences): one pass with the online
 //                    softmax, per key tile m_new = max(m, max s),

@@ -22,24 +22,29 @@
 //
 // The TPU kernels hold G sequences' whole (S, S) score blocks in VMEM and
 // write lse broadcast over 128 lanes; here lse is one value per (row,
-// head).  The bodies are shared: the forward is kernel 9's
-// (flash_fwd.cuh, one-shot softmax, K and V streamed in 64-key tiles), the
-// backward kernel 4's (attention_bwd.cuh, FlashAttention-2's split, a
-// delta launch first), both addressing the heads of the packed layout
-// through strides and adding the mask where the single-device kernels test
-// kv_len.  For a live column the mask adds 0, so s + 0 is s bit for bit.
+// head).  The bodies are shared.  The forward in bfloat16 at head dim 16,
+// 32 or 64 with S <= 256 (one_shot_on_wgmma: the bench shape and the
+// hop-by-hop ring's shards) is kernel 9's wgmma body (flash_fwd_sm90.cuh:
+// a CTA per two query tiles of a head, q and the shard's k and v loaded by TMA
+// through maps over the packed layout, the whole score row in registers,
+// the mask staged in shared memory and added to each score); other shapes
+// and float take flash_fwd.cuh's streamed one-shot body.  The backward is
+// kernel 4's (attention_bwd.cuh, FlashAttention-2's split, a delta launch
+// first).  Both address the heads of the packed layout through strides.
+// For a live column the mask adds 0, so s + 0 is s bit for bit.
 //
-// Bound at the sequence-parallel bench shape (bench.py:1086: 512
+// Bound on an NVIDIA H100 80GB HBM3 at 700 W (data sheet: 3.35 TB/s, 989
+// TFLOP/s) at the sequence-parallel bench shape (bench.py:1086: 512
 // sequences, S = 208 of which 197 live columns, 3 heads of 64, bf16):
 // forward 4 * 512 * 3 * 208 * 197 * 64 = 15.1 GFLOP against q, kv, o and
 // lse (165 MB): bytes, 0.049 ms at 3.35 TB/s; backward 10 * 512 * 3 *
 // 208 * 197 * 64 = 37.8 GFLOP against q, kv, o, do and lse read and the
-// f32 dq, dkv written (451 MB): bytes, 0.135 ms.  The design leaves on the
-// table what kernels 9 and 4 do (two passes over K forward; each score
-// tile computed by both block kinds backward); the times are in PERF.md.
+// f32 dq, dkv written (451 MB): bytes, 0.135 ms.  The backward computes
+// each score tile in both block kinds (dq blocks and dk/dv blocks); the
+// times are in PERF.md.
 
 #include "attention_bwd.cuh"
-#include "flash_fwd.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -53,7 +58,8 @@ bool ring_ok(int dtype, int B, int S, int H, int d) {
 
 // Kernel 14.  dtype: 0 = float32, 1 = bfloat16.  q (B, S, H*d), kv
 // (B, S, 2*H*d) and o (B, S, H*d) in that type, mask (S) and lse
-// (B, S, H) f32, all contiguous (bfloat16: 16-byte aligned).  Returns the
+// (B, S, H) f32, all contiguous (bfloat16: 16-byte aligned); bfloat16
+// shapes inside one_shot_on_wgmma take the wgmma body.  Returns the
 // CUDA error of the launch (0 on success, invalid value for a shape that
 // is not covered); the launch is asynchronous on `stream`.
 extern "C" int devt_ring_step_fwd(int dtype, const void* q, const void* kv,
@@ -79,8 +85,10 @@ extern "C" int devt_ring_step_fwd(int dtype, const void* q, const void* kv,
   a.Sq = a.Skv = a.kv_len = S;
   a.scale = scale;
   a.mask = mask;
-  return launch_flash<false, true>(dtype, a, B * H, d,
-                                   static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (one_shot_on_wgmma(dtype, d, S))
+    return launch_one_shot<true>(a, B, d, s);
+  return launch_flash<false, true>(dtype, a, B * H, d, s);
 }
 
 // Kernel 15.  q, o, do (B, S, H*d) and kv (B, S, 2*H*d) in the type of

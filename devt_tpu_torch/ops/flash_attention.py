@@ -65,9 +65,15 @@ JAX package's ``flash_attention`` (``:326``), with its rule (``:349``):
     kernel 13: dk and dv summed over the query blocks),
     ``flash_blocked_bwd_plain`` lists their roundings.
 
-Kernels: ``csrc/flash_fwd.cu`` (9 and 11: a block per 64 queries of a
-head, K and V streamed through shared memory in 64-key tiles, so every
-length takes every head dim; the body is ``csrc/flash_fwd.cuh``) and
+Kernels: ``csrc/flash_fwd.cu`` (9 and 11) on two bodies.  Kernel 9 in
+bfloat16 at head dim 16, 32 or 64 with at most 256 live keys
+(``one_shot_on_wgmma``: every main-path shape) runs
+``csrc/flash_fwd_sm90.cuh``: a CTA per two query tiles of a head, q, k, v
+loaded by TMA, the whole score row of 64 queries in ``wgmma`` accumulators,
+P·V on ``wgmma`` from registers.  Other shapes, kernel 11 and float run
+``csrc/flash_fwd.cuh`` (a block per 64 queries of a head, K and V streamed
+through shared memory in 64-key tiles, so every length takes every head
+dim); and
 ``csrc/flash_bwd.cu`` (10, and 12 and 13 as two launches after a delta
 launch: kernel 4's body on the split layout, ``csrc/attention_bwd.cuh``,
 with separate query and key extents and the other side streamed, so
@@ -76,7 +82,9 @@ their strides, so the transposed head views that ``packed_mha`` cuts from
 a packed qkv are not copied; o is (B, H, Sq, d) and lse (B·H, Sq) f32,
 contiguous, and nothing is padded in device memory (the TPU wrapper pads
 to its tiles; here the kernels mask query rows past Sq and keys past
-kv_len).  Counters: ``flash_attention.single_launches``,
+kv_len).  Counters: ``flash_attention.single_launches`` (kernel 9; of
+them ``.single_wgmma_launches`` on the wgmma body and
+``.single_streamed_launches`` on the streamed one),
 ``.single_bwd_launches``, ``.blocked_launches``, ``.blocked_dq_launches``
 (kernel 12, its delta launch with it) and ``.blocked_dkv_launches`` (13).
 
@@ -90,7 +98,10 @@ round(p / l) @ v); kernel 15 the flash backward against the global lse,
 with f32 partials dq and dkv that sum across hops.  Kernels:
 ``csrc/ring_step.cu`` on the bodies of ``flash_fwd.cuh`` and
 ``attention_bwd.cuh``, the heads addressed through strides on the packed
-layout.  Counters: ``ring_step_fwd.launches``, ``ring_step_bwd.launches``.
+layout; kernel 14 takes the wgmma body under the same rule, with the
+shard's S as its key count.  Counters: ``ring_step_fwd.launches`` (of
+them ``.wgmma_launches`` and ``.streamed_launches`` by body),
+``ring_step_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -114,6 +125,19 @@ _BLOCK_KV = 128
 _F32_ROWS = 32
 # dynamic shared memory one block can have on sm_90 (227 KB)
 _SMEM_PER_BLOCK = 232448
+# the one-shot forward's wgmma body (csrc/flash_fwd_sm90.cuh
+# one_shot_on_wgmma): bfloat16 head dims and the longest score row it holds
+_WGMMA_HEAD_DIMS = (16, 32, 64)
+_WGMMA_MAX_KEYS = 256
+
+
+def one_shot_on_wgmma(dtype: torch.dtype, d: int, keys: int) -> bool:
+    """Whether a one-shot forward (kernel 9 with ``keys`` = kv_len, kernel
+    14 with ``keys`` = the shard's S) runs the wgmma body: the rule of the
+    C entries, ``csrc/flash_fwd_sm90.cuh`` ``one_shot_on_wgmma``.  The
+    others run the streamed body of ``csrc/flash_fwd.cuh``."""
+    return (dtype == torch.bfloat16 and d in _WGMMA_HEAD_DIMS
+            and 1 <= keys <= _WGMMA_MAX_KEYS)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -602,13 +626,18 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t, or a contiguous copy when its rows are not contiguous or, in
-    bfloat16, not 16-byte aligned (cp.async copies 16 bytes at a time).
-    The head views of a packed qkv with d a multiple of 8 need no copy."""
+    bfloat16, not 16-byte aligned or with a (sequence, head, row) stride
+    that is no positive multiple of 8 elements: cp.async copies 16 bytes at
+    a time, and a TMA map takes byte strides that are nonzero multiples of
+    16.  The head views of a packed qkv with d a multiple of 8 need no
+    copy.  The copy is a fresh allocation (``contiguous()`` would hand
+    back a contiguous tensor that starts off a 16-byte boundary as it
+    is)."""
     ok = t.stride(3) == 1
     if ok and t.dtype == torch.bfloat16:
-        ok = t.data_ptr() % 16 == 0 and all(st % 8 == 0
+        ok = t.data_ptr() % 16 == 0 and all(st > 0 and st % 8 == 0
                                             for st in _strides(t))
-    return t if ok else t.contiguous()
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_flash_args(q, k, v, kv_len, backward: bool = False) -> int:
@@ -672,6 +701,10 @@ def _flash_fwd_cuda(q, k, v, scale, kv_len, online):
         flash_attention.blocked_launches += 1
     else:
         flash_attention.single_launches += 1
+        if one_shot_on_wgmma(q.dtype, d, kv_len):
+            flash_attention.single_wgmma_launches += 1
+        else:
+            flash_attention.single_streamed_launches += 1
     return o, lse
 
 
@@ -842,6 +875,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.single_launches = 0
+flash_attention.single_wgmma_launches = 0
+flash_attention.single_streamed_launches = 0
 flash_attention.single_bwd_launches = 0
 flash_attention.blocked_launches = 0
 flash_attention.blocked_dq_launches = 0
@@ -854,6 +889,8 @@ def _declare_flash_fwd(lib: ctypes.CDLL) -> None:
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
            ctypes.c_void_p])
     lib.devt_flash_fwd.restype = ctypes.c_int
+    lib.devt_one_shot_route.argtypes = [ctypes.c_int] * 3
+    lib.devt_one_shot_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p
 
@@ -997,6 +1034,10 @@ def ring_step_fwd(q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor, *,
             ctypes.c_void_p(stream))
     _check_rc(lib, rc, "ring_step_fwd")
     ring_step_fwd.launches += 1
+    if one_shot_on_wgmma(q.dtype, d, s):
+        ring_step_fwd.wgmma_launches += 1
+    else:
+        ring_step_fwd.streamed_launches += 1
     return o, lse
 
 
@@ -1039,6 +1080,8 @@ def ring_step_bwd(q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor,
 
 
 ring_step_fwd.launches = 0
+ring_step_fwd.wgmma_launches = 0
+ring_step_fwd.streamed_launches = 0
 ring_step_bwd.launches = 0
 
 

@@ -5,10 +5,13 @@ no CPU mode).  This file imports no JAX, so it runs on the machine with
 the card:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+from devt_tpu_torch.ops import _build
 from devt_tpu_torch.ops import flash_attention as tfa
 from devt_tpu_torch.ops import fused_block as tfb
 from devt_tpu_torch.ops import quant as tq
@@ -1142,3 +1145,182 @@ def test_vivit_at_image_384_trains_through_kernels_11_12_13(card):
         gap = (grads[0][name].float().cpu() - c.float()).abs().max().item()
         assert gap <= GRAD_RTOL * max(c.float().abs().max().item(), 1e-6), \
             f"{name}: {gap:.3e}"
+
+
+# ---------------------------------------------------------------------------
+# the one-shot forward on wgmma (csrc/flash_fwd_sm90.cuh): kernels 9, 14
+# ---------------------------------------------------------------------------
+
+# (live keys, S): kernel 9's kv_len and Sq = Skv, so the key counts around
+# each compiled width (64, 128, 160, 208, 256) and its 16-key steps, S no
+# multiple of 64, kv_len < Skv (16 of 40, 63 of 100, 255 of 300)
+ONE_SHOT_KEYS = [(1, 1), (15, 15), (16, 40), (17, 17), (63, 100), (64, 64),
+                 (65, 65), (197, 197), (208, 208), (255, 300), (256, 256)]
+
+
+def _one_shot_counts():
+    return (tfa.flash_attention.single_launches,
+            tfa.flash_attention.single_wgmma_launches,
+            tfa.flash_attention.single_streamed_launches,
+            tfa.ring_step_fwd.launches, tfa.ring_step_fwd.wgmma_launches,
+            tfa.ring_step_fwd.streamed_launches)
+
+
+def _one_shot_delta(before):
+    return [a - b for a, b in zip(_one_shot_counts(), before)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("keys,s", ONE_SHOT_KEYS)
+def test_flash_one_shot_wgmma_matches_plain(card, keys, s, d):
+    """Kernel 9 on the wgmma body, q, k, v the head views of one packed
+    qkv: o at the bf16 forward gate and lse at the same limit against the
+    plain version, one launch on that body, two runs bit-equal."""
+    q, k, v = _flash_inputs("bf16", 2, 3, s, s, d, True, keys + d)
+    assert tfa.one_shot_on_wgmma(torch.bfloat16, d, keys)
+    before = _one_shot_counts()
+    with torch.no_grad():
+        o, lse = tfa.flash_attention(q, k, v, kv_len=keys, return_lse=True)
+        o2, lse2 = tfa.flash_attention(q, k, v, kv_len=keys, return_lse=True)
+    wo, wlse = tfa.flash_single_fwd_plain(q, k, v, d ** -0.5, keys)
+    torch.cuda.synchronize()
+    assert _one_shot_delta(before) == [2, 2, 0, 0, 0, 0]
+    torch.testing.assert_close(o.float(), wo.float(), **TOL["bf16"])
+    torch.testing.assert_close(lse, wlse, **TOL["bf16"])
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def _ring_mask(kind, s, seed):
+    """(1, S) f32 column bias: 'partial' the first 3/4 live, 'masked' no
+    live column, 'ragged' a random half live (not a prefix)."""
+    col = torch.arange(s)[None]
+    if kind == "partial":
+        live = col < max(1, 3 * s // 4)
+    elif kind == "masked":
+        live = torch.zeros(1, s, dtype=torch.bool)
+    else:
+        live = torch.rand(1, s, generator=torch.Generator().manual_seed(
+            seed)) < 0.5
+    return torch.where(live, 0.0, tfa.NEG_INF).float().cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,mask_kind", [(64, "partial"), (64, "masked"),
+                                         (64, "ragged"), (32, "ragged"),
+                                         (16, "partial")])
+@pytest.mark.parametrize("s", [keys for keys, _ in ONE_SHOT_KEYS])
+def test_ring_one_shot_wgmma_matches_plain(card, s, d, mask_kind):
+    """Kernel 14 on the wgmma body (the shard's S as its key count) with a
+    partial, a wholly masked and a ragged mask: o finite and at the bf16
+    forward gate, lse at the same limit (a masked shard's lse -1e30 +
+    log S), one launch on that body, two runs bit-equal."""
+    heads = 2
+    gen = torch.Generator().manual_seed(s + d)
+    q = torch.randn(2, s, heads * d, generator=gen).to(torch.bfloat16).cuda()
+    kv = torch.randn(2, s, 2 * heads * d, generator=gen).to(
+        torch.bfloat16).cuda()
+    mask = _ring_mask(mask_kind, s, s + d)
+    before = _one_shot_counts()
+    o, lse = tfa.ring_step_fwd(q, kv, mask, heads=heads, scale=d ** -0.5)
+    o2, lse2 = tfa.ring_step_fwd(q, kv, mask, heads=heads, scale=d ** -0.5)
+    wo, wlse = tfa.ring_step_fwd_plain(q, kv, mask, heads, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _one_shot_delta(before) == [0, 0, 0, 2, 2, 0]
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), wo.float(), **TOL["bf16"])
+    torch.testing.assert_close(lse, wlse, **TOL["bf16"])
+    if mask_kind == "masked":
+        assert torch.equal(lse, torch.full_like(lse, tfa.NEG_INF)
+                           + torch.log(torch.tensor(float(s))))
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["flash", "ring"])
+def test_one_shot_writes_no_row_past_sq(card, which):
+    """The wgmma body writes o and lse for rows < Sq only: canaries after
+    the last sequence's last row stay as they were (S = 197: the last
+    query tile holds 5 rows, 59 past the end)."""
+    lib_name, declare = (("flash_fwd", tfa._declare_flash_fwd)
+                         if which == "flash" else
+                         ("ring_step", tfa._declare_ring))
+    lib = _build.load(lib_name, declare)
+    b, h, s, d = 2, 3, 197, 64
+    gen = torch.Generator().manual_seed(5)
+    spare = 64 * h * d
+    o_buf = torch.full((b * s * h * d + spare,), 7.0,
+                       dtype=torch.bfloat16, device="cuda")
+    l_buf = torch.full((b * h * s + 64 * h,), 7.0, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    if which == "flash":
+        q, k, v = _flash_inputs("bf16", b, h, s, s, d, True, 11)
+        strides = (ctypes.c_longlong * 9)(
+            *(t.stride(i) for t in (q, k, v) for i in range(3)))
+        rc = lib.devt_flash_fwd(1, 0, q.data_ptr(), k.data_ptr(),
+                                v.data_ptr(), o_buf.data_ptr(),
+                                l_buf.data_ptr(), b, h, s, s, d, s, strides,
+                                ctypes.c_float(d ** -0.5),
+                                ctypes.c_void_p(stream))
+        want_o, want_l = tfa.flash_single_fwd_plain(q, k, v, d ** -0.5, s)
+        got_o = o_buf[:b * h * s * d].view(b, h, s, d)
+        got_l = l_buf[:b * h * s].view(b * h, s)
+    else:
+        q = torch.randn(b, s, h * d, generator=gen).to(torch.bfloat16).cuda()
+        kv = torch.randn(b, s, 2 * h * d, generator=gen).to(
+            torch.bfloat16).cuda()
+        mask = torch.zeros(1, s, device="cuda")
+        rc = lib.devt_ring_step_fwd(1, q.data_ptr(), kv.data_ptr(),
+                                    mask.data_ptr(), o_buf.data_ptr(),
+                                    l_buf.data_ptr(), b, s, h, d,
+                                    ctypes.c_float(d ** -0.5),
+                                    ctypes.c_void_p(stream))
+        want_o, want_l = tfa.ring_step_fwd_plain(q, kv, mask, h, d ** -0.5)
+        got_o = o_buf[:b * s * h * d].view(b, s, h * d)
+        got_l = l_buf[:b * s * h].view(b, s, h)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert tfa.one_shot_on_wgmma(torch.bfloat16, d, s)
+    torch.testing.assert_close(got_o.float(), want_o.float(), **TOL["bf16"])
+    torch.testing.assert_close(got_l, want_l, **TOL["bf16"])
+    assert torch.equal(o_buf[b * s * h * d:],
+                       torch.full((spare,), 7.0, dtype=torch.bfloat16,
+                                  device="cuda"))
+    assert torch.equal(l_buf[b * h * s:], torch.full((64 * h,), 7.0,
+                                                     device="cuda"))
+
+
+@pytest.mark.cuda
+def test_every_flash_and_ring_shape_takes_the_routed_body(card):
+    """The C entries' rule (devt_one_shot_route) is the Python predicate's
+    over every head dim and key count; each single-block shape of
+    FLASH_SHAPES and each of RING_SHAPES, in both dtypes, launches the body
+    that one_shot_on_wgmma names, counted per body."""
+    lib = _build.load("flash_fwd", tfa._declare_flash_fwd)
+    for dtype, code in tfa._DTYPE_CODE.items():
+        for d in (8, 16, 32, 48, 64, 128, 256):
+            for keys in (0, 1, 16, 100, 208, 256, 257, 512):
+                assert bool(lib.devt_one_shot_route(code, d, keys)) == \
+                    tfa.one_shot_on_wgmma(dtype, d, keys), (dtype, d, keys)
+    for kind in ("f32", "bf16"):
+        for b, h, sq, skv, d, kv_len, strided in FLASH_SHAPES:
+            if not (sq == skv and tfa.fits_single_block(sq)):
+                continue
+            q, k, v = _flash_inputs(kind, b, h, sq, skv, d, strided)
+            wgmma = tfa.one_shot_on_wgmma(DTYPE[kind], d, kv_len)
+            before = _one_shot_counts()
+            with torch.no_grad():
+                tfa.flash_attention(q, k, v, kv_len=kv_len)
+            assert _one_shot_delta(before) == [1, int(wgmma),
+                                               int(not wgmma), 0, 0, 0]
+        for b, s, heads, d, live in RING_SHAPES:
+            q = torch.randn(b, s, heads * d, device="cuda").to(DTYPE[kind])
+            kv = torch.randn(b, s, 2 * heads * d, device="cuda").to(
+                DTYPE[kind])
+            mask = torch.zeros(1, s, device="cuda")
+            wgmma = tfa.one_shot_on_wgmma(DTYPE[kind], d, s)
+            before = _one_shot_counts()
+            tfa.ring_step_fwd(q, kv, mask, heads=heads, scale=d ** -0.5)
+            assert _one_shot_delta(before) == [0, 0, 0, 1, int(wgmma),
+                                               int(not wgmma)]
+    torch.cuda.synchronize()

@@ -360,3 +360,79 @@ def test_ops_package_keeps_the_module_name():
     assert isinstance(mod, types.ModuleType)
     assert callable(mod.flash_attention) and ops.FlashSingle is \
         mod.FlashSingle
+
+
+# the one-shot forward's two bodies on the card: the rule that picks the
+# wgmma body (csrc/flash_fwd_sm90.cuh), and what the wrappers hand it
+
+@pytest.mark.parametrize("dtype,d,keys,want", [
+    (torch.bfloat16, 64, 197, True),     # kernel 9's main path (kv_len)
+    (torch.bfloat16, 64, 208, True),     # kernel 14's bench shard (S)
+    (torch.bfloat16, 64, 160, True),     # the hop-by-hop ring's shards
+    (torch.bfloat16, 16, 1, True), (torch.bfloat16, 32, 256, True),
+    (torch.bfloat16, 64, 257, False), (torch.bfloat16, 64, 0, False),
+    (torch.bfloat16, 128, 100, False), (torch.bfloat16, 256, 64, False),
+    (torch.bfloat16, 48, 64, False), (torch.float32, 64, 197, False)])
+def test_one_shot_route_predicate(dtype, d, keys, want):
+    """bfloat16, head dim 16, 32 or 64, 1..256 live keys: the wgmma body;
+    anything else the streamed body (the card tests hold the C entries'
+    rule to this predicate)."""
+    assert tfa.one_shot_on_wgmma(dtype, d, keys) is want
+
+
+def test_aligned_keeps_tma_readable_views_and_copies_the_rest():
+    """``_aligned`` passes what both bodies read in place (the head views
+    of a packed qkv: 16-byte aligned, strides positive multiples of 8
+    elements) and copies what a TMA map cannot describe: a 2-byte offset,
+    a row stride of 68 elements, a zero (expanded) stride."""
+    qkv = torch.zeros(2, 37, 3, 3, 64, dtype=torch.bfloat16)
+    q = qkv[:, :, 0].transpose(1, 2)
+    assert tfa._aligned(q) is q
+    flat = torch.arange(2 * 3 * 37 * 64 + 1).to(torch.bfloat16)
+    shifted = flat[1:].view(2, 3, 37, 64)
+    odd = torch.zeros(2, 3, 37, 68, dtype=torch.bfloat16)[..., :64]
+    expanded = torch.ones(1, 1, 37, 64, dtype=torch.bfloat16).expand(
+        2, 3, 37, 64)
+    assert shifted.data_ptr() % 16 and odd.stride(2) % 8 \
+        and expanded.stride(0) == 0
+    for t in (shifted, odd, expanded):
+        got = tfa._aligned(t)
+        assert got is not t and torch.equal(got, t)
+        assert got.data_ptr() % 16 == 0 and all(
+            st > 0 and st % 8 == 0 for st in got.stride()[:3])
+    f32 = torch.zeros(2, 3, 37, 12)
+    assert tfa._aligned(f32) is f32      # float: rows contiguous suffice
+
+
+def test_ring_args_refuse_a_misaligned_bf16_shard():
+    """Kernel 14's wrapper takes contiguous q, kv and mask, and in bfloat16
+    16-byte aligned q and kv (TMA reads the shard where it lies)."""
+    q = torch.zeros(2, 48, 32, dtype=torch.bfloat16)
+    mask = torch.zeros(1, 48)
+    kv = torch.zeros(2, 48, 64, dtype=torch.bfloat16)
+    assert tfa._check_ring_args(q, kv, mask, 2) == 16
+    shifted = torch.zeros(2 * 48 * 64 + 1, dtype=torch.bfloat16)[1:].view(
+        2, 48, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._check_ring_args(q, shifted, mask, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa._check_ring_args(q, kv.transpose(0, 1).contiguous()
+                             .transpose(0, 1), mask, 2)
+
+
+def test_cpu_calls_count_no_launch():
+    """CPU tensors run the plain versions: no kernel launch is counted on
+    either body."""
+    fa, ring = tfa.flash_attention, tfa.ring_step_fwd
+    def counts():
+        return (fa.single_launches, fa.single_wgmma_launches,
+                fa.single_streamed_launches, ring.launches,
+                ring.wgmma_launches, ring.streamed_launches)
+
+    before = counts()
+    x = torch.randn(1, 2, 20, 16).to(torch.bfloat16)
+    fa(x, x, x)
+    q = torch.randn(1, 20, 32).to(torch.bfloat16)
+    kv = torch.randn(1, 20, 64).to(torch.bfloat16)
+    ring(q, kv, torch.zeros(1, 20), heads=2, scale=0.25)
+    assert counts() == before

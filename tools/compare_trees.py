@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""Two checkouts of the repo on one card, in turns: the split-q/k/v and
+ring attention kernels and the model paths that run them.
+
+    python tools/compare_trees.py PARENT CHANGE [--rounds 2]
+
+PARENT and CHANGE are roots of two checkouts (for example the parent
+commit unpacked with ``git archive`` under ``runs/``, and the repo
+itself).  Each run is a subprocess in one tree, with that tree's kernel
+build directory and its own ``chip_smoke.py``, in the order parent,
+change, change, parent (``--rounds 2``).  A run measures, with the same
+timer in both trees (CUDA graph replay of 20 calls, 5 replays):
+
+  * kernel 9 at (1536, 197, 64), kv_len 197, q, k, v the head views of a
+    packed qkv (the int8 ViViT at token_pad=0);
+  * kernel 11 at (1536, 592, 64), kv_len 577 (ViViT at image 384);
+  * kernel 14 at q (512, 208, 192), kv (512, 208, 384), 197 live columns;
+
+then calls the tree's chip_smoke phases 18 (kernel-flash at the kernel 9
+shape, its checks), 20 (eval at image 384), 21 (the int8 ViViT at
+token_pad=0), 22 (training at image 384) and 24 (the ring) and records
+their step times and clips/s.  Each run prints one ``RESULT {json}``
+line; the end prints, per metric, each tree's runs and the mean.  Needs
+one NVIDIA card; builds both trees' kernels (one nvcc per source).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r'''
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from devt_tpu_torch.ops import _build
+from devt_tpu_torch.ops import flash_attention as tfa
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def graph_ms(fn, n=20, replays=5):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * n)
+
+
+t0 = time.perf_counter()
+_build.build_all()
+res = {"build_s": time.perf_counter() - t0}
+with torch.inference_mode():
+    q, k, v = cs._packed_heads(512, 197, 3, 64, torch.bfloat16, 1)
+    res["k9_ms"] = graph_ms(lambda: tfa.flash_attention(q, k, v,
+                                                        return_lse=True))
+    q, k, v = cs._packed_heads(512, 592, 3, 64, torch.bfloat16, 2)
+    res["k11_ms"] = graph_ms(lambda: tfa.flash_attention(
+        q, k, v, kv_len=577, return_lse=True))
+    gen = torch.Generator().manual_seed(3)
+    rq = torch.randn(512, 208, 192, generator=gen).to(torch.bfloat16).cuda()
+    rkv = torch.randn(512, 208, 384, generator=gen).to(torch.bfloat16).cuda()
+    col = torch.arange(208, device="cuda")[None]
+    mask = torch.where(col < 197, 0.0, -1e30).float()
+    res["k14_ms"] = graph_ms(lambda: tfa.ring_step_fwd(rq, rkv, mask,
+                                                       heads=3, scale=0.125))
+    del q, k, v, rq, rkv
+cs.phase_flash("bf16", 512, 3, 197, 197, 64, 197)
+e = cs.phase_eval_long()
+res["eval_bf16_step_ms"] = e["bf16"]["step_ms"]
+res["eval_int8_step_ms"] = e["int8"]["step_ms"]
+res["int8_unfused_clips_s"] = cs.phase_serve_int8_unfused()["clips_per_s"]
+t = cs.phase_train_long()
+res["train_step_ms"] = t["step_ms"]
+res["train_clips_s"] = t["clips_per_s"]
+cs.phase_ring("bf16")
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+
+def run(tree: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    for line in proc.stdout.splitlines():
+        if line.startswith("[") and ("wgmma" in line or "clips/s" in line):
+            print(f"  {line[:400]}")
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        raise SystemExit(f"{tree}: exit {proc.returncode}")
+    line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")]
+    return json.loads(line[-1][len("RESULT "):])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parent")
+    ap.add_argument("change")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    trees = {"parent": os.path.abspath(args.parent),
+             "change": os.path.abspath(args.change)}
+    order = []
+    for r in range(args.rounds):
+        order += ["parent", "change"] if r % 2 == 0 else ["change", "parent"]
+    runs = {"parent": [], "change": []}
+    for name in order:
+        print(f"[{name}] {trees[name]}", flush=True)
+        res = run(trees[name])
+        print(f"RESULT {name} {json.dumps(res)}", flush=True)
+        runs[name].append(res)
+    print(f"card: {smi}; order {' '.join(order)}")
+    for key in runs["parent"][0]:
+        cells = []
+        for name in ("parent", "change"):
+            vals = [r[key] for r in runs[name]]
+            cells.append(f"{name} " + " ".join(f"{v:.4f}" for v in vals)
+                         + f" (mean {sum(vals) / len(vals):.4f})")
+        print(f"{key}: " + " | ".join(cells))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
