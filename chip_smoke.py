@@ -37,9 +37,14 @@ Phases, each printing a line of its own; any failure exits non-zero:
                and f32, against its plain version; times of the kernel, the
                plain version and the bf16 fused block on the same input.
   9. kernel-int8-matmul — the fused int8 matmul at PTN's two Linear shapes,
-               (3584, 2048) x (2048, 6144) and x (2048, 2048), bf16, bit for
-               bit against its plain version; F.linear in bf16 and
-               torch._int_mm with its own quantize pass as yardsticks.
+               (3584, 2048) x (2048, 6144) and x (2048, 2048), bf16, the
+               weight codes K-major as the site registry stores them (one
+               launch on the wgmma body of gemm_s8_sm90.cuh, counted) and
+               row-major (the mma.sync body), both bit for bit against the
+               plain version; by CUDA graph replay the kernel, the mma.sync
+               body, the plain version, F.linear in bf16 and torch._int_mm
+               with its own quantize pass as yardsticks; the row pass's
+               share and ptxas' report of the wgmma body.
  10. kernel-mha — the packed-qkv attention at PTN's shape (256, 16, 6144),
                8 heads of 256, kv_len 14, and at the ViT shape
                (512, 208, 576), 3 heads of 64, kv_len 197, bf16 and f32: o
@@ -53,7 +58,8 @@ Phases, each printing a line of its own; any failure exits non-zero:
                layers, width 2048, 8 heads, bf16) behind three Predictors:
                bf16, int8 with the default site policy, int8 at every site;
                4 attention launches per forward and 0 / 4 / 16 int8-matmul
-               launches; the first rows against the CPU; rows/s of each.
+               launches, every one on the wgmma body; the first rows
+               against the CPU; rows/s of each.
  13. kernel-mha-bwd — the packed-qkv attention backward at PTN's training
                shape (32, 14, 6144), 8 heads of 256, bf16 and f32, at the
                ViT shape (512, 208, 576), 3 heads of 64, kv_len 197, and at
@@ -103,8 +109,10 @@ Phases, each printing a line of its own; any failure exits non-zero:
                kernel 3 cannot take) and Sq != Skv (blockwise however
                short); which body each launch ran (kernel 9: the wgmma
                one-shot body of flash_fwd_sm90.cuh where
-               one_shot_on_wgmma says, else the streamed one) and ptxas'
-               registers and spills of the wgmma body; the kernels', the
+               one_shot_on_wgmma says, kernel 11: its wgmma online body
+               where online_on_wgmma says, else the streamed ones) and
+               ptxas' registers and spills of the wgmma bodies; the
+               kernels', the
                plain versions' and F.scaled_dot_product_attention's times,
                all by CUDA graph replay; the bounds.
  19. kernel-flash-bwd — kernel 10 at (1536, 197, 64) and (64, 512, 256),
@@ -114,8 +122,9 @@ Phases, each printing a line of its own; any failure exits non-zero:
                kernels 9 and 10); SDPA's backward as the yardstick.
  20. eval-long — ViViT at image 384 (577 space tokens; dim 192, depth 4,
                3 heads, bf16, seeded weights) through make_eval_step at
-               batch 32: 4 launches of kernel 11 per step and nothing else,
-               in bf16 and under quant_scope; 2 clips against the CPU;
+               batch 32: 4 launches of kernel 11 per step, all on its wgmma
+               body, and nothing else, in bf16 and under quant_scope; 2
+               clips against the CPU;
                clips/s and a profile.
  21. serve-int8-unfused — ViViT at token_pad=0 (197 tokens) under
                quant_scope at batch 32: 4 launches of kernel 9 per
@@ -126,10 +135,11 @@ Phases, each printing a line of its own; any failure exits non-zero:
                than kernel 2 holds) trained one step through kernels 3, 4.
  22. train-long — the ViViT of phase 20 trained at batch 32 (dropout 0)
                through make_train_step and make_multi_step(8): 4 launches
-               each of kernels 11, 12 and 13 per step and none of kernels
-               1-10, a falling loss, one step's gradients on 2 clips
-               against the CPU; clips/s as the best of 3 windows, the
-               host's enqueue ms, a profile, the peak device memory.
+               each of kernels 11 (on its wgmma body), 12 and 13 per step
+               and none of kernels 1-10, a falling loss, one step's
+               gradients on 2 clips against the CPU; clips/s as the best
+               of 3 windows, the host's enqueue ms, a profile, the peak
+               device memory.
  23. kernel-flash-blocked-bwd — kernels 12 and 13 at (1536, 592, 64),
                kv_len 577 (the image-384 step's shape, head views of a
                packed qkv), bf16 and f32, through flash_attention and
@@ -147,7 +157,8 @@ Phases, each printing a line of its own; any failure exits non-zero:
                chunks of 148, kv_len 577) against flash_attention and its
                gradient; ring_mha_split at one rank under autograd.
 
-The last lines are a JSON line of the kernels, the nvidia-smi line, and
+The last lines are a JSON line of the kernels (fifteen entries in kernel
+order, each with its number), the nvidia-smi line, and
 {"ok": true, "device": {...}}.  With no CUDA device, or without the
 package beside it, the script fails before printing any result.
 """
@@ -878,7 +889,13 @@ def phase_kernel_quant(kind: str) -> dict:
 
 def phase_int8_matmul(n: int) -> dict:
     """(3584, 2048) bf16 x (2048, n) int8: the Linear sites of PTN at 256
-    rows of 14 tokens."""
+    rows of 14 tokens.  The weight codes K-major, as the site registry
+    stores them, take the wgmma body (one launch on it, counted); the same
+    codes row-major (JAX's layout) the mma.sync body; both bit for bit
+    against the plain version.  Times by CUDA graph replay: the kernel,
+    the mma.sync body, the plain version, F.linear in bf16 and
+    torch._int_mm with its own quantize and dequantize passes as
+    yardsticks; the row pass's share from the profiler."""
     import torch
     import torch.nn.functional as F
 
@@ -889,26 +906,36 @@ def phase_int8_matmul(n: int) -> dict:
     x = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
     w = (torch.randn(k, n, generator=gen) * k ** -0.5).cuda()
     w_q, w_s = tq.quantize_weight(w.to(torch.bfloat16))
-    run = lambda: tq.int8_matmul_fused(x, w_q, w_s)  # noqa: E731
+    kmajor = w_q.t().contiguous().t()                # the registry's layout
+    run = lambda: tq.int8_matmul_fused(x, kmajor, w_s)  # noqa: E731
+    tag = f"int8_matmul_fused bf16 ({m},{k})x({k},{n})"
     with torch.inference_mode():
+        before = _body_counts()
         got = run()
+        body = {key: v - before[key] for key, v in _body_counts().items()}
+        if body != {**dict.fromkeys(body, 0), "k6_wgmma": 1}:
+            raise AssertionError(f"{tag}: launches by body {body}, expected "
+                                 f"one on the wgmma body")
         want = tq.int8_matmul_fused_plain(x, w_q, w_s)
+        old = tq.int8_matmul_fused(x, w_q, w_s)      # the mma.sync body
         torch.cuda.synchronize()
         max_err = _max_err(got, want)
-        if not torch.isfinite(got.float()).all() \
-                or not torch.equal(got, want):
-            raise AssertionError(
-                f"int8 matmul n={n}: kernel and plain version differ in "
-                f"{int((got != want).sum())} elements, max abs err "
-                f"{max_err:.3e}; the int32 sums are exact, they must agree "
-                f"bit for bit")
-        del want
-        kernel_ms = _time_ms(run)
-        plain_ms = _time_ms(
-            lambda: tq.int8_matmul_fused_plain(x, w_q, w_s), iters=3,
-            warmup=1)
+        for name, out in (("wgmma", got), ("mma.sync", old)):
+            if not torch.isfinite(out.float()).all() \
+                    or not torch.equal(out, want):
+                raise AssertionError(
+                    f"{tag}: the {name} body and the plain version differ "
+                    f"in {int((out != want).sum())} elements, max abs err "
+                    f"{_max_err(out, want):.3e}; the int32 sums are exact, "
+                    f"they must agree bit for bit")
+        del want, old, got
+        kernel_ms = _graph_ms(run)
+        mma_sync_ms = _graph_ms(lambda: tq.int8_matmul_fused(x, w_q, w_s))
+        plain_ms = _graph_ms(
+            lambda: tq.int8_matmul_fused_plain(x, kmajor, w_s), n=2,
+            replays=2)
         w_bf = w.to(torch.bfloat16).t().contiguous()       # Linear layout
-        linear_ms = _time_ms(lambda: F.linear(x, w_bf))
+        linear_ms = _graph_ms(lambda: F.linear(x, w_bf))
 
         # not the kernels line's library_ms (that is F.linear, the one
         # call a user would make): the library's int8 product needs its
@@ -917,20 +944,27 @@ def phase_int8_matmul(n: int) -> dict:
             x_q, x_s = tq.quantize_activation(x)
             return (torch._int_mm(x_q, w_q).float() * x_s * w_s).to(x.dtype)
 
-        int_mm_ms = _time_ms(int_mm)
-        _print_profile(f"int8_matmul_fused n={n}", *_device_profile(run),
-                       top=3)
+        int_mm_ms = _graph_ms(int_mm)
+        rows, busy, wall = _device_profile(run)
+        _print_profile(f"int8_matmul_fused n={n}", rows, busy, wall, top=3)
+    quant_ms = sum(ms for name, ms, _ in rows if "quant_rows" in name)
     bytes_ = m * k * 2 + k * n + n * 4 + m * n * 2
     bound_ms, bound_by = _bound({"int8": 2 * m * k * n}, bytes_)
-    print(f"[kernel-int8-matmul] int8_matmul_fused bf16 ({m},{k})x({k},{n}): "
-          f"bit-equal to the plain version (max_abs_err={max_err:.1e}) | "
-          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={linear_ms:.4f} (F.linear bf16); quantize + "
-          f"torch._int_mm + dequantize {int_mm_ms:.4f} ms | "
-          f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+    print(f"[kernel-int8-matmul] {tag}, K-major codes: wgmma body (one "
+          f"launch), bit-equal to the plain version (max_abs_err="
+          f"{max_err:.1e}), and so is the mma.sync body on row-major codes | "
+          f"CUDA graph: kernel_ms={kernel_ms:.4f} (of which the row pass "
+          f"{quant_ms:.4f} under the profiler) mma.sync body "
+          f"{mma_sync_ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{linear_ms:.4f} (F.linear bf16); quantize + torch._int_mm + "
+          f"dequantize {int_mm_ms:.4f} ms | bound_ms={bound_ms:.4f} "
+          f"({bound_by}) | {_ptxas('int8_matmul', 'gemm_s8_wgmma<out>')}",
+          flush=True)
     return {"max_abs_err": max_err, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": linear_ms,
-            "int_mm_ms": int_mm_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "int_mm_ms": int_mm_ms, "mma_sync_ms": mma_sync_ms,
+            "quant_rows_ms": quant_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase_mha(kind: str, b: int, s: int, heads: int, d: int,
@@ -1092,14 +1126,17 @@ def phase_serve_ptn() -> dict:
     for tag, quant, site_pred, want_matmuls in variants:
         pred = Predictor(cfg, weights, buckets=(PTN_ROWS,), quantize=quant,
                          quant_site_pred=site_pred)
-        fused_mha.launches = int8_matmul_fused.launches = 0
+        mm = int8_matmul_fused
+        fused_mha.launches = mm.launches = mm.wgmma_launches = 0
         got = pred.predict(request)["scores"]
-        counts = (fused_mha.launches, int8_matmul_fused.launches)
-        if counts != (encoders, want_matmuls):
+        counts = (fused_mha.launches, mm.launches, mm.wgmma_launches)
+        if counts != (encoders, want_matmuls, want_matmuls):
             raise AssertionError(
                 f"serve-ptn {tag}: {counts[0]} attention and {counts[1]} "
-                f"int8-matmul launches in one forward, expected {encoders} "
-                f"and {want_matmuls}")
+                f"int8-matmul launches ({counts[2]} on the wgmma body) in "
+                f"one forward, expected {encoders} and {want_matmuls}, every "
+                f"int8-matmul launch on the wgmma body (the site registry "
+                f"stores K-major codes)")
         out["mha_launches"] += counts[0]
         out["matmul_launches"] += counts[1]
         if got.shape != (PTN_ROWS, cfg.n_classes) \
@@ -1146,7 +1183,8 @@ def phase_serve_ptn() -> dict:
           f"{len(PTN_EXPERTS)} experts x {PTN_WIDTH}, {PTN_LAYERS} layers, "
           f"{PTN_HEADS} heads) behind Predictor(buckets=({PTN_ROWS},)): "
           f"attention launches {encoders} a forward in each variant, "
-          f"int8-matmul launches 0 / {encoders} / {4 * encoders}; " + "; ".join(
+          f"int8-matmul launches 0 / {encoders} / {4 * encoders}, all on "
+          f"the wgmma body; " + "; ".join(
               f"{tag}: {v['rows_per_s']:.1f} rows/s, forward "
               f"{v['forward_ms']:.3f} ms (device {v['device_ms']:.3f} ms), "
               f"card vs CPU {v['cpu_err']:.3e}" + (
@@ -1787,27 +1825,47 @@ def _zero_counts() -> None:
     fa.single_launches = fa.single_bwd_launches = fa.blocked_launches = 0
     fa.single_wgmma_launches = fa.single_streamed_launches = 0
     fa.blocked_dq_launches = fa.blocked_dkv_launches = 0
+    fa.blocked_wgmma_launches = fa.blocked_streamed_launches = 0
     tfa.ring_step_fwd.launches = tfa.ring_step_bwd.launches = 0
     tfa.ring_step_fwd.wgmma_launches = tfa.ring_step_fwd.streamed_launches = 0
+    mm = tq.int8_matmul_fused
+    mm.launches = mm.wgmma_launches = mm.mma_sync_launches = 0
 
 
 def _body_counts() -> dict:
-    """Launches of kernels 9 and 14 by body: the wgmma one-shot body
-    (csrc/flash_fwd_sm90.cuh) and the streamed one (csrc/flash_fwd.cuh)."""
+    """Launches by body of the kernels that have two: 9 and 14 (the wgmma
+    one-shot body of csrc/flash_fwd_sm90.cuh, or the streamed one of
+    csrc/flash_fwd.cuh), 11 (the wgmma online body of
+    csrc/flash_fwd_sm90.cuh, or flash_fwd.cuh's) and 6 (the wgmma product
+    of csrc/gemm_s8_sm90.cuh, or int8_common.cuh's mma.sync one)."""
     from devt_tpu_torch.ops import flash_attention as tfa
+    from devt_tpu_torch.ops import quant as tq
 
     fa, ring = tfa.flash_attention, tfa.ring_step_fwd
+    mm = tq.int8_matmul_fused
     return {"k9_wgmma": fa.single_wgmma_launches,
             "k9_streamed": fa.single_streamed_launches,
+            "k11_wgmma": fa.blocked_wgmma_launches,
+            "k11_streamed": fa.blocked_streamed_launches,
             "k14_wgmma": ring.wgmma_launches,
-            "k14_streamed": ring.streamed_launches}
+            "k14_streamed": ring.streamed_launches,
+            "k6_wgmma": mm.wgmma_launches,
+            "k6_mma_sync": mm.mma_sync_launches}
 
 
-def _ptxas(stem: str) -> str:
-    """ptxas' registers and spill bytes of each instance of the wgmma
-    one-shot body in csrc/<stem>.cu (template <head dim, score-row width,
-    mask>), and how many wgmma serialisation warnings the build gave, from
-    the build log (-Xptxas -v)."""
+# the wgmma bodies as ptxas names them, with their template arguments
+WGMMA_BODIES = {
+    "flash_one_shot<d, width, mask>": r"flash_one_shotILi(\d+)ELi(\d+)ELb(\d)E",
+    "flash_fwd_wgmma<d>": r"flash_fwd_wgmmaILi(\d+)E",
+    "gemm_s8_wgmma<out>": r"gemm_s8_wgmmaI(\w+?)EEv",
+}
+
+
+def _ptxas(stem: str, body: str) -> str:
+    """ptxas' registers and spill bytes of each instance of the wgmma body
+    ``body`` (a key of WGMMA_BODIES) in csrc/<stem>.cu, and how many wgmma
+    serialisation warnings the build gave, from the build log (-Xptxas
+    -v)."""
     import re
 
     from devt_tpu_torch.ops import _build
@@ -1817,8 +1875,7 @@ def _ptxas(stem: str) -> str:
     for line in log.splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
-            name = re.search(r"flash_one_shotILi(\d+)ELi(\d+)ELb(\d)E",
-                             found.group(1))
+            name = re.search(WGMMA_BODIES[body], found.group(1))
             continue
         if name is None:
             continue
@@ -1827,13 +1884,11 @@ def _ptxas(stem: str) -> str:
             spill = found.group(1)
         found = re.search(r"Used (\d+) registers", line)
         if found:
-            d, n, mask = name.groups()
-            rows.append(f"<{d},{n},{mask}> {found.group(1)} regs "
+            rows.append(f"<{','.join(name.groups())}> {found.group(1)} regs "
                         f"{spill} spill bytes")
             name = None
-    return (f"ptxas flash_one_shot<d, width, mask>: {'; '.join(rows)}; "
-            f"wgmma serialisation warnings (C7511): "
-            f"{log.count('C7511')}")
+    return (f"ptxas {body}: {'; '.join(rows)}; wgmma serialisation "
+            f"warnings (C7511) in {stem}.cu: {log.count('C7511')}")
 
 
 def _vivit_cfg(**kw):
@@ -2228,23 +2283,29 @@ def phase_flash(kind: str, b: int, heads: int, sq: int, skv: int, d: int,
              f"{out['plain_ms']:.4f} library_ms={out['library_ms']:.4f} "
              f"(F.scaled_dot_product_attention over the live keys)"
              if timed else "")
-    if not single:
-        where = "blockwise body (flash_fwd.cuh, online)"
-    elif body["k9_wgmma"]:
-        where = "wgmma body (flash_fwd_sm90.cuh)"
+    # the body the rules name, and one launch on it
+    if single:
+        want_wgmma = tfa.one_shot_on_wgmma(dtype, d, kv_len)
+        key = "k9"
+        ptxas_body = "flash_one_shot<d, width, mask>" if want_wgmma else None
     else:
-        where = "streamed body (flash_fwd.cuh)"
-    want_wgmma = single and tfa.one_shot_on_wgmma(dtype, d, kv_len)
-    if single and body != {**dict.fromkeys(body, 0),
-                           "k9_wgmma": int(want_wgmma),
-                           "k9_streamed": int(not want_wgmma)}:
+        want_wgmma = tfa.online_on_wgmma(dtype, d)
+        key = "k11"
+        ptxas_body = "flash_fwd_wgmma<d>" if want_wgmma else None
+    if body != {**dict.fromkeys(body, 0), f"{key}_wgmma": int(want_wgmma),
+                f"{key}_streamed": int(not want_wgmma)}:
         raise AssertionError(f"{tag}: launches by body {body}")
+    where = (("wgmma one-shot body" if single else "wgmma online body")
+             + " (flash_fwd_sm90.cuh)" if want_wgmma else
+             ("streamed one-shot body" if single else "streamed online body")
+             + " (flash_fwd.cuh)")
     print(f"[kernel-flash] {tag}{' (head views of a packed qkv)' if sq == skv else ''}: "
           f"{where}; max_abs_err o={errs[0]:.3e} (atol {TOL[kind][0]}, rtol "
           f"{TOL[kind][1]}) lse={errs[1]:.3e} (atol {lse_tol[0]}, rtol "
           f"{lse_tol[1]}){times} bound_ms={out['bound_ms']:.4f} "
           f"({out['bound_by']})"
-          + (f" | {_ptxas('flash_fwd')}" if want_wgmma and timed else ""),
+          + (f" | {_ptxas('flash_fwd', ptxas_body)}" if ptxas_body and timed
+             else ""),
           flush=True)
     return out
 
@@ -2428,11 +2489,13 @@ def phase_eval_long() -> dict:
             loss, aux = evaluate(state, batch)
             torch.cuda.synchronize()
             counts = _kernel_counts()
-            if counts != _expect(k11=depth) \
+            body = _body_counts()
+            if counts != _expect(k11=depth) or body["k11_wgmma"] != depth \
                     or not torch.isfinite(aux["probs"].float()).all():
                 raise AssertionError(f"eval-long {tag}: launches {counts}, "
-                                     f"expected {depth} of kernel 11 alone; "
-                                     f"loss {loss.item()}")
+                                     f"by body {body}, expected {depth} of "
+                                     f"kernel 11 alone, all on the wgmma "
+                                     f"body; loss {loss.item()}")
             evaluate(state, batch)[0].item()
             windows = []
             for _ in range(3):
@@ -2452,8 +2515,8 @@ def phase_eval_long() -> dict:
     print(f"[eval-long] ViViT image {LONG_IMAGE} (577 space tokens, padded "
           f"to 592; dim 192, depth {depth}, 3 heads of 64, bf16) through "
           f"make_eval_step at batch {TRAIN_BATCH}: launches "
-          f"{out['bf16']['counts']['k11']} of kernel 11 and none of kernels "
-          f"1, 3, 9 per step; under quant_scope "
+          f"{out['bf16']['counts']['k11']} of kernel 11 (all on its wgmma "
+          f"body) and none of kernels 1, 3, 9 per step; under quant_scope "
           f"{out['int8']['counts']['k11']} of kernel 11 and none of kernel 5 "
           f"| card vs CPU on 2 clips: max abs score err {errs['bf16']:.3e} "
           f"(atol {SCORE_ATOL}), int8 {errs['int8']:.3e} (atol "
@@ -2752,13 +2815,16 @@ def phase_train_long() -> dict:
     state, metrics = multi(state, stacked, SEED)
     torch.cuda.synchronize()
     counts = _kernel_counts()
+    body = _body_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = 1 + MULTI_STEPS
     if counts != _expect(k11=depth * steps, k12=depth * steps,
-                         k13=depth * steps):
+                         k13=depth * steps) \
+            or body["k11_wgmma"] != depth * steps:
         raise AssertionError(f"train-long: launches {counts} in {steps} "
-                             f"steps, expected {depth} each of kernels 11, "
-                             f"12, 13 per step and nothing else")
+                             f"steps, by body {body}, expected {depth} each "
+                             f"of kernels 11 (on its wgmma body), 12, 13 per "
+                             f"step and nothing else")
     loss_after = evaluate(state, batch)[0].item()
     losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
     if not all(map(math.isfinite, losses)) or not loss_after < loss_before:
@@ -2789,7 +2855,8 @@ def phase_train_long() -> dict:
           f"to 592; dim 192, depth {depth}, 3 heads of 64, MLP 768, 16 "
           f"frames, bf16, AdamW) at B={TRAIN_BATCH}: {steps} steps (1 + "
           f"make_multi_step({MULTI_STEPS})), launches {counts['k11']} of "
-          f"kernel 11, {counts['k12']} of kernel 12, {counts['k13']} of "
+          f"kernel 11 (all on its wgmma body), {counts['k12']} of kernel "
+          f"12, {counts['k13']} of "
           f"kernel 13 ({depth} of each per step), none of kernels 1-10; "
           f"loss on the fixed batch {loss_before:.5f} -> {loss_after:.5f}; "
           f"card vs CPU gradients on 2 clips: worst {worst:.3e} of the "
@@ -3043,7 +3110,8 @@ def phase_ring(kind: str) -> dict:
           f"forward + backward {both:.4f} less forward; bound_ms="
           f"{out['bwd']['bound_ms']:.4f} ({out['bwd']['bound_by']})); kernel "
           f"14 ran the {body14}; every time by CUDA graph replay"
-          + (f"; {_ptxas('ring_step')}" if want_wgmma else "")
+          + (f"; {_ptxas('ring_step', 'flash_one_shot<d, width, mask>')}"
+             if want_wgmma else "")
           + f" | hop "
           f"by hop, {HOP_SHARDS} chunks of {HOP_S // HOP_SHARDS} of a "
           f"{HOP_S}-token sequence (kv_len {HOP_KV}), {HOP_SEQS} sequences: "
@@ -3172,59 +3240,53 @@ def main() -> int:
     def later(k):
         return sum(c[k] for c in later_runs)
 
-    def entry(name, source, replaces, launches, m):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+    def entry(number, name, source, replaces, launches, m, **extra):
+        return {"kernel": number, "name": name, "route": "cuda",
+                "source": source, "replaces": replaces, "launches": launches,
                 "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                **extra}
 
-    kernels = [{
-        "name": "fused_vit_block_fwd", "route": "cuda",
-        "source": "devt_tpu_torch/ops/csrc/fused_block_fwd.cu",
-        "replaces": "devt_tpu/ops/fused_block.py:177",
-        "launches": serve["launches"] + train["fwd_launches"] + later("k1"),
-        "max_abs_err": max(fwd["max_abs_err"].values()),
-        "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
-        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-        "library_ms": fwd["library_ms"],
-    }, {
-        "name": "fused_vit_block_bwd", "route": "cuda",
-        "source": "devt_tpu_torch/ops/csrc/fused_block_bwd.cu",
-        "replaces": "devt_tpu/ops/fused_block.py:240",
-        "launches": train["bwd_launches"] + later("k2"),
-        "max_abs_err": bwd["max_abs_err"],
-        "ms": bwd["kernel_ms"], "plain_ms": bwd["plain_ms"],
-        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-        "library_ms": bwd["library_ms"],
-    },
-        entry("fused_mha", "devt_tpu_torch/ops/csrc/mha_fwd.cu",
+    csrc = "devt_tpu_torch/ops/csrc/"
+    # in kernel order, 1 to 15, each with its number
+    kernels = [
+        entry(1, "fused_vit_block_fwd", csrc + "fused_block_fwd.cu",
+              "devt_tpu/ops/fused_block.py:177",
+              serve["launches"] + train["fwd_launches"] + later("k1"),
+              {**fwd, "max_abs_err": max(fwd["max_abs_err"].values())}),
+        entry(2, "fused_vit_block_bwd", csrc + "fused_block_bwd.cu",
+              "devt_tpu/ops/fused_block.py:240",
+              train["bwd_launches"] + later("k2"), bwd),
+        entry(3, "fused_mha", csrc + "mha_fwd.cu",
               "devt_tpu/ops/flash_attention.py:558",
               ptn["mha_launches"] + train_ptn["fwd_launches"] + later("k3"),
               mha),
-        entry("quant_fused_vit_block",
-              "devt_tpu_torch/ops/csrc/quant_block_fwd.cu",
-              "devt_tpu/ops/quant.py:275",
-              serve_int8["launches"] + later("k5"), quant),
-        entry("int8_matmul_fused", "devt_tpu_torch/ops/csrc/int8_matmul.cu",
-              "devt_tpu/ops/quant.py:348", ptn["matmul_launches"], matmul),
-        entry("fused_mha_bwd", "devt_tpu_torch/ops/csrc/mha_bwd.cu",
+        entry(4, "fused_mha_bwd", csrc + "mha_bwd.cu",
               "devt_tpu/ops/flash_attention.py:589",
               train_ptn["bwd_launches"] + later("k4"), mha_bwd),
-        entry("fused_attn_half_fwd", "devt_tpu_torch/ops/csrc/attn_half.cu",
+        entry(5, "quant_fused_vit_block", csrc + "quant_block_fwd.cu",
+              "devt_tpu/ops/quant.py:275",
+              serve_int8["launches"] + later("k5"), quant),
+        # int_mm_ms: quantize + torch._int_mm + dequantize, a yardstick
+        # beside F.linear's library_ms
+        entry(6, "int8_matmul_fused", csrc + "gemm_s8_sm90.cuh",
+              "devt_tpu/ops/quant.py:348", ptn["matmul_launches"], matmul,
+              int_mm_ms=matmul["int_mm_ms"]),
+        entry(7, "fused_attn_half_fwd", csrc + "attn_half.cu",
               "devt_tpu/ops/fused_block.py:556", later("k7"), half_fwd),
-        entry("fused_attn_half_bwd", "devt_tpu_torch/ops/csrc/attn_half.cu",
+        entry(8, "fused_attn_half_bwd", csrc + "attn_half.cu",
               "devt_tpu/ops/fused_block.py:578", later("k8"), half_bwd),
-        entry("flash_single_fwd", "devt_tpu_torch/ops/csrc/flash_fwd_sm90.cuh",
+        entry(9, "flash_single_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:390",
               int8_unfused["launches"], flash9),
-        entry("flash_single_bwd", "devt_tpu_torch/ops/csrc/flash_bwd.cu",
+        entry(10, "flash_single_bwd", csrc + "flash_bwd.cu",
               "devt_tpu/ops/flash_attention.py:413", flash10["launches"],
               flash10),
-        entry("flash_fwd", "devt_tpu_torch/ops/csrc/flash_fwd.cu",
+        entry(11, "flash_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:69",
               eval_long["launches"] + train_long["counts"]["k11"], flash11),
-        entry("flash_bwd_dq", "devt_tpu_torch/ops/csrc/flash_bwd.cu",
+        entry(12, "flash_bwd_dq", csrc + "flash_bwd.cu",
               "devt_tpu/ops/flash_attention.py:158",
               train_long["counts"]["k12"],
               {**flash_bwd, "kernel_ms": flash_bwd["dq_ms"],
@@ -3232,16 +3294,16 @@ def main() -> int:
                "bound_by": flash_bwd["dq_bound_by"]}),
         # SDPA's backward computes dq, dk and dv at once: it stands beside
         # kernel 12, which it is named with, and kernel 13 has none
-        entry("flash_bwd_dkv", "devt_tpu_torch/ops/csrc/flash_bwd.cu",
+        entry(13, "flash_bwd_dkv", csrc + "flash_bwd.cu",
               "devt_tpu/ops/flash_attention.py:198",
               train_long["counts"]["k13"],
               {**flash_bwd, "kernel_ms": flash_bwd["dkv_ms"],
                "bound_ms": flash_bwd["dkv_bound_ms"],
                "bound_by": flash_bwd["dkv_bound_by"], "library_ms": None}),
-        entry("ring_step_fwd", "devt_tpu_torch/ops/csrc/flash_fwd_sm90.cuh",
+        entry(14, "ring_step_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:792", ring["launches"]["k14"],
               ring["fwd"]),
-        entry("ring_step_bwd", "devt_tpu_torch/ops/csrc/ring_step.cu",
+        entry(15, "ring_step_bwd", csrc + "ring_step.cu",
               "devt_tpu/ops/flash_attention.py:814", ring["launches"]["k15"],
               ring["bwd"])]
     for k in kernels:

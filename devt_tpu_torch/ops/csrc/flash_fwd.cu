@@ -15,15 +15,22 @@
 //   online = 1   kernel 11, flash_attention.py:69 _fwd_kernel (longer or
 //                unequal sequences): one pass with the online softmax
 //
-// Two bodies.  Kernel 9 in bfloat16 at head dim 16, 32 or 64 with at most
-// 256 live keys (one_shot_on_wgmma: every main-path shape) runs
-// flash_fwd_sm90.cuh: a CTA per two query tiles of a head, q, k and v
-// loaded by TMA, the whole score row of 64 queries in wgmma accumulators, one
-// exponential per score, P V on wgmma from registers.  Every other shape,
-// kernel 11 and the float route run flash_fwd.cuh's streamed body (a block
-// per 64 queries, K and V streamed in 64-key tiles through a
-// double-buffered cp.async ring, mma.sync bf16 products), so every length
-// takes every head dim; the ring hop (ring_step.cu, kernel 14) shares both.
+// Two bodies, each chosen by a rule written once in C and mirrored in
+// ops/flash_attention.py.  Kernel 9 in bfloat16 at head dim 16, 32 or 64
+// with at most 256 live keys (one_shot_on_wgmma: every main-path shape)
+// runs flash_fwd_sm90.cuh's one-shot body: a CTA per two query tiles of a
+// head, q, k and v loaded by TMA, the whole score row of 64 queries in
+// wgmma accumulators, one exponential per score, P V on wgmma from
+// registers.  Kernel 11 in bfloat16 at head dim 16, 32 or 64
+// (online_on_wgmma: every main-path shape) runs the same header's online
+// body: a CTA of one consumer warpgroup of 64 queries and a producer warp
+// that brings K and V in 128-key tiles through a TMA ring, S = Q K^T and
+// P V on wgmma, one rescale per 128 keys as the TPU kernel's, three CTAs
+// an SM.  Every other shape
+// and the float route run flash_fwd.cuh's streamed body (a block per 64
+// queries, K and V streamed in 64-key tiles through a double-buffered
+// cp.async ring, mma.sync bf16 products), so every length takes every head
+// dim; the ring hop (ring_step.cu, kernel 14) shares the one-shot bodies.
 //
 // Bound at the main-path shapes (bf16) on an NVIDIA H100 80GB HBM3 at
 // 700 W (data sheet: 3.35 TB/s, 989 TFLOP/s): kernel 9 at (1536, 197, 64),
@@ -31,9 +38,10 @@
 // 2 * 197 * 197 * 64 per row pair = 15.3 GFLOP against 155 MB of q, k, v
 // and o, so bytes bind it (0.046 ms at 3.35 TB/s); kernel 11 at
 // (1536, 592, 64), kv_len 577 (ViViT at image 384): 134 GFLOP against
-// 466 MB, bytes (0.139 ms) just above operations (0.136 ms).  Kernel 11's
-// online body still re-streams K and V for every 64 queries and runs
-// mma.sync; the times are in PERF.md.
+// 466 MB, bytes (0.139 ms) just above operations (0.136 ms).  Kernel 11
+// also takes one exponential per score, 1536 x 592 x 640 ex2 at 16 a clock
+// per SM: 0.14 to 0.16 ms at 1.98 to 1.75 GHz, level with both.  The
+// times are in PERF.md.
 
 #include "flash_fwd_sm90.cuh"
 
@@ -45,10 +53,10 @@
 // and lse (B*H, Sq) f32, both contiguous.  The bfloat16 kernels are
 // compiled for head dims 16, 32, 64, 128 and 256, the float kernels take
 // any multiple of 4 up to about 400; kernel 9's bfloat16 shapes inside
-// one_shot_on_wgmma take the wgmma body, which first encodes TMA maps of
-// q, k and v on the host.  Returns the CUDA error of the launch (0 on
-// success, invalid value for a shape that is not covered); the launch is
-// asynchronous on `stream`.
+// one_shot_on_wgmma and kernel 11's inside online_on_wgmma take the wgmma
+// bodies, which first encode TMA maps of q, k and v on the host.  Returns
+// the CUDA error of the launch (0 on success, invalid value for a shape
+// that is not covered); the launch is asynchronous on `stream`.
 extern "C" int devt_flash_fwd(int dtype, int online, const void* q,
                               const void* k, const void* v, void* o,
                               void* lse, int B, int H, int Sq, int Skv,
@@ -79,6 +87,7 @@ extern "C" int devt_flash_fwd(int dtype, int online, const void* q,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!online && one_shot_on_wgmma(dtype, d, kv_len))
     return launch_one_shot<false>(a, B, d, s);
+  if (online && online_on_wgmma(dtype, d)) return launch_online(a, B, d, s);
   return online ? launch_flash<true, false>(dtype, a, B * H, d, s)
                 : launch_flash<false, false>(dtype, a, B * H, d, s);
 }
@@ -87,6 +96,12 @@ extern "C" int devt_flash_fwd(int dtype, int online, const void* q,
 // 1 bfloat16), head dim and live key count takes flash_fwd_sm90.cuh's body
 extern "C" int devt_one_shot_route(int dtype, int d, int keys) {
   return one_shot_on_wgmma(dtype, d, keys) ? 1 : 0;
+}
+
+// 1 when an online forward (kernel 11) of this dtype and head dim takes
+// flash_fwd_sm90.cuh's body
+extern "C" int devt_online_route(int dtype, int d) {
+  return online_on_wgmma(dtype, d) ? 1 : 0;
 }
 
 extern "C" const char* devt_cuda_error_string(int code) {

@@ -1,5 +1,6 @@
-// The one-shot attention forward on Hopper's wgmma and TMA: the bf16 body
-// of kernels 9 and 14 where a head's live keys fit one score row.
+// The attention forwards on Hopper's wgmma and TMA: the one-shot bf16 body
+// of kernels 9 and 14 where a head's live keys fit one score row, and the
+// online-softmax bf16 body of kernel 11 (flash_fwd_wgmma, at the end).
 //
 //   flash_fwd.cu   kernel 9, devt_tpu/ops/flash_attention.py:390
 //                  _fwd_single_kernel: q (B, H, Sq, d), k and v
@@ -75,12 +76,30 @@
 // V read four times a head, from L2) 0.0789.  Without the exponentials it
 // runs 0.068, without the P V product 0.065: what is left is mostly the
 // loads' latency, since a CTA computes nothing until its K has landed.
+//
+// Kernel 11 (flash_fwd.cu, devt_tpu/ops/flash_attention.py:69 _fwd_kernel,
+// the rule online_on_wgmma: bfloat16 at head dim 16, 32 or 64, any key
+// count, Sq and Skv apart).  At ViViT's image-384 shape, (1536, 592, 64)
+// with kv_len 577, bytes (466 MB, 0.139 ms at 3.35 TB/s), the products
+// (134 GFLOP, 0.136 ms) and the exponentials (one per score, 0.14-0.16 ms
+// at 16 ex2 a clock per SM) are level.  A CTA is one consumer warpgroup of
+// 64 query rows and a producer warp; K and V come in 128-key tiles (the
+// TPU kernel's block_kv, so the rescale points are the plain version's)
+// through a two-stage TMA ring with full and empty mbarriers; S = Q K^T is
+// one m64n128k16 per 16 of d into registers, the online softmax runs on
+// them, and O += P V takes P from registers.  Each warpgroup's tile is a
+// chain (products, softmax, products) whose waits bound it, not the
+// bytes: three CTAs an SM (128 registers a thread; skipping O's rescale at
+// the first tile, where O is zero, leaves ptxas no spill) run three chains
+// side by side.  Warpgroups that share K and V tiles in one CTA fall into step
+// with each other and ran slower, in every arrangement tools/
+// wgmma_variants.py measures (PERF.md); halving the bytes read from L2 did
+// not move it.
 
 #pragma once
 
-#include <cuda.h>
-
 #include "flash_fwd.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -112,10 +131,6 @@ __host__ __device__ constexpr int one_shot_tiles(int sq) {
   return sq > 64 ? 2 : 1;
 }
 
-__host__ __device__ constexpr size_t align1024(size_t n) {
-  return (n + 1023) & ~static_cast<size_t>(1023);
-}
-
 // 1 KB of slack to align the dynamic base, the CTA's Q tiles, K and V
 // (each region 1024-byte aligned, the 128-byte swizzle's period), kernel
 // 14's mask
@@ -126,82 +141,40 @@ __host__ __device__ constexpr size_t one_shot_smem(int hd, int tiles, int n,
          (mask ? static_cast<size_t>(n) * sizeof(float) : 0);
 }
 
+// kernel 11, the online-softmax forward: keys a K/V tile (the TPU kernel's
+// block_kv), consumer warpgroups a CTA (64 query rows each), stages of the
+// K/V ring, and query groups (kOnlineWG x 64 rows) a CTA takes in turn
+// (tools/wgmma_variants.py measures the others)
+constexpr int kOnlineKeys = 128;
+constexpr int kOnlineWG = 1;
+constexpr int kOnlineStages = 2;
+constexpr int kOnlineGroups = 1;
+constexpr int kOnlineThreads = kOnlineWG * 128 + 32;  // and a producer warp
+// CTAs an SM that the register cap of __launch_bounds__ leaves room for
+constexpr int kOnlineCTAs = 3;
+
+// the rule, written once: which online forwards (kernel 11) take this body
+__host__ __device__ constexpr bool online_on_wgmma(int dtype, int d) {
+  return dtype == 1 && (d == 16 || d == 32 || d == 64);
+}
+
+// CTAs a head takes: its query parts
+__host__ __device__ constexpr int online_parts(int sq) {
+  return (sq + kOnlineGroups * kOnlineWG * 64 - 1) /
+         (kOnlineGroups * kOnlineWG * 64);
+}
+
+// 1 KB of slack to align the dynamic base, the Q tiles of a group, and per
+// stage a K and a V tile (each 1024-byte aligned)
+__host__ __device__ constexpr size_t online_smem(int hd) {
+  return 1024 + static_cast<size_t>(kOnlineWG) * 64 * hd * 2 +
+         2 * kOnlineStages *
+             align1024(static_cast<size_t>(kOnlineKeys) * hd * 2);
+}
+
 // ---------------------------------------------------------------------------
-// mbarrier, TMA and wgmma in PTX
+// bf16 wgmma: descriptors and products
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// the barriers' initialisation visible to the other threads and to TMA
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile(
-      "fence.mbarrier_init.release.cluster;\n"
-      "fence.proxy.async.shared::cta;\n" ::
-          : "memory");
-}
-
-// one arrival, and `bytes` more to come from TMA
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// spins until the phase `parity` of bar has completed; a load that never
-// lands (a byte count that disagrees with its box) traps after about 2^34
-// clocks, a launch error and not a hung card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    if (clock64() - start > (1ll << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// the box of `map` at (c0, c1, c2, c3) into shared memory at dst,
-// completing on bar
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving reads of an accumulator above the wait
-__device__ __forceinline__ void reg_fence(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
 
 // shared-memory matrix descriptor of a tile whose rows are HD bf16 values
 // (HD * 2 bytes: the swizzle width TMA wrote), 8-row groups dense; the
@@ -562,7 +535,7 @@ __global__ void __launch_bounds__(kOneShotThreads, 3)
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) reg_fence(s[i]);
+    for (int e = 0; e < N / 2; ++e) reg_fence(s[e]);
 
     // 2. the bias and the row max (rows gq, gq + 8: m[0], m[1])
     float m[2] = {neg_inf(), neg_inf()};
@@ -590,9 +563,9 @@ __global__ void __launch_bounds__(kOneShotThreads, 3)
     const float mc[2] = {m[0] * cl, m[1] * cl};
     float l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) {
-      float& v = s[i];
-      const int r = (i >> 1) & 1;
+    for (int e = 0; e < N / 2; ++e) {
+      float& v = s[e];
+      const int r = (e >> 1) & 1;
       v = kMask ? ex2((v - m[r]) * kLog2e) : ex2(fmaf(v, cl, -mc[r]));
       l[r] += v;
     }
@@ -621,7 +594,7 @@ __global__ void __launch_bounds__(kOneShotThreads, 3)
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) reg_fence(o[i]);
+    for (int e = 0; e < HD / 2; ++e) reg_fence(o[e]);
 
     // 4. o and lse
 #pragma unroll
@@ -640,36 +613,217 @@ __global__ void __launch_bounds__(kOneShotThreads, 3)
   }
 }
 
+// Kernel 11.  A CTA takes kOnlineGroups groups of kOnlineWG x 64 query rows
+// of one (sequence, head), one group after the other; warpgroup w owns
+// rows 64 w .. 64 w + 63 of a group.  Its grid index runs over the query
+// parts of a head fastest, so the CTAs of a head run side by side and
+// read its K and V from L2 after the first.  The last warp of a CTA is
+// its producer: one lane issues the loads of the group's Q tiles and of
+// the K and V tiles of 128 keys through a ring of kOnlineStages stages.
+// Full barriers carry the bytes (one for K, one for V: S = Q K^T starts
+// before V has landed); a K tile is handed back once S has read it, a V
+// tile once P V has, so the next K lands under this tile's softmax.  When
+// the live tiles all fit the ring they are loaded once and stay.  Per
+// tile, in a consumer warpgroup:
+//   S = Q K^T         wgmma m64n128k16 per 16 of d, into 64 f32 registers
+//   mask              key columns >= kv_len at -inf, on the last tile only
+//   m_new = max(m, row max s); alpha = 2^((m - m_new) c), c = scale log2 e
+//   p = 2^(s c - m_new c), rounded to bf16 as wgmma A fragments
+//   l = alpha l + sum p;  O = alpha O + P V (wgmma m64nDk16, A from
+//                         registers, V MN-major through the transpose bit)
+// At the end o = O / l and lse = m scale + log l, rows past Sq not stored.
+// Every tile visited holds a live key, so m is finite after the first
+// tile and the first alpha is 2^-inf = 0.
+template <int HD>
+__global__ void __launch_bounds__(kOnlineThreads, kOnlineCTAs)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const FlashFwd a) {
+  constexpr int RB = HD * 2;                  // bytes of a row
+  constexpr int kRows = kOnlineWG * 64;       // query rows of a group
+  constexpr uint32_t kTile = kOnlineKeys * RB;  // bytes of a K or V tile
+  constexpr int S = kOnlineStages;
+  extern __shared__ unsigned char smem_raw[];
+  // per stage: K full, V full, K empty, V empty; then Q full, Q empty
+  __shared__ __align__(8) uint64_t bars[4 * S + 2];
+  uint64_t* const fullk = bars;
+  uint64_t* const fullv = bars + S;
+  uint64_t* const emptyk = bars + 2 * S;
+  uint64_t* const emptyv = bars + 3 * S;
+  uint64_t* const qfull = bars + 4 * S;
+  uint64_t* const qempty = qfull + 1;
+  unsigned char* Qs =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* KV = Qs + kRows * RB;  // stage st: K, then V
+  constexpr int span = kOnlineGroups * kRows;  // query rows a CTA covers
+  const int parts = online_parts(a.Sq);
+  const int bh = blockIdx.x / parts, part = blockIdx.x - bh * parts;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int ntiles = (a.kv_len + kOnlineKeys - 1) / kOnlineKeys;
+  const bool resident = ntiles <= S;  // each tile loaded once, into stage j
+  // the groups and warpgroups that hold query rows (a CTA of one group at
+  // the end of Sq may have fewer warpgroups at work; the others leave)
+  const int left = a.Sq - part * span;
+  const int groups = min(kOnlineGroups, (left + kRows - 1) / kRows);
+  const int active =
+      groups > 1 ? kOnlineWG : min(kOnlineWG, (left + 63) / 64);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&fullk[i], 1);
+      mbar_init(&fullv[i], 1);
+      mbar_init(&emptyk[i], 4 * active);
+      mbar_init(&emptyv[i], 4 * active);
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 4 * active);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq4 = lane & 3;
+  if (wg == kOnlineWG) {
+    // the producer: one lane issues every load
+    if (lane == 0) {
+      int g = 0;
+      for (int it = 0; it < groups; ++it) {
+        if (it > 0) mbar_wait(qempty, (it - 1) & 1);
+        const int row0 = part * span + it * kRows;
+        mbar_expect_tx(qfull, kRows * RB);
+        for (int w = 0; w < kOnlineWG; ++w)
+          tma_load_4d(Qs + w * 64 * RB, &tq, qfull, 0, row0 + 64 * w, h, b);
+        if (resident && it > 0) continue;
+        for (int j = 0; j < ntiles; ++j, ++g) {
+          const int st = resident ? j : g % S;
+          const uint32_t freed = ((g / S) & 1) ^ 1;
+          unsigned char* Ks = KV + 2 * st * kTile;
+          if (!resident) mbar_wait(&emptyk[st], freed);
+          mbar_expect_tx(&fullk[st], kTile);
+          tma_load_4d(Ks, &tk, &fullk[st], 0, j * kOnlineKeys, h, b);
+          if (!resident) mbar_wait(&emptyv[st], freed);
+          mbar_expect_tx(&fullv[st], kTile);
+          tma_load_4d(Ks + kTile, &tv, &fullv[st], 0, j * kOnlineKeys, h, b);
+        }
+      }
+    }
+  } else if (wg < active) {
+    const uint64_t qdesc = smem_desc<HD>(Qs + wg * 64 * RB);
+    const float c = a.scale * kLog2e;
+    int g = 0;  // tiles consumed so far: the ring's position
+#pragma unroll 1
+    for (int it = 0; it < groups; ++it) {
+      mbar_wait(qfull, it & 1);
+      float o[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+#pragma unroll 1
+      for (int j = 0; j < ntiles; ++j, ++g) {
+        const int st = resident ? j : g % S;
+        const uint32_t ph = resident ? 0 : (g / S) & 1;
+        const unsigned char* Ks = KV + 2 * st * kTile;
+        mbar_wait(&fullk[st], ph);
+
+        // S = Q K^T: register 4 jj + e holds row gq + 8 (e / 2) of the
+        // warp's 16, key column 8 jj + 2 tq4 + e % 2 of the tile
+        float s[kOnlineKeys / 2];
+        const uint64_t kdesc = smem_desc<HD>(Ks);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss_n128(s, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int i = 0; i < kOnlineKeys / 2; ++i) reg_fence(s[i]);
+        if (lane == 0) {
+          if (!resident) mbar_arrive(&emptyk[st]);   // K read
+          if (j == ntiles - 1) mbar_arrive(qempty);  // Q read
+        }
+
+        if (j == ntiles - 1 && (a.kv_len % kOnlineKeys)) {
+          const int live = a.kv_len - j * kOnlineKeys;
+#pragma unroll
+          for (int jj = 0; jj < kOnlineKeys / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (8 * jj + 2 * tq4 + (e & 1) >= live)
+                s[4 * jj + e] = neg_inf();
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int i = 0; i < kOnlineKeys / 2; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        mx[0] = quad_max(mx[0]);
+        mx[1] = quad_max(mx[1]);
+        const float alpha[2] = {ex2((m[0] - mx[0]) * c),
+                                ex2((m[1] - mx[1]) * c)};
+        const float mc[2] = {mx[0] * c, mx[1] * c};
+        m[0] = mx[0];
+        m[1] = mx[1];
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < kOnlineKeys / 2; ++i) {
+          s[i] = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));
+          rs[(i >> 1) & 1] += s[i];
+        }
+        l[0] = l[0] * alpha[0] + rs[0];
+        l[1] = l[1] * alpha[1] + rs[1];
+        if (j > 0) {  // O is zero before the first tile
+#pragma unroll
+          for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        }
+        // p in bf16: registers 8 kk .. 8 kk + 7 are the A fragment of the
+        // 16 keys at 16 kk
+        uint32_t pa[kOnlineKeys / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kOnlineKeys / 16; ++kk) {
+          const float* p = s + 8 * kk;
+          pa[kk][0] = pack_bf16(p[0], p[1]);
+          pa[kk][1] = pack_bf16(p[2], p[3]);
+          pa[kk][2] = pack_bf16(p[4], p[5]);
+          pa[kk][3] = pack_bf16(p[6], p[7]);
+        }
+
+        // O += P V, one m64nHDk16 per 16 keys (16 rows of V)
+        mbar_wait(&fullv[st], ph);
+        const uint64_t vdesc = smem_desc<HD>(Ks + kTile);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kOnlineKeys / 16; ++kk)
+          wgmma_pv<HD>(o, pa[kk], vdesc + ((16 * kk * RB) >> 4), 1);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) reg_fence(o[i]);
+        if (!resident && lane == 0) mbar_arrive(&emptyv[st]);  // V read
+      }
+
+      // o = O / l and lse, the row sums of the quad first
+      l[0] = quad_sum(l[0]);
+      l[1] = quad_sum(l[1]);
+      bf16* O = static_cast<bf16*>(a.o) + b * a.os[0] + h * a.os[1];
+      float* L = a.lse + b * a.ls[0] + h * a.ls[1];
+      const int row0 = part * span + it * kRows + wg * 64 + 16 * warp + gq;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = row0 + 8 * hh;
+        if (row >= a.Sq) continue;
+        bf16* dst = O + row * a.os[2] + 2 * tq4;
+#pragma unroll
+        for (int jj = 0; jj < HD / 8; ++jj)
+          *reinterpret_cast<uint32_t*>(dst + 8 * jj) = pack_bf16(
+              o[4 * jj + 2 * hh] / l[hh], o[4 * jj + 2 * hh + 1] / l[hh]);
+        if (tq4 == 0) L[row * a.ls[2]] = m[hh] * a.scale + logf(l[hh]);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // host: the tensor maps and the launch
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (libcuda) through the runtime's entry-point
-// query, so the library needs no -lcuda; null when libcuda lacks it
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // a bf16 head view as a 4-d map over (d, row, head, sequence) with element
 // strides (row, head, sequence), boxes of (d, box_rows, 1, 1) rows in
@@ -746,6 +900,37 @@ cudaError_t launch_one_shot(const FlashFwd& a, int B, int d,
     case 16: return launch_one_shot_d<16, kMask>(m, a, B * a.H, n, stream);
     case 32: return launch_one_shot_d<32, kMask>(m, a, B * a.H, n, stream);
     case 64: return launch_one_shot_d<64, kMask>(m, a, B * a.H, n, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch_online_d(const CUtensorMap (&m)[3], const FlashFwd& a,
+                            int BH, cudaStream_t stream) {
+  constexpr size_t bytes = online_smem(HD);
+  DEVT_TRY(set_smem(flash_fwd_wgmma<HD>, bytes));
+  flash_fwd_wgmma<HD><<<BH * online_parts(a.Sq), kOnlineThreads, bytes,
+                        stream>>>(m[0], m[1], m[2], a);
+  return cudaGetLastError();
+}
+
+// kernel 11 on the wgmma body, for a bfloat16 shape inside online_on_wgmma:
+// the TMA maps of q (64-row boxes) and of k and v (128-key boxes), then
+// the launch of the head dim
+inline cudaError_t launch_online(const FlashFwd& a, int B, int d,
+                                 cudaStream_t stream) {
+  if (!online_on_wgmma(1, d)) return cudaErrorInvalidValue;
+  CUtensorMap m[3];
+  DEVT_TRY(head_map(&m[0], a.q, d, a.Sq, a.H, B, a.qs[2], a.qs[1], a.qs[0],
+                    64));
+  DEVT_TRY(head_map(&m[1], a.k, d, a.Skv, a.H, B, a.ks[2], a.ks[1], a.ks[0],
+                    kOnlineKeys));
+  DEVT_TRY(head_map(&m[2], a.v, d, a.Skv, a.H, B, a.vs[2], a.vs[1], a.vs[0],
+                    kOnlineKeys));
+  switch (d) {
+    case 16: return launch_online_d<16>(m, a, B * a.H, stream);
+    case 32: return launch_online_d<32>(m, a, B * a.H, stream);
+    case 64: return launch_online_d<64>(m, a, B * a.H, stream);
   }
   return cudaErrorInvalidValue;
 }

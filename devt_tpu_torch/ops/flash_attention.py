@@ -58,8 +58,7 @@ JAX package's ``flash_attention`` (``:326``), with its rule (``:349``):
   * otherwise the blockwise online-softmax forward ``_fwd_kernel``
     (``:69``, kernel 11): per 128-key block the running max m, alpha =
     exp(m_old - m), acc = acc·alpha + round(p) @ v, l = l·alpha + Σp, and
-    o = acc / l (the CUDA kernel rescales per 32 keys, which moves a bf16
-    o by the rounding of p only); its backward, ``_flash_padded``'s VJP
+    o = acc / l; its backward, ``_flash_padded``'s VJP
     (``:303-323``), is ``_bwd_dq_kernel`` (``:158``, kernel 12: delta and
     dq summed over the key blocks) and ``_bwd_dkv_kernel`` (``:198``,
     kernel 13: dk and dv summed over the query blocks),
@@ -68,12 +67,18 @@ JAX package's ``flash_attention`` (``:326``), with its rule (``:349``):
 Kernels: ``csrc/flash_fwd.cu`` (9 and 11) on two bodies.  Kernel 9 in
 bfloat16 at head dim 16, 32 or 64 with at most 256 live keys
 (``one_shot_on_wgmma``: every main-path shape) runs
-``csrc/flash_fwd_sm90.cuh``: a CTA per two query tiles of a head, q, k, v
-loaded by TMA, the whole score row of 64 queries in ``wgmma`` accumulators,
-P·V on ``wgmma`` from registers.  Other shapes, kernel 11 and float run
-``csrc/flash_fwd.cuh`` (a block per 64 queries of a head, K and V streamed
-through shared memory in 64-key tiles, so every length takes every head
-dim); and
+``csrc/flash_fwd_sm90.cuh``'s one-shot body: a CTA per two query tiles of
+a head, q, k, v loaded by TMA, the whole score row of 64 queries in
+``wgmma`` accumulators, P·V on ``wgmma`` from registers.  Kernel 11 in
+bfloat16 at head dim 16, 32 or 64 (``online_on_wgmma``: every main-path
+shape) runs the same header's online body: 64 queries a CTA in one
+consumer warpgroup, three CTAs an SM, K and V in 128-key tiles (the TPU
+kernel's block_kv, so one rescale per 128 keys as the plain version's)
+through a TMA ring that a producer warp keeps full, Q·Kᵀ and P·V on
+``wgmma``.  Other shapes and float run ``csrc/flash_fwd.cuh`` (a block per
+64 queries of a head, K and V streamed through shared memory in 64-key
+tiles, so every length takes every head dim; its online branch rescales
+per 32 keys, which moves a bf16 o by the rounding of p only); and
 ``csrc/flash_bwd.cu`` (10, and 12 and 13 as two launches after a delta
 launch: kernel 4's body on the split layout, ``csrc/attention_bwd.cuh``,
 with separate query and key extents and the other side streamed, so
@@ -85,7 +90,9 @@ to its tiles; here the kernels mask query rows past Sq and keys past
 kv_len).  Counters: ``flash_attention.single_launches`` (kernel 9; of
 them ``.single_wgmma_launches`` on the wgmma body and
 ``.single_streamed_launches`` on the streamed one),
-``.single_bwd_launches``, ``.blocked_launches``, ``.blocked_dq_launches``
+``.single_bwd_launches``, ``.blocked_launches`` (kernel 11; of them
+``.blocked_wgmma_launches`` and ``.blocked_streamed_launches`` by body),
+``.blocked_dq_launches``
 (kernel 12, its delta launch with it) and ``.blocked_dkv_launches`` (13).
 
 ``ring_step_fwd`` and ``ring_step_bwd`` are one hop of ring attention
@@ -138,6 +145,14 @@ def one_shot_on_wgmma(dtype: torch.dtype, d: int, keys: int) -> bool:
     others run the streamed body of ``csrc/flash_fwd.cuh``."""
     return (dtype == torch.bfloat16 and d in _WGMMA_HEAD_DIMS
             and 1 <= keys <= _WGMMA_MAX_KEYS)
+
+
+def online_on_wgmma(dtype: torch.dtype, d: int) -> bool:
+    """Whether an online forward (kernel 11) runs the wgmma body: the rule
+    of the C entry, ``csrc/flash_fwd_sm90.cuh`` ``online_on_wgmma``
+    (bfloat16 at head dim 16, 32 or 64, any key count).  The others run
+    the streamed body of ``csrc/flash_fwd.cuh``."""
+    return dtype == torch.bfloat16 and d in _WGMMA_HEAD_DIMS
 
 
 def _round_up(x: int, m: int) -> int:
@@ -699,6 +714,10 @@ def _flash_fwd_cuda(q, k, v, scale, kv_len, online):
     _check_rc(lib, rc, "flash_fwd")
     if online:
         flash_attention.blocked_launches += 1
+        if online_on_wgmma(q.dtype, d):
+            flash_attention.blocked_wgmma_launches += 1
+        else:
+            flash_attention.blocked_streamed_launches += 1
     else:
         flash_attention.single_launches += 1
         if one_shot_on_wgmma(q.dtype, d, kv_len):
@@ -879,6 +898,8 @@ flash_attention.single_wgmma_launches = 0
 flash_attention.single_streamed_launches = 0
 flash_attention.single_bwd_launches = 0
 flash_attention.blocked_launches = 0
+flash_attention.blocked_wgmma_launches = 0
+flash_attention.blocked_streamed_launches = 0
 flash_attention.blocked_dq_launches = 0
 flash_attention.blocked_dkv_launches = 0
 
@@ -891,6 +912,8 @@ def _declare_flash_fwd(lib: ctypes.CDLL) -> None:
     lib.devt_flash_fwd.restype = ctypes.c_int
     lib.devt_one_shot_route.argtypes = [ctypes.c_int] * 3
     lib.devt_one_shot_route.restype = ctypes.c_int
+    lib.devt_online_route.argtypes = [ctypes.c_int] * 2
+    lib.devt_online_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p
 

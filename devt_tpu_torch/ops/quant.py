@@ -6,7 +6,8 @@ Port of ``devt_tpu/ops/quant.py``.  The scheme:
     ``(K, N)`` matrix gets its own f32 scale ``max|w|/127``.  Quantized
     once: ``serve.Predictor(quantize=True)`` collects every site's int8
     weights at construction (the site registry below) and hands them back
-    to every forward.
+    to every forward; a Linear site's codes are stored (N, K), k
+    contiguous, and handed out as their (K, N) view.
   * activations: symmetric per-row int8, scales computed from the live
     batch (``max|x|/127`` over the feature axis).
   * the contraction runs int8×int8 with an exact int32 sum, then
@@ -51,6 +52,11 @@ counts its launches in ``.launches``:
     columns; tiling N across blocks as well would repeat that per column
     tile), then a tiled int8 product with the dequantizing epilogue.  The
     int32 sums are exact, so kernel and plain version agree bit for bit.
+  * The product's body follows the weight codes' layout
+    (``int8_matmul_on_wgmma``): K-major codes, which the site registry
+    stores, run ``csrc/gemm_s8_sm90.cuh`` (TMA and int8 ``wgmma``, which
+    reads 8-bit operands only K-major); row-major (K, N) codes run the
+    ``mma.sync`` body of ``csrc/int8_common.cuh``.
   * Bound at (3584, 2048)·(2048, 6144): 90.2 GOP against 71 MB: operations.
 
 The kernels' times on the card are in PERF.md.
@@ -221,9 +227,12 @@ def int8_dot_general(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     k, n = rhs.shape
     if not quant_site_allowed(int(k), int(n)):
         return lhs @ rhs.to(lhs.dtype)
-    def quantize():     # (K, N) row-major, whatever rhs's strides
+    def quantize():
+        # the codes stored K-major, (N, K) k contiguous: the (K, N) view
+        # with strides (1, K) that int8_matmul_fused's wgmma body reads
+        # and the plain and unfused routes take as it is; one copy
         w_q, w_scale = quantize_weight(rhs.to(lhs.dtype), axis=0)
-        return w_q.contiguous(), w_scale.contiguous()
+        return w_q.t().contiguous().t(), w_scale.contiguous()
 
     w_q, w_scale = site_value(quantize, tuple)
     if w_q.shape != rhs.shape:
@@ -419,6 +428,16 @@ def int8_matmul_fused_plain(x, w_q, w_scale) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def int8_matmul_on_wgmma(w_q: torch.Tensor) -> bool:
+    """Whether ``int8_matmul_fused`` runs its wgmma body on these weight
+    codes: the rule of the C entry, ``csrc/gemm_s8_sm90.cuh``
+    ``int8_gemm_on_wgmma``.  A (K, N) view with strides (1, K), K-major
+    codes stored (N, K) as the site registry stores them, takes it; the
+    row-major (K, N) codes of the JAX layout take the mma.sync body of
+    ``csrc/int8_common.cuh`` (``gemm_s8``), whatever x's dtype."""
+    return w_q.dim() == 2 and w_q.stride() == (1, w_q.shape[0])
+
+
 def _check_matmul_args(x, w_q, w_scale) -> None:
     """Raise on what the int8 matmul kernel does not take."""
     if x.dtype not in _DTYPE_CODE:
@@ -429,10 +448,16 @@ def _check_matmul_args(x, w_q, w_scale) -> None:
                          f"{tuple(x.shape)}")
     k = x.shape[-1]
     if w_q.dim() != 2 or w_q.shape[0] != k or w_q.dtype != torch.int8 \
-            or w_q.device != x.device or not w_q.is_contiguous():
-        raise ValueError(f"w_q: need a contiguous int8 tensor of shape "
-                         f"({k}, N) on {x.device}, got {w_q.dtype} "
-                         f"{tuple(w_q.shape)} on {w_q.device}")
+            or w_q.device != x.device \
+            or not (w_q.is_contiguous() or int8_matmul_on_wgmma(w_q)):
+        raise ValueError(f"w_q: need an int8 tensor of shape ({k}, N) on "
+                         f"{x.device}, contiguous or the K-major view of an "
+                         f"(N, {k}) one, got {w_q.dtype} "
+                         f"{tuple(w_q.shape)} strides {w_q.stride()} on "
+                         f"{w_q.device}")
+    if int8_matmul_on_wgmma(w_q) and w_q.data_ptr() % 16:
+        raise ValueError("K-major w_q must start 16-byte aligned (a TMA "
+                         "map's base)")
     n = w_q.shape[1]
     if w_scale.numel() != n or w_scale.dtype != torch.float32 \
             or w_scale.device != x.device or not w_scale.is_contiguous():
@@ -451,13 +476,14 @@ def _matmul_cuda(x, w_q, w_scale):
     lib = _build.load("int8_matmul", _declare_matmul)
     k, n = w_q.shape
     m = x.numel() // k
+    wgmma = int8_matmul_on_wgmma(w_q)
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
     codes = torch.empty((m, k), dtype=torch.int8, device=x.device)
     row_scale = torch.empty((m,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.devt_int8_matmul(
-            _DTYPE_CODE[x.dtype], ctypes.c_void_p(x.data_ptr()),
+            _DTYPE_CODE[x.dtype], int(wgmma), ctypes.c_void_p(x.data_ptr()),
             ctypes.c_void_p(w_q.data_ptr()),
             ctypes.c_void_p(w_scale.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
@@ -466,14 +492,20 @@ def _matmul_cuda(x, w_q, w_scale):
             ctypes.c_void_p(stream))
     fb._check(lib, rc, "int8_matmul")
     int8_matmul_fused.launches += 1
+    if wgmma:
+        int8_matmul_fused.wgmma_launches += 1
+    else:
+        int8_matmul_fused.mma_sync_launches += 1
     return out
 
 
 def int8_matmul_fused(x, w_q, w_scale) -> torch.Tensor:
     """``x @ dequant(w_q)`` with the row quantize, the int8 product and the
     dequantize in hand-written kernels.  x ``(..., K)`` float; w_q
-    ``(K, N)`` int8; w_scale ``(1, N)`` f32.  Returns ``x.dtype`` shaped
-    ``(..., N)``.
+    ``(K, N)`` int8, row-major or the K-major view of (N, K) storage (the
+    site registry's layout; ``int8_matmul_on_wgmma`` names the body each
+    takes, counted in ``.wgmma_launches`` and ``.mma_sync_launches``);
+    w_scale ``(1, N)`` f32.  Returns ``x.dtype`` shaped ``(..., N)``.
 
     A CUDA tensor launches the kernel (raising on a shape it does not
     cover or a failed launch); a CPU tensor runs the plain version."""
@@ -485,6 +517,8 @@ def int8_matmul_fused(x, w_q, w_scale) -> torch.Tensor:
 
 
 int8_matmul_fused.launches = 0
+int8_matmul_fused.wgmma_launches = 0
+int8_matmul_fused.mma_sync_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -550,8 +584,10 @@ def _declare_block(lib: ctypes.CDLL) -> None:
 
 def _declare_matmul(lib: ctypes.CDLL) -> None:
     lib.devt_int8_matmul.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
     lib.devt_int8_matmul.restype = ctypes.c_int
+    lib.devt_int8_matmul_route.argtypes = [ctypes.c_int]
+    lib.devt_int8_matmul_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p

@@ -1324,3 +1324,145 @@ def test_every_flash_and_ring_shape_takes_the_routed_body(card):
             assert _one_shot_delta(before) == [0, 0, 0, 1, int(wgmma),
                                                int(not wgmma)]
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the online forward on wgmma (csrc/flash_fwd_sm90.cuh): kernel 11
+# ---------------------------------------------------------------------------
+
+# (b, h, sq, skv, d, kv_len, strided): the image-384 shape on the head
+# views of a packed qkv (592 tokens, 577 live), kv_len at and around the
+# 128-key tile (1, 128, 129) above one kv block, Sq != Skv (40 queries
+# against 300 keys), a single query, head dims 16 and 32
+ONLINE_SHAPES = [
+    (2, 3, 592, 592, 64, 577, True), (1, 2, 600, 600, 64, 1, False),
+    (1, 2, 600, 600, 64, 128, True), (1, 2, 600, 600, 64, 129, False),
+    (2, 3, 40, 300, 64, 290, False), (2, 2, 1, 300, 64, 300, False),
+    (1, 2, 530, 530, 32, 530, True), (2, 1, 70, 257, 16, 200, False)]
+
+
+def _online_counts():
+    fa = tfa.flash_attention
+    return (fa.blocked_launches, fa.blocked_wgmma_launches,
+            fa.blocked_streamed_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,skv,d,kv_len,strided", ONLINE_SHAPES)
+def test_flash_online_wgmma_matches_plain(card, b, h, sq, skv, d, kv_len,
+                                          strided):
+    """Kernel 11 on the wgmma body: o at the bf16 forward gate and lse at
+    1e-4 against the plain version (the same 128-key blocks), one launch
+    on that body, two runs bit-equal."""
+    q, k, v = _flash_inputs("bf16", b, h, sq, skv, d, strided, sq + kv_len)
+    assert tfa.online_on_wgmma(torch.bfloat16, d)
+    assert not (sq == skv and tfa.fits_single_block(sq))
+    before = _online_counts()
+    with torch.no_grad():
+        o, lse = tfa.flash_attention(q, k, v, kv_len=kv_len, return_lse=True)
+        o2, lse2 = tfa.flash_attention(q, k, v, kv_len=kv_len,
+                                       return_lse=True)
+    wo, wlse = tfa.flash_blocked_fwd_plain(q, k, v, d ** -0.5, kv_len)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_online_counts(), before)] == [2, 2, 0]
+    assert o.shape == (b, h, sq, d) and torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), wo.float(), **TOL["bf16"])
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-4)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_online_wgmma_writes_no_row_past_sq(card):
+    """The online body writes o and lse for rows < Sq only (Sq = 530: the
+    last query tile holds 18 rows, 46 past the end): canaries after the
+    last sequence's last row stay as they were."""
+    lib = _build.load("flash_fwd", tfa._declare_flash_fwd)
+    b, h, sq, skv, d = 2, 2, 530, 600, 64
+    q, k, v = _flash_inputs("bf16", b, h, sq, skv, d, False, 12)
+    spare = 128 * d
+    o_buf = torch.full((b * h * sq * d + spare,), 7.0, dtype=torch.bfloat16,
+                       device="cuda")
+    l_buf = torch.full((b * h * sq + 128,), 7.0, device="cuda")
+    strides = (ctypes.c_longlong * 9)(
+        *(t.stride(i) for t in (q, k, v) for i in range(3)))
+    rc = lib.devt_flash_fwd(1, 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o_buf.data_ptr(), l_buf.data_ptr(), b, h, sq,
+                            skv, d, 580, strides, ctypes.c_float(d ** -0.5),
+                            ctypes.c_void_p(
+                                torch.cuda.current_stream().cuda_stream))
+    want_o, want_l = tfa.flash_blocked_fwd_plain(q, k, v, d ** -0.5, 580)
+    torch.cuda.synchronize()
+    assert rc == 0
+    torch.testing.assert_close(
+        o_buf[:b * h * sq * d].view(b, h, sq, d).float(), want_o.float(),
+        **TOL["bf16"])
+    torch.testing.assert_close(l_buf[:b * h * sq].view(b * h, sq), want_l,
+                               atol=1e-4, rtol=1e-4)
+    assert torch.equal(o_buf[b * h * sq * d:],
+                       torch.full((spare,), 7.0, dtype=torch.bfloat16,
+                                  device="cuda"))
+    assert torch.equal(l_buf[b * h * sq:], torch.full((128,), 7.0,
+                                                      device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# the fused int8 matmul on int8 wgmma (csrc/gemm_s8_sm90.cuh): kernel 6
+# ---------------------------------------------------------------------------
+
+
+def _int8_operands(kind, m, k, n, seed):
+    """x (M, K) on the card with an all-zero row, and the weight codes of
+    a (K, N) weight both ways: K-major (the site registry's layout) and
+    row-major."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(m, k, generator=gen)).to(DTYPE[kind]).cuda()
+    x[min(3, m - 1)] = 0.0
+    w = (torch.randn(k, n, generator=gen) * k ** -0.5).cuda()
+    w_q, w_s = tq.quantize_weight(w.to(DTYPE[kind]))
+    return x, w_q.t().contiguous().t(), w_q.contiguous(), w_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,k,n", [
+    ("bf16", 3584, 2048, 6144), ("bf16", 3584, 2048, 2048),
+    ("bf16", 1, 2048, 2048), ("bf16", 65, 2048, 2048),
+    ("bf16", 3585, 2048, 2048), ("bf16", 300, 2048, 640),
+    ("bf16", 100, 576, 192), ("f32", 257, 512, 768)])
+def test_int8_matmul_wgmma_bit_equal_to_plain(card, kind, m, k, n):
+    """K-major codes take the wgmma body and row-major ones the mma.sync
+    body; both are bit-equal to the plain version (exact int32 sums, the
+    same dequantize), ragged M, K not a multiple of the 128-byte k step,
+    and N not a multiple of the 256-column tile included."""
+    x, kmajor, rowmajor, w_s = _int8_operands(kind, m, k, n, m + n)
+    assert tq.int8_matmul_on_wgmma(kmajor)
+    assert not tq.int8_matmul_on_wgmma(rowmajor)
+    f = tq.int8_matmul_fused
+    before = (f.launches, f.wgmma_launches, f.mma_sync_launches)
+    got = f(x, kmajor, w_s)
+    again = f(x, kmajor, w_s)
+    old = f(x, rowmajor, w_s)
+    want = tq.int8_matmul_fused_plain(x, rowmajor, w_s)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(
+        (f.launches, f.wgmma_launches, f.mma_sync_launches), before)] == [
+        3, 2, 1]
+    assert got.dtype == x.dtype and got.shape == (m, n)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    assert torch.equal(got, again) and torch.equal(old, want)
+    assert torch.equal(tq.int8_matmul_fused_plain(x, kmajor, w_s), want)
+
+
+@pytest.mark.cuda
+def test_int8_and_online_routes_match_the_c_rules(card):
+    """The C entries' rules (devt_int8_matmul_route, devt_online_route) are
+    the Python predicates'."""
+    lib = _build.load("int8_matmul", tq._declare_matmul)
+    w = torch.zeros(128, 64, dtype=torch.int8)
+    for codes in (w, w.t().contiguous().t()):
+        kmajor = tq.int8_matmul_on_wgmma(codes)
+        assert bool(lib.devt_int8_matmul_route(int(kmajor))) == kmajor
+    flib = _build.load("flash_fwd", tfa._declare_flash_fwd)
+    for dtype, code in tfa._DTYPE_CODE.items():
+        for d in (8, 16, 32, 48, 64, 128, 256):
+            assert bool(flib.devt_online_route(code, d)) == \
+                tfa.online_on_wgmma(dtype, d), (dtype, d)

@@ -380,6 +380,19 @@ def test_one_shot_route_predicate(dtype, d, keys, want):
     assert tfa.one_shot_on_wgmma(dtype, d, keys) is want
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, True),          # kernel 11's main path
+    (torch.bfloat16, 16, True), (torch.bfloat16, 32, True),
+    (torch.bfloat16, 128, False), (torch.bfloat16, 256, False),
+    (torch.bfloat16, 48, False), (torch.bfloat16, 8, False),
+    (torch.float32, 64, False), (torch.float32, 32, False)])
+def test_online_route_predicate(dtype, d, want):
+    """Kernel 11: bfloat16 at head dim 16, 32 or 64 takes the wgmma online
+    body whatever the key count and Sq; anything else the streamed body
+    (the card tests hold the C entry's rule to this predicate)."""
+    assert tfa.online_on_wgmma(dtype, d) is want
+
+
 def test_aligned_keeps_tma_readable_views_and_copies_the_rest():
     """``_aligned`` passes what both bodies read in place (the head views
     of a packed qkv: 16-byte aligned, strides positive multiples of 8
@@ -426,12 +439,14 @@ def test_cpu_calls_count_no_launch():
     fa, ring = tfa.flash_attention, tfa.ring_step_fwd
     def counts():
         return (fa.single_launches, fa.single_wgmma_launches,
-                fa.single_streamed_launches, ring.launches,
-                ring.wgmma_launches, ring.streamed_launches)
+                fa.single_streamed_launches, fa.blocked_launches,
+                fa.blocked_wgmma_launches, fa.blocked_streamed_launches,
+                ring.launches, ring.wgmma_launches, ring.streamed_launches)
 
     before = counts()
     x = torch.randn(1, 2, 20, 16).to(torch.bfloat16)
     fa(x, x, x)
+    fa(x[:, :, :5], x, x)                       # Sq != Skv: blockwise
     q = torch.randn(1, 20, 32).to(torch.bfloat16)
     kv = torch.randn(1, 20, 64).to(torch.bfloat16)
     ring(q, kv, torch.zeros(1, 20), heads=2, scale=0.25)

@@ -282,6 +282,56 @@ def test_quant_scope_and_site_pred_match_jax():
     assert np.abs(got_wide.numpy() - x @ w_wide).max() > 0
 
 
+@pytest.mark.parametrize("layout,want", [
+    ("k_major", True),          # the site registry's codes: (N, K) storage
+    ("row_major", False),       # JAX's (K, N) layout
+    ("strided", False)])        # neither: every other column of a (K, 2N)
+def test_int8_matmul_route_predicate(layout, want):
+    """Kernel 6's body follows the weight codes' layout: the K-major view
+    (strides (1, K)) takes the wgmma body, row-major codes the mma.sync
+    body (the card tests hold the C entry's rule to this predicate)."""
+    k, n = 128, 64
+    codes = {"k_major": torch.zeros(n, k, dtype=torch.int8).t(),
+             "row_major": torch.zeros(k, n, dtype=torch.int8),
+             "strided": torch.zeros(k, 2 * n, dtype=torch.int8)[:, ::2]}
+    assert tuple(codes[layout].shape) == (k, n)
+    assert tq.int8_matmul_on_wgmma(codes[layout]) is want
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 32, 64), (37, 1152, 192)])
+def test_site_registry_stores_k_major_codes(m, k, n):
+    """A Linear site's codes are stored (N, K), k contiguous, and handed
+    out as their (K, N) view: the layout of kernel 6's wgmma body, with
+    one copy of the weights.  The view gives bit for bit what the row-major
+    codes give, through the unfused product, the fused kernel's plain
+    version and the site itself, and the same values as JAX's
+    int8_dot_general (K = 1152 takes the f64 product)."""
+    rng = np.random.default_rng(m + k)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * k ** -0.5).astype(np.float32)
+    sites = []
+    with tatt.quant_scope(), tq.quant_sites_collect(sites):
+        got = tq.int8_dot_general(torch.tensor(x), torch.tensor(w))
+    (w_q, w_s), = sites
+    assert tuple(w_q.shape) == (k, n) and w_q.stride() == (1, k)
+    assert w_q.t().is_contiguous() and tq.int8_matmul_on_wgmma(w_q)
+    row = w_q.contiguous()
+    assert torch.equal(row, tq.quantize_weight(torch.tensor(w))[0])
+    xt = torch.tensor(x)
+    assert torch.equal(tq.int8_matmul(xt, w_q, w_s),
+                       tq.int8_matmul(xt, row, w_s))
+    assert torch.equal(got, tq.int8_matmul(xt, row, w_s))
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = xt.to(dtype)
+        assert torch.equal(tq.int8_matmul_fused_plain(xd, w_q, w_s),
+                           tq.int8_matmul_fused_plain(xd, row, w_s))
+    with jatt.quant_scope():
+        want = jq.int8_dot_general(jnp.asarray(x), jnp.asarray(w),
+                                   (((1,), (0,)), ((), ())))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
 def test_site_registry_quantizes_once():
     """collect records each site's int8 pair in call order; provide hands
     them back and quantizes nothing (the weight is not even read)."""

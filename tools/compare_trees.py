@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Two checkouts of the repo on one card, in turns: the split-q/k/v and
-ring attention kernels and the model paths that run them.
+"""Two checkouts of the repo on one card, in turns: the wgmma kernels and
+the model paths that run them, and the paths that run neither.
 
     python tools/compare_trees.py PARENT CHANGE [--rounds 2]
 
@@ -13,13 +13,20 @@ timer in both trees (CUDA graph replay of 20 calls, 5 replays):
 
   * kernel 9 at (1536, 197, 64), kv_len 197, q, k, v the head views of a
     packed qkv (the int8 ViViT at token_pad=0);
-  * kernel 11 at (1536, 592, 64), kv_len 577 (ViViT at image 384);
+  * kernel 11 at (1536, 592, 64), kv_len 577 (ViViT at image 384), and
+    F.scaled_dot_product_attention on the same live keys;
   * kernel 14 at q (512, 208, 192), kv (512, 208, 384), 197 live columns;
+  * kernel 6 at (3584, 2048) x (2048, 6144) and x (2048, 2048), bf16, the
+    weight codes in the layout the tree's site registry stores (K-major
+    where ``int8_matmul_on_wgmma`` exists, else row-major), and F.linear
+    in bf16 at both;
 
 then calls the tree's chip_smoke phases 18 (kernel-flash at the kernel 9
-shape, its checks), 20 (eval at image 384), 21 (the int8 ViViT at
+shape, its checks), 4 and 7 (ViViT serving and training at image 224), 12
+(PTN serving: bf16, int8, int8 at every site), 16 and 17 (MoE-ViViT
+serving and training), 20 (eval at image 384), 21 (the int8 ViViT at
 token_pad=0), 22 (training at image 384) and 24 (the ring) and records
-their step times and clips/s.  Each run prints one ``RESULT {json}``
+their throughputs and step times.  Each run prints one ``RESULT {json}``
 line; the end prints, per metric, each tree's runs and the mean.  Needs
 one NVIDIA card; builds both trees' kernels (one nvcc per source).
 """
@@ -36,9 +43,11 @@ CHILD = r'''
 import json, sys, time
 sys.path.insert(0, ".")
 import torch
+import torch.nn.functional as F
 import chip_smoke as cs
 from devt_tpu_torch.ops import _build
 from devt_tpu_torch.ops import flash_attention as tfa
+from devt_tpu_torch.ops import quant as tq
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -77,6 +86,8 @@ with torch.inference_mode():
     q, k, v = cs._packed_heads(512, 592, 3, 64, torch.bfloat16, 2)
     res["k11_ms"] = graph_ms(lambda: tfa.flash_attention(
         q, k, v, kv_len=577, return_lse=True))
+    res["k11_sdpa_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k[:, :, :577], v[:, :, :577], scale=0.125))
     gen = torch.Generator().manual_seed(3)
     rq = torch.randn(512, 208, 192, generator=gen).to(torch.bfloat16).cuda()
     rkv = torch.randn(512, 208, 384, generator=gen).to(torch.bfloat16).cuda()
@@ -85,7 +96,29 @@ with torch.inference_mode():
     res["k14_ms"] = graph_ms(lambda: tfa.ring_step_fwd(rq, rkv, mask,
                                                        heads=3, scale=0.125))
     del q, k, v, rq, rkv
+    x = torch.randn(3584, 2048, generator=gen).to(torch.bfloat16).cuda()
+    for n in (6144, 2048):
+        w = (torch.randn(2048, n, generator=gen) * 2048 ** -0.5).cuda()
+        w_q, w_s = tq.quantize_weight(w.to(torch.bfloat16))
+        if hasattr(tq, "int8_matmul_on_wgmma"):
+            w_q = w_q.t().contiguous().t()
+        res[f"k6_n{n}_ms"] = graph_ms(lambda: tq.int8_matmul_fused(x, w_q,
+                                                                   w_s))
+        w_bf = w.to(torch.bfloat16).t().contiguous()
+        res[f"k6_n{n}_linear_ms"] = graph_ms(lambda: F.linear(x, w_bf))
+    del x
 cs.phase_flash("bf16", 512, 3, 197, 197, 64, 197)
+res["serve_clips_s"] = cs.phase_serve()["clips_per_s"]
+t = cs.phase_train()
+res["train224_step_ms"] = t["step_ms"]
+res["train224_clips_s"] = t["clips_per_s"]
+p = cs.phase_serve_ptn()
+for tag in ("bf16", "int8", "int8_all_sites"):
+    res[f"ptn_{tag}_rows_s"] = p[tag]["rows_per_s"]
+    res[f"ptn_{tag}_forward_ms"] = p[tag]["forward_ms"]
+    res[f"ptn_{tag}_device_ms"] = p[tag]["device_ms"]
+res["moe_serve_clips_s"] = cs.phase_serve_moe()["clips_per_s"]
+res["moe_train_step_ms"] = cs.phase_train_moe()["step_ms"]
 e = cs.phase_eval_long()
 res["eval_bf16_step_ms"] = e["bf16"]["step_ms"]
 res["eval_int8_step_ms"] = e["int8"]["step_ms"]
@@ -93,7 +126,9 @@ res["int8_unfused_clips_s"] = cs.phase_serve_int8_unfused()["clips_per_s"]
 t = cs.phase_train_long()
 res["train_step_ms"] = t["step_ms"]
 res["train_clips_s"] = t["clips_per_s"]
-cs.phase_ring("bf16")
+r = cs.phase_ring("bf16")
+res["ring_fwd_ms"] = r["fwd"]["kernel_ms"]
+res["ring_bwd_ms"] = r["bwd"]["kernel_ms"]
 print("RESULT " + json.dumps(res), flush=True)
 '''
 
@@ -103,7 +138,8 @@ def run(tree: str) -> dict:
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith("[") and ("wgmma" in line or "clips/s" in line):
+        if line.startswith("[") and ("wgmma" in line or "clips/s" in line
+                                     or "rows/s" in line):
             print(f"  {line[:400]}")
     if proc.returncode != 0:
         print(proc.stdout[-4000:])

@@ -1,0 +1,268 @@
+#!/usr/bin/env python3
+"""Variants of the wgmma bodies of kernels 11 and 6, timed on one card.
+
+    python tools/wgmma_variants.py [--rounds 2]
+
+Copies ``devt_tpu_torch/ops/csrc`` once per variant under
+``runs/wgmma_variants/`` (gitignored), edits the copy's constants as the
+variant says, builds the one library the variant touches (``flash_fwd.cu``
+for kernel 11, ``int8_matmul.cu`` for kernel 6; one nvcc each, all at once,
+the flags of ``ops/_build.py``), and times by CUDA graph replay (20 calls,
+5 replays), in ``--rounds`` rounds:
+
+  * kernel 11 at (1536, 592, 64), kv_len 577, q, k, v the head views of a
+    packed qkv (ViViT at image 384), against its plain version;
+  * kernel 6 at (3584, 2048) x (2048, 6144) and x (2048, 2048), bf16, the
+    weight codes K-major, bit for bit against its plain version; the
+    row pass and the product together, as the wrapper launches them.
+
+Kernel 11's variants: as built (one consumer warpgroup of 64 query rows
+a CTA, three CTAs an SM, a two-stage ring); two CTAs an SM (the register
+cap that three leave lifted); two and three consumer warpgroups a CTA
+sharing each K and V tile (one CTA an SM); a CTA a head that holds its K
+and V resident (five stages) and takes its query groups in turn, with two
+or three warpgroups; O rescaled at the first tile too (where it is zero:
+the body skips it, which leaves ptxas no spill); and two ablations whose
+output is wrong on purpose: no V loads (half the bytes from L2) and no
+exponentials.  Kernel 6's: as built (128 x 256 tiles, a CTA a tile) and a
+persistent grid of one CTA an SM.  Prints the card's name and power limit, ptxas' registers and spills
+per variant, one line per variant and round, and a line per sustained
+run: kernels 11 and 6 as built and their library calls, each replayed for
+about a second while nvidia-smi samples the SM clock and the power draw.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+CSRC = ROOT / "devt_tpu_torch" / "ops" / "csrc"
+OUT = ROOT / "runs" / "wgmma_variants"
+
+FLASH = "flash_fwd_sm90.cuh"
+GEMM = "gemm_s8_sm90.cuh"
+WG = "constexpr int kOnlineWG = 1;"
+STAGES = "constexpr int kOnlineStages = 2;"
+GROUPS = "constexpr int kOnlineGroups = 1;"
+CTAS = "constexpr int kOnlineCTAs = 3;"
+VLOAD = ("          mbar_expect_tx(&fullv[st], kTile);\n"
+         "          tma_load_4d(Ks + kTile, &tv, &fullv[st], 0, j * kOnlineKeys, h, b);")
+EXP = "          s[i] = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));"
+RESCALE_EACH = (
+    "        for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];\n")
+RESCALE_FROM_TILE_2 = (
+    "        if (j > 0) {  // O is zero before the first tile\n"
+    "#pragma unroll\n  " + RESCALE_EACH + "        }\n")
+PERSIST = "constexpr bool kS8Persistent = false;"
+# (kernel, name): [(header, old, new), ...]
+VARIANTS = {
+    (11, "as built"): [],
+    (11, "one consumer warpgroup, two CTAs an SM"): [
+        (FLASH, CTAS, "constexpr int kOnlineCTAs = 2;")],
+    (11, "two consumer warpgroups, one CTA an SM"): [
+        (FLASH, WG, "constexpr int kOnlineWG = 2;"),
+        (FLASH, CTAS, "constexpr int kOnlineCTAs = 1;")],
+    (11, "three consumer warpgroups, one CTA an SM"): [
+        (FLASH, WG, "constexpr int kOnlineWG = 3;"),
+        (FLASH, CTAS, "constexpr int kOnlineCTAs = 1;")],
+    (11, "K, V resident, a CTA a head (two warpgroups, five groups)"): [
+        (FLASH, WG, "constexpr int kOnlineWG = 2;"),
+        (FLASH, CTAS, "constexpr int kOnlineCTAs = 1;"),
+        (FLASH, STAGES, "constexpr int kOnlineStages = 5;"),
+        (FLASH, GROUPS, "constexpr int kOnlineGroups = 5;")],
+    (11, "K, V resident, a CTA a head (three warpgroups, four groups)"): [
+        (FLASH, WG, "constexpr int kOnlineWG = 3;"),
+        (FLASH, CTAS, "constexpr int kOnlineCTAs = 1;"),
+        (FLASH, STAGES, "constexpr int kOnlineStages = 5;"),
+        (FLASH, GROUPS, "constexpr int kOnlineGroups = 4;")],
+    (11, "O rescaled at every tile, the first too"): [
+        (FLASH, RESCALE_FROM_TILE_2, "#pragma unroll\n" + RESCALE_EACH)],
+    (11, "no V loads (wrong on purpose)"): [
+        (FLASH, VLOAD, "          mbar_arrive(&fullv[st]);")],
+    (11, "no ex2 (wrong on purpose)"): [
+        (FLASH, EXP, "          s[i] = fmaf(s[i], c, -mc[(i >> 1) & 1]);")],
+    (6, "as built"): [],
+    (6, "persistent grid (one CTA an SM)"): [
+        (GEMM, PERSIST, "constexpr bool kS8Persistent = true;")],
+}
+STEM = {11: "flash_fwd", 6: "int8_matmul"}
+
+
+def build() -> dict:
+    from devt_tpu_torch.ops import _build
+
+    shutil.rmtree(OUT, ignore_errors=True)
+    procs = []
+    for i, ((kernel, name), edits) in enumerate(VARIANTS.items()):
+        d = OUT / str(i)
+        shutil.copytree(CSRC, d)
+        for header, old, new in edits:
+            text = (d / header).read_text()
+            if old not in text:
+                raise SystemExit(f"{name}: {header} has no {old!r}")
+            (d / header).write_text(text.replace(old, new))
+        stem = STEM[kernel]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / f"{stem}.so"),
+               str(d / f"{stem}.cu")]
+        procs.append(((kernel, name), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = {}
+    for key, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{key}: nvcc failed\n{log[-3000:]}")
+        logs[key] = log
+    return logs
+
+
+def ptxas(log: str, pattern: str) -> str:
+    rows, name, spill = [], None, "?"
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = re.search(pattern, found.group(1))
+            continue
+        if name is None:
+            continue
+        found = re.search(r"(\d+) bytes spill stores", line)
+        if found:
+            spill = found.group(1)
+        found = re.search(r"Used (\d+) registers", line)
+        if found:
+            rows.append(f"<{name.group(1)}> {found.group(1)} regs {spill} "
+                        f"spill bytes")
+            name = None
+    return "; ".join(rows) + f"; C7511 warnings {log.count('C7511')}"
+
+
+def main() -> int:
+    import torch
+
+    from chip_smoke import _graph_ms, _nvidia_smi, _packed_heads
+    from devt_tpu_torch.ops import flash_attention as tfa
+    from devt_tpu_torch.ops import quant as tq
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("wgmma_variants: needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"card: {_nvidia_smi()}", flush=True)
+    logs = build()
+    for (kernel, name), log in logs.items():
+        pattern = (r"flash_fwd_wgmmaILi(\d+)E" if kernel == 11
+                   else r"gemm_s8_wgmmaI(\w+?)EEv")
+        print(f"[ptxas] kernel {kernel} {name}: {ptxas(log, pattern)}",
+              flush=True)
+    stream = lambda: ctypes.c_void_p(  # noqa: E731
+        torch.cuda.current_stream().cuda_stream)
+
+    q, k, v = _packed_heads(512, 592, 3, 64, torch.bfloat16, 2)
+    want11 = tfa.flash_blocked_fwd_plain(q, k, v, 0.125, 577)
+    strides = (ctypes.c_longlong * 9)(
+        *(t.stride(i) for t in (q, k, v) for i in range(3)))
+
+    def k11(lib):
+        o = torch.empty(q.shape, dtype=q.dtype, device="cuda")
+        lse = torch.empty(1536, 592, device="cuda")
+        rc = lib.devt_flash_fwd(1, 1, q.data_ptr(), k.data_ptr(),
+                                v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                                512, 3, 592, 592, 64, 577, strides,
+                                ctypes.c_float(0.125), stream())
+        assert rc == 0, rc
+        return o, lse
+
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(3584, 2048, generator=gen).to(torch.bfloat16).cuda()
+    weights = {}
+    for n in (6144, 2048):
+        w = (torch.randn(2048, n, generator=gen) * 2048 ** -0.5).cuda()
+        w_q, w_s = tq.quantize_weight(w.to(torch.bfloat16))
+        weights[n] = (w_q.t().contiguous().t(), w_s,
+                      tq.int8_matmul_fused_plain(x, w_q, w_s))
+    codes = torch.empty(3584, 2048, dtype=torch.int8, device="cuda")
+    rows = torch.empty(3584, device="cuda")
+
+    def k6(lib, n):
+        w_q, w_s, _ = weights[n]
+        out = torch.empty(3584, n, dtype=torch.bfloat16, device="cuda")
+        rc = lib.devt_int8_matmul(1, 1, x.data_ptr(), w_q.data_ptr(),
+                                  w_s.data_ptr(), out.data_ptr(),
+                                  codes.data_ptr(), rows.data_ptr(), 3584,
+                                  2048, n, stream())
+        assert rc == 0, rc
+        return out
+
+    for rnd in range(args.rounds):
+        for i, (kernel, name) in enumerate(VARIANTS):
+            lib = ctypes.CDLL(str(OUT / str(i) / f"{STEM[kernel]}.so"))
+            if kernel == 11:
+                tfa._declare_flash_fwd(lib)
+                o, lse = k11(lib)
+                err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip((o, lse), want11))
+                t = _graph_ms(lambda: k11(lib))
+                print(f"[round {rnd}] kernel 11 {name}: {t:.4f} ms (max abs "
+                      f"err {err:.3e})", flush=True)
+            else:
+                tq._declare_matmul(lib)
+                cells = []
+                for n in (6144, 2048):
+                    same = torch.equal(k6(lib, n), weights[n][2])
+                    t = _graph_ms(lambda: k6(lib, n))
+                    cells.append(f"N={n} {t:.4f} ms "
+                                 f"({'bit-equal' if same else 'DIFFERS'})")
+                print(f"[round {rnd}] kernel 6 {name}: " + ", ".join(cells),
+                      flush=True)
+
+    # sustained: each as built and its library call replayed for about a
+    # second while nvidia-smi samples the SM clock and the power draw
+    import torch.nn.functional as F
+
+    built = {k: ctypes.CDLL(str(OUT / str(i) / f"{STEM[k]}.so"))
+             for i, (k, name) in enumerate(VARIANTS) if name == "as built"}
+    tfa._declare_flash_fwd(built[11])
+    tq._declare_matmul(built[6])
+    w_bf = (weights[6144][0].t().float() * weights[6144][1].reshape(-1, 1)
+            ).to(torch.bfloat16)                    # (N, K), F.linear's
+    cases = (("kernel 11", lambda: k11(built[11])),
+             ("SDPA at kernel 11's shape",
+              lambda: F.scaled_dot_product_attention(
+                  q, k[:, :, :577], v[:, :, :577], scale=0.125)),
+             ("kernel 6 at N=6144", lambda: k6(built[6], 6144)),
+             ("F.linear bf16 at N=6144", lambda: F.linear(x, w_bf)))
+    with torch.no_grad():
+        for name, fn in cases:
+            smi = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits", "-lms", "100"],
+                stdout=subprocess.PIPE, text=True)
+            replays = max(5, int(1000 / (20 * _graph_ms(fn))))  # ~1 s
+            t = _graph_ms(fn, n=20, replays=replays)
+            smi.terminate()
+            out = smi.communicate()[0]
+            samples = [line.split(",") for line in out.splitlines()
+                       if line.count(",") == 1]
+            clocks = sorted(float(c) for c, _ in samples)
+            watts = sorted(float(w) for _, w in samples)
+            mid = len(samples) // 2
+            print(f"[sustained] {name}: {t:.4f} ms; during it (median of "
+                  f"{len(samples)} samples at 100 ms) SM clock "
+                  f"{clocks[mid] if samples else float('nan'):.0f} MHz, "
+                  f"power {watts[mid] if samples else float('nan'):.1f} W",
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
