@@ -83,7 +83,9 @@ Phases, each printing a line of its own; any failure exits non-zero:
                of phase 3, bf16 and f32: kernel 7 (u and the residual lanes)
                and kernel 8 (dx and the 5 gradients, two runs bit for bit)
                against their plain versions; times of the kernels, the plain
-               versions and the half composed of library calls, the bounds.
+               versions and the half composed of library calls (forward,
+               and its autograd, by CUDA graph: the kernels line carries
+               them as composed_ms), the bounds.
  16. serve-moe — MoE-ViViT at full width (bench.py:1188: E=4, every second
                space block's FFN a switch MoE, bf16) behind
                Predictor(buckets=(1, 8, 32)) on 37 u8 clips: 2 launches of
@@ -135,18 +137,22 @@ Phases, each printing a line of its own; any failure exits non-zero:
                than kernel 2 holds) trained one step through kernels 3, 4.
  22. train-long — the ViViT of phase 20 trained at batch 32 (dropout 0)
                through make_train_step and make_multi_step(8): 4 launches
-               each of kernels 11 (on its wgmma body), 12 and 13 per step
-               and none of kernels 1-10, a falling loss, one step's
-               gradients on 2 clips against the CPU; clips/s as the best
-               of 3 windows, the host's enqueue ms, a profile, the peak
-               device memory.
+               each of kernels 11, 12 and 13 per step, all on their wgmma
+               bodies, and none of kernels 1-10, a falling loss, one step's
+               gradients on 2 clips against the CPU; clips/s and step ms as
+               the best of 3 windows, the host's enqueue ms, a profiled
+               step's device ms, the peak device memory.
  23. kernel-flash-blocked-bwd — kernels 12 and 13 at (1536, 592, 64),
                kv_len 577 (the image-384 step's shape, head views of a
                packed qkv), bf16 and f32, through flash_attention and
-               autograd against the plain backward, two runs bit for bit;
-               each kernel's time, the plain version's, SDPA's backward as
-               the yardstick, the bounds; untimed: Sq != Skv (40 x 300),
-               head dim 256 at S 600, head dim 128 at S 520.
+               autograd against the plain backward, two runs bit for bit,
+               launches by body (bf16 at head dim 64: the wgmma bodies of
+               flash_bwd_sm90.cuh where blocked_bwd_on_wgmma says; f32 and
+               head dims 128, 256: attention_bwd.cuh's streamed body);
+               each kernel's time (CUDA graph), the plain version's, SDPA's
+               backward as the yardstick, the bounds, ptxas' report of the
+               wgmma bodies; untimed: Sq != Skv (40 x 300), head dim 256
+               at S 600, head dim 128 at S 520.
  24. kernel-ring — kernels 14 and 15 at the sequence-parallel bench's
                shape (512 sequences of 208 tokens, 197 live, 3 heads of
                64), bf16 and f32, against their plain versions, two
@@ -1825,6 +1831,8 @@ def _zero_counts() -> None:
     fa.single_launches = fa.single_bwd_launches = fa.blocked_launches = 0
     fa.single_wgmma_launches = fa.single_streamed_launches = 0
     fa.blocked_dq_launches = fa.blocked_dkv_launches = 0
+    fa.blocked_dq_wgmma_launches = fa.blocked_dq_streamed_launches = 0
+    fa.blocked_dkv_wgmma_launches = fa.blocked_dkv_streamed_launches = 0
     fa.blocked_wgmma_launches = fa.blocked_streamed_launches = 0
     tfa.ring_step_fwd.launches = tfa.ring_step_bwd.launches = 0
     tfa.ring_step_fwd.wgmma_launches = tfa.ring_step_fwd.streamed_launches = 0
@@ -1836,8 +1844,10 @@ def _body_counts() -> dict:
     """Launches by body of the kernels that have two: 9 and 14 (the wgmma
     one-shot body of csrc/flash_fwd_sm90.cuh, or the streamed one of
     csrc/flash_fwd.cuh), 11 (the wgmma online body of
-    csrc/flash_fwd_sm90.cuh, or flash_fwd.cuh's) and 6 (the wgmma product
-    of csrc/gemm_s8_sm90.cuh, or int8_common.cuh's mma.sync one)."""
+    csrc/flash_fwd_sm90.cuh, or flash_fwd.cuh's), 12 and 13 (the wgmma
+    bodies of csrc/flash_bwd_sm90.cuh, or attention_bwd.cuh's streamed
+    one) and 6 (the wgmma product of csrc/gemm_s8_sm90.cuh, or
+    int8_common.cuh's mma.sync one)."""
     from devt_tpu_torch.ops import flash_attention as tfa
     from devt_tpu_torch.ops import quant as tq
 
@@ -1847,6 +1857,10 @@ def _body_counts() -> dict:
             "k9_streamed": fa.single_streamed_launches,
             "k11_wgmma": fa.blocked_wgmma_launches,
             "k11_streamed": fa.blocked_streamed_launches,
+            "k12_wgmma": fa.blocked_dq_wgmma_launches,
+            "k12_streamed": fa.blocked_dq_streamed_launches,
+            "k13_wgmma": fa.blocked_dkv_wgmma_launches,
+            "k13_streamed": fa.blocked_dkv_streamed_launches,
             "k14_wgmma": ring.wgmma_launches,
             "k14_streamed": ring.streamed_launches,
             "k6_wgmma": mm.wgmma_launches,
@@ -1857,6 +1871,8 @@ def _body_counts() -> dict:
 WGMMA_BODIES = {
     "flash_one_shot<d, width, mask>": r"flash_one_shotILi(\d+)ELi(\d+)ELb(\d)E",
     "flash_fwd_wgmma<d>": r"flash_fwd_wgmmaILi(\d+)E",
+    "flash_bwd_dq_wgmma<d>": r"flash_bwd_dq_wgmmaILi(\d+)E",
+    "flash_bwd_dkv_wgmma<d>": r"flash_bwd_dkv_wgmmaILi(\d+)E",
     "gemm_s8_wgmma<out>": r"gemm_s8_wgmmaI(\w+?)EEv",
 }
 
@@ -1888,7 +1904,8 @@ def _ptxas(stem: str, body: str) -> str:
                         f"{spill} spill bytes")
             name = None
     return (f"ptxas {body}: {'; '.join(rows)}; wgmma serialisation "
-            f"warnings (C7511) in {stem}.cu: {log.count('C7511')}")
+            f"warnings in {stem}.cu: C7511 {log.count('C7511')}, C7512 "
+            f"{log.count('C7512')}")
 
 
 def _vivit_cfg(**kw):
@@ -2661,8 +2678,10 @@ def phase_flash_blocked_bwd(kind: str, b: int, heads: int, sq: int, skv: int,
     """Kernels 12 and 13 through flash_attention and autograd against the
     plain backward on the forward's (o, lse): dq, dk, dv within BWD_ULPS of
     their largest elements, keys past kv_len exact zeros, two runs
-    bit-equal; each kernel's time, the plain version's, and SDPA's
-    backward as the yardstick of the pair."""
+    bit-equal, one launch of each on the body blocked_bwd_on_wgmma names;
+    each kernel's time (CUDA graph), its bound, the plain version's, SDPA's
+    backward as the yardstick of the pair, and the wgmma bodies' ptxas
+    report."""
     import torch
 
     from devt_tpu_torch.ops import flash_attention as tfa
@@ -2690,7 +2709,15 @@ def phase_flash_blocked_bwd(kind: str, b: int, heads: int, sq: int, skv: int,
         return o.detach(), lse, grads
 
     with torch.no_grad():
+        before = _body_counts()
         o, lse, got = through_autograd()
+        body = {k_: n - before[k_] for k_, n in _body_counts().items()}
+        wgmma = int(tfa.blocked_bwd_on_wgmma(dtype, d))
+        if body != {**dict.fromkeys(body, 0), "k11_wgmma": body["k11_wgmma"],
+                    "k11_streamed": body["k11_streamed"],
+                    "k12_wgmma": wgmma, "k12_streamed": 1 - wgmma,
+                    "k13_wgmma": wgmma, "k13_streamed": 1 - wgmma}:
+            raise AssertionError(f"{tag}: launches by body {body}")
         want = tfa.flash_blocked_bwd_plain(q, k, v, o, lse, do, scale,
                                            kv_len)
         torch.cuda.synchronize()
@@ -2710,13 +2737,15 @@ def phase_flash_blocked_bwd(kind: str, b: int, heads: int, sq: int, skv: int,
         if not all(torch.equal(a, c) for a, c in zip(got, again)):
             raise AssertionError(f"{tag}: two runs differ in their bits")
         del want, again
-        out = {"max_abs_err": worst}
+        out = {"max_abs_err": worst, "wgmma_launches": wgmma,
+               "streamed_launches": 1 - wgmma}
         if timed:
+            # device time by CUDA graph replay, as kernels 9 and 11
             _, delta = tfa._flash_blocked_dq_cuda(q, k, v, o, lse, do, scale,
                                                   kv_len)
-            out["dq_ms"] = _time_ms(lambda: tfa._flash_blocked_dq_cuda(
+            out["dq_ms"] = _graph_ms(lambda: tfa._flash_blocked_dq_cuda(
                 q, k, v, o, lse, do, scale, kv_len))
-            out["dkv_ms"] = _time_ms(lambda: tfa._flash_blocked_dkv_cuda(
+            out["dkv_ms"] = _graph_ms(lambda: tfa._flash_blocked_dkv_cuda(
                 q, k, v, o, lse, do, delta, scale, kv_len))
             out["plain_ms"] = _time_ms(lambda: tfa.flash_blocked_bwd_plain(
                 q, k, v, o, lse, do, scale, kv_len), iters=3, warmup=1)
@@ -2726,8 +2755,9 @@ def phase_flash_blocked_bwd(kind: str, b: int, heads: int, sq: int, skv: int,
     times = ""
     if timed:
         out["library_ms"], both_ms = _sdpa_bwd_ms(q, k, v, do, kv_len, scale)
-        times = (f" | kernel 12 {out['dq_ms']:.4f} ms (delta included), "
-                 f"kernel 13 {out['dkv_ms']:.4f} ms; plain (both) "
+        times = (f" | CUDA graph: kernel 12 {out['dq_ms']:.4f} ms (delta "
+                 f"included), kernel 13 {out['dkv_ms']:.4f} ms, the pair "
+                 f"{out['dq_ms'] + out['dkv_ms']:.4f}; plain (both) "
                  f"{out['plain_ms']:.4f} ms; library_ms="
                  f"{out['library_ms']:.4f} (device time, CUDA graph, of "
                  f"F.scaled_dot_product_attention's backward through "
@@ -2739,9 +2769,17 @@ def phase_flash_blocked_bwd(kind: str, b: int, heads: int, sq: int, skv: int,
           f"forward's (o, lse): dq, dk, dv within {BWD_ULPS[kind]} ulps of "
           f"the largest element, max_abs_err={worst:.3e} ({worst_rel:.3e} "
           f"of its tensor's largest element), dk and dv past kv_len zero, "
-          f"two runs bit-equal{times} | bound_ms kernel 12 "
+          f"two runs bit-equal; launches by body: kernel 12 "
+          f"{body['k12_wgmma']} wgmma + {body['k12_streamed']} streamed, "
+          f"kernel 13 {body['k13_wgmma']} wgmma + {body['k13_streamed']} "
+          f"streamed "
+          f"({'flash_bwd_sm90.cuh' if wgmma else 'attention_bwd.cuh'})"
+          f"{times} | bound_ms kernel 12 "
           f"{out['dq_bound_ms']:.4f} ({out['dq_bound_by']}), kernel 13 "
-          f"{out['dkv_bound_ms']:.4f} ({out['dkv_bound_by']})", flush=True)
+          f"{out['dkv_bound_ms']:.4f} ({out['dkv_bound_by']})"
+          + (f" | {_ptxas('flash_bwd', 'flash_bwd_dq_wgmma<d>')} | "
+             f"{_ptxas('flash_bwd', 'flash_bwd_dkv_wgmma<d>')}"
+             if wgmma and timed else ""), flush=True)
     return out
 
 
@@ -2820,11 +2858,12 @@ def phase_train_long() -> dict:
     steps = 1 + MULTI_STEPS
     if counts != _expect(k11=depth * steps, k12=depth * steps,
                          k13=depth * steps) \
-            or body["k11_wgmma"] != depth * steps:
+            or any(body[f"k{n}_wgmma"] != depth * steps
+                   for n in (11, 12, 13)):
         raise AssertionError(f"train-long: launches {counts} in {steps} "
                              f"steps, by body {body}, expected {depth} each "
-                             f"of kernels 11 (on its wgmma body), 12, 13 per "
-                             f"step and nothing else")
+                             f"of kernels 11, 12, 13 per step, all on their "
+                             f"wgmma bodies, and nothing else")
     loss_after = evaluate(state, batch)[0].item()
     losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
     if not all(map(math.isfinite, losses)) or not loss_after < loss_before:
@@ -2850,29 +2889,30 @@ def phase_train_long() -> dict:
                    top=14)
     device_ms = sum(ms for _, ms, _ in rows)
     fwd_ms = sum(ms for n, ms, _ in rows if n.startswith("flash_fwd"))
-    bwd_ms = sum(ms for n, ms, _ in rows if n.startswith("mha_bwd"))
+    bwd_ms = sum(ms for n, ms, _ in rows
+                 if n.startswith(("flash_bwd_", "mha_bwd")))
     print(f"[train-long] ViViT image {LONG_IMAGE} (577 space tokens, padded "
           f"to 592; dim 192, depth {depth}, 3 heads of 64, MLP 768, 16 "
           f"frames, bf16, AdamW) at B={TRAIN_BATCH}: {steps} steps (1 + "
           f"make_multi_step({MULTI_STEPS})), launches {counts['k11']} of "
-          f"kernel 11 (all on its wgmma body), {counts['k12']} of kernel "
-          f"12, {counts['k13']} of "
-          f"kernel 13 ({depth} of each per step), none of kernels 1-10; "
+          f"kernel 11, {counts['k12']} of kernel 12, {counts['k13']} of "
+          f"kernel 13 ({depth} of each per step, all on their wgmma "
+          f"bodies), none of kernels 1-10; "
           f"loss on the fixed batch {loss_before:.5f} -> {loss_after:.5f}; "
           f"card vs CPU gradients on 2 clips: worst {worst:.3e} of the "
           f"leaf's largest element at {worst_leaf} (bound {GRAD_RTOL}), "
           f"loss {card_loss:.5f} vs {cpu_loss:.5f} | {clips_per_s:.2f} "
-          f"clips/s, step_ms={step_ms:.3f}, of which the host needs "
-          f"{host_ms:.3f} ms to enqueue a step (best of 3 windows of "
-          f"{n_steps} steps, host clock; windows "
+          f"clips/s, step_ms={step_ms:.3f}, host enqueue ms={host_ms:.3f} "
+          f"(best of 3 windows of {n_steps} steps, host clock; windows "
           f"{', '.join(f'{TRAIN_BATCH * n_steps / w:.1f}' for w in windows)})"
-          f" | one step under the profiler: device {device_ms:.3f} ms, busy "
-          f"{busy:.1%}, kernel 11 {fwd_ms:.3f} ms, kernels 12 + 13 with delta "
-          f"{bwd_ms:.3f} ms | peak device memory {peak_gb:.2f} GiB "
+          f", device_ms={device_ms:.3f} (one step under the profiler, busy "
+          f"{busy:.1%}; kernel 11 {fwd_ms:.3f} ms, kernels 12 + 13 "
+          f"{bwd_ms:.3f} ms) | peak device memory {peak_gb:.2f} GiB "
           f"(torch.cuda.max_memory_allocated over the {steps} steps)",
           flush=True)
     return {"counts": counts, "clips_per_s": clips_per_s, "step_ms": step_ms,
-            "host_ms": host_ms, "peak_gb": peak_gb}
+            "host_ms": host_ms, "device_ms": device_ms,
+            "bwd_ms": bwd_ms, "peak_gb": peak_gb}
 
 
 # one ring hop at the sequence-parallel bench's shape (bench.py:1086): the
@@ -3273,10 +3313,14 @@ def main() -> int:
         entry(6, "int8_matmul_fused", csrc + "gemm_s8_sm90.cuh",
               "devt_tpu/ops/quant.py:348", ptn["matmul_launches"], matmul,
               int_mm_ms=matmul["int_mm_ms"]),
+        # composed_ms: the half composed of library calls (no one call
+        # computes it, so library_ms stays null), by CUDA graph
         entry(7, "fused_attn_half_fwd", csrc + "attn_half.cu",
-              "devt_tpu/ops/fused_block.py:556", later("k7"), half_fwd),
+              "devt_tpu/ops/fused_block.py:556", later("k7"), half_fwd,
+              composed_ms=half_fwd["composed_ms"]),
         entry(8, "fused_attn_half_bwd", csrc + "attn_half.cu",
-              "devt_tpu/ops/fused_block.py:578", later("k8"), half_bwd),
+              "devt_tpu/ops/fused_block.py:578", later("k8"), half_bwd,
+              composed_ms=half_bwd["composed_ms"]),
         entry(9, "flash_single_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:390",
               int8_unfused["launches"], flash9),
@@ -3286,7 +3330,7 @@ def main() -> int:
         entry(11, "flash_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:69",
               eval_long["launches"] + train_long["counts"]["k11"], flash11),
-        entry(12, "flash_bwd_dq", csrc + "flash_bwd.cu",
+        entry(12, "flash_bwd_dq", csrc + "flash_bwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:158",
               train_long["counts"]["k12"],
               {**flash_bwd, "kernel_ms": flash_bwd["dq_ms"],
@@ -3294,7 +3338,7 @@ def main() -> int:
                "bound_by": flash_bwd["dq_bound_by"]}),
         # SDPA's backward computes dq, dk and dv at once: it stands beside
         # kernel 12, which it is named with, and kernel 13 has none
-        entry(13, "flash_bwd_dkv", csrc + "flash_bwd.cu",
+        entry(13, "flash_bwd_dkv", csrc + "flash_bwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:198",
               train_long["counts"]["k13"],
               {**flash_bwd, "kernel_ms": flash_bwd["dkv_ms"],

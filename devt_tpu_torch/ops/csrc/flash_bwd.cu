@@ -21,9 +21,16 @@
 //   devt_flash_blocked_bwd  kernels 12 and 13, flash_attention.py:158
 //                           _bwd_dq_kernel and :198 _bwd_dkv_kernel (any
 //                           Sq, Skv: the blockwise path's backward), as two
-//                           calls: part 1 writes delta and launches the dq
-//                           blocks (kernel 12), part 2 the dk/dv blocks
-//                           (kernel 13), reading the delta part 1 wrote
+//                           calls: part 1 writes delta and dq (kernel 12),
+//                           part 2 dk and dv (kernel 13), reading the delta
+//                           part 1 wrote
+//
+// Kernels 12 and 13 in bfloat16 at head dim 16, 32 or 64
+// (blocked_bwd_on_wgmma: every main-path shape) run flash_bwd_sm90.cuh's
+// bodies: one launch each, delta computed in kernel 12's prologue, every
+// product on wgmma, the streamed side's tiles through a TMA ring (the
+// design and its numbers are there).  Every other shape, and the float
+// route, runs what follows.
 //
 // The TPU kernels walk 128 x 128 blocks on a sequential grid, carrying dq
 // (or dk, dv) in VMEM scratch from one kv (or q) block to the next and
@@ -52,6 +59,7 @@
 // The times are in PERF.md.
 
 #include "attention_bwd.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -128,9 +136,11 @@ extern "C" int devt_flash_bwd(int dtype, const void* q, const void* k,
 
 // Kernels 12 (part 1: delta, then dq) and 13 (part 2: dk and dv, from the
 // delta of part 1).  q (B, H, Sq, d), k and v (B, H, Skv, d) by strides as
-// above; o, do and dq (B, H, Sq, d), dk and dv (B, H, Skv, d) contiguous;
-// lse and delta (B*H, Sq) f32.  Part 1 writes dq and delta and reads
-// neither dk nor dv; part 2 writes dk and dv and reads neither o nor dq.
+// above; o, do and dq (B, H, Sq, d), dk and dv (B, H, Skv, d) contiguous
+// (in bfloat16 16-byte aligned); lse and delta (B*H, Sq) f32.  Part 1
+// writes dq and delta and reads neither dk nor dv; part 2 writes dk and dv
+// and reads neither o nor dq.  Shapes inside blocked_bwd_on_wgmma take the
+// wgmma bodies, which first encode TMA maps of q, k, v and do on the host.
 extern "C" int devt_flash_blocked_bwd(int dtype, int part, const void* q,
                                       const void* k, const void* v,
                                       const void* o, const void* dout,
@@ -142,10 +152,32 @@ extern "C" int devt_flash_blocked_bwd(int dtype, int part, const void* q,
   if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || kv_len < 1 || kv_len > Skv ||
       (part != 1 && part != 2))
     return cudaErrorInvalidValue;
+  if (blocked_bwd_on_wgmma(dtype, d)) {
+    const FlashBwd a{static_cast<const bf16*>(o),
+                     static_cast<const bf16*>(dout),
+                     static_cast<const float*>(lse),
+                     static_cast<float*>(delta),
+                     static_cast<bf16*>(dq),
+                     static_cast<bf16*>(dk),
+                     static_cast<bf16*>(dv),
+                     H,
+                     Sq,
+                     Skv,
+                     kv_len,
+                     scale};
+    return launch_blocked_bwd_wgmma(part, a, q, k, v, B, d, strides,
+                                    static_cast<cudaStream_t>(stream));
+  }
   return run(dtype, part == 1 ? kBwdDq : kBwdDkv, part == 1, q, k, v, o,
              dout, lse, delta, dq, dk, dv, B,
              BwdShape{Sq, Skv, H, kv_len, scale}, d, strides,
              static_cast<cudaStream_t>(stream));
+}
+
+// 1 when a blockwise backward (kernels 12 and 13) of this dtype (0
+// float32, 1 bfloat16) and head dim takes flash_bwd_sm90.cuh's bodies
+extern "C" int devt_blocked_bwd_route(int dtype, int d) {
+  return blocked_bwd_on_wgmma(dtype, d) ? 1 : 0;
 }
 
 extern "C" const char* devt_cuda_error_string(int code) {

@@ -1,0 +1,623 @@
+// The blockwise attention backward on Hopper's wgmma and TMA: kernels 12
+// (dq, with delta) and 13 (dk and dv) of the port in bfloat16 at head dims
+// 16, 32 and 64, behind flash_bwd.cu's devt_flash_blocked_bwd.
+//
+//   flash_bwd_dq_wgmma<d>   kernel 12, devt_tpu/ops/flash_attention.py:158
+//                           _bwd_dq_kernel
+//   flash_bwd_dkv_wgmma<d>  kernel 13, flash_attention.py:198
+//                           _bwd_dkv_kernel
+//
+// What they compute is flash_bwd.cu's contract, per (sequence, head):
+//
+//   delta = rowsum(f32(do) * f32(o))
+//   p     = exp(q k^T * scale - lse), keys at or past kv_len at 0
+//   ds    = p * (do v^T - delta) * scale
+//   dq    = round(ds) @ k;  dv = round(p)^T @ do;  dk = round(ds)^T @ q
+//
+// every product and sum in f32, round() the cast to bf16.  q, k, v are
+// (B, H, S, d) by element strides (the head views of a packed qkv need no
+// copy); o, do, dq, dk, dv contiguous; lse and delta (B*H, Sq) f32.  dk
+// and dv past kv_len are exact zeros; rows past Sq and Skv are neither
+// read as data (TMA zero-fills them) nor written.  The f32 sums run in
+// another order than the plain version's 128-key (128-query) blocks: dq
+// sums kBwdDqKeys keys a tile, dk and dv kBwdDkvQueries queries a tile,
+// each tile's product over its 16-row steps inside the tensor core.  That
+// is inside the backward gate, 4 bf16 ulps of each tensor's largest
+// element (PERF.md section 2).  One owner per output element, a fixed
+// order, no atomics: two runs give the same bits.
+//
+// The rule (blocked_bwd_on_wgmma, mirrored by ops/flash_attention.py
+// blocked_bwd_on_wgmma): bfloat16 at head dim 16, 32 or 64, any Sq, Skv
+// and kv_len.  Every main-path shape is inside it: ViViT at image 384 at
+// (1536, 592, 64), kv_len 577.  float32 and head dims 128 and 256 stay on
+// attention_bwd.cuh's streamed body, which kernels 4, 10 and 15 share and
+// which this header leaves as it was.
+//
+// What bounds them on an H100 (NVIDIA H100 80GB HBM3, 700 W) at (1536,
+// 592, 64), kv_len 577: kernel 12 three products (S, dP, dQ: 201 GFLOP,
+// 0.20 ms at 989 TFLOP/s) against q, k, v, o, do read, dq written, lse
+// read and delta written (706 MB, 0.21 ms at 3.35 TB/s): bytes, by a
+// hair; kernel 13 four products (269 GFLOP, 0.27 ms) against the same
+// bytes: operations.  Both take one exponential a score (1536 x 592 x 640
+// ex2, 0.14-0.16 ms at 16 a clock an SM).  The streamed body they replace
+// ran mma.sync from ldmatrix fragments, re-read the other side's tiles
+// from L2 for every 64 rows through a cp.async ring, and launched delta
+// on its own.
+//
+// Design.  A CTA is one consumer warpgroup (128 threads) and a producer
+// warp, as kernel 11's (flash_fwd_sm90.cuh): independent one-warpgroup
+// chains, two or three CTAs an SM, beat warpgroups that share tiles on
+// this card (PERF.md, kernel 11's findings).  One lane of the producer issues TMA loads
+// (4-d maps over (d, row, head, sequence) in the swizzle of a d-value
+// row) through a two-stage ring with full and empty mbarriers; the
+// consumers run every product on wgmma.
+//
+// Kernel 12: a CTA owns 64 query rows of one (sequence, head).  It loads
+// its q and do tiles once; in the prologue each thread reads its two rows
+// of o and do from device memory, the quad sums them into delta, the
+// first lane writes delta for kernel 13 (no launch of its own), and lse
+// is read once, times log2 e.  Then per tile of kBwdDqKeys keys, K and V
+// arriving through the ring:
+//   S  = Q K^T     wgmma, A = the Q tile, B = K (K-major), one k16 step
+//                  per 16 of d
+//   dP = dO V^T    wgmma, A = the dO tile, B = V (K-major): issued before
+//                  S is read, so it runs under the exponentials
+//   p  = 2^(s scale log2 e - lse log2 e), keys >= kv_len at 0 (the last
+//        tile only); ds = p (dP - delta) scale, packed to bf16 A fragments
+//   dQ += dS K     wgmma, A = dS from registers, B = the same K tile read
+//                  MN-major through the descriptor's transpose bit
+// V is handed back once dP has read it, K once dQ has.  dq is stored from
+// the accumulators at the end, rows past Sq skipped.  64-key tiles at
+// three CTAs an SM: 122 registers at d = 64, no spill; 128-key tiles need
+// two CTAs an SM and spill, and ran 40 % slower.
+//
+// Kernel 13: a CTA owns 64 keys of one (sequence, head), loads their k
+// and v tiles once and walks the query tiles of kBwdDkvQueries rows, q
+// and do through the ring; the producer warp's lanes stage each tile's
+// lse (times log2 e) and delta in shared memory beside it, +inf and 0 for
+// rows past Sq (there TMA gives zero q and do, so p = 0 and ds = 0, and
+// no p * 0 can make a NaN).  Keys as the M side:
+//   S^T  = K Q^T   wgmma, A = the K tile, B = Q (K-major)
+//   dP^T = V dO^T  wgmma, A = the V tile, B = dO (K-major), issued before
+//                  S^T is read
+//   p^T = 2^(s scale log2 e - lse log2 e) per query column;
+//   ds^T = p^T (dP^T - delta) scale; both packed to bf16 A fragments
+//   dV += P^T dO   wgmma, A = round(p^T) from registers, B = the same dO
+//                  tile MN-major
+//   dK += dS^T Q   wgmma, A = round(ds^T) from registers, B = the same Q
+//                  tile MN-major
+// so one shared tile of q and of do serves as a K-major and as an
+// MN-major operand.  dV and dK are issued together after ds^T, when no
+// f32 tile is live beside the fragments: issuing dV before ds^T (under
+// its arithmetic) held p^T, dP^T and the fragments at once, which spilled
+// at d = 64 and made ptxas serialise the wgmmas (C7512), 15 % slower.
+// 64-query tiles at two CTAs an SM (168 registers at d = 64).  A key row
+// at or past kv_len only ever meets itself (the products are row by row
+// in M), so the epilogue stores zeros there instead of masking inside the
+// loop; a CTA whose keys all lie past kv_len stores zeros and leaves.
+//
+// No runtime test sits between the wgmmas of a sequence (ptxas serialises
+// them otherwise: C7511): the tile widths are compile-time constants, one
+// template instance per head dim, and kernel 12's kv_len mask is a
+// template parameter of its last tile's step.  Each tile waits for its
+// accumulating products before the next tile's score products: leaving
+// them in flight made ptxas serialise them across the loop (C7515) and ran
+// 15-50 % slower.  tools/wgmma_variants.py times the tilings (PERF.md,
+// kernels 12 and 13's findings).
+
+#pragma once
+
+#include "flash_fwd_sm90.cuh"
+
+namespace {
+
+// kernel 12: keys a K/V tile, stages of the ring, CTAs an SM that the
+// register cap of __launch_bounds__ leaves room for
+constexpr int kBwdDqKeys = 64;
+constexpr int kBwdDqStages = 2;
+constexpr int kBwdDqCTAs = 3;
+// kernel 13: queries a Q/dO tile, stages, CTAs an SM (64-query tiles at
+// two CTAs an SM ran 3 % ahead of 32-query tiles at three in every round
+// of tools/wgmma_variants.py: PERF.md)
+constexpr int kBwdDkvQueries = 64;
+constexpr int kBwdDkvStages = 2;
+constexpr int kBwdDkvCTAs = 2;
+constexpr int kBwdThreads = 128 + 32;  // a consumer warpgroup, a producer
+
+// which blockwise backwards (kernels 12, 13) take these bodies: those whose
+// forward (kernel 11) takes its wgmma body, online_on_wgmma's rule
+__host__ __device__ constexpr bool blocked_bwd_on_wgmma(int dtype, int d) {
+  return online_on_wgmma(dtype, d);
+}
+
+// 1 KB of slack to align the dynamic base, the CTA's own two tiles of 64
+// rows, and per stage the two streamed tiles (each region 1024-byte
+// aligned, the 128-byte swizzle's period)
+__host__ __device__ constexpr size_t bwd_smem(int hd, int stages, int rows) {
+  return 1024 + 2 * align1024(static_cast<size_t>(64) * hd * 2) +
+         2 * stages * align1024(static_cast<size_t>(rows) * hd * 2);
+}
+
+// the operands the TMA maps do not carry
+struct FlashBwd {
+  const bf16 *o, *dout;  // (B, H, Sq, d) contiguous
+  const float* lse;      // (B*H, Sq)
+  float* delta;          // (B*H, Sq): kernel 12 writes it, 13 reads it
+  bf16 *dq, *dk, *dv;    // (B, H, Sq or Skv, d) contiguous
+  int H, Sq, Skv, kv_len;
+  float scale;
+};
+
+// d[0, 16) = (acc ? d : 0) + A (64 x 16, shared, K-major) B (16 x 32,
+// shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// a 64 x N score-like step: d = (acc ? d : 0) + A (shared) B^T (shared),
+// both K-major
+template <int N>
+__device__ __forceinline__ void wgmma_nt(float* d, uint64_t a, uint64_t b,
+                                         int acc) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32(d, a, b, acc);
+  } else {
+    wgmma_qk<N>(d, a, b, acc);
+  }
+}
+
+// X (64 x N) = A (64 x HD tile) B^T (N x HD tile), one k16 step per 16 of
+// HD, issued and committed as one group
+template <int HD, int N>
+__device__ __forceinline__ void issue_nt(float* x, uint64_t a, uint64_t b) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_nt<N>(x, a + 2 * kk, b + 2 * kk, kk);
+  wgmma_commit();
+}
+
+// Y (64 x HD) += F (64 x N, A fragments in registers) T (N x HD tile read
+// MN-major), one k16 step per 16 rows of T, committed as one group
+template <int HD, int N>
+__device__ __forceinline__ void issue_acc(float* y, const uint32_t (*f)[4],
+                                          uint64_t t) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    wgmma_pv<HD>(y, f[kk], t + ((16 * kk * HD * 2) >> 4), 1);
+  wgmma_commit();
+}
+
+// an accumulator tile (64 x N f32) in bf16 as the A fragments of its N / 16
+// k16 steps (the accumulator layout of two 8-column blocks is the A layout
+// of one 16-column step)
+template <int N>
+__device__ __forceinline__ void to_frags(uint32_t (*f)[4], const float* x) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const float* p = x + 8 * kk;
+    f[kk][0] = pack_bf16(p[0], p[1]);
+    f[kk][1] = pack_bf16(p[2], p[3]);
+    f[kk][2] = pack_bf16(p[4], p[5]);
+    f[kk][3] = pack_bf16(p[6], p[7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float* x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(x[i]);
+}
+
+__device__ __forceinline__ float pos_inf() {
+  return __int_as_float(0x7f800000);
+}
+
+// stores rows row0 + 8 hh of a 64 x HD accumulator tile of this thread as
+// bf16 pairs into the contiguous (rows, HD) slab at base, rows >= `rows`
+// skipped, rows >= `live` stored as zeros
+template <int HD>
+__device__ __forceinline__ void store_tile(bf16* base, const float* acc,
+                                           int row0, int tq4, int rows,
+                                           int live) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= rows) continue;
+    const bool keep = row < live;  // a select: NaN * 0 is NaN
+    bf16* dst = base + static_cast<size_t>(row) * HD + 2 * tq4;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(dst + 8 * jj) =
+          pack_bf16(keep ? acc[4 * jj + 2 * hh] : 0.f,
+                    keep ? acc[4 * jj + 2 * hh + 1] : 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 12: dq, and delta
+// ---------------------------------------------------------------------------
+
+// kernel 12's step over key tile j, K and V from ring stage j % stages
+// (bars: K full, V full, K empty, V empty per stage): S and dP, p and ds
+// in registers, dQ += dS K.  kMask sets the scores of keys past kv_len to
+// p = 0; only the last tile takes it, as a template parameter, so that no
+// runtime test sits among the wgmmas.
+template <int HD, bool kMask>
+__device__ __forceinline__ void dq_tile(int j, const FlashBwd& a,
+                                        const unsigned char* KV,
+                                        uint64_t* bars, uint64_t qdesc,
+                                        uint64_t dodesc, const float (&lc)[2],
+                                        const float (&dl)[2], int tq4,
+                                        int lane, float (&dq)[HD / 2]) {
+  constexpr int N = kBwdDqKeys;
+  constexpr int S = kBwdDqStages;
+  constexpr uint32_t kSlot = align1024(N * HD * 2);
+  const float c = a.scale * kLog2e;
+  const int st = j % S;
+  const uint32_t ph = (j / S) & 1;
+  const unsigned char* Ks = KV + 2 * st * kSlot;
+  const uint64_t kdesc = smem_desc<HD>(Ks);
+  const uint64_t vdesc = smem_desc<HD>(Ks + kSlot);
+
+  // S = Q K^T and dP = dO V^T: register 4 jj + e holds row gq + 8 (e / 2)
+  // of the warp's 16, key column 8 jj + 2 tq4 + e % 2 of the tile
+  float s[N / 2], dp[N / 2];
+  mbar_wait(&bars[st], ph);
+  issue_nt<HD, N>(s, qdesc, kdesc);
+  mbar_wait(&bars[S + st], ph);
+  issue_nt<HD, N>(dp, dodesc, vdesc);
+  wgmma_wait<1>();  // S
+  fence_all<N / 2>(s);
+
+  if constexpr (kMask) {  // keys past kv_len: p = 0
+    const int live = a.kv_len - j * N;
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * jj + 2 * tq4 + (e & 1) >= live) s[4 * jj + e] = neg_inf();
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    s[i] = ex2(fmaf(s[i], c, -lc[(i >> 1) & 1]));
+
+  wgmma_wait_all();
+  fence_all<N / 2>(dp);
+  if (lane == 0) mbar_arrive(&bars[3 * S + st]);  // V read
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * a.scale;
+  uint32_t ds[N / 16][4];
+  to_frags<N>(ds, dp);
+
+  // dQ += dS K, K read MN-major
+  issue_acc<HD, N>(dq, ds, kdesc);
+  wgmma_wait_all();
+  if (lane == 0) mbar_arrive(&bars[2 * S + st]);  // K read
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const FlashBwd a) {
+  constexpr int RB = HD * 2;  // bytes of a row
+  constexpr int N = kBwdDqKeys;
+  constexpr int S = kBwdDqStages;
+  constexpr uint32_t kTile = N * RB;  // bytes of a K or V tile
+  constexpr uint32_t kSlot = align1024(kTile);
+  extern __shared__ unsigned char smem_raw[];
+  // per stage: K full, V full, K empty, V empty; then Q and dO full
+  __shared__ __align__(8) uint64_t bars[4 * S + 1];
+  uint64_t* const fullk = bars;
+  uint64_t* const fullv = bars + S;
+  uint64_t* const emptyk = bars + 2 * S;
+  uint64_t* const emptyv = bars + 3 * S;
+  uint64_t* const qfull = bars + 4 * S;
+  unsigned char* Qs =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* DOs = Qs + align1024(64 * RB);
+  unsigned char* KV = DOs + align1024(64 * RB);  // stage st: K, then V
+  const int parts = (a.Sq + 63) / 64;
+  const int bh = blockIdx.x / parts, part = blockIdx.x - bh * parts;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int ntiles = (a.kv_len + N - 1) / N;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&fullk[i], 1);
+      mbar_init(&fullv[i], 1);
+      mbar_init(&emptyk[i], 4);
+      mbar_init(&emptyv[i], 4);
+    }
+    mbar_init(qfull, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq4 = lane & 3;
+  if (threadIdx.x >= 128) {
+    // the producer: one lane issues every load
+    if (lane == 0) {
+      mbar_expect_tx(qfull, 2 * 64 * RB);
+      tma_load_4d(Qs, &tq, qfull, 0, 64 * part, h, b);
+      tma_load_4d(DOs, &tdo, qfull, 0, 64 * part, h, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % S;
+        const uint32_t freed = ((j / S) & 1) ^ 1;
+        unsigned char* Ks = KV + 2 * st * kSlot;
+        mbar_wait(&emptyk[st], freed);
+        mbar_expect_tx(&fullk[st], kTile);
+        tma_load_4d(Ks, &tk, &fullk[st], 0, j * N, h, b);
+        mbar_wait(&emptyv[st], freed);
+        mbar_expect_tx(&fullv[st], kTile);
+        tma_load_4d(Ks + kSlot, &tv, &fullv[st], 0, j * N, h, b);
+      }
+    }
+    return;
+  }
+
+  // delta of rows gq, gq + 8 of the warp's 16 (the quad's four lanes take
+  // a quarter of the row each), written for kernel 13; lse times log2 e,
+  // +inf past Sq (p = 0 there)
+  const int row0 = 64 * part + 16 * warp + gq;
+  const size_t head = static_cast<size_t>(bh) * a.Sq;
+  float dl[2], lc[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    float acc = 0.f;
+    if (row < a.Sq) {
+      const size_t g = (head + row) * HD + tq4 * (HD / 4);
+      const __nv_bfloat162* op =
+          reinterpret_cast<const __nv_bfloat162*>(a.o + g);
+      const __nv_bfloat162* gp =
+          reinterpret_cast<const __nv_bfloat162*>(a.dout + g);
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        const float2 x = __bfloat1622float2(op[i]);
+        const float2 y = __bfloat1622float2(gp[i]);
+        acc += y.x * x.x;
+        acc += y.y * x.y;
+      }
+    }
+    dl[hh] = quad_sum(acc);
+    lc[hh] = row < a.Sq ? a.lse[head + row] * kLog2e : pos_inf();
+    if (tq4 == 0 && row < a.Sq) a.delta[head + row] = dl[hh];
+  }
+
+  const uint64_t qdesc = smem_desc<HD>(Qs), dodesc = smem_desc<HD>(DOs);
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  mbar_wait(qfull, 0);
+#pragma unroll 1
+  for (int j = 0; j < ntiles - 1; ++j)
+    dq_tile<HD, false>(j, a, KV, bars, qdesc, dodesc, lc, dl, tq4, lane, dq);
+  // the last tile (kv_len >= 1: there is one) masks keys past kv_len
+  dq_tile<HD, true>(ntiles - 1, a, KV, bars, qdesc, dodesc, lc, dl, tq4, lane,
+                    dq);
+  fence_all<HD / 2>(dq);
+
+  store_tile<HD>(a.dq + head * HD, dq, row0, tq4, a.Sq, a.Sq);
+}
+
+// ---------------------------------------------------------------------------
+// kernel 13: dk and dv
+// ---------------------------------------------------------------------------
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const FlashBwd a) {
+  constexpr int RB = HD * 2;
+  constexpr int N = kBwdDkvQueries;
+  constexpr int S = kBwdDkvStages;
+  constexpr uint32_t kTile = N * RB;  // bytes of a Q or dO tile
+  constexpr uint32_t kSlot = align1024(kTile);
+  extern __shared__ unsigned char smem_raw[];
+  // per stage: Q full (with lse, delta), dO full, empty; then K and V full
+  __shared__ __align__(8) uint64_t bars[3 * S + 1];
+  // per stage: lse times log2 e and delta of the tile's queries
+  __shared__ __align__(8) float lsm[S][N], dsm[S][N];
+  uint64_t* const fullq = bars;
+  uint64_t* const fulld = bars + S;
+  uint64_t* const empty = bars + 2 * S;
+  uint64_t* const kvfull = bars + 3 * S;
+  unsigned char* Ks =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Vs = Ks + align1024(64 * RB);
+  unsigned char* QD = Vs + align1024(64 * RB);  // stage st: Q, then dO
+  const int parts = (a.Skv + 63) / 64;
+  const int bh = blockIdx.x / parts, part = blockIdx.x - bh * parts;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int key0 = 64 * part;
+  const size_t kbase = (static_cast<size_t>(bh) * a.Skv + key0) * HD;
+
+  if (key0 >= a.kv_len) {  // every key of the block masked: zeros
+    const int n = min(64, a.Skv - key0) * HD / 2;
+    uint32_t* dk = reinterpret_cast<uint32_t*>(a.dk + kbase);
+    uint32_t* dv = reinterpret_cast<uint32_t*>(a.dv + kbase);
+    for (int i = threadIdx.x; i < n; i += kBwdThreads) dk[i] = dv[i] = 0u;
+    return;
+  }
+  const int ntiles = (a.Sq + N - 1) / N;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&fullq[i], 32);  // the producer's lanes, and Q's bytes
+      mbar_init(&fulld[i], 1);
+      mbar_init(&empty[i], 4);
+    }
+    mbar_init(kvfull, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq4 = lane & 3;
+  const size_t head = static_cast<size_t>(bh) * a.Sq;
+  if (threadIdx.x >= 128) {
+    // the producer: lane 0 issues the loads, every lane stages lse and
+    // delta
+    if (lane == 0) {
+      mbar_expect_tx(kvfull, 2 * 64 * RB);
+      tma_load_4d(Ks, &tk, kvfull, 0, key0, h, b);
+      tma_load_4d(Vs, &tv, kvfull, 0, key0, h, b);
+    }
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j % S;
+      mbar_wait(&empty[st], ((j / S) & 1) ^ 1);
+      for (int i = lane; i < N; i += 32) {
+        const int r = j * N + i;
+        const bool ok = r < a.Sq;
+        lsm[st][i] = ok ? a.lse[head + r] * kLog2e : pos_inf();
+        dsm[st][i] = ok ? a.delta[head + r] : 0.f;
+      }
+      unsigned char* Qs = QD + 2 * st * kSlot;
+      if (lane == 0) {
+        mbar_expect_tx(&fullq[st], kTile);
+        tma_load_4d(Qs, &tq, &fullq[st], 0, j * N, h, b);
+        mbar_expect_tx(&fulld[st], kTile);
+        tma_load_4d(Qs + kSlot, &tdo, &fulld[st], 0, j * N, h, b);
+      } else {
+        mbar_arrive(&fullq[st]);
+      }
+    }
+    return;
+  }
+
+  const uint64_t kdesc = smem_desc<HD>(Ks), vdesc = smem_desc<HD>(Vs);
+  const float c = a.scale * kLog2e;
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kvfull, 0);
+#pragma unroll 1
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % S;
+    const uint32_t ph = (j / S) & 1;
+    const unsigned char* Qs = QD + 2 * st * kSlot;
+    const uint64_t qdesc = smem_desc<HD>(Qs);
+    const uint64_t dodesc = smem_desc<HD>(Qs + kSlot);
+
+    // S^T = K Q^T and dP^T = V dO^T: register 4 jj + e holds key row gq +
+    // 8 (e / 2) of the warp's 16, query column 8 jj + 2 tq4 + e % 2
+    float s[N / 2], dp[N / 2];
+    mbar_wait(&fullq[st], ph);
+    issue_nt<HD, N>(s, kdesc, qdesc);
+    mbar_wait(&fulld[st], ph);
+    issue_nt<HD, N>(dp, vdesc, dodesc);
+    wgmma_wait<1>();  // S^T
+    fence_all<N / 2>(s);
+    const float* lq = lsm[st];
+    const float* dlt = dsm[st];
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      const float2 l = *reinterpret_cast<const float2*>(lq + 8 * jj + 2 * tq4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * jj + e] = ex2(fmaf(s[4 * jj + e], c, -(e & 1 ? l.y : l.x)));
+    }
+    wgmma_wait_all();  // dP^T
+    fence_all<N / 2>(dp);
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      const float2 g = *reinterpret_cast<const float2*>(dlt + 8 * jj + 2 * tq4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = dp[4 * jj + e];
+        x = s[4 * jj + e] * (x - (e & 1 ? g.y : g.x)) * a.scale;
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major; p and ds are
+    // both in bf16 fragments first, so no f32 tile is live under them
+    uint32_t pf[N / 16][4], df[N / 16][4];
+    to_frags<N>(pf, s);
+    to_frags<N>(df, dp);
+    issue_acc<HD, N>(dv, pf, dodesc);
+    issue_acc<HD, N>(dk, df, qdesc);
+    wgmma_wait_all();
+    if (lane == 0) mbar_arrive(&empty[st]);  // Q, dO, lse, delta read
+  }
+  fence_all<HD / 2>(dk);
+  fence_all<HD / 2>(dv);
+
+  const int row0 = 16 * warp + gq;
+  const int rows = min(64, a.Skv - key0), live = a.kv_len - key0;
+  store_tile<HD>(a.dk + kbase, dk, row0, tq4, rows, live);
+  store_tile<HD>(a.dv + kbase, dv, row0, tq4, rows, live);
+}
+
+// ---------------------------------------------------------------------------
+// host: the tensor maps and the launches
+// ---------------------------------------------------------------------------
+
+template <int HD>
+cudaError_t launch_blocked_bwd_d(int part, const CUtensorMap (&m)[4],
+                                 const FlashBwd& a, int BH,
+                                 cudaStream_t stream) {
+  if (part == 1) {
+    constexpr size_t bytes = bwd_smem(HD, kBwdDqStages, kBwdDqKeys);
+    DEVT_TRY(set_smem(flash_bwd_dq_wgmma<HD>, bytes));
+    flash_bwd_dq_wgmma<HD><<<BH * ((a.Sq + 63) / 64), kBwdThreads, bytes,
+                             stream>>>(m[0], m[1], m[2], m[3], a);
+  } else {
+    constexpr size_t bytes = bwd_smem(HD, kBwdDkvStages, kBwdDkvQueries);
+    DEVT_TRY(set_smem(flash_bwd_dkv_wgmma<HD>, bytes));
+    flash_bwd_dkv_wgmma<HD><<<BH * ((a.Skv + 63) / 64), kBwdThreads, bytes,
+                              stream>>>(m[0], m[1], m[2], m[3], a);
+  }
+  return cudaGetLastError();
+}
+
+// kernel 12 (part 1: delta and dq) or 13 (part 2: dk and dv, from part 1's
+// delta) on the wgmma bodies, for a shape inside blocked_bwd_on_wgmma: q,
+// k, v (B, H, S, d) bf16 by element strides (strides[0..2] q's (sequence,
+// head, row), [3..5] k's, [6..8] v's; the rows 16-byte aligned, the
+// strides multiples of 8), the rest in `a`; the TMA maps of q, k, v and
+// do (64-row boxes for the CTA's own side, the tile width for the
+// streamed one), then the launch of the head dim
+inline cudaError_t launch_blocked_bwd_wgmma(int part, const FlashBwd& a,
+                                            const void* q, const void* k,
+                                            const void* v, int B, int d,
+                                            const long long* st,
+                                            cudaStream_t stream) {
+  if (!blocked_bwd_on_wgmma(1, d) || (part != 1 && part != 2))
+    return cudaErrorInvalidValue;
+  const int qbox = part == 1 ? 64 : kBwdDkvQueries;
+  const int kbox = part == 1 ? kBwdDqKeys : 64;
+  const long long hs = static_cast<long long>(a.Sq) * d;
+  CUtensorMap m[4];
+  DEVT_TRY(head_map(&m[0], q, d, a.Sq, a.H, B, st[2], st[1], st[0], qbox));
+  DEVT_TRY(head_map(&m[1], k, d, a.Skv, a.H, B, st[5], st[4], st[3], kbox));
+  DEVT_TRY(head_map(&m[2], v, d, a.Skv, a.H, B, st[8], st[7], st[6], kbox));
+  DEVT_TRY(head_map(&m[3], a.dout, d, a.Sq, a.H, B, d, hs, a.H * hs, qbox));
+  switch (d) {
+    case 16: return launch_blocked_bwd_d<16>(part, m, a, B * a.H, stream);
+    case 32: return launch_blocked_bwd_d<32>(part, m, a, B * a.H, stream);
+    case 64: return launch_blocked_bwd_d<64>(part, m, a, B * a.H, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace

@@ -78,22 +78,31 @@ through a TMA ring that a producer warp keeps full, Q·Kᵀ and P·V on
 ``wgmma``.  Other shapes and float run ``csrc/flash_fwd.cuh`` (a block per
 64 queries of a head, K and V streamed through shared memory in 64-key
 tiles, so every length takes every head dim; its online branch rescales
-per 32 keys, which moves a bf16 o by the rounding of p only); and
-``csrc/flash_bwd.cu`` (10, and 12 and 13 as two launches after a delta
-launch: kernel 4's body on the split layout, ``csrc/attention_bwd.cuh``,
-with separate query and key extents and the other side streamed, so
-shared memory does not grow with either).  They read q, k, v through
-their strides, so the transposed head views that ``packed_mha`` cuts from
-a packed qkv are not copied; o is (B, H, Sq, d) and lse (B·H, Sq) f32,
-contiguous, and nothing is padded in device memory (the TPU wrapper pads
+per 32 keys, which moves a bf16 o by the rounding of p only).  The
+backward is ``csrc/flash_bwd.cu``.  Kernels 12 and 13 in bfloat16 at head
+dim 16, 32 or 64 (``blocked_bwd_on_wgmma``: every main-path shape) run
+``csrc/flash_bwd_sm90.cuh``'s bodies, one launch each: kernel 12 a CTA per
+64 queries that computes delta in its prologue and walks 64-key K and V
+tiles through a TMA ring, kernel 13 a CTA per 64 keys that walks the
+query tiles, every product on ``wgmma``.  Kernel 10, and 12 and 13 in
+float or at head dims 128 and 256, run kernel 4's body on the split
+layout, ``csrc/attention_bwd.cuh`` (12 and 13 as two launches after a
+delta launch), with separate query and key extents and the other side
+streamed, so shared memory does not grow with either.  Every body reads
+q, k, v through their strides, so the transposed head views that
+``packed_mha`` cuts from a packed qkv are not copied; o is (B, H, Sq, d)
+and lse (B·H, Sq) f32, contiguous, and nothing is padded in device memory (the TPU wrapper pads
 to its tiles; here the kernels mask query rows past Sq and keys past
 kv_len).  Counters: ``flash_attention.single_launches`` (kernel 9; of
 them ``.single_wgmma_launches`` on the wgmma body and
 ``.single_streamed_launches`` on the streamed one),
 ``.single_bwd_launches``, ``.blocked_launches`` (kernel 11; of them
 ``.blocked_wgmma_launches`` and ``.blocked_streamed_launches`` by body),
-``.blocked_dq_launches``
-(kernel 12, its delta launch with it) and ``.blocked_dkv_launches`` (13).
+``.blocked_dq_launches`` (kernel 12, a call: on the streamed body its
+delta launch with it; of them ``.blocked_dq_wgmma_launches`` and
+``.blocked_dq_streamed_launches``) and ``.blocked_dkv_launches`` (13; of
+them ``.blocked_dkv_wgmma_launches`` and
+``.blocked_dkv_streamed_launches``).
 
 ``ring_step_fwd`` and ``ring_step_bwd`` are one hop of ring attention
 (``_ring_fwd_kernel``, ``:792``, kernel 14; ``_ring_bwd_kernel``,
@@ -153,6 +162,16 @@ def online_on_wgmma(dtype: torch.dtype, d: int) -> bool:
     (bfloat16 at head dim 16, 32 or 64, any key count).  The others run
     the streamed body of ``csrc/flash_fwd.cuh``."""
     return dtype == torch.bfloat16 and d in _WGMMA_HEAD_DIMS
+
+
+def blocked_bwd_on_wgmma(dtype: torch.dtype, d: int) -> bool:
+    """Whether a blockwise backward (kernels 12 and 13) runs the wgmma
+    bodies: the rule of the C entry, ``csrc/flash_bwd_sm90.cuh``
+    ``blocked_bwd_on_wgmma``: those whose forward (kernel 11) runs its
+    wgmma body, ``online_on_wgmma``'s rule (bfloat16 at head dim 16, 32 or
+    64, any Sq, Skv and kv_len).  The others run the streamed body of
+    ``csrc/attention_bwd.cuh``."""
+    return online_on_wgmma(dtype, d)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -764,13 +783,16 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, scale, kv_len):
 def _flash_blocked_call(part, q, k, v, o, lse, do, delta, outs, scale,
                         kv_len):
     """One call of ``devt_flash_blocked_bwd``: part 1 writes delta and dq
-    (outs[0]), part 2 dk and dv (outs[1], outs[2]) from that delta."""
+    (outs[0]), part 2 dk and dv (outs[1], outs[2]) from that delta.
+    Returns whether the entry took the wgmma body, as its
+    ``devt_blocked_bwd_route`` says."""
     d = _check_flash_args(q, k, v, kv_len, backward=True)
     _check_bwd_inputs(q, o, lse, do)
     from devt_tpu_torch.ops import _build
 
     lib = _build.load("flash_bwd", _declare_flash_bwd)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    o, do = _aligned(o), _aligned(do)   # a TMA map reads do
     b, h, sq, _ = q.shape
     strides = (ctypes.c_longlong * 9)(*_strides(q), *_strides(k),
                                       *_strides(v))
@@ -782,15 +804,21 @@ def _flash_blocked_call(part, q, k, v, o, lse, do, delta, outs, scale,
             h, sq, k.shape[2], d, int(kv_len), strides,
             ctypes.c_float(scale), ctypes.c_void_p(stream))
     _check_rc(lib, rc, f"flash_blocked_bwd part {part}")
+    return bool(lib.devt_blocked_bwd_route(_DTYPE_CODE[q.dtype], d))
 
 
 def _flash_blocked_dq_cuda(q, k, v, o, lse, do, scale, kv_len):
     """Kernel 12: delta = rowsum(do · o), then dq → (dq, delta)."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
-    _flash_blocked_call(1, q, k, v, o, lse, do, delta, (dq, dq, dq), scale,
-                        kv_len)
-    flash_attention.blocked_dq_launches += 1
+    wgmma = _flash_blocked_call(1, q, k, v, o, lse, do, delta, (dq, dq, dq),
+                                scale, kv_len)
+    fa = flash_attention
+    fa.blocked_dq_launches += 1
+    if wgmma:
+        fa.blocked_dq_wgmma_launches += 1
+    else:
+        fa.blocked_dq_streamed_launches += 1
     return dq, delta
 
 
@@ -798,9 +826,14 @@ def _flash_blocked_dkv_cuda(q, k, v, o, lse, do, delta, scale, kv_len):
     """Kernel 13: dk and dv from the delta of kernel 12."""
     dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
-    _flash_blocked_call(2, q, k, v, o, lse, do, delta, (dk, dk, dv), scale,
-                        kv_len)
-    flash_attention.blocked_dkv_launches += 1
+    wgmma = _flash_blocked_call(2, q, k, v, o, lse, do, delta, (dk, dk, dv),
+                                scale, kv_len)
+    fa = flash_attention
+    fa.blocked_dkv_launches += 1
+    if wgmma:
+        fa.blocked_dkv_wgmma_launches += 1
+    else:
+        fa.blocked_dkv_streamed_launches += 1
     return dk, dv
 
 
@@ -901,7 +934,11 @@ flash_attention.blocked_launches = 0
 flash_attention.blocked_wgmma_launches = 0
 flash_attention.blocked_streamed_launches = 0
 flash_attention.blocked_dq_launches = 0
+flash_attention.blocked_dq_wgmma_launches = 0
+flash_attention.blocked_dq_streamed_launches = 0
 flash_attention.blocked_dkv_launches = 0
+flash_attention.blocked_dkv_wgmma_launches = 0
+flash_attention.blocked_dkv_streamed_launches = 0
 
 
 def _declare_flash_fwd(lib: ctypes.CDLL) -> None:
@@ -929,6 +966,8 @@ def _declare_flash_bwd(lib: ctypes.CDLL) -> None:
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
            ctypes.c_void_p])
     lib.devt_flash_blocked_bwd.restype = ctypes.c_int
+    lib.devt_blocked_bwd_route.argtypes = [ctypes.c_int] * 2
+    lib.devt_blocked_bwd_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p
 

@@ -969,6 +969,14 @@ def _blocked_bwd_counts():
             tfa.flash_attention.blocked_dkv_launches)
 
 
+def _blocked_bwd_bodies():
+    """Launches of kernels 12 and 13 by body: (12 wgmma, 12 streamed, 13
+    wgmma, 13 streamed)."""
+    fa = tfa.flash_attention
+    return (fa.blocked_dq_wgmma_launches, fa.blocked_dq_streamed_launches,
+            fa.blocked_dkv_wgmma_launches, fa.blocked_dkv_streamed_launches)
+
+
 def _bwd_within(kind, tag, got, want):
     """Each gradient within BWD_ULPS of its plain version's largest
     element."""
@@ -992,7 +1000,9 @@ FLASH_BLOCKED_SHAPES = [
 def test_flash_blocked_bwd_kernels_match_plain(card, kind, b, h, sq, skv, d,
                                                kv_len, strided):
     """Kernels 12 and 13 through ``flash_attention`` and autograd, one
-    launch each: dq, dk, dv against the plain backward on the forward's
+    launch each, on the body ``blocked_bwd_on_wgmma`` names (bf16 at head
+    dim 32 or 64 the wgmma bodies, f32 and head dims 128 and 256 the
+    streamed one): dq, dk, dv against the plain backward on the forward's
     (o, lse) within the backward bound; keys past kv_len get exact zeros;
     two runs give the same bits."""
     q, k, v = _flash_inputs(kind, b, h, sq, skv, d, strided, sq + skv + d)
@@ -1005,10 +1015,13 @@ def test_flash_blocked_bwd_kernels_match_plain(card, kind, b, h, sq, skv, d,
                                      return_lse=True)
         return (o.detach(), lse, *torch.autograd.grad(o, leaves, do))
 
-    before = _blocked_bwd_counts()
+    before, bodies = _blocked_bwd_counts(), _blocked_bwd_bodies()
     o, lse, *got = run()
     torch.cuda.synchronize()
     assert [a - b_ for a, b_ in zip(_blocked_bwd_counts(), before)] == [1, 1]
+    wgmma = int(tfa.blocked_bwd_on_wgmma(DTYPE[kind], d))
+    assert [a - b_ for a, b_ in zip(_blocked_bwd_bodies(), bodies)] == \
+        [wgmma, 1 - wgmma] * 2
     want = tfa.flash_blocked_bwd_plain(q, k, v, o, lse, do, d ** -0.5,
                                        kv_len)
     _bwd_within(kind, f"({b},{h},{sq},{skv},{d})", got, want)
@@ -1126,10 +1139,13 @@ def test_vivit_at_image_384_trains_through_kernels_11_12_13(card):
     state = TrainState.create(dict(model.named_parameters()),
                               build_optimizer(cfg))
     before, blocked = _flash_counts(), _blocked_bwd_counts()
+    bodies = _blocked_bwd_bodies()
     state, metrics = make_train_step(model, cfg)(state, batch, 0)
     torch.cuda.synchronize()
     assert _delta(before) == [0] * 7 + [4]
     assert [a - b for a, b in zip(_blocked_bwd_counts(), blocked)] == [4, 4]
+    assert [a - b for a, b in zip(_blocked_bwd_bodies(), bodies)] == \
+        [4, 0, 4, 0]
     assert torch.isfinite(metrics["loss"])
 
     grads = []
@@ -1466,3 +1482,143 @@ def test_int8_and_online_routes_match_the_c_rules(card):
         for d in (8, 16, 32, 48, 64, 128, 256):
             assert bool(flib.devt_online_route(code, d)) == \
                 tfa.online_on_wgmma(dtype, d), (dtype, d)
+
+
+# ---------------------------------------------------------------------------
+# the blockwise backward on wgmma (csrc/flash_bwd_sm90.cuh): kernels 12, 13
+# ---------------------------------------------------------------------------
+
+# (b, h, sq, skv, kv_len, strided) at each head dim of the rule: ViViT at
+# image 384 on the head views of a packed qkv (1536 sequences at head dim
+# 64, the main path's shape), Sq != Skv ragged, Sq shorter than one query
+# tile (20, and a single query), kv_len = 1
+BLOCKED_WGMMA_SHAPES = [
+    (512, 3, 592, 592, 577, True), (2, 3, 40, 300, 290, False),
+    (2, 2, 20, 300, 250, False), (1, 2, 1, 130, 130, False),
+    (1, 2, 600, 600, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("b,h,sq,skv,kv_len,strided", BLOCKED_WGMMA_SHAPES)
+def test_flash_blocked_bwd_wgmma_matches_plain(card, b, h, sq, skv, kv_len,
+                                               strided, d):
+    """Kernels 12 and 13 on their wgmma bodies, through
+    ``flash_attention`` and autograd: one launch of each on that body; dq,
+    dk, dv within 4 bf16 ulps of the plain backward's largest element on
+    the forward's (o, lse); dk and dv past kv_len exact zeros; two runs
+    bit-equal."""
+    if not strided or d != 64:
+        b = min(b, 2)
+    q, k, v = _flash_inputs("bf16", b, h, sq, skv, d, strided, sq + kv_len)
+    do = torch.randn(b, h, sq, d, generator=torch.Generator().manual_seed(
+        13)).to(torch.bfloat16).cuda()
+    assert tfa.blocked_bwd_on_wgmma(torch.bfloat16, d)
+    assert not (sq == skv and tfa.fits_single_block(sq))
+
+    def run():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o, lse = tfa.flash_attention(*leaves, kv_len=kv_len,
+                                     return_lse=True)
+        return (o.detach(), lse, *torch.autograd.grad(o, leaves, do))
+
+    bodies = _blocked_bwd_bodies()
+    o, lse, *got = run()
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_blocked_bwd_bodies(), bodies)] == \
+        [1, 0, 1, 0]
+    want = tfa.flash_blocked_bwd_plain(q, k, v, o, lse, do, d ** -0.5,
+                                       kv_len)
+    for g in got:
+        assert torch.isfinite(g.float()).all()
+    tag = f"({b},{h},{sq},{skv},{d}) kv_len {kv_len}"
+    if kv_len == 1:
+        _one_key_noise(tag, q, k, v, do, d ** -0.5, got, want)
+    else:
+        _bwd_within("bf16", tag, got, want)
+    for g in got[1:]:
+        assert not g[:, :, kv_len:].any()
+    again = run()[2:]
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def _one_key_noise(tag, q, k, v, do, scale, got, want):
+    """kv_len = 1: p = 1, o = v[0] and dp = delta = do . v[0], so ds, dq
+    and dk are zero in exact arithmetic, and what both the kernel and the
+    plain version give is the rounding of two f32 sums of d products each,
+    in different orders (the plain version's own largest dq is that
+    noise, so 4 ulps of it is no bound).  dv = the sum of do over the
+    queries is held to the gate; dq and dk to the f32 error bound of those
+    sums, d ulps (2^-23) of sum |do_i v_i| per score, times scale, carried
+    through k[0] into dq and through q into dk."""
+    d = q.shape[-1]
+    v0, k0 = v[:, :, :1].float().abs(), k[:, :, :1].float().abs()
+    noise = scale * d * 2.0 ** -22 * (do.float().abs() @ v0.transpose(-1, -2))
+    bounds = ((noise * k0).amax().item(),
+              (noise.transpose(-1, -2) @ q.float().abs()).amax().item())
+    for name, g, bound in zip(("dq", "dk"), got[:2], bounds):
+        err = g.float().abs().max().item()
+        assert err <= bound, f"bf16 {tag} {name}: {err:.3e} > {bound:.3e}"
+    g, w = got[2].float(), want[2].float()
+    err = (g - w).abs().max().item()
+    bound = BWD_ULPS["bf16"] * EPS["bf16"] * w.abs().max().item()
+    assert err <= bound, f"bf16 {tag} dv: {err:.3e} > {bound:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64])
+def test_blocked_bwd_wgmma_writes_no_row_past_the_end(card, d):
+    """The wgmma bodies write dq for rows < Sq and dk, dv for rows < Skv
+    only (Sq = 530: the last 64-query block holds 18 rows; Skv = 600: the
+    last 64-key block 24): canaries after the last sequence's last row of
+    larger output buffers stay as they were, and delta is written for
+    every query row."""
+    lib = _build.load("flash_bwd", tfa._declare_flash_bwd)
+    b, h, sq, skv, kv_len = 2, 2, 530, 600, 580
+    q, k, v = _flash_inputs("bf16", b, h, sq, skv, d, False, 21)
+    do = torch.randn(b, h, sq, d, generator=torch.Generator().manual_seed(
+        22)).to(torch.bfloat16).cuda()
+    scale = d ** -0.5
+    with torch.no_grad():
+        o, lse = tfa.flash_attention(q, k, v, kv_len=kv_len, return_lse=True)
+    spare = 128 * d
+    seven = torch.full((spare,), 7.0, dtype=torch.bfloat16, device="cuda")
+    bufs = {name: torch.full((b * h * n * d + spare,), 7.0,
+                             dtype=torch.bfloat16, device="cuda")
+            for name, n in (("dq", sq), ("dk", skv), ("dv", skv))}
+    delta = torch.full((b * h * sq + 128,), 7.0, device="cuda")
+    strides = (ctypes.c_longlong * 9)(
+        *(t.stride(i) for t in (q, k, v) for i in range(3)))
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for part in (1, 2):
+        rc = lib.devt_flash_blocked_bwd(
+            1, part, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            bufs["dq"].data_ptr(), bufs["dk"].data_ptr(),
+            bufs["dv"].data_ptr(), b, h, sq, skv, d, kv_len, strides,
+            ctypes.c_float(scale), stream)
+        assert rc == 0, rc
+    want = tfa.flash_blocked_bwd_plain(q, k, v, o, lse, do, scale, kv_len)
+    torch.cuda.synchronize()
+    got = [bufs[name][:b * h * n * d].view(b, h, n, d)
+           for name, n in (("dq", sq), ("dk", skv), ("dv", skv))]
+    _bwd_within("bf16", f"canaries d={d}", got, want)
+    for name in bufs:
+        assert torch.equal(bufs[name][-spare:], seven), name
+    torch.testing.assert_close(
+        delta[:b * h * sq].view(b * h, sq),
+        (do.float() * o.float()).sum(-1).view(b * h, sq), atol=1e-4,
+        rtol=1e-4)
+    assert torch.equal(delta[b * h * sq:], torch.full((128,), 7.0,
+                                                      device="cuda"))
+
+
+@pytest.mark.cuda
+def test_blocked_bwd_route_matches_the_c_rule(card):
+    """The C entry's rule (devt_blocked_bwd_route) is the Python
+    predicate's."""
+    lib = _build.load("flash_bwd", tfa._declare_flash_bwd)
+    for dtype, code in tfa._DTYPE_CODE.items():
+        for d in (8, 16, 32, 48, 64, 128, 256):
+            assert bool(lib.devt_blocked_bwd_route(code, d)) == \
+                tfa.blocked_bwd_on_wgmma(dtype, d), (dtype, d)

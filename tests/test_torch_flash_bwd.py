@@ -127,6 +127,42 @@ def test_op_gradients_match_jax_grad(b, h, sq, skv, d, kv_len):
                                    **GRAD_TOL)
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, True),          # ViViT at image 384's backward
+    (torch.bfloat16, 16, True), (torch.bfloat16, 32, True),
+    (torch.bfloat16, 128, False), (torch.bfloat16, 256, False),
+    (torch.bfloat16, 48, False), (torch.bfloat16, 8, False),
+    (torch.float32, 64, False), (torch.float32, 16, False)])
+def test_blocked_bwd_route_predicate(dtype, d, want):
+    """Kernels 12 and 13: bfloat16 at head dim 16, 32 or 64 takes the wgmma
+    bodies whatever Sq, Skv and kv_len; float32 and head dims 128 and 256
+    the streamed body (the card tests hold the C entry's rule to this
+    predicate)."""
+    assert tfa.blocked_bwd_on_wgmma(dtype, d) is want
+
+
+def test_cpu_backward_counts_no_launch():
+    """CPU tensors run the plain backward: the blockwise op under autograd,
+    in bfloat16 at head dim 16 (inside the rule) and in float32 (outside
+    it), counts no launch of kernel 12 or 13 on either body."""
+    fa = tfa.flash_attention
+
+    def counts():
+        return (fa.blocked_dq_launches, fa.blocked_dq_wgmma_launches,
+                fa.blocked_dq_streamed_launches, fa.blocked_dkv_launches,
+                fa.blocked_dkv_wgmma_launches,
+                fa.blocked_dkv_streamed_launches)
+
+    before = counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        leaves = [torch.tensor(_rand((1, 2, s, 16), i)).to(dtype)
+                  .requires_grad_(True) for i, s in enumerate((5, 20, 20))]
+        o = fa(*leaves, kv_len=17)              # Sq != Skv: blockwise
+        o.float().sum().backward()
+        assert all(leaf.grad is not None for leaf in leaves)
+    assert counts() == before
+
+
 # a ViViT whose space sequence exceeds one kv block: 24^2 + 1 = 577 tokens
 # pad to 592 (tests/test_torch_flash.py's LONG)
 LONG = dict(image_size=96, patch_size=4, num_classes=5, num_frames=2,

@@ -20,12 +20,21 @@ timer in both trees (CUDA graph replay of 20 calls, 5 replays):
     weight codes in the layout the tree's site registry stores (K-major
     where ``int8_matmul_on_wgmma`` exists, else row-major), and F.linear
     in bf16 at both;
+  * kernels 12 (delta and dq) and 13 (dk and dv) at kernel 11's shape on
+    the forward's o and lse, and F.scaled_dot_product_attention's backward
+    on the live keys (forward + backward through autograd less forward);
+  * kernels that share the streamed backward body and must not move:
+    kernel 4 at PTN's training shape (32, 14, 6144), 8 heads of 256, and
+    kernel 10 at (1536, 197, 64), kv_len 197;
 
 then calls the tree's chip_smoke phases 18 (kernel-flash at the kernel 9
 shape, its checks), 4 and 7 (ViViT serving and training at image 224), 12
 (PTN serving: bf16, int8, int8 at every site), 16 and 17 (MoE-ViViT
-serving and training), 20 (eval at image 384), 21 (the int8 ViViT at
-token_pad=0), 22 (training at image 384) and 24 (the ring) and records
+serving, and training: step ms, the host's enqueue ms and a profiled
+step's device ms), 20 (eval at image 384), 21 (the int8 ViViT at
+token_pad=0), 22 (training at image 384: step ms, the host's enqueue ms,
+and from its printed line a profiled step's device ms and kernels 12 +
+13's share of it) and 24 (the ring, kernel 15's time with it) and records
 their throughputs and step times.  Each run prints one ``RESULT {json}``
 line; the end prints, per metric, each tree's runs and the mean.  Needs
 one NVIDIA card; builds both trees' kernels (one nvcc per source).
@@ -36,6 +45,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -107,6 +117,29 @@ with torch.inference_mode():
         w_bf = w.to(torch.bfloat16).t().contiguous()
         res[f"k6_n{n}_linear_ms"] = graph_ms(lambda: F.linear(x, w_bf))
     del x
+    q, k, v = cs._packed_heads(512, 592, 3, 64, torch.bfloat16, 2)
+    do = torch.randn(512, 3, 592, 64, generator=gen).to(torch.bfloat16).cuda()
+    o, lse = tfa.flash_attention(q, k, v, kv_len=577, return_lse=True)
+    _, delta = tfa._flash_blocked_dq_cuda(q, k, v, o, lse, do, 0.125, 577)
+    res["k12_ms"] = graph_ms(lambda: tfa._flash_blocked_dq_cuda(
+        q, k, v, o, lse, do, 0.125, 577))
+    res["k13_ms"] = graph_ms(lambda: tfa._flash_blocked_dkv_cuda(
+        q, k, v, o, lse, do, delta, 0.125, 577))
+    q, k, v = cs._packed_heads(512, 197, 3, 64, torch.bfloat16, 1)
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True)
+    do10 = torch.randn(512, 3, 197, 64, generator=gen).to(q.dtype).cuda()
+    res["k10_ms"] = graph_ms(lambda: tfa._flash_bwd_cuda(
+        q, k, v, o, lse, do10, 0.125, 197))
+    qkv = torch.randn(32, 14, 3 * 2048, generator=gen).to(q.dtype).cuda()
+    o, lse = tfa._mha_cuda(qkv, 8, 256 ** -0.5, 14)
+    do4 = torch.randn(32, 14, 2048, generator=gen).to(q.dtype).cuda()
+    res["k4_ms"] = graph_ms(lambda: tfa._mha_bwd_cuda(
+        qkv, o, lse, do4, 8, 256 ** -0.5, 14))
+    del q, k, v, o, lse, qkv
+q, k, v = cs._packed_heads(512, 592, 3, 64, torch.bfloat16, 2)
+res["k12_13_sdpa_bwd_ms"] = cs._sdpa_bwd_ms(q, k, v, do.clone(), 577,
+                                           0.125)[0]
+del q, k, v, do
 cs.phase_flash("bf16", 512, 3, 197, 197, 64, 197)
 res["serve_clips_s"] = cs.phase_serve()["clips_per_s"]
 t = cs.phase_train()
@@ -118,13 +151,17 @@ for tag in ("bf16", "int8", "int8_all_sites"):
     res[f"ptn_{tag}_forward_ms"] = p[tag]["forward_ms"]
     res[f"ptn_{tag}_device_ms"] = p[tag]["device_ms"]
 res["moe_serve_clips_s"] = cs.phase_serve_moe()["clips_per_s"]
-res["moe_train_step_ms"] = cs.phase_train_moe()["step_ms"]
+m = cs.phase_train_moe()
+res["moe_train_step_ms"] = m["step_ms"]
+res["moe_train_host_ms"] = m["host_ms"]
+res["moe_train_device_ms"] = m["device_ms"]
 e = cs.phase_eval_long()
 res["eval_bf16_step_ms"] = e["bf16"]["step_ms"]
 res["eval_int8_step_ms"] = e["int8"]["step_ms"]
 res["int8_unfused_clips_s"] = cs.phase_serve_int8_unfused()["clips_per_s"]
 t = cs.phase_train_long()
 res["train_step_ms"] = t["step_ms"]
+res["train_host_ms"] = t["host_ms"]
 res["train_clips_s"] = t["clips_per_s"]
 r = cs.phase_ring("bf16")
 res["ring_fwd_ms"] = r["fwd"]["kernel_ms"]
@@ -139,13 +176,23 @@ def run(tree: str) -> dict:
                           text=True)
     for line in proc.stdout.splitlines():
         if line.startswith("[") and ("wgmma" in line or "clips/s" in line
-                                     or "rows/s" in line):
+                                     or "rows/s" in line
+                                     or "device_ms" in line):
             print(f"  {line[:400]}")
     if proc.returncode != 0:
         print(proc.stdout[-4000:])
         raise SystemExit(f"{tree}: exit {proc.returncode}")
     line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")]
-    return json.loads(line[-1][len("RESULT "):])
+    res = json.loads(line[-1][len("RESULT "):])
+    # a profiled step's device ms and kernels 12 + 13's share of it, from
+    # phase 22's line (a parent's phase prints them without returning them)
+    found = re.search(r"\[train-long\].*?device(?:_ms=| )([\d.]+).*?"
+                      r"kernels 12 \+ 13(?: with delta)? ([\d.]+) ms",
+                      proc.stdout)
+    if found:
+        res["train_device_ms"] = float(found.group(1))
+        res["train_k12_k13_ms"] = float(found.group(2))
+    return res
 
 
 def main() -> int:

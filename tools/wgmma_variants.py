@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Variants of the wgmma bodies of kernels 11 and 6, timed on one card.
+"""Variants of the wgmma bodies of kernels 11, 6, 12 and 13, timed on one
+card.
 
-    python tools/wgmma_variants.py [--rounds 2]
+    python tools/wgmma_variants.py [--rounds 2] [--kernels 11 6 12 13]
 
 Copies ``devt_tpu_torch/ops/csrc`` once per variant under
 ``runs/wgmma_variants/`` (gitignored), edits the copy's constants as the
 variant says, builds the one library the variant touches (``flash_fwd.cu``
-for kernel 11, ``int8_matmul.cu`` for kernel 6; one nvcc each, all at once,
-the flags of ``ops/_build.py``), and times by CUDA graph replay (20 calls,
-5 replays), in ``--rounds`` rounds:
+for kernel 11, ``int8_matmul.cu`` for kernel 6, ``flash_bwd.cu`` for
+kernels 12 and 13; one nvcc each, all at once, the flags of
+``ops/_build.py``), and times by CUDA graph replay (20 calls, 5 replays),
+in ``--rounds`` rounds:
 
   * kernel 11 at (1536, 592, 64), kv_len 577, q, k, v the head views of a
     packed qkv (ViViT at image 384), against its plain version;
   * kernel 6 at (3584, 2048) x (2048, 6144) and x (2048, 2048), bf16, the
     weight codes K-major, bit for bit against its plain version; the
-    row pass and the product together, as the wrapper launches them.
+    row pass and the product together, as the wrapper launches them;
+  * kernels 12 (delta and dq) and 13 (dk and dv) at kernel 11's shape, on
+    the forward's o and lse, against the plain backward (the error in bf16
+    ulps of each tensor's largest element).
 
 Kernel 11's variants: as built (one consumer warpgroup of 64 query rows
 a CTA, three CTAs an SM, a two-stage ring); two CTAs an SM (the register
@@ -25,10 +30,15 @@ or three warpgroups; O rescaled at the first tile too (where it is zero:
 the body skips it, which leaves ptxas no spill); and two ablations whose
 output is wrong on purpose: no V loads (half the bytes from L2) and no
 exponentials.  Kernel 6's: as built (128 x 256 tiles, a CTA a tile) and a
-persistent grid of one CTA an SM.  Prints the card's name and power limit, ptxas' registers and spills
+persistent grid of one CTA an SM.  Kernel 12's: as built (64-key tiles,
+three CTAs an SM, two stages), 128-key tiles at two CTAs an SM, and three
+stages.  Kernel 13's: as built (64-query tiles, two CTAs an SM, two
+stages), 32-query tiles at three CTAs an SM, and three stages.  Prints the card's
+name and power limit, ptxas' registers, spills and wgmma notes (C75xx)
 per variant, one line per variant and round, and a line per sustained
-run: kernels 11 and 6 as built and their library calls, each replayed for
-about a second while nvidia-smi samples the SM clock and the power draw.
+run: the selected kernels as built and their library calls, each
+replayed for about a second while nvidia-smi samples the SM clock and the
+power draw.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ OUT = ROOT / "runs" / "wgmma_variants"
 
 FLASH = "flash_fwd_sm90.cuh"
 GEMM = "gemm_s8_sm90.cuh"
+BWD = "flash_bwd_sm90.cuh"
 WG = "constexpr int kOnlineWG = 1;"
 STAGES = "constexpr int kOnlineStages = 2;"
 GROUPS = "constexpr int kOnlineGroups = 1;"
@@ -62,6 +73,12 @@ RESCALE_FROM_TILE_2 = (
     "        if (j > 0) {  // O is zero before the first tile\n"
     "#pragma unroll\n  " + RESCALE_EACH + "        }\n")
 PERSIST = "constexpr bool kS8Persistent = false;"
+DQ_KEYS = "constexpr int kBwdDqKeys = 64;"
+DQ_CTAS = "constexpr int kBwdDqCTAs = 3;"
+DKV_QUERIES = "constexpr int kBwdDkvQueries = 64;"
+DKV_CTAS = "constexpr int kBwdDkvCTAs = 2;"
+DQ_STAGES = "constexpr int kBwdDqStages = 2;"
+DKV_STAGES = "constexpr int kBwdDkvStages = 2;"
 # (kernel, name): [(header, old, new), ...]
 VARIANTS = {
     (11, "as built"): [],
@@ -92,16 +109,33 @@ VARIANTS = {
     (6, "as built"): [],
     (6, "persistent grid (one CTA an SM)"): [
         (GEMM, PERSIST, "constexpr bool kS8Persistent = true;")],
+    (12, "as built"): [],
+    (12, "128-key tiles, two CTAs an SM"): [
+        (BWD, DQ_KEYS, "constexpr int kBwdDqKeys = 128;"),
+        (BWD, DQ_CTAS, "constexpr int kBwdDqCTAs = 2;")],
+    (12, "three stages"): [
+        (BWD, DQ_STAGES, "constexpr int kBwdDqStages = 3;")],
+    (13, "as built"): [],
+    (13, "32-query tiles, three CTAs an SM"): [
+        (BWD, DKV_QUERIES, "constexpr int kBwdDkvQueries = 32;"),
+        (BWD, DKV_CTAS, "constexpr int kBwdDkvCTAs = 3;")],
+    (13, "three stages"): [
+        (BWD, DKV_STAGES, "constexpr int kBwdDkvStages = 3;")],
 }
-STEM = {11: "flash_fwd", 6: "int8_matmul"}
+STEM = {11: "flash_fwd", 6: "int8_matmul", 12: "flash_bwd", 13: "flash_bwd"}
+PTXAS = {11: r"flash_fwd_wgmmaILi(\d+)E", 6: r"gemm_s8_wgmmaI(\w+?)EEv",
+         12: r"flash_bwd_dq_wgmmaILi(\d+)E",
+         13: r"flash_bwd_dkv_wgmmaILi(\d+)E"}
 
 
-def build() -> dict:
+def build(kernels) -> dict:
     from devt_tpu_torch.ops import _build
 
     shutil.rmtree(OUT, ignore_errors=True)
     procs = []
     for i, ((kernel, name), edits) in enumerate(VARIANTS.items()):
+        if kernel not in kernels:
+            continue
         d = OUT / str(i)
         shutil.copytree(CSRC, d)
         for header, old, new in edits:
@@ -141,7 +175,9 @@ def ptxas(log: str, pattern: str) -> str:
             rows.append(f"<{name.group(1)}> {found.group(1)} regs {spill} "
                         f"spill bytes")
             name = None
-    return "; ".join(rows) + f"; C7511 warnings {log.count('C7511')}"
+    codes = sorted(set(re.findall(r"C75\d\d", log)))
+    return "; ".join(rows) + "; wgmma notes " + (
+        ", ".join(f"{c} x{log.count(c)}" for c in codes) or "none")
 
 
 def main() -> int:
@@ -153,17 +189,17 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", type=int, nargs="+", default=[11, 6, 12, 13],
+                    choices=[11, 6, 12, 13])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("wgmma_variants: needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {_nvidia_smi()}", flush=True)
-    logs = build()
+    logs = build(args.kernels)
     for (kernel, name), log in logs.items():
-        pattern = (r"flash_fwd_wgmmaILi(\d+)E" if kernel == 11
-                   else r"gemm_s8_wgmmaI(\w+?)EEv")
-        print(f"[ptxas] kernel {kernel} {name}: {ptxas(log, pattern)}",
-              flush=True)
+        print(f"[ptxas] kernel {kernel} {name}: "
+              f"{ptxas(log, PTXAS[kernel])}", flush=True)
     stream = lambda: ctypes.c_void_p(  # noqa: E731
         torch.cuda.current_stream().cuda_stream)
 
@@ -203,19 +239,56 @@ def main() -> int:
         assert rc == 0, rc
         return out
 
+    # kernels 12 and 13 on the forward's o and lse, against the plain
+    # backward; 13 reads the delta that the as-built kernel 12 writes
+    do = torch.randn(512, 3, 592, 64, generator=gen).to(torch.bfloat16).cuda()
+    fo, flse = tfa.flash_attention(q, k, v, kv_len=577, return_lse=True)
+    want_bwd = tfa.flash_blocked_bwd_plain(q, k, v, fo, flse, do, 0.125, 577)
+    largest = [w.float().abs().max().item() for w in want_bwd]
+    grads = {n: torch.empty(q.shape, dtype=q.dtype, device="cuda")
+             for n in ("dq", "dk", "dv")}
+    delta = torch.empty(1536, 592, device="cuda")
+
+    def bwd(lib, part):
+        rc = lib.devt_flash_blocked_bwd(
+            1, part, q.data_ptr(), k.data_ptr(), v.data_ptr(), fo.data_ptr(),
+            do.data_ptr(), flse.data_ptr(), delta.data_ptr(),
+            grads["dq"].data_ptr(), grads["dk"].data_ptr(),
+            grads["dv"].data_ptr(), 512, 3, 592, 592, 64, 577, strides,
+            ctypes.c_float(0.125), stream())
+        assert rc == 0, rc
+
+    def ulps(names):
+        cells = []
+        for i, n in enumerate(("dq", "dk", "dv")):
+            if n in names:
+                err = (grads[n].float() - want_bwd[i].float()).abs().max()
+                cells.append(f"{n} {err.item() / (2.0 ** -8 * largest[i]):.2f}")
+        return ", ".join(cells)
+
+    def lib_of(i, kernel):
+        lib = ctypes.CDLL(str(OUT / str(i) / f"{STEM[kernel]}.so"))
+        {11: tfa._declare_flash_fwd, 6: tq._declare_matmul,
+         12: tfa._declare_flash_bwd, 13: tfa._declare_flash_bwd}[kernel](lib)
+        return lib
+
+    built = {kern: lib_of(i, kern) for i, (kern, name) in enumerate(VARIANTS)
+             if name == "as built" and kern in args.kernels}
+    if 13 in args.kernels:
+        bwd(built.get(12) or built[13], 1)     # the delta kernel 13 reads
     for rnd in range(args.rounds):
         for i, (kernel, name) in enumerate(VARIANTS):
-            lib = ctypes.CDLL(str(OUT / str(i) / f"{STEM[kernel]}.so"))
+            if kernel not in args.kernels:
+                continue
+            lib = lib_of(i, kernel)
             if kernel == 11:
-                tfa._declare_flash_fwd(lib)
                 o, lse = k11(lib)
                 err = max((g.float() - w.float()).abs().max().item()
                           for g, w in zip((o, lse), want11))
                 t = _graph_ms(lambda: k11(lib))
                 print(f"[round {rnd}] kernel 11 {name}: {t:.4f} ms (max abs "
                       f"err {err:.3e})", flush=True)
-            else:
-                tq._declare_matmul(lib)
+            elif kernel == 6:
                 cells = []
                 for n in (6144, 2048):
                     same = torch.equal(k6(lib, n), weights[n][2])
@@ -224,23 +297,47 @@ def main() -> int:
                                  f"({'bit-equal' if same else 'DIFFERS'})")
                 print(f"[round {rnd}] kernel 6 {name}: " + ", ".join(cells),
                       flush=True)
+            else:
+                part = 1 if kernel == 12 else 2
+                bwd(lib, part)
+                torch.cuda.synchronize()
+                err = ulps(("dq",) if part == 1 else ("dk", "dv"))
+                t = _graph_ms(lambda: bwd(lib, part))
+                print(f"[round {rnd}] kernel {kernel} {name}: {t:.4f} ms "
+                      f"(error in bf16 ulps of the largest element: {err})",
+                      flush=True)
 
     # sustained: each as built and its library call replayed for about a
     # second while nvidia-smi samples the SM clock and the power draw
     import torch.nn.functional as F
 
-    built = {k: ctypes.CDLL(str(OUT / str(i) / f"{STEM[k]}.so"))
-             for i, (k, name) in enumerate(VARIANTS) if name == "as built"}
-    tfa._declare_flash_fwd(built[11])
-    tq._declare_matmul(built[6])
-    w_bf = (weights[6144][0].t().float() * weights[6144][1].reshape(-1, 1)
-            ).to(torch.bfloat16)                    # (N, K), F.linear's
-    cases = (("kernel 11", lambda: k11(built[11])),
-             ("SDPA at kernel 11's shape",
-              lambda: F.scaled_dot_product_attention(
-                  q, k[:, :, :577], v[:, :, :577], scale=0.125)),
-             ("kernel 6 at N=6144", lambda: k6(built[6], 6144)),
-             ("F.linear bf16 at N=6144", lambda: F.linear(x, w_bf)))
+    cases = []
+    if 11 in args.kernels:
+        cases += [("kernel 11", lambda: k11(built[11])),
+                  ("SDPA at kernel 11's shape",
+                   lambda: F.scaled_dot_product_attention(
+                       q, k[:, :, :577], v[:, :, :577], scale=0.125))]
+    if 6 in args.kernels:
+        w_bf = (weights[6144][0].t().float()
+                * weights[6144][1].reshape(-1, 1)).to(torch.bfloat16)  # (N, K)
+        cases += [("kernel 6 at N=6144", lambda: k6(built[6], 6144)),
+                  ("F.linear bf16 at N=6144", lambda: F.linear(x, w_bf))]
+    if 12 in args.kernels:
+        cases.append(("kernel 12", lambda: bwd(built[12], 1)))
+    if 13 in args.kernels:
+        cases.append(("kernel 13", lambda: bwd(built[13], 2)))
+    if 12 in args.kernels or 13 in args.kernels:
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                out = F.scaled_dot_product_attention(
+                    leaves[0], leaves[1][:, :, :577], leaves[2][:, :, :577],
+                    scale=0.125)
+                torch.autograd.grad(out, leaves, do)
+
+        cases.append(("SDPA forward + backward at kernel 12's shape",
+                      sdpa_fwd_bwd))
     with torch.no_grad():
         for name, fn in cases:
             smi = subprocess.Popen(
