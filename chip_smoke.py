@@ -12,7 +12,8 @@ Phases, each printing a line of its own; any failure exits non-zero:
                (512 sequences, 208 tokens, dim 192, kv_len 197), bf16 and
                f32, held against its plain PyTorch version on the card;
                times of the kernel, the plain version and one
-               nn.TransformerEncoderLayer (a yardstick only), and the bound.
+               nn.TransformerEncoderLayer (a yardstick only; all three by
+               CUDA events around eager calls), and the bound.
   4. serve   — ViViT at full width (224², patch 16, 16 frames, dim 192,
                depth 4, 3 heads, MLP 768, 19 classes, bf16, seeded weights)
                behind Predictor(buckets=(1, 8, 32)) on 37 uint8 clips; checks
@@ -48,8 +49,9 @@ Phases, each printing a line of its own; any failure exits non-zero:
  10. kernel-mha — the packed-qkv attention at PTN's shape (256, 16, 6144),
                8 heads of 256, kv_len 14, and at the ViT shape
                (512, 208, 576), 3 heads of 64, kv_len 197, bf16 and f32: o
-               and lse against the plain version;
-               F.scaled_dot_product_attention as a yardstick.
+               and lse against the plain version; the kernel's and
+               F.scaled_dot_product_attention's times by CUDA graph
+               replay, the plain version's by CUDA events.
  11. serve-int8 — the ViViT of phase 4 behind Predictor(quantize=True):
                4 int8-block launches per bucket call and none of the bf16
                block, scores against the same quantized model on the CPU
@@ -82,20 +84,27 @@ Phases, each printing a line of its own; any failure exits non-zero:
  15. kernel-attn-half — the attention half of the MoE block at the shape
                of phase 3, bf16 and f32: kernel 7 (u and the residual lanes)
                and kernel 8 (dx and the 5 gradients, two runs bit for bit)
-               against their plain versions; times of the kernels, the plain
-               versions and the half composed of library calls (forward,
-               and its autograd, by CUDA graph: the kernels line carries
-               them as composed_ms), the bounds.
+               against their plain versions; the body of kernel 7's
+               attention launch (bf16: the one-shot wgmma body of
+               flash_fwd_sm90.cuh, normalising after P V, where
+               attn_half_on_wgmma says; f32: attention_fwd.cuh's) and
+               ptxas' report of its instances; times of the kernels and
+               the half composed of library calls (forward, and its
+               autograd: the kernels line carries them as composed_ms),
+               all by CUDA graph, of the plain versions by CUDA events;
+               kernel 7's three launches apart (profiler); the bounds.
  16. serve-moe — MoE-ViViT at full width (bench.py:1188: E=4, every second
                space block's FFN a switch MoE, bf16) behind
                Predictor(buckets=(1, 8, 32)) on 37 u8 clips: 2 launches of
-               kernels 1 and 7 per bucket call; 2 clips against the CPU in
+               kernels 1 and 7 per bucket call, every kernel-7 launch on
+               the wgmma body; 2 clips against the CPU in
                bf16 (scores, and the share of tokens routed apart) and f32
                (the same expert for every token); quantize=True (2 launches
                of kernels 5 and 7); clips/s and a profile.
  17. train-moe — the same MoE-ViViT, batch 32, bf16, AdamW 1e-4:
                make_train_step and make_multi_step(8) at dropout 0 (2
-               launches each of kernels 1, 2, 7 and 8 per step), a falling
+               launches each of kernels 1, 2, 7 and 8 per step, kernel 7's
+               all on the wgmma body), a falling
                loss with the load-balance term in it, one f32 step's
                gradients on 2 clips against the CPU with identical routing;
                clips/s as the best of 3 windows, the host's share and a
@@ -121,7 +130,11 @@ Phases, each printing a line of its own; any failure exits non-zero:
                bf16 and f32, through flash_attention and autograd against
                the plain backward on the forward's (o, lse), two runs bit
                for bit; the public op forward and backward (one launch of
-               kernels 9 and 10); SDPA's backward as the yardstick.
+               kernels 9 and 10); which body kernel 10 ran (bf16 at head
+               dim 64: kernels 12's and 13's wgmma bodies, flash_bwd_sm90.cuh,
+               where blocked_bwd_on_wgmma says; f32 and head dim 256:
+               attention_bwd.cuh's); the kernel's and SDPA's backward's
+               times by CUDA graph, the plain version's by CUDA events.
  20. eval-long — ViViT at image 384 (577 space tokens; dim 192, depth 4,
                3 heads, bf16, seeded weights) through make_eval_step at
                batch 32: 4 launches of kernel 11 per step, all on its wgmma
@@ -250,8 +263,12 @@ PTN_GRAD_RTOL = 1e-3
 # its training also at dropout 0.5, config.yaml's rate
 MOE_EXPERTS, MOE_EVERY, MOE_DROPOUT = 4, 2, 0.5
 # the fused blocks' and attention halves' sub-kernels, as the profiler
-# names them (kernels 1 and 7, and 2 and 8, share most of their launches)
-BLOCK_KERNELS = FWD_KERNELS + BWD_KERNELS + ("out_proj_bf16",)
+# names them (kernels 1 and 7, and 2 and 8, share most of their launches;
+# kernel 7's attention at the MoE shape is the one-shot body's
+# normalise-after instance, which no other kernel launches)
+HALF_ATTENTION = "flash_one_shot<64, 208, false, true>"
+BLOCK_KERNELS = FWD_KERNELS + BWD_KERNELS + ("out_proj_bf16",
+                                             HALF_ATTENTION)
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -994,7 +1011,10 @@ def phase_mha(kind: str, b: int, s: int, heads: int, d: int,
         _check_close(f"mha {kind} lse", lse, want_lse, *LSE_TOL)
         errs = (_max_err(o, want_o), _max_err(lse, want_lse))
         del want_o, want_lse
-        kernel_ms = _time_ms(run)
+        # the kernel and SDPA by CUDA graph replay (at PTN's 256 rows a
+        # launch takes about as long on the card as its wrapper on the
+        # host); the plain version by events around eager calls
+        kernel_ms = _graph_ms(run)
         plain_ms = _time_ms(
             lambda: tfa.fused_mha_plain(qkv, heads, scale, kv_len), iters=3,
             warmup=1)
@@ -1006,7 +1026,7 @@ def phase_mha(kind: str, b: int, s: int, heads: int, d: int,
                 q, k[:, :, :kv_len], v[:, :, :kv_len], scale=scale)
             return out.transpose(1, 2).reshape(b, s, heads * d)
 
-        library_ms = _time_ms(sdpa)
+        library_ms = _graph_ms(sdpa)
     item = qkv.element_size()
     flops = 4 * b * heads * s * kv_len * d
     bytes_ = qkv.numel() * item + b * s * heads * d * item + b * s * heads * 4
@@ -1015,9 +1035,10 @@ def phase_mha(kind: str, b: int, s: int, heads: int, d: int,
           f"{heads} heads of {d}, kv_len {kv_len}: max_abs_err o="
           f"{errs[0]:.3e} (atol {TOL[kind][0]}, rtol {TOL[kind][1]}) lse="
           f"{errs[1]:.3e} (atol {LSE_TOL[0]}, rtol {LSE_TOL[1]}) | "
-          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-          f"{library_ms:.4f} (F.scaled_dot_product_attention) "
-          f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+          f"kernel_ms={kernel_ms:.4f} library_ms={library_ms:.4f} "
+          f"(F.scaled_dot_product_attention; both CUDA graph) plain_ms="
+          f"{plain_ms:.4f} (CUDA events, eager) bound_ms={bound_ms:.4f} "
+          f"({bound_by})", flush=True)
     return {"max_abs_err": max(errs), "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1671,7 +1692,13 @@ def phase_kernel_attn_half(kind: str) -> tuple[dict, dict]:
     slow = kind == "f32"
     tag = f"attn-half {kind} ({B},{S},{D})"
     with torch.no_grad():
+        before = _body_counts()
         u, res = fb.fused_attn_half(x, params, HEADS, scale, KV_LEN)
+        body = {k: n - before[k] for k, n in _body_counts().items()}
+        want_wgmma = fb.attn_half_on_wgmma(dtype, D // HEADS, KV_LEN)
+        if body != {**dict.fromkeys(body, 0), "k7_wgmma": int(want_wgmma),
+                    "k7_streamed": int(not want_wgmma)}:
+            raise AssertionError(f"{tag}: kernel 7 launches by body {body}")
         want_u, want_res = fb.fused_attn_half_fwd_plain(x, params, HEADS,
                                                         scale, KV_LEN)
         torch.cuda.synchronize()
@@ -1700,10 +1727,10 @@ def phase_kernel_attn_half(kind: str) -> tuple[dict, dict]:
 
         run_fwd = lambda: fb.fused_attn_half(x, params, HEADS, scale,  # noqa: E731
                                              KV_LEN)
-        fwd_ms = _time_ms(run_fwd, iters=3 if slow else 20,
-                          warmup=1 if slow else 3)
-        bwd_ms = _time_ms(run_bwd, iters=3 if slow else 20,
-                          warmup=1 if slow else 3)
+        # the kernels by CUDA graph replay, as their yardstick below; the
+        # plain versions by events around eager calls
+        fwd_ms = _graph_ms(run_fwd, n=5 if slow else 20)
+        bwd_ms = _graph_ms(run_bwd, n=5 if slow else 20)
         fwd_plain_ms = _time_ms(
             lambda: fb.fused_attn_half_fwd_plain(x, params, HEADS, scale,
                                                  KV_LEN), iters=3, warmup=1)
@@ -1712,8 +1739,10 @@ def phase_kernel_attn_half(kind: str) -> tuple[dict, dict]:
                                                  scale, KV_LEN),
             iters=2, warmup=1)
         if not slow:
+            # kernel 7's three launches apart (the fullest of three
+            # readings: the profiler drops events now and then)
             _print_profile(f"fused_attn_half forward {kind}",
-                           *_device_profile(run_fwd), top=4)
+                           *_traced(run_fwd), top=4)
             _print_profile(f"fused_attn_half backward {kind}",
                            *_device_profile(run_bwd), top=8)
 
@@ -1736,8 +1765,12 @@ def phase_kernel_attn_half(kind: str) -> tuple[dict, dict]:
     bwd = {"dtype": kind, "max_abs_err": bwd_err, "kernel_ms": bwd_ms,
            "plain_ms": bwd_plain_ms, "library_ms": None,
            "composed_ms": lib_bwd_ms, "bound_ms": bb_ms, "bound_by": bb_by}
+    where = ("the wgmma one-shot body (flash_fwd_sm90.cuh, normalising "
+             "after P V)" if want_wgmma else "attention_fwd.cuh's body")
+    ptxas = f" | {_ptxas('attn_half', ONE_SHOT)}" if want_wgmma else ""
     print(f"[kernel-attn-half] fused_attn_half {kind} ({B},{S},{D}) kv_len "
-          f"{KV_LEN}: kernel 7 u and res against the plain version, max abs "
+          f"{KV_LEN}: kernel 7's attention launch on {where}; "
+          f"kernel 7 u and res against the plain version, max abs "
           f"err {fwd_err:.3e} (atol {TOL[kind][0]} rtol {TOL[kind][1]}); "
           f"kernel 8 dx and 5 grads within "
           f"{BWD_ULPS[kind]} ulps of the largest element, max abs err "
@@ -1746,11 +1779,12 @@ def phase_kernel_attn_half(kind: str) -> tuple[dict, dict]:
           f"plain_ms={fwd_plain_ms:.4f} composed_ms={lib_fwd_ms:.4f} "
           f"bound_ms={fb_ms:.4f} ({fb_by}) | backward kernel_ms="
           f"{bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} composed_ms="
-          f"{lib_bwd_ms:.4f} bound_ms={bb_ms:.4f} ({bb_by}) | composed: the "
-          f"half composed of library calls (layer_norm, linear, "
-          f"scaled_dot_product_attention over the live keys, linear, "
-          f"residual), device time in CUDA graphs; backward = forward + "
-          f"backward {lib_fwd_bwd_ms:.4f} less forward", flush=True)
+          f"{lib_bwd_ms:.4f} bound_ms={bb_ms:.4f} ({bb_by}) | kernels and "
+          f"composed: device time in CUDA graphs, plain: CUDA events around "
+          f"eager calls; composed: the half composed of library calls "
+          f"(layer_norm, linear, scaled_dot_product_attention over the live "
+          f"keys, linear, residual); backward = forward + backward "
+          f"{lib_fwd_bwd_ms:.4f} less forward{ptxas}", flush=True)
     return fwd, bwd
 
 
@@ -1826,10 +1860,13 @@ def _zero_counts() -> None:
 
     for fn in (fb.fused_vit_block, tfa.fused_mha, fb.fused_attn_half):
         fn.launches = fn.bwd_launches = 0
+    half = fb.fused_attn_half
+    half.wgmma_launches = half.streamed_launches = 0
     tq.quant_fused_vit_block.launches = 0
     fa = tfa.flash_attention
     fa.single_launches = fa.single_bwd_launches = fa.blocked_launches = 0
     fa.single_wgmma_launches = fa.single_streamed_launches = 0
+    fa.single_bwd_wgmma_launches = fa.single_bwd_streamed_launches = 0
     fa.blocked_dq_launches = fa.blocked_dkv_launches = 0
     fa.blocked_dq_wgmma_launches = fa.blocked_dq_streamed_launches = 0
     fa.blocked_dkv_wgmma_launches = fa.blocked_dkv_streamed_launches = 0
@@ -1843,18 +1880,25 @@ def _zero_counts() -> None:
 def _body_counts() -> dict:
     """Launches by body of the kernels that have two: 9 and 14 (the wgmma
     one-shot body of csrc/flash_fwd_sm90.cuh, or the streamed one of
-    csrc/flash_fwd.cuh), 11 (the wgmma online body of
-    csrc/flash_fwd_sm90.cuh, or flash_fwd.cuh's), 12 and 13 (the wgmma
-    bodies of csrc/flash_bwd_sm90.cuh, or attention_bwd.cuh's streamed
-    one) and 6 (the wgmma product of csrc/gemm_s8_sm90.cuh, or
+    csrc/flash_fwd.cuh), 7 (its attention launch on the one-shot body's
+    normalise-after instance, or attention_fwd.cuh's), 11 (the wgmma
+    online body of csrc/flash_fwd_sm90.cuh, or flash_fwd.cuh's), 12 and
+    13 (the wgmma bodies of csrc/flash_bwd_sm90.cuh, or attention_bwd.cuh's
+    streamed one), 10 (both of those wgmma bodies, or the streamed one)
+    and 6 (the wgmma product of csrc/gemm_s8_sm90.cuh, or
     int8_common.cuh's mma.sync one)."""
     from devt_tpu_torch.ops import flash_attention as tfa
+    from devt_tpu_torch.ops import fused_block as fb
     from devt_tpu_torch.ops import quant as tq
 
     fa, ring = tfa.flash_attention, tfa.ring_step_fwd
-    mm = tq.int8_matmul_fused
-    return {"k9_wgmma": fa.single_wgmma_launches,
+    mm, half = tq.int8_matmul_fused, fb.fused_attn_half
+    return {"k7_wgmma": half.wgmma_launches,
+            "k7_streamed": half.streamed_launches,
+            "k9_wgmma": fa.single_wgmma_launches,
             "k9_streamed": fa.single_streamed_launches,
+            "k10_wgmma": fa.single_bwd_wgmma_launches,
+            "k10_streamed": fa.single_bwd_streamed_launches,
             "k11_wgmma": fa.blocked_wgmma_launches,
             "k11_streamed": fa.blocked_streamed_launches,
             "k12_wgmma": fa.blocked_dq_wgmma_launches,
@@ -1868,8 +1912,10 @@ def _body_counts() -> dict:
 
 
 # the wgmma bodies as ptxas names them, with their template arguments
+# (the one-shot body's last: normalise after P V, kernel 7's instances)
+ONE_SHOT = "flash_one_shot<d, width, mask, norm_after>"
 WGMMA_BODIES = {
-    "flash_one_shot<d, width, mask>": r"flash_one_shotILi(\d+)ELi(\d+)ELb(\d)E",
+    ONE_SHOT: r"flash_one_shotILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
     "flash_fwd_wgmma<d>": r"flash_fwd_wgmmaILi(\d+)E",
     "flash_bwd_dq_wgmma<d>": r"flash_bwd_dq_wgmmaILi(\d+)E",
     "flash_bwd_dkv_wgmma<d>": r"flash_bwd_dkv_wgmmaILi(\d+)E",
@@ -1944,11 +1990,13 @@ def phase_serve_moe() -> dict:
     bucket_calls = 2                       # 37 clips = bucket 32 + bucket 8
     _zero_counts()
     out = pred.predict({"vid": clips})
-    counts = _kernel_counts()
+    counts, body = _kernel_counts(), _body_counts()
     expect = _expect(k1=n_dense * bucket_calls, k7=n_moe * bucket_calls)
-    if counts != expect:
-        raise AssertionError(f"serve-moe: launches {counts}, expected "
-                             f"{expect}")
+    if counts != expect or body["k7_wgmma"] != expect["k7"] \
+            or body["k7_streamed"]:
+        raise AssertionError(f"serve-moe: launches {counts}, by body "
+                             f"{body}, expected {expect}, every launch of "
+                             f"kernel 7 on the wgmma body")
     scores = out["scores"]
     if scores.shape != (37, cfg.n_classes) or not np.isfinite(scores).all() \
             or scores.min() < 0.0 or scores.max() > 1.0:
@@ -1997,11 +2045,13 @@ def phase_serve_moe() -> dict:
     qpred = Predictor(cfg, weights, buckets=(1, 8, 32), quantize=True)
     _zero_counts()
     qpred.predict(batch)
-    qcounts = _kernel_counts()
+    qcounts, qbody = _kernel_counts(), _body_counts()
     qexpect = dict(expect, k1=0, k5=n_dense, k7=n_moe)
-    if qcounts != qexpect:
+    if qcounts != qexpect or qbody["k7_wgmma"] != n_moe \
+            or qbody["k7_streamed"]:
         raise AssertionError(f"serve-moe int8: launches {qcounts} in one "
-                             f"bucket call, expected {qexpect}")
+                             f"bucket call, by body {qbody}, expected "
+                             f"{qexpect}, kernel 7's on the wgmma body")
     qpred.predict(batch)
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -2014,7 +2064,8 @@ def phase_serve_moe() -> dict:
     print(f"[serve-moe] MoE-ViViT (E={MOE_EXPERTS}, moe_every={MOE_EVERY}) "
           f"bf16 Predictor(buckets=(1, 8, 32)) on 37 u8 clips: launches "
           f"{counts['k1']} of kernel 1 and {counts['k7']} of kernel 7 "
-          f"({n_dense} and {n_moe} per bucket call x {bucket_calls}), none "
+          f"({n_dense} and {n_moe} per bucket call x {bucket_calls}; "
+          f"{body['k7_wgmma']} of kernel 7 on the wgmma body), none "
           f"of kernels 3 or 8; card vs CPU on 2 clips: max abs score err "
           f"{score_err:.3e} (atol {SCORE_ATOL}), {bf16_gap:.4%} of the live "
           f"tokens routed to another expert in bf16; in f32 {f32_gap:.4%} "
@@ -2122,13 +2173,15 @@ def phase_train_moe() -> dict:
     state, first = step(state, batch, SEED)
     state, metrics = multi(state, stacked, SEED)
     torch.cuda.synchronize()
-    counts = _kernel_counts()
+    counts, body = _kernel_counts(), _body_counts()
     steps = 1 + MULTI_STEPS
     expect = _expect(k1=n_dense * steps, k2=n_dense * steps,
                      k7=n_moe * steps, k8=n_moe * steps)
-    if counts != expect:
+    if counts != expect or body["k7_wgmma"] != expect["k7"] \
+            or body["k7_streamed"]:
         raise AssertionError(f"train-moe: launches {counts} in {steps} "
-                             f"steps, expected {expect}")
+                             f"steps, by body {body}, expected {expect}, "
+                             f"every launch of kernel 7 on the wgmma body")
     loss_after = evaluate(state, batch)[0].item()
     aux = (first["moe_aux"].item(), metrics["moe_aux"].item())
     losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
@@ -2167,7 +2220,8 @@ def phase_train_moe() -> dict:
           f"E={MOE_EXPERTS}, moe_every={MOE_EVERY}, dropout 0): {steps} steps "
           f"(1 + make_multi_step({MULTI_STEPS})), launches {counts} "
           f"({n_dense} of kernels 1 and 2 and {n_moe} of kernels 7 and 8 per "
-          f"step); loss on the fixed batch {loss_before:.5f} -> "
+          f"step; {body['k7_wgmma']} of kernel 7 on the wgmma body); loss "
+          f"on the fixed batch {loss_before:.5f} -> "
           f"{loss_after:.5f}, moe_aux {aux[0]:.5f} -> {aux[1]:.5f}; "
           f"{grad_text} | {clips_per_s:.2f} clips/s, step_ms={step_ms:.3f}, "
           f"of which the host needs {host_ms:.3f} ms to enqueue a step; "
@@ -2304,7 +2358,7 @@ def phase_flash(kind: str, b: int, heads: int, sq: int, skv: int, d: int,
     if single:
         want_wgmma = tfa.one_shot_on_wgmma(dtype, d, kv_len)
         key = "k9"
-        ptxas_body = "flash_one_shot<d, width, mask>" if want_wgmma else None
+        ptxas_body = ONE_SHOT if want_wgmma else None
     else:
         want_wgmma = tfa.online_on_wgmma(dtype, d)
         key = "k11"
@@ -2381,9 +2435,17 @@ def phase_flash_bwd(kind: str, b: int, heads: int, s: int, d: int,
         out = scaled_dot_product_attention(*leaves, kv_len=kv_len)
         torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    counts = _kernel_counts()
+    counts, body = _kernel_counts(), _body_counts()
     if counts != _expect(k9=1, k10=1):
         raise AssertionError(f"{tag}: the op launched {counts}")
+    # the bodies the rules name: kernel 10 on kernels 12's and 13's wgmma
+    # bodies where blocked_bwd_on_wgmma says
+    w9 = int(tfa.one_shot_on_wgmma(dtype, d, kv_len))
+    w10 = int(tfa.blocked_bwd_on_wgmma(dtype, d))
+    if body != {**dict.fromkeys(body, 0), "k9_wgmma": w9,
+                "k9_streamed": 1 - w9, "k10_wgmma": w10,
+                "k10_streamed": 1 - w10}:
+        raise AssertionError(f"{tag}: launches by body {body}")
     del out, leaves
 
     with torch.no_grad():
@@ -2405,7 +2467,9 @@ def phase_flash_bwd(kind: str, b: int, heads: int, s: int, d: int,
         if not all(torch.equal(a, c) for a, c in zip(got, again)):
             raise AssertionError(f"{tag}: two runs differ in their bits")
         del want, again
-        kernel_ms = _time_ms(lambda: tfa._flash_bwd_cuda(
+        # the kernel by CUDA graph replay, as SDPA's backward below; the
+        # plain version by events around eager calls
+        kernel_ms = _graph_ms(lambda: tfa._flash_bwd_cuda(
             q, k, v, o, lse, do, scale, kv_len))
         plain_ms = _time_ms(lambda: tfa.flash_single_bwd_plain(
             q, k, v, o, lse, do, scale, kv_len), iters=3, warmup=1)
@@ -2420,9 +2484,13 @@ def phase_flash_bwd(kind: str, b: int, heads: int, s: int, d: int,
           f"the largest element, max_abs_err={worst:.3e} ({worst_rel:.3e} "
           f"of its tensor's largest element), two runs bit-equal | the "
           f"public op forward and backward: launches {counts['k9']} of "
-          f"kernel 9 and {counts['k10']} of kernel 10 | kernel_ms="
-          f"{kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-          f"{library_ms:.4f} (device time, CUDA graph, of "
+          f"kernel 9 and {counts['k10']} of kernel 10, kernel 10 on "
+          + ("kernels 12's and 13's wgmma bodies (flash_bwd_sm90.cuh)"
+             if w10 else "attention_bwd.cuh's streamed body")
+          + f" | kernel_ms="
+          f"{kernel_ms:.4f} (CUDA graph) plain_ms={plain_ms:.4f} (CUDA "
+          f"events, eager) library_ms={library_ms:.4f} (device time, CUDA "
+          f"graph, of "
           f"F.scaled_dot_product_attention through autograd: forward + "
           f"backward {fwd_bwd_ms:.4f} less forward "
           f"{fwd_bwd_ms - library_ms:.4f}) "
@@ -3150,7 +3218,7 @@ def phase_ring(kind: str) -> dict:
           f"forward + backward {both:.4f} less forward; bound_ms="
           f"{out['bwd']['bound_ms']:.4f} ({out['bwd']['bound_by']})); kernel "
           f"14 ran the {body14}; every time by CUDA graph replay"
-          + (f"; {_ptxas('ring_step', 'flash_one_shot<d, width, mask>')}"
+          + (f"; {_ptxas('ring_step', ONE_SHOT)}"
              if want_wgmma else "")
           + f" | hop "
           f"by hop, {HOP_SHARDS} chunks of {HOP_S // HOP_SHARDS} of a "
@@ -3314,17 +3382,21 @@ def main() -> int:
               "devt_tpu/ops/quant.py:348", ptn["matmul_launches"], matmul,
               int_mm_ms=matmul["int_mm_ms"]),
         # composed_ms: the half composed of library calls (no one call
-        # computes it, so library_ms stays null), by CUDA graph
-        entry(7, "fused_attn_half_fwd", csrc + "attn_half.cu",
+        # computes it, so library_ms stays null), by CUDA graph; its
+        # attention launch runs the one-shot wgmma body, its other two
+        # launches are attn_half.cu's
+        entry(7, "fused_attn_half_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/fused_block.py:556", later("k7"), half_fwd,
-              composed_ms=half_fwd["composed_ms"]),
+              composed_ms=half_fwd["composed_ms"],
+              launch_sources=[csrc + "attn_half.cu",
+                              csrc + "flash_fwd_sm90.cuh"]),
         entry(8, "fused_attn_half_bwd", csrc + "attn_half.cu",
               "devt_tpu/ops/fused_block.py:578", later("k8"), half_bwd,
               composed_ms=half_bwd["composed_ms"]),
         entry(9, "flash_single_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:390",
               int8_unfused["launches"], flash9),
-        entry(10, "flash_single_bwd", csrc + "flash_bwd.cu",
+        entry(10, "flash_single_bwd", csrc + "flash_bwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:413", flash10["launches"],
               flash10),
         entry(11, "flash_fwd", csrc + "flash_fwd_sm90.cuh",

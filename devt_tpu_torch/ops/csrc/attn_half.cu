@@ -28,11 +28,21 @@
 // kernels.
 //
 // Design.  The two TPU kernels are the first halves of the fused block's
-// (_fwd_kernel, _bwd_kernel), and so are these: the forward is launches 1
-// and 2 of fused_block_fwd.cu (LN1 + qkv per 128 rows; the attention per
-// (64 queries, head, sequence) from attention_fwd.cuh) and a third, the
-// out-projection per 64 rows with the Wo slices streamed through a
-// two-stage cp.async ring and u written from the accumulators.  The
+// (_fwd_kernel, _bwd_kernel), and so are these: the forward is launch 1 of
+// fused_block_fwd.cu (LN1 + qkv per 128 rows), the attention, and a third
+// launch, the out-projection per 64 rows with the Wo slices streamed
+// through a two-stage cp.async ring and u written from the accumulators.
+// The attention in bfloat16 with at most 256 live keys at head dim 16, 32
+// or 64 (one_shot_on_wgmma, as kernel 9's: every main-path shape) runs
+// flash_fwd_sm90.cuh's one-shot wgmma body in its normalise-after instance
+// (o = (round(p) @ v) / l, as _mha_fwd): a CTA per two 64-query tiles of a
+// (sequence, head), q, k and v loaded by TMA straight from the head views
+// of the qkv scratch (row stride 3D, head stride d, offsets 0, D, 2D: no
+// copy), the whole score row in wgmma accumulators, o into the att
+// scratch and lse into the residual lanes through strides.  Other shapes
+// (more live keys) and the float route keep the block forward's
+// attention, attention_fwd.cuh's (per 64 queries, head, sequence; the
+// scores recomputed per pass, mma.sync).  The
 // backward is fused_block_bwd.cu's launches without the FFN, from
 // block_bwd_parts.cuh: the LN1 + qkv recompute; datt = du @ Wo^T per 64
 // rows; the attention recompute and backward per (head, sequence); dqkv @
@@ -47,11 +57,12 @@
 // the forward does 2*(3 D^2 + 2 kv_len D + D^2) operations per row, 47.5
 // GFLOP, against about 85 MB of inputs and outputs (x, u, res): compute-
 // bound, about 0.048 ms at 989 TFLOP/s bf16.  The backward does 2*(11 D^2
-// + 6 kv_len D) per row, 134.7 GFLOP: about 0.136 ms.  The times are in
-// PERF.md.
+// + 6 kv_len D) per row, 134.7 GFLOP: about 0.136 ms.  The times, and the
+// forward's three launches apart, are in PERF.md.
 
 #include "attention_fwd.cuh"
 #include "block_bwd_parts.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -155,6 +166,35 @@ struct FwdArgs {
   cudaStream_t stream;
 };
 
+// forward, launch 2: the attention of every (sequence, head) from the qkv
+// scratch into att and the lse lanes of res
+template <int D, int HD>
+cudaError_t half_attention_bf16(const FwdArgs& a) {
+  const bf16* qkv = static_cast<const bf16*>(a.qkv);
+  if (!one_shot_on_wgmma(1, HD, a.kv_len))
+    return launch_attention_bf16<HD, false>(
+        qkv, static_cast<bf16*>(a.att), static_cast<float*>(a.res), a.B,
+        a.S, a.H, a.kv_len, a.lanes, a.scale, a.stream);
+  FlashFwd f{};
+  f.q = qkv;
+  f.k = qkv + D;
+  f.v = qkv + 2 * D;
+  f.o = a.att;
+  f.lse = static_cast<float*>(a.res);
+  const long long S = a.S;
+  for (int i = 0; i < 3; ++i) {
+    // (sequence, head, row) strides of the packed layouts
+    f.qs[i] = f.ks[i] = f.vs[i] = i == 0 ? S * 3 * D : i == 1 ? HD : 3 * D;
+    f.os[i] = i == 0 ? S * D : i == 1 ? HD : D;
+    f.ls[i] = i == 0 ? S * a.lanes : i == 1 ? 1 : a.lanes;
+  }
+  f.H = a.H;
+  f.Sq = f.Skv = a.S;
+  f.kv_len = a.kv_len;
+  f.scale = a.scale;
+  return launch_one_shot<false, true>(f, a.B, HD, a.stream);
+}
+
 template <int D, int HD>
 cudaError_t fwd_bf16_shape(const FwdArgs& a) {
   const int rows = a.B * a.S, N3 = 3 * D;
@@ -169,9 +209,7 @@ cudaError_t fwd_bf16_shape(const FwdArgs& a) {
       static_cast<float*>(a.res), nullptr, rows, D, N3, a.H, a.lanes);
   DEVT_TRY(cudaGetLastError());
 
-  DEVT_TRY((launch_attention_bf16<HD, false>(
-      h(a.qkv), static_cast<bf16*>(a.att), static_cast<float*>(a.res), a.B,
-      a.S, a.H, a.kv_len, a.lanes, a.scale, a.stream)));
+  DEVT_TRY((half_attention_bf16<D, HD>(a)));
 
   constexpr size_t s3 = out_proj_smem<D>();
   DEVT_TRY(set_smem(out_proj_bf16<D>, s3));
@@ -393,9 +431,12 @@ bool bad_shape(int B, int S, int D, int H, int kv_len, int lanes) {
 // Kernel 7.  dtype: 0 = float32, 1 = bfloat16.  Weight matrices are in
 // x's type and in the (K, N) layout of the JAX kernel; g1, b1, bo are f32.
 // u (B, S, D) in x's type; res (B, S, lanes) f32.  qkv (B, S, 3D) and att
-// (B, S, D) are scratch in x's type.  The bfloat16 route is compiled for
-// (D, D / H) = (192, 64) and (64, 32).  Returns the CUDA error of the
-// launches (0 on success); they are asynchronous on `stream`.
+// (B, S, D) are scratch in x's type, in bfloat16 16-byte aligned (TMA
+// reads the head views of qkv).  The bfloat16 route is compiled for
+// (D, D / H) = (192, 64) and (64, 32); its attention launch takes the
+// one-shot wgmma body where devt_attn_half_route says.  Returns the CUDA
+// error of the launches (0 on success); they are asynchronous on
+// `stream`.
 extern "C" int devt_attn_half_fwd(int dtype, const void* x, const void* g1,
                                   const void* b1, const void* wqkv,
                                   const void* wo, const void* bo, void* u,
@@ -410,6 +451,12 @@ extern "C" int devt_attn_half_fwd(int dtype, const void* x, const void* g1,
   if (D == 192 && D / H == 64) return fwd_bf16_shape<192, 64>(a);
   if (D == 64 && D / H == 32) return fwd_bf16_shape<64, 32>(a);
   return cudaErrorInvalidValue;
+}
+
+// 1 when kernel 7's attention launch of this dtype (0 float32, 1
+// bfloat16), head dim and kv_len takes flash_fwd_sm90.cuh's one-shot body
+extern "C" int devt_attn_half_route(int dtype, int d, int kv_len) {
+  return one_shot_on_wgmma(dtype, d, kv_len) ? 1 : 0;
 }
 
 // Bytes of scratch a call of devt_attn_half_bwd needs at this shape (0 for

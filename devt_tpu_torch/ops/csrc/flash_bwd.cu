@@ -16,8 +16,9 @@
 // (B, H, Sq, d), dk and dv (B, H, Skv, d) contiguous in q's type.
 //
 //   devt_flash_bwd          kernel 10, devt_tpu/ops/flash_attention.py:413
-//                           _bwd_single_kernel (Sq == Skv <= 512): delta,
-//                           then one launch of dq and dk/dv blocks
+//                           _bwd_single_kernel (Sq == Skv <= 512): what
+//                           kernels 12 and 13 compute at Sq == Skv, so
+//                           the two parts below, one after the other
 //   devt_flash_blocked_bwd  kernels 12 and 13, flash_attention.py:158
 //                           _bwd_dq_kernel and :198 _bwd_dkv_kernel (any
 //                           Sq, Skv: the blockwise path's backward), as two
@@ -25,12 +26,14 @@
 //                           part 2 dk and dv (kernel 13), reading the delta
 //                           part 1 wrote
 //
-// Kernels 12 and 13 in bfloat16 at head dim 16, 32 or 64
+// Kernels 10, 12 and 13 in bfloat16 at head dim 16, 32 or 64
 // (blocked_bwd_on_wgmma: every main-path shape) run flash_bwd_sm90.cuh's
-// bodies: one launch each, delta computed in kernel 12's prologue, every
+// bodies: one launch each of kernel 12's and 13's (kernel 10 launches
+// both, with Sq = Skv = S), delta computed in kernel 12's prologue, every
 // product on wgmma, the streamed side's tiles through a TMA ring (the
 // design and its numbers are there).  Every other shape, and the float
-// route, runs what follows.
+// route, runs what follows: for kernel 10 a delta launch, then one launch
+// of dq and dk/dv blocks.
 //
 // The TPU kernels walk 128 x 128 blocks on a sequential grid, carrying dq
 // (or dk, dv) in VMEM scratch from one kv (or q) block to the next and
@@ -47,7 +50,9 @@
 // Bounds (bf16): kernel 10 at (1536, 197, 64), kv_len 197 (the backward of
 // the int8 block's attention shape): five products of 2 * 197 * 197 * 64
 // per (sequence, head), 38.2 GFLOP, against 310 MB (q, k, v, o, do read,
-// dq, dk, dv written, lse): bytes bind it, 0.092 ms at 3.35 TB/s.  At
+// dq, dk, dv written, lse): bytes bind it, 0.092 ms at 3.35 TB/s.  On the
+// wgmma bodies it computes 256 rows and keys of 197 (the bodies' 64-row
+// tiles) and each score tile twice, once in each part.  At
 // ViViT's image-384 shape (1536, 592, 64), kv_len 577: kernel 12 (delta
 // included) three products, 6 * 1536 * 592 * 577 * 64 = 201 GFLOP, against
 // q, k, v, o, do read, dq written, lse read and delta written (706 MB):
@@ -109,6 +114,24 @@ int run(int dtype, BwdPart part, bool with_delta, const void* q,
   return launch_bwd_bf16_d<false, false>(a, B, d, sh, part, none, s);
 }
 
+// the wgmma bodies' arguments (q, k, v go by strides to their TMA maps)
+FlashBwd wgmma_args(const void* o, const void* dout, const void* lse,
+                    void* delta, void* dq, void* dk, void* dv, int H, int Sq,
+                    int Skv, int kv_len, float scale) {
+  return {static_cast<const bf16*>(o),
+          static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse),
+          static_cast<float*>(delta),
+          static_cast<bf16*>(dq),
+          static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv),
+          H,
+          Sq,
+          Skv,
+          kv_len,
+          scale};
+}
+
 }  // namespace
 
 // Kernel 10.  dtype: 0 = float32, 1 = bfloat16.  q, k, v (B, H, S, d) by
@@ -118,7 +141,10 @@ int run(int dtype, BwdPart part, bool with_delta, const void* q,
 // f32; delta (B*H, S) f32 scratch that the first launch fills.  The
 // bfloat16 kernel is compiled for head dims 16, 32, 64, 128 and 256, the
 // float kernel takes any multiple of 4 whose 32-row tiles fit shared
-// memory.  Returns the CUDA error of the launches (0 on success, invalid
+// memory.  Shapes inside blocked_bwd_on_wgmma (devt_blocked_bwd_route
+// says which) launch kernel 12's body, then kernel 13's, which first
+// encode TMA maps of q, k, v and do on the host; the others the streamed
+// body.  Returns the CUDA error of the launches (0 on success, invalid
 // value for a shape that is not covered); they are asynchronous on
 // `stream`.
 extern "C" int devt_flash_bwd(int dtype, const void* q, const void* k,
@@ -129,9 +155,15 @@ extern "C" int devt_flash_bwd(int dtype, const void* q, const void* k,
                               float scale, void* stream) {
   if (B < 1 || S < 1 || H < 1 || kv_len < 1 || kv_len > S)
     return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocked_bwd_on_wgmma(dtype, d)) {
+    const FlashBwd a = wgmma_args(o, dout, lse, delta, dq, dk, dv, H, S, S,
+                                  kv_len, scale);
+    DEVT_TRY(launch_blocked_bwd_wgmma(1, a, q, k, v, B, d, strides, s));
+    return launch_blocked_bwd_wgmma(2, a, q, k, v, B, d, strides, s);
+  }
   return run(dtype, kBwdBoth, true, q, k, v, o, dout, lse, delta, dq, dk, dv,
-             B, BwdShape{S, S, H, kv_len, scale}, d, strides,
-             static_cast<cudaStream_t>(stream));
+             B, BwdShape{S, S, H, kv_len, scale}, d, strides, s);
 }
 
 // Kernels 12 (part 1: delta, then dq) and 13 (part 2: dk and dv, from the
@@ -152,30 +184,19 @@ extern "C" int devt_flash_blocked_bwd(int dtype, int part, const void* q,
   if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || kv_len < 1 || kv_len > Skv ||
       (part != 1 && part != 2))
     return cudaErrorInvalidValue;
-  if (blocked_bwd_on_wgmma(dtype, d)) {
-    const FlashBwd a{static_cast<const bf16*>(o),
-                     static_cast<const bf16*>(dout),
-                     static_cast<const float*>(lse),
-                     static_cast<float*>(delta),
-                     static_cast<bf16*>(dq),
-                     static_cast<bf16*>(dk),
-                     static_cast<bf16*>(dv),
-                     H,
-                     Sq,
-                     Skv,
-                     kv_len,
-                     scale};
-    return launch_blocked_bwd_wgmma(part, a, q, k, v, B, d, strides,
-                                    static_cast<cudaStream_t>(stream));
-  }
+  if (blocked_bwd_on_wgmma(dtype, d))
+    return launch_blocked_bwd_wgmma(
+        part,
+        wgmma_args(o, dout, lse, delta, dq, dk, dv, H, Sq, Skv, kv_len, scale),
+        q, k, v, B, d, strides, static_cast<cudaStream_t>(stream));
   return run(dtype, part == 1 ? kBwdDq : kBwdDkv, part == 1, q, k, v, o,
              dout, lse, delta, dq, dk, dv, B,
              BwdShape{Sq, Skv, H, kv_len, scale}, d, strides,
              static_cast<cudaStream_t>(stream));
 }
 
-// 1 when a blockwise backward (kernels 12 and 13) of this dtype (0
-// float32, 1 bfloat16) and head dim takes flash_bwd_sm90.cuh's bodies
+// 1 when a backward of kernel 10, or of kernels 12 and 13, of this dtype
+// (0 float32, 1 bfloat16) and head dim takes flash_bwd_sm90.cuh's bodies
 extern "C" int devt_blocked_bwd_route(int dtype, int d) {
   return blocked_bwd_on_wgmma(dtype, d) ? 1 : 0;
 }

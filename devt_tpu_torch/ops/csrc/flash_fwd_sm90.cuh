@@ -1,6 +1,7 @@
 // The attention forwards on Hopper's wgmma and TMA: the one-shot bf16 body
-// of kernels 9 and 14 where a head's live keys fit one score row, and the
-// online-softmax bf16 body of kernel 11 (flash_fwd_wgmma, at the end).
+// of kernels 9, 14 and 7's attention where a head's live keys fit one
+// score row, and the online-softmax bf16 body of kernel 11
+// (flash_fwd_wgmma, at the end).
 //
 //   flash_fwd.cu   kernel 9, devt_tpu/ops/flash_attention.py:390
 //                  _fwd_single_kernel: q (B, H, Sq, d), k and v
@@ -9,11 +10,20 @@
 //   ring_step.cu   kernel 14, flash_attention.py:792 _ring_fwd_kernel: q
 //                  (B, S, H*d), the packed kv shard (B, S, 2*H*d), an
 //                  additive f32 column mask; o (B, S, H*d), lse (B, S, H)
+//   attn_half.cu   the attention launch of kernel 7, devt_tpu/ops/
+//                  fused_block.py:556 _attn_half_fwd_kernel (its _mha_fwd,
+//                  :92): q, k, v the head views of the packed qkv scratch
+//                  (B, S, 3*H*d), keys at or past kv_len masked; o into
+//                  the att scratch (B, S, H*d), lse into lanes [0, H) of
+//                  the f32 residual (B, S, lanes)
 //
 // Per (sequence, head) what the TPU kernels compute on their whole (S, S)
 // block: s = q k^T * scale in f32 plus the key bias; the exact row max m
 // over the live keys; l = sum exp(s - m); o = round_bf16(p * (1 / l)) @ v
-// in f32, stored in q's type; lse = m + log l.  Kernel 9's bias is -inf at
+// in f32, stored in q's type; lse = m + log l.  Kernel 7 normalises after
+// the product instead, as its TPU kernel does: o = (round_bf16(p) @ v) / l
+// (kNormAfter, a template parameter: kernels 9's and 14's instances are
+// compiled without it).  Kernel 9's (and 7's) bias is -inf at
 // key columns >= kv_len (the plain version's -1e30 gives the same exact
 // zeros: kv_len >= 1 keeps m finite).  Kernel 14 adds the mask; a key past
 // Skv is absent (p = 0), and a row whose every key is masked has m =
@@ -22,10 +32,11 @@
 //
 // The rule (one_shot_on_wgmma, mirrored by ops/flash_attention.py
 // one_shot_on_wgmma): bfloat16, head dim 16, 32 or 64, at most 256 live
-// keys (kv_len for kernel 9, the shard's S for kernel 14).  Every
+// keys (kv_len for kernels 9 and 7, the shard's S for kernel 14).  Every
 // main-path shape is inside it: kernel 9 at (1536, 197, 64), kernel 14 at
-// (512, 208, 3 x 64) and the hop-by-hop ring's 160.  Other shapes stay on
-// flash_fwd.cuh's streamed body.
+// (512, 208, 3 x 64) and the hop-by-hop ring's 160, kernel 7 at (512, 208,
+// 3 x 64) with kv_len 197.  Other shapes stay on flash_fwd.cuh's streamed
+// body (kernel 7's on attention_fwd.cuh's).
 //
 // What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W): at (1536, 197,
 // 64) the bytes (q, k, v read once, o and lse written: 155 MB, 0.046 ms at
@@ -60,16 +71,19 @@
 //      exponentiates (s - m) * log2 e so that a wholly masked row gives
 //      exactly 0 and p = 1), the row sum, one reciprocal of l; p * (1 / l)
 //      packed to bf16 as wgmma A fragments (the accumulator layout of two
-//      8-key blocks is the A layout of one 16-key step).
+//      8-key blocks is the A layout of one 16-key step).  With kNormAfter
+//      p itself is packed; l is the sum of the unrounded f32 p either way.
 //   3. O = P V: wgmma m64nDk16, A from those registers, B = V from shared
 //      memory, MN-major through the transpose bit, one step per 16 keys.
-//   4. o stored from the accumulators as bf16 pairs, lse by the quad's
+//   4. o stored from the accumulators as bf16 pairs (with kNormAfter each
+//      f32 accumulator times its row's 1 / l first), lse by the quad's
 //      first lane.
 // Each score is computed once and exponentiated once.  Shared memory is
 // the CTA's Q tiles, K and V (N rows each), kernel 14's staged mask: 69 KB
 // at the main-path shapes, and at most 168 registers a thread (no spills:
 // chip_smoke.py prints ptxas' report of every instance), so three CTAs
-// share an SM and two compute while one waits for its loads.  Measured by
+// share an SM and two compute while one waits for its loads (kernel 7's
+// widest instance excepted: one_shot_ctas).  Measured by
 // tools/one_shot_variants.py on an NVIDIA H100 80GB HBM3 at 700 W: kernel
 // 9 at (1536, 197, 64) 0.0715 ms as built; a CTA per head holding all
 // four query tiles (88 KB, two CTAs an SM) 0.0864; one tile a CTA (K and
@@ -123,6 +137,16 @@ __host__ __device__ constexpr int one_shot_width(int d, int keys) {
          : d == 64 && keys <= 160 ? 160
          : keys <= 208 ? 208
                        : 256;
+}
+
+// CTAs an SM that the register cap of __launch_bounds__ leaves room for:
+// three (168 registers a thread), but two for kernel 7's instance at head
+// dim 64 and 256 keys, which spilled 16 bytes under three's cap (and drew
+// ptxas' C7512: wgmma serialised for registers) and whose shared memory
+// (83 KB a CTA) holds it to two CTAs an SM anyway
+__host__ __device__ constexpr int one_shot_ctas(int hd, int n,
+                                                bool norm_after) {
+  return norm_after && hd == 64 && n == 256 ? 2 : 3;
 }
 
 // query tiles of 64 rows a CTA takes: two (one when Sq <= 64), so a head
@@ -466,8 +490,9 @@ __device__ __forceinline__ float ex2(float x) {
 // the kernel
 // ---------------------------------------------------------------------------
 
-template <int HD, int N, bool kMask>
-__global__ void __launch_bounds__(kOneShotThreads, 3)
+template <int HD, int N, bool kMask, bool kNormAfter>
+__global__ void __launch_bounds__(kOneShotThreads,
+                                  one_shot_ctas(HD, N, kNormAfter))
     flash_one_shot(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const FlashFwd a) {
@@ -571,17 +596,28 @@ __global__ void __launch_bounds__(kOneShotThreads, 3)
     }
     l[0] = quad_sum(l[0]);
     l[1] = quad_sum(l[1]);
-    const float inv[2] = {1.f / l[0], 1.f / l[1]};
-    // p * (1 / l) in bf16: registers 8kk..8kk+7 are the A fragment of the
-    // 16 keys at 16 kk
+    // p * (1 / l) in bf16 (kNormAfter: p): registers 8kk..8kk+7 are the A
+    // fragment of the 16 keys at 16 kk
     uint32_t pa[N / 16][4];
+    if constexpr (kNormAfter) {
 #pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      const float* p = s + 8 * kk;
-      pa[kk][0] = pack_bf16(p[0] * inv[0], p[1] * inv[0]);
-      pa[kk][1] = pack_bf16(p[2] * inv[1], p[3] * inv[1]);
-      pa[kk][2] = pack_bf16(p[4] * inv[0], p[5] * inv[0]);
-      pa[kk][3] = pack_bf16(p[6] * inv[1], p[7] * inv[1]);
+      for (int kk = 0; kk < N / 16; ++kk) {
+        const float* p = s + 8 * kk;
+        pa[kk][0] = pack_bf16(p[0], p[1]);
+        pa[kk][1] = pack_bf16(p[2], p[3]);
+        pa[kk][2] = pack_bf16(p[4], p[5]);
+        pa[kk][3] = pack_bf16(p[6], p[7]);
+      }
+    } else {
+      const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        const float* p = s + 8 * kk;
+        pa[kk][0] = pack_bf16(p[0] * inv[0], p[1] * inv[0]);
+        pa[kk][1] = pack_bf16(p[2] * inv[1], p[3] * inv[1]);
+        pa[kk][2] = pack_bf16(p[4] * inv[0], p[5] * inv[0]);
+        pa[kk][3] = pack_bf16(p[6] * inv[1], p[7] * inv[1]);
+      }
     }
 
     // 3. O = P V, one m64nHDk16 per 16 keys (16 rows of V)
@@ -602,10 +638,18 @@ __global__ void __launch_bounds__(kOneShotThreads, 3)
       const int row = 64 * t + 16 * warp + gq + 8 * hh;
       if (row >= a.Sq) continue;
       bf16* dst = O + row * a.os[2] + 2 * tq4;
+      if constexpr (kNormAfter) {
+        const float inv = 1.f / l[hh];
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-            pack_bf16(o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]);
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(
+              o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+      } else {
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              pack_bf16(o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]);
+      }
       if (tq4 == 0)
         L[row * a.ls[2]] =
             (kMask ? m[hh] : m[hh] * a.scale) + logf(l[hh]);
@@ -854,39 +898,46 @@ inline cudaError_t head_map(CUtensorMap* map, const void* base, int d,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int HD, int N, bool kMask>
+template <int HD, int N, bool kMask, bool kNormAfter>
 cudaError_t launch_one_shot_n(const CUtensorMap (&m)[3], const FlashFwd& a,
                               int BH, cudaStream_t stream) {
   const int tiles = one_shot_tiles(a.Sq);
   const size_t bytes = one_shot_smem(HD, tiles, N, kMask);
   const int parts = ((a.Sq + 63) / 64 + tiles - 1) / tiles;
-  DEVT_TRY(set_smem(flash_one_shot<HD, N, kMask>, bytes));
-  flash_one_shot<HD, N, kMask>
+  DEVT_TRY(set_smem(flash_one_shot<HD, N, kMask, kNormAfter>, bytes));
+  flash_one_shot<HD, N, kMask, kNormAfter>
       <<<BH * parts, kOneShotThreads, bytes, stream>>>(m[0], m[1], m[2], a);
   return cudaGetLastError();
 }
 
-template <int HD, bool kMask>
+template <int HD, bool kMask, bool kNormAfter>
 cudaError_t launch_one_shot_d(const CUtensorMap (&m)[3], const FlashFwd& a,
                               int BH, int n, cudaStream_t stream) {
   switch (n) {
-    case 64: return launch_one_shot_n<HD, 64, kMask>(m, a, BH, stream);
-    case 128: return launch_one_shot_n<HD, 128, kMask>(m, a, BH, stream);
-    case 208: return launch_one_shot_n<HD, 208, kMask>(m, a, BH, stream);
-    case 256: return launch_one_shot_n<HD, 256, kMask>(m, a, BH, stream);
+    case 64:
+      return launch_one_shot_n<HD, 64, kMask, kNormAfter>(m, a, BH, stream);
+    case 128:
+      return launch_one_shot_n<HD, 128, kMask, kNormAfter>(m, a, BH, stream);
+    case 208:
+      return launch_one_shot_n<HD, 208, kMask, kNormAfter>(m, a, BH, stream);
+    case 256:
+      return launch_one_shot_n<HD, 256, kMask, kNormAfter>(m, a, BH, stream);
   }
   if (HD == 64 && n == 160)
-    return launch_one_shot_n<64, 160, kMask>(m, a, BH, stream);
+    return launch_one_shot_n<64, 160, kMask, kNormAfter>(m, a, BH, stream);
   return cudaErrorInvalidValue;
 }
 
-// kernel 9 (mask off: keys at or past a.kv_len masked) or 14 (a.mask's
-// bias) on the wgmma body, for a bfloat16 shape inside one_shot_on_wgmma
-// with a.kv_len live keys: the TMA maps of q, k and v (bf16 strides in
-// a, the rows 16-byte aligned), then the launch of the score-row width
-template <bool kMask>
+// kernel 9 (mask off: keys at or past a.kv_len masked), 14 (a.mask's
+// bias) or, with kNormAfter, kernel 7's attention (the kv_len mask, o
+// normalised after P V) on the wgmma body, for a bfloat16 shape inside
+// one_shot_on_wgmma with a.kv_len live keys: the TMA maps of q, k and v
+// (bf16 strides in a, the rows 16-byte aligned), then the launch of the
+// score-row width
+template <bool kMask, bool kNormAfter = false>
 cudaError_t launch_one_shot(const FlashFwd& a, int B, int d,
                             cudaStream_t stream) {
+  static_assert(!(kMask && kNormAfter), "kernel 7 masks by kv_len");
   if (!one_shot_on_wgmma(1, d, a.kv_len)) return cudaErrorInvalidValue;
   const int n = one_shot_width(d, a.kv_len);
   CUtensorMap m[3];
@@ -897,9 +948,15 @@ cudaError_t launch_one_shot(const FlashFwd& a, int B, int d,
   DEVT_TRY(head_map(&m[2], a.v, d, a.Skv, a.H, B, a.vs[2], a.vs[1], a.vs[0],
                     n));
   switch (d) {
-    case 16: return launch_one_shot_d<16, kMask>(m, a, B * a.H, n, stream);
-    case 32: return launch_one_shot_d<32, kMask>(m, a, B * a.H, n, stream);
-    case 64: return launch_one_shot_d<64, kMask>(m, a, B * a.H, n, stream);
+    case 16:
+      return launch_one_shot_d<16, kMask, kNormAfter>(m, a, B * a.H, n,
+                                                      stream);
+    case 32:
+      return launch_one_shot_d<32, kMask, kNormAfter>(m, a, B * a.H, n,
+                                                      stream);
+    case 64:
+      return launch_one_shot_d<64, kMask, kNormAfter>(m, a, B * a.H, n,
+                                                      stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -84,11 +84,13 @@ dim 16, 32 or 64 (``blocked_bwd_on_wgmma``: every main-path shape) run
 ``csrc/flash_bwd_sm90.cuh``'s bodies, one launch each: kernel 12 a CTA per
 64 queries that computes delta in its prologue and walks 64-key K and V
 tiles through a TMA ring, kernel 13 a CTA per 64 keys that walks the
-query tiles, every product on ``wgmma``.  Kernel 10, and 12 and 13 in
-float or at head dims 128 and 256, run kernel 4's body on the split
-layout, ``csrc/attention_bwd.cuh`` (12 and 13 as two launches after a
-delta launch), with separate query and key extents and the other side
-streamed, so shared memory does not grow with either.  Every body reads
+query tiles, every product on ``wgmma``.  Kernel 10 computes what they
+compute at Sq == Skv, so under the same rule it launches both bodies, one
+after the other.  Kernels 10, 12 and 13 in float or at head dims 128 and
+256 run kernel 4's body on the split layout, ``csrc/attention_bwd.cuh``
+(a delta launch, then kernel 10 as one launch, 12 and 13 as one each),
+with separate query and key extents and the other side streamed, so
+shared memory does not grow with either.  Every body reads
 q, k, v through their strides, so the transposed head views that
 ``packed_mha`` cuts from a packed qkv are not copied; o is (B, H, Sq, d)
 and lse (B·H, Sq) f32, contiguous, and nothing is padded in device memory (the TPU wrapper pads
@@ -96,7 +98,9 @@ to its tiles; here the kernels mask query rows past Sq and keys past
 kv_len).  Counters: ``flash_attention.single_launches`` (kernel 9; of
 them ``.single_wgmma_launches`` on the wgmma body and
 ``.single_streamed_launches`` on the streamed one),
-``.single_bwd_launches``, ``.blocked_launches`` (kernel 11; of them
+``.single_bwd_launches`` (kernel 10, a call; of them
+``.single_bwd_wgmma_launches`` on the two wgmma bodies and
+``.single_bwd_streamed_launches``), ``.blocked_launches`` (kernel 11; of them
 ``.blocked_wgmma_launches`` and ``.blocked_streamed_launches`` by body),
 ``.blocked_dq_launches`` (kernel 12, a call: on the streamed body its
 delta launch with it; of them ``.blocked_dq_wgmma_launches`` and
@@ -165,12 +169,12 @@ def online_on_wgmma(dtype: torch.dtype, d: int) -> bool:
 
 
 def blocked_bwd_on_wgmma(dtype: torch.dtype, d: int) -> bool:
-    """Whether a blockwise backward (kernels 12 and 13) runs the wgmma
-    bodies: the rule of the C entry, ``csrc/flash_bwd_sm90.cuh``
-    ``blocked_bwd_on_wgmma``: those whose forward (kernel 11) runs its
-    wgmma body, ``online_on_wgmma``'s rule (bfloat16 at head dim 16, 32 or
-    64, any Sq, Skv and kv_len).  The others run the streamed body of
-    ``csrc/attention_bwd.cuh``."""
+    """Whether a backward of kernels 12 and 13, or of kernel 10 (the
+    same at Sq == Skv), runs the wgmma bodies: the rule of the C entry,
+    ``csrc/flash_bwd_sm90.cuh`` ``blocked_bwd_on_wgmma``: those whose
+    forward (kernel 11) runs its wgmma body, ``online_on_wgmma``'s rule
+    (bfloat16 at head dim 16, 32 or 64, any Sq, Skv and kv_len).  The
+    others run the streamed body of ``csrc/attention_bwd.cuh``."""
     return online_on_wgmma(dtype, d)
 
 
@@ -756,12 +760,15 @@ def _check_bwd_inputs(q, o, lse, do) -> None:
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, scale, kv_len):
+    """Kernel 10: dq, dk, dv at Sq == Skv; on the wgmma bodies where the
+    C entry's ``devt_blocked_bwd_route`` says, counted by body."""
     d = _check_flash_args(q, k, v, kv_len, backward=True)
     _check_bwd_inputs(q, o, lse, do)
     from devt_tpu_torch.ops import _build
 
     lib = _build.load("flash_bwd", _declare_flash_bwd)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    o, do = _aligned(o), _aligned(do)   # a TMA map reads do
     b, h, s, _ = q.shape
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
@@ -776,7 +783,12 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, scale, kv_len):
             b, h, s, d, int(kv_len), strides, ctypes.c_float(scale),
             ctypes.c_void_p(stream))
     _check_rc(lib, rc, "flash_bwd")
-    flash_attention.single_bwd_launches += 1
+    fa = flash_attention
+    fa.single_bwd_launches += 1
+    if lib.devt_blocked_bwd_route(_DTYPE_CODE[q.dtype], d):
+        fa.single_bwd_wgmma_launches += 1
+    else:
+        fa.single_bwd_streamed_launches += 1
     return dq, dk, dv
 
 
@@ -930,6 +942,8 @@ flash_attention.single_launches = 0
 flash_attention.single_wgmma_launches = 0
 flash_attention.single_streamed_launches = 0
 flash_attention.single_bwd_launches = 0
+flash_attention.single_bwd_wgmma_launches = 0
+flash_attention.single_bwd_streamed_launches = 0
 flash_attention.blocked_launches = 0
 flash_attention.blocked_wgmma_launches = 0
 flash_attention.blocked_streamed_launches = 0

@@ -77,16 +77,25 @@ The attention half (``fused_attn_half``, the MoE block's: u = x +
 MHA(LN1(x)) @ Wo + bo, no dropout) has kernels of its own in
 ``csrc/attn_half.cu``:
   * Kernel 7 replaces ``devt_tpu/ops/fused_block.py:556
-    _attn_half_fwd_kernel`` (launched at ``:643``): the first two launches
-    of the block forward, then the out-projection per 64 rows.  Bound at
-    the main-path shape: 2·(4·D² + 2·kv_len·D) operations per row, 47.5
-    GFLOP against about 85 MB: compute-bound, about 0.048 ms.
+    _attn_half_fwd_kernel`` (launched at ``:643``): the block forward's
+    LN1 + qkv launch, the attention, then the out-projection per 64 rows.
+    The attention in bfloat16 with at most 256 live keys at head dim 16,
+    32 or 64 (``attn_half_on_wgmma``, kernel 9's rule ``one_shot_on_wgmma``
+    with kv_len as the key count: every main-path shape) runs
+    ``csrc/flash_fwd_sm90.cuh``'s one-shot wgmma body in its
+    normalise-after instance, on the head views of the qkv scratch; the
+    other shapes and float the block forward's attention
+    (``csrc/attention_fwd.cuh``).  Bound at the main-path shape: 2·(4·D²
+    + 2·kv_len·D) operations per row, 47.5 GFLOP against about 85 MB:
+    compute-bound, about 0.048 ms.
   * Kernel 8 replaces ``:578 _attn_half_bwd_kernel`` (launched at
     ``:667``): the block backward's launches without the FFN, sharing
     their device code (``csrc/block_bwd_parts.cuh``); split-K weight
     gradients and one fixed-order sum, so two runs give the same bits.
     2·(11·D² + 6·kv_len·D) operations per row, 134.7 GFLOP: about 0.136 ms.
-``fused_attn_half`` keeps ``launches`` and ``bwd_launches`` counters too.
+``fused_attn_half`` keeps ``launches`` and ``bwd_launches`` counters too,
+and counts kernel 7's calls by the body of their attention launch in
+``wgmma_launches`` and ``streamed_launches``.
 """
 
 from __future__ import annotations
@@ -98,7 +107,8 @@ import torch
 import torch.nn.functional as F
 
 from devt_tpu_torch.ops.flash_attention import (NEG_INF, _round_up,
-                                                dropout_cutoff)
+                                                dropout_cutoff,
+                                                one_shot_on_wgmma)
 
 LN_EPS = 1e-5
 _GELU_C = math.sqrt(2.0 / math.pi)
@@ -611,6 +621,16 @@ fused_vit_block.bwd_launches = 0
 HALF_NAMES = ("g1", "b1", "wqkv", "wo", "bo")
 
 
+def attn_half_on_wgmma(dtype: torch.dtype, head_dim: int,
+                       kv_len: int) -> bool:
+    """Whether kernel 7's attention launch runs the one-shot wgmma body
+    (``csrc/flash_fwd_sm90.cuh``, normalising after P·V): kernel 9's rule,
+    ``one_shot_on_wgmma``, with kv_len as the key count, as the C entry's
+    ``devt_attn_half_route`` says.  The others run
+    ``csrc/attention_fwd.cuh``'s body."""
+    return one_shot_on_wgmma(dtype, head_dim, kv_len)
+
+
 def fused_attn_half_fwd_plain(x, params, heads, scale, kv_len):
     """Plain PyTorch version of kernel 7: (u, res), u = x + MHA(LN1(x) @
     Wqkv) @ Wo + bo in x's dtype, res = [lse (H), mu1, rstd1, 0…] f32 in
@@ -684,6 +704,10 @@ def _half_fwd_cuda(x, params, heads, scale, kv_len):
             ctypes.c_float(scale), ctypes.c_void_p(stream))
     _check(lib, rc, "attn_half_fwd")
     fused_attn_half.launches += 1
+    if attn_half_on_wgmma(x.dtype, dim // heads, kv_len):
+        fused_attn_half.wgmma_launches += 1
+    else:
+        fused_attn_half.streamed_launches += 1
     return u, res
 
 
@@ -782,6 +806,8 @@ def fused_attn_half(x, params, heads, scale, kv_len):
 
 
 fused_attn_half.launches = 0
+fused_attn_half.wgmma_launches = 0
+fused_attn_half.streamed_launches = 0
 fused_attn_half.bwd_launches = 0
 
 
@@ -818,6 +844,8 @@ def _declare_half(lib: ctypes.CDLL) -> None:
         [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p])
     lib.devt_attn_half_fwd.restype = ctypes.c_int
+    lib.devt_attn_half_route.argtypes = [ctypes.c_int] * 3
+    lib.devt_attn_half_route.restype = ctypes.c_int
     lib.devt_attn_half_bwd_scratch.argtypes = [ctypes.c_int] * 5
     lib.devt_attn_half_bwd_scratch.restype = ctypes.c_ulonglong
     lib.devt_attn_half_bwd.argtypes = (

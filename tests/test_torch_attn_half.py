@@ -8,6 +8,9 @@ run in interpret mode on the CPU, on the same numpy inputs; the autograd
 Function (which on the CPU runs the plain versions) against ``jax.grad``
 of the JAX ``fused_attn_half``.  The CUDA kernels themselves are held
 against the plain versions on the card in ``tests/test_torch_cuda.py``.
+On the card kernel 7's attention launch runs the one-shot wgmma body where
+``attn_half_on_wgmma`` says, in an instance that normalises after P·V as
+the JAX kernel does; the route and that rounding are checked here.
 """
 
 import jax
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from devt_tpu.ops import fused_block as jfb
+from devt_tpu_torch.ops import flash_attention as tfa
 from devt_tpu_torch.ops import fused_block as tfb
 
 DIM, HEADS = 32, 2
@@ -191,3 +195,104 @@ def test_half_is_the_first_half_of_the_block():
         13)
     assert torch.equal(u, u_block)
     assert torch.equal(res[..., :HEADS + 2], res_block[..., :HEADS + 2])
+
+
+# --- kernel 7's attention on the one-shot wgmma body ------------------------
+
+@pytest.mark.parametrize("dtype,d,kv_len,want", [
+    (torch.bfloat16, 64, 197, True),     # the MoE main path (512, 208, 192)
+    (torch.bfloat16, 32, 37, True),      # the (64, 32) width
+    (torch.bfloat16, 64, 1, True), (torch.bfloat16, 16, 64, True),
+    (torch.bfloat16, 64, 256, True), (torch.bfloat16, 64, 257, False),
+    (torch.bfloat16, 32, 400, False), (torch.bfloat16, 128, 100, False),
+    (torch.bfloat16, 48, 64, False), (torch.float32, 64, 197, False),
+    (torch.float32, 32, 37, False)])
+def test_attn_half_route_predicate(dtype, d, kv_len, want):
+    """bfloat16 at head dim 16, 32 or 64 with at most 256 live keys: the
+    one-shot wgmma body (kernel 9's rule with kv_len as the key count);
+    more keys and float32 the streamed body of ``attention_fwd.cuh`` (the
+    card tests hold the C entry's ``devt_attn_half_route`` to this)."""
+    assert tfb.attn_half_on_wgmma(dtype, d, kv_len) is want
+    assert want == tfa.one_shot_on_wgmma(dtype, d, kv_len)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_normalising_after_pv_is_what_the_jax_kernel_computes(kind):
+    """At the MoE block's shape (S = 208, kv_len 197, 3 heads of 64, two
+    sequences): the plain version, which normalises after P·V as the
+    wgmma instance kernel 7 runs does, against the interpreted
+    ``_attn_half_fwd_kernel`` (u, res), and its attention against JAX's
+    ``_mha_fwd`` (what that kernel runs) on the same bf16 qkv.  In bf16
+    the two round p at the same place and differ only where an f32 sum in
+    another order crosses a rounding boundary (under 1 % of the elements),
+    while normalising before P·V, kernel 9's rounding, moves a large share
+    of them (40 % at this seed)."""
+    dim, heads, s, kv_len, b = 192, 3, 208, 197, 2
+    d = dim // heads
+    scale = d ** -0.5
+    jdtype, tdtype = {"f32": (jnp.float32, torch.float32),
+                      "bf16": (jnp.bfloat16, torch.bfloat16)}[kind]
+    rng = np.random.default_rng(7)
+
+    def t(*shape, scale=0.1):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    params = {"g1": 1.0 + t(1, dim), "b1": t(1, dim),
+              "wqkv": t(dim, 3 * dim), "wo": t(dim, dim),
+              "bo": t(1, dim, scale=0.01)}
+    x = t(b, s, dim, scale=1.0)
+    x[:, kv_len:] = 0.0
+    fwd = jax.jit(lambda xx, pp: jfb._attn_half_fwd_call(
+        xx, pp, heads=heads, scale=scale, kv_len=kv_len, interpret=True))
+    ju, jres = fwd(jnp.asarray(x, jdtype), _jax_params(params, jdtype))
+    tp = _torch_params(params, tdtype)
+    u, res = tfb.fused_attn_half_fwd_plain(torch.tensor(x).to(tdtype), tp,
+                                           heads, scale, kv_len)
+    ju, jres = np.asarray(ju, np.float32), np.asarray(jres)
+    if kind == "f32":
+        np.testing.assert_allclose(u.numpy(), ju, **FWD_TOL)
+        np.testing.assert_allclose(res.numpy(), jres, **FWD_TOL)
+    else:
+        _ulps_close(u, ju, "u")
+        np.testing.assert_allclose(res.numpy(), jres, **BF16_RES_TOL)
+
+    # the attention alone, on the port's qkv
+    a = tfb._ln(torch.tensor(x).to(tdtype).float(), tp["g1"][0],
+                tp["b1"][0])[0]
+    qkv = tfb._mm(a, tp["wqkv"], tdtype)
+    after, lse = tfb._mha_fwd(qkv, heads, d, scale, kv_len, tdtype)
+    jatt, jlse = jfb._mha_fwd(jnp.asarray(qkv.numpy()), heads, d, scale,
+                              kv_len, jdtype)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **FWD_TOL)
+    split = qkv.to(tdtype).view(b, s, 3, heads, d)
+    q, k, v = (split[:, :, i].transpose(1, 2) for i in range(3))
+    before = tfa.flash_single_fwd_plain(q, k, v, scale, kv_len)[0]
+    before = before.transpose(1, 2).reshape(b, s, dim)
+    if kind == "f32":
+        np.testing.assert_allclose(after.numpy(), np.asarray(jatt),
+                                   **FWD_TOL)
+        return
+    # att is stored in x's dtype: compare the bf16 values
+    want = torch.tensor(np.asarray(jatt, np.float32)).to(tdtype)
+    after = after.to(tdtype)
+    _ulps_close(after, want.float().numpy(), "att")
+    assert (after != want).float().mean().item() < 0.01
+    assert (before != want).float().mean().item() > 0.1
+
+
+def test_cpu_attn_half_counts_no_launch():
+    """CPU tensors run kernel 7's plain version: no launch is counted, on
+    either body of its attention launch, in bfloat16 (inside the rule) or
+    float32."""
+    half = tfb.fused_attn_half
+
+    def counts():
+        return (half.launches, half.wgmma_launches, half.streamed_launches,
+                half.bwd_launches)
+
+    before = counts()
+    for tdtype in (torch.bfloat16, torch.float32):
+        x, params, _ = _make(kv_len=13, seed=6)
+        half(torch.tensor(x).to(tdtype), _torch_params(params, tdtype),
+             HEADS, SCALE, 13)
+    assert counts() == before

@@ -615,6 +615,60 @@ def test_attn_half_backward_is_deterministic(card, kind):
         assert torch.equal(runs[0][1][k], runs[1][1][k]), k
 
 
+# (dim, heads, b, s, kv_len): kernel 7's attention launch on the one-shot
+# wgmma body at the MoE main path (512, 208, 192), kv_len 197, and around
+# it: one token, 65 tokens (two query tiles, the second of one row) with 1
+# or 65 live keys, 256 live keys (the widest score row), at both bf16
+# widths; 257 live keys take the streamed body
+HALF_WGMMA_SHAPES = [
+    (192, 3, 512, 208, 197), (192, 3, 4, 1, 1), (192, 3, 4, 65, 1),
+    (192, 3, 4, 65, 65), (192, 3, 4, 256, 256), (192, 3, 4, 272, 257),
+    (64, 2, 6, 1, 1), (64, 2, 6, 65, 1), (64, 2, 6, 208, 197),
+    (64, 2, 6, 256, 256), (64, 2, 6, 272, 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,heads,b,s,kv_len", HALF_WGMMA_SHAPES)
+def test_attn_half_wgmma_matches_plain(card, dim, heads, b, s, kv_len):
+    """Kernel 7 in bf16 against its plain version, its attention launch on
+    the body ``attn_half_on_wgmma`` names (the one-shot wgmma body,
+    normalising after P·V, for at most 256 live keys; attention_fwd.cuh's
+    above): u and the residual lanes (lse, mu1, rstd1) at the forward
+    tolerance, the pad lanes 0, one launch counted on that body, two runs
+    bit-equal.  Every query row < S is written, those past kv_len too."""
+    x, params = _half(torch.bfloat16, dim=dim, b=b, s=s, kv_len=kv_len)
+    scale = (dim // heads) ** -0.5
+    wgmma = int(tfb.attn_half_on_wgmma(torch.bfloat16, dim // heads, kv_len))
+    assert wgmma == (kv_len <= 256)
+    bodies = _half_bodies()
+    with torch.no_grad():
+        u, res = tfb.fused_attn_half(x, params, heads, scale, kv_len)
+        u2, res2 = tfb.fused_attn_half(x, params, heads, scale, kv_len)
+    want_u, want_res = tfb.fused_attn_half_fwd_plain(x, params, heads, scale,
+                                                     kv_len)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_half_bodies(), bodies)] == \
+        [2 * wgmma, 2 * (1 - wgmma)]
+    torch.testing.assert_close(u.float(), want_u.float(), **TOL["bf16"])
+    torch.testing.assert_close(res[..., :heads + 2], want_res[..., :heads + 2],
+                               **TOL["bf16"])
+    assert res[..., heads + 2:].abs().max().item() == 0.0
+    assert torch.equal(u, u2) and torch.equal(res, res2)
+
+
+@pytest.mark.cuda
+def test_attn_half_route_matches_the_c_rule(card):
+    """The C entry's rule (devt_attn_half_route) is the Python
+    predicate's, kernel 9's rule with kv_len as the key count."""
+    lib = _build.load("attn_half", tfb._declare_half)
+    for dtype, code in tfb._DTYPE_CODE.items():
+        for d in (8, 16, 32, 48, 64, 128, 256):
+            for kv_len in (0, 1, 17, 197, 256, 257, 512):
+                assert bool(lib.devt_attn_half_route(code, d, kv_len)) == \
+                    tfb.attn_half_on_wgmma(dtype, d, kv_len), (dtype, d,
+                                                               kv_len)
+
+
 @pytest.mark.cuda
 def test_attn_half_refuses_what_the_kernels_do_not_take(card):
     x, params = _half(torch.bfloat16)
@@ -642,6 +696,13 @@ def _moe_vivit(kind, dropout=0.0):
         .init_weights(torch.Generator().manual_seed(0))
 
 
+def _half_bodies():
+    """Launches of kernel 7 by the body of its attention launch: (wgmma,
+    streamed)."""
+    half = tfb.fused_attn_half
+    return (half.wgmma_launches, half.streamed_launches)
+
+
 def _moe_counts():
     return (tfb.fused_vit_block.launches, tfb.fused_vit_block.bwd_launches,
             tfb.fused_attn_half.launches, tfb.fused_attn_half.bwd_launches,
@@ -651,16 +712,18 @@ def _moe_counts():
 @pytest.mark.cuda
 def test_moe_vivit_forward_launches(card):
     """An eval forward of a depth-4 MoE-ViViT (blocks dense, MoE, dense,
-    MoE) launches kernel 1 twice and kernel 7 twice, nothing backward."""
+    MoE) launches kernel 1 twice and kernel 7 twice, nothing backward;
+    both of kernel 7's attention launches run the one-shot wgmma body."""
     model = _moe_vivit("bf16").cuda().eval()
     x = torch.randn(2, 2, 32, 32, 3, generator=torch.Generator()
                     .manual_seed(1)).cuda()
-    before = _moe_counts()
+    before, bodies = _moe_counts(), _half_bodies()
     with torch.no_grad():
         out = model(x)
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(_moe_counts(), before)] == [2, 0, 2, 0,
                                                               0, 0]
+    assert [a - b for a, b in zip(_half_bodies(), bodies)] == [2, 0]
     assert torch.isfinite(out.float()).all()
 
 
@@ -693,11 +756,15 @@ def test_moe_vivit_step_launches_and_gradients(card, kind, dropout, counts):
         return loss, aux, dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
 
-    before = _moe_counts()
+    before, bodies = _moe_counts(), _half_bodies()
     loss, aux, got = grads(_moe_vivit(kind, dropout).cuda(),
                            {k: v.cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(_moe_counts(), before)] == counts
+    # kernel 7's attention: bf16 on the wgmma body, f32 on the streamed one
+    wgmma = int(tfb.attn_half_on_wgmma(DTYPE[kind], 32, 17))
+    assert [a - b for a, b in zip(_half_bodies(), bodies)] == \
+        [wgmma * counts[2], (1 - wgmma) * counts[2]]
     assert torch.isfinite(loss) and torch.isfinite(aux["moe_aux"])
     assert all(torch.isfinite(g).all() for g in got.values())
     if kind != "f32":
@@ -777,10 +844,12 @@ FLASH_BWD_SHAPES = [(2, 3, 197, 64, 197, True), (1, 2, 512, 256, 500, False),
 @pytest.mark.parametrize("b,h,s,d,kv_len,strided", FLASH_BWD_SHAPES)
 def test_flash_bwd_kernel_matches_plain(card, kind, b, h, s, d, kv_len,
                                         strided):
-    """Kernel 10 through ``flash_attention`` and autograd: dq, dk, dv
-    against the plain backward on the forward's (o, lse), per tensor within
-    the backward bound; keys past kv_len get exact zeros; two runs give the
-    same bits."""
+    """Kernel 10 through ``flash_attention`` and autograd, one launch on
+    the body ``blocked_bwd_on_wgmma`` names (bf16 at head dim 16, 32 or
+    64: kernels 12's and 13's wgmma bodies; f32 and head dims 128 and 256:
+    the streamed one): dq, dk, dv against the plain backward on the
+    forward's (o, lse), per tensor within the backward bound; keys past
+    kv_len get exact zeros; two runs give the same bits."""
     q, k, v = _flash_inputs(kind, b, h, s, s, d, strided, s + d)
     do = torch.randn(b, h, s, d, generator=torch.Generator().manual_seed(
         9)).to(DTYPE[kind]).cuda()
@@ -791,10 +860,14 @@ def test_flash_bwd_kernel_matches_plain(card, kind, b, h, s, d, kv_len,
                                      return_lse=True)
         return (o.detach(), lse, *torch.autograd.grad(o, leaves, do))
 
-    before = tfa.flash_attention.single_bwd_launches
+    before, bodies = (tfa.flash_attention.single_bwd_launches,
+                      _single_bwd_bodies())
     o, lse, *got = run()
     torch.cuda.synchronize()
     assert tfa.flash_attention.single_bwd_launches == before + 1
+    wgmma = int(tfa.blocked_bwd_on_wgmma(DTYPE[kind], d))
+    assert [a - b_ for a, b_ in zip(_single_bwd_bodies(), bodies)] == \
+        [wgmma, 1 - wgmma]
     want = tfa.flash_single_bwd_plain(q, k, v, o, lse, do, d ** -0.5,
                                       kv_len)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -807,6 +880,12 @@ def test_flash_bwd_kernel_matches_plain(card, kind, b, h, s, d, kv_len,
             g[:, :, kv_len:]))
     again = run()[2:]
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def _single_bwd_bodies():
+    """Launches of kernel 10 by body: (wgmma, streamed)."""
+    fa = tfa.flash_attention
+    return (fa.single_bwd_wgmma_launches, fa.single_bwd_streamed_launches)
 
 
 @pytest.mark.cuda
@@ -1611,6 +1690,58 @@ def test_blocked_bwd_wgmma_writes_no_row_past_the_end(card, d):
         rtol=1e-4)
     assert torch.equal(delta[b * h * sq:], torch.full((128,), 7.0,
                                                       device="cuda"))
+
+
+# (b, h, s, kv_len, strided): kernel 10 on the wgmma bodies at Sq == Skv:
+# the main path's (1536, 197, 64) on the head views of a packed qkv, one
+# query (kv_len 1), lengths around the 64-row tiles, up to 512
+SINGLE_BWD_WGMMA_SHAPES = [
+    (512, 3, 197, 197, True), (2, 2, 1, 1, False), (2, 3, 63, 50, True),
+    (2, 2, 256, 200, False), (2, 3, 333, 333, True), (1, 2, 512, 500, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("b,h,s,kv_len,strided", SINGLE_BWD_WGMMA_SHAPES)
+def test_flash_single_bwd_wgmma_matches_plain(card, b, h, s, kv_len,
+                                              strided, d):
+    """Kernel 10 on kernels 12's and 13's wgmma bodies, through
+    ``flash_attention`` and autograd: one launch counted on that body and
+    none of kernels 12 and 13; dq, dk, dv within 4 bf16 ulps of the plain
+    single backward's largest element on the forward's (o, lse) (at
+    kv_len = 1, dq and dk to the f32 error bound of the sums that cancel
+    there); dk and dv past kv_len exact zeros; two runs bit-equal."""
+    if not strided or d != 64:
+        b = min(b, 2)
+    q, k, v = _flash_inputs("bf16", b, h, s, s, d, strided, s + kv_len + d)
+    do = torch.randn(b, h, s, d, generator=torch.Generator().manual_seed(
+        17)).to(torch.bfloat16).cuda()
+    assert tfa.blocked_bwd_on_wgmma(torch.bfloat16, d)
+    assert tfa.fits_single_block(s)
+
+    def run():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o, lse = tfa.flash_attention(*leaves, kv_len=kv_len,
+                                     return_lse=True)
+        return (o.detach(), lse, *torch.autograd.grad(o, leaves, do))
+
+    bodies, blocked = _single_bwd_bodies(), _blocked_bwd_counts()
+    o, lse, *got = run()
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_single_bwd_bodies(), bodies)] == [1, 0]
+    assert _blocked_bwd_counts() == blocked
+    want = tfa.flash_single_bwd_plain(q, k, v, o, lse, do, d ** -0.5, kv_len)
+    for g in got:
+        assert torch.isfinite(g.float()).all()
+    tag = f"kernel 10 ({b},{h},{s},{d}) kv_len {kv_len}"
+    if kv_len == 1:
+        _one_key_noise(tag, q, k, v, do, d ** -0.5, got, want)
+    else:
+        _bwd_within("bf16", tag, got, want)
+    for g in got[1:]:
+        assert not g[:, :, kv_len:].any()
+    again = run()[2:]
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 @pytest.mark.cuda

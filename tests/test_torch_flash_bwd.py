@@ -1,5 +1,6 @@
-"""The port's blockwise attention backward (kernels 12 and 13) against the
-JAX package's, on the CPU.
+"""The port's blockwise attention backward (kernels 12 and 13), and the
+single-block backward (kernel 10) that runs on their bodies on the card,
+against the JAX package's, on the CPU.
 
 ``flash_blocked_bwd_plain``, which CPU tensors run and the card holds the
 CUDA kernels to, against JAX's ``_bwd`` (``_bwd_dq_kernel`` and
@@ -7,7 +8,11 @@ CUDA kernels to, against JAX's ``_bwd`` (``_bwd_dq_kernel`` and
 builds, from the same numpy arrays; then ``flash_attention`` under autograd
 against ``jax.grad`` of JAX's through its interpreted kernels, and one
 training step of a tiny ViViT whose 577 space tokens exceed one kv block,
-both packages on the blockwise kernels' route.
+both packages on the blockwise kernels' route.  Kernel 10's plain version
+(``flash_single_bwd_plain``) against the blockwise one and both against
+JAX's interpreted ``_bwd_single`` at Sq == Skv <= 512: kernel 10 computes
+what kernels 12 and 13 compute at that shape, which is why the card runs
+it on their wgmma bodies.
 
 Tolerances.  f32: 2e-5, sums in other orders (JAX pads the queries to 128
 and sums each block's product in its own order).  bf16: one bf16 ulp
@@ -158,6 +163,108 @@ def test_cpu_backward_counts_no_launch():
         leaves = [torch.tensor(_rand((1, 2, s, 16), i)).to(dtype)
                   .requires_grad_(True) for i, s in enumerate((5, 20, 20))]
         o = fa(*leaves, kv_len=17)              # Sq != Skv: blockwise
+        o.float().sum().backward()
+        assert all(leaf.grad is not None for leaf in leaves)
+    assert counts() == before
+
+
+# kernel 10's shapes, Sq == Skv == S with kv_len: one query, and lengths
+# around the 64-row tiles of the wgmma bodies and the 128-row blocks of the
+# plain blockwise version, up to the single-block limit of 512
+SINGLE_BWD_SHAPES = [(1, 1), (63, 50), (197, 197), (256, 200), (333, 333),
+                     (512, 500)]
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("s,kv_len", SINGLE_BWD_SHAPES)
+def test_single_bwd_plain_is_the_blocked_backward_at_one_block(kind, s,
+                                                               kv_len, d):
+    """Kernel 10's plain version against kernels 12 and 13's at Sq == Skv,
+    and both against JAX's interpreted ``_bwd_single`` (padded to its
+    16-row tile, lse broadcast over its 128 lanes), on the forward's (o,
+    lse): dq, dk, dv at TOL in f32, within one bf16 ulp of the largest
+    element in bf16.  At kv_len = 1 (here S = 1) p = 1 and dp = delta, so
+    dq and dk are zero in exact arithmetic: each side returns the rounding
+    of two f32 sums of d products in its own order (JAX's may be exact
+    zeros, whose ulp is no bound), so there they are held to those sums'
+    error bound, as the card tests hold the wgmma bodies."""
+    bh = 2
+    q, k, v = (_rand((bh, s, d), i) for i in range(3))
+    do = _rand((bh, s, d), 7)
+    tq, tk, tv_, tdo = (torch.tensor(t)[None].to(TORCH[kind])
+                        for t in (q, k, v, do))
+    scale = d ** -0.5
+    o, lse = tfa.flash_single_fwd_plain(tq, tk, tv_, scale, kv_len)
+    single = tfa.flash_single_bwd_plain(tq, tk, tv_, o, lse, tdo, scale,
+                                        kv_len)
+    blocked = tfa.flash_blocked_bwd_plain(tq, tk, tv_, o, lse, tdo, scale,
+                                          kv_len)
+    s_p = -(-s // 16) * 16
+    jl = np.pad(lse.numpy(), ((0, 0), (0, s_p - s)))[..., None].repeat(
+        128, axis=-1)
+    bwd = jax.jit(lambda *a: jfa._bwd_single(*a, scale=scale, kv_len=kv_len,
+                                             interpret=True))
+    want = bwd(*(jnp.asarray(_pad(t, s_p), JNP[kind]) for t in (q, k, v)),
+               jnp.asarray(_pad(o[0].float().numpy(), s_p), JNP[kind]),
+               jnp.asarray(jl), jnp.asarray(_pad(do, s_p), JNP[kind]))
+    noise = _one_key_noise(q, k, v, do, scale) if kv_len == 1 else None
+    for i, (g, b, w) in enumerate(zip(single, blocked, want)):
+        assert g.dtype == b.dtype == TORCH[kind]
+        assert g.shape == b.shape == (1, bh, s, d)
+        w = np.asarray(w, np.float32)[:, :s]
+        if noise is not None and i < 2:     # dq, dk: rounding noise
+            for t in (g[0].float().numpy(), b[0].float().numpy(), w):
+                assert np.abs(t).max() <= noise[i]
+            continue
+        _close(kind, g[0], w)
+        _close(kind, b[0], w)
+        _close(kind, g[0], b[0].float().numpy())
+    for g in single[1:]:
+        assert not g[:, :, kv_len:].any()
+
+
+def _one_key_noise(q, k, v, do, scale):
+    """At kv_len = 1: the f32 error bound of ds = p (dp - delta) scale,
+    d ulps (2^-23) of sum |do_i v_i| per score (each of dp and delta), times
+    scale, carried through k[0] into dq and through q into dk (the bound
+    ``tests/test_torch_cuda.py`` holds the wgmma bodies to there)."""
+    d = q.shape[-1]
+    noise = scale * d * 2.0 ** -22 * (np.abs(do) @ np.abs(
+        v[:, :1]).transpose(0, 2, 1))                  # (bh, S, 1)
+    return ((noise * np.abs(k[:, :1])).max(),
+            (noise.transpose(0, 2, 1) @ np.abs(q)).max())
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, True),          # the op at (1536, 197, 64)
+    (torch.bfloat16, 16, True), (torch.bfloat16, 32, True),
+    (torch.bfloat16, 128, False), (torch.bfloat16, 256, False),
+    (torch.float32, 64, False), (torch.float32, 32, False)])
+def test_single_bwd_route_predicate(dtype, d, want):
+    """Kernel 10 runs kernels 12's and 13's wgmma bodies under their rule,
+    ``blocked_bwd_on_wgmma``, whatever S <= 512 and kv_len; float32 and
+    head dims 128 and 256 stay on the streamed body (the card tests hold
+    the C entry's rule, which it shares with kernels 12 and 13, to this
+    predicate)."""
+    assert tfa.blocked_bwd_on_wgmma(dtype, d) is want
+
+
+def test_cpu_single_backward_counts_no_launch():
+    """CPU tensors run kernel 10's plain version: the single-block op under
+    autograd, in bfloat16 at head dim 16 (inside the rule) and in float32
+    (outside it), counts no launch of kernel 10 on either body."""
+    fa = tfa.flash_attention
+
+    def counts():
+        return (fa.single_bwd_launches, fa.single_bwd_wgmma_launches,
+                fa.single_bwd_streamed_launches)
+
+    before = counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        leaves = [torch.tensor(_rand((1, 2, 20, 16), i)).to(dtype)
+                  .requires_grad_(True) for i in range(3)]
+        o = fa(*leaves, kv_len=17)              # Sq == Skv <= 512: single
         o.float().sum().backward()
         assert all(leaf.grad is not None for leaf in leaves)
     assert counts() == before

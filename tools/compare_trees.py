@@ -23,9 +23,15 @@ timer in both trees (CUDA graph replay of 20 calls, 5 replays):
   * kernels 12 (delta and dq) and 13 (dk and dv) at kernel 11's shape on
     the forward's o and lse, and F.scaled_dot_product_attention's backward
     on the live keys (forward + backward through autograd less forward);
-  * kernels that share the streamed backward body and must not move:
-    kernel 4 at PTN's training shape (32, 14, 6144), 8 heads of 256, and
-    kernel 10 at (1536, 197, 64), kv_len 197;
+  * kernel 10 at (1536, 197, 64), kv_len 197, on the forward's o and lse,
+    and SDPA's backward on the same live keys;
+  * kernels 7 and 8 (the MoE block's attention half, forward and
+    backward) at (512, 208, 192), kv_len 197, and the half composed of
+    library calls (forward, and its autograd less the forward);
+  * kernels that must not move: kernel 1 (the fused block forward, whose
+    attention launch kernel 7's shared before) at the same shape, kernel 3
+    at PTN's serving shape (256, 14, 6144), 8 heads of 256, and kernel 4
+    (the streamed backward body) at PTN's training shape (32, 14, 6144);
 
 then calls the tree's chip_smoke phases 18 (kernel-flash at the kernel 9
 shape, its checks), 4 and 7 (ViViT serving and training at image 224), 12
@@ -57,6 +63,7 @@ import torch.nn.functional as F
 import chip_smoke as cs
 from devt_tpu_torch.ops import _build
 from devt_tpu_torch.ops import flash_attention as tfa
+from devt_tpu_torch.ops import fused_block as fb
 from devt_tpu_torch.ops import quant as tq
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -125,21 +132,47 @@ with torch.inference_mode():
         q, k, v, o, lse, do, 0.125, 577))
     res["k13_ms"] = graph_ms(lambda: tfa._flash_blocked_dkv_cuda(
         q, k, v, o, lse, do, delta, 0.125, 577))
-    q, k, v = cs._packed_heads(512, 197, 3, 64, torch.bfloat16, 1)
-    o, lse = tfa.flash_attention(q, k, v, return_lse=True)
-    do10 = torch.randn(512, 3, 197, 64, generator=gen).to(q.dtype).cuda()
+    q10, k10, v10 = cs._packed_heads(512, 197, 3, 64, torch.bfloat16, 1)
+    o, lse = tfa.flash_attention(q10, k10, v10, return_lse=True)
+    do10 = torch.randn(512, 3, 197, 64, generator=gen).to(o.dtype).cuda()
     res["k10_ms"] = graph_ms(lambda: tfa._flash_bwd_cuda(
-        q, k, v, o, lse, do10, 0.125, 197))
-    qkv = torch.randn(32, 14, 3 * 2048, generator=gen).to(q.dtype).cuda()
+        q10, k10, v10, o, lse, do10, 0.125, 197))
+    qkv = torch.randn(256, 14, 3 * 2048, generator=gen).to(o.dtype).cuda()
+    res["k3_ms"] = graph_ms(lambda: tfa.fused_mha(qkv, heads=8, kv_len=14,
+                                                  return_lse=True))
+    qkv = torch.randn(32, 14, 3 * 2048, generator=gen).to(o.dtype).cuda()
     o, lse = tfa._mha_cuda(qkv, 8, 256 ** -0.5, 14)
-    do4 = torch.randn(32, 14, 2048, generator=gen).to(q.dtype).cuda()
+    do4 = torch.randn(32, 14, 2048, generator=gen).to(o.dtype).cuda()
     res["k4_ms"] = graph_ms(lambda: tfa._mha_bwd_cuda(
         qkv, o, lse, do4, 8, 256 ** -0.5, 14))
     del q, k, v, o, lse, qkv
+    # the fused block forward (kernel 1) and the attention half (7, 8)
+    x, full = cs._block_inputs(torch.bfloat16, torch.Generator()
+                               .manual_seed(4))
+    half = {name: full[name] for name in fb.HALF_NAMES}
+    res["k1_ms"] = graph_ms(lambda: fb.fused_vit_block(x, full, 3, 0.125,
+                                                       197))
+    res["k7_ms"] = graph_ms(lambda: fb.fused_attn_half(x, half, 3, 0.125,
+                                                       197))
+    _, hres = fb.fused_attn_half(x, half, 3, 0.125, 197)
+    du = torch.randn(x.shape, generator=gen).to(x.dtype).cuda()
+    res["k8_ms"] = graph_ms(lambda: fb._half_bwd_cuda(x, half, hres, du, 3,
+                                                      0.125, 197))
 q, k, v = cs._packed_heads(512, 592, 3, 64, torch.bfloat16, 2)
 res["k12_13_sdpa_bwd_ms"] = cs._sdpa_bwd_ms(q, k, v, do.clone(), 577,
                                            0.125)[0]
-del q, k, v, do
+q10, k10, v10 = cs._packed_heads(512, 197, 3, 64, torch.bfloat16, 1)
+res["k10_sdpa_bwd_ms"] = cs._sdpa_bwd_ms(q10, k10, v10, do10.clone(), 197,
+                                        0.125)[0]
+xc = x.clone()                 # outside inference mode, for autograd
+compose, leaves = cs._composed_half(xc, {n: t.clone()
+                                         for n, t in half.items()})
+xr = xc.clone().requires_grad_(True)
+with torch.no_grad():
+    res["k7_composed_ms"] = graph_ms(lambda: compose(xc), n=5)
+res["k8_composed_ms"] = graph_ms(lambda: torch.autograd.grad(
+    compose(xr), (xr, *leaves), du.clone()), n=5) - res["k7_composed_ms"]
+del q, k, v, do, q10, k10, v10, do10, x, xc, xr, full, half, hres, du
 cs.phase_flash("bf16", 512, 3, 197, 197, 64, 197)
 res["serve_clips_s"] = cs.phase_serve()["clips_per_s"]
 t = cs.phase_train()

@@ -48,8 +48,8 @@ VARIANTS = {
         (TILES, "  return (sq + 63) / 64;"),
         ("constexpr int kOneShotQTiles = 2;",
          "constexpr int kOneShotQTiles = 8;"),
-        ("__launch_bounds__(kOneShotThreads, 3)",
-         "__launch_bounds__(kOneShotThreads, 2)")],
+        ("  return norm_after && hd == 64 && n == 256 ? 2 : 3;",
+         "  return 2;")],
     "one tile a CTA": [
         (TILES, "  return 1;")],
     "no ex2": [(EXP, "      v = kMask ? (v - m[r]) * kLog2e : "

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Variants of the wgmma bodies of kernels 11, 6, 12 and 13, timed on one
-card.
+"""Variants of the wgmma bodies of kernels 11, 6, 12, 13 and 7, timed on
+one card.
 
-    python tools/wgmma_variants.py [--rounds 2] [--kernels 11 6 12 13]
+    python tools/wgmma_variants.py [--rounds 2] [--kernels 11 6 12 13 7]
 
 Copies ``devt_tpu_torch/ops/csrc`` once per variant under
 ``runs/wgmma_variants/`` (gitignored), edits the copy's constants as the
 variant says, builds the one library the variant touches (``flash_fwd.cu``
 for kernel 11, ``int8_matmul.cu`` for kernel 6, ``flash_bwd.cu`` for
-kernels 12 and 13; one nvcc each, all at once, the flags of
+kernels 12 and 13, ``attn_half.cu`` for kernel 7; one nvcc each, all at
+once, the flags of
 ``ops/_build.py``), and times by CUDA graph replay (20 calls, 5 replays),
 in ``--rounds`` rounds:
 
@@ -19,7 +20,9 @@ in ``--rounds`` rounds:
     row pass and the product together, as the wrapper launches them;
   * kernels 12 (delta and dq) and 13 (dk and dv) at kernel 11's shape, on
     the forward's o and lse, against the plain backward (the error in bf16
-    ulps of each tensor's largest element).
+    ulps of each tensor's largest element);
+  * kernel 7 (the MoE block's attention half forward, all three launches)
+    at (512, 208, 192), kv_len 197, against its plain version.
 
 Kernel 11's variants: as built (one consumer warpgroup of 64 query rows
 a CTA, three CTAs an SM, a two-stage ring); two CTAs an SM (the register
@@ -33,7 +36,12 @@ exponentials.  Kernel 6's: as built (128 x 256 tiles, a CTA a tile) and a
 persistent grid of one CTA an SM.  Kernel 12's: as built (64-key tiles,
 three CTAs an SM, two stages), 128-key tiles at two CTAs an SM, and three
 stages.  Kernel 13's: as built (64-query tiles, two CTAs an SM, two
-stages), 32-query tiles at three CTAs an SM, and three stages.  Prints the card's
+stages), 32-query tiles at three CTAs an SM, and three stages.  Kernel
+7's: as built (its attention on the one-shot body's normalise-after
+instance, two CTAs an SM for the instance at head dim 64 and 256 keys),
+three CTAs an SM for that instance too, lse and 1 / l taken before the
+P V product, and its attention on attention_fwd.cuh's streamed body (the
+route before the one-shot body took it).  Prints the card's
 name and power limit, ptxas' registers, spills and wgmma notes (C75xx)
 per variant, one line per variant and round, and a line per sustained
 run: the selected kernels as built and their library calls, each
@@ -79,6 +87,22 @@ DKV_QUERIES = "constexpr int kBwdDkvQueries = 64;"
 DKV_CTAS = "constexpr int kBwdDkvCTAs = 2;"
 DQ_STAGES = "constexpr int kBwdDqStages = 2;"
 DKV_STAGES = "constexpr int kBwdDkvStages = 2;"
+HALF = "attn_half.cu"
+HALF_ROUTE = "  if (!one_shot_on_wgmma(1, HD, a.kv_len))"
+ONE_SHOT_CTAS = "  return norm_after && hd == 64 && n == 256 ? 2 : 3;"
+PV_STEP = "    // 3. O = P V, one m64nHDk16 per 16 keys (16 rows of V)\n"
+LSE_FIRST = (
+    "    if constexpr (kNormAfter) {  // lse now; l becomes 1 / l\n"
+    "#pragma unroll\n"
+    "      for (int hh = 0; hh < 2; ++hh) {\n"
+    "        const int row = 64 * t + 16 * warp + gq + 8 * hh;\n"
+    "        if (row < a.Sq && tq4 == 0)\n"
+    "          L[row * a.ls[2]] = m[hh] * a.scale + logf(l[hh]);\n"
+    "        l[hh] = 1.f / l[hh];\n"
+    "      }\n"
+    "    }\n")
+INV_AT_STORE = "        const float inv = 1.f / l[hh];"
+LSE_STORE = "      if (tq4 == 0)\n        L[row * a.ls[2]] ="
 # (kernel, name): [(header, old, new), ...]
 VARIANTS = {
     (11, "as built"): [],
@@ -121,11 +145,23 @@ VARIANTS = {
         (BWD, DKV_CTAS, "constexpr int kBwdDkvCTAs = 3;")],
     (13, "three stages"): [
         (BWD, DKV_STAGES, "constexpr int kBwdDkvStages = 3;")],
+    (7, "as built"): [],
+    (7, "three CTAs an SM for every one-shot instance"): [
+        (FLASH, ONE_SHOT_CTAS, "  return 3;")],
+    (7, "lse and 1 / l before P V"): [
+        (FLASH, PV_STEP, LSE_FIRST + PV_STEP),
+        (FLASH, INV_AT_STORE, "        const float inv = l[hh];"),
+        (FLASH, LSE_STORE,
+         "      if (!kNormAfter && tq4 == 0)\n        L[row * a.ls[2]] =")],
+    (7, "attention on attention_fwd.cuh's streamed body"): [
+        (HALF, HALF_ROUTE, "  if (true)")],
 }
-STEM = {11: "flash_fwd", 6: "int8_matmul", 12: "flash_bwd", 13: "flash_bwd"}
+STEM = {11: "flash_fwd", 6: "int8_matmul", 12: "flash_bwd", 13: "flash_bwd",
+        7: "attn_half"}
 PTXAS = {11: r"flash_fwd_wgmmaILi(\d+)E", 6: r"gemm_s8_wgmmaI(\w+?)EEv",
          12: r"flash_bwd_dq_wgmmaILi(\d+)E",
-         13: r"flash_bwd_dkv_wgmmaILi(\d+)E"}
+         13: r"flash_bwd_dkv_wgmmaILi(\d+)E",
+         7: r"flash_one_shotILi(\d+)ELi(\d+)ELb0ELb1E"}
 
 
 def build(kernels) -> dict:
@@ -172,8 +208,8 @@ def ptxas(log: str, pattern: str) -> str:
             spill = found.group(1)
         found = re.search(r"Used (\d+) registers", line)
         if found:
-            rows.append(f"<{name.group(1)}> {found.group(1)} regs {spill} "
-                        f"spill bytes")
+            rows.append(f"<{','.join(name.groups())}> {found.group(1)} "
+                        f"regs {spill} spill bytes")
             name = None
     codes = sorted(set(re.findall(r"C75\d\d", log)))
     return "; ".join(rows) + "; wgmma notes " + (
@@ -189,8 +225,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--kernels", type=int, nargs="+", default=[11, 6, 12, 13],
-                    choices=[11, 6, 12, 13])
+    ap.add_argument("--kernels", type=int, nargs="+",
+                    default=[11, 6, 12, 13, 7], choices=[11, 6, 12, 13, 7])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("wgmma_variants: needs an NVIDIA card")
@@ -266,10 +302,32 @@ def main() -> int:
                 cells.append(f"{n} {err.item() / (2.0 ** -8 * largest[i]):.2f}")
         return ", ".join(cells)
 
+    # kernel 7 at the MoE block's shape, its three launches as the wrapper
+    # makes them
+    from chip_smoke import _block_inputs
+    from devt_tpu_torch.ops import fused_block as fb
+
+    hx, full = _block_inputs(torch.bfloat16, torch.Generator().manual_seed(7))
+    half = {n: full[n] for n in fb.HALF_NAMES}
+    want7 = fb.fused_attn_half_fwd_plain(hx, half, 3, 0.125, 197)
+    hu = torch.empty_like(hx)
+    hres = torch.empty(512, 208, 8, device="cuda")
+    hqkv = torch.empty(512, 208, 576, dtype=hx.dtype, device="cuda")
+    hatt = torch.empty_like(hx)
+
+    def k7(lib):
+        rc = lib.devt_attn_half_fwd(
+            1, hx.data_ptr(), *(half[n].data_ptr() for n in fb.HALF_NAMES),
+            hu.data_ptr(), hres.data_ptr(), hqkv.data_ptr(), hatt.data_ptr(),
+            512, 208, 192, 3, 197, 8, ctypes.c_float(0.125), stream())
+        assert rc == 0, rc
+        return hu, hres
+
     def lib_of(i, kernel):
         lib = ctypes.CDLL(str(OUT / str(i) / f"{STEM[kernel]}.so"))
         {11: tfa._declare_flash_fwd, 6: tq._declare_matmul,
-         12: tfa._declare_flash_bwd, 13: tfa._declare_flash_bwd}[kernel](lib)
+         12: tfa._declare_flash_bwd, 13: tfa._declare_flash_bwd,
+         7: fb._declare_half}[kernel](lib)
         return lib
 
     built = {kern: lib_of(i, kern) for i, (kern, name) in enumerate(VARIANTS)
@@ -281,7 +339,15 @@ def main() -> int:
             if kernel not in args.kernels:
                 continue
             lib = lib_of(i, kernel)
-            if kernel == 11:
+            if kernel == 7:
+                u, res = k7(lib)
+                torch.cuda.synchronize()
+                err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip((u, res), want7))
+                t = _graph_ms(lambda: k7(lib))
+                print(f"[round {rnd}] kernel 7 {name}: {t:.4f} ms (u and "
+                      f"res max abs err {err:.3e})", flush=True)
+            elif kernel == 11:
                 o, lse = k11(lib)
                 err = max((g.float() - w.float()).abs().max().item()
                           for g, w in zip((o, lse), want11))
@@ -322,6 +388,8 @@ def main() -> int:
                 * weights[6144][1].reshape(-1, 1)).to(torch.bfloat16)  # (N, K)
         cases += [("kernel 6 at N=6144", lambda: k6(built[6], 6144)),
                   ("F.linear bf16 at N=6144", lambda: F.linear(x, w_bf))]
+    if 7 in args.kernels:
+        cases.append(("kernel 7", lambda: k7(built[7])))
     if 12 in args.kernels:
         cases.append(("kernel 12", lambda: bwd(built[12], 1)))
     if 13 in args.kernels:
