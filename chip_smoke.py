@@ -46,10 +46,15 @@ Phases, each printing a line of its own; any failure exits non-zero:
                body, the plain version, F.linear in bf16 and torch._int_mm
                with its own quantize pass as yardsticks; the row pass's
                share and ptxas' report of the wgmma body.
- 10. kernel-mha — the packed-qkv attention at PTN's shape (256, 16, 6144),
-               8 heads of 256, kv_len 14, and at the ViT shape
+ 10. kernel-mha — the packed-qkv attention at PTN's serving shape
+               (256, 14, 6144), 8 heads of 256, kv_len 14, at the TPU
+               wrapper's padded (256, 16, 6144), and at the ViT shape
                (512, 208, 576), 3 heads of 64, kv_len 197, bf16 and f32: o
-               and lse against the plain version; the kernel's and
+               and lse against the plain version; the body each launch ran
+               (bf16 at PTN's shapes the packed wgmma body of
+               mha_fwd_sm90.cuh, at the ViT shape kernel 9's one-shot
+               instance, f32 the streamed body: mha_fwd_on_wgmma) with
+               ptxas' report; the kernel's and
                F.scaled_dot_product_attention's times by CUDA graph
                replay, the plain version's by CUDA events.
  11. serve-int8 — the ViViT of phase 4 behind Predictor(quantize=True):
@@ -59,8 +64,9 @@ Phases, each printing a line of its own; any failure exits non-zero:
  12. serve-ptn — PTN at full width (256 rows, 13 scenes, 2 experts, 2
                layers, width 2048, 8 heads, bf16) behind three Predictors:
                bf16, int8 with the default site policy, int8 at every site;
-               4 attention launches per forward and 0 / 4 / 16 int8-matmul
-               launches, every one on the wgmma body; the first rows
+               4 attention launches per forward, every one on kernel 3's
+               packed body, and 0 / 4 / 16 int8-matmul launches, every one
+               on the wgmma body; the first rows
                against the CPU; rows/s of each.
  13. kernel-mha-bwd — the packed-qkv attention backward at PTN's training
                shape (32, 14, 6144), 8 heads of 256, bf16 and f32, at the
@@ -76,7 +82,8 @@ Phases, each printing a line of its own; any failure exits non-zero:
                width 2048, 8 heads, bf16, AdamW 1e-4; bench.py's two-modality
                and dropout-training configurations) at dropout 0 and 0.5:
                one make_train_step step and make_multi_step(8), 4 launches of
-               each attention kernel per step, a falling loss at dropout 0,
+               each attention kernel per step (kernel 3 on its packed body at
+               dropout 0, streamed at 0.5), a falling loss at dropout 0,
                one step's gradients on 2 rows against the CPU's plain kernel
                path, in bf16 and in f32; samples/s as the best of 3 windows, the host's
                share and a profile of one step; then one ptn_shared step at
@@ -169,8 +176,10 @@ Phases, each printing a line of its own; any failure exits non-zero:
  24. kernel-ring — kernels 14 and 15 at the sequence-parallel bench's
                shape (512 sequences of 208 tokens, 197 live, 3 heads of
                64), bf16 and f32, against their plain versions, two
-               backward runs bit for bit; kernel 14's body and ptxas
-               report; times (CUDA graph replay), bounds and
+               backward runs bit for bit; kernels 14's and 15's bodies
+               (bf16: the one-shot wgmma body, and kernels 12's and 13's
+               wgmma bodies with the column bias) and ptxas' reports;
+               times (CUDA graph replay), bounds and
                F.scaled_dot_product_attention with the same additive mask;
                a 4-rank ring run hop by hop on the card (592 tokens in 4
                chunks of 148, kv_len 577) against flash_attention and its
@@ -1003,8 +1012,15 @@ def phase_mha(kind: str, b: int, s: int, heads: int, d: int,
     scale = d ** -0.5
     run = lambda: tfa.fused_mha(qkv, heads=heads, kv_len=kv_len,  # noqa: E731
                                 return_lse=True)
+    route = tfa.mha_fwd_on_wgmma(dtype, d, s, kv_len, 0.0)
     with torch.inference_mode():
+        before = _body_counts()
         o, lse = run()
+        body = {k: v - before[k] for k, v in _body_counts().items()}
+        if body != {**dict.fromkeys(body, 0), f"k3_{route}": 1}:
+            raise AssertionError(f"kernel-mha {kind} ({b},{s}): launches by "
+                                 f"body {body}, expected one on the {route} "
+                                 f"body")
         want_o, want_lse = tfa.fused_mha_plain(qkv, heads, scale, kv_len)
         torch.cuda.synchronize()
         _check_close(f"mha {kind} o", o, want_o, *TOL[kind])
@@ -1031,8 +1047,19 @@ def phase_mha(kind: str, b: int, s: int, heads: int, d: int,
     flops = 4 * b * heads * s * kv_len * d
     bytes_ = qkv.numel() * item + b * s * heads * d * item + b * s * heads * 4
     bound_ms, bound_by = _bound({kind: flops}, bytes_)
+    if route == "packed":
+        g, tiles, _ = tfa.mha_packed_tiling(b, s, heads, kv_len)
+        where = (f"the packed body (mha_fwd_sm90.cuh: {g} sequences a 64-row "
+                 f"tile, {tiles} tiles) | "
+                 f"{_ptxas('mha_fwd', 'mha_fwd_packed<d>')}")
+    elif route == "one_shot":
+        where = ("kernel 9's one-shot instance (flash_fwd_sm90.cuh) | "
+                 f"{_ptxas('mha_fwd', ONE_SHOT)}")
+    else:
+        where = "the streamed body (attention_fwd.cuh)"
     print(f"[kernel-mha] fused_mha {kind} ({b},{s},{3 * heads * d}) "
-          f"{heads} heads of {d}, kv_len {kv_len}: max_abs_err o="
+          f"{heads} heads of {d}, kv_len {kv_len}, on {where}: "
+          f"max_abs_err o="
           f"{errs[0]:.3e} (atol {TOL[kind][0]}, rtol {TOL[kind][1]}) lse="
           f"{errs[1]:.3e} (atol {LSE_TOL[0]}, rtol {LSE_TOL[1]}) | "
           f"kernel_ms={kernel_ms:.4f} library_ms={library_ms:.4f} "
@@ -1154,16 +1181,18 @@ def phase_serve_ptn() -> dict:
         pred = Predictor(cfg, weights, buckets=(PTN_ROWS,), quantize=quant,
                          quant_site_pred=site_pred)
         mm = int8_matmul_fused
-        fused_mha.launches = mm.launches = mm.wgmma_launches = 0
+        _zero_counts()
         got = pred.predict(request)["scores"]
-        counts = (fused_mha.launches, mm.launches, mm.wgmma_launches)
-        if counts != (encoders, want_matmuls, want_matmuls):
+        counts = (fused_mha.launches, mm.launches, mm.wgmma_launches,
+                  fused_mha.packed_launches)
+        if counts != (encoders, want_matmuls, want_matmuls, encoders):
             raise AssertionError(
-                f"serve-ptn {tag}: {counts[0]} attention and {counts[1]} "
-                f"int8-matmul launches ({counts[2]} on the wgmma body) in "
-                f"one forward, expected {encoders} and {want_matmuls}, every "
-                f"int8-matmul launch on the wgmma body (the site registry "
-                f"stores K-major codes)")
+                f"serve-ptn {tag}: {counts[0]} attention ({counts[3]} on the "
+                f"packed body) and {counts[1]} int8-matmul launches "
+                f"({counts[2]} on the wgmma body) in one forward, expected "
+                f"{encoders} and {want_matmuls}, every attention launch on "
+                f"the packed body and every int8-matmul launch on the wgmma "
+                f"body (the site registry stores K-major codes)")
         out["mha_launches"] += counts[0]
         out["matmul_launches"] += counts[1]
         if got.shape != (PTN_ROWS, cfg.n_classes) \
@@ -1209,9 +1238,9 @@ def phase_serve_ptn() -> dict:
     print(f"[serve-ptn] PTN bf16 ({PTN_ROWS} rows x {PTN_SEQ} scenes x "
           f"{len(PTN_EXPERTS)} experts x {PTN_WIDTH}, {PTN_LAYERS} layers, "
           f"{PTN_HEADS} heads) behind Predictor(buckets=({PTN_ROWS},)): "
-          f"attention launches {encoders} a forward in each variant, "
-          f"int8-matmul launches 0 / {encoders} / {4 * encoders}, all on "
-          f"the wgmma body; " + "; ".join(
+          f"attention launches {encoders} a forward in each variant, all "
+          f"on kernel 3's packed body, int8-matmul launches 0 / {encoders} / "
+          f"{4 * encoders}, all on the wgmma body; " + "; ".join(
               f"{tag}: {v['rows_per_s']:.1f} rows/s, forward "
               f"{v['forward_ms']:.3f} ms (device {v['device_ms']:.3f} ms), "
               f"card vs CPU {v['cpu_err']:.3e}" + (
@@ -1543,17 +1572,21 @@ def phase_train_ptn() -> dict:
         evaluate = make_eval_step(model, cfg)
         loss_before = evaluate(state, batch)[0].item()
 
-        fused_mha.launches = fused_mha.bwd_launches = 0
+        _zero_counts()
         state, first = step(state, batch, SEED)
         state, metrics = multi(state, stacked, SEED)
         torch.cuda.synchronize()
         counts = (fused_mha.launches, fused_mha.bwd_launches)
         steps = 1 + MULTI_STEPS
-        if counts != (per_step * steps,) * 2:
+        # kernel 3 on the packed body without dropout, streamed with it
+        body = "k3_packed" if rate == 0.0 else "k3_streamed"
+        if counts != (per_step * steps,) * 2 \
+                or _body_counts()[body] != counts[0]:
             raise AssertionError(
                 f"train-ptn dropout {rate}: {counts[0]} forward and "
                 f"{counts[1]} backward attention launches in {steps} steps, "
-                f"expected {per_step} of each per step")
+                f"by body {_body_counts()}, expected {per_step} of each per "
+                f"step, every forward on the {body[3:]} body")
         out["fwd_launches"] += counts[0]
         out["bwd_launches"] += counts[1]
         loss_after = evaluate(state, batch)[0].item()
@@ -1584,7 +1617,8 @@ def phase_train_ptn() -> dict:
                        rows, busy, wall_ms, top=12)
         device_ms = sum(ms for _, ms, _ in rows)
         k3_ms = sum(ms for name, ms, _ in rows
-                    if name.startswith("attention_bf16<256, true"))
+                    if name.startswith(("attention_bf16<256, true",
+                                        "mha_fwd_packed")))
         k4_ms = sum(ms for name, ms, _ in rows
                     if name.startswith(("mha_bwd_delta", "mha_bwd_bf16")))
         print(f"[profile]   device total {device_ms:.3f} ms per step: "
@@ -1596,8 +1630,9 @@ def phase_train_ptn() -> dict:
         extra = f"; {grad_text}" if rate == 0.0 else ""
         print(f"[train-ptn] PTN bf16 AdamW B={PTN_TRAIN_BATCH} ({tag}) "
               f"dropout {rate}: {steps} steps (1 + make_multi_step("
-              f"{MULTI_STEPS})), attention launches {counts[0]} forward + "
-              f"{counts[1]} backward ({per_step} of each per step); loss on "
+              f"{MULTI_STEPS})), attention launches {counts[0]} forward (on "
+              f"kernel 3's {body[3:]} body) + {counts[1]} backward "
+              f"({per_step} of each per step); loss on "
               f"the fixed batch {loss_before:.5f} -> {loss_after:.5f}{extra} "
               f"| {samples_per_s:.2f} samples/s, step_ms={step_ms:.3f}, of "
               f"which the host needs {host_ms:.3f} ms to enqueue a step; "
@@ -1615,12 +1650,13 @@ def phase_train_ptn() -> dict:
     model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
     state = TrainState.create(dict(model.named_parameters()),
                               build_optimizer(cfg))
-    fused_mha.launches = fused_mha.bwd_launches = 0
+    _zero_counts()
     state, metrics = make_train_step(model, cfg)(state, batch, SEED)
     loss = metrics["loss"].item()
     counts = (fused_mha.launches, fused_mha.bwd_launches)
     shared = (len(PTN_EXPERTS) + 1) * PTN_LAYERS
-    if counts != (shared, shared) or not math.isfinite(loss):
+    if counts != (shared, shared) or not math.isfinite(loss) \
+            or fused_mha.streamed_launches != shared:
         raise AssertionError(f"train-ptn ptn_shared: launches {counts}, "
                              f"expected {shared} of each; loss {loss}")
     out["fwd_launches"] += counts[0]
@@ -1860,6 +1896,8 @@ def _zero_counts() -> None:
 
     for fn in (fb.fused_vit_block, tfa.fused_mha, fb.fused_attn_half):
         fn.launches = fn.bwd_launches = 0
+    mha = tfa.fused_mha
+    mha.packed_launches = mha.one_shot_launches = mha.streamed_launches = 0
     half = fb.fused_attn_half
     half.wgmma_launches = half.streamed_launches = 0
     tq.quant_fused_vit_block.launches = 0
@@ -1872,28 +1910,34 @@ def _zero_counts() -> None:
     fa.blocked_dkv_wgmma_launches = fa.blocked_dkv_streamed_launches = 0
     fa.blocked_wgmma_launches = fa.blocked_streamed_launches = 0
     tfa.ring_step_fwd.launches = tfa.ring_step_bwd.launches = 0
-    tfa.ring_step_fwd.wgmma_launches = tfa.ring_step_fwd.streamed_launches = 0
+    for ring in (tfa.ring_step_fwd, tfa.ring_step_bwd):
+        ring.wgmma_launches = ring.streamed_launches = 0
     mm = tq.int8_matmul_fused
     mm.launches = mm.wgmma_launches = mm.mma_sync_launches = 0
 
 
 def _body_counts() -> dict:
-    """Launches by body of the kernels that have two: 9 and 14 (the wgmma
+    """Launches by body of the kernels that have more than one: 3 (the
+    packed wgmma body of csrc/mha_fwd_sm90.cuh, kernel 9's one-shot
+    instance, or attention_fwd.cuh's streamed body), 9 and 14 (the wgmma
     one-shot body of csrc/flash_fwd_sm90.cuh, or the streamed one of
     csrc/flash_fwd.cuh), 7 (its attention launch on the one-shot body's
     normalise-after instance, or attention_fwd.cuh's), 11 (the wgmma
     online body of csrc/flash_fwd_sm90.cuh, or flash_fwd.cuh's), 12 and
     13 (the wgmma bodies of csrc/flash_bwd_sm90.cuh, or attention_bwd.cuh's
-    streamed one), 10 (both of those wgmma bodies, or the streamed one)
-    and 6 (the wgmma product of csrc/gemm_s8_sm90.cuh, or
+    streamed one), 10 and 15 (both of those wgmma bodies, or the streamed
+    one) and 6 (the wgmma product of csrc/gemm_s8_sm90.cuh, or
     int8_common.cuh's mma.sync one)."""
     from devt_tpu_torch.ops import flash_attention as tfa
     from devt_tpu_torch.ops import fused_block as fb
     from devt_tpu_torch.ops import quant as tq
 
-    fa, ring = tfa.flash_attention, tfa.ring_step_fwd
+    fa, ring, mha = tfa.flash_attention, tfa.ring_step_fwd, tfa.fused_mha
     mm, half = tq.int8_matmul_fused, fb.fused_attn_half
-    return {"k7_wgmma": half.wgmma_launches,
+    return {"k3_packed": mha.packed_launches,
+            "k3_one_shot": mha.one_shot_launches,
+            "k3_streamed": mha.streamed_launches,
+            "k7_wgmma": half.wgmma_launches,
             "k7_streamed": half.streamed_launches,
             "k9_wgmma": fa.single_wgmma_launches,
             "k9_streamed": fa.single_streamed_launches,
@@ -1907,6 +1951,8 @@ def _body_counts() -> dict:
             "k13_streamed": fa.blocked_dkv_streamed_launches,
             "k14_wgmma": ring.wgmma_launches,
             "k14_streamed": ring.streamed_launches,
+            "k15_wgmma": tfa.ring_step_bwd.wgmma_launches,
+            "k15_streamed": tfa.ring_step_bwd.streamed_launches,
             "k6_wgmma": mm.wgmma_launches,
             "k6_mma_sync": mm.mma_sync_launches}
 
@@ -1917,17 +1963,35 @@ ONE_SHOT = "flash_one_shot<d, width, mask, norm_after>"
 WGMMA_BODIES = {
     ONE_SHOT: r"flash_one_shotILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
     "flash_fwd_wgmma<d>": r"flash_fwd_wgmmaILi(\d+)E",
-    "flash_bwd_dq_wgmma<d>": r"flash_bwd_dq_wgmmaILi(\d+)E",
-    "flash_bwd_dkv_wgmma<d>": r"flash_bwd_dkv_wgmmaILi(\d+)E",
+    "flash_bwd_dq_wgmma<d, ring>": r"flash_bwd_dq_wgmmaILi(\d+)ELb(\d)E",
+    "flash_bwd_dkv_wgmma<d, ring>": r"flash_bwd_dkv_wgmmaILi(\d+)ELb(\d)E",
+    "mha_fwd_packed<d>": r"mha_fwd_packedILi(\d+)E",
     "gemm_s8_wgmma<out>": r"gemm_s8_wgmmaI(\w+?)EEv",
+}
+
+
+# registers of the wgmma instances that kernel 3's and 15's moves left as
+# they were (ptxas on an NVIDIA H100's toolkit, before the kRing option):
+# kernel 9's one-shot instances, and kernels 12's and 13's (10's) bodies
+_DQ, _DKV = "flash_bwd_dq_wgmma<d, ring>", "flash_bwd_dkv_wgmma<d, ring>"
+KEPT_REGS = {
+    ("flash_fwd", ONE_SHOT): {"64,208,0,0": 141},
+    ("ring_step", ONE_SHOT): {"64,208,1,0": 166},
+    ("attn_half", ONE_SHOT): {"64,208,0,1": 146},
+    **{(stem, _DQ): {"64,0": 123, "32,0": 107, "16,0": 98}
+       for stem in ("flash_bwd", "ring_step")},
+    **{(stem, _DKV): {"64,0": 168, "32,0": 152, "16,0": 130}
+       for stem in ("flash_bwd", "ring_step")},
 }
 
 
 def _ptxas(stem: str, body: str) -> str:
     """ptxas' registers and spill bytes of each instance of the wgmma body
-    ``body`` (a key of WGMMA_BODIES) in csrc/<stem>.cu, and how many wgmma
-    serialisation warnings the build gave, from the build log (-Xptxas
-    -v)."""
+    ``body`` (a key of WGMMA_BODIES) in csrc/<stem>.cu, how many wgmma
+    serialisation notes the build gave (C7511, C7512: for registers;
+    C7515: a wgmma in flight across a loop's back edge), and whether the
+    instances of KEPT_REGS kept their registers, from the build log
+    (-Xptxas -v)."""
     import re
 
     from devt_tpu_torch.ops import _build
@@ -1946,12 +2010,16 @@ def _ptxas(stem: str, body: str) -> str:
             spill = found.group(1)
         found = re.search(r"Used (\d+) registers", line)
         if found:
-            rows.append(f"<{','.join(name.groups())}> {found.group(1)} regs "
-                        f"{spill} spill bytes")
+            args = ",".join(name.groups())
+            kept = KEPT_REGS.get((stem, body), {}).get(args)
+            rows.append(f"<{args}> {found.group(1)} regs {spill} spill bytes"
+                        + ("" if kept is None else
+                           " (unchanged)" if int(found.group(1)) == kept else
+                           f" (CHANGED from {kept})"))
             name = None
-    return (f"ptxas {body}: {'; '.join(rows)}; wgmma serialisation "
-            f"warnings in {stem}.cu: C7511 {log.count('C7511')}, C7512 "
-            f"{log.count('C7512')}")
+    return (f"ptxas {body}: {'; '.join(rows)}; wgmma notes in {stem}.cu: "
+            f"C7511 {log.count('C7511')}, C7512 {log.count('C7512')}, C7515 "
+            f"{log.count('C7515')}")
 
 
 def _vivit_cfg(**kw):
@@ -2845,8 +2913,7 @@ def phase_flash_blocked_bwd(kind: str, b: int, heads: int, sq: int, skv: int,
           f"{times} | bound_ms kernel 12 "
           f"{out['dq_bound_ms']:.4f} ({out['dq_bound_by']}), kernel 13 "
           f"{out['dkv_bound_ms']:.4f} ({out['dkv_bound_by']})"
-          + (f" | {_ptxas('flash_bwd', 'flash_bwd_dq_wgmma<d>')} | "
-             f"{_ptxas('flash_bwd', 'flash_bwd_dkv_wgmma<d>')}"
+          + (f" | {_ptxas('flash_bwd', _DQ)} | {_ptxas('flash_bwd', _DKV)}"
              if wgmma and timed else ""), flush=True)
     return out
 
@@ -3062,10 +3129,15 @@ def _hop_by_hop(kind) -> tuple[dict, dict]:
     if counts != _expect(k14=HOP_SHARDS ** 2, k15=HOP_SHARDS ** 2):
         raise AssertionError(f"kernel-ring hop by hop: launches {counts}")
     wgmma = tfa.one_shot_on_wgmma(dtype, d, s_p)
+    bwd_wgmma = tfa.blocked_bwd_on_wgmma(dtype, d)
     counts["k14_wgmma"] = _body_counts()["k14_wgmma"]
-    if counts["k14_wgmma"] != (HOP_SHARDS ** 2 if wgmma else 0):
+    counts["k15_wgmma"] = _body_counts()["k15_wgmma"]
+    if counts["k14_wgmma"] != (HOP_SHARDS ** 2 if wgmma else 0) \
+            or counts["k15_wgmma"] != (HOP_SHARDS ** 2 if bwd_wgmma else 0):
         raise AssertionError(f"kernel-ring hop by hop: {counts['k14_wgmma']} "
-                             f"launches of kernel 14 on the wgmma body")
+                             f"launches of kernel 14 and "
+                             f"{counts['k15_wgmma']} of kernel 15 on the "
+                             f"wgmma bodies")
 
     def cat(parts):
         return torch.cat([p[:, :chunk] for p in parts], dim=1)
@@ -3147,7 +3219,13 @@ def phase_ring(kind: str) -> dict:
         fwd_err = max(_max_err(o, wo), _max_err(lse, wlse))
         bwd = lambda: tfa.ring_step_bwd(  # noqa: E731
             q, kv, mask, o, lse, do, heads=heads, scale=scale)
+        before = _body_counts()
         got = bwd()
+        body = {k: v - before[k] for k, v in _body_counts().items()}
+        bwd_wgmma = tfa.blocked_bwd_on_wgmma(dtype, d)
+        if body != {**dict.fromkeys(body, 0), "k15_wgmma": int(bwd_wgmma),
+                    "k15_streamed": int(not bwd_wgmma)}:
+            raise AssertionError(f"{tag}: kernel 15 launches by body {body}")
         want = tfa.ring_step_bwd_plain(q, kv, mask, o, lse, do, heads, scale)
         torch.cuda.synchronize()
         bwd_err = 0.0
@@ -3192,6 +3270,9 @@ def phase_ring(kind: str) -> dict:
     hop_errs, hop_counts = _hop_by_hop(kind)
     body14 = ("wgmma body (flash_fwd_sm90.cuh)" if want_wgmma
               else "streamed body (flash_fwd.cuh)")
+    body15 = ("wgmma bodies of kernels 12 and 13 (flash_bwd_sm90.cuh, kRing: "
+              "two launches)" if bwd_wgmma else
+              "streamed body (attention_bwd.cuh, a delta launch first)")
 
     # the one-rank ring under autograd: one launch of each kernel
     small = [t[:8, :RING_LIVE].detach().requires_grad_(True) for t in (q, kv)]
@@ -3217,14 +3298,18 @@ def phase_ring(kind: str) -> dict:
           f"{out['bwd']['library_ms']:.4f}: its backward through autograd, "
           f"forward + backward {both:.4f} less forward; bound_ms="
           f"{out['bwd']['bound_ms']:.4f} ({out['bwd']['bound_by']})); kernel "
-          f"14 ran the {body14}; every time by CUDA graph replay"
+          f"14 ran the {body14}, kernel 15 the {body15}; every time by CUDA "
+          f"graph replay"
           + (f"; {_ptxas('ring_step', ONE_SHOT)}"
              if want_wgmma else "")
+          + (f"; {_ptxas('ring_step', _DQ)}; {_ptxas('ring_step', _DKV)}"
+             if bwd_wgmma else "")
           + f" | hop "
           f"by hop, {HOP_SHARDS} chunks of {HOP_S // HOP_SHARDS} of a "
           f"{HOP_S}-token sequence (kv_len {HOP_KV}), {HOP_SEQS} sequences: "
           f"{hop_counts['k14']} + {hop_counts['k15']} launches "
-          f"({hop_counts['k14_wgmma']} of kernel 14 on the wgmma body); "
+          f"({hop_counts['k14_wgmma']} of kernel 14 and "
+          f"{hop_counts['k15_wgmma']} of kernel 15 on the wgmma bodies); "
           f"against "
           f"flash_attention and its gradient (kernels 11-13), largest error "
           f"as a share of the tensor's largest element: "
@@ -3366,10 +3451,16 @@ def main() -> int:
         entry(2, "fused_vit_block_bwd", csrc + "fused_block_bwd.cu",
               "devt_tpu/ops/fused_block.py:240",
               train["bwd_launches"] + later("k2"), bwd),
-        entry(3, "fused_mha", csrc + "mha_fwd.cu",
+        # its main path (PTN) runs the packed wgmma body; the blocks the
+        # fused kernels do not take at head dim 64, kernel 9's one-shot
+        # instance; dropout, the streamed body
+        entry(3, "fused_mha", csrc + "mha_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:558",
               ptn["mha_launches"] + train_ptn["fwd_launches"] + later("k3"),
-              mha),
+              mha, launch_sources=[csrc + "mha_fwd.cu",
+                                   csrc + "mha_fwd_sm90.cuh",
+                                   csrc + "flash_fwd_sm90.cuh",
+                                   csrc + "attention_fwd.cuh"]),
         entry(4, "fused_mha_bwd", csrc + "mha_bwd.cu",
               "devt_tpu/ops/flash_attention.py:589",
               train_ptn["bwd_launches"] + later("k4"), mha_bwd),
@@ -3419,9 +3510,11 @@ def main() -> int:
         entry(14, "ring_step_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:792", ring["launches"]["k14"],
               ring["fwd"]),
-        entry(15, "ring_step_bwd", csrc + "ring_step.cu",
+        # bf16 at head dims 16-64 on kernels 12's and 13's wgmma bodies
+        entry(15, "ring_step_bwd", csrc + "flash_bwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:814", ring["launches"]["k15"],
-              ring["bwd"])]
+              ring["bwd"], launch_sources=[csrc + "ring_step.cu",
+                                           csrc + "flash_bwd_sm90.cuh"])]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']}: no launch on its path")

@@ -168,31 +168,17 @@ struct FwdArgs {
 
 // forward, launch 2: the attention of every (sequence, head) from the qkv
 // scratch into att and the lse lanes of res
-template <int D, int HD>
+template <int HD>
 cudaError_t half_attention_bf16(const FwdArgs& a) {
   const bf16* qkv = static_cast<const bf16*>(a.qkv);
   if (!one_shot_on_wgmma(1, HD, a.kv_len))
     return launch_attention_bf16<HD, false>(
         qkv, static_cast<bf16*>(a.att), static_cast<float*>(a.res), a.B,
         a.S, a.H, a.kv_len, a.lanes, a.scale, a.stream);
-  FlashFwd f{};
-  f.q = qkv;
-  f.k = qkv + D;
-  f.v = qkv + 2 * D;
-  f.o = a.att;
-  f.lse = static_cast<float*>(a.res);
-  const long long S = a.S;
-  for (int i = 0; i < 3; ++i) {
-    // (sequence, head, row) strides of the packed layouts
-    f.qs[i] = f.ks[i] = f.vs[i] = i == 0 ? S * 3 * D : i == 1 ? HD : 3 * D;
-    f.os[i] = i == 0 ? S * D : i == 1 ? HD : D;
-    f.ls[i] = i == 0 ? S * a.lanes : i == 1 ? 1 : a.lanes;
-  }
-  f.H = a.H;
-  f.Sq = f.Skv = a.S;
-  f.kv_len = a.kv_len;
-  f.scale = a.scale;
-  return launch_one_shot<false, true>(f, a.B, HD, a.stream);
+  return launch_one_shot<false, true>(
+      packed_qkv_heads(qkv, a.att, static_cast<float*>(a.res), a.S, a.H, HD,
+                       a.kv_len, a.lanes, a.scale),
+      a.B, HD, a.stream);
 }
 
 template <int D, int HD>
@@ -209,7 +195,7 @@ cudaError_t fwd_bf16_shape(const FwdArgs& a) {
       static_cast<float*>(a.res), nullptr, rows, D, N3, a.H, a.lanes);
   DEVT_TRY(cudaGetLastError());
 
-  DEVT_TRY((half_attention_bf16<D, HD>(a)));
+  DEVT_TRY(half_attention_bf16<HD>(a));
 
   constexpr size_t s3 = out_proj_smem<D>();
   DEVT_TRY(set_smem(out_proj_bf16<D>, s3));

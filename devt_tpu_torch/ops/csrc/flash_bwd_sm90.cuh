@@ -1,11 +1,26 @@
 // The blockwise attention backward on Hopper's wgmma and TMA: kernels 12
 // (dq, with delta) and 13 (dk and dv) of the port in bfloat16 at head dims
-// 16, 32 and 64, behind flash_bwd.cu's devt_flash_blocked_bwd.
+// 16, 32 and 64, behind flash_bwd.cu's devt_flash_blocked_bwd (and kernel
+// 10 as both), and with kRing behind ring_step.cu's kernel 15.
 //
-//   flash_bwd_dq_wgmma<d>   kernel 12, devt_tpu/ops/flash_attention.py:158
-//                           _bwd_dq_kernel
-//   flash_bwd_dkv_wgmma<d>  kernel 13, flash_attention.py:198
-//                           _bwd_dkv_kernel
+//   flash_bwd_dq_wgmma<d, ring>   kernel 12, devt_tpu/ops/flash_attention.py:
+//                                 158 _bwd_dq_kernel
+//   flash_bwd_dkv_wgmma<d, ring>  kernel 13, flash_attention.py:198
+//                                 _bwd_dkv_kernel
+//
+// kRing (a template parameter; kernels 10, 12 and 13 compile without it)
+// is kernel 15, flash_attention.py:814 _ring_bwd_kernel, one ring hop: q,
+// o, do (B, S, H*d) and the packed kv shard (B, S, 2*H*d) by strides, the
+// GLOBAL lse (B, S, H), an additive f32 column bias of 0 or -1e30 in place
+// of kv_len, Sq = Skv = S, and f32 dq (B, S, H*d) and dk, dv in the packed
+// dkv (B, S, 2*H*d), stored through strides, partials that sum across hops.
+// p = exp(s scale + bias - lse), the bias added to each scaled score and
+// lse subtracted before the exponent, as the plain version does.  Kernel
+// 12 stages the bias of every key tile in shared memory before its loop
+// (-inf past Skv, so no tile needs the kv_len mask); in kernel 13 a
+// thread's two key rows are constant for its whole loop, so their bias
+// sits in two registers.  A fully masked column gets p = 0 exactly, so its
+// dk and dv are exact zeros; rows past S still get +inf lse and 0 delta.
 //
 // What they compute is flash_bwd.cu's contract, per (sequence, head):
 //
@@ -107,6 +122,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "flash_fwd_sm90.cuh"
 
 namespace {
@@ -147,6 +164,20 @@ struct FlashBwd {
   int H, Sq, Skv, kv_len;
   float scale;
 };
+
+// kernel 15's (kRing): element strides (sequence, head, row) of o, do and
+// dq (qs), of dk and dv (ks) and of lse (ls); the f32 outputs; the additive
+// column bias (Skv values).  delta stays (B*H, Sq) scratch, lse is read
+// through ls, and the bf16 outputs of the base are unused.  A type of its
+// own, so that the other instances' parameters stay as they were.
+struct RingBwd : FlashBwd {
+  long long qs[3], ks[3], ls[3];
+  float *dqf, *dkf, *dvf;
+  const float* mask;
+};
+
+template <bool kRing>
+using BwdArgs = std::conditional_t<kRing, RingBwd, FlashBwd>;
 
 // d[0, 16) = (acc ? d : 0) + A (64 x 16, shared, K-major) B (16 x 32,
 // shared, K-major)
@@ -246,6 +277,24 @@ __device__ __forceinline__ void store_tile(bf16* base, const float* acc,
   }
 }
 
+// stores rows row0 + 8 hh of a 64 x HD accumulator tile of this thread as
+// f32 pairs at base + row * rs (element strides), rows >= `rows` skipped
+template <int HD>
+__device__ __forceinline__ void store_tile_f32(float* base, const float* acc,
+                                               int row0, int tq4, int rows,
+                                               long long rs) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= rows) continue;
+    float* dst = base + row * rs + 2 * tq4;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj)
+      *reinterpret_cast<float2*>(dst + 8 * jj) =
+          make_float2(acc[4 * jj + 2 * hh], acc[4 * jj + 2 * hh + 1]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // kernel 12: dq, and delta
 // ---------------------------------------------------------------------------
@@ -254,14 +303,19 @@ __device__ __forceinline__ void store_tile(bf16* base, const float* acc,
 // (bars: K full, V full, K empty, V empty per stage): S and dP, p and ds
 // in registers, dQ += dS K.  kMask sets the scores of keys past kv_len to
 // p = 0; only the last tile takes it, as a template parameter, so that no
-// runtime test sits among the wgmmas.
-template <int HD, bool kMask>
+// runtime test sits among the wgmmas.  kRing (kernel 15) adds the staged
+// column bias msk to each scaled score and takes p = 2^((s - lse) log2 e)
+// with lc the raw lse, as the plain version subtracts (a row whose lse is
+// about -1e30 then gives p = 1 where it does, not 2^(rounding error)); the
+// bias is -inf past Skv, so every tile takes it and none needs kMask.
+template <int HD, bool kMask, bool kRing = false>
 __device__ __forceinline__ void dq_tile(int j, const FlashBwd& a,
                                         const unsigned char* KV,
                                         uint64_t* bars, uint64_t qdesc,
                                         uint64_t dodesc, const float (&lc)[2],
                                         const float (&dl)[2], int tq4,
-                                        int lane, float (&dq)[HD / 2]) {
+                                        int lane, float (&dq)[HD / 2],
+                                        const float* msk = nullptr) {
   constexpr int N = kBwdDqKeys;
   constexpr int S = kBwdDqStages;
   constexpr uint32_t kSlot = align1024(N * HD * 2);
@@ -290,9 +344,23 @@ __device__ __forceinline__ void dq_tile(int j, const FlashBwd& a,
       for (int e = 0; e < 4; ++e)
         if (8 * jj + 2 * tq4 + (e & 1) >= live) s[4 * jj + e] = neg_inf();
   }
+  if constexpr (kRing) {
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i)
-    s[i] = ex2(fmaf(s[i], c, -lc[(i >> 1) & 1]));
+    for (int jj = 0; jj < N / 8; ++jj) {
+      const float2 bias =
+          *reinterpret_cast<const float2*>(msk + j * N + 8 * jj + 2 * tq4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[4 * jj + e];
+        x = ex2((fmaf(x, a.scale, e & 1 ? bias.y : bias.x) - lc[e >> 1]) *
+                kLog2e);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      s[i] = ex2(fmaf(s[i], c, -lc[(i >> 1) & 1]));
+  }
 
   wgmma_wait_all();
   fence_all<N / 2>(dp);
@@ -309,13 +377,13 @@ __device__ __forceinline__ void dq_tile(int j, const FlashBwd& a,
   if (lane == 0) mbar_arrive(&bars[2 * S + st]);  // K read
 }
 
-template <int HD>
+template <int HD, bool kRing = false>
 __global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap tdo,
-                       const FlashBwd a) {
+                       const BwdArgs<kRing> a) {
   constexpr int RB = HD * 2;  // bytes of a row
   constexpr int N = kBwdDqKeys;
   constexpr int S = kBwdDqStages;
@@ -347,6 +415,11 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
     }
     mbar_init(qfull, 1);
     mbar_fence_init();
+  }
+  if constexpr (kRing) {  // the column bias of every key tile, -inf past Skv
+    float* msk = reinterpret_cast<float*>(KV + 2 * S * kSlot);
+    for (int c = threadIdx.x; c < ntiles * N; c += kBwdThreads)
+      msk[c] = c < a.Skv ? a.mask[c] : neg_inf();
   }
   __syncthreads();
 
@@ -384,7 +457,11 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
     const int row = row0 + 8 * hh;
     float acc = 0.f;
     if (row < a.Sq) {
-      const size_t g = (head + row) * HD + tq4 * (HD / 4);
+      size_t g;
+      if constexpr (kRing)
+        g = b * a.qs[0] + h * a.qs[1] + row * a.qs[2] + tq4 * (HD / 4);
+      else
+        g = (head + row) * HD + tq4 * (HD / 4);
       const __nv_bfloat162* op =
           reinterpret_cast<const __nv_bfloat162*>(a.o + g);
       const __nv_bfloat162* gp =
@@ -398,7 +475,11 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
       }
     }
     dl[hh] = quad_sum(acc);
-    lc[hh] = row < a.Sq ? a.lse[head + row] * kLog2e : pos_inf();
+    if constexpr (kRing)
+      lc[hh] = row < a.Sq ? a.lse[b * a.ls[0] + h * a.ls[1] + row * a.ls[2]]
+                          : pos_inf();
+    else
+      lc[hh] = row < a.Sq ? a.lse[head + row] * kLog2e : pos_inf();
     if (tq4 == 0 && row < a.Sq) a.delta[head + row] = dl[hh];
   }
 
@@ -407,28 +488,40 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
   mbar_wait(qfull, 0);
+  if constexpr (kRing) {
 #pragma unroll 1
-  for (int j = 0; j < ntiles - 1; ++j)
-    dq_tile<HD, false>(j, a, KV, bars, qdesc, dodesc, lc, dl, tq4, lane, dq);
-  // the last tile (kv_len >= 1: there is one) masks keys past kv_len
-  dq_tile<HD, true>(ntiles - 1, a, KV, bars, qdesc, dodesc, lc, dl, tq4, lane,
-                    dq);
-  fence_all<HD / 2>(dq);
+    for (int j = 0; j < ntiles; ++j)
+      dq_tile<HD, false, true>(
+          j, a, KV, bars, qdesc, dodesc, lc, dl, tq4, lane, dq,
+          reinterpret_cast<const float*>(KV + 2 * S * kSlot));
+    fence_all<HD / 2>(dq);
+    store_tile_f32<HD>(a.dqf + b * a.qs[0] + h * a.qs[1], dq, row0, tq4,
+                       a.Sq, a.qs[2]);
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < ntiles - 1; ++j)
+      dq_tile<HD, false>(j, a, KV, bars, qdesc, dodesc, lc, dl, tq4, lane,
+                         dq);
+    // the last tile (kv_len >= 1: there is one) masks keys past kv_len
+    dq_tile<HD, true>(ntiles - 1, a, KV, bars, qdesc, dodesc, lc, dl, tq4,
+                      lane, dq);
+    fence_all<HD / 2>(dq);
 
-  store_tile<HD>(a.dq + head * HD, dq, row0, tq4, a.Sq, a.Sq);
+    store_tile<HD>(a.dq + head * HD, dq, row0, tq4, a.Sq, a.Sq);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // kernel 13: dk and dv
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int HD, bool kRing = false>
 __global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         const __grid_constant__ CUtensorMap tdo,
-                        const FlashBwd a) {
+                        const BwdArgs<kRing> a) {
   constexpr int RB = HD * 2;
   constexpr int N = kBwdDkvQueries;
   constexpr int S = kBwdDkvStages;
@@ -453,7 +546,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
   const int key0 = 64 * part;
   const size_t kbase = (static_cast<size_t>(bh) * a.Skv + key0) * HD;
 
-  if (key0 >= a.kv_len) {  // every key of the block masked: zeros
+  if (!kRing && key0 >= a.kv_len) {  // every key of the block masked
     const int n = min(64, a.Skv - key0) * HD / 2;
     uint32_t* dk = reinterpret_cast<uint32_t*>(a.dk + kbase);
     uint32_t* dv = reinterpret_cast<uint32_t*>(a.dv + kbase);
@@ -490,7 +583,11 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
       for (int i = lane; i < N; i += 32) {
         const int r = j * N + i;
         const bool ok = r < a.Sq;
-        lsm[st][i] = ok ? a.lse[head + r] * kLog2e : pos_inf();
+        if constexpr (kRing)  // the raw lse: kernel 12's kRing exponent
+          lsm[st][i] =
+              ok ? a.lse[b * a.ls[0] + h * a.ls[1] + r * a.ls[2]] : pos_inf();
+        else
+          lsm[st][i] = ok ? a.lse[head + r] * kLog2e : pos_inf();
         dsm[st][i] = ok ? a.delta[head + r] : 0.f;
       }
       unsigned char* Qs = QD + 2 * st * kSlot;
@@ -508,6 +605,16 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
 
   const uint64_t kdesc = smem_desc<HD>(Ks), vdesc = smem_desc<HD>(Vs);
   const float c = a.scale * kLog2e;
+  // kRing: the column bias of this thread's two key rows, the same for the
+  // whole loop (rows past Skv are never stored)
+  float kb[2] = {0.f, 0.f};
+  if constexpr (kRing) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = key0 + 16 * warp + gq + 8 * hh;
+      kb[hh] = key < a.Skv ? a.mask[key] : 0.f;
+    }
+  }
   float dk[HD / 2], dv[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
@@ -535,8 +642,14 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
     for (int jj = 0; jj < N / 8; ++jj) {
       const float2 l = *reinterpret_cast<const float2*>(lq + 8 * jj + 2 * tq4);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[4 * jj + e] = ex2(fmaf(s[4 * jj + e], c, -(e & 1 ? l.y : l.x)));
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[4 * jj + e];
+        if constexpr (kRing)
+          x = ex2((fmaf(x, a.scale, kb[e >> 1]) - (e & 1 ? l.y : l.x)) *
+                  kLog2e);
+        else
+          x = ex2(fmaf(x, c, -(e & 1 ? l.y : l.x)));
+      }
     }
     wgmma_wait_all();  // dP^T
     fence_all<N / 2>(dp);
@@ -564,8 +677,14 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
 
   const int row0 = 16 * warp + gq;
   const int rows = min(64, a.Skv - key0), live = a.kv_len - key0;
-  store_tile<HD>(a.dk + kbase, dk, row0, tq4, rows, live);
-  store_tile<HD>(a.dv + kbase, dv, row0, tq4, rows, live);
+  if constexpr (kRing) {
+    const size_t kr = b * a.ks[0] + h * a.ks[1] + key0 * a.ks[2];
+    store_tile_f32<HD>(a.dkf + kr, dk, row0, tq4, rows, a.ks[2]);
+    store_tile_f32<HD>(a.dvf + kr, dv, row0, tq4, rows, a.ks[2]);
+  } else {
+    store_tile<HD>(a.dk + kbase, dk, row0, tq4, rows, live);
+    store_tile<HD>(a.dv + kbase, dv, row0, tq4, rows, live);
+  }
 }
 
 // ---------------------------------------------------------------------------

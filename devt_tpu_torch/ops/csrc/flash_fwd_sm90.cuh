@@ -928,6 +928,33 @@ cudaError_t launch_one_shot_d(const CUtensorMap (&m)[3], const FlashFwd& a,
   return cudaErrorInvalidValue;
 }
 
+// the one-shot body's arguments for the heads of a packed qkv (B, S,
+// 3*H*d) bf16, by strides: o (B, S, H*d), lse at lane h of rows of `lanes`
+// floats (kernel 7's residual lanes, or kernel 3's (B, S, H) with lanes =
+// H); keys at or past kv_len masked
+inline FlashFwd packed_qkv_heads(const bf16* qkv, void* o, float* lse, int S,
+                                 int H, int d, int kv_len, int lanes,
+                                 float scale) {
+  const long long hd = static_cast<long long>(H) * d;
+  FlashFwd f{};
+  f.q = qkv;
+  f.k = qkv + hd;
+  f.v = qkv + 2 * hd;
+  f.o = o;
+  f.lse = lse;
+  for (int i = 0; i < 3; ++i) {
+    // (sequence, head, row) strides of the packed layouts
+    f.qs[i] = f.ks[i] = f.vs[i] = i == 0 ? S * 3 * hd : i == 1 ? d : 3 * hd;
+    f.os[i] = i == 0 ? S * hd : i == 1 ? d : hd;
+    f.ls[i] = i == 0 ? static_cast<long long>(S) * lanes : i == 1 ? 1 : lanes;
+  }
+  f.H = H;
+  f.Sq = f.Skv = S;
+  f.kv_len = kv_len;
+  f.scale = scale;
+  return f;
+}
+
 // kernel 9 (mask off: keys at or past a.kv_len masked), 14 (a.mask's
 // bias) or, with kNormAfter, kernel 7's attention (the kv_len mask, o
 // normalised after P V) on the wgmma body, for a bfloat16 shape inside

@@ -14,24 +14,35 @@
 // broadcasts lse over 128 lanes, a layout of that chip; here it is one
 // value per row and head).
 //
-// The attention body is attention_fwd.cuh's, shared with the fused ViT
-// block, instantiated with p normalised before the product, with or
-// without the attention-probability dropout, and for head dims 16, 32, 64,
-// 128 and 256.  A block takes 64 queries of one (sequence, head); S is any
-// length whose K and V (kv_len rounded up to 32 rows) fit a block's shared
-// memory: 512 keys and more at head dim 64, 160 at 256.  The dropout mask
-// is Philox4x32-10 of (seed; site kSiteAttn, flat index over (b, h, q, k)),
-// which devt_mha_dropout_masks also writes out for the tests.
+// Three bodies, by the rule mha_fwd_route (mha_fwd_sm90.cuh; exported as
+// devt_mha_fwd_route, mirrored by ops/flash_attention.py mha_fwd_on_wgmma):
 //
-// Bound: at the PTN serving shape (256, 16, 6144), H = 8, d = 256,
-// kv_len 14, about 0.5 GFLOP against 67 MB moved, so bytes bind it
-// (0.020 ms at 3.35 TB/s); at the ViT shape (512, 208, 576), H = 3,
-// d = 64, kv_len 197, about 16 GFLOP against 165 MB, bytes again
-// (0.049 ms).  The dropout costs 10 Philox rounds per probability and
-// output column chunk, integer work that adds no bytes.  The times are in
-// PERF.md.
+//   packed     bf16 at rate 0, head dim 128 or 256, S <= 64:
+//              mha_fwd_sm90.cuh's persistent wgmma/TMA body, 64 / S whole
+//              sequences of one head to a 64-row tile (PTN's shapes)
+//   one-shot   bf16 at rate 0, head dim 16, 32 or 64, kv_len <= 256:
+//              kernel 9's one-shot instance (flash_fwd_sm90.cuh), on the
+//              head views of qkv by strides, lse out through (B, S, H)
+//              strides; it rounds p * (1 / l), kernel 9's form, within the
+//              forward gate of the division
+//   streamed   the rest (dropout, float, head dim 128 or 256 at S > 64):
+//              attention_fwd.cuh's body, shared with the fused ViT block,
+//              a block per 64 queries of one (sequence, head), K and V (kv_len
+//              rounded up to 32 rows) in shared memory: 512 keys and more at
+//              head dim 64, 160 at 256.  Its dropout mask is Philox4x32-10
+//              of (seed; site kSiteAttn, flat index over (b, h, q, k)),
+//              which devt_mha_dropout_masks also writes out for the tests.
+//
+// Bound: at the PTN serving shape (256, 14, 6144), H = 8, d = 256,
+// kv_len 14 (the path runs S = 14 unpadded; the TPU wrapper pads to 16),
+// about 0.4 GFLOP against 59 MB moved, so bytes bind it (0.0176 ms at
+// 3.35 TB/s); at the ViT shape (512, 208, 576), H = 3, d = 64, kv_len 197,
+// about 16 GFLOP against 165 MB, bytes again (0.049 ms).  The dropout costs
+// 10 Philox rounds per probability and output column chunk, integer work
+// that adds no bytes.  The times are in PERF.md.
 
 #include "attention_fwd.cuh"
+#include "mha_fwd_sm90.cuh"
 
 namespace {
 
@@ -65,9 +76,11 @@ __global__ void mha_masks_kernel(uint8_t* __restrict__ keep, int H, int S,
 
 // dtype: 0 = float32, 1 = bfloat16.  The bfloat16 kernel is compiled for
 // head dims 16, 32, 64, 128 and 256; the float kernel takes any multiple of 4.
-// rate in [0, 1): 0 is no dropout, and the seed is then unused.
-// Returns the CUDA error of the launch (0 on success, invalid value for a
-// shape that is not covered); the launch is asynchronous on `stream`.
+// rate in [0, 1): 0 is no dropout, and the seed is then unused.  qkv is
+// contiguous (bfloat16: 16-byte aligned, which the wgmma routes' TMA maps
+// need).  devt_mha_fwd_route names the body a shape takes.  Returns the
+// CUDA error of the launch (0 on success, invalid value for a shape that is
+// not covered); the launch is asynchronous on `stream`.
 extern "C" int devt_mha_fwd(int dtype, const void* qkv, void* o, void* lse,
                             int B, int S, int H, int d, int kv_len,
                             float scale, double rate, unsigned long long seed,
@@ -89,6 +102,17 @@ extern "C" int devt_mha_fwd(int dtype, const void* qkv, void* o, void* lse,
                                       s);
   }
   if (dtype != 1) return cudaErrorInvalidValue;
+  switch (mha_fwd_route(dtype, d, S, kv_len, drop.on)) {
+    case kMhaPacked:
+      return launch_mha_packed(qkv, o, static_cast<float*>(lse), B, S, H, d,
+                               kv_len, scale, s);
+    case kMhaOneShot:  // kernel 9's wgmma instance on the heads of qkv
+      return launch_one_shot<false>(
+          packed_qkv_heads(static_cast<const bf16*>(qkv), o,
+                           static_cast<float*>(lse), S, H, d, kv_len, H,
+                           scale),
+          B, d, s);
+  }
   switch (d) {
     case 16: return run_bf16<16>(qkv, o, lse, B, S, H, kv_len, scale, drop, s);
     case 32: return run_bf16<32>(qkv, o, lse, B, S, H, kv_len, scale, drop, s);
@@ -99,6 +123,15 @@ extern "C" int devt_mha_fwd(int dtype, const void* qkv, void* o, void* lse,
       return run_bf16<256>(qkv, o, lse, B, S, H, kv_len, scale, drop, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The body devt_mha_fwd runs for this dtype (0 float32, 1 bfloat16), head
+// dim, sequence length, kv_len and dropout rate: 0 streamed
+// (attention_fwd.cuh), 1 packed (mha_fwd_sm90.cuh), 2 one-shot
+// (flash_fwd_sm90.cuh, kernel 9's instance)
+extern "C" int devt_mha_fwd_route(int dtype, int d, int S, int kv_len,
+                                  double rate) {
+  return mha_fwd_route(dtype, d, S, kv_len, rate > 0.0);
 }
 
 // The keep mask (B, H, S, S) as uint8 that devt_mha_fwd and devt_mha_bwd

@@ -19,8 +19,18 @@ a layout of that chip; here it is one value per row and head.  The
 backward recomputes p = exp(s - lse) and returns the packed dqkv
 (``fused_mha_bwd_plain`` lists its steps and roundings).
 
-Kernels (CUDA C++ for sm_90a): the forward is ``csrc/mha_fwd.cu`` on the
-attention body of ``csrc/attention_fwd.cuh``, which it shares with the
+Kernels (CUDA C++ for sm_90a): the forward is ``csrc/mha_fwd.cu`` on three
+bodies, by the rule ``mha_fwd_on_wgmma`` (the C entry's
+``devt_mha_fwd_route``).  In bfloat16 without dropout: at head dim 128 or
+256 and S ≤ 64 (PTN) the packed body of ``csrc/mha_fwd_sm90.cuh``, a
+persistent CTA that puts 64 // S whole sequences of one head in a 64-row
+tile (a block-diagonal mask), loads q, k and v by TMA (the next tile's q
+and k while this tile's P·V runs; two CTAs an SM at head dim 256) and runs
+Q·Kᵀ and P·V on ``wgmma`` with p / l in registers
+(``mha_packed_tiling`` mirrors its tiling); at head dim 16, 32 or 64 with
+kv_len ≤ 256 kernel 9's one-shot ``wgmma`` instance on the head views of
+qkv.  Everything else (dropout, float, head dim 128 or 256 at S > 64) runs
+the streamed body of ``csrc/attention_fwd.cuh``, which it shares with the
 fused ViT block (a block per (64 queries, head, sequence), K and V in
 shared memory, ``mma.sync`` bf16 tiles, the scores recomputed per pass so
 that p is normalised and rounded where the TPU kernel does it).  The
@@ -46,7 +56,8 @@ so that the plain versions can be handed the same mask.
 ``fused_mha`` is a ``torch.autograd.Function``: CUDA tensors launch the
 kernels (or raise), CPU tensors run the plain versions.
 ``fused_mha.launches`` and ``fused_mha.bwd_launches`` count kernel
-launches.
+launches; the forward's by body in ``fused_mha.packed_launches``,
+``.one_shot_launches`` and ``.streamed_launches``.
 
 ``flash_attention`` is the attention on split q, k, v (B, H, S, d) of the
 JAX package's ``flash_attention`` (``:326``), with its rule (``:349``):
@@ -116,12 +127,14 @@ kv shard (B, S, 2·H·D) held now, with an additive f32 column mask (1, S)
 in place of kv_len.  Kernel 14 is kernel 9's math (exact row max, o =
 round(p / l) @ v); kernel 15 the flash backward against the global lse,
 with f32 partials dq and dkv that sum across hops.  Kernels:
-``csrc/ring_step.cu`` on the bodies of ``flash_fwd.cuh`` and
-``attention_bwd.cuh``, the heads addressed through strides on the packed
-layout; kernel 14 takes the wgmma body under the same rule, with the
-shard's S as its key count.  Counters: ``ring_step_fwd.launches`` (of
-them ``.wgmma_launches`` and ``.streamed_launches`` by body),
-``ring_step_bwd.launches``.
+``csrc/ring_step.cu``, the heads addressed through strides on the packed
+layout: kernel 14 on kernel 9's one-shot wgmma body under the same rule,
+with the shard's S as its key count (else ``flash_fwd.cuh``'s), kernel 15
+in bfloat16 at head dim 16, 32 or 64 (``blocked_bwd_on_wgmma``) on
+kernels 12's and 13's wgmma bodies with the column bias and f32 outputs,
+one launch each (else a delta launch and ``attention_bwd.cuh``'s body).
+Counters: ``ring_step_fwd.launches`` and ``ring_step_bwd.launches`` (of
+each, ``.wgmma_launches`` and ``.streamed_launches`` by body).
 """
 
 from __future__ import annotations
@@ -149,6 +162,11 @@ _SMEM_PER_BLOCK = 232448
 # one_shot_on_wgmma): bfloat16 head dims and the longest score row it holds
 _WGMMA_HEAD_DIMS = (16, 32, 64)
 _WGMMA_MAX_KEYS = 256
+# rows of a wgmma tile: the packed forward's tile holds 64 // S sequences
+_WGMMA_TILE = 64
+# kernel 3's bodies by devt_mha_fwd_route's answer (csrc/mha_fwd_sm90.cuh
+# MhaBody)
+_MHA_BODIES = ("streamed", "packed", "one_shot")
 
 
 def one_shot_on_wgmma(dtype: torch.dtype, d: int, keys: int) -> bool:
@@ -158,6 +176,35 @@ def one_shot_on_wgmma(dtype: torch.dtype, d: int, keys: int) -> bool:
     others run the streamed body of ``csrc/flash_fwd.cuh``."""
     return (dtype == torch.bfloat16 and d in _WGMMA_HEAD_DIMS
             and 1 <= keys <= _WGMMA_MAX_KEYS)
+
+
+def mha_fwd_on_wgmma(dtype: torch.dtype, d: int, s: int, kv_len: int,
+                     rate: float) -> str:
+    """The body a forward of kernel 3 (``fused_mha``) runs: the rule of the
+    C entry, ``csrc/mha_fwd_sm90.cuh`` ``mha_fwd_route``.  ``"packed"``
+    (bfloat16 without dropout at head dim 128 or 256 and S ≤ 64: several
+    sequences to a wgmma tile), ``"one_shot"`` (bfloat16 without dropout at
+    head dim 16, 32 or 64 with kv_len ≤ 256: kernel 9's wgmma instance) or
+    ``"streamed"`` (``csrc/attention_fwd.cuh``: dropout, float, head dim 128
+    or 256 at S > 64)."""
+    if dtype != torch.bfloat16 or rate > 0.0:
+        return "streamed"
+    if d in (128, 256) and 1 <= s <= _WGMMA_TILE:
+        return "packed"
+    return "one_shot" if one_shot_on_wgmma(dtype, d, kv_len) else "streamed"
+
+
+def mha_packed_tiling(b: int, s: int, heads: int, kv_len: int):
+    """The packed body's tiling (``csrc/mha_fwd_sm90.cuh``): ``(g, tiles,
+    live)`` with g = 64 // S whole sequences of a head to a 64-row tile,
+    ``tiles`` the (group, head) tiles, ceil(b / g) · heads, and ``live`` the
+    (64, 64) bool block-diagonal mask of a tile: key c is live for query r
+    iff both lie in the same sequence and c % S < kv_len."""
+    g = _WGMMA_TILE // s
+    idx = torch.arange(_WGMMA_TILE)
+    live = (idx[:, None] // s == idx[None, :] // s) & (idx[None, :] % s
+                                                       < kv_len)
+    return g, -(-b // g) * heads, live
 
 
 def online_on_wgmma(dtype: torch.dtype, d: int) -> bool:
@@ -402,10 +449,13 @@ def _require(device, *specs) -> None:
 
 
 def _mha_cuda(qkv, heads, scale, kv_len, rate=0.0, seed=0):
+    """Kernel 3: o and lse, on the body the C entry's ``devt_mha_fwd_route``
+    names, counted by body."""
     d = _check_mha_args(qkv, heads, kv_len)
     from devt_tpu_torch.ops import _build
 
     lib = _build.load("mha_fwd", _declare_fwd)
+    qkv = _aligned(qkv)   # the wgmma bodies read it through TMA maps
     b, s, _ = qkv.shape
     o = torch.empty((b, s, heads * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, s, heads), dtype=torch.float32, device=qkv.device)
@@ -418,6 +468,14 @@ def _mha_cuda(qkv, heads, scale, kv_len, rate=0.0, seed=0):
             ctypes.c_void_p(stream))
     _check_rc(lib, rc, "mha_fwd")
     fused_mha.launches += 1
+    body = _MHA_BODIES[lib.devt_mha_fwd_route(
+        _DTYPE_CODE[qkv.dtype], d, s, int(kv_len), ctypes.c_double(rate))]
+    if body == "packed":
+        fused_mha.packed_launches += 1
+    elif body == "one_shot":
+        fused_mha.one_shot_launches += 1
+    else:
+        fused_mha.streamed_launches += 1
     return o, lse
 
 
@@ -523,6 +581,9 @@ def fused_mha(qkv: torch.Tensor, *, heads: int, scale: float | None = None,
 
 fused_mha.launches = 0
 fused_mha.bwd_launches = 0
+fused_mha.packed_launches = 0
+fused_mha.one_shot_launches = 0
+fused_mha.streamed_launches = 0
 
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
@@ -535,6 +596,8 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
         [ctypes.c_void_p] + [ctypes.c_int] * 3
         + [ctypes.c_double, ctypes.c_ulonglong, ctypes.c_void_p])
     lib.devt_mha_dropout_masks.restype = ctypes.c_int
+    lib.devt_mha_fwd_route.argtypes = [ctypes.c_int] * 4 + [ctypes.c_double]
+    lib.devt_mha_fwd_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p
 
@@ -664,17 +727,17 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t, or a contiguous copy when its rows are not contiguous or, in
-    bfloat16, not 16-byte aligned or with a (sequence, head, row) stride
-    that is no positive multiple of 8 elements: cp.async copies 16 bytes at
-    a time, and a TMA map takes byte strides that are nonzero multiples of
-    16.  The head views of a packed qkv with d a multiple of 8 need no
-    copy.  The copy is a fresh allocation (``contiguous()`` would hand
-    back a contiguous tensor that starts off a 16-byte boundary as it
-    is)."""
-    ok = t.stride(3) == 1
+    bfloat16, not 16-byte aligned or with an outer stride ((sequence, head,
+    row), or (sequence, row) of a packed (B, S, H·d) tensor) that is no
+    positive multiple of 8 elements: cp.async copies 16 bytes at a time,
+    and a TMA map takes byte strides that are nonzero multiples of 16.  The
+    head views of a packed qkv with d a multiple of 8 need no copy.  The
+    copy is a fresh allocation (``contiguous()`` would hand back a
+    contiguous tensor that starts off a 16-byte boundary as it is)."""
+    ok = t.stride(-1) == 1
     if ok and t.dtype == torch.bfloat16:
         ok = t.data_ptr() % 16 == 0 and all(st > 0 and st % 8 == 0
-                                            for st in _strides(t))
+                                            for st in t.stride()[:-1])
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
@@ -1127,8 +1190,9 @@ def ring_step_bwd(q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor,
     (B, S, 2·H·D), which sum across hops (in bf16 they would round n
     times).
 
-    A CUDA tensor launches kernel 15 (or raises); a CPU tensor runs its
-    plain version."""
+    A CUDA tensor launches kernel 15 (or raises), on the wgmma bodies where
+    the C entry's ``devt_ring_bwd_route`` says, counted by body; a CPU
+    tensor runs its plain version."""
     if q.device.type == "cpu":
         return ring_step_bwd_plain(q, kv, mask, o, lse, do, heads, scale)
     if q.device.type != "cuda":
@@ -1141,6 +1205,7 @@ def ring_step_bwd(q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor,
     from devt_tpu_torch.ops import _build
 
     lib = _build.load("ring_step", _declare_ring)
+    o, do = _aligned(o), _aligned(do)   # TMA maps read do
     dq = torch.empty((b, s, hd), dtype=torch.float32, device=q.device)
     dkv = torch.empty((b, s, 2 * hd), dtype=torch.float32, device=q.device)
     delta = torch.empty((b, s, heads), dtype=torch.float32, device=q.device)
@@ -1152,6 +1217,10 @@ def ring_step_bwd(q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor,
             heads, d, ctypes.c_float(scale), ctypes.c_void_p(stream))
     _check_rc(lib, rc, "ring_step_bwd")
     ring_step_bwd.launches += 1
+    if lib.devt_ring_bwd_route(_DTYPE_CODE[q.dtype], d):
+        ring_step_bwd.wgmma_launches += 1
+    else:
+        ring_step_bwd.streamed_launches += 1
     return dq, dkv
 
 
@@ -1159,6 +1228,8 @@ ring_step_fwd.launches = 0
 ring_step_fwd.wgmma_launches = 0
 ring_step_fwd.streamed_launches = 0
 ring_step_bwd.launches = 0
+ring_step_bwd.wgmma_launches = 0
+ring_step_bwd.streamed_launches = 0
 
 
 def _declare_ring(lib: ctypes.CDLL) -> None:
@@ -1170,5 +1241,7 @@ def _declare_ring(lib: ctypes.CDLL) -> None:
         [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p])
     lib.devt_ring_step_bwd.restype = ctypes.c_int
+    lib.devt_ring_bwd_route.argtypes = [ctypes.c_int] * 2
+    lib.devt_ring_bwd_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p

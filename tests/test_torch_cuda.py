@@ -1753,3 +1753,199 @@ def test_blocked_bwd_route_matches_the_c_rule(card):
         for d in (8, 16, 32, 48, 64, 128, 256):
             assert bool(lib.devt_blocked_bwd_route(code, d)) == \
                 tfa.blocked_bwd_on_wgmma(dtype, d), (dtype, d)
+
+
+# ---------------------------------------------------------------------------
+# kernel 3 on wgmma (csrc/mha_fwd_sm90.cuh, and kernel 9's one-shot
+# instance) and kernel 15 on kernels 12's and 13's wgmma bodies
+# ---------------------------------------------------------------------------
+
+def _mha_bodies():
+    m = tfa.fused_mha
+    return (m.packed_launches, m.one_shot_launches, m.streamed_launches)
+
+
+def _mha_qkv(b, s, heads, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(b, s, 3 * heads * d, generator=gen).to(
+        torch.bfloat16).cuda()
+
+
+def _mha_on_its_body(b, s, heads, d, kv_len, body):
+    """fused_mha forward at (b, s, heads, d) bf16: one launch on ``body``;
+    o within the forward gate and lse within 1e-4 of the plain version; a
+    rerun bit-equal."""
+    assert tfa.mha_fwd_on_wgmma(torch.bfloat16, d, s, kv_len, 0.0) == body
+    qkv = _mha_qkv(b, s, heads, d, b + s + d + kv_len)
+    before, bodies = tfa.fused_mha.launches, _mha_bodies()
+    with torch.no_grad():
+        o, lse = tfa.fused_mha(qkv, heads=heads, kv_len=kv_len,
+                               return_lse=True)
+        again = tfa.fused_mha(qkv, heads=heads, kv_len=kv_len,
+                              return_lse=True)
+    wo, wlse = tfa.fused_mha_plain(qkv, heads, d ** -0.5, kv_len)
+    torch.cuda.synchronize()
+    want = {"packed": (2, 0, 0), "one_shot": (0, 2, 0)}[body]
+    assert tfa.fused_mha.launches == before + 2
+    assert tuple(a - c for a, c in zip(_mha_bodies(), bodies)) == want
+    assert o.shape == (b, s, heads * d) and lse.shape == (b, s, heads)
+    torch.testing.assert_close(o.float(), wo.float(), **TOL["bf16"])
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-4)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+# (b, s, heads, d, kv_len): PTN serving (S = 14 unpadded, the padded 16),
+# kv_len < S, a partial last group (255 = 63 * 4 + 3), S = 1 (64
+# sequences a tile), 33 and 64 (one a tile), head dim 128
+MHA_PACKED_SHAPES = [
+    (256, 14, 8, 256, 14), (256, 14, 8, 256, 13), (256, 16, 8, 256, 14),
+    (255, 14, 8, 256, 14), (130, 1, 2, 256, 1), (7, 33, 2, 256, 30),
+    (5, 64, 2, 256, 64), (9, 14, 4, 128, 14), (3, 64, 2, 128, 50)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,heads,d,kv_len", MHA_PACKED_SHAPES)
+def test_mha_packed_wgmma_matches_plain(card, b, s, heads, d, kv_len):
+    """Kernel 3 on the packed body (64 // S sequences of a head to a
+    tile): o and lse against the plain version, a rerun bit-equal, one
+    launch on that body."""
+    _mha_on_its_body(b, s, heads, d, kv_len, "packed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,heads,d,kv_len", [
+    (512, 208, 3, 64, 197), (6, 48, 2, 16, 37), (5, 100, 3, 32, 100),
+    (2, 300, 2, 64, 256)])
+def test_mha_one_shot_route_matches_plain(card, b, s, heads, d, kv_len):
+    """Kernel 3 at head dims 16-64 with at most 256 live keys on kernel 9's
+    one-shot wgmma instance (the ViT shape first)."""
+    _mha_on_its_body(b, s, heads, d, kv_len, "one_shot")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,heads,d", [(255, 14, 8, 256), (3, 33, 2, 128),
+                                         (2, 208, 3, 64)])
+def test_mha_wgmma_routes_write_only_their_rows(card, b, s, heads, d):
+    """The C entry on buffers with canaries past B S rows of o and lse (a
+    partial last group of the packed body; a 33-token tile; the one-shot
+    route): every row of o and lse written with the plain version's
+    values, every canary untouched."""
+    lib = _build.load("mha_fwd", tfa._declare_fwd)
+    qkv = _mha_qkv(b, s, heads, d, 21)
+    hd, spare = heads * d, 64
+    o_buf = torch.full(((b * s + spare) * hd,), float("nan"),
+                       dtype=torch.bfloat16, device="cuda")
+    l_buf = torch.full(((b * s + spare) * heads,), float("nan"),
+                       device="cuda")
+    rc = lib.devt_mha_fwd(1, qkv.data_ptr(), o_buf.data_ptr(),
+                          l_buf.data_ptr(), b, s, heads, d, s,
+                          ctypes.c_float(d ** -0.5), ctypes.c_double(0.0),
+                          ctypes.c_ulonglong(0),
+                          ctypes.c_void_p(torch.cuda.current_stream()
+                                          .cuda_stream))
+    torch.cuda.synchronize()
+    assert rc == 0
+    wo, wlse = tfa.fused_mha_plain(qkv, heads, d ** -0.5, s)
+    got_o = o_buf[:b * s * hd].view(b, s, hd)
+    got_l = l_buf[:b * s * heads].view(b, s, heads)
+    torch.testing.assert_close(got_o.float(), wo.float(), **TOL["bf16"])
+    torch.testing.assert_close(got_l, wlse, atol=1e-4, rtol=1e-4)
+    assert o_buf[b * s * hd:].isnan().all()
+    assert l_buf[b * s * heads:].isnan().all()
+
+
+@pytest.mark.cuda
+def test_mha_dropout_and_f32_stay_streamed(card):
+    """At PTN's shape, dropout and float run the streamed body, counted."""
+    qkv = _mha_qkv(4, 14, 2, 256, 3)
+    bodies = _mha_bodies()
+    with torch.no_grad():
+        tfa.fused_mha(qkv, heads=2, dropout_rate=0.5, seed=7)
+        tfa.fused_mha(qkv.float(), heads=2)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_mha_bodies(), bodies)) == (0, 0, 2)
+
+
+# (b, s, heads, d, live columns of the shard): the sequence-parallel
+# bench's shape with 197 live of 208 (fewer sequences), a wholly masked
+# shard, S = 1, S = 100 (no multiple of the 64-row tiles), head dims 16, 32
+RING_WGMMA_SHAPES = [(64, 208, 3, 64, 197), (4, 208, 3, 64, 0),
+                     (8, 1, 2, 64, 1), (3, 100, 2, 64, 90),
+                     (3, 100, 2, 16, 100), (3, 160, 2, 32, 150)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,heads,d,live", RING_WGMMA_SHAPES)
+def test_ring_bwd_wgmma_matches_plain(card, b, s, heads, d, live):
+    """Kernel 15 in bf16 at head dims 16-64 on kernels 12's and 13's wgmma
+    bodies (two launches, counted as one call on that body): f32 dq and
+    dkv within 4 bf16 ulps of the plain version's largest element on the
+    global lse of the full shard (at S = 1 a single key makes dq and dk
+    zero in exact arithmetic: they are held to the f32 error bound of the
+    cancelling sums, as at kv_len 1 above, and dv to the 4 ulps); a wholly
+    masked shard's exact zeros; two runs bit-equal."""
+    gen = torch.Generator().manual_seed(s + d + live)
+    q, do = (torch.randn(b, s, heads * d, generator=gen).to(
+        torch.bfloat16).cuda() for _ in range(2))
+    kv = torch.randn(b, s, 2 * heads * d, generator=gen).to(
+        torch.bfloat16).cuda()
+    col = torch.arange(s, device="cuda")[None]
+    mask = torch.where(col < live, 0.0, tfa.NEG_INF).float()
+    scale = d ** -0.5
+    o, lse = tfa.ring_step_fwd(q, kv, torch.zeros(1, s, device="cuda"),
+                               heads=heads, scale=scale)
+    assert tfa.blocked_bwd_on_wgmma(torch.bfloat16, d)
+    r = tfa.ring_step_bwd
+    before = (r.launches, r.wgmma_launches, r.streamed_launches)
+
+    def bwd():
+        return tfa.ring_step_bwd(q, kv, mask, o, lse, do, heads=heads,
+                                 scale=scale)
+
+    got = bwd()
+    want = tfa.ring_step_bwd_plain(q, kv, mask, o, lse, do, heads, scale)
+    torch.cuda.synchronize()
+    assert (r.launches - before[0], r.wgmma_launches - before[1],
+            r.streamed_launches - before[2]) == (1, 1, 0)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.isfinite(g).all()
+    if s == 1:
+        # one key: dq and dk are the noise of cancelling sums on both sides
+        hd = heads * d
+
+        def split(t, off=0):
+            return t[..., off:off + hd].reshape(b, s, heads, d).transpose(1, 2)
+
+        _one_key_noise(f"ring ({b},{s},{heads},{d})", split(q), split(kv),
+                       split(kv, hd), split(do), scale,
+                       [split(got[0]), split(got[1]), split(got[1], hd)],
+                       [None, None, split(want[1], hd)])
+    else:
+        for name, g, w in zip(("dq", "dkv"), got, want):
+            err = (g - w).abs().max().item()
+            bound = BWD_ULPS["bf16"] * EPS["bf16"] * w.abs().max().item()
+            assert err <= bound, f"{name}: {err:.3e} > {bound:.3e}"
+    if live == 0:
+        assert not got[0].any() and not got[1].any()
+    assert all(torch.equal(a, c) for a, c in zip(got, bwd()))
+
+
+@pytest.mark.cuda
+def test_mha_and_ring_bwd_routes_match_the_c_rules(card):
+    """The C entries' rules (devt_mha_fwd_route, devt_ring_bwd_route) are
+    the Python mirrors'."""
+    lib = _build.load("mha_fwd", tfa._declare_fwd)
+    rlib = _build.load("ring_step", tfa._declare_ring)
+    for dtype, code in tfa._DTYPE_CODE.items():
+        for d in (8, 16, 32, 48, 64, 128, 256):
+            assert bool(rlib.devt_ring_bwd_route(code, d)) == \
+                tfa.blocked_bwd_on_wgmma(dtype, d), (dtype, d)
+            for s in (1, 14, 16, 33, 64, 65, 208, 257, 512):
+                for kv_len in sorted({1, min(s, 197), min(s, 256), s}):
+                    for rate in (0.0, 0.5):
+                        got = tfa._MHA_BODIES[lib.devt_mha_fwd_route(
+                            code, d, s, kv_len, ctypes.c_double(rate))]
+                        assert got == tfa.mha_fwd_on_wgmma(
+                            dtype, d, s, kv_len, rate), (dtype, d, s, kv_len,
+                                                         rate)

@@ -28,22 +28,29 @@ timer in both trees (CUDA graph replay of 20 calls, 5 replays):
   * kernels 7 and 8 (the MoE block's attention half, forward and
     backward) at (512, 208, 192), kv_len 197, and the half composed of
     library calls (forward, and its autograd less the forward);
+  * kernel 3 at PTN's serving shape (256, 14, 6144), 8 heads of 256, at
+    its training shape (32, 14, 6144), and at the ViT shape (512, 208,
+    576), 3 heads of 64, kv_len 197, and F.scaled_dot_product_attention at
+    the serving and ViT shapes;
   * kernels that must not move: kernel 1 (the fused block forward, whose
-    attention launch kernel 7's shared before) at the same shape, kernel 3
-    at PTN's serving shape (256, 14, 6144), 8 heads of 256, and kernel 4
-    (the streamed backward body) at PTN's training shape (32, 14, 6144);
+    attention launch kernel 7's shared before) at the same shape, and
+    kernel 4 (the streamed backward body) at PTN's training shape;
 
 then calls the tree's chip_smoke phases 18 (kernel-flash at the kernel 9
-shape, its checks), 4 and 7 (ViViT serving and training at image 224), 12
-(PTN serving: bf16, int8, int8 at every site), 16 and 17 (MoE-ViViT
+shape, its checks), 4 and 7 (ViViT serving and training at image 224), 14
+(PTN training at dropout 0 and 0.5: step ms and a profiled step's device
+ms), 12 (PTN serving: bf16, int8, int8 at every site), 16 and 17 (MoE-ViViT
 serving, and training: step ms, the host's enqueue ms and a profiled
 step's device ms), 20 (eval at image 384), 21 (the int8 ViViT at
 token_pad=0), 22 (training at image 384: step ms, the host's enqueue ms,
 and from its printed line a profiled step's device ms and kernels 12 +
-13's share of it) and 24 (the ring, kernel 15's time with it) and records
-their throughputs and step times.  Each run prints one ``RESULT {json}``
-line; the end prints, per metric, each tree's runs and the mean.  Needs
-one NVIDIA card; builds both trees' kernels (one nvcc per source).
+13's share of it) and 24 (the ring: kernels 14's and 15's times, and
+SDPA's backward with the same additive mask) and records their throughputs
+and step times.  Each run prints one ``RESULT {json}`` line; the end
+prints, per metric, each tree's runs and the mean, and, for every wgmma
+instance the two trees' builds share, whether ptxas gave it the same
+registers and cuobjdump the same SASS.  Needs one NVIDIA card; builds both
+trees' kernels (one nvcc per source).
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ import subprocess
 import sys
 
 CHILD = r'''
-import json, sys, time
+import hashlib, json, os, re, subprocess, sys, time
 sys.path.insert(0, ".")
 import torch
 import torch.nn.functional as F
@@ -94,8 +101,43 @@ def graph_ms(fn, n=20, replays=5):
 
 
 t0 = time.perf_counter()
-_build.build_all()
+libs = _build.build_all()
 res = {"build_s": time.perf_counter() - t0}
+# every wgmma instance's registers (ptxas) and a hash of its SASS
+# (cuobjdump), keyed by source and demangled name; a trailing template
+# argument `false` is dropped, so an instance compiled without an option
+# added since keeps its key
+regs = {}
+for stem, lib in libs.items():
+    used, name = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = found.group(1)
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name and re.search(r"wgmma|one_shot|packed", name):
+            used[name] = int(found.group(1))
+            name = None
+    code, name = {}, None
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1) if found.group(1) in used else None
+            if name:
+                code[name] = hashlib.sha1()
+        elif name:   # the instruction text; cuobjdump's padding varies
+            code[name].update(" ".join(line.split()).encode())
+    pretty = subprocess.run(["c++filt"], input="\n".join(used),
+                            capture_output=True, text=True).stdout.split("\n")
+    for mangled, shown in zip(used, pretty):
+        shown = shown.replace("(anonymous namespace)::", "").split("(")[0]
+        key = f"{stem}:" + re.sub(r", false>$", ">", shown.replace("void ", ""))
+        regs[key] = [used[mangled], code[mangled].hexdigest()[:16]
+                     if mangled in code else None]
+print("[regs wgmma] " + json.dumps(regs), flush=True)
 with torch.inference_mode():
     q, k, v = cs._packed_heads(512, 197, 3, 64, torch.bfloat16, 1)
     res["k9_ms"] = graph_ms(lambda: tfa.flash_attention(q, k, v,
@@ -137,9 +179,20 @@ with torch.inference_mode():
     do10 = torch.randn(512, 3, 197, 64, generator=gen).to(o.dtype).cuda()
     res["k10_ms"] = graph_ms(lambda: tfa._flash_bwd_cuda(
         q10, k10, v10, o, lse, do10, 0.125, 197))
-    qkv = torch.randn(256, 14, 3 * 2048, generator=gen).to(o.dtype).cuda()
-    res["k3_ms"] = graph_ms(lambda: tfa.fused_mha(qkv, heads=8, kv_len=14,
-                                                  return_lse=True))
+    for tag, (b, s, heads, d, kv_len) in {
+            "k3": (256, 14, 8, 256, 14), "k3_train": (32, 14, 8, 256, 14),
+            "k3_vit": (512, 208, 3, 64, 197)}.items():
+        qkv = torch.randn(b, s, 3 * heads * d, generator=gen).to(
+            o.dtype).cuda()
+        res[f"{tag}_ms"] = graph_ms(lambda: tfa.fused_mha(
+            qkv, heads=heads, kv_len=kv_len, return_lse=True))
+        if tag == "k3_train":
+            continue
+        split = qkv.reshape(b, s, 3, heads, d)
+        hq, hk, hv = (split[:, :, i].transpose(1, 2) for i in range(3))
+        res[f"{tag}_sdpa_ms"] = graph_ms(
+            lambda: F.scaled_dot_product_attention(
+                hq, hk[:, :, :kv_len], hv[:, :, :kv_len], scale=d ** -0.5))
     qkv = torch.randn(32, 14, 3 * 2048, generator=gen).to(o.dtype).cuda()
     o, lse = tfa._mha_cuda(qkv, 8, 256 ** -0.5, 14)
     do4 = torch.randn(32, 14, 2048, generator=gen).to(o.dtype).cuda()
@@ -178,6 +231,10 @@ res["serve_clips_s"] = cs.phase_serve()["clips_per_s"]
 t = cs.phase_train()
 res["train224_step_ms"] = t["step_ms"]
 res["train224_clips_s"] = t["clips_per_s"]
+for rate, pt in cs.phase_train_ptn().items():
+    if isinstance(rate, float):
+        res[f"ptn_train{rate}_step_ms"] = pt["step_ms"]
+        res[f"ptn_train{rate}_device_ms"] = pt["device_ms"]
 p = cs.phase_serve_ptn()
 for tag in ("bf16", "int8", "int8_all_sites"):
     res[f"ptn_{tag}_rows_s"] = p[tag]["rows_per_s"]
@@ -199,6 +256,8 @@ res["train_clips_s"] = t["clips_per_s"]
 r = cs.phase_ring("bf16")
 res["ring_fwd_ms"] = r["fwd"]["kernel_ms"]
 res["ring_bwd_ms"] = r["bwd"]["kernel_ms"]
+res["ring_bwd_sdpa_ms"] = r["bwd"]["library_ms"]
+res["regs"] = regs
 print("RESULT " + json.dumps(res), flush=True)
 '''
 
@@ -244,9 +303,11 @@ def main() -> int:
     for r in range(args.rounds):
         order += ["parent", "change"] if r % 2 == 0 else ["change", "parent"]
     runs = {"parent": [], "change": []}
+    regs = {}
     for name in order:
         print(f"[{name}] {trees[name]}", flush=True)
         res = run(trees[name])
+        regs[name] = res.pop("regs")
         print(f"RESULT {name} {json.dumps(res)}", flush=True)
         runs[name].append(res)
     print(f"card: {smi}; order {' '.join(order)}")
@@ -257,6 +318,16 @@ def main() -> int:
             cells.append(f"{name} " + " ".join(f"{v:.4f}" for v in vals)
                          + f" (mean {sum(vals) / len(vals):.4f})")
         print(f"{key}: " + " | ".join(cells))
+    par, cha = regs["parent"], regs["change"]
+    shared = sorted(set(par) & set(cha))
+    moved = [f"{k} {par[k][0]} -> {cha[k][0]} registers"
+             for k in shared if par[k][0] != cha[k][0]]
+    recoded = [k for k in shared if par[k][1] != cha[k][1]]
+    print(f"wgmma instances in both trees: {len(shared)}; with other "
+          f"registers: {len(moved)}; with other SASS: {len(recoded)}"
+          + "".join(f"\n  {m}" for m in moved + recoded))
+    print("  only in the change: " + ", ".join(
+        f"{k} ({cha[k][0]} registers)" for k in sorted(set(cha) - set(par))))
     return 0
 
 

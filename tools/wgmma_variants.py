@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Variants of the wgmma bodies of kernels 11, 6, 12, 13 and 7, timed on
+"""Variants of the wgmma bodies of kernels 11, 6, 12, 13, 7 and 3, timed on
 one card.
 
-    python tools/wgmma_variants.py [--rounds 2] [--kernels 11 6 12 13 7]
+    python tools/wgmma_variants.py [--rounds 2] [--kernels 11 6 12 13 7 3]
 
 Copies ``devt_tpu_torch/ops/csrc`` once per variant under
 ``runs/wgmma_variants/`` (gitignored), edits the copy's constants as the
 variant says, builds the one library the variant touches (``flash_fwd.cu``
 for kernel 11, ``int8_matmul.cu`` for kernel 6, ``flash_bwd.cu`` for
-kernels 12 and 13, ``attn_half.cu`` for kernel 7; one nvcc each, all at
-once, the flags of
+kernels 12 and 13, ``attn_half.cu`` for kernel 7, ``mha_fwd.cu`` for
+kernel 3; one nvcc each, all at once, the flags of
 ``ops/_build.py``), and times by CUDA graph replay (20 calls, 5 replays),
 in ``--rounds`` rounds:
 
@@ -22,7 +22,10 @@ in ``--rounds`` rounds:
     the forward's o and lse, against the plain backward (the error in bf16
     ulps of each tensor's largest element);
   * kernel 7 (the MoE block's attention half forward, all three launches)
-    at (512, 208, 192), kv_len 197, against its plain version.
+    at (512, 208, 192), kv_len 197, against its plain version;
+  * kernel 3 (the packed-qkv attention forward) at PTN's serving shape
+    (256, 14, 6144) and training shape (32, 14, 6144), 8 heads of 256,
+    against its plain version.
 
 Kernel 11's variants: as built (one consumer warpgroup of 64 query rows
 a CTA, three CTAs an SM, a two-stage ring); two CTAs an SM (the register
@@ -41,7 +44,12 @@ stages), 32-query tiles at three CTAs an SM, and three stages.  Kernel
 instance, two CTAs an SM for the instance at head dim 64 and 256 keys),
 three CTAs an SM for that instance too, lse and 1 / l taken before the
 P V product, and its attention on attention_fwd.cuh's streamed body (the
-route before the one-shot body took it).  Prints the card's
+route before the one-shot body took it).  Kernel 3's: as built (the packed
+body: 64 / S sequences of a head to a tile, a one-stage ring, P V in
+wgmma groups of 64 output columns, two CTAs an SM), P V in groups of 128
+and in one of 256, two stages (one CTA an SM) with 64 and with 256, one
+sequence a tile (the unpacked one-shot instance at head dim 256), and the
+route before (attention_fwd.cuh's streamed body).  Prints the card's
 name and power limit, ptxas' registers, spills and wgmma notes (C75xx)
 per variant, one line per variant and round, and a line per sustained
 run: the selected kernels as built and their library calls, each
@@ -88,6 +96,11 @@ DKV_CTAS = "constexpr int kBwdDkvCTAs = 2;"
 DQ_STAGES = "constexpr int kBwdDqStages = 2;"
 DKV_STAGES = "constexpr int kBwdDkvStages = 2;"
 HALF = "attn_half.cu"
+MHA = "mha_fwd_sm90.cuh"
+MHA_STAGES = "constexpr int kMhaStages = 1;"
+MHA_PV = "constexpr int kMhaPvCols = 64;"
+MHA_PACK = "__host__ __device__ constexpr int mha_pack(int s) { return 64 / s; }"
+MHA_ROUTE = "         : (d == 128 || d == 256) && s >= 1 && s <= 64 ? kMhaPacked"
 HALF_ROUTE = "  if (!one_shot_on_wgmma(1, HD, a.kv_len))"
 ONE_SHOT_CTAS = "  return norm_after && hd == 64 && n == 256 ? 2 : 3;"
 PV_STEP = "    // 3. O = P V, one m64nHDk16 per 16 keys (16 rows of V)\n"
@@ -155,13 +168,27 @@ VARIANTS = {
          "      if (!kNormAfter && tq4 == 0)\n        L[row * a.ls[2]] =")],
     (7, "attention on attention_fwd.cuh's streamed body"): [
         (HALF, HALF_ROUTE, "  if (true)")],
+    (3, "as built"): [],
+    (3, "P V in groups of 128 columns"): [
+        (MHA, MHA_PV, "constexpr int kMhaPvCols = 128;")],
+    (3, "P V in one group of 256 columns"): [
+        (MHA, MHA_PV, "constexpr int kMhaPvCols = 256;")],
+    (3, "two stages"): [(MHA, MHA_STAGES, "constexpr int kMhaStages = 2;")],
+    (3, "two stages, P V in one group of 256 columns"): [
+        (MHA, MHA_STAGES, "constexpr int kMhaStages = 2;"),
+        (MHA, MHA_PV, "constexpr int kMhaPvCols = 256;")],
+    (3, "one sequence a tile (unpacked one-shot instance)"): [
+        (MHA, MHA_PACK, MHA_PACK.replace("64 / s", "1"))],
+    (3, "streamed body (attention_fwd.cuh)"): [
+        (MHA, MHA_ROUTE, "         : false ? kMhaPacked")],
 }
 STEM = {11: "flash_fwd", 6: "int8_matmul", 12: "flash_bwd", 13: "flash_bwd",
-        7: "attn_half"}
+        7: "attn_half", 3: "mha_fwd"}
 PTXAS = {11: r"flash_fwd_wgmmaILi(\d+)E", 6: r"gemm_s8_wgmmaI(\w+?)EEv",
          12: r"flash_bwd_dq_wgmmaILi(\d+)E",
          13: r"flash_bwd_dkv_wgmmaILi(\d+)E",
-         7: r"flash_one_shotILi(\d+)ELi(\d+)ELb0ELb1E"}
+         7: r"flash_one_shotILi(\d+)ELi(\d+)ELb0ELb1E",
+         3: r"mha_fwd_packedILi(\d+)E"}
 
 
 def build(kernels) -> dict:
@@ -226,7 +253,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", type=int, nargs="+",
-                    default=[11, 6, 12, 13, 7], choices=[11, 6, 12, 13, 7])
+                    default=[11, 6, 12, 13, 7, 3],
+                    choices=[11, 6, 12, 13, 7, 3])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("wgmma_variants: needs an NVIDIA card")
@@ -323,11 +351,29 @@ def main() -> int:
         assert rc == 0, rc
         return hu, hres
 
+    # kernel 3 at PTN's serving and training shapes
+    mha = {}
+    for b in (256, 32):
+        qkv = torch.randn(b, 14, 6144, generator=gen).to(torch.bfloat16)
+        qkv = qkv.cuda()
+        mha[b] = (qkv, tfa.fused_mha_plain(qkv, 8, 256 ** -0.5, 14))
+
+    def k3(lib, b):
+        qkv = mha[b][0]
+        o = torch.empty(b, 14, 2048, dtype=qkv.dtype, device="cuda")
+        lse = torch.empty(b, 14, 8, device="cuda")
+        rc = lib.devt_mha_fwd(1, qkv.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                              b, 14, 8, 256, 14, ctypes.c_float(256 ** -0.5),
+                              ctypes.c_double(0.0), ctypes.c_ulonglong(0),
+                              stream())
+        assert rc == 0, rc
+        return o, lse
+
     def lib_of(i, kernel):
         lib = ctypes.CDLL(str(OUT / str(i) / f"{STEM[kernel]}.so"))
         {11: tfa._declare_flash_fwd, 6: tq._declare_matmul,
          12: tfa._declare_flash_bwd, 13: tfa._declare_flash_bwd,
-         7: fb._declare_half}[kernel](lib)
+         7: fb._declare_half, 3: tfa._declare_fwd}[kernel](lib)
         return lib
 
     built = {kern: lib_of(i, kern) for i, (kern, name) in enumerate(VARIANTS)
@@ -339,7 +385,19 @@ def main() -> int:
             if kernel not in args.kernels:
                 continue
             lib = lib_of(i, kernel)
-            if kernel == 7:
+            if kernel == 3:
+                cells = []
+                for b in (256, 32):
+                    o, lse = k3(lib, b)
+                    torch.cuda.synchronize()
+                    err = max((g.float() - w.float()).abs().max().item()
+                              for g, w in zip((o, lse), mha[b][1]))
+                    t = _graph_ms(lambda: k3(lib, b))
+                    cells.append(f"({b}, 14, 6144) {t:.4f} ms (o and lse max "
+                                 f"abs err {err:.3e})")
+                print(f"[round {rnd}] kernel 3 {name}: " + ", ".join(cells),
+                      flush=True)
+            elif kernel == 7:
                 u, res = k7(lib)
                 torch.cuda.synchronize()
                 err = max((g.float() - w.float()).abs().max().item()
@@ -390,6 +448,14 @@ def main() -> int:
                   ("F.linear bf16 at N=6144", lambda: F.linear(x, w_bf))]
     if 7 in args.kernels:
         cases.append(("kernel 7", lambda: k7(built[7])))
+    if 3 in args.kernels:
+        qkv = mha[256][0]
+        split = qkv.reshape(256, 14, 3, 8, 256)
+        hq, hk, hv = (split[:, :, i].transpose(1, 2) for i in range(3))
+        cases += [("kernel 3 at (256, 14, 6144)", lambda: k3(built[3], 256)),
+                  ("SDPA at kernel 3's shape",
+                   lambda: F.scaled_dot_product_attention(
+                       hq, hk, hv, scale=256 ** -0.5))]
     if 12 in args.kernels:
         cases.append(("kernel 12", lambda: bwd(built[12], 1)))
     if 13 in args.kernels:
