@@ -10,10 +10,12 @@ Phases, each printing a line of its own; any failure exits non-zero:
                one nvcc per source, all started together.
   3. kernel  — the fused ViT-block forward at the ViViT main-path shape
                (512 sequences, 208 tokens, dim 192, kv_len 197), bf16 and
-               f32, held against its plain PyTorch version on the card;
-               times of the kernel, the plain version and one
-               nn.TransformerEncoderLayer (a yardstick only; all three by
-               CUDA events around eager calls), and the bound.
+               f32, held against its plain PyTorch version on the card; the
+               body of its attention launch (bf16: the one-shot wgmma
+               instance, counted); times of the kernel and one
+               nn.TransformerEncoderLayer (a yardstick only) by CUDA graph
+               replay, of the plain version by CUDA events; the bound;
+               ptxas' report of block_sm90.cuh's forward instances.
   4. serve   — ViViT at full width (224², patch 16, 16 frames, dim 192,
                depth 4, 3 heads, MLP 768, 19 classes, bf16, seeded weights)
                behind Predictor(buckets=(1, 8, 32)) on 37 uint8 clips; checks
@@ -21,9 +23,12 @@ Phases, each printing a line of its own; any failure exits non-zero:
                first clips against the same model run on the CPU.
   5. kernel-bwd — the fused ViT-block backward at the same shape, bf16 and
                f32: dx and all 11 parameter gradients against the plain
-               backward; two runs compared bit for bit; times of the kernel,
-               the plain version and autograd through the library layer, the
-               bound, and the sub-kernels' times.
+               backward; two runs compared bit for bit; times of the kernel
+               and of autograd through the library layer (its forward and
+               backward less its forward) by CUDA graph replay, of the
+               plain version by CUDA events; the bound, the sub-kernels'
+               times and ptxas' report of block_sm90.cuh's backward
+               instances.
   6. dropout — both kernels at rate 0.1 against the plain versions given
                the masks that the library exports for the seed; the dropped
                share at each of the three sites.
@@ -36,7 +41,8 @@ Phases, each printing a line of its own; any failure exits non-zero:
                of one step; then a few steps with dropout 0.1.
   8. kernel-quant — the int8 fused ViT block at the shape of phase 3, bf16
                and f32, against its plain version; times of the kernel, the
-               plain version and the bf16 fused block on the same input.
+               bf16 fused block on the same input and the library layer by
+               CUDA graph replay, of the plain version by CUDA events.
   9. kernel-int8-matmul — the fused int8 matmul at PTN's two Linear shapes,
                (3584, 2048) x (2048, 6144) and x (2048, 2048), bf16, the
                weight codes K-major as the site registry stores them (one
@@ -221,10 +227,13 @@ SCORE_ATOL = 2e-2
 BWD_ULPS = {"f32": 1024, "bf16": 4}
 EPS = {"f32": 2.0 ** -23, "bf16": 2.0 ** -8}
 DROPOUT = 0.1
-# the fused block's sub-kernels as the profiler names them
-FWD_KERNELS = ("ln_qkv_bf16<false>", "attention_bf16", "out_ffn_bf16")
-BWD_KERNELS = ("ln_qkv_bf16<true>", "ffn_dual_bf16", "row_nk_bf16",
-               "attention_bwd_bf16", "wgrad_bf16", "reduce_parts")
+# the fused block's sub-kernels as the profiler names them: the products on
+# csrc/block_sm90.cuh's wgmma body, the forward's attention on the one-shot
+# body's normalise-after instance (attention_bf16 outside its rule)
+FWD_KERNELS = ("ln_qkv_sm90<192, false>", "flash_one_shot<64, 208, false, "
+               "true>", "attention_bf16", "out_ffn_sm90")
+BWD_KERNELS = ("ln_qkv_sm90<192, true>", "ffn_dual_sm90", "row_nk_sm90",
+               "attention_bwd_bf16", "wgrad_sm90", "reduce_parts")
 # training: the JAX bench's configuration (batch 32, multi-step of 8)
 TRAIN_BATCH, MULTI_STEPS, TRAIN_ITERS, DROP_STEPS = 32, 8, 3, 4
 # Gradients of one bf16 step on the card against the same step on the CPU
@@ -273,8 +282,8 @@ PTN_GRAD_RTOL = 1e-3
 MOE_EXPERTS, MOE_EVERY, MOE_DROPOUT = 4, 2, 0.5
 # the fused blocks' and attention halves' sub-kernels, as the profiler
 # names them (kernels 1 and 7, and 2 and 8, share most of their launches;
-# kernel 7's attention at the MoE shape is the one-shot body's
-# normalise-after instance, which no other kernel launches)
+# their attention at the main-path shape is the one-shot body's
+# normalise-after instance, which kernels 9 and 14 do not launch)
 HALF_ATTENTION = "flash_one_shot<64, 208, false, true>"
 BLOCK_KERNELS = FWD_KERNELS + BWD_KERNELS + ("out_proj_bf16",
                                              HALF_ATTENTION)
@@ -408,6 +417,76 @@ def _bound_bwd_ms(itemsize: int, kind: str) -> tuple[float, str]:
     return _bound({kind: flops}, bytes_)
 
 
+def _block_launch_work() -> dict:
+    """Work of each bf16 launch of kernels 1 and 2 at the main-path shape,
+    by the profiler's name: (operations by kind, bytes).  Bytes: each
+    input read once and each output written once as the launch reads and
+    writes them (csrc/block_sm90.cuh, the one-shot attention,
+    block_bwd_parts.cuh): the keys past kv_len are not read; u32 (the f32
+    u that out_ffn writes for its own residual add), du, datt and the f32
+    partials count; LayerNorm parameters and biases (under 8 KB) do not.
+    The weight gradients' splits as wgrad_split_rows sizes them on this
+    card."""
+    import torch
+
+    rows, f, n3, d = B * S, MLP, 3 * D, D // HEADS
+    act, act32 = rows * D * 2, rows * D * 4      # a (rows, D) tensor
+    stats, lse = rows * 2 * 4, rows * HEADS * 4  # f32 lanes of res
+    wqkv, wo, w1 = D * n3 * 2, D * D * 2, D * f * 2
+    qkv, hid = rows * n3 * 2, rows * f * 2
+    q_kv = act + 2 * B * KV_LEN * D * 2          # q, and k, v of live keys
+    col = -(-rows // 128) * 4                    # a column's tile partials
+    attn = 2 * B * HEADS * S * KV_LEN * d        # one S x kv_len x d product
+    wg_tiles = sum(-(-m // 128) * (n // 192)
+                   for m, n in ((f, D), (D, f), (D, D), (D, n3)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wg_splits = max(1, sms // wg_tiles)
+    split_rows = -(-(-(-rows // wg_splits)) // 64) * 64
+    parts = -(-rows // split_rows) * (2 * D * f + D * D + D * n3) * 4
+    bf = "bf16"
+    return {
+        "ln_qkv_sm90<192, false>": ({bf: 2 * rows * D * n3},
+                                    act + wqkv + qkv + stats),
+        "flash_one_shot<64, 208, false, true>": ({bf: 2 * attn},
+                                                 q_kv + act + lse),
+        "out_ffn_sm90<192>": ({bf: 2 * rows * (D * D + 2 * D * f)},
+                              4 * act + act32 + wo + 2 * w1 + stats),
+        "ln_qkv_sm90<192, true>": ({bf: 2 * rows * D * n3},
+                                   2 * act + stats + wqkv + qkv),
+        "ffn_dual_sm90<192>": ({bf: 4 * rows * D * f},
+                               3 * act + stats + 2 * w1 + 2 * hid
+                               + col * (f + D)),
+        "row_nk_sm90<192, 1>": ({bf: 2 * rows * f * D},
+                                hid + w1 + 3 * act + stats + act32
+                                + 3 * col * D),
+        "row_nk_sm90<192, 0>": ({bf: 2 * rows * D * D}, act + wo + act32),
+        "attention_bwd_bf16<64>": ({bf: 6 * attn},
+                                   q_kv + act32 + lse + act + qkv),
+        "row_nk_sm90<192, 2>": ({bf: 2 * rows * n3 * D},
+                                qkv + wqkv + 2 * act + stats + act32
+                                + 2 * col * D),
+        "wgrad_sm90<192>": ({bf: 2 * rows * (2 * D * f + D * D + D * n3)},
+                            2 * hid + 5 * act + qkv + parts),
+        "reduce_parts": ({"f32": col // 4 * (6 * D + f) + parts // 4},
+                         col * (6 * D + f) + parts + wqkv + wo + 2 * w1
+                         + (6 * D + f) * 4),
+    }
+
+
+def _print_launch_bounds(rows) -> None:
+    """Each profiled launch of _block_launch_work beside its bound."""
+    work = _block_launch_work()
+    for name, ms, n in rows:
+        if name not in work:
+            continue
+        ops, bytes_ = work[name]
+        bound, by = _bound(ops, bytes_)
+        print(f"[launch] {name}: {ms:.4f} ms x{n:g} | "
+              f"{sum(ops.values()) / 1e9:.2f} G operations, "
+              f"{bytes_ / 1e6:.1f} MB | bound_ms={bound:.4f} ({by}), "
+              f"{bound / ms:.1%} of it", flush=True)
+
+
 def _max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -452,7 +531,16 @@ def phase_kernel(kind: str) -> dict:
     scale = (D // HEADS) ** -0.5
     layer, pad_mask = _library_layer(dtype)
     with torch.inference_mode():
+        before = _body_counts()
         got = fused_vit_block(x, params, HEADS, scale, KV_LEN)
+        body = {k: v - before[k] for k, v in _body_counts().items()}
+        # the attention launch: the one-shot wgmma body in bf16 (197 live
+        # keys at head dim 64), attention_fwd.cuh's in f32
+        on_wgmma = kind == "bf16"
+        if (body["k1_wgmma"], body["k1_streamed"]) != (int(on_wgmma),
+                                                      int(not on_wgmma)):
+            raise AssertionError(f"fused_vit_block {kind}: attention launches "
+                                 f"by body {body}")
         want = fused_vit_block_fwd_plain(x, params, HEADS, scale, KV_LEN)
         torch.cuda.synchronize()
         atol, rtol = TOL[kind]
@@ -463,14 +551,24 @@ def phase_kernel(kind: str) -> dict:
         if got[2][..., HEADS + 4:].abs().max().item() != 0.0:
             raise AssertionError("residual lanes past heads+4 must be 0")
 
-        kernel_ms = _time_ms(
-            lambda: fused_vit_block(x, params, HEADS, scale, KV_LEN))
+        # kernel and library call alike: CUDA graph replay
+        n = 20 if kind == "bf16" else 3
+        kernel_ms = _graph_ms(
+            lambda: fused_vit_block(x, params, HEADS, scale, KV_LEN), n=n)
         plain_ms = _time_ms(
             lambda: fused_vit_block_fwd_plain(x, params, HEADS, scale,
                                               KV_LEN), iters=5)
-        library_ms = _time_ms(lambda: layer(x, src_key_padding_mask=pad_mask))
-        _print_profile(f"fused_vit_block {kind}", *_device_profile(
-            lambda: fused_vit_block(x, params, HEADS, scale, KV_LEN)), top=4)
+        library_ms = _graph_ms(
+            lambda: layer(x, src_key_padding_mask=pad_mask), n=n)
+        prof = _device_profile(
+            lambda: fused_vit_block(x, params, HEADS, scale, KV_LEN))
+        _print_profile(f"fused_vit_block {kind}", *prof, top=4)
+        if kind == "bf16":
+            _print_launch_bounds(prof[0])
+    ptxas = (f" | {_ptxas('fused_block_fwd', 'ln_qkv_sm90<D, stored>')} | "
+             f"{_ptxas('fused_block_fwd', 'out_ffn_sm90<D>')} | "
+             f"{_ptxas('fused_block_fwd', ONE_SHOT)}" if kind == "bf16"
+             else "")
     bound_ms, bound_by = _bound_ms(x.element_size(), kind)
     out = {"dtype": kind, "max_abs_err": errs, "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
@@ -479,8 +577,10 @@ def phase_kernel(kind: str) -> dict:
           f"{KV_LEN}: max_abs_err y={errs['y']:.3e} u={errs['u']:.3e} "
           f"res={errs['res']:.3e} (atol {atol}, rtol {rtol}) | kernel_ms="
           f"{kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-          f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
-          flush=True)
+          f"{library_ms:.4f} (kernel and library by CUDA graph) bound_ms="
+          f"{bound_ms:.4f} ({bound_by}); attention launches by body "
+          f"{body['k1_wgmma']} one-shot wgmma, {body['k1_streamed']} "
+          f"attention_fwd.cuh{ptxas}", flush=True)
     return out
 
 
@@ -542,28 +642,38 @@ def phase_kernel_bwd(kind: str) -> dict:
             raise AssertionError(f"bwd {kind}: two runs differ in their bits")
         del want, again
         slow = kind == "f32"
-        kernel_ms = _time_ms(run, iters=3 if slow else 20,
-                             warmup=1 if slow else 3)
+        kernel_ms = _graph_ms(run, n=2 if slow else 20,
+                              replays=2 if slow else 5)
         plain_ms = _time_ms(
             lambda: fb.fused_vit_block_bwd_plain(x, params, u, res, dy,
                                                  HEADS, scale, KV_LEN),
             iters=2, warmup=1)
-        _print_profile(f"fused_vit_block backward {kind}",
-                       *_device_profile(run, reps=1 if slow else 3), top=12)
+        prof = _device_profile(run, reps=1 if slow else 3)
+        _print_profile(f"fused_vit_block backward {kind}", *prof, top=12)
+        if kind == "bf16":
+            _print_launch_bounds(prof[0])
 
-    # the yardstick: autograd through one library encoder layer
+    # the yardstick: autograd through one library encoder layer, by CUDA
+    # graph: the forward and its backward, less the forward
     layer = torch.nn.TransformerEncoderLayer(
         D, HEADS, MLP, dropout=0.0, layer_norm_eps=1e-5,
         activation=lambda t: F.gelu(t, approximate="tanh"),
         batch_first=True, norm_first=True, device="cuda", dtype=dtype)
     pad_mask = (torch.arange(S, device="cuda") >= KV_LEN).expand(B, S)
     xr = x.clone().requires_grad_(True)
-    y = layer(xr, src_key_padding_mask=pad_mask)
     leaves = (xr, *layer.parameters())
-    library_ms = _time_ms(
-        lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
-        iters=5, warmup=2)
-    del y
+    n = 2 if slow else 5
+    both_ms = _graph_ms(lambda: torch.autograd.grad(
+        layer(xr, src_key_padding_mask=pad_mask), leaves, dy), n=n)
+    with torch.no_grad():
+        fwd_ms = _graph_ms(lambda: layer(xr, src_key_padding_mask=pad_mask),
+                           n=n)
+    library_ms = both_ms - fwd_ms
+    ptxas = (" | " + " | ".join(
+        _ptxas("fused_block_bwd", body) for body in (
+            "ln_qkv_sm90<D, stored>", "ffn_dual_sm90<D>",
+            "row_nk_sm90<D, mode>", "wgrad_sm90<BN>"))
+        if kind == "bf16" else "")
 
     bound_ms, bound_by = _bound_bwd_ms(x.element_size(), kind)
     print(f"[kernel-bwd] fused_vit_block_bwd {kind} ({B},{S},{D}) kv_len "
@@ -572,7 +682,8 @@ def phase_kernel_bwd(kind: str) -> dict:
           f"largest element) | two runs bit-equal: "
           f"{same_bits} | kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms={library_ms:.4f} (autograd of nn.TransformerEncoder"
-          f"Layer) bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+          f"Layer; kernel and library by CUDA graph) bound_ms="
+          f"{bound_ms:.4f} ({bound_by}){ptxas}", flush=True)
     return {"dtype": kind, "max_abs_err": err, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -765,6 +876,7 @@ def phase_train() -> dict:
     loss_before = evaluate(state, batch)[0].item()
 
     fused_vit_block.launches = fused_vit_block.bwd_launches = 0
+    fused_vit_block.wgmma_launches = fused_vit_block.streamed_launches = 0
     state, first = step(state, batch, SEED)
     state, metrics = multi(state, stacked, SEED)
     torch.cuda.synchronize()
@@ -772,10 +884,13 @@ def phase_train() -> dict:
     bwd_launches = fused_vit_block.bwd_launches
 
     steps = 1 + MULTI_STEPS
-    if fwd_launches != depth * steps or bwd_launches != depth * steps:
+    if fwd_launches != depth * steps or bwd_launches != depth * steps \
+            or fused_vit_block.wgmma_launches != fwd_launches:
         raise AssertionError(
-            f"train: {fwd_launches} forward and {bwd_launches} backward "
-            f"launches in {steps} steps, expected {depth} of each per step")
+            f"train: {fwd_launches} forward ({fused_vit_block.wgmma_launches}"
+            f" with the one-shot attention) and {bwd_launches} backward "
+            f"launches in {steps} steps, expected {depth} of each per step, "
+            f"every forward's attention on the one-shot body")
     loss_after = evaluate(state, batch)[0].item()
     losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
     if not all(map(math.isfinite, losses)) or not loss_after < loss_before \
@@ -888,14 +1003,16 @@ def phase_kernel_quant(kind: str) -> dict:
                 f"{max_err:.3e} of largest |y| {largest:.3f} (limit "
                 f"{QUANT_MAX_REL})")
         del want, err
-        kernel_ms = _time_ms(run, iters=20 if kind == "bf16" else 5)
+        # kernel, control and library call alike: CUDA graph replay
+        n = 20 if kind == "bf16" else 3
+        kernel_ms = _graph_ms(run, n=n)
         plain_ms = _time_ms(
             lambda: tq.quant_fused_vit_block_plain(x, qp, HEADS, scale,
                                                    KV_LEN), iters=3, warmup=1)
-        control_ms = _time_ms(
-            lambda: fused_vit_block(x, params, HEADS, scale, KV_LEN),
-            iters=20 if kind == "bf16" else 3)
-        library_ms = _time_ms(lambda: layer(x, src_key_padding_mask=pad_mask))
+        control_ms = _graph_ms(
+            lambda: fused_vit_block(x, params, HEADS, scale, KV_LEN), n=n)
+        library_ms = _graph_ms(
+            lambda: layer(x, src_key_padding_mask=pad_mask), n=n)
         _print_profile(f"quant_fused_vit_block {kind}",
                        *_device_profile(run), top=7)
     rows, item = B * S, x.element_size()
@@ -912,8 +1029,8 @@ def phase_kernel_quant(kind: str) -> dict:
           f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
           f"bf16_block_ms={control_ms:.4f} (fused_vit_block on the same "
           f"input) library_ms={library_ms:.4f} (nn.TransformerEncoderLayer "
-          f"{kind}, the unquantized block) bound_ms={bound_ms:.4f} "
-          f"({bound_by})", flush=True)
+          f"{kind}, the unquantized block; all three by CUDA graph) "
+          f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
     return {"dtype": kind, "max_abs_err": max_err, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1900,6 +2017,8 @@ def _zero_counts() -> None:
     mha.packed_launches = mha.one_shot_launches = mha.streamed_launches = 0
     half = fb.fused_attn_half
     half.wgmma_launches = half.streamed_launches = 0
+    block = fb.fused_vit_block
+    block.wgmma_launches = block.streamed_launches = 0
     tq.quant_fused_vit_block.launches = 0
     fa = tfa.flash_attention
     fa.single_launches = fa.single_bwd_launches = fa.blocked_launches = 0
@@ -1917,7 +2036,9 @@ def _zero_counts() -> None:
 
 
 def _body_counts() -> dict:
-    """Launches by body of the kernels that have more than one: 3 (the
+    """Launches by body of the kernels that have more than one: 1 (its
+    attention launch on the one-shot body's normalise-after instance, or
+    attention_fwd.cuh's), 3 (the
     packed wgmma body of csrc/mha_fwd_sm90.cuh, kernel 9's one-shot
     instance, or attention_fwd.cuh's streamed body), 9 and 14 (the wgmma
     one-shot body of csrc/flash_fwd_sm90.cuh, or the streamed one of
@@ -1934,7 +2055,9 @@ def _body_counts() -> dict:
 
     fa, ring, mha = tfa.flash_attention, tfa.ring_step_fwd, tfa.fused_mha
     mm, half = tq.int8_matmul_fused, fb.fused_attn_half
-    return {"k3_packed": mha.packed_launches,
+    return {"k1_wgmma": fb.fused_vit_block.wgmma_launches,
+            "k1_streamed": fb.fused_vit_block.streamed_launches,
+            "k3_packed": mha.packed_launches,
             "k3_one_shot": mha.one_shot_launches,
             "k3_streamed": mha.streamed_launches,
             "k7_wgmma": half.wgmma_launches,
@@ -1967,6 +2090,12 @@ WGMMA_BODIES = {
     "flash_bwd_dkv_wgmma<d, ring>": r"flash_bwd_dkv_wgmmaILi(\d+)ELb(\d)E",
     "mha_fwd_packed<d>": r"mha_fwd_packedILi(\d+)E",
     "gemm_s8_wgmma<out>": r"gemm_s8_wgmmaI(\w+?)EEv",
+    # csrc/block_sm90.cuh: the fused block's products (kernels 1, 2, 7, 8)
+    "ln_qkv_sm90<D, stored>": r"ln_qkv_sm90ILi(\d+)ELb(\d)E",
+    "out_ffn_sm90<D>": r"out_ffn_sm90ILi(\d+)E",
+    "ffn_dual_sm90<D>": r"ffn_dual_sm90ILi(\d+)E",
+    "row_nk_sm90<D, mode>": r"row_nk_sm90ILi(\d+)ELi(\d+)E",
+    "wgrad_sm90<BN>": r"wgrad_sm90ILi(\d+)E",
 }
 
 
@@ -1978,6 +2107,8 @@ KEPT_REGS = {
     ("flash_fwd", ONE_SHOT): {"64,208,0,0": 141},
     ("ring_step", ONE_SHOT): {"64,208,1,0": 166},
     ("attn_half", ONE_SHOT): {"64,208,0,1": 146},
+    # kernel 1's attention: the same instance as kernel 7's
+    ("fused_block_fwd", ONE_SHOT): {"64,208,0,1": 146},
     **{(stem, _DQ): {"64,0": 123, "32,0": 107, "16,0": 98}
        for stem in ("flash_bwd", "ring_step")},
     **{(stem, _DKV): {"64,0": 168, "32,0": 152, "16,0": 130}
@@ -3444,13 +3575,23 @@ def main() -> int:
     csrc = "devt_tpu_torch/ops/csrc/"
     # in kernel order, 1 to 15, each with its number
     kernels = [
-        entry(1, "fused_vit_block_fwd", csrc + "fused_block_fwd.cu",
+        # the products on block_sm90.cuh's wgmma body, the attention on
+        # the one-shot body's normalise-after instance
+        entry(1, "fused_vit_block_fwd", csrc + "block_sm90.cuh",
               "devt_tpu/ops/fused_block.py:177",
               serve["launches"] + train["fwd_launches"] + later("k1"),
-              {**fwd, "max_abs_err": max(fwd["max_abs_err"].values())}),
-        entry(2, "fused_vit_block_bwd", csrc + "fused_block_bwd.cu",
+              {**fwd, "max_abs_err": max(fwd["max_abs_err"].values())},
+              launch_sources=[csrc + "fused_block_fwd.cu",
+                              csrc + "block_sm90.cuh",
+                              csrc + "flash_fwd_sm90.cuh"]),
+        # the products on block_sm90.cuh's wgmma body, the attention
+        # backward on block_bwd_parts.cuh's
+        entry(2, "fused_vit_block_bwd", csrc + "block_sm90.cuh",
               "devt_tpu/ops/fused_block.py:240",
-              train["bwd_launches"] + later("k2"), bwd),
+              train["bwd_launches"] + later("k2"), bwd,
+              launch_sources=[csrc + "fused_block_bwd.cu",
+                              csrc + "block_sm90.cuh",
+                              csrc + "block_bwd_parts.cuh"]),
         # its main path (PTN) runs the packed wgmma body; the blocks the
         # fused kernels do not take at head dim 64, kernel 9's one-shot
         # instance; dropout, the streamed body
@@ -3480,10 +3621,14 @@ def main() -> int:
               "devt_tpu/ops/fused_block.py:556", later("k7"), half_fwd,
               composed_ms=half_fwd["composed_ms"],
               launch_sources=[csrc + "attn_half.cu",
+                              csrc + "block_sm90.cuh",
                               csrc + "flash_fwd_sm90.cuh"]),
         entry(8, "fused_attn_half_bwd", csrc + "attn_half.cu",
               "devt_tpu/ops/fused_block.py:578", later("k8"), half_bwd,
-              composed_ms=half_bwd["composed_ms"]),
+              composed_ms=half_bwd["composed_ms"],
+              launch_sources=[csrc + "attn_half.cu",
+                              csrc + "block_sm90.cuh",
+                              csrc + "block_bwd_parts.cuh"]),
         entry(9, "flash_single_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:390",
               int8_unfused["launches"], flash9),

@@ -32,7 +32,8 @@
 // fused_block_fwd.cu (LN1 + qkv per 128 rows), the attention, and a third
 // launch, the out-projection per 64 rows with the Wo slices streamed
 // through a two-stage cp.async ring and u written from the accumulators.
-// The attention in bfloat16 with at most 256 live keys at head dim 16, 32
+// The LN1 + qkv launch is the block forward's, block_sm90.cuh's
+// ln_qkv_sm90 (wgmma, TMA).  The attention in bfloat16 with at most 256 live keys at head dim 16, 32
 // or 64 (one_shot_on_wgmma, as kernel 9's: every main-path shape) runs
 // flash_fwd_sm90.cuh's one-shot wgmma body in its normalise-after instance
 // (o = (round(p) @ v) / l, as _mha_fwd): a CTA per two 64-query tiles of a
@@ -42,16 +43,16 @@
 // scratch and lse into the residual lanes through strides.  Other shapes
 // (more live keys) and the float route keep the block forward's
 // attention, attention_fwd.cuh's (per 64 queries, head, sequence; the
-// scores recomputed per pass, mma.sync).  The
-// backward is fused_block_bwd.cu's launches without the FFN, from
-// block_bwd_parts.cuh: the LN1 + qkv recompute; datt = du @ Wo^T per 64
-// rows; the attention recompute and backward per (head, sequence); dqkv @
-// Wqkv^T with the LN1 backward, which also takes the column partials of
-// dg1, db1 and dbo; the split-K weight gradients of Wqkv and Wo; one
-// fixed-order sum of all partials.  No atomics: two runs give the same
-// bits.  The bfloat16 route is mma.sync m16n8k16 fed by ldmatrix; the
-// float route (the comparison with the plain version on the card) is FMA
-// products and elementwise kernels.
+// scores recomputed per pass, mma.sync).  The out-projection stays on
+// mma.sync m16n8k16 fed by ldmatrix.  The backward is fused_block_bwd.cu's
+// launches without the FFN: from block_sm90.cuh (wgmma, TMA) the LN1 +
+// qkv recompute, datt = du @ Wo^T per 128 rows, dqkv @ Wqkv^T with the LN1
+// backward, which also takes the column partials of dg1, db1 and dbo, and
+// the split-K weight gradients of Wqkv and Wo in one launch; from
+// block_bwd_parts.cuh the attention recompute and backward per (head,
+// sequence) and one fixed-order sum of all partials.  No atomics: two runs
+// give the same bits.  The float route (the comparison with the plain
+// version on the card) is FMA products and elementwise kernels.
 //
 // Bound at the main-path shape (B=512, S=208, D=192, H=3, kv_len 197):
 // the forward does 2*(3 D^2 + 2 kv_len D + D^2) operations per row, 47.5
@@ -62,6 +63,7 @@
 
 #include "attention_fwd.cuh"
 #include "block_bwd_parts.cuh"
+#include "block_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
 
 namespace {
@@ -183,17 +185,13 @@ cudaError_t half_attention_bf16(const FwdArgs& a) {
 
 template <int D, int HD>
 cudaError_t fwd_bf16_shape(const FwdArgs& a) {
-  const int rows = a.B * a.S, N3 = 3 * D;
+  const int rows = a.B * a.S;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto h = [](const void* p) { return static_cast<const bf16*>(p); };
 
-  const size_t s1 = qkv_smem_bf16(D);
-  DEVT_TRY(set_smem(ln_qkv_bf16<false>, s1));
-  ln_qkv_bf16<false><<<(rows + kQkvRows - 1) / kQkvRows, kQkvThreads, s1,
-                       a.stream>>>(
+  DEVT_TRY((launch_ln_qkv<D, false>(
       h(a.x), f(a.g1), f(a.b1), h(a.wqkv), static_cast<bf16*>(a.qkv),
-      static_cast<float*>(a.res), nullptr, rows, D, N3, a.H, a.lanes);
-  DEVT_TRY(cudaGetLastError());
+      static_cast<float*>(a.res), nullptr, rows, a.H, a.lanes, a.stream)));
 
   DEVT_TRY(half_attention_bf16<HD>(a));
 
@@ -256,15 +254,26 @@ struct Plan {
   size_t w_qkv, w_o;              // f32 [splits][M * N]
   size_t xhat1, tmp, s, dp;       // float route only
   size_t bytes;
-  int tiles, splits;
+  int tiles, splits, split_rows;
 };
 
 Plan make_plan(int dtype, int B, int S, int D, int H) {
   Plan p{};
   const size_t rows = static_cast<size_t>(B) * S;
   const size_t esz = dtype == 1 ? 2 : 4;
-  p.tiles = static_cast<int>((rows + kTileRows - 1) / kTileRows);
-  p.splits = static_cast<int>((rows + kSplitRows - 1) / kSplitRows);
+  // the bfloat16 route's tiles and splits are block_sm90.cuh's
+  p.tiles = dtype == 1 ? blk_tiles(static_cast<int>(rows))
+                       : static_cast<int>((rows + kTileRows - 1) / kTileRows);
+  // the bfloat16 route's weight-gradient splits fill the card's SMs
+  // (block_sm90.cuh); the float route's are kSplitRows rows
+  if (dtype == 1) {
+  const int wm[2] = {D, D}, wn[2] = {D, 3 * D};
+  p.split_rows = wgrad_split_rows(static_cast<int>(rows), wm, wn, 2);
+    if (p.split_rows == 0) return p;  // no card: bytes 0
+  } else {
+    p.split_rows = kSplitRows;
+  }
+  p.splits = static_cast<int>((rows + p.split_rows - 1) / p.split_rows);
   size_t at = 0;
   auto take = [&](size_t bytes) {
     const size_t o = at;
@@ -304,7 +313,7 @@ cudaError_t launch_reduce(const BwdArgs& a, const Plan& p, int mat_bf16) {
   segs.s[2] = {f(p.w_qkv), a.grads[2], D * 3 * D, p.splits, mat_bf16};
   segs.s[3] = {f(p.w_o), a.grads[3], D * D, p.splits, mat_bf16};
   segs.s[4] = {f(p.p_bo), a.grads[4], D, p.tiles, 0};
-  reduce_parts<<<dim3(64, kHalfGrads), 256, 0, a.stream>>>(segs);
+  reduce_parts<<<dim3(256, kHalfGrads), 256, 0, a.stream>>>(segs);
   return cudaGetLastError();
 }
 
@@ -320,21 +329,14 @@ cudaError_t bwd_bf16_shape(const BwdArgs& a, const Plan& p) {
   const float* res = f(a.res);
   const bf16* du = h(a.du);
 
-  const size_t s1 = qkv_smem_bf16(D);
-  DEVT_TRY(set_smem(ln_qkv_bf16<true>, s1));
-  ln_qkv_bf16<true><<<(rows + kQkvRows - 1) / kQkvRows, kQkvThreads, s1,
-                      a.stream>>>(h(a.x), f(a.g1), f(a.b1), h(a.wqkv),
-                                  sb(p.qkv), const_cast<float*>(res), sb(p.a),
-                                  rows, D, N3, a.H, a.lanes);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY((launch_ln_qkv<D, true>(h(a.x), f(a.g1), f(a.b1), h(a.wqkv),
+                                   sb(p.qkv), const_cast<float*>(res),
+                                   sb(p.a), rows, a.H, a.lanes, a.stream)));
 
-  constexpr size_t s2 = row_nk_smem<D>();
   RowEpi plain{};
   plain.out_f32 = sf(p.datt);
-  DEVT_TRY(set_smem(row_nk_bf16<D, kPlain>, s2));
-  row_nk_bf16<D, kPlain><<<p.tiles, kRowThreads, s2, a.stream>>>(
-      du, D, h(a.wo), D, D, plain, rows);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY((launch_row_nk<D, kPlain>(du, D, h(a.wo), plain, rows,
+                                     a.stream)));
 
   const size_t s3 = attn_bwd_smem(a.S, HD);
   if (s3 > kSmemPerBlock) return cudaErrorInvalidValue;
@@ -356,20 +358,12 @@ cudaError_t bwd_bf16_shape(const BwdArgs& a, const Plan& p) {
   ln1.part_o = sf(p.p_bo);
   ln1.stat = a.H;
   ln1.lanes = a.lanes;
-  DEVT_TRY(set_smem(row_nk_bf16<D, kLn1Du>, s2));
-  row_nk_bf16<D, kLn1Du><<<p.tiles, kRowThreads, s2, a.stream>>>(
-      sb(p.dqkv), N3, h(a.wqkv), N3, N3, ln1, rows);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY((launch_row_nk<D, kLn1Du>(sb(p.dqkv), N3, h(a.wqkv), ln1, rows,
+                                     a.stream)));
 
-  constexpr size_t s4 = wgrad_smem();
-  DEVT_TRY(set_smem(wgrad_bf16, s4));
-  auto wgrad = [&](const bf16* A, int M, const bf16* Bm, int N, size_t part) {
-    wgrad_bf16<<<dim3((M / kSlice) * (N / kSlice), p.splits), kWgThreads, s4,
-                 a.stream>>>(A, M, Bm, N, sf(part), M, N, rows);
-    return cudaGetLastError();
-  };
-  DEVT_TRY(wgrad(sb(p.att), D, du, D, p.w_o));
-  DEVT_TRY(wgrad(sb(p.a), D, sb(p.dqkv), N3, p.w_qkv));
+  const WgSpec specs[2] = {{sb(p.att), du, D, D, sf(p.w_o)},
+                           {sb(p.a), sb(p.dqkv), D, N3, sf(p.w_qkv)}};
+  DEVT_TRY(launch_wgrad(specs, 2, rows, p.split_rows, a.stream));
   return launch_reduce(a, p, 1);
 }
 
@@ -460,7 +454,8 @@ extern "C" unsigned long long devt_attn_half_bwd_scratch(int dtype, int B,
 // grads holds the 5 gradient pointers in the order g1, b1, wqkv, wo, bo.
 // scratch is a buffer of devt_attn_half_bwd_scratch bytes, 256-byte
 // aligned.  The bfloat16 route needs S a multiple of 16 and one head's q,
-// k, v and datt in a block's shared memory.
+// k, v and datt in a block's shared memory; x, du and the weight matrices
+// 16-byte aligned (TMA reads them).
 extern "C" int devt_attn_half_bwd(int dtype, const void* x, const void* g1,
                                   const void* b1, const void* wqkv,
                                   const void* wo, const void* bo,
@@ -479,6 +474,7 @@ extern "C" int devt_attn_half_bwd(int dtype, const void* x, const void* g1,
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
   const Plan p = make_plan(dtype, B, S, D, H);
+  if (p.bytes == 0) return cudaErrorInvalidValue;
   if (dtype == 0) return bwd_f32(a, p);
   if (S % 16) return cudaErrorInvalidValue;
   if (D == 192 && D / H == 64) return bwd_bf16_shape<192, 64>(a, p);

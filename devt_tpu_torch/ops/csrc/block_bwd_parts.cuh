@@ -2,17 +2,15 @@
 // fused_block_bwd.cu) and the attention half's backward (kernel 8,
 // attn_half.cu), for Hopper (sm_90a):
 //
-//   * row_nk_bf16: a 64-row tile times a transposed weight (mma.sync), with
-//     the LayerNorm backward epilogues that also take the column partials
-//     of the LN-parameter and bias gradients;
 //   * attention_bwd_bf16: the attention recompute and backward per (head,
 //     sequence), q, k, v and datt of the head in shared memory;
-//   * wgrad_bf16: a split-K weight gradient into f32 partials;
 //   * reduce_parts: the fixed-order sums of the partials, cast to each
 //     gradient's type (no atomics: two runs give the same bits);
 //   * the float route's generic FMA product and elementwise kernels, and
 //     the attention backward batched over (sequence, head) on them.
 //
+// The bfloat16 products of both backwards (the row tiles with their
+// LayerNorm epilogues and the weight gradients) are block_sm90.cuh's.
 // Everything sits in an anonymous namespace, as in fused_block_common.cuh.
 
 #pragma once
@@ -21,238 +19,17 @@
 
 namespace {
 
-constexpr int kTileRows = 64;     // rows of a row-tile kernel's block
-constexpr int kRowThreads = 256;  // 8 warps as 2 (rows) x 4 (columns)
-constexpr int kSlice = 64;        // hidden / contraction slice
-constexpr int kSplitRows = 2048;  // rows of one split of a weight gradient
+// kernel 7's out-projection (attn_half.cu): 64-row tiles, 8 warps as 2
+// (rows) x 4 (columns), 64-row Wo slices; the float route's column
+// partials cover kTileRows rows and its weight gradients kSplitRows
+constexpr int kTileRows = 64;
+constexpr int kRowThreads = 256;
+constexpr int kSlice = 64;
+constexpr int kSplitRows = 2048;
 
 // ===========================================================================
 // bfloat16 route
 // ===========================================================================
-
-// ---------------------------------------------------------------------------
-// rows x D product with a transposed weight, and its epilogues
-// ---------------------------------------------------------------------------
-
-// kPlain: the product in f32.  kLn2 (kernel 2): the LN2 backward from an
-// f32 product db, du = dy + LN2'(db) and doproj = drop(du).  kLn1 (kernel
-// 2): the LN1 backward, dx = du + LN1'(da) with du in f32.  kLn1Du
-// (kernel 8): the same with du the bfloat16 upstream gradient, whose
-// column sums (dbo) it also takes.
-constexpr int kPlain = 0, kLn2 = 1, kLn1 = 2, kLn1Du = 3;
-
-struct RowEpi {
-  float* out_f32;       // kPlain: the product; kLn2: du
-  bf16* out_bf16;       // kLn2: doproj; kLn1: dx
-  const bf16* src;      // the LN input: u (kLn2), x (kLn1)
-  const float* res;     // residual lanes; mu at stat, rstd at stat + 1
-  const float* gamma;   // LN scale
-  const bf16* resid_bf16;   // kLn2: dy; kLn1Du: du
-  const float* resid_f32;   // kLn1: du
-  float *part_g, *part_b, *part_o;  // column partials [tile][D]
-  int stat, lanes;
-  Drop drop;
-};
-
-template <int D>
-__host__ __device__ constexpr size_t row_nk_stage() {
-  return align128(sizeof(bf16) * kTileRows * (kSlice + 8)) +
-         align128(sizeof(bf16) * D * (kSlice + 8));
-}
-
-template <int D>
-__host__ __device__ constexpr size_t row_nk_smem() {
-  // two stages, row partials [2][64][4], column partials [3][2][D]
-  return 2 * row_nk_stage<D>() +
-         align128(sizeof(float) * 2 * kTileRows * 4) +
-         align128(sizeof(float) * 3 * 2 * D);
-}
-
-// acc (64 x D per block) = A[rows, 0:K] @ W[0:D, 0:K]^T, K in slices of 64
-template <int D, int MODE>
-__global__ void __launch_bounds__(kRowThreads)
-    row_nk_bf16(const bf16* __restrict__ A, int lda_g,
-                const bf16* __restrict__ W, int ldw_g, int K, RowEpi ep,
-                int rows) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ld = kSlice + 8;
-  constexpr int NI = D / 32;  // warp tile 32 x D/4
-  constexpr size_t stage = row_nk_stage<D>();
-  constexpr size_t off_w = align128(sizeof(bf16) * kTileRows * ld);
-  float* red = reinterpret_cast<float*>(smem + 2 * stage);
-  float* colred = red + align128(sizeof(float) * 2 * kTileRows * 4) /
-                            sizeof(float);
-  const int row0 = blockIdx.x * kTileRows;
-  const int valid = min(kTileRows, rows - row0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3, wq = warp & 3;
-  const int wm = (warp >> 2) * 32, wn = wq * (D / 4);
-  const int slices = K / kSlice;
-
-  auto load_slice = [&](int s) {
-    unsigned char* st = smem + (s & 1) * stage;
-    cp_tile(reinterpret_cast<bf16*>(st), ld,
-            A + static_cast<size_t>(row0) * lda_g + s * kSlice, lda_g,
-            kTileRows, kSlice, valid);
-    cp_tile(reinterpret_cast<bf16*>(st + off_w), ld, W + s * kSlice, ldw_g, D,
-            kSlice, D);
-  };
-
-  load_slice(0);
-  cp_async_commit();
-  float acc[2][NI][4] = {};
-  for (int s = 0; s < slices; ++s) {
-    if (s + 1 < slices) {
-      load_slice(s + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* st = smem + (s & 1) * stage;
-    warp_mma_nk<2, NI>(acc, reinterpret_cast<const bf16*>(st), ld, wm,
-                       reinterpret_cast<const bf16*>(st + off_w), ld, wn,
-                       kSlice);
-    __syncthreads();
-  }
-
-  if (MODE == kPlain) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = wm + 16 * i + gq + 8 * hh, c = wn + 8 * j + 2 * tq;
-          if (r < valid)
-            *reinterpret_cast<float2*>(
-                ep.out_f32 + static_cast<size_t>(row0 + r) * D + c) =
-                make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-        }
-    return;
-  }
-
-  // LN backward.  acc holds dv (db or da).  With xhat = (src - mu) * rstd:
-  // out = resid + rstd * (dv*g - mean(dv*g) - xhat * mean(dv*g*xhat));
-  // the column sums of dv * xhat and dv are the LN parameter gradients.
-  float xh[2][NI][4];
-  float mu[2][2], rstd[2][2], s1[2][2] = {}, s2[2][2] = {};
-  float cg[NI][2] = {}, cb[NI][2] = {}, co[NI][2] = {};
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = wm + 16 * i + gq + 8 * hh;
-      const bool ok = r < valid;
-      const size_t g = static_cast<size_t>(row0 + r);
-      mu[i][hh] = ok ? ep.res[g * ep.lanes + ep.stat] : 0.f;
-      rstd[i][hh] = ok ? ep.res[g * ep.lanes + ep.stat + 1] : 0.f;
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int c = wn + 8 * j + 2 * tq;
-        float v0 = 0.f, v1 = 0.f;
-        if (ok) {
-          const __nv_bfloat162 sv = *reinterpret_cast<const __nv_bfloat162*>(
-              ep.src + g * D + c);
-          v0 = (__low2float(sv) - mu[i][hh]) * rstd[i][hh];
-          v1 = (__high2float(sv) - mu[i][hh]) * rstd[i][hh];
-        }
-        xh[i][j][2 * hh] = v0;
-        xh[i][j][2 * hh + 1] = v1;
-        const float d0 = acc[i][j][2 * hh], d1 = acc[i][j][2 * hh + 1];
-        cg[j][0] += d0 * v0;
-        cg[j][1] += d1 * v1;
-        cb[j][0] += d0;
-        cb[j][1] += d1;
-        const float e0 = d0 * ep.gamma[c], e1 = d1 * ep.gamma[c + 1];
-        acc[i][j][2 * hh] = e0;
-        acc[i][j][2 * hh + 1] = e1;
-        s1[i][hh] += e0 + e1;
-        s2[i][hh] += e0 * v0 + e1 * v1;
-      }
-    }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const float p1 = quad_sum(s1[i][hh]), p2 = quad_sum(s2[i][hh]);
-      if (tq == 0) {
-        const int r = wm + 16 * i + gq + 8 * hh;
-        red[r * 4 + wq] = p1;
-        red[(kTileRows + r) * 4 + wq] = p2;
-      }
-    }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = wm + 16 * i + gq + 8 * hh;
-      const bool ok = r < valid;
-      const size_t g = static_cast<size_t>(row0 + r);
-      const float* r1 = red + r * 4;
-      const float* r2 = red + (kTileRows + r) * 4;
-      const float m1 = (r1[0] + r1[1] + r1[2] + r1[3]) / D;
-      const float m2 = (r2[0] + r2[1] + r2[2] + r2[3]) / D;
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int c = wn + 8 * j + 2 * tq;
-        float t0 = rstd[i][hh] *
-                   (acc[i][j][2 * hh] - m1 - xh[i][j][2 * hh] * m2);
-        float t1 = rstd[i][hh] *
-                   (acc[i][j][2 * hh + 1] - m1 - xh[i][j][2 * hh + 1] * m2);
-        if (!ok) continue;  // t = 0 there: nothing to add or store
-        if (MODE == kLn2) {
-          const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(
-              ep.resid_bf16 + g * D + c);
-          t0 += __low2float(rv);
-          t1 += __high2float(rv);
-          *reinterpret_cast<float2*>(ep.out_f32 + g * D + c) =
-              make_float2(t0, t1);
-          drop_pair(ep.drop, kSiteOut, g * D + c, t0, t1);
-          co[j][0] += t0;
-          co[j][1] += t1;
-        } else if (MODE == kLn1Du) {
-          const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(
-              ep.resid_bf16 + g * D + c);
-          const float r0 = __low2float(rv), r1 = __high2float(rv);
-          co[j][0] += r0;
-          co[j][1] += r1;
-          t0 += r0;
-          t1 += r1;
-        } else {
-          const float2 rv =
-              *reinterpret_cast<const float2*>(ep.resid_f32 + g * D + c);
-          t0 += rv.x;
-          t1 += rv.y;
-        }
-        *reinterpret_cast<uint32_t*>(ep.out_bf16 + g * D + c) =
-            pack_bf16(t0, t1);
-      }
-    }
-  // column sums: over the 8 row groups of a warp, then the 2 row halves
-#pragma unroll
-  for (int j = 0; j < NI; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float vg = column_sum(cg[j][e]), vb = column_sum(cb[j][e]);
-      const float vo = column_sum(co[j][e]);
-      if (gq == 0) {
-        const int c = wn + 8 * j + 2 * tq + e, half = warp >> 2;
-        colred[(0 * 2 + half) * D + c] = vg;
-        colred[(1 * 2 + half) * D + c] = vb;
-        colred[(2 * 2 + half) * D + c] = vo;
-      }
-    }
-  __syncthreads();
-  for (int c = threadIdx.x; c < D; c += kRowThreads) {
-    const size_t o = static_cast<size_t>(blockIdx.x) * D + c;
-    ep.part_g[o] = colred[c] + colred[D + c];
-    ep.part_b[o] = colred[2 * D + c] + colred[3 * D + c];
-    if (MODE == kLn2 || MODE == kLn1Du) ep.part_o[o] = colred[4 * D + c] + colred[5 * D + c];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // attention recompute and backward
@@ -422,92 +199,6 @@ __global__ void __launch_bounds__(32 * kAttnMaxWarps)
   }
 }
 
-// ---------------------------------------------------------------------------
-// split-K weight gradient: part[split] = A[rows of split]^T @ B[same rows]
-// ---------------------------------------------------------------------------
-
-constexpr int kWgThreads = 128;
-
-__host__ __device__ constexpr size_t wgrad_smem() {
-  return 4 * align128(sizeof(bf16) * kSlice * (kSlice + 8));
-}
-
-__global__ void __launch_bounds__(kWgThreads)
-    wgrad_bf16(const bf16* __restrict__ A, int lda_g,
-               const bf16* __restrict__ Bm, int ldb_g,
-               float* __restrict__ part, int M, int N, int rows) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ld = kSlice + 8;
-  constexpr size_t tile = align128(sizeof(bf16) * kSlice * ld);
-  const int tiles_n = N / kSlice;
-  const int m0 = (blockIdx.x / tiles_n) * kSlice;
-  const int n0 = (blockIdx.x % tiles_n) * kSlice;
-  const int r_begin = blockIdx.y * kSplitRows;
-  const int r_end = min(rows, r_begin + kSplitRows);
-  const int chunks = (r_end - r_begin + kSlice - 1) / kSlice;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  auto load_chunk = [&](int c) {
-    unsigned char* st = smem + (c & 1) * 2 * tile;
-    const int r = r_begin + c * kSlice;
-    const int valid = min(kSlice, r_end - r);
-    cp_tile(reinterpret_cast<bf16*>(st), ld,
-            A + static_cast<size_t>(r) * lda_g + m0, lda_g, kSlice, kSlice,
-            valid);
-    cp_tile(reinterpret_cast<bf16*>(st + tile), ld,
-            Bm + static_cast<size_t>(r) * ldb_g + n0, ldb_g, kSlice, kSlice,
-            valid);
-  };
-
-  load_chunk(0);
-  cp_async_commit();
-  float acc[2][4][4] = {};
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      load_chunk(c + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* As = reinterpret_cast<const bf16*>(smem + (c & 1) * 2 * tile);
-    const bf16* Bs = reinterpret_cast<const bf16*>(smem + (c & 1) * 2 * tile +
-                                                   tile);
-#pragma unroll
-    for (int k = 0; k < kSlice; k += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) load_a_km(a[i], As, ld, k, wm + 16 * i);
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        uint32_t bq[4];
-        load_b_kn(bq, Bs, ld, k, wn + 8 * j);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][j], a[i], bq[0], bq[1]);
-          mma_bf16(acc[i][j + 1], a[i], bq[2], bq[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  float* out = part + static_cast<size_t>(blockIdx.y) * M * N;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int m = m0 + wm + 16 * i + gq + 8 * hh;
-        const int n = n0 + wn + 8 * j + 2 * tq;
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(m) * N + n) =
-            make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-      }
-}
-
 // ===========================================================================
 // fixed-order sums of the partials, cast to the gradient's type
 // ===========================================================================
@@ -524,17 +215,31 @@ struct Segments {
   Segment s[kSegments];
 };
 
-__global__ void reduce_parts(Segments segs) {
+// A block takes 32 consecutive elements of a segment at a time; warp w sums
+// parts w, w + 8, ... in index order, then the 8 warps' sums are added in
+// warp order: a fixed order, so two runs give the same bits, and 256
+// threads share a segment of 192 elements and 832 parts.
+__global__ void __launch_bounds__(256) reduce_parts(Segments segs) {
+  __shared__ float red[8][32];
   const Segment g = segs.s[blockIdx.y];
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g.n;
-       i += gridDim.x * blockDim.x) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int base = blockIdx.x * 32; base < g.n; base += gridDim.x * 32) {
+    const int i = base + lane;
     float sum = 0.f;
-    for (int p = 0; p < g.parts; ++p)
-      sum += g.part[static_cast<size_t>(p) * g.n + i];
-    if (g.out_bf16)
-      static_cast<bf16*>(g.out)[i] = __float2bfloat16(sum);
-    else
-      static_cast<float*>(g.out)[i] = sum;
+    if (i < g.n)
+      for (int p = w; p < g.parts; p += 8)
+        sum += g.part[static_cast<size_t>(p) * g.n + i];
+    red[w][lane] = sum;
+    __syncthreads();
+    if (w == 0 && i < g.n) {
+      float total = 0.f;
+      for (int k = 0; k < 8; ++k) total += red[k][lane];
+      if (g.out_bf16)
+        static_cast<bf16*>(g.out)[i] = __float2bfloat16(total);
+      else
+        static_cast<float*>(g.out)[i] = total;
+    }
+    __syncthreads();
   }
 }
 
@@ -685,7 +390,7 @@ __global__ void ln_bwd_f32(const float* __restrict__ dv,
   }
 }
 
-// part[tile][c] = sum over the tile's 64 rows of A[r][c] (* Bm[r][c])
+// part[tile][c] = sum over the tile's kTileRows rows of A[r][c] (* Bm[r][c])
 __global__ void colsum_f32(const float* __restrict__ A,
                            const float* __restrict__ Bm,
                            float* __restrict__ part, int rows, int n) {

@@ -25,40 +25,41 @@
 // parameter gradients into output blocks that stay resident.  CUDA blocks
 // run concurrently, so the reductions over all B*S rows are split in two:
 //
-//   * every row-tile kernel writes the column sums of its 64 rows to a
+//   * every row-tile kernel writes the column sums of its 128 rows to a
 //     partial buffer [tile][column];
-//   * the four weight gradients are separate split-K products over
-//     operands that the row kernels leave in global memory in x's type
-//     (the roundings the TPU kernel applies before those products): each
-//     block owns a 64 x 64 output tile and 2048 rows of the contraction
-//     and writes an f32 partial;
+//   * the four weight gradients are split-K products over operands that
+//     the row kernels leave in global memory in x's type (the roundings
+//     the TPU kernel applies before those products), all four in one
+//     launch: each CTA owns a 128-row output tile, wgrad_bn columns wide
+//     (192, 128 or 64), and one split of the contraction's rows, the
+//     splits as many as fill the SMs once (wgrad_split_rows), and writes
+//     an f32 partial;
 //   * one last kernel sums the partials of each gradient in index order
 //     and casts.  No atomics: two runs give the same bits.
 //
-// The bfloat16 route (mma.sync m16n8k16 fed by ldmatrix, cp.async double
-// buffering) is eight kinds of launch:
-//   1. ln_qkv_bf16<true>      a, qkv                         per 128 rows
-//   2. ffn_dual_bf16          b, h, dz1 (z1 and dh of one hidden slice
-//                             stay in registers), dbb1, dbb2  per 64 rows
-//   3. row_nk_bf16<kLn2>      db = dz1 @ W1^T, LN2 backward, du, doproj,
-//                             dg2, db2, dbo                   per 64 rows
-//   4. row_nk_bf16<kPlain>    datt = doproj @ Wo^T (f32)      per 64 rows
-//   5. attention_bwd_bf16     per (head, sequence), q, k, v, datt in
-//                             shared memory.  Each warp first owns 16
-//                             queries (o, delta, att, then dq), then 16
-//                             keys (dk, dv from the transposed scores), so
-//                             no sum crosses warps.  Keys past kv_len have
-//                             p = 0 exactly: their blocks are skipped and
-//                             their dk, dv written as 0.
-//   6. row_nk_bf16<kLn1>      da = dqkv @ Wqkv^T, LN1 backward, dx, dg1,
-//                             db1                             per 64 rows
-//   7. wgrad_bf16 (x4)        the split-K weight gradients
+// The bfloat16 route is seven launches, the products on wgmma with TMA
+// weight rings (block_sm90.cuh), the attention backward on mma.sync:
+//   1. ln_qkv_sm90<D, true>   a, qkv                         per 128 rows
+//   2. ffn_dual_sm90          b, h, dz1 (z1 and dh of one hidden slice
+//                             stay in registers), dbb1, dbb2  per 128 rows
+//   3. row_nk_sm90<kLn2>      db = dz1 @ W1^T, LN2 backward, du, doproj,
+//                             dg2, db2, dbo                   per 128 rows
+//   4. row_nk_sm90<kPlain>    datt = doproj @ Wo^T (f32)      per 128 rows
+//   5. attention_bwd_bf16     (block_bwd_parts.cuh) per (head, sequence),
+//                             q, k, v, datt in shared memory.  Each warp
+//                             first owns 16 queries (o, delta, att, then
+//                             dq), then 16 keys (dk, dv from the transposed
+//                             scores), so no sum crosses warps.  Keys past
+//                             kv_len have p = 0 exactly: their blocks are
+//                             skipped and their dk, dv written as 0.
+//   6. row_nk_sm90<kLn1>      da = dqkv @ Wqkv^T, LN1 backward, dx, dg1,
+//                             db1                             per 128 rows
+//   7. wgrad_sm90             the four split-K weight gradients
 //   8. reduce_parts           fixed-order sums and casts
 // The float route (the tests' f32 runs, not on the training path) is the
 // same arithmetic from a generic FMA product and elementwise kernels, with
-// every intermediate in global memory.  Launches 1 and 3-8 and the float
-// route's pieces are shared with the attention half's backward (kernel 8,
-// attn_half.cu) through block_bwd_parts.cuh.
+// every intermediate in global memory.  Launches 1 and 3-8 are shared
+// with the attention half's backward (kernel 8, attn_half.cu).
 //
 // Bound at the main-path shape (B=512, S=208, D=192, H=3, MLP 768, kv_len
 // 197): 2*(11 D^2 + 5 D MLP + 6 kv_len D) operations per row, 291.7 GFLOP,
@@ -66,162 +67,13 @@
 // 0.295 ms at 989 TFLOP/s bf16.  The times are in PERF.md.
 
 #include "block_bwd_parts.cuh"
+#include "block_sm90.cuh"
 
 namespace {
 
 // ===========================================================================
-// bfloat16 route
+// float route: elementwise kernels
 // ===========================================================================
-
-// ---------------------------------------------------------------------------
-// 2. FFN recompute and backward up to dz1
-// ---------------------------------------------------------------------------
-
-struct DualSmem {
-  size_t off_dy, off_red, off_ring, off_w2, stage, bytes;
-};
-
-template <int D>
-__host__ __device__ constexpr DualSmem dual_smem() {
-  DualSmem s{};
-  s.off_dy = align128(sizeof(bf16) * kTileRows * (D + 8));
-  s.off_red = 2 * s.off_dy;
-  s.off_ring = s.off_red + align128(sizeof(float) * 2 * kSlice);
-  // a stage holds W1[:, slice] (D x 64) then W2[slice, :] (64 x D)
-  s.off_w2 = align128(sizeof(bf16) * D * (kSlice + 8));
-  s.stage = s.off_w2 + align128(sizeof(bf16) * kSlice * (D + 8));
-  s.bytes = s.off_ring + 2 * s.stage;
-  return s;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRowThreads)
-    ffn_dual_bf16(const bf16* __restrict__ u, const bf16* __restrict__ dy,
-                  const float* __restrict__ res, const float* __restrict__ g2,
-                  const float* __restrict__ b2, const bf16* __restrict__ w1,
-                  const float* __restrict__ bb1, const bf16* __restrict__ w2,
-                  bf16* __restrict__ b_out, bf16* __restrict__ h_out,
-                  bf16* __restrict__ dz1_out, bf16* __restrict__ dz2_out,
-                  float* __restrict__ part_bb1, float* __restrict__ part_bb2,
-                  int rows, int F, int H, int lanes, Drop drop) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr DualSmem L = dual_smem<D>();
-  constexpr int lda = D + 8, ldw1 = kSlice + 8, ldw2 = D + 8;
-  bf16* Bs = reinterpret_cast<bf16*>(smem);              // u, then LN2(u)
-  bf16* DYs = reinterpret_cast<bf16*>(smem + L.off_dy);  // dy, then dz2
-  float* colred = reinterpret_cast<float*>(smem + L.off_red);
-  unsigned char* ring = smem + L.off_ring;
-  const int row0 = blockIdx.x * kTileRows;
-  const int valid = min(kTileRows, rows - row0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int wm = (warp >> 2) * 32, wz = (warp & 3) * 16;
-  const int chunks = F / kSlice;
-
-  auto stage_w1 = [&](int s) {
-    return reinterpret_cast<bf16*>(ring + (s & 1) * L.stage);
-  };
-  auto stage_w2 = [&](int s) {
-    return reinterpret_cast<bf16*>(ring + (s & 1) * L.stage + L.off_w2);
-  };
-  auto load_chunk = [&](int c) {
-    cp_tile(stage_w1(c), ldw1, w1 + c * kSlice, F, D, kSlice, D);
-    cp_tile(stage_w2(c), ldw2, w2 + static_cast<size_t>(c) * kSlice * D, D,
-            kSlice, D, kSlice);
-  };
-
-  cp_tile(Bs, lda, u + static_cast<size_t>(row0) * D, D, kTileRows, D, valid);
-  cp_tile(DYs, lda, dy + static_cast<size_t>(row0) * D, D, kTileRows, D,
-          valid);
-  load_chunk(0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // b = LN2(u) from the stored statistics, a warp per row; rows past the
-  // end stay zero
-  for (int r = warp; r < valid; r += kRowThreads / 32) {
-    const size_t g = static_cast<size_t>(row0 + r);
-    const float mu = res[g * lanes + H + 2], rstd = res[g * lanes + H + 3];
-    bf16* br = Bs + r * lda;
-    for (int c = lane; c < D; c += 32) {
-      br[c] = __float2bfloat16((to_f32(br[c]) - mu) * rstd * g2[c] + b2[c]);
-      b_out[g * D + c] = br[c];
-    }
-  }
-  // dz2 = drop(dy) and its f32 column sums, a thread per column
-  for (int c = threadIdx.x; c < D; c += kRowThreads) {
-    float sum = 0.f;
-    for (int r = 0; r < valid; ++r) {
-      const size_t g = static_cast<size_t>(row0 + r) * D + c;
-      const float v = drop_one(drop, kSiteFfnOut, g, to_f32(DYs[r * lda + c]));
-      sum += v;
-      if (drop.on) {
-        DYs[r * lda + c] = __float2bfloat16(v);
-        dz2_out[g] = DYs[r * lda + c];
-      }
-    }
-    part_bb2[static_cast<size_t>(blockIdx.x) * D + c] = sum;
-  }
-  __syncthreads();
-
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      load_chunk(c + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // slice c visible
-    float z[2][2][4] = {}, dh[2][2][4] = {};
-    warp_mma_kn<2, 2>(z, Bs, lda, wm, stage_w1(c), ldw1, wz, D);
-    warp_mma_nk<2, 2>(dh, DYs, lda, wm, stage_w2(c), ldw2, wz, D);
-    float csum[2][2] = {};
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = wm + 16 * i + gq + 8 * hh;
-          const int hc = c * kSlice + wz + 8 * j + 2 * tq;
-          const size_t g = static_cast<size_t>(row0 + r) * F + hc;
-          const float z0 = z[i][j][2 * hh] + bb1[hc];
-          const float z1 = z[i][j][2 * hh + 1] + bb1[hc + 1];
-          float h0 = gelu_tanh(z0), h1 = gelu_tanh(z1);
-          float d0 = dh[i][j][2 * hh], d1 = dh[i][j][2 * hh + 1];
-          if (drop.on) {
-            bool k0, k1;
-            drop_keep2(drop, kSiteHidden, g, k0, k1);
-            h0 = k0 ? h0 * drop.scale : 0.f;
-            h1 = k1 ? h1 * drop.scale : 0.f;
-            d0 = k0 ? d0 * drop.scale : 0.f;
-            d1 = k1 ? d1 * drop.scale : 0.f;
-          }
-          d0 *= dgelu_tanh(z0);
-          d1 *= dgelu_tanh(z1);
-          csum[j][0] += d0;  // rows past the end have dy = 0, so d = 0
-          csum[j][1] += d1;
-          if (r < valid) {
-            *reinterpret_cast<uint32_t*>(h_out + g) = pack_bf16(h0, h1);
-            *reinterpret_cast<uint32_t*>(dz1_out + g) = pack_bf16(d0, d1);
-          }
-        }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float s = column_sum(csum[j][e]);
-        if (gq == 0) colred[(warp >> 2) * kSlice + wz + 8 * j + 2 * tq + e] = s;
-      }
-    __syncthreads();  // column sums of both row halves complete
-    if (threadIdx.x < kSlice)
-      part_bb1[static_cast<size_t>(blockIdx.x) * F + c * kSlice +
-               threadIdx.x] = colred[threadIdx.x] + colred[kSlice + threadIdx.x];
-    __syncthreads();  // slice c and colred free for reuse
-  }
-}
 
 // z1 += bb1 in place; h = drop(gelu(z1))
 __global__ void ffn_fwd_elem_f32(float* __restrict__ z1,
@@ -281,15 +133,26 @@ struct Plan {
   size_t w_qkv, w_o, w_1, w_2;                        // f32 [splits][M*N]
   size_t xhat1, xhat2, tmp, z1, s, dp;                // float route only
   size_t bytes;
-  int tiles, splits;
+  int tiles, splits, split_rows;
 };
 
 Plan make_plan(int dtype, int B, int S, int D, int H, int F) {
   Plan p{};
   const size_t rows = static_cast<size_t>(B) * S;
   const size_t esz = dtype == 1 ? 2 : 4;
-  p.tiles = static_cast<int>((rows + kTileRows - 1) / kTileRows);
-  p.splits = static_cast<int>((rows + kSplitRows - 1) / kSplitRows);
+  // the bfloat16 route's tiles and splits are block_sm90.cuh's
+  p.tiles = dtype == 1 ? blk_tiles(static_cast<int>(rows))
+                       : static_cast<int>((rows + kTileRows - 1) / kTileRows);
+  // the bfloat16 route's weight-gradient splits fill the card's SMs
+  // (block_sm90.cuh); the float route's are kSplitRows rows
+  if (dtype == 1) {
+  const int wm[4] = {F, D, D, D}, wn[4] = {D, F, D, 3 * D};
+  p.split_rows = wgrad_split_rows(static_cast<int>(rows), wm, wn, 4);
+    if (p.split_rows == 0) return p;  // no card: bytes 0
+  } else {
+    p.split_rows = kSplitRows;
+  }
+  p.splits = static_cast<int>((rows + p.split_rows - 1) / p.split_rows);
   size_t at = 0;
   auto take = [&](size_t bytes) {
     const size_t o = at;
@@ -350,7 +213,7 @@ cudaError_t launch_reduce(const Args& a, const Plan& p, int mat_bf16) {
   segs.s[8] = {f(p.p_bb1), a.grads[8], F, p.tiles, 0};
   segs.s[9] = {f(p.w_2), a.grads[9], F * D, p.splits, mat_bf16};
   segs.s[10] = {f(p.p_bb2), a.grads[10], D, p.tiles, 0};
-  reduce_parts<<<dim3(64, kSegments), 256, 0, a.stream>>>(segs);
+  reduce_parts<<<dim3(256, kSegments), 256, 0, a.stream>>>(segs);
   return cudaGetLastError();
 }
 
@@ -366,23 +229,15 @@ cudaError_t launch_bf16_shape(const Args& a, const Plan& p) {
   const float* res = f(a.res);
   const bf16* dz2 = a.drop.on ? sb(p.dz2) : h(a.dy);
 
-  const size_t s1 = qkv_smem_bf16(D);
-  DEVT_TRY(set_smem(ln_qkv_bf16<true>, s1));
-  ln_qkv_bf16<true><<<(rows + kQkvRows - 1) / kQkvRows, kQkvThreads, s1,
-                      a.stream>>>(h(a.x), f(a.g1), f(a.b1), h(a.wqkv),
-                                  sb(p.qkv), const_cast<float*>(res), sb(p.a),
-                                  rows, D, N3, a.H, a.lanes);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY((launch_ln_qkv<D, true>(h(a.x), f(a.g1), f(a.b1), h(a.wqkv),
+                                   sb(p.qkv), const_cast<float*>(res),
+                                   sb(p.a), rows, a.H, a.lanes, a.stream)));
+  DEVT_TRY(launch_ffn_dual<D>(h(a.u), h(a.dy), res, f(a.g2), f(a.b2),
+                              h(a.w1), f(a.bb1), h(a.w2), sb(p.b), sb(p.h),
+                              sb(p.dz1), sb(p.dz2), sf(p.p_bb1),
+                              sf(p.p_bb2), rows, F, a.H, a.lanes, a.drop,
+                              a.stream));
 
-  constexpr size_t s2 = dual_smem<D>().bytes;
-  DEVT_TRY(set_smem(ffn_dual_bf16<D>, s2));
-  ffn_dual_bf16<D><<<p.tiles, kRowThreads, s2, a.stream>>>(
-      h(a.u), h(a.dy), res, f(a.g2), f(a.b2), h(a.w1), f(a.bb1), h(a.w2),
-      sb(p.b), sb(p.h), sb(p.dz1), sb(p.dz2), sf(p.p_bb1), sf(p.p_bb2), rows,
-      F, a.H, a.lanes, a.drop);
-  DEVT_TRY(cudaGetLastError());
-
-  constexpr size_t s3 = row_nk_smem<D>();
   RowEpi ln2{};
   ln2.out_f32 = sf(p.du);
   ln2.out_bf16 = sb(p.doproj);
@@ -396,17 +251,13 @@ cudaError_t launch_bf16_shape(const Args& a, const Plan& p) {
   ln2.stat = a.H + 2;
   ln2.lanes = a.lanes;
   ln2.drop = a.drop;
-  DEVT_TRY(set_smem(row_nk_bf16<D, kLn2>, s3));
-  row_nk_bf16<D, kLn2><<<p.tiles, kRowThreads, s3, a.stream>>>(
-      sb(p.dz1), F, h(a.w1), F, F, ln2, rows);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY((launch_row_nk<D, kLn2>(sb(p.dz1), F, h(a.w1), ln2, rows,
+                                   a.stream)));
 
   RowEpi plain{};
   plain.out_f32 = sf(p.datt);
-  DEVT_TRY(set_smem(row_nk_bf16<D, kPlain>, s3));
-  row_nk_bf16<D, kPlain><<<p.tiles, kRowThreads, s3, a.stream>>>(
-      sb(p.doproj), D, h(a.wo), D, D, plain, rows);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY((launch_row_nk<D, kPlain>(sb(p.doproj), D, h(a.wo), plain, rows,
+                                     a.stream)));
 
   const size_t s5 = attn_bwd_smem(a.S, HD);
   const int warps = min(a.S / 16, kAttnMaxWarps);
@@ -426,29 +277,21 @@ cudaError_t launch_bf16_shape(const Args& a, const Plan& p) {
   ln1.part_b = sf(p.p_b1);
   ln1.stat = a.H;
   ln1.lanes = a.lanes;
-  DEVT_TRY(set_smem(row_nk_bf16<D, kLn1>, s3));
-  row_nk_bf16<D, kLn1><<<p.tiles, kRowThreads, s3, a.stream>>>(
-      sb(p.dqkv), N3, h(a.wqkv), N3, N3, ln1, rows);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY((launch_row_nk<D, kLn1>(sb(p.dqkv), N3, h(a.wqkv), ln1, rows,
+                                   a.stream)));
 
-  constexpr size_t s7 = wgrad_smem();
-  DEVT_TRY(set_smem(wgrad_bf16, s7));
-  auto wgrad = [&](const bf16* A, int M, const bf16* Bm, int N, size_t part) {
-    wgrad_bf16<<<dim3((M / kSlice) * (N / kSlice), p.splits), kWgThreads, s7,
-                 a.stream>>>(A, M, Bm, N, sf(part), M, N, rows);
-    return cudaGetLastError();
-  };
-  DEVT_TRY(wgrad(sb(p.h), F, dz2, D, p.w_2));
-  DEVT_TRY(wgrad(sb(p.b), D, sb(p.dz1), F, p.w_1));
-  DEVT_TRY(wgrad(sb(p.att), D, sb(p.doproj), D, p.w_o));
-  DEVT_TRY(wgrad(sb(p.a), D, sb(p.dqkv), N3, p.w_qkv));
+  const WgSpec specs[4] = {{sb(p.h), dz2, F, D, sf(p.w_2)},
+                           {sb(p.b), sb(p.dz1), D, F, sf(p.w_1)},
+                           {sb(p.att), sb(p.doproj), D, D, sf(p.w_o)},
+                           {sb(p.a), sb(p.dqkv), D, N3, sf(p.w_qkv)}};
+  DEVT_TRY(launch_wgrad(specs, 4, rows, p.split_rows, a.stream));
   return launch_reduce(a, p, 1);
 }
 
 // the bfloat16 kernels are compiled for these widths (dim, head dim)
 cudaError_t launch_bf16(const Args& a, const Plan& p) {
   const int hd = a.D / a.H;
-  if (a.F % kSlice || a.S % 16) return cudaErrorInvalidValue;
+  if (a.F % kHidden || a.S % 16) return cudaErrorInvalidValue;
   if (a.D == 192 && hd == 64) return launch_bf16_shape<192, 64>(a, p);
   if (a.D == 64 && hd == 32) return launch_bf16_shape<64, 32>(a, p);
   return cudaErrorInvalidValue;
@@ -563,8 +406,9 @@ extern "C" unsigned long long devt_fused_block_bwd_scratch(int dtype, int B,
 // layout of the JAX kernel; res (B, S, lanes), LN parameters, biases and
 // their gradients are f32.  grads holds the 11 gradient pointers in the
 // order g1, b1, wqkv, wo, bo, g2, b2, w1, bb1, w2, bb2.  scratch is a
-// buffer of devt_fused_block_bwd_scratch bytes, 256-byte aligned.
-// rate > 0 regenerates the forward's dropout masks from `seed`.
+// buffer of devt_fused_block_bwd_scratch bytes, 256-byte aligned.  In
+// bfloat16, dy and the weight matrices are 16-byte aligned (TMA reads
+// them).  rate > 0 regenerates the forward's dropout masks from `seed`.
 // Returns the CUDA error of the launches (0 on success); the launches are
 // asynchronous on `stream`.
 extern "C" int devt_fused_block_bwd(
@@ -589,6 +433,7 @@ extern "C" int devt_fused_block_bwd(
   a.drop = make_drop(rate, seed);
   a.stream = static_cast<cudaStream_t>(stream);
   const Plan p = make_plan(dtype, B, S, D, H, F);
+  if (p.bytes == 0) return cudaErrorInvalidValue;
   return dtype == 0 ? launch_f32(a, p) : launch_bf16(a, p);
 }
 

@@ -6,10 +6,12 @@
 // attention forward, the int8 kernels and the backward pieces:
 //
 //   * warp and quad reductions, tanh GELU and its derivative;
-//   * the bfloat16 tensor-core pieces: cp.async tile copies, ldmatrix
-//     fragment loads for every operand layout the two passes need, and
-//     mma.sync m16n8k16 with f32 accumulation, and the 16 x 16 score
-//     tiles of the two attention backward kernels;
+//   * the bfloat16 tensor-core pieces of the mma.sync kernels (the
+//     attention forward and backward bodies, kernel 5's products, kernel
+//     7's out-projection): cp.async tile copies, ldmatrix fragment loads,
+//     mma.sync m16n8k16 with f32 accumulation, and the 16 x 16 score tiles
+//     of the two attention backward kernels (the block's other products
+//     are block_sm90.cuh's, on wgmma);
 //   * the dropout generator: counter-based Philox4x32-10 keyed by the
 //     call's seed, with the counter made of (site, flat element index).
 //     The mask of an element therefore does not depend on the grid, the
@@ -18,8 +20,6 @@
 //     values scaled by 1 / (1 - rate), at the three sites of the block
 //     (out-projection, FFN hidden, FFN output) and at the attention
 //     probabilities of the packed-qkv attention;
-//   * LN1 + qkv product per 128 rows, which the forward runs with its own
-//     statistics and the backward reruns from the stored ones;
 //   * the float route's block-level FMA product on 32-row tiles, and its
 //     LN1 + qkv on them.
 //
@@ -278,15 +278,6 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* A,
   ldsm_x4(a, A + (m0 + (lane & 15)) * lda + k + ((lane >> 4) << 3));
 }
 
-// the same fragment from a tile stored [k][m] (the transposed operand of
-// a weight-gradient product: one row per contraction index)
-__device__ __forceinline__ void load_a_km(uint32_t (&a)[4], const bf16* A,
-                                          int lda, int k, int m0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_t(a, A + (k + (lane & 7) + ((lane >> 4) << 3)) * lda + m0 +
-                   (((lane >> 3) & 1) << 3));
-}
-
 // B fragments of two n8 blocks (n0..n0+15), rows k..k+15, from a tile
 // stored [k][n] (weights in the JAX layout): r[0..1] block n0, r[2..3]
 // block n0 + 8
@@ -322,30 +313,6 @@ __device__ __forceinline__ void warp_mma_kn(float (&acc)[MI][NI][4],
     for (int j = 0; j < NI; j += 2) {
       uint32_t b[4];
       load_b_kn(b, B, ldb, k, n0 + 8 * j);
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        mma_bf16(acc[i][j], a[i], b[0], b[1]);
-        mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// the same with B stored [n][k]: acc += A[:, 0:K] * B^T
-template <int MI, int NI>
-__device__ __forceinline__ void warp_mma_nk(float (&acc)[MI][NI][4],
-                                            const bf16* A, int lda, int m0,
-                                            const bf16* B, int ldb, int n0,
-                                            int K) {
-  static_assert(NI % 2 == 0, "B fragments come in pairs of n8 blocks");
-  for (int k = 0; k < K; k += 16) {
-    uint32_t a[MI][4];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) load_a(a[i], A, lda, m0 + 16 * i, k);
-#pragma unroll
-    for (int j = 0; j < NI; j += 2) {
-      uint32_t b[4];
-      load_b_nk(b, B, ldb, k, n0 + 8 * j);
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
         mma_bf16(acc[i][j], a[i], b[0], b[1]);
@@ -405,103 +372,8 @@ __device__ __forceinline__ void acc_ay(float (&o)[NC / 8][4],
   }
 }
 
-// ---------------------------------------------------------------------------
-// LN1 + qkv
-// ---------------------------------------------------------------------------
-
+// the LN1 + qkv tiling of kernel 5's ln_qkv_q8 (quant_block_fwd.cu)
 constexpr int kQkvRows = 128, kQkvCols = 64, kQkvThreads = 256;
-
-__host__ __device__ constexpr size_t qkv_stage_bf16(int D) {
-  return align128(sizeof(bf16) * D * (kQkvCols + 8));
-}
-
-__host__ __device__ constexpr size_t qkv_smem_bf16(int D) {
-  return align128(sizeof(bf16) * kQkvRows * (D + 8)) + 2 * qkv_stage_bf16(D);
-}
-
-// kStored = false (the forward): LN1 statistics are computed and written
-// to res.  kStored = true (the backward's recompute): they are read from
-// res, and a = LN1(x) is also written out in x's type, as the operand of
-// the Wqkv gradient.
-template <bool kStored>
-__global__ void __launch_bounds__(kQkvThreads)
-    ln_qkv_bf16(const bf16* __restrict__ x, const float* __restrict__ g1,
-                const float* __restrict__ b1, const bf16* __restrict__ wqkv,
-                bf16* __restrict__ qkv, float* __restrict__ res,
-                bf16* __restrict__ a_out, int rows, int D, int N, int H,
-                int lanes) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = D + 8, ldw = kQkvCols + 8;
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  unsigned char* ring = smem + align128(sizeof(bf16) * kQkvRows * lda);
-  const int row0 = blockIdx.x * kQkvRows;
-  const int valid = min(kQkvRows, rows - row0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunks = N / kQkvCols;
-
-  cp_tile(As, lda, x + static_cast<size_t>(row0) * D, D, kQkvRows, D, valid);
-  cp_tile(reinterpret_cast<bf16*>(ring), ldw, wqkv, N, D, kQkvCols, D);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // LN1 in place, a warp per row
-  for (int r = warp; r < valid; r += kQkvThreads / 32) {
-    bf16* ar = As + r * lda;
-    const size_t g = static_cast<size_t>(row0 + r) * lanes;
-    float mu, rstd;
-    if (kStored) {
-      mu = res[g + H];
-      rstd = res[g + H + 1];
-    } else {
-      warp_row_stats(ar, D, mu, rstd);
-    }
-    for (int c = lane; c < D; c += 32) {
-      ar[c] = __float2bfloat16((to_f32(ar[c]) - mu) * rstd * g1[c] + b1[c]);
-      if (kStored) a_out[static_cast<size_t>(row0 + r) * D + c] = ar[c];
-    }
-    if (!kStored && lane == 0) {
-      res[g + H] = mu;
-      res[g + H + 1] = rstd;
-    }
-  }
-
-  // 64 qkv columns at a time, the next weight slice loading meanwhile;
-  // 8 warps as 4 x 2, each a 32 x 32 tile
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int gq = lane >> 2, tq = lane & 3;
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      cp_tile(reinterpret_cast<bf16*>(ring + ((c + 1) & 1) *
-                                                 qkv_stage_bf16(D)),
-              ldw, wqkv + (c + 1) * kQkvCols, N, D, kQkvCols, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // slice c (and, at c = 0, LN1) visible
-    float acc[2][4][4] = {};
-    warp_mma_kn<2, 4>(acc, As, lda, wm,
-                      reinterpret_cast<bf16*>(ring + (c & 1) *
-                                                         qkv_stage_bf16(D)),
-                      ldw, wn, D);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = row0 + wm + 16 * i + gq + 8 * h;
-          const int col = c * kQkvCols + wn + 8 * j + 2 * tq;
-          if (r < rows)
-            *reinterpret_cast<uint32_t*>(qkv + static_cast<size_t>(r) * N +
-                                         col) =
-                pack_bf16(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        }
-    __syncthreads();  // slice c free for the load two steps on
-  }
-}
 
 // ===========================================================================
 // float route: exact f32 FMA products on 32-row tiles

@@ -26,275 +26,44 @@
 // not fit, so the block is split into three launches that hand their
 // intermediates over through global memory (mostly L2):
 //
-//   1. LN1 + qkv:   per 128 rows: LN1 of the rows into shared memory,
-//                   then the qkv product 64 columns at a time with the
-//                   next Wqkv slice loading (cp.async) meanwhile; writes
-//                   qkv in x's type (the rounding the TPU kernel applies
-//                   before its attention products) and mu1, rstd1.
-//   2. attention:   (attention_fwd.cuh, shared with the int8 block and the
-//                   packed-qkv attention)
-//                   per (64 queries, head, sequence), 16 queries a warp:
-//                   K and V in shared memory; a first pass over the keys
-//                   takes the exact row max, a second recomputes the
-//                   scores, exponentiates, sums l in f32 and multiplies
-//                   the bf16 probabilities into V — the same arithmetic
-//                   as the one-shot softmax of the TPU kernel.  Key blocks
-//                   wholly past kv_len are skipped: their probabilities
-//                   are exactly 0.  Writes att in x's type and the lse.
-//   3. out + FFN:   per 128 rows, 16 warps: att @ Wo + bo + x = u in
-//                   registers (and in f32 scratch for the last residual),
-//                   LN2 with the row sums shared across warps, then the
-//                   FFN over 64 hidden columns at a time.  Wo slices, then
-//                   W1/W2 slices, stream through a two-stage cp.async
-//                   ring; the hidden slice sits in shared memory and the
-//                   W2 product accumulates in registers.  Writes y, u,
-//                   mu2, rstd2.
+//   1. LN1 + qkv:   block_sm90.cuh's ln_qkv_sm90 per 128 rows: LN1 of the
+//                   rows into shared memory in the wgmma swizzle, then
+//                   qkv = a @ Wqkv on wgmma with the Wqkv boxes streamed
+//                   by TMA; writes qkv in x's type (the rounding the TPU
+//                   kernel applies before its attention products) and
+//                   mu1, rstd1.
+//   2. attention:   in bfloat16 with at most 256 live keys at head dim 16,
+//                   32 or 64 (one_shot_on_wgmma with kv_len as the key
+//                   count, as kernel 7's attention: every main-path
+//                   shape), flash_fwd_sm90.cuh's one-shot wgmma body in
+//                   its normalise-after instance (o = (round(p) @ v) / l)
+//                   on the head views of the qkv scratch, a CTA per two
+//                   64-query tiles of a (sequence, head); the other shapes
+//                   (up to the 512 tokens the block takes) and the float
+//                   route keep attention_fwd.cuh's body (per 64 queries,
+//                   head, sequence; the scores recomputed per pass).
+//                   Writes att in x's type and the lse.
+//   3. out + FFN:   block_sm90.cuh's out_ffn_sm90 per 128 rows: att @ Wo +
+//                   bo + x = u on wgmma (att by TMA), LN2 on the
+//                   accumulators into shared memory, then the FFN 64
+//                   hidden columns at a time: gelu of the W1 product in
+//                   registers becomes the A fragments of the W2 product.
+//                   Wo, W1 and W2 boxes stream through one TMA ring.
+//                   Writes y, u, mu2, rstd2.
 //
-// The bfloat16 products are warp-level mma.sync m16n8k16 tiles fed by
-// ldmatrix from shared memory (CUDA C++ in this file; no library GEMM).
 // The float route keeps plain FMA loops (exact f32, no TF32) and is not
 // on the serving path.
 //
 // Bound at the main-path shape (B=512, S=208, D=192, H=3, MLP 768):
 // 110-111 GFLOP per launch against about 127 MB of inputs and outputs,
-// so the card is compute-bound (about 0.11 ms at 989 TFLOP/s bf16).
-// mma.sync reaches a fraction of that peak, which only wgmma reaches;
-// the times are in PERF.md.
+// so the card is compute-bound (about 0.11 ms at 989 TFLOP/s bf16).  The
+// times are in PERF.md.
 
 #include "attention_fwd.cuh"
+#include "block_sm90.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// 3. out-projection, residual, LN2, FFN, residual
-// ---------------------------------------------------------------------------
-
-constexpr int kFfnRows = 128, kFfnHidden = 64, kFfnSlice = 64;
-constexpr int kFfnThreads = 512;
-
-struct FfnSmem {
-  size_t off_h, off_red, off_ring, stage, bytes;
-};
-
-template <int D>
-__host__ __device__ constexpr FfnSmem ffn_smem_bf16() {
-  FfnSmem s{};
-  s.off_h = align128(sizeof(bf16) * kFfnRows * (D + 8));
-  s.off_red = s.off_h + align128(sizeof(bf16) * kFfnRows * (kFfnHidden + 8));
-  s.off_ring = s.off_red + align128(sizeof(float) * 2 * kFfnRows * 4);
-  // a stage holds W1[:, chunk] (D x 64) then W2[chunk, :] (64 x D); a
-  // slice of 64 Wo rows (64 x D) fits in it as well
-  s.stage = align128(sizeof(bf16) * D * (kFfnHidden + 8)) +
-            align128(sizeof(bf16) * kFfnHidden * (D + 8));
-  s.bytes = s.off_ring + 2 * s.stage;
-  return s;
-}
-
-template <int D>
-__device__ __forceinline__ bf16* ring_stage(unsigned char* ring, int s) {
-  return reinterpret_cast<bf16*>(ring + (s & 1) * ffn_smem_bf16<D>().stage);
-}
-
-// W2[chunk, :] sits after W1[:, chunk] in a stage
-template <int D>
-__device__ __forceinline__ bf16* ring_w2(unsigned char* ring, int s) {
-  return reinterpret_cast<bf16*>(
-      reinterpret_cast<unsigned char*>(ring_stage<D>(ring, s)) +
-      align128(sizeof(bf16) * D * (kFfnHidden + 8)));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kFfnThreads, 1)
-    out_ffn_bf16(const bf16* __restrict__ x, const bf16* __restrict__ att,
-                 const bf16* __restrict__ wo, const float* __restrict__ bo,
-                 const float* __restrict__ g2, const float* __restrict__ b2,
-                 const bf16* __restrict__ w1, const float* __restrict__ bb1,
-                 const bf16* __restrict__ w2, const float* __restrict__ bb2,
-                 bf16* __restrict__ y, bf16* __restrict__ u,
-                 float* __restrict__ u32, float* __restrict__ res, int rows,
-                 int F, int H, int lanes, Drop drop) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr FfnSmem L = ffn_smem_bf16<D>();
-  constexpr int lda = D + 8, ldh = kFfnHidden + 8;
-  constexpr int ldw1 = kFfnHidden + 8, ldw2 = D + 8;
-  constexpr int NI = D / 32;  // warp tile 32 x D/4 → NI n8 blocks
-  constexpr int slices = D / kFfnSlice;
-  bf16* As = reinterpret_cast<bf16*>(smem);            // att, then LN2(u)
-  bf16* Hs = reinterpret_cast<bf16*>(smem + L.off_h);  // GELU slice
-  float* red = reinterpret_cast<float*>(smem + L.off_red);  // row partials
-  unsigned char* ring = smem + L.off_ring;             // weight stages
-  const int row0 = blockIdx.x * kFfnRows;
-  const int valid = min(kFfnRows, rows - row0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3, wq = warp & 3;
-  const int wm = (warp >> 2) * 32;  // 16 warps as 4 x 4
-  const int wn = wq * (D / 4), wz = wq * 16;
-  const int chunks = F / kFfnHidden;
-
-  // Weight steps run through a two-stage ring: the Wo slices, then the
-  // FFN chunks; each step loads the next while it computes.
-  auto load_wo = [&](int s) {  // Wo rows 64s..64s+63
-    cp_tile(ring_stage<D>(ring, s), ldw2,
-            wo + static_cast<size_t>(s) * kFfnSlice * D, D, kFfnSlice, D,
-            kFfnSlice);
-  };
-  auto load_ffn = [&](int step, int c) {
-    cp_tile(ring_stage<D>(ring, step), ldw1, w1 + c * kFfnHidden, F, D,
-            kFfnHidden, D);
-    cp_tile(ring_w2<D>(ring, step), ldw2,
-            w2 + static_cast<size_t>(c) * kFfnHidden * D, D, kFfnHidden, D,
-            kFfnHidden);
-  };
-
-  cp_tile(As, lda, att + static_cast<size_t>(row0) * D, D, kFfnRows, D,
-          valid);
-  load_wo(0);
-  cp_async_commit();
-
-  float acc[2][NI][4] = {};
-  for (int s = 0; s < slices; ++s) {
-    if (s + 1 < slices)
-      load_wo(s + 1);
-    else
-      load_ffn(s + 1, 0);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // slice s (and the att tile) visible
-    warp_mma_kn<2, NI>(acc, As + kFfnSlice * s, lda, wm,
-                       ring_stage<D>(ring, s), ldw2, wn, kFfnSlice);
-    __syncthreads();  // slice s free; As no longer read
-  }
-
-  // u = x + (att @ Wo + bo) into acc, to u (x's type) and u32 (f32, read
-  // back for y); LN2 statistics across the 4 warps sharing each row
-  float part[2][2] = {};
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm + 16 * i + gq + 8 * h, c = wn + 8 * j + 2 * tq;
-        float u0 = 0.f, u1 = 0.f;
-        if (r < valid) {
-          const size_t g = static_cast<size_t>(row0 + r) * D + c;
-          const __nv_bfloat162 xv =
-              *reinterpret_cast<const __nv_bfloat162*>(x + g);
-          float o0 = acc[i][j][2 * h] + bo[c];
-          float o1 = acc[i][j][2 * h + 1] + bo[c + 1];
-          drop_pair(drop, kSiteOut, g, o0, o1);
-          u0 = __low2float(xv) + o0;
-          u1 = __high2float(xv) + o1;
-          *reinterpret_cast<uint32_t*>(u + g) = pack_bf16(u0, u1);
-          *reinterpret_cast<float2*>(u32 + g) = make_float2(u0, u1);
-        }
-        acc[i][j][2 * h] = u0;
-        acc[i][j][2 * h + 1] = u1;
-        part[i][h] += u0 + u1;
-      }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float p = quad_sum(part[i][h]);
-      if (tq == 0) red[(wm + 16 * i + gq + 8 * h) * 4 + wq] = p;
-    }
-  __syncthreads();
-  float mu[2][2], rstd[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float* rr = red + (wm + 16 * i + gq + 8 * h) * 4;
-      mu[i][h] = (rr[0] + rr[1] + rr[2] + rr[3]) / D;
-      float v = 0.f;
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const float d0 = acc[i][j][2 * h] - mu[i][h];
-        const float d1 = acc[i][j][2 * h + 1] - mu[i][h];
-        v += d0 * d0 + d1 * d1;
-      }
-      v = quad_sum(v);
-      if (tq == 0) red[(kFfnRows + wm + 16 * i + gq + 8 * h) * 4 + wq] = v;
-    }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wm + 16 * i + gq + 8 * h;
-      const float* rr = red + (kFfnRows + r) * 4;
-      rstd[i][h] = rsqrtf((rr[0] + rr[1] + rr[2] + rr[3]) / D + kLnEps);
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int c = wn + 8 * j + 2 * tq;
-        *reinterpret_cast<uint32_t*>(As + r * lda + c) = pack_bf16(
-            (acc[i][j][2 * h] - mu[i][h]) * rstd[i][h] * g2[c] + b2[c],
-            (acc[i][j][2 * h + 1] - mu[i][h]) * rstd[i][h] * g2[c + 1] +
-                b2[c + 1]);
-      }
-      if (wq == 0 && tq == 0 && r < valid) {
-        const size_t g = static_cast<size_t>(row0 + r) * lanes;
-        res[g + H + 2] = mu[i][h];
-        res[g + H + 3] = rstd[i][h];
-        for (int l = H + 4; l < lanes; ++l) res[g + l] = 0.f;
-      }
-    }
-
-  float yacc[2][NI][4] = {};
-  for (int c = 0; c < chunks; ++c) {
-    const int step = slices + c;
-    if (c + 1 < chunks) {
-      load_ffn(step + 1, c + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk c and LN2(u) visible
-    float z[2][2][4] = {};
-    warp_mma_kn<2, 2>(z, As, lda, wm, ring_stage<D>(ring, step), ldw1, wz,
-                      D);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm + 16 * i + gq + 8 * h, col = wz + 8 * j + 2 * tq;
-          const int hc = c * kFfnHidden + col;
-          float h0 = gelu_tanh(z[i][j][2 * h] + bb1[hc]);
-          float h1 = gelu_tanh(z[i][j][2 * h + 1] + bb1[hc + 1]);
-          drop_pair(drop, kSiteHidden,
-                    static_cast<unsigned long long>(row0 + r) * F + hc, h0,
-                    h1);
-          *reinterpret_cast<uint32_t*>(Hs + r * ldh + col) = pack_bf16(h0, h1);
-        }
-    __syncthreads();  // GELU slice complete
-    warp_mma_kn<2, NI>(yacc, Hs, ldh, wm, ring_w2<D>(ring, step), ldw2, wn,
-                       kFfnHidden);
-    __syncthreads();  // chunk c and Hs free for reuse
-  }
-
-  // y = u + (h @ W2 + bb2); each thread reads back the u32 it wrote
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm + 16 * i + gq + 8 * h, c = wn + 8 * j + 2 * tq;
-        if (r < valid) {
-          const size_t g = static_cast<size_t>(row0 + r) * D + c;
-          const float2 uv = *reinterpret_cast<const float2*>(u32 + g);
-          float z0 = yacc[i][j][2 * h] + bb2[c];
-          float z1 = yacc[i][j][2 * h + 1] + bb2[c + 1];
-          drop_pair(drop, kSiteFfnOut, g, z0, z1);
-          *reinterpret_cast<uint32_t*>(y + g) =
-              pack_bf16(uv.x + z0, uv.y + z1);
-        }
-      }
-}
 
 // ===========================================================================
 // float route: the same three stages with exact f32 FMA products (LN1 +
@@ -413,39 +182,42 @@ struct Args {
   cudaStream_t stream;
 };
 
+// 2. the attention of every (sequence, head) from the qkv scratch into att
+// and the lse lanes of res: the one-shot wgmma body where
+// one_shot_on_wgmma says (kv_len live keys), else attention_fwd.cuh's
+template <int HD>
+cudaError_t block_attention_bf16(const Args& a) {
+  const bf16* qkv = static_cast<const bf16*>(a.qkv);
+  if (!one_shot_on_wgmma(1, HD, a.kv_len))
+    return launch_attention_bf16<HD, false>(
+        qkv, static_cast<bf16*>(a.att), static_cast<float*>(a.res), a.B,
+        a.S, a.H, a.kv_len, a.lanes, a.scale, a.stream);
+  return launch_one_shot<false, true>(
+      packed_qkv_heads(qkv, a.att, static_cast<float*>(a.res), a.S, a.H, HD,
+                       a.kv_len, a.lanes, a.scale),
+      a.B, HD, a.stream);
+}
+
 template <int D, int HD>
 cudaError_t launch_bf16_shape(const Args& a) {
-  const int rows = a.B * a.S, N3 = 3 * D;
+  const int rows = a.B * a.S;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto h = [](const void* p) { return static_cast<const bf16*>(p); };
-
-  const size_t s1 = qkv_smem_bf16(D);
-  DEVT_TRY(set_smem(ln_qkv_bf16<false>, s1));
-  ln_qkv_bf16<false><<<(rows + kQkvRows - 1) / kQkvRows, kQkvThreads, s1,
-                       a.stream>>>(
+  DEVT_TRY((launch_ln_qkv<D, false>(
       h(a.x), f(a.g1), f(a.b1), h(a.wqkv), static_cast<bf16*>(a.qkv),
-      static_cast<float*>(a.res), nullptr, rows, D, N3, a.H, a.lanes);
-  DEVT_TRY(cudaGetLastError());
-
-  DEVT_TRY((launch_attention_bf16<HD, false>(
-      h(a.qkv), static_cast<bf16*>(a.att), static_cast<float*>(a.res), a.B,
-      a.S, a.H, a.kv_len, a.lanes, a.scale, a.stream)));
-
-  constexpr size_t s3 = ffn_smem_bf16<D>().bytes;
-  DEVT_TRY(set_smem(out_ffn_bf16<D>, s3));
-  out_ffn_bf16<D><<<(rows + kFfnRows - 1) / kFfnRows, kFfnThreads, s3,
-                    a.stream>>>(
+      static_cast<float*>(a.res), nullptr, rows, a.H, a.lanes, a.stream)));
+  DEVT_TRY(block_attention_bf16<HD>(a));
+  return launch_out_ffn<D>(
       h(a.x), h(a.att), h(a.wo), f(a.bo), f(a.g2), f(a.b2), h(a.w1),
       f(a.bb1), h(a.w2), f(a.bb2), static_cast<bf16*>(a.y),
       static_cast<bf16*>(a.u), static_cast<float*>(a.u32),
-      static_cast<float*>(a.res), rows, a.F, a.H, a.lanes, a.drop);
-  return cudaGetLastError();
+      static_cast<float*>(a.res), rows, a.F, a.H, a.lanes, a.drop, a.stream);
 }
 
 // the bfloat16 kernels are compiled for these widths (dim, head dim)
 cudaError_t launch_bf16(const Args& a) {
   const int hd = a.D / a.H;
-  if (a.F % kFfnHidden) return cudaErrorInvalidValue;
+  if (a.F % kHidden) return cudaErrorInvalidValue;
   if (a.D == 192 && hd == 64) return launch_bf16_shape<192, 64>(a);
   if (a.D == 64 && hd == 32) return launch_bf16_shape<64, 32>(a);
   return cudaErrorInvalidValue;
@@ -503,8 +275,9 @@ __global__ void dropout_masks_kernel(uint8_t* keep_o, uint8_t* keep_h,
 // in the (K, N) layout of the JAX kernel; LN parameters and biases are
 // f32.  qkv (B, S, 3D) and att (B, S, D) are scratch in x's type; u32
 // (B, S, D) is f32 scratch for the bfloat16 route (u before rounding),
-// unused by the float route.  rate > 0 turns the dropout of the three
-// sites on, drawn from `seed`.
+// unused by the float route.  In bfloat16, x, att, qkv and the weight
+// matrices are 16-byte aligned (TMA reads them).  rate > 0 turns the
+// dropout of the three sites on, drawn from `seed`.
 // Returns the CUDA error of the launches (0 on success); the launches are
 // asynchronous on `stream`.
 extern "C" int devt_fused_block_fwd(
@@ -539,6 +312,12 @@ extern "C" int devt_dropout_masks(void* keep_o, void* keep_h, void* keep_y,
       static_cast<uint8_t*>(keep_o), static_cast<uint8_t*>(keep_h),
       static_cast<uint8_t*>(keep_y), n_d, n_f, make_drop(rate, seed));
   return cudaGetLastError();
+}
+
+// 1 when kernel 1's attention launch of this dtype (0 float32, 1
+// bfloat16), head dim and kv_len takes flash_fwd_sm90.cuh's one-shot body
+extern "C" int devt_fused_block_route(int dtype, int d, int kv_len) {
+  return one_shot_on_wgmma(dtype, d, kv_len) ? 1 : 0;
 }
 
 extern "C" const char* devt_cuda_error_string(int code) {

@@ -35,12 +35,19 @@ The forward kernel (``csrc/fused_block_fwd.cu``, CUDA C++ for sm_90a):
     f32 qkv (479 KB) does not fit.  So one wrapper call is three launches
     with intermediates (qkv, att, in x's dtype — the same rounding the
     TPU kernel applies) in global memory, mostly L2: LN1+qkv per 128
-    rows; attention per (64 queries, head, sequence) with K/V in shared
-    memory, in two passes over the keys so the softmax is the TPU
-    kernel's one-shot softmax; out-projection+LN2+FFN per 128 rows with
-    Wo, W1 and W2 slices double-buffered by cp.async.  The bf16 products are
-    mma.sync m16n8k16 tiles fed by ldmatrix, accumulating in registers;
-    the f32 route uses FMA loops; no library GEMM.
+    rows; the attention; out-projection+LN2+FFN per 128 rows.  The bf16
+    products run ``csrc/block_sm90.cuh``'s wgmma body: two consumer
+    warpgroups of 64 rows and a producer warpgroup (one lane of it
+    works) that streams the weight boxes by TMA through a ring of
+    stages, a CTA a 128-row tile, the weights read in their (K, N)
+    layout (MN-major), the FFN's hidden slice passed from the W1
+    product's accumulators to the W2 product in registers.  The
+    attention in bfloat16 with at most 256 live keys at head dim 16, 32
+    or 64 (``attn_half_on_wgmma``: every main-path shape) runs
+    ``csrc/flash_fwd_sm90.cuh``'s one-shot wgmma body in its
+    normalise-after instance, as kernel 7's does; the other shapes and
+    f32 ``csrc/attention_fwd.cuh``'s body.  The f32 route uses FMA loops;
+    no library GEMM.
 
 The backward kernel (``csrc/fused_block_bwd.cu``):
   * Replaces ``devt_tpu/ops/fused_block.py:240 _bwd_kernel``, launched
@@ -50,15 +57,20 @@ The backward kernel (``csrc/fused_block_bwd.cu``):
     about 0.295 ms at 989 TFLOP/s bf16.
   * Design: the TPU grid runs in order and accumulates the parameter
     gradients in resident output blocks; CUDA blocks run concurrently.
-    Row-tile kernels (LN1+qkv recompute; FFN recompute and backward to
-    dz1; dz1·W1ᵀ with the LN2 backward; doproj·Woᵀ; attention recompute
-    and backward per (head, sequence); dqkv·Wqkvᵀ with the LN1 backward)
-    leave the operands of the four weight gradients in global memory in
-    x's dtype — the roundings the TPU kernel applies before those
-    products — and the column sums of their 64 rows in a partial buffer.
-    The weight gradients are split-K products (64 × 64 output tile, 2048
-    rows a block) into f32 partials, and a last kernel sums all partials
-    in index order.  No atomics: **two runs give the same bits**.
+    Row-tile kernels on ``csrc/block_sm90.cuh``'s wgmma body (LN1+qkv
+    recompute; FFN recompute and backward to dz1; dz1·W1ᵀ with the LN2
+    backward; doproj·Woᵀ; dqkv·Wqkvᵀ with the LN1 backward, all per 128
+    rows) and the attention recompute and backward per (head, sequence)
+    (mma.sync) leave the operands of the four weight gradients in global
+    memory in x's dtype — the roundings the TPU kernel applies before
+    those products — and the column sums of their rows in a partial
+    buffer.  The four weight gradients are one launch of split-K
+    products (128-row output tiles, 192, 128 or 64 columns wide: the
+    widest that divides every product's width) into f32 partials, the
+    rows split so that the splits times the output tiles fill the card's
+    SMs once (``kWgWaves``; a multiple of 64 rows), and a last kernel
+    sums all partials in index order.  No atomics: **two runs give the
+    same bits**.
 
 Dropout: counter-based Philox4x32-10 keyed by the call's seed, counter
 (site, flat element index), so an element's mask depends on neither grid
@@ -71,7 +83,9 @@ kernels' own device function, on the CPU from a seeded
 ``fused_vit_block`` launches the kernels for CUDA tensors (or raises) and
 runs the plain versions only for CPU tensors.  Its ``launches`` and
 ``bwd_launches`` attributes count forward and backward kernel launches
-(one per call and pass on the card).
+(one per call and pass on the card); ``wgmma_launches`` and
+``streamed_launches`` count the forward calls by the body of their
+attention launch.
 
 The attention half (``fused_attn_half``, the MoE block's: u = x +
 MHA(LN1(x)) @ Wo + bo, no dropout) has kernels of its own in
@@ -90,8 +104,9 @@ MHA(LN1(x)) @ Wo + bo, no dropout) has kernels of its own in
     compute-bound, about 0.048 ms.
   * Kernel 8 replaces ``:578 _attn_half_bwd_kernel`` (launched at
     ``:667``): the block backward's launches without the FFN, sharing
-    their device code (``csrc/block_bwd_parts.cuh``); split-K weight
-    gradients and one fixed-order sum, so two runs give the same bits.
+    their device code (``csrc/block_sm90.cuh``, ``csrc/block_bwd_parts.cuh``);
+    split-K weight gradients and one fixed-order sum, so two runs give the
+    same bits.
     2·(11·D² + 6·kv_len·D) operations per row, 134.7 GFLOP: about 0.136 ms.
 ``fused_attn_half`` keeps ``launches`` and ``bwd_launches`` counters too,
 and counts kernel 7's calls by the body of their attention launch in
@@ -420,6 +435,10 @@ def _fwd_cuda(x, params, heads, scale, kv_len, rate, seed):
             ctypes.c_ulonglong(seed), ctypes.c_void_p(stream))
     _check(lib, rc, "fused_block_fwd")
     fused_vit_block.launches += 1
+    if attn_half_on_wgmma(x.dtype, dim // heads, kv_len):
+        fused_vit_block.wgmma_launches += 1
+    else:
+        fused_vit_block.streamed_launches += 1
     return y, u, res
 
 
@@ -611,6 +630,8 @@ def fused_vit_block(x, params, heads, scale, kv_len, dropout_rate=0.0,
 
 
 fused_vit_block.launches = 0
+fused_vit_block.wgmma_launches = 0
+fused_vit_block.streamed_launches = 0
 fused_vit_block.bwd_launches = 0
 
 
@@ -623,10 +644,12 @@ HALF_NAMES = ("g1", "b1", "wqkv", "wo", "bo")
 
 def attn_half_on_wgmma(dtype: torch.dtype, head_dim: int,
                        kv_len: int) -> bool:
-    """Whether kernel 7's attention launch runs the one-shot wgmma body
+    """Whether the attention launch of kernel 7 (and of kernel 1, the
+    whole block's forward) runs the one-shot wgmma body
     (``csrc/flash_fwd_sm90.cuh``, normalising after P·V): kernel 9's rule,
-    ``one_shot_on_wgmma``, with kv_len as the key count, as the C entry's
-    ``devt_attn_half_route`` says.  The others run
+    ``one_shot_on_wgmma``, with kv_len as the key count, as the C entries
+    ``devt_attn_half_route`` and ``devt_fused_block_route`` say.  The
+    others (f32, more than 256 live keys, other head dims) run
     ``csrc/attention_fwd.cuh``'s body."""
     return one_shot_on_wgmma(dtype, head_dim, kv_len)
 
@@ -821,6 +844,8 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
         + [ctypes.c_double, ctypes.c_ulonglong, ctypes.c_void_p])
     lib.devt_dropout_masks.restype = ctypes.c_int
+    lib.devt_fused_block_route.argtypes = [ctypes.c_int] * 3
+    lib.devt_fused_block_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p
 

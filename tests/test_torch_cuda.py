@@ -29,7 +29,12 @@ EPS = {"f32": 2.0 ** -23, "bf16": 2.0 ** -8}
 RATE = 0.1
 
 
-def _block(dtype, dim=64, mlp=128, b=6, s=48, kv_len=37, seed=4):
+def _block(dtype, dim=64, mlp=128, b=6, s=48, kv_len=37, seed=4,
+           fan_in=False, pad=True):
+    """x (its rows past kv_len zero, as the model pads, unless ``pad`` is
+    False) and the block's parameters; the weight matrices at 0.1, or with
+    ``fan_in`` at 1 / sqrt(fan-in) as chip_smoke.py's main path draws
+    them."""
     rng = np.random.default_rng(seed)
 
     def t(*shape, scale=0.1):
@@ -39,12 +44,14 @@ def _block(dtype, dim=64, mlp=128, b=6, s=48, kv_len=37, seed=4):
     rows = {"g1": 1.0 + t(1, dim), "b1": t(1, dim), "bo": t(1, dim),
             "g2": 1.0 + t(1, dim), "b2": t(1, dim), "bb1": t(1, mlp),
             "bb2": t(1, dim)}
-    mats = {"wqkv": t(dim, 3 * dim), "wo": t(dim, dim), "w1": t(dim, mlp),
-            "w2": t(mlp, dim)}
+    wd, wm = (dim ** -0.5, mlp ** -0.5) if fan_in else (0.1, 0.1)
+    mats = {"wqkv": t(dim, 3 * dim, scale=wd), "wo": t(dim, dim, scale=wd),
+            "w1": t(dim, mlp, scale=wd), "w2": t(mlp, dim, scale=wm)}
     params = {k: v.cuda() for k, v in rows.items()}
     params.update({k: v.to(dtype).cuda() for k, v in mats.items()})
     x = t(b, s, dim, scale=1.0)
-    x[:, kv_len:] = 0.0
+    if pad:
+        x[:, kv_len:] = 0.0
     return x.to(dtype).cuda(), params
 
 
@@ -98,9 +105,11 @@ def _assert_bwd_close(kind, got, want, names=tfb.PARAM_NAMES):
                                            (6, 37, RATE), (50, 33, RATE)])
 def test_fused_block_backward_kernel_matches_plain(card, kind, b, kv_len,
                                                    rate):
-    """Both widths' small instantiation, b=50 crossing a split of the
-    weight gradients (2,400 rows > 2,048), kv_len=20 leaving the last 16
-    keys wholly masked (their dk and dv must come out as written zeros);
+    """Both widths' small instantiation, b=50 crossing a split of the f32
+    route's weight gradients (2,400 rows > 2,048; the bf16 route sizes
+    its splits from the SM count, and test_fused_block_sm90_matches_plain
+    crosses them), kv_len=20 leaving the last 16 keys wholly masked
+    (their dk and dv must come out as written zeros);
     with dropout the plain version gets the masks the library exports for
     the seed."""
     heads, seed = 2, 77
@@ -152,6 +161,159 @@ def test_fused_block_backward_is_deterministic(card, kind):
     assert torch.equal(runs[0][0], runs[1][0])
     for k in tfb.PARAM_NAMES:
         assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+
+
+# (dim, heads, b, s, kv_len, rate): kernels 1 and 2 on csrc/block_sm90.cuh's
+# wgmma body at both bf16 widths (MLP 4 x dim): 3 x 208 = 624 rows (four
+# 128-row tiles and a tail of 112) at the main path's kv_len, with and
+# without dropout; one live key; every key live; 5 x 48 = 240 rows; 200 x
+# 48 = 9,600 rows (the weight gradients in 13 splits of 768 rows on a
+# 132-SM card); 260 live keys, past the one-shot attention's 256
+BLOCK_SM90_SHAPES = [
+    (192, 3, 3, 208, 197, 0.0), (192, 3, 3, 208, 197, RATE),
+    (192, 3, 2, 208, 1, 0.0), (192, 3, 2, 208, 208, 0.0),
+    (64, 2, 5, 48, 1, 0.0), (64, 2, 5, 48, 48, 0.0),
+    (64, 2, 5, 48, 37, RATE), (64, 2, 200, 48, 37, 0.0),
+    (64, 2, 2, 272, 260, 0.0)]
+
+
+def _check_block_sm90(dim, heads, b, s, kv_len, rate, pad):
+    """Kernels 1 and 2 in bf16 against their plain versions given the masks
+    the library exports for the seed, so the forward and the backward see
+    the same ones: y, u and the residual lanes at the forward tolerance,
+    the pad lanes 0; dx and the 11 gradients within 4 ulps of each
+    tensor's largest element; two backward runs bit-equal; the forward's
+    attention launch counted on the body attn_half_on_wgmma names (the
+    one-shot wgmma body for at most 256 live keys).  The weights at the
+    main path's 1 / sqrt(fan-in), x zero past kv_len if ``pad``."""
+    mlp, seed = 4 * dim, 11
+    x, params = _block(torch.bfloat16, dim=dim, mlp=mlp, b=b, s=s,
+                       kv_len=kv_len, fan_in=True, pad=pad)
+    scale = (dim // heads) ** -0.5
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)) \
+        .to(x.dtype).cuda()
+    keep = tfb.dropout_masks(seed, rate, b, s, dim, mlp, x.device) \
+        if rate > 0.0 else None
+    wgmma = int(tfb.attn_half_on_wgmma(torch.bfloat16, dim // heads, kv_len))
+    assert wgmma == (kv_len <= 256)
+    block = tfb.fused_vit_block
+    bodies = (block.wgmma_launches, block.streamed_launches)
+    with torch.no_grad():
+        y, u, res = tfb.fused_vit_block(x, params, heads, scale, kv_len,
+                                        dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    assert (block.wgmma_launches - bodies[0],
+            block.streamed_launches - bodies[1]) == (wgmma, 1 - wgmma)
+    want = tfb.fused_vit_block_fwd_plain(x, params, heads, scale, kv_len,
+                                         keep, rate)
+    for name, g, w in zip(("y", "u"), (y, u), want):
+        torch.testing.assert_close(g.float(), w.float(),
+                                   msg=lambda m, n=name: f"{n}: {m}",
+                                   **TOL["bf16"])
+    torch.testing.assert_close(res[..., :heads + 4], want[2][..., :heads + 4],
+                               **TOL["bf16"])
+    assert res[..., heads + 4:].abs().max().item() == 0.0
+    runs = [tfb._bwd_cuda(x, params, u, res, dy, heads, scale, kv_len, rate,
+                          seed) for _ in range(2)]
+    want = tfb.fused_vit_block_bwd_plain(x, params, u, res, dy, heads, scale,
+                                         kv_len, keep, rate)
+    _assert_bwd_close("bf16", runs[0], want)
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in tfb.PARAM_NAMES:
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,heads,b,s,kv_len,rate", BLOCK_SM90_SHAPES)
+def test_fused_block_sm90_matches_plain(card, dim, heads, b, s, kv_len,
+                                        rate):
+    """_check_block_sm90 with x drawn on every row.  Not the 0.1-scale
+    weights of _block's default: at dim 192 the activations grow until the
+    bf16 roundings that every implementation makes, summed in its own
+    order, move y by 4 ulps, and a zero row's LayerNorm (rstd = eps^-1/2,
+    316) multiplies the rounding differences of its dx.
+    tools/block_rounding.py shows both on an H100: on those inputs the
+    mma.sync body this one replaced leaves the same gates (y off by up to
+    0.0625 on up to 46 elements; dx at kv_len 1 at 14 ulps), and both
+    bodies lie as close to an f64 reference as the plain version, which
+    is itself up to 26 ulps from it."""
+    _check_block_sm90(dim, heads, b, s, kv_len, rate, pad=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, RATE])
+def test_fused_block_sm90_pad_rows(card, rate):
+    """_check_block_sm90 on the main path's draw at dim 192: 1 / sqrt(fan-in)
+    weights and x zero on the 11 pad rows past kv_len 197 of each 208-row
+    sequence (3 sequences: four 128-row tiles and a tail of 112)."""
+    _check_block_sm90(192, 3, 3, 208, 197, rate, pad=True)
+
+
+def _device_kernels(fn, reps=3):
+    """The names of the device kernels ``fn`` launches, as the profiler
+    shows them (template arguments kept), over ``reps`` calls: the
+    profiler drops a device event now and then."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key.replace("(anonymous namespace)::", "")
+            .replace("void ", "").split("(")[0]
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+def test_block_launches_by_body(card):
+    """At the ViViT shape in bf16 every product launch of kernels 1, 2, 7
+    and 8 is csrc/block_sm90.cuh's wgmma body (the four weight gradients
+    one launch), the forwards' attention the one-shot wgmma instance that
+    normalises after P·V; no mma.sync product launch is left but kernel
+    7's out-projection and the attention backward they share."""
+    x, params = _block(torch.bfloat16, dim=192, mlp=768, b=4, s=208,
+                       kv_len=197, fan_in=True)
+    half = {k: params[k] for k in tfb.HALF_NAMES}
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(6)) \
+        .to(x.dtype).cuda()
+    with torch.no_grad():
+        _, u, res = tfb.fused_vit_block(x, params, 3, 0.125, 197)
+        _, hres = tfb.fused_attn_half(x, half, 3, 0.125, 197)
+        k1 = _device_kernels(lambda: tfb.fused_vit_block(x, params, 3, 0.125,
+                                                         197))
+        k2 = _device_kernels(lambda: tfb._bwd_cuda(
+            x, params, u, res, dy, 3, 0.125, 197, 0.0, 0))
+        k7 = _device_kernels(lambda: tfb.fused_attn_half(x, half, 3, 0.125,
+                                                         197))
+        k8 = _device_kernels(lambda: tfb._half_bwd_cuda(
+            x, half, hres, dy, 3, 0.125, 197))
+    one_shot = "flash_one_shot<64, 208, false, true>"
+    assert k1 == {"ln_qkv_sm90<192, false>", one_shot, "out_ffn_sm90<192>"}
+    assert k2 == {"ln_qkv_sm90<192, true>", "ffn_dual_sm90<192>",
+                  "row_nk_sm90<192, 1>", "row_nk_sm90<192, 0>",
+                  "attention_bwd_bf16<64>", "row_nk_sm90<192, 2>",
+                  "wgrad_sm90<192>", "reduce_parts"}
+    assert k7 == {"ln_qkv_sm90<192, false>", one_shot, "out_proj_bf16<192>"}
+    assert k8 == {"ln_qkv_sm90<192, true>", "row_nk_sm90<192, 0>",
+                  "attention_bwd_bf16<64>", "row_nk_sm90<192, 3>",
+                  "wgrad_sm90<192>", "reduce_parts"}
+
+
+@pytest.mark.cuda
+def test_fused_block_route_matches_the_c_rule(card):
+    """Kernel 1's C rule for its attention launch (devt_fused_block_route)
+    is the Python predicate's, kernel 7's."""
+    lib = _build.load("fused_block_fwd", tfb._declare_fwd)
+    for dtype, code in tfb._DTYPE_CODE.items():
+        for d in (8, 16, 32, 48, 64, 128, 256):
+            for kv_len in (0, 1, 17, 197, 256, 257, 512):
+                assert bool(lib.devt_fused_block_route(code, d, kv_len)) == \
+                    tfb.attn_half_on_wgmma(dtype, d, kv_len), (dtype, d,
+                                                               kv_len)
 
 
 @pytest.mark.cuda

@@ -25,6 +25,9 @@ timer in both trees (CUDA graph replay of 20 calls, 5 replays):
     on the live keys (forward + backward through autograd less forward);
   * kernel 10 at (1536, 197, 64), kv_len 197, on the forward's o and lse,
     and SDPA's backward on the same live keys;
+  * kernels 1 and 2 (the fused block, forward and backward) at (512, 208,
+    192), kv_len 197, MLP 768, and the library's encoder layer (forward,
+    and its autograd less the forward);
   * kernels 7 and 8 (the MoE block's attention half, forward and
     backward) at (512, 208, 192), kv_len 197, and the half composed of
     library calls (forward, and its autograd less the forward);
@@ -32,9 +35,8 @@ timer in both trees (CUDA graph replay of 20 calls, 5 replays):
     its training shape (32, 14, 6144), and at the ViT shape (512, 208,
     576), 3 heads of 64, kv_len 197, and F.scaled_dot_product_attention at
     the serving and ViT shapes;
-  * kernels that must not move: kernel 1 (the fused block forward, whose
-    attention launch kernel 7's shared before) at the same shape, and
-    kernel 4 (the streamed backward body) at PTN's training shape;
+  * a kernel that must not move: kernel 4 (the streamed backward body)
+    at PTN's training shape;
 
 then calls the tree's chip_smoke phases 18 (kernel-flash at the kernel 9
 shape, its checks), 4 and 7 (ViViT serving and training at image 224), 14
@@ -115,7 +117,7 @@ for stem, lib in libs.items():
         if found:
             name = found.group(1)
         found = re.search(r"Used (\d+) registers", line)
-        if found and name and re.search(r"wgmma|one_shot|packed", name):
+        if found and name and re.search(r"wgmma|one_shot|packed|sm90", name):
             used[name] = int(found.group(1))
             name = None
     code, name = {}, None
@@ -199,12 +201,18 @@ with torch.inference_mode():
     res["k4_ms"] = graph_ms(lambda: tfa._mha_bwd_cuda(
         qkv, o, lse, do4, 8, 256 ** -0.5, 14))
     del q, k, v, o, lse, qkv
-    # the fused block forward (kernel 1) and the attention half (7, 8)
+    # the fused block (kernels 1, 2) and the attention half (7, 8)
     x, full = cs._block_inputs(torch.bfloat16, torch.Generator()
                                .manual_seed(4))
     half = {name: full[name] for name in fb.HALF_NAMES}
     res["k1_ms"] = graph_ms(lambda: fb.fused_vit_block(x, full, 3, 0.125,
                                                        197))
+    layer, pad = cs._library_layer(torch.bfloat16)
+    res["k1_layer_ms"] = graph_ms(lambda: layer(x, src_key_padding_mask=pad))
+    _, bu, bres = fb.fused_vit_block(x, full, 3, 0.125, 197)
+    dy = torch.randn(x.shape, generator=gen).to(x.dtype).cuda()
+    res["k2_ms"] = graph_ms(lambda: fb._bwd_cuda(x, full, bu, bres, dy, 3,
+                                                 0.125, 197, 0.0, 0))
     res["k7_ms"] = graph_ms(lambda: fb.fused_attn_half(x, half, 3, 0.125,
                                                        197))
     _, hres = fb.fused_attn_half(x, half, 3, 0.125, 197)
@@ -225,7 +233,16 @@ with torch.no_grad():
     res["k7_composed_ms"] = graph_ms(lambda: compose(xc), n=5)
 res["k8_composed_ms"] = graph_ms(lambda: torch.autograd.grad(
     compose(xr), (xr, *leaves), du.clone()), n=5) - res["k7_composed_ms"]
+layer, pad = cs._library_layer(torch.bfloat16)   # outside inference mode
+lx = x.clone().requires_grad_(True)
+lleaves = (lx, *layer.parameters())
+both = graph_ms(lambda: torch.autograd.grad(
+    layer(lx, src_key_padding_mask=pad), lleaves, dy.clone()), n=5)
+with torch.no_grad():
+    res["k2_layer_ms"] = both - graph_ms(
+        lambda: layer(lx, src_key_padding_mask=pad), n=5)
 del q, k, v, do, q10, k10, v10, do10, x, xc, xr, full, half, hres, du
+del lx, lleaves, layer, dy, bu, bres
 cs.phase_flash("bf16", 512, 3, 197, 197, 64, 197)
 res["serve_clips_s"] = cs.phase_serve()["clips_per_s"]
 t = cs.phase_train()

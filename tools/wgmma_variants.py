@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Variants of the wgmma bodies of kernels 11, 6, 12, 13, 7 and 3, timed on
-one card.
+"""Variants of the wgmma bodies of kernels 11, 6, 12, 13, 7, 3, 1 and 2,
+timed on one card.
 
-    python tools/wgmma_variants.py [--rounds 2] [--kernels 11 6 12 13 7 3]
+    python tools/wgmma_variants.py [--rounds 2] [--kernels 11 6 12 13 7 3 1 2]
 
 Copies ``devt_tpu_torch/ops/csrc`` once per variant under
 ``runs/wgmma_variants/`` (gitignored), edits the copy's constants as the
 variant says, builds the one library the variant touches (``flash_fwd.cu``
 for kernel 11, ``int8_matmul.cu`` for kernel 6, ``flash_bwd.cu`` for
 kernels 12 and 13, ``attn_half.cu`` for kernel 7, ``mha_fwd.cu`` for
-kernel 3; one nvcc each, all at once, the flags of
+kernel 3, ``fused_block_fwd.cu`` and ``fused_block_bwd.cu`` for kernels 1
+and 2; one nvcc each, all at once, the flags of
 ``ops/_build.py``), and times by CUDA graph replay (20 calls, 5 replays),
 in ``--rounds`` rounds:
 
@@ -25,7 +26,11 @@ in ``--rounds`` rounds:
     at (512, 208, 192), kv_len 197, against its plain version;
   * kernel 3 (the packed-qkv attention forward) at PTN's serving shape
     (256, 14, 6144) and training shape (32, 14, 6144), 8 heads of 256,
-    against its plain version.
+    against its plain version;
+  * kernels 1 and 2 (the fused block forward and backward, all their
+    launches through the wrappers, the variant's library in place of the
+    built one) at (512, 208, 192), kv_len 197, MLP 768, against their
+    plain versions.
 
 Kernel 11's variants: as built (one consumer warpgroup of 64 query rows
 a CTA, three CTAs an SM, a two-stage ring); two CTAs an SM (the register
@@ -49,7 +54,16 @@ body: 64 / S sequences of a head to a tile, a one-stage ring, P V in
 wgmma groups of 64 output columns, two CTAs an SM), P V in groups of 128
 and in one of 256, two stages (one CTA an SM) with 64 and with 256, one
 sequence a tile (the unpacked one-shot instance at head dim 256), and the
-route before (attention_fwd.cuh's streamed body).  Prints the card's
+route before (attention_fwd.cuh's streamed body).  Kernels 1's and 2's
+(csrc/block_sm90.cuh): as built (128-row tiles of two consumer
+warpgroups and a producer warp, four ring stages for LN1 + qkv, the row
+products and the weight gradients, two for the forward's FFN and three
+for the backward's, a CTA a tile, weight-gradient splits that fill the
+SMs once, a producer warpgroup that hands its registers to the
+consumers), two and three stages, splits for two waves, a producer warp
+without setmaxnreg; and ablations whose output is wrong on
+purpose: kernel 1 without its qkv stores, its gelu or its W2 product,
+kernel 2 without its h and dz1 stores.  Prints the card's
 name and power limit, ptxas' registers, spills and wgmma notes (C75xx)
 per variant, one line per variant and round, and a line per sustained
 run: the selected kernels as built and their library calls, each
@@ -116,6 +130,9 @@ LSE_FIRST = (
     "    }\n")
 INV_AT_STORE = "        const float inv = 1.f / l[hh];"
 LSE_STORE = "      if (tq4 == 0)\n        L[row * a.ls[2]] ="
+BLK = "block_sm90.cuh"
+BLK_STAGES = "constexpr int kBlkStages = 4;"
+WG_WAVES = "constexpr int kWgWaves = 1;"
 # (kernel, name): [(header, old, new), ...]
 VARIANTS = {
     (11, "as built"): [],
@@ -181,14 +198,48 @@ VARIANTS = {
         (MHA, MHA_PACK, MHA_PACK.replace("64 / s", "1"))],
     (3, "streamed body (attention_fwd.cuh)"): [
         (MHA, MHA_ROUTE, "         : false ? kMhaPacked")],
+    (1, "as built"): [],
+    (1, "two stages"): [(BLK, BLK_STAGES, "constexpr int kBlkStages = 2;")],
+    (1, "no qkv stores (wrong on purpose)"): [
+        (BLK, "    blk_store(&tqkv, stage, kQkvBN / 64, nc * kQkvBN, "
+              "row0 + 64 * wg);", "    blk_bar(2 + wg, 128);")],
+    (1, "no gelu (wrong on purpose)"): [
+        (BLK, "gelu_tanh(z[4 * j + 2 * hh] + bb1[hc])",
+         "(z[4 * j + 2 * hh] + bb1[hc])"),
+        (BLK, "gelu_tanh(z[4 * j + 2 * hh + 1] + bb1[hc + 1])",
+         "(z[4 * j + 2 * hh + 1] + bb1[hc + 1])")],
+    (1, "no W2 product (wrong on purpose)"): [
+        (BLK, "      blk_mma_rs<D, 1>(yacc,", "      if (c < 0) blk_mma_rs<D, 1>(yacc,")],
+    (1, "a producer warp (no setmaxnreg)"): [
+        (BLK, "constexpr int kBlkThreads = kBlkConsumers + 128;",
+         "constexpr int kBlkThreads = kBlkConsumers + 32;"),
+        (BLK, "  asm volatile(\"setmaxnreg.dec.sync.aligned.u32 %0;\\n\" ::\"n\"(kBlkProducerRegs));", ""),
+        (BLK, "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 %0;\\n\" ::\"n\"(kBlkConsumerRegs));", "")],
+    (2, "as built"): [],
+    (2, "two stages"): [(BLK, BLK_STAGES, "constexpr int kBlkStages = 2;")],
+    (2, "three stages"): [(BLK, BLK_STAGES, "constexpr int kBlkStages = 3;")],
+    (2, "no h, dz1 stores (wrong on purpose)"): [
+        (BLK, "      tma_store_2d(&th, stage, kHidden * c, row0 + 64 * wg);\n"
+              "      tma_store_2d(&tdz1, stage + kBlkBox, kHidden * c, "
+              "row0 + 64 * wg);\n", "")],
+    (2, "weight-gradient splits for two waves"): [
+        (BLK, WG_WAVES, "constexpr int kWgWaves = 2;")],
+    (2, "a producer warp (no setmaxnreg)"): [
+        (BLK, "constexpr int kBlkThreads = kBlkConsumers + 128;",
+         "constexpr int kBlkThreads = kBlkConsumers + 32;"),
+        (BLK, "  asm volatile(\"setmaxnreg.dec.sync.aligned.u32 %0;\\n\" ::\"n\"(kBlkProducerRegs));", ""),
+        (BLK, "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 %0;\\n\" ::\"n\"(kBlkConsumerRegs));", "")],
 }
 STEM = {11: "flash_fwd", 6: "int8_matmul", 12: "flash_bwd", 13: "flash_bwd",
-        7: "attn_half", 3: "mha_fwd"}
+        7: "attn_half", 3: "mha_fwd", 1: "fused_block_fwd",
+        2: "fused_block_bwd"}
 PTXAS = {11: r"flash_fwd_wgmmaILi(\d+)E", 6: r"gemm_s8_wgmmaI(\w+?)EEv",
          12: r"flash_bwd_dq_wgmmaILi(\d+)E",
          13: r"flash_bwd_dkv_wgmmaILi(\d+)E",
          7: r"flash_one_shotILi(\d+)ELi(\d+)ELb0ELb1E",
-         3: r"mha_fwd_packedILi(\d+)E"}
+         3: r"mha_fwd_packedILi(\d+)E",
+         1: r"(ln_qkv_sm90|out_ffn_sm90)ILi(\d+)E",
+         2: r"(ln_qkv_sm90|ffn_dual_sm90|row_nk_sm90|wgrad_sm90)ILi(\d+)E"}
 
 
 def build(kernels) -> dict:
@@ -253,8 +304,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", type=int, nargs="+",
-                    default=[11, 6, 12, 13, 7, 3],
-                    choices=[11, 6, 12, 13, 7, 3])
+                    default=[11, 6, 12, 13, 7, 3, 1, 2],
+                    choices=[11, 6, 12, 13, 7, 3, 1, 2])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("wgmma_variants: needs an NVIDIA card")
@@ -369,11 +420,33 @@ def main() -> int:
         assert rc == 0, rc
         return o, lse
 
+    # kernels 1 and 2 at the main path's shape, through the wrappers with
+    # the variant's library in place of the built one
+    from devt_tpu_torch.ops import _build
+
+    dy = torch.randn(hx.shape, generator=gen).to(hx.dtype).cuda()
+    want1 = fb.fused_vit_block_fwd_plain(hx, full, 3, 0.125, 197)
+    with torch.no_grad():
+        _, bu, bres = fb.fused_vit_block(hx, full, 3, 0.125, 197)
+    want2 = fb.fused_vit_block_bwd_plain(hx, full, bu, bres, dy, 3, 0.125, 197)
+    big2 = [w.float().abs().max().item()
+            for w in (want2[0], *want2[1].values())]
+
+    def k1(lib):
+        _build._loaded["fused_block_fwd"] = lib
+        with torch.no_grad():
+            return fb.fused_vit_block(hx, full, 3, 0.125, 197)
+
+    def k2(lib):
+        _build._loaded["fused_block_bwd"] = lib
+        return fb._bwd_cuda(hx, full, bu, bres, dy, 3, 0.125, 197, 0.0, 0)
+
     def lib_of(i, kernel):
         lib = ctypes.CDLL(str(OUT / str(i) / f"{STEM[kernel]}.so"))
         {11: tfa._declare_flash_fwd, 6: tq._declare_matmul,
          12: tfa._declare_flash_bwd, 13: tfa._declare_flash_bwd,
-         7: fb._declare_half, 3: tfa._declare_fwd}[kernel](lib)
+         7: fb._declare_half, 3: tfa._declare_fwd, 1: fb._declare_fwd,
+         2: fb._declare_bwd}[kernel](lib)
         return lib
 
     built = {kern: lib_of(i, kern) for i, (kern, name) in enumerate(VARIANTS)
@@ -397,6 +470,25 @@ def main() -> int:
                                  f"abs err {err:.3e})")
                 print(f"[round {rnd}] kernel 3 {name}: " + ", ".join(cells),
                       flush=True)
+            elif kernel == 1:
+                got = k1(lib)
+                torch.cuda.synchronize()
+                err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip(got, want1))
+                t = _graph_ms(lambda: k1(lib))
+                print(f"[round {rnd}] kernel 1 {name}: {t:.4f} ms (y, u and "
+                      f"res max abs err {err:.3e})", flush=True)
+            elif kernel == 2:
+                dx, grads = k2(lib)
+                torch.cuda.synchronize()
+                err = max((g.float() - w.float()).abs().max().item() / (
+                    2.0 ** -8 * big) for g, w, big in zip(
+                        (dx, *grads.values()),
+                        (want2[0], *want2[1].values()), big2))
+                t = _graph_ms(lambda: k2(lib))
+                print(f"[round {rnd}] kernel 2 {name}: {t:.4f} ms (dx and "
+                      f"the 11 gradients within {err:.2f} bf16 ulps of "
+                      f"their largest elements)", flush=True)
             elif kernel == 7:
                 u, res = k7(lib)
                 torch.cuda.synchronize()
@@ -448,6 +540,10 @@ def main() -> int:
                   ("F.linear bf16 at N=6144", lambda: F.linear(x, w_bf))]
     if 7 in args.kernels:
         cases.append(("kernel 7", lambda: k7(built[7])))
+    if 1 in args.kernels:
+        cases.append(("kernel 1", lambda: k1(built[1])))
+    if 2 in args.kernels:
+        cases.append(("kernel 2", lambda: k2(built[2])))
     if 3 in args.kernels:
         qkv = mha[256][0]
         split = qkv.reshape(256, 14, 3, 8, 256)
