@@ -229,11 +229,20 @@ EPS = {"f32": 2.0 ** -23, "bf16": 2.0 ** -8}
 DROPOUT = 0.1
 # the fused block's sub-kernels as the profiler names them: the products on
 # csrc/block_sm90.cuh's wgmma body, the forward's attention on the one-shot
-# body's normalise-after instance (attention_bf16 outside its rule)
+# body's normalise-after instance (attention_bf16 outside its rule), the
+# backward's attention on the recompute and kernels 12's and 13's wgmma
+# bodies (attention_bwd_bf16 outside block_bwd_on_wgmma)
 FWD_KERNELS = ("ln_qkv_sm90<192, false>", "flash_one_shot<64, 208, false, "
                "true>", "attention_bf16", "out_ffn_sm90")
+BWD_ATTENTION = ("block_bwd_pre_sm90<64, 208>", "block_bwd_dq_sm90<64>",
+                 "block_bwd_dkv_sm90<64>")
 BWD_KERNELS = ("ln_qkv_sm90<192, true>", "ffn_dual_sm90", "row_nk_sm90",
-               "attention_bwd_bf16", "wgrad_sm90", "reduce_parts")
+               *BWD_ATTENTION, "attention_bwd_bf16", "wgrad_sm90",
+               "reduce_parts")
+# kernel 5's three launches: LN1 + qkv on int8 wgmma, the attention (the
+# block forward's), out-projection + LN2 + FFN on int8 and bf16 wgmma
+QUANT_KERNELS = ("ln_qkv_q8_sm90<192>", "flash_one_shot<64, 208, false, true>",
+                 "out_ffn_q8_sm90<192>")
 # training: the JAX bench's configuration (batch 32, multi-step of 8)
 TRAIN_BATCH, MULTI_STEPS, TRAIN_ITERS, DROP_STEPS = 32, 8, 3, 4
 # Gradients of one bf16 step on the card against the same step on the CPU
@@ -418,14 +427,16 @@ def _bound_bwd_ms(itemsize: int, kind: str) -> tuple[float, str]:
 
 
 def _block_launch_work() -> dict:
-    """Work of each bf16 launch of kernels 1 and 2 at the main-path shape,
-    by the profiler's name: (operations by kind, bytes).  Bytes: each
-    input read once and each output written once as the launch reads and
-    writes them (csrc/block_sm90.cuh, the one-shot attention,
-    block_bwd_parts.cuh): the keys past kv_len are not read; u32 (the f32
-    u that out_ffn writes for its own residual add), du, datt and the f32
-    partials count; LayerNorm parameters and biases (under 8 KB) do not.
-    The weight gradients' splits as wgrad_split_rows sizes them on this
+    """Work of each bf16 launch of kernels 1, 2 and 5 (and so of 7 and 8,
+    which share theirs) at the main-path shape, by the profiler's name:
+    (operations by kind, bytes).  Bytes: each input read once and each
+    output written once as the launch reads and writes them
+    (csrc/block_sm90.cuh, the one-shot attention, the attention backward's
+    recompute and bodies, quant_block_fwd.cu): the keys past kv_len are not
+    read; u32 (the f32 u that out_ffn writes for its own residual add), du,
+    datt, the attention backward's do and delta and the f32 partials count;
+    LayerNorm parameters, biases and scales (under 8 KB) do not.  The
+    weight gradients' splits as wgrad_split_rows sizes them on this
     card."""
     import torch
 
@@ -462,6 +473,23 @@ def _block_launch_work() -> dict:
         "row_nk_sm90<192, 0>": ({bf: 2 * rows * D * D}, act + wo + act32),
         "attention_bwd_bf16<64>": ({bf: 6 * attn},
                                    q_kv + act32 + lse + act + qkv),
+        # the attention backward on wgmma: S and O = P V; S, dP and dQ; S,
+        # dP, dV and dK (q, k, v, do, lse and delta read, att, do, delta,
+        # dq, dk and dv written)
+        "block_bwd_pre_sm90<64, 208>": ({bf: 2 * attn},
+                                        q_kv + act32 + lse + 2 * act
+                                        + lse),
+        "block_bwd_dq_sm90<64>": ({bf: 3 * attn},
+                                  q_kv + act + 2 * lse + act),
+        "block_bwd_dkv_sm90<64>": ({bf: 4 * attn},
+                                   q_kv + act + 2 * lse + 2 * act),
+        # kernel 5: the int8 products at the int8 rate, x, the codes, qkv,
+        # att and y as stored
+        "ln_qkv_q8_sm90<192>": ({"int8": 2 * rows * D * n3},
+                                act + D * n3 + qkv),
+        "out_ffn_q8_sm90<192>": ({bf: 2 * rows * (D * D + f * D),
+                                  "int8": 2 * rows * D * f},
+                                 3 * act + wo + D * f + w1),
         "row_nk_sm90<192, 2>": ({bf: 2 * rows * n3 * D},
                                 qkv + wqkv + 2 * act + stats + act32
                                 + 2 * col * D),
@@ -474,17 +502,31 @@ def _block_launch_work() -> dict:
 
 
 def _print_launch_bounds(rows) -> None:
-    """Each profiled launch of _block_launch_work beside its bound."""
+    """Each profiled launch of _block_launch_work beside its bound: its
+    time a launch (the profiler's time a call over the launches a call it
+    traced, fewer than one where it dropped an event)."""
     work = _block_launch_work()
     for name, ms, n in rows:
-        if name not in work:
+        if name not in work or not n:
             continue
         ops, bytes_ = work[name]
         bound, by = _bound(ops, bytes_)
-        print(f"[launch] {name}: {ms:.4f} ms x{n:g} | "
+        per = ms / n
+        print(f"[launch] {name}: {per:.4f} ms a launch, x{n:g} a call | "
               f"{sum(ops.values()) / 1e9:.2f} G operations, "
               f"{bytes_ / 1e6:.1f} MB | bound_ms={bound:.4f} ({by}), "
-              f"{bound / ms:.1%} of it", flush=True)
+              f"{bound / per:.1%} of it", flush=True)
+
+
+def _check_bwd_attention(tag: str, rows) -> None:
+    """The attention backward of a profiled bf16 call of kernel 2 or 8 at
+    the main-path shape: the three launches of the wgmma route, and no
+    attention_bwd_bf16."""
+    names = {name for name, _, _ in rows}
+    if rows and (not set(BWD_ATTENTION) <= names
+                 or any(n.startswith("attention_bwd_bf16") for n in names)):
+        raise AssertionError(f"{tag}: launches {sorted(names)}, expected "
+                             f"{BWD_ATTENTION} and no attention_bwd_bf16")
 
 
 def _max_err(a, b) -> float:
@@ -629,7 +671,16 @@ def phase_kernel_bwd(kind: str) -> dict:
         _, u, res = fb.fused_vit_block(x, params, HEADS, scale, KV_LEN)
         run = lambda: fb._bwd_cuda(x, params, u, res, dy, HEADS, scale,  # noqa: E731
                                    KV_LEN, 0.0, 0)
+        before = _body_counts()
         got = run()
+        body = {k: v - before[k] for k, v in _body_counts().items()}
+        # the attention backward: the wgmma route in bf16 (197 live keys at
+        # head dim 64), attention_bwd_f32 in f32
+        on_wgmma = kind == "bf16"
+        if (body["k2_wgmma"], body["k2_streamed"]) != (int(on_wgmma),
+                                                      int(not on_wgmma)):
+            raise AssertionError(f"bwd {kind}: attention backward launches "
+                                 f"by body {body}")
         want = fb.fused_vit_block_bwd_plain(x, params, u, res, dy, HEADS,
                                             scale, KV_LEN)
         torch.cuda.synchronize()
@@ -651,6 +702,7 @@ def phase_kernel_bwd(kind: str) -> dict:
         prof = _device_profile(run, reps=1 if slow else 3)
         _print_profile(f"fused_vit_block backward {kind}", *prof, top=12)
         if kind == "bf16":
+            _check_bwd_attention("fused_vit_block backward", prof[0])
             _print_launch_bounds(prof[0])
 
     # the yardstick: autograd through one library encoder layer, by CUDA
@@ -672,7 +724,8 @@ def phase_kernel_bwd(kind: str) -> dict:
     ptxas = (" | " + " | ".join(
         _ptxas("fused_block_bwd", body) for body in (
             "ln_qkv_sm90<D, stored>", "ffn_dual_sm90<D>",
-            "row_nk_sm90<D, mode>", "wgrad_sm90<BN>"))
+            "row_nk_sm90<D, mode>", "wgrad_sm90<BN>", BLOCK_PRE, BLOCK_DQ,
+            BLOCK_DKV))
         if kind == "bf16" else "")
 
     bound_ms, bound_by = _bound_bwd_ms(x.element_size(), kind)
@@ -875,8 +928,7 @@ def phase_train() -> dict:
     evaluate = make_eval_step(model, cfg)
     loss_before = evaluate(state, batch)[0].item()
 
-    fused_vit_block.launches = fused_vit_block.bwd_launches = 0
-    fused_vit_block.wgmma_launches = fused_vit_block.streamed_launches = 0
+    _zero_counts()
     state, first = step(state, batch, SEED)
     state, metrics = multi(state, stacked, SEED)
     torch.cuda.synchronize()
@@ -885,12 +937,14 @@ def phase_train() -> dict:
 
     steps = 1 + MULTI_STEPS
     if fwd_launches != depth * steps or bwd_launches != depth * steps \
-            or fused_vit_block.wgmma_launches != fwd_launches:
+            or fused_vit_block.wgmma_launches != fwd_launches \
+            or fused_vit_block.bwd_wgmma_launches != bwd_launches:
         raise AssertionError(
             f"train: {fwd_launches} forward ({fused_vit_block.wgmma_launches}"
             f" with the one-shot attention) and {bwd_launches} backward "
-            f"launches in {steps} steps, expected {depth} of each per step, "
-            f"every forward's attention on the one-shot body")
+            f"({fused_vit_block.bwd_wgmma_launches} with the wgmma attention "
+            f"backward) launches in {steps} steps, expected {depth} of each "
+            f"per step, every attention on the wgmma bodies")
     loss_after = evaluate(state, batch)[0].item()
     losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
     if not all(map(math.isfinite, losses)) or not loss_after < loss_before \
@@ -986,7 +1040,16 @@ def phase_kernel_quant(kind: str) -> dict:
     layer, pad_mask = _library_layer(dtype)
     run = lambda: tq.quant_fused_vit_block(x, qp, HEADS, scale, KV_LEN)  # noqa: E731
     with torch.inference_mode():
+        before = _body_counts()
         got = run()
+        body = {k: v - before[k] for k, v in _body_counts().items()}
+        # the attention launch: the one-shot wgmma body in bf16, the float
+        # route's attention in f32
+        on_wgmma = kind == "bf16"
+        if (body["k5_wgmma"], body["k5_streamed"]) != (int(on_wgmma),
+                                                      int(not on_wgmma)):
+            raise AssertionError(f"quant {kind}: attention launches by body "
+                                 f"{body}")
         want = tq.quant_fused_vit_block_plain(x, qp, HEADS, scale, KV_LEN)
         torch.cuda.synchronize()
         if not torch.isfinite(got.float()).all():
@@ -1013,8 +1076,15 @@ def phase_kernel_quant(kind: str) -> dict:
             lambda: fused_vit_block(x, params, HEADS, scale, KV_LEN), n=n)
         library_ms = _graph_ms(
             lambda: layer(x, src_key_padding_mask=pad_mask), n=n)
-        _print_profile(f"quant_fused_vit_block {kind}",
-                       *_device_profile(run), top=7)
+        prof = _device_profile(run)
+        _print_profile(f"quant_fused_vit_block {kind}", *prof, top=7)
+        if kind == "bf16":
+            # the three launches on wgmma, no mma.sync launch left
+            names = {name for name, _, _ in prof[0]}
+            if prof[0] and names != set(QUANT_KERNELS):
+                raise AssertionError(f"quant bf16: launches {sorted(names)}, "
+                                     f"expected {QUANT_KERNELS}")
+            _print_launch_bounds(prof[0])
     rows, item = B * S, x.element_size()
     int8_ops = 2 * rows * (3 * D * D + D * MLP)
     other_ops = 2 * rows * (D * D + 2 * KV_LEN * D + D * MLP)
@@ -1030,7 +1100,11 @@ def phase_kernel_quant(kind: str) -> dict:
           f"bf16_block_ms={control_ms:.4f} (fused_vit_block on the same "
           f"input) library_ms={library_ms:.4f} (nn.TransformerEncoderLayer "
           f"{kind}, the unquantized block; all three by CUDA graph) "
-          f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+          f"bound_ms={bound_ms:.4f} ({bound_by}); attention launches by body "
+          f"{body['k5_wgmma']} one-shot wgmma, {body['k5_streamed']} other"
+          + (f" | {_ptxas('quant_block_fwd', 'ln_qkv_q8_sm90<D>')} | "
+             f"{_ptxas('quant_block_fwd', 'out_ffn_q8_sm90<D>')}"
+             if kind == "bf16" else ""), flush=True)
     return {"dtype": kind, "max_abs_err": max_err, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1216,21 +1290,29 @@ def phase_serve_int8(bf16: dict) -> dict:
         0, 256, (37, cfg.frame_len, 224, 224, 3), dtype=np.uint8)
     depth = len(pred.model.space_transformer.blocks)
     sites = pred._qsites
+    # every block's Wqkv and W1 codes K-major, as kernel 5's int8 wgmma
+    # reads them
     if len(sites) != 2 * depth or not all(
             qp[k].dtype == torch.int8 and qp[k].is_cuda
-            for qp in sites for k in ("wqkv_q", "wo_q", "w1_q", "w2_q")):
+            for qp in sites for k in ("wqkv_q", "wo_q", "w1_q", "w2_q")) \
+            or not all(qp[k].stride() == (1, qp[k].shape[0])
+                       for qp in sites for k in ("wqkv_q", "w1_q")):
         raise AssertionError("serve-int8: the quantized sites are not int8 "
-                             "tensors on the card")
+                             "tensors on the card, or a block's Wqkv / W1 "
+                             "codes are not K-major")
 
-    quant_fused_vit_block.launches = fused_vit_block.launches = 0
+    _zero_counts()
     out = pred.predict({"vid": clips})
     launches = quant_fused_vit_block.launches
     bucket_calls = 2                       # 37 clips = bucket 32 + bucket 8
-    if launches != depth * bucket_calls or fused_vit_block.launches != 0:
+    if launches != depth * bucket_calls or fused_vit_block.launches != 0 \
+            or quant_fused_vit_block.wgmma_launches != launches:
         raise AssertionError(
-            f"serve-int8: {launches} int8-block and "
-            f"{fused_vit_block.launches} bf16-block launches, expected "
-            f"{depth} per bucket call and 0")
+            f"serve-int8: {launches} int8-block ("
+            f"{quant_fused_vit_block.wgmma_launches} with the one-shot "
+            f"attention) and {fused_vit_block.launches} bf16-block launches, "
+            f"expected {depth} per bucket call, all on the one-shot body, "
+            f"and 0")
     scores = out["scores"]
     if scores.shape != (37, cfg.n_classes) or not np.isfinite(scores).all() \
             or scores.min() <= 0.0 or scores.max() >= 1.0:
@@ -1253,8 +1335,14 @@ def phase_serve_int8(bf16: dict) -> dict:
     for _ in range(reps):
         pred.predict(batch)
     clips_per_s = 32 * reps / (time.perf_counter() - t0)
-    _print_profile("int8 predict, bucket 32", *_device_profile(
-        lambda: pred.predict(batch)), top=10)
+    prof = _device_profile(lambda: pred.predict(batch))
+    _print_profile("int8 predict, bucket 32", *prof, top=10)
+    device_ms = sum(ms for _, ms, _ in prof[0])
+    quant_ms = sum(ms for name, ms, _ in prof[0]
+                   if name.startswith(QUANT_KERNELS))
+    print(f"[profile]   device total {device_ms:.3f} ms per bucket-32 call: "
+          f"kernel 5 {quant_ms:.3f}, everything else "
+          f"{device_ms - quant_ms:.3f}")
     print(f"[serve-int8] ViViT Predictor(quantize=True, buckets=(1, 8, 32)) "
           f"on 37 u8 clips: int8 block launches {launches} ({depth} per "
           f"bucket call x {bucket_calls}), bf16 block launches 0, "
@@ -1266,7 +1354,8 @@ def phase_serve_int8(bf16: dict) -> dict:
           f"{INT8_VS_BF16_MAX_ERR}) | {clips_per_s:.2f} clips/s at bucket 32 "
           f"(host clock, u8 upload included) beside {bf16['clips_per_s']:.2f} "
           f"in bf16", flush=True)
-    return {"launches": launches, "clips_per_s": clips_per_s}
+    return {"launches": launches, "clips_per_s": clips_per_s,
+            "device_ms": device_ms, "k5_device_ms": quant_ms}
 
 
 def phase_serve_ptn() -> dict:
@@ -1864,7 +1953,13 @@ def phase_kernel_attn_half(kind: str) -> tuple[dict, dict]:
         del want_u, want_res
         run_bwd = lambda: fb._half_bwd_cuda(x, params, res, du, HEADS,  # noqa: E731
                                             scale, KV_LEN)
+        before = _body_counts()
         got = run_bwd()
+        body = {k: n - before[k] for k, n in _body_counts().items()}
+        want_bwd = fb.block_bwd_on_wgmma(dtype, D // HEADS, KV_LEN)
+        if body != {**dict.fromkeys(body, 0), "k8_wgmma": int(want_bwd),
+                    "k8_streamed": int(not want_bwd)}:
+            raise AssertionError(f"{tag}: kernel 8 launches by body {body}")
         want = fb.fused_attn_half_bwd_plain(x, params, res, du, HEADS, scale,
                                             KV_LEN)
         torch.cuda.synchronize()
@@ -1896,8 +1991,13 @@ def phase_kernel_attn_half(kind: str) -> tuple[dict, dict]:
             # readings: the profiler drops events now and then)
             _print_profile(f"fused_attn_half forward {kind}",
                            *_traced(run_fwd), top=4)
-            _print_profile(f"fused_attn_half backward {kind}",
-                           *_device_profile(run_bwd), top=8)
+            prof = _device_profile(run_bwd)
+            _print_profile(f"fused_attn_half backward {kind}", *prof, top=8)
+            _check_bwd_attention("fused_attn_half backward", prof[0])
+            # the attention backward's launches do kernel 2's work; the
+            # others' work differs from kernel 2's (two weight gradients)
+            _print_launch_bounds([r for r in prof[0]
+                                  if r[0] in BWD_ATTENTION])
 
     # the yardstick: the half composed of library calls, forward, and
     # forward + backward less forward through autograd, in CUDA graphs
@@ -1920,7 +2020,9 @@ def phase_kernel_attn_half(kind: str) -> tuple[dict, dict]:
            "composed_ms": lib_bwd_ms, "bound_ms": bb_ms, "bound_by": bb_by}
     where = ("the wgmma one-shot body (flash_fwd_sm90.cuh, normalising "
              "after P V)" if want_wgmma else "attention_fwd.cuh's body")
-    ptxas = f" | {_ptxas('attn_half', ONE_SHOT)}" if want_wgmma else ""
+    ptxas = (f" | {_ptxas('attn_half', ONE_SHOT)} | "
+             f"{_ptxas('attn_half', BLOCK_DQ)} | "
+             f"{_ptxas('attn_half', BLOCK_DKV)}" if want_wgmma else "")
     print(f"[kernel-attn-half] fused_attn_half {kind} ({B},{S},{D}) kv_len "
           f"{KV_LEN}: kernel 7's attention launch on {where}; "
           f"kernel 7 u and res against the plain version, max abs "
@@ -2019,7 +2121,10 @@ def _zero_counts() -> None:
     half.wgmma_launches = half.streamed_launches = 0
     block = fb.fused_vit_block
     block.wgmma_launches = block.streamed_launches = 0
-    tq.quant_fused_vit_block.launches = 0
+    block.bwd_wgmma_launches = block.bwd_streamed_launches = 0
+    half.bwd_wgmma_launches = half.bwd_streamed_launches = 0
+    quant = tq.quant_fused_vit_block
+    quant.launches = quant.wgmma_launches = quant.streamed_launches = 0
     fa = tfa.flash_attention
     fa.single_launches = fa.single_bwd_launches = fa.blocked_launches = 0
     fa.single_wgmma_launches = fa.single_streamed_launches = 0
@@ -2036,9 +2141,11 @@ def _zero_counts() -> None:
 
 
 def _body_counts() -> dict:
-    """Launches by body of the kernels that have more than one: 1 (its
-    attention launch on the one-shot body's normalise-after instance, or
-    attention_fwd.cuh's), 3 (the
+    """Launches by body of the kernels that have more than one: 1 and 5
+    (their attention launch on the one-shot body's normalise-after
+    instance, or attention_fwd.cuh's), 2 and 8 (their attention backward
+    on the recompute and kernels 12's and 13's wgmma bodies, or
+    attention_bwd_bf16 / the float route's), 3 (the
     packed wgmma body of csrc/mha_fwd_sm90.cuh, kernel 9's one-shot
     instance, or attention_fwd.cuh's streamed body), 9 and 14 (the wgmma
     one-shot body of csrc/flash_fwd_sm90.cuh, or the streamed one of
@@ -2055,8 +2162,15 @@ def _body_counts() -> dict:
 
     fa, ring, mha = tfa.flash_attention, tfa.ring_step_fwd, tfa.fused_mha
     mm, half = tq.int8_matmul_fused, fb.fused_attn_half
-    return {"k1_wgmma": fb.fused_vit_block.wgmma_launches,
-            "k1_streamed": fb.fused_vit_block.streamed_launches,
+    block, quant = fb.fused_vit_block, tq.quant_fused_vit_block
+    return {"k1_wgmma": block.wgmma_launches,
+            "k1_streamed": block.streamed_launches,
+            "k2_wgmma": block.bwd_wgmma_launches,
+            "k2_streamed": block.bwd_streamed_launches,
+            "k5_wgmma": quant.wgmma_launches,
+            "k5_streamed": quant.streamed_launches,
+            "k8_wgmma": half.bwd_wgmma_launches,
+            "k8_streamed": half.bwd_streamed_launches,
             "k3_packed": mha.packed_launches,
             "k3_one_shot": mha.one_shot_launches,
             "k3_streamed": mha.streamed_launches,
@@ -2096,7 +2210,17 @@ WGMMA_BODIES = {
     "ffn_dual_sm90<D>": r"ffn_dual_sm90ILi(\d+)E",
     "row_nk_sm90<D, mode>": r"row_nk_sm90ILi(\d+)ELi(\d+)E",
     "wgrad_sm90<BN>": r"wgrad_sm90ILi(\d+)E",
+    # kernel 5's row tiles on int8 and bf16 wgmma (csrc/quant_block_fwd.cu)
+    "ln_qkv_q8_sm90<D>": r"ln_qkv_q8_sm90ILi(\d+)E",
+    "out_ffn_q8_sm90<D>": r"out_ffn_q8_sm90ILi(\d+)E",
+    # kernels 2's and 8's attention backward (csrc/flash_bwd_sm90.cuh)
+    "block_bwd_pre_sm90<d, width>": r"block_bwd_pre_sm90ILi(\d+)ELi(\d+)E",
+    "block_bwd_dq_sm90<d>": r"block_bwd_dq_sm90ILi(\d+)E",
+    "block_bwd_dkv_sm90<d>": r"block_bwd_dkv_sm90ILi(\d+)E",
 }
+BLOCK_PRE, BLOCK_DQ, BLOCK_DKV = ("block_bwd_pre_sm90<d, width>",
+                                  "block_bwd_dq_sm90<d>",
+                                  "block_bwd_dkv_sm90<d>")
 
 
 # registers of the wgmma instances that kernel 3's and 15's moves left as
@@ -2377,10 +2501,13 @@ def phase_train_moe() -> dict:
     expect = _expect(k1=n_dense * steps, k2=n_dense * steps,
                      k7=n_moe * steps, k8=n_moe * steps)
     if counts != expect or body["k7_wgmma"] != expect["k7"] \
-            or body["k7_streamed"]:
+            or body["k7_streamed"] or body["k2_wgmma"] != expect["k2"] \
+            or body["k8_wgmma"] != expect["k8"]:
         raise AssertionError(f"train-moe: launches {counts} in {steps} "
                              f"steps, by body {body}, expected {expect}, "
-                             f"every launch of kernel 7 on the wgmma body")
+                             f"every launch of kernel 7 and every attention "
+                             f"backward of kernels 2 and 8 on the wgmma "
+                             f"bodies")
     loss_after = evaluate(state, batch)[0].item()
     aux = (first["moe_aux"].item(), metrics["moe_aux"].item())
     losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
@@ -3585,13 +3712,14 @@ def main() -> int:
                               csrc + "block_sm90.cuh",
                               csrc + "flash_fwd_sm90.cuh"]),
         # the products on block_sm90.cuh's wgmma body, the attention
-        # backward on block_bwd_parts.cuh's
+        # backward on the recompute and kernels 12's and 13's wgmma bodies
         entry(2, "fused_vit_block_bwd", csrc + "block_sm90.cuh",
               "devt_tpu/ops/fused_block.py:240",
               train["bwd_launches"] + later("k2"), bwd,
               launch_sources=[csrc + "fused_block_bwd.cu",
                               csrc + "block_sm90.cuh",
-                              csrc + "block_bwd_parts.cuh"]),
+                              csrc + "block_bwd_parts.cuh",
+                              csrc + "flash_bwd_sm90.cuh"]),
         # its main path (PTN) runs the packed wgmma body; the blocks the
         # fused kernels do not take at head dim 64, kernel 9's one-shot
         # instance; dropout, the streamed body
@@ -3605,9 +3733,16 @@ def main() -> int:
         entry(4, "fused_mha_bwd", csrc + "mha_bwd.cu",
               "devt_tpu/ops/flash_attention.py:589",
               train_ptn["bwd_launches"] + later("k4"), mha_bwd),
+        # LN1 + qkv and out-projection + FFN on int8 and bf16 wgmma, the
+        # attention on the one-shot body's normalise-after instance
         entry(5, "quant_fused_vit_block", csrc + "quant_block_fwd.cu",
               "devt_tpu/ops/quant.py:275",
-              serve_int8["launches"] + later("k5"), quant),
+              serve_int8["launches"] + later("k5"), quant,
+              launch_sources=[csrc + "quant_block_fwd.cu",
+                              csrc + "block_sm90.cuh",
+                              csrc + "gemm_s8_sm90.cuh",
+                              csrc + "block_attention.cuh",
+                              csrc + "flash_fwd_sm90.cuh"]),
         # int_mm_ms: quantize + torch._int_mm + dequantize, a yardstick
         # beside F.linear's library_ms
         entry(6, "int8_matmul_fused", csrc + "gemm_s8_sm90.cuh",
@@ -3628,7 +3763,8 @@ def main() -> int:
               composed_ms=half_bwd["composed_ms"],
               launch_sources=[csrc + "attn_half.cu",
                               csrc + "block_sm90.cuh",
-                              csrc + "block_bwd_parts.cuh"]),
+                              csrc + "block_bwd_parts.cuh",
+                              csrc + "flash_bwd_sm90.cuh"]),
         entry(9, "flash_single_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:390",
               int8_unfused["launches"], flash9),

@@ -49,10 +49,13 @@
 // qkv recompute, datt = du @ Wo^T per 128 rows, dqkv @ Wqkv^T with the LN1
 // backward, which also takes the column partials of dg1, db1 and dbo, and
 // the split-K weight gradients of Wqkv and Wo in one launch; from
-// block_bwd_parts.cuh the attention recompute and backward per (head,
-// sequence) and one fixed-order sum of all partials.  No atomics: two runs
-// give the same bits.  The float route (the comparison with the plain
-// version on the card) is FMA products and elementwise kernels.
+// block_bwd_parts.cuh the attention recompute and backward (kernel 2's:
+// where block_bwd_on_wgmma says, the recompute of att, do and delta from
+// the stored lse on the one-shot wgmma body, then kernels 12's and 13's
+// wgmma bodies, flash_bwd_sm90.cuh) and one fixed-order sum of all
+// partials.  No atomics: two runs give the same bits.  The float route
+// (the comparison with the plain version on the card) is FMA products and
+// elementwise kernels.
 //
 // Bound at the main-path shape (B=512, S=208, D=192, H=3, kv_len 197):
 // the forward does 2*(3 D^2 + 2 kv_len D + D^2) operations per row, 47.5
@@ -61,10 +64,9 @@
 // + 6 kv_len D) per row, 134.7 GFLOP: about 0.136 ms.  The times, and the
 // forward's three launches apart, are in PERF.md.
 
-#include "attention_fwd.cuh"
+#include "block_attention.cuh"
 #include "block_bwd_parts.cuh"
 #include "block_sm90.cuh"
-#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -168,21 +170,6 @@ struct FwdArgs {
   cudaStream_t stream;
 };
 
-// forward, launch 2: the attention of every (sequence, head) from the qkv
-// scratch into att and the lse lanes of res
-template <int HD>
-cudaError_t half_attention_bf16(const FwdArgs& a) {
-  const bf16* qkv = static_cast<const bf16*>(a.qkv);
-  if (!one_shot_on_wgmma(1, HD, a.kv_len))
-    return launch_attention_bf16<HD, false>(
-        qkv, static_cast<bf16*>(a.att), static_cast<float*>(a.res), a.B,
-        a.S, a.H, a.kv_len, a.lanes, a.scale, a.stream);
-  return launch_one_shot<false, true>(
-      packed_qkv_heads(qkv, a.att, static_cast<float*>(a.res), a.S, a.H, HD,
-                       a.kv_len, a.lanes, a.scale),
-      a.B, HD, a.stream);
-}
-
 template <int D, int HD>
 cudaError_t fwd_bf16_shape(const FwdArgs& a) {
   const int rows = a.B * a.S;
@@ -193,7 +180,11 @@ cudaError_t fwd_bf16_shape(const FwdArgs& a) {
       h(a.x), f(a.g1), f(a.b1), h(a.wqkv), static_cast<bf16*>(a.qkv),
       static_cast<float*>(a.res), nullptr, rows, a.H, a.lanes, a.stream)));
 
-  DEVT_TRY(half_attention_bf16<HD>(a));
+  // launch 2: the attention into att and the lse lanes of res
+  DEVT_TRY(block_attention_bf16<HD>(
+      static_cast<const bf16*>(a.qkv), static_cast<bf16*>(a.att),
+      static_cast<float*>(a.res), a.B, a.S, a.H, a.kv_len, a.lanes, a.scale,
+      a.stream));
 
   constexpr size_t s3 = out_proj_smem<D>();
   DEVT_TRY(set_smem(out_proj_bf16<D>, s3));
@@ -237,7 +228,7 @@ cudaError_t fwd_f32(const FwdArgs& a) {
 
 constexpr int kHalfGrads = 5;  // g1, b1, wqkv, wo, bo
 
-struct BwdArgs {
+struct HalfBwdArgs {
   const void *x, *g1, *b1, *wqkv, *wo, *bo, *res, *du;
   void* dx;
   void* grads[kHalfGrads];
@@ -250,6 +241,7 @@ struct BwdArgs {
 struct Plan {
   size_t a, qkv, att, dqkv;       // in x's type: (rows, D), qkv (rows, 3D)
   size_t datt;                    // f32 (rows, D)
+  size_t dout, delta;             // bf16 (rows, D), f32 (rows, H)
   size_t p_g1, p_b1, p_bo;        // f32 [tiles][D]
   size_t w_qkv, w_o;              // f32 [splits][M * N]
   size_t xhat1, tmp, s, dp;       // float route only
@@ -285,6 +277,10 @@ Plan make_plan(int dtype, int B, int S, int D, int H) {
   p.att = take(rows * D * esz);
   p.dqkv = take(rows * 3 * D * esz);
   p.datt = take(rows * D * 4);
+  if (dtype == 1) {
+    p.dout = take(rows * D * 2);
+    p.delta = take(rows * H * 4);
+  }
   const size_t t = p.tiles, sp = p.splits;
   p.p_g1 = take(t * D * 4);
   p.p_b1 = take(t * D * 4);
@@ -302,7 +298,8 @@ Plan make_plan(int dtype, int B, int S, int D, int H) {
 }
 
 // sums of all the partials into the 5 gradients
-cudaError_t launch_reduce(const BwdArgs& a, const Plan& p, int mat_bf16) {
+cudaError_t launch_reduce(const HalfBwdArgs& a, const Plan& p,
+                          int mat_bf16) {
   const int D = a.D;
   auto f = [&](size_t off) {
     return reinterpret_cast<const float*>(a.scratch + off);
@@ -318,7 +315,7 @@ cudaError_t launch_reduce(const BwdArgs& a, const Plan& p, int mat_bf16) {
 }
 
 template <int D, int HD>
-cudaError_t bwd_bf16_shape(const BwdArgs& a, const Plan& p) {
+cudaError_t bwd_bf16_shape(const HalfBwdArgs& a, const Plan& p) {
   const int rows = a.B * a.S, N3 = 3 * D;
   auto f = [](const void* q) { return static_cast<const float*>(q); };
   auto h = [](const void* q) { return static_cast<const bf16*>(q); };
@@ -338,14 +335,9 @@ cudaError_t bwd_bf16_shape(const BwdArgs& a, const Plan& p) {
   DEVT_TRY((launch_row_nk<D, kPlain>(du, D, h(a.wo), plain, rows,
                                      a.stream)));
 
-  const size_t s3 = attn_bwd_smem(a.S, HD);
-  if (s3 > kSmemPerBlock) return cudaErrorInvalidValue;
-  const int warps = min(a.S / 16, kAttnMaxWarps);
-  DEVT_TRY(set_smem(attention_bwd_bf16<HD>, s3));
-  attention_bwd_bf16<HD><<<dim3(a.H, a.B), 32 * warps, s3, a.stream>>>(
-      sb(p.qkv), sf(p.datt), res, sb(p.att), sb(p.dqkv), a.S, a.H, a.kv_len,
-      a.lanes, a.scale);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY(block_attention_bwd_bf16<HD>(
+      sb(p.qkv), sf(p.datt), res, sb(p.att), sb(p.dqkv), sb(p.dout),
+      sf(p.delta), a.B, a.S, a.H, a.kv_len, a.lanes, a.scale, a.stream));
 
   RowEpi ln1{};
   ln1.out_bf16 = static_cast<bf16*>(a.dx);
@@ -367,7 +359,7 @@ cudaError_t bwd_bf16_shape(const BwdArgs& a, const Plan& p) {
   return launch_reduce(a, p, 1);
 }
 
-cudaError_t bwd_f32(const BwdArgs& a, const Plan& p) {
+cudaError_t bwd_f32(const HalfBwdArgs& a, const Plan& p) {
   const int D = a.D, H = a.H, N3 = 3 * D, rows = a.B * a.S;
   const cudaStream_t st = a.stream;
   auto f = [](const void* q) { return static_cast<const float*>(q); };
@@ -439,6 +431,13 @@ extern "C" int devt_attn_half_route(int dtype, int d, int kv_len) {
   return one_shot_on_wgmma(dtype, d, kv_len) ? 1 : 0;
 }
 
+// 1 when the attention backward of kernel 8 (and of kernel 2) in this
+// dtype, head dim and kv_len takes the wgmma route of
+// block_attention_bwd_bf16 (block_bwd_on_wgmma)
+extern "C" int devt_attn_half_bwd_route(int dtype, int d, int kv_len) {
+  return block_bwd_on_wgmma(dtype, d, kv_len) ? 1 : 0;
+}
+
 // Bytes of scratch a call of devt_attn_half_bwd needs at this shape (0 for
 // a shape it does not take).
 extern "C" unsigned long long devt_attn_half_bwd_scratch(int dtype, int B,
@@ -465,7 +464,7 @@ extern "C" int devt_attn_half_bwd(int dtype, const void* x, const void* g1,
                                   float scale, void* stream) {
   if ((dtype != 0 && dtype != 1) || bad_shape(B, S, D, H, kv_len, lanes))
     return cudaErrorInvalidValue;
-  BwdArgs a{};
+  HalfBwdArgs a{};
   a.x = x, a.g1 = g1, a.b1 = b1, a.wqkv = wqkv, a.wo = wo, a.bo = bo;
   a.res = res, a.du = du, a.dx = dx;
   for (int i = 0; i < kHalfGrads; ++i) a.grads[i] = grads[i];

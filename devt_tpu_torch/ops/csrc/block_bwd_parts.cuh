@@ -2,8 +2,13 @@
 // fused_block_bwd.cu) and the attention half's backward (kernel 8,
 // attn_half.cu), for Hopper (sm_90a):
 //
-//   * attention_bwd_bf16: the attention recompute and backward per (head,
-//     sequence), q, k, v and datt of the head in shared memory;
+//   * block_attention_bwd_bf16: the attention recompute and backward, the
+//     route written once: where block_bwd_on_wgmma says (bfloat16, head
+//     dim 16-64, at most 256 live keys: every main-path shape), the
+//     recompute of att, do and delta from the stored lse on the one-shot
+//     forward's wgmma body, then kernels 12's and 13's wgmma bodies
+//     (flash_bwd_sm90.cuh, kBwdBlock); elsewhere attention_bwd_bf16, per
+//     (head, sequence), q, k, v and datt of the head in shared memory;
 //   * reduce_parts: the fixed-order sums of the partials, cast to each
 //     gradient's type (no atomics: two runs give the same bits);
 //   * the float route's generic FMA product and elementwise kernels, and
@@ -15,6 +20,7 @@
 
 #pragma once
 
+#include "flash_bwd_sm90.cuh"
 #include "fused_block_common.cuh"
 
 namespace {
@@ -197,6 +203,29 @@ __global__ void __launch_bounds__(32 * kAttnMaxWarps)
       }
     }
   }
+}
+
+// the attention backward of kernels 2 and 8 in bfloat16: att and dqkv from
+// the packed qkv scratch, the f32 datt and lse at lane h of the residual
+// rows; dout (B*H*S*HD bf16) and delta (B*H*S f32) are the wgmma route's
+// scratch
+template <int HD>
+cudaError_t block_attention_bwd_bf16(const bf16* qkv, const float* datt,
+                                     const float* res, bf16* att, bf16* dqkv,
+                                     bf16* dout, float* delta, int B, int S,
+                                     int H, int kv_len, int lanes,
+                                     float scale, cudaStream_t stream) {
+  if (block_bwd_on_wgmma(1, HD, kv_len))
+    return launch_block_attention_bwd<HD>(qkv, datt, res, att, dqkv, dout,
+                                          delta, B, S, H, kv_len, lanes,
+                                          scale, stream);
+  const size_t bytes = attn_bwd_smem(S, HD);
+  if (bytes > kSmemPerBlock) return cudaErrorInvalidValue;
+  const int warps = min(S / 16, kAttnMaxWarps);
+  DEVT_TRY(set_smem(attention_bwd_bf16<HD>, bytes));
+  attention_bwd_bf16<HD><<<dim3(H, B), 32 * warps, bytes, stream>>>(
+      qkv, datt, res, att, dqkv, S, H, kv_len, lanes, scale);
+  return cudaGetLastError();
 }
 
 // ===========================================================================

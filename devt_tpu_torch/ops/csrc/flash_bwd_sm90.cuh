@@ -22,6 +22,20 @@
 // sits in two registers.  A fully masked column gets p = 0 exactly, so its
 // dk and dv are exact zeros; rows past S still get +inf lse and 0 delta.
 //
+// kBwdBlock (block_bwd_dq_sm90 and block_bwd_dkv_sm90, entries of their
+// own on the same bodies, which are __forceinline__ functions, dq_body and
+// dkv_body, so that the entries above keep their code) is the attention
+// backward of kernels 2 and 8, devt_tpu/ops/fused_block.py:119
+// _mha_fwd_bwd, on the fused blocks' packed qkv scratch: q, k, v its head
+// views by strides, lse read from the residual lanes by stride, delta
+// given (not taken from bf16 o and do: JAX takes it from the f32 datt and
+// the f32 o), dq, dk, dv stored by strides into the packed dqkv in bf16.
+// A recompute launch before them, block_bwd_pre_sm90 (at the end of this
+// header, on the one-shot forward's layout: a query tile's whole score row
+// in registers), writes att, do = round(datt) and that delta.  The rule
+// block_bwd_on_wgmma (bfloat16, head dim 16-64, at most 256 live keys)
+// picks this route in block_bwd_parts.cuh:block_attention_bwd_bf16.
+//
 // What they compute is flash_bwd.cu's contract, per (sequence, head):
 //
 //   delta = rowsum(f32(do) * f32(o))
@@ -176,8 +190,27 @@ struct RingBwd : FlashBwd {
   const float* mask;
 };
 
+// kernels 2's and 8's attention backward (kBwdBlock, the fused blocks'
+// packed qkv scratch): lse read through ls (element strides (sequence,
+// head, row) into the residual lanes), delta given (the recompute launch,
+// block_bwd_pre_sm90, wrote it from the f32 datt and the f32 o), the bf16
+// dq, dk and dv stored through gs (element strides (sequence, head, row))
+// into the packed dqkv.  o is unused.  A type of its own, as RingBwd.
+struct BlockBwd : FlashBwd {
+  long long ls[3], gs[3];
+};
+
+// the bodies' compile-time options: kernels 10, 12, 13 (kBwdFlash), 15
+// (kBwdRing), the attention backward of kernels 2 and 8 (kBwdBlock)
+constexpr int kBwdFlash = 0, kBwdRing = 1, kBwdBlock = 2;
+
+template <int kMode>
+using BwdArgsOf = std::conditional_t<
+    kMode == kBwdRing, RingBwd,
+    std::conditional_t<kMode == kBwdBlock, BlockBwd, FlashBwd>>;
+
 template <bool kRing>
-using BwdArgs = std::conditional_t<kRing, RingBwd, FlashBwd>;
+using BwdArgs = BwdArgsOf<kRing ? kBwdRing : kBwdFlash>;
 
 // d[0, 16) = (acc ? d : 0) + A (64 x 16, shared, K-major) B (16 x 32,
 // shared, K-major)
@@ -269,6 +302,27 @@ __device__ __forceinline__ void store_tile(bf16* base, const float* acc,
     if (row >= rows) continue;
     const bool keep = row < live;  // a select: NaN * 0 is NaN
     bf16* dst = base + static_cast<size_t>(row) * HD + 2 * tq4;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(dst + 8 * jj) =
+          pack_bf16(keep ? acc[4 * jj + 2 * hh] : 0.f,
+                    keep ? acc[4 * jj + 2 * hh + 1] : 0.f);
+  }
+}
+
+// stores rows row0 + 8 hh of a 64 x HD accumulator tile of this thread as
+// bf16 pairs at base + row * rs (element strides), rows >= `rows` skipped,
+// rows >= `live` stored as zeros
+template <int HD>
+__device__ __forceinline__ void store_tile_rs(bf16* base, const float* acc,
+                                              int row0, int tq4, int rows,
+                                              int live, long long rs) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= rows) continue;
+    const bool keep = row < live;  // a select: NaN * 0 is NaN
+    bf16* dst = base + row * rs + 2 * tq4;
 #pragma unroll
     for (int jj = 0; jj < HD / 8; ++jj)
       *reinterpret_cast<uint32_t*>(dst + 8 * jj) =
@@ -377,13 +431,15 @@ __device__ __forceinline__ void dq_tile(int j, const FlashBwd& a,
   if (lane == 0) mbar_arrive(&bars[2 * S + st]);  // K read
 }
 
-template <int HD, bool kRing = false>
-__global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
-    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap tdo,
-                       const BwdArgs<kRing> a) {
+// kernel 12's body: the __global__ entries below take it with their
+// option (kMode), the tensor maps being their __grid_constant__ parameters
+template <int HD, int kMode>
+__device__ __forceinline__ void dq_body(const CUtensorMap& tq,
+                                        const CUtensorMap& tk,
+                                        const CUtensorMap& tv,
+                                        const CUtensorMap& tdo,
+                                        const BwdArgsOf<kMode>& a) {
+  constexpr bool kRing = kMode == kBwdRing;
   constexpr int RB = HD * 2;  // bytes of a row
   constexpr int N = kBwdDqKeys;
   constexpr int S = kBwdDqStages;
@@ -448,13 +504,21 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
 
   // delta of rows gq, gq + 8 of the warp's 16 (the quad's four lanes take
   // a quarter of the row each), written for kernel 13; lse times log2 e,
-  // +inf past Sq (p = 0 there)
+  // +inf past Sq (p = 0 there).  kBwdBlock reads the given delta, and lse
+  // through its strides.
   const int row0 = 64 * part + 16 * warp + gq;
   const size_t head = static_cast<size_t>(bh) * a.Sq;
   float dl[2], lc[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 8 * hh;
+    if constexpr (kMode == kBwdBlock) {
+      const bool ok = row < a.Sq;
+      dl[hh] = ok ? a.delta[head + row] : 0.f;
+      lc[hh] = ok ? a.lse[b * a.ls[0] + h * a.ls[1] + row * a.ls[2]] * kLog2e
+                  : pos_inf();
+      continue;
+    }
     float acc = 0.f;
     if (row < a.Sq) {
       size_t g;
@@ -507,21 +571,47 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
                       lane, dq);
     fence_all<HD / 2>(dq);
 
-    store_tile<HD>(a.dq + head * HD, dq, row0, tq4, a.Sq, a.Sq);
+    if constexpr (kMode == kBwdBlock)
+      store_tile_rs<HD>(a.dq + b * a.gs[0] + h * a.gs[1], dq, row0, tq4,
+                        a.Sq, a.Sq, a.gs[2]);
+    else
+      store_tile<HD>(a.dq + head * HD, dq, row0, tq4, a.Sq, a.Sq);
   }
+}
+
+template <int HD, bool kRing = false>
+__global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const BwdArgs<kRing> a) {
+  dq_body<HD, kRing ? kBwdRing : kBwdFlash>(tq, tk, tv, tdo, a);
+}
+
+// kernel 12's body for the attention backward of kernels 2 and 8
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
+    block_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const BlockBwd a) {
+  dq_body<HD, kBwdBlock>(tq, tk, tv, tdo, a);
 }
 
 // ---------------------------------------------------------------------------
 // kernel 13: dk and dv
 // ---------------------------------------------------------------------------
 
-template <int HD, bool kRing = false>
-__global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
-    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
-                        const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv,
-                        const __grid_constant__ CUtensorMap tdo,
-                        const BwdArgs<kRing> a) {
+// kernel 13's body, taken as kernel 12's
+template <int HD, int kMode>
+__device__ __forceinline__ void dkv_body(const CUtensorMap& tq,
+                                         const CUtensorMap& tk,
+                                         const CUtensorMap& tv,
+                                         const CUtensorMap& tdo,
+                                         const BwdArgsOf<kMode>& a) {
+  constexpr bool kRing = kMode == kBwdRing;
   constexpr int RB = HD * 2;
   constexpr int N = kBwdDkvQueries;
   constexpr int S = kBwdDkvStages;
@@ -546,7 +636,19 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
   const int key0 = 64 * part;
   const size_t kbase = (static_cast<size_t>(bh) * a.Skv + key0) * HD;
 
-  if (!kRing && key0 >= a.kv_len) {  // every key of the block masked
+  if constexpr (kMode == kBwdBlock) {
+    if (key0 >= a.kv_len) {  // every key of the block masked: zeros
+      const int n = min(64, a.Skv - key0) * HD / 2;
+      bf16* dk = a.dk + b * a.gs[0] + h * a.gs[1] + key0 * a.gs[2];
+      bf16* dv = a.dv + b * a.gs[0] + h * a.gs[1] + key0 * a.gs[2];
+      for (int i = threadIdx.x; i < n; i += kBwdThreads) {
+        const long long e = (i / (HD / 2)) * a.gs[2] + 2 * (i % (HD / 2));
+        *reinterpret_cast<uint32_t*>(dk + e) = 0u;
+        *reinterpret_cast<uint32_t*>(dv + e) = 0u;
+      }
+      return;
+    }
+  } else if (!kRing && key0 >= a.kv_len) {  // every key of the block masked
     const int n = min(64, a.Skv - key0) * HD / 2;
     uint32_t* dk = reinterpret_cast<uint32_t*>(a.dk + kbase);
     uint32_t* dv = reinterpret_cast<uint32_t*>(a.dv + kbase);
@@ -586,6 +688,10 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
         if constexpr (kRing)  // the raw lse: kernel 12's kRing exponent
           lsm[st][i] =
               ok ? a.lse[b * a.ls[0] + h * a.ls[1] + r * a.ls[2]] : pos_inf();
+        else if constexpr (kMode == kBwdBlock)
+          lsm[st][i] =
+              ok ? a.lse[b * a.ls[0] + h * a.ls[1] + r * a.ls[2]] * kLog2e
+                 : pos_inf();
         else
           lsm[st][i] = ok ? a.lse[head + r] * kLog2e : pos_inf();
         dsm[st][i] = ok ? a.delta[head + r] : 0.f;
@@ -681,9 +787,212 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
     const size_t kr = b * a.ks[0] + h * a.ks[1] + key0 * a.ks[2];
     store_tile_f32<HD>(a.dkf + kr, dk, row0, tq4, rows, a.ks[2]);
     store_tile_f32<HD>(a.dvf + kr, dv, row0, tq4, rows, a.ks[2]);
+  } else if constexpr (kMode == kBwdBlock) {
+    const long long kr = b * a.gs[0] + h * a.gs[1] + key0 * a.gs[2];
+    store_tile_rs<HD>(a.dk + kr, dk, row0, tq4, rows, live, a.gs[2]);
+    store_tile_rs<HD>(a.dv + kr, dv, row0, tq4, rows, live, a.gs[2]);
   } else {
     store_tile<HD>(a.dk + kbase, dk, row0, tq4, rows, live);
     store_tile<HD>(a.dv + kbase, dv, row0, tq4, rows, live);
+  }
+}
+
+template <int HD, bool kRing = false>
+__global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const BwdArgs<kRing> a) {
+  dkv_body<HD, kRing ? kBwdRing : kBwdFlash>(tq, tk, tv, tdo, a);
+}
+
+// kernel 13's body for the attention backward of kernels 2 and 8
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, kBwdDkvCTAs)
+    block_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const BlockBwd a) {
+  dkv_body<HD, kBwdBlock>(tq, tk, tv, tdo, a);
+}
+
+// ---------------------------------------------------------------------------
+// kernels 2 and 8: the attention recompute before the two bodies
+// ---------------------------------------------------------------------------
+
+// the rule, written once: which attention backwards of the fused blocks
+// (kernels 2 and 8, fused_block_bwd.cu and attn_half.cu) take
+// block_bwd_pre_sm90 and the two bodies with kBwdBlock: bfloat16 at head
+// dim 16, 32 or 64 with at most 256 live keys (the recompute holds a
+// query tile's whole score row, as the one-shot forward does); the others
+// keep block_bwd_parts.cuh's attention_bwd_bf16 (f32: attention_bwd_f32)
+__host__ __device__ constexpr bool block_bwd_on_wgmma(int dtype, int d,
+                                                      int kv_len) {
+  return one_shot_on_wgmma(dtype, d, kv_len) && blocked_bwd_on_wgmma(dtype, d);
+}
+
+// the recompute's operands beside the TMA maps of q, k, v (the head views
+// of the packed qkv scratch)
+struct BlockPre {
+  const float* datt;  // (B, S, H*d) f32, the product doproj @ Wo^T
+  const float* lse;   // lane h of the residual rows of `lanes` floats
+  bf16* att;          // (B, S, H*d)
+  bf16* dout;         // (B, H, S, d): round(datt), the bodies' do
+  float* delta;       // (B*H, S)
+  int H, S, kv_len, lanes;
+  float scale;
+};
+
+// What the JAX kernel's _mha_fwd_bwd computes before its backward products
+// (devt_tpu/ops/fused_block.py:119), per (sequence, head), from the stored
+// lse with no max pass and no 1 / l:
+//   p     = exp(s scale - lse), keys at or past kv_len at 0
+//   o     = round(p) @ v in f32 (unnormalised: lse holds log l)
+//   att   = round(o), the operand of the Wo gradient
+//   delta = rowsum(datt * o), both in f32 (not from rounded o and do, as
+//           kernel 12's prologue takes it)
+//   do    = round(datt), the bodies' dO operand
+// The one-shot forward's body (flash_one_shot, flash_fwd_sm90.cuh) with
+// its max and sum replaced by the given lse: a CTA of one warpgroup takes
+// two query tiles of 64 rows of a (sequence, head), K and V whole (N rows),
+// by TMA; S = Q K^T and O = P V on wgmma, p in registers as the bodies
+// compute it (one ex2 of s scale log2 e - lse log2 e).  Rows past S get
+// +inf lse (p = 0) and are not stored.
+template <int HD, int N>
+__global__ void __launch_bounds__(kOneShotThreads, one_shot_ctas(HD, N, true))
+    block_bwd_pre_sm90(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const BlockPre a) {
+  constexpr int RB = HD * 2;  // bytes of a row
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 + kOneShotQTiles];
+  unsigned char* Qs =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int tiles = one_shot_tiles(a.S);
+  const int parts = ((a.S + 63) / 64 + tiles - 1) / tiles;
+  const int bh = blockIdx.x / parts, t0 = (blockIdx.x - bh * parts) * tiles;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int ntiles = min(tiles, (a.S + 63) / 64 - t0);
+  unsigned char* Ks = Qs + tiles * 64 * RB;
+  unsigned char* Vs = Ks + align1024(N * RB);
+
+  // bars[0] K, bars[1] V, bars[2 + i] query tile t0 + i
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 + ntiles; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    constexpr uint32_t kQBytes = 64 * RB, kKVBytes = N * RB;
+    mbar_expect_tx(&bars[2], kQBytes);
+    tma_load_4d(Qs, &tq, &bars[2], 0, 64 * t0, h, b);
+    mbar_expect_tx(&bars[0], kKVBytes);
+    tma_load_4d(Ks, &tk, &bars[0], 0, 0, h, b);
+    mbar_expect_tx(&bars[1], kKVBytes);
+    tma_load_4d(Vs, &tv, &bars[1], 0, 0, h, b);
+    for (int i = 1; i < ntiles; ++i) {
+      mbar_expect_tx(&bars[2 + i], kQBytes);
+      tma_load_4d(Qs + i * 64 * RB, &tq, &bars[2 + i], 0, 64 * (t0 + i), h,
+                  b);
+    }
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq4 = lane & 3;
+  const uint64_t kdesc = smem_desc<HD>(Ks), vdesc = smem_desc<HD>(Vs);
+  const long long Dt = static_cast<long long>(a.H) * HD;
+  const float c = a.scale * kLog2e;
+
+#pragma unroll 1
+  for (int i = 0; i < ntiles; ++i) {
+    const int t = t0 + i;
+    float lc[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = 64 * t + 16 * warp + gq + 8 * hh;
+      lc[hh] = row < a.S ? a.lse[(static_cast<long long>(b) * a.S + row) *
+                                     a.lanes + h] * kLog2e
+                         : pos_inf();
+    }
+    mbar_wait(&bars[2 + i], 0);
+    if (i == 0) mbar_wait(&bars[0], 0);
+
+    // S = Q K^T: register 4 j + e holds row gq + 8 (e / 2) of the warp's
+    // 16, key column 8 j + 2 tq4 + e % 2
+    float s[N / 2];
+    const uint64_t qdesc = smem_desc<HD>(Qs + i * 64 * RB);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_qk<N>(s, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_all<N / 2>(s);
+
+    // p = 2^(s scale log2 e - lse log2 e), keys past kv_len at 0, in bf16
+    // as the A fragments of P V
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& v = s[4 * j + e];
+        v = 8 * j + 2 * tq4 + (e & 1) < a.kv_len
+                ? ex2(fmaf(v, c, -lc[e >> 1]))
+                : 0.f;
+      }
+    uint32_t pa[N / 16][4];
+    to_frags<N>(pa, s);
+
+    // O = P V, V read MN-major; the thread's datt loads in flight under it
+    // (s is dead by now: the registers are free)
+    if (i == 0) mbar_wait(&bars[1], 0);
+    float o[HD / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_pv<HD>(o, pa[kk], vdesc + ((16 * kk * RB) >> 4), kk);
+    wgmma_commit();
+    float2 g[2][HD / 8];
+    long long e[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = 64 * t + 16 * warp + gq + 8 * hh;
+      e[hh] = (static_cast<long long>(b) * a.S + row) * Dt + h * HD + 2 * tq4;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        g[hh][j] = row < a.S
+                       ? *reinterpret_cast<const float2*>(a.datt + e[hh] +
+                                                          8 * j)
+                       : make_float2(0.f, 0.f);
+    }
+    wgmma_wait_all();
+    fence_all<HD / 2>(o);
+
+    // att, do and delta of the thread's two rows (a quad holds a row)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = 64 * t + 16 * warp + gq + 8 * hh;
+      const bool ok = row < a.S;
+      const long long eo =
+          (static_cast<long long>(bh) * a.S + row) * HD + 2 * tq4;
+      float dl = 0.f;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        if (!ok) continue;
+        const float o0 = o[4 * j + 2 * hh], o1 = o[4 * j + 2 * hh + 1];
+        dl += g[hh][j].x * o0;
+        dl += g[hh][j].y * o1;
+        *reinterpret_cast<uint32_t*>(a.att + e[hh] + 8 * j) =
+            pack_bf16(o0, o1);
+        *reinterpret_cast<uint32_t*>(a.dout + eo + 8 * j) =
+            pack_bf16(g[hh][j].x, g[hh][j].y);
+      }
+      dl = quad_sum(dl);
+      if (ok && tq4 == 0) a.delta[static_cast<long long>(bh) * a.S + row] = dl;
+    }
   }
 }
 
@@ -737,6 +1046,100 @@ inline cudaError_t launch_blocked_bwd_wgmma(int part, const FlashBwd& a,
     case 64: return launch_blocked_bwd_d<64>(part, m, a, B * a.H, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+template <int HD, int N>
+cudaError_t launch_block_pre_n(const CUtensorMap (&m)[3], const BlockPre& p,
+                               int BH, cudaStream_t stream) {
+  const int tiles = one_shot_tiles(p.S);
+  const size_t bytes = one_shot_smem(HD, tiles, N, false);
+  const int parts = ((p.S + 63) / 64 + tiles - 1) / tiles;
+  DEVT_TRY(set_smem(block_bwd_pre_sm90<HD, N>, bytes));
+  block_bwd_pre_sm90<HD, N>
+      <<<BH * parts, kOneShotThreads, bytes, stream>>>(m[0], m[1], m[2], p);
+  return cudaGetLastError();
+}
+
+// the attention backward of kernels 2 and 8 for a shape inside
+// block_bwd_on_wgmma, head dim HD: the recompute (att, do, delta), then
+// kernel 12's body (dq) and kernel 13's (dk, dv) with kBwdBlock.  qkv and
+// dqkv (B, S, 3*H*HD) bf16 packed (16-byte aligned), datt (B, S, H*HD)
+// f32, lse at lane h of res rows of `lanes` floats, att (B, S, H*HD);
+// dout (B*H*S*HD bf16) and delta (B*H*S f32) scratch
+template <int HD>
+cudaError_t launch_block_attention_bwd(const bf16* qkv, const float* datt,
+                                       const float* res, bf16* att,
+                                       bf16* dqkv, bf16* dout, float* delta,
+                                       int B, int S, int H, int kv_len,
+                                       int lanes, float scale,
+                                       cudaStream_t stream) {
+  if (!block_bwd_on_wgmma(1, HD, kv_len)) return cudaErrorInvalidValue;
+  const long long hd = static_cast<long long>(H) * HD, rs = 3 * hd;
+  const long long ss = S * rs;  // a sequence's elements in qkv, dqkv
+  const bf16 *q = qkv, *k = qkv + hd, *v = qkv + 2 * hd;
+
+  // 1. the recompute: K and V boxes of the score row's width
+  const int n = one_shot_width(HD, kv_len);
+  BlockPre p{datt, res, att, dout, delta, H, S, kv_len, lanes, scale};
+  CUtensorMap m3[3];
+  DEVT_TRY(head_map(&m3[0], q, HD, S, H, B, rs, HD, ss, 64));
+  DEVT_TRY(head_map(&m3[1], k, HD, S, H, B, rs, HD, ss, n));
+  DEVT_TRY(head_map(&m3[2], v, HD, S, H, B, rs, HD, ss, n));
+  switch (n) {
+    case 64: DEVT_TRY((launch_block_pre_n<HD, 64>(m3, p, B * H, stream)));
+             break;
+    case 128: DEVT_TRY((launch_block_pre_n<HD, 128>(m3, p, B * H, stream)));
+              break;
+    case 208: DEVT_TRY((launch_block_pre_n<HD, 208>(m3, p, B * H, stream)));
+              break;
+    case 256: DEVT_TRY((launch_block_pre_n<HD, 256>(m3, p, B * H, stream)));
+              break;
+    default:
+      if constexpr (HD == 64) {
+        DEVT_TRY((launch_block_pre_n<64, 160>(m3, p, B * H, stream)));
+        break;
+      }
+      return cudaErrorInvalidValue;
+  }
+
+  // 2. and 3. the bodies, q, k, v by strides, do (B, H, S, HD)
+  BlockBwd a{};
+  a.dout = dout;
+  a.lse = res;
+  a.delta = delta;
+  a.dq = dqkv;
+  a.dk = dqkv + hd;
+  a.dv = dqkv + 2 * hd;
+  a.H = H;
+  a.Sq = a.Skv = S;
+  a.kv_len = kv_len;
+  a.scale = scale;
+  const long long ls[3] = {static_cast<long long>(S) * lanes, 1, lanes};
+  const long long gs[3] = {ss, HD, rs};
+  for (int i = 0; i < 3; ++i) a.ls[i] = ls[i], a.gs[i] = gs[i];
+  const long long hs = static_cast<long long>(S) * HD;
+  for (int part = 1; part <= 2; ++part) {
+    const int qbox = part == 1 ? 64 : kBwdDkvQueries;
+    const int kbox = part == 1 ? kBwdDqKeys : 64;
+    CUtensorMap m[4];
+    DEVT_TRY(head_map(&m[0], q, HD, S, H, B, rs, HD, ss, qbox));
+    DEVT_TRY(head_map(&m[1], k, HD, S, H, B, rs, HD, ss, kbox));
+    DEVT_TRY(head_map(&m[2], v, HD, S, H, B, rs, HD, ss, kbox));
+    DEVT_TRY(head_map(&m[3], dout, HD, S, H, B, HD, hs, H * hs, qbox));
+    if (part == 1) {
+      constexpr size_t bytes = bwd_smem(HD, kBwdDqStages, kBwdDqKeys);
+      DEVT_TRY(set_smem(block_bwd_dq_sm90<HD>, bytes));
+      block_bwd_dq_sm90<HD><<<B * H * ((S + 63) / 64), kBwdThreads, bytes,
+                              stream>>>(m[0], m[1], m[2], m[3], a);
+    } else {
+      constexpr size_t bytes = bwd_smem(HD, kBwdDkvStages, kBwdDkvQueries);
+      DEVT_TRY(set_smem(block_bwd_dkv_sm90<HD>, bytes));
+      block_bwd_dkv_sm90<HD><<<B * H * ((S + 63) / 64), kBwdThreads, bytes,
+                               stream>>>(m[0], m[1], m[2], m[3], a);
+    }
+    DEVT_TRY(cudaGetLastError());
+  }
+  return cudaSuccess;
 }
 
 }  // namespace

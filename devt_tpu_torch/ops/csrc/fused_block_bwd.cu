@@ -37,21 +37,28 @@
 //   * one last kernel sums the partials of each gradient in index order
 //     and casts.  No atomics: two runs give the same bits.
 //
-// The bfloat16 route is seven launches, the products on wgmma with TMA
-// weight rings (block_sm90.cuh), the attention backward on mma.sync:
+// The bfloat16 route is ten launches, the products on wgmma with TMA
+// weight rings (block_sm90.cuh), the attention backward on wgmma too:
 //   1. ln_qkv_sm90<D, true>   a, qkv                         per 128 rows
 //   2. ffn_dual_sm90          b, h, dz1 (z1 and dh of one hidden slice
 //                             stay in registers), dbb1, dbb2  per 128 rows
 //   3. row_nk_sm90<kLn2>      db = dz1 @ W1^T, LN2 backward, du, doproj,
 //                             dg2, db2, dbo                   per 128 rows
 //   4. row_nk_sm90<kPlain>    datt = doproj @ Wo^T (f32)      per 128 rows
-//   5. attention_bwd_bf16     (block_bwd_parts.cuh) per (head, sequence),
-//                             q, k, v, datt in shared memory.  Each warp
-//                             first owns 16 queries (o, delta, att, then
-//                             dq), then 16 keys (dk, dv from the transposed
-//                             scores), so no sum crosses warps.  Keys past
-//                             kv_len have p = 0 exactly: their blocks are
-//                             skipped and their dk, dv written as 0.
+//   5. the attention backward (block_bwd_parts.cuh:
+//                             block_attention_bwd_bf16), where
+//                             block_bwd_on_wgmma says (every main-path
+//                             shape) three launches: block_bwd_pre_sm90
+//                             recomputes p from the stored lse on the
+//                             one-shot wgmma body and writes att, do =
+//                             round(datt) and delta from the f32 datt and
+//                             o; block_bwd_dq_sm90 and block_bwd_dkv_sm90,
+//                             kernels 12's and 13's wgmma bodies, read that
+//                             delta and store dq, dk, dv into dqkv by
+//                             strides.  Elsewhere attention_bwd_bf16 per
+//                             (head, sequence) on mma.sync.  Keys past
+//                             kv_len have p = 0 exactly: their dk, dv are
+//                             written as 0.
 //   6. row_nk_sm90<kLn1>      da = dqkv @ Wqkv^T, LN1 backward, dx, dg1,
 //                             db1                             per 128 rows
 //   7. wgrad_sm90             the four split-K weight gradients
@@ -129,6 +136,7 @@ struct Plan {
   // in x's type: (rows, D) but qkv, dqkv (rows, 3D) and h, dz1 (rows, F)
   size_t a, qkv, b, h, dz1, dz2, doproj, att, dqkv;
   size_t du, datt;                                    // f32 (rows, D)
+  size_t dout, delta;  // the attention's do (rows, D) bf16, delta (rows, H)
   size_t p_g1, p_b1, p_bo, p_g2, p_b2, p_bb1, p_bb2;  // f32 [tiles][n]
   size_t w_qkv, w_o, w_1, w_2;                        // f32 [splits][M*N]
   size_t xhat1, xhat2, tmp, z1, s, dp;                // float route only
@@ -170,6 +178,10 @@ Plan make_plan(int dtype, int B, int S, int D, int H, int F) {
   p.dqkv = take(rows * 3 * D * esz);
   p.du = take(rows * D * 4);
   p.datt = take(rows * D * 4);
+  if (dtype == 1) {
+    p.dout = take(rows * D * 2);
+    p.delta = take(rows * H * 4);
+  }
   const size_t t = p.tiles, sp = p.splits;
   p.p_g1 = take(t * D * 4);
   p.p_b1 = take(t * D * 4);
@@ -259,13 +271,9 @@ cudaError_t launch_bf16_shape(const Args& a, const Plan& p) {
   DEVT_TRY((launch_row_nk<D, kPlain>(sb(p.doproj), D, h(a.wo), plain, rows,
                                      a.stream)));
 
-  const size_t s5 = attn_bwd_smem(a.S, HD);
-  const int warps = min(a.S / 16, kAttnMaxWarps);
-  DEVT_TRY(set_smem(attention_bwd_bf16<HD>, s5));
-  attention_bwd_bf16<HD><<<dim3(a.H, a.B), 32 * warps, s5, a.stream>>>(
-      sb(p.qkv), sf(p.datt), res, sb(p.att), sb(p.dqkv), a.S, a.H, a.kv_len,
-      a.lanes, a.scale);
-  DEVT_TRY(cudaGetLastError());
+  DEVT_TRY(block_attention_bwd_bf16<HD>(
+      sb(p.qkv), sf(p.datt), res, sb(p.att), sb(p.dqkv), sb(p.dout),
+      sf(p.delta), a.B, a.S, a.H, a.kv_len, a.lanes, a.scale, a.stream));
 
   RowEpi ln1{};
   ln1.out_bf16 = static_cast<bf16*>(a.dx);
@@ -435,6 +443,13 @@ extern "C" int devt_fused_block_bwd(
   const Plan p = make_plan(dtype, B, S, D, H, F);
   if (p.bytes == 0) return cudaErrorInvalidValue;
   return dtype == 0 ? launch_f32(a, p) : launch_bf16(a, p);
+}
+
+// 1 when kernel 2's attention backward in this dtype (0 float32, 1
+// bfloat16), head dim and kv_len takes the wgmma route of
+// block_attention_bwd_bf16 (block_bwd_on_wgmma)
+extern "C" int devt_fused_block_bwd_route(int dtype, int d, int kv_len) {
+  return block_bwd_on_wgmma(dtype, d, kv_len) ? 1 : 0;
 }
 
 extern "C" const char* devt_cuda_error_string(int code) {

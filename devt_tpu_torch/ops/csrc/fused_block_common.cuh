@@ -372,9 +372,6 @@ __device__ __forceinline__ void acc_ay(float (&o)[NC / 8][4],
   }
 }
 
-// the LN1 + qkv tiling of kernel 5's ln_qkv_q8 (quant_block_fwd.cu)
-constexpr int kQkvRows = 128, kQkvCols = 64, kQkvThreads = 256;
-
 // ===========================================================================
 // float route: exact f32 FMA products on 32-row tiles
 // ===========================================================================

@@ -59,9 +59,8 @@
 // so the card is compute-bound (about 0.11 ms at 989 TFLOP/s bf16).  The
 // times are in PERF.md.
 
-#include "attention_fwd.cuh"
+#include "block_attention.cuh"
 #include "block_sm90.cuh"
-#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -182,22 +181,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-// 2. the attention of every (sequence, head) from the qkv scratch into att
-// and the lse lanes of res: the one-shot wgmma body where
-// one_shot_on_wgmma says (kv_len live keys), else attention_fwd.cuh's
-template <int HD>
-cudaError_t block_attention_bf16(const Args& a) {
-  const bf16* qkv = static_cast<const bf16*>(a.qkv);
-  if (!one_shot_on_wgmma(1, HD, a.kv_len))
-    return launch_attention_bf16<HD, false>(
-        qkv, static_cast<bf16*>(a.att), static_cast<float*>(a.res), a.B,
-        a.S, a.H, a.kv_len, a.lanes, a.scale, a.stream);
-  return launch_one_shot<false, true>(
-      packed_qkv_heads(qkv, a.att, static_cast<float*>(a.res), a.S, a.H, HD,
-                       a.kv_len, a.lanes, a.scale),
-      a.B, HD, a.stream);
-}
-
 template <int D, int HD>
 cudaError_t launch_bf16_shape(const Args& a) {
   const int rows = a.B * a.S;
@@ -206,7 +189,11 @@ cudaError_t launch_bf16_shape(const Args& a) {
   DEVT_TRY((launch_ln_qkv<D, false>(
       h(a.x), f(a.g1), f(a.b1), h(a.wqkv), static_cast<bf16*>(a.qkv),
       static_cast<float*>(a.res), nullptr, rows, a.H, a.lanes, a.stream)));
-  DEVT_TRY(block_attention_bf16<HD>(a));
+  // the attention into att and the lse lanes of res
+  DEVT_TRY(block_attention_bf16<HD>(
+      static_cast<const bf16*>(a.qkv), static_cast<bf16*>(a.att),
+      static_cast<float*>(a.res), a.B, a.S, a.H, a.kv_len, a.lanes, a.scale,
+      a.stream));
   return launch_out_ffn<D>(
       h(a.x), h(a.att), h(a.wo), f(a.bo), f(a.g2), f(a.b2), h(a.w1),
       f(a.bb1), h(a.w2), f(a.bb2), static_cast<bf16*>(a.y),

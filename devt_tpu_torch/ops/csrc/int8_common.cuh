@@ -18,8 +18,11 @@
 //     consecutive output columns per row, one 16-byte store in bf16;
 //   * a row kernel (optional LayerNorm, then quantize) and a tiled int8
 //     product with the dequantizing epilogue acc * row scale * column
-//     scale, which int8_matmul.cu launches as its two stages and the float
-//     route of quant_block_fwd.cu reuses.
+//     scale, which int8_matmul.cu launches as its two stages (the product
+//     for row-major weight codes; K-major ones take gemm_s8_sm90.cuh).
+//     The float route of quant_block_fwd.cu reuses the row kernel; its
+//     bf16 route takes the quantizer's formula (quant_inv, quant_code,
+//     ln_value) into its own LayerNorm epilogues.
 //
 // The int32 sums are exact, so given the same int8 codes a product here
 // and its plain PyTorch version agree bit for bit.

@@ -1,4 +1,5 @@
-// Int8 fused pre-norm ViT block forward for Hopper (sm_90a), eval only.
+// Int8 fused pre-norm ViT block forward for Hopper (sm_90a), eval only:
+// kernel 5 of the port.
 //
 // Computes what devt_tpu/ops/quant.py:_quant_fwd_kernel computes, for
 // x (B, S, D) in bfloat16 or float: the fused block of fused_block_fwd.cu
@@ -15,27 +16,57 @@
 //   z1       = (b_q @ W1_q -> s32) * b_s * w1_s + bb1
 //   y        = u + gelu_tanh(z1) @ W2 + bb2      (W2 in x's type)
 //
-// Returns y alone (no residual lanes: there is no backward).
+// Returns y alone (no residual lanes: there is no backward).  The weight
+// codes Wqkv_q and W1_q are K-major: (N, K) storage, k contiguous, as the
+// site registry of ops/quant.py stores them (its callers see the (K, N)
+// view with strides (1, K)), because the 8-bit wgmma reads B only K-major.
 //
-// Design.  Three launches, as the bf16 block: the middle one is the same
-// attention launch (attention_fwd.cuh); the outer two are the bf16
-// block's row-tile kernels with the LayerNorm output quantized where it
-// is produced.  LN1 runs a warp per row with the row's values in
-// registers, so the row's amax is one more warp reduction and the codes
-// go straight to shared memory as the A tile of the int8 product.  In
-// the second kernel u sits in the accumulator registers of the
-// out-projection, spread over 4 warps per row; LN2's output overwrites
-// it there, the amax joins the mean and the variance in the cross-warp
-// reduction through shared memory, and the per-row scales of the 128-row
-// tile stay in shared memory for the epilogue of the W1 product.  The
-// int8 products are mma.sync m16n8k32 (K = D in steps of 32) with the
-// fragment loads of int8_common.cuh; the dequantized z1 goes through
-// GELU into the bf16 hidden slice, and the W2 product is the bf16 one.
+// Design.  Three launches, as the bf16 block (kernel 1), on the same
+// parts: two row-tile kernels on block_sm90.cuh's CTA shape (two consumer
+// warpgroups of 64 rows and a producer warpgroup whose one lane keeps TMA
+// loads in flight through a ring of weight stages on full and empty
+// mbarriers; setmaxnreg hands the producer's registers to the consumers),
+// and between them the attention launch of kernels 1 and 7
+// (block_attention.cuh: the one-shot wgmma body, normalising after P V,
+// where one_shot_on_wgmma says, which is every main-path shape).
 //
-// The float route is seven plain launches (LN+quantize rows, the tiled
-// int8 product, attention, an FMA product for Wo and W2) with every
-// intermediate in global memory; it exists to hold the arithmetic against
-// the plain version in f32 and is on no serving path.
+//   1. ln_qkv_q8_sm90<D>: TMA brings the tile's x (bf16, 128-byte swizzle).
+//      A warp per row normalises its row in registers, takes the row's
+//      amax, and writes the int8 codes in place of the row, in the
+//      K-major 128-byte swizzle of 128-byte k blocks that the int8 wgmma
+//      reads, and the row scale amax * (1/127) to shared memory.  The
+//      qkv columns go in passes of kQkvBN = 192: the producer streams the
+//      pass's weight codes as (128 k bytes, 192 rows) boxes, one k block a
+//      stage; each warpgroup issues wgmma m64n192k32 .s32.s8.s8 over its
+//      64 rows.  The epilogue takes f32(acc) * a_s, then * w_s, with no
+//      fused multiply-add (the plain version's order, so the exact s32
+//      sums dequantize to the same f32), rounds to bf16, and stores
+//      through staged boxes by TMA.
+//   2. the attention (block_attention.cuh).
+//   3. out_ffn_q8_sm90<D>: u = x + (att @ Wo + bo) on bf16 wgmma m64nDk16
+//      (Wo's boxes MN-major), as out_ffn_sm90; each thread keeps its u in
+//      f32 in its own slots of shared memory (no f32 u scratch in device
+//      memory), LN2 runs on the accumulators (a row is one quad's), its
+//      codes go to the warpgroup's own rows of the att tile, K-major, and
+//      the row scales to shared memory.  Then per kHidden = 64 hidden
+//      columns one ring stage brings W1's code slice (K-major, one box a
+//      k block) and W2's slice (MN-major boxes): z = codes @ W1_q on wgmma
+//      m64n64k32 .s32.s8.s8, the dequantizing epilogue plus bb1 and
+//      gelu_tanh rounded to bf16 A fragments in registers, and y += h @
+//      W2 on bf16 wgmma m64nDk16 with A from registers.  At the end
+//      y = u + (y + bb2), staged in the warpgroup's u slots and stored by
+//      TMA.
+//
+// K = D int8 bytes is one and a half 128-byte k blocks at D = 192 and half
+// of one at D = 64: only the k32 steps that hold codes are issued
+// (q8_steps), so the bytes past D in a k block (TMA's zeros for the
+// weights, stale x values for the codes) are never read.
+//
+// The float route (seven plain launches: LN and row codes, the int8
+// product on gemm_s8_sm90.cuh's wgmma body with f32 output, the float
+// attention, FMA products for Wo and W2, every intermediate in global
+// memory) exists to hold the arithmetic against the plain version in f32
+// and is on no serving path.
 //
 // Bound at the main-path shape (512, 208, 192, 3 heads, MLP 768,
 // kv_len 197): 110.3 GOP per call, of which the qkv and W1 products
@@ -43,350 +74,600 @@
 // about 82 MB moved: operations bind it (0.084 ms on an H100 SXM).  The
 // times are in PERF.md.
 
-#include "attention_fwd.cuh"
-#include "int8_common.cuh"
+#include "block_attention.cuh"
+#include "block_sm90.cuh"
+#include "gemm_s8_sm90.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// 1. LN1, row quantize, int8 qkv product
+// int8 wgmma m64nNk32 with s32 accumulators, K-major int8 tiles
 // ---------------------------------------------------------------------------
 
-template <int D>
-__host__ __device__ constexpr size_t qkv_q8_stage() {
-  return align128(D * (kQkvCols + 16));
+// bytes of a K-major int8 k block of kBlkRows rows: 128-byte rows
+constexpr uint32_t kQ8Box = kBlkRows * 128;
+
+// byte offset of code (r, k) of a K-major int8 tile of kBlkRows rows in the
+// 128-byte swizzle (what TMA writes and s8_desc reads): k blocks of
+// kBlkRows x 128 bytes, the 16-byte chunks of row r XORed with r % 8
+__device__ __forceinline__ uint32_t q8_off(int r, int k) {
+  return static_cast<uint32_t>((k >> 7) * kQ8Box + r * 128 +
+                               ((((k & 127) >> 4) ^ (r & 7)) << 4) +
+                               (k & 15));
 }
 
-template <int D>
-__host__ __device__ constexpr size_t qkv_q8_smem() {
-  return align128(kQkvRows * (D + 16)) + align128(sizeof(float) * kQkvRows) +
-         2 * qkv_q8_stage<D>();
+// the k32 steps of k block kq of a K-deep product: 4, but in a last,
+// partial block only those that hold codes (K = 192: 4 then 2; K = 64: 2)
+__host__ __device__ constexpr int q8_steps(int K, int kq) {
+  return K - 128 * kq >= 128 ? 4 : (K - 128 * kq) / 32;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kQkvThreads)
-    ln_qkv_q8(const bf16* __restrict__ x, const float* __restrict__ g1,
-              const float* __restrict__ b1, const int8_t* __restrict__ wq,
-              const float* __restrict__ ws, bf16* __restrict__ qkv, int rows,
-              int N) {
-  static_assert(D % 32 == 0, "k steps of 32 and a lane per 32 columns");
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int lda = D + 16, ldw = kQkvCols + 16, PER = D / 32;
-  constexpr size_t stage = qkv_q8_stage<D>();
-  int8_t* Aq = reinterpret_cast<int8_t*>(smem);
-  float* rs = reinterpret_cast<float*>(smem + align128(kQkvRows * lda));
-  int8_t* ring = reinterpret_cast<int8_t*>(rs) +
-                 align128(sizeof(float) * kQkvRows);
-  const int row0 = blockIdx.x * kQkvRows;
-  const int valid = min(kQkvRows, rows - row0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunks = N / kQkvCols;
+// d[0, 32) = (acc ? d : 0) + A (64 x 32 s8, shared, K-major) B (32 x 64
+// s8, shared, K-major), exact s32
+__device__ __forceinline__ void q8_mma_n64(int* d, uint64_t a, uint64_t b,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
 
-  cp_tile_bytes(ring, ldw, wq, N, D, kQkvCols, D);
-  cp_async_commit();
+// d[0, 96) = (acc ? d : 0) + A (64 x 32 s8, shared, K-major) B (32 x 192
+// s8, shared, K-major), exact s32
+__device__ __forceinline__ void q8_mma_n192(int* d, uint64_t a, uint64_t b,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95])
+      : "l"(a), "l"(b), "r"(acc));
+}
 
-  // LN1 and the row's int8 codes, a warp per row, the row in registers
-  for (int r = warp; r < kQkvRows; r += kQkvThreads / 32) {
-    int8_t* ar = Aq + r * lda;
-    if (r >= valid) {
-#pragma unroll
-      for (int i = 0; i < PER; ++i) ar[lane + 32 * i] = 0;
-      if (lane == 0) rs[r] = 0.f;
-      continue;
-    }
-    const bf16* xr = x + static_cast<size_t>(row0 + r) * D;
-    float v[PER];
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      v[i] = to_f32(xr[lane + 32 * i]);
-      s += v[i];
-    }
-    const float mu = warp_sum(s) / D;
-    float var = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) var += (v[i] - mu) * (v[i] - mu);
-    const float rstd = rsqrtf(warp_sum(var) / D + kLnEps);
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = ln_value(v[i], mu, rstd, g1[c], b1[c]);
-      amax = fmaxf(amax, fabsf(v[i]));
-    }
-    amax = warp_max(amax);
-    const float inv = quant_inv(amax);
-#pragma unroll
-    for (int i = 0; i < PER; ++i)
-      ar[lane + 32 * i] = static_cast<int8_t>(quant_code(v[i], inv));
-    if (lane == 0) rs[r] = __fmul_rn(amax, kInv127);
+// one width per instance: a runtime test between wgmmas makes ptxas
+// serialise them (PERF.md, C7511)
+template <int N>
+__device__ __forceinline__ void q8_mma(int* d, uint64_t a, uint64_t b,
+                                       int acc) {
+  if constexpr (N == 64) {
+    q8_mma_n64(d, a, b, acc);
+  } else {
+    static_assert(N == 192, "int8 wgmma widths of the block: 64, 192");
+    q8_mma_n192(d, a, b, acc);
   }
+}
 
-  // 64 qkv columns at a time, the next weight slice loading meanwhile;
-  // 8 warps as 4 x 2, each a 32 x 32 tile
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int gq = lane >> 2, tq = lane & 3;
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      cp_tile_bytes(ring + ((c + 1) & 1) * stage, ldw,
-                    wq + (c + 1) * kQkvCols, N, D, kQkvCols, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // slice c (and, at c = 0, the codes) visible
-    int acc[2][4][4] = {};
-    warp_mma_s8<2>(acc, Aq, lda, wm, ring + (c & 1) * stage, ldw, wn, D);
+template <int N>
+__device__ __forceinline__ void q8_fence(int* d) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < N; ++i) reg_fence(d[i]);
+}
+
+// the STEPS k32 steps of one k block, one warpgroup: acc (= if kFirst,
+// else +=) A (64 rows of codes at a, K-major, rows 128 bytes apart) B (N
+// rows of weight codes at b, K-major); a k32 step is 32 bytes along the
+// swizzled row (+2 in the descriptors' address field)
+template <int N, int STEPS, bool kFirst>
+__device__ __forceinline__ void q8_kblock(int* acc, const void* a,
+                                          const void* b) {
+  const uint64_t ad = s8_desc(a), bd = s8_desc(b);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm + 16 * i + gq + 8 * half;
-        if (row0 + r >= rows) continue;
-        float v[8];
-        dequant8(v, acc[i], half, rs[r], ws + c * kQkvCols + wn);
-        store8(qkv + static_cast<size_t>(row0 + r) * N + c * kQkvCols + wn +
-                   8 * tq,
-               v);
+  for (int kk = 0; kk < STEPS; ++kk)
+    q8_mma<N>(acc, ad + 2 * kk, bd + 2 * kk, !kFirst || kk > 0);
+}
+
+// ===========================================================================
+// 1. LN1, row codes, qkv on int8 wgmma
+// ===========================================================================
+
+template <int D>
+__host__ __device__ constexpr size_t ln_qkv_q8_smem() {
+  // x (its codes later in its place), the ring of weight-code k blocks,
+  // a 64 x kQkvBN bf16 staging area a warpgroup
+  return 1024 + static_cast<size_t>(D) * kBlkRows * 2 +
+         kBlkStages * static_cast<size_t>(kQkvBN) * 128 +
+         2 * static_cast<size_t>(64) * kQkvBN * 2;
+}
+
+// LN1 of row r of the x tile A (bf16, 128-byte swizzle) by one warp (lane
+// l holds the column pairs 64 t + 2 l), in f32 with the plain version's
+// roundings; the row's int8 codes in place of the row (K-major, q8_off)
+// and its scale amax * (1/127) to rsc[r]
+template <int D>
+__device__ __forceinline__ void q8_ln_row(unsigned char* A, int r,
+                                          const float* __restrict__ g,
+                                          const float* __restrict__ b,
+                                          float* rsc) {
+  constexpr int KB = D / 64;
+  const int lane = threadIdx.x & 31;
+  float v[2 * KB];
+#pragma unroll
+  for (int t = 0; t < KB; ++t) {
+    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(
+        A + blk_off(r, 64 * t + 2 * lane));
+    v[2 * t] = __low2float(p);
+    v[2 * t + 1] = __high2float(p);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int t = 0; t < 2 * KB; ++t) s += v[t];
+  const float mu = warp_sum(s) / D;
+  float q = 0.f;
+#pragma unroll
+  for (int t = 0; t < 2 * KB; ++t) q += (v[t] - mu) * (v[t] - mu);
+  const float rstd = rsqrtf(warp_sum(q) / D + kLnEps);
+  float amax = 0.f;
+#pragma unroll
+  for (int t = 0; t < KB; ++t) {
+    const int c = 64 * t + 2 * lane;
+    v[2 * t] = ln_value(v[2 * t], mu, rstd, g[c], b[c]);
+    v[2 * t + 1] = ln_value(v[2 * t + 1], mu, rstd, g[c + 1], b[c + 1]);
+    amax = fmaxf(amax, fmaxf(fabsf(v[2 * t]), fabsf(v[2 * t + 1])));
+  }
+  amax = warp_max(amax);
+  const float inv = quant_inv(amax);
+  // every code depends on the whole row (mu, rstd, amax): the row's x has
+  // been read before any code overwrites it
+#pragma unroll
+  for (int t = 0; t < KB; ++t) {
+    const int c = 64 * t + 2 * lane;
+    const uint32_t q0 = quant_code(v[2 * t], inv) & 0xff;
+    const uint32_t q1 = quant_code(v[2 * t + 1], inv) & 0xff;
+    *reinterpret_cast<uint16_t*>(A + q8_off(r, c)) =
+        static_cast<uint16_t>(q0 | (q1 << 8));
+  }
+  if (lane == 0) rsc[r] = __fmul_rn(amax, kInv127);
+}
+
+// The producer loads the tile's x by TMA and streams the Wqkv codes ((N,
+// K) storage: boxes of 128 k bytes by kQkvBN rows), one k block a ring
+// stage; the consumers quantize their rows in place and take qkv in
+// passes of kQkvBN columns, staged and stored by TMA.
+template <int D>
+__global__ void __launch_bounds__(kBlkThreads, 1)
+    ln_qkv_q8_sm90(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap tqkv,
+                   const float* __restrict__ g1, const float* __restrict__ b1,
+                   const float* __restrict__ ws) {
+  constexpr int KB = D / 64, KQ = (D + 127) / 128, NC = 3 * D / kQkvBN;
+  constexpr int S = kBlkStages;
+  static_assert(D % 64 == 0 && (3 * D) % kQkvBN == 0 && KQ <= 2,
+                "widths: D a multiple of 64, at most 256");
+  constexpr uint32_t kStage = kQkvBN * 128, kXBytes = D * kBlkRows * 2;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S], empty[S], abar;
+  __shared__ float rsc[kBlkRows];  // the rows' scales
+  unsigned char* As = blk_base(smem_raw);  // x, then its codes in place
+  unsigned char* ring = As + kXBytes;
+  unsigned char* out = ring + S * kStage;  // a kStage staging area a wg
+  const int row0 = blockIdx.x * kBlkRows;
+  if (threadIdx.x == 0) {
+    ring_init<S>(full, empty);
+    mbar_init(&abar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kBlkConsumers) {
+    blk_producer_regs();
+    if (threadIdx.x != kBlkConsumers) return;
+    mbar_expect_tx(&abar, kXBytes);
+    for (int kb = 0; kb < KB; ++kb)
+      tma_load_2d(As + kb * kBlkRows * 128, &tx, &abar, 64 * kb, row0);
+    int g = 0;
+    for (int nc = 0; nc < NC; ++nc)
+      for (int kq = 0; kq < KQ; ++kq, ++g) {
+        const int st = ring_put<S>(full, empty, g, kStage);
+        tma_load_2d(ring + st * kStage, &tw, &full[st], 128 * kq,
+                    nc * kQkvBN);
       }
-    __syncthreads();  // slice c free for the load two steps on
+    return;
   }
+  blk_consumer_regs();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq4 = lane & 3;
+  unsigned char* stage = out + wg * kStage;
+  // LN1 and codes of the warpgroup's rows, a warp per row, four rows at a
+  // time so that their reductions' shuffle chains overlap; rows past the
+  // end are TMA's zeros, normalised too (finite codes and scales, their
+  // products not stored)
+  mbar_wait(&abar, 0);
+#pragma unroll 4
+  for (int i = warp; i < 64; i += 4)
+    q8_ln_row<D>(As, 64 * wg + i, g1, b1, rsc);
+  blk_fence_smem();
+  blk_bar(2 + wg, 128);  // the warpgroup's codes and scales written
+
+  const unsigned char* a_codes = As + wg * 64 * 128;
+  const int rt = 16 * warp + gq;  // the thread's first row of its 64
+  const float rs[2] = {rsc[64 * wg + rt], rsc[64 * wg + rt + 8]};
+  int g = 0;
+#pragma unroll 1
+  for (int nc = 0; nc < NC; ++nc) {
+    int acc[kQkvBN / 2];
+    int st = ring_get<S>(full, g);
+    q8_fence<kQkvBN / 2>(acc);
+    wgmma_fence();
+    q8_kblock<kQkvBN, q8_steps(D, 0), true>(acc, a_codes,
+                                            ring + st * kStage);
+    wgmma_commit();
+    ++g;
+    if constexpr (KQ == 2) {
+      st = ring_get<S>(full, g);
+      q8_fence<kQkvBN / 2>(acc);
+      wgmma_fence();
+      q8_kblock<kQkvBN, q8_steps(D, 1), false>(acc, a_codes + kQ8Box,
+                                               ring + st * kStage);
+      wgmma_commit();
+      wgmma_wait<1>();  // the first k block's group has completed
+      q8_fence<kQkvBN / 2>(acc);
+      ring_free<S>(empty, g - 1);
+      ++g;
+    }
+    wgmma_wait<0>();
+    q8_fence<kQkvBN / 2>(acc);
+    ring_free<S>(empty, g - 1);
+
+    // (f32(acc) * a_s) * w_s, rounded to bf16, staged and stored
+    if (nc > 0) blk_stage_free();
+#pragma unroll
+    for (int j = 0; j < kQkvBN / 8; ++j) {
+      const int c = 8 * j + 2 * tq4;
+      const float2 w = *reinterpret_cast<const float2*>(ws + nc * kQkvBN + c);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        blk_stage_pair(
+            stage, rt + 8 * hh, c,
+            __fmul_rn(__fmul_rn(static_cast<float>(acc[4 * j + 2 * hh]),
+                                rs[hh]),
+                      w.x),
+            __fmul_rn(__fmul_rn(static_cast<float>(acc[4 * j + 2 * hh + 1]),
+                                rs[hh]),
+                      w.y));
+    }
+    blk_store(&tqkv, stage, kQkvBN / 64, nc * kQkvBN, row0 + 64 * wg);
+  }
+  blk_store_drain();
 }
 
-// ---------------------------------------------------------------------------
-// 3. out-projection, residual, LN2, row quantize, int8 W1, GELU, W2, residual
-// ---------------------------------------------------------------------------
+// ===========================================================================
+// 3. out-projection, residual, LN2, row codes, int8 W1, GELU, W2, residual
+// ===========================================================================
 
-constexpr int kFfnRows = 128, kFfnHidden = 64, kFfnSlice = 64;
-constexpr int kFfnThreads = 512;
-
-struct FfnQ8Smem {
-  size_t off_h, off_red, off_ring, off_w2, stage, bytes;
-};
-
+// a ring stage: W1's code slice (kHidden rows, a box a 128-byte k block)
+// and W2's slice (D / 64 boxes of kHidden rows); a Wo k block (D / 64
+// boxes of 64 rows) fits in it as well
 template <int D>
-__host__ __device__ constexpr FfnQ8Smem ffn_q8_smem() {
-  FfnQ8Smem s{};
-  // the att tile (bf16), later the int8 codes of LN2(u) in the same place
-  s.off_h = align128(sizeof(bf16) * kFfnRows * (D + 8));
-  s.off_red = s.off_h + align128(sizeof(bf16) * kFfnRows * (kFfnHidden + 8));
-  // row partials of the sum, the variance and the amax, and the row scales
-  s.off_ring = s.off_red + align128(sizeof(float) * 4 * kFfnRows * 4);
-  // a stage holds W1_q[:, chunk] (D x 64 int8) then W2[chunk, :] (64 x D
-  // bf16); a slice of 64 Wo rows (64 x D bf16) fits in it as well
-  s.off_w2 = align128(D * (kFfnHidden + 16));
-  s.stage = s.off_w2 + align128(sizeof(bf16) * kFfnHidden * (D + 8));
-  s.bytes = s.off_ring + 2 * s.stage;
-  return s;
+__host__ __device__ constexpr uint32_t out_ffn_q8_stage() {
+  return ((D + 127) / 128) * kHidden * 128 + D * 128;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kFfnThreads, 1)
-    out_ffn_q8(const bf16* __restrict__ x, const bf16* __restrict__ att,
-               const bf16* __restrict__ wo, const float* __restrict__ bo,
-               const float* __restrict__ g2, const float* __restrict__ b2,
-               const int8_t* __restrict__ w1q, const float* __restrict__ w1s,
-               const float* __restrict__ bb1, const bf16* __restrict__ w2,
-               const float* __restrict__ bb2, bf16* __restrict__ y,
-               float* __restrict__ u32, int rows, int F) {
-  static_assert(D % 64 == 0, "Wo slices of 64 rows");
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr FfnQ8Smem L = ffn_q8_smem<D>();
-  constexpr int lda = D + 8, ldq = D + 16, ldh = kFfnHidden + 8;
-  constexpr int ldw1 = kFfnHidden + 16, ldw2 = D + 8;
-  constexpr int NI = D / 32;  // warp tile 32 x D/4 → NI n8 blocks
-  constexpr int slices = D / kFfnSlice;
-  bf16* As = reinterpret_cast<bf16*>(smem);      // att tile
-  int8_t* Bq = reinterpret_cast<int8_t*>(smem);  // then the codes of LN2(u)
-  bf16* Hs = reinterpret_cast<bf16*>(smem + L.off_h);       // GELU slice
-  float* red = reinterpret_cast<float*>(smem + L.off_red);  // row partials
-  float* row_scale = red + 3 * kFfnRows * 4;
-  unsigned char* ring = smem + L.off_ring;                  // weight stages
-  const int row0 = blockIdx.x * kFfnRows;
-  const int valid = min(kFfnRows, rows - row0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3, wq = warp & 3;
-  const int wm = (warp >> 2) * 32;  // 16 warps as 4 x 4 (bf16 products)
-  const int wn = wq * (D / 4);
-  const int zm = (warp >> 1) * 16;  // and as 8 x 2 (the int8 product)
-  const int zn = (warp & 1) * 32;
-  const int chunks = F / kFfnHidden;
+__host__ __device__ constexpr size_t out_ffn_q8_smem() {
+  // att (LN2's codes later in its place), u in f32 (each thread's own
+  // slots; a warpgroup's y staged in its part at the end), the ring
+  return 1024 + static_cast<size_t>(D) * kBlkRows * 2 +
+         static_cast<size_t>(D) * kBlkRows * 4 +
+         kFfnStages * static_cast<size_t>(out_ffn_q8_stage<D>());
+}
 
-  auto stage_at = [&](int s) { return ring + (s & 1) * L.stage; };
-  auto load_wo = [&](int s) {  // Wo rows 64s..64s+63
-    cp_tile(reinterpret_cast<bf16*>(stage_at(s)), ldw2,
-            wo + static_cast<size_t>(s) * kFfnSlice * D, D, kFfnSlice, D,
-            kFfnSlice);
-  };
-  auto load_ffn = [&](int step, int c) {
-    cp_tile_bytes(reinterpret_cast<int8_t*>(stage_at(step)), ldw1,
-                  w1q + c * kFfnHidden, F, D, kFfnHidden, D);
-    cp_tile(reinterpret_cast<bf16*>(stage_at(step) + L.off_w2), ldw2,
-            w2 + static_cast<size_t>(c) * kFfnHidden * D, D, kFfnHidden, D,
-            kFfnHidden);
-  };
-
-  cp_tile(As, lda, att + static_cast<size_t>(row0) * D, D, kFfnRows, D,
-          valid);
-  load_wo(0);
-  cp_async_commit();
-
-  float acc[2][NI][4] = {};
-  for (int s = 0; s < slices; ++s) {
-    if (s + 1 < slices)
-      load_wo(s + 1);
-    else
-      load_ffn(s + 1, 0);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // slice s (and the att tile) visible
-    warp_mma_kn<2, NI>(acc, As + kFfnSlice * s, lda, wm,
-                       reinterpret_cast<bf16*>(stage_at(s)), ldw2, wn,
-                       kFfnSlice);
-    __syncthreads();  // slice s free; As no longer read
+// A = att (TMA), then the codes of LN2(u) in the warpgroup's own rows of
+// it; steps of the ring: D / 64 k blocks of Wo (MN-major boxes), then per
+// kHidden hidden columns W1_q's slice (K-major) and W2's (MN-major).
+template <int D>
+__global__ void __launch_bounds__(kBlkThreads, 1)
+    out_ffn_q8_sm90(const __grid_constant__ CUtensorMap tatt,
+                    const __grid_constant__ CUtensorMap two,
+                    const __grid_constant__ CUtensorMap tw1,
+                    const __grid_constant__ CUtensorMap tw2,
+                    const __grid_constant__ CUtensorMap ty,
+                    const bf16* __restrict__ x, const float* __restrict__ bo,
+                    const float* __restrict__ g2, const float* __restrict__ b2,
+                    const float* __restrict__ w1s,
+                    const float* __restrict__ bb1,
+                    const float* __restrict__ bb2, int rows, int F) {
+  constexpr int KB = D / 64, KQ = (D + 127) / 128, S = kFfnStages;
+  static_assert(D % 64 == 0 && KQ <= 2, "widths: D a multiple of 64, <= 256");
+  constexpr uint32_t kStage = out_ffn_q8_stage<D>();
+  constexpr uint32_t kW1 = KQ * kHidden * 128;  // bytes of W1's code slice
+  constexpr uint32_t kWo = D * 128;  // bytes of a Wo k block, of W2's slice
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S], empty[S], abar;
+  __shared__ float rsc[kBlkRows];  // the rows' scales of LN2's codes
+  unsigned char* As = blk_base(smem_raw);
+  float* Us = reinterpret_cast<float*>(As + D * kBlkRows * 2);
+  unsigned char* ring = As + D * kBlkRows * 6;
+  const int row0 = blockIdx.x * kBlkRows;
+  const int chunks = F / kHidden;
+  if (threadIdx.x == 0) {
+    ring_init<S>(full, empty);
+    mbar_init(&abar, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // u = x + (att @ Wo + bo) into acc and into u32 (f32, read back for y);
-  // LN2 statistics across the 4 warps sharing each row
-  float part[2][2] = {};
+  if (threadIdx.x >= kBlkConsumers) {
+    blk_producer_regs();
+    if (threadIdx.x != kBlkConsumers) return;
+    mbar_expect_tx(&abar, D * kBlkRows * 2);
+    for (int kb = 0; kb < KB; ++kb)
+      tma_load_2d(As + kb * kBlkRows * 128, &tatt, &abar, 64 * kb, row0);
+    int g = 0;
+    for (int kb = 0; kb < KB; ++kb, ++g) {
+      const int st = ring_put<S>(full, empty, g, kWo);
+      for (int j = 0; j < KB; ++j)
+        tma_load_2d(ring + st * kStage + j * kBlkBox, &two, &full[st], 64 * j,
+                    64 * kb);
+    }
+    for (int c = 0; c < chunks; ++c, ++g) {
+      const int st = ring_put<S>(full, empty, g, kStage);
+      unsigned char* dst = ring + st * kStage;
+      for (int kq = 0; kq < KQ; ++kq)
+        tma_load_2d(dst + kq * kHidden * 128, &tw1, &full[st], 128 * kq,
+                    kHidden * c);
+      for (int j = 0; j < KB; ++j)
+        tma_load_2d(dst + kW1 + j * kBlkBox, &tw2, &full[st], 64 * j,
+                    kHidden * c);
+    }
+    return;
+  }
+  blk_consumer_regs();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq4 = lane & 3;
+  const int rt = 64 * wg + 16 * warp + gq;  // the thread's first tile row
+  const uint32_t a_addr = smem_addr(As) + wg * 64 * 128;
+  // the thread's u: accumulator register i at ut[128 i]
+  float* ut = Us + wg * (D * 64) + (threadIdx.x & 127);
+  int g = 0;
+
+  // u = x + (att @ Wo + bo)
+  float acc[D / 2];
+  mbar_wait(&abar, 0);
+#pragma unroll 1
+  for (int kb = 0; kb < KB; ++kb, ++g) {
+    const int st = ring_get<S>(full, g);
+    blk_fence_regs<D / 2>(acc);
+    wgmma_fence();
+    blk_kblock<D, 1>(acc, a_addr + kb * kBlkRows * 128,
+                     smem_addr(ring + st * kStage), kBlkBox, kb == 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    blk_fence_regs<D / 2>(acc);
+    if (kb > 0) ring_free<S>(empty, g - 1);
+  }
+  wgmma_wait<0>();
+  blk_fence_regs<D / 2>(acc);
+  ring_free<S>(empty, g - 1);
+
+  // u into the thread's slots and acc; LN2 over acc (a row is one quad's),
+  // the row's amax, and its codes into the warpgroup's own rows of A (its
+  // Wo products have completed).  Each loop takes a column pair's
+  // parameters once for both of the thread's rows.
+  const int gr[2] = {row0 + rt, row0 + rt + 8};
+  float s[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * tq4;
+    const float2 bias = *reinterpret_cast<const float2*>(bo + c);
 #pragma unroll
-    for (int j = 0; j < NI; ++j)
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = 4 * j + 2 * hh;
+      float u0 = 0.f, u1 = 0.f;
+      if (gr[hh] < rows) {
+        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(
+            x + static_cast<size_t>(gr[hh]) * D + c);
+        u0 = __low2float(xv) + (acc[i] + bias.x);
+        u1 = __high2float(xv) + (acc[i + 1] + bias.y);
+      }
+      acc[i] = u0;
+      acc[i + 1] = u1;
+      ut[128 * i] = u0;
+      ut[128 * (i + 1)] = u1;
+      s[hh] += u0 + u1;
+    }
+  }
+  const float mu[2] = {quad_sum(s[0]) / D, quad_sum(s[1]) / D};
+  float q[2] = {0.f, 0.f};
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm + 16 * i + gq + 8 * h, c = wn + 8 * j + 2 * tq;
-        float u0 = 0.f, u1 = 0.f;
-        if (r < valid) {
-          const size_t g = static_cast<size_t>(row0 + r) * D + c;
-          const __nv_bfloat162 xv =
-              *reinterpret_cast<const __nv_bfloat162*>(x + g);
-          u0 = __low2float(xv) + (acc[i][j][2 * h] + bo[c]);
-          u1 = __high2float(xv) + (acc[i][j][2 * h + 1] + bo[c + 1]);
-          *reinterpret_cast<float2*>(u32 + g) = make_float2(u0, u1);
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float d0 = acc[4 * j + 2 * hh] - mu[hh];
+      const float d1 = acc[4 * j + 2 * hh + 1] - mu[hh];
+      q[hh] += d0 * d0 + d1 * d1;
+    }
+  const float rstd[2] = {rsqrtf(quad_sum(q[0]) / D + kLnEps),
+                         rsqrtf(quad_sum(q[1]) / D + kLnEps)};
+  float amax[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * tq4;
+    const float2 g = *reinterpret_cast<const float2*>(g2 + c);
+    const float2 b = *reinterpret_cast<const float2*>(b2 + c);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = 4 * j + 2 * hh;
+      acc[i] = ln_value(acc[i], mu[hh], rstd[hh], g.x, b.x);
+      acc[i + 1] = ln_value(acc[i + 1], mu[hh], rstd[hh], g.y, b.y);
+      amax[hh] = fmaxf(amax[hh], fmaxf(fabsf(acc[i]), fabsf(acc[i + 1])));
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    amax[hh] = quad_max(amax[hh]);
+    const float inv = quant_inv(amax[hh]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * tq4, i = 4 * j + 2 * hh;
+      const uint32_t q0 = quant_code(acc[i], inv) & 0xff;
+      const uint32_t q1 = quant_code(acc[i + 1], inv) & 0xff;
+      *reinterpret_cast<uint16_t*>(As + q8_off(rt + 8 * hh, c)) =
+          static_cast<uint16_t>(q0 | (q1 << 8));
+    }
+    if (tq4 == 0) rsc[rt + 8 * hh] = __fmul_rn(amax[hh], kInv127);
+  }
+  blk_fence_smem();
+  blk_bar(2 + wg, 128);  // the warpgroup's codes and scales written
+
+  // y = h @ W2, h = gelu((codes @ W1_q) * b_s * w1_s + bb1), kHidden
+  // columns at a time
+  const unsigned char* a_codes = As + wg * 64 * 128;
+  const float rs[2] = {rsc[rt], rsc[rt + 8]};
+  float yacc[D / 2];
+#pragma unroll 1
+  for (int c = 0; c < chunks; ++c, ++g) {
+    const int st = ring_get<S>(full, g);
+    const unsigned char* sp = ring + st * kStage;
+    int z[kHidden / 2];
+    q8_fence<kHidden / 2>(z);
+    wgmma_fence();
+    q8_kblock<kHidden, q8_steps(D, 0), true>(z, a_codes, sp);
+    if constexpr (KQ == 2)
+      q8_kblock<kHidden, q8_steps(D, 1), false>(z, a_codes + kQ8Box,
+                                                sp + kHidden * 128);
+    wgmma_commit();
+    wgmma_wait<0>();
+    q8_fence<kHidden / 2>(z);
+    // h in bf16 straight into the A fragments, a column pair's scales
+    // loaded once for both rows: fragment kk holds the accumulator blocks
+    // j = 2 kk, 2 kk + 1 (hidden columns 16 kk ..), rows gq, gq + 8 each
+    uint32_t hf[kHidden / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kHidden / 16; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj, hc = kHidden * c + 8 * j + 2 * tq4;
+        const float2 w = *reinterpret_cast<const float2*>(w1s + hc);
+        const float2 bias = *reinterpret_cast<const float2*>(bb1 + hc);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * j + 2 * hh;
+          hf[kk][2 * jj + hh] = pack_bf16(
+              gelu_tanh(__fmul_rn(__fmul_rn(static_cast<float>(z[i]),
+                                            rs[hh]),
+                                  w.x) +
+                        bias.x),
+              gelu_tanh(__fmul_rn(__fmul_rn(static_cast<float>(z[i + 1]),
+                                            rs[hh]),
+                                  w.y) +
+                        bias.y));
         }
-        acc[i][j][2 * h] = u0;
-        acc[i][j][2 * h + 1] = u1;
-        part[i][h] += u0 + u1;
       }
+    blk_fence_regs<D / 2>(yacc);
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float p = quad_sum(part[i][h]);
-      if (tq == 0) red[(wm + 16 * i + gq + 8 * h) * 4 + wq] = p;
-    }
-  __syncthreads();
-  float mu[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float* rr = red + (wm + 16 * i + gq + 8 * h) * 4;
-      mu[i][h] = (rr[0] + rr[1] + rr[2] + rr[3]) / D;
-      float v = 0.f;
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const float d0 = acc[i][j][2 * h] - mu[i][h];
-        const float d1 = acc[i][j][2 * h + 1] - mu[i][h];
-        v += d0 * d0 + d1 * d1;
-      }
-      v = quad_sum(v);
-      if (tq == 0) red[(kFfnRows + wm + 16 * i + gq + 8 * h) * 4 + wq] = v;
-    }
-  __syncthreads();
-  // b = LN2(u) over acc, and the row's amax across the 4 warps
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wm + 16 * i + gq + 8 * h;
-      const float* rr = red + (kFfnRows + r) * 4;
-      const float rstd = rsqrtf((rr[0] + rr[1] + rr[2] + rr[3]) / D + kLnEps);
-      float mx = 0.f;
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int c = wn + 8 * j + 2 * tq;
-        const float v0 =
-            ln_value(acc[i][j][2 * h], mu[i][h], rstd, g2[c], b2[c]);
-        const float v1 = ln_value(acc[i][j][2 * h + 1], mu[i][h], rstd,
-                                  g2[c + 1], b2[c + 1]);
-        acc[i][j][2 * h] = v0;
-        acc[i][j][2 * h + 1] = v1;
-        mx = fmaxf(mx, fmaxf(fabsf(v0), fabsf(v1)));
-      }
-      mx = quad_max(mx);
-      if (tq == 0) red[(2 * kFfnRows + r) * 4 + wq] = mx;
-    }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wm + 16 * i + gq + 8 * h;
-      const float* rr = red + (2 * kFfnRows + r) * 4;
-      const float amax = fmaxf(fmaxf(rr[0], rr[1]), fmaxf(rr[2], rr[3]));
-      const float inv = quant_inv(amax);
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int c = wn + 8 * j + 2 * tq;
-        const uint32_t q0 = quant_code(acc[i][j][2 * h], inv) & 0xff;
-        const uint32_t q1 = quant_code(acc[i][j][2 * h + 1], inv) & 0xff;
-        *reinterpret_cast<uint16_t*>(Bq + r * ldq + c) =
-            static_cast<uint16_t>(q0 | (q1 << 8));
-      }
-      if (wq == 0 && tq == 0) row_scale[r] = __fmul_rn(amax, kInv127);
-    }
-
-  float yacc[2][NI][4] = {};
-  for (int c = 0; c < chunks; ++c) {
-    const int step = slices + c;
-    if (c + 1 < chunks) {
-      load_ffn(step + 1, c + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk c, the codes and the row scales visible
-    int z[1][4][4] = {};
-    warp_mma_s8<1>(z, Bq, ldq, zm, reinterpret_cast<int8_t*>(stage_at(step)),
-                   ldw1, zn, D);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = zm + gq + 8 * half;
-      const int hc = c * kFfnHidden + zn;
-      float v[8];
-      dequant8(v, z[0], half, row_scale[r], w1s + hc);
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-        v[t] = gelu_tanh(v[t] + bb1[hc + 8 * tq + t]);
-      store8(Hs + r * ldh + zn + 8 * tq, v);
-    }
-    __syncthreads();  // GELU slice complete
-    warp_mma_kn<2, NI>(yacc, Hs, ldh, wm,
-                       reinterpret_cast<bf16*>(stage_at(step) + L.off_w2),
-                       ldw2, wn, kFfnHidden);
-    __syncthreads();  // chunk c and Hs free for reuse
+    for (int kk = 0; kk < kHidden / 16; ++kk)
+      blk_mma_rs<D, 1>(yacc, hf[kk],
+                       blk_desc(smem_addr(sp + kW1) + 2048 * kk, kBlkBox),
+                       c > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    blk_fence_regs<D / 2>(yacc);
+    ring_free<S>(empty, g);
   }
 
-  // y = u + (h @ W2 + bb2); each thread reads back the u32 it wrote
+  // y = u + (h @ W2 + bb2), u from the thread's own slots; then y staged
+  // in the warpgroup's slots once all of them are read, and stored by TMA
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < D / 8; ++j) {
+    const float2 bias = *reinterpret_cast<const float2*>(bb2 + 8 * j +
+                                                         2 * tq4);
 #pragma unroll
-    for (int j = 0; j < NI; ++j)
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = 4 * j + 2 * hh;
+      yacc[i] = ut[128 * i] + (yacc[i] + bias.x);
+      yacc[i + 1] = ut[128 * (i + 1)] + (yacc[i + 1] + bias.y);
+    }
+  }
+  blk_bar(2 + wg, 128);
+  unsigned char* stage = reinterpret_cast<unsigned char*>(Us + wg * (D * 64));
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm + 16 * i + gq + 8 * h, c = wn + 8 * j + 2 * tq;
-        if (r < valid) {
-          const size_t g = static_cast<size_t>(row0 + r) * D + c;
-          const float2 uv = *reinterpret_cast<const float2*>(u32 + g);
-          *reinterpret_cast<uint32_t*>(y + g) =
-              pack_bf16(uv.x + (yacc[i][j][2 * h] + bb2[c]),
-                        uv.y + (yacc[i][j][2 * h + 1] + bb2[c + 1]));
-        }
-      }
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      blk_stage_pair(stage, rt - 64 * wg + 8 * hh, 8 * j + 2 * tq4,
+                     yacc[4 * j + 2 * hh], yacc[4 * j + 2 * hh + 1]);
+  blk_store(&ty, stage, KB, 0, row0 + 64 * wg);
+  blk_store_drain();
+}
+
+template <int D>
+cudaError_t launch_ln_qkv_q8(const bf16* x, const float* g1, const float* b1,
+                             const int8_t* wq, const float* ws, bf16* qkv,
+                             int rows, cudaStream_t stream) {
+  CUtensorMap tx, tw, tqkv;
+  DEVT_TRY(blk_map(&tx, x, D, rows, D, kBlkRows));
+  DEVT_TRY(s8_map(&tw, wq, D, 3 * D, kQkvBN));
+  DEVT_TRY(blk_map(&tqkv, qkv, 3 * D, rows, 3 * D, 64));
+  constexpr size_t bytes = ln_qkv_q8_smem<D>();
+  DEVT_TRY(set_smem(ln_qkv_q8_sm90<D>, bytes));
+  ln_qkv_q8_sm90<D><<<blk_tiles(rows), kBlkThreads, bytes, stream>>>(
+      tx, tw, tqkv, g1, b1, ws);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_out_ffn_q8(const bf16* x, const bf16* att, const bf16* wo,
+                              const float* bo, const float* g2,
+                              const float* b2, const int8_t* w1q,
+                              const float* w1s, const float* bb1,
+                              const bf16* w2, const float* bb2, bf16* y,
+                              int rows, int F, cudaStream_t stream) {
+  CUtensorMap ta, two, tw1, tw2, ty;
+  DEVT_TRY(blk_map(&ta, att, D, rows, D, kBlkRows));
+  DEVT_TRY(blk_map(&two, wo, D, D, D, 64));
+  DEVT_TRY(s8_map(&tw1, w1q, D, F, kHidden));
+  DEVT_TRY(blk_map(&tw2, w2, D, F, D, 64));
+  DEVT_TRY(blk_map(&ty, y, D, rows, D, 64));
+  constexpr size_t bytes = out_ffn_q8_smem<D>();
+  DEVT_TRY(set_smem(out_ffn_q8_sm90<D>, bytes));
+  out_ffn_q8_sm90<D><<<blk_tiles(rows), kBlkThreads, bytes, stream>>>(
+      ta, two, tw1, tw2, ty, x, bo, g2, b2, w1s, bb1, bb2, rows, F);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -470,36 +751,29 @@ struct Args {
 
 template <int D, int HD>
 cudaError_t launch_bf16_shape(const Args& a) {
-  const int rows = a.B * a.S, N3 = 3 * D;
+  const int rows = a.B * a.S;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto h = [](const void* p) { return static_cast<const bf16*>(p); };
   auto q = [](const void* p) { return static_cast<const int8_t*>(p); };
+  bf16* qkv = static_cast<bf16*>(a.qkv);
+  bf16* att = static_cast<bf16*>(a.att);
 
-  constexpr size_t s1 = qkv_q8_smem<D>();
-  DEVT_TRY(set_smem(ln_qkv_q8<D>, s1));
-  ln_qkv_q8<D><<<(rows + kQkvRows - 1) / kQkvRows, kQkvThreads, s1,
-                 a.stream>>>(h(a.x), f(a.g1), f(a.b1), q(a.wqkv_q),
-                             f(a.wqkv_s), static_cast<bf16*>(a.qkv), rows, N3);
-  DEVT_TRY(cudaGetLastError());
-
-  DEVT_TRY((launch_attention_bf16<HD, false>(
-      h(a.qkv), static_cast<bf16*>(a.att), static_cast<float*>(a.lse), a.B,
-      a.S, a.H, a.kv_len, a.H, a.scale, a.stream)));
-
-  constexpr size_t s3 = ffn_q8_smem<D>().bytes;
-  DEVT_TRY(set_smem(out_ffn_q8<D>, s3));
-  out_ffn_q8<D><<<(rows + kFfnRows - 1) / kFfnRows, kFfnThreads, s3,
-                  a.stream>>>(
-      h(a.x), h(a.att), h(a.wo), f(a.bo), f(a.g2), f(a.b2), q(a.w1_q),
-      f(a.w1_s), f(a.bb1), h(a.w2), f(a.bb2), static_cast<bf16*>(a.y),
-      static_cast<float*>(a.u32), rows, a.F);
-  return cudaGetLastError();
+  DEVT_TRY(launch_ln_qkv_q8<D>(h(a.x), f(a.g1), f(a.b1), q(a.wqkv_q),
+                               f(a.wqkv_s), qkv, rows, a.stream));
+  // lse is (B, S, H) scratch: lanes = H
+  DEVT_TRY(block_attention_bf16<HD>(qkv, att, static_cast<float*>(a.lse),
+                                    a.B, a.S, a.H, a.kv_len, a.H, a.scale,
+                                    a.stream));
+  return launch_out_ffn_q8<D>(h(a.x), att, h(a.wo), f(a.bo), f(a.g2),
+                              f(a.b2), q(a.w1_q), f(a.w1_s), f(a.bb1),
+                              h(a.w2), f(a.bb2), static_cast<bf16*>(a.y),
+                              rows, a.F, a.stream);
 }
 
 // the bfloat16 kernels are compiled for these widths (dim, head dim)
 cudaError_t launch_bf16(const Args& a) {
   const int hd = a.D / a.H;
-  if (a.F % kFfnHidden) return cudaErrorInvalidValue;
+  if (a.F % kHidden) return cudaErrorInvalidValue;
   if (a.D == 192 && hd == 64) return launch_bf16_shape<192, 64>(a);
   if (a.D == 64 && hd == 32) return launch_bf16_shape<64, 32>(a);
   return cudaErrorInvalidValue;
@@ -518,8 +792,9 @@ cudaError_t launch_f32(const Args& a) {
 
   DEVT_TRY((launch_quant_rows<float, true>(f(a.x), f(a.g1), f(a.b1), codes,
                                            row_scale, rows, a.D, a.stream)));
-  DEVT_TRY(launch_gemm_s8<float>(codes, row_scale, q(a.wqkv_q), f(a.wqkv_s),
-                                 qkv, rows, a.D, 3 * a.D, a.stream));
+  DEVT_TRY(launch_gemm_s8_wgmma<float>(codes, row_scale, q(a.wqkv_q),
+                                       f(a.wqkv_s), qkv, rows, a.D, 3 * a.D,
+                                       a.stream));
   DEVT_TRY(launch_attention_f32<false>(qkv, att, static_cast<float*>(a.lse),
                                        a.B, a.S, a.H, d, a.kv_len, a.H,
                                        a.scale, a.stream));
@@ -527,8 +802,9 @@ cudaError_t launch_f32(const Args& a) {
                                    rows, a.D, a.D, a.stream));
   DEVT_TRY((launch_quant_rows<float, true>(u, f(a.g2), f(a.b2), codes,
                                            row_scale, rows, a.D, a.stream)));
-  DEVT_TRY(launch_gemm_s8<float>(codes, row_scale, q(a.w1_q), f(a.w1_s), z1,
-                                 rows, a.D, a.F, a.stream));
+  DEVT_TRY(launch_gemm_s8_wgmma<float>(codes, row_scale, q(a.w1_q),
+                                       f(a.w1_s), z1, rows, a.D, a.F,
+                                       a.stream));
   return launch_rows_gemm<true>(z1, f(a.bb1), f(a.w2), f(a.bb2), u,
                                 static_cast<float*>(a.y), rows, a.F, a.D,
                                 a.stream);
@@ -536,13 +812,15 @@ cudaError_t launch_f32(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (of x, y, wo and w2).  wqkv_q (D, 3D)
-// and w1_q (D, F) are int8 in the (K, N) layout with their f32 column
+// dtype: 0 = float32, 1 = bfloat16 (of x, y, wo and w2).  wqkv_q and w1_q
+// are the int8 weight codes stored K-major, (3D, D) and (F, D) with k
+// contiguous and 16-byte aligned (TMA reads them), with their f32 column
 // scales wqkv_s (3D) and w1_s (F); LN parameters and biases are f32.
-// Scratch: qkv (B, S, 3D) and att (B, S, D) in x's type, lse (B, S, H) and
-// u32 (B, S, D) f32; the float route also needs codes (B*S, D) int8,
-// row_scale (B*S) f32 and z1 (B, S, F) f32, which the bfloat16 route
-// ignores.
+// Scratch: qkv (B, S, 3D) and att (B, S, D) in x's type (bfloat16: 16-byte
+// aligned) and lse (B, S, H) f32; the float route also needs u32 (B, S, D)
+// f32, codes (B*S, D) int8, row_scale (B*S) f32 and z1 (B, S, F) f32,
+// which the bfloat16 route ignores.  The bfloat16 route's attention launch
+// takes the one-shot wgmma body where devt_quant_block_route says.
 // Returns the CUDA error of the launches (0 on success); the launches are
 // asynchronous on `stream`.
 extern "C" int devt_quant_block_fwd(
@@ -563,6 +841,12 @@ extern "C" int devt_quant_block_fwd(
   if (dtype == 0) return launch_f32(a);
   if (dtype == 1) return launch_bf16(a);
   return cudaErrorInvalidValue;
+}
+
+// 1 when kernel 5's attention launch of this dtype (0 float32, 1
+// bfloat16), head dim and kv_len takes flash_fwd_sm90.cuh's one-shot body
+extern "C" int devt_quant_block_route(int dtype, int d, int kv_len) {
+  return one_shot_on_wgmma(dtype, d, kv_len) ? 1 : 0;
 }
 
 extern "C" const char* devt_cuda_error_string(int code) {

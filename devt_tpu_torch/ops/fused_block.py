@@ -60,16 +60,20 @@ The backward kernel (``csrc/fused_block_bwd.cu``):
     Row-tile kernels on ``csrc/block_sm90.cuh``'s wgmma body (LN1+qkv
     recompute; FFN recompute and backward to dz1; dz1·W1ᵀ with the LN2
     backward; doproj·Woᵀ; dqkv·Wqkvᵀ with the LN1 backward, all per 128
-    rows) and the attention recompute and backward per (head, sequence)
-    (mma.sync) leave the operands of the four weight gradients in global
-    memory in x's dtype — the roundings the TPU kernel applies before
-    those products — and the column sums of their rows in a partial
-    buffer.  The four weight gradients are one launch of split-K
-    products (128-row output tiles, 192, 128 or 64 columns wide: the
-    widest that divides every product's width) into f32 partials, the
-    rows split so that the splits times the output tiles fill the card's
-    SMs once (``kWgWaves``; a multiple of 64 rows), and a last kernel
-    sums all partials in index order.  No atomics: **two runs give the
+    rows) and the attention recompute and backward (where
+    ``block_bwd_on_wgmma`` says, every main-path shape: att, do and delta
+    from the stored lse on the one-shot forward's wgmma body, then kernels
+    12's and 13's wgmma bodies; elsewhere per (head, sequence) on
+    mma.sync; counted in ``bwd_wgmma_launches`` and
+    ``bwd_streamed_launches``) leave the operands of the four weight
+    gradients in global memory in x's dtype — the roundings the TPU
+    kernel applies before those products — and the column sums of their
+    rows in a partial buffer.  The four weight gradients are one launch
+    of split-K products (128-row output tiles, 192, 128 or 64 columns
+    wide: the widest that divides every product's width) into f32
+    partials, the rows split so that the splits times the output tiles
+    fill the card's SMs once (``kWgWaves``; a multiple of 64 rows), and a
+    last kernel sums all partials in index order.  No atomics: **two runs give the
     same bits**.
 
 Dropout: counter-based Philox4x32-10 keyed by the call's seed, counter
@@ -122,6 +126,7 @@ import torch
 import torch.nn.functional as F
 
 from devt_tpu_torch.ops.flash_attention import (NEG_INF, _round_up,
+                                                blocked_bwd_on_wgmma,
                                                 dropout_cutoff,
                                                 one_shot_on_wgmma)
 
@@ -552,6 +557,10 @@ def _bwd_cuda(x, params, u, res, dy, heads, scale, kv_len, rate, seed):
             ctypes.c_ulonglong(seed), ctypes.c_void_p(stream))
     _check(lib, rc, "fused_block_bwd")
     fused_vit_block.bwd_launches += 1
+    if block_bwd_on_wgmma(x.dtype, dim // heads, kv_len):
+        fused_vit_block.bwd_wgmma_launches += 1
+    else:
+        fused_vit_block.bwd_streamed_launches += 1
     return dx, grads
 
 
@@ -633,6 +642,8 @@ fused_vit_block.launches = 0
 fused_vit_block.wgmma_launches = 0
 fused_vit_block.streamed_launches = 0
 fused_vit_block.bwd_launches = 0
+fused_vit_block.bwd_wgmma_launches = 0
+fused_vit_block.bwd_streamed_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -652,6 +663,60 @@ def attn_half_on_wgmma(dtype: torch.dtype, head_dim: int,
     others (f32, more than 256 live keys, other head dims) run
     ``csrc/attention_fwd.cuh``'s body."""
     return one_shot_on_wgmma(dtype, head_dim, kv_len)
+
+
+def block_bwd_on_wgmma(dtype: torch.dtype, head_dim: int,
+                       kv_len: int) -> bool:
+    """Whether the attention backward of kernels 2 and 8 runs its wgmma
+    route (``csrc/block_bwd_parts.cuh:block_attention_bwd_bf16``): the
+    recompute of att, do and delta from the stored lse on the one-shot
+    forward's wgmma body, then kernels 12's and 13's wgmma bodies
+    (``csrc/flash_bwd_sm90.cuh``).  The C rule ``block_bwd_on_wgmma``, as
+    ``devt_fused_block_bwd_route`` and ``devt_attn_half_bwd_route`` say:
+    the forward's one-shot rule (bfloat16, head dim 16, 32 or 64, at most
+    256 live keys) within the bodies' (``blocked_bwd_on_wgmma``).  Other
+    bfloat16 shapes keep ``attention_bwd_bf16`` (mma.sync), f32
+    ``attention_bwd_f32``."""
+    return one_shot_on_wgmma(dtype, head_dim, kv_len) \
+        and blocked_bwd_on_wgmma(dtype, head_dim)
+
+
+def block_attention_bwd_plain(qkv, lse, datt, heads, d, scale, kv_len,
+                              dtype):
+    """Plain version of the wgmma route of the attention backward of
+    kernels 2 and 8, launch by launch, with ``_mha_fwd_bwd``'s contract
+    (qkv, lse (B, S, H), datt (B, S, H*d) f32 → (att f32, dqkv f32)):
+
+    1. the recompute (``block_bwd_pre_sm90``) from the given lse, no max
+       pass: p = exp(s·scale − lse) with keys past kv_len at 0, o =
+       round(p) @ v in f32, att = o, do = round(datt), and delta =
+       rowsum(datt · o) from the f32 datt and the f32 o;
+    2. kernel 12's body with delta given: ds = p · (do @ vᵀ − delta) ·
+       scale, dq = round(ds) @ k;
+    3. kernel 13's: dv = round(p)ᵀ @ do, dk = round(ds)ᵀ @ q."""
+    s_len = qkv.shape[1]
+    live = torch.arange(s_len, device=qkv.device) < kv_len
+    outs, dqs, dks, dvs = [], [], [], []
+    for i in range(heads):
+        q = qkv[..., i * d:(i + 1) * d]
+        k = qkv[..., (heads + i) * d:(heads + i + 1) * d]
+        v = qkv[..., (2 * heads + i) * d:(2 * heads + i + 1) * d]
+        g = datt[..., i * d:(i + 1) * d]
+        # 1. the recompute
+        s = _mm(q, k.transpose(1, 2), dtype) * scale
+        p = torch.where(live, torch.exp(s - lse[..., i:i + 1]),
+                        torch.zeros((), device=qkv.device))
+        o = _mm(p, v, dtype)
+        delta = (g * o).sum(dim=-1, keepdim=True)
+        do = g.to(dtype)
+        outs.append(o)
+        # 2. dq with delta given
+        ds = p * (_mm(do, v.transpose(1, 2), dtype) - delta) * scale
+        dqs.append(_mm(ds, k, dtype))
+        # 3. dk and dv
+        dvs.append(_mm(p.transpose(1, 2), do, dtype))
+        dks.append(_mm(ds.transpose(1, 2), q, dtype))
+    return torch.cat(outs, dim=-1), torch.cat(dqs + dks + dvs, dim=-1)
 
 
 def fused_attn_half_fwd_plain(x, params, heads, scale, kv_len):
@@ -771,6 +836,10 @@ def _half_bwd_cuda(x, params, res, du, heads, scale, kv_len):
             ctypes.c_void_p(stream))
     _check(lib, rc, "attn_half_bwd")
     fused_attn_half.bwd_launches += 1
+    if block_bwd_on_wgmma(x.dtype, dim // heads, kv_len):
+        fused_attn_half.bwd_wgmma_launches += 1
+    else:
+        fused_attn_half.bwd_streamed_launches += 1
     return dx, grads
 
 
@@ -832,6 +901,8 @@ fused_attn_half.launches = 0
 fused_attn_half.wgmma_launches = 0
 fused_attn_half.streamed_launches = 0
 fused_attn_half.bwd_launches = 0
+fused_attn_half.bwd_wgmma_launches = 0
+fused_attn_half.bwd_streamed_launches = 0
 
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
@@ -860,6 +931,8 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
         + [ctypes.c_float, ctypes.c_double, ctypes.c_ulonglong,
            ctypes.c_void_p])
     lib.devt_fused_block_bwd.restype = ctypes.c_int
+    lib.devt_fused_block_bwd_route.argtypes = [ctypes.c_int] * 3
+    lib.devt_fused_block_bwd_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p
 
@@ -878,5 +951,7 @@ def _declare_half(lib: ctypes.CDLL) -> None:
         + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
         + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
     lib.devt_attn_half_bwd.restype = ctypes.c_int
+    lib.devt_attn_half_bwd_route.argtypes = [ctypes.c_int] * 3
+    lib.devt_attn_half_bwd_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p

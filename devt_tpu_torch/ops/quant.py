@@ -37,10 +37,14 @@ counts its launches in ``.launches``:
     ``quant_fused_vit_block``, ``:329``).
   * The fused ViT block forward in eval mode with LN1's and LN2's outputs
     quantized per row inside the kernel (``round(x · 127/amax)``, half to
-    even, no clip) and the Wqkv and W1 products run as ``mma.sync``
-    m16n8k32 s8×s8→s32, dequantized on the accumulators; attention, Wo,
-    GELU and W2 as in the bf16 block, whose attention launch it shares
-    (``csrc/attention_fwd.cuh``).
+    even, no clip) and the Wqkv and W1 products run as int8 ``wgmma``
+    s8×s8→s32 on the K-major weight codes that ``quant_block_params``
+    stores, dequantized on the accumulators; Wo, GELU and W2 on bf16
+    ``wgmma``, both row-tile launches on ``csrc/block_sm90.cuh``'s CTA
+    shape (TMA weight rings); the attention is the bf16 block's launch
+    (``csrc/block_attention.cuh``: the one-shot wgmma body where
+    ``fused_block.attn_half_on_wgmma`` says, counted in
+    ``.wgmma_launches`` and ``.streamed_launches``).
   * Bound at (512, 208, 192, 3 heads, MLP 768, kv_len 197): 110.3 GOP, of
     which 55.0 GOP at the int8 rate, against about 82 MB: operations.
 
@@ -232,7 +236,7 @@ def int8_dot_general(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         # with strides (1, K) that int8_matmul_fused's wgmma body reads
         # and the plain and unfused routes take as it is; one copy
         w_q, w_scale = quantize_weight(rhs.to(lhs.dtype), axis=0)
-        return w_q.t().contiguous().t(), w_scale.contiguous()
+        return _kmajor(w_q), w_scale.contiguous()
 
     w_q, w_scale = site_value(quantize, tuple)
     if w_q.shape != rhs.shape:
@@ -246,16 +250,38 @@ def int8_dot_general(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return int8_matmul(lhs, w_q, w_scale).to(lhs.dtype)
 
 
+# the block's weight codes that kernel 5 reads on int8 wgmma: stored K-major
+_KMAJOR_CODES = ("wqkv_q", "w1_q")
+
+
+def _kmajor(w_q: torch.Tensor) -> torch.Tensor:
+    """The (K, N) codes as the (K, N) view with strides (1, K) of (N, K)
+    storage, k contiguous: the same values, one copy."""
+    return w_q.t().contiguous().t()
+
+
+def is_kmajor(w_q: torch.Tensor) -> bool:
+    """Whether ``w_q`` is the (K, N) view with strides (1, K) of (N, K)
+    storage (``int8_matmul_on_wgmma``'s rule)."""
+    return w_q.dim() == 2 and w_q.stride() == (1, w_q.shape[0])
+
+
 def quant_block_params(params: dict) -> dict:
     """Pre-quantize a fused-block param dict (``ops/fused_block.py`` layout:
     g1/b1/wqkv/wo/bo/g2/b2/w1/bb1/w2/bb2) into the tree the quantized
     blocks consume: all four matrices as ``<name>_q`` int8 and ``<name>_s``
     (1, N) f32, and ``wo``/``w2`` also passed through at full precision,
-    because the fused kernel runs those two products in the model dtype."""
+    because the fused kernel runs those two products in the model dtype.
+    ``wqkv_q`` and ``w1_q``, the codes kernel 5 reads on int8 ``wgmma``
+    (which reads 8-bit operands only K-major), are stored (N, K) and handed
+    out as their (K, N) view with strides (1, K); the values are JAX's, and
+    the plain and unfused routes read the view as it is."""
     out = {k: params[k] for k in
            ("g1", "b1", "bo", "g2", "b2", "bb1", "bb2", "wo", "w2")}
     for k in ("wqkv", "wo", "w1", "w2"):
         out[k + "_q"], out[k + "_s"] = quantize_weight(params[k])
+    for k in _KMAJOR_CODES:
+        out[k] = _kmajor(out[k])
     return out
 
 
@@ -339,12 +365,19 @@ def _check_quant_block_args(x, qp, heads: int) -> None:
             "bb2": ((1, dim), torch.float32)}
     for name, (shape, dtype) in want.items():
         t = qp[name]
+        # Wqkv's and W1's codes K-major (the view quant_block_params makes),
+        # 16-byte aligned: TMA reads them for the int8 wgmma
+        layout_ok = (is_kmajor(t) and t.data_ptr() % 16 == 0
+                     if name in _KMAJOR_CODES else t.is_contiguous())
         if tuple(t.shape) != shape or t.dtype != dtype \
-                or t.device != x.device or not t.is_contiguous():
+                or t.device != x.device or not layout_ok:
+            layout = ("the K-major (K, N) view with strides (1, K) of (N, K) "
+                      "storage, 16-byte aligned" if name in _KMAJOR_CODES
+                      else "contiguous")
             raise ValueError(
-                f"param {name}: need a contiguous {dtype} tensor of shape "
-                f"{shape} on {x.device}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
+                f"param {name}: need a {dtype} tensor of shape {shape} on "
+                f"{x.device}, {layout}; got {t.dtype} {tuple(t.shape)} "
+                f"strides {t.stride()} on {t.device}")
     d = dim // heads
     if heads * d != dim or d % 16 or dim % 64 or mlp % 64:
         raise ValueError(f"the kernel needs dim = heads*d with d a multiple "
@@ -371,9 +404,9 @@ def _quant_block_cuda(x, qp, heads, scale, kv_len):
     qkv = empty((bsz, s, 3 * dim), x.dtype)
     att = torch.empty_like(x)
     lse = empty((bsz, s, heads), torch.float32)
-    u32 = empty(x.shape, torch.float32)
-    codes = row_scale = z1 = None
+    u32 = codes = row_scale = z1 = None
     if x.dtype == torch.float32:     # the float route's global intermediates
+        u32 = empty(x.shape, torch.float32)
         codes = empty((bsz * s, dim), torch.int8)
         row_scale = empty((bsz * s,), torch.float32)
         z1 = empty((bsz, s, mlp), torch.float32)
@@ -391,6 +424,10 @@ def _quant_block_cuda(x, qp, heads, scale, kv_len):
             ctypes.c_float(scale), ctypes.c_void_p(stream))
     fb._check(lib, rc, "quant_block_fwd")
     quant_fused_vit_block.launches += 1
+    if fb.attn_half_on_wgmma(x.dtype, dim // heads, kv_len):
+        quant_fused_vit_block.wgmma_launches += 1
+    else:
+        quant_fused_vit_block.streamed_launches += 1
     return y
 
 
@@ -413,6 +450,8 @@ def quant_fused_vit_block(x, qp, heads: int, scale: float,
 
 
 quant_fused_vit_block.launches = 0
+quant_fused_vit_block.wgmma_launches = 0
+quant_fused_vit_block.streamed_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -435,7 +474,7 @@ def int8_matmul_on_wgmma(w_q: torch.Tensor) -> bool:
     codes stored (N, K) as the site registry stores them, takes it; the
     row-major (K, N) codes of the JAX layout take the mma.sync body of
     ``csrc/int8_common.cuh`` (``gemm_s8``), whatever x's dtype."""
-    return w_q.dim() == 2 and w_q.stride() == (1, w_q.shape[0])
+    return is_kmajor(w_q)
 
 
 def _check_matmul_args(x, w_q, w_scale) -> None:
@@ -578,6 +617,8 @@ def _declare_block(lib: ctypes.CDLL) -> None:
         [ctypes.c_int] + [ctypes.c_void_p] * 22 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p])
     lib.devt_quant_block_fwd.restype = ctypes.c_int
+    lib.devt_quant_block_route.argtypes = [ctypes.c_int] * 3
+    lib.devt_quant_block_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p
 

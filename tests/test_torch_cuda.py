@@ -184,7 +184,10 @@ def _check_block_sm90(dim, heads, b, s, kv_len, rate, pad):
     the pad lanes 0; dx and the 11 gradients within 4 ulps of each
     tensor's largest element; two backward runs bit-equal; the forward's
     attention launch counted on the body attn_half_on_wgmma names (the
-    one-shot wgmma body for at most 256 live keys).  The weights at the
+    one-shot wgmma body for at most 256 live keys), the backward's on the
+    route block_bwd_on_wgmma names (the recompute and kernels 12's and
+    13's wgmma bodies for at most 256 live keys, attention_bwd_bf16
+    above).  The weights at the
     main path's 1 / sqrt(fan-in), x zero past kv_len if ``pad``."""
     mlp, seed = 4 * dim, 11
     x, params = _block(torch.bfloat16, dim=dim, mlp=mlp, b=b, s=s,
@@ -213,8 +216,14 @@ def _check_block_sm90(dim, heads, b, s, kv_len, rate, pad):
     torch.testing.assert_close(res[..., :heads + 4], want[2][..., :heads + 4],
                                **TOL["bf16"])
     assert res[..., heads + 4:].abs().max().item() == 0.0
+    bwd = tfb.block_bwd_on_wgmma(torch.bfloat16, dim // heads, kv_len)
+    assert bwd == (kv_len <= 256)
+    bodies = (block.bwd_wgmma_launches, block.bwd_streamed_launches)
     runs = [tfb._bwd_cuda(x, params, u, res, dy, heads, scale, kv_len, rate,
                           seed) for _ in range(2)]
+    assert (block.bwd_wgmma_launches - bodies[0],
+            block.bwd_streamed_launches - bodies[1]) == (2 * bwd,
+                                                         2 * (1 - bwd))
     want = tfb.fused_vit_block_bwd_plain(x, params, u, res, dy, heads, scale,
                                          kv_len, keep, rate)
     _assert_bwd_close("bf16", runs[0], want)
@@ -273,8 +282,10 @@ def test_block_launches_by_body(card):
     """At the ViViT shape in bf16 every product launch of kernels 1, 2, 7
     and 8 is csrc/block_sm90.cuh's wgmma body (the four weight gradients
     one launch), the forwards' attention the one-shot wgmma instance that
-    normalises after P·V; no mma.sync product launch is left but kernel
-    7's out-projection and the attention backward they share."""
+    normalises after P·V, the backwards' attention the recompute and
+    kernels 12's and 13's wgmma bodies; kernel 5's two row-tile launches
+    are its int8 and bf16 wgmma bodies beside the same attention launch.
+    No mma.sync launch is left but kernel 7's out-projection."""
     x, params = _block(torch.bfloat16, dim=192, mlp=768, b=4, s=208,
                        kv_len=197, fan_in=True)
     half = {k: params[k] for k in tfb.HALF_NAMES}
@@ -291,16 +302,22 @@ def test_block_launches_by_body(card):
                                                          197))
         k8 = _device_kernels(lambda: tfb._half_bwd_cuda(
             x, half, hres, dy, 3, 0.125, 197))
+        qp = tq.quant_block_params(params)
+        k5 = _device_kernels(lambda: tq.quant_fused_vit_block(x, qp, 3, 0.125,
+                                                              197))
     one_shot = "flash_one_shot<64, 208, false, true>"
+    attn_bwd = {"block_bwd_pre_sm90<64, 208>", "block_bwd_dq_sm90<64>",
+                "block_bwd_dkv_sm90<64>"}
     assert k1 == {"ln_qkv_sm90<192, false>", one_shot, "out_ffn_sm90<192>"}
     assert k2 == {"ln_qkv_sm90<192, true>", "ffn_dual_sm90<192>",
                   "row_nk_sm90<192, 1>", "row_nk_sm90<192, 0>",
-                  "attention_bwd_bf16<64>", "row_nk_sm90<192, 2>",
-                  "wgrad_sm90<192>", "reduce_parts"}
+                  "row_nk_sm90<192, 2>", "wgrad_sm90<192>",
+                  "reduce_parts"} | attn_bwd
     assert k7 == {"ln_qkv_sm90<192, false>", one_shot, "out_proj_bf16<192>"}
     assert k8 == {"ln_qkv_sm90<192, true>", "row_nk_sm90<192, 0>",
-                  "attention_bwd_bf16<64>", "row_nk_sm90<192, 3>",
-                  "wgrad_sm90<192>", "reduce_parts"}
+                  "row_nk_sm90<192, 3>", "wgrad_sm90<192>",
+                  "reduce_parts"} | attn_bwd
+    assert k5 == {"ln_qkv_q8_sm90<192>", one_shot, "out_ffn_q8_sm90<192>"}
 
 
 @pytest.mark.cuda
@@ -314,6 +331,28 @@ def test_fused_block_route_matches_the_c_rule(card):
                 assert bool(lib.devt_fused_block_route(code, d, kv_len)) == \
                     tfb.attn_half_on_wgmma(dtype, d, kv_len), (dtype, d,
                                                                kv_len)
+
+
+@pytest.mark.cuda
+def test_block_bwd_route_matches_the_c_rule(card):
+    """The attention backward's C rule (block_bwd_on_wgmma, exported by
+    kernel 2's library as devt_fused_block_bwd_route and by kernel 8's as
+    devt_attn_half_bwd_route) is the Python predicate's; kernel 5's
+    attention launch (devt_quant_block_route) follows kernels 1's and 7's
+    rule."""
+    bwd = _build.load("fused_block_bwd", tfb._declare_bwd)
+    half = _build.load("attn_half", tfb._declare_half)
+    quant = _build.load("quant_block_fwd", tq._declare_block)
+    for dtype, code in tfb._DTYPE_CODE.items():
+        for d in (8, 16, 32, 48, 64, 128, 256):
+            for kv_len in (0, 1, 17, 197, 256, 257, 512):
+                want = tfb.block_bwd_on_wgmma(dtype, d, kv_len)
+                case = (dtype, d, kv_len)
+                got = (bwd.devt_fused_block_bwd_route(code, d, kv_len),
+                       half.devt_attn_half_bwd_route(code, d, kv_len))
+                assert got == (int(want), int(want)), case
+                assert bool(quant.devt_quant_block_route(code, d, kv_len)) \
+                    == tfb.attn_half_on_wgmma(dtype, d, kv_len), case
 
 
 @pytest.mark.cuda
@@ -394,11 +433,83 @@ def test_quant_block_kernel_matches_plain(card, kind, b, kv_len):
     want = tq.quant_fused_vit_block_plain(x, qp, heads, scale, kv_len)
     torch.cuda.synchronize()
     assert tq.quant_fused_vit_block.launches == before + 1
-    assert got.dtype == x.dtype and torch.isfinite(got.float()).all()
+    _assert_quant_close(kind, got, want)
+    with torch.no_grad():
+        again = tq.quant_fused_vit_block(x, qp, heads, scale, kv_len)
+    assert torch.equal(got, again)
+
+
+def _assert_quant_close(kind, got, want):
+    """Kernel 1's tolerance on all but 5e-3 of y, 0.05 of the largest |y|
+    on every element."""
+    assert got.dtype == want.dtype and torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs()
     tol = TOL[kind]["atol"] + TOL[kind]["rtol"] * want.float().abs()
     assert (err > tol).float().mean().item() < 5e-3, err.max().item()
     assert err.max().item() < 0.05 * want.float().abs().max().item()
+
+
+# (dim, heads, b, s, kv_len): kernel 5 on its wgmma bodies at both compiled
+# widths (MLP 4 x dim): the ViViT shape and the main path's kv_len with
+# three 128-row tiles and a tail; one live key; every key live; 200 x 48
+# rows; 260 live keys (the attention on attention_fwd.cuh's body); the
+# main path itself, (512, 208, 192)
+# (bf16 only: the float route, on no serving path, at the others)
+QUANT_SM90_SHAPES = [
+    (192, 3, 3, 208, 197), (192, 3, 2, 208, 1), (192, 3, 2, 208, 208),
+    (64, 2, 5, 48, 1), (64, 2, 200, 48, 37), (64, 2, 2, 272, 260)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dim,heads,b,s,kv_len", [
+    (kind, *shape) for kind in ("f32", "bf16") for shape in QUANT_SM90_SHAPES
+] + [("bf16", 192, 3, 512, 208, 197)])
+def test_quant_block_sm90_matches_plain(card, kind, dim, heads, b, s,
+                                        kv_len):
+    """Kernel 5 against its plain version under the card gates, the weights
+    at 1 / sqrt(fan-in) as the main path draws them, x zero past kv_len;
+    in bf16 its attention launch counted on the body attn_half_on_wgmma
+    names; two runs bit-equal."""
+    x, _, qp = _quant_block(DTYPE[kind], heads, dim=dim, mlp=4 * dim, b=b,
+                            s=s, kv_len=kv_len, fan_in=True)
+    assert all(tq.is_kmajor(qp[k]) for k in ("wqkv_q", "w1_q"))
+    scale = (dim // heads) ** -0.5
+    fn = tq.quant_fused_vit_block
+    wgmma = int(kind == "bf16"
+                and tfb.attn_half_on_wgmma(torch.bfloat16, dim // heads,
+                                           kv_len))
+    bodies = (fn.wgmma_launches, fn.streamed_launches)
+    with torch.no_grad():
+        got = fn(x, qp, heads, scale, kv_len)
+        again = fn(x, qp, heads, scale, kv_len)
+    want = tq.quant_fused_vit_block_plain(x, qp, heads, scale, kv_len)
+    torch.cuda.synchronize()
+    assert (fn.wgmma_launches - bodies[0],
+            fn.streamed_launches - bodies[1]) == (2 * wgmma, 2 * (1 - wgmma))
+    _assert_quant_close(kind, got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wqkv_q", "w1_q"])
+def test_quant_block_refuses_codes_that_are_not_kmajor(card, name):
+    """Kernel 5 reads Wqkv's and W1's codes K-major by TMA: the row-major
+    (K, N) codes of the JAX layout, or a K-major view off a 16-byte
+    boundary, are refused with the parameter's name before any launch."""
+    x, _, qp = _quant_block(torch.bfloat16, 2)
+    before = tq.quant_fused_vit_block.launches
+    row_major = dict(qp, **{name: qp[name].contiguous()})
+    with pytest.raises(ValueError, match=f"param {name}"):
+        tq.quant_fused_vit_block(x, row_major, 2, 0.25, 37)
+    k, n = qp[name].shape
+    store = torch.zeros(n * k + 16, dtype=torch.int8, device="cuda")
+    off = 1 if store.data_ptr() % 16 == 0 else 0
+    view = store[off:off + n * k].view(n, k)
+    view.copy_(qp[name].t())
+    with pytest.raises(ValueError, match=f"param {name}"):
+        tq.quant_fused_vit_block(x, dict(qp, **{name: view.t()}), 2, 0.25,
+                                 37)
+    assert tq.quant_fused_vit_block.launches == before
 
 
 @pytest.mark.cuda
@@ -816,6 +927,52 @@ def test_attn_half_wgmma_matches_plain(card, dim, heads, b, s, kv_len):
                                **TOL["bf16"])
     assert res[..., heads + 2:].abs().max().item() == 0.0
     assert torch.equal(u, u2) and torch.equal(res, res2)
+
+
+# (dim, heads, b, s, kv_len): kernel 8's attention backward on the wgmma
+# route at the MoE main path's kv_len and around it: one live key, every
+# key live, 65 keys (the dk/dv body's second key tile), 256 live keys (the
+# recompute's widest score row), at both bf16 widths; 257 live keys keep
+# attention_bwd_bf16
+HALF_BWD_SHAPES = [
+    (192, 3, 4, 208, 197), (192, 3, 4, 208, 1), (192, 3, 4, 208, 208),
+    (192, 3, 2, 272, 256), (192, 3, 2, 272, 257), (64, 2, 6, 48, 1),
+    (64, 2, 6, 80, 65), (64, 2, 6, 48, 48), (64, 2, 50, 48, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,heads,b,s,kv_len", HALF_BWD_SHAPES)
+def test_attn_half_bwd_wgmma_matches_plain(card, dim, heads, b, s, kv_len):
+    """Kernel 8 in bf16 against its plain version, its attention backward
+    on the route ``block_bwd_on_wgmma`` names: dx and the 5 gradients
+    within 4 ulps of each tensor's largest element, one launch counted on
+    that route, two runs bit-equal.  The weights at 1 / sqrt(fan-in), x
+    drawn on every row (as test_fused_block_sm90_matches_plain draws it:
+    a zero row's LayerNorm multiplies rounding differences by 316)."""
+    x, params = _block(torch.bfloat16, dim=dim, b=b, s=s, kv_len=kv_len,
+                       fan_in=True, pad=False)
+    half = {k: params[k] for k in tfb.HALF_NAMES}
+    scale = (dim // heads) ** -0.5
+    du = torch.randn(x.shape, generator=torch.Generator().manual_seed(8)) \
+        .to(x.dtype).cuda()
+    wgmma = int(tfb.block_bwd_on_wgmma(torch.bfloat16, dim // heads, kv_len))
+    assert wgmma == (kv_len <= 256)
+    fn = tfb.fused_attn_half
+    with torch.no_grad():
+        _, res = tfb.fused_attn_half(x, half, heads, scale, kv_len)
+    bodies = (fn.bwd_wgmma_launches, fn.bwd_streamed_launches)
+    runs = [tfb._half_bwd_cuda(x, half, res, du, heads, scale, kv_len)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fn.bwd_wgmma_launches - bodies[0],
+            fn.bwd_streamed_launches - bodies[1]) == (2 * wgmma,
+                                                      2 * (1 - wgmma))
+    want = tfb.fused_attn_half_bwd_plain(x, half, res, du, heads, scale,
+                                         kv_len)
+    _assert_bwd_close("bf16", runs[0], want, tfb.HALF_NAMES)
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in tfb.HALF_NAMES:
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
 
 
 @pytest.mark.cuda

@@ -31,6 +31,9 @@ timer in both trees (CUDA graph replay of 20 calls, 5 replays):
   * kernels 7 and 8 (the MoE block's attention half, forward and
     backward) at (512, 208, 192), kv_len 197, and the half composed of
     library calls (forward, and its autograd less the forward);
+  * kernel 5 (the int8 block) on kernel 1's input, its weight codes as the
+    tree's ``quant_block_params`` makes them; and each launch of kernels
+    5, 2 and 8 by the profiler's device time;
   * kernel 3 at PTN's serving shape (256, 14, 6144), 8 heads of 256, at
     its training shape (32, 14, 6144), and at the ViT shape (512, 208,
     576), 3 heads of 64, kv_len 197, and F.scaled_dot_product_attention at
@@ -39,7 +42,9 @@ timer in both trees (CUDA graph replay of 20 calls, 5 replays):
     at PTN's training shape;
 
 then calls the tree's chip_smoke phases 18 (kernel-flash at the kernel 9
-shape, its checks), 4 and 7 (ViViT serving and training at image 224), 14
+shape, its checks), 4, 11 and 7 (ViViT serving in bf16 and int8, and
+training at image 224: the int8 bucket-32 call's and a training step's
+device ms from their profiles), 14
 (PTN training at dropout 0 and 0.5: step ms and a profiled step's device
 ms), 12 (PTN serving: bf16, int8, int8 at every site), 16 and 17 (MoE-ViViT
 serving, and training: step ms, the host's enqueue ms and a profiled
@@ -50,8 +55,9 @@ and from its printed line a profiled step's device ms and kernels 12 +
 SDPA's backward with the same additive mask) and records their throughputs
 and step times.  Each run prints one ``RESULT {json}`` line; the end
 prints, per metric, each tree's runs and the mean, and, for every wgmma
-instance the two trees' builds share, whether ptxas gave it the same
-registers and cuobjdump the same SASS.  Needs one NVIDIA card; builds both
+instance the two trees' builds share (every ``*_sm90``, ``flash_*``,
+``gemm_s8*``, one-shot and packed instance), whether ptxas gave it the
+same registers and cuobjdump the same SASS.  Needs one NVIDIA card; builds both
 trees' kernels (one nvcc per source).
 """
 
@@ -117,7 +123,8 @@ for stem, lib in libs.items():
         if found:
             name = found.group(1)
         found = re.search(r"Used (\d+) registers", line)
-        if found and name and re.search(r"wgmma|one_shot|packed|sm90", name):
+        if found and name and re.search(r"wgmma|one_shot|packed|sm90|flash_|"
+                                        r"gemm_s8", name):
             used[name] = int(found.group(1))
             name = None
     code, name = {}, None
@@ -219,6 +226,21 @@ with torch.inference_mode():
     du = torch.randn(x.shape, generator=gen).to(x.dtype).cuda()
     res["k8_ms"] = graph_ms(lambda: fb._half_bwd_cuda(x, half, hres, du, 3,
                                                       0.125, 197))
+    # kernel 5 on the same input, its codes as the tree's quant_block_params
+    # makes them
+    qp = tq.quant_block_params(full)
+    res["k5_ms"] = graph_ms(lambda: tq.quant_fused_vit_block(x, qp, 3, 0.125,
+                                                             197))
+    # each launch of kernels 5, 2 and 8 by the profiler's device time (a
+    # call's mean over 3 calls), keyed by kernel and launch name
+    for tag, fn in (
+            ("k5", lambda: tq.quant_fused_vit_block(x, qp, 3, 0.125, 197)),
+            ("k2", lambda: fb._bwd_cuda(x, full, bu, bres, dy, 3, 0.125, 197,
+                                        0.0, 0)),
+            ("k8", lambda: fb._half_bwd_cuda(x, half, hres, du, 3, 0.125,
+                                             197))):
+        for name, ms, n in cs._device_profile(fn)[0]:
+            res[f"{tag} launch {name} x{n:g}"] = ms
 q, k, v = cs._packed_heads(512, 592, 3, 64, torch.bfloat16, 2)
 res["k12_13_sdpa_bwd_ms"] = cs._sdpa_bwd_ms(q, k, v, do.clone(), 577,
                                            0.125)[0]
@@ -244,7 +266,9 @@ with torch.no_grad():
 del q, k, v, do, q10, k10, v10, do10, x, xc, xr, full, half, hres, du
 del lx, lleaves, layer, dy, bu, bres
 cs.phase_flash("bf16", 512, 3, 197, 197, 64, 197)
-res["serve_clips_s"] = cs.phase_serve()["clips_per_s"]
+serve = cs.phase_serve()
+res["serve_clips_s"] = serve["clips_per_s"]
+res["serve_int8_clips_s"] = cs.phase_serve_int8(serve)["clips_per_s"]
 t = cs.phase_train()
 res["train224_step_ms"] = t["step_ms"]
 res["train224_clips_s"] = t["clips_per_s"]
@@ -301,6 +325,21 @@ def run(tree: str) -> dict:
     if found:
         res["train_device_ms"] = float(found.group(1))
         res["train_k12_k13_ms"] = float(found.group(2))
+    # phase 7's profiled step (device ms, the fused block's forward and
+    # backward share) and phase 11's profiled bucket-32 call (device ms =
+    # wall x busy), from their printed lines, which both trees print
+    found = re.search(r"device total ([\d.]+) ms per step: fused block "
+                      r"forward ([\d.]+), fused block backward ([\d.]+)",
+                      proc.stdout)
+    if found:
+        res["train224_device_ms"] = float(found.group(1))
+        res["train224_k1_ms"] = float(found.group(2))
+        res["train224_k2_ms"] = float(found.group(3))
+    found = re.search(r"int8 predict, bucket 32: wall ([\d.]+) ms per call, "
+                      r"device busy ([\d.]+)%", proc.stdout)
+    if found:
+        res["serve_int8_device_ms"] = (float(found.group(1))
+                                       * float(found.group(2)) / 100)
     return res
 
 
@@ -328,12 +367,17 @@ def main() -> int:
         print(f"RESULT {name} {json.dumps(res)}", flush=True)
         runs[name].append(res)
     print(f"card: {smi}; order {' '.join(order)}")
-    for key in runs["parent"][0]:
+    # every metric of either tree (a launch that only one tree makes is
+    # "-" in the other)
+    keys = list(dict.fromkeys(k for name in ("parent", "change")
+                              for r in runs[name] for k in r))
+    for key in keys:
         cells = []
         for name in ("parent", "change"):
-            vals = [r[key] for r in runs[name]]
-            cells.append(f"{name} " + " ".join(f"{v:.4f}" for v in vals)
-                         + f" (mean {sum(vals) / len(vals):.4f})")
+            vals = [r[key] for r in runs[name] if key in r]
+            cells.append(f"{name} " + (" ".join(f"{v:.4f}" for v in vals)
+                                       + f" (mean {sum(vals) / len(vals):.4f})"
+                                       if vals else "-"))
         print(f"{key}: " + " | ".join(cells))
     par, cha = regs["parent"], regs["change"]
     shared = sorted(set(par) & set(cha))
