@@ -75,21 +75,27 @@ Phases, each printing a line of its own; any failure exits non-zero:
                on the wgmma body; the first rows
                against the CPU; rows/s of each.
  13. kernel-mha-bwd — the packed-qkv attention backward at PTN's training
-               shape (32, 14, 6144), 8 heads of 256, bf16 and f32, at the
-               ViT shape (512, 208, 576), 3 heads of 64, kv_len 197, and at
-               (32, 160, 6144), the longest the forward takes at head dim
-               256: dq, dk, dv through fused_mha and autograd against the
-               plain backward on the forward's (o, lse); two runs bit for
-               bit; at dropout
-               0.5 both kernels against the plain versions given the masks
-               the library exports for the seed, and the dropped share; the
-               backward of F.scaled_dot_product_attention as a yardstick.
+               shape (32, 14, 6144), 8 heads of 256, bf16 (the packed
+               wgmma body of mha_bwd_sm90.cuh) and f32, at the ViT shape
+               (512, 208, 576), 3 heads of 64, kv_len 197 (kernels 12's and
+               13's wgmma bodies), and at (32, 160, 6144), the longest the
+               forward takes at head dim 256 (attention_bwd.cuh's streamed
+               body): dq, dk, dv through fused_mha and autograd against the
+               plain backward on the forward's (o, lse), the launch counted
+               on the body mha_bwd_on_wgmma names; two runs bit for bit; at
+               the two main-path shapes also dropout 0.5, both kernels
+               against the plain versions given the masks the library
+               exports for the seed, the dropped share, and kernel 4's time
+               at that rate; ptxas' registers and spills of kernel 4's wgmma
+               instances; the backward of F.scaled_dot_product_attention as
+               a yardstick.
  14. train-ptn — PTN at full width (batch 32, 13 scenes, 2 experts, 2 layers,
                width 2048, 8 heads, bf16, AdamW 1e-4; bench.py's two-modality
                and dropout-training configurations) at dropout 0 and 0.5:
                one make_train_step step and make_multi_step(8), 4 launches of
                each attention kernel per step (kernel 3 on its packed body at
-               dropout 0, streamed at 0.5), a falling loss at dropout 0,
+               dropout 0, streamed at 0.5; kernel 4 on its packed body at
+               both), a falling loss at dropout 0,
                one step's gradients on 2 rows against the CPU's plain kernel
                path, in bf16 and in f32; samples/s as the best of 3 windows, the host's
                share and a profile of one step; then one ptn_shared step at
@@ -122,7 +128,9 @@ Phases, each printing a line of its own; any failure exits non-zero:
                gradients on 2 clips against the CPU with identical routing;
                clips/s as the best of 3 windows, the host's share and a
                profile; then dropout 0.5 (kernels 3 and 4 in the MoE
-               blocks, none of 7 and 8).
+               blocks, none of 7 and 8; kernel 4 on kernels 12's and 13's
+               wgmma bodies): step ms, and a profiled call's device ms a
+               step with kernel 4's share.
 
  18. kernel-flash — the split-q/k/v attention: kernel 9 at (1536, 197,
                64), kv_len 197 (the int8 ViViT at token_pad=0: 512
@@ -158,9 +166,10 @@ Phases, each printing a line of its own; any failure exits non-zero:
                quant_scope at batch 32: 4 launches of kernel 9 per
                forward, 2 clips against the CPU; dim 384 with 6 heads of 64
                (no bf16 fused instance) served (kernel 3), trained one step
-               (kernels 3 and 4) and served in int8 (kernel 9) without
-               kernels 1, 2, 5; ViViT at image 320 (401 -> 416 tokens, more
-               than kernel 2 holds) trained one step through kernels 3, 4.
+               (kernels 3 and 4, 4 on kernels 12's and 13's wgmma bodies)
+               and served in int8 (kernel 9) without kernels 1, 2, 5; ViViT
+               at image 320 (401 -> 416 tokens, more than kernel 2 holds)
+               trained one step through kernels 3, 4 (4 on those bodies).
  22. train-long — the ViViT of phase 20 trained at batch 32 (dropout 0)
                through make_train_step and make_multi_step(8): 4 launches
                each of kernels 11, 12 and 13 per step, all on their wgmma
@@ -1526,17 +1535,25 @@ def _check_dqkv(kind, tag, got, want, heads, d) -> tuple[float, float]:
 
 
 def phase_mha_bwd(kind: str, b: int, s: int, heads: int, d: int,
-                  kv_len: int, dropout: bool = False) -> dict:
+                  kv_len: int, dropout: bool = False,
+                  ptxas: bool = False) -> dict:
     """Kernel 4, through ``fused_mha`` and autograd, against its plain
-    backward on the forward's (o, lse); with ``dropout``, both attention
-    kernels at rate PTN_DROPOUT against the plain versions given the
-    exported masks."""
+    backward on the forward's (o, lse), every launch on the body its rule
+    (``mha_bwd_on_wgmma``) names; with ``dropout``, both attention kernels
+    at rate PTN_DROPOUT against the plain versions given the exported
+    masks, and kernel 4's time at that rate; with ``ptxas``, the registers
+    and spills of kernel 4's wgmma instances."""
     import torch
     import torch.nn.functional as F
 
     from devt_tpu_torch.ops import flash_attention as tfa
 
+    if ptxas:
+        for name in ("mha_bwd_packed<d, drop>", "mha_bwd_dq_sm90<d, drop>",
+                     "mha_bwd_dkv_sm90<d, drop>"):
+            print(f"[kernel-mha-bwd] {_ptxas('mha_bwd', name)}", flush=True)
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    body = tfa.mha_bwd_on_wgmma(dtype, d, s, kv_len, 0.0)
     gen = torch.Generator().manual_seed(SEED + 8)
     qkv = torch.randn(b, s, 3 * heads * d, generator=gen).to(dtype).cuda()
     do = torch.randn(b, s, heads * d, generator=gen).to(dtype).cuda()
@@ -1555,7 +1572,13 @@ def phase_mha_bwd(kind: str, b: int, s: int, heads: int, d: int,
         return out.detach(), lse_, dqkv
 
     with torch.no_grad():
+        _zero_counts()
         o, lse, got = through_autograd()
+        if _body_counts()[f"k4_{body}"] != 1 or tfa.fused_mha.bwd_launches \
+                != 1:
+            raise AssertionError(f"{tag}: kernel 4 launches by body "
+                                 f"{_body_counts()}, expected one on the "
+                                 f"{body} body")
         want = tfa.fused_mha_bwd_plain(qkv, o, lse, do, heads, scale, kv_len)
         torch.cuda.synchronize()
         err, rel = _check_dqkv(kind, tag, got, want, heads, d)
@@ -1595,7 +1618,7 @@ def phase_mha_bwd(kind: str, b: int, s: int, heads: int, d: int,
     bound_ms, bound_by = _bound({kind: flops}, bytes_)
     out = {"dtype": kind, "max_abs_err": err, "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by, "body": body}
     drop_text = ""
     if dropout:
         rate, seed = PTN_DROPOUT, 20261
@@ -1609,7 +1632,12 @@ def phase_mha_bwd(kind: str, b: int, s: int, heads: int, d: int,
                                      f"(rate {rate}, band {band:.2e}), or "
                                      f"another seed gave the same mask")
             del other
+            _zero_counts()
             od, lsed, dgot = through_autograd(rate, seed)
+            if _body_counts()[f"k4_{body}"] != 1:
+                raise AssertionError(f"{tag} dropout: kernel 4 launches by "
+                                     f"body {_body_counts()}, expected one "
+                                     f"on the {body} body")
             wo, wlse = tfa.fused_mha_plain(qkv, heads, scale, kv_len, keep,
                                            rate)
             torch.cuda.synchronize()
@@ -1633,7 +1661,7 @@ def phase_mha_bwd(kind: str, b: int, s: int, heads: int, d: int,
             fwd_drop_ms = _graph_ms(fwd)
             bwd_drop_ms = _graph_ms(bwd)
         out.update(fwd0_ms=fwd0_ms, fwd_drop_ms=fwd_drop_ms,
-                   bwd_drop_ms=bwd_drop_ms)
+                   bwd_drop_ms=bwd_drop_ms, bwd_drop_max_abs_err=derr)
         drop_text = (
             f" | dropout {rate}: dropped share {share:.5f} (band {band:.1e}; "
             f"another seed, another mask), forward max_abs_err="
@@ -1643,7 +1671,8 @@ def phase_mha_bwd(kind: str, b: int, s: int, heads: int, d: int,
             f"{fwd0_ms:.4f} at 0, of kernel 4 {bwd_drop_ms:.4f} ms against "
             f"{kernel_ms:.4f}")
     print(f"[kernel-mha-bwd] fused_mha backward {kind} ({b},{s},"
-          f"{3 * heads * d}) {heads} heads of {d}, kv_len {kv_len}, through "
+          f"{3 * heads * d}) {heads} heads of {d}, kv_len {kv_len}, on the "
+          f"{body} body (mha_bwd_on_wgmma; one launch counted there), through "
           f"fused_mha and autograd against the plain backward on the "
           f"forward's (o, lse): dq, dk, dv within {BWD_ULPS[kind]} ulps of the largest element, "
           f"max_abs_err={err:.3e} ({rel:.3e} of its tensor's largest "
@@ -1767,7 +1796,7 @@ def phase_train_ptn() -> dict:
     batch = _ptn_batch(PTN_TRAIN_BATCH, SEED + 10)
     stacked = {k: v[None].expand(MULTI_STEPS, *v.shape)
                for k, v in batch.items()}
-    out: dict = {"fwd_launches": 0, "bwd_launches": 0}
+    out: dict = {"fwd_launches": 0, "bwd_launches": 0, "k4_packed": 0}
     for rate in (0.0, PTN_DROPOUT):
         cfg = _ptn_config(dropout=rate)
         model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
@@ -1784,17 +1813,21 @@ def phase_train_ptn() -> dict:
         torch.cuda.synchronize()
         counts = (fused_mha.launches, fused_mha.bwd_launches)
         steps = 1 + MULTI_STEPS
-        # kernel 3 on the packed body without dropout, streamed with it
+        # kernel 3 on the packed body without dropout, streamed with it;
+        # kernel 4 on the packed body at both
         body = "k3_packed" if rate == 0.0 else "k3_streamed"
         if counts != (per_step * steps,) * 2 \
-                or _body_counts()[body] != counts[0]:
+                or _body_counts()[body] != counts[0] \
+                or _body_counts()["k4_packed"] != counts[1]:
             raise AssertionError(
                 f"train-ptn dropout {rate}: {counts[0]} forward and "
                 f"{counts[1]} backward attention launches in {steps} steps, "
                 f"by body {_body_counts()}, expected {per_step} of each per "
-                f"step, every forward on the {body[3:]} body")
+                f"step, every forward on the {body[3:]} body and every "
+                f"backward on the packed body")
         out["fwd_launches"] += counts[0]
         out["bwd_launches"] += counts[1]
+        out["k4_packed"] += _body_counts()["k4_packed"]
         loss_after = evaluate(state, batch)[0].item()
         losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
         if not all(map(math.isfinite, losses)) or state.step != steps or (
@@ -1826,7 +1859,8 @@ def phase_train_ptn() -> dict:
                     if name.startswith(("attention_bf16<256, true",
                                         "mha_fwd_packed")))
         k4_ms = sum(ms for name, ms, _ in rows
-                    if name.startswith(("mha_bwd_delta", "mha_bwd_bf16")))
+                    if name.startswith(("mha_bwd_delta", "mha_bwd_bf16",
+                                        "mha_bwd_packed")))
         print(f"[profile]   device total {device_ms:.3f} ms per step: "
               f"attention forward (kernel 3) {k3_ms:.3f}, attention "
               f"backward (kernel 4) {k4_ms:.3f}, everything else "
@@ -1837,8 +1871,8 @@ def phase_train_ptn() -> dict:
         print(f"[train-ptn] PTN bf16 AdamW B={PTN_TRAIN_BATCH} ({tag}) "
               f"dropout {rate}: {steps} steps (1 + make_multi_step("
               f"{MULTI_STEPS})), attention launches {counts[0]} forward (on "
-              f"kernel 3's {body[3:]} body) + {counts[1]} backward "
-              f"({per_step} of each per step); loss on "
+              f"kernel 3's {body[3:]} body) + {counts[1]} backward (on "
+              f"kernel 4's packed body; {per_step} of each per step); loss on "
               f"the fixed batch {loss_before:.5f} -> {loss_after:.5f}{extra} "
               f"| {samples_per_s:.2f} samples/s, step_ms={step_ms:.3f}, of "
               f"which the host needs {host_ms:.3f} ms to enqueue a step; "
@@ -1862,14 +1896,16 @@ def phase_train_ptn() -> dict:
     counts = (fused_mha.launches, fused_mha.bwd_launches)
     shared = (len(PTN_EXPERTS) + 1) * PTN_LAYERS
     if counts != (shared, shared) or not math.isfinite(loss) \
-            or fused_mha.streamed_launches != shared:
+            or fused_mha.streamed_launches != shared \
+            or fused_mha.bwd_packed_launches != shared:
         raise AssertionError(f"train-ptn ptn_shared: launches {counts}, "
                              f"expected {shared} of each; loss {loss}")
     out["fwd_launches"] += counts[0]
     out["bwd_launches"] += counts[1]
+    out["k4_packed"] += fused_mha.bwd_packed_launches
     print(f"[train-ptn] ptn_shared bf16 dropout {PTN_DROPOUT}: one step, "
-          f"attention launches {counts[0]} forward + {counts[1]} backward, "
-          f"loss {loss:.5f}", flush=True)
+          f"attention launches {counts[0]} forward + {counts[1]} backward "
+          f"(on kernel 4's packed body), loss {loss:.5f}", flush=True)
     return out
 
 
@@ -2117,6 +2153,8 @@ def _zero_counts() -> None:
         fn.launches = fn.bwd_launches = 0
     mha = tfa.fused_mha
     mha.packed_launches = mha.one_shot_launches = mha.streamed_launches = 0
+    mha.bwd_packed_launches = mha.bwd_wgmma_launches = 0
+    mha.bwd_streamed_launches = 0
     half = fb.fused_attn_half
     half.wgmma_launches = half.streamed_launches = 0
     block = fb.fused_vit_block
@@ -2147,7 +2185,9 @@ def _body_counts() -> dict:
     on the recompute and kernels 12's and 13's wgmma bodies, or
     attention_bwd_bf16 / the float route's), 3 (the
     packed wgmma body of csrc/mha_fwd_sm90.cuh, kernel 9's one-shot
-    instance, or attention_fwd.cuh's streamed body), 9 and 14 (the wgmma
+    instance, or attention_fwd.cuh's streamed body), 4 (the packed wgmma
+    body of csrc/mha_bwd_sm90.cuh, kernels 12's and 13's wgmma bodies, or
+    attention_bwd.cuh's streamed one), 9 and 14 (the wgmma
     one-shot body of csrc/flash_fwd_sm90.cuh, or the streamed one of
     csrc/flash_fwd.cuh), 7 (its attention launch on the one-shot body's
     normalise-after instance, or attention_fwd.cuh's), 11 (the wgmma
@@ -2174,6 +2214,9 @@ def _body_counts() -> dict:
             "k3_packed": mha.packed_launches,
             "k3_one_shot": mha.one_shot_launches,
             "k3_streamed": mha.streamed_launches,
+            "k4_packed": mha.bwd_packed_launches,
+            "k4_wgmma": mha.bwd_wgmma_launches,
+            "k4_streamed": mha.bwd_streamed_launches,
             "k7_wgmma": half.wgmma_launches,
             "k7_streamed": half.streamed_launches,
             "k9_wgmma": fa.single_wgmma_launches,
@@ -2203,6 +2246,11 @@ WGMMA_BODIES = {
     "flash_bwd_dq_wgmma<d, ring>": r"flash_bwd_dq_wgmmaILi(\d+)ELb(\d)E",
     "flash_bwd_dkv_wgmma<d, ring>": r"flash_bwd_dkv_wgmmaILi(\d+)ELb(\d)E",
     "mha_fwd_packed<d>": r"mha_fwd_packedILi(\d+)E",
+    # kernel 4's bodies (csrc/mha_bwd_sm90.cuh): packed, and kernels 12's
+    # and 13's bodies with kBwdMha; the last argument is the dropout
+    "mha_bwd_packed<d, drop>": r"mha_bwd_packedILi(\d+)ELb(\d)E",
+    "mha_bwd_dq_sm90<d, drop>": r"mha_bwd_dq_sm90ILi(\d+)ELb(\d)E",
+    "mha_bwd_dkv_sm90<d, drop>": r"mha_bwd_dkv_sm90ILi(\d+)ELb(\d)E",
     "gemm_s8_wgmma<out>": r"gemm_s8_wgmmaI(\w+?)EEv",
     # csrc/block_sm90.cuh: the fused block's products (kernels 1, 2, 7, 8)
     "ln_qkv_sm90<D, stored>": r"ln_qkv_sm90ILi(\d+)ELb(\d)E",
@@ -2573,25 +2621,40 @@ def phase_train_moe() -> dict:
     drop_counts = _kernel_counts()
     drop_expect = _expect(k1=n_dense * DROP_STEPS, k2=n_dense * DROP_STEPS,
                           k3=n_moe * DROP_STEPS, k4=n_moe * DROP_STEPS)
+    # kernel 4 at head dim 64 on kernels 12's and 13's wgmma bodies
+    k4_wgmma = _body_counts()["k4_wgmma"]
     if drop_counts != drop_expect or not math.isfinite(drop_loss) \
-            or not math.isfinite(drop_metrics["moe_aux"].item()):
+            or not math.isfinite(drop_metrics["moe_aux"].item()) \
+            or k4_wgmma != drop_counts["k4"]:
         raise AssertionError(f"train-moe dropout {MOE_DROPOUT}: launches "
-                             f"{drop_counts}, expected {drop_expect}; loss "
-                             f"{drop_loss}")
+                             f"{drop_counts}, expected {drop_expect}, kernel "
+                             f"4 by body {_body_counts()}; loss {drop_loss}")
     t0 = time.perf_counter()
     for _ in range(TRAIN_ITERS):
         drop_state, drop_metrics = drop_multi(drop_state, drop_stacked, SEED)
     drop_metrics["loss"].item()
     drop_ms = (time.perf_counter() - t0) / (TRAIN_ITERS * DROP_STEPS) * 1e3
+    # a profiled call of DROP_STEPS steps: device ms a step, kernel 4's
+    rows, drop_busy, drop_wall = _traced(
+        lambda: drop_multi(drop_state, drop_stacked, SEED)[1]["loss"].item())
+    _print_profile(f"MoE-ViViT train, dropout {MOE_DROPOUT}, {DROP_STEPS} "
+                   f"steps", rows, drop_busy, drop_wall, top=8)
+    drop_device_ms = sum(ms for _, ms, _ in rows) / DROP_STEPS
+    k4_ms = sum(ms for name, ms, _ in rows
+                if name.startswith("mha_bwd_")) / DROP_STEPS
     print(f"[train-moe] the same at dropout {MOE_DROPOUT}: {DROP_STEPS} "
           f"steps, launches {drop_counts} ({n_moe} of kernels 3 and 4 and "
-          f"none of 7 and 8 per step), mean loss {drop_loss:.5f} | step_ms="
+          f"none of 7 and 8 per step; kernel 4's {k4_wgmma} on kernels 12's "
+          f"and 13's wgmma bodies), mean loss {drop_loss:.5f} | step_ms="
           f"{drop_ms:.3f}, {TRAIN_BATCH / drop_ms * 1e3:.2f} clips/s (one "
-          f"window of {TRAIN_ITERS * DROP_STEPS} steps, host clock)",
-          flush=True)
+          f"window of {TRAIN_ITERS * DROP_STEPS} steps, host clock); device "
+          f"{drop_device_ms:.3f} ms a step, kernel 4 {k4_ms:.3f} of it, busy "
+          f"{drop_busy:.1%} (a profiled call)", flush=True)
     return {"counts": counts, "drop_counts": drop_counts,
             "clips_per_s": clips_per_s, "step_ms": step_ms,
-            "host_ms": host_ms, "device_ms": device_ms, "busy": busy}
+            "host_ms": host_ms, "device_ms": device_ms, "busy": busy,
+            "drop_step_ms": drop_ms, "drop_device_ms": drop_device_ms,
+            "drop_k4_ms": k4_ms, "k4_wgmma": k4_wgmma}
 
 
 # the split-q/k/v attention's main-path shapes: the int8 ViViT's unfused
@@ -3014,6 +3077,12 @@ def phase_serve_int8_unfused() -> dict:
                 raise AssertionError(f"serve-int8-unfused dim 384 {tag}: "
                                      f"loss {loss.item()}")
             runs[tag] = _kernel_counts()
+            k4_wgmma = _body_counts()["k4_wgmma"]
+            if k4_wgmma != runs[tag]["k4"]:
+                raise AssertionError(f"serve-int8-unfused dim 384 {tag}: "
+                                     f"kernel 4 by body {_body_counts()}, "
+                                     f"expected every launch on kernels "
+                                     f"12's and 13's wgmma bodies")
     want = {"serve": _expect(k3=depth), "int8": _expect(k9=depth),
             "train": _expect(k3=depth, k4=depth)}
     if runs != want:
@@ -3030,9 +3099,12 @@ def phase_serve_int8_unfused() -> dict:
     tall_loss = metrics["loss"].item()
     tall_counts = _kernel_counts()
     if tall_counts != _expect(k3=depth, k4=depth) \
-            or not math.isfinite(tall_loss):
+            or not math.isfinite(tall_loss) \
+            or _body_counts()["k4_wgmma"] != depth:
         raise AssertionError(f"serve-int8-unfused image 320: launches "
-                             f"{tall_counts}, loss {tall_loss}")
+                             f"{tall_counts}, kernel 4 by body "
+                             f"{_body_counts()} (every launch on the wgmma "
+                             f"bodies), loss {tall_loss}")
     print(f"[serve-int8-unfused] ViViT token_pad=0 (197 space tokens, no "
           f"multiple of 16) under quant_scope through make_eval_step at "
           f"batch {TRAIN_BATCH}: launches {counts['k9']} of kernel 9 "
@@ -3043,14 +3115,17 @@ def phase_serve_int8_unfused() -> dict:
           f"steps, host clock) | dim 384, 6 heads of 64 (no bf16 fused "
           f"instance): serving {runs['serve']['k3']} launches of kernel 3, "
           f"a training step {runs['train']['k3']} + {runs['train']['k4']} of "
-          f"kernels 3 and 4, int8 {runs['int8']['k9']} of kernel 9, none of "
-          f"kernels 1, 2, 5 | image 320 (401 -> 416 tokens): a training "
-          f"step through {tall_counts['k3']} + {tall_counts['k4']} launches "
-          f"of kernels 3 and 4, none of kernel 2, loss {tall_loss:.5f}",
+          f"kernels 3 and 4 (4 on kernels 12's and 13's wgmma bodies), int8 "
+          f"{runs['int8']['k9']} of kernel 9, none of kernels 1, 2, 5 | "
+          f"image 320 (401 -> 416 tokens): a training step through "
+          f"{tall_counts['k3']} + {tall_counts['k4']} launches of kernels 3 "
+          f"and 4 (4 on the wgmma bodies), none of kernel 2, loss "
+          f"{tall_loss:.5f}",
           flush=True)
     return {"launches": counts["k9"] + runs["int8"]["k9"],
             "counts": [counts, *runs.values(), tall_counts],
-            "clips_per_s": clips_per_s}
+            "clips_per_s": clips_per_s,
+            "k4_wgmma": runs["train"]["k4"] + tall_counts["k4"]}
 
 
 def _blocked_bwd_bounds(kind, bh, sq, skv, d, kv_len):
@@ -3635,12 +3710,15 @@ def main() -> int:
     # kernel 4 at the shape PTN training launches gives the kernels line
     # its numbers, with the dropout checks; then f32 and the ViT shape
     mha_bwd = phase_mha_bwd("bf16", PTN_TRAIN_BATCH, PTN_SEQ + 1, PTN_HEADS,
-                            PTN_WIDTH // PTN_HEADS, PTN_SEQ + 1, dropout=True)
+                            PTN_WIDTH // PTN_HEADS, PTN_SEQ + 1, dropout=True,
+                            ptxas=True)
     phase_mha_bwd("f32", PTN_TRAIN_BATCH, PTN_SEQ + 1, PTN_HEADS,
                   PTN_WIDTH // PTN_HEADS, PTN_SEQ + 1)
-    phase_mha_bwd("bf16", B, S, HEADS, D // HEADS, KV_LEN)
+    # the MoE blocks' shape at dropout, the other wgmma route
+    mha_bwd_vit = phase_mha_bwd("bf16", B, S, HEADS, D // HEADS, KV_LEN,
+                                dropout=True)
     # the longest sequence kernel 3 takes at PTN's head dim: several row
-    # tiles and streamed chunks in kernel 4
+    # tiles and streamed chunks in kernel 4 (its streamed body)
     phase_mha_bwd("bf16", PTN_TRAIN_BATCH, 160, PTN_HEADS,
                   PTN_WIDTH // PTN_HEADS, 160)
     train_ptn = phase_train_ptn()
@@ -3730,9 +3808,26 @@ def main() -> int:
                                    csrc + "mha_fwd_sm90.cuh",
                                    csrc + "flash_fwd_sm90.cuh",
                                    csrc + "attention_fwd.cuh"]),
-        entry(4, "fused_mha_bwd", csrc + "mha_bwd.cu",
+        # PTN training on the packed wgmma body; the MoE blocks at dropout
+        # and the blocks the fused kernels do not take on kernels 12's and
+        # 13's bodies; the ViT shape's reading beside the PTN one
+        entry(4, "fused_mha_bwd", csrc + "mha_bwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:589",
-              train_ptn["bwd_launches"] + later("k4"), mha_bwd),
+              train_ptn["bwd_launches"] + later("k4"), mha_bwd,
+              bodies={"packed": train_ptn["k4_packed"],
+                      "wgmma": train_moe["k4_wgmma"]
+                      + int8_unfused["k4_wgmma"],
+                      "streamed": train_ptn["bwd_launches"] + later("k4")
+                      - train_ptn["k4_packed"] - train_moe["k4_wgmma"]
+                      - int8_unfused["k4_wgmma"]},
+              drop_ms=mha_bwd["bwd_drop_ms"],
+              vit={k: mha_bwd_vit[k] for k in (
+                  "kernel_ms", "bwd_drop_ms", "plain_ms", "library_ms",
+                  "bound_ms", "bound_by", "max_abs_err",
+                  "bwd_drop_max_abs_err")},
+              launch_sources=[csrc + "mha_bwd.cu", csrc + "mha_bwd_sm90.cuh",
+                              csrc + "flash_bwd_sm90.cuh",
+                              csrc + "attention_bwd.cuh"]),
         # LN1 + qkv and out-projection + FFN on int8 and bf16 wgmma, the
         # attention on the one-shot body's normalise-after instance
         entry(5, "quant_fused_vit_block", csrc + "quant_block_fwd.cu",

@@ -36,6 +36,20 @@
 // block_bwd_on_wgmma (bfloat16, head dim 16-64, at most 256 live keys)
 // picks this route in block_bwd_parts.cuh:block_attention_bwd_bf16.
 //
+// kBwdMha (mha_bwd_dq_sm90 and mha_bwd_dkv_sm90, entries in
+// mha_bwd_sm90.cuh) is kernel 4, fused_mha's backward
+// (devt_tpu/ops/flash_attention.py:589 _mha_bwd_kernel), at head dims
+// 16-64: q, k, v the head views of the packed qkv, o, do and lse (B, S, H)
+// read by strides, delta into (B*H, S) scratch in the dq launch's
+// prologue, dq, dk, dv stored by strides into the packed dqkv.  Its
+// compile-time kDrop option (the bodies' third template argument) applies
+// the forward's dropout: each 64 x 64 score tile's keep bits are drawn
+// once into shared memory before the tile's products (draw_keep_tile: a
+// thread a 32-key word of one query, two buffers and one barrier of the
+// consumer warpgroup a tile), dP is multiplied by the mask and, in kernel
+// 13's body, p too before dV.  Both options are if constexpr, so the
+// instances above keep their code.
+//
 // What they compute is flash_bwd.cu's contract, per (sequence, head):
 //
 //   delta = rowsum(f32(do) * f32(o))
@@ -200,14 +214,29 @@ struct BlockBwd : FlashBwd {
   long long ls[3], gs[3];
 };
 
+// kernel 4's (kBwdMha, fused_mha's backward on the packed qkv): q, k, v
+// the head views of qkv by strides, o and do (B, S, H*d) read through os
+// (element strides (sequence, head, row)), lse (B, S, H) through ls, delta
+// (B*H, S) scratch that the dq launch writes and the dk/dv launch reads,
+// the bf16 dq, dk and dv stored through gs into the packed dqkv; with the
+// bodies' kDrop option the forward's dropout, drop.  A type of its own,
+// as RingBwd.
+struct MhaBwd : FlashBwd {
+  long long os[3], ls[3], gs[3];
+  Drop drop;
+};
+
 // the bodies' compile-time options: kernels 10, 12, 13 (kBwdFlash), 15
-// (kBwdRing), the attention backward of kernels 2 and 8 (kBwdBlock)
-constexpr int kBwdFlash = 0, kBwdRing = 1, kBwdBlock = 2;
+// (kBwdRing), the attention backward of kernels 2 and 8 (kBwdBlock),
+// kernel 4 (kBwdMha)
+constexpr int kBwdFlash = 0, kBwdRing = 1, kBwdBlock = 2, kBwdMha = 3;
 
 template <int kMode>
 using BwdArgsOf = std::conditional_t<
     kMode == kBwdRing, RingBwd,
-    std::conditional_t<kMode == kBwdBlock, BlockBwd, FlashBwd>>;
+    std::conditional_t<
+        kMode == kBwdBlock, BlockBwd,
+        std::conditional_t<kMode == kBwdMha, MhaBwd, FlashBwd>>>;
 
 template <bool kRing>
 using BwdArgs = BwdArgsOf<kRing ? kBwdRing : kBwdFlash>;
@@ -289,6 +318,54 @@ __device__ __forceinline__ float pos_inf() {
   return __int_as_float(0x7f800000);
 }
 
+// a barrier of the consumer warpgroup's 128 threads (id 1; the producer
+// warp does not take part)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// bit i (i < n, 1 <= n <= 32) is the keep bit of flat attention element
+// flat0 + i (site kSiteAttn): one Philox draw a 4 consecutive elements
+__device__ __forceinline__ uint32_t keep_word(const Drop& d,
+                                              unsigned long long flat0,
+                                              int n) {
+  uint32_t w = 0;
+  const unsigned long long end = flat0 + n;
+#pragma unroll 1
+  for (unsigned long long i4 = flat0 >> 2; 4 * i4 < end; ++i4) {
+    const uint4 x = philox4(d, kSiteAttn, i4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long pos = static_cast<long long>(4 * i4 + e) -
+                            static_cast<long long>(flat0);
+      if (pos >= 0 && pos < n && word_of(x, e) >= d.cutoff) w |= 1u << pos;
+    }
+  }
+  return w;
+}
+
+// the keep bits of a 64 x 64 score tile of (sequence b, head h) of an
+// S-token call, one word a consumer thread: word [r][w] bit i is the keep
+// bit of (query q0 + r, key k0 + 32 w + i); queries past S and keys past
+// kv_len get 0 (their p is 0).  Kernel 4's bodies draw them once a tile:
+// a draw gives 4 consecutive keys of one query, and a thread's fragment
+// holds 2 (query-major) or 1 (key-major) of them.
+__device__ __forceinline__ void draw_keep_tile(uint32_t (*keep)[2],
+                                               const Drop& d, int b, int h,
+                                               int H, int S, int q0, int k0,
+                                               int kv_len) {
+  const int r = threadIdx.x >> 1, w = threadIdx.x & 1;
+  const int q = q0 + r, k = k0 + 32 * w;
+  const int n = min(32, kv_len - k);
+  keep[r][w] =
+      q < S && n > 0
+          ? keep_word(d,
+                      ((static_cast<unsigned long long>(b) * H + h) * S + q) *
+                              S + k,
+                      n)
+          : 0u;
+}
+
 // stores rows row0 + 8 hh of a 64 x HD accumulator tile of this thread as
 // bf16 pairs into the contiguous (rows, HD) slab at base, rows >= `rows`
 // skipped, rows >= `live` stored as zeros
@@ -362,17 +439,23 @@ __device__ __forceinline__ void store_tile_f32(float* base, const float* acc,
 // with lc the raw lse, as the plain version subtracts (a row whose lse is
 // about -1e30 then gives p = 1 where it does, not 2^(rounding error)); the
 // bias is -inf past Skv, so every tile takes it and none needs kMask.
-template <int HD, bool kMask, bool kRing = false>
+// kDrop (kernel 4 with dropout) multiplies dP by the mask of the tile's
+// keep bits, keep[query row][key / 32] (draw_keep_tile), `ds` the kept
+// probabilities' scale: ds = p (dP mask - delta) scale.
+template <int HD, bool kMask, bool kRing = false, bool kDrop = false>
 __device__ __forceinline__ void dq_tile(int j, const FlashBwd& a,
                                         const unsigned char* KV,
                                         uint64_t* bars, uint64_t qdesc,
                                         uint64_t dodesc, const float (&lc)[2],
                                         const float (&dl)[2], int tq4,
                                         int lane, float (&dq)[HD / 2],
-                                        const float* msk = nullptr) {
+                                        const float* msk = nullptr,
+                                        const uint32_t (*keep)[2] = nullptr,
+                                        float dscale = 0.f) {
   constexpr int N = kBwdDqKeys;
   constexpr int S = kBwdDqStages;
   constexpr uint32_t kSlot = align1024(N * HD * 2);
+  static_assert(!kDrop || N == 64, "keep bits are drawn for 64-key tiles");
   const float c = a.scale * kLog2e;
   const int st = j % S;
   const uint32_t ph = (j / S) & 1;
@@ -419,9 +502,28 @@ __device__ __forceinline__ void dq_tile(int j, const FlashBwd& a,
   wgmma_wait_all();
   fence_all<N / 2>(dp);
   if (lane == 0) mbar_arrive(&bars[3 * S + st]);  // V read
+  if constexpr (kDrop) {
+    // register 4 jj + e: query row gq + 8 (e / 2) of the warp's 16, key
+    // 8 jj + 2 tq4 + e % 2 (in word jj / 4 of the row)
+    const int rw = 16 * (threadIdx.x >> 5) + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i)
-    dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * a.scale;
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t w0 = keep[rw + 8 * hh][0], w1 = keep[rw + 8 * hh][1];
+#pragma unroll
+      for (int jj = 0; jj < N / 8; ++jj)
+#pragma unroll
+        for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+          const int key = (8 * jj + 2 * tq4 + (e & 1)) & 31;
+          const float m = ((jj < 4 ? w0 : w1) >> key) & 1 ? dscale : 0.f;
+          float& x = dp[4 * jj + e];
+          x = s[4 * jj + e] * (x * m - dl[hh]) * a.scale;
+        }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * a.scale;
+  }
   uint32_t ds[N / 16][4];
   to_frags<N>(ds, dp);
 
@@ -432,8 +534,9 @@ __device__ __forceinline__ void dq_tile(int j, const FlashBwd& a,
 }
 
 // kernel 12's body: the __global__ entries below take it with their
-// option (kMode), the tensor maps being their __grid_constant__ parameters
-template <int HD, int kMode>
+// option (kMode, and kDrop for kBwdMha), the tensor maps being their
+// __grid_constant__ parameters
+template <int HD, int kMode, bool kDrop = false>
 __device__ __forceinline__ void dq_body(const CUtensorMap& tq,
                                         const CUtensorMap& tk,
                                         const CUtensorMap& tv,
@@ -524,6 +627,8 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq,
       size_t g;
       if constexpr (kRing)
         g = b * a.qs[0] + h * a.qs[1] + row * a.qs[2] + tq4 * (HD / 4);
+      else if constexpr (kMode == kBwdMha)
+        g = b * a.os[0] + h * a.os[1] + row * a.os[2] + tq4 * (HD / 4);
       else
         g = (head + row) * HD + tq4 * (HD / 4);
       const __nv_bfloat162* op =
@@ -541,6 +646,10 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq,
     dl[hh] = quad_sum(acc);
     if constexpr (kRing)
       lc[hh] = row < a.Sq ? a.lse[b * a.ls[0] + h * a.ls[1] + row * a.ls[2]]
+                          : pos_inf();
+    else if constexpr (kMode == kBwdMha)
+      lc[hh] = row < a.Sq ? a.lse[b * a.ls[0] + h * a.ls[1] + row * a.ls[2]] *
+                                kLog2e
                           : pos_inf();
     else
       lc[hh] = row < a.Sq ? a.lse[head + row] * kLog2e : pos_inf();
@@ -561,6 +670,28 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq,
     fence_all<HD / 2>(dq);
     store_tile_f32<HD>(a.dqf + b * a.qs[0] + h * a.qs[1], dq, row0, tq4,
                        a.Sq, a.qs[2]);
+  } else if constexpr (kMode == kBwdMha && kDrop) {
+    // the keep bits of each key tile, drawn before its products into one
+    // of two buffers: a tile's barrier also tells the drawing threads that
+    // the tile before the last is read
+    __shared__ uint32_t keep[2][64][2];
+#pragma unroll 1
+    for (int j = 0; j < ntiles; ++j) {
+      draw_keep_tile(keep[j & 1], a.drop, b, h, a.H, a.Sq, 64 * part, j * N,
+                     a.kv_len);
+      consumer_sync();
+      if (j < ntiles - 1)
+        dq_tile<HD, false, false, true>(j, a, KV, bars, qdesc, dodesc, lc,
+                                        dl, tq4, lane, dq, nullptr,
+                                        keep[j & 1], a.drop.scale);
+      else
+        dq_tile<HD, true, false, true>(j, a, KV, bars, qdesc, dodesc, lc, dl,
+                                       tq4, lane, dq, nullptr, keep[j & 1],
+                                       a.drop.scale);
+    }
+    fence_all<HD / 2>(dq);
+    store_tile_rs<HD>(a.dq + b * a.gs[0] + h * a.gs[1], dq, row0, tq4, a.Sq,
+                      a.Sq, a.gs[2]);
   } else {
 #pragma unroll 1
     for (int j = 0; j < ntiles - 1; ++j)
@@ -571,7 +702,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq,
                       lane, dq);
     fence_all<HD / 2>(dq);
 
-    if constexpr (kMode == kBwdBlock)
+    if constexpr (kMode == kBwdBlock || kMode == kBwdMha)
       store_tile_rs<HD>(a.dq + b * a.gs[0] + h * a.gs[1], dq, row0, tq4,
                         a.Sq, a.Sq, a.gs[2]);
     else
@@ -605,7 +736,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)
 // ---------------------------------------------------------------------------
 
 // kernel 13's body, taken as kernel 12's
-template <int HD, int kMode>
+template <int HD, int kMode, bool kDrop = false>
 __device__ __forceinline__ void dkv_body(const CUtensorMap& tq,
                                          const CUtensorMap& tk,
                                          const CUtensorMap& tv,
@@ -636,7 +767,7 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& tq,
   const int key0 = 64 * part;
   const size_t kbase = (static_cast<size_t>(bh) * a.Skv + key0) * HD;
 
-  if constexpr (kMode == kBwdBlock) {
+  if constexpr (kMode == kBwdBlock || kMode == kBwdMha) {
     if (key0 >= a.kv_len) {  // every key of the block masked: zeros
       const int n = min(64, a.Skv - key0) * HD / 2;
       bf16* dk = a.dk + b * a.gs[0] + h * a.gs[1] + key0 * a.gs[2];
@@ -688,7 +819,7 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& tq,
         if constexpr (kRing)  // the raw lse: kernel 12's kRing exponent
           lsm[st][i] =
               ok ? a.lse[b * a.ls[0] + h * a.ls[1] + r * a.ls[2]] : pos_inf();
-        else if constexpr (kMode == kBwdBlock)
+        else if constexpr (kMode == kBwdBlock || kMode == kBwdMha)
           lsm[st][i] =
               ok ? a.lse[b * a.ls[0] + h * a.ls[1] + r * a.ls[2]] * kLog2e
                  : pos_inf();
@@ -724,6 +855,14 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& tq,
   float dk[HD / 2], dv[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  // kDrop: the keep bits of each query tile, keep[query][key / 32], drawn
+  // before its products into one of two buffers, as kernel 12's
+  static_assert(!kDrop || N == 64, "keep bits are drawn for 64-query tiles");
+  uint32_t(*keep)[64][2] = nullptr;
+  if constexpr (kDrop) {
+    __shared__ uint32_t bufs[2][64][2];
+    keep = bufs;
+  }
   mbar_wait(kvfull, 0);
 #pragma unroll 1
   for (int j = 0; j < ntiles; ++j) {
@@ -732,6 +871,11 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& tq,
     const unsigned char* Qs = QD + 2 * st * kSlot;
     const uint64_t qdesc = smem_desc<HD>(Qs);
     const uint64_t dodesc = smem_desc<HD>(Qs + kSlot);
+    if constexpr (kDrop) {
+      draw_keep_tile(keep[j & 1], a.drop, b, h, a.H, a.Sq, j * N, key0,
+                     a.kv_len);
+      consumer_sync();
+    }
 
     // S^T = K Q^T and dP^T = V dO^T: register 4 jj + e holds key row gq +
     // 8 (e / 2) of the warp's 16, query column 8 jj + 2 tq4 + e % 2
@@ -759,13 +903,36 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& tq,
     }
     wgmma_wait_all();  // dP^T
     fence_all<N / 2>(dp);
+    if constexpr (kDrop) {
+      // register 4 jj + e: key row gq + 8 (e / 2) of the warp's 16 (bit
+      // of word warp / 2), query column 8 jj + 2 tq4 + e % 2; ds from p,
+      // then p times the mask for dV
+      const int kw = warp >> 1, kb0 = (16 * warp + gq) & 31;
 #pragma unroll
-    for (int jj = 0; jj < N / 8; ++jj) {
-      const float2 g = *reinterpret_cast<const float2*>(dlt + 8 * jj + 2 * tq4);
+      for (int jj = 0; jj < N / 8; ++jj) {
+        const float2 g =
+            *reinterpret_cast<const float2*>(dlt + 8 * jj + 2 * tq4);
+        const uint32_t w[2] = {keep[j & 1][8 * jj + 2 * tq4][kw],
+                               keep[j & 1][8 * jj + 2 * tq4 + 1][kw]};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float& x = dp[4 * jj + e];
-        x = s[4 * jj + e] * (x - (e & 1 ? g.y : g.x)) * a.scale;
+        for (int e = 0; e < 4; ++e) {
+          const float m =
+              (w[e & 1] >> (kb0 + 8 * (e >> 1))) & 1 ? a.drop.scale : 0.f;
+          float& x = dp[4 * jj + e];
+          x = s[4 * jj + e] * (x * m - (e & 1 ? g.y : g.x)) * a.scale;
+          s[4 * jj + e] *= m;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < N / 8; ++jj) {
+        const float2 g =
+            *reinterpret_cast<const float2*>(dlt + 8 * jj + 2 * tq4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& x = dp[4 * jj + e];
+          x = s[4 * jj + e] * (x - (e & 1 ? g.y : g.x)) * a.scale;
+        }
       }
     }
     // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major; p and ds are
@@ -787,7 +954,7 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap& tq,
     const size_t kr = b * a.ks[0] + h * a.ks[1] + key0 * a.ks[2];
     store_tile_f32<HD>(a.dkf + kr, dk, row0, tq4, rows, a.ks[2]);
     store_tile_f32<HD>(a.dvf + kr, dv, row0, tq4, rows, a.ks[2]);
-  } else if constexpr (kMode == kBwdBlock) {
+  } else if constexpr (kMode == kBwdBlock || kMode == kBwdMha) {
     const long long kr = b * a.gs[0] + h * a.gs[1] + key0 * a.gs[2];
     store_tile_rs<HD>(a.dk + kr, dk, row0, tq4, rows, live, a.gs[2]);
     store_tile_rs<HD>(a.dv + kr, dv, row0, tq4, rows, live, a.gs[2]);

@@ -22,27 +22,34 @@
 // over (b, h, q, k)), as the forward draws it (attention_fwd.cuh), whatever
 // either launch's grid.
 //
-// Design.  The body is attention_bwd.cuh's, which flash_bwd.cu (kernel
-// 10, split q, k, v) shares: FlashAttention-2's split, a launch that writes
-// delta (B, S, H) f32, then blocks that own up to 64 queries of a head
-// (dq) or up to 64 keys (dk, dv) and stream the other side's rows through
-// shared memory, so every S of a single kv block (512) fits; one owner per
-// output, no atomics, two runs give the same bits.  Here its operands are
-// the packed layout: q, k and v of head h at columns h*d, (H + h)*d and
-// (2H + h)*d of a qkv row, and dqkv likewise.  At PTN's S = 14 and d = 256
-// a block owns one 16-row strip in 4 column chunks: 4 warps, 2 blocks per
-// (head, sequence).
+// Three bodies, by the rule mha_bwd_route (mha_bwd_sm90.cuh; exported as
+// devt_mha_bwd_route, mirrored by ops/flash_attention.py mha_bwd_on_wgmma),
+// at every dropout rate:
 //
-// Bound at the PTN training shape (B = 32, S = 14, kv_len 14, H = 8,
-// d = 256, bf16): 5 products of 2 * S * kv_len * d operations per head,
-// 0.13 GFLOP, against 14.7 MB read and written (qkv, o, do, lse, dqkv):
-// bytes bind it, 0.0044 ms at 3.35 TB/s.  A block reads its own rows once
-// and the streamed rows once (from L2 after the first block of a head), o
-// is read once by the delta launch; what the design leaves on the table at
-// S = 14 is parallelism, since 512 blocks of 4 warps keep most of the
-// card idle.  The times are in PERF.md.
+//   packed     bf16, head dim 128 or 256, S <= 64 (PTN training):
+//              mha_bwd_sm90.cuh's mha_bwd_packed, one launch, several whole
+//              sequences of one head to a 64-row wgmma tile, each score
+//              computed once, delta from the tile's o and do rows
+//   wgmma      bf16, head dim 16, 32 or 64 (the blocks the fused kernels do
+//              not take: MoE-ViViT at dropout, ViViT at dim 384): kernels
+//              12's and 13's wgmma bodies (flash_bwd_sm90.cuh) with kBwdMha,
+//              the dq launch (delta into the scratch) then the dk/dv launch
+//   streamed   float, and head dim 128 or 256 at S > 64: attention_bwd.cuh's
+//              body, which flash_bwd.cu (kernel 10 and the float and wide
+//              kernels 12, 13) shares: FlashAttention-2's split, a launch
+//              that writes delta (B, S, H) f32, then blocks that own up to
+//              64 queries of a head (dq) or up to 64 keys (dk, dv) and
+//              stream the other side's rows through shared memory, so every
+//              S of a single kv block (512) fits; here on the packed layout
+//              (q, k and v of head h at columns h*d, (H + h)*d and
+//              (2H + h)*d of a qkv row, dqkv likewise)
+//
+// Each body has one owner per output, no atomics: two runs give the same
+// bits.  The bound and the design of the wgmma bodies are in
+// mha_bwd_sm90.cuh, the times in PERF.md.
 
 #include "attention_bwd.cuh"
+#include "mha_bwd_sm90.cuh"
 
 namespace {
 
@@ -65,13 +72,16 @@ BwdOperands<T> packed(const void* qkv, const void* dout, const void* lse,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  qkv and dqkv (B, S, 3*H*d), o and do
-// (B, S, H*d) in that type, lse (B, S, H) f32, delta (B, S, H) f32 scratch
-// that the first launch fills; rate in [0, 1) and the forward's seed.  The
-// bfloat16 kernel is compiled for head dims 16, 32, 64, 128 and 256, the
-// float kernel takes any multiple of 4; shared memory holds up to 64 rows
+// (B, S, H*d) in that type (bfloat16: 16-byte aligned, which the wgmma
+// bodies' TMA maps need), lse (B, S, H) f32, delta (B, S, H) f32 scratch
+// that the first launch fills (unused by the packed body, which may be
+// given null); rate in [0, 1) and the forward's seed.  The bfloat16 kernels
+// are compiled for head dims 16, 32, 64, 128 and 256, the float kernel takes
+// any multiple of 4; the streamed body's shared memory holds up to 64 rows
 // (float: 32) of a head at a time, with their lse and delta.
-// Returns the CUDA error of the launches (0 on success, invalid value for
-// a shape that is not covered); they are asynchronous on `stream`.
+// devt_mha_bwd_route names the body a shape takes.  Returns the CUDA error
+// of the launches (0 on success, invalid value for a shape that is not
+// covered); they are asynchronous on `stream`.
 extern "C" int devt_mha_bwd(int dtype, const void* qkv, const void* o,
                             const void* dout, const void* lse, void* delta,
                             void* dqkv, int B, int S, int H, int d,
@@ -97,13 +107,37 @@ extern "C" int devt_mha_bwd(int dtype, const void* qkv, const void* o,
   }
   if (d != 16 && d != 32 && d != 64 && d != 128 && d != 256)
     return cudaErrorInvalidValue;
+  switch (mha_bwd_route(dtype, d, S, kv_len, drop.on)) {
+    case kMhaBwdPacked:
+      return launch_mha_bwd_packed(qkv, o, dout, static_cast<const float*>(lse),
+                                   dqkv, B, S, H, d, kv_len, scale, drop, s);
+    case kMhaBwdWgmma:
+      return launch_mha_bwd_wgmma(qkv, o, dout, static_cast<const float*>(lse),
+                                  static_cast<float*>(delta), dqkv, B, S, H, d,
+                                  kv_len, scale, drop, s);
+  }
+  // the streamed body: head dim 128 or 256 past one 64-row tile
   const BwdOperands<bf16> a =
       packed<bf16>(qkv, dout, lse, delta, dqkv, S, H, d);
   DEVT_TRY(launch_delta<bf16>(o, dout, a.delta, pairs, d, s));
-  return drop.on ? launch_bwd_bf16_d<true, false>(a, B, d, sh, kBwdBoth,
-                                                   drop, s)
-                 : launch_bwd_bf16_d<false, false>(a, B, d, sh, kBwdBoth,
-                                                    drop, s);
+  if (d == 256)
+    return drop.on ? launch_bwd_bf16<256, true, false>(a, B, sh, kBwdBoth,
+                                                       drop, s)
+                   : launch_bwd_bf16<256, false, false>(a, B, sh, kBwdBoth,
+                                                        drop, s);
+  return drop.on ? launch_bwd_bf16<128, true, false>(a, B, sh, kBwdBoth, drop,
+                                                     s)
+                 : launch_bwd_bf16<128, false, false>(a, B, sh, kBwdBoth,
+                                                      drop, s);
+}
+
+// The body devt_mha_bwd runs for this dtype (0 float32, 1 bfloat16), head
+// dim, sequence length, kv_len and dropout rate: 0 streamed
+// (attention_bwd.cuh), 1 packed (mha_bwd_sm90.cuh), 2 kernels 12's and 13's
+// wgmma bodies (flash_bwd_sm90.cuh, kBwdMha)
+extern "C" int devt_mha_bwd_route(int dtype, int d, int S, int kv_len,
+                                  double rate) {
+  return mha_bwd_route(dtype, d, S, kv_len, rate > 0.0);
 }
 
 extern "C" const char* devt_cuda_error_string(int code) {

@@ -34,13 +34,24 @@ the streamed body of ``csrc/attention_fwd.cuh``, which it shares with the
 fused ViT block (a block per (64 queries, head, sequence), K and V in
 shared memory, ``mma.sync`` bf16 tiles, the scores recomputed per pass so
 that p is normalised and rounded where the TPU kernel does it).  The
-backward is ``csrc/mha_bwd.cu``, FlashAttention-2's split: a launch that
+backward is ``csrc/mha_bwd.cu`` on three bodies, by the rule
+``mha_bwd_on_wgmma`` (the C entry's ``devt_mha_bwd_route``), at every
+dropout rate.  In bfloat16 at head dim 128 or 256 and S ≤ 64 (PTN
+training) the packed body of ``csrc/mha_bwd_sm90.cuh``: one launch, a CTA
+a 64-row tile of max(1, 32 // S) whole sequences of one head under a
+block-diagonal mask (``mha_bwd_packed_tiling``), key-major products on
+``wgmma`` with each score computed once and delta from the tile's o and
+do rows.  In bfloat16 at head dim 16, 32 or 64 kernels 12's
+and 13's ``wgmma`` bodies on the head views of qkv (the dq launch with
+delta, then the dk/dv launch).  Float, and head dim 128 or 256 at S > 64,
+run ``csrc/attention_bwd.cuh``: FlashAttention-2's split, a launch that
 writes delta = rowsum(do · o), then one of blocks that own up to 64
 queries of a head and sum their dq over the keys, and blocks that own up
 to 64 keys and sum their dk and dv over the queries, each streaming the
 other side's rows through shared memory, so that every single-kv-block
-length fits; each output has one owner (no atomics: two runs give the
-same bits).  bfloat16 is compiled for head dims
+length fits.  Each output has one owner in every body (no atomics: two
+runs give the same bits); the dropout mask is drawn inside each.
+bfloat16 is compiled for head dims
 16, 32, 64, 128 and 256, float (FMA products) for any multiple of 4; a
 shape whose rows do not fit a block's shared memory raises ``ValueError``
 with the byte count, before the forward's work when the input needs a
@@ -56,8 +67,10 @@ so that the plain versions can be handed the same mask.
 ``fused_mha`` is a ``torch.autograd.Function``: CUDA tensors launch the
 kernels (or raise), CPU tensors run the plain versions.
 ``fused_mha.launches`` and ``fused_mha.bwd_launches`` count kernel
-launches; the forward's by body in ``fused_mha.packed_launches``,
-``.one_shot_launches`` and ``.streamed_launches``.
+calls; the forward's by body in ``fused_mha.packed_launches``,
+``.one_shot_launches`` and ``.streamed_launches``, the backward's in
+``.bwd_packed_launches``, ``.bwd_wgmma_launches`` and
+``.bwd_streamed_launches``.
 
 ``flash_attention`` is the attention on split q, k, v (B, H, S, d) of the
 JAX package's ``flash_attention`` (``:326``), with its rule (``:349``):
@@ -167,6 +180,13 @@ _WGMMA_TILE = 64
 # kernel 3's bodies by devt_mha_fwd_route's answer (csrc/mha_fwd_sm90.cuh
 # MhaBody)
 _MHA_BODIES = ("streamed", "packed", "one_shot")
+# kernel 4's bodies by devt_mha_bwd_route's answer (csrc/mha_bwd_sm90.cuh
+# MhaBwdBody); the packed body's rows filled by whole sequences and the
+# CTAs a tile's output columns are split across (kMhaBwdRows,
+# kMhaBwdSplit)
+_MHA_BWD_BODIES = ("streamed", "packed", "wgmma")
+_MHA_BWD_ROWS = 32
+_MHA_BWD_SPLIT = 1
 
 
 def one_shot_on_wgmma(dtype: torch.dtype, d: int, keys: int) -> bool:
@@ -205,6 +225,52 @@ def mha_packed_tiling(b: int, s: int, heads: int, kv_len: int):
     live = (idx[:, None] // s == idx[None, :] // s) & (idx[None, :] % s
                                                        < kv_len)
     return g, -(-b // g) * heads, live
+
+
+def mha_bwd_on_wgmma(dtype: torch.dtype, d: int, s: int, kv_len: int,
+                     rate: float) -> str:
+    """The body a backward of kernel 4 (``fused_mha``) runs: the rule of
+    the C entry, ``csrc/mha_bwd_sm90.cuh`` ``mha_bwd_route``, at every
+    kv_len and dropout rate.  ``"packed"`` (bfloat16 at head dim 128 or 256
+    and S ≤ 64: several sequences to a wgmma tile, one launch),
+    ``"wgmma"`` (bfloat16 at head dim 16, 32 or 64: kernels 12's and 13's
+    wgmma bodies, two launches) or ``"streamed"`` (``csrc/attention_bwd.cuh``:
+    float, head dim 128 or 256 at S > 64)."""
+    del rate  # every rate takes the route of its shape
+    if dtype != torch.bfloat16 or s < 1 or kv_len < 1:
+        return "streamed"
+    if d in (128, 256) and s <= _WGMMA_TILE:
+        return "packed"
+    return "wgmma" if d in _WGMMA_HEAD_DIMS else "streamed"
+
+
+def mha_bwd_packed_tiling(b: int, s: int, heads: int, kv_len: int):
+    """The packed backward body's tiling (``csrc/mha_bwd_sm90.cuh``):
+    ``(g, tiles, split, live)`` with g = max(1, 32 // S) whole sequences of
+    a head to a 64-row tile (``kMhaBwdRows`` = 32 rows filled: two
+    sequences at PTN's S = 14 ran ahead of the forward's four, PERF.md),
+    ``tiles`` the (group, head) tiles, ceil(b / g) · heads, ``split`` the
+    CTAs that share a tile's 64-column output groups (at most d / 64), and
+    ``live`` the (64, 64) bool block-diagonal mask of a tile, [query r, key
+    c]: key c is live for query r iff both lie in the same sequence and
+    c % S < kv_len."""
+    g = max(1, _MHA_BWD_ROWS // s)
+    idx = torch.arange(_WGMMA_TILE)
+    live = (idx[:, None] // s == idx[None, :] // s) & (idx[None, :] % s
+                                                       < kv_len)
+    return g, -(-b // g) * heads, _MHA_BWD_SPLIT, live
+
+
+def _mha_bwd_wgmma_smem(body: str, d: int) -> int:
+    """Dynamic shared memory of kernel 4's wgmma bodies: the packed one
+    (csrc/mha_bwd_sm90.cuh mha_bwd_packed_smem: five tiles of 64 rows by d
+    and the 64 × 64 bf16 dsᵀ tile), or the larger of kernels 12's and 13's
+    (csrc/flash_bwd_sm90.cuh bwd_smem: the CTA's two 64-row tiles and two
+    stages of two streamed 64-row tiles)."""
+    if body == "packed":
+        return 1024 + 5 * 64 * d * 2 + 64 * 64 * 2
+    tile = _round_up(64 * d * 2, 1024)
+    return 1024 + 2 * tile + 2 * 2 * tile
 
 
 def online_on_wgmma(dtype: torch.dtype, d: int) -> bool:
@@ -404,7 +470,10 @@ def _check_mha_args(qkv: torch.Tensor, heads: int, kv_len: int,
             raise ValueError(f"the bfloat16 kernel is compiled for head dims "
                              f"{_BF16_HEAD_DIMS}, got {d}")
         if backward:
-            need = _bwd_smem_bf16(sp, d)
+            # the shared memory of the body the shape takes
+            body = mha_bwd_on_wgmma(qkv.dtype, d, s, kv_len, 0.0)
+            need = _bwd_smem_bf16(sp, d) if body == "streamed" \
+                else _mha_bwd_wgmma_smem(body, d)
         else:
             # 64 queries, and K and V of kv_len rounded up to 32 rows,
             # rows padded by 8
@@ -480,6 +549,8 @@ def _mha_cuda(qkv, heads, scale, kv_len, rate=0.0, seed=0):
 
 
 def _mha_bwd_cuda(qkv, o, lse, do, heads, scale, kv_len, rate=0.0, seed=0):
+    """Kernel 4: dqkv, on the body the C entry's ``devt_mha_bwd_route``
+    names, counted by body."""
     d = _check_mha_args(qkv, heads, kv_len, backward=True)
     b, s, _ = qkv.shape
     _require(qkv.device, ("o", o, (b, s, heads * d), qkv.dtype),
@@ -488,19 +559,30 @@ def _mha_bwd_cuda(qkv, o, lse, do, heads, scale, kv_len, rate=0.0, seed=0):
     from devt_tpu_torch.ops import _build
 
     lib = _build.load("mha_bwd", _declare_bwd)
+    body = _MHA_BWD_BODIES[lib.devt_mha_bwd_route(
+        _DTYPE_CODE[qkv.dtype], d, s, int(kv_len), ctypes.c_double(rate))]
+    # the wgmma bodies read qkv, o and do through TMA maps
+    qkv, o, do = (_aligned(t) for t in (qkv, o, do))
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty((b, s, heads), dtype=torch.float32,
-                        device=qkv.device)
+    # the packed body takes delta from its tiles: no scratch
+    delta = None if body == "packed" else torch.empty(
+        (b, s, heads), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         rc = lib.devt_mha_bwd(
             _DTYPE_CODE[qkv.dtype], _ptr(qkv), _ptr(o), _ptr(do), _ptr(lse),
-            _ptr(delta), _ptr(dqkv), b, s, heads, d, int(kv_len),
-            ctypes.c_float(scale),
+            ctypes.c_void_p(None if delta is None else delta.data_ptr()),
+            _ptr(dqkv), b, s, heads, d, int(kv_len), ctypes.c_float(scale),
             ctypes.c_double(rate), ctypes.c_ulonglong(seed),
             ctypes.c_void_p(stream))
     _check_rc(lib, rc, "mha_bwd")
     fused_mha.bwd_launches += 1
+    if body == "packed":
+        fused_mha.bwd_packed_launches += 1
+    elif body == "wgmma":
+        fused_mha.bwd_wgmma_launches += 1
+    else:
+        fused_mha.bwd_streamed_launches += 1
     return dqkv
 
 
@@ -584,6 +666,9 @@ fused_mha.bwd_launches = 0
 fused_mha.packed_launches = 0
 fused_mha.one_shot_launches = 0
 fused_mha.streamed_launches = 0
+fused_mha.bwd_packed_launches = 0
+fused_mha.bwd_wgmma_launches = 0
+fused_mha.bwd_streamed_launches = 0
 
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
@@ -608,6 +693,8 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
         + [ctypes.c_float, ctypes.c_double, ctypes.c_ulonglong,
            ctypes.c_void_p])
     lib.devt_mha_bwd.restype = ctypes.c_int
+    lib.devt_mha_bwd_route.argtypes = [ctypes.c_int] * 4 + [ctypes.c_double]
+    lib.devt_mha_bwd_route.restype = ctypes.c_int
     lib.devt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.devt_cuda_error_string.restype = ctypes.c_char_p
 

@@ -2268,3 +2268,144 @@ def test_mha_and_ring_bwd_routes_match_the_c_rules(card):
                         assert got == tfa.mha_fwd_on_wgmma(
                             dtype, d, s, kv_len, rate), (dtype, d, s, kv_len,
                                                          rate)
+
+
+# kernel 4 on its wgmma routes: the packed body (bf16, head dim 128 / 256,
+# S <= 64) at PTN training's shape and the packing's edges (S = 1, 13, 14,
+# 16, 33, 64; B no multiple of the sequences a tile; kv_len < S), kernels
+# 12's and 13's bodies (bf16, head dim 16-64) at the MoE blocks' shape and
+# lengths past one 64-row tile
+MHA_BWD_WGMMA_SHAPES = [
+    ("packed", 32, 14, 8, 256, 14), ("packed", 7, 14, 2, 256, 11),
+    ("packed", 5, 1, 2, 128, 1), ("packed", 130, 1, 1, 256, 1),
+    ("packed", 9, 13, 2, 128, 13), ("packed", 6, 16, 2, 256, 9),
+    ("packed", 5, 33, 2, 128, 30), ("packed", 3, 64, 2, 256, 64),
+    ("packed", 2, 64, 1, 128, 40),
+    ("wgmma", 512, 208, 3, 64, 197), ("wgmma", 3, 65, 2, 32, 65),
+    ("wgmma", 2, 100, 2, 16, 77), ("wgmma", 4, 14, 2, 64, 14),
+    ("wgmma", 2, 512, 1, 64, 509)]
+
+
+def _mha_bwd_bodies():
+    """Kernel 4's calls, then its calls by body in _MHA_BWD_BODIES' order."""
+    m = tfa.fused_mha
+    return (m.bwd_launches,
+            *(getattr(m, f"bwd_{body}_launches")
+              for body in tfa._MHA_BWD_BODIES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, MHA_RATE])
+@pytest.mark.parametrize("body,b,s,heads,d,kv_len", MHA_BWD_WGMMA_SHAPES)
+def test_mha_bwd_wgmma_routes_match_plain(card, body, b, s, heads, d, kv_len,
+                                          rate):
+    """Kernel 4 on the body its rule names, from the kernel forward's (o,
+    lse), against the plain backward given the mask the library exports:
+    one call counted on that body, dq, dk, dv within 4 bf16 ulps of each
+    tensor's largest element, keys past kv_len exact zeros, two runs
+    bit-equal."""
+    seed = 515
+    assert tfa.mha_bwd_on_wgmma(torch.bfloat16, d, s, kv_len, rate) == body
+    qkv, do = _mha_inputs("bf16", b, s, heads, d, b + s + d)
+    keep = tfa.mha_dropout_masks(seed, rate, b, s, heads, "cuda") \
+        if rate > 0.0 else None
+    scale = d ** -0.5
+    with torch.no_grad():
+        o, lse = tfa.fused_mha(qkv, heads=heads, kv_len=kv_len,
+                               dropout_rate=rate, seed=seed, return_lse=True)
+    before = _mha_bwd_bodies()
+    got = tfa._mha_bwd_cuda(qkv, o, lse, do, heads, scale, kv_len, rate, seed)
+    torch.cuda.synchronize()
+    after = _mha_bwd_bodies()
+    assert after[0] - before[0] == 1
+    assert after[1 + tfa._MHA_BWD_BODIES.index(body)] - \
+        before[1 + tfa._MHA_BWD_BODIES.index(body)] == 1
+    want = tfa.fused_mha_bwd_plain(qkv, o, lse, do, heads, scale, kv_len,
+                                   keep, rate)
+    if kv_len == 1:
+        # one key: dq and dk are the noise of cancelling sums on both sides
+        # (dp and delta scaled alike by the kept probabilities' 1 / (1 -
+        # rate), which the bound takes through do)
+
+        def split(t, part):
+            return t[..., part * heads * d:(part + 1) * heads * d].reshape(
+                b, s, heads, d).transpose(1, 2)
+
+        _one_key_noise(f"mha ({b},{s},{heads},{d})", split(qkv, 0),
+                       split(qkv, 1), split(qkv, 2),
+                       split(do, 0) / (1.0 - rate), scale,
+                       [split(got, i) for i in range(3)],
+                       [None, None, split(want, 2)])
+    else:
+        _assert_dqkv_close("bf16", got, want, heads, d)
+    dead = got.reshape(b, s, 3, heads * d)[:, kv_len:, 1:]
+    assert torch.equal(dead, torch.zeros_like(dead))
+    assert torch.equal(got, tfa._mha_bwd_cuda(qkv, o, lse, do, heads, scale,
+                                              kv_len, rate, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,heads,d,kv_len", [(32, 14, 8, 256, 14),
+                                                (64, 208, 3, 64, 197)])
+def test_mha_dropout_pair_on_the_new_backward(card, b, s, heads, d, kv_len):
+    """The streamed forward at dropout followed by the new backward,
+    through autograd, against the plain pair given the exported mask: the
+    two kernels' masks agree bit for bit with it (o within the forward's
+    bound, dqkv within the backward's)."""
+    seed, rate = 99, MHA_RATE
+    qkv, do = _mha_inputs("bf16", b, s, heads, d, 17)
+    keep = tfa.mha_dropout_masks(seed, rate, b, s, heads, "cuda")
+    leaf = qkv.clone().requires_grad_(True)
+    before = _mha_bwd_bodies()
+    o, lse = tfa.fused_mha(leaf, heads=heads, kv_len=kv_len,
+                           dropout_rate=rate, seed=seed, return_lse=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    body = tfa.mha_bwd_on_wgmma(torch.bfloat16, d, s, kv_len, rate)
+    assert body != "streamed"
+    assert _mha_bwd_bodies()[1 + tfa._MHA_BWD_BODIES.index(body)] == \
+        before[1 + tfa._MHA_BWD_BODIES.index(body)] + 1
+    wo, wlse = tfa.fused_mha_plain(qkv, heads, d ** -0.5, kv_len, keep, rate)
+    torch.testing.assert_close(o.detach().float(), wo.float(), **TOL["bf16"])
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-4)
+    want = tfa.fused_mha_bwd_plain(qkv, wo, wlse, do, heads, d ** -0.5,
+                                   kv_len, keep, rate)
+    _assert_dqkv_close("bf16", leaf.grad, want, heads, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,s,heads,d,kv_len", [
+    ("f32", 32, 14, 8, 256, 14), ("f32", 4, 208, 3, 64, 197),
+    ("bf16", 32, 160, 8, 256, 160)])
+def test_mha_bwd_streamed_shapes_stay_streamed(card, kind, b, s, heads, d,
+                                               kv_len):
+    """f32, and head dim 256 past one 64-row tile, run attention_bwd.cuh's
+    streamed body, counted there."""
+    qkv, do = _mha_inputs(kind, b, s, heads, d, 23)
+    assert tfa.mha_bwd_on_wgmma(DTYPE[kind], d, s, kv_len, 0.0) == "streamed"
+    with torch.no_grad():
+        o, lse = tfa.fused_mha(qkv, heads=heads, kv_len=kv_len,
+                               return_lse=True)
+    before = _mha_bwd_bodies()
+    got = tfa._mha_bwd_cuda(qkv, o, lse, do, heads, d ** -0.5, kv_len)
+    torch.cuda.synchronize()
+    after = _mha_bwd_bodies()
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0, 0)
+    want = tfa.fused_mha_bwd_plain(qkv, o, lse, do, heads, d ** -0.5, kv_len)
+    _assert_dqkv_close(kind, got, want, heads, d)
+
+
+@pytest.mark.cuda
+def test_mha_bwd_route_matches_the_c_rule(card):
+    """The C entry's rule (devt_mha_bwd_route) is the Python mirror's."""
+    lib = _build.load("mha_bwd", tfa._declare_bwd)
+    for dtype, code in tfa._DTYPE_CODE.items():
+        for d in (16, 32, 64, 128, 256):
+            for s in (1, 13, 14, 16, 33, 64, 65, 160, 208, 512):
+                for kv_len in sorted({1, min(s, 197), s}):
+                    for rate in (0.0, 0.5):
+                        got = tfa._MHA_BWD_BODIES[lib.devt_mha_bwd_route(
+                            code, d, s, kv_len, ctypes.c_double(rate))]
+                        assert got == tfa.mha_bwd_on_wgmma(
+                            dtype, d, s, kv_len, rate), (dtype, d, s, kv_len,
+                                                         rate)

@@ -32,8 +32,10 @@ jfa = importlib.import_module("devt_tpu.ops.flash_attention")
 
 TOL = dict(atol=2e-5, rtol=2e-4)
 BF16_ULPS, BF16_EPS = 4, 2.0 ** -8
-# (b, s, heads, d, kv_len): kv_len < S, S no multiple of 16, d 32 and 64
-SHAPES = [(2, 14, 2, 32, 11), (2, 23, 3, 64, 19), (3, 16, 2, 64, 16)]
+# (b, s, heads, d, kv_len): kv_len < S, S no multiple of 16, d 32 and 64;
+# the packed backward body's head dims 128 and 256 at PTN's S = 14
+SHAPES = [(2, 14, 2, 32, 11), (2, 23, 3, 64, 19), (3, 16, 2, 64, 16),
+          (2, 14, 2, 128, 14), (3, 14, 1, 256, 12)]
 
 
 def _arrays(b, s, heads, d, seed=0):

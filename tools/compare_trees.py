@@ -38,17 +38,21 @@ timer in both trees (CUDA graph replay of 20 calls, 5 replays):
     its training shape (32, 14, 6144), and at the ViT shape (512, 208,
     576), 3 heads of 64, kv_len 197, and F.scaled_dot_product_attention at
     the serving and ViT shapes;
-  * a kernel that must not move: kernel 4 (the streamed backward body)
-    at PTN's training shape;
+  * kernel 4 (the packed-qkv attention backward) at PTN's training shape
+    (32, 14, 6144) and at the ViT shape (512, 208, 576), kv_len 197, at
+    dropout 0 and 0.5, on the kernel forward's (o, lse);
 
 then calls the tree's chip_smoke phases 18 (kernel-flash at the kernel 9
 shape, its checks), 4, 11 and 7 (ViViT serving in bf16 and int8, and
 training at image 224: the int8 bucket-32 call's and a training step's
 device ms from their profiles), 14
 (PTN training at dropout 0 and 0.5: step ms and a profiled step's device
-ms), 12 (PTN serving: bf16, int8, int8 at every site), 16 and 17 (MoE-ViViT
-serving, and training: step ms, the host's enqueue ms and a profiled
-step's device ms), 20 (eval at image 384), 21 (the int8 ViViT at
+ms, and kernel 4's share of it), 12 (PTN serving: bf16, int8, int8 at
+every site), 16 and 17 (MoE-ViViT serving, and training: step ms, the
+host's enqueue ms and a profiled step's device ms; at dropout 0.5, where
+its MoE blocks run kernels 3 and 4, step ms and, profiled by the same code
+in both trees, a make_train_step step's device ms and kernel 4's share),
+20 (eval at image 384), 21 (the int8 ViViT at
 token_pad=0), 22 (training at image 384: step ms, the host's enqueue ms,
 and from its printed line a profiled step's device ms and kernels 12 +
 13's share of it) and 24 (the ring: kernels 14's and 15's times, and
@@ -202,12 +206,20 @@ with torch.inference_mode():
         res[f"{tag}_sdpa_ms"] = graph_ms(
             lambda: F.scaled_dot_product_attention(
                 hq, hk[:, :, :kv_len], hv[:, :, :kv_len], scale=d ** -0.5))
-    qkv = torch.randn(32, 14, 3 * 2048, generator=gen).to(o.dtype).cuda()
-    o, lse = tfa._mha_cuda(qkv, 8, 256 ** -0.5, 14)
-    do4 = torch.randn(32, 14, 2048, generator=gen).to(o.dtype).cuda()
-    res["k4_ms"] = graph_ms(lambda: tfa._mha_bwd_cuda(
-        qkv, o, lse, do4, 8, 256 ** -0.5, 14))
-    del q, k, v, o, lse, qkv
+    for tag, (b, s, heads, d, kv_len) in {
+            "k4_ptn": (32, 14, 8, 256, 14),
+            "k4_vit": (512, 208, 3, 64, 197)}.items():
+        qkv = torch.randn(b, s, 3 * heads * d, generator=gen).to(
+            o.dtype).cuda()
+        do4 = torch.randn(b, s, heads * d, generator=gen).to(o.dtype).cuda()
+        for rate in (0.0, 0.5):
+            o4, lse4 = tfa.fused_mha(qkv, heads=heads, kv_len=kv_len,
+                                     dropout_rate=rate, seed=7,
+                                     return_lse=True)
+            res[f"{tag}{'_drop' if rate else ''}_ms"] = graph_ms(
+                lambda: tfa._mha_bwd_cuda(qkv, o4, lse4, do4, heads,
+                                          d ** -0.5, kv_len, rate, 7))
+    del q, k, v, o, lse, qkv, o4, lse4, do4
     # the fused block (kernels 1, 2) and the attention half (7, 8)
     x, full = cs._block_inputs(torch.bfloat16, torch.Generator()
                                .manual_seed(4))
@@ -286,6 +298,26 @@ m = cs.phase_train_moe()
 res["moe_train_step_ms"] = m["step_ms"]
 res["moe_train_host_ms"] = m["host_ms"]
 res["moe_train_device_ms"] = m["device_ms"]
+# MoE-ViViT at dropout 0.5 (kernels 3 and 4 in its MoE blocks): a profiled
+# make_train_step step, by the same code in both trees
+from devt_tpu_torch.models.vivit import ViViT
+from devt_tpu_torch.parallel.train_step import make_train_step
+from devt_tpu_torch.train.optimizers import build_optimizer
+from devt_tpu_torch.train.state import TrainState
+mcfg = cs._moe_config()
+dm = ViViT(num_classes=19, num_frames=16, channels_last=True,
+           dropout=cs.MOE_DROPOUT, moe_experts=cs.MOE_EXPERTS,
+           moe_every=cs.MOE_EVERY, dtype=torch.bfloat16).init_weights(
+               torch.Generator().manual_seed(cs.SEED)).cuda()
+dstate = TrainState.create(dict(dm.named_parameters()),
+                           build_optimizer(mcfg))
+dstep = make_train_step(dm, mcfg)
+dbatch = cs._train_batch(cs.TRAIN_BATCH, cs.SEED + 4)
+rows = cs._traced(lambda: dstep(dstate, dbatch, cs.SEED)[1]["loss"].item())[0]
+res["moe_train_drop_device_ms"] = sum(ms for _, ms, _ in rows)
+res["moe_train_drop_k4_ms"] = sum(ms for name, ms, _ in rows
+                                  if name.startswith("mha_bwd_"))
+del dm, dstate, dstep, dbatch
 e = cs.phase_eval_long()
 res["eval_bf16_step_ms"] = e["bf16"]["step_ms"]
 res["eval_int8_step_ms"] = e["int8"]["step_ms"]
@@ -335,6 +367,16 @@ def run(tree: str) -> dict:
         res["train224_device_ms"] = float(found.group(1))
         res["train224_k1_ms"] = float(found.group(2))
         res["train224_k2_ms"] = float(found.group(3))
+    # MoE-ViViT's step at dropout 0.5 on the host clock, and kernel 4's
+    # share of each profiled PTN step (dropout 0, then 0.5), from phases 17's
+    # and 14's lines
+    found = re.search(r"\[train-moe\] the same at dropout [\d.]+:.*?"
+                      r"step_ms=([\d.]+)", proc.stdout)
+    if found:
+        res["moe_train_drop_step_ms"] = float(found.group(1))
+    for rate, ms in zip((0.0, 0.5), re.findall(
+            r"attention backward \(kernel 4\) ([\d.]+)", proc.stdout)):
+        res[f"ptn_train{rate}_k4_ms"] = float(ms)
     found = re.search(r"int8 predict, bucket 32: wall ([\d.]+) ms per call, "
                       r"device busy ([\d.]+)%", proc.stdout)
     if found:

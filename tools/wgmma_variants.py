@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Variants of the wgmma bodies of kernels 11, 6, 12, 13, 7, 3, 1 and 2,
-timed on one card.
+"""Variants of the wgmma bodies of kernels 11, 6, 12, 13, 7, 3, 4, 1 and
+2, timed on one card.
 
-    python tools/wgmma_variants.py [--rounds 2] [--kernels 11 6 12 13 7 3 1 2]
+    python tools/wgmma_variants.py [--rounds 2]
+        [--kernels 11 6 12 13 7 3 4 1 2]
 
 Copies ``devt_tpu_torch/ops/csrc`` once per variant under
 ``runs/wgmma_variants/`` (gitignored), edits the copy's constants as the
 variant says, builds the one library the variant touches (``flash_fwd.cu``
 for kernel 11, ``int8_matmul.cu`` for kernel 6, ``flash_bwd.cu`` for
 kernels 12 and 13, ``attn_half.cu`` for kernel 7, ``mha_fwd.cu`` for
-kernel 3, ``fused_block_fwd.cu`` and ``fused_block_bwd.cu`` for kernels 1
+kernel 3, ``mha_bwd.cu`` for kernel 4, ``fused_block_fwd.cu`` and ``fused_block_bwd.cu`` for kernels 1
 and 2; one nvcc each, all at once, the flags of
 ``ops/_build.py``), and times by CUDA graph replay (20 calls, 5 replays),
 in ``--rounds`` rounds:
@@ -27,6 +28,11 @@ in ``--rounds`` rounds:
   * kernel 3 (the packed-qkv attention forward) at PTN's serving shape
     (256, 14, 6144) and training shape (32, 14, 6144), 8 heads of 256,
     against its plain version;
+  * kernel 4 (the packed-qkv attention backward) at PTN's training shape
+    (32, 14, 6144), 8 heads of 256, and at the ViT shape (512, 208, 576),
+    3 heads of 64, kv_len 197, at dropout 0 and 0.5, on the kernel
+    forward's (o, lse), against its plain version given the exported
+    mask (the error in bf16 ulps of each tensor's largest element);
   * kernels 1 and 2 (the fused block forward and backward, all their
     launches through the wrappers, the variant's library in place of the
     built one) at (512, 208, 192), kv_len 197, MLP 768, against their
@@ -54,7 +60,14 @@ body: 64 / S sequences of a head to a tile, a one-stage ring, P V in
 wgmma groups of 64 output columns, two CTAs an SM), P V in groups of 128
 and in one of 256, two stages (one CTA an SM) with 64 and with 256, one
 sequence a tile (the unpacked one-shot instance at head dim 256), and the
-route before (attention_fwd.cuh's streamed body).  Kernels 1's and 2's
+route before (attention_fwd.cuh's streamed body).  Kernel 4's: as built
+(the packed body: 32 // S sequences of a head to a 64-row tile, a CTA a
+tile; kernels 12's and 13's bodies with kBwdMha at head dim 64), the
+forward's four sequences a tile (64 rows filled) split across two CTAs by
+its 64-column output groups and in one CTA, two and four CTAs a tile, one
+sequence a tile, kBwdMha's dq instance with dropout at two CTAs an SM
+(three cap it at 128 registers), and the route before (attention_bwd.cuh's
+streamed body at every shape).  Kernels 1's and 2's
 (csrc/block_sm90.cuh): as built (128-row tiles of two consumer
 warpgroups and a producer warp, four ring stages for LN1 + qkv, the row
 products and the weight gradients, two for the forward's FFN and three
@@ -130,6 +143,9 @@ LSE_FIRST = (
     "    }\n")
 INV_AT_STORE = "        const float inv = 1.f / l[hh];"
 LSE_STORE = "      if (tq4 == 0)\n        L[row * a.ls[2]] ="
+MBWD = "mha_bwd_sm90.cuh"
+MBWD_ROWS = "constexpr int kMhaBwdRows = 32;"
+MBWD_SPLIT = "constexpr int kMhaBwdSplit = 1;"
 BLK = "block_sm90.cuh"
 BLK_STAGES = "constexpr int kBlkStages = 4;"
 WG_WAVES = "constexpr int kWgWaves = 1;"
@@ -198,6 +214,28 @@ VARIANTS = {
         (MHA, MHA_PACK, MHA_PACK.replace("64 / s", "1"))],
     (3, "streamed body (attention_fwd.cuh)"): [
         (MHA, MHA_ROUTE, "         : false ? kMhaPacked")],
+    (4, "as built"): [],
+    (4, "four sequences a tile, two CTAs"): [
+        (MBWD, MBWD_ROWS, "constexpr int kMhaBwdRows = 64;"),
+        (MBWD, MBWD_SPLIT, "constexpr int kMhaBwdSplit = 2;")],
+    (4, "four sequences a tile"): [
+        (MBWD, MBWD_ROWS, "constexpr int kMhaBwdRows = 64;")],
+    (4, "two CTAs a tile"): [(MBWD, MBWD_SPLIT,
+                              "constexpr int kMhaBwdSplit = 2;")],
+    (4, "four CTAs a tile"): [(MBWD, MBWD_SPLIT,
+                               "constexpr int kMhaBwdSplit = 4;")],
+    (4, "one sequence a tile"): [
+        (MBWD, MBWD_ROWS, "constexpr int kMhaBwdRows = 1;")],
+    (4, "dq with dropout at two CTAs an SM"): [
+        (MBWD, "__global__ void __launch_bounds__(kBwdThreads, kBwdDqCTAs)\n"
+               "    mha_bwd_dq_sm90(",
+         "__global__ void __launch_bounds__(kBwdThreads, kDrop ? 2 : "
+         "kBwdDqCTAs)\n    mha_bwd_dq_sm90(")],
+    (4, "the route before (streamed)"): [
+        (MBWD, "         : (d == 128 || d == 256) && s <= 64 ? kMhaBwdPacked",
+         "         : false ? kMhaBwdPacked"),
+        (MBWD, "         : blocked_bwd_on_wgmma(1, d)      ? kMhaBwdWgmma",
+         "         : false ? kMhaBwdWgmma")],
     (1, "as built"): [],
     (1, "two stages"): [(BLK, BLK_STAGES, "constexpr int kBlkStages = 2;")],
     (1, "no qkv stores (wrong on purpose)"): [
@@ -231,13 +269,14 @@ VARIANTS = {
         (BLK, "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 %0;\\n\" ::\"n\"(kBlkConsumerRegs));", "")],
 }
 STEM = {11: "flash_fwd", 6: "int8_matmul", 12: "flash_bwd", 13: "flash_bwd",
-        7: "attn_half", 3: "mha_fwd", 1: "fused_block_fwd",
+        7: "attn_half", 3: "mha_fwd", 4: "mha_bwd", 1: "fused_block_fwd",
         2: "fused_block_bwd"}
 PTXAS = {11: r"flash_fwd_wgmmaILi(\d+)E", 6: r"gemm_s8_wgmmaI(\w+?)EEv",
          12: r"flash_bwd_dq_wgmmaILi(\d+)E",
          13: r"flash_bwd_dkv_wgmmaILi(\d+)E",
          7: r"flash_one_shotILi(\d+)ELi(\d+)ELb0ELb1E",
          3: r"mha_fwd_packedILi(\d+)E",
+         4: r"mha_bwd_(packed|dq_sm90|dkv_sm90)ILi(\d+)ELb(\d)E",
          1: r"(ln_qkv_sm90|out_ffn_sm90)ILi(\d+)E",
          2: r"(ln_qkv_sm90|ffn_dual_sm90|row_nk_sm90|wgrad_sm90)ILi(\d+)E"}
 
@@ -304,8 +343,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", type=int, nargs="+",
-                    default=[11, 6, 12, 13, 7, 3, 1, 2],
-                    choices=[11, 6, 12, 13, 7, 3, 1, 2])
+                    default=[11, 6, 12, 13, 7, 3, 4, 1, 2],
+                    choices=[11, 6, 12, 13, 7, 3, 4, 1, 2])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("wgmma_variants: needs an NVIDIA card")
@@ -420,6 +459,50 @@ def main() -> int:
         assert rc == 0, rc
         return o, lse
 
+    # kernel 4 at PTN's training shape and the ViT shape, rates 0 and 0.5,
+    # on the kernel forward's (o, lse); the plain backward given the mask
+    mha_bwd = {}
+    for b, s, heads, d, kv_len in ((32, 14, 8, 256, 14),
+                                   (512, 208, 3, 64, 197)):
+        qkv = torch.randn(b, s, 3 * heads * d, generator=gen).to(
+            torch.bfloat16).cuda()
+        g4 = torch.randn(b, s, heads * d, generator=gen).to(qkv.dtype).cuda()
+        for rate in (0.0, 0.5):
+            keep = tfa.mha_dropout_masks(5, rate, b, s, heads, "cuda") \
+                if rate > 0.0 else None
+            with torch.no_grad():
+                o4, lse4 = tfa.fused_mha(qkv, heads=heads, kv_len=kv_len,
+                                         dropout_rate=rate, seed=5,
+                                         return_lse=True)
+            want = tfa.fused_mha_bwd_plain(qkv, o4, lse4, g4, heads,
+                                           d ** -0.5, kv_len, keep, rate)
+            mha_bwd[(b, s, heads, d, kv_len, rate)] = (qkv, o4, lse4, g4,
+                                                       want)
+
+    def k4(lib, key):
+        b, s, heads, d, kv_len, rate = key
+        qkv, o4, lse4, g4, _ = mha_bwd[key]
+        dqkv = torch.empty_like(qkv)
+        delta4 = torch.empty(b, s, heads, device="cuda")
+        rc = lib.devt_mha_bwd(1, qkv.data_ptr(), o4.data_ptr(),
+                              g4.data_ptr(), lse4.data_ptr(),
+                              delta4.data_ptr(), dqkv.data_ptr(), b, s, heads,
+                              d, kv_len, ctypes.c_float(d ** -0.5),
+                              ctypes.c_double(rate), ctypes.c_ulonglong(5),
+                              stream())
+        assert rc == 0, rc
+        return dqkv
+
+    def k4_ulps(got, key):
+        heads, d, want = key[2], key[3], mha_bwd[key][4]
+        cells = []
+        for i in range(3):
+            cols = slice(i * heads * d, (i + 1) * heads * d)
+            w = want[..., cols].float()
+            err = (got[..., cols].float() - w).abs().max().item()
+            cells.append(err / (2.0 ** -8 * w.abs().max().item()))
+        return max(cells)
+
     # kernels 1 and 2 at the main path's shape, through the wrappers with
     # the variant's library in place of the built one
     from devt_tpu_torch.ops import _build
@@ -445,7 +528,8 @@ def main() -> int:
         lib = ctypes.CDLL(str(OUT / str(i) / f"{STEM[kernel]}.so"))
         {11: tfa._declare_flash_fwd, 6: tq._declare_matmul,
          12: tfa._declare_flash_bwd, 13: tfa._declare_flash_bwd,
-         7: fb._declare_half, 3: tfa._declare_fwd, 1: fb._declare_fwd,
+         7: fb._declare_half, 3: tfa._declare_fwd, 4: tfa._declare_bwd,
+         1: fb._declare_fwd,
          2: fb._declare_bwd}[kernel](lib)
         return lib
 
@@ -469,6 +553,18 @@ def main() -> int:
                     cells.append(f"({b}, 14, 6144) {t:.4f} ms (o and lse max "
                                  f"abs err {err:.3e})")
                 print(f"[round {rnd}] kernel 3 {name}: " + ", ".join(cells),
+                      flush=True)
+            elif kernel == 4:
+                cells = []
+                for key in mha_bwd:
+                    got = k4(lib, key)
+                    torch.cuda.synchronize()
+                    err = k4_ulps(got, key)
+                    t = _graph_ms(lambda: k4(lib, key))
+                    cells.append(f"({key[0]}, {key[1]}, "
+                                 f"{3 * key[2] * key[3]}) rate {key[5]} "
+                                 f"{t:.4f} ms ({err:.2f} ulps)")
+                print(f"[round {rnd}] kernel 4 {name}: " + ", ".join(cells),
                       flush=True)
             elif kernel == 1:
                 got = k1(lib)
@@ -552,6 +648,9 @@ def main() -> int:
                   ("SDPA at kernel 3's shape",
                    lambda: F.scaled_dot_product_attention(
                        hq, hk, hv, scale=256 ** -0.5))]
+    if 4 in args.kernels:
+        cases.append(("kernel 4 at (32, 14, 6144)",
+                      lambda: k4(built[4], (32, 14, 8, 256, 14, 0.0))))
     if 12 in args.kernels:
         cases.append(("kernel 12", lambda: bwd(built[12], 1)))
     if 13 in args.kernels:
