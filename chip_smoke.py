@@ -199,6 +199,30 @@ Phases, each printing a line of its own; any failure exits non-zero:
                a 4-rank ring run hop by hop on the card (592 tokens in 4
                chunks of 148, kv_len 577) against flash_attention and its
                gradient; ring_mha_split at one rank under autograd.
+ 25. kernel-mha-ft — kernels 3 and 4 at FrameTransformer's head dims:
+               (2, 14, 2688) with 2 heads of 448 (distil_transformer) and
+               (2, 15, 2688) with 4 heads of 224 (scene_transformer), and
+               the forward at the serving bucket (8, ·), bf16, on their
+               streamed bodies: o, lse and dq, dk, dv against the plain
+               versions, two runs bit for bit, dropout 0.5 against the
+               exported masks and the dropped share; kernel, plain and
+               SDPA times by CUDA graph, the bounds; which SDPA backends
+               take the shape, each forced in turn; ptxas' report of the
+               new instances.
+ 26. serve-ft — every FrameTransformer variant at full width (13 scenes,
+               clips of 12 x 112², frames 224², bf16, seeded weights)
+               behind Predictor(buckets=(8,)) on u8 frames and clips: kernel
+               3's launches by head dim (4 at 448 with the distil
+               transformer, 4 at 224 with the scene transformer), none of
+               kernel 4; distil against the CPU at one request; ms a call
+               and clips/s, a profile of distil.
+ 27. train-ft — distil at batch 2, dropout 0.5, AdamW 1e-4 on a fixed u8
+               batch: make_train_step and make_multi_step(8), 8 launches
+               each of kernels 3 and 4 a step, a falling eval loss, the
+               video backbone's BatchNorm statistics moving and no other;
+               one step's gradients at dropout 0 and 4 scenes (bench.py:523)
+               against the CPU, f32 and bf16; step ms, host enqueue ms,
+               device ms, peak device memory.
 
 The last lines are a JSON line of the kernels (fifteen entries in kernel
 order, each with its number), the nvidia-smi line, and
@@ -298,6 +322,23 @@ PTN_GRAD_RTOL = 1e-3
 # MoE-ViViT (bench.py:1188): every second space block's FFN a switch MoE;
 # its training also at dropout 0.5, config.yaml's rate
 MOE_EXPERTS, MOE_EVERY, MOE_DROPOUT = 4, 2, 0.5
+# FrameTransformer (the reference's primary model, Config's defaults): 13
+# scenes + CLS (+ the distil token), clips of 12 x 112², images 224², 19
+# classes, bf16, dropout 0.5; its encoders' attention: distil_transformer's
+# 2 heads of 448 over 14 tokens, scene_transformer's 4 heads of 224 over 15
+FT_SEQ, FT_FRAMES, FT_CLASSES, FT_DROPOUT = 13, 12, 19, 0.5
+FT_BUCKET, FT_TRAIN_BATCH, FT_LAYERS = 8, 2, 4
+FT_HEADS = {"distil_transformer": (2, 448, FT_SEQ + 1),
+            "scene_transformer": (4, 224, FT_SEQ + 2)}
+# the gradient check's sequence: bench.py:523's distillation row
+FT_GRAD_SEQ = 4
+# Through the video backbone the step's gradients pass back through 17
+# BatchNorms on batch statistics (flax's E[x²] - E[x]² variance, which
+# cancels where a channel's values barely vary across the batch), and f32
+# rounding alone moves them by about 1e-2 of a leaf.  There the card's f32
+# gradients are held against the f64 step, within the gate or this many
+# times the CPU's own distance from it (_ft_grad_check)
+FT_CHAIN_SPREAD = 4
 # the fused blocks' and attention halves' sub-kernels, as the profiler
 # names them (kernels 1 and 7, and 2 and 8, share most of their launches;
 # their attention at the main-path shape is the one-shot body's
@@ -3655,6 +3696,465 @@ def phase_ring(kind: str) -> dict:
     return {**out, "launches": launches}
 
 
+def _sdpa_backends(b: int, s: int, heads: int, d: int) -> dict:
+    """Which of PyTorch's SDPA backends take this shape in bf16, each
+    forced in turn: {backend: its CUDA-graph ms, or None where it refused
+    the shape}.  A yardstick only; the port runs none of them."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    q, k, v = (torch.randn(b, heads, s, d, generator=gen).to(
+        torch.bfloat16).cuda() for _ in range(3))
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel(backend), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                F.scaled_dot_product_attention(q, k, v)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                out[backend.name] = None
+                continue
+            out[backend.name] = _graph_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v))
+    return out
+
+
+def _ptxas_instances(stem: str, pattern: str) -> str:
+    """ptxas' registers and spill bytes of every entry of csrc/<stem>.cu
+    whose mangled name matches ``pattern``, from the build log."""
+    import re
+
+    from devt_tpu_torch.ops import _build
+
+    log = _build.build_all()[stem].with_suffix(".log").read_text()
+    rows, name, spill = [], None, "?"
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = re.search(pattern, found.group(1))
+            continue
+        if name is None:
+            continue
+        found = re.search(r"(\d+) bytes spill stores", line)
+        if found:
+            spill = found.group(1)
+        found = re.search(r"Used (\d+) registers", line)
+        if found:
+            rows.append(f"<{','.join(name.groups())}> {found.group(1)} regs "
+                        f"{spill} spill bytes")
+            name = None
+    return "; ".join(rows)
+
+
+def phase_mha_ft() -> dict:
+    """Kernels 3 and 4 at FrameTransformer's two head dims, on their
+    streamed bodies: the forward at the training batch and the serving
+    bucket, the backward and both at dropout 0.5 at the training batch,
+    against their plain versions (phase_mha, phase_mha_bwd); which SDPA
+    backends take the shape; ptxas' report of the new instances."""
+    print("[kernel-mha-ft] ptxas attention_bf16<d, norm_first, drop>: "
+          + _ptxas_instances("mha_fwd", r"attention_bf16ILi(224|448)ELb(\d)"
+                             r"ELb(\d)E")
+          + " | mha_bwd_bf16<d, drop, mask>: "
+          + _ptxas_instances("mha_bwd", r"mha_bwd_bf16ILi(224|448)ELb(\d)"
+                             r"ELb(\d)E"), flush=True)
+    out = {}
+    for encoder, (heads, d, s) in FT_HEADS.items():
+        fwd = {b: phase_mha("bf16", b, s, heads, d, s)
+               for b in (FT_TRAIN_BATCH, FT_BUCKET)}
+        bwd = phase_mha_bwd("bf16", FT_TRAIN_BATCH, s, heads, d, s,
+                            dropout=True)
+        backends = _sdpa_backends(FT_TRAIN_BATCH, s, heads, d)
+        print(f"[kernel-mha-ft] {encoder}: ({FT_TRAIN_BATCH},{s},"
+              f"{3 * heads * d}) {heads} heads of {d}: SDPA backends, each "
+              f"forced in turn (CUDA graph ms, or refused): " + ", ".join(
+                  f"{k} {'refused' if v is None else f'{v:.4f}'}"
+                  for k, v in backends.items()), flush=True)
+        if all(v is None for v in backends.values()):
+            raise AssertionError(f"kernel-mha-ft {encoder}: no SDPA backend "
+                                 f"took the shape")
+        out[encoder] = {"heads": heads, "d": d, "s": s, "fwd": fwd,
+                        "bwd": bwd, "sdpa_backends": backends}
+    return out
+
+
+class _HeadDims:
+    """Records (heads, head dim) of every kernel-3 launch while active
+    (wraps the launcher; the kernel's own counters are untouched)."""
+
+    def __enter__(self):
+        from devt_tpu_torch.ops import flash_attention as tfa
+
+        self.seen: list = []
+        self._real = tfa._mha_cuda
+
+        def record(qkv, heads, *args):
+            self.seen.append((heads, qkv.shape[-1] // (3 * heads)))
+            return self._real(qkv, heads, *args)
+
+        tfa._mha_cuda = record
+        return self
+
+    def __exit__(self, *exc):
+        from devt_tpu_torch.ops import flash_attention as tfa
+
+        tfa._mha_cuda = self._real
+
+    def by_dim(self) -> dict:
+        return {d: sum(1 for _, dd in self.seen if dd == d) for d in (224, 448)}
+
+
+def _ft_config(model: str = "distil", **kw):
+    from devt_tpu_torch.config import Config
+
+    base = dict(model=model, seq_len=FT_SEQ, frame_len=FT_FRAMES,
+                n_classes=FT_CLASSES, precision="bf16", opt="adamW",
+                learning_rate=1e-4, batch_size=FT_TRAIN_BATCH)
+    return Config(**{**base, **kw})
+
+
+def _ft_request(n: int, seed: int, seq: int = FT_SEQ) -> dict:
+    """u8 frames (n, seq, 224, 224, 3) and clips (n, seq, 12, 112, 112, 3),
+    the serving wire, and 19 multi-hot labels, as numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"img": rng.integers(0, 256, (n, seq, 224, 224, 3),
+                                dtype=np.uint8),
+            "vid": rng.integers(0, 256, (n, seq, FT_FRAMES, 112, 112, 3),
+                                dtype=np.uint8),
+            "label": (rng.random((n, FT_CLASSES)) < 0.3).astype(np.float32)}
+
+
+def phase_serve_ft() -> dict:
+    """Every FrameTransformer variant at full width behind
+    Predictor(buckets=(8,)) in bf16 on u8 frames and clips: kernel 3's
+    launches by head dim (4 at 448 where the variant runs the distil
+    transformer, 4 at 224 where it runs the scene transformer), none of
+    kernel 4, finite scores; distil against the CPU at one request;
+    clips/s and ms a call."""
+    import torch
+
+    from devt_tpu_torch.models.frame_transformer import (VARIANTS,
+                                                         FrameTransformer)
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.serve import Predictor
+
+    weights = build_model(_ft_config(), torch.Generator().manual_seed(
+        SEED)).state_dict()
+    request = _ft_request(FT_BUCKET, SEED + 20)
+    request.pop("label")
+    out: dict = {"counts": _expect(), "variants": {}}
+    for variant in VARIANTS:
+        cfg = _ft_config(variant)
+        # the variant's tree: a subset of distil's
+        keys = FrameTransformer(model=variant).state_dict().keys()
+        pred = Predictor(cfg, {k: weights[k] for k in keys},
+                         buckets=(FT_BUCKET,))
+        want = {448: FT_LAYERS if variant not in (
+                    "frame", "frame_transformer", "pre_modal") else 0,
+                224: FT_LAYERS if variant != "vid" else 0}
+        _zero_counts()
+        with _HeadDims() as dims:
+            got = pred.predict(request)["scores"]
+        counts = _kernel_counts()
+        if dims.by_dim() != want or counts != _expect(k3=sum(want.values())) \
+                or _body_counts()["k3_streamed"] != counts["k3"]:
+            raise AssertionError(
+                f"serve-ft {variant}: kernel-3 launches by head dim "
+                f"{dims.by_dim()}, expected {want}; launches {counts}, by "
+                f"body {_body_counts()}")
+        out["counts"] = {k: out["counts"][k] + counts[k] for k in counts}
+        if got.shape != (FT_BUCKET, FT_CLASSES) or not (got > 0.0).all() \
+                or not (got < 1.0).all():
+            raise AssertionError(f"serve-ft {variant}: bad scores, shape "
+                                 f"{got.shape}")
+        tensors = {k: torch.from_numpy(v).cuda() for k, v in request.items()}
+        windows = []
+        with torch.inference_mode():
+            pred.forward(tensors)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    pred.forward(tensors)
+                torch.cuda.synchronize()
+                windows.append((time.perf_counter() - t0) / 3)
+        row = {"ms": min(windows) * 1e3,
+               "clips_per_s": FT_BUCKET / min(windows), "heads": want}
+        if variant == "distil":
+            with torch.inference_mode():
+                rows, busy, wall = _traced(lambda: pred.forward(tensors))
+            _print_profile(f"FrameTransformer distil forward, bucket "
+                           f"{FT_BUCKET}", rows, busy, wall, top=10)
+            row["device_ms"] = sum(ms for _, ms, _ in rows)
+            row["busy"] = busy
+            one = {k: v[:1] for k, v in request.items()}
+            t0 = time.perf_counter()
+            cpu = Predictor(cfg, {k: weights[k] for k in keys}, buckets=(1,),
+                            device="cpu").predict(one)["scores"]
+            cpu_s = time.perf_counter() - t0
+            card = Predictor(cfg, {k: weights[k] for k in keys},
+                             buckets=(1,)).predict(one)["scores"]
+            row["cpu_err"] = float(abs(card - cpu).max())
+            row["cpu_s"] = cpu_s
+            if not row["cpu_err"] <= SCORE_ATOL:
+                raise AssertionError(f"serve-ft distil: card vs CPU scores "
+                                     f"differ by {row['cpu_err']:.3e} (limit "
+                                     f"{SCORE_ATOL})")
+        out["variants"][variant] = row
+        del pred
+    print(f"[serve-ft] FrameTransformer bf16 (u8 frames {FT_BUCKET} x "
+          f"{FT_SEQ} x 224² and clips {FT_BUCKET} x {FT_SEQ} x {FT_FRAMES} x "
+          f"112², seeded weights) behind Predictor(buckets=({FT_BUCKET},)): "
+          f"kernel-3 launches a call by head dim, all on its streamed body, "
+          f"none of kernel 4; " + "; ".join(
+              f"{v}: {r['heads'][448]} at 448 + {r['heads'][224]} at 224, "
+              f"{r['ms']:.2f} ms a call, {r['clips_per_s']:.1f} clips/s"
+              for v, r in out["variants"].items())
+          + f" (best of 3 windows of 3 calls on device-resident input, host "
+          f"clock) | distil: device {out['variants']['distil']['device_ms']:.3f}"
+          f" ms a call, busy {out['variants']['distil']['busy']:.1%}; card vs "
+          f"CPU at one request {out['variants']['distil']['cpu_err']:.3e} "
+          f"(limit {SCORE_ATOL}; the CPU took "
+          f"{out['variants']['distil']['cpu_s']:.1f} s)", flush=True)
+    return out
+
+
+def _ft_grads(kind: str, device: str, impl: str = "auto"
+              ) -> tuple[float, dict]:
+    """One distil step's loss and gradients (f64, on the CPU) at dropout 0,
+    bench.py:523's shape (batch 2, 4 scenes), in precision ``kind``
+    ("bf16", "f32" or "f64") on ``device``, from seeded weights."""
+    import torch
+
+    from devt_tpu_torch.models.frame_transformer import FrameTransformer
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.train.state import model_buffers
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32,
+             "f64": torch.float64}[kind]
+    cfg = _ft_config(precision="bf16" if kind == "bf16" else "f32",
+                     seq_len=FT_GRAD_SEQ)
+    request = _ft_request(FT_TRAIN_BATCH, SEED + 21, FT_GRAD_SEQ)
+    m = FrameTransformer(model="distil", seq_len=FT_GRAD_SEQ,
+                         frame_len=FT_FRAMES, n_classes=FT_CLASSES,
+                         dropout=0.0, attention_impl=impl, dtype=dtype
+                         ).init_weights(torch.Generator().manual_seed(SEED))
+    m = m.to(device, torch.float64 if kind == "f64" else torch.float32)
+    params = dict(m.named_parameters())
+    batch = {k: torch.from_numpy(v).to(device) for k, v in request.items()}
+    loss, _, _ = forward_and_loss(
+        m, cfg, {"params": params, **model_buffers(m)}, batch, DropoutRng(0),
+        train=True)
+    g = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return loss.item(), {k: v.double().cpu() for k, v in zip(params, g)
+                         if v is not None}
+
+
+def _ft_grad_check() -> tuple[dict, str]:
+    """One distil step's gradients on the card (kernels 3 and 4) against
+    the CPU (their plain versions) and against the same step in f64 on
+    the card (the plain attention), in f32 and bf16, per leaf as a share
+    of the leaf's largest element.
+
+    f32: outside the video backbone the card and the CPU are held to each
+    other within PTN_GRAD_RTOL.  Through the video backbone (and vid_cls)
+    the gradients pass back through 17 BatchNorms normalising by batch
+    statistics, where f32 rounding alone moves them by about 1e-2 of a
+    leaf (tests/test_torch_train_ft.py: JAX's own f32 step against its
+    f64 step); there the card may stray from the f64 step by at most
+    PTN_GRAD_RTOL or FT_CHAIN_SPREAD times what the CPU strays (both round
+    the same sums in other orders: the card's tree reductions and cuDNN's
+    algorithms against the CPU's, 2.0x apart at the worst leaf on an
+    NVIDIA H100).
+
+    bf16: the video features' rounding moves every leaf downstream of
+    them, and a last-layer FFN weight gradient of the distil transformer
+    moves by half its largest element on the card (0.085 on the CPU)
+    with or without the kernels, as PTN's do (phase 14): so, as there,
+    the card's step with the kernels may stray from the f64 step by at
+    most GRAD_RTOL more than the card's step without them (the plain
+    attention, ``attention_impl="xla"``), leaf by leaf."""
+    import torch
+
+    ref_loss, ref = _ft_grads("f64", "cuda", impl="xla")
+    gaps, text = {}, []
+    for kind in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        card_loss, card = _ft_grads(kind, "cuda")
+        t1 = time.perf_counter()
+        cpu_loss, cpu = _ft_grads(kind, "cpu")
+        cpu_s = time.perf_counter() - t1
+        lib = _ft_grads(kind, "cuda", impl="xla")[1] if kind == "bf16" \
+            else None
+        if set(card) != set(cpu) or set(card) != set(ref):
+            raise AssertionError("train-ft: the card, the CPU and the f64 "
+                                 "step differ in which leaves have "
+                                 "gradients")
+        worst = {"direct": (0.0, ""), "card_f64": (0.0, ""),
+                 "cpu_f64": (0.0, ""), "lib_f64": (0.0, "")}
+        for name, want in ref.items():
+            if not torch.isfinite(card[name]).all():
+                raise AssertionError(f"train-ft: non-finite {kind} gradient "
+                                     f"of {name}")
+            scale = max(want.abs().max().item(), GRAD_FLOOR)
+
+            def gap(a, b):
+                return (a - b).abs().max().item() / scale
+
+            direct, e_card = gap(card[name], cpu[name]), gap(card[name], want)
+            e_cpu = gap(cpu[name], want)
+            e_lib = gap(lib[name], want) if lib is not None else 0.0
+            if kind == "bf16":
+                ok, rule = e_card <= e_lib + GRAD_RTOL, (
+                    f"the card without the kernels {e_lib:.3e} + {GRAD_RTOL}")
+            elif name.startswith(("vid_backbone.", "vid_cls")):
+                ok, rule = e_card <= max(PTN_GRAD_RTOL,
+                                         FT_CHAIN_SPREAD * e_cpu), (
+                    f"{PTN_GRAD_RTOL}, or {FT_CHAIN_SPREAD}x the CPU's")
+            else:
+                ok, rule = direct <= PTN_GRAD_RTOL, f"{PTN_GRAD_RTOL}"
+            if not ok:
+                raise AssertionError(
+                    f"train-ft: {kind} gradient of {name}: card vs CPU "
+                    f"{direct:.3e}, card vs f64 {e_card:.3e}, CPU vs f64 "
+                    f"{e_cpu:.3e} of the leaf's largest element (bound: "
+                    f"{rule})")
+            for key, val in (("direct", direct), ("card_f64", e_card),
+                             ("cpu_f64", e_cpu), ("lib_f64", e_lib)):
+                if val > worst[key][0]:
+                    worst[key] = (val, name)
+        gaps[kind] = worst
+        text.append(
+            f"{kind}: card vs CPU {worst['direct'][0]:.3e} at "
+            f"{worst['direct'][1]}, card vs f64 {worst['card_f64'][0]:.3e} "
+            f"at {worst['card_f64'][1]}, CPU vs f64 {worst['cpu_f64'][0]:.3e}"
+            f" at {worst['cpu_f64'][1]}" + (
+                f", the card without the kernels vs f64 "
+                f"{worst['lib_f64'][0]:.3e} at {worst['lib_f64'][1]}"
+                if lib is not None else "")
+            + f"; loss card {card_loss:.6f} CPU {cpu_loss:.6f} f64 "
+            f"{ref_loss:.6f} (card {t1 - t0:.1f} s, CPU {cpu_s:.1f} s)")
+    return gaps, "; ".join(text)
+
+
+def phase_train_ft() -> dict:
+    """FrameTransformer distil at full width, batch 2 (bench.py:523's
+    batch at the model's 13 scenes), bf16, dropout 0.5, AdamW 1e-4:
+    make_train_step and make_multi_step(8) on a fixed u8 batch; 8 launches
+    each of kernels 3 and 4 a step (4 layers of each encoder), all on
+    their streamed bodies; the eval loss falling on the fixed batch; the
+    video backbone's BatchNorm statistics moving and the frozen image
+    backbone's not; one step's gradients at dropout 0 and 4 scenes against
+    the CPU in f32 and bf16; step ms, host enqueue ms, device ms, peak
+    memory."""
+    import torch
+
+    from devt_tpu_torch.parallel.train_step import (make_eval_step,
+                                                    make_multi_step,
+                                                    make_train_step)
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState, model_buffers
+
+    cfg = _ft_config()
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    buffers = model_buffers(model)
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg), model_state=buffers)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _ft_request(FT_TRAIN_BATCH, SEED + 22).items()}
+    stacked = {k: v[None].expand(MULTI_STEPS, *v.shape)
+               for k, v in batch.items()}
+    step = make_train_step(model, cfg)
+    multi = make_multi_step(model, cfg, MULTI_STEPS)
+    evaluate = make_eval_step(model, cfg)
+    loss_before = evaluate(state, batch)[0].item()
+    stats_before = {k: v.clone() for k, v in buffers.items()}
+
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, first = step(state, batch, SEED)
+    state, metrics = multi(state, stacked, SEED)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = 1 + MULTI_STEPS
+    counts = _kernel_counts()
+    per_step = 2 * FT_LAYERS
+    if counts != _expect(k3=per_step * steps, k4=per_step * steps) \
+            or _body_counts()["k3_streamed"] != counts["k3"] \
+            or _body_counts()["k4_streamed"] != counts["k4"]:
+        raise AssertionError(f"train-ft: launches {counts} in {steps} steps, "
+                             f"by body {_body_counts()}, expected "
+                             f"{per_step} of kernels 3 and 4 a step on their "
+                             f"streamed bodies")
+    loss_after = evaluate(state, batch)[0].item()
+    losses = (first["loss"].item(), metrics["loss"].item(), loss_after)
+    if not all(map(math.isfinite, losses)) or state.step != steps \
+            or not loss_after < loss_before:
+        raise AssertionError(f"train-ft: eval loss {loss_before:.5f} before, "
+                             f"{losses} during and after {state.step} steps")
+    moved = {k for k, v in buffers.items() if not torch.equal(
+        v, stats_before[k])}
+    video = {k for k in buffers if k.startswith("vid_backbone.")}
+    if moved != video or any(buffers[k] is not v
+                             for k, v in state.model_state.items()):
+        raise AssertionError(f"train-ft: BatchNorm statistics moved in "
+                             f"{len(moved)} buffers, expected the video "
+                             f"backbone's {len(video)} and no other")
+
+    multi(state, stacked, SEED)[1]["loss"].item()
+    windows, enqueue = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, metrics = multi(state, stacked, SEED)
+        enqueue.append(time.perf_counter() - t0)
+        metrics["loss"].item()
+        windows.append(time.perf_counter() - t0)
+    best = min(windows)
+    step_ms = best / MULTI_STEPS * 1e3
+    host_ms = enqueue[windows.index(best)] / MULTI_STEPS * 1e3
+    rows, busy, wall_ms = _traced(lambda: step(state, batch, SEED))
+    _print_profile(f"FrameTransformer distil train step, B={FT_TRAIN_BATCH}",
+                   rows, busy, wall_ms, top=12)
+    device_ms = sum(ms for _, ms, _ in rows)
+    attn_ms = sum(ms for name, ms, _ in rows if name.startswith((
+        "attention_bf16<224", "attention_bf16<448", "mha_bwd_delta",
+        "mha_bwd_bf16<224", "mha_bwd_bf16<448")))
+    print(f"[profile]   device total {device_ms:.3f} ms per step, of which "
+          f"kernels 3 and 4 {attn_ms:.3f} "
+          f"({sum(n for _, _, n in rows):.0f} launches)", flush=True)
+    gaps, grad_text = _ft_grad_check()
+    print(f"[train-ft] FrameTransformer distil bf16 AdamW B={FT_TRAIN_BATCH}"
+          f", {FT_SEQ} scenes, dropout {FT_DROPOUT}, u8 frames and clips: "
+          f"{steps} steps (1 + make_multi_step({MULTI_STEPS})), kernel 3 "
+          f"{counts['k3']} and kernel 4 {counts['k4']} launches ({per_step} "
+          f"of each a step, all streamed); eval loss on the fixed batch "
+          f"{loss_before:.5f} -> {loss_after:.5f}; BatchNorm statistics "
+          f"moved in the video backbone's {len(video)} buffers and no other; "
+          f"gradients of one step at dropout 0 ({FT_GRAD_SEQ} scenes), "
+          f"worst leaf as a share of its largest element (f32 within "
+          f"{PTN_GRAD_RTOL}, through the video backbone against the f64 "
+          f"step; bf16 within {GRAD_RTOL} of the card's step without the "
+          f"kernels, against the f64 step): {grad_text} | "
+          f"{FT_TRAIN_BATCH / best * MULTI_STEPS:.2f} samples/s, step_ms="
+          f"{step_ms:.3f}, host enqueue {host_ms:.3f} ms a step, device "
+          f"{device_ms:.3f} ms a step (busy {busy:.1%}), peak device memory "
+          f"{peak_gb:.2f} GiB (best of 3 windows of {MULTI_STEPS} steps, "
+          f"host clock)", flush=True)
+    return {"counts": counts, "step_ms": step_ms, "host_ms": host_ms,
+            "device_ms": device_ms, "peak_gb": peak_gb, "gaps": gaps}
+
+
 def main() -> int:
     import torch
 
@@ -3761,10 +4261,16 @@ def main() -> int:
         phase_flash_blocked_bwd(dtype, 16, 2, 520, 520, 128, 519, timed=False)
     ring = phase_ring("bf16")
     phase_ring("f32")
+    # FrameTransformer: kernels 3 and 4 at head dims 448 and 224, then the
+    # model served (every variant) and trained (distil)
+    mha_ft = phase_mha_ft()
+    serve_ft = phase_serve_ft()
+    train_ft = phase_train_ft()
     # the MoE and the later model paths' launches of the earlier kernels
     later_runs = (serve_moe["counts"], serve_moe["int8_counts"],
                   train_moe["counts"], train_moe["drop_counts"],
-                  *int8_unfused["counts"])
+                  *int8_unfused["counts"], serve_ft["counts"],
+                  train_ft["counts"])
 
     def later(k):
         return sum(c[k] for c in later_runs)
@@ -3778,6 +4284,33 @@ def main() -> int:
                 **extra}
 
     csrc = "devt_tpu_torch/ops/csrc/"
+
+    def ft_rows(part):
+        """Rows 3's and 4's FrameTransformer shapes (head dims 448 and
+        224, the streamed bodies): each shape's numbers in the keys of the
+        row, the SDPA backends that took it, and the launches of the
+        serving and training paths at that head dim."""
+        rows = {}
+        for encoder, m in mha_ft.items():
+            shape = f"({FT_TRAIN_BATCH},{m['s']},{3 * m['heads'] * m['d']})"
+            r = m["fwd"][FT_TRAIN_BATCH] if part == "fwd" else m["bwd"]
+            serve = sum(v["heads"][m["d"]] for v in serve_ft["variants"]
+                        .values())
+            row = {k: r[k] for k in ("max_abs_err", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}
+            row.update(shape=shape, heads=m["heads"], d=m["d"],
+                       ms=r["kernel_ms"], sdpa_backends=m["sdpa_backends"],
+                       launches=FT_LAYERS * (1 + MULTI_STEPS) + (
+                           serve if part == "fwd" else 0))
+            if part == "fwd":
+                row["serve_bucket"] = {k: m["fwd"][FT_BUCKET][k] for k in (
+                    "kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+            else:
+                row["drop_ms"] = r["bwd_drop_ms"]
+                row["fwd_drop_ms"] = r["fwd_drop_ms"]
+            rows[encoder] = row
+        return rows
+
     # in kernel order, 1 to 15, each with its number
     kernels = [
         # the products on block_sm90.cuh's wgmma body, the attention on
@@ -3807,7 +4340,8 @@ def main() -> int:
               mha, launch_sources=[csrc + "mha_fwd.cu",
                                    csrc + "mha_fwd_sm90.cuh",
                                    csrc + "flash_fwd_sm90.cuh",
-                                   csrc + "attention_fwd.cuh"]),
+                                   csrc + "attention_fwd.cuh"],
+              frame_transformer=ft_rows("fwd")),
         # PTN training on the packed wgmma body; the MoE blocks at dropout
         # and the blocks the fused kernels do not take on kernels 12's and
         # 13's bodies; the ViT shape's reading beside the PTN one
@@ -3827,7 +4361,8 @@ def main() -> int:
                   "bwd_drop_max_abs_err")},
               launch_sources=[csrc + "mha_bwd.cu", csrc + "mha_bwd_sm90.cuh",
                               csrc + "flash_bwd_sm90.cuh",
-                              csrc + "attention_bwd.cuh"]),
+                              csrc + "attention_bwd.cuh"],
+              frame_transformer=ft_rows("bwd")),
         # LN1 + qkv and out-projection + FFN on int8 and bf16 wgmma, the
         # attention on the one-shot body's normalise-after instance
         entry(5, "quant_fused_vit_block", csrc + "quant_block_fwd.cu",

@@ -89,9 +89,9 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """flax's default initializers over every Linear, LayerNorm and MoE
-    block below ``module``: lecun-normal kernels, zero biases, unit LN
-    scales; an MoE block's router normal(0.01) and its (E, ...) expert
+    """flax's default initializers over every Linear, convolution,
+    LayerNorm and MoE block below ``module``: lecun-normal kernels, zero
+    biases, unit LN scales; an MoE block's router normal(0.01) and its (E, ...) expert
     kernels lecun-normal with the expert axis counted in the fan-in, as
     flax's ``lecun_normal`` counts it."""
     for m in module.modules():
@@ -99,6 +99,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             lecun_normal_(m.weight, m.in_features, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.Conv2d, nn.Conv3d)):
+            # flax's Conv: the fan-in is the receptive field times cin
+            lecun_normal_(m.weight, m.weight[0].numel(), generator)
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
@@ -163,6 +166,27 @@ class PositionalEncoding(nn.Module):
                 rng: DropoutRng | None = None) -> torch.Tensor:
         x = x + self.pe[: x.shape[1]].to(x.dtype)[None]
         return dropout(x, self.dropout, self.training, rng)
+
+
+class GeluMlp(nn.Module):
+    """Stack of Linear layers ``fc0``, ``fc1``, ... with exact-erf GELU
+    between them (the reference's MLP heads, e.g. 896→512→128→19)."""
+
+    def __init__(self, in_features: int, features: tuple[int, ...],
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.n = len(features)
+        for i, (k, f) in enumerate(zip((in_features,) + tuple(features),
+                                       features)):
+            setattr(self, f"fc{i}", nn.Linear(k, f))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n):
+            x = dense(getattr(self, f"fc{i}"), x, self.dtype)
+            if i < self.n - 1:
+                x = F.gelu(x)
+        return x
 
 
 class FeedForward(nn.Module):

@@ -1,9 +1,9 @@
 """Loss functions: port of ``devt_tpu/models/losses.py``.
 
-BCE-with-logits for multi-label genre tagging, BCE on probabilities, and
-cross-entropy with integer labels.  All compute in f32 whatever the input
-dtype.  The contrastive (NT-Xent) and distillation losses come with their
-models (ROADMAP.md queue 1, item 5).
+BCE-with-logits for multi-label genre tagging, BCE on probabilities,
+cross-entropy with integer labels, and FrameTransformer's distillation
+loss.  All compute in f32 whatever the input dtype.  The contrastive
+(NT-Xent) losses come with their model (ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -34,3 +34,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy with integer labels."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, labels.long()[:, None]).mean()
+
+
+def distillation_loss(student_logits: torch.Tensor,
+                      teacher_logits: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy of the student's distil-token logits against the
+    argmax of the teacher's logits, which carry no gradient (the reference
+    takes a hard target, ``torch.argmax(vid, dim=-1)``)."""
+    labels = torch.argmax(teacher_logits.detach(), dim=-1)
+    return cross_entropy(student_logits, labels)

@@ -48,13 +48,16 @@
 // memory does not grow with either length: every Sq and Skv fits at every
 // head dim up to 256.  Each output element has one owner that sums its
 // terms in a fixed order, so there are no atomics and two runs give the
-// same bits.  Inside a block a warp owns 16 rows and 64 output columns
-// (the whole head below head dim 64); for each 16 streamed rows it
-// recomputes its 16 x 16 score and dp tiles over the whole head dim
-// (mma.sync m16n8k16, f32 accumulation), so that its accumulators stay in
-// registers at head dim 256.  The float route (the tests' f32 runs and
-// f32 training) has the same split on 32-row tiles with the block-level
-// FMA product, the scores in shared memory.
+// same bits.  Inside a block a warp owns 16 rows and attn_out_cols(HD)
+// output columns (the whole head up to head dim 64, else 64, or 32 at
+// 224); for each 16 streamed rows it recomputes its 16 x 16 score and dp
+// tiles over the whole head dim (mma.sync m16n8k16, f32 accumulation), so
+// that its accumulators stay in registers at head dim 256 and past it.  A
+// block's warps are its strips times the head's chunks, at most 16: head
+// dims 224 and 448 (FrameTransformer's, 7 chunks) take R <= 32 rows, so
+// S <= 32, and 448's shared memory holds no more either.  The float route
+// (the tests' f32 runs and f32 training) has the same split on 32-row
+// tiles with the block-level FMA product, the scores in shared memory.
 
 #pragma once
 
@@ -64,6 +67,12 @@ namespace {
 
 constexpr int kBwdRows = 64;  // rows a block owns, and streams at once
 constexpr int kBwdMaxWarps = 16;
+
+// the output-column chunks of a head that a block's warps split (a warp a
+// (16-row strip, chunk) pair): the kernel's and the launcher's count
+__host__ __device__ constexpr int bwd_chunks(int hd) {
+  return hd / attn_out_cols(hd);
+}
 
 // element strides of a (B, H, S, d) operand: row r of head h of sequence
 // b starts at b * b_ + h * h_ + r * r_
@@ -207,8 +216,8 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps)
                  Drop drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ld = HD + 8;
-  constexpr int OC = HD > 64 ? 64 : HD;  // output columns of one warp
-  constexpr int kChunks = HD / OC;
+  constexpr int OC = attn_out_cols(HD);  // output columns of one warp
+  constexpr int kChunks = bwd_chunks(HD);
   const BwdGrid g = bwd_grid(sh, kBwdRows);
   const int R = g.R, Sq = sh.Sq, Skv = sh.Skv;
   const int bx = blockIdx.x + first;
@@ -388,8 +397,10 @@ cudaError_t launch_bwd_bf16(const BwdOperands<bf16, TO>& a, int B,
   const BwdGrid g = bwd_grid(sh, kBwdRows);
   const size_t bytes = mha_bwd_smem_bf16(g.R, HD);
   if (bytes > kSmemPerBlock) return cudaErrorInvalidValue;
-  constexpr int kChunks = HD > 64 ? HD / 64 : 1;
-  const int warps = (g.R / 16) * kChunks;  // one (strip, chunk) each, <= 16
+  // one (strip, chunk) each: at head dims 224 and 448 (7 chunks) that
+  // bounds R, and so S, to 32
+  const int warps = (g.R / 16) * bwd_chunks(HD);
+  if (warps > kBwdMaxWarps) return cudaErrorInvalidValue;
   int blocks, first;
   part_grid(g, part, &blocks, &first);
   DEVT_TRY(set_smem(mha_bwd_bf16<HD, kDrop, kMask, TO>, bytes));

@@ -26,7 +26,9 @@
 // row max first), so the scores are recomputed per pass instead of kept:
 // a pass over the keys for the max, one for l when p is normalised before
 // the product, one for the product.  Head dims above 64 take the product
-// 64 output columns at a time, so the accumulators stay in registers.
+// attn_out_cols(HD) output columns at a time (64, or 32 at head dim 224),
+// so the accumulators stay in registers; past head dim 256 (448) q's
+// fragments are read from shared memory at each k-step rather than held.
 // K and V of one head sit in shared memory whole; key blocks wholly past
 // kv_len are skipped (their probabilities are exactly 0).  lse goes to
 // lse[row * lanes + h]: the residual lanes of the fused block, or a
@@ -40,6 +42,19 @@ namespace {
 
 // dynamic shared memory one block may ask for on sm_90
 constexpr size_t kSmemPerBlock = 232448;
+
+// output columns of one product pass (forward) or of one warp's chunk
+// (attention_bwd.cuh) at head dim hd: the whole head up to 64, else 64 where
+// 64 divides the head, and 32 where it does not (224 = 7 x 32), so that the
+// last pass ends at the head's last column and not in the next head's
+__host__ __device__ constexpr int attn_out_cols(int hd) {
+  return hd <= 64 ? hd : hd % 64 == 0 ? 64 : 32;
+}
+
+// whether a warp holds its 16 queries' q fragments in registers for the
+// whole block (HD / 4 registers); past head dim 256 (448: 112 registers
+// beside the accumulators) it reads them from Qs at each k-step instead
+__host__ __device__ constexpr bool attn_q_in_regs(int hd) { return hd <= 256; }
 
 // ---------------------------------------------------------------------------
 // bfloat16: mma.sync m16n8k16
@@ -81,6 +96,30 @@ __device__ __forceinline__ void score_block(float (&s)[4][4],
     }
 }
 
+// the same with q's fragments read from shared memory (rows r0.. of Qs)
+// at each k-step
+template <int HD>
+__device__ __forceinline__ void score_block_smem(float (&s)[4][4],
+                                                 const bf16* Qs, int r0,
+                                                 const bf16* Ks, int kc) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    load_a(a, Qs, HD + 8, r0, 16 * kk);
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      uint32_t b[4];
+      load_b_nk(b, Ks, HD + 8, 16 * kk, kc + 8 * j);
+      mma_bf16(s[j], a, b[0], b[1]);
+      mma_bf16(s[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 template <int HD, bool kNormFirst, bool kDrop>
 __global__ void __launch_bounds__(kAttnThreads)
     attention_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ att,
@@ -89,7 +128,9 @@ __global__ void __launch_bounds__(kAttnThreads)
   static_assert(kNormFirst || !kDrop, "dropout follows the normalisation");
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ld = HD + 8;
-  constexpr int OC = HD > 64 ? 64 : HD;  // output columns per product pass
+  constexpr int OC = attn_out_cols(HD);  // output columns per product pass
+  static_assert(HD % OC == 0, "the passes cover the head exactly");
+  constexpr bool kQRegs = attn_q_in_regs(HD);
   const int kp = round_up(kv_len, kAttnKeys);  // keys staged and visited
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = reinterpret_cast<bf16*>(
@@ -115,9 +156,18 @@ __global__ void __launch_bounds__(kAttnThreads)
   if (q0 + r0 >= S) return;  // no barrier follows
   const int gq = lane >> 2, tq = lane & 3;
 
-  uint32_t qa[HD / 16][4];
+  uint32_t qa[kQRegs ? HD / 16 : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) load_a(qa[kk], Qs, ld, r0, 16 * kk);
+    for (int kk = 0; kk < HD / 16; ++kk) load_a(qa[kk], Qs, ld, r0, 16 * kk);
+  }
+  // scores of the warp's queries against keys kc..kc+31
+  auto scores = [&](float(&s)[4][4], int kc) {
+    if constexpr (kQRegs)
+      score_block<HD>(s, qa, Ks, kc);
+    else
+      score_block_smem<HD>(s, Qs, r0, Ks, kc);
+  };
 
   // masked, scaled score of accumulator element e of n8 block j
   auto masked = [&](float s, int kc, int j, int e) {
@@ -129,7 +179,7 @@ __global__ void __launch_bounds__(kAttnThreads)
   float m[2] = {-3.0e38f, -3.0e38f};
   for (int kc = 0; kc < kp; kc += kAttnKeys) {
     float s[4][4];
-    score_block<HD>(s, qa, Ks, kc);
+    scores(s, kc);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -145,7 +195,7 @@ __global__ void __launch_bounds__(kAttnThreads)
   if (kNormFirst) {
     for (int kc = 0; kc < kp; kc += kAttnKeys) {
       float s[4][4];
-      score_block<HD>(s, qa, Ks, kc);
+      scores(s, kc);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -163,7 +213,7 @@ __global__ void __launch_bounds__(kAttnThreads)
     float o[OC / 8][4] = {};
     for (int kc = 0; kc < kp; kc += kAttnKeys) {
       float s[4][4];
-      score_block<HD>(s, qa, Ks, kc);
+      scores(s, kc);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll

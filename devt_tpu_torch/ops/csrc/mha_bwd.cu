@@ -34,7 +34,8 @@
 //              not take: MoE-ViViT at dropout, ViViT at dim 384): kernels
 //              12's and 13's wgmma bodies (flash_bwd_sm90.cuh) with kBwdMha,
 //              the dq launch (delta into the scratch) then the dk/dv launch
-//   streamed   float, and head dim 128 or 256 at S > 64: attention_bwd.cuh's
+//   streamed   float, head dim 128 or 256 at S > 64, and head dims 224 and
+//              448 (FrameTransformer's, S <= 32): attention_bwd.cuh's
 //              body, which flash_bwd.cu (kernel 10 and the float and wide
 //              kernels 12, 13) shares: FlashAttention-2's split, a launch
 //              that writes delta (B, S, H) f32, then blocks that own up to
@@ -69,6 +70,16 @@ BwdOperands<T> packed(const void* qkv, const void* dout, const void* lse,
           nullptr};
 }
 
+// the streamed bf16 body at head dim HD, both kinds of block in one launch
+template <int HD>
+cudaError_t streamed_bf16(const BwdOperands<bf16>& a, int B,
+                          const BwdShape& sh, const Drop& drop,
+                          cudaStream_t s) {
+  return drop.on
+             ? launch_bwd_bf16<HD, true, false>(a, B, sh, kBwdBoth, drop, s)
+             : launch_bwd_bf16<HD, false, false>(a, B, sh, kBwdBoth, drop, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  qkv and dqkv (B, S, 3*H*d), o and do
@@ -76,9 +87,10 @@ BwdOperands<T> packed(const void* qkv, const void* dout, const void* lse,
 // bodies' TMA maps need), lse (B, S, H) f32, delta (B, S, H) f32 scratch
 // that the first launch fills (unused by the packed body, which may be
 // given null); rate in [0, 1) and the forward's seed.  The bfloat16 kernels
-// are compiled for head dims 16, 32, 64, 128 and 256, the float kernel takes
-// any multiple of 4; the streamed body's shared memory holds up to 64 rows
-// (float: 32) of a head at a time, with their lse and delta.
+// are compiled for head dims 16, 32, 64, 128, 224, 256 and 448 (224 and 448
+// at S <= 32), the float kernel takes any multiple of 4; the streamed body's
+// shared memory holds up to 64 rows (float: 32) of a head at a time, with
+// their lse and delta.
 // devt_mha_bwd_route names the body a shape takes.  Returns the CUDA error
 // of the launches (0 on success, invalid value for a shape that is not
 // covered); they are asynchronous on `stream`.
@@ -105,7 +117,8 @@ extern "C" int devt_mha_bwd(int dtype, const void* qkv, const void* o,
                    : launch_bwd_f32<false, false>(a, B, d, sh, kBwdBoth,
                                                   drop, s);
   }
-  if (d != 16 && d != 32 && d != 64 && d != 128 && d != 256)
+  if (d != 16 && d != 32 && d != 64 && d != 128 && d != 224 && d != 256 &&
+      d != 448)
     return cudaErrorInvalidValue;
   switch (mha_bwd_route(dtype, d, S, kv_len, drop.on)) {
     case kMhaBwdPacked:
@@ -116,19 +129,18 @@ extern "C" int devt_mha_bwd(int dtype, const void* qkv, const void* o,
                                   static_cast<float*>(delta), dqkv, B, S, H, d,
                                   kv_len, scale, drop, s);
   }
-  // the streamed body: head dim 128 or 256 past one 64-row tile
+  // the streamed body: head dim 128 or 256 past one 64-row tile, 224 and
+  // 448 (FrameTransformer's) at S <= 32
   const BwdOperands<bf16> a =
       packed<bf16>(qkv, dout, lse, delta, dqkv, S, H, d);
   DEVT_TRY(launch_delta<bf16>(o, dout, a.delta, pairs, d, s));
-  if (d == 256)
-    return drop.on ? launch_bwd_bf16<256, true, false>(a, B, sh, kBwdBoth,
-                                                       drop, s)
-                   : launch_bwd_bf16<256, false, false>(a, B, sh, kBwdBoth,
-                                                        drop, s);
-  return drop.on ? launch_bwd_bf16<128, true, false>(a, B, sh, kBwdBoth, drop,
-                                                     s)
-                 : launch_bwd_bf16<128, false, false>(a, B, sh, kBwdBoth,
-                                                      drop, s);
+  switch (d) {
+    case 128: return streamed_bf16<128>(a, B, sh, drop, s);
+    case 224: return streamed_bf16<224>(a, B, sh, drop, s);
+    case 256: return streamed_bf16<256>(a, B, sh, drop, s);
+    case 448: return streamed_bf16<448>(a, B, sh, drop, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The body devt_mha_bwd runs for this dtype (0 float32, 1 bfloat16), head

@@ -25,7 +25,8 @@
 //              head views of qkv by strides, lse out through (B, S, H)
 //              strides; it rounds p * (1 / l), kernel 9's form, within the
 //              forward gate of the division
-//   streamed   the rest (dropout, float, head dim 128 or 256 at S > 64):
+//   streamed   the rest (dropout, float, head dim 128 or 256 at S > 64,
+//              head dims 224 and 448 at every S):
 //              attention_fwd.cuh's body, shared with the fused ViT block,
 //              a block per 64 queries of one (sequence, head), K and V (kv_len
 //              rounded up to 32 rows) in shared memory: 512 keys and more at
@@ -75,7 +76,9 @@ __global__ void mha_masks_kernel(uint8_t* __restrict__ keep, int H, int S,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  The bfloat16 kernel is compiled for
-// head dims 16, 32, 64, 128 and 256; the float kernel takes any multiple of 4.
+// head dims 16, 32, 64, 128, 224, 256 and 448 (224 and 448 on the streamed
+// body, with K and V of kv_len rounded up to 32 rows in shared memory: up
+// to 192 keys at 224, 64 at 448); the float kernel takes any multiple of 4.
 // rate in [0, 1): 0 is no dropout, and the seed is then unused.  qkv is
 // contiguous (bfloat16: 16-byte aligned, which the wgmma routes' TMA maps
 // need).  devt_mha_fwd_route names the body a shape takes.  Returns the
@@ -119,8 +122,12 @@ extern "C" int devt_mha_fwd(int dtype, const void* qkv, void* o, void* lse,
     case 64: return run_bf16<64>(qkv, o, lse, B, S, H, kv_len, scale, drop, s);
     case 128:
       return run_bf16<128>(qkv, o, lse, B, S, H, kv_len, scale, drop, s);
+    case 224:  // FrameTransformer's scene transformer (4 heads of 224)
+      return run_bf16<224>(qkv, o, lse, B, S, H, kv_len, scale, drop, s);
     case 256:
       return run_bf16<256>(qkv, o, lse, B, S, H, kv_len, scale, drop, s);
+    case 448:  // FrameTransformer's distil transformer (2 heads of 448)
+      return run_bf16<448>(qkv, o, lse, B, S, H, kv_len, scale, drop, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -29,8 +29,8 @@ and k while this tile's P·V runs; two CTAs an SM at head dim 256) and runs
 Q·Kᵀ and P·V on ``wgmma`` with p / l in registers
 (``mha_packed_tiling`` mirrors its tiling); at head dim 16, 32 or 64 with
 kv_len ≤ 256 kernel 9's one-shot ``wgmma`` instance on the head views of
-qkv.  Everything else (dropout, float, head dim 128 or 256 at S > 64) runs
-the streamed body of ``csrc/attention_fwd.cuh``, which it shares with the
+qkv.  Everything else (dropout, float, head dim 128 or 256 at S > 64,
+FrameTransformer's head dims 224 and 448) runs the streamed body of ``csrc/attention_fwd.cuh``, which it shares with the
 fused ViT block (a block per (64 queries, head, sequence), K and V in
 shared memory, ``mma.sync`` bf16 tiles, the scores recomputed per pass so
 that p is normalised and rounded where the TPU kernel does it).  The
@@ -43,8 +43,8 @@ block-diagonal mask (``mha_bwd_packed_tiling``), key-major products on
 ``wgmma`` with each score computed once and delta from the tile's o and
 do rows.  In bfloat16 at head dim 16, 32 or 64 kernels 12's
 and 13's ``wgmma`` bodies on the head views of qkv (the dq launch with
-delta, then the dk/dv launch).  Float, and head dim 128 or 256 at S > 64,
-run ``csrc/attention_bwd.cuh``: FlashAttention-2's split, a launch that
+delta, then the dk/dv launch).  Float, head dim 128 or 256 at S > 64,
+and head dims 224 and 448 run ``csrc/attention_bwd.cuh``: FlashAttention-2's split, a launch that
 writes delta = rowsum(do · o), then one of blocks that own up to 64
 queries of a head and sum their dq over the keys, and blocks that own up
 to 64 keys and sum their dk and dv over the queries, each streaming the
@@ -52,10 +52,13 @@ other side's rows through shared memory, so that every single-kv-block
 length fits.  Each output has one owner in every body (no atomics: two
 runs give the same bits); the dropout mask is drawn inside each.
 bfloat16 is compiled for head dims
-16, 32, 64, 128 and 256, float (FMA products) for any multiple of 4; a
-shape whose rows do not fit a block's shared memory raises ``ValueError``
-with the byte count, before the forward's work when the input needs a
-gradient.
+16, 32, 64, 128, 224, 256 and 448, float (FMA products) for any multiple of
+4; a shape whose rows do not fit a block's shared memory raises
+``ValueError`` with the byte count (the forward at head dim 448 holds
+kv_len ≤ 64, at 224 kv_len ≤ 192), and so does a backward at head dim 224
+or 448 past S = 32 (its blocks would need more than 16 warps: 7 output
+column chunks of ``attn_out_cols`` a 16-row strip), before the forward's
+work when the input needs a gradient.
 
 Dropout runs inside both kernels: Philox4x32-10 keyed by the call's seed,
 its counter (the attention site, flat index over (b, h, q, k)), so the
@@ -161,9 +164,15 @@ import torch
 NEG_INF = -1e30
 _LANES = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the bfloat16 kernels are instantiated for (csrc/mha_fwd.cu,
-# csrc/mha_bwd.cu, csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/ring_step.cu)
+# head dims the bfloat16 kernels are instantiated for (csrc/flash_fwd.cu,
+# csrc/flash_bwd.cu, csrc/ring_step.cu); kernels 3 and 4 (csrc/mha_fwd.cu,
+# csrc/mha_bwd.cu) also take FrameTransformer's 224 and 448, on their
+# streamed bodies
 _BF16_HEAD_DIMS = (16, 32, 64, 128, 256)
+_MHA_BF16_HEAD_DIMS = (16, 32, 64, 128, 224, 256, 448)
+# warps of a block of the streamed backward (csrc/attention_bwd.cuh
+# kBwdMaxWarps): one per (16-row strip, output-column chunk)
+_BWD_MAX_WARPS = 16
 # keys per block of the JAX package's blockwise kernel (block_kv)
 _BLOCK_KV = 128
 # rows of a float tile of the flash kernels (csrc/flash_fwd.cuh kF32Rows,
@@ -289,6 +298,23 @@ def blocked_bwd_on_wgmma(dtype: torch.dtype, d: int) -> bool:
     (bfloat16 at head dim 16, 32 or 64, any Sq, Skv and kv_len).  The
     others run the streamed body of ``csrc/attention_bwd.cuh``."""
     return online_on_wgmma(dtype, d)
+
+
+def attn_out_cols(d: int) -> int:
+    """Output columns of one product pass of the streamed forward, or of
+    one warp's chunk of the streamed backward (csrc/attention_fwd.cuh
+    ``attn_out_cols``): the whole head up to 64, else 64 where 64 divides
+    it, else 32 (head dim 224: 7 passes that end at the head's last
+    column)."""
+    return d if d <= 64 else 64 if d % 64 == 0 else 32
+
+
+def _bwd_warps(sp: int, d: int) -> int:
+    """Warps of a block of the streamed backward (csrc/attention_bwd.cuh
+    ``launch_bwd_bf16``) for sequences that round up to ``sp`` rows: one
+    per 16-row strip of the block's rows (at most 64) and output-column
+    chunk of the head."""
+    return (min(sp, 64) // 16) * (d // attn_out_cols(d))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -466,14 +492,22 @@ def _check_mha_args(qkv: torch.Tensor, heads: int, kv_len: int,
         raise ValueError(f"kv_len must be in [1, {s}], got {kv_len}")
     sp = _round_up(s, 16)
     if qkv.dtype == torch.bfloat16:
-        if d not in _BF16_HEAD_DIMS:
+        if d not in _MHA_BF16_HEAD_DIMS:
             raise ValueError(f"the bfloat16 kernel is compiled for head dims "
-                             f"{_BF16_HEAD_DIMS}, got {d}")
+                             f"{_MHA_BF16_HEAD_DIMS}, got {d}")
         if backward:
             # the shared memory of the body the shape takes
             body = mha_bwd_on_wgmma(qkv.dtype, d, s, kv_len, 0.0)
             need = _bwd_smem_bf16(sp, d) if body == "streamed" \
                 else _mha_bwd_wgmma_smem(body, d)
+            if body == "streamed" and _bwd_warps(sp, d) > _BWD_MAX_WARPS:
+                # head dims 224 and 448: 7 column chunks, so S <= 32
+                raise ValueError(
+                    f"the backward kernel gives a warp to each 16-row strip "
+                    f"and {attn_out_cols(d)}-column chunk of a head: {s} "
+                    f"tokens of head dim {d} need {_bwd_warps(sp, d)} "
+                    f"warps, a block has {_BWD_MAX_WARPS} (S <= 32 at head "
+                    f"dims 224 and 448)")
         else:
             # 64 queries, and K and V of kv_len rounded up to 32 rows,
             # rows padded by 8

@@ -83,21 +83,25 @@ def _make_step_body(model: nn.Module, config: Config) -> Callable:
     multi-step executors."""
     accum = max(config.accum_steps, 1)
 
-    def grads_of(state: TrainState, batch, seed: int):
+    def grads_of(state: TrainState, model_state, batch, seed: int):
         names = list(state.params)
         leaves = [state.params[k] for k in names]
         for p in leaves:
             p.requires_grad_(True)
-        variables = {"params": state.params, **state.model_state}
+        variables = {"params": state.params, **model_state}
         loss, aux, new_ms = forward_and_loss(
             model, config, variables, batch, DropoutRng(seed), train=True)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (FrameTransformer's frozen image
+        # side, an unused CLS input) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         return loss.detach(), aux, new_ms, dict(zip(names, grads))
 
     def train_step(state: TrainState, batch, rng: int):
         if accum == 1:
             loss, aux, new_ms, grads = grads_of(
-                state, batch, step_seed(rng, state.step))
+                state, state.model_state, batch, step_seed(rng, state.step))
             aux = {k: aux[k].detach() for k in _SCALAR_AUX if k in aux}
         else:
             micro = _split_microbatches(batch, accum)
@@ -105,11 +109,13 @@ def _make_step_body(model: nn.Module, config: Config) -> Callable:
                      for k, p in state.params.items()}
             loss = torch.zeros((), dtype=torch.float32, device=state.device)
             stacked: dict[str, list] = {}
+            # each microbatch sees the model state (BatchNorm statistics)
+            # the one before it left, as the JAX scan carries it
             new_ms = state.model_state
             for i in range(accum):
                 mb = {k: v[i] for k, v in micro.items()}
                 l, a, new_ms, g = grads_of(
-                    state, mb, step_seed(rng, state.step, i + 1))
+                    state, new_ms, mb, step_seed(rng, state.step, i + 1))
                 torch._foreach_add_(list(grads.values()),
                                     [g[k] for k in grads])
                 loss = loss + l

@@ -1,8 +1,11 @@
 """Model construction by config string: port of ``devt_tpu/registry.py``.
 
-``vivit``, ``ptn`` and ``ptn_shared`` are ported; the other names of the
+``vivit``, ``ptn``, ``ptn_shared`` and the FrameTransformer variants
+(``vid``, ``frame``, ``distil``, ``sum``, ``post_sum``, ``sum_residual``,
+``pre_modal``, ``frame_transformer``) are ported; the other names of the
 model family raise ``NotImplementedError`` until their slice lands
-(ROADMAP.md queue 1, item 5).
+(ROADMAP.md queue 1, item 5), and a name the JAX registry does not know
+raises ``ValueError``, as there.
 """
 
 from __future__ import annotations
@@ -14,13 +17,21 @@ import torch
 from torch import nn
 
 from devt_tpu_torch.config import Config
+from devt_tpu_torch.models.frame_transformer import VARIANTS as FT_VARIANTS
+from devt_tpu_torch.models.frame_transformer import FrameTransformer
 from devt_tpu_torch.models.ptn import PTN
 from devt_tpu_torch.models.vivit import ViViT
 
-PORTED_MODELS = ("vivit", "ptn", "ptn_shared")
+PORTED_MODELS = ("vivit", "ptn", "ptn_shared") + FT_VARIANTS
+# every name the JAX registry builds (devt_tpu/registry.py build_model)
+KNOWN_MODELS = ("ptn", "ptn_shared", "lstm") + FT_VARIANTS + (
+    "vivit", "tpn", "contrastive", "basicmlp")
 
 
 def _check_ported(name: str) -> None:
+    if name not in KNOWN_MODELS:
+        raise ValueError(f"unknown model {name!r}; expected one of "
+                         f"{', '.join(KNOWN_MODELS)}")
     if name not in PORTED_MODELS:
         raise NotImplementedError(
             f"model {name!r} is not ported yet — ROADMAP.md queue 1, item 5 "
@@ -47,6 +58,16 @@ def build_model(config: Config,
                    shared=config.model == "ptn_shared",
                    attention_impl=config.attention_impl, remat=config.remat,
                    dtype=model_dtype(config)).init_weights(generator)
+    if config.model in FT_VARIANTS:
+        # dropout stays the model's 0.5, as the JAX registry passes none
+        return FrameTransformer(model=config.model, seq_len=config.seq_len,
+                                frame_len=config.frame_len,
+                                n_classes=config.n_classes,
+                                use_cls=bool(config.cls),
+                                attention_impl=config.attention_impl,
+                                remat=config.remat,
+                                dtype=model_dtype(config)
+                                ).init_weights(generator)
     # channels-last is what the frame pipeline emits, as in the JAX registry
     model = ViViT(num_classes=config.n_classes,
                   num_frames=config.frame_len,
@@ -68,7 +89,7 @@ def example_batch(config: Config,
     _check_ported(config.model)
     rng = np.random.default_rng(config.seed)
     b = batch_size or config.batch_size
-    f, n = config.frame_len, config.n_classes
+    s, f, n = config.seq_len, config.frame_len, config.n_classes
 
     def multi_hot():
         lab = (rng.random((b, n)) < 0.2).astype(np.float32)
@@ -79,6 +100,12 @@ def example_batch(config: Config,
         return {"experts": rng.standard_normal(
                     (b, config.seq_len, len(config.experts),
                      config.input_dimension), dtype=np.float32),
+                "label": multi_hot()}
+    if config.model in FT_VARIANTS:
+        return {"img": rng.standard_normal((b, s, 224, 224, 3),
+                                           dtype=np.float32),
+                "vid": rng.standard_normal((b, s, f, 112, 112, 3),
+                                           dtype=np.float32),
                 "label": multi_hot()}
     if config.wire_format == "u8_tokens":
         return {"vid_tokens": rng.integers(0, 256, (b, f, 196, 768),

@@ -2,8 +2,8 @@
 
   * requests are padded up to the nearest bucket, so every forward runs
     at one of a few batch shapes;
-  * ``vid`` (or ``vid_tokens``) may arrive as raw uint8 pixels and is
-    normalized on the device (``data/device_norm.py``);
+  * ``vid`` (or ``vid_tokens``) and ``img`` may arrive as raw uint8
+    pixels and are normalized on the device (``data/device_norm.py``);
   * outputs are sigmoid scores plus the genre labels whose score passes
     the threshold (0.3, the reference's callback semantics).
 
@@ -11,9 +11,11 @@
 ``ptn_shared`` are served, in the model dtype or, with ``quantize=True``,
 with the transformer hot path in int8 (``ops/quant.py``; an MoE block keeps
 its attention half and expert products in the model dtype, as in the JAX
-package).  The predictor runs on ``cuda`` unless the caller
-passes ``device="cpu"``; with no CUDA device and no explicit device it
-raises.  Data-parallel meshes, export and checkpoint loading are not
+package).  The FrameTransformer variants are served from ``img`` and
+``vid``, in the model dtype; ``quantize=True`` on them is not held
+against the JAX package yet (ROADMAP.md queue 1, item 5).  The predictor
+runs on ``cuda`` unless the caller passes ``device="cpu"``; with no CUDA
+device and no explicit device it raises.  Data-parallel meshes, export and checkpoint loading are not
 ported yet.
 """
 
@@ -28,7 +30,7 @@ from devt_tpu_torch.config import MMX_GENRES_15, MMX_GENRES_19, Config
 from devt_tpu_torch.data.device_norm import maybe_dequantize_batch
 from devt_tpu_torch.ops.attention import quant_scope
 from devt_tpu_torch.ops.quant import quant_sites_collect, quant_sites_provide
-from devt_tpu_torch.registry import build_model, example_batch
+from devt_tpu_torch.registry import FT_VARIANTS, build_model, example_batch
 
 
 def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
@@ -131,6 +133,9 @@ class Predictor:
         batch = maybe_dequantize_batch(dict(batch), dtype=torch.float32)
         if self.config.model in ("ptn", "ptn_shared"):
             out = self.model(batch["experts"])
+        elif self.config.model in FT_VARIANTS:
+            out = self.model(img=batch.get("img"),
+                             vid=batch.get("vid"))["logits"]
         elif "vid_tokens" in batch:
             out = self.model(batch["vid_tokens"], tokens_in=True)
         else:

@@ -5,8 +5,10 @@ such as BatchNorm statistics; ViViT has none) and the optimizer state.
 
 Unlike the JAX pytree, which every step replaces, the state here is
 updated **in place**: ``params`` are the model's own ``nn.Parameter``s by
-name (``dict(model.named_parameters())``), and ``apply_gradients`` adds the
-optimizer's updates to them and returns a state that shares their storage.
+name (``dict(model.named_parameters())``), ``model_state`` its persistent
+buffers by name (``model_buffers(model)``), and ``apply_gradients`` adds
+the optimizer's updates to the parameters, copies the step's new model
+state into the buffers, and returns a state that shares their storage.
 ``step`` is a host integer: folding it into the randomness of a step and
 into the schedules costs no device synchronisation.
 """
@@ -27,6 +29,15 @@ def _map_tensors(tree: Any, fn):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_tensors(v, fn) for v in tree)
     return tree
+
+
+def model_buffers(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The model's persistent buffers by ``state_dict`` name (BatchNorm
+    running statistics): its mutable state, the counterpart of flax's
+    collections other than ``params``."""
+    params = {k for k, _ in model.named_parameters()}
+    return {k: v for k, v in model.state_dict(keep_vars=True).items()
+            if k not in params}
 
 
 @dataclasses.dataclass
@@ -64,13 +75,20 @@ class TrainState:
 
     def apply_gradients(self, grads: dict[str, torch.Tensor],
                         new_model_state: dict | None = None) -> "TrainState":
-        """One optimizer update, in place; ``grads`` by parameter name."""
+        """One optimizer update, in place; ``grads`` by parameter name,
+        ``new_model_state`` (the step's new buffers, keyed like
+        ``model_state``) copied into the state's buffers."""
         params = list(self.params.values())
         with torch.no_grad():
             updates = self.tx.update([grads[k] for k in self.params],
                                      self.opt_state, params)
             torch._foreach_add_(params, updates)
-        return dataclasses.replace(
-            self, step=self.step + 1,
-            model_state=(self.model_state if new_model_state is None
-                         else new_model_state))
+            for k, v in (new_model_state or {}).items():
+                if k not in self.model_state:
+                    raise KeyError(
+                        f"the step updated buffer {k!r}, which the state "
+                        f"does not hold: create it with "
+                        f"model_state=model_buffers(model)")
+                if v is not self.model_state[k]:
+                    self.model_state[k].copy_(v)
+        return dataclasses.replace(self, step=self.step + 1)

@@ -7,7 +7,14 @@ the port's ``state_dict`` by name:
   * path segments join with ``.``; ``block_<i>`` becomes ``blocks.<i>`` and
     ``layer_<i>`` becomes ``layers.<i>`` (the ``nn.ModuleList``s);
   * a flax Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
-  * a LayerNorm ``scale`` becomes ``weight``; ``bias`` and the other
+    a Conv ``kernel`` (kh, kw, cin, cout) a Conv2d ``weight`` (cout, cin,
+    kh, kw), and a 3-D one (kt, kh, kw, cin, cout) a Conv3d ``weight``
+    (cout, cin, kt, kh, kw): permuted, not transposed, which would swap kh
+    and kw;
+  * a LayerNorm's or BatchNorm's ``scale`` becomes ``weight``; a
+    BatchNorm's ``batch_stats`` ``mean`` and ``var`` become the buffers
+    ``running_mean`` and ``running_var`` (``models/resnet.py``);
+  * ``bias`` and the other
     leaves (``pos_embedding``, ``space_token``, an MoE block's
     ``moe_router`` (D, E), ``moe_w1`` (E, D, F), ``moe_b1`` (E, F),
     ``moe_w2`` (E, F, D), ``moe_b2`` (E, D)…) keep their names and layout,
@@ -18,7 +25,9 @@ Names follow ``devt_tpu/models/layers.py:117-160`` (``attn_norm``,
 ViViT and ``devt_tpu/models/ptn.py`` / ``torch_encoder.py`` for PTN
 (``encoder_<i>/layer_<j>/self_attn/in_proj``, ``out_proj``, ``linear1``,
 ``linear2``, ``norm1``, ``norm2``; ``cls``, ``norm``, ``head_norm``,
-``head``).
+``head``), and ``devt_tpu/models/{frame_transformer,resnet,r2plus1d}.py``
+for FrameTransformer (``layer1_0`` and its kind keep their names: only
+``block_<i>`` and ``layer_<i>`` are lists).
 
 ``jax_to_state_dict`` maps any tree shaped like the parameters, not only
 weights: a gradient tree (``jax.grad`` of the loss) and optax's ``mu`` /
@@ -38,6 +47,13 @@ import torch
 # flax names of numbered submodules → the port's ModuleList names
 _LISTS = {"block": "blocks", "layer": "layers"}
 _FLAX = {v: k for k, v in _LISTS.items()}
+# flax kernel → torch weight by the kernel's rank (Dense, Conv, 3-D Conv),
+# and back
+_TO_TORCH = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
+# BatchNorm's batch_stats leaves → the port's buffers
+_STATS = {"mean": "running_mean", "var": "running_var"}
+_STATS_FLAX = {v: k for k, v in _STATS.items()}
 
 
 def _leaves(tree: Mapping[str, Any],
@@ -49,36 +65,53 @@ def _leaves(tree: Mapping[str, Any],
             yield prefix + (key,), value
 
 
-def jax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX variables (``{"params": tree}`` or the tree) → port state_dict."""
+def _torch_path(path: tuple) -> list[str]:
+    parts = []
+    for seg in path:
+        m = re.fullmatch(r"(block|layer)_(\d+)", seg)
+        parts += [_LISTS[m.group(1)], m.group(2)] if m else [seg]
+    return parts
+
+
+def jax_to_state_dict(variables: Mapping[str, Any],
+                      dtype=np.float32) -> dict[str, torch.Tensor]:
+    """JAX variables (``{"params": tree, "batch_stats": tree}``, or the
+    params tree alone) → port state_dict, every leaf as ``dtype``."""
     params = variables.get("params", variables)
     out = {}
     for path, leaf in _leaves(params):
-        parts = []
-        for seg in path[:-1]:
-            m = re.fullmatch(r"(block|layer)_(\d+)", seg)
-            parts += [_LISTS[m.group(1)], m.group(2)] if m else [seg]
         name = path[-1]
-        arr = np.asarray(leaf, dtype=np.float32)
+        arr = np.asarray(leaf, dtype=dtype)
         if name == "kernel":
-            arr = arr.T
+            arr = arr.transpose(_TO_TORCH[arr.ndim])
+        parts = _torch_path(path[:-1])
         parts.append("weight" if name in ("kernel", "scale") else name)
-        out[".".join(parts)] = torch.tensor(arr)
+        out[".".join(parts)] = torch.tensor(np.ascontiguousarray(arr))
+    if "params" in variables:
+        for path, leaf in _leaves(variables.get("batch_stats", {})):
+            parts = _torch_path(path[:-1]) + [_STATS[path[-1]]]
+            out[".".join(parts)] = torch.tensor(np.asarray(leaf, dtype=dtype))
     return out
 
 
-def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor]
-                      ) -> dict[str, Any]:
-    """Port state_dict → ``{"params": tree}`` of f32 numpy arrays."""
-    tree: dict[str, Any] = {}
+def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor],
+                      dtype=np.float32) -> dict[str, Any]:
+    """Port state_dict → ``{"params": tree}`` of numpy arrays of ``dtype``,
+    with ``"batch_stats": tree`` when it holds BatchNorm buffers."""
+    trees: dict[str, dict] = {"params": {}}
     for name, tensor in state_dict.items():
         parts = name.split(".")
-        arr = tensor.detach().cpu().float().numpy()
-        leaf = parts[-1]
+        arr = tensor.detach().cpu().numpy().astype(dtype)
+        leaf, tree = parts[-1], trees["params"]
         if leaf == "weight":
-            # 2-D weights are Linear (transposed back); 1-D are LN scales
-            leaf = "kernel" if arr.ndim == 2 else "scale"
-            arr = arr.T if arr.ndim == 2 else arr
+            # Linear and Conv weights are kernels (permuted back); 1-D are
+            # LayerNorm or BatchNorm scales
+            leaf = "scale" if arr.ndim == 1 else "kernel"
+            if arr.ndim > 1:
+                arr = arr.transpose(_TO_FLAX[arr.ndim])
+        elif leaf in _STATS_FLAX:
+            leaf, tree = _STATS_FLAX[leaf], trees.setdefault(
+                "batch_stats", {})
         segs, i = [], 0
         while i < len(parts) - 1:
             if parts[i] in _FLAX:
@@ -91,4 +124,4 @@ def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor]
         for seg in segs:
             node = node.setdefault(seg, {})
         node[leaf] = np.ascontiguousarray(arr)
-    return {"params": tree}
+    return trees

@@ -2409,3 +2409,120 @@ def test_mha_bwd_route_matches_the_c_rule(card):
                         assert got == tfa.mha_bwd_on_wgmma(
                             dtype, d, s, kv_len, rate), (dtype, d, s, kv_len,
                                                          rate)
+
+
+# FrameTransformer's encoders: distil_transformer's 2 heads of 448 over 14
+# tokens and scene_transformer's 4 heads of 224 over 15, at its training
+# batch (2) and serving bucket (8), kv_len S and below it
+FT_MHA_SHAPES = [(b, 14, 2, 448, kv) for b in (2, 8) for kv in (14, 11)] \
+    + [(b, 15, 4, 224, kv) for b in (2, 8) for kv in (15, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, MHA_RATE])
+@pytest.mark.parametrize("b,s,heads,d,kv_len", FT_MHA_SHAPES)
+def test_mha_kernels_at_frame_transformer_head_dims(card, b, s, heads, d,
+                                                    kv_len, rate):
+    """Kernels 3 and 4 in bf16 at head dims 448 and 224 on their streamed
+    bodies (attn_out_cols: 7 passes of 64 or 32 columns that end at the
+    head's last column): o and lse against the plain forward, dqkv against
+    the plain backward on the kernel's (o, lse), both given the exported
+    mask (a pass that ran into the next head's columns would fail both);
+    two runs bit-equal."""
+    seed = 2026
+    qkv, do = _mha_inputs("bf16", b, s, heads, d, s * d + b)
+    keep = tfa.mha_dropout_masks(seed, rate, b, s, heads, "cuda") \
+        if rate > 0.0 else None
+    assert tfa.mha_fwd_on_wgmma(torch.bfloat16, d, s, kv_len, rate) \
+        == "streamed"
+    assert tfa.mha_bwd_on_wgmma(torch.bfloat16, d, s, kv_len, rate) \
+        == "streamed"
+
+    def run():
+        leaf = qkv.clone().requires_grad_(True)
+        o, lse = tfa.fused_mha(leaf, heads=heads, kv_len=kv_len,
+                               dropout_rate=rate, seed=seed, return_lse=True)
+        o.backward(do)
+        return o.detach(), lse, leaf.grad
+
+    fwd0, bwd0 = _mha_bodies(), _mha_bwd_bodies()
+    o, lse, dqkv = run()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_mha_bodies(), fwd0)) == (0, 0, 1)
+    assert tuple(a - b for a, b in zip(_mha_bwd_bodies(), bwd0)) \
+        == (1, 1, 0, 0)
+    scale = d ** -0.5
+    wo, wlse = tfa.fused_mha_plain(qkv, heads, scale, kv_len, keep, rate)
+    torch.testing.assert_close(o.float(), wo.float(), **TOL["bf16"])
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-4)
+    want = tfa.fused_mha_bwd_plain(qkv, o, lse, do, heads, scale, kv_len,
+                                   keep, rate)
+    _assert_dqkv_close("bf16", dqkv, want, heads, d)
+    again = run()
+    assert all(torch.equal(x, y) for x, y in zip((o, lse, dqkv), again))
+
+
+@pytest.mark.cuda
+def test_mha_routes_and_limits_at_frame_transformer_head_dims(card):
+    """The C rules send head dims 224 and 448 to the streamed bodies, as
+    the Python mirrors do; past S = 32 the backward refuses before the
+    forward launches, and past kv_len 64 the forward at 448 refuses."""
+    fwd = _build.load("mha_fwd", tfa._declare_fwd)
+    bwd = _build.load("mha_bwd", tfa._declare_bwd)
+    for d in (224, 448):
+        for s in (1, 14, 15, 32, 64):
+            for rate in (0.0, 0.5):
+                assert tfa._MHA_BODIES[fwd.devt_mha_fwd_route(
+                    1, d, s, s, ctypes.c_double(rate))] == "streamed"
+                assert tfa._MHA_BWD_BODIES[bwd.devt_mha_bwd_route(
+                    1, d, s, s, ctypes.c_double(rate))] == "streamed"
+    for d, heads in ((448, 2), (224, 4)):
+        leaf = torch.zeros(1, 33, 3 * heads * d, dtype=torch.bfloat16,
+                           device="cuda", requires_grad=True)
+        before = tfa.fused_mha.launches
+        with pytest.raises(ValueError, match="backward kernel.*warps"):
+            tfa.fused_mha(leaf, heads=heads)
+        assert tfa.fused_mha.launches == before
+    with pytest.raises(ValueError, match="forward kernel.*bytes"):
+        tfa.fused_mha(torch.zeros(1, 65, 3 * 2 * 448, dtype=torch.bfloat16,
+                                  device="cuda"), heads=2)
+
+
+@pytest.mark.cuda
+def test_frame_transformer_distil_served_card_vs_cpu(card):
+    """``distil`` (both backbones, both encoders, the distil token) at
+    full width and a shorter sequence (seq_len 3, frame_len 4) behind
+    Predictor in bf16 on the card: four launches of kernel 3 at each head
+    dim (448 in distil_transformer, 224 in scene_transformer), none of
+    kernel 4, and the scores against the same model on the CPU (both bf16:
+    the two round apart through the two convolution stacks, within a few
+    1e-3 of a score)."""
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.registry import build_model, example_batch
+    from devt_tpu_torch.serve import Predictor
+
+    cfg = Config(model="distil", seq_len=3, frame_len=4, n_classes=19,
+                 precision="bf16")
+    weights = build_model(cfg).state_dict()
+    batch = example_batch(cfg, 1)
+    request = {k: batch[k] for k in ("img", "vid")}
+    pred = Predictor(cfg, weights, buckets=(1,))
+    heads = []
+    real = tfa._mha_cuda
+
+    def count(qkv, h, *args):
+        heads.append((h, qkv.shape[-1] // (3 * h)))
+        return real(qkv, h, *args)
+
+    tfa.fused_mha.bwd_launches = 0
+    try:
+        tfa._mha_cuda = count
+        got = pred.predict(request)["scores"]
+    finally:
+        tfa._mha_cuda = real
+    assert sorted(heads) == [(2, 448)] * 4 + [(4, 224)] * 4
+    assert tfa.fused_mha.bwd_launches == 0
+    want = Predictor(cfg, weights, buckets=(1,), device="cpu").predict(
+        request)["scores"]
+    assert np.isfinite(got).all() and got.shape == (1, 19)
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)

@@ -57,7 +57,12 @@ def test_walk_covers_the_training_slice():
                 # the MoE slice
                 "devt_tpu_torch/parallel/moe.py",
                 # the ring attention slice
-                "devt_tpu_torch/parallel/ring_attention.py"):
+                "devt_tpu_torch/parallel/ring_attention.py",
+                # the FrameTransformer slice
+                "devt_tpu_torch/models/frame_transformer.py",
+                "devt_tpu_torch/models/resnet.py",
+                "devt_tpu_torch/models/r2plus1d.py",
+                "devt_tpu_torch/models/contrastive.py"):
         assert rel in walked, rel
 
 

@@ -30,12 +30,19 @@ def _qkv(b, s, heads, d, seed=0):
         (b, s, 3 * heads * d)).astype(np.float32)
 
 
+# FrameTransformer's encoders: distil_transformer's 2 heads of 448 over 14
+# tokens, scene_transformer's 4 heads of 224 over 15 (with the distil
+# token), each at kv_len S and below it
+FT_SHAPES = [(2, 14, 2, 448, None), (2, 14, 2, 448, 11),
+             (2, 15, 4, 224, None), (2, 15, 4, 224, 12)]
+
+
 @pytest.mark.parametrize("b,s,heads,d,kv_len", [
     (2, 32, 2, 32, 27), (2, 14, 2, 256, None), (3, 23, 3, 64, 19),
-    (1, 208, 3, 64, 197)])
+    (1, 208, 3, 64, 197)] + FT_SHAPES)
 def test_plain_matches_jax_interpret(b, s, heads, d, kv_len):
-    """d = 32, 64 and 256, S not a multiple of 16 (the TPU wrapper pads it,
-    the port's needs no padding), kv_len < S."""
+    """d = 32, 64, 224, 256 and 448, S not a multiple of 16 (the TPU
+    wrapper pads it, the port's needs no padding), kv_len < S."""
     qkv = _qkv(b, s, heads, d)
     want = jfa.fused_mha(jnp.asarray(qkv), heads=heads, kv_len=kv_len,
                          interpret=True)
@@ -80,6 +87,19 @@ def test_plain_bf16_rounds_like_jax():
     got = tfa.fused_mha(torch.tensor(qkv).to(torch.bfloat16), heads=2,
                         kv_len=14)
     assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("b,s,heads,d,kv_len", FT_SHAPES)
+def test_plain_bf16_rounds_like_jax_at_frame_transformer_head_dims(
+        b, s, heads, d, kv_len):
+    qkv = _qkv(b, s, heads, d, seed=6)
+    want = jfa.fused_mha(jnp.asarray(qkv, jnp.bfloat16), heads=heads,
+                         kv_len=kv_len, interpret=True)
+    got = tfa.fused_mha(torch.tensor(qkv).to(torch.bfloat16), heads=heads,
+                        kv_len=kv_len)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, heads * d)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **BF16_TOL)
 

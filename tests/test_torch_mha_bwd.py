@@ -33,9 +33,12 @@ jfa = importlib.import_module("devt_tpu.ops.flash_attention")
 TOL = dict(atol=2e-5, rtol=2e-4)
 BF16_ULPS, BF16_EPS = 4, 2.0 ** -8
 # (b, s, heads, d, kv_len): kv_len < S, S no multiple of 16, d 32 and 64;
-# the packed backward body's head dims 128 and 256 at PTN's S = 14
+# the packed backward body's head dims 128 and 256 at PTN's S = 14;
+# FrameTransformer's 2 heads of 448 over 14 tokens and 4 of 224 over 15
 SHAPES = [(2, 14, 2, 32, 11), (2, 23, 3, 64, 19), (3, 16, 2, 64, 16),
-          (2, 14, 2, 128, 14), (3, 14, 1, 256, 12)]
+          (2, 14, 2, 128, 14), (3, 14, 1, 256, 12),
+          (2, 14, 2, 448, 14), (2, 14, 2, 448, 11), (2, 15, 4, 224, 15),
+          (2, 15, 4, 224, 12)]
 
 
 def _arrays(b, s, heads, d, seed=0):
@@ -288,3 +291,40 @@ def test_backward_argument_check_needs_no_card():
     with pytest.raises(ValueError, match="do: need"):
         tfa._mha_bwd_cuda(torch.zeros(2, 14, 192), o, torch.zeros(2, 14, 2),
                           o[:, :, :32], 2, 0.1, 14)
+
+
+def test_argument_check_takes_frame_transformer_head_dims():
+    """bfloat16 head dims 224 and 448 (FrameTransformer's encoders) pass
+    at their S of 14 and 15, forward and backward, and up to the limits of
+    the streamed bodies: the backward gives a warp to each 16-row strip
+    and output-column chunk (7 at either head dim, ``attn_out_cols`` 32
+    and 64), so S <= 32; the forward keeps K and V of kv_len rounded up to
+    32 rows in shared memory, so kv_len <= 64 at 448 and <= 192 at 224.
+    A head dim the kernels are not compiled for, such as 96, is refused."""
+    bf = torch.bfloat16
+    for d, heads in ((448, 2), (224, 4)):
+        assert tfa.attn_out_cols(d) * 7 == d
+        for s in (14, 15, 32):
+            qkv = torch.zeros(2, s, 3 * heads * d, dtype=bf)
+            assert tfa._check_mha_args(qkv, heads, s) == d
+            assert tfa._check_mha_args(qkv, heads, s, backward=True) == d
+        over = torch.zeros(1, 33, 3 * heads * d, dtype=bf)
+        assert tfa._check_mha_args(over, heads, 33) == d
+        with pytest.raises(ValueError, match="backward kernel.*warps"):
+            tfa._check_mha_args(over, heads, 33, backward=True)
+    assert tfa._check_mha_args(torch.zeros(1, 64, 3 * 2 * 448, dtype=bf), 2,
+                               64) == 448
+    with pytest.raises(ValueError, match="forward kernel.*bytes"):
+        tfa._check_mha_args(torch.zeros(1, 65, 3 * 2 * 448, dtype=bf), 2, 65)
+    assert tfa._check_mha_args(torch.zeros(1, 192, 3 * 4 * 224, dtype=bf),
+                               4, 192) == 224
+    with pytest.raises(ValueError, match="forward kernel.*bytes"):
+        tfa._check_mha_args(torch.zeros(1, 193, 3 * 4 * 224, dtype=bf), 4,
+                            193)
+    for backward in (False, True):
+        with pytest.raises(ValueError, match="head dims"):
+            tfa._check_mha_args(torch.zeros(2, 14, 3 * 2 * 96, dtype=bf), 2,
+                                14, backward=backward)
+    # the streamed bodies' chunks end at the head's last column
+    assert [tfa.attn_out_cols(d) for d in (16, 64, 128, 224, 256, 448)] \
+        == [16, 64, 64, 32, 64, 64]

@@ -96,11 +96,61 @@ def test_unported_serving_options_raise(kw):
 
 
 def test_other_models_are_not_ported():
-    for name in ("lstm", "tpn", "frame_transformer_vid"):
+    for name in ("contrastive", "lstm", "tpn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             treg.build_model(Config(model=name))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         treg.example_batch(Config(model="lstm"))
+
+
+def test_unknown_model_name_raises():
+    """A name the JAX registry does not build either is a ValueError, as
+    there (``frame_transformer_vid`` is no variant: ``vid`` is)."""
+    for name in ("frame_transformer_vid", "resnet18"):
+        with pytest.raises(ValueError, match="unknown model"):
+            treg.build_model(Config(model=name))
+        with pytest.raises(ValueError, match="unknown model"):
+            treg.example_batch(Config(model=name))
+        with pytest.raises(ValueError):
+            jbuild(JConfig(model=name))
+
+
+FT_CFG = dict(model="distil", seq_len=1, frame_len=2, n_classes=19,
+              precision="f32")
+
+
+def test_frame_transformer_is_served_from_img_and_vid():
+    """FrameTransformer builds from the registry, seeded (flax's BatchNorm
+    and CLS initializers); ``distil`` behind ``Predictor`` (CPU, a bucket
+    of 4 for 3 requests) gives the model's sigmoid logits, float or as u8
+    pixels normalised on the device side, whatever the padding.  (The model's numbers against JAX's:
+    ``test_torch_frame_transformer.py``.)"""
+    from devt_tpu_torch.data.device_norm import maybe_dequantize_batch
+    from devt_tpu_torch.models.frame_transformer import VARIANTS
+
+    cfg = Config(**FT_CFG)
+    model = treg.build_model(cfg)
+    sd = model.state_dict()
+    assert torch.all(sd["img_backbone.stem.bn.weight"] == 1)
+    assert torch.all(sd["vid_backbone.layer1_0.bn1.running_var"] == 1)
+    assert 0.0 <= sd["vid_cls"].min() and sd["vid_cls"].max() < 1.0
+    assert set(treg.PORTED_MODELS) >= set(VARIANTS)
+    pred = Predictor(cfg, sd, buckets=(4,), device="cpu")
+    batch = treg.example_batch(cfg, batch_size=3)
+    assert batch["img"].shape == (3, 1, 224, 224, 3)
+    assert batch["vid"].shape == (3, 1, 2, 112, 112, 3)
+    rng = np.random.default_rng(4)
+    u8 = {k: rng.integers(0, 256, batch[k].shape, dtype=np.uint8)
+          for k in ("img", "vid")}
+    for inputs in ({k: batch[k] for k in ("img", "vid")}, u8):
+        out = pred.predict(inputs)
+        assert out["scores"].shape == (3, 19)
+        tensors = maybe_dequantize_batch(
+            {k: torch.from_numpy(v) for k, v in inputs.items()},
+            dtype=torch.float32)
+        with torch.no_grad():
+            want = torch.sigmoid(model.eval()(**tensors)["logits"])
+        np.testing.assert_allclose(out["scores"], want.numpy(), atol=1e-5)
 
 
 def test_seeded_build_is_deterministic():
