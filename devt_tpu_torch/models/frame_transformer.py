@@ -128,10 +128,12 @@ class FrameTransformer(nn.Module):
             feats = dense(self.img_fc, feats, self.dtype)
         return feats.reshape(b, s, -1)
 
-    def _prepend(self, x: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+    def _prepend(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """``x`` with the CLS input ``name`` prepended (with ``use_cls``)."""
         if not self.use_cls:
             return x
-        cls = cls.to(x.dtype).expand((x.shape[0], 1) + tuple(cls.shape))
+        cls = getattr(self, name).to(x.dtype)
+        cls = cls.expand((x.shape[0], 1) + tuple(cls.shape))
         return torch.cat([cls, x], dim=1)
 
     def vid_step(self, vid: torch.Tensor, rng: DropoutRng | None = None,
@@ -139,7 +141,7 @@ class FrameTransformer(nn.Module):
         """The video pathway: the video CLS embedding (B, 896), or with
         ``pooled=False`` the per-clip features before the transformer (the
         ``pre_modal`` tap)."""
-        feats = self._encode_clips(self._prepend(vid, self.vid_cls))
+        feats = self._encode_clips(self._prepend(vid, "vid_cls"))
         if not pooled:
             return feats
         h = self.position_encoder(feats, rng)
@@ -150,7 +152,7 @@ class FrameTransformer(nn.Module):
         """The image pathway: (CLS, tokens).  ``inject`` (B, 896) appended
         as a trailing token (``"append"``: distil, sum, post_sum), or
         (B, S', 896) added to the frame features (``"add"``: pre_modal)."""
-        feats = self._encode_frames(self._prepend(img, self.img_cls))
+        feats = self._encode_frames(self._prepend(img, "img_cls"))
         if inject is not None and inject_mode == "add":
             feats = feats + inject
         if inject is not None and inject_mode == "append":

@@ -18,7 +18,8 @@ argument, as in flax, and not the module's mode: FrameTransformer runs its
 image backbone with ``train=False`` while it trains.  In eval the running
 averages normalise; in training the batch statistics do, and the new
 running averages go to ``collect_batch_stats`` (the train step returns
-them as ``new_model_state``) instead of into the buffers.
+them as ``new_model_state``, and ``TrainState.apply_gradients`` copies them
+into the buffers), never into the buffers directly.
 
 Submodule names follow the flax tree (``stem``, ``layer{i}_{j}``,
 ``conv1.conv``, ``conv1.bn``, ``downsample``, ``fc``).  BatchNorm's
@@ -48,8 +49,8 @@ _COLLECTORS: list[dict] = []
 def collect_batch_stats() -> Iterator[dict]:
     """Inside, a BatchNorm that normalises by its batch statistics records
     its new running statistics ``(mean, var)`` in the yielded dict, keyed
-    by the module, and leaves its buffers as they are.  Outside, it
-    updates its buffers in place."""
+    by the module, and leaves its buffers as they are.  A training forward
+    outside raises."""
     out: dict = {}
     _COLLECTORS.append(out)
     try:
@@ -83,12 +84,10 @@ class BatchNorm(nn.Module):
                    + (1.0 - BN_MOMENTUM) * mean.detach(),
                    BN_MOMENTUM * self.running_var
                    + (1.0 - BN_MOMENTUM) * var.detach())
-            if _COLLECTORS:
-                _COLLECTORS[-1][self] = new
-            else:
-                with torch.no_grad():
-                    self.running_mean.copy_(new[0])
-                    self.running_var.copy_(new[1])
+            if not _COLLECTORS:
+                raise RuntimeError("a training forward of BatchNorm runs "
+                                   "inside collect_batch_stats")
+            _COLLECTORS[-1][self] = new
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + BN_EPS) * self.weight

@@ -102,11 +102,10 @@ def test_backbone_matches_flax(name, train):
     assert set(want) == set(got)
     for k in want:
         np.testing.assert_allclose(want[k], got[k], err_msg=k, **TOL)
-    # outside a collector the buffers take the new statistics in place
-    with torch.no_grad():
+    # a training forward outside a collector has nowhere to put them
+    with pytest.raises(RuntimeError, match="collect_batch_stats"), \
+            torch.no_grad():
         tm(torch.from_numpy(x), train=True)
-    for k, v in new.items():
-        assert torch.equal(tm.state_dict()[k], v), k
 
 
 def test_batchnorm_keeps_flax_statistics_in_bf16():

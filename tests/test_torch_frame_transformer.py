@@ -14,7 +14,9 @@ and ``"pallas"`` (on CPU tensors the packed-qkv kernels' plain forward).
     ``distil_logits``, ``teacher_logits``) in eval, f32 on both sides with
     sums in other orders: atol 1e-4 / rtol 1e-3, the backbones' bound
     (``test_torch_backbones.py``), since the features pass through two
-    18-layer convolution stacks before the transformers.
+    18-layer convolution stacks before the transformers;
+  * the same without the CLS inputs (``use_cls=False``, ``Config.cls`` 0)
+    for ``vid``, ``distil`` and ``pre_modal``, at the same bound.
 """
 
 import functools
@@ -28,6 +30,7 @@ import torch
 from devt_tpu.models.frame_transformer import FrameTransformer as JFT
 from devt_tpu.models.frame_transformer import VARIANTS
 from devt_tpu_torch.models.frame_transformer import FrameTransformer
+from devt_tpu_torch.models.resnet import collect_batch_stats
 from devt_tpu_torch.utils.jax_bridge import state_dict_to_jax
 
 SMALL = dict(seq_len=3, frame_len=4, n_classes=19, img_size=64, vid_size=32)
@@ -86,15 +89,15 @@ def _shapes(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_case(variant):
+def _jax_case(variant, use_cls=True):
     """The variant's flax tree (keys and shapes, from ``eval_shape`` of its
     init) and its outputs on the port's weights, once per variant."""
     img, vid = _inputs()
-    jm = JFT(model=variant, attention_impl="xla", **SMALL)
+    jm = JFT(model=variant, attention_impl="xla", use_cls=use_cls, **SMALL)
     want = jax.eval_shape(
         lambda: jm.init({"params": jax.random.PRNGKey(0)},
                         img=jnp.asarray(img), vid=jnp.asarray(vid)))
-    variables = jax_variables(_cached_port_model(variant))
+    variables = jax_variables(_cached_port_model(variant, use_cls))
     jout = jax.jit(lambda v, i, c: jm.apply(v, img=i, vid=c))(
         variables, jnp.asarray(img), jnp.asarray(vid))
     return (_shapes(dict(want)), _shapes(variables),
@@ -102,8 +105,8 @@ def _jax_case(variant):
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_port_model(variant):
-    return port_model(variant).eval()
+def _cached_port_model(variant, use_cls=True):
+    return port_model(variant, use_cls=use_cls).eval()
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
@@ -124,6 +127,24 @@ def test_variant_tree_and_outputs_match_jax(variant, impl):
         np.testing.assert_allclose(out[k].numpy(), jout[k],
                                    err_msg=k, **TOL)
 
+
+
+@pytest.mark.parametrize("variant", ["vid", "distil", "pre_modal"])
+def test_variant_without_cls_matches_jax(variant):
+    """``use_cls=False`` (``Config.cls`` 0): no CLS inputs in the tree, the
+    first scene's token pooled; the tree and the outputs as JAX's."""
+    img, vid = _inputs()
+    tm = _cached_port_model(variant, False)
+    want_tree, tree, jout = _jax_case(variant, False)
+    assert tree == want_tree
+    assert not {"vid_cls", "img_cls"} & {k.split(".")[0] for k in
+                                         tm.state_dict()}
+    with torch.no_grad():
+        out = tm(img=torch.from_numpy(img), vid=torch.from_numpy(vid))
+    assert set(out) == set(jout)
+    for k in out:
+        np.testing.assert_allclose(out[k].numpy(), jout[k],
+                                   err_msg=k, **TOL)
 
 def test_variants_build_what_they_call():
     """``vid`` builds no image side and no scene transformer, ``frame`` no
@@ -147,7 +168,8 @@ def test_frozen_image_side_carries_no_gradient():
     the gradient; the video side and the scene transformer do."""
     img, vid = _inputs(b=1)
     tm = port_model("distil", dropout=0.0).train()
-    out = tm(img=torch.from_numpy(img), vid=torch.from_numpy(vid))
+    with collect_batch_stats():
+        out = tm(img=torch.from_numpy(img), vid=torch.from_numpy(vid))
     out["logits"].sum().backward()
     for name, p in tm.named_parameters():
         frozen = name.startswith(("img_backbone.", "img_fc.", "img_cls"))

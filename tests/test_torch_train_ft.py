@@ -13,12 +13,14 @@ In f32: the loss and aux, and the new BatchNorm statistics, atol 1e-4 /
 rtol 1e-3 (the forward bound of ``test_torch_frame_transformer.py``);
 every gradient leaf outside the video backbone's chain within 1e-3 of
 its largest element.  The video backbone's gradients (and ``vid_cls``'s,
-which passes through it) run back through 17 BatchNorms normalising by
-batch statistics of as few as 32 values, and there f32 rounding alone
-moves them: against the same step in f64, JAX's f32 gradients differ by
-up to 16 % of a leaf's largest element at these shapes, the port's by up
-to 0.4 %.  So every leaf, and the parameters after one AdamW step, are
-held in f64 on both sides (``jax.enable_x64``): gradients within 1e-5
+which passes through it) run back through its ReLUs, and there f32
+rounding alone moves them: an input within rounding of 0 lands on the
+other side of the kink, and that element passes or stops a whole
+gradient term.  Against the same step in f64, JAX's f32 gradients differ
+by up to 16 % of a leaf's largest element at these shapes, the port's by
+up to 0.4 % (``chip_smoke.py`` holds its steps to the f64 step's ReLU
+gates to compare them leaf by leaf).  So every leaf, and the parameters
+after one AdamW step, are held in f64 on both sides (``jax.enable_x64``): gradients within 1e-5
 of the leaf's largest element.  AdamW's step is held against optax given
 the same parameters and gradients, every leaf within 1e-5 of the learning
 rate (the port takes Adam's bias corrections in f32, as optax does in f32
