@@ -215,7 +215,9 @@ Phases, each printing a line of its own; any failure exits non-zero:
                3's launches by head dim (4 at 448 with the distil
                transformer, 4 at 224 with the scene transformer), none of
                kernel 4; distil against the CPU at one request; ms a call
-               and clips/s, a profile of distil.
+               and clips/s, a profile of distil; frame behind
+               Predictor(quantize=True): the scene transformer's four qkv
+               projections on kernel 6, card vs CPU at the int8 gate.
  27. train-ft — distil at batch 2, dropout 0.5, AdamW 1e-4 on a fixed u8
                batch: make_train_step and make_multi_step(8), 8 launches
                each of kernels 3 and 4 a step, a falling eval loss, the
@@ -223,6 +225,25 @@ Phases, each printing a line of its own; any failure exits non-zero:
                one step's gradients at dropout 0 and 4 scenes (bench.py:523)
                against the CPU, f32 and bf16; step ms, host enqueue ms,
                device ms, peak device memory.
+ 28. serve-family — TPN (bucket 8: 8 x 20 u8 frames of 224², ResNet-34,
+               19 classes), the LSTM (bucket 32: 13 x 4608) and BasicMLP
+               (bucket 32: 2048 → 305) behind Predictor in bf16, seeded
+               weights: no kernel launch, the scores of their kind, card vs
+               CPU on the same bucket; ms a call and requests/s through
+               predict, device ms of a profiled forward.
+ 29. train-family — TPN at B=4, the LSTM and BasicMLP at B=32, the
+               contrastive encoder at B=256 (2048 → 2048 → 305 → 128, 510
+               negatives a row), bf16, AdamW: make_train_step and
+               make_multi_step(8), a falling loss at dropout 0, the BatchNorm
+               statistics moving; one step's gradients card vs CPU held to
+               the f64 step's ReLU gates (f32 1e-3, bf16 5e-2 of a leaf;
+               TPN's bf16 backbone against f64 as phase 27's chain), the
+               f32 step's new statistics card vs CPU; samples/s, step ms,
+               host enqueue ms, device ms, peak device memory.
+ 30. family-rest — the expert extractor (ResNet-50 on 32 frames of 224²,
+               R3D-18 on 8 clips of 16 x 112²) and collaborative gating
+               ((8, 13), experts of 512, 2048 and 2048, out 1024) in f32,
+               card vs CPU; ms a call.
 
 The last lines are a JSON line of the kernels (fifteen entries in kernel
 order, each with its number), the nvidia-smi line, and
@@ -232,6 +253,7 @@ package beside it, the script fails before printing any result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -332,6 +354,15 @@ FT_HEADS = {"distil_transformer": (2, 448, FT_SEQ + 1),
             "scene_transformer": (4, 224, FT_SEQ + 2)}
 # the gradient check's sequence: bench.py:523's distillation row
 FT_GRAD_SEQ = 4
+# the rest of the family (phases 28-30): TPN over 20 frames a sample,
+# served at bucket 8 and trained at B=4; the LSTM and BasicMLP at 32; the
+# contrastive encoder at 256, so NT-Xent has 510 negatives a row; one
+# step's gradients at the batches below
+TPN_FRAMES, TPN_BUCKET, TPN_TRAIN_BATCH = 20, 8, 4
+FAMILY_BUCKET, CONTRASTIVE_BATCH, FAMILY_LR = 32, 256, 1e-4
+FAMILY_GRAD_BATCH = {"tpn": 1, "lstm": FAMILY_BUCKET,
+                     "basicmlp": FAMILY_BUCKET,
+                     "contrastive": CONTRASTIVE_BATCH}
 # the fused blocks' and attention halves' sub-kernels, as the profiler
 # names them (kernels 1 and 7, and 2 and 8, share most of their launches;
 # their attention at the main-path shape is the one-shot body's
@@ -3911,6 +3942,7 @@ def phase_serve_ft() -> dict:
                                      f"{SCORE_ATOL})")
         out["variants"][variant] = row
         del pred
+    out["quant"] = _serve_ft_quant(weights, request)
     print(f"[serve-ft] FrameTransformer bf16 (u8 frames {FT_BUCKET} x "
           f"{FT_SEQ} x 224² and clips {FT_BUCKET} x {FT_SEQ} x {FT_FRAMES} x "
           f"112², seeded weights) behind Predictor(buckets=({FT_BUCKET},)): "
@@ -3926,6 +3958,71 @@ def phase_serve_ft() -> dict:
           f"(limit {SCORE_ATOL}; the CPU took "
           f"{out['variants']['distil']['cpu_s']:.1f} s)", flush=True)
     return out
+
+
+def _serve_ft_quant(weights: dict, request: dict) -> dict:
+    """The ``frame`` variant behind Predictor(quantize=True) at bucket 8:
+    the default policy quantizes the scene transformer's four qkv
+    projections (896 → 2688), each on kernel 6's wgmma body, with kernel
+    3's four launches beside them; the scores against the same quantized
+    predictor on the CPU (unfused int8 products) at the int8 serving gate;
+    ms a call against the bf16 predictor's."""
+    import torch
+
+    from devt_tpu_torch.models.frame_transformer import FrameTransformer
+    from devt_tpu_torch.ops.quant import int8_matmul_fused
+    from devt_tpu_torch.serve import Predictor
+
+    cfg = _ft_config("frame")
+    keys = FrameTransformer(model="frame").state_dict().keys()
+    frame = {k: weights[k] for k in keys}
+    img = {"img": request["img"]}
+    preds = {q: Predictor(cfg, frame, buckets=(FT_BUCKET,), quantize=q)
+             for q in (True, False)}
+    mm = int8_matmul_fused
+    _zero_counts()
+    got = preds[True].predict(img)["scores"]
+    counts = _kernel_counts()
+    launches = mm.launches
+    if (mm.launches, mm.wgmma_launches) != (FT_LAYERS, FT_LAYERS) \
+            or counts != _expect(k3=FT_LAYERS):
+        raise AssertionError(
+            f"serve-ft int8 frame: {mm.launches} int8-matmul launches "
+            f"({mm.wgmma_launches} on the wgmma body), kernel launches "
+            f"{counts}; expected {FT_LAYERS} of kernel 6 on its wgmma body "
+            f"and {FT_LAYERS} of kernel 3")
+    t0 = time.perf_counter()
+    cpu = Predictor(cfg, frame, buckets=(FT_BUCKET,), quantize=True,
+                    device="cpu").predict(img)["scores"]
+    cpu_s = time.perf_counter() - t0
+    err = float(abs(got - cpu).max())
+    if not err <= QUANT_SCORE_ATOL or got.shape != (FT_BUCKET, FT_CLASSES):
+        raise AssertionError(f"serve-ft int8 frame: card vs CPU scores "
+                             f"differ by {err:.3e} (limit {QUANT_SCORE_ATOL})"
+                             f", shape {got.shape}")
+    tensors = {"img": torch.from_numpy(request["img"]).cuda()}
+    ms = {}
+    with torch.inference_mode():
+        for q, pred in preds.items():
+            pred.forward(tensors)
+            torch.cuda.synchronize()
+            windows = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    pred.forward(tensors)
+                torch.cuda.synchronize()
+                windows.append((time.perf_counter() - t0) / 3)
+            ms[q] = min(windows) * 1e3
+    print(f"[serve-ft] frame int8 (Predictor(quantize=True), bucket "
+          f"{FT_BUCKET}): {launches} launches of kernel 6 a call, all on its "
+          f"wgmma body, and {counts['k3']} of kernel 3; card vs CPU "
+          f"{err:.3e} (limit {QUANT_SCORE_ATOL}; the CPU took {cpu_s:.1f} "
+          f"s); {ms[True]:.2f} ms a call against {ms[False]:.2f} in bf16 "
+          f"(best of 3 windows of 3 calls, device-resident u8 frames, host "
+          f"clock)", flush=True)
+    return {"matmul_launches": launches, "cpu_err": err, "ms": ms[True],
+            "bf16_ms": ms[False]}
 
 
 class _ReluPattern:
@@ -4011,14 +4108,15 @@ class _DistilTarget:
         losses.distillation_loss = self._real
 
 
-def _ft_grads(kind: str, device: str, impl: str = "auto",
-              relu: _ReluPattern | None = None, target=None
-              ) -> tuple[float, dict, list]:
-    """One distil step's loss, gradients (f64, on the CPU) and teacher
-    argmax at dropout 0, bench.py:523's shape (batch 2, 4 scenes), in
-    precision ``kind`` ("bf16", "f32" or "f64") on ``device``, from
-    seeded weights, through ``forward_and_loss``; ``relu`` records or
-    replays the ReLU gates, ``target`` fixes the distillation target."""
+def _ft_grads(kind: str, device: str, relu: _ReluPattern | None = None,
+              target=None) -> tuple[float, dict, dict, list]:
+    """One distil step's loss, gradients (f64, on the CPU), new model
+    state (none is checked: {}) and teacher argmax at dropout 0,
+    bench.py:523's shape (batch 2, 4 scenes), in precision ``kind``
+    ("bf16", "f32" or "f64", the last on the plain attention) on
+    ``device``, from seeded weights, through ``forward_and_loss``;
+    ``relu`` records or replays the ReLU gates, ``target`` (a teacher
+    argmax) fixes the distillation target."""
     import contextlib
 
     import torch
@@ -4035,48 +4133,60 @@ def _ft_grads(kind: str, device: str, impl: str = "auto",
     request = _ft_request(FT_TRAIN_BATCH, SEED + 21, FT_GRAD_SEQ)
     m = FrameTransformer(model="distil", seq_len=FT_GRAD_SEQ,
                          frame_len=FT_FRAMES, n_classes=FT_CLASSES,
-                         dropout=0.0, attention_impl=impl, dtype=dtype
+                         dropout=0.0,
+                         attention_impl="xla" if kind == "f64" else "auto",
+                         dtype=dtype
                          ).init_weights(torch.Generator().manual_seed(SEED))
     m = m.to(device, torch.float64 if kind == "f64" else torch.float32)
     params = dict(m.named_parameters())
     batch = {k: torch.from_numpy(v).to(device) for k, v in request.items()}
-    with _DistilTarget(target) as distil, \
+    fixed = None if target is None else torch.tensor(target)
+    with _DistilTarget(fixed) as distil, \
             relu if relu is not None else contextlib.nullcontext():
         loss, _, _ = forward_and_loss(
             m, cfg, {"params": params, **model_buffers(m)}, batch,
             DropoutRng(0), train=True)
         g = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
-    return loss.item(), {k: v.double().cpu() for k, v in zip(params, g)
-                         if v is not None}, distil.seen.tolist()
+    return (loss.item(), {k: v.double().cpu() for k, v in zip(params, g)
+                          if v is not None}, {}, distil.seen.tolist())
 
 
-def _ft_grad_check() -> tuple[dict, str]:
-    """One distil step's gradients on the card (kernels 3 and 4) against
-    the CPU (their plain versions) and the f64 step (the card, the plain
-    attention), per leaf as a share of the leaf's largest element in the
-    f64 step, with both steps held to the f64 step's ReLU gates and
-    distillation target (_ReluPattern, _DistilTarget): in f32 every leaf
-    card vs CPU within PTN_GRAD_RTOL; in bf16 every leaf outside the
-    video chain (the video backbone, vid_cls) card vs CPU within
-    GRAD_RTOL, and in the chain the card no farther from the f64 step
-    than the CPU is, plus GRAD_RTOL.
+def _grad_check(tag: str, grads, chain: tuple[str, ...] = ()
+                ) -> tuple[dict, str]:
+    """One training step's gradients on the card against the CPU and the
+    f64 step (on the card), per leaf as a share of the leaf's largest
+    element in the f64 step.  ``grads(kind, device, relu=, target=)``
+    gives a step's (loss, gradients, new model state, target): ``kind``
+    "f64", "f32" or "bf16"; ``relu`` records or replays the ReLU gates
+    (_ReluPattern); ``target``, where the step has one (FrameTransformer's
+    teacher argmax, _DistilTarget), fixes it to the f64 step's.
 
-    Free, the steps hold none of this: through the video backbone's ReLUs
-    (10 clips x 12 x 112², tens of millions of inputs) rounding moves the
-    inputs that lie near 0 across it, and each such element passes or
-    stops a whole gradient term.  Held, f32 agrees to about 4e-5 of a
-    leaf on an NVIDIA H100; bf16's own rounding still leaves the chain's
-    leaves 0.2-0.4 of a leaf off the f64 step on the card and up to 1.3
-    on the CPU (whose bf16 temporal-convolution weight gradients are the
-    farthest), so card vs CPU cannot be held to GRAD_RTOL there
-    (ROADMAP.md section 3).  The free steps' distances and teacher
-    argmaxes are printed beside the held ones."""
+    The f32 and bf16 steps run free and held to the f64 step's gates and
+    target; the gates are on the held steps.  f32: every leaf card vs CPU
+    within PTN_GRAD_RTOL, the new model state within 1e-4 of its largest
+    element.  bf16: every leaf card vs CPU within GRAD_RTOL, but in
+    ``chain``, the leaves (by prefix) of a BatchNorm backbone trained on
+    batch statistics, the card no farther from the f64 step than the CPU
+    is, plus GRAD_RTOL, leaf by leaf.
+
+    Free, the steps hold none of this: rounding moves the ReLU inputs that
+    lie near 0 across it, and each such element passes or stops a whole
+    gradient term.  Held, f32 agrees to about 1e-4 of a leaf; through a
+    bf16 backbone on batch statistics, bf16's own rounding still leaves
+    leaves tenths of a leaf off the f64 step, on the card and on the CPU
+    alike, and two such steps differ leaf by leaf by up to 0.1, so the
+    chain is held against f64 and not card vs CPU.
+    tests/test_torch_bf16_chain.py holds the port's bf16 R(2+1)D-18
+    gradient to JAX's own, leaf by leaf, and tests/test_torch_bf16_conv.py
+    the CPU's bf16 convolutions to f64 (ROADMAP.md section 3).  The
+    chain's distances are also printed as a share of the leaf's norm
+    (root of the sum of squares), the first test's measure."""
     import torch
 
     pattern = _ReluPattern()
-    ref_loss, ref, ref_target = _ft_grads("f64", "cuda", impl="xla",
-                                          relu=pattern("record"))
+    ref_loss, ref, _, ref_target = grads("f64", "cuda",
+                                         relu=pattern("record"))
     gaps, text, failed = {}, [], []
     for kind in ("f32", "bf16"):
         tol = PTN_GRAD_RTOL if kind == "f32" else GRAD_RTOL
@@ -4084,23 +4194,22 @@ def _ft_grad_check() -> tuple[dict, str]:
         for mode in ("free", "held"):
             for device in ("cuda", "cpu"):
                 t0 = time.perf_counter()
-                runs[mode, device] = _ft_grads(
+                runs[mode, device] = grads(
                     kind, device,
                     relu=pattern("replay") if mode == "held" else None,
-                    target=torch.tensor(ref_target) if mode == "held"
-                    else None)
+                    target=ref_target if mode == "held" else None)
                 seconds[mode, device] = time.perf_counter() - t0
         worst = {}
         for mode in ("free", "held"):
             card, cpu = runs[mode, "cuda"][1], runs[mode, "cpu"][1]
             if set(card) != set(ref) or set(cpu) != set(ref):
-                raise AssertionError("train-ft: the card, the CPU and the "
-                                     "f64 step differ in which leaves "
-                                     "have gradients")
-            rows = []
+                raise AssertionError(f"{tag}: the card, the CPU and the f64 "
+                                     f"step differ in which leaves have "
+                                     f"gradients")
+            rows, norms = [], []
             for name, want in ref.items():
                 if not torch.isfinite(card[name]).all():
-                    raise AssertionError(f"train-ft: non-finite {kind} "
+                    raise AssertionError(f"{tag}: non-finite {kind} "
                                          f"gradient of {name} ({mode})")
                 scale = max(want.abs().max().item(), GRAD_FLOOR)
 
@@ -4110,60 +4219,90 @@ def _ft_grad_check() -> tuple[dict, str]:
                 rows.append((gap(card[name], cpu[name]),
                              gap(card[name], want), gap(cpu[name], want),
                              name))
+                if chain and name.startswith(chain):
+                    norm = max(want.norm().item(), GRAD_FLOOR)
+                    norms.append(((card[name] - want).norm().item() / norm,
+                                  (cpu[name] - want).norm().item() / norm))
             rows.sort(reverse=True)
-            chain = [r for r in rows if r[3].startswith(("vid_backbone.",
-                                                         "vid_cls"))]
-            rest = [r for r in rows if r not in chain]
-            worst[mode] = {
-                "direct": rows[0][0], "direct_leaf": rows[0][3],
-                "card_f64": max(r[1] for r in rows),
-                "cpu_f64": max(r[2] for r in rows),
-                "chain_direct": chain[0][0], "rest_direct": rest[0][0],
-                "rest_leaf": rest[0][3],
-                "chain_card_f64": max(r[1] for r in chain),
-                "chain_cpu_f64": max(r[2] for r in chain),
-                "chain_excess": max(r[1] - r[2] for r in chain)}
+            in_chain = [r for r in rows if chain and r[3].startswith(chain)]
+            rest = [r for r in rows if r not in in_chain]
+            w = {"direct": rows[0][0], "direct_leaf": rows[0][3],
+                 "card_f64": max(r[1] for r in rows),
+                 "cpu_f64": max(r[2] for r in rows)}
+            if in_chain:
+                excess = max(in_chain, key=lambda r: r[1] - r[2])
+                w.update(rest_direct=rest[0][0] if rest else 0.0,
+                         rest_leaf=rest[0][3] if rest else "-",
+                         chain_leaves=len(in_chain),
+                         chain_direct=in_chain[0][0],
+                         chain_card_f64=max(r[1] for r in in_chain),
+                         chain_cpu_f64=max(r[2] for r in in_chain),
+                         chain_excess=excess[1] - excess[2],
+                         chain_excess_leaf=excess[3],
+                         chain_past=sum(r[0] > tol for r in in_chain),
+                         norm_card_f64=max(n[0] for n in norms),
+                         norm_cpu_f64=max(n[1] for n in norms),
+                         norm_card_mean=sum(n[0] for n in norms) / len(norms),
+                         norm_cpu_mean=sum(n[1] for n in norms) / len(norms))
+            worst[mode] = w
             if mode == "held":
                 for d, c, u, n in rows:
-                    in_chain = kind == "bf16" and n.startswith(
-                        ("vid_backbone.", "vid_cls"))
-                    if (c > u + tol) if in_chain else (d > tol):
+                    held_to_f64 = kind == "bf16" and bool(chain) \
+                        and n.startswith(chain)
+                    if (c > u + tol) if held_to_f64 else (d > tol):
                         failed.append(f"{kind} {n}: card vs CPU {d:.3e}, "
                                       f"card vs f64 {c:.3e}, CPU vs f64 "
                                       f"{u:.3e}")
-                print(f"[train-ft]   {kind} held, leaves farthest card vs "
-                      f"CPU (card vs f64, CPU vs f64): " + "; ".join(
+                print(f"[{tag}]   {kind} held, leaves farthest card vs CPU "
+                      f"(card vs f64, CPU vs f64): " + "; ".join(
                           f"{n} {d:.3e} ({c:.3e}, {u:.3e})"
-                          for d, c, u, n in rows[:4]) + f"; outside the "
-                      f"video chain {rest[0][3]} {rest[0][0]:.3e}",
-                      flush=True)
+                          for d, c, u, n in rows[:4]), flush=True)
+        if kind == "f32":
+            card_state, cpu_state = runs["held", "cuda"][2], \
+                runs["held", "cpu"][2]
+            for k, v in cpu_state.items():
+                err = (card_state[k] - v).abs().max().item()
+                if not err <= 1e-4 * max(v.abs().max().item(), 1.0):
+                    failed.append(f"f32 new model state {k}: card vs CPU "
+                                  f"{err:.3e}")
         gaps[kind] = worst
         losses = {k: runs[k][0] for k in runs}
-        targets = {k: runs[k][2] for k in runs}
+
+        def chain_text(w):
+            if "chain_leaves" not in w:
+                return ""
+            return (f"; outside the chain card vs CPU {w['rest_direct']:.3e}"
+                    f" at {w['rest_leaf']}; in the chain's "
+                    f"{w['chain_leaves']} leaves card vs f64 "
+                    f"{w['chain_card_f64']:.3e}, CPU vs "
+                    f"f64 {w['chain_cpu_f64']:.3e}, card less CPU at most "
+                    f"{w['chain_excess']:+.3e} at {w['chain_excess_leaf']}, "
+                    f"{w['chain_past']} leaves past {tol} card vs CPU; as a "
+                    f"share of the leaf's norm card vs f64 worst "
+                    f"{w['norm_card_f64']:.3e} mean {w['norm_card_mean']:.3e}"
+                    f", CPU vs f64 worst {w['norm_cpu_f64']:.3e} mean "
+                    f"{w['norm_cpu_mean']:.3e}")
+
         text.append(
             f"{kind}: " + ", ".join(
                 f"{mode} card vs CPU {w['direct']:.3e} at "
-                f"{w['direct_leaf']} (outside the video chain "
-                f"{w['rest_direct']:.3e} at {w['rest_leaf']}), card vs f64 "
-                f"{w['card_f64']:.3e}, CPU vs f64 {w['cpu_f64']:.3e}; in "
-                f"the chain card vs f64 {w['chain_card_f64']:.3e}, CPU vs "
-                f"f64 {w['chain_cpu_f64']:.3e}, card less CPU "
-                f"{w['chain_excess']:.3e}"
+                f"{w['direct_leaf']}, card vs f64 {w['card_f64']:.3e}, CPU "
+                f"vs f64 {w['cpu_f64']:.3e}{chain_text(w)}"
                 for mode, w in worst.items())
-            + f"; teacher argmax free card {targets['free', 'cuda']} CPU "
-            f"{targets['free', 'cpu']}, f64 {ref_target}; loss free card "
-            f"{losses['free', 'cuda']:.6f} CPU {losses['free', 'cpu']:.6f}"
-            f", held card {losses['held', 'cuda']:.6f} CPU "
-            f"{losses['held', 'cpu']:.6f}, f64 {ref_loss:.6f} (held: card "
-            f"{seconds['held', 'cuda']:.1f} s, CPU "
-            f"{seconds['held', 'cpu']:.1f} s)")
-    print(f"[train-ft]   gradients: {'; '.join(text)}", flush=True)
+            + (f"; target free card {runs['free', 'cuda'][3]} CPU "
+               f"{runs['free', 'cpu'][3]}, f64 {ref_target}"
+               if ref_target is not None else "")
+            + f"; loss free card {losses['free', 'cuda']:.6f} CPU "
+            f"{losses['free', 'cpu']:.6f}, held card "
+            f"{losses['held', 'cuda']:.6f} CPU {losses['held', 'cpu']:.6f}, "
+            f"f64 {ref_loss:.6f} (held: card {seconds['held', 'cuda']:.1f} "
+            f"s, CPU {seconds['held', 'cpu']:.1f} s)")
+    print(f"[{tag}]   gradients: {'; '.join(text)}", flush=True)
     if failed:
-        raise AssertionError(f"train-ft: {len(failed)} gradient leaves "
-                             f"outside the gates, held to the f64 step's "
-                             f"ReLU gates and target: "
-                             + "; ".join(failed[:12]))
-    return gaps, "; ".join(text)
+        raise AssertionError(f"{tag}: {len(failed)} gradient leaves outside "
+                             f"the gates, held to the f64 step's ReLU gates"
+                             f" and target: " + "; ".join(failed[:12]))
+    return gaps, "; ".join(text) + f" ({len(pattern.masks)} ReLU gates)"
 
 
 def phase_train_ft() -> dict:
@@ -4257,7 +4396,8 @@ def phase_train_ft() -> dict:
     print(f"[profile]   device total {device_ms:.3f} ms per step, of which "
           f"kernels 3 and 4 {attn_ms:.3f} "
           f"({sum(n for _, _, n in rows):.0f} launches)", flush=True)
-    gaps, grad_text = _ft_grad_check()
+    gaps, grad_text = _grad_check("train-ft", _ft_grads,
+                                  ("vid_backbone.", "vid_cls"))
     print(f"[train-ft] FrameTransformer distil bf16 AdamW B={FT_TRAIN_BATCH}"
           f", {FT_SEQ} scenes, dropout {FT_DROPOUT}, u8 frames and clips: "
           f"{steps} steps (1 + make_multi_step({MULTI_STEPS})), kernel 3 "
@@ -4281,6 +4421,352 @@ def phase_train_ft() -> dict:
     return {"counts": counts, "by_dim": by_dim, "step_ms": step_ms,
             "host_ms": host_ms, "device_ms": device_ms, "peak_gb": peak_gb,
             "gaps": gaps}
+
+
+def _family_config(name: str, **kw):
+    """The rest of the family at Config's defaults: TPN with 19 classes,
+    the LSTM's sizes fixed by the registry (13 scenes of 4608, 15
+    classes), BasicMLP 2048 → 305, the contrastive encoder 2048 → 2048 →
+    305 → 128; bf16, AdamW at FAMILY_LR."""
+    from devt_tpu_torch.config import Config
+
+    base = dict(model=name, seq_len=FT_SEQ, n_classes=FT_CLASSES,
+                precision="bf16", opt="adamW", learning_rate=FAMILY_LR)
+    return Config(**{**base, **kw})
+
+
+def _family_request(name: str, n: int, seed: int) -> dict:
+    """A batch of ``n`` as users send it, with labels: u8 frames for TPN
+    (20 of 224² a sample), f32 expert rows for the others."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if name == "tpn":
+        return {"img": rng.integers(0, 256, (n, TPN_FRAMES, 224, 224, 3),
+                                    dtype=np.uint8),
+                "label": (rng.random((n, FT_CLASSES)) < 0.3).astype(
+                    np.float32)}
+    if name == "lstm":
+        return {"experts": rng.standard_normal((n, FT_SEQ, 4608),
+                                               dtype=np.float32),
+                "label": (rng.random((n, 15)) < 0.3).astype(np.float32)}
+    if name == "basicmlp":
+        return {"experts": rng.standard_normal((n, 2048), dtype=np.float32),
+                "label": rng.integers(0, 305, (n,))}
+    return {"x_i": rng.standard_normal((n, 2048), dtype=np.float32),
+            "x_j": rng.standard_normal((n, 2048), dtype=np.float32),
+            "label": np.zeros((n, 1), np.float32)}
+
+
+def phase_serve_family() -> dict:
+    """TPN (bucket 8: 8 x 20 u8 frames of 224²), the LSTM and BasicMLP
+    (bucket 32) at full width behind Predictor in bf16, seeded weights: no
+    kernel launch (cuDNN and cuBLAS only), the scores of their kind
+    (probabilities, sigmoid, softmax), card vs CPU on the same bucket
+    within SCORE_ATOL; requests/s and ms a call through predict (upload
+    and download included), best of 3 windows of 3 calls; a profile of
+    TPN's forward."""
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.serve import Predictor
+
+    out = {}
+    for name, bucket in (("tpn", TPN_BUCKET), ("lstm", FAMILY_BUCKET),
+                         ("basicmlp", FAMILY_BUCKET)):
+        cfg = _family_config(name)
+        weights = build_model(cfg, torch.Generator().manual_seed(
+            SEED)).state_dict()
+        request = _family_request(name, bucket, SEED + 30)
+        request.pop("label")
+        pred = Predictor(cfg, weights, buckets=(bucket,))
+        _zero_counts()
+        got = pred.predict(request)["scores"]
+        if _kernel_counts() != _expect():
+            raise AssertionError(f"serve-family {name}: kernel launches "
+                                 f"{_kernel_counts()}, expected none")
+        classes = {"tpn": FT_CLASSES, "lstm": 15, "basicmlp": 305}[name]
+        if got.shape != (bucket, classes) or not np.isfinite(got).all() \
+                or not ((got > 0) & (got < 1)).all() or (
+                    name == "basicmlp"
+                    and not np.allclose(got.sum(-1), 1.0, atol=1e-2)):
+            raise AssertionError(f"serve-family {name}: bad scores, shape "
+                                 f"{got.shape}")
+        windows = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                pred.predict(request)
+            windows.append((time.perf_counter() - t0) / 3)
+        t0 = time.perf_counter()
+        cpu = Predictor(cfg, weights, buckets=(bucket,),
+                        device="cpu").predict(request)["scores"]
+        row = {"ms": min(windows) * 1e3,
+               "requests_per_s": bucket / min(windows),
+               "cpu_err": float(abs(got - cpu).max()),
+               "cpu_s": time.perf_counter() - t0}
+        if not row["cpu_err"] <= SCORE_ATOL:
+            raise AssertionError(f"serve-family {name}: card vs CPU scores "
+                                 f"differ by {row['cpu_err']:.3e} (limit "
+                                 f"{SCORE_ATOL})")
+        tensors = {k: torch.from_numpy(v).cuda() for k, v in request.items()}
+        with torch.inference_mode():
+            rows, busy, wall = _traced(lambda: pred.forward(tensors))
+        row["device_ms"], row["busy"] = sum(ms for _, ms, _ in rows), busy
+        if name == "tpn":
+            _print_profile(f"TPN forward, bucket {bucket}", rows, busy, wall,
+                           top=8)
+        out[name] = row
+        del pred
+    print(f"[serve-family] bf16, seeded weights, behind Predictor (no kernel "
+          f"of the port on these paths): " + "; ".join(
+              f"{name} bucket {b}: {out[name]['ms']:.3f} ms a call, "
+              f"{out[name]['requests_per_s']:.1f} requests/s, device "
+              f"{out[name]['device_ms']:.3f} ms (busy {out[name]['busy']:.1%})"
+              f", card vs CPU {out[name]['cpu_err']:.3e}"
+              for name, b in (("tpn", TPN_BUCKET), ("lstm", FAMILY_BUCKET),
+                              ("basicmlp", FAMILY_BUCKET)))
+          + f" (limit {SCORE_ATOL}; predict on host arrays, TPN's as u8 "
+          f"frames, best of 3 windows of 3 calls, host clock; device ms from "
+          f"a profiled forward)", flush=True)
+    return out
+
+
+def _family_model(name: str, dtype):
+    """The registry's model at dropout 0, in ``dtype``, from the seed: the
+    gradient checks compare steps whose dropout masks would differ."""
+    import torch
+
+    from devt_tpu_torch.models.basicmlp import BasicMLP
+    from devt_tpu_torch.models.contrastive import ContrastiveEncoder
+    from devt_tpu_torch.models.lstm import LSTMRegressor
+    from devt_tpu_torch.models.tpn import TPN
+
+    model = {"tpn": lambda: TPN(num_class=FT_CLASSES, dropout=(0.0, 0.0),
+                                dtype=dtype),
+             "lstm": lambda: LSTMRegressor(dropout=0.0, dtype=dtype),
+             "basicmlp": lambda: BasicMLP(dtype=dtype),
+             "contrastive": lambda: ContrastiveEncoder(dropout=0.0,
+                                                       dtype=dtype)}[name]()
+    return model.init_weights(torch.Generator().manual_seed(SEED))
+
+
+def _family_grads(name: str, kind: str, device: str,
+                  relu: _ReluPattern | None = None, target=None):
+    """One training step's loss, gradients and new model state (f64, on
+    the CPU) at dropout 0, in precision ``kind`` on ``device``; ``relu``
+    records or replays the ReLU gates.  These steps have no target to fix
+    (``target`` is None, and so is the fourth item returned)."""
+    import contextlib
+
+    import torch
+
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.train.state import model_buffers
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32,
+             "f64": torch.float64}[kind]
+    cfg = _family_config(name, precision="bf16" if kind == "bf16" else "f32")
+    m = _family_model(name, dtype).to(
+        device, torch.float64 if kind == "f64" else torch.float32)
+    params = dict(m.named_parameters())
+    batch = {k: torch.from_numpy(v).to(device) for k, v in _family_request(
+        name, FAMILY_GRAD_BATCH[name], SEED + 31).items()}
+    with relu if relu is not None else contextlib.nullcontext():
+        loss, _, state = forward_and_loss(
+            m, cfg, {"params": params, **model_buffers(m)}, batch,
+            DropoutRng(0), train=True)
+        g = torch.autograd.grad(loss, list(params.values()))
+    return (loss.item(), {k: v.double().cpu() for k, v in zip(params, g)},
+            {k: v.double().cpu() for k, v in state.items()}, None)
+
+
+def _loss_at_dropout_0(model, cfg, state, batch) -> float:
+    """The training forward's loss on ``batch`` (BatchNorm on the batch's
+    statistics), nothing updated, through ``model``, the registry's model
+    built at dropout 0 (_family_model), with the state's parameters and
+    statistics: what the steps lower, without the masks' noise."""
+    import torch
+
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    with torch.no_grad():
+        loss = forward_and_loss(
+            model, cfg, {"params": state.params, **state.model_state},
+            batch, DropoutRng(0), train=True)[0]
+    return loss.item()
+
+
+def phase_train_family() -> dict:
+    """TPN at B=4 (80 u8 frames of 224²), the LSTM and BasicMLP at B=32,
+    the contrastive encoder at B=256 (510 negatives a row), bf16, AdamW at
+    FAMILY_LR: make_train_step and make_multi_step(8) on a fixed batch, no
+    kernel launch; the loss on the fixed batch falling over the 33 steps,
+    read by _loss_at_dropout_0 on the same model built at dropout 0 (the
+    training loss, at TPN's dropout 0.6 and 0.5, jumps from step to step
+    too much to show it); the BatchNorm statistics moving in every buffer;
+    one step's gradients card vs CPU (_grad_check, TPN's backbone as the
+    chain); samples/s, step ms, host enqueue ms, device ms of a profiled
+    step, peak device memory."""
+    import torch
+
+    from devt_tpu_torch.parallel.train_step import (make_multi_step,
+                                                    make_train_step)
+    from devt_tpu_torch.registry import build_model, model_dtype
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState, model_buffers
+
+    out = {}
+    for name, b in (("tpn", TPN_TRAIN_BATCH), ("lstm", FAMILY_BUCKET),
+                    ("basicmlp", FAMILY_BUCKET),
+                    ("contrastive", CONTRASTIVE_BATCH)):
+        cfg = _family_config(name, batch_size=b)
+        model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+        quiet = _family_model(name, model_dtype(cfg)).cuda()
+        buffers = model_buffers(model)
+        before = {k: v.clone() for k, v in buffers.items()}
+        state = TrainState.create(dict(model.named_parameters()),
+                                  build_optimizer(cfg), model_state=buffers)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in _family_request(name, b, SEED + 32).items()}
+        stacked = {k: v[None].expand(MULTI_STEPS, *v.shape)
+                   for k, v in batch.items()}
+        step = make_train_step(model, cfg)
+        multi = make_multi_step(model, cfg, MULTI_STEPS)
+        loss_before = _loss_at_dropout_0(quiet, cfg, state, batch)
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        state, first = step(state, batch, SEED)
+        state, metrics = multi(state, stacked, SEED)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        if _kernel_counts() != _expect():
+            raise AssertionError(f"train-family {name}: kernel launches "
+                                 f"{_kernel_counts()}, expected none")
+        windows, enqueue = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, metrics = multi(state, stacked, SEED)
+            enqueue.append(time.perf_counter() - t0)
+            metrics["loss"].item()
+            windows.append(time.perf_counter() - t0)
+        losses = (first["loss"].item(), metrics["loss"].item())
+        loss_after = _loss_at_dropout_0(quiet, cfg, state, batch)
+        if not all(map(math.isfinite, losses + (loss_after,))) \
+                or not loss_after < loss_before \
+                or state.step != 1 + 4 * MULTI_STEPS:
+            raise AssertionError(f"train-family {name}: loss at dropout 0 "
+                                 f"{loss_before:.5f} before, {loss_after:.5f}"
+                                 f" after {state.step} steps; training loss "
+                                 f"{losses[0]:.5f} at the first step, "
+                                 f"{losses[1]:.5f} over the last "
+                                 f"{MULTI_STEPS}")
+        moved = {k for k, v in buffers.items() if not torch.equal(
+            v, before[k])}
+        if moved != set(buffers):
+            raise AssertionError(f"train-family {name}: BatchNorm statistics "
+                                 f"moved in {len(moved)} of {len(buffers)} "
+                                 f"buffers")
+        best = min(windows)
+        rows, busy, wall = _traced(lambda: step(state, batch, SEED))
+        _print_profile(f"{name} train step, B={b}", rows, busy, wall, top=6)
+        gaps, grad_text = _grad_check(
+            f"train-family {name}", functools.partial(_family_grads, name),
+            ("backbone.",) if name == "tpn" else ())
+        out[name] = {"batch": b, "samples_per_s": b * MULTI_STEPS / best,
+                     "step_ms": best / MULTI_STEPS * 1e3,
+                     "host_ms": enqueue[windows.index(best)] / MULTI_STEPS
+                     * 1e3,
+                     "device_ms": sum(ms for _, ms, _ in rows), "busy": busy,
+                     "launches": sum(n for _, _, n in rows),
+                     "peak_gb": peak_gb, "loss": losses,
+                     "loss_at_dropout_0": (loss_before, loss_after),
+                     "buffers": len(buffers), "gaps": gaps}
+        r = out[name]
+        print(f"[train-family] {name} bf16 AdamW B={b}: "
+              f"{r['samples_per_s']:.1f} samples/s, step_ms="
+              f"{r['step_ms']:.3f}, host enqueue {r['host_ms']:.3f} ms a "
+              f"step, device {r['device_ms']:.3f} ms a step (busy "
+              f"{busy:.1%}, {r['launches']:.0f} launches), peak device memory "
+              f"{peak_gb:.2f} GiB (best of 3 windows of {MULTI_STEPS} steps, "
+              f"host clock); loss on the fixed batch at dropout 0 "
+              f"{loss_before:.5f} -> {loss_after:.5f} in {state.step} steps "
+              f"(training loss "
+              f"{losses[0]:.5f} at the first step, {losses[1]:.5f} over the "
+              f"last {MULTI_STEPS}); "
+              f"BatchNorm statistics moved in {len(moved)} of "
+              f"{len(buffers)} buffers; gradients of one step at dropout 0 "
+              f"(B={FAMILY_GRAD_BATCH[name]}), worst leaf as a share of its "
+              f"largest element in the f64 step: {grad_text}", flush=True)
+        del model, quiet, state, step, multi
+    return out
+
+
+def phase_family_rest() -> dict:
+    """The expert extractor (ResNet-50 on 32 frames of 224², R3D-18 on 8
+    clips of 16 x 112²) and collaborative gating ((8, 13) scenes of three
+    experts, one 512 wide and two 2048, proj 2048, out 1024) at full width
+    in f32, seeded weights, card vs CPU: the extractor within 1e-3 of the
+    largest feature (sums in other orders through up to 50 convolutions),
+    gating within 1e-4; ms a call by CUDA events."""
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.models.collab_gating import CollaborativeGating
+    from devt_tpu_torch.models.pretrained import EXPERT_DIMS, \
+        EmbeddingExtractor
+
+    rng = np.random.default_rng(SEED + 40)
+    frames = rng.standard_normal((32, 224, 224, 3), dtype=np.float32)
+    clips = rng.standard_normal((8, 16, 112, 112, 3), dtype=np.float32)
+    cpu_ext = EmbeddingExtractor(seed=SEED, device="cpu")
+    ext = EmbeddingExtractor(seed=None)
+    for name, model in cpu_ext.models.items():
+        ext.load_torch_state_dict(name, model.state_dict())
+    out = {}
+    for key, data, fwd in (("image", frames, "forward_img"),
+                           ("location", frames, "forward_location"),
+                           ("video", clips, "forward_video")):
+        got = getattr(ext, fwd)(data)
+        want = getattr(cpu_ext, fwd)(data)
+        err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+        pooled = ext.return_expert_for_key(key, data).cpu()
+        if got.shape != (len(data), EXPERT_DIMS[key]) or not err <= 1e-3 \
+                or not torch.allclose(pooled, got.cpu().mean(0), atol=1e-5,
+                                      rtol=1e-4):
+            raise AssertionError(f"family-rest extractor {key}: card vs CPU "
+                                 f"{err:.3e} of the largest feature (limit "
+                                 f"1e-3), shape {tuple(got.shape)}")
+        x = torch.from_numpy(data).cuda()
+        out[key] = {"err": err,
+                    "ms": _time_ms(lambda: getattr(ext, fwd)(x), iters=5,
+                                   warmup=1)}
+    gen = torch.Generator().manual_seed(SEED)
+    gating = CollaborativeGating(2048, 1024).init_weights(gen)
+    experts = [torch.from_numpy(rng.standard_normal(
+        (8, FT_SEQ, d), dtype=np.float32)) for d in (512, 2048, 2048)]
+    want = gating(experts).detach()
+    gating.cuda()
+    cuda_experts = [e.cuda() for e in experts]
+    with torch.no_grad():
+        got = gating(cuda_experts)
+        err = (got.cpu() - want).abs().max().item()
+        ms = _time_ms(lambda: gating(cuda_experts))
+    if got.shape != (8, FT_SEQ, 1024) or not err <= 1e-4:
+        raise AssertionError(f"family-rest gating: card vs CPU {err:.3e} "
+                             f"(limit 1e-4), shape {tuple(got.shape)}")
+    out["gating"] = {"err": err, "ms": ms}
+    print(f"[family-rest] f32, seeded weights, card vs CPU: extractor "
+          + ", ".join(f"{k} {out[k]['err']:.3e} of the largest feature, "
+                      f"{out[k]['ms']:.3f} ms a call" for k in EXPERT_DIMS)
+          + f" (limit 1e-3; 32 frames of 224², 8 clips of 16 x 112²); "
+          f"collaborative gating (8, {FT_SEQ}, 3 experts of 512, 2048, 2048 → "
+          f"1024) {err:.3e} (limit 1e-4), {ms:.3f} ms a call (CUDA events)",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -4394,6 +4880,10 @@ def main() -> int:
     mha_ft = phase_mha_ft()
     serve_ft = phase_serve_ft()
     train_ft = phase_train_ft()
+    # the rest of the model family: no kernel of the port on its paths
+    phase_serve_family()
+    phase_train_family()
+    phase_family_rest()
     # the MoE and the later model paths' launches of the earlier kernels
     later_runs = (serve_moe["counts"], serve_moe["int8_counts"],
                   train_moe["counts"], train_moe["drop_counts"],
@@ -4504,7 +4994,9 @@ def main() -> int:
         # int_mm_ms: quantize + torch._int_mm + dequantize, a yardstick
         # beside F.linear's library_ms
         entry(6, "int8_matmul_fused", csrc + "gemm_s8_sm90.cuh",
-              "devt_tpu/ops/quant.py:348", ptn["matmul_launches"], matmul,
+              "devt_tpu/ops/quant.py:348",
+              ptn["matmul_launches"] + serve_ft["quant"]["matmul_launches"],
+              matmul,
               int_mm_ms=matmul["int_mm_ms"]),
         # composed_ms: the half composed of library calls (no one call
         # computes it, so library_ms stays null), by CUDA graph; its

@@ -56,6 +56,13 @@ class DropoutRng:
     def block_seed(self) -> int:
         return int(torch.randint(0, 1 << 30, (1,), generator=self._host))
 
+    def split(self, n: int = 2) -> list["DropoutRng"]:
+        """``n`` independent streams, seeded from this one's host
+        generator (``jax.random.split``'s role)."""
+        return [DropoutRng(int(torch.randint(0, 1 << 62, (1,),
+                                             generator=self._host)))
+                for _ in range(n)]
+
     def keep(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         if x.device.type == "cpu":
             gen = self._host
@@ -102,6 +109,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, (nn.Conv2d, nn.Conv3d)):
             # flax's Conv: the fan-in is the receptive field times cin
             lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
@@ -111,6 +120,12 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 lecun_normal_(w, w.shape[0] * w.shape[1], generator)
             nn.init.zeros_(m.moe_b1)
             nn.init.zeros_(m.moe_b2)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in at least f32, the type the JAX package's sums and means of
+    a bf16 tensor accumulate in before they round back."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,

@@ -99,10 +99,21 @@ def conv(c: nn.Conv2d | nn.Conv3d, x: torch.Tensor,
          dtype: torch.dtype) -> torch.Tensor:
     """flax ``Conv(dtype=...)`` without bias on the (N, C, ...) view of a
     channels-last batch: input and kernel cast to ``dtype``, the kernel
-    laid out channels-last like the input."""
+    laid out channels-last like the input.
+
+    On the CPU a bf16 convolution runs in f32 on the bf16-rounded input
+    and kernel, and rounds its result (and so, in the backward, each
+    gradient it returns) to bf16, the arithmetic of cuDNN's bf16
+    convolution on the card.  PyTorch's own CPU bf16 convolution is not
+    trusted: PyTorch 2.11's ``conv3d`` returns the weight gradient of a
+    (3, 1, 1) kernel at (8, 1152, 2, 7, 7) → 512 off by 2.3e18 times the
+    leaf's largest element (``tools/bf16_conv_cpu.py``)."""
     fmt = torch.channels_last if x.dim() == 4 else torch.channels_last_3d
     fn = F.conv2d if x.dim() == 4 else F.conv3d
     w = c.weight.to(dtype=dtype, memory_format=fmt)
+    if x.device.type == "cpu" and dtype == torch.bfloat16:
+        return fn(x.to(dtype).float(), w.float(), None, c.stride,
+                  c.padding).to(dtype)
     return fn(x.to(dtype), w, None, c.stride, c.padding)
 
 

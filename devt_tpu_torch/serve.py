@@ -12,11 +12,14 @@
 with the transformer hot path in int8 (``ops/quant.py``; an MoE block keeps
 its attention half and expert products in the model dtype, as in the JAX
 package).  The FrameTransformer variants are served from ``img`` and
-``vid``, in the model dtype; ``quantize=True`` on them is not held
-against the JAX package yet (ROADMAP.md queue 1, item 5).  The predictor
-runs on ``cuda`` unless the caller passes ``device="cpu"``; with no CUDA
-device and no explicit device it raises.  Data-parallel meshes, export and checkpoint loading are not
-ported yet.
+``vid``, in the model dtype or with their encoders in int8.  ``tpn``
+serves the probabilities it returns, ``lstm`` sigmoid and ``basicmlp``
+softmax scores, from ``img`` and ``experts`` as the JAX predictor does;
+``quantize=True`` leaves these three as they are, since no site of theirs
+is quantized.  ``contrastive`` is an encoder, not a classifier, and is
+not served.  The predictor runs on ``cuda`` unless the caller passes
+``device="cpu"``; with no CUDA device and no explicit device it raises.
+Data-parallel meshes, export and checkpoint loading are not ported yet.
 """
 
 from __future__ import annotations
@@ -89,6 +92,11 @@ class Predictor:
         the packed qkv projection and leaves the square sites in the model
         dtype.  Pass ``lambda k, n: True`` to quantize every site.
         Without ``quantize`` it is ignored."""
+        if config.model == "contrastive":
+            raise ValueError("the contrastive encoder returns embeddings, "
+                             "not class scores: Predictor serves the "
+                             "classifiers, and the JAX package's has no "
+                             "branch for it either")
         if mesh is not None:
             raise _todo("Predictor(mesh=...), data-parallel serving", item=7)
         if quantize and quant_site_pred is None:
@@ -131,9 +139,14 @@ class Predictor:
 
     def _scores(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         batch = maybe_dequantize_batch(dict(batch), dtype=torch.float32)
-        if self.config.model in ("ptn", "ptn_shared"):
+        name = self.config.model
+        if name == "tpn":
+            return self.model(batch["img"])     # already probabilities
+        if name == "basicmlp":
+            return torch.softmax(self.model(batch["experts"]), dim=-1)
+        if name in ("ptn", "ptn_shared", "lstm"):
             out = self.model(batch["experts"])
-        elif self.config.model in FT_VARIANTS:
+        elif name in FT_VARIANTS:
             out = self.model(img=batch.get("img"),
                              vid=batch.get("vid"))["logits"]
         elif "vid_tokens" in batch:

@@ -20,6 +20,13 @@ the port's ``state_dict`` by name:
     ``moe_w2`` (E, F, D), ``moe_b2`` (E, D)…) keep their names and layout,
     untransposed both ways.
 
+One tree is not mapped leaf by leaf: flax's ``OptimizedLSTMCell_<i>``
+(``devt_tpu/models/lstm.py``) holds a kernel a gate, ``ii``, ``if``,
+``ig``, ``io`` (in, H) without bias and ``hi``, ``hf``, ``hg``, ``ho``
+(H, H) with biases, which the port's ``cells.<i>`` stacks in i, f, g, o
+order into ``weight_ih`` (4H, in), ``weight_hh`` (4H, H) and ``bias_hh``
+(4H) (``models/lstm.py``).
+
 Names follow ``devt_tpu/models/layers.py:117-160`` (``attn_norm``,
 ``attn/to_qkv``, ``attn/to_out``, ``ff_norm``, ``ff/fc1``, ``ff/fc2``) for
 ViViT and ``devt_tpu/models/ptn.py`` / ``torch_encoder.py`` for PTN
@@ -27,7 +34,10 @@ ViViT and ``devt_tpu/models/ptn.py`` / ``torch_encoder.py`` for PTN
 ``linear2``, ``norm1``, ``norm2``; ``cls``, ``norm``, ``head_norm``,
 ``head``), and ``devt_tpu/models/{frame_transformer,resnet,r2plus1d}.py``
 for FrameTransformer (``layer1_0`` and its kind keep their names: only
-``block_<i>`` and ``layer_<i>`` are lists).
+``block_<i>`` and ``layer_<i>`` are lists), and ``devt_tpu/models/{tpn,
+contrastive,basicmlp,collab_gating}.py`` for the rest of the family
+(``backbone``, ``low_reduce``, ``reason/scale<g>_fc<k>``, ``enc_fc1``,
+``enc_bn``, ``fc1``, ``bn``, ``projection``, ``geu_fc``…).
 
 ``jax_to_state_dict`` maps any tree shaped like the parameters, not only
 weights: a gradient tree (``jax.grad`` of the loss) and optax's ``mu`` /
@@ -51,6 +61,9 @@ _FLAX = {v: k for k, v in _LISTS.items()}
 # and back
 _TO_TORCH = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
+# flax's LSTM cells and their gates, in the port's stacking order
+_LSTM_CELL = re.compile(r"OptimizedLSTMCell_(\d+)")
+_GATES = "ifgo"
 # BatchNorm's batch_stats leaves → the port's buffers
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_FLAX = {v: k for k, v in _STATS.items()}
@@ -73,12 +86,39 @@ def _torch_path(path: tuple) -> list[str]:
     return parts
 
 
+def _lstm_to_torch(cell: Mapping[str, Any], dtype) -> dict[str, np.ndarray]:
+    """One ``OptimizedLSTMCell``'s leaves → ``weight_ih``, ``weight_hh``,
+    ``bias_hh``, the gates stacked in i, f, g, o order."""
+    def stack(kind, leaf):
+        return np.concatenate([np.asarray(cell[f"{kind}{g}"][leaf], dtype)
+                               for g in _GATES], axis=-1)
+    return {"weight_ih": stack("i", "kernel").T,
+            "weight_hh": stack("h", "kernel").T,
+            "bias_hh": stack("h", "bias")}
+
+
+def _lstm_to_flax(leaves: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """The port's ``cells.<i>`` leaves → one ``OptimizedLSTMCell``'s."""
+    cell = {}
+    for kind, name in (("i", "weight_ih"), ("h", "weight_hh")):
+        for g, w in zip(_GATES, np.split(leaves[name], 4, axis=0)):
+            cell[f"{kind}{g}"] = {"kernel": np.ascontiguousarray(w.T)}
+    for g, b in zip(_GATES, np.split(leaves["bias_hh"], 4)):
+        cell[f"h{g}"]["bias"] = np.ascontiguousarray(b)
+    return cell
+
+
 def jax_to_state_dict(variables: Mapping[str, Any],
                       dtype=np.float32) -> dict[str, torch.Tensor]:
     """JAX variables (``{"params": tree, "batch_stats": tree}``, or the
     params tree alone) → port state_dict, every leaf as ``dtype``."""
-    params = variables.get("params", variables)
+    params = dict(variables.get("params", variables))
     out = {}
+    for key in [k for k in params if _LSTM_CELL.fullmatch(k)]:
+        cell = _LSTM_CELL.fullmatch(key).group(1)
+        for name, arr in _lstm_to_torch(params.pop(key), dtype).items():
+            out[f"cells.{cell}.{name}"] = torch.tensor(
+                np.ascontiguousarray(arr))
     for path, leaf in _leaves(params):
         name = path[-1]
         arr = np.asarray(leaf, dtype=dtype)
@@ -99,9 +139,13 @@ def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor],
     """Port state_dict → ``{"params": tree}`` of numpy arrays of ``dtype``,
     with ``"batch_stats": tree`` when it holds BatchNorm buffers."""
     trees: dict[str, dict] = {"params": {}}
+    cells: dict[str, dict] = {}
     for name, tensor in state_dict.items():
         parts = name.split(".")
         arr = tensor.detach().cpu().numpy().astype(dtype)
+        if parts[0] == "cells" and len(parts) == 3:
+            cells.setdefault(parts[1], {})[parts[2]] = arr
+            continue
         leaf, tree = parts[-1], trees["params"]
         if leaf == "weight":
             # Linear and Conv weights are kernels (permuted back); 1-D are
@@ -124,4 +168,6 @@ def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor],
         for seg in segs:
             node = node.setdefault(seg, {})
         node[leaf] = np.ascontiguousarray(arr)
+    for i, leaves in cells.items():
+        trees["params"][f"OptimizedLSTMCell_{i}"] = _lstm_to_flax(leaves)
     return trees

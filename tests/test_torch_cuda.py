@@ -2526,3 +2526,168 @@ def test_frame_transformer_distil_served_card_vs_cpu(card):
         request)["scores"]
     assert np.isfinite(got).all() and got.shape == (1, 19)
     np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+
+
+# the rest of the model family: no kernel of its own, cuDNN convolutions
+# and plain products on the card, held against the same model on the CPU
+FAMILY_CFG = dict(n_classes=19, batch_size=2, seq_len=5, input_shape=256,
+                  hidden_layer=256, projection_size=64, output_shape=32,
+                  token_embedding=23)
+
+
+def _family_request(name, n, seed=3):
+    rng = np.random.default_rng(seed)
+    if name == "tpn":
+        return {"img": rng.standard_normal((n, 20, 64, 64, 3),
+                                           dtype=np.float32)}
+    if name == "lstm":
+        return {"experts": rng.standard_normal((n, 5, 4608),
+                                               dtype=np.float32)}
+    return {"experts": rng.standard_normal((n, 256), dtype=np.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tpn", "lstm", "basicmlp"])
+def test_family_served_card_vs_cpu(card, name):
+    """tpn (64² frames), lstm and basicmlp behind Predictor in bf16 on the
+    card: the scores against the same model on the CPU within the serving
+    gate (2e-2, both bf16), and ``quantize=True`` equal to the unquantized
+    scores on the card (no site of these models is quantized)."""
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.serve import Predictor
+
+    cfg = Config(model=name, precision="bf16", **FAMILY_CFG)
+    weights = build_model(cfg).state_dict()
+    request = _family_request(name, 3)
+    got = Predictor(cfg, weights, buckets=(4,)).predict(request)["scores"]
+    want = Predictor(cfg, weights, buckets=(4,), device="cpu").predict(
+        request)["scores"]
+    assert np.isfinite(got).all() and got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+    quant = Predictor(cfg, weights, buckets=(4,), quantize=True)
+    assert quant._qsites == []
+    np.testing.assert_array_equal(quant.predict(request)["scores"], got)
+
+
+def _family_batch(name, b, seed=4):
+    rng = np.random.default_rng(seed)
+    # the registry's LSTM has the reference's 15 classes
+    label = (rng.random((b, 15 if name == "lstm" else 19)) < 0.3).astype(
+        np.float32)
+    if name == "contrastive":
+        return {"x_i": rng.standard_normal((b, 256), dtype=np.float32),
+                "x_j": rng.standard_normal((b, 256), dtype=np.float32),
+                "label": label}
+    if name == "basicmlp":
+        return {**_family_request(name, b, seed),
+                "label": rng.integers(0, 23, (b,))}
+    return {**_family_request(name, b, seed), "label": label}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tpn", "lstm", "basicmlp", "contrastive"])
+def test_family_trains_card_vs_cpu(card, name):
+    """One f32 step at dropout 0 (the card's masks come from another
+    generator than the CPU's): the loss and the new BatchNorm statistics
+    on the card against the CPU (sums in other orders: 1e-4 of the
+    largest, as chip_smoke.py's phase 29 holds them), every
+    gradient leaf within 1e-3 of its largest element; of TPN only its
+    output layers' leaves, whose gradients pass no ReLU (behind its
+    backbone's ReLUs two roundings flip gates and move whole terms;
+    chip_smoke.py holds those steps to one step's gates); then
+    make_multi_step(4) in bf16 on the card at lr 1e-4: a finite loss, and
+    the loss at dropout 0 falling on the fixed batch."""
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.parallel.train_step import make_multi_step
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState, model_buffers
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    # f32 convolutions in f32, not TF32, as chip_smoke.py runs them
+    torch.backends.cudnn.allow_tf32 = False
+    batch = _family_batch(name, 4)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cfg = Config(model=name, precision="f32", **FAMILY_CFG)
+        model = build_model(cfg).to(device)
+        if name == "tpn":
+            model.reason.dropout = (0.0, 0.0)
+        elif name in ("lstm", "contrastive"):
+            model.dropout = 0.0
+        params = dict(model.named_parameters())
+        loss, _, new_ms = forward_and_loss(
+            model, cfg, {"params": params, **model_buffers(model)},
+            {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+            DropoutRng(0), train=True)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        runs[device] = (loss.item(), {k: v.cpu() for k, v in new_ms.items()},
+                        {k: g.cpu() for k, g in zip(params, grads)})
+    (lc, sc, gc), (lp, sp, gp) = runs["cuda"], runs["cpu"]
+    assert abs(lc - lp) <= 1e-4 * max(abs(lp), 1.0)
+    for k in sp:
+        scale = max(sp[k].abs().max().item(), 1.0)
+        assert (sc[k] - sp[k]).abs().max() <= 1e-4 * scale, k
+    for k, g in gp.items():
+        if name == "tpn" and "_fc3." not in k:
+            continue
+        assert (gc[k] - g).abs().max() <= 1e-3 * max(g.abs().max(), 1e-6), k
+
+    cfg = Config(model=name, precision="bf16", opt="adamW",
+                 learning_rate=1e-4, **FAMILY_CFG)
+    model = build_model(cfg).cuda()
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg),
+                              model_state=model_buffers(model))
+    cuda_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+    def loss_at_dropout_0():
+        # the training forward on the batch's statistics, no dropout,
+        # nothing updated: what the steps lower, without the masks' noise
+        holder = getattr(model, "reason", model)
+        rate = getattr(holder, "dropout", 0.0)
+        holder.dropout = (0.0, 0.0) if isinstance(rate, tuple) else 0.0
+        with torch.no_grad():
+            loss = forward_and_loss(
+                model, cfg, {"params": state.params, **state.model_state},
+                cuda_batch, DropoutRng(0), train=True)[0].item()
+        holder.dropout = rate
+        return loss
+
+    before = loss_at_dropout_0()
+    stacked = {k: np.stack([v] * 4) for k, v in batch.items()}
+    state, metrics = make_multi_step(model, cfg, 4)(state, stacked, 0)
+    assert np.isfinite(metrics["loss"].item()) and state.step == 4
+    assert loss_at_dropout_0() < before
+
+
+@pytest.mark.cuda
+def test_embedding_extractor_and_gating_card_vs_cpu(card):
+    """The expert extractor (ResNet-50 on 64² frames, R3D-18 on 8 x 64²
+    clips) and collaborative gating (three experts, one narrower) in f32 on
+    the card against the CPU: sums in other orders through up to 50
+    convolutions, 1e-3 of the largest feature."""
+    from devt_tpu_torch.models.collab_gating import CollaborativeGating
+    from devt_tpu_torch.models.pretrained import EmbeddingExtractor
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    frames = rng.standard_normal((4, 64, 64, 3), dtype=np.float32)
+    clips = rng.standard_normal((2, 8, 64, 64, 3), dtype=np.float32)
+    card_ext = EmbeddingExtractor(seed=1)
+    cpu_ext = EmbeddingExtractor(seed=1, device="cpu")
+    for key, data in (("image", frames), ("location", frames),
+                      ("video", clips)):
+        got = card_ext.return_expert_for_key(key, data).cpu()
+        want = cpu_ext.return_expert_for_key(key, data)
+        assert (got - want).abs().max() <= 1e-3 * want.abs().max(), key
+    gating = CollaborativeGating(256, 64).init_weights(
+        torch.Generator().manual_seed(2))
+    experts = [torch.from_numpy(rng.standard_normal((2, 5, d),
+                                                    dtype=np.float32))
+               for d in (128, 256, 256)]
+    want = gating(experts)
+    got = gating.cuda()([e.cuda() for e in experts]).cpu()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

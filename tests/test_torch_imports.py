@@ -62,7 +62,13 @@ def test_walk_covers_the_training_slice():
                 "devt_tpu_torch/models/frame_transformer.py",
                 "devt_tpu_torch/models/resnet.py",
                 "devt_tpu_torch/models/r2plus1d.py",
-                "devt_tpu_torch/models/contrastive.py"):
+                "devt_tpu_torch/models/contrastive.py",
+                # the rest of the model family
+                "devt_tpu_torch/models/tpn.py",
+                "devt_tpu_torch/models/lstm.py",
+                "devt_tpu_torch/models/basicmlp.py",
+                "devt_tpu_torch/models/collab_gating.py",
+                "devt_tpu_torch/models/pretrained.py"):
         assert rel in walked, rel
 
 

@@ -96,11 +96,18 @@ def test_unported_serving_options_raise(kw):
 
 
 def test_other_models_are_not_ported():
-    for name in ("contrastive", "lstm", "tpn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            treg.build_model(Config(model=name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.example_batch(Config(model="lstm"))
+    """The rest of the family is ported: ``contrastive``, ``lstm`` and
+    ``tpn`` build from the registry and draw their batches (their numbers
+    against JAX's: ``test_torch_models_family.py``)."""
+    want = {"contrastive": {"x_i": (2, 2048), "x_j": (2, 2048),
+                            "label": (2, 15)},
+            "lstm": {"experts": (2, 13, 4608), "label": (2, 15)},
+            "tpn": {"img": (2, 20, 224, 224, 3), "label": (2, 15)}}
+    for name, shapes in want.items():
+        model = treg.build_model(Config(model=name))
+        assert next(model.parameters()).dtype == torch.float32
+        batch = treg.example_batch(Config(model=name))
+        assert {k: v.shape for k, v in batch.items()} == shapes, name
 
 
 def test_unknown_model_name_raises():
@@ -134,7 +141,7 @@ def test_frame_transformer_is_served_from_img_and_vid():
     assert torch.all(sd["img_backbone.stem.bn.weight"] == 1)
     assert torch.all(sd["vid_backbone.layer1_0.bn1.running_var"] == 1)
     assert 0.0 <= sd["vid_cls"].min() and sd["vid_cls"].max() < 1.0
-    assert set(treg.PORTED_MODELS) >= set(VARIANTS)
+    assert set(treg.KNOWN_MODELS) >= set(VARIANTS)
     pred = Predictor(cfg, sd, buckets=(4,), device="cpu")
     batch = treg.example_batch(cfg, batch_size=3)
     assert batch["img"].shape == (3, 1, 224, 224, 3)

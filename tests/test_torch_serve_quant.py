@@ -165,3 +165,39 @@ def test_quantized_predictor_needs_a_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor(Config(**PTN), {}, quantize=True)
+
+
+FT = dict(model="frame", seq_len=3, frame_len=2, n_classes=19, cls=0,
+          precision="f32", dropout=0.0)
+# card against CPU and the port against JAX, int8 serving (chip_smoke.py's
+# QUANT_SCORE_ATOL): the flips above, through the ResNet-18 features and
+# four encoder layers
+FT_QUANT_TOL = dict(atol=4e-2, rtol=0)
+
+
+def test_quantized_frame_transformer_matches_jax():
+    """FrameTransformer's ``frame`` variant (no CLS inputs, so images of
+    32²; 3 scenes) behind the quantized Predictor: the default policy
+    quantizes the scene transformer's four qkv projections (896 → 2688),
+    in both packages; the scores within the int8 serving gate of JAX's,
+    and within it of the port's own full-precision scores."""
+    from devt_tpu_torch.models.frame_transformer import FrameTransformer
+    from devt_tpu_torch.utils.jax_bridge import state_dict_to_jax
+    from test_torch_frame_transformer import randomize
+
+    cfg = Config(**FT)
+    model = randomize(FrameTransformer(model="frame", seq_len=3,
+                                       frame_len=2, n_classes=19,
+                                       use_cls=False))
+    sd = model.state_dict()
+    req = {"img": np.random.default_rng(7).standard_normal(
+        (2, 3, 32, 32, 3)).astype(np.float32)}
+    want = JPredictor(JConfig(**FT), _np_tree(state_dict_to_jax(sd)),
+                      buckets=(2,), quantize=True).predict(req)["scores"]
+    quant = Predictor(cfg, sd, buckets=(2,), device="cpu", quantize=True)
+    assert len(quant._qsites) == 4
+    assert all(tuple(w_q.shape) == (896, 2688) for w_q, _ in quant._qsites)
+    got = quant.predict(req)["scores"]
+    np.testing.assert_allclose(got, want, **FT_QUANT_TOL)
+    full = Predictor(cfg, sd, buckets=(2,), device="cpu").predict(req)
+    np.testing.assert_allclose(got, full["scores"], **FT_QUANT_TOL)

@@ -291,9 +291,9 @@ def test_state_create_and_apply_gradients():
 
 def test_other_models_and_meshes_raise():
     (_, _, _), (tm, tcfg) = _pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.forward_and_loss(tm, TConfig(model="lstm"), {"params": {}},
-                                {}, None, train=False)
+    with pytest.raises(ValueError, match="no step logic"):
+        tsteps.forward_and_loss(tm, TConfig(model="resnet18"),
+                                {"params": {}}, {}, None, train=False)
     for make in (tts.make_train_step, tts.make_eval_step):
         with pytest.raises(NotImplementedError, match="mesh"):
             make(tm, tcfg, mesh=object(), device="cpu")
