@@ -11,13 +11,18 @@ function beside it; a wrapper takes the plain version only for tensors
 that lie on the CPU.
 
 Ported so far (see ROADMAP.md for what is not):
+  - :mod:`devt_tpu_torch.main`     — the entry point (``python -m
+                                     devt_tpu_torch.main``)
   - :mod:`devt_tpu_torch.config`   — own copy of the typed config
-  - :mod:`devt_tpu_torch.data`     — u8 wire dequantize, normalization constants
+  - :mod:`devt_tpu_torch.data`     — the embedding datasets' host pipeline,
+                                     the pinned placer, u8 wire dequantize
   - :mod:`devt_tpu_torch.ops`      — fused ViT block, forward and backward
                                      (CUDA, in-kernel dropout), attention
   - :mod:`devt_tpu_torch.models`   — ViViT, its transformer layers, losses
   - :mod:`devt_tpu_torch.serve`    — bucketed ``Predictor``
-  - :mod:`devt_tpu_torch.train`    — step logic, optimizers, ``TrainState``
+  - :mod:`devt_tpu_torch.train`    — step logic, optimizers, ``TrainState``,
+                                     the ``Trainer``, checkpoints, metrics
+                                     and callbacks
   - :mod:`devt_tpu_torch.parallel` — train/multi/eval step executors (one
                                      device)
   - :mod:`devt_tpu_torch.utils`    — JAX-variables ↔ ``state_dict`` bridge

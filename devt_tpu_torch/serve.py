@@ -19,7 +19,9 @@ softmax scores, from ``img`` and ``experts`` as the JAX predictor does;
 is quantized.  ``contrastive`` is an encoder, not a classifier, and is
 not served.  The predictor runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA device and no explicit device it raises.
-Data-parallel meshes, export and checkpoint loading are not ported yet.
+``from_checkpoint`` serves a checkpoint of ``train/checkpoint.py``.
+Data-parallel meshes, export and Lightning checkpoints are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -126,7 +128,14 @@ class Predictor:
     @classmethod
     def from_checkpoint(cls, config: Config, ckpt_path: str,
                         **kw) -> "Predictor":
-        raise _todo("Predictor.from_checkpoint (Orbax checkpoints)", item=4)
+        """Serve the weights of a checkpoint that ``train/checkpoint.py``
+        wrote (a ``step_<n>`` directory), read with
+        ``torch.load(weights_only=True)``."""
+        from devt_tpu_torch.train import checkpoint as ckpt_lib
+
+        payload = ckpt_lib.load(ckpt_path)
+        return cls(config, {**payload["params"], **payload["model_state"]},
+                   **kw)
 
     @classmethod
     def from_lightning_checkpoint(cls, config: Config, ckpt_path: str,

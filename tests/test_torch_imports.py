@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, no devt_tpu, its own config copy."""
+"""The port stands alone: no JAX, no devt_tpu, no scikit-learn or pandas
+(the card's machine has neither), its own config copy."""
 
 import ast
 import dataclasses
@@ -10,7 +11,7 @@ from devt_tpu import config as jconfig
 from devt_tpu_torch import config as tconfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "pandas")
 PORT_FILES = sorted((ROOT / "devt_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
@@ -68,7 +69,23 @@ def test_walk_covers_the_training_slice():
                 "devt_tpu_torch/models/lstm.py",
                 "devt_tpu_torch/models/basicmlp.py",
                 "devt_tpu_torch/models/collab_gating.py",
-                "devt_tpu_torch/models/pretrained.py"):
+                "devt_tpu_torch/models/pretrained.py",
+                # the harness, the entry point and the host data
+                "devt_tpu_torch/main.py",
+                "devt_tpu_torch/train/harness.py",
+                "devt_tpu_torch/train/checkpoint.py",
+                "devt_tpu_torch/train/metrics.py",
+                "devt_tpu_torch/train/callbacks.py",
+                "devt_tpu_torch/train/loggers.py",
+                "devt_tpu_torch/train/profiling.py",
+                "devt_tpu_torch/data/pipeline.py",
+                "devt_tpu_torch/data/manifests.py",
+                "devt_tpu_torch/data/samplers.py",
+                "devt_tpu_torch/data/synthetic.py",
+                "devt_tpu_torch/data/mmx_temporal.py",
+                "devt_tpu_torch/data/mit_temporal.py",
+                "devt_tpu_torch/data/contrastive.py",
+                "devt_tpu_torch/data/transforms.py"):
         assert rel in walked, rel
 
 
@@ -128,6 +145,7 @@ def test_step_executors_need_a_card_unless_the_cpu_is_asked_for():
 def test_forbidden_matcher():
     assert _forbidden("jax.numpy") and _forbidden("devt_tpu.ops")
     assert _forbidden("orbax.checkpoint") and _forbidden("devt_tpu")
+    assert _forbidden("sklearn.metrics") and _forbidden("pandas")
     assert not _forbidden("devt_tpu_torch.ops") and not _forbidden("torch")
 
 
