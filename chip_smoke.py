@@ -263,6 +263,24 @@ Phases, each printing a line of its own; any failure exits non-zero:
                their packed bodies; Predictor.from_checkpoint's scores on
                the test rows equal to the trained state's.  Rows 1-4 of
                the kernels line carry these launches (entry_launches).
+ 32. frame_entry — devt_tpu_torch.main at Config's defaults (FrameTransformer
+               vid, B=2, 13 scenes of 12 frames of 112², width 896, bf16,
+               f32 wire) on mmx-frame: a corpus of 8 trailers x 13 scenes
+               x 12 PNG frames of 240² written by the port's writer, its
+               CSV padded to the reference split's 6,047 training rows + 4
+               to validate and test; 8 steps, validation, checkpoint,
+               test.  The decoder it used (native where the host compiles
+               libjpeg's and libpng's headers, else PIL) asserted against a
+               probe of the host; kernels 3 and 4 counted by head dim (448
+               only); one batch's assembly timed apart through
+               getitem_into; the profiled window's host ms by span, device
+               ms and busy share, and the same again with the training
+               batches assembled beforehand.  With the native decoder, the u8 wire
+               too (run B: the first validation batch dequantized on the
+               card against run A's f32 one); ViViT on whole clips (run
+               C: kernels 1 and 2); with PIL, distil (run D: AutoAugment's
+               training images; kernels 3 and 4 at 448 and 224).  Rows
+               1-4's entry_launches include these runs.
 
 The last lines are a JSON line of the kernels (fifteen entries in kernel
 order, each with its number), the nvidia-smi line, and
@@ -4832,14 +4850,16 @@ def _worst_gap(a: dict, b: dict) -> tuple[float, str]:
     return gaps[worst], worst
 
 
-def _trace_window(path: str) -> dict:
+def _trace_window(path: str,
+                  groups: tuple = ("in_epoch", "epoch_first")) -> dict:
     """The harness's profiled window, from its torch.profiler Chrome
     trace: device time (kernels, copies) and the window's wall span, in
     ms; and the host's time between one train step's launches and the
     next's, split by the harness's spans (``train/...``: the wait for a
     batch, the step's launches, the loss readback, an epoch's start) with
     the rest as ``other``, averaged apart over the intervals within an
-    epoch and those that open one (they hold ``train/first_batch``)."""
+    epoch and those that open one (they hold ``train/first_batch``); each
+    of ``groups`` must have one."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     timed = [e for e in events if "ts" in e and "dur" in e]
@@ -4853,7 +4873,7 @@ def _trace_window(path: str) -> dict:
                    for e in timed if e.get("cat") == "user_annotation"
                    and e["name"].startswith("train/"))
     starts = [ts for ts, _, name in spans if name == "train/step"]
-    groups: dict = {"in_epoch": [], "epoch_first": []}
+    by_group: dict = {"in_epoch": [], "epoch_first": []}
     for a, b in zip(starts, starts[1:]):
         row = {"interval": (b - a) / 1e3}
         for ts, dur, name in spans:
@@ -4862,12 +4882,14 @@ def _trace_window(path: str) -> dict:
                 row[key] = row.get(key, 0.0) + dur
         row["other"] = row["interval"] - sum(
             v for k, v in row.items() if k != "interval")
-        groups["epoch_first" if "first_batch" in row
-               else "in_epoch"].append(row)
+        by_group["epoch_first" if "first_batch" in row
+                 else "in_epoch"].append(row)
     means = {}
-    for group, rows in groups.items():
+    for group, rows in by_group.items():
         if not rows:
-            raise AssertionError(f"entry: no {group} interval in {path}")
+            if group in groups:
+                raise AssertionError(f"entry: no {group} interval in {path}")
+            continue
         keys = sorted({k for r in rows for k in r})
         means[group] = {k: sum(r.get(k, 0.0) for r in rows) / len(rows)
                         for k in keys}
@@ -5106,6 +5128,289 @@ def phase_entry() -> dict:
             "k4_packed": bodies_ptn["k4_packed"]}
 
 
+# Phase 32: main at Config's defaults on mmx-frame.  The corpus has
+# FRAME_MOVIES trailers of FT_SEQ scenes of FT_FRAMES PNG frames of
+# FRAME_SIZE², its CSV rows cycled to the reference split's 6,047 training
+# rows and FRAME_VAL_ROWS more, which validate and test.
+FRAME_MOVIES, FRAME_SIZE, FRAME_VAL_ROWS, FRAME_TRAIN_ROWS = 8, 240, 4, 6047
+FRAME_STEPS, FRAME_SHORT_STEPS, VIVIT_DEPTH = 8, 4, 4
+
+
+def _decoder_probe() -> tuple:
+    """What this host can decode frames with, found as its toolchain
+    says: "native" when g++ compiles libjpeg's and libpng's headers, else
+    "pil" when Pillow imports, else None; and what was found."""
+    import importlib.util
+    import shutil
+
+    cxx = shutil.which("g++")
+    if cxx is None:
+        headers, found = False, "no g++"
+    else:
+        proc = subprocess.run(
+            [cxx, "-fsyntax-only", "-x", "c++", "-"],
+            input="#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n",
+            capture_output=True, text=True, timeout=60)
+        headers = proc.returncode == 0
+        found = ("g++ compiles jpeglib.h and png.h" if headers else
+                 "g++: " + (proc.stderr.strip().splitlines() or ["?"])[0])
+    pil = importlib.util.find_spec("PIL") is not None
+    if pil:
+        import PIL
+        found += f"; Pillow {PIL.__version__}"
+    else:
+        found += "; no Pillow"
+    return ("native" if headers else "pil" if pil else None), found
+
+
+def _frame_corpus(root: str) -> str:
+    import csv
+    import os
+
+    from devt_tpu_torch.data.synthetic import write_fake_light_csv
+
+    os.makedirs(root, exist_ok=True)
+    path = write_fake_light_csv(root, n_movies=FRAME_MOVIES,
+                                scenes_per_movie=FT_SEQ,
+                                frames_per_scene=FT_FRAMES, size=FRAME_SIZE,
+                                seed=SEED)
+    with open(path) as f:
+        rows = list(csv.reader(f))[1:]
+    with open(path, "a", newline="") as f:
+        w = csv.writer(f)
+        for i in range(len(rows), FRAME_TRAIN_ROWS + FRAME_VAL_ROWS):
+            w.writerow(rows[i % len(rows)])
+    return path
+
+
+def _frame_args(path: str, name: str, **extra) -> list:
+    """main's arguments: Config's defaults but the dataset's path, the 19
+    genres, the steps and where the run writes."""
+    args = {"data_set": "mmx-frame", "csv_manifest": path,
+            "n_classes": FT_CLASSES, "max_steps": FRAME_STEPS, "epochs": 1,
+            "log_every": 2, "checkpoint_dir": f"ck_{name}",
+            "save_path": "out", "name": name, "seed": SEED, **extra}
+    return [t for k, v in args.items() for t in (f"--{k}", str(v))]
+
+
+def _frame_run(entry, path: str, name: str, **extra) -> dict:
+    """One main() run: its results, launches, launches of kernels 3 and 4
+    by head dim, bodies, wall s; the metrics and checkpoint checked."""
+    import os
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _HeadDims() as dims:
+        results = entry.main(_frame_args(path, name, **extra))
+    run = {"results": results, "s": time.perf_counter() - t0,
+           "counts": _kernel_counts(), "bodies": _body_counts(),
+           "by_dim": {part: dims.by_dim(part) for part in ("fwd", "bwd")}}
+    steps = int(extra.get("max_steps", FRAME_STEPS))
+    with open(os.path.join("runs", name, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    train = [r for r in records if "train/loss" in r]
+    if not math.isfinite(results["test/loss"]) or len(train) != steps // 2 \
+            or not any("val/loss" in r for r in records) \
+            or not os.path.isdir(os.path.join(f"ck_{name}",
+                                              f"step_{steps}")):
+        raise AssertionError(f"frame {name}: test {results}, {len(train)} "
+                             f"train records, checkpoints "
+                             f"{os.listdir(f'ck_{name}')}")
+    return run
+
+
+def _frame_batch(entry, path: str, state: str, **extra) -> tuple:
+    """One batch assembled on this thread through the dataset's
+    getitem_into (the Loader's fill-into path): the batch and its ms."""
+    import numpy as np
+
+    from devt_tpu_torch.data.mmx_frame import MMXLightDataModule
+
+    cfg = entry.parse_args(_frame_args(path, "timed", **extra))
+    dm = MMXLightDataModule(path, cfg).setup()
+    ds = (dm.train_batches() if state == "train"
+          else dm.val_batches()).dataset
+    out = {k: np.empty((cfg.batch_size,) + tuple(shape), dtype)
+           for k, (shape, dtype) in ds.item_spec.items()}
+    t0 = time.perf_counter()
+    for j in range(cfg.batch_size):
+        ds.getitem_into(j, {k: v[j] for k, v in out.items()})
+    return out, (time.perf_counter() - t0) * 1e3, ds
+
+
+def phase_frame_entry() -> dict:
+    """``devt_tpu_torch.main`` at Config's defaults (FrameTransformer vid
+    on mmx-frame) reading PNG frames through the port's frame pipeline;
+    then the u8 wire (native decoder only), ViViT on whole clips, and
+    distil's AutoAugment-ed images (PIL only)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch import main as entry
+    from devt_tpu_torch.data import native
+    from devt_tpu_torch.data.device_norm import maybe_dequantize_batch
+
+    t_phase = time.perf_counter()
+    expected, found = _decoder_probe()
+    cwd = os.getcwd()
+    tmp = tempfile.TemporaryDirectory()
+    os.chdir(tmp.name)
+    try:
+        t0 = time.perf_counter()
+        path = _frame_corpus("corpus")
+        corpus_s = time.perf_counter() - t0
+        batch_a, assembly_ms, ds = _frame_batch(entry, path, "train")
+        used = "native" if ds.packer.native is not None else "pil"
+        print(f"[frame] decoder {used}; the host's probe: {found}; the "
+              f"native decoder: {native.unavailable_reason() or 'built'}",
+              flush=True)
+        if used != expected:
+            raise AssertionError(f"frame: decoded with {used}, the probe "
+                                 f"found {expected} ({found})")
+
+        # run A: Config's defaults, 8 steps, validation, checkpoint, test
+        run_a = _frame_run(entry, path, "vid_a", profile_dir="prof")
+        fwd = FT_LAYERS * (FRAME_STEPS + 2 * FRAME_VAL_ROWS
+                           // FT_TRAIN_BATCH)
+        bwd = FT_LAYERS * FRAME_STEPS
+        if run_a["counts"] != _expect(k3=fwd, k4=bwd) or run_a["by_dim"] != {
+                "fwd": {224: 0, 448: fwd}, "bwd": {224: 0, 448: bwd}}:
+            raise AssertionError(f"frame vid: launches {run_a['counts']}, "
+                                 f"by head dim {run_a['by_dim']}, expected "
+                                 f"{fwd} and {bwd} at 448")
+        trace = _trace_window(os.path.join("prof", "trace.json"),
+                              groups=("in_epoch",))
+        if trace["steps"] != 6:
+            raise AssertionError(f"frame vid: {trace['steps']} steps in the "
+                                 f"profiled window")
+        steps_w = trace["steps"]
+        busy = (trace["kernel_ms"] + trace["copy_ms"]) / trace["span_ms"]
+        print(f"[frame] vid through devt_tpu_torch.main at Config's defaults "
+              f"(B={FT_TRAIN_BATCH}, {FT_SEQ} scenes x {FT_FRAMES} x 112², "
+              f"width 896, bf16, f32 wire) on mmx-frame ({FRAME_MOVIES} "
+              f"trailers of {FT_SEQ} scenes x {FT_FRAMES} PNGs of "
+              f"{FRAME_SIZE}², written in {corpus_s:.1f} s): "
+              f"{FRAME_STEPS} steps, validation, checkpoint and test in "
+              f"{run_a['s']:.1f} s, test loss "
+              f"{run_a['results']['test/loss']:.5f}; launches kernel 3 "
+              f"{run_a['counts']['k3']}, kernel 4 {run_a['counts']['k4']}, "
+              f"all at head dim 448 | one batch's assembly through "
+              f"getitem_into on one thread ({used}) {assembly_ms:.3f} ms | "
+              f"profiled window (train steps 3-8), host ms from one step's "
+              f"launches to the next's: {_split_text(trace['in_epoch'])} | "
+              f"device kernels {trace['kernel_ms'] / steps_w:.3f} ms a step, "
+              f"copies {trace['copy_ms'] / steps_w:.3f} ms a step, "
+              f"{busy:.1%} of the window's {trace['span_ms']:.1f} ms busy",
+              flush=True)
+        # run A again on its training batches assembled beforehand: the
+        # steps' launches with no assembly thread beside them
+        from devt_tpu_torch.data import mmx_frame
+
+        real = mmx_frame.MMXLightDataModule.train_batches
+        mmx_frame.MMXLightDataModule.train_batches = \
+            lambda self: [batch_a] * FRAME_STEPS
+        try:
+            run_held = _frame_run(entry, path, "vid_held",
+                                  profile_dir="prof_held")
+        finally:
+            mmx_frame.MMXLightDataModule.train_batches = real
+        if run_held["counts"] != run_a["counts"]:
+            raise AssertionError(f"frame vid, batches assembled beforehand: "
+                                 f"launches {run_held['counts']}")
+        held = _trace_window(os.path.join("prof_held", "trace.json"),
+                             groups=("in_epoch",))
+        held_busy = (held["kernel_ms"] + held["copy_ms"]) / held["span_ms"]
+        print(f"[frame] the same 8 steps on one batch assembled beforehand "
+              f"(no assembly thread running): host ms from one step's "
+              f"launches to the next's {_split_text(held['in_epoch'])} | "
+              f"device kernels {held['kernel_ms'] / held['steps']:.3f} ms a "
+              f"step, {held_busy:.1%} of the window's "
+              f"{held['span_ms']:.1f} ms busy", flush=True)
+        runs = [run_a, run_held]
+
+        if used == "native":
+            # run B: the u8 wire; its first validation batch, dequantized
+            # on the card, against run A's f32 one
+            run_b = _frame_run(entry, path, "vid_b", wire_format="u8")
+            if run_b["counts"] != run_a["counts"] \
+                    or run_b["by_dim"] != run_a["by_dim"]:
+                raise AssertionError(f"frame u8: launches {run_b['counts']}")
+            f32 = _frame_batch(entry, path, "val")[0]["vid"]
+            u8 = _frame_batch(entry, path, "val", wire_format="u8")[0]["vid"]
+            got = maybe_dequantize_batch(
+                {"vid": torch.from_numpy(u8).cuda()},
+                dtype=torch.bfloat16)["vid"].float()
+            want = torch.from_numpy(f32).cuda()
+            # bf16: the f32 batch rounds once (half an ulp), the dequantize
+            # rounds the scale, the product and the sum: 4 ulps of the
+            # largest element
+            bound = 4 * 2.0 ** -8 * want.abs().max().item()
+            gap = (got - want).abs().max().item()
+            if u8.dtype != np.uint8 or not gap <= bound:
+                raise AssertionError(f"frame u8: {gap:.3e} from the f32 "
+                                     f"batch, bound {bound:.3e}")
+            print(f"[frame] u8 wire: launches as run A; the first validation "
+                  f"batch dequantized on the card within {gap:.3e} of the "
+                  f"f32 one (bound {bound:.3e}), test loss "
+                  f"{run_b['results']['test/loss']:.5f}", flush=True)
+            runs.append(run_b)
+
+        # run C: ViViT on whole clips of 16 frames of 224²
+        wire = "u8_tokens" if used == "native" else "f32"
+        run_c = _frame_run(entry, path, "vivit_c", model="vivit",
+                           frame_len=16, max_steps=FRAME_SHORT_STEPS,
+                           wire_format=wire)
+        k1 = VIVIT_DEPTH * (FRAME_SHORT_STEPS + 2 * FRAME_VAL_ROWS
+                            // FT_TRAIN_BATCH)
+        k2 = VIVIT_DEPTH * FRAME_SHORT_STEPS
+        if run_c["counts"] != _expect(k1=k1, k2=k2) \
+                or run_c["bodies"]["k1_wgmma"] != k1 \
+                or run_c["bodies"]["k2_wgmma"] != k2:
+            raise AssertionError(f"frame vivit: launches {run_c['counts']}, "
+                                 f"bodies {run_c['bodies']}")
+        print(f"[frame] ViViT on whole clips (16 x 224², {wire} wire): "
+              f"{FRAME_SHORT_STEPS} steps in {run_c['s']:.1f} s, test loss "
+              f"{run_c['results']['test/loss']:.5f}; launches kernel 1 {k1}, "
+              f"kernel 2 {k2}, all on the wgmma bodies", flush=True)
+        runs.append(run_c)
+
+        if expected == "pil":
+            # run D: distil, its training images through AutoAugment
+            run_d = _frame_run(entry, path, "distil_d", model="distil",
+                               max_steps=FRAME_SHORT_STEPS)
+            fwd = FT_LAYERS * (FRAME_SHORT_STEPS + 2 * FRAME_VAL_ROWS
+                               // FT_TRAIN_BATCH)
+            bwd = FT_LAYERS * FRAME_SHORT_STEPS
+            if run_d["counts"] != _expect(k3=2 * fwd, k4=2 * bwd) \
+                    or run_d["by_dim"] != {"fwd": {224: fwd, 448: fwd},
+                                           "bwd": {224: bwd, 448: bwd}}:
+                raise AssertionError(f"frame distil: launches "
+                                     f"{run_d['counts']}, by head dim "
+                                     f"{run_d['by_dim']}")
+            print(f"[frame] distil (training images through PIL's "
+                  f"AutoAugment): {FRAME_SHORT_STEPS} steps in "
+                  f"{run_d['s']:.1f} s, test loss "
+                  f"{run_d['results']['test/loss']:.5f}; launches kernel 3 "
+                  f"{fwd} at 448 and {fwd} at 224, kernel 4 {bwd} at each",
+                  flush=True)
+            runs.append(run_d)
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[frame] phase 32 in {phase_s:.1f} s", flush=True)
+    return {"counts": _add_counts(*(r["counts"] for r in runs)),
+            "by_dim": {part: {d: sum(r["by_dim"][part][d] for r in runs)
+                              for d in (224, 448)}
+                       for part in ("fwd", "bwd")},
+            "decoder": used, "assembly_ms": assembly_ms, "trace": trace,
+            "busy": busy, "held": held, "held_busy": held_busy,
+            "phase_s": phase_s}
+
+
 def main() -> int:
     import torch
 
@@ -5223,11 +5528,14 @@ def main() -> int:
     phase_family_rest()
     # the entry point: the harness, checkpoints and resume, the host data
     entry_run = phase_entry()
+    # the entry point at its defaults: the frame pipeline
+    frame_run = phase_frame_entry()
     # the MoE and the later model paths' launches of the earlier kernels
     later_runs = (serve_moe["counts"], serve_moe["int8_counts"],
                   train_moe["counts"], train_moe["drop_counts"],
                   *int8_unfused["counts"], serve_ft["counts"],
-                  train_ft["counts"], entry_run["counts"])
+                  train_ft["counts"], entry_run["counts"],
+                  frame_run["counts"])
 
     def later(k):
         return sum(c[k] for c in later_runs)
@@ -5257,7 +5565,8 @@ def main() -> int:
                                      "bound_by", "library_ms")}
             row.update(shape=shape, heads=m["heads"], d=m["d"],
                        ms=r["kernel_ms"], sdpa_backends=m["sdpa_backends"],
-                       launches=train_ft["by_dim"][part][m["d"]] + (
+                       launches=train_ft["by_dim"][part][m["d"]]
+                       + frame_run["by_dim"][part][m["d"]] + (
                            serve if part == "fwd" else 0))
             if part == "fwd":
                 row["serve_bucket"] = {k: m["fwd"][FT_BUCKET][k] for k in (
@@ -5276,7 +5585,8 @@ def main() -> int:
               "devt_tpu/ops/fused_block.py:177",
               serve["launches"] + train["fwd_launches"] + later("k1"),
               {**fwd, "max_abs_err": max(fwd["max_abs_err"].values())},
-              entry_launches=entry_run["counts"]["k1"],
+              entry_launches=entry_run["counts"]["k1"]
+              + frame_run["counts"]["k1"],
               launch_sources=[csrc + "fused_block_fwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "flash_fwd_sm90.cuh"]),
@@ -5285,7 +5595,8 @@ def main() -> int:
         entry(2, "fused_vit_block_bwd", csrc + "block_sm90.cuh",
               "devt_tpu/ops/fused_block.py:240",
               train["bwd_launches"] + later("k2"), bwd,
-              entry_launches=entry_run["counts"]["k2"],
+              entry_launches=entry_run["counts"]["k2"]
+              + frame_run["counts"]["k2"],
               launch_sources=[csrc + "fused_block_bwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "block_bwd_parts.cuh",
@@ -5296,7 +5607,8 @@ def main() -> int:
         entry(3, "fused_mha", csrc + "mha_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:558",
               ptn["mha_launches"] + train_ptn["fwd_launches"] + later("k3"),
-              mha, entry_launches=entry_run["counts"]["k3"],
+              mha, entry_launches=entry_run["counts"]["k3"]
+              + frame_run["counts"]["k3"],
               launch_sources=[csrc + "mha_fwd.cu",
                                    csrc + "mha_fwd_sm90.cuh",
                                    csrc + "flash_fwd_sm90.cuh",
@@ -5316,7 +5628,8 @@ def main() -> int:
                       - train_ptn["k4_packed"] - entry_run["k4_packed"]
                       - train_moe["k4_wgmma"] - int8_unfused["k4_wgmma"]},
               drop_ms=mha_bwd["bwd_drop_ms"],
-              entry_launches=entry_run["counts"]["k4"],
+              entry_launches=entry_run["counts"]["k4"]
+              + frame_run["counts"]["k4"],
               vit={k: mha_bwd_vit[k] for k in (
                   "kernel_ms", "bwd_drop_ms", "plain_ms", "library_ms",
                   "bound_ms", "bound_by", "max_abs_err",

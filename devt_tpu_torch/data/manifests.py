@@ -10,6 +10,9 @@ The JAX package holds the records in a pandas DataFrame; the port holds
 them in a :class:`Table`, a list of record dicts with the few column
 operations the datasets use, and imports no pandas.
 
+The CSV corpus of the frame pipeline (``out.csv``) is read with the
+standard library's :mod:`csv` into the same :class:`Table`.
+
 Tensor payloads are ``.npy`` (numpy) or the reference's torch ``.pt``
 files, read with ``torch.load(weights_only=True)``: tensors only, never
 pickled code.
@@ -121,6 +124,30 @@ def clean_mmx_temporal(table: Table, target_names: Sequence[str],
             continue
         keep.append(i)
     return table.take(keep)
+
+
+def load_csv_manifest(path: str, shuffle_seed: int | None = 1130,
+                      train_rows: int = 6047, val_rows: int = 653
+                      ) -> tuple[Table, Table]:
+    """CSV corpus (``out.csv`` with img_root + g1..g6 genre columns) with
+    the reference's shuffle and fixed train/val split
+    (MMX_Light_dl.py:133-141), read with :mod:`csv`.
+
+    An empty cell is missing (None), as pandas reads it NaN; every other
+    cell stays a string.  The shuffle is pandas' ``df.sample(frac=1.0,
+    random_state=shuffle_seed)``: ``RandomState(shuffle_seed)``'s
+    permutation of the rows; ``shuffle_seed=None`` keeps file order."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = [{k: (v if v != "" else None) for k, v in r.items()}
+                for r in csv.DictReader(f)]
+    order = (np.random.RandomState(shuffle_seed).permutation(len(rows))
+             if shuffle_seed is not None else np.arange(len(rows)))
+    table = Table(rows[i] for i in order)
+    return (table.head(train_rows),
+            table.take(range(train_rows,
+                             min(train_rows + val_rows, len(table)))))
 
 
 def load_moments_categories(path: str | None = None) -> dict[str, int]:

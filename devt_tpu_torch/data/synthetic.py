@@ -1,20 +1,26 @@
-"""Synthetic data: port of the embedding half of ``devt_tpu/data/synthetic.py``.
+"""Synthetic data: port of ``devt_tpu/data/synthetic.py``.
 
 Deterministic, reference-shaped batches for every model family
-(``SyntheticDataModule`` on ``registry.example_batch``), and the fake MMX
-and MIT expert corpora (``.npy`` tensors and streamed-pickle manifests).
-The frame, CSV and AVI writers are not ported yet (ROADMAP.md queue 1,
-item 10).
+(``SyntheticDataModule`` on ``registry.example_batch``), the fake MMX and
+MIT expert corpora (``.npy`` tensors and streamed-pickle manifests), and
+the fake frame corpora: PNG frame trees, the light corpus with its
+``out.csv``, and an MJPEG AVI.  The pixels are the JAX package's writers'
+draws from the same seed.  PNGs are written by :func:`write_png` (zlib and
+struct from the standard library), so a host without Pillow writes them
+too; the AVI's JPEG frames need PIL.
 """
 
 from __future__ import annotations
 
+import csv
 import os
+import struct
+import zlib
 from collections import OrderedDict
 
 import numpy as np
 
-from devt_tpu_torch.config import MMX_GENRES_15, Config
+from devt_tpu_torch.config import MMX_GENRES_15, MMX_GENRES_19, Config
 from devt_tpu_torch.data.manifests import (append_pickle,
                                            load_moments_categories)
 from devt_tpu_torch.registry import example_batch
@@ -121,3 +127,121 @@ def write_fake_mit_corpus(root: str, n_videos: int = 12,
     make(train, 0, n_videos)
     make(val, n_videos, max(n_videos // 2, 2))
     return train, val
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG of ``rgb`` (H, W, 3) uint8: one IDAT of the rows,
+    each with filter 0, deflated at zlib's level 6 (PIL's default).  Any
+    PNG decoder reads back exactly these pixels."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"write_png takes (H, W, 3) uint8, not {rgb.shape}")
+    h, w, _ = rgb.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)
+    raw[:, 1:] = rgb.reshape(h, 3 * w)
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def write_fake_frame_corpus(root: str, n_movies: int = 3,
+                            scenes_per_movie: int = 4,
+                            frames_per_scene: int = 12,
+                            size: int = 64, seed: int = 0) -> str:
+    """Directory tree of PNG frames in the reference corpus' layout
+    (``<genre>/<movie>/<scene>/imgs/frame-*.png``,
+    src/data_processing/temporal/create_mmx_frames.py:86-95), for pipeline
+    tests without real data."""
+    rng = np.random.default_rng(seed)
+    genres = ["Action", "Comedy", "Drama"]
+    for m in range(n_movies):
+        genre = genres[m % len(genres)]
+        for s in range(scenes_per_movie):
+            d = os.path.join(root, genre, f"movie{m}", f"scene{s:03d}",
+                             "imgs")
+            os.makedirs(d, exist_ok=True)
+            for f in range(frames_per_scene):
+                arr = rng.integers(0, 255, (size, size, 3), dtype=np.uint8)
+                write_png(os.path.join(d, f"frame-{f:04d}.png"), arr)
+    return root
+
+
+def write_fake_light_csv(root: str, n_movies: int = 4,
+                         scenes_per_movie: int = 3,
+                         frames_per_scene: int = 6,
+                         size: int = 64, seed: int = 0) -> str:
+    """Frame corpus + the ``out.csv`` (img_root, g1..g6) the MMX light
+    loader reads (MMX_Light_dl.py:133-141,254-264), in the light corpus'
+    layout: ``<img_root>/<scene>/<frame>.png``.  Each trailer has two
+    genres and four empty genre cells."""
+    rng = np.random.default_rng(seed)
+    csv_path = os.path.join(root, "out.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["img_root"] + [f"g{i}" for i in range(1, 7)])
+        for m in range(n_movies):
+            movie_root = os.path.join(root, "light", f"movie{m}")
+            for s in range(scenes_per_movie):
+                d = os.path.join(movie_root, f"scene{s:03d}")
+                os.makedirs(d, exist_ok=True)
+                for fi in range(frames_per_scene):
+                    arr = rng.integers(0, 255, (size, size, 3),
+                                       dtype=np.uint8)
+                    write_png(os.path.join(d, f"frame-{fi:04d}.png"), arr)
+            gs = [MMX_GENRES_19[rng.integers(len(MMX_GENRES_19))]
+                  for _ in range(2)] + [""] * 4
+            w.writerow([movie_root] + gs)
+    return csv_path
+
+
+def write_fake_mjpeg_avi(path: str, n_shots: int = 3,
+                         frames_per_shot: int = 16, size: int = 96,
+                         seed: int = 0) -> str:
+    """Minimal MJPG-in-AVI fixture: ``n_shots`` visually distinct shots of
+    ``frames_per_shot`` JPEG frames each (the mp4 fixture the reference's
+    test lacks, src/tests/test_transforms.py:11-21), decodable by the
+    native MJPEG path.  The JPEG frames are PIL's (quality 85)."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    jpegs = []
+    for s in range(n_shots):
+        base = rng.integers(0, 255, (3,))
+        for f in range(frames_per_shot):
+            arr = np.clip(base[None, None]
+                          + rng.normal(0, 12, (size, size, 3)), 0,
+                          255).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, format="JPEG", quality=85)
+            jpegs.append(buf.getvalue())
+
+    def chunk(fourcc: bytes, payload: bytes) -> bytes:
+        pad = b"\0" if len(payload) % 2 else b""
+        return fourcc + struct.pack("<I", len(payload)) + payload + pad
+
+    def lst(subtype: bytes, payload: bytes) -> bytes:
+        return chunk(b"LIST", subtype + payload)
+
+    n = len(jpegs)
+    avih = struct.pack("<14I", 66666, 0, 0, 0x10, n, 0, 1, 0, size, size,
+                       0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"MJPG", 0, 0, 0,
+                       0, 1, 15, 0, n, 0, 0xFFFFFFFF, 0, 0, 0, size, size)
+    strf = struct.pack("<IiiHH4sIiiII", 40, size, size, 1, 24, b"MJPG",
+                       size * size * 3, 0, 0, 0, 0)
+    hdrl = lst(b"hdrl", chunk(b"avih", avih)
+               + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
+    movi = lst(b"movi", b"".join(chunk(b"00dc", j) for j in jpegs))
+    body = b"AVI " + hdrl + movi
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+    return path

@@ -12,9 +12,11 @@ Usage, on a CUDA card:
     python -m devt_tpu_torch.main [--config config.yaml] [--key value ...]
 
 ``--config`` needs PyYAML; the overrides alone need nothing beyond the
-port's own dependencies.  Datasets: ``synthetic``, ``mmx``, ``mit``,
-``mmx-contrastive`` and ``mit-contrastive``.  ``mmx-frame`` and meshes
-(``dp`` or ``mp`` > 1) are not ported yet.  ``main(argv, device="cpu")``
+port's own dependencies.  Datasets: ``mmx-frame`` (the default: PNG
+frames listed by the CSV at ``--csv_manifest``, decoded by the native
+decoder where it builds, else by Pillow), ``synthetic``, ``mmx``,
+``mit``, ``mmx-contrastive`` and ``mit-contrastive``.  Meshes (``dp``
+or ``mp`` > 1) are not ported yet.  ``main(argv, device="cpu")``
 runs on the CPU (the tests do); otherwise it needs a card.
 """
 
@@ -46,9 +48,8 @@ def build_datamodule(config: Config):
         return MMXDataModule(config.train_manifest, config.val_manifest,
                              config)
     if ds == "mmx-frame":
-        raise NotImplementedError(
-            "the mmx-frame dataset (data/mmx_frame.py and the PIL "
-            "transforms) is not ported yet — ROADMAP.md queue 1, item 10")
+        from devt_tpu_torch.data.mmx_frame import MMXLightDataModule
+        return MMXLightDataModule(config.csv_manifest, config)
     if ds in ("mmx-contrastive", "mit-contrastive"):
         from devt_tpu_torch.data.contrastive import ContrastiveDataModule
         return ContrastiveDataModule(config.train_manifest,

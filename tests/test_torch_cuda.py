@@ -2793,3 +2793,31 @@ def test_pinned_placer_tensors_equal_the_host_batch(card):
     for got, want in zip(placed, batches):
         for k in got:
             np.testing.assert_array_equal(got[k].numpy(), want[k])
+
+
+@pytest.mark.cuda
+def test_native_decoder_builds_on_the_cards_host(card, tmp_path):
+    """The port's native loader builds on the card's host and decodes a
+    PNG the port wrote, then normalizes it on the card
+    (``data/device_norm.py``) to what the f32 decode gives.  A host whose
+    toolchain cannot build it (no libjpeg or libpng headers) skips with
+    the compiler's message: the frame pipeline decodes with PIL there."""
+    from devt_tpu_torch.data import native, transforms
+    from devt_tpu_torch.data.device_norm import dequantize
+    from devt_tpu_torch.data.synthetic import write_png
+
+    if not native.available():
+        pytest.skip(f"the native decoder does not build here: "
+                    f"{native.unavailable_reason()}")
+    rgb = np.random.default_rng(0).integers(0, 256, (130, 150, 3),
+                                            dtype=np.uint8)
+    path = str(tmp_path / "frame.png")
+    write_png(path, rgb)
+    assert native.image_dims(path) == (150, 130)
+    u8, status = native.load_batch_u8([path], 120, 112)
+    f32, _ = native.load_batch_f32([path], 120, 112, transforms.KINETICS_MEAN,
+                                   transforms.KINETICS_STD)
+    assert status.tolist() == [0] and u8.shape == (1, 112, 112, 3)
+    got = dequantize(torch.from_numpy(u8).cuda(), transforms.KINETICS_MEAN,
+                     transforms.KINETICS_STD, dtype=torch.float32)
+    np.testing.assert_allclose(got.cpu().numpy(), f32, atol=1e-5, rtol=1e-5)

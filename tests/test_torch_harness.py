@@ -12,8 +12,8 @@
     snapshot, a write that fails;
   * a non-finite loss raises ``FloatingPointError`` and the pending
     checkpoint write is awaited;
-  * ``main()`` on ``synthetic``, ``mmx`` and ``mmx-contrastive``, and its
-    refusals (``mmx-frame``, a mesh);
+  * ``main()`` on ``synthetic``, ``mmx`` and ``mmx-contrastive``, its
+    refusals (a mesh), and ``mmx-frame``'s datamodule;
   * ``Predictor.from_checkpoint`` against JAX's on the same weights.
 """
 
@@ -373,8 +373,13 @@ def test_main_on_the_embedding_datasets(tmp_path, monkeypatch):
 
 def test_main_and_trainer_refusals(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmain.main(["--data_set", "mmx-frame"], device="cpu")
+    # mmx-frame is ported: the CSV frame corpus' datamodule, as JAX's
+    from devt_tpu_torch.data.mmx_frame import MMXLightDataModule
+
+    dm = tmain.build_datamodule(tmain.parse_args(
+        ["--data_set", "mmx-frame", "--csv_manifest", "corpus/out.csv"]))
+    assert isinstance(dm, MMXLightDataModule)
+    assert dm.csv_path == "corpus/out.csv"
     for flag in ("--dp", "--mp"):
         with pytest.raises(NotImplementedError, match="item 7"):
             tmain.main(TINY_MAIN + ["--data_set", "synthetic", flag, "2"],

@@ -85,8 +85,51 @@ def test_walk_covers_the_training_slice():
                 "devt_tpu_torch/data/mmx_temporal.py",
                 "devt_tpu_torch/data/mit_temporal.py",
                 "devt_tpu_torch/data/contrastive.py",
-                "devt_tpu_torch/data/transforms.py"):
+                "devt_tpu_torch/data/transforms.py",
+                # the frame pipeline
+                "devt_tpu_torch/data/mmx_frame.py",
+                "devt_tpu_torch/data/native.py",
+                "devt_tpu_torch/data/loader_adapter.py"):
         assert rel in walked, rel
+    assert "pandas" in FORBIDDEN
+
+
+def test_port_imports_and_builds_a_vid_dataset_without_pil(tmp_path):
+    """With PIL unimportable, the package, ``main`` and the frame datasets
+    import, and a ``vid`` dataset builds (its clips decode natively);
+    a model that reads images refuses at construction, naming Pillow."""
+    import subprocess
+    import sys
+    import textwrap
+
+    (tmp_path / "out.csv").write_text("img_root,g1,g2,g3,g4,g5,g6\n"
+                                      "/nowhere,Drama,,,,,\n")
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["PIL"] = None
+        import devt_tpu_torch, devt_tpu_torch.main
+        from devt_tpu_torch.config import Config
+        from devt_tpu_torch.data import manifests, mmx_frame
+        table, _ = manifests.load_csv_manifest({str(tmp_path / "out.csv")!r},
+                                               train_rows=1)
+        ds = mmx_frame.MMXLightDataset(table, Config(model="vid"), "val")
+        assert len(ds) == 1 and ds[0]["vid"].shape == (13, 12, 112, 112, 3)
+        try:
+            mmx_frame.MMXLightDataset(table, Config(model="distil"))
+        except ImportError as e:
+            assert "Pillow" in str(e)
+        else:
+            raise AssertionError("distil built without PIL")
+        assert not any(m == "PIL" or m.startswith("PIL.")
+                       for m, v in sys.modules.items() if v is not None)
+        assert not any(m.split(".")[0] in ("devt_tpu", "pandas")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
+        proc.stdout + proc.stderr
 
 
 def test_kernel_sources_build_alone_with_a_plain_c_interface():
