@@ -281,6 +281,30 @@ Phases, each printing a line of its own; any failure exits non-zero:
                C: kernels 1 and 2); with PIL, distil (run D: AutoAugment's
                training images; kernels 3 and 4 at 448 and 224).  Rows
                1-4's entry_launches include these runs.
+ 33. export — Predictor.export and load_exported at full width: ViViT
+               bf16 on the u8 wire at bucket 8, the same quantized, PTN
+               (phase 12's width, 256 rows) bf16 and quantized, MoE-ViViT
+               at bucket 8, ViViT at image 384 and the quantized ViViT at
+               token_pad 0 (bucket 8; the registry builds neither width,
+               so the predictor is handed the model); each program
+               loaded on the card serves the live predictor's scores
+               through the launches the live forward makes, and every
+               one of the seven forward ops (kernels 1, 3, 5, 6, 7, 9,
+               11) launches from a program; the ViViT program loaded on
+               the CPU against the card; export seconds, program MiB, ms
+               a call live and loaded.  Rows 1, 3, 5, 6, 7, 9 and 11 carry
+               these launches (artifact_launches).
+ 34. remat — the ViViT training step of phase 7 (B=32, bf16) and PTN's of
+               phase 14 (B=32, width 2048) with and without remat, at
+               dropout 0 and 0.1: equal loss, gradients within phase 7's
+               bound, the recompute's launches (kernel 1 twice a block,
+               kernel 3 twice a layer), the peak device memory of each
+               (remat's lower) and device ms a step.
+ 35. lightning — reference-shaped Lightning checkpoints
+               (data/synthetic.py: write_fake_lightning_checkpoint) at full
+               width, FrameTransformer vid and PTN at phase 12's width,
+               through Predictor.from_lightning_checkpoint on the card and
+               on the CPU; kernel 3 launches on the card.
 
 The last lines are a JSON line of the kernels (fifteen entries in kernel
 order, each with its number), the nvidia-smi line, and
@@ -290,6 +314,7 @@ package beside it, the script fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -400,6 +425,10 @@ FAMILY_BUCKET, CONTRASTIVE_BATCH, FAMILY_LR = 32, 256, 1e-4
 FAMILY_GRAD_BATCH = {"tpn": 1, "lstm": FAMILY_BUCKET,
                      "basicmlp": FAMILY_BUCKET,
                      "contrastive": CONTRASTIVE_BATCH}
+# export (phase 33): the exported ViViT programs' bucket, and the
+# forward kernels that are torch.library ops (devt_tpu_torch/ops/_library.py)
+EXPORT_BUCKET = 8
+EXPORT_KERNELS = ("k1", "k3", "k5", "k6", "k7", "k9", "k11")
 # the fused blocks' and attention halves' sub-kernels, as the profiler
 # names them (kernels 1 and 7, and 2 and 8, share most of their launches;
 # their attention at the main-path shape is the one-shot body's
@@ -5411,6 +5440,338 @@ def phase_frame_entry() -> dict:
             "phase_s": phase_s}
 
 
+def _op_counts() -> dict:
+    """Launches of the seven forward kernels that are torch.library ops."""
+    from devt_tpu_torch.ops import quant as tq
+
+    counts = {**_kernel_counts(), "k6": tq.int8_matmul_fused.launches}
+    return {k: counts[k] for k in EXPORT_KERNELS}
+
+
+@contextlib.contextmanager
+def _served_model(build, example):
+    """Predictor (and its export) build ``build(config)`` and draw
+    ``example(config, batch_size)`` instead of the registry's: for the
+    ViViT widths the registry does not build (image 384, token_pad 0)."""
+    from devt_tpu_torch import serve
+
+    saved = serve.build_model, serve.example_batch
+    serve.build_model, serve.example_batch = build, example
+    try:
+        yield
+    finally:
+        serve.build_model, serve.example_batch = saved
+
+
+def _best_ms(fn, windows: int = 3, calls: int = 3) -> float:
+    """Host ms a call: the best of ``windows`` windows of ``calls`` calls,
+    after one call (each call ends on the host with its numpy result)."""
+    fn()
+    best = math.inf
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls)
+    return best * 1e3
+
+
+def _export_cases() -> list:
+    """(tag, config, quantize, bucket, kernels it launches, ViViT widths
+    off the registry or None)."""
+    import dataclasses
+
+    from devt_tpu_torch.config import Config
+
+    vivit = Config(model="vivit", frame_len=16, n_classes=19,
+                   precision="bf16", dropout=0.0, wire_format="u8")
+    ptn = Config(model="ptn", batch_size=PTN_ROWS, seq_len=PTN_SEQ,
+                 nlayers=PTN_LAYERS, nhid=PTN_WIDTH,
+                 input_dimension=PTN_WIDTH, nhead=PTN_HEADS, dropout=0.0,
+                 precision="bf16", experts=PTN_EXPERTS)
+    moe = dataclasses.replace(vivit, moe_experts=MOE_EXPERTS,
+                              moe_every=MOE_EVERY)
+    return [("vivit_bf16", vivit, False, EXPORT_BUCKET, ("k1",), None),
+            ("vivit_int8", vivit, True, EXPORT_BUCKET, ("k5",), None),
+            ("ptn_bf16", ptn, False, PTN_ROWS, ("k3",), None),
+            ("ptn_int8", ptn, True, PTN_ROWS, ("k3", "k6"), None),
+            ("moe_bf16", moe, False, EXPORT_BUCKET, ("k1", "k7"), None),
+            ("vivit_image_384", vivit, False, EXPORT_BUCKET, ("k11",),
+             dict(image_size=LONG_IMAGE)),
+            ("vivit_int8_token_pad_0", vivit, True, EXPORT_BUCKET, ("k9",),
+             dict(token_pad=0))]
+
+
+def phase_export() -> dict:
+    """Phase 33: every served model exported, loaded and served on the
+    card through the forward ops; one program on the CPU."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.serve import Predictor, load_exported
+
+    rng = np.random.default_rng(SEED + 33)
+    artifact = {k: 0 for k in EXPORT_KERNELS}
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, cfg, quantize, bucket, kernels, widths in _export_cases():
+            if widths is None:
+                scope = contextlib.nullcontext()
+                weights = build_model(cfg, torch.Generator().manual_seed(
+                    SEED)).state_dict()
+                image = 224
+            else:
+                image = widths.get("image_size", 224)
+                scope = _served_model(
+                    lambda c, w=widths: _vivit_model(**w),
+                    lambda c, batch_size, i=image: {"vid": np.zeros(
+                        (batch_size, 16, i, i, 3), np.float32)})
+                weights = _vivit_model(**widths).state_dict()
+            if cfg.model == "ptn":
+                request = {"experts": (rng.standard_normal(
+                    (bucket, PTN_SEQ, len(PTN_EXPERTS), PTN_WIDTH),
+                    dtype=np.float32) * 0.5)}
+            else:
+                request = {"vid": rng.integers(
+                    0, 256, (bucket, 16, image, image, 3), dtype=np.uint8)}
+            path = os.path.join(tmp, f"{tag}.pt2")
+            with scope:
+                pred = Predictor(cfg, weights, buckets=(bucket,),
+                                 quantize=quantize)
+                t0 = time.perf_counter()
+                pred.export(path, platforms=("cpu", "cuda"))
+                export_s = time.perf_counter() - t0
+            call = load_exported(path)
+            _zero_counts()
+            live = pred.predict(request)["scores"]
+            live_counts = _op_counts()
+            _zero_counts()
+            got = call(request)
+            counts = _op_counts()
+            want = {k: live_counts[k] if k in kernels else 0
+                    for k in EXPORT_KERNELS}
+            err = float(np.abs(got - live).max())
+            if counts != live_counts or counts != want \
+                    or not all(counts[k] >= 1 for k in kernels) \
+                    or got.shape != live.shape or not err <= 1e-6:
+                raise AssertionError(
+                    f"export {tag}: the program launched {counts}, the live "
+                    f"forward {live_counts} (kernels {kernels} only); scores "
+                    f"{got.shape} differ by {err:.3e}")
+            for k in EXPORT_KERNELS:
+                artifact[k] += counts[k]
+            row = {"export_s": export_s,
+                   "mib": os.path.getsize(path) / 2 ** 20,
+                   "live_ms": _best_ms(lambda: pred.predict(request)),
+                   "artifact_ms": _best_ms(lambda: call(request)),
+                   "launches": {k: counts[k] for k in kernels}, "err": err}
+            if tag == "vivit_bf16":
+                cpu_call = load_exported(path, device="cpu")
+                row["cpu_err"] = float(np.abs(cpu_call(request) - got).max())
+                if not row["cpu_err"] <= SCORE_ATOL:
+                    raise AssertionError(
+                        f"export {tag}: the program on the CPU differs from "
+                        f"the card by {row['cpu_err']:.3e} (atol "
+                        f"{SCORE_ATOL})")
+                del cpu_call
+            out[tag] = row
+            print(f"[export] {tag}: exported in {export_s:.2f} s, "
+                  f"{row['mib']:.2f} MiB; loaded on the card, scores equal "
+                  f"to the live predictor's (max abs err {err:.3e}), "
+                  f"launches {row['launches']} from the program as from the "
+                  f"live forward; ms a call (host clock, {bucket} rows, "
+                  f"upload and readback included, best of 3 windows of 3) "
+                  f"live {row['live_ms']:.3f}, program "
+                  f"{row['artifact_ms']:.3f}" + (
+                      f"; on the CPU within {row['cpu_err']:.3e} of the card"
+                      if "cpu_err" in row else ""), flush=True)
+            del pred, call
+            os.remove(path)
+    missing = [k for k, n in artifact.items() if n < 1]
+    if missing:
+        raise AssertionError(f"export: no program launched {missing}")
+    print(f"[export] launches from the programs: {artifact} | nvidia-smi: "
+          f"{_nvidia_smi()}", flush=True)
+    return {"artifact_launches": artifact, **out}
+
+
+def _grad_gap(got: dict, want: dict) -> tuple[float, str]:
+    """Phase 7's per-leaf measure: max|got - want| over the leaf's largest
+    |want| (floored), the worst leaf and its ratio."""
+    worst, leaf = 0.0, ""
+    for name, w in want.items():
+        ratio = (got[name] - w).abs().max().item() / max(
+            w.abs().max().item(), GRAD_FLOOR)
+        if ratio > worst:
+            worst, leaf = ratio, name
+    return worst, leaf
+
+
+def _remat_step(model, cfg, batch, seed: int) -> dict:
+    """One forward and backward of ``model`` (a training step without the
+    optimizer): loss, gradients, launches, the peak device memory above
+    what was allocated before it, and device ms (profiled)."""
+    import torch
+
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    params = dict(model.named_parameters())
+
+    def run():
+        loss, _, _ = forward_and_loss(model, cfg, {"params": params}, batch,
+                                      DropoutRng(seed), train=True)
+        return loss, torch.autograd.grad(loss, list(params.values()))
+
+    run()                                   # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    loss, grads = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = _kernel_counts()
+    result = {"loss": loss.item(), "grads": dict(zip(params, grads)),
+              "peak_mib": peak / 2 ** 20, "counts": counts}
+    del loss, grads
+    rows, busy, wall = _traced(lambda: run()[0].item())
+    result.update(device_ms=sum(ms for _, ms, _ in rows), busy=busy,
+                  wall_ms=wall)
+    return result
+
+
+def phase_remat() -> dict:
+    """Phase 34: the ViViT and PTN training steps with and without remat."""
+    import torch
+
+    from devt_tpu_torch.registry import build_model
+
+    out: dict = {}
+    encoders = len(PTN_EXPERTS) * PTN_LAYERS
+    for name in ("vivit", "ptn"):
+        for rate in (0.0, DROPOUT):
+            runs = {}
+            for remat in (False, True):
+                if name == "vivit":
+                    cfg = _vivit_cfg()
+                    model = _vivit_model(dropout=rate, emb_dropout=rate,
+                                         remat=remat).cuda()
+                    batch = _train_batch(TRAIN_BATCH, SEED + 34)
+                    per = len(model.space_transformer.blocks)
+                    key, key_bwd = "k1", "k2"
+                else:
+                    cfg = _ptn_config(dropout=rate, remat=remat)
+                    model = build_model(cfg, torch.Generator().manual_seed(
+                        SEED)).cuda()
+                    batch = _ptn_batch(PTN_TRAIN_BATCH, SEED + 34)
+                    per = encoders
+                    key, key_bwd = "k3", "k4"
+                runs[remat] = _remat_step(model, cfg, batch, SEED)
+                del model, batch
+            plain, remat = runs[False], runs[True]
+            gap, leaf = _grad_gap(remat["grads"], plain["grads"])
+            launches = ((plain["counts"][key], plain["counts"][key_bwd]),
+                        (remat["counts"][key], remat["counts"][key_bwd]))
+            # ViViT keeps each block's u and res for the backward; PTN's
+            # peak is its f32 weight gradients (PERF.md, phase 34)
+            lower = remat["peak_mib"] < plain["peak_mib"] or name == "ptn"
+            if remat["loss"] != plain["loss"] or not gap <= GRAD_RTOL \
+                    or launches != ((per, per), (2 * per, per)) or not lower:
+                raise AssertionError(
+                    f"remat {name} at dropout {rate}: loss {remat['loss']} "
+                    f"vs {plain['loss']}, gradients {gap:.3e} of a leaf at "
+                    f"{leaf} (bound {GRAD_RTOL}), launches of kernels "
+                    f"{key}/{key_bwd} {launches} (expected {per} and {per} "
+                    f"plain, {2 * per} and {per} with remat), peak "
+                    f"{remat['peak_mib']:.1f} vs {plain['peak_mib']:.1f} MiB")
+            tag = f"{name}_dropout_{rate}"
+            out[tag] = {
+                "loss": plain["loss"], "grad_gap": gap,
+                **{f"{k}_{v}": runs[r][k] for r, v in ((False, "plain"),
+                                                       (True, "remat"))
+                   for k in ("peak_mib", "device_ms", "wall_ms", "busy")}}
+            r = out[tag]
+            print(f"[remat] {name} at dropout {rate} (B=32, bf16): loss "
+                  f"{plain['loss']:.6f} with and without remat, gradients "
+                  f"within {gap:.3e} of a leaf's largest (bound {GRAD_RTOL}); "
+                  f"kernel {key[1:]} launches {launches[0][0]} plain, "
+                  f"{launches[1][0]} with remat, kernel {key_bwd[1:]} "
+                  f"{per} both | peak device memory above the weights and "
+                  f"batch {r['peak_mib_plain']:.1f} MiB plain, "
+                  f"{r['peak_mib_remat']:.1f} MiB with remat | device ms a "
+                  f"forward and backward {r['device_ms_plain']:.3f} plain, "
+                  f"{r['device_ms_remat']:.3f} with remat (wall "
+                  f"{r['wall_ms_plain']:.3f} / {r['wall_ms_remat']:.3f} ms, "
+                  f"busy {r['busy_plain']:.1%} / {r['busy_remat']:.1%}; "
+                  f"profiled) | nvidia-smi: {_nvidia_smi()}", flush=True)
+            del runs, plain, remat
+    return out
+
+
+def phase_lightning() -> dict:
+    """Phase 35: reference-shaped Lightning checkpoints served on the card
+    and on the CPU."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from devt_tpu_torch.data.synthetic import write_fake_lightning_checkpoint
+    from devt_tpu_torch.ops.flash_attention import fused_mha
+    from devt_tpu_torch.serve import Predictor
+
+    rng = np.random.default_rng(SEED + 35)
+    cases = (
+        ("frame_transformer_vid", _ft_config("vid", precision="bf16"),
+         dict(kind="frame_transformer", frames=FT_FRAMES),
+         {"vid": rng.integers(0, 256, (1, FT_SEQ, FT_FRAMES, 112, 112, 3),
+                              dtype=np.uint8)}, FT_LAYERS),
+        ("ptn", _ptn_config(),
+         dict(kind="simple_transformer", d_model=PTN_WIDTH, ff=PTN_WIDTH,
+              nlayers=PTN_LAYERS),
+         {"experts": rng.standard_normal(
+             (4, PTN_SEQ, len(PTN_EXPERTS), PTN_WIDTH), dtype=np.float32)},
+         len(PTN_EXPERTS) * PTN_LAYERS))
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, cfg, shape, request, want in cases:
+            path = os.path.join(tmp, f"{tag}.ckpt")
+            write_fake_lightning_checkpoint(path, seed=SEED, **shape)
+            rows = len(next(iter(request.values())))
+            t0 = time.perf_counter()
+            card = Predictor.from_lightning_checkpoint(cfg, path,
+                                                       buckets=(rows,))
+            load_s = time.perf_counter() - t0
+            _zero_counts()
+            got = card.predict(request)["scores"]
+            launches = fused_mha.launches
+            cpu = Predictor.from_lightning_checkpoint(cfg, path,
+                                                      buckets=(rows,),
+                                                      device="cpu")
+            err = float(np.abs(got - cpu.predict(request)["scores"]).max())
+            if launches != want or not err <= SCORE_ATOL \
+                    or not np.isfinite(got).all():
+                raise AssertionError(
+                    f"lightning {tag}: kernel 3 launched {launches} times "
+                    f"(expected {want}), card vs CPU scores differ by "
+                    f"{err:.3e} (atol {SCORE_ATOL})")
+            out[tag] = {"k3": launches, "err": err, "load_s": load_s,
+                        "mib": os.path.getsize(path) / 2 ** 20}
+            print(f"[lightning] {tag} ({cfg.precision}, {rows} rows) from a "
+                  f"reference-shaped .ckpt of {out[tag]['mib']:.1f} MiB "
+                  f"(read and mapped in {load_s:.2f} s): kernel 3 launched "
+                  f"{launches} times, card vs CPU max abs score err "
+                  f"{err:.3e} (atol {SCORE_ATOL}) | nvidia-smi: "
+                  f"{_nvidia_smi()}", flush=True)
+            del card, cpu
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5530,6 +5891,11 @@ def main() -> int:
     entry_run = phase_entry()
     # the entry point at its defaults: the frame pipeline
     frame_run = phase_frame_entry()
+    # the options of the one-card path: exported programs, remat, the
+    # reference's Lightning checkpoints
+    artifact = phase_export()["artifact_launches"]
+    phase_remat()
+    phase_lightning()
     # the MoE and the later model paths' launches of the earlier kernels
     later_runs = (serve_moe["counts"], serve_moe["int8_counts"],
                   train_moe["counts"], train_moe["drop_counts"],
@@ -5586,7 +5952,7 @@ def main() -> int:
               serve["launches"] + train["fwd_launches"] + later("k1"),
               {**fwd, "max_abs_err": max(fwd["max_abs_err"].values())},
               entry_launches=entry_run["counts"]["k1"]
-              + frame_run["counts"]["k1"],
+              + frame_run["counts"]["k1"], artifact_launches=artifact["k1"],
               launch_sources=[csrc + "fused_block_fwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "flash_fwd_sm90.cuh"]),
@@ -5608,7 +5974,7 @@ def main() -> int:
               "devt_tpu/ops/flash_attention.py:558",
               ptn["mha_launches"] + train_ptn["fwd_launches"] + later("k3"),
               mha, entry_launches=entry_run["counts"]["k3"]
-              + frame_run["counts"]["k3"],
+              + frame_run["counts"]["k3"], artifact_launches=artifact["k3"],
               launch_sources=[csrc + "mha_fwd.cu",
                                    csrc + "mha_fwd_sm90.cuh",
                                    csrc + "flash_fwd_sm90.cuh",
@@ -5643,6 +6009,7 @@ def main() -> int:
         entry(5, "quant_fused_vit_block", csrc + "quant_block_fwd.cu",
               "devt_tpu/ops/quant.py:275",
               serve_int8["launches"] + later("k5"), quant,
+              artifact_launches=artifact["k5"],
               launch_sources=[csrc + "quant_block_fwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "gemm_s8_sm90.cuh",
@@ -5654,7 +6021,8 @@ def main() -> int:
               "devt_tpu/ops/quant.py:348",
               ptn["matmul_launches"] + serve_ft["quant"]["matmul_launches"],
               matmul,
-              int_mm_ms=matmul["int_mm_ms"]),
+              int_mm_ms=matmul["int_mm_ms"],
+              artifact_launches=artifact["k6"]),
         # composed_ms: the half composed of library calls (no one call
         # computes it, so library_ms stays null), by CUDA graph; its
         # attention launch runs the one-shot wgmma body, its other two
@@ -5662,6 +6030,7 @@ def main() -> int:
         entry(7, "fused_attn_half_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/fused_block.py:556", later("k7"), half_fwd,
               composed_ms=half_fwd["composed_ms"],
+              artifact_launches=artifact["k7"],
               launch_sources=[csrc + "attn_half.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "flash_fwd_sm90.cuh"]),
@@ -5674,13 +6043,15 @@ def main() -> int:
                               csrc + "flash_bwd_sm90.cuh"]),
         entry(9, "flash_single_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:390",
-              int8_unfused["launches"], flash9),
+              int8_unfused["launches"], flash9,
+              artifact_launches=artifact["k9"]),
         entry(10, "flash_single_bwd", csrc + "flash_bwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:413", flash10["launches"],
               flash10),
         entry(11, "flash_fwd", csrc + "flash_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:69",
-              eval_long["launches"] + train_long["counts"]["k11"], flash11),
+              eval_long["launches"] + train_long["counts"]["k11"], flash11,
+              artifact_launches=artifact["k11"]),
         entry(12, "flash_bwd_dq", csrc + "flash_bwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:158",
               train_long["counts"]["k12"],
@@ -5704,9 +6075,12 @@ def main() -> int:
               ring["bwd"], launch_sources=[csrc + "ring_step.cu",
                                            csrc + "flash_bwd_sm90.cuh"])]
     for k in kernels:
-        if k["launches"] < 1 or k.get("entry_launches", 1) < 1:
+        if k["launches"] < 1 or k.get("entry_launches", 1) < 1 \
+                or k.get("artifact_launches", 1) < 1:
             raise AssertionError(f"{k['name']}: no launch on its path")
     print(json.dumps({"kernels": kernels}))
+    print(f"[time] {time.perf_counter() - t0:.1f} s from the build's start",
+          flush=True)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

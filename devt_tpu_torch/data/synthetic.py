@@ -4,7 +4,8 @@ Deterministic, reference-shaped batches for every model family
 (``SyntheticDataModule`` on ``registry.example_batch``), the fake MMX and
 MIT expert corpora (``.npy`` tensors and streamed-pickle manifests), and
 the fake frame corpora: PNG frame trees, the light corpus with its
-``out.csv``, and an MJPEG AVI.  The pixels are the JAX package's writers'
+``out.csv``, and an MJPEG AVI; and Lightning checkpoints shaped like
+the reference's (``write_fake_lightning_checkpoint``).  The pixels are the JAX package's writers'
 draws from the same seed.  PNGs are written by :func:`write_png` (zlib and
 struct from the standard library), so a host without Pillow writes them
 too; the AVI's JPEG frames need PIL.
@@ -23,6 +24,7 @@ import numpy as np
 from devt_tpu_torch.config import MMX_GENRES_15, MMX_GENRES_19, Config
 from devt_tpu_torch.data.manifests import (append_pickle,
                                            load_moments_categories)
+from devt_tpu_torch.models.r2plus1d import _midplanes
 from devt_tpu_torch.registry import example_batch
 
 
@@ -245,3 +247,132 @@ def write_fake_mjpeg_avi(path: str, n_shots: int = 3,
     with open(path, "wb") as f:
         f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
     return path
+
+
+# --------------------------------------------------------------------------
+# reference-shaped Lightning checkpoints
+# --------------------------------------------------------------------------
+
+
+def reference_state_dict(kind: str, seed: int = 0, frames: int = 12,
+                         d_model: int = 2048, ff: int = 2048,
+                         nlayers: int = 2) -> dict[str, np.ndarray]:
+    """The state_dict of one of the reference's LightningModules, with its
+    key names and shapes and normal(0, 0.02) values from ``seed``:
+
+      * ``"frame_transformer"`` (``src/models/frame_transformer.py:83-121``):
+        torchvision's R(2+1)D-18 and ResNet-18 under ``vid_model.backbone``
+        and ``img_model.backbone`` (each with its ``fc.0`` Linear(512, 896)),
+        the two 4-layer encoders at 896 (FFN 512 and 896), ``vid_cls``
+        (1, frames, 3, 112, 112), ``img_cls`` (1, 3, 224, 224) and the
+        896-512-128-19 ``img_mlp_head``;
+      * ``"simple_transformer"`` (``src/models/transformer.py:28-57``): two
+        expert encoders of ``nlayers`` at ``d_model`` (FFN ``ff``), the CLS
+        learned per batch slot (2 slots), ``norm``, ``mlp_head`` to 15.
+
+    BatchNorm layers carry running statistics and ``num_batches_tracked``;
+    LayerNorms are (1, 0)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+
+    sd: dict[str, np.ndarray] = {}
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = np.ones(c, np.float32)
+        sd[f"{prefix}.bias"] = np.zeros(c, np.float32)
+        sd[f"{prefix}.running_mean"] = t(c)
+        sd[f"{prefix}.running_var"] = np.abs(t(c)) + 1.0
+        sd[f"{prefix}.num_batches_tracked"] = np.array(1, np.int64)
+
+    def encoder(prefix, d, hidden, layers):
+        for i in range(layers):
+            p = f"{prefix}.layers.{i}"
+            sd[f"{p}.self_attn.in_proj_weight"] = t(3 * d, d)
+            sd[f"{p}.self_attn.in_proj_bias"] = t(3 * d)
+            sd[f"{p}.self_attn.out_proj.weight"] = t(d, d)
+            sd[f"{p}.self_attn.out_proj.bias"] = t(d)
+            sd[f"{p}.linear1.weight"] = t(hidden, d)
+            sd[f"{p}.linear1.bias"] = t(hidden)
+            sd[f"{p}.linear2.weight"] = t(d, hidden)
+            sd[f"{p}.linear2.bias"] = t(d)
+            for norm in ("norm1", "norm2"):
+                sd[f"{p}.{norm}.weight"] = np.ones(d, np.float32)
+                sd[f"{p}.{norm}.bias"] = np.zeros(d, np.float32)
+
+    if kind == "simple_transformer":
+        for i in range(2):
+            encoder(f"transformer_encoder{i}", d_model, ff, nlayers)
+        sd["cls"] = t(1, 2, d_model)
+        sd["norm.weight"] = np.ones(d_model, np.float32)
+        sd["norm.bias"] = np.zeros(d_model, np.float32)
+        sd["mlp_head.0.weight"] = np.ones(d_model, np.float32)
+        sd["mlp_head.0.bias"] = np.zeros(d_model, np.float32)
+        sd["mlp_head.1.weight"] = t(15, d_model)
+        sd["mlp_head.1.bias"] = t(15)
+        return sd
+    if kind != "frame_transformer":
+        raise ValueError(f"unknown reference module {kind!r}")
+    v = "vid_model.backbone"
+    sd[f"{v}.stem.0.weight"] = t(45, 3, 1, 7, 7)
+    bn(f"{v}.stem.1", 45)
+    sd[f"{v}.stem.3.weight"] = t(64, 45, 3, 1, 1)
+    bn(f"{v}.stem.4", 64)
+    inplanes = 64
+    for li, planes in enumerate((64, 128, 256, 512)):
+        for bi in range(2):
+            p = f"{v}.layer{li + 1}.{bi}"
+            inp = inplanes if bi == 0 else planes
+            mid = _midplanes(inp, planes)
+            for ci, cin in ((1, inp), (2, planes)):
+                sd[f"{p}.conv{ci}.0.0.weight"] = t(mid, cin, 1, 3, 3)
+                bn(f"{p}.conv{ci}.0.1", mid)
+                sd[f"{p}.conv{ci}.0.3.weight"] = t(planes, mid, 3, 1, 1)
+                bn(f"{p}.conv{ci}.1", planes)
+            if bi == 0 and (li > 0 or inplanes != planes):
+                sd[f"{p}.downsample.0.weight"] = t(planes, inp, 1, 1, 1)
+                bn(f"{p}.downsample.1", planes)
+        inplanes = planes
+    i = "img_model.backbone"
+    sd[f"{i}.conv1.weight"] = t(64, 3, 7, 7)
+    bn(f"{i}.bn1", 64)
+    inplanes = 64
+    for li, planes in enumerate((64, 128, 256, 512)):
+        for bi in range(2):
+            p = f"{i}.layer{li + 1}.{bi}"
+            inp = inplanes if bi == 0 else planes
+            sd[f"{p}.conv1.weight"] = t(planes, inp, 3, 3)
+            bn(f"{p}.bn1", planes)
+            sd[f"{p}.conv2.weight"] = t(planes, planes, 3, 3)
+            bn(f"{p}.bn2", planes)
+            if bi == 0 and li > 0:
+                sd[f"{p}.downsample.0.weight"] = t(planes, inp, 1, 1)
+                bn(f"{p}.downsample.1", planes)
+        inplanes = planes
+    for backbone in (v, i):
+        sd[f"{backbone}.fc.0.weight"] = t(896, 512)
+        sd[f"{backbone}.fc.0.bias"] = t(896)
+    encoder("distil_transformer.transformer", 896, 512, 4)
+    encoder("scene_transformer.transformer", 896, 896, 4)
+    sd["vid_cls"] = t(1, frames, 3, 112, 112)
+    sd["img_cls"] = t(1, 3, 224, 224)
+    for n, (out, k) in enumerate(((512, 896), (128, 512), (19, 128))):
+        sd[f"img_mlp_head.{2 * n}.weight"] = t(out, k)
+        sd[f"img_mlp_head.{2 * n}.bias"] = t(out)
+    return sd
+
+
+def write_fake_lightning_checkpoint(path: str, kind: str, seed: int = 0,
+                                    **shape) -> dict[str, np.ndarray]:
+    """Write ``reference_state_dict(kind, seed, **shape)`` as a Lightning
+    ``.ckpt``: a pickle with the ``state_dict`` beside hyper-parameters and
+    the trainer's counters, which only the full unpickler reads.  Returns
+    the state_dict."""
+    import torch
+
+    sd = reference_state_dict(kind, seed, **shape)
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in sd.items()},
+                "hyper_parameters": {"model": kind, "lr": 1e-4},
+                "epoch": 3, "global_step": 120}, path)
+    return sd

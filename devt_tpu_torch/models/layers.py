@@ -22,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from devt_tpu_torch.ops.attention import packed_mha, quant_active
 from devt_tpu_torch.ops.flash_attention import fits_single_block
@@ -72,6 +73,49 @@ class DropoutRng:
                 gen = torch.Generator(device=x.device).manual_seed(self.seed)
                 self._device[x.device] = gen
         return torch.rand(x.shape, generator=gen, device=x.device) >= rate
+
+    def snapshot(self) -> "DropoutRng":
+        """A copy that makes, from here on, the draws this one makes: the
+        host generator's state and each device generator's.  Drawing from
+        either leaves the other where it was."""
+        copy = DropoutRng.__new__(DropoutRng)
+        copy.seed = self.seed
+        copy._host = torch.Generator()
+        copy._host.set_state(self._host.get_state())
+        copy._device = {}
+        for device, gen in self._device.items():
+            copy._device[device] = torch.Generator(device=device)
+            copy._device[device].set_state(gen.get_state())
+        return copy
+
+
+def remat(fn, x: torch.Tensor, rng: DropoutRng | None) -> torch.Tensor:
+    """``fn(x, rng, first=True)`` with its activations rematerialised:
+    ``torch.utils.checkpoint`` (non-reentrant) keeps none of the tensors
+    it saves for the backward and runs it again, as
+    ``fn(x, replay, first=False)``, when the backward needs them (the
+    counterpart of flax's ``nn.remat``).
+
+    ``replay`` is a snapshot of ``rng`` taken before the forward, so the
+    recompute draws the kernels' seeds and the unfused sites' masks that
+    the forward drew, and ``rng`` stays where the forward left it; the
+    global random state is not involved (``preserve_rng_state`` off).
+    ``first`` tells ``fn`` whether this is the forward, so that a side
+    effect (an MoE block's load-balance term appended to ``losses``)
+    happens once.  The recompute's saved tensors come back in the order
+    of the forward's; a kernel's forward (kernel 1's u and res, kernel 7's
+    residuals) runs twice."""
+    start = rng.snapshot() if rng is not None else None
+    calls = 0
+
+    def run(h: torch.Tensor) -> torch.Tensor:
+        nonlocal calls
+        calls += 1
+        if calls == 1 or start is None:
+            return fn(h, rng, first=calls == 1)
+        return fn(h, start.snapshot(), first=False)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -463,8 +507,10 @@ class ViTTransformer(nn.Module):
     """Pre-norm residual transformer with a trailing LayerNorm: ``depth``
     ViTBlocks, with every ``moe_every``-th an MoEViTBlock when
     ``moe_experts > 0`` (depth 4, moe_every 2: dense, MoE, dense, MoE).
-    The pipeline, sequence-parallel and remat variants of the JAX module
-    are not ported yet."""
+    ``remat=True`` rematerialises each block in a training forward that
+    needs a gradient (``remat``: the JAX module's ``nn.remat`` per block),
+    with the same loss and gradients as without.  The pipeline and
+    sequence-parallel variants of the JAX module are not ported yet."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dropout: float = 0.0,
@@ -475,8 +521,7 @@ class ViTTransformer(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         todo = {"pipeline_stages > 1": pipeline_stages > 1,
-                "sequence_parallel": sequence_parallel,
-                "remat": remat}
+                "sequence_parallel": sequence_parallel}
         for what, asked in todo.items():
             if asked:
                 raise NotImplementedError(
@@ -486,6 +531,7 @@ class ViTTransformer(nn.Module):
                         "blocks through is parallel/ring_attention.py"
                         if what == "sequence_parallel" else ""))
         self.dtype = dtype
+        self.remat = remat
 
         def block(i):
             if moe_experts > 0 and i % moe_every == moe_every - 1:
@@ -505,9 +551,15 @@ class ViTTransformer(nn.Module):
                 losses: list | None = None) -> torch.Tensor:
         """``losses``: a list that each MoE block appends its load-balance
         loss to (None: not collected)."""
+        rematerialise = self.remat and self.training \
+            and torch.is_grad_enabled()
         for block in self.blocks:
-            if isinstance(block, MoEViTBlock):
-                x = block(x, kv_len, rng, losses)
-            else:
-                x = block(x, kv_len, rng)
+            moe = isinstance(block, MoEViTBlock)
+
+            def run(h, r, first=True, block=block, moe=moe):
+                if moe:
+                    return block(h, kv_len, r, losses if first else None)
+                return block(h, kv_len, r)
+
+            x = remat(run, x, rng) if rematerialise else run(x, rng)
         return layer_norm(self.norm, x, self.dtype)

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from devt_tpu_torch.models.layers import (LN_EPS, DropoutRng, dense, dropout,
-                                          layer_norm)
+                                          layer_norm, remat)
 from devt_tpu_torch.ops.attention import (packed_mha, quant_active,
                                           quant_site_allowed)
 from devt_tpu_torch.ops.quant import int8_dot_general
@@ -107,19 +107,17 @@ class TorchEncoderLayer(nn.Module):
 class TorchTransformerEncoder(nn.Module):
     """Stack of ``TorchEncoderLayer`` (= torch ``TransformerEncoder``):
     independent weights per layer, no final norm.  Input and output are
-    batch-major (B, S, D)."""
+    batch-major (B, S, D).  ``remat=True`` rematerialises each layer in a
+    training forward that needs a gradient (``models.layers.remat``, which
+    replays the layer's dropout draws), as the JAX module's ``nn.remat``
+    does per layer."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  num_layers: int, dropout: float = 0.1,
                  attention_impl: str = "auto", remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if remat:
-            # recomputing a layer would draw new dropout seeds from the
-            # DropoutRng, so its masks would not be the ones the loss saw
-            raise NotImplementedError(
-                "TorchTransformerEncoder(remat) is not ported yet: it needs "
-                "the forward's dropout seeds saved — ROADMAP.md queue 1")
+        self.remat = remat
         self.layers = nn.ModuleList(
             TorchEncoderLayer(d_model, nhead, dim_feedforward, dropout,
                               attention_impl, dtype)
@@ -127,6 +125,12 @@ class TorchTransformerEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rng: DropoutRng | None = None) -> torch.Tensor:
+        rematerialise = self.remat and self.training \
+            and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, rng)
+            if rematerialise:
+                x = remat(lambda h, r, first, layer=layer: layer(h, r), x,
+                          rng)
+            else:
+                x = layer(x, rng)
         return x

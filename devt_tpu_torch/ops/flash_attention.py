@@ -159,6 +159,8 @@ import ctypes
 
 import torch
 
+from devt_tpu_torch.ops._library import kernel_op
+
 # additive key-padding mask value: -1e30, not -inf, keeps a fully masked
 # row NaN-free, and exp() turns it into an exact zero next to a real score
 NEG_INF = -1e30
@@ -620,26 +622,39 @@ def _mha_bwd_cuda(qkv, o, lse, do, heads, scale, kv_len, rate=0.0, seed=0):
     return dqkv
 
 
+def _mha_impl(qkv, heads, scale, kv_len, rate, seed):
+    if qkv.device.type == "cuda":
+        return _mha_cuda(qkv, heads, scale, kv_len, rate, seed)
+    keep = mha_dropout_masks(seed, rate, qkv.shape[0], qkv.shape[1], heads,
+                             qkv.device) if rate > 0.0 else None
+    return fused_mha_plain(qkv, heads, scale, kv_len, keep, rate)
+
+
+def _mha_fake(qkv, heads, scale, kv_len, rate, seed):
+    b, s, f = qkv.shape
+    return (qkv.new_empty((b, s, f // 3)),
+            qkv.new_empty((b, s, heads), dtype=torch.float32))
+
+
+# kernel 3: (o, lse)
+mha_fwd_op = kernel_op(
+    "mha_fwd", "(Tensor qkv, int heads, float scale, int kv_len, float rate, "
+    "int seed) -> (Tensor, Tensor)", _mha_impl, _mha_fake)
+
+
 class FusedMHA(torch.autograd.Function):
     """The packed-qkv attention with its backward: the kernels for CUDA
-    tensors, the plain versions for CPU tensors.  Saves (qkv, o, lse) and
-    the seed; the backward regenerates the dropout mask from the seed."""
+    tensors, the plain versions for CPU tensors; the forward through the
+    ``devt_tpu_torch::mha_fwd`` op (``ops/_library.py``).  Saves (qkv, o,
+    lse) and the seed; the backward regenerates the dropout mask from the
+    seed."""
 
     @staticmethod
     def forward(ctx, qkv, heads, scale, kv_len, rate, seed):
-        if qkv.device.type == "cuda":
-            if ctx.needs_input_grad[0]:
-                # a shape the backward does not take fails before the work
-                _check_mha_args(qkv, heads, kv_len, backward=True)
-            o, lse = _mha_cuda(qkv, heads, scale, kv_len, rate, seed)
-        elif qkv.device.type == "cpu":
-            keep = mha_dropout_masks(seed, rate, qkv.shape[0], qkv.shape[1],
-                                     heads, qkv.device) if rate > 0.0 \
-                else None
-            o, lse = fused_mha_plain(qkv, heads, scale, kv_len, keep, rate)
-        else:
-            raise ValueError(f"fused_mha runs on cuda or cpu, not "
-                             f"{qkv.device}")
+        if qkv.device.type == "cuda" and ctx.needs_input_grad[0]:
+            # a shape the backward does not take fails before the work
+            _check_mha_args(qkv, heads, kv_len, backward=True)
+        o, lse = mha_fwd_op(qkv, heads, scale, kv_len, rate, seed)
         ctx.save_for_backward(qkv, o, lse)
         ctx.args = (heads, scale, kv_len, rate, seed)
         ctx.mark_non_differentiable(lse)
@@ -1039,24 +1054,45 @@ def _flash_blocked_bwd_cuda(q, k, v, o, lse, do, scale, kv_len):
                                          kv_len))
 
 
+def _flash_single_impl(q, k, v, scale, kv_len):
+    if q.device.type == "cuda":
+        return _flash_fwd_cuda(q, k, v, scale, kv_len, online=False)
+    return flash_single_fwd_plain(q, k, v, scale, kv_len)
+
+
+def _flash_blocked_impl(q, k, v, scale, kv_len):
+    if q.device.type == "cuda":
+        return _flash_fwd_cuda(q, k, v, scale, kv_len, online=True)
+    return flash_blocked_fwd_plain(q, k, v, scale, kv_len)
+
+
+def _flash_fake(q, k, v, scale, kv_len):
+    b, h, sq, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b * h, sq), dtype=torch.float32))
+
+
+_FLASH_SCHEMA = ("(Tensor q, Tensor k, Tensor v, float scale, int kv_len) -> "
+                 "(Tensor, Tensor)")
+# kernels 9 and 11: (o, lse)
+flash_single_fwd_op = kernel_op("flash_single_fwd", _FLASH_SCHEMA,
+                                _flash_single_impl, _flash_fake)
+flash_blocked_fwd_op = kernel_op("flash_blocked_fwd", _FLASH_SCHEMA,
+                                 _flash_blocked_impl, _flash_fake)
+
+
 class _Flash(torch.autograd.Function):
     """The split-q/k/v attention with its backward, saving (q, k, v, o,
     lse) as the JAX ``custom_vjp``s do: kernels for CUDA tensors, the plain
-    versions for CPU tensors.  ``FlashSingle`` and ``FlashBlocked`` name the
-    two pairs."""
+    versions for CPU tensors; the forward through the op ``fwd_op``
+    (``devt_tpu_torch::flash_single_fwd`` or ``::flash_blocked_fwd``).
+    ``FlashSingle`` and ``FlashBlocked`` name the two pairs."""
 
-    fwd_plain = bwd_plain = bwd_cuda = None
-    online = False
+    fwd_op = bwd_plain = bwd_cuda = None
 
     @classmethod
     def forward(cls, ctx, q, k, v, scale, kv_len):
-        if q.device.type == "cuda":
-            o, lse = _flash_fwd_cuda(q, k, v, scale, kv_len, cls.online)
-        elif q.device.type == "cpu":
-            o, lse = cls.fwd_plain(q, k, v, scale, kv_len)
-        else:
-            raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                             f"{q.device}")
+        o, lse = cls.fwd_op(q, k, v, scale, kv_len)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (scale, kv_len)
         ctx.mark_non_differentiable(lse)
@@ -1076,7 +1112,7 @@ class _Flash(torch.autograd.Function):
 class FlashSingle(_Flash):
     """Sq == Skv ≤ 512: kernels 9 and 10 (``_flash_single``'s VJP)."""
 
-    fwd_plain = staticmethod(flash_single_fwd_plain)
+    fwd_op = staticmethod(flash_single_fwd_op)
     bwd_plain = staticmethod(flash_single_bwd_plain)
     bwd_cuda = staticmethod(_flash_bwd_cuda)
 
@@ -1085,10 +1121,9 @@ class FlashBlocked(_Flash):
     """Above one kv block: kernel 11 and kernels 12, 13 (``_flash_padded``'s
     VJP)."""
 
-    fwd_plain = staticmethod(flash_blocked_fwd_plain)
+    fwd_op = staticmethod(flash_blocked_fwd_op)
     bwd_plain = staticmethod(flash_blocked_bwd_plain)
     bwd_cuda = staticmethod(_flash_blocked_bwd_cuda)
-    online = True
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

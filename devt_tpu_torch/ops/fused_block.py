@@ -125,6 +125,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from devt_tpu_torch.ops._library import kernel_op
 from devt_tpu_torch.ops.flash_attention import (NEG_INF, _round_up,
                                                 blocked_bwd_on_wgmma,
                                                 dropout_cutoff,
@@ -564,27 +565,40 @@ def _bwd_cuda(x, params, u, res, dy, heads, scale, kv_len, rate, seed):
     return dx, grads
 
 
+def _block_impl(x, tensors, heads, scale, kv_len, rate, seed):
+    params = dict(zip(PARAM_NAMES, tensors))
+    if x.device.type == "cuda":
+        return _fwd_cuda(x, params, heads, scale, kv_len, rate, seed)
+    keep = dropout_masks(seed, rate, *x.shape, params["w1"].shape[-1],
+                         x.device) if rate > 0.0 else None
+    return fused_vit_block_fwd_plain(x, params, heads, scale, kv_len, keep,
+                                     rate)
+
+
+def _block_fake(x, tensors, heads, scale, kv_len, rate, seed):
+    lanes = _round_up(heads + 4, 8)
+    return (x.new_empty(x.shape), x.new_empty(x.shape),
+            x.new_empty((*x.shape[:2], lanes), dtype=torch.float32))
+
+
+# kernel 1: (y, u, res), the parameters in PARAM_NAMES order
+fused_block_fwd_op = kernel_op(
+    "fused_block_fwd", "(Tensor x, Tensor[] params, int heads, float scale, "
+    "int kv_len, float rate, int seed) -> (Tensor, Tensor, Tensor)",
+    _block_impl, _block_fake)
+
+
 class FusedViTBlock(torch.autograd.Function):
     """The fused block with its backward: the kernels for CUDA tensors, the
-    plain versions for CPU tensors.  Saves (x, params, u, res) and the
-    seed; the backward regenerates the dropout masks from the seed."""
+    plain versions for CPU tensors; the forward through the
+    ``devt_tpu_torch::fused_block_fwd`` op (``ops/_library.py``).  Saves
+    (x, params, u, res) and the seed; the backward regenerates the dropout
+    masks from the seed."""
 
     @staticmethod
     def forward(ctx, x, heads, scale, kv_len, rate, seed, *tensors):
-        params = dict(zip(PARAM_NAMES, tensors))
-        if x.device.type == "cuda":
-            y, u, res = _fwd_cuda(x, params, heads, scale, kv_len, rate,
-                                  seed)
-        elif x.device.type == "cpu":
-            keep = None
-            if rate > 0.0:
-                keep = dropout_masks(seed, rate, *x.shape,
-                                     params["w1"].shape[-1], x.device)
-            y, u, res = fused_vit_block_fwd_plain(x, params, heads, scale,
-                                                  kv_len, keep, rate)
-        else:
-            raise ValueError(f"fused_vit_block runs on cuda or cpu, not "
-                             f"{x.device}")
+        y, u, res = fused_block_fwd_op(x, tensors, heads, scale, kv_len,
+                                       rate, seed)
         ctx.save_for_backward(x, u, res, *tensors)
         ctx.args = (heads, scale, kv_len, rate, seed)
         ctx.mark_non_differentiable(u, res)
@@ -843,21 +857,33 @@ def _half_bwd_cuda(x, params, res, du, heads, scale, kv_len):
     return dx, grads
 
 
+def _half_impl(x, tensors, heads, scale, kv_len):
+    params = dict(zip(HALF_NAMES, tensors))
+    if x.device.type == "cuda":
+        return _half_fwd_cuda(x, params, heads, scale, kv_len)
+    return fused_attn_half_fwd_plain(x, params, heads, scale, kv_len)
+
+
+def _half_fake(x, tensors, heads, scale, kv_len):
+    lanes = _round_up(heads + 2, 8)
+    return (x.new_empty(x.shape),
+            x.new_empty((*x.shape[:2], lanes), dtype=torch.float32))
+
+
+# kernel 7: (u, res), the parameters in HALF_NAMES order
+attn_half_fwd_op = kernel_op(
+    "attn_half_fwd", "(Tensor x, Tensor[] params, int heads, float scale, "
+    "int kv_len) -> (Tensor, Tensor)", _half_impl, _half_fake)
+
+
 class FusedAttnHalf(torch.autograd.Function):
     """The attention half with its backward: kernels 7 and 8 for CUDA
-    tensors, the plain versions for CPU tensors.  Saves (x, params, res)."""
+    tensors, the plain versions for CPU tensors; the forward through the
+    ``devt_tpu_torch::attn_half_fwd`` op.  Saves (x, params, res)."""
 
     @staticmethod
     def forward(ctx, x, heads, scale, kv_len, *tensors):
-        params = dict(zip(HALF_NAMES, tensors))
-        if x.device.type == "cuda":
-            u, res = _half_fwd_cuda(x, params, heads, scale, kv_len)
-        elif x.device.type == "cpu":
-            u, res = fused_attn_half_fwd_plain(x, params, heads, scale,
-                                               kv_len)
-        else:
-            raise ValueError(f"fused_attn_half runs on cuda or cpu, not "
-                             f"{x.device}")
+        u, res = attn_half_fwd_op(x, tensors, heads, scale, kv_len)
         ctx.save_for_backward(x, res, *tensors)
         ctx.args = (heads, scale, kv_len)
         ctx.mark_non_differentiable(res)

@@ -75,6 +75,7 @@ import threading
 import torch
 
 from devt_tpu_torch.ops import fused_block as fb
+from devt_tpu_torch.ops._library import kernel_op
 from devt_tpu_torch.ops.attention import (quant_site_allowed,
                                           scaled_dot_product_attention)
 from devt_tpu_torch.ops.flash_attention import fits_single_block
@@ -431,6 +432,23 @@ def _quant_block_cuda(x, qp, heads, scale, kv_len):
     return y
 
 
+def _quant_block_impl(x, tensors, heads, scale, kv_len):
+    qp = dict(zip(QUANT_PARAM_NAMES, tensors))
+    if x.device.type == "cuda":
+        return _quant_block_cuda(x, qp, heads, scale, kv_len)
+    return quant_fused_vit_block_plain(x, qp, heads, scale, kv_len)
+
+
+def _quant_block_fake(x, tensors, heads, scale, kv_len):
+    return x.new_empty(x.shape)
+
+
+# kernel 5: y, the int8 tree in QUANT_PARAM_NAMES order
+quant_block_fwd_op = kernel_op(
+    "quant_block_fwd", "(Tensor x, Tensor[] params, int heads, float scale, "
+    "int kv_len) -> Tensor", _quant_block_impl, _quant_block_fake)
+
+
 def quant_fused_vit_block(x, qp, heads: int, scale: float,
                           kv_len: int) -> torch.Tensor:
     """One fused mixed-precision int8 pre-norm ViT block forward, eval
@@ -438,15 +456,12 @@ def quant_fused_vit_block(x, qp, heads: int, scale: float,
     ``w2`` in x's dtype; Wqkv and W1 run int8, Wo and W2 in x's dtype.
     Same single-kv-block contract as ``fused_vit_block``.
 
-    A CUDA tensor launches the kernel (raising on a shape it does not
-    cover or a failed launch); a CPU tensor runs the plain version."""
-    if x.device.type == "cuda":
-        return _quant_block_cuda(x, qp, heads, float(scale), int(kv_len))
-    if x.device.type == "cpu":
-        return quant_fused_vit_block_plain(x, qp, heads, float(scale),
-                                           int(kv_len))
-    raise ValueError(f"quant_fused_vit_block runs on cuda or cpu, not "
-                     f"{x.device}")
+    Through the ``devt_tpu_torch::quant_block_fwd`` op
+    (``ops/_library.py``): a CUDA tensor launches the kernel (raising on a
+    shape it does not cover or a failed launch); a CPU tensor runs the
+    plain version."""
+    return quant_block_fwd_op(x, [qp[k] for k in QUANT_PARAM_NAMES], heads,
+                              float(scale), int(kv_len))
 
 
 quant_fused_vit_block.launches = 0
@@ -538,6 +553,22 @@ def _matmul_cuda(x, w_q, w_scale):
     return out
 
 
+def _matmul_impl(x, w_q, w_scale):
+    if x.device.type == "cuda":
+        return _matmul_cuda(x, w_q, w_scale)
+    return int8_matmul_fused_plain(x, w_q, w_scale)
+
+
+def _matmul_fake(x, w_q, w_scale):
+    return x.new_empty((*x.shape[:-1], w_q.shape[1]))
+
+
+# kernel 6: x @ dequant(w_q) in x's dtype
+int8_matmul_op = kernel_op(
+    "int8_matmul", "(Tensor x, Tensor w_q, Tensor w_scale) -> Tensor",
+    _matmul_impl, _matmul_fake)
+
+
 def int8_matmul_fused(x, w_q, w_scale) -> torch.Tensor:
     """``x @ dequant(w_q)`` with the row quantize, the int8 product and the
     dequantize in hand-written kernels.  x ``(..., K)`` float; w_q
@@ -546,13 +577,10 @@ def int8_matmul_fused(x, w_q, w_scale) -> torch.Tensor:
     takes, counted in ``.wgmma_launches`` and ``.mma_sync_launches``);
     w_scale ``(1, N)`` f32.  Returns ``x.dtype`` shaped ``(..., N)``.
 
-    A CUDA tensor launches the kernel (raising on a shape it does not
+    Through the ``devt_tpu_torch::int8_matmul`` op (``ops/_library.py``):
+    a CUDA tensor launches the kernel (raising on a shape it does not
     cover or a failed launch); a CPU tensor runs the plain version."""
-    if x.device.type == "cuda":
-        return _matmul_cuda(x, w_q, w_scale)
-    if x.device.type == "cpu":
-        return int8_matmul_fused_plain(x, w_q, w_scale)
-    raise ValueError(f"int8_matmul_fused runs on cuda or cpu, not {x.device}")
+    return int8_matmul_op(x, w_q, w_scale)
 
 
 int8_matmul_fused.launches = 0

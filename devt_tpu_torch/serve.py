@@ -19,17 +19,21 @@ softmax scores, from ``img`` and ``experts`` as the JAX predictor does;
 is quantized.  ``contrastive`` is an encoder, not a classifier, and is
 not served.  The predictor runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA device and no explicit device it raises.
-``from_checkpoint`` serves a checkpoint of ``train/checkpoint.py``.
-Data-parallel meshes, export and Lightning checkpoints are not ported
-yet.
+``from_checkpoint`` serves a checkpoint of ``train/checkpoint.py``,
+``from_lightning_checkpoint`` one of the reference's Lightning modules.
+``export`` writes the forward as a ``torch.export`` program with the
+weights inside, which ``load_exported`` serves without the model code.
+Data-parallel meshes are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Sequence
+import json
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from devt_tpu_torch.config import MMX_GENRES_15, MMX_GENRES_19, Config
 from devt_tpu_torch.data.device_norm import maybe_dequantize_batch
@@ -56,9 +60,42 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return torch.device("cuda")
 
 
-def _todo(what: str, item: int = 3) -> NotImplementedError:
+def _todo(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet — ROADMAP.md "
                                f"queue 1, item {item}")
+
+
+# the devices an exported program may be asked to serve on, and where
+# ``export`` writes which ones it was (with the batch's keys, in order)
+PLATFORMS = ("cpu", "cuda")
+_EXPORT_META = "devt_tpu_torch.json"
+
+
+def _check_platforms(platforms: Sequence[str] | None,
+                     device: torch.device) -> tuple[str, ...]:
+    if platforms is None:
+        return (device.type,)
+    if isinstance(platforms, str):
+        platforms = (platforms,)
+    unknown = [p for p in platforms if p not in PLATFORMS]
+    if unknown or not platforms:
+        raise ValueError(f"unknown platforms {unknown or platforms}: an "
+                         f"exported program serves on {PLATFORMS}")
+    return tuple(platforms)
+
+
+class _Forward(nn.Module):
+    """``Predictor.forward`` as the module ``torch.export`` traces: the
+    model's parameters and buffers become the program's, and the int8
+    site list of a quantized predictor its constants."""
+
+    def __init__(self, predictor: "Predictor"):
+        super().__init__()
+        self.model = predictor.model
+        self.predictor = predictor
+
+    def forward(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.predictor.forward(batch)
 
 
 class Predictor:
@@ -100,7 +137,7 @@ class Predictor:
                              "classifiers, and the JAX package's has no "
                              "branch for it either")
         if mesh is not None:
-            raise _todo("Predictor(mesh=...), data-parallel serving", item=7)
+            raise _todo("Predictor(mesh=...), data-parallel serving", 7)
         if quantize and quant_site_pred is None:
             quant_site_pred = lambda k, n: n >= 2 * k  # noqa: E731
         self.device = resolve_device(device)
@@ -123,7 +160,11 @@ class Predictor:
             with torch.inference_mode(), quant_scope(quant_site_pred), \
                     quant_sites_collect(sites):
                 self._scores(tiny)
-            self._qsites = sites
+            # a block's tree passes some parameters through as they are:
+            # the list holds values, not views that track gradients
+            self._qsites = [
+                {k: t.detach() for k, t in v.items()} if isinstance(v, dict)
+                else tuple(t.detach() for t in v) for v in sites]
 
     @classmethod
     def from_checkpoint(cls, config: Config, ckpt_path: str,
@@ -140,11 +181,79 @@ class Predictor:
     @classmethod
     def from_lightning_checkpoint(cls, config: Config, ckpt_path: str,
                                   **kw) -> "Predictor":
-        raise _todo("Predictor.from_lightning_checkpoint", item=8)
+        """Serve the weights of a reference Lightning ``.ckpt``
+        (``utils/lightning_import.py``): ``ptn`` and ``ptn_shared`` through
+        the SimpleTransformer map, every other model through the
+        FrameTransformer one, as the JAX package's
+        ``Predictor.from_lightning_checkpoint`` maps them; then
+        ``jax_to_state_dict``.  The model takes the modules it builds (a
+        ``vid`` FrameTransformer has no image side) and raises ``KeyError``
+        on a weight the checkpoint lacks."""
+        from devt_tpu_torch.utils import lightning_import
+        from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
+
+        sd = lightning_import.load_checkpoint_state_dict(ckpt_path)
+        if config.model in ("ptn", "ptn_shared"):
+            variables = lightning_import.simple_transformer(
+                sd, nlayers=config.nlayers,
+                num_experts=len(config.experts))
+        else:
+            variables = lightning_import.frame_transformer(sd)
+        weights = jax_to_state_dict(variables)
+        with torch.device("meta"):          # the names, not the numbers
+            names = build_model(config).state_dict().keys()
+        missing = [k for k in names if k not in weights]
+        if missing:
+            raise KeyError(f"{ckpt_path} holds no weight for {len(missing)} "
+                           f"of the {config.model} model's entries, "
+                           f"{missing[:4]}...")
+        return cls(config, {k: weights[k] for k in names}, **kw)
 
     def export(self, path: str, batch_size: int | None = None,
                platforms: Sequence[str] | None = None) -> None:
-        raise _todo("Predictor.export")
+        """Write the forward as a ``torch.export`` program (one file,
+        ``torch.export.save``), the weights inside it, and with
+        ``quantize`` the int8 site list too: :func:`load_exported` serves
+        it without the model code, the registry, the config or the
+        checkpoint.
+
+        It traces ``forward`` on one padded batch of ``batch_size`` rows
+        (default the largest bucket), as ``example_batch`` draws it, with
+        ``vid`` and ``img`` in uint8 when ``config.wire_format`` is
+        ``"u8"``: callers pad requests to that size, as :meth:`predict`
+        does, and send those dtypes.  Each hand-written kernel stays one
+        node, a ``devt_tpu_torch::`` op whose CUDA implementation launches
+        the kernel and whose CPU implementation is its plain version
+        (``ops/_library.py``).  Unlike a StableHLO artifact of the JAX
+        package, the program needs ``devt_tpu_torch.ops`` imported where it
+        runs: that import registers the ops.
+
+        ``platforms`` keeps the JAX package's meaning, the devices the
+        artifact may serve on: any of ``("cpu", "cuda")``, None for the
+        predictor's own; another name raises ``ValueError``.  One program
+        serves on both, since every op has both implementations; the
+        routes between kernels are the ones this predictor's device takes
+        (on the card, the shapes the kernels are compiled for; the plain
+        versions take every shape, so a program traced on the card runs on
+        the CPU)."""
+        platforms = _check_platforms(platforms, self.device)
+        b = batch_size or self.buckets[-1]
+        example = {}
+        for key, value in sorted(example_batch(self.config,
+                                               batch_size=b).items()):
+            if key == "label":
+                continue
+            if self.config.wire_format == "u8" and key in ("vid", "img"):
+                value = np.zeros(value.shape, np.uint8)
+            example[key] = torch.from_numpy(value).to(self.device)
+        with torch.inference_mode():
+            program = torch.export.export(_Forward(self), (example,),
+                                          strict=False)
+        meta = {"platforms": list(platforms),
+                "batch": {k: [list(v.shape), str(v.dtype)]
+                          for k, v in example.items()}}
+        torch.export.save(program, path,
+                          extra_files={_EXPORT_META: json.dumps(meta)})
 
     def _scores(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         batch = maybe_dequantize_batch(dict(batch), dtype=torch.float32)
@@ -203,3 +312,35 @@ class Predictor:
                    if s > self.threshold and i < len(self.target_names)]
                   for row in scores]
         return {"scores": scores, "labels": labels}
+
+
+def load_exported(path: str, device: str | torch.device | None = None
+                  ) -> Callable[[Mapping[str, np.ndarray]], np.ndarray]:
+    """Load a program written by :meth:`Predictor.export` onto ``device``
+    (None: the card, raising without CUDA, like every entry point of the
+    port; the program's tensors are moved there).  Returns a callable that
+    takes the model-keyed numpy batch dict, already padded to the exported
+    batch size, and returns the score array, like the JAX package's
+    ``exported.call``.  A device outside the export's ``platforms`` raises
+    ``ValueError``.  This module imports ``devt_tpu_torch.ops``, which
+    registers the program's ops; a kernel that fails inside the program
+    raises."""
+    from torch.export.passes import move_to_device_pass
+
+    device = resolve_device(device)
+    extra = {_EXPORT_META: ""}
+    program = torch.export.load(path, extra_files=extra)
+    meta = json.loads(extra[_EXPORT_META])
+    if device.type not in meta["platforms"]:
+        raise ValueError(f"{path} was exported for {meta['platforms']}, not "
+                         f"{device.type}")
+    module = move_to_device_pass(program, device).module()
+    keys = list(meta["batch"])
+
+    def call(batch: Mapping[str, np.ndarray]) -> np.ndarray:
+        tensors = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
+                       device) for k in keys}
+        with torch.inference_mode():
+            return module(tensors).float().cpu().numpy()
+
+    return call

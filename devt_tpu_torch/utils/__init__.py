@@ -1,1 +1,2 @@
-"""Utilities (the JAX-variables ↔ state_dict weight bridge)."""
+"""Utilities: the JAX-variables ↔ state_dict weight bridge, and the
+import of reference (torchvision, Lightning) state_dicts."""

@@ -89,7 +89,11 @@ def test_walk_covers_the_training_slice():
                 # the frame pipeline
                 "devt_tpu_torch/data/mmx_frame.py",
                 "devt_tpu_torch/data/native.py",
-                "devt_tpu_torch/data/loader_adapter.py"):
+                "devt_tpu_torch/data/loader_adapter.py",
+                # the export ops and the Lightning import
+                "devt_tpu_torch/ops/_library.py",
+                "devt_tpu_torch/utils/torch_port.py",
+                "devt_tpu_torch/utils/lightning_import.py"):
         assert rel in walked, rel
     assert "pandas" in FORBIDDEN
 

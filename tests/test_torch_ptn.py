@@ -80,8 +80,18 @@ def test_encoder_stack_and_its_refusals():
         got = tm(torch.tensor(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(
         v, jnp.asarray(x))), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tenc.TorchTransformerEncoder(32, 2, 48, 2, remat=True)
+    # remat is ported: the same weights give the same output in eval,
+    # where there is nothing to rematerialise, and in a training forward
+    remat = tenc.TorchTransformerEncoder(32, 2, 48, 2, dropout=0.0,
+                                         remat=True).eval()
+    remat.load_state_dict(tm.state_dict())
+    with torch.no_grad():
+        assert torch.equal(remat(torch.tensor(x)), got)
+    leaf = torch.tensor(x).requires_grad_(True)
+    y = remat.train()(leaf)
+    (grad,) = torch.autograd.grad(y.sum(), leaf)
+    assert torch.isfinite(grad).all()
+    np.testing.assert_allclose(y.detach().numpy(), got.numpy(), **TOL)
     # a training forward with dropout needs its randomness handed in
     drop = tenc.TorchTransformerEncoder(32, 2, 48, 1, dropout=0.1).train()
     with pytest.raises(ValueError, match="DropoutRng"):

@@ -89,10 +89,12 @@ def test_default_device_is_the_card(monkeypatch):
 def test_unported_serving_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor(Config(**CFG), {}, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor.from_lightning_checkpoint(Config(**CFG), "missing.ckpt")
-    # from_checkpoint is ported (test_torch_harness.py): a missing
+    # from_checkpoint and from_lightning_checkpoint are ported
+    # (test_torch_harness.py, test_torch_lightning_import.py): a missing
     # checkpoint is a missing file
+    with pytest.raises(FileNotFoundError):
+        Predictor.from_lightning_checkpoint(Config(**CFG), "missing.ckpt",
+                                            device="cpu")
     with pytest.raises(FileNotFoundError):
         Predictor.from_checkpoint(Config(**CFG), "missing.ckpt")
 
