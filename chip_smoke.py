@@ -305,6 +305,26 @@ Phases, each printing a line of its own; any failure exits non-zero:
                width, FrameTransformer vid and PTN at phase 12's width,
                through Predictor.from_lightning_checkpoint on the card and
                on the CPU; kernel 3 launches on the card.
+ 36. dp      — data parallelism: two ranks, each a process of this
+               script (``--dp-rank R DIR``), join a Gloo group on the one
+               card (NCCL cannot put two ranks on one device) through
+               parallel.distributed.initialize.  ViViT at phase 7's width,
+               its 32 clips 16 a rank: make_train_step and
+               make_multi_step(8) over the mesh, kernels 1 and 2 launched
+               4 times a step on each rank, the first loss against the
+               one-process 32-clip step's, the parameters bit-identical
+               across the ranks (a checksum), the world's step ms and each
+               rank's profiled device ms (not gated); at dropout 0.1 each
+               rank's own loss differs and the step's is their mean.  The
+               contrastive encoder at the registry's widths, f32, B=256:
+               one SGD step with global negatives and synced BatchNorm,
+               the loss, every gradient leaf and the new statistics
+               against the one-process step.  Predictor(mesh=...) on 37 u8
+               clips, buckets (8, 32), bf16 (kernel 1) and int8 (kernel 5)
+               on each rank, against the one-card predictor.  A one-rank
+               NCCL group: the coalesced mean and all_gather_rows forward
+               and backward on CUDA tensors.  Rows 1, 2 and 5 of the
+               kernels line carry these launches (dp_launches).
 
 The last lines are a JSON line of the kernels (fifteen entries in kernel
 order, each with its number), the nvidia-smi line, and
@@ -989,14 +1009,14 @@ def phase_serve() -> dict:
             "clips_per_s": clips_per_s, "scores": scores}
 
 
-def _train_batch(n: int, seed: int, image: int = 224):
+def _train_batch(n: int, seed: int, image: int = 224, frames: int = 16):
     """A fixed synthetic batch as the JAX bench draws it: normal clips in
     bf16 (channels-last) and 19 multi-hot genre labels, on the card."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    vid = torch.from_numpy(rng.standard_normal((n, 16, image, image, 3),
+    vid = torch.from_numpy(rng.standard_normal((n, frames, image, image, 3),
                                                dtype=np.float32))
     label = (rng.random((n, 19)) < 0.3).astype(np.float32)
     return {"vid": vid.cuda().to(torch.bfloat16),
@@ -5772,6 +5792,417 @@ def phase_lightning() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 36: data parallelism, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# two ranks, each a process of this script; a child that runs longer fails;
+# ViViT's clip length (phase 7's) and the clips served (phase 4's)
+DP_RANKS, DP_TIMEOUT, DP_FRAMES, DP_CLIPS = 2, 420, 16, 37
+# ViViT's DP loss (the mean of two 16-clip bf16 losses) against the
+# one-process 32-clip step's: the same arithmetic per clip but for library
+# products whose row count differs, which may move a bf16 logit by an ulp
+# (2^-8 of it); the loss is a mean of the logits' BCE terms
+DP_LOSS_ATOL = 1e-2
+# the contrastive step in f32 (TF32 off) against the one-process global
+# batch: the loss, each gradient leaf (max |dp - one| over the leaf's
+# largest element: sums over the rows in another order, and the
+# BatchNorm's weight gradient cancels; 4.6e-5 in a CPU rehearsal, the
+# bound of phase 14's f32 gradients) and the BatchNorm statistics
+DP_CON_LOSS_RTOL, DP_CON_GRAD_RTOL, DP_CON_STAT_TOL = 1e-5, 1e-3, 1e-5
+DP_CON_LR = 0.5
+
+
+def _dp_checksum(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _dp_vivit(rank: int, mesh) -> dict:
+    """ViViT at phase 7's width, its 32 clips 16 a rank: one step and one
+    make_multi_step(8) over the mesh, kernels 1 and 2 counted; rank 0 holds
+    the first loss against the one-process 32-clip step; then dropout
+    0.1."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.models.layers import DropoutRng
+    from devt_tpu_torch.models.vivit import ViViT
+    from devt_tpu_torch.ops.fused_block import fused_vit_block
+    from devt_tpu_torch.parallel import train_step as tts
+    from devt_tpu_torch.parallel.mesh import shard_batch
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+    from devt_tpu_torch.train.steps import forward_and_loss
+
+    cfg = Config(model="vivit", batch_size=TRAIN_BATCH, frame_len=DP_FRAMES,
+                 n_classes=19, opt="adamW", learning_rate=1e-4,
+                 precision="bf16", accum_steps=1)
+    model = build_model(cfg, torch.Generator().manual_seed(SEED))
+    depth = len(model.space_transformer.blocks)
+    reference = copy.deepcopy(model) if rank == 0 else None
+    batch = _train_batch(TRAIN_BATCH, SEED + 4, frames=DP_FRAMES)
+    local = shard_batch(batch, mesh)
+    stacked = {k: v[None].expand(MULTI_STEPS, *v.shape)
+               for k, v in local.items()}
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    step = tts.make_train_step(model, cfg, mesh=mesh)
+    multi = tts.make_multi_step(model, cfg, MULTI_STEPS, mesh=mesh)
+
+    _zero_counts()
+    state, first = step(state, local, SEED)
+    state, metrics = multi(state, stacked, SEED)
+    torch.cuda.synchronize()
+    out = {"k1": fused_vit_block.launches,
+           "k2": fused_vit_block.bwd_launches, "depth": depth,
+           "steps": 1 + MULTI_STEPS, "loss": first["loss"].item(),
+           "multi_loss": metrics["loss"].item(),
+           "checksum": _dp_checksum(state.params.values())}
+    if rank == 0:
+        one = TrainState.create(dict(reference.named_parameters()),
+                                build_optimizer(cfg))
+        out["one_loss"] = tts.make_train_step(reference, cfg)(
+            one, batch, SEED)[1]["loss"].item()
+        del reference, one
+
+    # the world's step: both ranks from one barrier to the next
+    multi(state, stacked, SEED)[1]["loss"].item()
+    dist.barrier()
+    t0 = time.perf_counter()
+    state, metrics = multi(state, stacked, SEED)
+    metrics["loss"].item()
+    dist.barrier()
+    out["step_ms"] = (time.perf_counter() - t0) / MULTI_STEPS * 1e3
+    rows, busy, wall_ms = _device_profile(lambda: step(state, local, SEED))
+    out["device_ms"] = sum(ms for _, ms, _ in rows)
+    out["busy"] = busy
+    out["checksum_after"] = _dp_checksum(state.params.values())
+
+    # dropout 0.1: each rank's own masks, the step's loss their mean
+    drop = ViViT(num_classes=19, num_frames=DP_FRAMES, channels_last=True,
+                 dropout=DROPOUT, dtype=torch.bfloat16).init_weights(
+                     torch.Generator().manual_seed(SEED)).cuda()
+    drop_state = TrainState.create(dict(drop.named_parameters()),
+                                   build_optimizer(cfg))
+    with torch.no_grad():
+        pre, _, _ = forward_and_loss(
+            drop, cfg, {"params": drop_state.params}, local,
+            DropoutRng(tts.step_seed(tts.rank_seed(SEED, rank), 0)),
+            train=True)
+    drop_state, drop_first = tts.make_train_step(drop, cfg, mesh=mesh)(
+        drop_state, local, SEED)
+    drop_state, drop_metrics = tts.make_multi_step(
+        drop, cfg, DROP_STEPS, mesh=mesh)(
+        drop_state, {k: v[:DROP_STEPS] for k, v in stacked.items()}, SEED)
+    out.update(drop_pre=pre.item(), drop_loss=drop_first["loss"].item(),
+               drop_multi_loss=drop_metrics["loss"].item(),
+               drop_checksum=_dp_checksum(drop_state.params.values()))
+    return out
+
+
+def _dp_contrastive(rank: int, mesh) -> dict:
+    """The contrastive encoder at the registry's widths (2048 → 2048 → 305
+    → 128), f32, at the global batch of phase 29: one SGD step over the
+    mesh (global negatives, synced BatchNorm); rank 0 holds the loss, each
+    gradient leaf (the update over the rate) and the new BatchNorm
+    statistics against the one-process step on the 256 rows."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.models.contrastive import ContrastiveEncoder
+    from devt_tpu_torch.parallel import train_step as tts
+    from devt_tpu_torch.parallel.mesh import shard_batch
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState, model_buffers
+
+    cfg = Config(model="contrastive", batch_size=CONTRASTIVE_BATCH,
+                 precision="f32", opt="sgd", learning_rate=DP_CON_LR,
+                 momentum=0.0, weight_decay=0.0, scheduling=False,
+                 dropout=0.0)
+    model = ContrastiveEncoder(dropout=0.0).init_weights(
+        torch.Generator().manual_seed(SEED)).cuda()
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    reference = copy.deepcopy(model) if rank == 0 else None
+    rng = np.random.default_rng(SEED + 36)
+    batch = {k: torch.from_numpy(rng.standard_normal(
+        (CONTRASTIVE_BATCH, 2048), dtype=np.float32)).cuda()
+        for k in ("x_i", "x_j")}
+    batch["label"] = torch.zeros((CONTRASTIVE_BATCH, 1)).cuda()
+
+    def run(m, b, mesh_):
+        state = TrainState.create(dict(m.named_parameters()),
+                                  build_optimizer(cfg),
+                                  model_state=model_buffers(m))
+        state, metrics = tts.make_train_step(m, cfg, mesh=mesh_)(
+            state, b, SEED)
+        grads = {k: (before[k] - p.detach()) / DP_CON_LR
+                 for k, p in state.params.items()}
+        stats = {k: v.detach().clone() for k, v in state.model_state.items()}
+        return metrics["loss"].item(), grads, stats
+
+    loss, grads, stats = run(model, shard_batch(batch, mesh), mesh)
+    out = {"loss": loss,
+           "checksum": _dp_checksum([*model.parameters(), *stats.values()])}
+    if rank == 0:
+        one_loss, one_grads, one_stats = run(reference, batch, None)
+        out["one_loss"] = one_loss
+        out["grad_gap"], out["grad_leaf"] = max(
+            ((g - one_grads[k]).abs().max().item()
+             / max(one_grads[k].abs().max().item(), 1e-30), k)
+            for k, g in grads.items())
+        out["stat_gap"] = max((v - one_stats[k]).abs().max().item()
+                              / max(one_stats[k].abs().max().item(), 1.0)
+                              for k, v in stats.items())
+    return out
+
+
+def _dp_serve(rank: int, mesh) -> dict:
+    """ViViT of phase 4 behind Predictor(mesh=...), buckets (8, 32), on 37
+    u8 clips, bf16 and int8, kernels 1 and 5 counted on the rank; rank 0
+    holds the scores against the one-card predictor's."""
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.ops.fused_block import fused_vit_block
+    from devt_tpu_torch.ops.quant import quant_fused_vit_block
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.serve import Predictor
+
+    cfg = Config(model="vivit", frame_len=DP_FRAMES, n_classes=19,
+                 precision="bf16", dropout=0.0)
+    weights = build_model(cfg, torch.Generator().manual_seed(SEED)) \
+        .state_dict()
+    clips = np.random.default_rng(SEED).integers(
+        0, 256, (DP_CLIPS, cfg.frame_len, 224, 224, 3), dtype=np.uint8)
+    out = {}
+    for tag, quantize, counter in (("bf16", False, fused_vit_block),
+                                   ("int8", True, quant_fused_vit_block)):
+        pred = Predictor(cfg, weights, buckets=(8, 32), mesh=mesh,
+                         quantize=quantize)
+        _zero_counts()
+        scores = pred.predict({"vid": clips})["scores"]
+        torch.cuda.synchronize()
+        out[tag] = {"launches": counter.launches, "buckets": pred.buckets,
+                    "shape": list(scores.shape),
+                    "finite": bool(np.isfinite(scores).all()),
+                    "checksum": _dp_checksum([torch.from_numpy(scores)])}
+        if rank == 0:
+            one = Predictor(cfg, weights, buckets=(8, 32), quantize=quantize)
+            out[tag]["err"] = float(np.abs(
+                scores - one.predict({"vid": clips})["scores"]).max())
+            del one
+        del pred
+    return out
+
+
+def _dp_nccl() -> dict:
+    """A one-rank NCCL group beside the Gloo world: the coalesced mean and
+    all_gather_rows forward and backward on CUDA tensors (on rank 0; both
+    ranks make the group)."""
+    import torch
+    import torch.distributed as dist
+
+    from devt_tpu_torch.parallel import collectives
+
+    group = dist.new_group([0], backend="nccl")
+    if dist.get_rank() != 0:
+        return {}
+    axis = {"nccl": collectives.Axis(group, 1, 0)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xs = [torch.randn((5, 7), device="cuda", generator=gen),
+          torch.randn((3,), device="cuda", generator=gen).bfloat16()]
+    x = torch.randn((4, 6), device="cuda", generator=gen,
+                    requires_grad=True)
+    with collectives.axis_scope(axis):
+        means = collectives.pmean(xs, "nccl")
+        y = collectives.all_gather_rows(x, "nccl")
+        (y * 3.0).sum().backward()
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(group),
+            "mean_ok": all(m.is_cuda and torch.equal(m, t)
+                           for m, t in zip(means, xs)),
+            "gather_ok": y.is_cuda and torch.equal(y, x.detach()),
+            "grad_ok": torch.equal(x.grad, torch.full_like(x, 3.0))}
+
+
+def _dp_child(rank: int, workdir: str) -> int:
+    """One rank of phase 36 (``chip_smoke.py --dp-rank R DIR``)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from devt_tpu_torch.parallel import distributed
+    from devt_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    distributed.initialize(f"file://{os.path.join(workdir, 'init')}",
+                           DP_RANKS, rank)
+    mesh = make_mesh(dp=DP_RANKS)
+    out = {"runtime": distributed.runtime_info(),
+           "device": str(torch.cuda.current_device())}
+    out["vivit"] = _dp_vivit(rank, mesh)
+    out["contrastive"] = _dp_contrastive(rank, mesh)
+    out["serve"] = _dp_serve(rank, mesh)
+    out["nccl"] = _dp_nccl()
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dp() -> dict:
+    """Phase 36: two ranks of this script share the card over Gloo (NCCL
+    cannot put two ranks on one device) and drive the data-parallel step
+    executors, the synced contrastive step and Predictor(mesh=...); one of
+    them runs the collectives over a one-rank NCCL group.  The kernels are
+    built (phase 2): the ranks load them."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        env = {**os.environ, "LOCAL_WORLD_SIZE": str(DP_RANKS)}
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+             workdir], env={**env, "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_RANKS)]
+        logs = []
+        try:
+            deadline = time.monotonic() + DP_TIMEOUT
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines()[-40:]:
+                print(f"[dp rank {r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"dp: rank {r} exited with "
+                                     f"{p.returncode}")
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return _dp_report(ranks, time.perf_counter() - t0)
+
+
+def _dp_report(ranks: list, wall_s: float) -> dict:
+    """Phase 36's checks of the ranks' results, its line, and the
+    launches for the kernels line."""
+    vivit = [r["vivit"] for r in ranks]
+    con = [r["contrastive"] for r in ranks]
+    serve = [r["serve"] for r in ranks]
+    v0, c0, nccl = vivit[0], con[0], ranks[0]["nccl"]
+    per_step = v0["depth"] * v0["steps"]
+    problems = []
+    for r, v in enumerate(vivit):
+        if (v["k1"], v["k2"]) != (per_step, per_step):
+            problems.append(f"rank {r}: kernels 1, 2 launched {v['k1']}, "
+                            f"{v['k2']} times, expected {per_step} each")
+        if ranks[r]["runtime"]["backend"] != "gloo":
+            problems.append(f"rank {r}: backend {ranks[r]['runtime']}")
+    for key in ("checksum", "checksum_after", "drop_checksum"):
+        if len({v[key] for v in vivit}) != 1:
+            problems.append(f"ViViT parameters differ across ranks ({key})")
+    loss_gap = abs(v0["loss"] - v0["one_loss"])
+    if not loss_gap <= DP_LOSS_ATOL:
+        problems.append(f"ViViT DP loss {v0['loss']} vs one process "
+                        f"{v0['one_loss']} (atol {DP_LOSS_ATOL})")
+    pre = [v["drop_pre"] for v in vivit]
+    drop_gap = abs(v0["drop_loss"] - sum(pre) / len(pre))
+    if pre[0] == pre[1] or not drop_gap <= 1e-5 * abs(v0["drop_loss"]) \
+            or not all(math.isfinite(v["drop_multi_loss"]) for v in vivit):
+        problems.append(f"dropout: the ranks' losses {pre}, the step's "
+                        f"{v0['drop_loss']}, multi {v0['drop_multi_loss']}")
+    if len({c["checksum"] for c in con}) != 1 \
+            or not abs(c0["loss"] - c0["one_loss"]) \
+            <= DP_CON_LOSS_RTOL * abs(c0["one_loss"]) \
+            or not c0["grad_gap"] <= DP_CON_GRAD_RTOL \
+            or not c0["stat_gap"] <= DP_CON_STAT_TOL:
+        problems.append(f"contrastive: {c0} (loss rtol {DP_CON_LOSS_RTOL}, "
+                        f"grad {DP_CON_GRAD_RTOL}, stats {DP_CON_STAT_TOL})")
+    bounds = {"bf16": SCORE_ATOL, "int8": QUANT_SCORE_ATOL}
+    for tag, bound in bounds.items():
+        s0 = serve[0][tag]
+        for r, s in enumerate(serve):
+            if s[tag]["launches"] != 2 * v0["depth"] or not s[tag]["finite"] \
+                    or s[tag]["shape"] != [DP_CLIPS, 19] \
+                    or s[tag]["checksum"] != s0["checksum"] \
+                    or s[tag]["buckets"] != [8, 32]:
+                problems.append(f"Predictor(mesh) {tag}, rank {r}: "
+                                f"{s[tag]}")
+        if not s0["err"] <= bound:
+            problems.append(f"Predictor(mesh) {tag}: scores differ from the "
+                            f"one-card predictor's by {s0['err']} > {bound}")
+    if nccl.get("backend") != "nccl" or not (
+            nccl["mean_ok"] and nccl["gather_ok"] and nccl["grad_ok"]):
+        problems.append(f"one-rank NCCL group: {nccl}")
+    if problems:
+        raise AssertionError("dp: " + "; ".join(problems))
+
+    smi = _nvidia_smi()
+    print(f"[dp] {DP_RANKS} ranks over Gloo on the one card (NCCL cannot "
+          f"put two ranks on one device), {wall_s:.1f} s with the ranks' "
+          f"start | ViViT B={TRAIN_BATCH} ({TRAIN_BATCH // DP_RANKS} a "
+          f"rank), 1 step + make_multi_step({MULTI_STEPS}): kernels 1 and 2 "
+          f"launched {v0['k1']} and {v0['k2']} times on each rank; first "
+          f"loss {v0['loss']:.6f} vs the one-process B={TRAIN_BATCH} step's "
+          f"{v0['one_loss']:.6f} (|diff| {loss_gap:.3e}, atol "
+          f"{DP_LOSS_ATOL}); parameters bit-identical across the ranks "
+          f"(sha256 {v0['checksum_after']}); step_ms of the world "
+          f"{', '.join(f'{v['step_ms']:.3f}' for v in vivit)} (rank 0, 1; "
+          f"host clock, barrier to barrier), device ms a step by rank "
+          f"{', '.join(f'{v['device_ms']:.3f}' for v in vivit)} (profiled, "
+          f"busy {', '.join(f'{v['busy']:.1%}' for v in vivit)}); dropout "
+          f"{DROPOUT}: the ranks' own losses {pre[0]:.6f}, {pre[1]:.6f}, the "
+          f"step's {v0['drop_loss']:.6f} (their mean), "
+          f"make_multi_step({DROP_STEPS}) {v0['drop_multi_loss']:.6f} | "
+          f"contrastive B={CONTRASTIVE_BATCH} f32 SGD: loss "
+          f"{c0['loss']:.7f} vs {c0['one_loss']:.7f}, worst gradient leaf "
+          f"{c0['grad_gap']:.3e} of its largest element ({c0['grad_leaf']}; "
+          f"bound {DP_CON_GRAD_RTOL}), BatchNorm statistics "
+          f"{c0['stat_gap']:.3e} (bound {DP_CON_STAT_TOL}) | "
+          f"Predictor(mesh, buckets (8, 32)) on {DP_CLIPS} u8 clips: bf16 "
+          f"kernel 1 "
+          f"x{serve[0]['bf16']['launches']} a rank, vs one card "
+          f"{serve[0]['bf16']['err']:.3e} (atol {SCORE_ATOL}); int8 kernel "
+          f"5 x{serve[0]['int8']['launches']} a rank, vs one card "
+          f"{serve[0]['int8']['err']:.3e} (atol {QUANT_SCORE_ATOL}) | "
+          f"one-rank NCCL group: coalesced mean, all_gather_rows forward "
+          f"and backward on CUDA tensors ok | ranks took "
+          f"{', '.join(f'{r['seconds']:.1f}' for r in ranks)} s | "
+          f"nvidia-smi: {smi}", flush=True)
+    return {"k1": sum(v["k1"] + s["bf16"]["launches"]
+                      for v, s in zip(vivit, serve)),
+            "k2": sum(v["k2"] for v in vivit),
+            "k5": sum(s["int8"]["launches"] for s in serve),
+            "step_ms": [v["step_ms"] for v in vivit],
+            "device_ms": [v["device_ms"] for v in vivit]}
+
+
 def main() -> int:
     import torch
 
@@ -5896,6 +6327,8 @@ def main() -> int:
     artifact = phase_export()["artifact_launches"]
     phase_remat()
     phase_lightning()
+    # data parallelism: two ranks on the one card
+    dp = phase_dp()
     # the MoE and the later model paths' launches of the earlier kernels
     later_runs = (serve_moe["counts"], serve_moe["int8_counts"],
                   train_moe["counts"], train_moe["drop_counts"],
@@ -5949,10 +6382,12 @@ def main() -> int:
         # the one-shot body's normalise-after instance
         entry(1, "fused_vit_block_fwd", csrc + "block_sm90.cuh",
               "devt_tpu/ops/fused_block.py:177",
-              serve["launches"] + train["fwd_launches"] + later("k1"),
+              serve["launches"] + train["fwd_launches"] + later("k1")
+              + dp["k1"],
               {**fwd, "max_abs_err": max(fwd["max_abs_err"].values())},
               entry_launches=entry_run["counts"]["k1"]
               + frame_run["counts"]["k1"], artifact_launches=artifact["k1"],
+              dp_launches=dp["k1"],
               launch_sources=[csrc + "fused_block_fwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "flash_fwd_sm90.cuh"]),
@@ -5960,9 +6395,9 @@ def main() -> int:
         # backward on the recompute and kernels 12's and 13's wgmma bodies
         entry(2, "fused_vit_block_bwd", csrc + "block_sm90.cuh",
               "devt_tpu/ops/fused_block.py:240",
-              train["bwd_launches"] + later("k2"), bwd,
+              train["bwd_launches"] + later("k2") + dp["k2"], bwd,
               entry_launches=entry_run["counts"]["k2"]
-              + frame_run["counts"]["k2"],
+              + frame_run["counts"]["k2"], dp_launches=dp["k2"],
               launch_sources=[csrc + "fused_block_bwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "block_bwd_parts.cuh",
@@ -6008,8 +6443,8 @@ def main() -> int:
         # attention on the one-shot body's normalise-after instance
         entry(5, "quant_fused_vit_block", csrc + "quant_block_fwd.cu",
               "devt_tpu/ops/quant.py:275",
-              serve_int8["launches"] + later("k5"), quant,
-              artifact_launches=artifact["k5"],
+              serve_int8["launches"] + later("k5") + dp["k5"], quant,
+              artifact_launches=artifact["k5"], dp_launches=dp["k5"],
               launch_sources=[csrc + "quant_block_fwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "gemm_s8_sm90.cuh",
@@ -6076,7 +6511,8 @@ def main() -> int:
                                            csrc + "flash_bwd_sm90.cuh"])]
     for k in kernels:
         if k["launches"] < 1 or k.get("entry_launches", 1) < 1 \
-                or k.get("artifact_launches", 1) < 1:
+                or k.get("artifact_launches", 1) < 1 \
+                or k.get("dp_launches", 1) < 1:
             raise AssertionError(f"{k['name']}: no launch on its path")
     print(json.dumps({"kernels": kernels}))
     print(f"[time] {time.perf_counter() - t0:.1f} s from the build's start",
@@ -6089,4 +6525,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:      # one rank of phase 36
+        sys.exit(_dp_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

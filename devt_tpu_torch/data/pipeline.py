@@ -7,6 +7,9 @@ datamodule:
     loaders);
   * per-process sharding: process ``process_index`` of ``process_count``
     reads a contiguous slice of every epoch's index permutation;
+  * per-rank rows (:meth:`Loader.shard_rows`, the data-parallel step): a
+    rank assembles only its rows of each global batch, so that the rows
+    of ranks 0..n-1 concatenated are the one-process batch;
   * thread-pool item assembly with a bounded queue of ready batches;
   * :func:`device_prefetch`, which places batches on the card ahead of the
     step that reads them: a copy into pinned host memory, then an
@@ -77,6 +80,7 @@ class Loader:
         self.prefetch = prefetch
         self.process_index = process_index
         self.process_count = process_count or 1
+        self._rows = (0, 1)
         self._epoch = 0
         self._skip_batches = 0
 
@@ -93,6 +97,18 @@ class Loader:
         fresh Loader otherwise replays epoch 0's order."""
         self._epoch = int(epoch)
         self._skip_batches = int(skip_batches)
+
+    def shard_rows(self, index: int, count: int) -> None:
+        """Assemble only rank ``index``'s rows of each batch: the
+        ``index``-th of ``count`` equal contiguous blocks of its
+        ``batch_size`` rows (``parallel.mesh.shard_batch`` of the batch a
+        single process assembles, without assembling the others).  The
+        number of batches, the order and the resume skip are the single
+        process'.  ``ValueError`` when the rows do not divide."""
+        if not 0 <= index < count or self.batch_size % count:
+            raise ValueError(f"rank {index} of {count}: batch of "
+                             f"{self.batch_size} rows does not divide")
+        self._rows = (int(index), int(count))
 
     def _epoch_indices(self) -> np.ndarray:
         rng = np.random.default_rng(self.seed + self._epoch)
@@ -127,8 +143,12 @@ class Loader:
         fill = getattr(self.dataset, "getitem_into", None)
         spec = getattr(self.dataset, "item_spec", None)
 
+        rank, ranks = self._rows
+        rows = self.batch_size // ranks
+
         def assemble(b: int) -> dict[str, np.ndarray]:
-            batch_idx = indices[b * self.batch_size:(b + 1) * self.batch_size]
+            start = b * self.batch_size + rank * rows
+            batch_idx = indices[start:start + rows]
             if fill is not None and spec is not None:
                 out = {k: np.empty((len(batch_idx),) + tuple(s), d)
                        for k, (s, d) in spec.items()}

@@ -15,9 +15,22 @@ Usage, on a CUDA card:
 port's own dependencies.  Datasets: ``mmx-frame`` (the default: PNG
 frames listed by the CSV at ``--csv_manifest``, decoded by the native
 decoder where it builds, else by Pillow), ``synthetic``, ``mmx``,
-``mit``, ``mmx-contrastive`` and ``mit-contrastive``.  Meshes (``dp``
-or ``mp`` > 1) are not ported yet.  ``main(argv, device="cpu")``
-runs on the CPU (the tests do); otherwise it needs a card.
+``mit``, ``mmx-contrastive`` and ``mit-contrastive``.
+``main(argv, device="cpu")`` runs on the CPU (the tests do); otherwise it
+needs a card.
+
+Data parallel, one process a rank (``parallel/distributed.py``):
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m devt_tpu_torch.main --dp 2 [--key value ...]
+
+(``torchrun`` is the same launcher.)  Two ranks on one card share it over
+Gloo; with a card each they use NCCL.  The mesh engages by the JAX entry
+point's rule, with the world's ranks in place of its devices.  In a world
+of one process ``--dp 2`` or ``--mp 2`` trains on the one card, as JAX
+does on one device.  In a world of more than one rank a mesh that cannot
+engage raises ``ValueError`` with JAX's reason: where JAX warns and falls
+back to one device, ranks cannot.
 """
 
 from __future__ import annotations
@@ -29,12 +42,13 @@ import sys
 import torch
 
 from devt_tpu_torch.config import Config
+from devt_tpu_torch.parallel import distributed
 from devt_tpu_torch.registry import build_model
 from devt_tpu_torch.serve import resolve_device
 from devt_tpu_torch.train.callbacks import (DisplayResults, MITEval,
                                             TransformerEval)
 from devt_tpu_torch.train.harness import Trainer
-from devt_tpu_torch.train.loggers import build_logger
+from devt_tpu_torch.train.loggers import NullLogger, build_logger
 
 
 def build_datamodule(config: Config):
@@ -117,22 +131,53 @@ def parse_args(argv=None) -> Config:
     return config.replace(**updates)
 
 
+def use_mesh(config: Config, world: int) -> bool:
+    """The JAX entry point's rule with ``world`` ranks in place of its
+    devices: the mesh engages when dp·mp > 1, the global batch divides
+    over the data axis and the world holds the mesh.  In a world of more
+    than one rank a mesh that does not engage, or leaves ranks out,
+    raises ``ValueError`` saying why: ranks cannot fall back to one
+    device."""
+    mp = max(config.mp, 1)
+    dp = config.dp if config.dp != -1 else max(world // mp, 1)
+    engage = (dp * mp > 1 and config.batch_size % max(dp, 1) == 0
+              and world >= dp * mp)
+    if world > 1 and not (engage and world == dp * mp):
+        if config.batch_size % max(dp, 1) != 0:
+            why = (f"batch_size={config.batch_size} does not divide over "
+                   f"the data axis dp={dp} — pick a batch size that is a "
+                   f"multiple of {dp}, or set --dp explicitly")
+        elif world < dp * mp:
+            why = (f"dp*mp = {dp}*{mp} = {dp * mp} exceeds the "
+                   f"{world} ranks — lower --dp/--mp")
+        elif dp * mp < world:
+            why = (f"dp*mp = {dp}*{mp} = {dp * mp} leaves ranks of the "
+                   f"{world} out — launch {dp * mp} or raise --dp/--mp")
+        else:
+            why = f"dp*mp = {dp}*{mp} <= 1 — set --dp/--mp to use the ranks"
+        raise ValueError(f"devt_tpu_torch: {world} ranks but the device "
+                         f"mesh is DISABLED ({why}); ranks cannot fall back "
+                         f"to one device")
+    return engage
+
+
 def main(argv=None, device: str | torch.device | None = None):
     """Run the entry point on ``device`` (default: the card; without one
-    it raises).  Returns the test results."""
+    it raises).  Returns the test results (on a rank other than 0 of a
+    data-parallel run, the test loss alone)."""
     config = parse_args(argv)
-    if config.dp > 1 or config.mp > 1:
-        raise NotImplementedError(
-            f"dp={config.dp}, mp={config.mp}: training over a mesh is not "
-            f"ported yet — ROADMAP.md queue 1, item 7; run with dp and mp "
-            f"at 1 (or dp -1) on one card")
+    # a world of ranks (torchrun's environment) joins its process group;
+    # one process is a no-op
+    distributed.initialize()
+    engage = use_mesh(config, distributed.process_count())
     # without a card this raises before anything is written
     device = resolve_device(device)
     dm = build_datamodule(config)
-    logger = build_logger(config)
+    logger = (build_logger(config) if distributed.process_index() == 0
+              else NullLogger())
     try:
         trainer = Trainer(config, callbacks=build_callbacks(config),
-                          logger=logger, device=device)
+                          logger=logger, use_mesh=engage, device=device)
         model = build_model(config)
         if config.test:
             return trainer.test(model, dm, ckpt_path=config.resume)

@@ -14,7 +14,10 @@
 
 Parameters stay f32; ``dtype`` is the compute type, as flax's ``dtype=``.
 The BatchNorm is ``models/resnet.py``'s (flax's statistics; a training
-forward returns its new statistics through ``collect_batch_stats``).
+forward returns its new statistics through ``collect_batch_stats``);
+``bn_sync_axis`` names the mesh axis it syncs its batch statistics over,
+which the DP step sets for the length of a step (``parallel/
+train_step.py:_sync_bn``).
 Names follow the flax tree (``enc_fc1``, ``enc_bn``, ``enc_fc2``,
 ``enc_fc3``, ``proj_fc1``, ``proj_fc2``).
 """
@@ -92,18 +95,23 @@ class ContrastiveEncoder(nn.Module):
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32,
                  bn_sync_axis: str | None = None):
         super().__init__()
-        if bn_sync_axis is not None:
-            raise NotImplementedError(
-                "ContrastiveEncoder(bn_sync_axis=...), BatchNorm statistics "
-                "summed across replicas, is not ported yet — ROADMAP.md "
-                "queue 1, item 7")
         self.dropout, self.dtype = dropout, dtype
         self.enc_fc1 = nn.Linear(input_shape, hidden_layer, bias=False)
-        self.enc_bn = BatchNorm(hidden_layer, dtype)
+        self.enc_bn = BatchNorm(hidden_layer, dtype, axis_name=bn_sync_axis)
         self.enc_fc2 = nn.Linear(hidden_layer, hidden_layer, bias=False)
         self.enc_fc3 = nn.Linear(hidden_layer, projection_size)
         self.proj_fc1 = nn.Linear(projection_size, projection_size)
         self.proj_fc2 = nn.Linear(projection_size, output_shape)
+
+    @property
+    def bn_sync_axis(self) -> str | None:
+        """The mesh axis the encoder's BatchNorm syncs over (None: its own
+        batch's statistics)."""
+        return self.enc_bn.axis_name
+
+    @bn_sync_axis.setter
+    def bn_sync_axis(self, name: str | None) -> None:
+        self.enc_bn.axis_name = name
 
     def init_weights(self, generator: torch.Generator
                      ) -> "ContrastiveEncoder":

@@ -527,8 +527,9 @@ class ViTTransformer(nn.Module):
                 raise NotImplementedError(
                     f"ViTTransformer({what}) is not ported yet — ROADMAP.md "
                     f"queue 1" + (
-                        ", item 7 (multi-device): the ring it runs its "
-                        "blocks through is parallel/ring_attention.py"
+                        ", item 7c (sequence and pipeline parallelism): "
+                        "the ring it runs its blocks through is "
+                        "parallel/ring_attention.py"
                         if what == "sequence_parallel" else ""))
         self.dtype = dtype
         self.remat = remat

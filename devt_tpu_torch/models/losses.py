@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from devt_tpu_torch.parallel.collectives import all_gather_rows
+
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
                     ) -> torch.Tensor:
@@ -60,17 +62,18 @@ def _positives(sim: torch.Tensor, n: int) -> torch.Tensor:
 
 def nt_xent(z_i: torch.Tensor, z_j: torch.Tensor, temperature: float = 0.5,
             axis_name: str | None = None) -> torch.Tensor:
-    """NT-Xent over one device's 2N rows: each row's positive (its other
-    view) against the 2N - 2 rows that are neither itself nor its
-    positive, which are masked with -1e9; the cross-entropy summed over the
-    2N rows and divided by 2N.
+    """NT-Xent over 2N rows: each row's positive (its other view) against
+    the 2N - 2 rows that are neither itself nor its positive, which are
+    masked with -1e9; the cross-entropy summed over the 2N rows and
+    divided by 2N.
 
-    ``axis_name``, the cross-replica gather of the negatives, is not
-    ported yet (ROADMAP.md queue 1, item 7)."""
+    With ``axis_name`` (inside ``parallel.collectives.axis_scope``, as the
+    DP step runs) the projections of every rank are gathered first, so
+    every rank scores its positives against the global negative pool: N
+    is the global batch."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "nt_xent(axis_name=...), the cross-replica gather of the "
-            "negatives, is not ported yet — ROADMAP.md queue 1, item 7")
+        z_i = all_gather_rows(z_i, axis_name)
+        z_j = all_gather_rows(z_j, axis_name)
     n = z_i.shape[0]
     big_n = 2 * n
     sim = _cosine_sim_matrix(torch.cat([z_i, z_j])) / temperature

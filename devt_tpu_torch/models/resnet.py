@@ -26,6 +26,14 @@ Submodule names follow the flax tree (``stem``, ``layer{i}_{j}``,
 ``scale`` and ``bias`` are ``weight`` and ``bias``, and its
 ``batch_stats`` ``mean`` and ``var`` are the buffers ``running_mean`` and
 ``running_var``; ``utils/jax_bridge.py`` maps them by name.
+
+A BatchNorm whose ``axis_name`` is set (flax's ``axis_name=``) syncs its
+batch statistics across the ranks of that mesh axis: the mean and E[x²]
+of each rank, before the variance, are averaged over the axis
+(``parallel.collectives.pmean_grad``), so every rank normalises by the
+global batch's statistics.  This is flax's arithmetic, not
+``torch.nn.SyncBatchNorm``'s (Welford counts, an unbiased running
+variance).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from devt_tpu_torch.models.layers import dense
+from devt_tpu_torch.parallel.collectives import pmean_grad
 
 BN_MOMENTUM = 0.9   # torch BatchNorm momentum 0.1 ⇒ flax momentum 1-0.1
 BN_EPS = 1e-5
@@ -60,12 +69,14 @@ def collect_batch_stats() -> Iterator[dict]:
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype)`` over
-    axis 1 of an (N, C, ...) tensor."""
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype,
+    axis_name=axis_name)`` over axis 1 of an (N, C, ...) tensor."""
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 axis_name: str | None = None):
         super().__init__()
         self.dtype = dtype
+        self.axis_name = axis_name
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -77,9 +88,12 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             axes = (0,) + tuple(range(2, x.dim()))
-            mean = xf.mean(axes)
+            mean, mean2 = xf.mean(axes), (xf * xf).mean(axes)
+            if self.axis_name is not None:
+                mean, mean2 = pmean_grad(torch.cat([mean, mean2]),
+                                         self.axis_name).chunk(2)
             # flax's fast variance: E[x²] - E[x]², clipped at 0
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             new = (BN_MOMENTUM * self.running_mean
                    + (1.0 - BN_MOMENTUM) * mean.detach(),
                    BN_MOMENTUM * self.running_var

@@ -1,1 +1,25 @@
-"""Step executors (single device; the multi-device strategies are queued)."""
+"""Meshes and the step executors: one device, or data parallel over a
+``torch.distributed`` process group (``mesh``, ``distributed``,
+``collectives``, ``train_step``); the single-device half of the MoE and
+the ring attention.  FSDP and tensor parallelism (``param_partition_specs``,
+``shard_variables``) wait for ROADMAP.md queue 1, item 7b.
+
+The exports resolve on first use: the models import
+``parallel.collectives``, and the executors import the models.
+"""
+
+import importlib
+
+_EXPORTS = {
+    "make_mesh": "mesh", "batch_spec": "mesh", "replicated_spec": "mesh",
+    "make_train_step": "train_step", "make_eval_step": "train_step",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+    return getattr(module, name)

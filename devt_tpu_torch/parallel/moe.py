@@ -17,7 +17,8 @@ tensor (JAX maps a function over the groups with ``vmap``).
 
 The expert-parallel functions (``moe_ffn_local``, ``moe_ffn``,
 ``moe_ep_scope``, ``active_moe_ep``, ``moe_ffn_ep_rows``) wait for the
-multi-device port (ROADMAP.md queue 1, item 7).
+expert-parallel slice of the multi-device port (ROADMAP.md queue 1, item
+7c).
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ gradients reach the input whole on every rank; a replicated parameter's
 gradient is the rank's share, to be summed over the group (``all_reduce``)
 as a data-parallel step does.
 
-Waiting for ROADMAP item 7 (multi-device): ``ViTTransformer(
+Waiting for ROADMAP item 7c (sequence parallelism): ``ViTTransformer(
 sequence_parallel=True)``, which runs its blocks through
 ``_ring_block_local`` inside ``sp_scope``, the ``sp_shard_map`` executors,
 and NCCL across several cards.

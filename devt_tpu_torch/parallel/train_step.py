@@ -1,9 +1,9 @@
-"""Train/eval step executors with grad accumulation, single device.
+"""Train/eval step executors with grad accumulation, one device or data
+parallel: port of ``devt_tpu/parallel/train_step.py``.
 
-Port of ``devt_tpu/parallel/train_step.py`` for one device.  The JAX
-executors are jitted XLA programs; PyTorch runs eagerly, so a step is a
-Python function that enqueues its kernels and returns device tensors
-without waiting for them:
+The JAX executors are jitted XLA programs; PyTorch runs eagerly, so a
+step is a Python function that enqueues its kernels and returns device
+tensors without waiting for them:
 
   * ``make_train_step``: one full step, forward + backward + optimizer
     update, on the state's tensors **in place** (the JAX step donates its
@@ -19,14 +19,37 @@ dropout depends only on (rng, step).  Here ``rng`` is an integer seed and
 every step (and microbatch) makes its ``DropoutRng`` from (seed, step,
 microbatch), never from what earlier steps drew.
 
+Data parallelism (``mesh=``, ``parallel/mesh.py``).  JAX runs its DP step
+as one program under ``shard_map`` over the ``data`` axis; here one
+process runs each rank (``parallel/distributed.py``) and calls the same
+executor.  Its batch is the rank's own rows of the global batch
+(``mesh.shard_batch``).  Like JAX's body, the step folds the rank into its
+seed (each rank draws its own dropout masks), runs its forward and
+backward (the fused kernels on the rank's rows), and after accumulation
+takes the mean over the ranks of the gradients, the loss, the scalar aux
+and the float model state, in one coalesced all-reduce per dtype
+(``parallel/collectives.py``), so that every rank applies the same
+update to the same parameters.  The contrastive encoder's BatchNorm
+statistics are synced across the ranks and its NT-Xent negatives
+gathered from all of them (``_sync_bn``, ``train/steps.py``), so its DP
+step is the single-device global-batch step; the conv backbones keep
+per-rank batch statistics and average the running ones, as JAX does.
+The eval step gathers the per-sample aux rows in rank order.  Explicit
+collectives rather than ``DistributedDataParallel``: the body takes its
+gradients with ``torch.autograd.grad``, which DDP's reducer does not see.
+
+A mesh of one rank runs the single-device step, bit for bit.  The other
+strategies JAX picks by mesh shape raise ``NotImplementedError``: tensor
+parallelism and FSDP (ROADMAP.md queue 1, item 7b), pipeline, sequence
+and expert parallelism (item 7c).
+
 The executors run on ``cuda`` unless the caller passes ``device="cpu"``,
-and raise when there is no card.  A ``mesh`` other than None raises: the
-data-, tensor-, pipeline- and sequence-parallel strategies are queued
-(ROADMAP.md queue 1, item 7).
+and raise when there is no card.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Mapping
 
 import numpy as np
@@ -35,6 +58,9 @@ from torch import nn
 
 from devt_tpu_torch.config import Config
 from devt_tpu_torch.models.layers import DropoutRng
+from devt_tpu_torch.parallel import collectives
+from devt_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
+                                          SEQ_AXIS)
 from devt_tpu_torch.serve import resolve_device
 from devt_tpu_torch.train.state import TrainState
 from devt_tpu_torch.train.steps import forward_and_loss
@@ -61,12 +87,103 @@ def step_seed(rng: int, step: int, microbatch: int = 0) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
+# the rank's tag in ``step_seed``'s microbatch slot: above any microbatch
+_RANK_TAG = 2 ** 32
+
+
+def rank_seed(rng: int, index: int) -> int:
+    """The seed of rank ``index``'s steps (JAX folds ``axis_index`` into
+    the step's key): distinct dropout masks on every rank."""
+    return step_seed(rng, index, _RANK_TAG)
+
+
+def mesh_strategy(mesh, config: Config | None = None) -> str:
+    """Execution strategy for a mesh, as JAX's picks it: ``single`` |
+    ``dp_shard_map`` | ``fsdp_shard_map`` | ``pp_shard_map`` |
+    ``sp_shard_map`` | ``gspmd``.  A mesh of one rank is ``single``.  The
+    port runs ``single`` and ``dp_shard_map`` (the data-parallel step);
+    :func:`make_train_step` and the others refuse the rest."""
+    if mesh is None or mesh.size == 1:
+        return "single"
+    shape = dict(mesh.shape)
+    if shape.get(PIPE_AXIS, 1) > 1:
+        return "pp_shard_map"
+    if shape.get(SEQ_AXIS, 1) > 1:
+        return "sp_shard_map"
+    if shape.get(MODEL_AXIS, 1) > 1 or DATA_AXIS not in shape:
+        return "gspmd"
+    mode = getattr(config, "dp_mode", "auto") if config is not None \
+        else "auto"
+    if mode == "fsdp":
+        clip = getattr(config, "grad_clip_norm", 0.0)
+        adafactor = getattr(config, "opt", "adamW") == "adafactor"
+        return ("gspmd" if (clip and clip > 0.0) or adafactor
+                else "fsdp_shard_map")
+    if mode in ("gspmd", "fsdp_gspmd"):
+        return "gspmd"
+    return "dp_shard_map"
+
+
+_NOT_PORTED = {
+    "gspmd": ("tensor parallelism (mp > 1) and dp_mode 'gspmd' / "
+              "'fsdp_gspmd'", "7b"),
+    "fsdp_shard_map": ("FSDP (dp_mode='fsdp', ZeRO-3)", "7b"),
+    "pp_shard_map": ("pipeline parallelism (pp > 1)", "7c"),
+    "sp_shard_map": ("sequence parallelism (sp > 1)", "7c"),
+}
+
+
+def _dp_axis(mesh, config: Config) -> str | None:
+    """``DATA_AXIS`` when the mesh runs the data-parallel step, None when
+    it runs the single-device one; ``NotImplementedError`` for the
+    strategies not ported yet."""
+    strategy = mesh_strategy(mesh, config)
+    if strategy in _NOT_PORTED:
+        what, item = _NOT_PORTED[strategy]
         raise NotImplementedError(
-            "step executors over a mesh (data, tensor, pipeline and "
-            "sequence parallel) are not ported yet — ROADMAP.md queue 1, "
-            "item 7; pass mesh=None")
+            f"{what} on a mesh of shape {mesh.shape} is not ported yet — "
+            f"ROADMAP.md queue 1, item {item}")
+    if strategy == "single":
+        return None
+    if getattr(config, "moe_ep", False):
+        raise NotImplementedError(
+            "moe_ep=True on a mesh, expert-parallel MoE routing, is not "
+            "ported yet — ROADMAP.md queue 1, item 7c")
+    return DATA_AXIS
+
+
+@contextlib.contextmanager
+def _sync_bn(model: nn.Module):
+    """Models exposing a ``bn_sync_axis`` knob (the contrastive encoder)
+    get cross-replica synced BatchNorm inside the DP step, as JAX's
+    ``_sync_bn`` clones them with ``bn_sync_axis=DATA_AXIS``: the
+    global-negatives NT-Xent loss sees the activations of a single-device
+    global-batch step.  Conv backbones keep per-replica batch statistics.
+    The knob is set for the ``with`` and restored after it."""
+    if getattr(model, "bn_sync_axis", "absent") is not None:
+        yield
+        return
+    model.bn_sync_axis = DATA_AXIS
+    try:
+        yield
+    finally:
+        model.bn_sync_axis = None
+
+
+def _pmean_step(grads: dict, loss, aux: dict, new_ms: dict,
+                axis_name: str):
+    """The DDP reduction, explicit: the mean over the axis of the
+    gradients, the loss, the scalar aux and the float model state, in one
+    coalesced all-reduce per dtype."""
+    parts = {"grads": dict(grads), "loss": {"": loss}, "aux": dict(aux),
+             "ms": {k: v for k, v in new_ms.items()
+                    if v.is_floating_point()}}
+    keys = [(p, k) for p, d in parts.items() for k in d]
+    means = collectives.pmean([parts[p][k] for p, k in keys], axis_name)
+    for (p, k), m in zip(keys, means):
+        parts[p][k] = m
+    return (parts["grads"], parts["loss"][""], parts["aux"],
+            {**new_ms, **parts["ms"]})
 
 
 def _to_device(batch: Mapping, device: torch.device) -> dict:
@@ -77,10 +194,17 @@ def _to_device(batch: Mapping, device: torch.device) -> dict:
     return {k: place(v) for k, v in batch.items()}
 
 
-def _make_step_body(model: nn.Module, config: Config) -> Callable:
+def _make_step_body(model: nn.Module, config: Config,
+                    axis_name: str | None = None) -> Callable:
     """``(state, batch, rng) -> (state, metrics)``: one full forward +
     backward + update on device tensors.  Shared by the single-step and
-    multi-step executors."""
+    multi-step executors.
+
+    With ``axis_name`` set the body is a DP replica (called inside
+    ``collectives.axis_scope``): its seed mixes in the rank, and the
+    gradients, loss, scalar aux and model state are the mean over the
+    ranks before the update, so every rank applies the identical
+    global-batch update to its replicated parameters."""
     accum = max(config.accum_steps, 1)
 
     def grads_of(state: TrainState, model_state, batch, seed: int):
@@ -90,7 +214,8 @@ def _make_step_body(model: nn.Module, config: Config) -> Callable:
             p.requires_grad_(True)
         variables = {"params": state.params, **model_state}
         loss, aux, new_ms = forward_and_loss(
-            model, config, variables, batch, DropoutRng(seed), train=True)
+            model, config, variables, batch, DropoutRng(seed), train=True,
+            axis_name=axis_name)
         # a leaf the loss does not reach (FrameTransformer's frozen image
         # side, an unused CLS input) gets zeros, as jax.grad gives it
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -99,6 +224,8 @@ def _make_step_body(model: nn.Module, config: Config) -> Callable:
         return loss.detach(), aux, new_ms, dict(zip(names, grads))
 
     def train_step(state: TrainState, batch, rng: int):
+        if axis_name is not None:
+            rng = rank_seed(rng, collectives.axis(axis_name).index)
         if accum == 1:
             loss, aux, new_ms, grads = grads_of(
                 state, state.model_state, batch, step_seed(rng, state.step))
@@ -126,6 +253,9 @@ def _make_step_body(model: nn.Module, config: Config) -> Callable:
             loss = loss / accum
             # scalar diagnostics survive accumulation as the microbatch mean
             aux = {k: torch.stack(v).mean() for k, v in stacked.items()}
+        if axis_name is not None:
+            grads, loss, aux, new_ms = _pmean_step(grads, loss, aux, new_ms,
+                                                   axis_name)
         new_state = state.apply_gradients(grads, new_ms)
         return new_state, {"loss": loss, **aux}
 
@@ -136,8 +266,12 @@ def _placed(model: nn.Module, state: TrainState, device: torch.device
             ) -> TrainState:
     """The state on the executor's device; the model follows, since the
     state's parameters are the model's."""
-    def elsewhere(d: torch.device) -> bool:     # "cuda" is "cuda:0" here
-        return d.type != device.type or (d.index or 0) != (device.index or 0)
+    index = device.index
+    if device.type == "cuda" and index is None:     # "cuda": the current
+        index = torch.cuda.current_device()
+
+    def elsewhere(d: torch.device) -> bool:
+        return d.type != device.type or (d.index or 0) != (index or 0)
 
     if elsewhere(state.device):
         state.to(device)
@@ -147,6 +281,17 @@ def _placed(model: nn.Module, state: TrainState, device: torch.device
     return state
 
 
+def _scope(model: nn.Module, mesh, axis_name: str | None):
+    """The context a DP step runs in: the mesh's axes bound by name, and
+    the contrastive encoder's BatchNorm synced; nothing for one device."""
+    if axis_name is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(collectives.axis_scope(mesh.axes()))
+    stack.enter_context(_sync_bn(model))
+    return stack
+
+
 def make_train_step(model: nn.Module, config: Config, mesh=None,
                     device: str | torch.device | None = None) -> Callable:
     """Returns ``train_step(state, batch, rng) -> (state, metrics)``.
@@ -154,16 +299,18 @@ def make_train_step(model: nn.Module, config: Config, mesh=None,
     ``state``: a ``TrainState`` whose ``params`` are ``model``'s
     (``dict(model.named_parameters())``); it is moved to the device on the
     first call and updated in place.  ``batch``: tensors or numpy arrays
-    with a leading batch axis.  ``rng``: an integer seed.  ``metrics`` are
-    device scalars; reading one (``float(metrics["loss"])``) waits for the
-    step."""
-    _no_mesh(mesh)
+    with a leading batch axis; under a data-parallel ``mesh``, this rank's
+    rows of the global batch (``mesh.shard_batch``), and every rank calls
+    the step.  ``rng``: an integer seed.  ``metrics`` are device scalars;
+    reading one (``float(metrics["loss"])``) waits for the step."""
+    axis_name = _dp_axis(mesh, config)
     device = resolve_device(device)
-    body = _make_step_body(model, config)
+    body = _make_step_body(model, config, axis_name)
 
     def train_step(state: TrainState, batch, rng: int):
         state = _placed(model, state, device)
-        return body(state, _to_device(batch, device), rng)
+        with _scope(model, mesh, axis_name):
+            return body(state, _to_device(batch, device), rng)
 
     return train_step
 
@@ -178,10 +325,12 @@ def make_multi_step(model: nn.Module, config: Config, n_steps: int,
     randomness folds ``state.step`` into ``rng``, identical to ``n_steps``
     separate calls.  The returned metrics are the per-step values reduced
     to their mean, on the device: nothing inside waits for the card, so
-    the host runs ahead of it by up to ``n_steps`` steps."""
-    _no_mesh(mesh)
+    the host runs ahead of it by up to ``n_steps`` steps.  Under a
+    data-parallel ``mesh`` the batches are this rank's rows of each step's
+    global batch (axis 1), and each step reduces over the ranks."""
+    axis_name = _dp_axis(mesh, config)
     device = resolve_device(device)
-    body = _make_step_body(model, config)
+    body = _make_step_body(model, config, axis_name)
 
     def multi_step(state: TrainState, batches, rng: int):
         state = _placed(model, state, device)
@@ -191,31 +340,59 @@ def make_multi_step(model: nn.Module, config: Config, n_steps: int,
                 raise ValueError(f"stacked batch has {v.shape[0]} steps, "
                                  f"expected {n_steps}")
         stacked: dict[str, list] = {}
-        for i in range(n_steps):
-            state, metrics = body(
-                state, {k: v[i] for k, v in batches.items()}, rng)
-            for k, v in metrics.items():
-                stacked.setdefault(k, []).append(v)
+        with _scope(model, mesh, axis_name):
+            for i in range(n_steps):
+                state, metrics = body(
+                    state, {k: v[i] for k, v in batches.items()}, rng)
+                for k, v in metrics.items():
+                    stacked.setdefault(k, []).append(v)
         return state, {k: torch.stack(v).mean(dim=0)
                        for k, v in stacked.items()}
 
     return multi_step
 
 
+def _replicate_aux(aux: dict, axis_name: str) -> dict:
+    """The eval aux of the global batch: scalars the mean over the ranks,
+    per-sample rows gathered in rank order (the global batch's order)."""
+    out = {}
+    for k, v in aux.items():
+        if not isinstance(v, torch.Tensor):
+            out[k] = v
+        elif v.dim() == 0:
+            out[k] = collectives.pmean([v], axis_name)[0]
+        else:
+            out[k] = collectives.all_gather_rows(v, axis_name)
+    return out
+
+
 def make_eval_step(model: nn.Module, config: Config, mesh=None,
                    device: str | torch.device | None = None) -> Callable:
     """Returns ``eval_step(state, batch) -> (loss, aux)``, the
-    validation/test step feeding the epoch-end evaluators."""
-    _no_mesh(mesh)
+    validation/test step feeding the epoch-end evaluators.
+
+    Under a data-parallel ``mesh`` ``batch`` is this rank's rows, and the
+    results are the global batch's on every rank: the loss and scalar aux
+    the mean over the ranks, the per-sample aux rows (``probs``,
+    ``label``, ``embedding``) gathered in rank order, and the contrastive
+    loss scored against the negatives of every rank."""
+    axis_name = _dp_axis(mesh, config)
     device = resolve_device(device)
 
     def eval_step(state: TrainState, batch):
         state = _placed(model, state, device)
         variables = {"params": state.params, **state.model_state}
         with torch.no_grad():
-            loss, aux, _ = forward_and_loss(
-                model, config, variables, _to_device(batch, device),
-                rng=None, train=False)
-        return loss, aux
+            if axis_name is None:
+                loss, aux, _ = forward_and_loss(
+                    model, config, variables, _to_device(batch, device),
+                    rng=None, train=False)
+                return loss, aux
+            with collectives.axis_scope(mesh.axes()):
+                loss, aux, _ = forward_and_loss(
+                    model, config, variables, _to_device(batch, device),
+                    rng=None, train=False, axis_name=axis_name)
+                loss = collectives.pmean([loss], axis_name)[0]
+                return loss, _replicate_aux(aux, axis_name)
 
     return eval_step

@@ -23,7 +23,10 @@ not served.  The predictor runs on ``cuda`` unless the caller passes
 ``from_lightning_checkpoint`` one of the reference's Lightning modules.
 ``export`` writes the forward as a ``torch.export`` program with the
 weights inside, which ``load_exported`` serves without the model code.
-Data-parallel meshes are not ported yet.
+With ``mesh=`` (``parallel/mesh.py``) the predictor serves data parallel:
+every rank of the mesh calls ``predict`` with the same batch, runs its
+rows of each padded chunk and gathers the scores of all ranks, so that
+every rank returns the whole batch.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from devt_tpu_torch.config import MMX_GENRES_15, MMX_GENRES_19, Config
 from devt_tpu_torch.data.device_norm import maybe_dequantize_batch
 from devt_tpu_torch.ops.attention import quant_scope
 from devt_tpu_torch.ops.quant import quant_sites_collect, quant_sites_provide
+from devt_tpu_torch.parallel.collectives import all_gather_rows, axis_scope
+from devt_tpu_torch.parallel.mesh import DATA_AXIS, shard_batch
 from devt_tpu_torch.registry import FT_VARIANTS, build_model, example_batch
 
 
@@ -58,11 +63,6 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "no CUDA device: the port runs on the card by default; pass "
             "device='cpu' to run the plain PyTorch path on the CPU")
     return torch.device("cuda")
-
-
-def _todo(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet — ROADMAP.md "
-                               f"queue 1, item {item}")
 
 
 # the devices an exported program may be asked to serve on, and where
@@ -123,6 +123,15 @@ class Predictor:
         tree; an eager program has no such distinction, and this list is
         the only delivery.)
 
+        ``mesh``: serve data parallel over the mesh's ``data`` axis, as
+        the JAX predictor's ``shard_map`` does.  Each bucket is rounded up
+        to a multiple of the axis' size; every rank of the mesh calls
+        :meth:`predict` with the same batch, computes its contiguous rows
+        of each padded chunk (the fused kernels on the rank's rows) and
+        gathers the scores, so every rank returns the whole batch.  The
+        weights are each rank's own: load the same ``state_dict`` on
+        every rank.
+
         ``quant_site_pred``: optional ``(k, n) -> bool`` filter over the
         Linear sites of the torch-semantics encoder
         (``ops.attention.quant_scope``).  None applies the JAX package's
@@ -136,8 +145,6 @@ class Predictor:
                              "not class scores: Predictor serves the "
                              "classifiers, and the JAX package's has no "
                              "branch for it either")
-        if mesh is not None:
-            raise _todo("Predictor(mesh=...), data-parallel serving", 7)
         if quantize and quant_site_pred is None:
             quant_site_pred = lambda k, n: n >= 2 * k  # noqa: E731
         self.device = resolve_device(device)
@@ -146,7 +153,13 @@ class Predictor:
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
         self.threshold = threshold
-        self.buckets = sorted(buckets)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            # each bucket divides over the data axis
+            n = self.mesh.shape[DATA_AXIS]
+            self.buckets = sorted({-(-b // n) * n for b in buckets})
+        else:
+            self.buckets = sorted(buckets)
         self.target_names = (MMX_GENRES_19 if config.n_classes == 19
                              else MMX_GENRES_15)
         self.quantize = quantize
@@ -282,11 +295,17 @@ class Predictor:
             return self._scores(batch)
 
     def _invoke(self, chunk: Mapping[str, np.ndarray]) -> np.ndarray:
+        if self.mesh is not None:
+            chunk = shard_batch(chunk, self.mesh)
         tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                        self.device, non_blocking=True)
                    for k, v in chunk.items()}
         with torch.inference_mode():
-            return self.forward(tensors).float().cpu().numpy()
+            scores = self.forward(tensors)
+            if self.mesh is not None:
+                with axis_scope(self.mesh.axes()):
+                    scores = all_gather_rows(scores, DATA_AXIS)
+            return scores.float().cpu().numpy()
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:

@@ -22,7 +22,17 @@ around the step executors of ``parallel/train_step.py``:
     checkpoint.
 
 It runs on ``cuda`` unless the caller passes ``device="cpu"``, and raises
-without a card.  Meshes are not ported yet (ROADMAP.md queue 1, item 7).
+without a card.
+
+Over a data-parallel mesh (``mesh=``, or ``use_mesh=True``: the mesh of
+``config.dp``, ``mp``, ``pp`` and ``sp``, as the JAX trainer makes it)
+every rank runs the loop: the state is broadcast from rank 0, each rank
+assembles only its rows of every global batch (``Loader.shard_rows``;
+another iterable's batches are sliced), the executors reduce over the
+ranks, and validation sees the gathered aux, so the epoch metrics are the
+same on every rank.  Rank 0 alone logs, writes checkpoints and runs the
+test callbacks (they write files); the others wait for its last write.
+A checkpoint is read on every rank.
 """
 
 from __future__ import annotations
@@ -32,16 +42,20 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from devt_tpu_torch.config import Config
 from devt_tpu_torch.data.pipeline import device_prefetch, is_numeric
-from devt_tpu_torch.parallel.train_step import (_no_mesh, make_eval_step,
+from devt_tpu_torch.parallel import collectives
+from devt_tpu_torch.parallel.distributed import process_index
+from devt_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh, shard_batch
+from devt_tpu_torch.parallel.train_step import (make_eval_step,
                                                 make_multi_step,
                                                 make_train_step)
 from devt_tpu_torch.serve import resolve_device
 from devt_tpu_torch.train import checkpoint as ckpt_lib
 from devt_tpu_torch.train.callbacks import Callback
-from devt_tpu_torch.train.loggers import JsonlLogger
+from devt_tpu_torch.train.loggers import JsonlLogger, NullLogger
 from devt_tpu_torch.train.metrics import RunningBuffers
 from devt_tpu_torch.train.optimizers import build_optimizer
 from devt_tpu_torch.train.profiling import StepTimer, Trace, annotate
@@ -79,12 +93,19 @@ class Trainer:
     def __init__(self, config: Config, callbacks: Sequence[Callback] = (),
                  logger=None, mesh=None, use_mesh: bool = False,
                  device: str | torch.device | None = None):
-        # a mesh, or the JAX entry point's use_mesh, is not ported yet
-        _no_mesh(mesh if mesh is not None else (use_mesh or None))
         self.config = config
         self.device = resolve_device(device)
         self.callbacks = list(callbacks)
-        self.logger = logger or JsonlLogger(name=config.name)
+        self.mesh = mesh or (make_mesh(config.dp, config.mp, config.pp,
+                                       config.sp) if use_mesh else None)
+        # the data axis of a mesh of more than one rank (raising for a rank
+        # outside the mesh), else None
+        self._axis = (self.mesh.axes()[DATA_AXIS]
+                      if self.mesh is not None and self.mesh.size > 1
+                      else None)
+        self._rank0 = process_index() == 0
+        self.logger = ((logger or JsonlLogger(name=config.name))
+                       if self._rank0 else NullLogger())
         self.buffers = RunningBuffers()
         # the step executors' integer seed (JAX: PRNGKey(config.seed))
         self._rng = config.seed
@@ -100,7 +121,40 @@ class Trainer:
                                   model_state=model_buffers(model))
         if self.config.resume:
             state = ckpt_lib.restore(self.config.resume, state)
+        if self._axis is not None:
+            # every rank starts from rank 0's parameters and buffers
+            with collectives.axis_scope(self.mesh.axes()):
+                collectives.broadcast(
+                    [*state.params.values(), *state.model_state.values()],
+                    DATA_AXIS)
         return state
+
+    def _local(self, batches):
+        """This rank's rows of each batch of ``batches``: a ``Loader``
+        assembles only them; another iterable's batches are sliced."""
+        if self._axis is None:
+            return batches
+        if hasattr(batches, "shard_rows"):
+            batches.shard_rows(self._axis.index, self._axis.size)
+            return batches
+        return (shard_batch(b, self.mesh) for b in batches)
+
+    def _paths(self, host: dict):
+        """The batch's host-only paths, every rank's in rank order."""
+        paths = host.get("path")
+        if self._axis is None or paths is None:
+            return paths
+        parts: list = [None] * self._axis.size
+        dist.all_gather_object(parts, list(paths), group=self._axis.group)
+        return [p for part in parts for p in part]
+
+    def _save(self, ckpt_dir: str, state) -> None:
+        if self._rank0:
+            self._saver.save(ckpt_dir, state, self.config)
+
+    def _barrier(self) -> None:
+        if self._axis is not None:
+            dist.barrier(group=self._axis.group)
 
     @staticmethod
     def _split_host_only(batch):
@@ -126,20 +180,22 @@ class Trainer:
             steps_per_epoch = max(len(datamodule.train_batches()), 1)
         except TypeError:
             pass
-        state = self._init_state(model, steps_per_epoch)
-        self._saver = ckpt_lib.AsyncSaver()
-
-        dev = self.device
-        train_step = make_train_step(model, cfg, device=dev)
-        eval_step = make_eval_step(model, cfg, device=dev)
+        # the executors first: they refuse a mesh whose strategy is not
+        # ported before any work
+        dev, mesh = self.device, self.mesh
+        train_step = make_train_step(model, cfg, mesh=mesh, device=dev)
+        eval_step = make_eval_step(model, cfg, mesh=mesh, device=dev)
         needs_train_aux = any(getattr(cb, "on_train_batch_end", None)
                               and type(cb).on_train_batch_end
                               is not Callback.on_train_batch_end
                               for cb in self.callbacks)
         unroll = max(cfg.unroll_steps, 1)
-        multi_step = (make_multi_step(model, cfg, unroll, device=dev)
+        multi_step = (make_multi_step(model, cfg, unroll, mesh=mesh,
+                                      device=dev)
                       if unroll > 1 and not needs_train_aux else None)
 
+        state = self._init_state(model, steps_per_epoch)
+        self._saver = ckpt_lib.AsyncSaver()
         global_step = int(state.step)
         # step-exact resume: the restored step maps back to (epoch,
         # batch within the epoch).  With multi-step unrolling _stacked
@@ -158,7 +214,7 @@ class Trainer:
         try:
             for epoch in range(start_epoch, cfg.epochs):
                 with annotate("train/epoch_start"):
-                    loader = datamodule.train_batches()
+                    loader = self._local(datamodule.train_batches())
                     if hasattr(loader, "set_epoch"):
                         # reshuffle per epoch + the mid-epoch resume skip
                         loader.set_epoch(
@@ -228,16 +284,18 @@ class Trainer:
                         self._maybe_save_best(results, state, global_step)
                         # async: the write runs while the next epoch
                         # trains
-                        self._saver.save(cfg.checkpoint_dir, state, cfg)
+                        self._save(cfg.checkpoint_dir, state)
                 if 0 < cfg.max_steps <= global_step:
                     break
 
-            self._saver.save(cfg.checkpoint_dir, state, cfg)
+            self._save(cfg.checkpoint_dir, state)
         finally:
             # always await the writer, even on the non-finite-loss abort
             if profiler is not None:
                 self.profile_path = profiler.stop()
             self._saver.close()
+        # no rank reads the run's checkpoints before rank 0 wrote them
+        self._barrier()
         return state
 
     # ------------------------------------------------------------------
@@ -257,22 +315,23 @@ class Trainer:
             return
         self._best_value = value
         best_dir = os.path.join(cfg.checkpoint_dir, "best")
-        self._saver.save(best_dir, state, cfg, step=step)
-        # best saves are rare: await the write so the retention pass sees
-        # the finished directory
-        self._saver.wait()
-        ckpt_lib.prune_checkpoints(best_dir, max(cfg.keep_best_k, 1))
+        if self._rank0:
+            self._saver.save(best_dir, state, cfg, step=step)
+            # best saves are rare: await the write so the retention pass
+            # sees the finished directory
+            self._saver.wait()
+            ckpt_lib.prune_checkpoints(best_dir, max(cfg.keep_best_k, 1))
         self.logger.log({f"best/{key}": value}, step)
 
     # ------------------------------------------------------------------
     def validate(self, model, datamodule, state, eval_step=None,
                  step: int = 0) -> dict:
-        eval_step = eval_step or make_eval_step(model, self.config,
-                                                device=self.device)
+        eval_step = eval_step or make_eval_step(
+            model, self.config, mesh=self.mesh, device=self.device)
         losses = []
         ssl_cbs = [cb for cb in self.callbacks
                    if hasattr(cb, "eval_batch")]
-        for batch in datamodule.val_batches():
+        for batch in self._local(datamodule.val_batches()):
             loss, aux = eval_step(state, self._place(batch))
             losses.append(float(loss))
             _, host = self._split_host_only(batch)
@@ -280,7 +339,7 @@ class Trainer:
                 for cb in ssl_cbs:
                     cb.eval_batch(aux, self.buffers)
             else:
-                self.buffers.append({**aux, "path": host.get("path")})
+                self.buffers.append({**aux, "path": self._paths(host)})
         results = {"val/loss": float(np.mean(losses)) if losses else 0.0}
         self.logger.log(results, step)
         for cb in self.callbacks:
@@ -298,15 +357,17 @@ class Trainer:
             path = ckpt_path or ckpt_lib.latest_checkpoint(cfg.checkpoint_dir)
             if path:
                 state = ckpt_lib.restore(path, state)
-        eval_step = make_eval_step(model, cfg, device=self.device)
+        eval_step = make_eval_step(model, cfg, mesh=self.mesh,
+                                   device=self.device)
         losses = []
-        for batch in datamodule.test_batches():
+        for batch in self._local(datamodule.test_batches()):
             loss, aux = eval_step(state, self._place(batch))
             losses.append(float(loss))
             _, host = self._split_host_only(batch)
-            self.buffers.append({**aux, "path": host.get("path")})
+            self.buffers.append({**aux, "path": self._paths(host)})
         results = {"test/loss": float(np.mean(losses)) if losses else 0.0}
-        for cb in self.callbacks:
+        # the test callbacks write files: rank 0 runs them
+        for cb in self.callbacks if self._rank0 else ():
             out = cb.on_test_epoch_end(self.buffers, self.logger,
                                        int(state.step))
             if isinstance(out, dict):

@@ -47,6 +47,23 @@ class JsonlLogger:
         self._fh.close()
 
 
+class NullLogger:
+    """Logs nothing: the logger of every rank but rank 0 in a
+    data-parallel run."""
+
+    def log(self, metrics, step=None):
+        pass
+
+    def log_text(self, key, text, step=None):
+        pass
+
+    def log_table(self, key, columns, rows, step=None):
+        pass
+
+    def close(self):
+        pass
+
+
 class WandbLogger:
     """Thin adapter over wandb (optional dependency)."""
 

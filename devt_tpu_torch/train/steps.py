@@ -17,7 +17,9 @@ registry builds has its branch:
     returns; ``basicmlp``: cross-entropy on integer labels;
   * ``contrastive``: two passes, one a view, each with its own dropout
     stream, the second on the BatchNorm statistics the first left; then
-    ``contrastive_loss`` of the L2-normalised projections.
+    ``contrastive_loss`` of the L2-normalised projections; with
+    ``axis_name`` (the DP step) the projections of every rank, gathered,
+    so that each rank scores its positives against the global pool.
 
 A training forward of a model with BatchNorm returns its new statistics
 as ``new_model_state``.
@@ -36,13 +38,14 @@ from devt_tpu_torch.models import losses
 from devt_tpu_torch.models.contrastive import l2_normalize
 from devt_tpu_torch.models.frame_transformer import VARIANTS as FT_VARIANTS
 from devt_tpu_torch.models.resnet import collect_batch_stats
+from devt_tpu_torch.parallel.collectives import all_gather_rows
 from devt_tpu_torch.registry import KNOWN_MODELS, model_dtype
 
 
 def forward_and_loss(model: nn.Module, config: Config,
                      variables: Mapping[str, Any],
                      batch: Mapping[str, torch.Tensor], rng,
-                     train: bool):
+                     train: bool, axis_name: str | None = None):
     """Returns (loss, aux, new_model_state).
 
     ``variables``: ``{"params": {name: tensor}, **model_state}`` — the
@@ -60,7 +63,11 @@ def forward_and_loss(model: nn.Module, config: Config,
     ``model_state``, the items of ``variables`` other than ``params``, is
     keyed like ``state_dict`` (a BatchNorm's ``<path>.running_mean`` and
     ``.running_var``); the returned ``new_model_state`` has the same keys,
-    with the statistics a training forward updated (detached)."""
+    with the statistics a training forward updated (detached).
+
+    ``axis_name`` is set when the body runs as a replica of the DP step
+    (inside ``parallel.collectives.axis_scope``); only the contrastive
+    loss reads it."""
     name = config.model
     if name not in KNOWN_MODELS:
         raise ValueError(f"no step logic for model {name!r}")
@@ -73,6 +80,9 @@ def forward_and_loss(model: nn.Module, config: Config,
     if name in FT_VARIANTS:
         return _frame_transformer_loss(model, name, tensors, model_state,
                                        batch, rng)
+    if name == "contrastive":
+        return _contrastive_loss(model, config, tensors, model_state, batch,
+                                 rng, train, axis_name)
     if name in _FAMILY:
         return _FAMILY[name](model, config, tensors, model_state, batch,
                              rng, train)
@@ -174,10 +184,14 @@ def _basicmlp_loss(model, config, tensors, model_state, batch, rng, train):
 
 
 def _contrastive_loss(model, config, tensors, model_state, batch, rng,
-                      train):
+                      train, axis_name=None):
     """The reference's two passes: a dropout stream a view, and view j's
     pass on the BatchNorm statistics view i's left, so a training step's
-    new statistics have the momentum applied twice."""
+    new statistics have the momentum applied twice.  With ``axis_name``
+    the normalised projections are gathered across the ranks; with the DP
+    step's mean of the gradients the parameter gradient is the
+    single-device global-batch gradient (``all_gather_rows``' backward
+    sums the ranks' cotangents of this rank's rows)."""
     rng_i, rng_j = rng.split() if rng is not None else (None, None)
     (emb_i, proj_i), state = _call(model, tensors, model_state,
                                    (batch["x_i"],),
@@ -185,9 +199,11 @@ def _contrastive_loss(model, config, tensors, model_state, batch, rng,
     (_, proj_j), state = _call(model, {**tensors, **state}, state,
                                (batch["x_j"],),
                                {"train": train, "rng": rng_j})
-    loss = losses.contrastive_loss(l2_normalize(proj_i),
-                                   l2_normalize(proj_j),
-                                   temperature=config.temperature)
+    z_i, z_j = l2_normalize(proj_i), l2_normalize(proj_j)
+    if axis_name is not None:
+        z_i = all_gather_rows(z_i, axis_name)
+        z_j = all_gather_rows(z_j, axis_name)
+    loss = losses.contrastive_loss(z_i, z_j, temperature=config.temperature)
     label = batch["label"]
     return loss, {"embedding": emb_i, "label": label,
                   "probs": torch.zeros((label.shape[0], 1),
@@ -195,4 +211,4 @@ def _contrastive_loss(model, config, tensors, model_state, batch, rng,
 
 
 _FAMILY = {"lstm": _lstm_loss, "tpn": _tpn_loss,
-           "basicmlp": _basicmlp_loss, "contrastive": _contrastive_loss}
+           "basicmlp": _basicmlp_loss}

@@ -13,7 +13,8 @@
   * a non-finite loss raises ``FloatingPointError`` and the pending
     checkpoint write is awaited;
   * ``main()`` on ``synthetic``, ``mmx`` and ``mmx-contrastive``, its
-    refusals (a mesh), and ``mmx-frame``'s datamodule;
+    refusals, ``--dp 2`` and ``--mp 2`` in one process (one device), a
+    mesh the executors do not run yet, and ``mmx-frame``'s datamodule;
   * ``Predictor.from_checkpoint`` against JAX's on the same weights.
 """
 
@@ -371,7 +372,7 @@ def test_main_on_the_embedding_datasets(tmp_path, monkeypatch):
     assert "train/online/loss" in text and "val/online/f1@0.3" in text
 
 
-def test_main_and_trainer_refusals(tmp_path, monkeypatch):
+def test_main_and_trainer_refusals(tmp_path, tmp_path_factory, monkeypatch):
     monkeypatch.chdir(tmp_path)
     # mmx-frame is ported: the CSV frame corpus' datamodule, as JAX's
     from devt_tpu_torch.data.mmx_frame import MMXLightDataModule
@@ -380,15 +381,30 @@ def test_main_and_trainer_refusals(tmp_path, monkeypatch):
         ["--data_set", "mmx-frame", "--csv_manifest", "corpus/out.csv"]))
     assert isinstance(dm, MMXLightDataModule)
     assert dm.csv_path == "corpus/out.csv"
+    # one process: --dp 2 and --mp 2 train on the one device, as JAX's
+    # entry point does on one device (tests/test_torch_dp.py runs ranks)
+    monkeypatch.chdir(tmp_path_factory.mktemp("one_process"))
     for flag in ("--dp", "--mp"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tmain.main(TINY_MAIN + ["--data_set", "synthetic", flag, "2"],
-                       device="cpu")
+        results = tmain.main(TINY_MAIN + [
+            "--data_set", "synthetic", flag, "2", "--max_steps", "1",
+            "--epochs", "1", "--checkpoint_dir", f"ck{flag}"], device="cpu")
+        assert np.isfinite(results["test/loss"])
+    monkeypatch.chdir(tmp_path)
     cfg = TConfig(**PTN)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TTrainer(cfg, logger=_Log(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TTrainer(cfg, logger=_Log(), use_mesh=True, device="cpu")
+    # a mesh whose strategy is not ported is refused before any work
+    from devt_tpu_torch.data.synthetic import SyntheticDataModule
+    from devt_tpu_torch.parallel.mesh import make_mesh
+
+    trainer = TTrainer(cfg, logger=_Log(), mesh=make_mesh(
+        dp=2, mp=2, devices=range(4)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        trainer.fit(tbuild(cfg), SyntheticDataModule(cfg, train_size=8))
+    # use_mesh lays out config.dp over the world's one process
+    with pytest.raises(ValueError, match="exceeds 1 devices"):
+        TTrainer(cfg.replace(dp=2), logger=_Log(), use_mesh=True,
+                 device="cpu")
+    assert TTrainer(cfg, logger=_Log(), use_mesh=True,
+                    device="cpu").mesh.size == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TTrainer(cfg, logger=_Log())

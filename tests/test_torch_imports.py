@@ -93,7 +93,11 @@ def test_walk_covers_the_training_slice():
                 # the export ops and the Lightning import
                 "devt_tpu_torch/ops/_library.py",
                 "devt_tpu_torch/utils/torch_port.py",
-                "devt_tpu_torch/utils/lightning_import.py"):
+                "devt_tpu_torch/utils/lightning_import.py",
+                # data parallelism
+                "devt_tpu_torch/parallel/collectives.py",
+                "devt_tpu_torch/parallel/distributed.py",
+                "devt_tpu_torch/parallel/mesh.py"):
         assert rel in walked, rel
     assert "pandas" in FORBIDDEN
 

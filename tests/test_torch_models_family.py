@@ -138,8 +138,17 @@ def test_contrastive_losses_match_jax(n, d, temperature):
     want = jl.nt_xent(jnp.asarray(zi, jnp.bfloat16),
                       jnp.asarray(zj, jnp.bfloat16))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # the negatives gathered over a mesh axis (tests/test_torch_dp.py runs
+    # two ranks): an axis of one rank is the local loss; an unbound name
+    # raises, as JAX's does outside shard_map
+    from devt_tpu_torch.parallel import collectives
+
+    with pytest.raises(NameError, match="unbound axis name"):
         tl.nt_xent(torch.tensor(zi), torch.tensor(zj), axis_name="data")
+    with collectives.axis_scope({"data": collectives.Axis(None, 1, 0)}):
+        assert tl.nt_xent(torch.tensor(zi), torch.tensor(zj),
+                          axis_name="data").equal(
+            tl.nt_xent(torch.tensor(zi), torch.tensor(zj)))
 
 
 # --- pools, aggregation, gating ------------------------------------------

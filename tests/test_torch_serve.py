@@ -84,11 +84,26 @@ def test_default_device_is_the_card(monkeypatch):
         Predictor(Config(**CFG), {})
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object(), quantize=True),
-                                dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(quantize=True), dict()])
 def test_unported_serving_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(Config(**CFG), {}, device="cpu", **kw)
+    """Data-parallel serving is ported (``tests/test_torch_dp.py`` serves
+    over two ranks): a mesh of one rank serves as one device; a mesh of
+    two rounds its buckets up to the data axis, and without a process
+    group to gather its rows over, its predict raises.  A narrow PTN."""
+    from devt_tpu_torch.parallel.mesh import make_mesh
+
+    ptn = Config(model="ptn", seq_len=3, nlayers=1, input_dimension=32,
+                 nhid=32, nhead=2, precision="f32", experts=("a", "b"))
+    sd = treg.build_model(ptn).state_dict()
+    one = Predictor(ptn, sd, buckets=(1, 2), mesh=make_mesh(),
+                    device="cpu", **kw)
+    assert one.mesh is None and one.buckets == [1, 2]
+    two = Predictor(ptn, sd, buckets=(1, 3),
+                    mesh=make_mesh(dp=2, devices=range(2)), device="cpu",
+                    **kw)
+    assert two.buckets == [2, 4]
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        two.predict({"experts": np.zeros((1, 3, 2, 32), np.float32)})
     # from_checkpoint and from_lightning_checkpoint are ported
     # (test_torch_harness.py, test_torch_lightning_import.py): a missing
     # checkpoint is a missing file

@@ -294,11 +294,16 @@ def test_other_models_and_meshes_raise():
     with pytest.raises(ValueError, match="no step logic"):
         tsteps.forward_and_loss(tm, TConfig(model="resnet18"),
                                 {"params": {}}, {}, None, train=False)
+    # data parallelism is ported (tests/test_torch_dp.py); a (data, model)
+    # mesh, tensor parallelism, is not
+    from devt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=2, mp=2, devices=range(4))
     for make in (tts.make_train_step, tts.make_eval_step):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            make(tm, tcfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tts.make_multi_step(tm, tcfg, 2, mesh=object(), device="cpu")
+        with pytest.raises(NotImplementedError, match="mesh.*item 7b"):
+            make(tm, tcfg, mesh=mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh.*item 7b"):
+        tts.make_multi_step(tm, tcfg, 2, mesh=mesh, device="cpu")
     with pytest.raises(ValueError, match="expected 2"):
         tts.make_multi_step(tm, tcfg, 2, device="cpu")(
             _tstate(tm, tcfg), {"vid": np.zeros((3, 1, 4, 32, 32, 3),
