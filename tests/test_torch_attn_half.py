@@ -23,6 +23,10 @@ from devt_tpu.ops import fused_block as jfb
 from devt_tpu_torch.ops import flash_attention as tfa
 from devt_tpu_torch.ops import fused_block as tfb
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 DIM, HEADS = 32, 2
 SCALE = (DIM // HEADS) ** -0.5
 MATRICES = ("wqkv", "wo")

@@ -54,6 +54,10 @@ from devt_tpu_torch.utils.jax_bridge import (jax_to_state_dict,
                                              state_dict_to_jax)
 from test_torch_frame_transformer import randomize
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 CLIP = (8, 4, 48, 48, 3)
 TOL = 5e-2
 

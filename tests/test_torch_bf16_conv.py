@@ -17,6 +17,10 @@ import torch.nn.functional as F
 
 from devt_tpu_torch.models.resnet import conv
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 LIMIT = 1e-2
 
 

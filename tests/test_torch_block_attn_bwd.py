@@ -27,6 +27,10 @@ from devt_tpu.ops import fused_block as jfb
 from devt_tpu_torch.ops import flash_attention as tfa
 from devt_tpu_torch.ops import fused_block as tfb
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 BWD_ULPS, EPS = 4, 2.0 ** -8
 
 

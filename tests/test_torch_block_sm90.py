@@ -20,6 +20,10 @@ import torch
 from devt_tpu.ops import fused_block as jfb
 from devt_tpu_torch.ops import fused_block as tfb
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 # the forward gate of tests/test_torch_fused_block.py: both round at the
 # same places, a sum on the other side of a bf16 boundary moves an ulp
 BF16_TOL = dict(atol=1e-2, rtol=1.6e-2)

@@ -42,6 +42,10 @@ from devt_tpu_torch.data import samplers as tsamp
 from devt_tpu_torch.data import synthetic as tsyn
 from devt_tpu_torch.data import transforms as ttr
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 
 class _Items:
     """A map-style dataset of fixed arrays; with ``fill`` it also offers

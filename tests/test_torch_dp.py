@@ -77,6 +77,10 @@ from devt_tpu_torch.parallel import train_step as tts  # noqa: E402
 from devt_tpu_torch.train import optimizers as topt  # noqa: E402
 from devt_tpu_torch.train.state import TrainState, model_buffers  # noqa: E402
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 PTN = dict(model="ptn", seq_len=4, nlayers=1, input_dimension=64, nhid=64,
            nhead=2, dropout=0.0, n_classes=15, experts=("a", "b"),
            learning_rate=1e-3, opt="adamW", precision="f32",

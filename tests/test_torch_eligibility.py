@@ -21,6 +21,10 @@ from devt_tpu_torch.models import layers as tl
 from devt_tpu_torch.ops import fused_block as tfb
 from devt_tpu_torch.ops import quant as tq
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 BF16, F32 = torch.bfloat16, torch.float32
 
 # (dtype, dim, head dim, S, gradient) → the fused kernels take it on the

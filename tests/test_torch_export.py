@@ -35,6 +35,10 @@ from devt_tpu_torch.ops import quant as tq
 from devt_tpu_torch.serve import Predictor, load_exported
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 PTN = dict(model="ptn", seq_len=3, nlayers=2, nhid=64, input_dimension=64,
            nhead=4, n_classes=15, dropout=0.0, precision="f32",
            experts=("a", "b"))

@@ -42,6 +42,10 @@ from devt_tpu_torch.ops import flash_attention as tfa
 from devt_tpu_torch.train import steps as tsteps
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 # ``devt_tpu.ops.flash_attention`` the attribute is a function of that name
 jfa = importlib.import_module("devt_tpu.ops.flash_attention")
 

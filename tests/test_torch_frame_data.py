@@ -59,6 +59,10 @@ from devt_tpu_torch.train.state import model_buffers
 from devt_tpu_torch.utils.jax_bridge import state_dict_to_jax
 from test_torch_frame_transformer import TOL, randomize
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 STATS = (np.array([0.4, 0.5, 0.6], np.float32),
          np.array([0.2, 0.25, 0.3], np.float32))
 

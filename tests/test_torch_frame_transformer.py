@@ -33,6 +33,10 @@ from devt_tpu_torch.models.frame_transformer import FrameTransformer
 from devt_tpu_torch.models.resnet import collect_batch_stats
 from devt_tpu_torch.utils.jax_bridge import state_dict_to_jax
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 SMALL = dict(seq_len=3, frame_len=4, n_classes=19, img_size=64, vid_size=32)
 TOL = dict(atol=1e-4, rtol=1e-3)
 

@@ -15,6 +15,10 @@ import torch
 from devt_tpu.ops import fused_block as jfb
 from devt_tpu_torch.ops import fused_block as tfb
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 DIM, MLP, HEADS = 32, 64, 2
 SCALE = (DIM // HEADS) ** -0.5
 # f32: the JAX package's own forward bound (tests/test_fused_block.py)

@@ -50,6 +50,10 @@ from devt_tpu_torch.train.optimizers import build_optimizer
 from devt_tpu_torch.train.state import TrainState
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 PTN = dict(model="ptn", batch_size=4, seq_len=4, nlayers=1,
            input_dimension=64, nhid=64, nhead=2, dropout=0.0, n_classes=15,
            experts=("a", "b"), learning_rate=1e-3, opt="adamW",

@@ -17,6 +17,10 @@ from devt_tpu_torch.ops import attention as tatt
 from devt_tpu_torch.utils.jax_bridge import (jax_to_state_dict,
                                              state_dict_to_jax)
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 DIM, HEADS, DIM_HEAD, MLP = 32, 2, 16, 64
 # f32 on both sides; the sums run in other orders
 TOL = dict(atol=2e-5, rtol=2e-4)

@@ -28,6 +28,10 @@ from devt_tpu_torch.data import synthetic
 from devt_tpu_torch.serve import Predictor
 from devt_tpu_torch.utils import lightning_import, torch_port
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 SCORE_TOL = dict(atol=2e-5, rtol=0)
 
 

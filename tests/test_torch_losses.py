@@ -8,6 +8,10 @@ import torch
 from devt_tpu.models import losses as jl
 from devt_tpu_torch.models import losses as tl
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 # f32 elementwise math and one mean over at most 152 terms
 TOL = dict(atol=1e-6, rtol=1e-5)
 

@@ -18,6 +18,10 @@ from devt_tpu_torch.config import MMX_GENRES_15, MMX_GENRES_19
 from devt_tpu_torch.train import callbacks as tcb
 from devt_tpu_torch.train import metrics as tm
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 TOL = 1e-12
 
 

@@ -29,6 +29,10 @@ import torch
 
 from devt_tpu_torch.ops import flash_attention as tfa
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 # ``devt_tpu.ops.flash_attention`` the attribute is a function of that name
 jfa = importlib.import_module("devt_tpu.ops.flash_attention")
 

@@ -66,6 +66,10 @@ from devt_tpu_torch.utils.jax_bridge import (jax_to_state_dict,
                                              state_dict_to_jax)
 from test_torch_frame_transformer import randomize
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 F32 = dict(atol=1e-5, rtol=1e-5)
 DENSE = dict(atol=1e-4, rtol=1e-4)
 TPN_F32 = dict(atol=1e-4, rtol=1e-3)

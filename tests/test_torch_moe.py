@@ -43,6 +43,10 @@ from devt_tpu_torch.train.state import TrainState
 from devt_tpu_torch.utils.jax_bridge import (jax_to_state_dict,
                                              state_dict_to_jax)
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 DIM, HEADS, DIM_HEAD, MLP, E = 32, 2, 16, 64, 4
 S, KV_LEN = 16, 13
 # f32: the JAX package's own forward and backward bounds

@@ -20,6 +20,10 @@ from devt_tpu_torch.train import optimizers as topt
 from devt_tpu_torch.train.state import TrainState
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 # f32 elementwise chains on values of order 1: the two differ in fused
 # multiply-adds and in where the host rounds the bias corrections and
 # schedule values to f32 (a few f32 ulps, 1.2e-7 each; absolute where a sum

@@ -18,6 +18,10 @@ from devt_tpu_torch.train import profiling as tprof
 from devt_tpu_torch.train.harness import Trainer as TTrainer
 from tests.test_torch_harness import PTN, _DM, _Log
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 
 def _clock(monkeypatch, module, ticks):
     it = iter(ticks)

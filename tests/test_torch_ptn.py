@@ -25,6 +25,10 @@ from devt_tpu_torch.models import torch_encoder as tenc
 from devt_tpu_torch.utils.jax_bridge import (jax_to_state_dict,
                                              state_dict_to_jax)
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 TOL = dict(atol=2e-5, rtol=2e-4)
 NARROW = dict(seq_len=6, nlayers=2, nhid=64, input_dimension=64, nhead=4,
               dropout=0.0, precision="f32",

@@ -30,6 +30,10 @@ from devt_tpu_torch.ops import attention as tatt
 from devt_tpu_torch.ops import quant as tq
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 TOL = dict(atol=2e-5, rtol=2e-4)
 FLIP_SHARE = 5e-3      # share of elements a flipped int8 code may move
 FLIP_BOUND = 0.02      # of the largest element

@@ -23,6 +23,10 @@ import torch
 from devt_tpu.ops import quant as jq
 from devt_tpu_torch.ops import quant as tq
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 TOL = dict(atol=2e-5, rtol=2e-4)
 FLIP_SHARE, FLIP_BOUND = 5e-3, 0.02
 WIDTHS = [(64, 2, 128), (192, 3, 768)]   # (dim, heads, mlp): both compiled

@@ -36,6 +36,10 @@ from devt_tpu_torch.train.optimizers import build_optimizer
 from devt_tpu_torch.train.state import TrainState
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 # tests/test_training.py:test_remat_step_matches_and_routes's model
 VIVIT = dict(image_size=32, num_classes=5, num_frames=2, dim=16, depth=2,
              heads=2, dim_head=8, channels_last=True)

@@ -20,6 +20,10 @@ from devt_tpu_torch.config import Config
 from devt_tpu_torch.serve import Predictor
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 CFG = dict(model="vivit", frame_len=2, n_classes=19, precision="f32",
            attention_impl="fused_interpret", dropout=0.0)
 # f32 sigmoid scores after 8 blocks at width 192, sums in other orders

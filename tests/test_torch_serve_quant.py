@@ -34,6 +34,10 @@ from devt_tpu_torch.ops import quant as tq
 from devt_tpu_torch.serve import Predictor
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 VIVIT = dict(model="vivit", frame_len=2, n_classes=19, precision="f32",
              dropout=0.0)
 PTN = dict(model="ptn", seq_len=6, nlayers=2, nhid=64, input_dimension=64,

@@ -55,6 +55,10 @@ from devt_tpu_torch.utils.jax_bridge import (jax_to_state_dict,
                                              state_dict_to_jax)
 from test_torch_frame_transformer import SMALL, _inputs, port_model
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 FWD_TOL = dict(atol=1e-4, rtol=1e-3)
 GRAD_RTOL = 1e-3
 LR = 1e-3

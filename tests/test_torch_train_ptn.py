@@ -36,6 +36,10 @@ from devt_tpu_torch.train import steps as tsteps
 from devt_tpu_torch.train.state import TrainState
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 NARROW = dict(seq_len=5, nlayers=2, nhid=64, input_dimension=64, nhead=2,
               precision="f32", opt="adamW", learning_rate=1e-3,
               experts=("video-embeddings", "audio-embeddings"))

@@ -31,6 +31,10 @@ from devt_tpu_torch.train import steps as tsteps
 from devt_tpu_torch.train.state import TrainState
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 KW = dict(image_size=32, patch_size=8, num_classes=5, num_frames=4, dim=32,
           depth=2, heads=2, dim_head=16, channels_last=True)
 CFG = dict(model="vivit", precision="f32", opt="adamW", learning_rate=1e-3,

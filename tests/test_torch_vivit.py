@@ -19,6 +19,10 @@ from devt_tpu_torch.data import device_norm as tnorm
 from devt_tpu_torch.models import vivit as tv
 from devt_tpu_torch.utils.jax_bridge import jax_to_state_dict
 
+# six test workers share the host's cores, and torch's default of one
+# intra-op thread a core oversubscribes them: two threads a worker
+torch.set_num_threads(2)
+
 KW = dict(image_size=32, patch_size=8, num_classes=5, num_frames=4, dim=32,
           depth=2, heads=2, dim_head=16)
 # f32 logits after 2 fused + 2 unfused blocks, sums in other orders
