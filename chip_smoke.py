@@ -55,7 +55,9 @@ Phases, each printing a line of its own; any failure exits non-zero:
  10. kernel-mha — the packed-qkv attention at PTN's serving shape
                (256, 14, 6144), 8 heads of 256, kv_len 14, at the TPU
                wrapper's padded (256, 16, 6144), and at the ViT shape
-               (512, 208, 576), 3 heads of 64, kv_len 197, bf16 and f32: o
+               (512, 208, 576), 3 heads of 64, kv_len 197, bf16 and f32,
+               and bf16 at phase 37's shape a rank, (512, 208, 192), one
+               head of 64: o
                and lse against the plain version; the body each launch ran
                (bf16 at PTN's shapes the packed wgmma body of
                mha_fwd_sm90.cuh, at the ViT shape kernel 9's one-shot
@@ -78,7 +80,8 @@ Phases, each printing a line of its own; any failure exits non-zero:
                shape (32, 14, 6144), 8 heads of 256, bf16 (the packed
                wgmma body of mha_bwd_sm90.cuh) and f32, at the ViT shape
                (512, 208, 576), 3 heads of 64, kv_len 197 (kernels 12's and
-               13's wgmma bodies), and at (32, 160, 6144), the longest the
+               13's wgmma bodies), and at phase 37's (512, 208, 192), one
+               head of 64, and at (32, 160, 6144), the longest the
                forward takes at head dim 256 (attention_bwd.cuh's streamed
                body): dq, dk, dv through fused_mha and autograd against the
                plain backward on the forward's (o, lse), the launch counted
@@ -322,9 +325,33 @@ Phases, each printing a line of its own; any failure exits non-zero:
                against the one-process step.  Predictor(mesh=...) on 37 u8
                clips, buckets (8, 32), bf16 (kernel 1) and int8 (kernel 5)
                on each rank, against the one-card predictor.  A one-rank
-               NCCL group: the coalesced mean and all_gather_rows forward
-               and backward on CUDA tensors.  Rows 1, 2 and 5 of the
+               NCCL group: the coalesced mean, all_gather_rows forward
+               and backward, and reduce_scatter along dim 1 in thirds on
+               CUDA tensors.  Rows 1, 2 and 5 of the
                kernels line carry these launches (dp_launches).
+
+ 37. tp-fsdp — tensor parallelism and FSDP: three ranks of this script
+               (``--tp-rank R DIR``) share the card over Gloo.  ViViT at
+               phase 7's width and batch on a (data 1, model 3) mesh, the
+               state split by the Megatron rules: 3 SGD steps (momentum
+               0.9: an update linear in the gradient, so a gradient off by
+               a factor shows) (make_train_step, make_multi_step(2)) and
+               an eval, the space blocks on parallel/tp_block.py's block
+               with kernels 3 and 4 on each rank's one head of 64
+               (launches and heads counted; phases 10 and 13 hold both
+               kernels against their plain versions at that shape), the
+               temporal blocks on column- and row-parallel products; the
+               first loss against the one-process step's, the whole
+               leaves bit-equal across the ranks, each leaf put back whole
+               against the one-process run's (its difference over that
+               run's update), each rank's
+               bytes of parameters and moments, the world's step ms and
+               each rank's device ms.  Then two of the ranks train the same
+               model with FSDP on a data axis of 2 (16 clips a rank,
+               kernels 1 and 2 on the gathered weights): the same checks,
+               the parameters bit-equal across the ranks, about half the
+               bytes a rank.  Rows 1 to 4 of the kernels line carry these
+               launches (tp_launches, fsdp_launches).
 
 The last lines are a JSON line of the kernels (fifteen entries in kernel
 order, each with its number), the nvidia-smi line, and
@@ -6009,9 +6036,11 @@ def _dp_serve(rank: int, mesh) -> dict:
 
 
 def _dp_nccl() -> dict:
-    """A one-rank NCCL group beside the Gloo world: the coalesced mean and
-    all_gather_rows forward and backward on CUDA tensors (on rank 0; both
-    ranks make the group)."""
+    """A one-rank NCCL group beside the Gloo world: the coalesced mean,
+    all_gather_rows forward and backward, and reduce_scatter along dim 1
+    of a packed-qkv layout (``reduce_scatter_tensor`` on the parts moved
+    to the front) on CUDA tensors (on rank 0; both ranks make the
+    group)."""
     import torch
     import torch.distributed as dist
 
@@ -6030,12 +6059,16 @@ def _dp_nccl() -> dict:
         means = collectives.pmean(xs, "nccl")
         y = collectives.all_gather_rows(x, "nccl")
         (y * 3.0).sum().backward()
+        w = torch.randn((8, 12), device="cuda", generator=gen).bfloat16()
+        scattered = collectives.reduce_scatter(w, "nccl", dim=1, groups=3)
     torch.cuda.synchronize()
     return {"backend": dist.get_backend(group),
             "mean_ok": all(m.is_cuda and torch.equal(m, t)
                            for m, t in zip(means, xs)),
             "gather_ok": y.is_cuda and torch.equal(y, x.detach()),
-            "grad_ok": torch.equal(x.grad, torch.full_like(x, 3.0))}
+            "grad_ok": torch.equal(x.grad, torch.full_like(x, 3.0)),
+            "scatter_ok": scattered.dtype == w.dtype
+            and torch.equal(scattered, w)}
 
 
 def _dp_child(rank: int, workdir: str) -> int:
@@ -6158,7 +6191,8 @@ def _dp_report(ranks: list, wall_s: float) -> dict:
             problems.append(f"Predictor(mesh) {tag}: scores differ from the "
                             f"one-card predictor's by {s0['err']} > {bound}")
     if nccl.get("backend") != "nccl" or not (
-            nccl["mean_ok"] and nccl["gather_ok"] and nccl["grad_ok"]):
+            nccl["mean_ok"] and nccl["gather_ok"] and nccl["grad_ok"]
+            and nccl["scatter_ok"]):
         problems.append(f"one-rank NCCL group: {nccl}")
     if problems:
         raise AssertionError("dp: " + "; ".join(problems))
@@ -6192,7 +6226,8 @@ def _dp_report(ranks: list, wall_s: float) -> dict:
           f"5 x{serve[0]['int8']['launches']} a rank, vs one card "
           f"{serve[0]['int8']['err']:.3e} (atol {QUANT_SCORE_ATOL}) | "
           f"one-rank NCCL group: coalesced mean, all_gather_rows forward "
-          f"and backward on CUDA tensors ok | ranks took "
+          f"and backward, reduce_scatter along dim 1 in thirds on CUDA "
+          f"tensors ok | ranks took "
           f"{', '.join(f'{r['seconds']:.1f}' for r in ranks)} s | "
           f"nvidia-smi: {smi}", flush=True)
     return {"k1": sum(v["k1"] + s["bf16"]["launches"]
@@ -6201,6 +6236,343 @@ def _dp_report(ranks: list, wall_s: float) -> dict:
             "k5": sum(s["int8"]["launches"] for s in serve),
             "step_ms": [v["step_ms"] for v in vivit],
             "device_ms": [v["device_ms"] for v in vivit]}
+
+
+# ---------------------------------------------------------------------------
+# phase 37: tensor parallelism and FSDP, three ranks on the one card
+# ---------------------------------------------------------------------------
+
+# three ranks, each a process of this script; the model axis of the
+# (data 1, model 3) mesh, then two of them on FSDP's data axis of 2; a
+# child that runs longer fails; train steps of each run before its eval
+TP_RANKS, TP_TIMEOUT, TP_STEPS = 3, 300, 3
+# the TP and FSDP first losses (bf16, the forward before any update)
+# against the one-process step's: the space blocks' products round in
+# another order (the TP block's bf16 products and f32 sums of the ranks'
+# partials against kernels 1 and 2), which moves a bf16 logit by an ulp
+TP_LOSS_ATOL = 2e-4
+# the parameters put back whole after TP_STEPS SGD steps (momentum 0.9,
+# no decay) against the one-process run's: a leaf's |difference| over the
+# one-process run's |update| (2-norms).  SGD's update is linear in the
+# gradient, so a gradient off by a factor c moves it by |c - 1| (0.5 for
+# half, 1 for double), where bf16 rounding moves it by under 1e-2 (the
+# position embedding's, the largest)
+TP_UPDATE_RTOL = 0.05
+TP_LR = 1e-2
+
+
+def _state_bytes(state) -> int:
+    """Bytes of a state's parameters and optimizer tensors on this rank."""
+    from devt_tpu_torch.train.state import _map_tensors
+
+    total = [0]
+
+    def add(t):
+        total[0] += t.numel() * t.element_size()
+        return t
+
+    _map_tensors({"p": state.params, "o": state.opt_state}, add)
+    return total[0]
+
+
+def _tp_mesh_run(rank: int, mesh, cfg, batch, tag: str) -> tuple:
+    """TP_STEPS SGD steps (one make_train_step, then make_multi_step) and
+    an eval of ViViT at full width on ``mesh``, the state placed as Trainer
+    places it; the kernels counted from the steps' start; the world's step
+    ms and this rank's device ms after."""
+    import torch
+    import torch.distributed as dist
+
+    from devt_tpu_torch.parallel import collectives, fsdp, layout, sharding
+    from devt_tpu_torch.parallel import tp_block
+    from devt_tpu_torch.parallel import train_step as tts
+    from devt_tpu_torch.parallel.mesh import shard_batch
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    whole_bytes = _state_bytes(state)
+    place = fsdp.shard_train_state if cfg.dp_mode == "fsdp" \
+        else sharding.shard_train_state
+    state = place(state, mesh)
+    local = shard_batch(batch, mesh)
+    step = tts.make_train_step(model, cfg, mesh=mesh)
+    multi = tts.make_multi_step(model, cfg, TP_STEPS - 1, mesh=mesh)
+    heads = []
+    real = tp_block.fused_mha
+
+    def spy(qkv, **kw):
+        heads.append(kw["heads"])
+        return real(qkv, **kw)
+
+    tp_block.fused_mha = spy
+    try:
+        _zero_counts()
+        state, first = step(state, local, SEED)
+        state, metrics = multi(state, {k: v[None].expand(
+            TP_STEPS - 1, *v.shape) for k, v in local.items()}, SEED)
+        loss, aux = tts.make_eval_step(model, cfg, mesh=mesh)(state, local)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+    finally:
+        tp_block.fused_mha = real
+    with collectives.axis_scope(mesh.axes()):
+        whole = layout.whole_state(state)
+    out = {"counts": counts, "heads": sorted(set(heads)),
+           "loss": first["loss"].item(),
+           "multi_loss": metrics["loss"].item(), "eval_loss": loss.item(),
+           "probs_finite": bool(torch.isfinite(aux["probs"]).all()),
+           "probs_shape": list(aux["probs"].shape),
+           "bytes": _state_bytes(state), "whole_bytes": whole_bytes,
+           "split": len(state.shards),
+           "whole_checksum": _dp_checksum(
+               [p for k, p in state.params.items()
+                if k not in state.shards]),
+           "checksum": _dp_checksum(whole.params.values())}
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in whole.params.items()},
+                   f"{tag}.params.pt")
+    del whole
+
+    # the world's step: every rank from one barrier to the next
+    step(state, local, SEED)[1]["loss"].item()
+    group = mesh.axes()["model" if tag == "tp" else "data"].group
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    step(state, local, SEED)[1]["loss"].item()
+    dist.barrier(group=group)
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    rows, busy, _ = _device_profile(lambda: step(state, local, SEED),
+                                    reps=1)
+    out["device_ms"] = sum(ms for _, ms, _ in rows)
+    out["busy"] = busy
+    return out
+
+
+def _tp_reference(cfg, batch) -> dict:
+    """The one-process run on the global batch: the first step's loss, and
+    the parameters before and after TP_STEPS steps (rank 0)."""
+    import torch
+
+    from devt_tpu_torch.parallel import train_step as tts
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    step = tts.make_train_step(model, cfg)
+    state, first = step(state, batch, SEED)
+    state, _ = tts.make_multi_step(model, cfg, TP_STEPS - 1)(
+        state, {k: v[None].expand(TP_STEPS - 1, *v.shape)
+                for k, v in batch.items()}, SEED)
+    return {"loss": first["loss"].item(), "init": init,
+            "params": {k: v.detach() for k, v in state.params.items()}}
+
+
+def _tp_update_gap(path: str, ref: dict) -> tuple[float, str, float]:
+    """The largest |difference| of a leaf from the one-process run's over
+    that run's |update| of the leaf (2-norms), its leaf, and the largest
+    |difference| of any element."""
+    import torch
+
+    got = torch.load(path)
+    gap, leaf, worst = 0.0, "", 0.0
+    for k, v in ref["params"].items():
+        d = (got[k].cuda().float() - v.float()).norm().item()
+        u = (v.float() - ref["init"][k].float()).norm().item()
+        g = d / u if u > 0 else (0.0 if d == 0 else math.inf)
+        worst = max(worst, (got[k].cuda().float() - v.float()).abs()
+                    .max().item())
+        if g > gap:
+            gap, leaf = g, k
+    return gap, leaf, worst
+
+
+def _tp_child(rank: int, workdir: str) -> int:
+    """One rank of phase 37 (``chip_smoke.py --tp-rank R DIR``)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.parallel import distributed
+    from devt_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    distributed.initialize(f"file://{os.path.join(workdir, 'init')}",
+                           TP_RANKS, rank)
+    os.chdir(workdir)
+    # every rank makes both meshes' groups, in the same order
+    tp_mesh = make_mesh(dp=1, mp=TP_RANKS)
+    fsdp_mesh = make_mesh(dp=2, devices=[0, 1])
+    cfg = Config(model="vivit", batch_size=TRAIN_BATCH, frame_len=DP_FRAMES,
+                 n_classes=19, opt="sgd", momentum=0.9, weight_decay=0.0,
+                 learning_rate=TP_LR, precision="bf16", dropout=0.0,
+                 mp=TP_RANKS)
+    batch = _train_batch(TRAIN_BATCH, SEED + 37, frames=DP_FRAMES)
+    out = {"runtime": distributed.runtime_info()}
+    out["tp"] = _tp_mesh_run(rank, tp_mesh, cfg, batch, "tp")
+    if rank < 2:
+        out["fsdp"] = _tp_mesh_run(rank, fsdp_mesh,
+                                   cfg.replace(mp=1, dp=2, dp_mode="fsdp"),
+                                   batch, "fsdp")
+    if rank == 0:
+        ref = _tp_reference(cfg.replace(mp=1), batch)
+        out["one_loss"] = ref["loss"]
+        for tag in ("tp", "fsdp"):
+            out[f"{tag}_gap"] = _tp_update_gap(f"{tag}.params.pt", ref)
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tp() -> dict:
+    """Phase 37: three ranks of this script share the card over Gloo.
+    ViViT at full width on a (data 1, model 3) mesh: the Megatron blocks,
+    kernels 3 and 4 on each rank's one head of 64; then two of the ranks
+    train it with FSDP on a data axis of 2 (kernels 1 and 2 on the
+    gathered weights, 16 clips a rank).  The kernels are built (phase 2):
+    the ranks load them."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        env = {**os.environ, "LOCAL_WORLD_SIZE": str(TP_RANKS)}
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+             workdir], env={**env, "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(TP_RANKS)]
+        logs = []
+        try:
+            deadline = time.monotonic() + TP_TIMEOUT
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines()[-40:]:
+                print(f"[tp rank {r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"tp-fsdp: rank {r} exited with "
+                                     f"{p.returncode}")
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return _tp_report(ranks, time.perf_counter() - t0)
+
+
+def _tp_report(ranks: list, wall_s: float) -> dict:
+    """Phase 37's checks of the ranks' results, its lines, and the
+    launches for the kernels line."""
+    tp = [r["tp"] for r in ranks]
+    fs = [r["fsdp"] for r in ranks[:2]]
+    r0 = ranks[0]
+    depth, problems = 4, []
+    # a step: the space blocks' forward and backward; the eval: a forward
+    want_tp = _expect(k3=depth * (TP_STEPS + 1), k4=depth * TP_STEPS)
+    want_fs = _expect(k1=depth * (TP_STEPS + 1), k2=depth * TP_STEPS)
+    for r, t in enumerate(tp):
+        if t["counts"] != want_tp or t["heads"] != [1]:
+            problems.append(f"TP rank {r}: launches {t['counts']}, heads "
+                            f"{t['heads']}; expected {want_tp}, heads [1]")
+    for r, f in enumerate(fs):
+        if f["counts"] != want_fs:
+            problems.append(f"FSDP rank {r}: launches {f['counts']}, "
+                            f"expected {want_fs}")
+    for tag, runs in (("TP", tp), ("FSDP", fs)):
+        for key in ("checksum", "whole_checksum"):
+            if len({t[key] for t in runs}) != 1:
+                problems.append(f"{tag}: {key} differs across the ranks")
+        gap = abs(runs[0]["loss"] - r0["one_loss"])
+        if not gap <= TP_LOSS_ATOL:
+            problems.append(f"{tag} loss {runs[0]['loss']} vs one process "
+                            f"{r0['one_loss']} (atol {TP_LOSS_ATOL})")
+        gap = r0[f"{tag.lower()}_gap"][0]
+        if not gap <= TP_UPDATE_RTOL:
+            problems.append(f"{tag} parameters: {r0[f'{tag.lower()}_gap']}"
+                            f" (bound {TP_UPDATE_RTOL})")
+        for t in runs:
+            if not (t["probs_finite"] and t["probs_shape"]
+                    == [TRAIN_BATCH, 19] and math.isfinite(t["eval_loss"])
+                    and math.isfinite(t["multi_loss"])):
+                problems.append(f"{tag}: eval {t['eval_loss']} "
+                                f"{t['probs_shape']}, multi "
+                                f"{t['multi_loss']}")
+    if not all(0.4 <= f["bytes"] / f["whole_bytes"] <= 0.6 for f in fs):
+        problems.append(f"FSDP bytes a rank {[f['bytes'] for f in fs]} of "
+                        f"{fs[0]['whole_bytes']}")
+    if problems:
+        raise AssertionError("tp-fsdp: " + "; ".join(problems))
+
+    smi = _nvidia_smi()
+    t0, f0 = tp[0], fs[0]
+
+    def ms(runs, key):
+        return ", ".join(f"{t[key]:.3f}" for t in runs)
+
+    def nbytes(runs):
+        return ", ".join(str(t["bytes"]) for t in runs)
+
+    print(f"[tp] {TP_RANKS} ranks over Gloo on the one card, "
+          f"{wall_s:.1f} s with the ranks' start | ViViT B={TRAIN_BATCH} on "
+          f"a (data 1, model {TP_RANKS}) mesh, {t0['split']} leaves split "
+          f"by the Megatron rules, {TP_STEPS} SGD steps (momentum 0.9, lr "
+          f"{TP_LR}) and an eval: "
+          f"kernel 3 launched {t0['counts']['k3']} and kernel 4 "
+          f"{t0['counts']['k4']} times on each rank, heads={t0['heads'][0]} "
+          f"(one head of 64), kernels 1 and 2 none; first loss "
+          f"{t0['loss']:.6f} vs the one-process step's {r0['one_loss']:.6f} "
+          f"(|diff| {abs(t0['loss'] - r0['one_loss']):.3e}, atol "
+          f"{TP_LOSS_ATOL}); the whole leaves bit-equal across the model "
+          f"ranks (sha256 {t0['whole_checksum']}); the parameters put back "
+          f"whole vs the one-process run: largest leaf |diff| "
+          f"{r0['tp_gap'][0]:.3e} of its |update| ({r0['tp_gap'][1]}; bound "
+          f"{TP_UPDATE_RTOL}), largest element {r0['tp_gap'][2]:.3e}; eval "
+          f"loss {t0['eval_loss']:.6f}; parameters plus moments a rank "
+          f"{nbytes(tp)} bytes of {t0['whole_bytes']} whole "
+          f"({t0['bytes'] / t0['whole_bytes']:.3f}); the "
+          f"world's step {ms(tp, 'step_ms')} ms (host clock, barrier to "
+          f"barrier), device ms a step by rank {ms(tp, 'device_ms')} "
+          f"(busy {', '.join(f'{t['busy']:.1%}' for t in tp)})", flush=True)
+    print(f"[fsdp] ViViT B={TRAIN_BATCH} on a data axis of 2 (16 clips a "
+          f"rank), dp_mode fsdp: kernels 1 and 2 launched "
+          f"{f0['counts']['k1']} and {f0['counts']['k2']} times on each "
+          f"rank; first loss {f0['loss']:.6f} vs {r0['one_loss']:.6f} "
+          f"(|diff| {abs(f0['loss'] - r0['one_loss']):.3e}, atol "
+          f"{TP_LOSS_ATOL}); the parameters put back whole bit-equal across "
+          f"the ranks (sha256 {f0['checksum']}), vs the one-process run: "
+          f"largest leaf |diff| {r0['fsdp_gap'][0]:.3e} of its |update| "
+          f"({r0['fsdp_gap'][1]}; bound {TP_UPDATE_RTOL}), largest element "
+          f"{r0['fsdp_gap'][2]:.3e}; parameters plus moments a rank "
+          f"{nbytes(fs)} bytes of {f0['whole_bytes']} whole "
+          f"({f0['bytes'] / f0['whole_bytes']:.3f}); the world's step "
+          f"{ms(fs, 'step_ms')} ms, device ms by rank "
+          f"{ms(fs, 'device_ms')} | ranks took "
+          f"{', '.join(f'{r['seconds']:.1f}' for r in ranks)} s | "
+          f"nvidia-smi: {smi}", flush=True)
+    return {"k1": sum(f["counts"]["k1"] for f in fs),
+            "k2": sum(f["counts"]["k2"] for f in fs),
+            "k3": sum(t["counts"]["k3"] for t in tp),
+            "k4": sum(t["counts"]["k4"] for t in tp)}
 
 
 def main() -> int:
@@ -6253,6 +6625,9 @@ def main() -> int:
               PTN_SEQ + 1)
     phase_mha("bf16", B, S, HEADS, D // HEADS, KV_LEN)
     phase_mha("f32", B, S, HEADS, D // HEADS, KV_LEN)
+    # the shape a rank of phase 37's model axis of 3 gives kernel 3: the
+    # ViT block's one head of 64 a rank, (512, 208, 192)
+    mha_tp = phase_mha("bf16", B, S, HEADS // TP_RANKS, D // HEADS, KV_LEN)
     serve_int8 = phase_serve_int8(serve)
     ptn = phase_serve_ptn()
     # kernel 4 at the shape PTN training launches gives the kernels line
@@ -6265,6 +6640,9 @@ def main() -> int:
     # the MoE blocks' shape at dropout, the other wgmma route
     mha_bwd_vit = phase_mha_bwd("bf16", B, S, HEADS, D // HEADS, KV_LEN,
                                 dropout=True)
+    # and kernel 4 at phase 37's one head of 64 a rank
+    mha_bwd_tp = phase_mha_bwd("bf16", B, S, HEADS // TP_RANKS, D // HEADS,
+                               KV_LEN)
     # the longest sequence kernel 3 takes at PTN's head dim: several row
     # tiles and streamed chunks in kernel 4 (its streamed body)
     phase_mha_bwd("bf16", PTN_TRAIN_BATCH, 160, PTN_HEADS,
@@ -6329,6 +6707,8 @@ def main() -> int:
     phase_lightning()
     # data parallelism: two ranks on the one card
     dp = phase_dp()
+    # tensor parallelism and FSDP: three ranks on the one card
+    tp = phase_tp()
     # the MoE and the later model paths' launches of the earlier kernels
     later_runs = (serve_moe["counts"], serve_moe["int8_counts"],
                   train_moe["counts"], train_moe["drop_counts"],
@@ -6348,6 +6728,13 @@ def main() -> int:
                 **extra}
 
     csrc = "devt_tpu_torch/ops/csrc/"
+
+    def _tp_row(m):
+        """Row 3's or 4's numbers at a rank's shape of phase 37."""
+        return {"shape": f"({B},{S},{3 * (HEADS // TP_RANKS) * (D // HEADS)})",
+                "heads": HEADS // TP_RANKS, "ms": m["kernel_ms"],
+                **{k: m[k] for k in ("max_abs_err", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
 
     def ft_rows(part):
         """Rows 3's and 4's FrameTransformer shapes (head dims 448 and
@@ -6383,11 +6770,12 @@ def main() -> int:
         entry(1, "fused_vit_block_fwd", csrc + "block_sm90.cuh",
               "devt_tpu/ops/fused_block.py:177",
               serve["launches"] + train["fwd_launches"] + later("k1")
-              + dp["k1"],
+              + dp["k1"] + tp["k1"],
               {**fwd, "max_abs_err": max(fwd["max_abs_err"].values())},
               entry_launches=entry_run["counts"]["k1"]
               + frame_run["counts"]["k1"], artifact_launches=artifact["k1"],
-              dp_launches=dp["k1"],
+              dp_launches=dp["k1"], tp_launches=0,
+              fsdp_launches=tp["k1"],
               launch_sources=[csrc + "fused_block_fwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "flash_fwd_sm90.cuh"]),
@@ -6395,9 +6783,10 @@ def main() -> int:
         # backward on the recompute and kernels 12's and 13's wgmma bodies
         entry(2, "fused_vit_block_bwd", csrc + "block_sm90.cuh",
               "devt_tpu/ops/fused_block.py:240",
-              train["bwd_launches"] + later("k2") + dp["k2"], bwd,
-              entry_launches=entry_run["counts"]["k2"]
+              train["bwd_launches"] + later("k2") + dp["k2"] + tp["k2"],
+              bwd, entry_launches=entry_run["counts"]["k2"]
               + frame_run["counts"]["k2"], dp_launches=dp["k2"],
+              tp_launches=0, fsdp_launches=tp["k2"],
               launch_sources=[csrc + "fused_block_bwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "block_bwd_parts.cuh",
@@ -6407,9 +6796,12 @@ def main() -> int:
         # instance; dropout, the streamed body
         entry(3, "fused_mha", csrc + "mha_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:558",
-              ptn["mha_launches"] + train_ptn["fwd_launches"] + later("k3"),
+              ptn["mha_launches"] + train_ptn["fwd_launches"] + later("k3")
+              + tp["k3"],
               mha, entry_launches=entry_run["counts"]["k3"]
               + frame_run["counts"]["k3"], artifact_launches=artifact["k3"],
+              tp_launches=tp["k3"], fsdp_launches=0,
+              tp_shape=_tp_row(mha_tp),
               launch_sources=[csrc + "mha_fwd.cu",
                                    csrc + "mha_fwd_sm90.cuh",
                                    csrc + "flash_fwd_sm90.cuh",
@@ -6420,14 +6812,17 @@ def main() -> int:
         # 13's bodies; the ViT shape's reading beside the PTN one
         entry(4, "fused_mha_bwd", csrc + "mha_bwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:589",
-              train_ptn["bwd_launches"] + later("k4"), mha_bwd,
+              train_ptn["bwd_launches"] + later("k4") + tp["k4"], mha_bwd,
+              tp_launches=tp["k4"], fsdp_launches=0,
+              tp_shape=_tp_row(mha_bwd_tp),
               bodies={"packed": train_ptn["k4_packed"]
                       + entry_run["k4_packed"],
                       "wgmma": train_moe["k4_wgmma"]
                       + int8_unfused["k4_wgmma"],
                       "streamed": train_ptn["bwd_launches"] + later("k4")
                       - train_ptn["k4_packed"] - entry_run["k4_packed"]
-                      - train_moe["k4_wgmma"] - int8_unfused["k4_wgmma"]},
+                      - train_moe["k4_wgmma"] - int8_unfused["k4_wgmma"],
+                      "tp": tp["k4"]},
               drop_ms=mha_bwd["bwd_drop_ms"],
               entry_launches=entry_run["counts"]["k4"]
               + frame_run["counts"]["k4"],
@@ -6512,7 +6907,8 @@ def main() -> int:
     for k in kernels:
         if k["launches"] < 1 or k.get("entry_launches", 1) < 1 \
                 or k.get("artifact_launches", 1) < 1 \
-                or k.get("dp_launches", 1) < 1:
+                or k.get("dp_launches", 1) < 1 \
+                or k.get("tp_launches", 1) + k.get("fsdp_launches", 1) < 1:
             raise AssertionError(f"{k['name']}: no launch on its path")
     print(json.dumps({"kernels": kernels}))
     print(f"[time] {time.perf_counter() - t0:.1f} s from the build's start",
@@ -6527,4 +6923,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:      # one rank of phase 36
         sys.exit(_dp_child(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--tp-rank"]:      # one rank of phase 37
+        sys.exit(_tp_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

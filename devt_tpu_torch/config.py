@@ -15,10 +15,13 @@ the same validation, so one YAML file configures either package.
     CPU ``"pallas"`` runs their plain versions and ``"auto"``, like
     ``"xla"``, the materialised softmax attention.
 
-``dp`` lays out the data-parallel mesh (``parallel/mesh.py``).  Knobs of
-paths that are not ported yet (``mp``, ``pp``, ``sp``, ``dp_mode`` other
-than ``"auto"``, ``moe_ep`` across devices…) are accepted here and
-refused where a model or an executor would need them.  ``remat`` rematerialises each transformer
+``dp`` and ``mp`` lay out the (data, model) mesh (``parallel/mesh.py``);
+``dp_mode`` picks data parallelism, FSDP (``"fsdp"``) or the GSPMD
+formulations (``"gspmd"``, ``"fsdp_gspmd"``), and ``mp`` > 1 tensor
+parallelism (``parallel/train_step.py``).  Knobs of paths that are not
+ported yet (``pp``, ``sp``, ``moe_ep`` across devices, MoE blocks on a
+model axis) are accepted here and refused where a model or an executor
+would need them.  ``remat`` rematerialises each transformer
 block or encoder layer of a training step (``models.layers.remat``).  ``moe_experts`` gives the ViViT space
 transformer its switch-MoE blocks on one device; ``moe_ep`` changes
 nothing there, as in the JAX package on one device.

@@ -24,13 +24,19 @@ Data parallel, one process a rank (``parallel/distributed.py``):
     python -m torch.distributed.run --nproc_per_node 2 \
         -m devt_tpu_torch.main --dp 2 [--key value ...]
 
-(``torchrun`` is the same launcher.)  Two ranks on one card share it over
-Gloo; with a card each they use NCCL.  The mesh engages by the JAX entry
-point's rule, with the world's ranks in place of its devices.  In a world
-of one process ``--dp 2`` or ``--mp 2`` trains on the one card, as JAX
-does on one device.  In a world of more than one rank a mesh that cannot
-engage raises ``ValueError`` with JAX's reason: where JAX warns and falls
-back to one device, ranks cannot.
+(``torchrun`` is the same launcher.)  ``--dp_mode fsdp`` shards the
+state over the data axis (ZeRO-3), and ``--mp N`` lays out a (data, model)
+mesh with tensor parallelism over N ranks:
+
+    python -m torch.distributed.run --nproc_per_node 3 \
+        -m devt_tpu_torch.main --model vivit --mp 3 [--key value ...]
+
+Ranks that share one card talk over Gloo; with a card each they use NCCL.
+The mesh engages by the JAX entry point's rule, with the world's ranks in
+place of its devices.  In a world of one process ``--dp 2`` or ``--mp 2``
+trains on the one card, as JAX does on one device.  In a world of more
+than one rank a mesh that cannot engage raises ``ValueError`` with JAX's
+reason: where JAX warns and falls back to one device, ranks cannot.
 """
 
 from __future__ import annotations

@@ -24,13 +24,17 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from devt_tpu_torch.ops.attention import packed_mha, quant_active
+from devt_tpu_torch.ops.attention import (active_tp_mesh, packed_mha,
+                                          quant_active)
 from devt_tpu_torch.ops.flash_attention import fits_single_block
 from devt_tpu_torch.ops.fused_block import (fused_attn_half,
                                             fused_block_eligible,
                                             fused_vit_block)
 from devt_tpu_torch.ops.quant import (quant_block_params, quant_vit_block,
                                       site_value)
+from devt_tpu_torch.parallel import tp_block
+from devt_tpu_torch.parallel.collectives import axis, copy_to, reduce_from
+from devt_tpu_torch.parallel.mesh import MODEL_AXIS
 from devt_tpu_torch.parallel.moe import moe_ffn_dense
 
 # torch's LayerNorm eps, which the reference uses everywhere
@@ -193,6 +197,27 @@ def kernel_matrix(lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
                        device=w.device).copy_(w.t())
 
 
+def tp_dropout_rng(rng: DropoutRng | None, rate: float,
+                   training: bool) -> DropoutRng | None:
+    """The stream of a dropout site whose activation a tensor-parallel
+    block splits by column: the block's stream with the rank's model index
+    folded in (the same draw from ``rng`` on every rank keeps the ranks'
+    streams of the whole-tensor sites equal)."""
+    if not training or rate == 0.0 or rng is None:
+        return rng
+    return DropoutRng(tp_block.fold_in(rng.block_seed(),
+                                       axis(MODEL_AXIS).index))
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The row-parallel product of a tensor-parallel block: this rank's
+    partial ``x @ wᵀ`` summed over the model axis in f32
+    (``collectives.reduce_from``), then the bias, in ``dtype``."""
+    part = F.linear(x.to(dtype), w.to(dtype)).float()
+    return (reduce_from(part, MODEL_AXIS) + bias.float()).to(dtype)
+
+
 def sinusoidal_positional_encoding(max_len: int, d_model: int,
                                    base: float = 1000.0) -> torch.Tensor:
     """``(max_len, d_model)`` f32 table: sin in the even columns, cos in
@@ -314,7 +339,16 @@ class ViTBlock(nn.Module):
     ``quant_fused_vit_block`` where the shape is eligible, the unfused
     ``quant_vit_block`` when the block is pinned to
     ``attention_impl="xla"``.  The quantized parameter tree goes through
-    the site registry, so a quantized ``Predictor`` builds it once."""
+    the site registry, so a quantized ``Predictor`` builds it once.
+
+    Inside ``ops.attention.tp_pallas_scope`` (a tensor-parallel step) a
+    block whose heads and FFN hidden divide over the model axis runs as
+    one rank's slice of the Megatron layout, on the rank's parts of its
+    weights and of ``fc1``'s bias, which the step hands it
+    (``parallel.sharding.tp_parts``):
+    where ``tp_eligible``, ``parallel/tp_block.py``'s block (kernel 3 on
+    the rank's heads, tanh GELU, the fused block's math); otherwise the
+    unfused modules' math on column- and row-parallel products."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
                  dropout: float = 0.0, attention_impl: str = "auto",
@@ -352,6 +386,27 @@ class ViTBlock(nn.Module):
             self.training and torch.is_grad_enabled(),
             self.ff.fc1.out_features)
 
+    def tp_splits(self, n: int) -> bool:
+        """Whether the block runs on its own slices over a model axis of
+        ``n`` ranks: its heads and FFN hidden divide, and it has an
+        out-projection."""
+        return (n > 1 and self.attn.project_out and self.heads % n == 0
+                and self.ff.fc1.out_features % n == 0)
+
+    def tp_eligible(self, x: torch.Tensor, n: int) -> bool:
+        """``devt_tpu/models/layers.py:ViTBlock._tp_eligible``: the
+        Megatron block of ``parallel/tp_block.py`` over a model axis of
+        ``n`` ranks."""
+        if self.attention_impl == "xla":
+            return False
+        if self.heads * self.dim_head != self.dim:
+            return False
+        if self.heads == 1 and self.dim_head == self.dim:
+            return False
+        if n <= 1 or self.heads % n or self.ff.fc1.out_features % n:
+            return False
+        return fits_single_block(x.shape[1])
+
     def block_params(self) -> dict[str, torch.Tensor]:
         """The kernel's parameter dict: matrices (K, N) in the compute
         dtype, LN parameters and biases (1, N) f32."""
@@ -383,6 +438,9 @@ class ViTBlock(nn.Module):
                 x.to(self.dtype).contiguous(), qp, self.heads,
                 self.dim_head ** -0.5,
                 kv_len if kv_len is not None else x.shape[1], impl=impl)
+        tpm = active_tp_mesh()
+        if tpm is not None and self.tp_splits(tpm.shape[MODEL_AXIS]):
+            return self._tp_forward(x, kv_len, rng, tpm.shape[MODEL_AXIS])
         if self.fused_eligible(x):
             rate = self.dropout if self.training else 0.0
             if rate > 0.0 and rng is None:
@@ -399,6 +457,55 @@ class ViTBlock(nn.Module):
         x = x + self.attn(h, kv_len, rng)
         h = layer_norm(self.ff_norm, x, self.dtype)
         return x + self.ff(h, rng)
+
+    def _tp_forward(self, x: torch.Tensor, kv_len: int | None,
+                    rng: DropoutRng | None, n: int) -> torch.Tensor:
+        """One rank's slice of the block over a model axis of ``n``."""
+        attn, ff, dtype = self.attn, self.ff, self.dtype
+        inner, mlp = self.heads * self.dim_head, ff.fc1.out_features
+        wqkv, wo = attn.to_qkv.weight, attn.to_out.weight
+        w1, b1, w2 = ff.fc1.weight, ff.fc1.bias, ff.fc2.weight
+        if wqkv.shape[0] * n != 3 * inner or b1.shape[0] * n != mlp:
+            raise ValueError(
+                f"a tensor-parallel block over {n} ranks takes its parts "
+                f"(the step hands them: parallel.sharding.tp_parts); got "
+                f"qkv rows {wqkv.shape[0]} of {3 * inner}, FFN bias "
+                f"{b1.shape[0]} of {mlp}")
+        kv = kv_len if kv_len is not None else x.shape[1]
+        rate = self.dropout if self.training else 0.0
+        if rate > 0.0 and rng is None:
+            raise ValueError("a training forward with dropout needs rng=, "
+                             "a DropoutRng (models/layers.py)")
+        if self.tp_eligible(x, n):
+            def row(t):
+                return t.float().reshape(1, -1)
+
+            rep = {"g1": row(self.attn_norm.weight),
+                   "b1": row(self.attn_norm.bias),
+                   "bo": row(attn.to_out.bias),
+                   "g2": row(self.ff_norm.weight),
+                   "b2": row(self.ff_norm.bias), "bb2": row(ff.fc2.bias)}
+            w = {"wqkv": wqkv.t().to(dtype), "wo": wo.t().to(dtype),
+                 "w1": w1.t().to(dtype), "bb1": row(b1),
+                 "w2": w2.t().to(dtype)}
+            return tp_block.tp_block_local(
+                x.to(dtype), rep, w, heads_local=self.heads // n,
+                scale=self.dim_head ** -0.5, kv_len=kv, axis_name=MODEL_AXIS,
+                rate=rate, seed=rng.block_seed() if rate > 0.0 else 0)
+        # the unfused modules' math on column- and row-parallel products
+        h = copy_to(layer_norm(self.attn_norm, x, dtype), MODEL_AXIS)
+        qkv = F.linear(h.to(dtype), wqkv.to(dtype))
+        out = packed_mha(qkv, heads=self.heads // n,
+                         scale=self.dim_head ** -0.5,
+                         impl=self.attention_impl, kv_len=kv_len)
+        o = row_parallel(out, wo, attn.to_out.bias, dtype)
+        x = x + dropout(o, rate, self.training, rng)
+        h = copy_to(layer_norm(self.ff_norm, x, dtype), MODEL_AXIS)
+        h = F.gelu(F.linear(h.to(dtype), w1.to(dtype), b1.to(dtype)))
+        h = dropout(h, rate, self.training,
+                    tp_dropout_rng(rng, rate, self.training))
+        h = row_parallel(h, w2, ff.fc2.bias, dtype)
+        return x + dropout(h, rate, self.training, rng)
 
 
 class MoEViTBlock(nn.Module):

@@ -13,6 +13,15 @@ kernel on the card) and the four Linear sites run int8 under
 tree (``self_attn.in_proj``, ``self_attn.out_proj``, ``linear1``,
 ``linear2``, ``norm1``, ``norm2``, ``layers.<i>`` for ``layer_<i>``), so
 ``utils/jax_bridge.py`` maps one onto the other by name.
+
+Inside ``ops.attention.tp_pallas_scope`` (a tensor-parallel step) a layer
+whose heads and feed-forward width divide over the model axis runs as
+one rank's slice of the Megatron layout: ``in_proj`` and ``linear1``
+column-parallel, ``out_proj`` and ``linear2`` row-parallel with an
+all-reduce, the attention on the rank's heads through the same
+dispatching attention, on the parts of the weights and of the
+column-parallel biases that the step hands it
+(``parallel.sharding.tp_parts``).
 """
 
 from __future__ import annotations
@@ -20,11 +29,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+import torch.nn.functional as F
+
 from devt_tpu_torch.models.layers import (LN_EPS, DropoutRng, dense, dropout,
-                                          layer_norm, remat)
-from devt_tpu_torch.ops.attention import (packed_mha, quant_active,
-                                          quant_site_allowed)
+                                          layer_norm, remat, row_parallel,
+                                          tp_dropout_rng)
+from devt_tpu_torch.ops.attention import (active_tp_mesh, packed_mha,
+                                          quant_active, quant_site_allowed)
 from devt_tpu_torch.ops.quant import int8_dot_general
+from devt_tpu_torch.parallel.collectives import copy_to
+from devt_tpu_torch.parallel.mesh import MODEL_AXIS
 
 
 def site_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
@@ -91,8 +105,17 @@ class TorchEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
+    def tp_splits(self, n: int) -> bool:
+        """Whether the layer runs on its own slices over a model axis of
+        ``n`` ranks: its heads and feed-forward width divide."""
+        return (n > 1 and self.self_attn.num_heads % n == 0
+                and self.linear1.out_features % n == 0)
+
     def forward(self, x: torch.Tensor,
                 rng: DropoutRng | None = None) -> torch.Tensor:
+        tpm = active_tp_mesh()
+        if tpm is not None and self.tp_splits(tpm.shape[MODEL_AXIS]):
+            return self._tp_forward(x, rng, tpm.shape[MODEL_AXIS])
         rate, training = self.dropout, self.training
         attn = dropout(self.self_attn(x, rng), rate, training, rng)
         x = layer_norm(self.norm1, x + attn, self.dtype)
@@ -102,6 +125,45 @@ class TorchEncoderLayer(nn.Module):
         h = dropout(site_dense(self.linear2, h, self.dtype, quant), rate,
                     training, rng)
         return layer_norm(self.norm2, x + h, self.dtype)
+
+    def _tp_forward(self, x: torch.Tensor, rng: DropoutRng | None,
+                    n: int) -> torch.Tensor:
+        """One rank's slice of the layer over a model axis of ``n``."""
+        rate, training, dtype = self.dropout, self.training, self.dtype
+        mha = self.self_attn
+        e, f = mha.embed_dim, self.linear1.out_features
+        use_drop = rate > 0.0 and training
+        if use_drop and rng is None:
+            raise ValueError("a training forward with dropout needs rng=, a "
+                             "DropoutRng (models/layers.py)")
+        # the attention's probabilities and the FFN hidden are split by
+        # head and column: their masks come from the rank's own stream
+        local_rng = tp_dropout_rng(rng, rate, training)
+        if mha.in_proj.bias.shape[0] * n != 3 * e \
+                or self.linear1.bias.shape[0] * n != f:
+            raise ValueError(
+                f"a tensor-parallel layer over {n} ranks takes its parts "
+                f"(the step hands them: parallel.sharding.tp_parts); got "
+                f"qkv rows {mha.in_proj.bias.shape[0]} of {3 * e}")
+        h = copy_to(x, MODEL_AXIS).to(dtype)
+        qkv = F.linear(h, mha.in_proj.weight.to(dtype),
+                       mha.in_proj.bias.to(dtype))
+        out = packed_mha(qkv, heads=mha.num_heads // n,
+                         scale=(e // mha.num_heads) ** -0.5,
+                         impl=mha.attention_impl,
+                         dropout_rate=rate if use_drop else 0.0,
+                         rng=local_rng if use_drop else None)
+        attn = row_parallel(out, mha.out_proj.weight, mha.out_proj.bias,
+                            dtype)
+        x = layer_norm(self.norm1, x + dropout(attn, rate, training, rng),
+                       dtype)
+        h = copy_to(x, MODEL_AXIS).to(dtype)
+        h = torch.relu(F.linear(h, self.linear1.weight.to(dtype),
+                                self.linear1.bias.to(dtype)))
+        h = dropout(h, rate, training, local_rng)
+        h = row_parallel(h, self.linear2.weight, self.linear2.bias, dtype)
+        return layer_norm(self.norm2, x + dropout(h, rate, training, rng),
+                          dtype)
 
 
 class TorchTransformerEncoder(nn.Module):

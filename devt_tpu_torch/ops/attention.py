@@ -31,8 +31,10 @@ Port of ``devt_tpu/ops/attention.py``.
                    plain attention.
 
 ``quant_scope`` marks a forward as int8 serving: ``models/layers.ViTBlock``
-and the Linear sites of ``models/torch_encoder.py`` read it.  The scope is
-a re-entrant, thread-local context manager; it works eagerly as JAX's does
+and the Linear sites of ``models/torch_encoder.py`` read it.
+``tp_pallas_scope`` marks a forward as one rank's slice of a tensor-parallel
+step: the transformer blocks read it (``active_tp_mesh``).  The scopes are
+re-entrant, thread-local context managers; they work eagerly as JAX's do
 at trace time.
 """
 
@@ -71,6 +73,30 @@ def quant_scope(site_pred=None):
     finally:
         _gate.quant = prev
         _gate.quant_pred = prev_pred
+
+
+@contextlib.contextmanager
+def tp_pallas_scope(mesh):
+    """Inside the scope, the transformer blocks run as one rank's slice of
+    the Megatron layout over ``mesh``'s ``model`` axis: an eligible ViT
+    block as ``parallel/tp_block.py``'s block (kernel 3 on the rank's local
+    heads), the other blocks whose heads divide over the axis on
+    column- and row-parallel products.  The tensor-parallel step executors
+    (``parallel/train_step.py``, strategy ``gspmd``) set it around each step
+    when the mesh has a model axis of more than one rank and
+    ``attention_impl`` is ``"auto"``, as JAX's do around their trace.
+    Re-entrant, thread-local, bounded by the ``with``."""
+    prev = getattr(_gate, "tp_mesh", None)
+    _gate.tp_mesh = mesh
+    try:
+        yield
+    finally:
+        _gate.tp_mesh = prev
+
+
+def active_tp_mesh():
+    """The mesh set by :func:`tp_pallas_scope`, or None."""
+    return getattr(_gate, "tp_mesh", None)
 
 
 def quant_active() -> bool:

@@ -1,8 +1,8 @@
-"""Meshes and the step executors: one device, or data parallel over a
-``torch.distributed`` process group (``mesh``, ``distributed``,
-``collectives``, ``train_step``); the single-device half of the MoE and
-the ring attention.  FSDP and tensor parallelism (``param_partition_specs``,
-``shard_variables``) wait for ROADMAP.md queue 1, item 7b.
+"""Meshes and the step executors: one device, or data parallel, FSDP and
+tensor parallel over ``torch.distributed`` process groups (``mesh``,
+``distributed``, ``collectives``, ``train_step``, ``fsdp``, ``sharding``,
+``tp_block``, ``layout``); the single-device half of the MoE and the ring
+attention.
 
 The exports resolve on first use: the models import
 ``parallel.collectives``, and the executors import the models.
@@ -13,6 +13,7 @@ import importlib
 _EXPORTS = {
     "make_mesh": "mesh", "batch_spec": "mesh", "replicated_spec": "mesh",
     "make_train_step": "train_step", "make_eval_step": "train_step",
+    "param_partition_specs": "sharding", "shard_variables": "sharding",
 }
 
 __all__ = list(_EXPORTS)

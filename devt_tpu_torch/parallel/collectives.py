@@ -1,13 +1,14 @@
-"""The collectives of the data-parallel step: the port's ``lax.pmean`` and
-``lax.all_gather(tiled=True)`` over a named mesh axis.
+"""The collectives of the step executors: the port's ``lax.pmean``,
+``lax.psum``, ``lax.all_gather(tiled=True)`` and ``lax.psum_scatter`` over
+a named mesh axis.
 
 JAX names an axis inside ``shard_map`` and its collectives take that
 name.  Here one process runs each rank, and :func:`axis_scope` binds an
 axis name to an :class:`Axis` (a process group, its size and this rank's
-index along it) for the duration of a ``with``: the DP executors bind the
-mesh's ``data`` axis around each step, so that ``forward_and_loss``,
-``nt_xent`` and a synced ``BatchNorm`` reach the group by the name JAX's
-code uses.  An unbound name raises ``NameError``, as JAX's does outside
+index along it) for the duration of a ``with``: the executors bind the
+mesh's ``data`` and ``model`` axes around each step, so that
+``forward_and_loss``, ``nt_xent`` and a synced ``BatchNorm`` reach the
+group by the name JAX's code uses.  An unbound name raises ``NameError``, as JAX's does outside
 ``shard_map``.
 
   * :func:`pmean`: the mean of a list of tensors over the axis, coalesced:
@@ -27,7 +28,29 @@ code uses.  An unbound name raises ``NameError``, as JAX's does outside
     statistics; its backward is the mean of the cotangents (JAX's
     transpose of ``pmean`` under ``check_vma=False``).
   * :func:`broadcast`: the tensors of rank ``src`` to every rank, in
-    place, coalesced by dtype.
+    place, coalesced by dtype;
+  * :func:`copy_to` and :func:`reduce_from`, Megatron's pair around a
+    column-parallel then row-parallel product (``parallel/tp_block.py``):
+    the identity forward with an all-reduce backward at the column-parallel
+    input (each rank's input gradient covers only its columns), and an
+    all-reduce forward with the identity backward after the row-parallel
+    product (JAX's ``psum`` and the transposes of ``shard_map``);
+  * :func:`all_gather`: every rank's tensor concatenated along any dim
+    (``groups`` > 1: each of ``groups`` equal blocks of the dim gathered on
+    its own, the layout of a packed qkv split by head), its backward a
+    reduce-scatter: the ranks' cotangents summed, then this rank's part.
+    Differentiating FSDP's gather (``parallel/fsdp.py``) is the ZeRO-3
+    reduce-scatter of the gradients;
+  * :func:`reduce_scatter`: the sum over the axis, this rank's part of it
+    along a dim (``reduce_scatter_tensor`` on the parts moved to the front,
+    any dim and any ``groups``; Gloo takes no reduce-scatter of CUDA
+    tensors, so there an all-reduce, then the slice);
+  * :func:`local_slice`: this rank's part of a tensor every rank holds
+    whole, its backward an all-gather of the parts' cotangents (a
+    replicated weight a tensor-parallel product uses only a slice of);
+  * :func:`gather_replicated`: the whole tensor from every rank's part,
+    its backward this rank's part of the cotangent, for a computation
+    every rank of the axis repeats with the same values.
 
 Every collective runs whenever a process group exists, also over a group
 of one rank; without ``torch.distributed`` initialised an axis has one
@@ -96,10 +119,22 @@ def _buckets(tensors: Sequence[torch.Tensor]) -> dict:
     return out
 
 
+def psum(tensors: Sequence[torch.Tensor], axis_name: str
+         ) -> list[torch.Tensor]:
+    """The sum over the axis of each tensor (new tensors, not in place, no
+    gradient): one ``all_reduce`` per dtype."""
+    return _reduce(tensors, axis_name, mean=False)
+
+
 def pmean(tensors: Sequence[torch.Tensor], axis_name: str
           ) -> list[torch.Tensor]:
     """The mean over the axis of each tensor (new tensors, not in place,
     no gradient): one ``all_reduce`` per dtype."""
+    return _reduce(tensors, axis_name, mean=True)
+
+
+def _reduce(tensors: Sequence[torch.Tensor], axis_name: str,
+            mean: bool) -> list[torch.Tensor]:
     ax = axis(axis_name)
     tensors = [t.detach() for t in tensors]
     if not _live(ax):
@@ -108,7 +143,8 @@ def pmean(tensors: Sequence[torch.Tensor], axis_name: str
     for idx in _buckets(tensors).values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         dist.all_reduce(flat, group=ax.group)
-        flat /= ax.size
+        if mean:
+            flat /= ax.size
         start = 0
         for i in idx:
             n = tensors[i].numel()
@@ -136,35 +172,206 @@ def broadcast(tensors: Sequence[torch.Tensor], axis_name: str,
                 start += n
 
 
+def _gloo(ax: Axis) -> bool:
+    return dist.get_backend(ax.group) == "gloo"
+
+
 def _sum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    x = x.contiguous().clone()
-    dist.all_reduce(x, group=ax.group)
-    return x
+    """The sum over the axis, in ``x``'s dtype; under Gloo, which may not
+    reduce a bf16 tensor, summed in at least f32."""
+    if not _gloo(ax):
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=ax.group)
+        return out
+    wide = x.detach().to(torch.promote_types(x.dtype, torch.float32),
+                         copy=True).contiguous()
+    dist.all_reduce(wide, group=ax.group)
+    return wide.to(x.dtype)
 
 
-class _GatherRows(torch.autograd.Function):
+def parts(x: torch.Tensor, dim: int, n: int, groups: int
+           ) -> list[torch.Tensor]:
+    """``x`` cut into ``n`` parts along ``dim``: with ``groups`` > 1 the dim
+    is ``groups`` equal blocks, and part j is the j-th ``n``-th of each
+    block, concatenated (the (3, H/n, d) slice of a packed qkv)."""
+    size = x.shape[dim]
+    if size % (groups * n):
+        raise ValueError(f"dim {dim} of {size} does not split into {groups} "
+                         f"blocks of {n} parts")
+    blocks = x.chunk(groups, dim) if groups > 1 else (x,)
+    cut = [b.chunk(n, dim) for b in blocks]
+    return [torch.cat([c[j] for c in cut], dim) if groups > 1 else cut[0][j]
+            for j in range(n)]
+
+
+def part(x: torch.Tensor, dim: int, n: int, index: int,
+         groups: int = 1) -> torch.Tensor:
+    """Part ``index`` of ``n`` of ``x`` along ``dim`` (see :func:`parts`)."""
+    return parts(x, dim, n, groups)[index]
+
+
+def join(pieces, dim: int, groups: int = 1) -> torch.Tensor:
+    """The inverse of :func:`parts`: the whole tensor from its parts."""
+    if groups == 1:
+        return torch.cat(list(pieces), dim)
+    split = [p.chunk(groups, dim) for p in pieces]
+    return torch.cat([b for g in range(groups) for b in
+                      (s[g] for s in split)], dim)
+
+
+def _gather(x: torch.Tensor, ax: Axis, dim: int, groups: int):
+    pieces = [torch.empty_like(x) for _ in range(ax.size)]
+    dist.all_gather(pieces, x.contiguous(), group=ax.group)
+    return join(pieces, dim, groups)
+
+
+def parts_first(x: torch.Tensor, dim: int, n: int, groups: int
+                ) -> torch.Tensor:
+    """``x`` with ``dim`` moved to the front and its :func:`parts` laid out
+    one after another along it (contiguous): the input of a
+    reduce-scatter, whose rank j keeps the j-th ``n``-th."""
+    x = x.movedim(dim, 0)
+    size, rest = x.shape[0], tuple(x.shape[1:])
+    x = x.reshape((groups, n, size // (groups * n)) + rest)
+    return x.transpose(0, 1).reshape((size,) + rest).contiguous()
+
+
+def _scatter(x: torch.Tensor, ax: Axis, dim: int, groups: int):
+    """The sum over the axis, this rank's part along ``dim``:
+    ``reduce_scatter_tensor`` on :func:`parts_first`'s layout, except
+    under Gloo (no reduce-scatter of CUDA tensors), where it is an
+    all-reduce, then the slice."""
+    if _gloo(ax):
+        return part(_sum(x, ax), dim, ax.size, ax.index, groups)
+    src = parts_first(x.detach(), dim, ax.size, groups)
+    out = src.new_empty((src.shape[0] // ax.size,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=ax.group)
+    return out.movedim(0, dim)
+
+
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor, ax: Axis) -> torch.Tensor:
-        ctx.ax, ctx.rows = ax, x.shape[0]
-        parts = [torch.empty_like(x) for _ in range(ax.size)]
-        dist.all_gather(parts, x.contiguous(), group=ax.group)
-        return torch.cat(parts)
+    def forward(ctx, x, ax: Axis, dim: int, groups: int):
+        ctx.args = ax, dim, groups
+        return _gather(x, ax, dim, groups)
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        ax, rows = ctx.ax, ctx.rows
-        g = _sum(g, ax)
-        return g[ax.index * rows:(ax.index + 1) * rows], None
+    def backward(ctx, g):
+        return _scatter(g, *ctx.args), None, None, None
 
 
-def all_gather_rows(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    """``lax.all_gather(x, axis_name, axis=0, tiled=True)``: every rank's
-    ``x`` (the same shape on each) concatenated along the rows in rank
-    order; differentiable (see the module's docstring)."""
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax: Axis, dim: int, groups: int):
+        ctx.args = ax, dim, groups
+        return _gather(x, ax, dim, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax, dim, groups = ctx.args
+        return part(g, dim, ax.size, ax.index, groups), None, None, None
+
+
+class _LocalSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax: Axis, dim: int, groups: int):
+        ctx.args = ax, dim, groups
+        return part(x, dim, ax.size, ax.index, groups).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax: Axis):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.ax), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax: Axis):
+        return _sum(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_gather(x: torch.Tensor, axis_name: str, dim: int = 0,
+               groups: int = 1) -> torch.Tensor:
+    """``lax.all_gather(x, axis_name, axis=dim, tiled=True)``: every rank's
+    ``x`` (the same shape on each) concatenated along ``dim`` in rank order
+    (with ``groups``, block by block); differentiable, its backward the
+    reduce-scatter of the cotangents."""
     ax = axis(axis_name)
     if not _live(ax):
         return x
-    return _GatherRows.apply(x, ax)
+    return _Gather.apply(x, ax, dim, groups)
+
+
+def all_gather_rows(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """``lax.all_gather(x, axis_name, axis=0, tiled=True)``: the rows of
+    every rank in rank order (see the module's docstring)."""
+    return all_gather(x, axis_name, 0)
+
+
+def reduce_scatter(x: torch.Tensor, axis_name: str, dim: int = 0,
+                   groups: int = 1) -> torch.Tensor:
+    """``lax.psum_scatter(x, axis_name, scatter_dimension=dim,
+    tiled=True)``: the sum over the axis, this rank's part along ``dim``
+    (no gradient)."""
+    ax = axis(axis_name)
+    if not _live(ax):
+        return x
+    return _scatter(x.detach(), ax, dim, groups)
+
+
+def local_slice(x: torch.Tensor, axis_name: str, dim: int,
+                groups: int = 1) -> torch.Tensor:
+    """This rank's part along ``dim`` of ``x``, which every rank of the
+    axis holds whole; the backward all-gathers the parts' cotangents, so
+    every rank gets the whole gradient."""
+    ax = axis(axis_name)
+    if ax.size == 1:
+        return x
+    _live(ax)
+    return _LocalSlice.apply(x, ax, dim, groups)
+
+
+def gather_replicated(x: torch.Tensor, axis_name: str, dim: int,
+                      groups: int = 1) -> torch.Tensor:
+    """The whole tensor from every rank's part along ``dim``, for a
+    computation that every rank of the axis repeats on the same values:
+    the backward takes this rank's part of the (same) cotangent."""
+    ax = axis(axis_name)
+    if not _live(ax):
+        return x
+    return _GatherReplicated.apply(x, ax, dim, groups)
+
+
+def copy_to(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Megatron's f: the identity forward, an all-reduce of the cotangent
+    over the axis in the backward (at a column-parallel product's input)."""
+    ax = axis(axis_name)
+    if not _live(ax):
+        return x
+    return _CopyTo.apply(x, ax)
+
+
+def reduce_from(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Megatron's g (``lax.psum`` in the forward): the sum over the axis of
+    the ranks' partial products, the identity backward."""
+    ax = axis(axis_name)
+    if not _live(ax):
+        return x
+    return _ReduceFrom.apply(x, ax)
 
 
 class _MeanGrad(torch.autograd.Function):

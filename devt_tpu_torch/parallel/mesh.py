@@ -4,14 +4,14 @@ JAX lays its devices out in a ``Mesh`` and one program drives all of
 them.  Here one process runs each rank (``parallel/distributed.py``), and
 :class:`Mesh` is the layout of the world's ranks on the same named axes
 (``data``, ``model``, ``pipe``, ``seq``), with this rank's coordinates and
-the process group of its ``data`` axis.  ``make_mesh`` keeps the JAX
+the process group of each axis it lies on.  ``make_mesh`` keeps the JAX
 function's arguments, its checks and their words; ``shard_batch`` gives
 this rank its rows of a global batch, which is what
 ``NamedSharding(mesh, P("data"))`` places on device r.
 
 Which strategy a mesh runs is chosen by ``parallel/train_step.py:
-mesh_strategy``; of JAX's strategies, the port runs the data-parallel one
-(``dp_shard_map``).
+mesh_strategy``; the port runs the data-parallel, FSDP and tensor-parallel
+ones (``dp_shard_map``, ``fsdp_shard_map``, ``gspmd``).
 """
 
 from __future__ import annotations
@@ -33,14 +33,14 @@ SEQ_AXIS = "seq"
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """Ranks on named axes.  ``ranks``: the grid of world ranks, one
-    dimension an axis; ``rank``: this process's world rank; ``data_group``:
-    the process group of the ranks that share this rank's coordinates on
-    every axis but ``data`` (None: the default group, or no group at all
-    when ``torch.distributed`` is not initialised)."""
+    dimension an axis; ``rank``: this process's world rank; ``groups``:
+    for each axis, the process group of the ranks that share this rank's
+    coordinates on every other axis (None: the default group, or no group
+    at all when ``torch.distributed`` is not initialised)."""
     axis_names: tuple[str, ...]
     ranks: np.ndarray
     rank: int
-    data_group: Any = None
+    groups: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -59,13 +59,13 @@ class Mesh:
         return dict(zip(self.axis_names, (int(i) for i in where[0])))
 
     def axes(self) -> dict[str, Axis]:
-        """The ``data`` axis as the collectives see it, by name."""
+        """Every axis as the collectives see it, by name."""
         coords = self.coords
         if coords is None:
             raise ValueError(f"rank {self.rank} is outside the mesh "
                              f"{self.shape} of ranks {self.ranks.tolist()}")
-        return {DATA_AXIS: Axis(self.data_group, self.shape[DATA_AXIS],
-                                coords[DATA_AXIS])}
+        return {name: Axis(self.groups.get(name), size, coords[name])
+                for name, size in self.shape.items()}
 
 
 def _world() -> tuple[int, int]:
@@ -76,18 +76,21 @@ def _world() -> tuple[int, int]:
 
 def _layout(grid: np.ndarray, names: tuple[str, ...], rank: int,
             live: bool) -> Mesh:
-    """The mesh, with the process groups of the ``data`` axis: one a line
-    of the grid along it.  Every rank of the world makes every group (a
-    collective call), and keeps its own."""
-    group = None
+    """The mesh, with the process groups of each axis: one a line of the
+    grid along it, the axes in order.  Every rank of the world makes every
+    group (a collective call), in the same order, and keeps its own.  An
+    axis whose one line is the whole world uses the default group."""
+    groups = {}
     world = dist.get_world_size() if live else 1
-    if live and grid.size > 1 and grid.shape[0] < world:
-        lines = np.moveaxis(grid, 0, -1).reshape(-1, grid.shape[0])
+    for a, name in enumerate(names):
+        if not live or grid.size == 1 or grid.shape[a] == world:
+            continue
+        lines = np.moveaxis(grid, a, -1).reshape(-1, grid.shape[a])
         for line in lines:
             g = dist.new_group([int(r) for r in line])
             if rank in line:
-                group = g
-    return Mesh(names, grid, rank, group)
+                groups[name] = g
+    return Mesh(names, grid, rank, groups)
 
 
 def make_mesh(dp: int = -1, mp: int = 1, pp: int = 1, sp: int = 1,
@@ -100,7 +103,7 @@ def make_mesh(dp: int = -1, mp: int = 1, pp: int = 1, sp: int = 1,
     ``devices``: the world ranks to lay out, in order (default: every rank
     of the ``torch.distributed`` world, or the one process when there is
     none).  Under a world of more than one rank every rank calls this with
-    the same arguments: it makes the ``data`` axis' process groups."""
+    the same arguments: it makes the axes' process groups."""
     rank, world = _world()
     live = world > 1
     devices = list(devices if devices is not None else range(world))

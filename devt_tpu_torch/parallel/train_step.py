@@ -38,10 +38,35 @@ The eval step gathers the per-sample aux rows in rank order.  Explicit
 collectives rather than ``DistributedDataParallel``: the body takes its
 gradients with ``torch.autograd.grad``, which DDP's reducer does not see.
 
-A mesh of one rank runs the single-device step, bit for bit.  The other
-strategies JAX picks by mesh shape raise ``NotImplementedError``: tensor
-parallelism and FSDP (ROADMAP.md queue 1, item 7b), pipeline, sequence
-and expert parallelism (item 7c).
+FSDP (``dp_mode="fsdp"``, strategy ``fsdp_shard_map``): the state lives
+sharded over ``data`` (``parallel/fsdp.py``: each rank keeps a slice of
+each parameter and moment).  The step gathers the parameters at the top
+of the loss, runs the forward and backward on them (the fused kernels on
+the rank's rows), and the gather's backward reduce-scatters the gradients;
+the sharded leaves' sums are divided by the ranks, the whole leaves'
+averaged, and the optimizer updates the local slices.
+
+Tensor parallelism and the GSPMD formulations (strategy ``gspmd``: ``mp``
+> 1, ``dp_mode`` ``"gspmd"`` or ``"fsdp_gspmd"``, or ``"fsdp"`` with
+global-norm clipping or Adafactor).  JAX partitions one global program;
+here every rank runs its part of the same step, with the values of the
+one-device step on the global batch, as GSPMD's are: the batch's rows
+over ``data`` (every BatchNorm synced over it, the contrastive negatives
+gathered), the state as it was placed (``sharding.shard_train_state``'s
+Megatron layout over ``model``, ``fsdp.shard_train_state``'s over
+``data``).  With a model axis of more than one rank and ``attention_impl
+"auto"`` the step runs inside ``ops.attention.tp_pallas_scope``: the
+transformer blocks whose heads divide over the axis compute on their
+slices (the eligible ViT blocks as ``parallel/tp_block.py``'s block,
+kernel 3 on the rank's heads); every other sharded weight is gathered
+whole for its module.  The gradients stay in the state's layout, the
+clip's global norm and Adafactor's factored statistics are the whole
+tree's (the optimizer is handed the state's ``shards``).
+
+A mesh of one rank runs the single-device step, bit for bit.  Pipeline
+and sequence parallelism, expert-parallel MoE routing (``moe_ep`` on a
+data-parallel mesh) and MoE blocks on a model axis raise
+``NotImplementedError`` (ROADMAP.md queue 1, item 7c).
 
 The executors run on ``cuda`` unless the caller passes ``device="cpu"``,
 and raise when there is no card.
@@ -50,6 +75,7 @@ and raise when there is no card.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Callable, Mapping
 
 import numpy as np
@@ -57,8 +83,10 @@ import torch
 from torch import nn
 
 from devt_tpu_torch.config import Config
-from devt_tpu_torch.models.layers import DropoutRng
-from devt_tpu_torch.parallel import collectives
+from devt_tpu_torch.models.layers import DropoutRng, MoEViTBlock
+from devt_tpu_torch.models.resnet import BatchNorm
+from devt_tpu_torch.ops.attention import tp_pallas_scope
+from devt_tpu_torch.parallel import collectives, fsdp, layout, sharding
 from devt_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
                                           SEQ_AXIS)
 from devt_tpu_torch.serve import resolve_device
@@ -101,8 +129,8 @@ def mesh_strategy(mesh, config: Config | None = None) -> str:
     """Execution strategy for a mesh, as JAX's picks it: ``single`` |
     ``dp_shard_map`` | ``fsdp_shard_map`` | ``pp_shard_map`` |
     ``sp_shard_map`` | ``gspmd``.  A mesh of one rank is ``single``.  The
-    port runs ``single`` and ``dp_shard_map`` (the data-parallel step);
-    :func:`make_train_step` and the others refuse the rest."""
+    port runs all but ``pp_shard_map`` and ``sp_shard_map``, which
+    :func:`make_train_step` and the others refuse."""
     if mesh is None or mesh.size == 1:
         return "single"
     shape = dict(mesh.shape)
@@ -116,6 +144,8 @@ def mesh_strategy(mesh, config: Config | None = None) -> str:
         else "auto"
     if mode == "fsdp":
         clip = getattr(config, "grad_clip_norm", 0.0)
+        # Adafactor's factored statistics and the clip's global norm are
+        # the whole tree's: JAX leaves them to its gspmd trace
         adafactor = getattr(config, "opt", "adamW") == "adafactor"
         return ("gspmd" if (clip and clip > 0.0) or adafactor
                 else "fsdp_shard_map")
@@ -125,65 +155,102 @@ def mesh_strategy(mesh, config: Config | None = None) -> str:
 
 
 _NOT_PORTED = {
-    "gspmd": ("tensor parallelism (mp > 1) and dp_mode 'gspmd' / "
-              "'fsdp_gspmd'", "7b"),
-    "fsdp_shard_map": ("FSDP (dp_mode='fsdp', ZeRO-3)", "7b"),
-    "pp_shard_map": ("pipeline parallelism (pp > 1)", "7c"),
-    "sp_shard_map": ("sequence parallelism (sp > 1)", "7c"),
+    "pp_shard_map": "pipeline parallelism (pp > 1)",
+    "sp_shard_map": "sequence parallelism (sp > 1)",
 }
 
 
-def _dp_axis(mesh, config: Config) -> str | None:
-    """``DATA_AXIS`` when the mesh runs the data-parallel step, None when
-    it runs the single-device one; ``NotImplementedError`` for the
-    strategies not ported yet."""
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """What a mesh's step does: ``strategy``; ``data``: it reduces over a
+    data axis of more than one rank; ``tp``: the model axis' size when the
+    step runs inside ``tp_pallas_scope`` (0: it does not)."""
+    strategy: str
+    data: bool = False
+    tp: int = 0
+
+
+def _plan(mesh, config: Config, model: nn.Module) -> _Plan:
+    """The mesh's plan; ``NotImplementedError`` for what is not ported
+    (ROADMAP.md queue 1, item 7c)."""
     strategy = mesh_strategy(mesh, config)
     if strategy in _NOT_PORTED:
-        what, item = _NOT_PORTED[strategy]
         raise NotImplementedError(
-            f"{what} on a mesh of shape {mesh.shape} is not ported yet — "
-            f"ROADMAP.md queue 1, item {item}")
+            f"{_NOT_PORTED[strategy]} on a mesh of shape {mesh.shape} is not "
+            f"ported yet — ROADMAP.md queue 1, item 7c")
     if strategy == "single":
-        return None
-    if getattr(config, "moe_ep", False):
+        return _Plan(strategy)
+    if strategy == "dp_shard_map" and getattr(config, "moe_ep", False):
         raise NotImplementedError(
             "moe_ep=True on a mesh, expert-parallel MoE routing, is not "
             "ported yet — ROADMAP.md queue 1, item 7c")
-    return DATA_AXIS
+    mp = mesh.shape.get(MODEL_AXIS, 1)
+    if mp > 1 and (getattr(config, "moe_experts", 0) > 0 or any(
+            isinstance(m, MoEViTBlock) for m in model.modules())):
+        raise NotImplementedError(
+            f"switch-MoE blocks on a model axis of {mp} ranks (expert "
+            f"parallelism) are not ported yet — ROADMAP.md queue 1, item 7c")
+    tp = mp if (strategy == "gspmd" and mp > 1
+                and getattr(config, "attention_impl", "auto") == "auto") \
+        else 0
+    return _Plan(strategy, data=mesh.shape.get(DATA_AXIS, 1) > 1, tp=tp)
+
+
+def _tp_parts(model: nn.Module, state: TrainState, tp: int) -> dict:
+    """The parts the tensor-parallel modules compute on
+    (``sharding.tp_parts``) over a model axis of ``tp`` ranks; none when
+    the step runs outside ``tp_pallas_scope`` (``tp`` 0)."""
+    if not tp:
+        return {}
+    shapes = {k: state.shards[k].shape if k in state.shards
+              else tuple(p.shape) for k, p in state.params.items()}
+    return sharding.tp_parts(model, shapes, tp)
 
 
 @contextlib.contextmanager
-def _sync_bn(model: nn.Module):
+def _sync_bn(model: nn.Module, every: bool = False):
     """Models exposing a ``bn_sync_axis`` knob (the contrastive encoder)
     get cross-replica synced BatchNorm inside the DP step, as JAX's
     ``_sync_bn`` clones them with ``bn_sync_axis=DATA_AXIS``: the
     global-negatives NT-Xent loss sees the activations of a single-device
     global-batch step.  Conv backbones keep per-replica batch statistics.
-    The knob is set for the ``with`` and restored after it."""
-    if getattr(model, "bn_sync_axis", "absent") is not None:
-        yield
-        return
-    model.bn_sync_axis = DATA_AXIS
+    ``every``: every BatchNorm synced (the gspmd step: GSPMD's batch
+    statistics are the global batch's).  The knobs are set for the
+    ``with`` and restored after it."""
+    norms = [m for m in model.modules()
+             if isinstance(m, BatchNorm) and m.axis_name is None] \
+        if every else []
+    knob = not every and getattr(model, "bn_sync_axis", "absent") is None
+    for m in norms:
+        m.axis_name = DATA_AXIS
+    if knob:
+        model.bn_sync_axis = DATA_AXIS
     try:
         yield
     finally:
-        model.bn_sync_axis = None
+        for m in norms:
+            m.axis_name = None
+        if knob:
+            model.bn_sync_axis = None
 
 
 def _pmean_step(grads: dict, loss, aux: dict, new_ms: dict,
-                axis_name: str):
-    """The DDP reduction, explicit: the mean over the axis of the
-    gradients, the loss, the scalar aux and the float model state, in one
-    coalesced all-reduce per dtype."""
-    parts = {"grads": dict(grads), "loss": {"": loss}, "aux": dict(aux),
+                axis_name: str, shards: dict):
+    """The DDP reduction, explicit: the gradients made the global batch's
+    (``fsdp.reduce_grads_to_shards``: the mean over the axis, or for
+    leaves sharded over it the reduce-scatter's sums divided by the
+    ranks), then the mean of the loss, the scalar aux and the float model
+    state in one coalesced all-reduce per dtype."""
+    grads = fsdp.reduce_grads_to_shards(
+        grads, shards, collectives.axis(axis_name).size, axis_name)
+    parts = {"loss": {"": loss}, "aux": dict(aux),
              "ms": {k: v for k, v in new_ms.items()
                     if v.is_floating_point()}}
     keys = [(p, k) for p, d in parts.items() for k in d]
     means = collectives.pmean([parts[p][k] for p, k in keys], axis_name)
     for (p, k), m in zip(keys, means):
         parts[p][k] = m
-    return (parts["grads"], parts["loss"][""], parts["aux"],
-            {**new_ms, **parts["ms"]})
+    return grads, parts["loss"][""], parts["aux"], {**new_ms, **parts["ms"]}
 
 
 def _to_device(batch: Mapping, device: torch.device) -> dict:
@@ -195,24 +262,30 @@ def _to_device(batch: Mapping, device: torch.device) -> dict:
 
 
 def _make_step_body(model: nn.Module, config: Config,
-                    axis_name: str | None = None) -> Callable:
+                    plan: _Plan) -> Callable:
     """``(state, batch, rng) -> (state, metrics)``: one full forward +
     backward + update on device tensors.  Shared by the single-step and
     multi-step executors.
 
-    With ``axis_name`` set the body is a DP replica (called inside
-    ``collectives.axis_scope``): its seed mixes in the rank, and the
-    gradients, loss, scalar aux and model state are the mean over the
-    ranks before the update, so every rank applies the identical
-    global-batch update to its replicated parameters."""
+    Over a mesh (called inside the mesh's ``collectives.axis_scope``): the
+    forward runs on ``layout.forward_params`` of the state (sharded leaves
+    gathered, or the rank's slices for the blocks that split over the
+    model axis); with ``plan.data`` the seed mixes in the rank's data
+    index, and the gradients, loss, scalar aux and model state are the
+    mean over the data axis before the update, so every rank applies the
+    global-batch update to its parameters or its slices of them."""
     accum = max(config.accum_steps, 1)
+    axis_name = DATA_AXIS if plan.data else None
 
     def grads_of(state: TrainState, model_state, batch, seed: int):
         names = list(state.params)
         leaves = [state.params[k] for k in names]
         for p in leaves:
             p.requires_grad_(True)
-        variables = {"params": state.params, **model_state}
+        tensors = layout.forward_params(
+            state.params, state.shards,
+            _tp_parts(model, state, plan.tp))
+        variables = {"params": tensors, **model_state}
         loss, aux, new_ms = forward_and_loss(
             model, config, variables, batch, DropoutRng(seed), train=True,
             axis_name=axis_name)
@@ -255,7 +328,7 @@ def _make_step_body(model: nn.Module, config: Config,
             aux = {k: torch.stack(v).mean() for k, v in stacked.items()}
         if axis_name is not None:
             grads, loss, aux, new_ms = _pmean_step(grads, loss, aux, new_ms,
-                                                   axis_name)
+                                                   axis_name, state.shards)
         new_state = state.apply_gradients(grads, new_ms)
         return new_state, {"loss": loss, **aux}
 
@@ -281,14 +354,21 @@ def _placed(model: nn.Module, state: TrainState, device: torch.device
     return state
 
 
-def _scope(model: nn.Module, mesh, axis_name: str | None):
-    """The context a DP step runs in: the mesh's axes bound by name, and
-    the contrastive encoder's BatchNorm synced; nothing for one device."""
-    if axis_name is None:
+def _scope(model: nn.Module, mesh, plan: _Plan):
+    """The context a mesh's step runs in: the mesh's axes bound by name;
+    the contrastive encoder's BatchNorm synced under the DP and FSDP steps,
+    every BatchNorm under the gspmd step over a data axis; the
+    tensor-parallel scope.  Nothing for one device."""
+    if plan.strategy == "single":
         return contextlib.nullcontext()
     stack = contextlib.ExitStack()
     stack.enter_context(collectives.axis_scope(mesh.axes()))
-    stack.enter_context(_sync_bn(model))
+    if plan.strategy != "gspmd":
+        stack.enter_context(_sync_bn(model))
+    elif plan.data:
+        stack.enter_context(_sync_bn(model, every=True))
+    if plan.tp:
+        stack.enter_context(tp_pallas_scope(mesh))
     return stack
 
 
@@ -299,17 +379,19 @@ def make_train_step(model: nn.Module, config: Config, mesh=None,
     ``state``: a ``TrainState`` whose ``params`` are ``model``'s
     (``dict(model.named_parameters())``); it is moved to the device on the
     first call and updated in place.  ``batch``: tensors or numpy arrays
-    with a leading batch axis; under a data-parallel ``mesh``, this rank's
-    rows of the global batch (``mesh.shard_batch``), and every rank calls
+    with a leading batch axis; over a ``mesh``, this rank's rows of the
+    global batch (``mesh.shard_batch``: the ranks of one data index share
+    theirs), the state as ``Trainer`` places it (whole, or sharded by
+    ``parallel/fsdp.py`` or ``parallel/sharding.py``), and every rank calls
     the step.  ``rng``: an integer seed.  ``metrics`` are device scalars;
     reading one (``float(metrics["loss"])``) waits for the step."""
-    axis_name = _dp_axis(mesh, config)
+    plan = _plan(mesh, config, model)
     device = resolve_device(device)
-    body = _make_step_body(model, config, axis_name)
+    body = _make_step_body(model, config, plan)
 
     def train_step(state: TrainState, batch, rng: int):
         state = _placed(model, state, device)
-        with _scope(model, mesh, axis_name):
+        with _scope(model, mesh, plan):
             return body(state, _to_device(batch, device), rng)
 
     return train_step
@@ -325,12 +407,12 @@ def make_multi_step(model: nn.Module, config: Config, n_steps: int,
     randomness folds ``state.step`` into ``rng``, identical to ``n_steps``
     separate calls.  The returned metrics are the per-step values reduced
     to their mean, on the device: nothing inside waits for the card, so
-    the host runs ahead of it by up to ``n_steps`` steps.  Under a
-    data-parallel ``mesh`` the batches are this rank's rows of each step's
-    global batch (axis 1), and each step reduces over the ranks."""
-    axis_name = _dp_axis(mesh, config)
+    the host runs ahead of it by up to ``n_steps`` steps.  Over a ``mesh``
+    the batches are this rank's rows of each step's global batch (axis 1),
+    and each step reduces over the ranks."""
+    plan = _plan(mesh, config, model)
     device = resolve_device(device)
-    body = _make_step_body(model, config, axis_name)
+    body = _make_step_body(model, config, plan)
 
     def multi_step(state: TrainState, batches, rng: int):
         state = _placed(model, state, device)
@@ -340,7 +422,7 @@ def make_multi_step(model: nn.Module, config: Config, n_steps: int,
                 raise ValueError(f"stacked batch has {v.shape[0]} steps, "
                                  f"expected {n_steps}")
         stacked: dict[str, list] = {}
-        with _scope(model, mesh, axis_name):
+        with _scope(model, mesh, plan):
             for i in range(n_steps):
                 state, metrics = body(
                     state, {k: v[i] for k, v in batches.items()}, rng)
@@ -371,28 +453,30 @@ def make_eval_step(model: nn.Module, config: Config, mesh=None,
     """Returns ``eval_step(state, batch) -> (loss, aux)``, the
     validation/test step feeding the epoch-end evaluators.
 
-    Under a data-parallel ``mesh`` ``batch`` is this rank's rows, and the
+    Over a ``mesh`` ``batch`` is this rank's rows, the state is placed as
+    for the train step (a sharded one's parameters gathered, or the rank's
+    slices for the tensor-parallel blocks), and over a data axis the
     results are the global batch's on every rank: the loss and scalar aux
     the mean over the ranks, the per-sample aux rows (``probs``,
     ``label``, ``embedding``) gathered in rank order, and the contrastive
     loss scored against the negatives of every rank."""
-    axis_name = _dp_axis(mesh, config)
+    plan = _plan(mesh, config, model)
     device = resolve_device(device)
+    axis_name = DATA_AXIS if plan.data else None
 
     def eval_step(state: TrainState, batch):
         state = _placed(model, state, device)
-        variables = {"params": state.params, **state.model_state}
-        with torch.no_grad():
+        with torch.no_grad(), _scope(model, mesh, plan):
+            tensors = layout.forward_params(
+                state.params, state.shards,
+                _tp_parts(model, state, plan.tp))
+            loss, aux, _ = forward_and_loss(
+                model, config, {"params": tensors, **state.model_state},
+                _to_device(batch, device), rng=None, train=False,
+                axis_name=axis_name)
             if axis_name is None:
-                loss, aux, _ = forward_and_loss(
-                    model, config, variables, _to_device(batch, device),
-                    rng=None, train=False)
                 return loss, aux
-            with collectives.axis_scope(mesh.axes()):
-                loss, aux, _ = forward_and_loss(
-                    model, config, variables, _to_device(batch, device),
-                    rng=None, train=False, axis_name=axis_name)
-                loss = collectives.pmean([loss], axis_name)[0]
-                return loss, _replicate_aux(aux, axis_name)
+            loss = collectives.pmean([loss], axis_name)[0]
+            return loss, _replicate_aux(aux, axis_name)
 
     return eval_step

@@ -24,15 +24,21 @@ around the step executors of ``parallel/train_step.py``:
 It runs on ``cuda`` unless the caller passes ``device="cpu"``, and raises
 without a card.
 
-Over a data-parallel mesh (``mesh=``, or ``use_mesh=True``: the mesh of
-``config.dp``, ``mp``, ``pp`` and ``sp``, as the JAX trainer makes it)
-every rank runs the loop: the state is broadcast from rank 0, each rank
-assembles only its rows of every global batch (``Loader.shard_rows``;
-another iterable's batches are sliced), the executors reduce over the
-ranks, and validation sees the gathered aux, so the epoch metrics are the
-same on every rank.  Rank 0 alone logs, writes checkpoints and runs the
-test callbacks (they write files); the others wait for its last write.
-A checkpoint is read on every rank.
+Over a mesh (``mesh=``, or ``use_mesh=True``: the mesh of ``config.dp``,
+``mp``, ``pp`` and ``sp``, as the JAX trainer makes it) every rank runs
+the loop: the state is broadcast from rank 0 and placed as JAX's trainer
+places it (``dp_mode`` ``"fsdp"`` / ``"fsdp_gspmd"``: sharded over
+``data`` by ``parallel/fsdp.py``; otherwise by the Megatron rules of
+``parallel/sharding.py``, which split only over a model axis of more
+than one rank), each rank assembles only its data index's rows of every
+global batch (``Loader.shard_rows``; another iterable's batches are
+sliced), the executors reduce over the ranks, and validation sees the
+gathered aux, so the epoch metrics are the same on every rank.  Rank 0
+alone logs, writes checkpoints and runs the test callbacks (they write
+files); the others wait for its last write.  A checkpoint holds the
+whole state in the one-device format (a sharded state is gathered on
+every rank, then rank 0 writes it), and is read on every rank and split
+again, so it moves between one card and a mesh.
 """
 
 from __future__ import annotations
@@ -46,9 +52,10 @@ import torch.distributed as dist
 
 from devt_tpu_torch.config import Config
 from devt_tpu_torch.data.pipeline import device_prefetch, is_numeric
-from devt_tpu_torch.parallel import collectives
+from devt_tpu_torch.parallel import collectives, fsdp, layout, sharding
 from devt_tpu_torch.parallel.distributed import process_index
-from devt_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh, shard_batch
+from devt_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, make_mesh,
+                                          shard_batch)
 from devt_tpu_torch.parallel.train_step import (make_eval_step,
                                                 make_multi_step,
                                                 make_train_step)
@@ -112,22 +119,40 @@ class Trainer:
         self.profile_path: str | None = None
 
     # ------------------------------------------------------------------
-    def _init_state(self, model, steps_per_epoch: int) -> TrainState:
+    def _init_state(self, model, steps_per_epoch: int,
+                    path: str | None = None) -> TrainState:
         """A state over the model's own parameters and buffers, on the
-        trainer's device, restored from ``config.resume`` when set."""
+        trainer's device, restored from ``path`` (default
+        ``config.resume``) when set, then broadcast and placed over the
+        mesh."""
         model.to(self.device)
         tx = build_optimizer(self.config, steps_per_epoch)
         state = TrainState.create(dict(model.named_parameters()), tx,
                                   model_state=model_buffers(model))
-        if self.config.resume:
-            state = ckpt_lib.restore(self.config.resume, state)
+        path = path or self.config.resume
+        if path:
+            state = ckpt_lib.restore(path, state)
         if self._axis is not None:
+            axes = self.mesh.axes()
             # every rank starts from rank 0's parameters and buffers
-            with collectives.axis_scope(self.mesh.axes()):
-                collectives.broadcast(
-                    [*state.params.values(), *state.model_state.values()],
-                    DATA_AXIS)
+            with collectives.axis_scope(axes):
+                for name in (DATA_AXIS, MODEL_AXIS):
+                    if name in axes:
+                        collectives.broadcast(
+                            [*state.params.values(),
+                             *state.model_state.values()], name)
+            if self.config.dp_mode in ("fsdp", "fsdp_gspmd"):
+                fsdp.shard_train_state(state, self.mesh)
+            else:
+                sharding.shard_train_state(state, self.mesh)
         return state
+
+    def _whole(self, state) -> TrainState:
+        """The whole state (a sharded one gathered, on every rank)."""
+        if not state.shards:
+            return state
+        with collectives.axis_scope(self.mesh.axes()):
+            return layout.whole_state(state)
 
     def _local(self, batches):
         """This rank's rows of each batch of ``batches``: a ``Loader``
@@ -148,13 +173,18 @@ class Trainer:
         dist.all_gather_object(parts, list(paths), group=self._axis.group)
         return [p for part in parts for p in part]
 
-    def _save(self, ckpt_dir: str, state) -> None:
+    def _save(self, ckpt_dir: str, state, step: int | None = None) -> None:
+        whole = self._whole(state)
         if self._rank0:
-            self._saver.save(ckpt_dir, state, self.config)
+            self._saver.save(ckpt_dir, whole, self.config, step=step)
 
     def _barrier(self) -> None:
-        if self._axis is not None:
-            dist.barrier(group=self._axis.group)
+        if self._axis is None:
+            return
+        # every rank of the mesh; the data axis' when the mesh leaves
+        # ranks of the world out
+        whole_world = self.mesh.size == dist.get_world_size()
+        dist.barrier(group=None if whole_world else self._axis.group)
 
     @staticmethod
     def _split_host_only(batch):
@@ -315,8 +345,8 @@ class Trainer:
             return
         self._best_value = value
         best_dir = os.path.join(cfg.checkpoint_dir, "best")
+        self._save(best_dir, state, step)
         if self._rank0:
-            self._saver.save(best_dir, state, cfg, step=step)
             # best saves are rare: await the write so the retention pass
             # sees the finished directory
             self._saver.wait()
@@ -353,10 +383,9 @@ class Trainer:
         cfg = self.config
         datamodule.setup()
         if state is None:
-            state = self._init_state(model, 1)
-            path = ckpt_path or ckpt_lib.latest_checkpoint(cfg.checkpoint_dir)
-            if path:
-                state = ckpt_lib.restore(path, state)
+            state = self._init_state(
+                model, 1,
+                ckpt_path or ckpt_lib.latest_checkpoint(cfg.checkpoint_dir))
         eval_step = make_eval_step(model, cfg, mesh=self.mesh,
                                    device=self.device)
         losses = []

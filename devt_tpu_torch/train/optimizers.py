@@ -26,6 +26,16 @@ overwrites ``state`` in place (the moments are the largest tensors after
 the parameters).  Step counts are host integers, so schedules and bias
 corrections are host arithmetic and cost no device synchronisation.
 
+Sharded leaves (``parallel/layout.py``): ``update``'s ``shards`` gives,
+leaf by leaf, the ``Shard`` of which the leaf is this rank's part (None:
+the leaf is whole), and the transformations that are not elementwise see
+the whole leaves: the global norm of the clip sums every part's squares
+over its axis (a whole leaf once), Adafactor's factored row and column
+statistics are taken from the whole gradient (gathered), and the
+block-RMS clip from the whole update's squares.  The collectives run
+inside the mesh's ``collectives.axis_scope``; with no shards they are
+not reached.  ``TrainState.apply_gradients`` passes the state's.
+
 ``linear_warmup_cosine``: linear warm-up from 0 to ``base_lr`` over
 ``warmup_epochs``, then cosine decay to ``eta_min`` at ``max_epochs``,
 expressed per optimizer step via ``steps_per_epoch``.
@@ -40,9 +50,33 @@ import numpy as np
 import torch
 
 from devt_tpu_torch.config import Config
+from devt_tpu_torch.parallel import collectives
 
 Tensors = Sequence[torch.Tensor]
 Schedule = Callable[[int], float]
+
+
+Shards = Sequence | None
+
+
+def _each(shards: Shards, n: int) -> list:
+    """A ``Shard`` or None for each of ``n`` leaves."""
+    return [None] * n if shards is None else list(shards)
+
+
+def _whole_sums(sums: Sequence[torch.Tensor], shards: list) -> list:
+    """Each per-leaf sum made the whole leaf's: a sharded leaf's summed
+    over its axis (one all-reduce an axis; none without shards)."""
+    out = list(sums)
+    by_axis: dict = {}
+    for i, sh in enumerate(shards):
+        if sh is not None:
+            by_axis.setdefault(sh.axis, []).append(i)
+    for name, idx in by_axis.items():
+        for i, total in zip(idx, collectives.psum([out[i] for i in idx],
+                                                  name)):
+            out[i] = total
+    return out
 
 
 def _lr_at(lr, count: int) -> float:
@@ -71,8 +105,13 @@ class ClipByGlobalNorm:
     def init(self, params: Tensors) -> dict:
         return {}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
         norms = torch._foreach_norm(updates)
+        # a sharded leaf's norm: the root of its parts' squares' sum
+        shards = _each(shards, len(norms))
+        norms = [n if sh is None else torch.sqrt(sq) for n, sq, sh in zip(
+            norms, _whole_sums([n * n for n in norms], shards), shards)]
         g_norm = torch.linalg.vector_norm(torch.stack(norms))
         keep = g_norm < self.max_norm
         return [torch.where(keep, t, (t / g_norm.to(t.dtype)) * self.max_norm)
@@ -89,7 +128,8 @@ class AddDecayedWeights:
     def init(self, params: Tensors) -> dict:
         return {}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
         return torch._foreach_add(updates, list(params),
                                   alpha=self.weight_decay)
 
@@ -108,7 +148,8 @@ class ScaleByAdam:
                        for p in params],
                 "nu": [torch.zeros_like(p) for p in params]}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
         b1, b2 = self.b1, self.b2
         updates = list(updates)
         mu = _decayed(state["mu"], b1, updates)
@@ -143,7 +184,8 @@ class ScaleByRss:
         return {"sum_of_squares": [torch.full_like(p, self.initial)
                                    for p in params]}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
         updates = list(updates)
         acc = state["sum_of_squares"]
         torch._foreach_add_(acc, torch._foreach_mul(updates, updates))
@@ -162,7 +204,8 @@ class Trace:
     def init(self, params: Tensors) -> dict:
         return {"trace": [torch.zeros_like(p) for p in params]}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
         torch._foreach_mul_(state["trace"], self.decay)
         torch._foreach_add_(state["trace"], list(updates))
         return [t.clone() for t in state["trace"]]
@@ -178,7 +221,8 @@ class ScaleByLearningRate:
     def init(self, params: Tensors) -> dict:
         return {"count": 0}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
         step = self.sign * _lr_at(self.lr, state["count"])
         state["count"] += 1
         return torch._foreach_mul(list(updates), step)
@@ -223,18 +267,25 @@ class ScaleByFactoredRms:
             v.append(one)
         return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
         beta = float(np.float32(1) - np.float32(state["count"] + 1)
                      ** np.float32(-self.decay_rate))
         out = []
-        for i, (g, p) in enumerate(zip(updates, params)):
-            dims = _factored_dims(p.shape, self.min_dim)
-            sq = g * g + self.epsilon
+        shards = _each(shards, len(params))
+        for i, (g, p, sh) in enumerate(zip(updates, params, shards)):
+            dims = _factored_dims(p.shape if sh is None else sh.shape,
+                                  self.min_dim)
             if dims is None:
+                sq = g * g + self.epsilon
                 v = beta * state["v"][i] + (1.0 - beta) * sq
                 state["v"][i] = v
                 out.append(g * v ** -0.5)
                 continue
+            if sh is not None:
+                # the factored statistics are the whole parameter's
+                g = collectives.all_gather(g, sh.axis, sh.dim, sh.groups)
+            sq = g * g + self.epsilon
             d1, d0 = dims
             v_row = beta * state["v_row"][i] + (1.0 - beta) * sq.mean(dim=d0)
             v_col = beta * state["v_col"][i] + (1.0 - beta) * sq.mean(dim=d1)
@@ -243,7 +294,11 @@ class ScaleByFactoredRms:
             row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) \
                 ** -0.5
             col_factor = v_col ** -0.5
-            out.append(g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1))
+            u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            if sh is not None:
+                ax = collectives.axis(sh.axis)
+                u = collectives.part(u, sh.dim, ax.size, ax.index, sh.groups)
+            out.append(u)
         state["count"] += 1
         return out
 
@@ -257,9 +312,14 @@ class ClipByBlockRms:
     def init(self, params: Tensors) -> dict:
         return {}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
-        return [u / torch.clamp(torch.sqrt(torch.mean(u * u))
-                                / self.threshold, min=1.0) for u in updates]
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
+        shards = _each(shards, len(updates))
+        squares = _whole_sums([torch.sum(u * u) for u in updates], shards)
+        means = [sq / (u.numel() if sh is None else math.prod(sh.shape))
+                 for u, sq, sh in zip(updates, squares, shards)]
+        return [u / torch.clamp(torch.sqrt(m) / self.threshold, min=1.0)
+                for u, m in zip(updates, means)]
 
 
 class Ema:
@@ -275,7 +335,8 @@ class Ema:
                 "ema": [torch.zeros_like(p, dtype=self.dtype or p.dtype)
                         for p in params]}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
         updates = list(updates)
         ema = _decayed(state["ema"], self.decay, updates)
         torch._foreach_add_(ema, torch._foreach_mul(updates, 1 - self.decay))
@@ -292,7 +353,8 @@ class Scale:
     def init(self, params: Tensors) -> dict:
         return {}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
         return torch._foreach_mul(list(updates), self.factor)
 
 
@@ -306,7 +368,8 @@ class DecoupledDecay:
     def init(self, params: Tensors) -> dict:
         return {"count": 0}
 
-    def update(self, updates: Tensors, state: dict, params: Tensors):
+    def update(self, updates: Tensors, state: dict, params: Tensors,
+               shards: Shards = None):
         lr_t = _lr_at(self.lr, state["count"])
         state["count"] += 1
         return torch._foreach_add(list(updates), list(params),
@@ -322,9 +385,10 @@ class Chain:
     def init(self, params: Tensors) -> list:
         return [part.init(params) for part in self.parts]
 
-    def update(self, updates: Tensors, state: list, params: Tensors):
+    def update(self, updates: Tensors, state: list, params: Tensors,
+               shards: Shards = None):
         for part, part_state in zip(self.parts, state):
-            updates = part.update(updates, part_state, params)
+            updates = part.update(updates, part_state, params, shards)
         return updates
 
 

@@ -11,6 +11,11 @@ the optimizer's updates to the parameters, copies the step's new model
 state into the buffers, and returns a state that shares their storage.
 ``step`` is a host integer: folding it into the randomness of a step and
 into the schedules costs no device synchronisation.
+
+A state sharded over a mesh (``parallel/fsdp.py``, ``parallel/sharding.py``)
+holds only this rank's part of each sharded parameter and of the moments
+that mirror it; ``shards`` maps those parameters to their
+``parallel.layout.Shard`` (empty: every leaf whole).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ class TrainState:
     model_state: dict[str, torch.Tensor]   # e.g. BatchNorm buffers; {} if none
     opt_state: Any
     tx: Any                                # train.optimizers.Chain
+    shards: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def create(cls, params: dict[str, torch.Tensor], tx,
@@ -77,11 +83,16 @@ class TrainState:
                         new_model_state: dict | None = None) -> "TrainState":
         """One optimizer update, in place; ``grads`` by parameter name,
         ``new_model_state`` (the step's new buffers, keyed like
-        ``model_state``) copied into the state's buffers."""
+        ``model_state``) copied into the state's buffers.  A sharded state
+        updates its parts, its transformations seeing the whole leaves
+        (the ``shards`` of ``optimizers.Chain.update``, inside the mesh's
+        axis scope)."""
         params = list(self.params.values())
+        shards = [self.shards.get(k) for k in self.params] \
+            if self.shards else None
         with torch.no_grad():
             updates = self.tx.update([grads[k] for k in self.params],
-                                     self.opt_state, params)
+                                     self.opt_state, params, shards)
             torch._foreach_add_(params, updates)
             for k, v in (new_model_state or {}).items():
                 if k not in self.model_state:

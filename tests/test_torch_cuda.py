@@ -2821,3 +2821,141 @@ def test_native_decoder_builds_on_the_cards_host(card, tmp_path):
     got = dequantize(torch.from_numpy(u8).cuda(), transforms.KINETICS_MEAN,
                      transforms.KINETICS_STD, dtype=torch.float32)
     np.testing.assert_allclose(got.cpu().numpy(), f32, atol=1e-5, rtol=1e-5)
+
+
+# tensor parallelism and FSDP: two ranks of a spawned pool share the card
+# over Gloo (NCCL cannot put two ranks on one device)
+CARD_RANKS = 2
+
+
+def _card_rank(rank: int, init: str, out_dir: str) -> None:
+    """One rank: the Megatron block (bf16, 4 heads of 64 over a model axis
+    of 2) with its gradients, and one FSDP step of a ViViT at dim 192 on a
+    data axis of 2; the results saved for the test process."""
+    import os
+
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.models.vivit import ViViT
+    from devt_tpu_torch.parallel import (collectives, distributed, fsdp,
+                                         layout)
+    from devt_tpu_torch.parallel import tp_block as ttp
+    from devt_tpu_torch.parallel import train_step as tts
+    from devt_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"file://{init}", CARD_RANKS, rank)
+    tp_mesh = make_mesh(dp=1, mp=CARD_RANKS)
+    data_mesh = make_mesh(dp=CARD_RANKS)
+    out = {}
+    x, params = _block(torch.bfloat16, dim=256, mlp=512, b=4, s=208,
+                       kv_len=197, fan_in=True)
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    x.requires_grad_(True)
+    launches = tfa.fused_mha.launches, tfa.fused_mha.bwd_launches
+    y = ttp.tp_vit_block(x, params, tp_mesh, heads=4, scale=64 ** -0.5,
+                         kv_len=197)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    out["launches"] = np.array([tfa.fused_mha.launches - launches[0],
+                                tfa.fused_mha.bwd_launches - launches[1]])
+    out["y"] = y.detach().float().cpu().numpy()
+    out["dx"] = x.grad.float().cpu().numpy()
+    for k, p in params.items():
+        out[f"d::{k}"] = p.grad.float().cpu().numpy()
+
+    cfg = Config(model="vivit", batch_size=4, n_classes=5, frame_len=2,
+                 precision="bf16", opt="sgd", learning_rate=0.5,
+                 momentum=0.0, weight_decay=0.0, dp_mode="fsdp")
+    model = ViViT(image_size=32, patch_size=16, num_classes=5, num_frames=2,
+                  depth=1, channels_last=True, dtype=torch.bfloat16) \
+        .init_weights(torch.Generator().manual_seed(1)).cuda()
+    rng = np.random.default_rng(3)
+    batch = {"vid": torch.tensor(rng.standard_normal(
+        (4, 2, 32, 32, 3)).astype(np.float32)).bfloat16(),
+        "label": torch.tensor((rng.random((4, 5)) < 0.3).astype(np.float32))}
+    state = fsdp.shard_train_state(TrainState.create(
+        dict(model.named_parameters()), build_optimizer(cfg)), data_mesh)
+    launches = tfb.fused_vit_block.launches
+    state, metrics = tts.make_train_step(model, cfg, mesh=data_mesh)(
+        state, shard_batch(batch, data_mesh), 0)
+    out["fsdp_launches"] = np.int64(tfb.fused_vit_block.launches - launches)
+    out["fsdp_loss"] = np.float32(metrics["loss"].item())
+    with collectives.axis_scope(data_mesh.axes()):
+        whole = layout.whole_state(state)
+    for k, p in whole.params.items():
+        out[f"fsdp::{k}"] = p.detach().float().cpu().numpy()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tp_block_and_fsdp_step_on_two_ranks_of_the_card(card, tmp_path):
+    """The Megatron block on a model axis of 2 (kernels 3 and 4 on each
+    rank's 2 heads, bf16) against the plain path, the one-device block in
+    f32 on the CPU: the output and every gradient within the bf16 bounds;
+    one FSDP step of a bf16 ViViT on a data axis of 2 (kernels 1 and 2 on
+    the gathered weights) against the one-process step on the CPU's plain
+    path: the loss, and the parameters after the SGD step, within 2e-2
+    and the ranks' parameters bit-equal."""
+    import torch.multiprocessing as mp
+
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.models.vivit import ViViT
+    from devt_tpu_torch.parallel import train_step as tts
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    _build.build_all()
+    mp.start_processes(_card_rank, args=(str(tmp_path / "init"),
+                                         str(tmp_path)),
+                       nprocs=CARD_RANKS, start_method="spawn")
+    outs = [dict(np.load(tmp_path / f"rank{r}.npz"))
+            for r in range(CARD_RANKS)]
+    x, params = _block(torch.bfloat16, dim=256, mlp=512, b=4, s=208,
+                       kv_len=197, fan_in=True)
+    x = x.float().cpu().requires_grad_(True)
+    params = {k: v.float().cpu().requires_grad_(True)
+              for k, v in params.items()}
+    want = tfb.reference_vit_block(x, params, 4, 64 ** -0.5, 197)
+    want.sum().backward()
+    # a chain of bf16 roundings (LN, the products, the attention, GELU)
+    # against f32: the output within 1e-2 and each gradient within 5e-2
+    # (phase 7's bf16 gradient gate) of the tensor's largest element
+    for out in outs:
+        assert out["launches"].tolist() == [1, 1]
+        gaps = {}
+        for name, g, w, bound in (
+                ("y", out["y"], want.detach(), 1e-2),
+                ("dx", out["dx"], x.grad, 5e-2),
+                *((k, out[f"d::{k}"], p.grad, 5e-2)
+                  for k, p in params.items())):
+            err = (torch.tensor(g).reshape(w.shape) - w).abs().max().item()
+            gaps[name] = (err / w.abs().max().item(), bound)
+        assert all(e <= b for e, b in gaps.values()), gaps
+
+    cfg = Config(model="vivit", batch_size=4, n_classes=5, frame_len=2,
+                 precision="bf16", opt="sgd", learning_rate=0.5,
+                 momentum=0.0, weight_decay=0.0)
+    model = ViViT(image_size=32, patch_size=16, num_classes=5, num_frames=2,
+                  depth=1, channels_last=True, dtype=torch.bfloat16) \
+        .init_weights(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(3)
+    batch = {"vid": torch.tensor(rng.standard_normal(
+        (4, 2, 32, 32, 3)).astype(np.float32)).bfloat16(),
+        "label": torch.tensor((rng.random((4, 5)) < 0.3).astype(np.float32))}
+    state, metrics = tts.make_train_step(model, cfg, device="cpu")(
+        TrainState.create(dict(model.named_parameters()),
+                          build_optimizer(cfg)), batch, 0)
+    for out in outs:
+        assert int(out["fsdp_launches"]) == 1
+        assert abs(float(out["fsdp_loss"]) - float(metrics["loss"])) <= 2e-2
+        for k, p in state.params.items():
+            np.testing.assert_array_equal(out[f"fsdp::{k}"],
+                                          outs[0][f"fsdp::{k}"], k)
+            np.testing.assert_allclose(out[f"fsdp::{k}"],
+                                       p.detach().float().numpy(),
+                                       atol=2e-2, err_msg=k)

@@ -51,7 +51,7 @@ Cases, mirroring ``tests/test_training.py``'s ``test_dp_*`` and
     world whose mesh cannot engage;
   * in the test process: ``make_mesh`` and ``mesh_strategy`` on every
     mesh shape against JAX's, the refusals of the strategies not ported
-    (items 7b and 7c), the entry point's mesh rule.
+    (item 7c), the entry point's mesh rule.
 """
 
 from __future__ import annotations
@@ -309,7 +309,8 @@ def _spawn_serve(a: dict, rank: int, workdir: str) -> dict:
 
     os.chdir(workdir)
     for flags, error in (([ "--batch_size", "3"], ValueError),
-                         (["--mp", "2", "--dp", "-1"], NotImplementedError)):
+                         (["--moe_experts", "2", "--moe_ep", "true"],
+                          NotImplementedError)):
         try:
             tmain.main(MAIN + ["--dp", "2", "--name", "bad",
                                "--checkpoint_dir", "ck_bad"] + flags,
@@ -669,7 +670,7 @@ def test_main_dp2_checkpoints_on_rank0_and_resumes(serve_world, tmp_path,
         assert "batch_size=3 does not divide over the data axis dp=2" in \
             str(out["refused::ValueError"])
         assert "fall back to one device" in str(out["refused::ValueError"])
-        assert "item 7b" in str(out["refused::NotImplementedError"])
+        assert "item 7c" in str(out["refused::NotImplementedError"])
         np.testing.assert_array_equal(out["main::loss"],
                                       outs[0]["main::loss"])
     monkeypatch.chdir(tmp_path)
@@ -734,8 +735,10 @@ def test_make_mesh_and_strategy_match_jax(kw):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (dict(mp=2), "7b"), (dict(dp_mode="gspmd"), "7b"),
-    (dict(dp_mode="fsdp"), "7b"), (dict(pp=2), "7c"), (dict(sp=2), "7c"),
+    (dict(mp=2, moe_experts=2), "7c"),
+    (dict(dp_mode="gspmd", mp=2, moe_experts=2), "7c"),
+    (dict(dp_mode="fsdp", mp=2, moe_experts=2), "7c"), (dict(pp=2), "7c"),
+    (dict(sp=2), "7c"),
     (dict(moe_ep=True, moe_experts=2), "7c")])
 def test_strategies_not_ported_raise(extra, item):
     mesh_kw = {k: extra[k] for k in ("mp", "pp", "sp") if k in extra}

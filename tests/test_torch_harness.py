@@ -395,13 +395,14 @@ def test_main_and_trainer_refusals(tmp_path, tmp_path_factory, monkeypatch):
         assert np.isfinite(results["test/loss"])
     monkeypatch.chdir(tmp_path)
     cfg = TConfig(**PTN)
-    # a mesh whose strategy is not ported is refused before any work
+    # a mesh whose strategy is not ported (pipeline parallelism) is refused
+    # before any work; tensor parallelism is ported (test_torch_fsdp_tp.py)
     from devt_tpu_torch.data.synthetic import SyntheticDataModule
     from devt_tpu_torch.parallel.mesh import make_mesh
 
     trainer = TTrainer(cfg, logger=_Log(), mesh=make_mesh(
-        dp=2, mp=2, devices=range(4)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
+        dp=2, pp=2, devices=range(4)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7c"):
         trainer.fit(tbuild(cfg), SyntheticDataModule(cfg, train_size=8))
     # use_mesh lays out config.dp over the world's one process
     with pytest.raises(ValueError, match="exceeds 1 devices"):

@@ -97,7 +97,12 @@ def test_walk_covers_the_training_slice():
                 # data parallelism
                 "devt_tpu_torch/parallel/collectives.py",
                 "devt_tpu_torch/parallel/distributed.py",
-                "devt_tpu_torch/parallel/mesh.py"):
+                "devt_tpu_torch/parallel/mesh.py",
+                # FSDP and tensor parallelism
+                "devt_tpu_torch/parallel/fsdp.py",
+                "devt_tpu_torch/parallel/sharding.py",
+                "devt_tpu_torch/parallel/tp_block.py",
+                "devt_tpu_torch/parallel/layout.py"):
         assert rel in walked, rel
     assert "pandas" in FORBIDDEN
 

@@ -298,16 +298,25 @@ def test_other_models_and_meshes_raise():
     with pytest.raises(ValueError, match="no step logic"):
         tsteps.forward_and_loss(tm, TConfig(model="resnet18"),
                                 {"params": {}}, {}, None, train=False)
-    # data parallelism is ported (tests/test_torch_dp.py); a (data, model)
-    # mesh, tensor parallelism, is not
+    # data, FSDP and tensor parallelism are ported (tests/test_torch_dp.py,
+    # tests/test_torch_fsdp_tp.py): a (data, model) mesh makes its
+    # executors; a (data, pipe) mesh, pipeline parallelism, and MoE blocks
+    # on a model axis are not ported
     from devt_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(dp=2, mp=2, devices=range(4))
+    square = make_mesh(dp=2, mp=2, devices=range(4))
+    assert tts.mesh_strategy(square, tcfg) == "gspmd"
     for make in (tts.make_train_step, tts.make_eval_step):
-        with pytest.raises(NotImplementedError, match="mesh.*item 7b"):
+        assert callable(make(tm, tcfg, mesh=square, device="cpu"))
+    mesh = make_mesh(dp=2, pp=2, devices=range(4))
+    for make in (tts.make_train_step, tts.make_eval_step):
+        with pytest.raises(NotImplementedError, match="mesh.*item 7c"):
             make(tm, tcfg, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh.*item 7b"):
+    with pytest.raises(NotImplementedError, match="mesh.*item 7c"):
         tts.make_multi_step(tm, tcfg, 2, mesh=mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match="model axis.*item 7c"):
+        tts.make_train_step(tm, tcfg.replace(moe_experts=2), mesh=square,
+                            device="cpu")
     with pytest.raises(ValueError, match="expected 2"):
         tts.make_multi_step(tm, tcfg, 2, device="cpu")(
             _tstate(tm, tcfg), {"vid": np.zeros((3, 1, 4, 32, 32, 3),
