@@ -353,6 +353,31 @@ Phases, each printing a line of its own; any failure exits non-zero:
                bytes a rank.  Rows 1 to 4 of the kernels line carry these
                launches (tp_launches, fsdp_launches).
 
+ 38. sp-pp-ep — sequence, pipeline and expert parallelism: six ranks of
+               this script (``--spe-rank R DIR``) share the card over Gloo,
+               which takes no point-to-point send or all_to_all of a CUDA
+               tensor (parallel/collectives.py stages them through the
+               host).  ViViT at phase 7's width and batch, its space blocks
+               in the stacked pb_* layout: sequence-parallel on (data 1,
+               seq 2) (each rank's 104 of the 208 tokens, kernels 14 and 15
+               every hop of the kv ring across the two processes),
+               pipelined on (data 1, pipe 2) with 2 microbatches (kernels 1
+               and 2 on each stage's two blocks every tick, the forward
+               replayed in the backward), and 3-D on (data 1, pipe 2,
+               model 3) at 8 clips (each stage's blocks on
+               parallel/tp_block.py's block, kernels 3 and 4 on each rank's
+               one head of 64); MoE-ViViT (E = 4 every second block, as
+               bench.py:1188) with moe_ep on a data axis of 2 (kernels 1, 2,
+               7 and 8; two experts a rank, two all_to_alls a MoE block).
+               Each: 3 SGD steps (momentum 0.9; make_train_step,
+               make_multi_step(2)) and an eval, the launches a rank
+               counted, the first loss against the one-process step's
+               (atol 1e-2), the parameters against the one-process run's
+               (phase 37's gate), the replicated leaves bit-equal across
+               the ranks, the world's step ms and each rank's device ms.
+               Rows 1-4, 7, 8, 14 and 15 of the kernels line carry these
+               launches (spe_launches).
+
 The last lines are a JSON line of the kernels (fifteen entries in kernel
 order, each with its number), the nvidia-smi line, and
 {"ok": true, "device": {...}}.  With no CUDA device, or without the
@@ -3564,6 +3589,8 @@ def phase_train_long() -> dict:
 # one ring hop at the sequence-parallel bench's shape (bench.py:1086): the
 # ViT block's 512 sequences of 208 tokens, 197 of them live, 3 heads of 64
 RING_SEQS, RING_S, RING_LIVE = 512, 208, 197
+# phase 38's seq axis: each rank's chunk of the 208 tokens
+SP_RANKS = 2
 # the hop-by-hop ring: ViViT's 592 tokens (577 live) in 4 chunks of 148
 HOP_SEQS, HOP_S, HOP_KV, HOP_SHARDS = 32, 592, 577, 4
 
@@ -3685,40 +3712,30 @@ def _hop_by_hop(kind) -> tuple[dict, dict]:
     return errs, counts
 
 
-def phase_ring(kind: str) -> dict:
-    """Kernels 14 and 15 at the sequence-parallel bench shape against their
-    plain versions (o at the forward gate, lse at LSE_TOL / the forward
-    gate; the f32 dq and dkv within BWD_ULPS; two runs bit-equal); their
-    times, the plain versions' and F.scaled_dot_product_attention's with
-    the same additive mask.  Then the ring hop by hop (a 4-rank ring on one
-    card) against flash_attention and its gradient, and ring_mha_split
-    with one rank under autograd, each with its launches counted."""
+def _ring_case(kind: str, tag: str, q, kv, do, mask, live: int) -> dict:
+    """Kernels 14 and 15 on (q, kv, do) under the additive column mask
+    (``live`` columns) against their plain versions (o at the forward gate,
+    lse at LSE_TOL / the forward gate; the f32 dq and dkv within
+    BWD_ULPS; two backward runs bit-equal), each on the body its route
+    predicate names; their times, the plain versions' and
+    F.scaled_dot_product_attention's with the same additive mask, every
+    side by CUDA graph replay; the bounds at ``live`` columns."""
     import torch
     import torch.nn.functional as F
 
     from devt_tpu_torch.ops import flash_attention as tfa
-    from devt_tpu_torch.parallel.ring_attention import ring_mha_split
 
-    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    dtype = q.dtype
+    seqs, s, hd = q.shape
     heads, d = HEADS, D // HEADS
-    hd = heads * d
-    gen = torch.Generator().manual_seed(SEED + 15)
-    q = torch.randn(RING_SEQS, RING_S, hd, generator=gen).to(dtype).cuda()
-    kv = torch.randn(RING_SEQS, RING_S, 2 * hd, generator=gen).to(
-        dtype).cuda()
-    do = torch.randn(RING_SEQS, RING_S, hd, generator=gen).to(dtype).cuda()
-    col = torch.arange(RING_S, device="cuda")[None]
-    mask = torch.where(col < RING_LIVE, 0.0, -1e30).float()
     scale = d ** -0.5
-    tag = (f"ring kernels 14, 15 {kind} q ({RING_SEQS},{RING_S},{hd}) kv "
-           f"({RING_SEQS},{RING_S},{2 * hd}) mask {RING_LIVE} live")
     fwd = lambda: tfa.ring_step_fwd(q, kv, mask, heads=heads,  # noqa: E731
                                     scale=scale)
     with torch.inference_mode():
         before = _body_counts()
         o, lse = fwd()
         body = {k: v - before[k] for k, v in _body_counts().items()}
-        want_wgmma = tfa.one_shot_on_wgmma(dtype, d, RING_S)
+        want_wgmma = tfa.one_shot_on_wgmma(dtype, d, s)
         if body != {**dict.fromkeys(body, 0), "k14_wgmma": int(want_wgmma),
                     "k14_streamed": int(not want_wgmma)}:
             raise AssertionError(f"{tag}: kernel 14 launches by body {body}")
@@ -3760,7 +3777,7 @@ def phase_ring(kind: str) -> dict:
                            q, kv, mask, o, lse, do, heads, scale), n=2,
                            replays=2)}}
     # the library: SDPA on the head views with the same additive mask
-    qh, kh, vh = (t.reshape(RING_SEQS, RING_S, heads, d).transpose(1, 2)
+    qh, kh, vh = (t.reshape(seqs, s, heads, d).transpose(1, 2)
                   for t in (q, kv[..., :hd], kv[..., hd:]))
     bias = mask.to(dtype)[None, None]
 
@@ -3771,12 +3788,78 @@ def phase_ring(kind: str) -> dict:
     with torch.no_grad():
         out["fwd"]["library_ms"] = _graph_ms(lambda: sdpa(qh, kh, vh))
     leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
-    doh = do.reshape(RING_SEQS, RING_S, heads, d).transpose(1, 2)
-    both = _graph_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, doh))
-    out["bwd"]["library_ms"] = both - out["fwd"]["library_ms"]
+    doh = do.reshape(seqs, s, heads, d).transpose(1, 2)
+    out["both_ms"] = _graph_ms(
+        lambda: torch.autograd.grad(sdpa(*leaves), leaves, doh))
+    out["bwd"]["library_ms"] = out["both_ms"] - out["fwd"]["library_ms"]
     for part, (bound, by) in zip(("fwd", "bwd"), _ring_bounds(
-            kind, RING_SEQS, RING_S, heads, d, RING_LIVE)):
+            kind, seqs, s, heads, d, live)):
         out[part]["bound_ms"], out[part]["bound_by"] = bound, by
+    out["wgmma"] = (want_wgmma, bwd_wgmma)
+    return out
+
+
+def _ring_sp_shape(kind: str) -> dict:
+    """Kernels 14 and 15 at a rank's shape of phase 38's sequence-parallel
+    run: each rank's 104 of the 208 tokens, padded to 112, of 512
+    sequences, under each hop's column mask for a seq axis of 2 and kv_len
+    197 (hop 0: the rank's own 104 columns; hop 1: the other chunk's, 93
+    of them live), against the plain versions as at the bench shape."""
+    import torch
+
+    from devt_tpu_torch.parallel.ring_attention import _colmask
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    hd = HEADS * (D // HEADS)
+    chunk = RING_S // SP_RANKS
+    s_p = -(-chunk // 16) * 16
+    gen = torch.Generator().manual_seed(SEED + 38)
+    q = torch.randn(RING_SEQS, s_p, hd, generator=gen).to(dtype).cuda()
+    kv = torch.randn(RING_SEQS, s_p, 2 * hd, generator=gen).to(dtype).cuda()
+    do = torch.randn(RING_SEQS, s_p, hd, generator=gen).to(dtype).cuda()
+    hops = []
+    for blk in range(SP_RANKS):
+        mask = _colmask(blk, chunk, s_p, RING_LIVE, "cuda")
+        live = int((mask == 0).sum().item())
+        tag = (f"ring kernels 14, 15 {kind} at the sp rank's shape q "
+               f"({RING_SEQS},{s_p},{hd}), kv chunk {blk} ({live} live)")
+        case = _ring_case(kind, tag, q, kv, do, mask, live)
+        hops.append({"live": live, **{part: case[part]
+                                      for part in ("fwd", "bwd")}})
+    return {"shape": f"({RING_SEQS},{s_p},{hd})", "heads": HEADS,
+            "hops": hops}
+
+
+def phase_ring(kind: str) -> dict:
+    """Kernels 14 and 15 at the sequence-parallel bench shape against their
+    plain versions (``_ring_case``), in bf16 also at a rank's shape of
+    phase 38's sequence-parallel run under each hop's mask
+    (``_ring_sp_shape``).  Then the ring hop by hop (a 4-rank ring on one
+    card) against flash_attention and its gradient, and ring_mha_split
+    with one rank under autograd, each with its launches counted."""
+    import torch
+
+    from devt_tpu_torch.parallel.ring_attention import ring_mha_split
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    heads, d = HEADS, D // HEADS
+    hd = heads * d
+    gen = torch.Generator().manual_seed(SEED + 15)
+    q = torch.randn(RING_SEQS, RING_S, hd, generator=gen).to(dtype).cuda()
+    kv = torch.randn(RING_SEQS, RING_S, 2 * hd, generator=gen).to(
+        dtype).cuda()
+    do = torch.randn(RING_SEQS, RING_S, hd, generator=gen).to(dtype).cuda()
+    col = torch.arange(RING_S, device="cuda")[None]
+    mask = torch.where(col < RING_LIVE, 0.0, -1e30).float()
+    tag = (f"ring kernels 14, 15 {kind} q ({RING_SEQS},{RING_S},{hd}) kv "
+           f"({RING_SEQS},{RING_S},{2 * hd}) mask {RING_LIVE} live")
+    case = _ring_case(kind, tag, q, kv, do, mask, RING_LIVE)
+    out = {part: case[part] for part in ("fwd", "bwd")}
+    want_wgmma, bwd_wgmma = case["wgmma"]
+    fwd_err, bwd_err = out["fwd"]["max_abs_err"], out["bwd"]["max_abs_err"]
+    both = case["both_ms"]
+    del case
+    sp = _ring_sp_shape(kind) if kind == "bf16" else None
 
     hop_errs, hop_counts = _hop_by_hop(kind)
     body14 = ("wgmma body (flash_fwd_sm90.cuh)" if want_wgmma
@@ -3828,9 +3911,23 @@ def phase_ring(kind: str) -> dict:
           + f", lse max abs {hop_errs['lse']:.3e} | ring_mha_split at one "
           f"rank under autograd: {one['k14']} + {one['k15']} launches",
           flush=True)
+    if sp is not None:
+        for hop, h in enumerate(sp["hops"]):
+            print(f"[kernel-ring] {kind} at the sp rank's shape q "
+                  f"{sp['shape']}, kv chunk {hop} ({h['live']} of "
+                  f"{-(-RING_S // SP_RANKS // 16) * 16} columns live): "
+                  + "; ".join(
+                      f"kernel {k} max_abs_err {h[part]['max_abs_err']:.3e}, "
+                      f"{h[part]['kernel_ms']:.4f} ms (plain "
+                      f"{h[part]['plain_ms']:.4f}, library_ms "
+                      f"{h[part]['library_ms']:.4f}, bound_ms "
+                      f"{h[part]['bound_ms']:.4f} ({h[part]['bound_by']}))"
+                      for k, part in ((14, "fwd"), (15, "bwd")))
+                  + f"; gates as above, CUDA graph replay | nvidia-smi: "
+                  f"{_nvidia_smi()}", flush=True)
     launches = {"k14": hop_counts["k14"] + one["k14"],
                 "k15": hop_counts["k15"] + one["k15"]}
-    return {**out, "launches": launches}
+    return {**out, "launches": launches, "sp_shape": sp}
 
 
 def _sdpa_backends(b: int, s: int, heads: int, d: int) -> dict:
@@ -6275,11 +6372,14 @@ def _state_bytes(state) -> int:
     return total[0]
 
 
-def _tp_mesh_run(rank: int, mesh, cfg, batch, tag: str) -> tuple:
+def _tp_mesh_run(rank: int, mesh, cfg, batch, tag: str,
+                 group="axis") -> tuple:
     """TP_STEPS SGD steps (one make_train_step, then make_multi_step) and
     an eval of ViViT at full width on ``mesh``, the state placed as Trainer
     places it; the kernels counted from the steps' start; the world's step
-    ms and this rank's device ms after."""
+    ms (from one barrier of ``group`` to the next: by default the model
+    axis' group for ``tag`` "tp", else the data axis') and this rank's
+    device ms after."""
     import torch
     import torch.distributed as dist
 
@@ -6339,7 +6439,8 @@ def _tp_mesh_run(rank: int, mesh, cfg, batch, tag: str) -> tuple:
 
     # the world's step: every rank from one barrier to the next
     step(state, local, SEED)[1]["loss"].item()
-    group = mesh.axes()["model" if tag == "tp" else "data"].group
+    if group == "axis":
+        group = mesh.axes()["model" if tag == "tp" else "data"].group
     dist.barrier(group=group)
     t0 = time.perf_counter()
     step(state, local, SEED)[1]["loss"].item()
@@ -6575,6 +6676,286 @@ def _tp_report(ranks: list, wall_s: float) -> dict:
             "k4": sum(t["counts"]["k4"] for t in tp)}
 
 
+# ---------------------------------------------------------------------------
+# phase 38: sequence, pipeline (and 3-D) and expert parallelism, six ranks
+# on the one card
+# ---------------------------------------------------------------------------
+
+# six ranks, each a process of this script: the (data 1, seq 2), (data 1,
+# pipe 2) and data-2 meshes on ranks 0 and 1, the (data 1, pipe 2, model 3)
+# mesh on all six; a child that runs longer fails
+SPE_RANKS, SPE_TIMEOUT = 6, 420
+# the 3-D run's batch: 8 clips (phase 7's 32 cut to a quarter: its stages
+# all-reduce f32 partial products over the model axis through the host
+# under Gloo, a tick at a time, and replay each tick's forward in the
+# backward)
+SPE_3D_BATCH = 8
+# the first loss against the one-process step's, a bound for each run
+# from its reading (PERF.md, phase 38: sp 2.354e-05, pp 0, 3-D 3.473e-04,
+# ep 0) with room: the sp blocks' products are torch matmuls of bf16
+# operands around kernels 14 and 15, the 3-D blocks sum f32 partial
+# products over the model axis, against kernels 1 and 2 in the
+# one-process step
+SPE_LOSS_ATOL = {"sp": 2e-4, "pp": 2e-4, "3d": 2e-3, "ep": 2e-4}
+
+
+def _spe_configs() -> dict:
+    """Each run's config, mesh arguments and batch size: ViViT at phase 7's
+    width (sp, pp, 3-D: the stacked space transformer) and MoE-ViViT as at
+    bench.py:1188 (E = 4 on every second block, moe_ep on a data axis of
+    2); SGD with momentum 0.9, as phase 37."""
+    from devt_tpu_torch.config import Config
+
+    base = Config(model="vivit", batch_size=TRAIN_BATCH, frame_len=DP_FRAMES,
+                  n_classes=19, opt="sgd", momentum=0.9, weight_decay=0.0,
+                  learning_rate=TP_LR, precision="bf16", dropout=0.0, dp=1)
+    return {
+        "sp": (base.replace(sp=SP_RANKS),
+               dict(dp=1, sp=SP_RANKS, devices=[0, 1])),
+        "pp": (base.replace(pp=2, pp_microbatches=2),
+               dict(dp=1, pp=2, devices=[0, 1])),
+        "3d": (base.replace(pp=2, mp=3, batch_size=SPE_3D_BATCH),
+               dict(dp=1, pp=2, mp=3)),
+        "ep": (base.replace(dp=2, moe_experts=4, moe_every=2, moe_ep=True),
+               dict(dp=2, devices=[0, 1])),
+    }
+
+
+def _spe_child(rank: int, workdir: str) -> int:
+    """One rank of phase 38 (``chip_smoke.py --spe-rank R DIR``)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from devt_tpu_torch.parallel import distributed
+    from devt_tpu_torch.parallel.mesh import (DATA_AXIS, PIPE_AXIS,
+                                              SEQ_AXIS, make_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    distributed.initialize(f"file://{os.path.join(workdir, 'init')}",
+                           SPE_RANKS, rank)
+    os.chdir(workdir)
+    configs = _spe_configs()
+    # every rank makes every mesh's groups, in the same order
+    meshes = {tag: make_mesh(**kw) for tag, (_, kw) in configs.items()}
+    barrier_axis = {"sp": SEQ_AXIS, "pp": PIPE_AXIS, "ep": DATA_AXIS}
+    batch = _train_batch(TRAIN_BATCH, SEED + 38, frames=DP_FRAMES)
+    out = {"runtime": distributed.runtime_info()}
+    for tag, (cfg, _) in configs.items():
+        mesh = meshes[tag]
+        if mesh.coords is not None:
+            group = (mesh.axes()[barrier_axis[tag]].group
+                     if tag in barrier_axis else None)
+            t1 = time.perf_counter()
+            out[tag] = _tp_mesh_run(
+                rank, mesh, cfg,
+                {k: v[:cfg.batch_size] for k, v in batch.items()}, tag,
+                group=group)
+            out[tag]["seconds"] = time.perf_counter() - t1
+        dist.barrier()
+    # moe_ep again with remat: the backward replays each block on the
+    # card's autograd thread, which must route it as the forward did
+    if meshes["ep"].coords is not None:
+        _spe_params(rank, meshes["ep"], configs["ep"][0].replace(remat=True),
+                    batch, "ep_remat")
+    dist.barrier()
+    if rank == 0:
+        # the one-process runs (no mesh: the stacked stack sequential, on
+        # kernels 1 and 2): the stacked ViViT (sp, pp and 3-D declare the
+        # same tree, drawn alike) on 32 and on 8 clips, and MoE-ViViT
+        stacked, n = configs["pp"][0], SPE_3D_BATCH
+        refs = {"stack": _tp_reference(stacked, batch),
+                "stack8": _tp_reference(
+                    stacked.replace(batch_size=n),
+                    {k: v[:n] for k, v in batch.items()}),
+                "moe": _tp_reference(configs["ep"][0].replace(dp=1),
+                                     batch)}
+        for tag, ref in (("sp", "stack"), ("pp", "stack"), ("3d", "stack8"),
+                         ("ep", "moe"), ("ep_remat", "moe")):
+            out[f"{tag}_one_loss"] = refs[ref]["loss"]
+            out[f"{tag}_gap"] = _tp_update_gap(f"{tag}.params.pt",
+                                               refs[ref])
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _spe_params(rank: int, mesh, cfg, batch, tag: str) -> None:
+    """TP_STEPS SGD steps of ``cfg`` on ``mesh`` (make_train_step, then
+    make_multi_step); rank 0 saves the parameters put back whole."""
+    import torch
+
+    from devt_tpu_torch.parallel import collectives, layout
+    from devt_tpu_torch.parallel import train_step as tts
+    from devt_tpu_torch.parallel.mesh import shard_batch
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState
+
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg))
+    local = shard_batch(batch, mesh)
+    state, _ = tts.make_train_step(model, cfg, mesh=mesh)(state, local, SEED)
+    state, _ = tts.make_multi_step(model, cfg, TP_STEPS - 1, mesh=mesh)(
+        state, {k: v[None].expand(TP_STEPS - 1, *v.shape)
+                for k, v in local.items()}, SEED)
+    with collectives.axis_scope(mesh.axes()):
+        whole = layout.whole_state(state)
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in whole.params.items()},
+                   f"{tag}.params.pt")
+
+
+def phase_spe() -> dict:
+    """Phase 38: six ranks of this script share the card over Gloo: ViViT
+    at phase 7's width trains sequence-parallel on (data 1, seq 2) (kernels
+    14 and 15 every hop of the kv ring across the two processes), pipelined
+    on (data 1, pipe 2) with 2 microbatches (kernels 1 and 2 on each
+    stage's two blocks), and 3-D on (data 1, pipe 2, model 3) (kernels 3
+    and 4 on each rank's one head of 64); MoE-ViViT trains with moe_ep on
+    a data axis of 2 (kernels 7 and 8 in its MoE blocks, the experts two a
+    rank).  The kernels are built (phase 2): the ranks load them."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        env = {**os.environ, "LOCAL_WORLD_SIZE": str(SPE_RANKS)}
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--spe-rank",
+             str(r), workdir], env={**env, "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(SPE_RANKS)]
+        logs = []
+        try:
+            deadline = time.monotonic() + SPE_TIMEOUT
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines()[-40:]:
+                print(f"[spe rank {r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"sp-pp-ep: rank {r} exited with "
+                                     f"{p.returncode}")
+        ranks = []
+        for r in range(SPE_RANKS):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return _spe_report(ranks, time.perf_counter() - t0)
+
+
+def _spe_expected() -> dict:
+    """Each run's launches a rank: TP_STEPS train steps and an eval.  The
+    ring: 2 hops a block and pass (kernel 14 forward, 15 backward); the
+    pipeline: 3 ticks (2 microbatches, 2 stages) of the stage's 2 blocks,
+    the forward replayed in the backward (remat); MoE-ViViT: 2 dense and 2
+    MoE blocks."""
+    depth, steps, ticks, per = 4, TP_STEPS, 3, 2
+    return {"sp": _expect(k14=2 * depth * (steps + 1),
+                          k15=2 * depth * steps),
+            "pp": _expect(k1=ticks * per * (2 * steps + 1),
+                          k2=ticks * per * steps),
+            "3d": _expect(k3=ticks * per * (2 * steps + 1),
+                          k4=ticks * per * steps),
+            "ep": _expect(k1=2 * (steps + 1), k2=2 * steps,
+                          k7=2 * (steps + 1), k8=2 * steps)}
+
+
+def _spe_report(ranks: list, wall_s: float) -> dict:
+    """Phase 38's checks of the ranks' results, its lines, and the
+    launches for the kernels line."""
+    configs, want = _spe_configs(), _spe_expected()
+    r0, problems = ranks[0], []
+    runs = {tag: [r[tag] for r in ranks if tag in r] for tag in configs}
+    for tag, got in runs.items():
+        size = 6 if tag == "3d" else 2
+        if len(got) != size:
+            problems.append(f"{tag}: {len(got)} ranks ran, expected {size}")
+        for r, t in enumerate(got):
+            if t["counts"] != want[tag]:
+                problems.append(f"{tag} rank {r}: launches {t['counts']}, "
+                                f"expected {want[tag]}")
+            if tag == "3d" and t["heads"] != [1]:
+                problems.append(f"3d rank {r}: heads {t['heads']}")
+            if not (t["probs_finite"] and t["probs_shape"]
+                    == [configs[tag][0].batch_size, 19]
+                    and math.isfinite(t["eval_loss"])
+                    and math.isfinite(t["multi_loss"])):
+                problems.append(f"{tag}: eval {t['eval_loss']} "
+                                f"{t['probs_shape']}, multi "
+                                f"{t['multi_loss']}")
+        for key in ("checksum", "whole_checksum"):
+            if len({t[key] for t in got}) != 1:
+                problems.append(f"{tag}: {key} differs across the ranks")
+        gap = abs(got[0]["loss"] - r0[f"{tag}_one_loss"])
+        if not gap <= SPE_LOSS_ATOL[tag]:
+            problems.append(f"{tag} loss {got[0]['loss']} vs one process "
+                            f"{r0[f'{tag}_one_loss']} (atol "
+                            f"{SPE_LOSS_ATOL[tag]})")
+    for tag in (*configs, "ep_remat"):
+        gap = r0[f"{tag}_gap"]
+        if not gap[0] <= TP_UPDATE_RTOL:
+            problems.append(f"{tag} parameters: {gap} (bound "
+                            f"{TP_UPDATE_RTOL})")
+    if problems:
+        raise AssertionError("sp-pp-ep: " + "; ".join(problems))
+
+    smi = _nvidia_smi()
+    what = {"sp": "ViViT on (data 1, seq 2), the stacked space blocks on "
+                  "each rank's 104 of 208 tokens, the kv ring across the "
+                  "two processes",
+            "pp": "ViViT on (data 1, pipe 2), 2 microbatches of 16, each "
+                  "stage 2 stacked blocks",
+            "3d": f"ViViT B={SPE_3D_BATCH} on (data 1, pipe 2, model 3), "
+                  f"each stage's blocks tensor-parallel",
+            "ep": "MoE-ViViT (E=4, every 2nd block) on a data axis of 2, "
+                  "moe_ep: 2 experts a rank"}
+    for tag, got in runs.items():
+        t, gap = got[0], r0[f"{tag}_gap"]
+        counts = {k: v for k, v in t["counts"].items() if v}
+        if tag == "ep":
+            again = r0["ep_remat_gap"]
+            what["ep"] += (f" (the same steps again with remat=True: "
+                           f"parameters {again[0]:.3e} of the one-process "
+                           f"|update|, {again[1]}, largest element "
+                           f"{again[2]:.3e}; bound {TP_UPDATE_RTOL})")
+        print(f"[spe {tag}] {what[tag]}: {TP_STEPS} SGD steps (momentum "
+              f"0.9, lr {TP_LR}; make_train_step, make_multi_step(2)) and "
+              f"an eval, launches a rank {counts}"
+              + (f", heads={t['heads'][0]}" if tag == "3d" else "")
+              + f"; first loss {t['loss']:.6f} vs the one-process step's "
+              f"{r0[f'{tag}_one_loss']:.6f} (|diff| "
+              f"{abs(t['loss'] - r0[f'{tag}_one_loss']):.3e}, atol "
+              f"{SPE_LOSS_ATOL[tag]}); the replicated leaves bit-equal "
+              f"across the ranks (sha256 {t['whole_checksum']}); the parameters vs the "
+              f"one-process run: largest leaf |diff| {gap[0]:.3e} of its "
+              f"|update| ({gap[1]}; bound {TP_UPDATE_RTOL}), largest element "
+              f"{gap[2]:.3e}; eval loss {t['eval_loss']:.6f}; the world's "
+              f"step {', '.join(f'{x['step_ms']:.3f}' for x in got)} ms "
+              f"(host clock, barrier to barrier), device ms a step by rank "
+              f"{', '.join(f'{x['device_ms']:.3f}' for x in got)} (busy "
+              f"{', '.join(f'{x['busy']:.1%}' for x in got)}); "
+              f"{t['seconds']:.1f} s | nvidia-smi: {smi}", flush=True)
+    print(f"[spe] {SPE_RANKS} ranks over Gloo on the one card, {wall_s:.1f} "
+          f"s with the ranks' start; ranks took "
+          f"{', '.join(f'{r['seconds']:.1f}' for r in ranks)} s", flush=True)
+    return {k: sum(t["counts"][k] for got in runs.values() for t in got)
+            for k in ("k1", "k2", "k3", "k4", "k7", "k8", "k14", "k15")}
+
+
 def main() -> int:
     import torch
 
@@ -6709,6 +7090,8 @@ def main() -> int:
     dp = phase_dp()
     # tensor parallelism and FSDP: three ranks on the one card
     tp = phase_tp()
+    # sequence, pipeline (and 3-D) and expert parallelism: six ranks
+    spe = phase_spe()
     # the MoE and the later model paths' launches of the earlier kernels
     later_runs = (serve_moe["counts"], serve_moe["int8_counts"],
                   train_moe["counts"], train_moe["drop_counts"],
@@ -6735,6 +7118,17 @@ def main() -> int:
                 "heads": HEADS // TP_RANKS, "ms": m["kernel_ms"],
                 **{k: m[k] for k in ("max_abs_err", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}}
+
+    def _sp_row(r, part):
+        """Row 14's or 15's numbers at a rank's shape of phase 38's
+        sequence-parallel run, hop by hop."""
+        sp = r["sp_shape"]
+        return {"shape": sp["shape"], "heads": sp["heads"],
+                "hops": [{"live": h["live"], "ms": h[part]["kernel_ms"],
+                          **{k: h[part][k] for k in (
+                              "max_abs_err", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}}
+                         for h in sp["hops"]]}
 
     def ft_rows(part):
         """Rows 3's and 4's FrameTransformer shapes (head dims 448 and
@@ -6770,12 +7164,12 @@ def main() -> int:
         entry(1, "fused_vit_block_fwd", csrc + "block_sm90.cuh",
               "devt_tpu/ops/fused_block.py:177",
               serve["launches"] + train["fwd_launches"] + later("k1")
-              + dp["k1"] + tp["k1"],
+              + dp["k1"] + tp["k1"] + spe["k1"],
               {**fwd, "max_abs_err": max(fwd["max_abs_err"].values())},
               entry_launches=entry_run["counts"]["k1"]
               + frame_run["counts"]["k1"], artifact_launches=artifact["k1"],
               dp_launches=dp["k1"], tp_launches=0,
-              fsdp_launches=tp["k1"],
+              fsdp_launches=tp["k1"], spe_launches=spe["k1"],
               launch_sources=[csrc + "fused_block_fwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "flash_fwd_sm90.cuh"]),
@@ -6783,10 +7177,12 @@ def main() -> int:
         # backward on the recompute and kernels 12's and 13's wgmma bodies
         entry(2, "fused_vit_block_bwd", csrc + "block_sm90.cuh",
               "devt_tpu/ops/fused_block.py:240",
-              train["bwd_launches"] + later("k2") + dp["k2"] + tp["k2"],
+              train["bwd_launches"] + later("k2") + dp["k2"] + tp["k2"]
+              + spe["k2"],
               bwd, entry_launches=entry_run["counts"]["k2"]
               + frame_run["counts"]["k2"], dp_launches=dp["k2"],
               tp_launches=0, fsdp_launches=tp["k2"],
+              spe_launches=spe["k2"],
               launch_sources=[csrc + "fused_block_bwd.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "block_bwd_parts.cuh",
@@ -6797,10 +7193,11 @@ def main() -> int:
         entry(3, "fused_mha", csrc + "mha_fwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:558",
               ptn["mha_launches"] + train_ptn["fwd_launches"] + later("k3")
-              + tp["k3"],
+              + tp["k3"] + spe["k3"],
               mha, entry_launches=entry_run["counts"]["k3"]
               + frame_run["counts"]["k3"], artifact_launches=artifact["k3"],
               tp_launches=tp["k3"], fsdp_launches=0,
+              spe_launches=spe["k3"],
               tp_shape=_tp_row(mha_tp),
               launch_sources=[csrc + "mha_fwd.cu",
                                    csrc + "mha_fwd_sm90.cuh",
@@ -6812,8 +7209,9 @@ def main() -> int:
         # 13's bodies; the ViT shape's reading beside the PTN one
         entry(4, "fused_mha_bwd", csrc + "mha_bwd_sm90.cuh",
               "devt_tpu/ops/flash_attention.py:589",
-              train_ptn["bwd_launches"] + later("k4") + tp["k4"], mha_bwd,
-              tp_launches=tp["k4"], fsdp_launches=0,
+              train_ptn["bwd_launches"] + later("k4") + tp["k4"]
+              + spe["k4"], mha_bwd,
+              tp_launches=tp["k4"], fsdp_launches=0, spe_launches=spe["k4"],
               tp_shape=_tp_row(mha_bwd_tp),
               bodies={"packed": train_ptn["k4_packed"]
                       + entry_run["k4_packed"],
@@ -6822,7 +7220,7 @@ def main() -> int:
                       "streamed": train_ptn["bwd_launches"] + later("k4")
                       - train_ptn["k4_packed"] - entry_run["k4_packed"]
                       - train_moe["k4_wgmma"] - int8_unfused["k4_wgmma"],
-                      "tp": tp["k4"]},
+                      "tp": tp["k4"] + spe["k4"]},
               drop_ms=mha_bwd["bwd_drop_ms"],
               entry_launches=entry_run["counts"]["k4"]
               + frame_run["counts"]["k4"],
@@ -6858,14 +7256,16 @@ def main() -> int:
         # attention launch runs the one-shot wgmma body, its other two
         # launches are attn_half.cu's
         entry(7, "fused_attn_half_fwd", csrc + "flash_fwd_sm90.cuh",
-              "devt_tpu/ops/fused_block.py:556", later("k7"), half_fwd,
+              "devt_tpu/ops/fused_block.py:556", later("k7") + spe["k7"],
+              half_fwd, spe_launches=spe["k7"],
               composed_ms=half_fwd["composed_ms"],
               artifact_launches=artifact["k7"],
               launch_sources=[csrc + "attn_half.cu",
                               csrc + "block_sm90.cuh",
                               csrc + "flash_fwd_sm90.cuh"]),
         entry(8, "fused_attn_half_bwd", csrc + "attn_half.cu",
-              "devt_tpu/ops/fused_block.py:578", later("k8"), half_bwd,
+              "devt_tpu/ops/fused_block.py:578", later("k8") + spe["k8"],
+              half_bwd, spe_launches=spe["k8"],
               composed_ms=half_bwd["composed_ms"],
               launch_sources=[csrc + "attn_half.cu",
                               csrc + "block_sm90.cuh",
@@ -6897,17 +7297,21 @@ def main() -> int:
                "bound_ms": flash_bwd["dkv_bound_ms"],
                "bound_by": flash_bwd["dkv_bound_by"], "library_ms": None}),
         entry(14, "ring_step_fwd", csrc + "flash_fwd_sm90.cuh",
-              "devt_tpu/ops/flash_attention.py:792", ring["launches"]["k14"],
-              ring["fwd"]),
+              "devt_tpu/ops/flash_attention.py:792",
+              ring["launches"]["k14"] + spe["k14"], ring["fwd"],
+              spe_launches=spe["k14"], sp_shape=_sp_row(ring, "fwd")),
         # bf16 at head dims 16-64 on kernels 12's and 13's wgmma bodies
         entry(15, "ring_step_bwd", csrc + "flash_bwd_sm90.cuh",
-              "devt_tpu/ops/flash_attention.py:814", ring["launches"]["k15"],
-              ring["bwd"], launch_sources=[csrc + "ring_step.cu",
+              "devt_tpu/ops/flash_attention.py:814",
+              ring["launches"]["k15"] + spe["k15"], ring["bwd"],
+              spe_launches=spe["k15"], sp_shape=_sp_row(ring, "bwd"),
+              launch_sources=[csrc + "ring_step.cu",
                                            csrc + "flash_bwd_sm90.cuh"])]
     for k in kernels:
         if k["launches"] < 1 or k.get("entry_launches", 1) < 1 \
                 or k.get("artifact_launches", 1) < 1 \
                 or k.get("dp_launches", 1) < 1 \
+                or k.get("spe_launches", 1) < 1 \
                 or k.get("tp_launches", 1) + k.get("fsdp_launches", 1) < 1:
             raise AssertionError(f"{k['name']}: no launch on its path")
     print(json.dumps({"kernels": kernels}))
@@ -6925,4 +7329,6 @@ if __name__ == "__main__":
         sys.exit(_dp_child(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--tp-rank"]:      # one rank of phase 37
         sys.exit(_tp_child(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--spe-rank"]:     # one rank of phase 38
+        sys.exit(_spe_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

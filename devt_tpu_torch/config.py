@@ -15,16 +15,19 @@ the same validation, so one YAML file configures either package.
     CPU ``"pallas"`` runs their plain versions and ``"auto"``, like
     ``"xla"``, the materialised softmax attention.
 
-``dp`` and ``mp`` lay out the (data, model) mesh (``parallel/mesh.py``);
+``dp``, ``mp``, ``pp`` and ``sp`` lay out the mesh (``parallel/mesh.py``):
+(data, model), (data, pipe), the 3-D (data, pipe, model) or (data, seq).
 ``dp_mode`` picks data parallelism, FSDP (``"fsdp"``) or the GSPMD
-formulations (``"gspmd"``, ``"fsdp_gspmd"``), and ``mp`` > 1 tensor
-parallelism (``parallel/train_step.py``).  Knobs of paths that are not
-ported yet (``pp``, ``sp``, ``moe_ep`` across devices, MoE blocks on a
-model axis) are accepted here and refused where a model or an executor
-would need them.  ``remat`` rematerialises each transformer
-block or encoder layer of a training step (``models.layers.remat``).  ``moe_experts`` gives the ViViT space
-transformer its switch-MoE blocks on one device; ``moe_ep`` changes
-nothing there, as in the JAX package on one device.
+formulations (``"gspmd"``, ``"fsdp_gspmd"``); ``mp`` > 1 is tensor
+parallelism, ``pp`` > 1 the GPipe pipeline over ``pp_microbatches``
+microbatches (default one a stage) and ``sp`` > 1 sequence parallelism
+over the kv ring, both on ViViT's stacked space transformer
+(``parallel/train_step.py``).  ``moe_ep`` runs the switch-MoE blocks
+expert-parallel over a data axis of more than one rank, and changes
+nothing on one device, as in the JAX package.  ``remat``
+rematerialises each transformer block or encoder layer of a training
+step (``models.layers.remat``).  ``moe_experts`` gives the ViViT space
+transformer its switch-MoE blocks.
 """
 
 from __future__ import annotations
@@ -114,9 +117,9 @@ class Config(Mapping[str, Any]):
     model_axis: str = "model"
     dp: int = -1
     mp: int = 1
-    pp: int = 1                        # pipeline stages (not ported)
+    pp: int = 1                        # pipeline stages
     pp_microbatches: int = 0
-    sp: int = 1                        # sequence parallel width (not ported)
+    sp: int = 1                        # sequence parallel width
     attention_impl: str = "auto"       # see the module docstring
     dp_mode: str = "auto"
     remat: bool = False

@@ -31,9 +31,18 @@ mesh with tensor parallelism over N ranks:
     python -m torch.distributed.run --nproc_per_node 3 \
         -m devt_tpu_torch.main --model vivit --mp 3 [--key value ...]
 
+Pipeline parallelism (``--pp``, ``--pp_microbatches``; with ``--mp`` the
+3-D mesh), sequence parallelism (``--sp``) and expert-parallel MoE
+(``--moe_experts E --moe_ep true`` on a data axis):
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m devt_tpu_torch.main --model vivit --dropout 0.0 --pp 2 ...
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m devt_tpu_torch.main --model vivit --dropout 0.0 --sp 2 ...
+
 Ranks that share one card talk over Gloo; with a card each they use NCCL.
 The mesh engages by the JAX entry point's rule, with the world's ranks in
-place of its devices.  In a world of one process ``--dp 2`` or ``--mp 2``
+place of its devices and every axis counted (dp·mp·pp·sp ranks).  In a world of one process ``--dp 2`` or ``--mp 2``
 trains on the one card, as JAX does on one device.  In a world of more
 than one rank a mesh that cannot engage raises ``ValueError`` with JAX's
 reason: where JAX warns and falls back to one device, ranks cannot.
@@ -139,28 +148,31 @@ def parse_args(argv=None) -> Config:
 
 def use_mesh(config: Config, world: int) -> bool:
     """The JAX entry point's rule with ``world`` ranks in place of its
-    devices: the mesh engages when dp·mp > 1, the global batch divides
-    over the data axis and the world holds the mesh.  In a world of more
-    than one rank a mesh that does not engage, or leaves ranks out,
-    raises ``ValueError`` saying why: ranks cannot fall back to one
-    device."""
-    mp = max(config.mp, 1)
-    dp = config.dp if config.dp != -1 else max(world // mp, 1)
-    engage = (dp * mp > 1 and config.batch_size % max(dp, 1) == 0
-              and world >= dp * mp)
-    if world > 1 and not (engage and world == dp * mp):
+    devices, each rank of the mesh counted: the mesh engages when
+    dp·mp·pp·sp > 1, the global batch divides over the data axis and the
+    world holds the mesh.  In a world of more than one rank a mesh that
+    does not engage, or leaves ranks out, raises ``ValueError`` saying
+    why: ranks cannot fall back to one device."""
+    per = max(config.mp, 1) * max(config.pp, 1) * max(config.sp, 1)
+    dp = config.dp if config.dp != -1 else max(world // per, 1)
+    size = dp * per
+    factors = (f"dp*mp*pp*sp = {dp}*{max(config.mp, 1)}*"
+               f"{max(config.pp, 1)}*{max(config.sp, 1)}")
+    engage = (size > 1 and config.batch_size % max(dp, 1) == 0
+              and world >= size)
+    if world > 1 and not (engage and world == size):
         if config.batch_size % max(dp, 1) != 0:
             why = (f"batch_size={config.batch_size} does not divide over "
                    f"the data axis dp={dp} — pick a batch size that is a "
                    f"multiple of {dp}, or set --dp explicitly")
-        elif world < dp * mp:
-            why = (f"dp*mp = {dp}*{mp} = {dp * mp} exceeds the "
-                   f"{world} ranks — lower --dp/--mp")
-        elif dp * mp < world:
-            why = (f"dp*mp = {dp}*{mp} = {dp * mp} leaves ranks of the "
-                   f"{world} out — launch {dp * mp} or raise --dp/--mp")
+        elif world < size:
+            why = (f"{factors} = {size} exceeds the "
+                   f"{world} ranks — lower --dp/--mp/--pp/--sp")
+        elif size < world:
+            why = (f"{factors} = {size} leaves ranks of the "
+                   f"{world} out — launch {size} or raise --dp")
         else:
-            why = f"dp*mp = {dp}*{mp} <= 1 — set --dp/--mp to use the ranks"
+            why = f"{factors} <= 1 — set --dp/--mp to use the ranks"
         raise ValueError(f"devt_tpu_torch: {world} ranks but the device "
                          f"mesh is DISABLED ({why}); ranks cannot fall back "
                          f"to one device")

@@ -17,6 +17,7 @@ depend only on the seed the caller made the ``DropoutRng`` from.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -25,17 +26,22 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from devt_tpu_torch.ops.attention import (active_tp_mesh, packed_mha,
-                                          quant_active)
+                                          quant_active, tp_pallas_scope)
 from devt_tpu_torch.ops.flash_attention import fits_single_block
 from devt_tpu_torch.ops.fused_block import (fused_attn_half,
                                             fused_block_eligible,
-                                            fused_vit_block)
+                                            fused_vit_block,
+                                            reference_vit_block)
 from devt_tpu_torch.ops.quant import (quant_block_params, quant_vit_block,
                                       site_value)
-from devt_tpu_torch.parallel import tp_block
+from devt_tpu_torch.parallel import collectives, moe, tp_block
 from devt_tpu_torch.parallel.collectives import axis, copy_to, reduce_from
-from devt_tpu_torch.parallel.mesh import MODEL_AXIS
+from devt_tpu_torch.parallel.mesh import MODEL_AXIS, PIPE_AXIS, SEQ_AXIS
 from devt_tpu_torch.parallel.moe import moe_ffn_dense
+from devt_tpu_torch.parallel.pipeline import (active_pipe_mesh,
+                                             pipelined_stack)
+from devt_tpu_torch.parallel.ring_attention import (_ring_block_local,
+                                                    active_sp_mesh, sp_group)
 
 # torch's LayerNorm eps, which the reference uses everywhere
 LN_EPS = 1e-5
@@ -93,6 +99,25 @@ class DropoutRng:
         return copy
 
 
+def _thread_scopes():
+    """A context manager that binds again the thread-local scopes a block
+    reads, as they stand now."""
+    axes, ep, tp_mesh = (collectives.bound_axes(), moe.active_moe_ep(),
+                         active_tp_mesh())
+
+    @contextlib.contextmanager
+    def bind():
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(collectives.axis_scope(axes))
+            if ep is not None:
+                stack.enter_context(moe.moe_ep_scope(*ep))
+            if tp_mesh is not None:
+                stack.enter_context(tp_pallas_scope(tp_mesh))
+            yield
+
+    return bind
+
+
 def remat(fn, x: torch.Tensor, rng: DropoutRng | None) -> torch.Tensor:
     """``fn(x, rng, first=True)`` with its activations rematerialised:
     ``torch.utils.checkpoint`` (non-reentrant) keeps none of the tensors
@@ -108,16 +133,22 @@ def remat(fn, x: torch.Tensor, rng: DropoutRng | None) -> torch.Tensor:
     effect (an MoE block's load-balance term appended to ``losses``)
     happens once.  The recompute's saved tensors come back in the order
     of the forward's; a kernel's forward (kernel 1's u and res, kernel 7's
-    residuals) runs twice."""
+    residuals) runs twice.
+
+    The recompute runs inside the thread-local scopes the forward ran in
+    (the mesh's bound axes, ``moe_ep_scope``, ``tp_pallas_scope``): for
+    CUDA tensors autograd replays it on its device thread, which does not
+    see the calling thread's."""
     start = rng.snapshot() if rng is not None else None
+    scopes = _thread_scopes()
     calls = 0
 
     def run(h: torch.Tensor) -> torch.Tensor:
         nonlocal calls
         calls += 1
-        if calls == 1 or start is None:
-            return fn(h, rng, first=calls == 1)
-        return fn(h, start.snapshot(), first=False)
+        r = rng if calls == 1 or start is None else start.snapshot()
+        with scopes():
+            return fn(h, r, first=calls == 1)
 
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
@@ -148,7 +179,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     LayerNorm and MoE block below ``module``: lecun-normal kernels, zero
     biases, unit LN scales; an MoE block's router normal(0.01) and its (E, ...) expert
     kernels lecun-normal with the expert axis counted in the fan-in, as
-    flax's ``lecun_normal`` counts it."""
+    flax's ``lecun_normal`` counts it; a stacked ``ViTTransformer``'s
+    ``pb_*`` leaves as JAX's ``_stacked_block_params`` (matrices
+    lecun-normal over their own fan-in, LN scales 1, the rest 0)."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             lecun_normal_(m.weight, m.in_features, generator)
@@ -168,6 +201,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 lecun_normal_(w, w.shape[0] * w.shape[1], generator)
             nn.init.zeros_(m.moe_b1)
             nn.init.zeros_(m.moe_b2)
+        elif isinstance(m, ViTTransformer) and m.stacked:
+            m.init_stacked(generator)
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:
@@ -525,7 +560,12 @@ class MoEViTBlock(nn.Module):
     objective.  The expert parameters ``moe_router`` (D, E), ``moe_w1``
     (E, D, F), ``moe_b1`` (E, F), ``moe_w2`` (E, F, D), ``moe_b2`` (E, D)
     sit on the block with the names and layout of the flax tree.  There
-    is no int8 branch, as in the JAX block."""
+    is no int8 branch, as in the JAX block.
+
+    Inside ``parallel.moe.moe_ep_scope`` (``config.moe_ep`` on a
+    data-parallel mesh) the FFN runs expert-parallel over the scope's axis
+    (``moe_ffn_ep_rows``) when the experts divide over its ranks, and
+    densely, every expert on every rank, when they do not."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
                  n_experts: int, capacity_factor: float = 1.25,
@@ -602,8 +642,20 @@ class MoEViTBlock(nn.Module):
               else max(self.capacity_factor, self.eval_capacity_factor))
         params = {"router": self.moe_router, "w1": self.moe_w1,
                   "b1": self.moe_b1, "w2": self.moe_w2, "b2": self.moe_b2}
-        y, aux = moe_ffn_dense(params, h.reshape(-1, self.dim),
-                               capacity_factor=cf, valid=valid, group_size=s)
+        ep = moe.active_moe_ep()
+        if ep is not None and ep[1] > 1 \
+                and self.moe_router.shape[1] % ep[1] == 0:
+            # expert-parallel training (config.moe_ep): the same routing
+            # row by row, each rank running its E/n experts on the slots
+            # of every rank (two all_to_alls over the data axis)
+            y, aux = moe.moe_ffn_ep_rows(
+                params, h, axis_name=ep[0], n_shards=ep[1],
+                capacity_factor=cf,
+                valid=None if valid is None else valid.reshape(h.shape[:2]))
+        else:
+            y, aux = moe_ffn_dense(params, h.reshape(-1, self.dim),
+                                   capacity_factor=cf, valid=valid,
+                                   group_size=s)
         if losses is not None:
             losses.append(aux)
         y = dropout(y.reshape(h.shape), self.dropout, self.training, rng)
@@ -616,56 +668,252 @@ class ViTTransformer(nn.Module):
     ``moe_experts > 0`` (depth 4, moe_every 2: dense, MoE, dense, MoE).
     ``remat=True`` rematerialises each block in a training forward that
     needs a gradient (``remat``: the JAX module's ``nn.remat`` per block),
-    with the same loss and gradients as without.  The pipeline and
-    sequence-parallel variants of the JAX module are not ported yet."""
+    with the same loss and gradients as without.
+
+    ``pipeline_stages > 1`` or ``sequence_parallel``: the block stack's
+    parameters are the JAX module's stacked layout, one ``(depth, ...)``
+    leaf per entry of the fused block's dict, ``pb_g1 … pb_bb2`` (LN rows
+    and biases ``(depth, 1, N)``, matrices ``(depth, K, N)``; a different
+    tree from the per-block one, the same for pp and sp).  The matrices
+    are cast to the model dtype at use, the rows stay f32 (JAX's
+    ``_stacked_cast``).  Each block is the fused block's math
+    (``_block_math``: kernels 1 and 2 where they take the block,
+    ``reference_vit_block`` otherwise or under ``attention_impl="xla"``).
+    Outside a pipe or seq mesh the stack runs sequentially; inside
+    ``parallel.pipeline.pipeline_scope`` it runs the GPipe schedule over
+    the ``pipe`` axis (``pipeline_microbatches``, default one a stage),
+    each stage's blocks as ``parallel/tp_block.py``'s block over a
+    ``model`` axis when the mesh has one; inside
+    ``parallel.ring_attention.sp_scope`` every block runs on the rank's
+    chunk of the tokens with the attention over the ``seq`` axis' kv ring.
+    Both need dropout 0 and no MoE blocks, as in JAX."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dropout: float = 0.0,
                  attention_impl: str = "auto", remat: bool = False,
                  moe_experts: int = 0, moe_every: int = 2,
                  moe_capacity_factor: float = 1.25,
-                 pipeline_stages: int = 0, sequence_parallel: bool = False,
+                 pipeline_stages: int = 0, pipeline_microbatches: int = 0,
+                 sequence_parallel: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        todo = {"pipeline_stages > 1": pipeline_stages > 1,
-                "sequence_parallel": sequence_parallel}
-        for what, asked in todo.items():
-            if asked:
-                raise NotImplementedError(
-                    f"ViTTransformer({what}) is not ported yet — ROADMAP.md "
-                    f"queue 1" + (
-                        ", item 7c (sequence and pipeline parallelism): "
-                        "the ring it runs its blocks through is "
-                        "parallel/ring_attention.py"
-                        if what == "sequence_parallel" else ""))
+        self.dim, self.depth, self.heads = dim, depth, heads
+        self.dim_head, self.mlp_dim = dim_head, mlp_dim
+        self.attention_impl = attention_impl
         self.dtype = dtype
         self.remat = remat
+        self.pipeline_stages = pipeline_stages
+        self.pipeline_microbatches = pipeline_microbatches
+        self.sequence_parallel = sequence_parallel
+        self.stacked = pipeline_stages > 1 or sequence_parallel
+        if self.stacked:
+            if pipeline_stages > 1 and depth % pipeline_stages:
+                raise ValueError(f"depth {depth} does not split into "
+                                 f"{pipeline_stages} pipeline stages")
+            if moe_experts > 0 or dropout != 0.0:
+                raise ValueError("pp and sp compose with dense dropout-free "
+                                 "stacks (config.py)")
+            for k, shape in self._stacked_shapes().items():
+                setattr(self, f"pb_{k}",
+                        nn.Parameter(torch.empty((depth,) + shape)))
+            self.init_stacked(None)
+        else:
+            def block(i):
+                if moe_experts > 0 and i % moe_every == moe_every - 1:
+                    return MoEViTBlock(dim, heads, dim_head, mlp_dim,
+                                       n_experts=moe_experts,
+                                       capacity_factor=moe_capacity_factor,
+                                       dropout=dropout,
+                                       attention_impl=attention_impl,
+                                       dtype=dtype)
+                return ViTBlock(dim, heads, dim_head, mlp_dim, dropout,
+                                attention_impl, dtype)
 
-        def block(i):
-            if moe_experts > 0 and i % moe_every == moe_every - 1:
-                return MoEViTBlock(dim, heads, dim_head, mlp_dim,
-                                   n_experts=moe_experts,
-                                   capacity_factor=moe_capacity_factor,
-                                   dropout=dropout,
-                                   attention_impl=attention_impl, dtype=dtype)
-            return ViTBlock(dim, heads, dim_head, mlp_dim, dropout,
-                            attention_impl, dtype)
-
-        self.blocks = nn.ModuleList(block(i) for i in range(depth))
+            self.blocks = nn.ModuleList(block(i) for i in range(depth))
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+
+    def _stacked_shapes(self) -> dict[str, tuple[int, ...]]:
+        d, m, inner = self.dim, self.mlp_dim, self.heads * self.dim_head
+        return {"g1": (1, d), "b1": (1, d), "wqkv": (d, 3 * inner),
+                "wo": (inner, d), "bo": (1, d), "g2": (1, d), "b2": (1, d),
+                "w1": (d, m), "bb1": (1, m), "w2": (m, d), "bb2": (1, d)}
+
+    def init_stacked(self, generator: torch.Generator | None) -> None:
+        """JAX's ``_stacked_block_params`` initializers: LN scales 1,
+        offsets and biases 0, matrices lecun-normal over their fan-in."""
+        with torch.no_grad():
+            for k, shape in self._stacked_shapes().items():
+                p = getattr(self, f"pb_{k}")
+                if k in ("g1", "g2"):
+                    nn.init.ones_(p)
+                elif shape[0] == 1:
+                    nn.init.zeros_(p)
+                else:
+                    lecun_normal_(p, shape[0], generator)
+
+    def stacked_params(self) -> dict[str, torch.Tensor]:
+        """The ``pb_*`` leaves by the fused block's names, the matrices in
+        the model dtype (JAX's ``_stacked_cast``)."""
+        out = {}
+        for k in self._stacked_shapes():
+            v = getattr(self, f"pb_{k}")
+            out[k] = v.to(self.dtype) if v.shape[-2] > 1 else v
+        return out
+
+    def _block_math(self, kv_len: int):
+        """``(params, x) -> y`` for one block of the stacked layout: the
+        fused block (kernels 1 and 2 on the card, their plain versions on
+        the CPU) where it takes the block, ``reference_vit_block``
+        otherwise (JAX: the fused kernel where eligible, the reference
+        math elsewhere)."""
+        heads, scale = self.heads, self.dim_head ** -0.5
+        use_fused = self.attention_impl != "xla" \
+            and heads * self.dim_head == self.dim
+
+        def block(p, x):
+            s = x.shape[1]
+            if use_fused and s % 16 == 0 and fits_single_block(s) \
+                    and fused_block_eligible(
+                        x.device.type, self.dtype, self.dim, self.dim_head,
+                        s, self.training and torch.is_grad_enabled(),
+                        self.mlp_dim):
+                return fused_vit_block(x.to(self.dtype).contiguous(), p,
+                                       heads, scale, kv_len)[0]
+            return reference_vit_block(x, p, heads, scale, kv_len)
+
+        return block
+
+    def _sequential(self, stacked: dict, x: torch.Tensor,
+                    kv_len: int) -> torch.Tensor:
+        block = self._block_math(kv_len)
+        for i in range(self.depth):
+            x = block({k: v[i] for k, v in stacked.items()}, x)
+        return x
+
+    def _sp_stack(self, x: torch.Tensor, kv_len: int) -> torch.Tensor:
+        """The sequence-parallel stack: inside ``sp_scope`` each rank runs
+        every block on its chunk of the tokens (``collectives.axis_chunk``,
+        whose backward scatters into zeros) as the ring block, the kv
+        chunks rotating over the ``seq`` axis (kernels 14 and 15 on the
+        card), then the chunks are gathered along the tokens
+        (``collectives.all_gather``, whose backward sums the ranks'
+        cotangents: the n-fold factor that makes the step's uniform mean
+        over ``seq`` exact, as JAX's tiled ``all_gather`` transposes to a
+        ``psum_scatter``).  Without a seq axis: sequential."""
+        stacked = self.stacked_params()
+        mesh = active_sp_mesh()
+        n = mesh.shape.get(SEQ_AXIS, 1) if mesh is not None else 1
+        if n <= 1:
+            return self._sequential(stacked, x, kv_len)
+        if self.heads * self.dim_head != self.dim:
+            raise ValueError(
+                f"sequence-parallel blocks need heads*dim_head == dim; "
+                f"got dim={self.dim} heads={self.heads} "
+                f"dim_head={self.dim_head}")
+        s = x.shape[1]
+        if s % n:
+            raise ValueError(
+                f"sp needs the (padded) token count divisible by the seq "
+                f"axis; got {s} tokens over sp={n}")
+        group, _ = sp_group(mesh)
+        impl = "pallas" if self.attention_impl == "fused_interpret" \
+            else "auto"
+        xs = collectives.axis_chunk(x, SEQ_AXIS, 1)
+        for j in range(self.depth):
+            xs = _ring_block_local(
+                xs, {k: v[j] for k, v in stacked.items()}, heads=self.heads,
+                scale=self.dim_head ** -0.5, kv_len=kv_len, group=group,
+                impl=impl)
+        return collectives.all_gather(xs, SEQ_AXIS, 1)
+
+    def _pipelined_stack(self, x: torch.Tensor, kv_len: int) -> torch.Tensor:
+        """The pipeline stack: inside ``pipeline_scope`` the stacked
+        leaves, regrouped ``(stages, depth / stages, ...)``, go through
+        ``parallel/pipeline.py:pipelined_stack``, which runs this rank's
+        stage (its ``depth / stages`` blocks) in the GPipe schedule over
+        ``pipe``; on a 3-D mesh the stage is ``_tp_stage_fn``.  Without a
+        pipe axis: sequential."""
+        stacked = self.stacked_params()
+        mesh = active_pipe_mesh()
+        if mesh is None or mesh.shape.get(PIPE_AXIS, 1) <= 1:
+            return self._sequential(stacked, x, kv_len)
+        n_stages = self.pipeline_stages
+        if mesh.shape[PIPE_AXIS] != n_stages:
+            raise ValueError(f"a stack of {n_stages} pipeline stages on a "
+                             f"pipe axis of {mesh.shape[PIPE_AXIS]}")
+        per = self.depth // n_stages
+        block = self._block_math(kv_len)
+
+        def stage_fn(p_stage, xs):
+            for j in range(per):
+                xs = block({k: v[j] for k, v in p_stage.items()}, xs)
+            return xs
+
+        tp = mesh.shape.get(MODEL_AXIS, 1)
+        if tp > 1:
+            # 3-D dp×pp×tp: each stage's blocks as the Megatron block over
+            # the model axis, on slices cut here from the replicated stage
+            # parameters (the step sums their gradients over the axis)
+            stage_fn = self._tp_stage_fn(kv_len, tp, per)
+        by_stage = {k: v.reshape((n_stages, per) + tuple(v.shape[1:]))
+                    for k, v in stacked.items()}
+        return pipelined_stack(mesh, stage_fn, by_stage, x,
+                               self.pipeline_microbatches or n_stages)
+
+    def _tp_stage_fn(self, kv_len: int, tp: int, per: int):
+        """A pp×tp stage: ``per`` tensor-parallel blocks over the model
+        axis (``parallel/tp_block.py:tp_block_local``, kernel 3 on the
+        rank's heads and kernel 4 in the backward).  The stage parameters
+        arrive whole on every rank of the axis; each rank cuts its head
+        and FFN columns (``collectives.axis_chunk``, JAX's local dynamic
+        index), so their gradients are zero outside the rank's slice and
+        the step sums them over ``model``."""
+        heads, scale = self.heads, self.dim_head ** -0.5
+        if (self.heads * self.dim_head != self.dim or self.heads % tp
+                or self.mlp_dim % tp):
+            raise ValueError(
+                f"pp x tp needs heads*dim_head == dim, heads % mp == 0 "
+                f"and mlp_dim % mp == 0; got dim={self.dim} "
+                f"heads={self.heads} dim_head={self.dim_head} "
+                f"mlp_dim={self.mlp_dim} mp={tp}")
+        if self.attention_impl == "xla":
+            raise ValueError("pp x tp runs the fused packed-qkv attention "
+                             "per rank: attention_impl='xla' cannot")
+
+        def stage_fn(p_stage, xs):
+            if xs.shape[1] % 16 or not fits_single_block(xs.shape[1]):
+                raise ValueError(
+                    f"pp x tp stage needs a fused-eligible token count "
+                    f"(16-aligned); got {xs.shape[1]}")
+            for j in range(per):
+                p = {k: v[j] for k, v in p_stage.items()}
+                rep = {k: p[k] for k in tp_block.REP_KEYS}
+                w = {k: collectives.axis_chunk(p[k], MODEL_AXIS, dim, groups)
+                     for k, (dim, groups) in tp_block.SPLITS.items()}
+                xs = tp_block.tp_block_local(
+                    xs.to(self.dtype), rep, w, heads_local=heads // tp,
+                    scale=scale, kv_len=kv_len, axis_name=MODEL_AXIS)
+            return xs
+
+        return stage_fn
 
     def forward(self, x: torch.Tensor, kv_len: int | None = None,
                 rng: DropoutRng | None = None,
                 losses: list | None = None) -> torch.Tensor:
         """``losses``: a list that each MoE block appends its load-balance
         loss to (None: not collected)."""
+        if self.stacked:
+            kv = kv_len if kv_len is not None else x.shape[1]
+            y = (self._pipelined_stack(x, kv) if self.pipeline_stages > 1
+                 else self._sp_stack(x, kv))
+            return layer_norm(self.norm, y, self.dtype)
         rematerialise = self.remat and self.training \
             and torch.is_grad_enabled()
         for block in self.blocks:
-            moe = isinstance(block, MoEViTBlock)
+            moe_block = isinstance(block, MoEViTBlock)
 
-            def run(h, r, first=True, block=block, moe=moe):
-                if moe:
+            def run(h, r, first=True, block=block, moe_block=moe_block):
+                if moe_block:
                     return block(h, kv_len, r, losses if first else None)
                 return block(h, kv_len, r)
 

@@ -78,7 +78,8 @@ class ViViT(nn.Module):
                  token_pad: int = 16, channels_last: bool = False,
                  remat: bool = False, moe_experts: int = 0,
                  moe_every: int = 2, moe_capacity_factor: float = 1.25,
-                 pipeline_stages: int = 0, sequence_parallel: bool = False,
+                 pipeline_stages: int = 0, pipeline_microbatches: int = 0,
+                 sequence_parallel: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if pool not in ("cls", "mean"):
@@ -101,12 +102,17 @@ class ViViT(nn.Module):
             torch.empty(1, num_frames, num_patches + 1, dim))
         self.space_token = nn.Parameter(torch.empty(1, 1, dim))
         self.temporal_token = nn.Parameter(torch.empty(1, 1, dim))
+        # pipeline_stages > 1 / sequence_parallel (config.pp, config.sp):
+        # the space transformer's blocks take the stacked pb_* layout and
+        # run pipelined or sequence-parallel on a pipe or seq mesh; the
+        # temporal transformer keeps the per-block layout, sequential
         self.space_transformer = ViTTransformer(
             dim, depth, heads, dim_head, dim * scale_dim, dropout=dropout,
             attention_impl=attention_impl, remat=remat,
             moe_experts=moe_experts, moe_every=moe_every,
             moe_capacity_factor=moe_capacity_factor,
             pipeline_stages=pipeline_stages,
+            pipeline_microbatches=pipeline_microbatches,
             sequence_parallel=sequence_parallel, dtype=dtype)
         t_impl = (attention_impl if temporal_attention_impl is None
                   else temporal_attention_impl)

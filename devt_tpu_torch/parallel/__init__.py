@@ -1,8 +1,8 @@
-"""Meshes and the step executors: one device, or data parallel, FSDP and
-tensor parallel over ``torch.distributed`` process groups (``mesh``,
-``distributed``, ``collectives``, ``train_step``, ``fsdp``, ``sharding``,
-``tp_block``, ``layout``); the single-device half of the MoE and the ring
-attention.
+"""Meshes and the step executors: one device, or data parallel, FSDP,
+tensor, pipeline, sequence and expert parallel over ``torch.distributed``
+process groups (``mesh``, ``distributed``, ``collectives``,
+``train_step``, ``fsdp``, ``sharding``, ``tp_block``, ``layout``,
+``pipeline``, ``ring_attention``, ``moe``).
 
 The exports resolve on first use: the models import
 ``parallel.collectives``, and the executors import the models.

@@ -50,7 +50,23 @@ group by the name JAX's code uses.  An unbound name raises ``NameError``, as JAX
     replicated weight a tensor-parallel product uses only a slice of);
   * :func:`gather_replicated`: the whole tensor from every rank's part,
     its backward this rank's part of the cotangent, for a computation
-    every rank of the axis repeats with the same values.
+    every rank of the axis repeats with the same values;
+  * :func:`axis_chunk`: this rank's part along a dim (``lax.
+    dynamic_slice_in_dim`` at the axis index), its backward the cotangent
+    scattered into zeros, no communication (each rank's gradient of the
+    whole is non-zero only on its part);
+  * :func:`shift`: the pipe shift (``lax.ppermute`` to the next index),
+    zeros on index 0, its backward the cotangent shifted the other way;
+  * :func:`all_to_all`: ``lax.all_to_all(tiled=True)`` with
+    ``split_axis`` and ``concat_axis``, its backward the inverse exchange;
+  * :func:`sendrecv`: one point-to-point exchange in a group (send to one
+    rank, receive from another), which the shift and the ring of
+    ``parallel/ring_attention.py`` use.
+
+Gloo takes neither point-to-point sends nor ``all_to_all`` of CUDA
+tensors: under Gloo :func:`sendrecv` and :func:`all_to_all` stage a CUDA
+tensor through the host (a copy to the CPU, the exchange, a copy back);
+under NCCL they send it from the card.
 
 Every collective runs whenever a process group exists, also over a group
 of one rank; without ``torch.distributed`` initialised an axis has one
@@ -90,6 +106,13 @@ def axis_scope(axes: dict[str, Axis]) -> Iterator[None]:
         yield
     finally:
         _bound.axes = prev
+
+
+def bound_axes() -> dict[str, Axis]:
+    """The axes bound on this thread (for a computation that another
+    thread replays: autograd runs a CUDA backward, and a rematerialised
+    forward, on its device thread)."""
+    return dict(getattr(_bound, "axes", {}))
 
 
 def axis(name: str) -> Axis:
@@ -391,3 +414,135 @@ def pmean_grad(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     if not _live(ax):
         return x
     return _MeanGrad.apply(x, ax)
+
+
+def staged(t: torch.Tensor, group) -> bool:
+    """Whether ``t`` goes through the host for a point-to-point send or an
+    ``all_to_all`` in ``group``: a CUDA tensor under Gloo."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def sendrecv(t: torch.Tensor, group, to: int, frm: int) -> torch.Tensor:
+    """Send ``t`` to index ``to`` of ``group`` (None: the default group)
+    and return what index ``frm`` sends here (``t``'s shape and dtype).
+    Every rank of the group posts its exchange at the same point."""
+    def rank(i):
+        return i if group is None else dist.get_global_rank(group, i)
+
+    host = staged(t, group)
+    src = (t.detach().cpu() if host else t.detach()).contiguous()
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, rank(to), group),
+           dist.P2POp(dist.irecv, out, rank(frm), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.to(t.device) if host else out
+
+
+class _AxisChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax: Axis, dim: int, groups: int):
+        ctx.args = ax, dim, groups
+        return part(x, dim, ax.size, ax.index, groups).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        ax, dim, groups = ctx.args
+        zero = torch.zeros_like(g)
+        pieces = [g if j == ax.index else zero for j in range(ax.size)]
+        return join(pieces, dim, groups), None, None, None
+
+
+def axis_chunk(x: torch.Tensor, axis_name: str, dim: int,
+               groups: int = 1) -> torch.Tensor:
+    """``lax.dynamic_slice_in_dim`` at this rank's index on the axis: its
+    part of ``x`` along ``dim`` (with ``groups``, as :func:`parts` cuts
+    it).  The backward scatters the cotangent into zeros (JAX's transpose
+    of the slice): no communication, and the gradient of ``x`` is
+    non-zero only on this rank's part."""
+    ax = axis(axis_name)
+    if ax.size == 1:
+        return x
+    return _AxisChunk.apply(x, ax, dim, groups)
+
+
+def _shifted(t: torch.Tensor, ax: Axis, step: int) -> torch.Tensor:
+    """``t`` sent ``step`` indices on around the axis, the tensor of the
+    index ``step`` back received in its place."""
+    return sendrecv(t, ax.group, (ax.index + step) % ax.size,
+                    (ax.index - step) % ax.size)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax: Axis):
+        ctx.ax = ax
+        out = _shifted(x, ax, 1)
+        if ax.index == 0:
+            out.zero_()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.ax
+        # index 0 zeroed what it received: its cotangent goes back as zeros
+        g = torch.zeros_like(g) if ax.index == 0 else g
+        return _shifted(g, ax, -1), None
+
+
+def shift(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """``lax.ppermute(x, axis_name, [(i, i + 1) for i in range(n - 1)])``:
+    index i + 1 receives index i's ``x``, index 0 receives zeros.  Every
+    rank sends to the next index round the ring and receives from the one
+    before (index 0 zeroes what it receives), so all post the same
+    exchange; the backward shifts the cotangent the other way."""
+    ax = axis(axis_name)
+    if ax.size == 1:
+        return torch.zeros_like(x)
+    _live(ax)
+    return _Shift.apply(x, ax)
+
+
+def _exchange(x: torch.Tensor, ax: Axis, split_axis: int,
+              concat_axis: int) -> torch.Tensor:
+    src = torch.stack(x.chunk(ax.size, split_axis)).contiguous()
+    host = staged(src, ax.group)
+    if host:
+        src = src.cpu()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=ax.group)
+    if host:
+        out = out.to(x.device)
+    return torch.cat(out.unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax: Axis, split_axis: int, concat_axis: int):
+        ctx.args = ax, split_axis, concat_axis
+        return _exchange(x, ax, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax, split_axis, concat_axis = ctx.args
+        return _exchange(g.contiguous(), ax, concat_axis, split_axis), \
+            None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis_name, split_axis, concat_axis,
+    tiled=True)``: ``x`` cut into as many equal parts along
+    ``split_axis`` as the axis has ranks, part j sent to index j, and the
+    parts received concatenated along ``concat_axis`` in index order.
+    Differentiable: the backward is the inverse exchange (the two axes
+    swapped)."""
+    ax = axis(axis_name)
+    if ax.size == 1:
+        return x
+    _live(ax)
+    if x.shape[split_axis] % ax.size:
+        raise ValueError(f"dim {split_axis} of {x.shape[split_axis]} does "
+                         f"not split over the {ax.size} ranks of "
+                         f"{axis_name!r}")
+    return _AllToAll.apply(x, ax, split_axis, concat_axis)

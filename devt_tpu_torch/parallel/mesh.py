@@ -10,8 +10,8 @@ this rank its rows of a global batch, which is what
 ``NamedSharding(mesh, P("data"))`` places on device r.
 
 Which strategy a mesh runs is chosen by ``parallel/train_step.py:
-mesh_strategy``; the port runs the data-parallel, FSDP and tensor-parallel
-ones (``dp_shard_map``, ``fsdp_shard_map``, ``gspmd``).
+mesh_strategy``; the port runs all of JAX's (``dp_shard_map``,
+``fsdp_shard_map``, ``gspmd``, ``pp_shard_map``, ``sp_shard_map``).
 """
 
 from __future__ import annotations

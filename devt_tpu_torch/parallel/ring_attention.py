@@ -3,8 +3,10 @@
 Port of ``devt_tpu/parallel/ring_attention.py``.  K/V live split over the
 ranks of a ``torch.distributed`` process group (JAX: a mesh axis); each
 rank keeps its local q chunk, and the kv chunks rotate around the ring
-(rank r sends to r + 1 and receives from r - 1, ``dist.batch_isend_irecv``:
-Gloo for CPU tensors, NCCL for CUDA ones) while the flash combine (running
+(rank r sends to r + 1 and receives from r - 1, ``dist.batch_isend_irecv``
+through ``collectives.sendrecv``: under Gloo a CUDA tensor is staged
+through the host, under NCCL it is sent from the card) while the flash
+combine (running
 max, normaliser, unnormalised output) merges the per-chunk partials.
 ``group=None`` is a ring of one rank; otherwise n is the group's size.
 
@@ -33,10 +35,15 @@ gradients reach the input whole on every rank; a replicated parameter's
 gradient is the rank's share, to be summed over the group (``all_reduce``)
 as a data-parallel step does.
 
-Waiting for ROADMAP item 7c (sequence parallelism): ``ViTTransformer(
-sequence_parallel=True)``, which runs its blocks through
-``_ring_block_local`` inside ``sp_scope``, the ``sp_shard_map`` executors,
-and NCCL across several cards.
+Sequence parallelism (``config.sp``): the ``sp_shard_map`` executors
+(``parallel/train_step.py``) set :func:`sp_scope` to the (data, seq)
+mesh around the step, and ``models/layers.py:ViTTransformer(
+sequence_parallel=True)`` then runs every block of its stacked layout as
+:func:`_ring_block_local` over the ``seq`` axis' group
+(:func:`sp_group`), on the rank's chunk of the tokens.  A hop's send goes
+through ``parallel/collectives.sendrecv``: a CUDA tensor is staged
+through the host under Gloo (which takes no point-to-point send from the
+card) and sent from the card under NCCL.
 """
 
 from __future__ import annotations
@@ -51,28 +58,40 @@ import torch.nn.functional as F
 from devt_tpu_torch.ops.flash_attention import (fits_single_block, fused_mha,
                                                 ring_step_bwd, ring_step_fwd)
 from devt_tpu_torch.ops.fused_block import _gelu, _ln
+from devt_tpu_torch.parallel.collectives import sendrecv
 
 NEG_INF = -1e30
+SEQ_AXIS = "seq"
 
 _sp_gate = threading.local()
 
 
 @contextlib.contextmanager
-def sp_scope(group):
+def sp_scope(mesh):
     """Context in which a stack of ViT blocks runs sequence-parallel over
-    ``group`` (JAX: the mesh the ``sp_shard_map`` step factories set around
-    their trace).  Re-entrant, thread-local, bounded by the ``with``."""
-    prev = getattr(_sp_gate, "group", None)
-    _sp_gate.group = group
+    ``mesh``'s ``seq`` axis (JAX: the mesh the ``sp_shard_map`` step
+    factories set around their trace).  Re-entrant, thread-local, bounded
+    by the ``with``."""
+    prev = getattr(_sp_gate, "mesh", None)
+    _sp_gate.mesh = mesh
     try:
         yield
     finally:
-        _sp_gate.group = prev
+        _sp_gate.mesh = prev
 
 
-def active_sp_group():
-    """The process group set by :func:`sp_scope`, or None."""
-    return getattr(_sp_gate, "group", None)
+def active_sp_mesh():
+    """The mesh set by :func:`sp_scope`, or None."""
+    return getattr(_sp_gate, "mesh", None)
+
+
+def sp_group(mesh):
+    """The process group of ``mesh``'s ``seq`` axis that this rank lies on
+    (the default group when the axis is the whole world), and the axis'
+    size."""
+    ax = mesh.axes()[SEQ_AXIS]
+    group = ax.group if ax.group is not None else dist.group.WORLD
+    return group, ax.size
 
 
 def _rank_and_size(group) -> tuple[int, int]:
@@ -85,14 +104,7 @@ def _rotate(t: torch.Tensor, group, step: int = 1) -> torch.Tensor:
     """t sent to the rank ``step`` places on around the ring, and the
     tensor of the rank ``step`` places back received in its place."""
     rank, n = _rank_and_size(group)
-    out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
-    ops = [dist.P2POp(dist.isend, t.contiguous(),
-                      dist.get_global_rank(group, (rank + step) % n)),
-           dist.P2POp(dist.irecv, out,
-                      dist.get_global_rank(group, (rank - step) % n))]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return out
+    return sendrecv(t, group, (rank + step) % n, (rank - step) % n)
 
 
 class _Rotate(torch.autograd.Function):

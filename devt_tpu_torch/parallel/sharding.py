@@ -28,9 +28,11 @@ Two differences from JAX's layout, of layout only: a packed qkv splits
 each of its q, k and v thirds on head boundaries, ``(3, H/n, d)`` a rank,
 as ``tp_shard_block_params`` does, where GSPMD splits its columns
 contiguously; and a leaf whose dim does not divide over the axis stays
-whole, where GSPMD would pad it.  The switch-MoE expert rules
-(``moe_w*``, ``moe_b*``) are expert parallelism and raise
-``NotImplementedError`` (ROADMAP.md queue 1, item 7c).
+whole, where GSPMD would pad it.  The switch-MoE experts (``moe_w1``,
+``moe_b1``, ``moe_w2``, ``moe_b2``) split by expert over ``model``: they
+stay split at rest and the step gathers them whole for their block (GSPMD
+instead runs each shard's experts where they lie and sums at the
+combine), so the values are the one-device step's either way.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ _RULES: tuple[tuple[str, tuple], ...] = (
     ("linear2.weight", (None, _M)),
     ("fc1.weight", (_M, None)),      # ViT FeedForward up-projection
     ("fc2.weight", (None, _M)),      # ViT FeedForward down-projection
-    # the switch-MoE experts: expert parallelism over the model axis
+    # the switch-MoE experts, by expert
     ("moe_w1", (_M, None, None)),
     ("moe_b1", (_M, None)),
     ("moe_w2", (_M, None, None)),
@@ -69,11 +71,6 @@ def _spec_for(name: str, ndim: int) -> tuple:
         return ()
     for key, spec in _RULES:
         if key in name:
-            if key.startswith("moe_"):
-                raise NotImplementedError(
-                    f"{name}: the switch-MoE experts on a model axis are "
-                    f"expert parallelism, not ported yet — ROADMAP.md "
-                    f"queue 1, item 7c")
             # rank guard: an optimizer leaf of fewer dims than the rule
             # (Adafactor's factored statistics) stays whole
             return spec if len(spec) <= ndim else ()

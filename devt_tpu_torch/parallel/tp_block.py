@@ -46,7 +46,7 @@ from devt_tpu_torch.parallel import collectives
 
 TP_AXIS = "model"
 
-_REP_KEYS = ("g1", "b1", "g2", "b2", "bo", "bb2")
+REP_KEYS = ("g1", "b1", "g2", "b2", "bo", "bb2")
 # the split leaves: (dim of the (K, N) matrix or row vector, blocks in it)
 SPLITS = {"wqkv": (1, 3), "wo": (0, 1), "w1": (1, 1), "bb1": (1, 1),
           "w2": (0, 1)}
@@ -59,7 +59,7 @@ def tp_shard_block_params(params: dict, n: int) -> tuple[dict, dict]:
     lands on head boundaries when ``H % n == 0``."""
     shard = {k: torch.stack(collectives.parts(params[k], dim, n, groups))
              for k, (dim, groups) in SPLITS.items()}
-    rep = {k: params[k] for k in _REP_KEYS}
+    rep = {k: params[k] for k in REP_KEYS}
     return rep, shard
 
 

@@ -63,10 +63,33 @@ whole for its module.  The gradients stay in the state's layout, the
 clip's global norm and Adafactor's factored statistics are the whole
 tree's (the optimizer is handed the state's ``shards``).
 
-A mesh of one rank runs the single-device step, bit for bit.  Pipeline
-and sequence parallelism, expert-parallel MoE routing (``moe_ep`` on a
-data-parallel mesh) and MoE blocks on a model axis raise
-``NotImplementedError`` (ROADMAP.md queue 1, item 7c).
+Expert parallelism (``config.moe_ep`` on a data-parallel mesh): the DP
+step runs inside ``parallel.moe.moe_ep_scope`` over ``data``, so the MoE
+blocks whose experts divide over the ranks compute E/n experts a rank
+(``moe_ffn_ep_rows``, two ``all_to_all`` exchanges a block); a rank's
+gradient of an expert leaf is zero outside its experts, and the DP mean
+gives the dense update.  MoE blocks on a model axis (``gspmd``): the
+expert leaves stay split over ``model`` at rest and are gathered whole for
+their block.
+
+Pipeline parallelism (``pp_shard_map``: a ``pipe`` axis, on a (data, pipe)
+or the 3-D (data, pipe, model) mesh): the state is whole on every rank
+and the batch is the rank's data rows, as JAX's shard_map places them;
+the step runs inside ``parallel.pipeline.pipeline_scope``, so the stacked
+ViViT stack runs the GPipe schedule over ``pipe`` (on a model axis each
+stage as the tensor-parallel block).  After the data mean the gradients
+are reduced as JAX's body reduces them: the ``pb_*`` leaves summed over
+``pipe`` (each stage holds its own slice's), every other leaf averaged;
+on a model axis the five leaves a rank cuts its slice of (``pb_wqkv``,
+``pb_wo``, ``pb_w1``, ``pb_bb1``, ``pb_w2``) summed over ``model``,
+every other leaf averaged.  Sequence parallelism (``sp_shard_map``: a
+(data, seq) mesh): the step runs inside ``parallel.ring_attention.
+sp_scope``, the stacked stack runs on the rank's chunk of the tokens with
+the kv ring over ``seq``, and every gradient, the loss and the aux are
+averaged over ``seq`` (exact: the stack's closing gather hands each rank
+the sum of the ranks' cotangents of its chunk).
+
+A mesh of one rank runs the single-device step, bit for bit.
 
 The executors run on ``cuda`` unless the caller passes ``device="cpu"``,
 and raise when there is no card.
@@ -83,12 +106,15 @@ import torch
 from torch import nn
 
 from devt_tpu_torch.config import Config
-from devt_tpu_torch.models.layers import DropoutRng, MoEViTBlock
+from devt_tpu_torch.models.layers import DropoutRng
 from devt_tpu_torch.models.resnet import BatchNorm
 from devt_tpu_torch.ops.attention import tp_pallas_scope
 from devt_tpu_torch.parallel import collectives, fsdp, layout, sharding
 from devt_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
                                           SEQ_AXIS)
+from devt_tpu_torch.parallel.moe import moe_ep_scope
+from devt_tpu_torch.parallel.pipeline import pipeline_scope
+from devt_tpu_torch.parallel.ring_attention import sp_scope
 from devt_tpu_torch.serve import resolve_device
 from devt_tpu_torch.train.state import TrainState
 from devt_tpu_torch.train.steps import forward_and_loss
@@ -128,9 +154,7 @@ def rank_seed(rng: int, index: int) -> int:
 def mesh_strategy(mesh, config: Config | None = None) -> str:
     """Execution strategy for a mesh, as JAX's picks it: ``single`` |
     ``dp_shard_map`` | ``fsdp_shard_map`` | ``pp_shard_map`` |
-    ``sp_shard_map`` | ``gspmd``.  A mesh of one rank is ``single``.  The
-    port runs all but ``pp_shard_map`` and ``sp_shard_map``, which
-    :func:`make_train_step` and the others refuse."""
+    ``sp_shard_map`` | ``gspmd``.  A mesh of one rank is ``single``."""
     if mesh is None or mesh.size == 1:
         return "single"
     shape = dict(mesh.shape)
@@ -154,46 +178,39 @@ def mesh_strategy(mesh, config: Config | None = None) -> str:
     return "dp_shard_map"
 
 
-_NOT_PORTED = {
-    "pp_shard_map": "pipeline parallelism (pp > 1)",
-    "sp_shard_map": "sequence parallelism (sp > 1)",
-}
+# the stacked leaves a 3-D stage cuts its model-axis slice of
+_TP_SLICED = frozenset({"pb_wqkv", "pb_wo", "pb_w1", "pb_bb1", "pb_w2"})
 
 
 @dataclasses.dataclass(frozen=True)
 class _Plan:
     """What a mesh's step does: ``strategy``; ``data``: it reduces over a
     data axis of more than one rank; ``tp``: the model axis' size when the
-    step runs inside ``tp_pallas_scope`` (0: it does not)."""
+    step runs inside ``tp_pallas_scope`` (0: it does not); ``ep``: the
+    data axis' size when the MoE blocks run expert-parallel over it (0:
+    they do not); ``pipe_tp``: a pipeline step on a model axis of more
+    than one rank (the 3-D mesh)."""
     strategy: str
     data: bool = False
     tp: int = 0
+    ep: int = 0
+    pipe_tp: bool = False
 
 
-def _plan(mesh, config: Config, model: nn.Module) -> _Plan:
-    """The mesh's plan; ``NotImplementedError`` for what is not ported
-    (ROADMAP.md queue 1, item 7c)."""
+def _plan(mesh, config: Config) -> _Plan:
+    """The mesh's plan."""
     strategy = mesh_strategy(mesh, config)
-    if strategy in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{_NOT_PORTED[strategy]} on a mesh of shape {mesh.shape} is not "
-            f"ported yet — ROADMAP.md queue 1, item 7c")
     if strategy == "single":
         return _Plan(strategy)
-    if strategy == "dp_shard_map" and getattr(config, "moe_ep", False):
-        raise NotImplementedError(
-            "moe_ep=True on a mesh, expert-parallel MoE routing, is not "
-            "ported yet — ROADMAP.md queue 1, item 7c")
-    mp = mesh.shape.get(MODEL_AXIS, 1)
-    if mp > 1 and (getattr(config, "moe_experts", 0) > 0 or any(
-            isinstance(m, MoEViTBlock) for m in model.modules())):
-        raise NotImplementedError(
-            f"switch-MoE blocks on a model axis of {mp} ranks (expert "
-            f"parallelism) are not ported yet — ROADMAP.md queue 1, item 7c")
+    shape = mesh.shape
+    mp, dp = shape.get(MODEL_AXIS, 1), shape.get(DATA_AXIS, 1)
     tp = mp if (strategy == "gspmd" and mp > 1
                 and getattr(config, "attention_impl", "auto") == "auto") \
         else 0
-    return _Plan(strategy, data=mesh.shape.get(DATA_AXIS, 1) > 1, tp=tp)
+    ep = dp if (strategy == "dp_shard_map" and dp > 1
+                and getattr(config, "moe_ep", False)) else 0
+    return _Plan(strategy, data=dp > 1, tp=tp, ep=ep,
+                 pipe_tp=strategy == "pp_shard_map" and mp > 1)
 
 
 def _tp_parts(model: nn.Module, state: TrainState, tp: int) -> dict:
@@ -251,6 +268,42 @@ def _pmean_step(grads: dict, loss, aux: dict, new_ms: dict,
     for (p, k), m in zip(keys, means):
         parts[p][k] = m
     return grads, parts["loss"][""], parts["aux"], {**new_ms, **parts["ms"]}
+
+
+def _reduce_axes(grads: dict, loss, aux: dict, new_ms: dict, plan: _Plan):
+    """The pipe, model and seq reductions of JAX's step body, after the
+    data mean.  ``pp_shard_map``: the ``pb_*`` gradients summed over
+    ``pipe``, the others averaged, and on the 3-D mesh the leaves a stage
+    cuts its model slice of summed over ``model``, the others averaged;
+    ``sp_shard_map``: everything averaged over ``seq``.  The loss, the
+    scalar aux and the float model state are averaged over the axes."""
+    if plan.strategy == "pp_shard_map":
+        rules = [(PIPE_AXIS, lambda k: any(
+            seg.startswith("pb_") for seg in k.split(".")))]
+        if plan.pipe_tp:
+            rules.append((MODEL_AXIS, lambda k: any(
+                seg in _TP_SLICED for seg in k.split("."))))
+    elif plan.strategy == "sp_shard_map":
+        rules = [(SEQ_AXIS, lambda k: False)]
+    else:
+        return grads, loss, aux, new_ms
+    grads = dict(grads)
+    for axis_name, summed in rules:
+        for reduce, keys in ((collectives.psum, [k for k in grads
+                                                 if summed(k)]),
+                             (collectives.pmean, [k for k in grads
+                                                  if not summed(k)])):
+            for k, g in zip(keys, reduce([grads[k] for k in keys],
+                                         axis_name)):
+                grads[k] = g
+        floats = {k: v for k, v in new_ms.items() if v.is_floating_point()}
+        keys = list(aux)
+        means = collectives.pmean(
+            [loss, *(aux[k] for k in keys), *floats.values()], axis_name)
+        loss = means[0]
+        aux = dict(zip(keys, means[1:1 + len(keys)]))
+        new_ms = {**new_ms, **dict(zip(floats, means[1 + len(keys):]))}
+    return grads, loss, aux, new_ms
 
 
 def _to_device(batch: Mapping, device: torch.device) -> dict:
@@ -329,6 +382,8 @@ def _make_step_body(model: nn.Module, config: Config,
         if axis_name is not None:
             grads, loss, aux, new_ms = _pmean_step(grads, loss, aux, new_ms,
                                                    axis_name, state.shards)
+        grads, loss, aux, new_ms = _reduce_axes(grads, loss, aux, new_ms,
+                                                plan)
         new_state = state.apply_gradients(grads, new_ms)
         return new_state, {"loss": loss, **aux}
 
@@ -358,17 +413,24 @@ def _scope(model: nn.Module, mesh, plan: _Plan):
     """The context a mesh's step runs in: the mesh's axes bound by name;
     the contrastive encoder's BatchNorm synced under the DP and FSDP steps,
     every BatchNorm under the gspmd step over a data axis; the
-    tensor-parallel scope.  Nothing for one device."""
+    tensor-parallel, expert-parallel, pipeline or sequence-parallel scope.
+    Nothing for one device."""
     if plan.strategy == "single":
         return contextlib.nullcontext()
     stack = contextlib.ExitStack()
     stack.enter_context(collectives.axis_scope(mesh.axes()))
-    if plan.strategy != "gspmd":
+    if plan.strategy in ("dp_shard_map", "fsdp_shard_map"):
         stack.enter_context(_sync_bn(model))
-    elif plan.data:
+    elif plan.strategy == "gspmd" and plan.data:
         stack.enter_context(_sync_bn(model, every=True))
     if plan.tp:
         stack.enter_context(tp_pallas_scope(mesh))
+    if plan.ep:
+        stack.enter_context(moe_ep_scope(DATA_AXIS, plan.ep))
+    if plan.strategy == "pp_shard_map":
+        stack.enter_context(pipeline_scope(mesh))
+    if plan.strategy == "sp_shard_map":
+        stack.enter_context(sp_scope(mesh))
     return stack
 
 
@@ -385,7 +447,7 @@ def make_train_step(model: nn.Module, config: Config, mesh=None,
     ``parallel/fsdp.py`` or ``parallel/sharding.py``), and every rank calls
     the step.  ``rng``: an integer seed.  ``metrics`` are device scalars;
     reading one (``float(metrics["loss"])``) waits for the step."""
-    plan = _plan(mesh, config, model)
+    plan = _plan(mesh, config)
     device = resolve_device(device)
     body = _make_step_body(model, config, plan)
 
@@ -410,7 +472,7 @@ def make_multi_step(model: nn.Module, config: Config, n_steps: int,
     the host runs ahead of it by up to ``n_steps`` steps.  Over a ``mesh``
     the batches are this rank's rows of each step's global batch (axis 1),
     and each step reduces over the ranks."""
-    plan = _plan(mesh, config, model)
+    plan = _plan(mesh, config)
     device = resolve_device(device)
     body = _make_step_body(model, config, plan)
 
@@ -460,7 +522,7 @@ def make_eval_step(model: nn.Module, config: Config, mesh=None,
     the mean over the ranks, the per-sample aux rows (``probs``,
     ``label``, ``embedding``) gathered in rank order, and the contrastive
     loss scored against the negatives of every rank."""
-    plan = _plan(mesh, config, model)
+    plan = _plan(mesh, config)
     device = resolve_device(device)
     axis_name = DATA_AXIS if plan.data else None
 
@@ -477,6 +539,13 @@ def make_eval_step(model: nn.Module, config: Config, mesh=None,
             if axis_name is None:
                 return loss, aux
             loss = collectives.pmean([loss], axis_name)[0]
+            # the pipeline's and the ring's outputs are the same on every
+            # rank of pipe, model and seq: a mean there is a consistency
+            # no-op, as in JAX's eval body
+            for name in (PIPE_AXIS, MODEL_AXIS, SEQ_AXIS):
+                if plan.strategy in ("pp_shard_map", "sp_shard_map") \
+                        and mesh.shape.get(name, 1) > 1:
+                    loss = collectives.pmean([loss], name)[0]
             return loss, _replicate_aux(aux, axis_name)
 
     return eval_step

@@ -96,6 +96,7 @@ def build_model(config: Config,
                   moe_every=config.moe_every,
                   moe_capacity_factor=config.moe_capacity_factor,
                   pipeline_stages=config.pp if config.pp > 1 else 0,
+                  pipeline_microbatches=config.pp_microbatches,
                   sequence_parallel=config.sp > 1,
                   remat=config.remat, dtype=dtype)
     return model.init_weights(generator)

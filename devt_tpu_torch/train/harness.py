@@ -30,7 +30,8 @@ the loop: the state is broadcast from rank 0 and placed as JAX's trainer
 places it (``dp_mode`` ``"fsdp"`` / ``"fsdp_gspmd"``: sharded over
 ``data`` by ``parallel/fsdp.py``; otherwise by the Megatron rules of
 ``parallel/sharding.py``, which split only over a model axis of more
-than one rank), each rank assembles only its data index's rows of every
+than one rank and never on a mesh with a ``pipe`` axis: pipeline and
+sequence-parallel meshes hold it whole on every rank), each rank assembles only its data index's rows of every
 global batch (``Loader.shard_rows``; another iterable's batches are
 sliced), the executors reduce over the ranks, and validation sees the
 gathered aux, so the epoch metrics are the same on every rank.  Rank 0
@@ -54,8 +55,8 @@ from devt_tpu_torch.config import Config
 from devt_tpu_torch.data.pipeline import device_prefetch, is_numeric
 from devt_tpu_torch.parallel import collectives, fsdp, layout, sharding
 from devt_tpu_torch.parallel.distributed import process_index
-from devt_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, make_mesh,
-                                          shard_batch)
+from devt_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
+                                          SEQ_AXIS, make_mesh, shard_batch)
 from devt_tpu_torch.parallel.train_step import (make_eval_step,
                                                 make_multi_step,
                                                 make_train_step)
@@ -136,7 +137,7 @@ class Trainer:
             axes = self.mesh.axes()
             # every rank starts from rank 0's parameters and buffers
             with collectives.axis_scope(axes):
-                for name in (DATA_AXIS, MODEL_AXIS):
+                for name in (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, MODEL_AXIS):
                     if name in axes:
                         collectives.broadcast(
                             [*state.params.values(),

@@ -2959,3 +2959,90 @@ def test_tp_block_and_fsdp_step_on_two_ranks_of_the_card(card, tmp_path):
             np.testing.assert_allclose(out[f"fsdp::{k}"],
                                        p.detach().float().numpy(),
                                        atol=2e-2, err_msg=k)
+
+
+# sequence and pipeline parallelism: the kv ring and the pipe shift between
+# two ranks of a spawned pool that share the card over Gloo, which takes
+# no point-to-point send of a CUDA tensor: the tensors go through the host
+
+def _staged_rank(rank: int, init: str, out_dir: str) -> None:
+    """One rank: the ring block (bf16, dim 192, 3 heads of 64, 208 tokens
+    of which 197 live) over the two ranks on the card and on the CPU, its
+    output and gradients; the pipe shift of a CUDA tensor and of the same
+    on the CPU, forward and backward."""
+    import os
+
+    from devt_tpu_torch.parallel import collectives, distributed
+    from devt_tpu_torch.parallel.mesh import make_mesh
+    from devt_tpu_torch.parallel.ring_attention import ring_vit_block
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"file://{init}", CARD_RANKS, rank)
+    pipe = make_mesh(dp=1, pp=CARD_RANKS)
+    group = torch.distributed.group.WORLD
+    out = {"staged": np.array(collectives.staged(
+        torch.zeros(1, device="cuda"), group))}
+    x, params = _block(torch.bfloat16, dim=192, mlp=768, b=4, s=208,
+                       kv_len=197, fan_in=True)
+    for device in ("cuda", "cpu"):
+        xd = x.detach().to(device).requires_grad_(True)
+        pd = {k: v.detach().to(device).requires_grad_(True)
+              for k, v in params.items()}
+        before = (tfa.ring_step_fwd.launches, tfa.ring_step_bwd.launches)
+        y = ring_vit_block(xd, pd, group, heads=3, kv_len=197,
+                           impl="pallas")
+        y.float().sum().backward()
+        out[f"{device}::launches"] = np.array(
+            [tfa.ring_step_fwd.launches - before[0],
+             tfa.ring_step_bwd.launches - before[1]])
+        out[f"{device}::y"] = y.detach().float().cpu().numpy()
+        out[f"{device}::dx"] = xd.grad.float().cpu().numpy()
+        for k, p in pd.items():
+            out[f"{device}::d::{k}"] = p.grad.float().cpu().numpy()
+        with collectives.axis_scope(pipe.axes()):
+            t = torch.full((2, 3), rank + 1.0, device=device,
+                           requires_grad=True)
+            s = collectives.shift(t, "pipe")
+            (s * 10.0 * (rank + 1)).sum().backward()
+        out[f"{device}::shift"] = s.detach().cpu().numpy()
+        out[f"{device}::dshift"] = t.grad.cpu().numpy()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_ring_and_pipe_shift_across_two_ranks_of_the_card(card, tmp_path):
+    """Two ranks on the card, Gloo: the CUDA tensors are staged through
+    the host.  The ring block runs every hop in kernels 14 and 15 (2
+    launches of each a rank) and agrees with the same ring on the CPU's
+    plain versions within the bf16 bounds (the output within 1e-2 and each
+    gradient within 5e-2 of the tensor's largest element); the pipe shift
+    of a CUDA tensor equals the CPU's, forward and backward."""
+    import torch.multiprocessing as mp
+
+    _build.build_all()
+    mp.start_processes(_staged_rank, args=(str(tmp_path / "init"),
+                                           str(tmp_path)),
+                       nprocs=CARD_RANKS, start_method="spawn")
+    outs = [dict(np.load(tmp_path / f"rank{r}.npz"))
+            for r in range(CARD_RANKS)]
+    for r, out in enumerate(outs):
+        assert bool(out["staged"])
+        assert out["cuda::launches"].tolist() == [2, 2]
+        assert out["cpu::launches"].tolist() == [0, 0]
+        gaps = {}
+        for name in ["y", "dx"] + [k[len("cpu::"):] for k in out
+                                   if k.startswith("cpu::d::")]:
+            g, w = out[f"cuda::{name}"], out[f"cpu::{name}"]
+            bound = 1e-2 if name == "y" else 5e-2
+            gaps[name] = (np.abs(g - w).max() / np.abs(w).max(), bound)
+        assert all(e <= b for e, b in gaps.values()), gaps
+        np.testing.assert_array_equal(out["cuda::shift"], out["cpu::shift"])
+        np.testing.assert_array_equal(out["cuda::dshift"],
+                                      out["cpu::dshift"])
+        np.testing.assert_array_equal(out["cpu::shift"],
+                                      np.full((2, 3), float(r)))
+        np.testing.assert_array_equal(out["cpu::dshift"],
+                                      np.full((2, 3), 20.0 * (r == 0)))

@@ -106,6 +106,9 @@ MAIN = ["--model", "ptn", "--data_set", "synthetic", "--batch_size", "4",
         "f32", "--experts", "a,b", "--attention_impl", "xla", "--dropout",
         "0.0", "--opt", "sgd", "--learning_rate", "0.1", "--log_every", "1",
         "--epochs", "1", "--save_path", "out"]
+MOE_EP_MAIN = ["--dp", "2", "--moe_experts", "2", "--moe_ep", "true",
+               "--max_steps", "1", "--name", "ep", "--checkpoint_dir",
+               "ck_ep"]
 LOADER_ROWS, LOADER_BATCH = 37, 8
 SEED = 0
 
@@ -308,15 +311,15 @@ def _spawn_serve(a: dict, rank: int, workdir: str) -> dict:
     out["shard::path"] = np.array(shard["path"])
 
     os.chdir(workdir)
-    for flags, error in (([ "--batch_size", "3"], ValueError),
-                         (["--moe_experts", "2", "--moe_ep", "true"],
-                          NotImplementedError)):
-        try:
-            tmain.main(MAIN + ["--dp", "2", "--name", "bad",
-                               "--checkpoint_dir", "ck_bad"] + flags,
-                       device="cpu")
-        except error as e:
-            out[f"refused::{error.__name__}"] = np.array(str(e))
+    try:
+        tmain.main(MAIN + ["--dp", "2", "--name", "bad", "--checkpoint_dir",
+                           "ck_bad", "--batch_size", "3"], device="cpu")
+    except ValueError as e:
+        out["refused::ValueError"] = np.array(str(e))
+    # expert parallelism is ported: --moe_ep on the data axis runs (PTN has
+    # no MoE block, so the flags change nothing in its step)
+    out["moe_ep::loss"] = np.array(tmain.main(MAIN + MOE_EP_MAIN,
+                                              device="cpu")["test/loss"])
     first = tmain.main(MAIN + ["--dp", "2", "--max_steps", "2", "--name",
                                "dp", "--checkpoint_dir", "ck"], device="cpu")
     resumed = tmain.main(MAIN + ["--dp", "2", "--max_steps", "3", "--name",
@@ -670,10 +673,13 @@ def test_main_dp2_checkpoints_on_rank0_and_resumes(serve_world, tmp_path,
         assert "batch_size=3 does not divide over the data axis dp=2" in \
             str(out["refused::ValueError"])
         assert "fall back to one device" in str(out["refused::ValueError"])
-        assert "item 7c" in str(out["refused::NotImplementedError"])
         np.testing.assert_array_equal(out["main::loss"],
                                       outs[0]["main::loss"])
     monkeypatch.chdir(tmp_path)
+    one = tmain.main(MAIN + MOE_EP_MAIN, device="cpu")["test/loss"]
+    for out in outs:
+        np.testing.assert_allclose(float(out["moe_ep::loss"]), one,
+                                   rtol=1e-6)
     tmain.main(MAIN + ["--dp", "2", "--max_steps", "2", "--name", "one",
                        "--checkpoint_dir", "ck"], device="cpu")
     tmain.main(MAIN + ["--dp", "2", "--max_steps", "3", "--name", "one2",
@@ -741,15 +747,29 @@ def test_make_mesh_and_strategy_match_jax(kw):
     (dict(sp=2), "7c"),
     (dict(moe_ep=True, moe_experts=2), "7c")])
 def test_strategies_not_ported_raise(extra, item):
+    """The strategies of ROADMAP item 7c, which raised until it was
+    ported (MoE on a model axis, pipeline, sequence and expert
+    parallelism), have JAX's strategy and make their executors
+    (tests/test_torch_sp_pp_ep.py runs their steps over ranks)."""
+    import jax
+
+    from devt_tpu.config import Config as JConfig
+    from devt_tpu.parallel import mesh as jmesh
+    from devt_tpu.parallel import train_step as jts
+
+    assert item == "7c"
     mesh_kw = {k: extra[k] for k in ("mp", "pp", "sp") if k in extra}
     mesh = tmesh.make_mesh(dp=2, devices=range(8), **mesh_kw)
     cfg = TConfig(**{**VIVIT, **extra})
+    want = jts.mesh_strategy(jmesh.make_mesh(dp=2, devices=jax.devices(),
+                                             **mesh_kw),
+                             JConfig(**{**VIVIT, **extra}))
+    assert tts.mesh_strategy(mesh, cfg) == want
     model = torch.nn.Linear(1, 1)
     for make in (tts.make_train_step, tts.make_eval_step):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            make(model, cfg, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tts.make_multi_step(model, cfg, 2, mesh=mesh, device="cpu")
+        assert callable(make(model, cfg, mesh=mesh, device="cpu"))
+    assert callable(tts.make_multi_step(model, cfg, 2, mesh=mesh,
+                                        device="cpu"))
 
 
 @pytest.mark.parametrize("world,flags,engage", [

@@ -699,7 +699,7 @@ LEAF_CASES = [((64, 192), 8), ((256, 48), 8), ((100, 64), 8), ((7, 13), 8),
 def test_partition_rules_match_jax():
     """FSDP's shape rule on JAX's cases, and the Megatron rules on JAX's
     tiny PTN and ViViT: a torch (out, in) weight takes the reverse of its
-    flax kernel's spec; MoE experts raise (item 7c)."""
+    flax kernel's spec; the MoE experts split by expert, as JAX's."""
     from devt_tpu.parallel import fsdp as jfsdp
 
     for shape, n in LEAF_CASES:
@@ -725,8 +725,18 @@ def test_partition_rules_match_jax():
             assert spec == (None, "model"), k
         else:
             assert spec == (), k
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        tsharding.param_partition_specs({"b.moe_w1": torch.zeros(2, 4, 8)})
+    # the switch-MoE experts split by expert, the router whole: JAX's specs
+    from devt_tpu.parallel import sharding as jsharding
+
+    shapes = {"moe_router": (4, 2), "moe_w1": (2, 4, 8), "moe_b1": (2, 8),
+              "moe_w2": (2, 8, 4), "moe_b2": (2, 4)}
+    specs = tsharding.param_partition_specs(
+        {f"b.{k}": torch.zeros(v) for k, v in shapes.items()})
+    jspecs = jsharding.param_partition_specs(
+        {"b": {k: np.zeros(v) for k, v in shapes.items()}})
+    for k in shapes:
+        assert specs[f"b.{k}"] == tuple(jspecs["b"][k]), k
+    assert specs["b.moe_w1"] == ("model", None, None)
 
 
 def test_fsdp_and_sharding_helpers(world):

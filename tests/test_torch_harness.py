@@ -395,14 +395,23 @@ def test_main_and_trainer_refusals(tmp_path, tmp_path_factory, monkeypatch):
         assert np.isfinite(results["test/loss"])
     monkeypatch.chdir(tmp_path)
     cfg = TConfig(**PTN)
-    # a mesh whose strategy is not ported (pipeline parallelism) is refused
-    # before any work; tensor parallelism is ported (test_torch_fsdp_tp.py)
+    # pipeline parallelism is ported (tests/test_torch_sp_pp_ep.py runs it
+    # over ranks), as tensor parallelism is (test_torch_fsdp_tp.py): the
+    # trainer takes a (data, pipe) mesh, with JAX's strategy, and makes its
+    # executors; in a world of one process the mesh's four ranks cannot
+    # meet, which fit says before any step
+    from devt_tpu.parallel import mesh as jmesh
+    from devt_tpu.parallel import train_step as jts
     from devt_tpu_torch.data.synthetic import SyntheticDataModule
+    from devt_tpu_torch.parallel import train_step as tts
     from devt_tpu_torch.parallel.mesh import make_mesh
 
-    trainer = TTrainer(cfg, logger=_Log(), mesh=make_mesh(
-        dp=2, pp=2, devices=range(4)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7c"):
+    mesh = make_mesh(dp=2, pp=2, devices=range(4))
+    assert tts.mesh_strategy(mesh, cfg) == jts.mesh_strategy(
+        jmesh.make_mesh(dp=2, pp=2, devices=jax.devices()[:4]),
+        JConfig(**PTN)) == "pp_shard_map"
+    trainer = TTrainer(cfg, logger=_Log(), mesh=mesh, device="cpu")
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         trainer.fit(tbuild(cfg), SyntheticDataModule(cfg, train_size=8))
     # use_mesh lays out config.dp over the world's one process
     with pytest.raises(ValueError, match="exceeds 1 devices"):

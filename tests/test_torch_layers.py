@@ -139,13 +139,42 @@ def test_packed_mha_pallas_is_not_ported():
                                 dict(sequence_parallel=True),
                                 dict(remat=True)])
 def test_unported_stack_variants_raise(kw):
-    """The pipeline and sequence-parallel stacks are still refused
-    (ROADMAP.md queue 1, item 7).  ``remat`` is ported: the stack builds,
-    and a training forward at dropout 0.1 and its gradients equal the
-    plain stack's (tests/test_torch_remat.py holds whole steps)."""
+    """Every variant of the stack is ported.  The pipeline and
+    sequence-parallel stacks build JAX's stacked ``pb_*`` layout (the same
+    names and shapes as its module's) and, outside a pipe or seq mesh, run
+    it sequentially: the output and every gradient are JAX's module's on
+    the same weights (tests/test_torch_sp_pp_ep.py runs them over ranks).
+    ``remat`` builds, and a training forward at dropout 0.1 and its
+    gradients equal the plain stack's (tests/test_torch_remat.py holds
+    whole steps)."""
     if not kw.get("remat"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.ViTTransformer(DIM, 2, HEADS, DIM_HEAD, MLP, **kw)
+        x = _x()
+        jm = jl.ViTTransformer(DIM, 2, HEADS, DIM_HEAD, MLP, **kw)
+        v = _jax_vars(jm, x, 13)
+        sd = jax_to_state_dict(v)
+        m = tl.ViTTransformer(DIM, 2, HEADS, DIM_HEAD, MLP, **kw).train()
+        assert {k: tuple(t.shape) for k, t in m.state_dict().items()} == \
+            {k: tuple(t.shape) for k, t in sd.items()}
+        assert "pb_wqkv" in sd
+        m.load_state_dict(sd)
+
+        def loss(p, xx):
+            y = jm.apply({"params": p}, xx, True, 13)
+            return jnp.sum(y ** 2), y
+
+        (_, want), (dp, dx) = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True))(v["params"], jnp.asarray(x))
+        xt = torch.tensor(x).requires_grad_(True)
+        y = m(xt, 13)
+        y.square().sum().backward()
+        np.testing.assert_allclose(y.detach().numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx),
+                                   rtol=1e-4, atol=1e-4)
+        grads = jax_to_state_dict(jax.tree_util.tree_map(np.asarray, dp))
+        for k, p in m.named_parameters():
+            np.testing.assert_allclose(p.grad.numpy(), grads[k].numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=k)
         return
     remat = tl.ViTTransformer(DIM, 2, HEADS, DIM_HEAD, MLP, dropout=0.1,
                               **kw).train()

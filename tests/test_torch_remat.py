@@ -14,6 +14,7 @@ loss.
 """
 
 import copy
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,8 @@ from devt_tpu_torch.config import Config
 from devt_tpu_torch.models import layers as tl
 from devt_tpu_torch.models import vivit as tv
 from devt_tpu_torch.models.torch_encoder import TorchTransformerEncoder
+from devt_tpu_torch.ops.attention import active_tp_mesh, tp_pallas_scope
+from devt_tpu_torch.parallel import collectives, moe
 from devt_tpu_torch.parallel.train_step import make_train_step
 from devt_tpu_torch.train.optimizers import build_optimizer
 from devt_tpu_torch.train.state import TrainState
@@ -212,3 +215,33 @@ def test_frame_transformer_builds_with_remat():
     assert torch.equal(outs[0][0], outs[1][0])
     np.testing.assert_allclose(outs[1][1].numpy(), outs[0][1].numpy(),
                                **PARAM_TOL)
+
+
+def test_replay_on_another_thread_binds_the_forwards_scopes():
+    """Autograd replays a CUDA block on its device thread, which does not
+    see the calling thread's scopes; the recompute binds again the axes,
+    ``moe_ep_scope`` and ``tp_pallas_scope`` the forward ran in (a
+    backward started on a thread of its own stands in for the device
+    thread here)."""
+    seen = []
+
+    def fn(h, rng, first=True):
+        seen.append((collectives.bound_axes(), moe.active_moe_ep(),
+                     active_tp_mesh()))
+        return h.sin()
+
+    x = torch.ones(3, requires_grad=True)
+    axes = {"data": collectives.Axis(None, 1, 0)}
+    mesh = object()
+    with collectives.axis_scope(axes), moe.moe_ep_scope("data", 2), \
+            tp_pallas_scope(mesh):
+        y = tl.remat(fn, x, None)
+    grads = []
+    worker = threading.Thread(
+        target=lambda: grads.append(torch.autograd.grad(y.sum(), x)[0]))
+    worker.start()
+    worker.join()
+    assert len(seen) == 2                       # forward + recompute
+    assert seen[0] == seen[1] == (axes, ("data", 2), mesh)
+    torch.testing.assert_close(grads[0], torch.ones(3).cos())
+    assert collectives.bound_axes() == {} and moe.active_moe_ep() is None

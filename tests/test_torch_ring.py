@@ -219,12 +219,12 @@ def test_one_rank_ring_vit_block_matches_jax(impl):
 
 
 def test_sp_scope_is_bounded_and_reentrant():
-    assert tra.active_sp_group() is None
+    assert tra.active_sp_mesh() is None
     with tra.sp_scope("outer"):
         with tra.sp_scope("inner"):
-            assert tra.active_sp_group() == "inner"
-        assert tra.active_sp_group() == "outer"
-    assert tra.active_sp_group() is None
+            assert tra.active_sp_mesh() == "inner"
+        assert tra.active_sp_mesh() == "outer"
+    assert tra.active_sp_mesh() is None
 
 
 # ---------------------------------------------------------------------------

@@ -298,10 +298,14 @@ def test_other_models_and_meshes_raise():
     with pytest.raises(ValueError, match="no step logic"):
         tsteps.forward_and_loss(tm, TConfig(model="resnet18"),
                                 {"params": {}}, {}, None, train=False)
-    # data, FSDP and tensor parallelism are ported (tests/test_torch_dp.py,
-    # tests/test_torch_fsdp_tp.py): a (data, model) mesh makes its
-    # executors; a (data, pipe) mesh, pipeline parallelism, and MoE blocks
-    # on a model axis are not ported
+    # data, FSDP, tensor, pipeline, sequence and expert parallelism are
+    # ported (tests/test_torch_dp.py, tests/test_torch_fsdp_tp.py,
+    # tests/test_torch_sp_pp_ep.py): a (data, model) mesh, a (data, pipe)
+    # mesh and MoE blocks on a model axis make their executors, with JAX's
+    # strategy
+    from devt_tpu.config import Config as JConfig
+    from devt_tpu.parallel import mesh as jmesh
+    from devt_tpu.parallel import train_step as jts
     from devt_tpu_torch.parallel.mesh import make_mesh
 
     square = make_mesh(dp=2, mp=2, devices=range(4))
@@ -309,14 +313,16 @@ def test_other_models_and_meshes_raise():
     for make in (tts.make_train_step, tts.make_eval_step):
         assert callable(make(tm, tcfg, mesh=square, device="cpu"))
     mesh = make_mesh(dp=2, pp=2, devices=range(4))
+    jcfg = JConfig(**{k: getattr(tcfg, k) for k in ("model", "dropout")})
+    assert tts.mesh_strategy(mesh, tcfg) == jts.mesh_strategy(
+        jmesh.make_mesh(dp=2, pp=2, devices=jax.devices()[:4]), jcfg) \
+        == "pp_shard_map"
     for make in (tts.make_train_step, tts.make_eval_step):
-        with pytest.raises(NotImplementedError, match="mesh.*item 7c"):
-            make(tm, tcfg, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh.*item 7c"):
-        tts.make_multi_step(tm, tcfg, 2, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="model axis.*item 7c"):
-        tts.make_train_step(tm, tcfg.replace(moe_experts=2), mesh=square,
-                            device="cpu")
+        assert callable(make(tm, tcfg, mesh=mesh, device="cpu"))
+    assert callable(tts.make_multi_step(tm, tcfg, 2, mesh=mesh,
+                                        device="cpu"))
+    assert callable(tts.make_train_step(tm, tcfg.replace(moe_experts=2),
+                                        mesh=square, device="cpu"))
     with pytest.raises(ValueError, match="expected 2"):
         tts.make_multi_step(tm, tcfg, 2, device="cpu")(
             _tstate(tm, tcfg), {"vid": np.zeros((3, 1, 4, 32, 32, 3),
