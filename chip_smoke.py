@@ -378,6 +378,31 @@ Phases, each printing a line of its own; any failure exits non-zero:
                Rows 1-4, 7, 8, 14 and 15 of the kernels line carry these
                launches (spe_launches).
 
+ 39. tools — the tools, examples and dry run (ROADMAP item 8), each with
+               its own gate and its wall time: FrameTransformer vid at
+               seq_len 40 (41 tokens, 2 heads of 448: kernels 3 and 4 past
+               the old limits) one training step (dropout 0.5) and one
+               serving call behind Predictor on the card, then card vs CPU
+               with clips cut to 4 frames of 56² for the CPU's sake: the
+               scores to phase 26's gate, one step's bf16 gradients to
+               phase 27's (held to the f64 step's ReLU gates); Grad-CAM on
+               ResNet-18 and R(2+1)D-18 at full width, the card's maps
+               against the CPU's on the same weights; the retrieval command
+               line over an embed_dict that DisplayResults exported from
+               the card's vid eval steps (the route, native or numpy, and
+               why); convert_pp of a ViViT trained one step (kernels 1, 2)
+               in the standard layout, served from the stacked layout
+               (kernel 1) against the standard one within 3e-3; torch_port
+               --selfcheck on a seeded torchvision-layout R(2+1)D-18
+               state_dict, card against CPU; the five examples (the
+               training journeys with --max_steps 2); dryrun_multichip(4)
+               on the card over Gloo.  Rows 1-4, 7, 8, 14 and 15 of the
+               kernels line carry its launches (tools_launches).
+
+Phase 25 (kernel-mha-ft) also holds kernels 3 and 4 at (2, S, 2688), 2
+heads of 448 and 4 of 224, for S 41, 129 and 512, at dropout 0 and 0.5
+(rows 3 and 4 carry them under "long").
+
 The last lines are a JSON line of the kernels (fifteen entries in kernel
 order, each with its number), the nvidia-smi line, and
 {"ok": true, "device": {...}}.  With no CUDA device, or without the
@@ -488,6 +513,20 @@ FT_HEADS = {"distil_transformer": (2, 448, FT_SEQ + 1),
             "scene_transformer": (4, 224, FT_SEQ + 2)}
 # the gradient check's sequence: bench.py:523's distillation row
 FT_GRAD_SEQ = 4
+# kernels 3 and 4 at FrameTransformer's head dims past the old limits:
+# --seq_len 40's 41 tokens, a last 32-row block of one row, and the
+# longest single kv block of JAX's kernel
+FT_LONG_SEQS = (41, 129, 512)
+# phase 39: vid's seq_len, and the clips of its card-vs-CPU checks (cut
+# from 12 x 112² for the CPU's sake; the transformer is at full width)
+TOOLS_SEQ, TOOLS_FRAMES, TOOLS_SIZE = 40, 4, 56
+# Grad-CAM card vs CPU on the same f32 weights: the convolutions sum in
+# other orders (cuDNN without TF32 against the CPU's), a few 1e-6 of a
+# map's largest value; the ReLU keeps the map continuous
+CAM_ATOL = 1e-3
+# the stacked layout served against the per-block one: the stacked path
+# runs the fused block's tanh GELU (tests/test_pipeline.py's bound)
+CONVERT_ATOL = 3e-3
 # the rest of the family (phases 28-30): TPN over 20 frames a sample,
 # served at bucket 8 and trained at B=4; the LSTM and BasicMLP at 32; the
 # contrastive encoder at 256, so NT-Xent has 510 negatives a row; one
@@ -573,6 +612,22 @@ def _print_profile(tag: str, rows, busy: float, wall_ms: float,
           f"{busy:.1%}")
     for name, ms, n in rows[:top]:
         print(f"[profile]   {ms:9.4f} ms  x{n:g}  {name}")
+
+
+def _timed(name: str, fn):
+    """``fn`` printing its wall time as ``[time] phase name(args) s``: the
+    script's time budget, phase by phase."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            shown = ", ".join(repr(a) for a in args
+                              if isinstance(a, (str, int, float)))
+            print(f"[time] phase {name}({shown}) "
+                  f"{time.perf_counter() - start:.1f} s", flush=True)
+    return run
 
 
 def _nvidia_smi() -> str:
@@ -2059,7 +2114,7 @@ def phase_train_ptn() -> dict:
                        rows, busy, wall_ms, top=12)
         device_ms = sum(ms for _, ms, _ in rows)
         k3_ms = sum(ms for name, ms, _ in rows
-                    if name.startswith(("attention_bf16<256, true",
+                    if name.startswith(("attention_bf16_tiled<256",
                                         "mha_fwd_packed")))
         k4_ms = sum(ms for name, ms, _ in rows
                     if name.startswith(("mha_bwd_delta", "mha_bwd_bf16",
@@ -3992,9 +4047,14 @@ def phase_mha_ft() -> dict:
     streamed bodies: the forward at the training batch and the serving
     bucket, the backward and both at dropout 0.5 at the training batch,
     against their plain versions (phase_mha, phase_mha_bwd); which SDPA
-    backends take the shape; ptxas' report of the new instances."""
-    print("[kernel-mha-ft] ptxas attention_bf16<d, norm_first, drop>: "
-          + _ptxas_instances("mha_fwd", r"attention_bf16ILi(224|448)ELb(\d)"
+    backends take the shape; ptxas' report of the instances.  Then both
+    head dims at (2, S, 2688) for S in FT_LONG_SEQS, past the limits of the
+    bodies that held a head's K and V (forward) or gave a warp to every
+    strip of a head (backward): the forward, the backward, and both at
+    dropout 0.5, each against its plain version ("long" in each
+    encoder's entry)."""
+    print("[kernel-mha-ft] ptxas attention_bf16_tiled<d, drop>: "
+          + _ptxas_instances("mha_fwd", r"attention_bf16_tiledILi(\d+)"
                              r"ELb(\d)E")
           + " | mha_bwd_bf16<d, drop, mask>: "
           + _ptxas_instances("mha_bwd", r"mha_bwd_bf16ILi(224|448)ELb(\d)"
@@ -4015,7 +4075,18 @@ def phase_mha_ft() -> dict:
             raise AssertionError(f"kernel-mha-ft {encoder}: no SDPA backend "
                                  f"took the shape")
         out[encoder] = {"heads": heads, "d": d, "s": s, "fwd": fwd,
-                        "bwd": bwd, "sdpa_backends": backends}
+                        "bwd": bwd, "sdpa_backends": backends, "long": {}}
+    for encoder, (heads, d, _) in FT_HEADS.items():
+        for s in FT_LONG_SEQS:
+            t0 = time.perf_counter()
+            fwd = phase_mha("bf16", FT_TRAIN_BATCH, s, heads, d, s)
+            bwd = phase_mha_bwd("bf16", FT_TRAIN_BATCH, s, heads, d, s,
+                                dropout=True)
+            out[encoder]["long"][s] = {"fwd": fwd, "bwd": bwd}
+            print(f"[kernel-mha-ft] {encoder} at S {s}: forward, backward "
+                  f"and both at dropout {PTN_DROPOUT} held against their "
+                  f"plain versions in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     return out
 
 
@@ -4059,15 +4130,16 @@ def _ft_config(model: str = "distil", **kw):
     return Config(**{**base, **kw})
 
 
-def _ft_request(n: int, seed: int, seq: int = FT_SEQ) -> dict:
-    """u8 frames (n, seq, 224, 224, 3) and clips (n, seq, 12, 112, 112, 3),
-    the serving wire, and 19 multi-hot labels, as numpy."""
+def _ft_request(n: int, seed: int, seq: int = FT_SEQ,
+                frames: int = FT_FRAMES, size: int = 112) -> dict:
+    """u8 frames (n, seq, 224, 224, 3) and clips (n, seq, frames, size,
+    size, 3), the serving wire, and 19 multi-hot labels, as numpy."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     return {"img": rng.integers(0, 256, (n, seq, 224, 224, 3),
                                 dtype=np.uint8),
-            "vid": rng.integers(0, 256, (n, seq, FT_FRAMES, 112, 112, 3),
+            "vid": rng.integers(0, 256, (n, seq, frames, size, size, 3),
                                 dtype=np.uint8),
             "label": (rng.random((n, FT_CLASSES)) < 0.3).astype(np.float32)}
 
@@ -4319,14 +4391,17 @@ class _DistilTarget:
 
 
 def _ft_grads(kind: str, device: str, relu: _ReluPattern | None = None,
-              target=None) -> tuple[float, dict, dict, list]:
-    """One distil step's loss, gradients (f64, on the CPU), new model
-    state (none is checked: {}) and teacher argmax at dropout 0,
-    bench.py:523's shape (batch 2, 4 scenes), in precision ``kind``
-    ("bf16", "f32" or "f64", the last on the plain attention) on
-    ``device``, from seeded weights, through ``forward_and_loss``;
-    ``relu`` records or replays the ReLU gates, ``target`` (a teacher
-    argmax) fixes the distillation target."""
+              target=None, model: str = "distil", seq: int = FT_GRAD_SEQ,
+              frames: int = FT_FRAMES, size: int = 112
+              ) -> tuple[float, dict, dict, list | None]:
+    """One step's loss, gradients (f64, on the CPU), new model state (none
+    is checked: {}) and teacher argmax (None but for distil) at dropout
+    0: by default distil at bench.py:523's shape (batch 2, 4 scenes), or
+    ``model`` over ``seq`` scenes of clips of ``frames`` x ``size``², in
+    precision ``kind`` ("bf16", "f32" or "f64", the last on the plain
+    attention) on ``device``, from seeded weights, through
+    ``forward_and_loss``; ``relu`` records or replays the ReLU gates,
+    ``target`` (a teacher argmax) fixes the distillation target."""
     import contextlib
 
     import torch
@@ -4338,12 +4413,11 @@ def _ft_grads(kind: str, device: str, relu: _ReluPattern | None = None,
 
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32,
              "f64": torch.float64}[kind]
-    cfg = _ft_config(precision="bf16" if kind == "bf16" else "f32",
-                     seq_len=FT_GRAD_SEQ)
-    request = _ft_request(FT_TRAIN_BATCH, SEED + 21, FT_GRAD_SEQ)
-    m = FrameTransformer(model="distil", seq_len=FT_GRAD_SEQ,
-                         frame_len=FT_FRAMES, n_classes=FT_CLASSES,
-                         dropout=0.0,
+    cfg = _ft_config(model, precision="bf16" if kind == "bf16" else "f32",
+                     seq_len=seq, frame_len=frames)
+    request = _ft_request(FT_TRAIN_BATCH, SEED + 21, seq, frames, size)
+    m = FrameTransformer(model=model, seq_len=seq, frame_len=frames,
+                         vid_size=size, n_classes=FT_CLASSES, dropout=0.0,
                          attention_impl="xla" if kind == "f64" else "auto",
                          dtype=dtype
                          ).init_weights(torch.Generator().manual_seed(SEED))
@@ -4359,10 +4433,12 @@ def _ft_grads(kind: str, device: str, relu: _ReluPattern | None = None,
         g = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     return (loss.item(), {k: v.double().cpu() for k, v in zip(params, g)
-                          if v is not None}, {}, distil.seen.tolist())
+                          if v is not None}, {},
+            None if distil.seen is None else distil.seen.tolist())
 
 
-def _grad_check(tag: str, grads, chain: tuple[str, ...] = ()
+def _grad_check(tag: str, grads, chain: tuple[str, ...] = (),
+                kinds: tuple[str, ...] = ("f32", "bf16")
                 ) -> tuple[dict, str]:
     """One training step's gradients on the card against the CPU and the
     f64 step (on the card), per leaf as a share of the leaf's largest
@@ -4371,6 +4447,10 @@ def _grad_check(tag: str, grads, chain: tuple[str, ...] = ()
     "f64", "f32" or "bf16"; ``relu`` records or replays the ReLU gates
     (_ReluPattern); ``target``, where the step has one (FrameTransformer's
     teacher argmax, _DistilTarget), fixes it to the f64 step's.
+
+    ``kinds`` names the precisions that run: f32 and bf16, or bf16 alone
+    where the f32 kernels do not take the shape (kernel 3's f32 body holds
+    a head's K and V: at head dim 448 up to 32 keys).
 
     The f32 and bf16 steps run free and held to the f64 step's gates and
     target; the gates are on the held steps.  f32: every leaf card vs CPU
@@ -4398,7 +4478,7 @@ def _grad_check(tag: str, grads, chain: tuple[str, ...] = ()
     ref_loss, ref, _, ref_target = grads("f64", "cuda",
                                          relu=pattern("record"))
     gaps, text, failed = {}, [], []
-    for kind in ("f32", "bf16"):
+    for kind in kinds:
         tol = PTN_GRAD_RTOL if kind == "f32" else GRAD_RTOL
         runs, seconds = {}, {}
         for mode in ("free", "held"):
@@ -4601,8 +4681,8 @@ def phase_train_ft() -> dict:
                    rows, busy, wall_ms, top=12)
     device_ms = sum(ms for _, ms, _ in rows)
     attn_ms = sum(ms for name, ms, _ in rows if name.startswith((
-        "attention_bf16<224", "attention_bf16<448", "mha_bwd_delta",
-        "mha_bwd_bf16<224", "mha_bwd_bf16<448")))
+        "attention_bf16_tiled<224", "attention_bf16_tiled<448",
+        "mha_bwd_delta", "mha_bwd_bf16<224", "mha_bwd_bf16<448")))
     print(f"[profile]   device total {device_ms:.3f} ms per step, of which "
           f"kernels 3 and 4 {attn_ms:.3f} "
           f"({sum(n for _, _, n in rows):.0f} launches)", flush=True)
@@ -6956,6 +7036,507 @@ def _spe_report(ranks: list, wall_s: float) -> dict:
             for k in ("k1", "k2", "k3", "k4", "k7", "k8", "k14", "k15")}
 
 
+def _torchvision_r2plus1d_sd(seed: int, layers=(2, 2, 2, 2),
+                             n_classes: int = 400) -> dict:
+    """A state_dict in torchvision's ``r2plus1d_18`` layout (the names
+    and shapes ``utils/torch_port.py:r2plus1d`` reads), drawn from a seed:
+    conv weights at 1/sqrt(fan-in), BatchNorm scales about 1, shifts and
+    means about 0, variances about 1."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        fan = cin * k[0] * k[1] * k[2]
+        sd[f"{name}.weight"] = torch.randn(cout, cin, *k,
+                                           generator=gen) * fan ** -0.5
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1 + 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_var"] = 1 + 0.1 * torch.rand(c, generator=gen)
+
+    conv("stem.0", 45, 3, (1, 7, 7))
+    bn("stem.1", 45)
+    conv("stem.3", 64, 45, (3, 1, 1))
+    bn("stem.4", 64)
+    inplanes = 64
+    for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
+        for bi in range(blocks):
+            t = f"layer{li + 1}.{bi}"
+            cin = inplanes if bi == 0 else planes
+            # torchvision's mid-planes, once a block from its (inplanes,
+            # planes), for both of its convolutions
+            mid = (cin * planes * 27) // (cin * 9 + 3 * planes)
+            for ci, c_in in ((1, cin), (2, planes)):
+                conv(f"{t}.conv{ci}.0.0", mid, c_in, (1, 3, 3))
+                bn(f"{t}.conv{ci}.0.1", mid)
+                conv(f"{t}.conv{ci}.0.3", planes, mid, (3, 1, 1))
+                bn(f"{t}.conv{ci}.1", planes)
+            if bi == 0 and (li > 0 or inplanes != planes):
+                conv(f"{t}.downsample.0", planes, cin, (1, 1, 1))
+                bn(f"{t}.downsample.1", planes)
+        inplanes = planes
+    sd["fc.weight"] = torch.randn(n_classes, 512, generator=gen) / 512 ** 0.5
+    sd["fc.bias"] = torch.zeros(n_classes)
+    return sd
+
+
+def _tools_vid(counts: dict) -> str:
+    """FrameTransformer vid at seq_len 40 (41 tokens, 2 heads of 448) on
+    the card: one training step at dropout 0.5 and one serving call at
+    full clips, 4 launches each of kernels 3 and 4 (forward and backward)
+    and 4 of kernel 3 (serving) at head dim 448 on the streamed bodies;
+    then card vs CPU at clips of TOOLS_FRAMES x TOOLS_SIZE²: the scores
+    to phase 26's gate, one step's bf16 gradients to phase 27's."""
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.data.device_norm import maybe_dequantize_batch
+    from devt_tpu_torch.models.frame_transformer import FrameTransformer
+    from devt_tpu_torch.parallel.train_step import make_train_step
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.serve import Predictor
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState, model_buffers
+
+    cfg = _ft_config("vid", seq_len=TOOLS_SEQ)
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg),
+                              model_state=model_buffers(model))
+    request = _ft_request(FT_TRAIN_BATCH, SEED + 39, TOOLS_SEQ)
+    _zero_counts()
+    with _HeadDims() as dims:
+        state, metrics = make_train_step(model, cfg)(
+            state, {k: torch.from_numpy(v).cuda() for k, v in
+                    request.items()}, SEED)
+        loss = metrics["loss"].item()
+        request.pop("label")
+        scores = Predictor(cfg, weights, buckets=(FT_TRAIN_BATCH,)).predict(
+            request)["scores"]
+    got = _kernel_counts()
+    by_dim = {part: dims.by_dim(part) for part in ("fwd", "bwd")}
+    _add(counts, got)
+    want = {"fwd": {448: 2 * FT_LAYERS, 224: 0}, "bwd": {448: FT_LAYERS,
+                                                          224: 0}}
+    if got != _expect(k3=2 * FT_LAYERS, k4=FT_LAYERS) or by_dim != want \
+            or _body_counts()["k3_streamed"] != got["k3"] \
+            or _body_counts()["k4_streamed"] != got["k4"]:
+        raise AssertionError(f"tools vid: launches {got}, by head dim "
+                             f"{by_dim}, by body {_body_counts()}; expected "
+                             f"{want} on the streamed bodies")
+    if not math.isfinite(loss) or scores.shape != (FT_TRAIN_BATCH,
+                                                   FT_CLASSES) \
+            or not ((scores > 0) & (scores < 1)).all():
+        raise AssertionError(f"tools vid: loss {loss}, scores "
+                             f"{scores.shape}")
+    # card vs CPU, phase 26's gate, at small clips: the same weights but
+    # the clip-shaped CLS input, drawn at that shape
+    small = FrameTransformer(model="vid", seq_len=TOOLS_SEQ,
+                             frame_len=TOOLS_FRAMES, vid_size=TOOLS_SIZE,
+                             n_classes=FT_CLASSES, dtype=torch.bfloat16
+                             ).init_weights(torch.Generator().manual_seed(
+                                 SEED)).eval()
+    one = {"vid": torch.from_numpy(_ft_request(
+        1, SEED + 40, TOOLS_SEQ, TOOLS_FRAMES, TOOLS_SIZE)["vid"])}
+    outs = {}
+    t0 = time.perf_counter()
+    for device in ("cpu", "cuda"):
+        m = small.to(device)
+        with torch.inference_mode():
+            # the u8 wire normalized on the device, as Predictor does
+            vid = maybe_dequantize_batch({"vid": one["vid"].to(device)})[
+                "vid"]
+            outs[device] = torch.sigmoid(m(vid=vid)["logits"].float()
+                                         ).cpu().numpy()
+    cpu_s = time.perf_counter() - t0
+    score_err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+    if not score_err <= SCORE_ATOL:
+        raise AssertionError(f"tools vid: card vs CPU scores differ by "
+                             f"{score_err:.3e} (limit {SCORE_ATOL})")
+    _, grad_text = _grad_check(
+        "tools-vid", functools.partial(
+            _ft_grads, model="vid", seq=TOOLS_SEQ, frames=TOOLS_FRAMES,
+            size=TOOLS_SIZE), ("vid_backbone.", "vid_cls"), kinds=("bf16",))
+    return (f"vid seq_len {TOOLS_SEQ} ({TOOLS_SEQ + 1} tokens, 2 heads of "
+            f"448): a training step (loss {loss:.5f}) and a serving call on "
+            f"the card, kernel 3 {got['k3']} and kernel 4 {got['k4']} "
+            f"launches at 448 (streamed); card vs CPU at clips of "
+            f"{TOOLS_FRAMES} x {TOOLS_SIZE}²: scores {score_err:.3e} (limit "
+            f"{SCORE_ATOL}; both devices {cpu_s:.1f} s), bf16 gradients "
+            f"{grad_text}")
+
+
+def _tools_entry(counts: dict) -> str:
+    """dryrun.entry() on the card: ViViT's forward at 224², 16 frames,
+    bf16, B = 2, kernel 1 once a space block and no other kernel; the
+    output finite, (2, 19), and against the same weights run with
+    attention_impl="xla" (the plain attention) at phase 3's gate, on the
+    entry's zero clip and on a seeded normal clip."""
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch import dryrun
+    from devt_tpu_torch.models.vivit import ViViT
+
+    fn, args = dryrun.entry()
+    params, clip = args
+    depth = len({k.split(".")[2] for k in params
+                 if k.startswith("space_transformer.blocks.")})
+    _zero_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    got = _kernel_counts()
+    _add(counts, got)
+    if got != _expect(k1=depth) or tuple(out.shape) != (2, 19) \
+            or not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError(f"tools entry: launches {got} (expected "
+                             f"kernel 1 {depth} times), output "
+                             f"{tuple(out.shape)} {out.dtype}")
+    plain = ViViT(image_size=224, patch_size=16, num_classes=19,
+                  num_frames=16, dtype=torch.bfloat16,
+                  attention_impl="xla").cuda().eval()
+    normal = torch.from_numpy(np.random.default_rng(SEED + 41)
+                              .standard_normal(tuple(clip.shape),
+                                               dtype=np.float32)).to(clip)
+    errs = []
+    for x in (clip, normal):
+        with torch.no_grad():
+            want = torch.func.functional_call(plain, params, (x,))
+            errs.append(float((torch.sigmoid(fn(params, x).float())
+                               - torch.sigmoid(want.float())).abs().max()))
+    if not max(errs) <= SCORE_ATOL:
+        raise AssertionError(f"tools entry: scores against the plain "
+                             f"attention differ by {errs} (limit "
+                             f"{SCORE_ATOL})")
+    return (f"dryrun.entry(): ViViT forward (2, 16, 3, 224, 224) bf16 -> "
+            f"{tuple(out.shape)}, kernel 1 {got['k1']} launches ({depth} "
+            f"space blocks); scores against attention_impl='xla' "
+            f"{errs[0]:.3e} (zero clip), {errs[1]:.3e} (normal clip; limit "
+            f"{SCORE_ATOL})")
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _tools_gradcam() -> str:
+    """Grad-CAM at full width: ResNet-18 on 2 images of 224², R(2+1)D-18 on
+    a clip of 16 x 112², seeded f32 weights, the card's maps against the
+    CPU's (CAM_ATOL)."""
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.models.layers import init_weights
+    from devt_tpu_torch.models.r2plus1d import r2plus1d_18
+    from devt_tpu_torch.models.resnet import resnet18
+    from devt_tpu_torch.tools.gradcam import (gradcam_r2plus1d,
+                                              gradcam_resnet,
+                                              show_cam_on_image)
+
+    rng = np.random.default_rng(SEED + 41)
+    texts = []
+    for name, build, fn, x, shape in (
+            ("resnet18", lambda: resnet18(num_classes=FT_CLASSES),
+             gradcam_resnet, rng.standard_normal((2, 224, 224, 3)),
+             (2, 7, 7)),
+            ("r2plus1d_18", lambda: r2plus1d_18(num_classes=FT_CLASSES),
+             gradcam_r2plus1d, rng.standard_normal((1, 16, 112, 112, 3)),
+             (1, 2, 7, 7))):
+        model = build()
+        init_weights(model, torch.Generator().manual_seed(SEED))
+        model.eval()
+        x = x.astype(np.float32)
+        # Grad-CAM's usual target: each sample's predicted class
+        with torch.no_grad():
+            target = model(torch.from_numpy(x)).argmax(-1).numpy()
+        cams = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            cams[device] = fn(model.to(device), x, class_idx=target)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            cams[device + "_s"] = time.perf_counter() - t0
+        err = float(np.abs(cams["cuda"] - cams["cpu"]).max())
+        peaks = cams["cuda"].reshape(shape[0], -1).max(axis=1)
+        if cams["cuda"].shape != shape or not err <= CAM_ATOL \
+                or cams["cuda"].min() < 0.0 or not np.allclose(peaks, 1.0):
+            raise AssertionError(f"tools gradcam {name}: maps "
+                                 f"{cams['cuda'].shape} peaking at {peaks}, "
+                                 f"card vs CPU {err:.3e} (limit {CAM_ATOL})")
+        img = np.clip(x[0, ..., :3] if x.ndim == 4 else x[0, 0], 0, 1)
+        overlay = show_cam_on_image(img.astype(np.float32),
+                                    cams["cuda"].reshape(-1, *shape[-2:])[0])
+        if overlay.dtype != np.uint8 or overlay.shape != img.shape:
+            raise AssertionError(f"tools gradcam {name}: overlay "
+                                 f"{overlay.shape} {overlay.dtype}")
+        texts.append(f"{name} maps {shape} of the predicted classes "
+                     f"{target.tolist()}, each peaking at 1, card vs CPU "
+                     f"{err:.3e} (limit "
+                     f"{CAM_ATOL}; card {cams['cuda_s']:.2f} s, CPU "
+                     f"{cams['cpu_s']:.2f} s)")
+    return "Grad-CAM " + "; ".join(texts)
+
+
+def _tools_retrieval(tmp: str, counts: dict) -> str:
+    """The retrieval command line over an embed_dict that DisplayResults
+    exported from four eval steps of vid at seq_len 40 on the card."""
+    import contextlib as ctx
+    import io
+    import os
+
+    import torch
+
+    from devt_tpu_torch.data import native
+    from devt_tpu_torch.parallel.train_step import make_eval_step
+    from devt_tpu_torch.registry import build_model
+    from devt_tpu_torch.tools import nearest_neighbour
+    from devt_tpu_torch.train.callbacks import DisplayResults
+    from devt_tpu_torch.train.metrics import RunningBuffers
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState, model_buffers
+
+    cfg = _ft_config("vid", seq_len=TOOLS_SEQ)
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg),
+                              model_state=model_buffers(model))
+    evaluate = make_eval_step(model, cfg)
+    buffers = RunningBuffers()
+    before = _kernel_counts()
+    for i in range(4):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in _ft_request(
+            FT_TRAIN_BATCH, SEED + 42 + i, TOOLS_SEQ).items()}
+        buffers.append(evaluate(state, batch)[1])
+    _add(counts, {k: v - before[k] for k, v in _kernel_counts().items()})
+    path = os.path.join(tmp, "embed_dict.pkl")
+    cache = DisplayResults([f"genre{i}" for i in range(FT_CLASSES)],
+                           out_path=path).on_test_epoch_end(buffers, None, 0)
+    out = io.StringIO()
+    with ctx.redirect_stdout(out):
+        nearest_neighbour.main([path, "--query", "3", "--k", "4"])
+    lines = out.getvalue().splitlines()
+    found = [ln for ln in lines if ln.startswith("#")]
+    index = nearest_neighbour.RetrievalIndex(path)
+    if len(cache) != 4 * FT_TRAIN_BATCH or len(found) != 4 \
+            or not found[0].startswith("#3 ") or "d=0.0000" not in found[0] \
+            or len(cache[0]["embedding"]) != 896:
+        raise AssertionError(f"tools retrieval: {len(cache)} records, "
+                             f"output {lines}")
+    return (f"retrieval over {len(cache)} vid embeddings (896) exported by "
+            f"DisplayResults from the card, the {index.route} route "
+            f"(native library: {native.unavailable_reason() or 'built'}): "
+            f"query #3's 4 neighbours, itself first at d=0.0000")
+
+
+def _tools_convert(tmp: str, counts: dict) -> str:
+    """convert_pp of a ViViT at full width trained one step in the
+    standard layout (kernels 1 and 2), served from the stacked layout on
+    one process (kernel 1) against the standard layout's scores."""
+    import contextlib as ctx
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.config import Config
+    from devt_tpu_torch.parallel.train_step import make_train_step
+    from devt_tpu_torch.registry import build_model, example_batch
+    from devt_tpu_torch.serve import Predictor
+    from devt_tpu_torch.tools import convert_pp
+    from devt_tpu_torch.train import checkpoint
+    from devt_tpu_torch.train.optimizers import build_optimizer
+    from devt_tpu_torch.train.state import TrainState, model_buffers
+
+    # dropout 0: the stacked layout's (pp) condition; the registry's
+    # ViViT has none either way
+    cfg = Config(model="vivit", precision="bf16", batch_size=4,
+                 n_classes=19, opt="adamW", learning_rate=1e-4, dropout=0.0)
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).cuda()
+    state = TrainState.create(dict(model.named_parameters()),
+                              build_optimizer(cfg),
+                              model_state=model_buffers(model))
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in example_batch(cfg, 4).items()}
+    _zero_counts()
+    state, _ = make_train_step(model, cfg)(state, batch, SEED)
+    trained = _kernel_counts()
+    checkpoint.save(os.path.join(tmp, "ck"), state, cfg)
+    src = os.path.join(tmp, "ck", "step_1")
+    with ctx.redirect_stdout(io.StringIO()):
+        convert_pp.main(["--src", src, "--dst", os.path.join(tmp, "pp")])
+    request = {k: v for k, v in example_batch(cfg, 4).items()
+               if k != "label"}
+    _zero_counts()
+    std = Predictor.from_checkpoint(cfg, src, buckets=(4,)).predict(
+        request)["scores"]
+    std_counts = _kernel_counts()
+    _zero_counts()
+    stacked = Predictor.from_checkpoint(
+        cfg.replace(pp=2), os.path.join(tmp, "pp", "step_1"),
+        buckets=(4,)).predict(request)["scores"]
+    pp_counts = _kernel_counts()
+    for c in (trained, std_counts, pp_counts):
+        _add(counts, c)
+    err = float(np.abs(stacked - std).max())
+    if trained != _expect(k1=4, k2=4) or std_counts != _expect(k1=4) \
+            or pp_counts != _expect(k1=4) or not err <= CONVERT_ATOL:
+        raise AssertionError(f"tools convert_pp: launches trained "
+                             f"{trained}, served {std_counts} and "
+                             f"{pp_counts}; stacked vs standard scores "
+                             f"{err:.3e} (limit {CONVERT_ATOL})")
+    return (f"convert_pp: ViViT (bf16, full width) one step in the "
+            f"standard layout (kernels 1, 2: 4 launches each), converted "
+            f"to the stacked pb_* layout and served on one process "
+            f"(kernel 1: 4 launches): scores {err:.3e} from the standard "
+            f"layout's (limit {CONVERT_ATOL})")
+
+
+def _tools_torch_port(tmp: str) -> str:
+    """torch_port's command line with --selfcheck (on the card) on a
+    seeded torchvision-layout R(2+1)D-18 state_dict, and the same forward
+    on the CPU."""
+    import contextlib as ctx
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from devt_tpu_torch.utils import torch_port
+
+    path = os.path.join(tmp, "r2plus1d_18.pth")
+    torch.save(_torchvision_r2plus1d_sd(SEED), path)
+    out = io.StringIO()
+    with ctx.redirect_stdout(out):
+        torch_port.main(["--ckpt", path, "--arch", "r2plus1d", "--out",
+                         os.path.join(tmp, "port"), "--selfcheck"])
+    text = out.getvalue()
+    variables = torch_port.load_variables(
+        os.path.join(tmp, "port", "variables.npz"))
+    with ctx.redirect_stdout(io.StringIO()):
+        card = torch_port._selfcheck("r2plus1d_18", (2, 2, 2, 2), variables,
+                                     None)
+        cpu = torch_port._selfcheck("r2plus1d_18", (2, 2, 2, 2), variables,
+                                    None, device="cpu")
+    rel = float(np.abs(card - cpu).max() / (np.abs(cpu).max() + 1e-8))
+    if "selfcheck: forward OK on cuda, output shape (1, 400)" not in text \
+            or not rel <= 1e-3:
+        raise AssertionError(f"tools torch_port: {text!r}; card vs CPU "
+                             f"logits {rel:.3e} of the largest (limit 1e-3)")
+    return (f"torch_port --selfcheck: {text.splitlines()[0]} | "
+            f"{text.splitlines()[-1]}; card vs CPU logits {rel:.3e} of the "
+            f"largest (limit 1e-3)")
+
+
+def _tools_examples(tmp: str, counts: dict) -> str:
+    """The five example journeys on the card, in a working directory of
+    their own; the training journeys cut to 2 steps (--max_steps 2) for
+    the time limit."""
+    import contextlib as ctx
+    import importlib
+    import io
+    import os
+
+    from devt_tpu_torch import dryrun
+
+    # the kernels each training journey's own model runs
+    need = {"train_vivit_synthetic": ("k1", "k2"),
+            "train_ptn_experts": ("k3", "k4")}
+    texts = []
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        for name in ("train_vivit_synthetic", "train_ptn_experts",
+                     "contrastive_pretrain", "serve_from_checkpoint",
+                     "scale_parallelism"):
+            mod = importlib.import_module(f"devt_tpu_torch.examples.{name}")
+            argv = {"serve_from_checkpoint": ["--workdir", name],
+                    "scale_parallelism": None}.get(
+                name, ["--max_steps", "2", "--checkpoint_dir", name])
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = io.StringIO()
+            with ctx.redirect_stdout(out):
+                result = mod.main(argv)
+            seconds = time.perf_counter() - t0
+            got = _kernel_counts()
+            if name == "scale_parallelism":
+                got = {k: got[k] + dryrun.dryrun_multichip.launches.get(k, 0)
+                       for k in got}
+            _add(counts, got)
+            launched = {k: v for k, v in got.items() if v}
+            if any(got[k] < 1 for k in need.get(name, ())):
+                raise AssertionError(f"tools example {name}: launches "
+                                     f"{launched}, each of {need[name]} "
+                                     f"expected")
+            if name == "serve_from_checkpoint":
+                ok = "reproduces the live scores" in out.getvalue()
+            elif name == "scale_parallelism":
+                ok = "all eleven parallelism legs" in out.getvalue()
+            else:
+                ok = math.isfinite(result["test/loss"])
+            if not ok:
+                raise AssertionError(f"tools example {name}: "
+                                     f"{out.getvalue()[-2000:]}")
+            texts.append(f"{name} {seconds:.1f} s {launched}")
+    finally:
+        os.chdir(cwd)
+    return "examples: " + "; ".join(texts) + f" (each launched {need})"
+
+
+def phase_tools() -> dict:
+    """Phase 39: the tools, examples and dry run on the card, each held to
+    its own gate, with its wall time; the launches of every kernel they
+    ran (the dry runs' ranks' too)."""
+    import io
+    import tempfile
+
+    from devt_tpu_torch import dryrun
+
+    counts = _expect()
+    texts = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        for name, run in (
+                ("entry", lambda: _tools_entry(counts)),
+                ("vid", lambda: _tools_vid(counts)),
+                ("gradcam", _tools_gradcam),
+                ("retrieval", lambda: _tools_retrieval(tmp, counts)),
+                ("convert_pp", lambda: _tools_convert(tmp, counts)),
+                ("torch_port", lambda: _tools_torch_port(tmp)),
+                ("examples", lambda: _tools_examples(tmp, counts))):
+            t0 = time.perf_counter()
+            text = run()
+            texts.append(f"{name} ({time.perf_counter() - t0:.1f} s)")
+            print(f"[tools] {text} | {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            summary = dryrun.dryrun_multichip(4)
+        lines = out.getvalue().splitlines()
+        legs = [ln for ln in lines if ln.startswith("[dryrun] leg")]
+        if len(legs) != 11 or not summary.endswith(" OK"):
+            raise AssertionError(f"tools dryrun: {lines}")
+        _add(counts, dryrun.dryrun_multichip.launches)
+        print(f"[tools] dryrun_multichip(4) on the card over Gloo: {summary}"
+              f" | its ranks' launches {dryrun.dryrun_multichip.launches} | "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    missing = [k for k in ("k1", "k2", "k3", "k4", "k7", "k8", "k14", "k15")
+               if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"tools: no launch of {missing} on the phase's "
+                             f"paths ({counts})")
+    print(f"[tools] launches in the phase {counts}", flush=True)
+    return {"counts": counts}
+
+
 def main() -> int:
     import torch
 
@@ -6985,6 +7566,9 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
 
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = _timed(name, fn)
     fwd = phase_kernel("bf16")
     phase_kernel("f32")
     serve = phase_serve()
@@ -7018,6 +7602,10 @@ def main() -> int:
                             ptxas=True)
     phase_mha_bwd("f32", PTN_TRAIN_BATCH, PTN_SEQ + 1, PTN_HEADS,
                   PTN_WIDTH // PTN_HEADS, PTN_SEQ + 1)
+    # PTN's width at head dim 128 with dropout: kernel 3's streamed body
+    # at the other head dim of the packed route
+    phase_mha_bwd("bf16", PTN_TRAIN_BATCH, PTN_SEQ + 1, 2 * PTN_HEADS,
+                  PTN_WIDTH // (2 * PTN_HEADS), PTN_SEQ + 1, dropout=True)
     # the MoE blocks' shape at dropout, the other wgmma route
     mha_bwd_vit = phase_mha_bwd("bf16", B, S, HEADS, D // HEADS, KV_LEN,
                                 dropout=True)
@@ -7092,6 +7680,8 @@ def main() -> int:
     tp = phase_tp()
     # sequence, pipeline (and 3-D) and expert parallelism: six ranks
     spe = phase_spe()
+    # the tools, examples and dry run
+    tools = phase_tools()["counts"]
     # the MoE and the later model paths' launches of the earlier kernels
     later_runs = (serve_moe["counts"], serve_moe["int8_counts"],
                   train_moe["counts"], train_moe["drop_counts"],
@@ -7103,8 +7693,12 @@ def main() -> int:
         return sum(c[k] for c in later_runs)
 
     def entry(number, name, source, replaces, launches, m, **extra):
+        # every row adds phase 39's launches (tools_launches)
+        tools_launches = tools.get(f"k{number}", 0)
         return {"kernel": number, "name": name, "route": "cuda",
-                "source": source, "replaces": replaces, "launches": launches,
+                "source": source, "replaces": replaces,
+                "launches": launches + tools_launches,
+                "tools_launches": tools_launches,
                 "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -7154,6 +7748,20 @@ def main() -> int:
             else:
                 row["drop_ms"] = r["bwd_drop_ms"]
                 row["fwd_drop_ms"] = r["fwd_drop_ms"]
+            # past the old limits: (2, S, 2688) for S in FT_LONG_SEQS, the
+            # times at dropout 0.5 from the backward's run
+            row["long"] = {}
+            for s_long, lm in m["long"].items():
+                lr = lm[part]
+                long_row = {k: lr[k] for k in (
+                    "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
+                long_row["ms"] = lr["kernel_ms"]
+                drop = lm["bwd"]
+                long_row["drop_ms"] = drop["fwd_drop_ms" if part == "fwd"
+                                           else "bwd_drop_ms"]
+                row["long"][f"({FT_TRAIN_BATCH},{s_long},"
+                            f"{3 * m['heads'] * m['d']})"] = long_row
             rows[encoder] = row
         return rows
 

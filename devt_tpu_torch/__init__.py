@@ -23,9 +23,15 @@ Ported so far (see ROADMAP.md for what is not):
   - :mod:`devt_tpu_torch.train`    — step logic, optimizers, ``TrainState``,
                                      the ``Trainer``, checkpoints, metrics
                                      and callbacks
-  - :mod:`devt_tpu_torch.parallel` — train/multi/eval step executors (one
-                                     device)
-  - :mod:`devt_tpu_torch.utils`    — JAX-variables ↔ ``state_dict`` bridge
+  - :mod:`devt_tpu_torch.parallel` — train/multi/eval step executors,
+                                     one device or a mesh of ranks
+  - :mod:`devt_tpu_torch.utils`    — JAX-variables ↔ ``state_dict`` bridge,
+                                     the checkpoint porter
+  - :mod:`devt_tpu_torch.tools`    — manifest admin, retrieval, Grad-CAM,
+                                     the pipeline-layout converter
+  - :mod:`devt_tpu_torch.examples` — the five example journeys
+  - :mod:`devt_tpu_torch.dryrun`   — ``entry()`` and
+                                     ``dryrun_multichip(n)``
 """
 
 from devt_tpu_torch.version import __version__

@@ -2,8 +2,9 @@
 
 The port's own build and bindings of the C++ decode → resize → crop →
 normalize path (the DALI role of the reference, SURVEY.md §2.7): JPEG and
-PNG frames, in threads, straight into a caller's buffer, and MJPEG-in-AVI
-video.  The ANN index of the same source is not bound here.
+PNG frames, in threads, straight into a caller's buffer, MJPEG-in-AVI
+video, and the exact-kNN index with Annoy's surface (:class:`AnnIndex`)
+that the retrieval tool uses.
 
 Build: ``g++`` as ``native/Makefile`` compiles it (``-O3 -fPIC -std=c++17
 -shared … -ljpeg -lpng -lpthread``), on first use, into ``data/build/``
@@ -104,6 +105,19 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = c_int
+    # the index (devt_tpu/native.py:84-95)
+    handle = ctypes.c_void_p
+    for name, args, res in (
+            ("devt_ann_create", [c_int], handle),
+            ("devt_ann_destroy", [handle], None),
+            ("devt_ann_add", [handle, f32p], None),
+            ("devt_ann_size", [handle], c_int),
+            ("devt_ann_query", [handle, f32p, c_int, i32p, f32p], None),
+            ("devt_ann_save", [handle, c_char_p], c_int),
+            ("devt_ann_load", [c_char_p], handle)):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = res
 
 
 def _load() -> ctypes.CDLL | None:
@@ -295,3 +309,58 @@ def load_video_f32(path: str, resize: int, crop: int,
                                     _f32p(std), _f32p(out), n,
                                     _threads(nthreads))
     return out[:got] if got > 0 else None
+
+
+class AnnIndex:
+    """Exact-kNN index with the Annoy surface the retrieval tool uses
+    (``add_item`` / ``build`` / ``get_nns_by_vector`` / ``save`` /
+    ``load``): ``devt_tpu/native.py:AnnIndex`` on the port's build of the
+    same source.  Euclidean distances; item ids are the order of
+    ``add_item`` calls."""
+
+    def __init__(self, dim: int, _handle=None):
+        self._lib = _lib()
+        self.dim = dim
+        self._h = _handle or self._lib.devt_ann_create(dim)
+
+    def __del__(self):
+        if getattr(self, "_h", None) and getattr(self, "_lib", None):
+            self._lib.devt_ann_destroy(self._h)
+            self._h = None
+
+    def __len__(self) -> int:
+        return self._lib.devt_ann_size(self._h)
+
+    def add_item(self, _i: int, vector: Sequence[float]) -> None:
+        v = np.ascontiguousarray(vector, np.float32)
+        if v.shape != (self.dim,):
+            raise ValueError(f"vector of shape {v.shape}, the index holds "
+                             f"({self.dim},)")
+        self._lib.devt_ann_add(self._h, _f32p(v))
+
+    def build(self, _n_trees: int = 0) -> None:
+        """Nothing to build: the index is exact (Annoy's trees' count is
+        taken and ignored)."""
+
+    def get_nns_by_vector(self, vector: Sequence[float], k: int,
+                          include_distances: bool = False):
+        v = np.ascontiguousarray(vector, np.float32)
+        k = min(k, len(self))
+        ids = np.zeros((k,), np.int32)
+        dists = np.zeros((k,), np.float32)
+        self._lib.devt_ann_query(self._h, _f32p(v), k, _i32p(ids),
+                                 _f32p(dists))
+        if include_distances:
+            return ids.tolist(), dists.tolist()
+        return ids.tolist()
+
+    def save(self, path: str) -> None:
+        if self._lib.devt_ann_save(self._h, path.encode()) != 0:
+            raise OSError(f"failed to save the index to {path}")
+
+    @classmethod
+    def load(cls, dim: int, path: str) -> "AnnIndex":
+        handle = _lib().devt_ann_load(path.encode())
+        if not handle:
+            raise OSError(f"failed to load the index {path}")
+        return cls(dim, _handle=handle)

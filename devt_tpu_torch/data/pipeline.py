@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import queue
+import sys
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -293,7 +294,8 @@ def device_prefetch(iterator, device: str | torch.device = "cuda",
     a :class:`PinnedPlacer` (pinned staging, a side stream, the consumer's
     stream waiting on the copy), on the CPU as tensors over the numpy
     memory, pinning nothing.  A worker exception is raised in the
-    consumer; when the consumer stops early, the thread stops too."""
+    consumer; when the consumer stops early (``close()``), the thread
+    stops too, before ``close()`` returns."""
     device = torch.device(device)
     if device.type == "cuda":
         placer = PinnedPlacer(device, slots=depth + 1)
@@ -333,3 +335,8 @@ def device_prefetch(iterator, device: str | torch.device = "cuda",
             yield receive(item)
     finally:
         done.set()
+        # the worker sees ``done`` at its next put: one batch at most.  A
+        # worker left running would hold its source (a rank's batches hold
+        # the process group) past the interpreter's exit
+        if threading.current_thread() is not t and not sys.is_finalizing():
+            t.join()

@@ -118,22 +118,34 @@ def _thread_scopes():
     return bind
 
 
-def remat(fn, x: torch.Tensor, rng: DropoutRng | None) -> torch.Tensor:
-    """``fn(x, rng, first=True)`` with its activations rematerialised:
-    ``torch.utils.checkpoint`` (non-reentrant) keeps none of the tensors
-    it saves for the backward and runs it again, as
-    ``fn(x, replay, first=False)``, when the backward needs them (the
+def remat(module: nn.Module, args, x: torch.Tensor,
+          rng: DropoutRng | None) -> torch.Tensor:
+    """``module(*args(x, rng, True))`` with its activations
+    rematerialised: ``torch.utils.checkpoint`` (non-reentrant) keeps none
+    of the tensors it saves for the backward and runs the module again, on
+    ``args(x, replay, False)``, when the backward needs them (the
     counterpart of flax's ``nn.remat``).
+
+    The tensors the module runs with are checkpoint arguments: its
+    parameters as they are bound now (inside a step's
+    ``torch.func.functional_call``: a rank's gathered FSDP weights, the
+    tensor-parallel parts of ``sharding.tp_parts``), bound again by
+    ``torch.func.functional_call`` in the forward and in the replay.  The
+    backward runs after the step's binding has put the module's own
+    tensors back (a rank's slices), so the replay takes its tensors from
+    the checkpoint's arguments and not from the module, as
+    ``parallel/pipeline.py:pipeline_apply`` hands its stage its
+    parameters.
 
     ``replay`` is a snapshot of ``rng`` taken before the forward, so the
     recompute draws the kernels' seeds and the unfused sites' masks that
     the forward drew, and ``rng`` stays where the forward left it; the
-    global random state is not involved (``preserve_rng_state`` off).
-    ``first`` tells ``fn`` whether this is the forward, so that a side
-    effect (an MoE block's load-balance term appended to ``losses``)
-    happens once.  The recompute's saved tensors come back in the order
-    of the forward's; a kernel's forward (kernel 1's u and res, kernel 7's
-    residuals) runs twice.
+    global random state is not involved (``preserve_rng_state`` off).  The
+    third argument of ``args`` tells whether this is the forward, so that
+    a side effect (an MoE block's load-balance term appended to
+    ``losses``) happens once.  The recompute's saved tensors come back in
+    the order of the forward's; a kernel's forward (kernel 1's u and res,
+    kernel 7's residuals) runs twice.
 
     The recompute runs inside the thread-local scopes the forward ran in
     (the mesh's bound axes, ``moe_ep_scope``, ``tp_pallas_scope``): for
@@ -141,16 +153,20 @@ def remat(fn, x: torch.Tensor, rng: DropoutRng | None) -> torch.Tensor:
     see the calling thread's."""
     start = rng.snapshot() if rng is not None else None
     scopes = _thread_scopes()
+    bound = dict(module.named_parameters())
+    names = list(bound)
     calls = 0
 
-    def run(h: torch.Tensor) -> torch.Tensor:
+    def run(h: torch.Tensor, *tensors: torch.Tensor) -> torch.Tensor:
         nonlocal calls
         calls += 1
         r = rng if calls == 1 or start is None else start.snapshot()
         with scopes():
-            return fn(h, r, first=calls == 1)
+            return torch.func.functional_call(
+                module, dict(zip(names, tensors)), args(h, r, calls == 1))
 
-    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    return checkpoint(run, x, *bound.values(), use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -912,10 +928,11 @@ class ViTTransformer(nn.Module):
         for block in self.blocks:
             moe_block = isinstance(block, MoEViTBlock)
 
-            def run(h, r, first=True, block=block, moe_block=moe_block):
+            def args(h, r, first=True, moe_block=moe_block):
                 if moe_block:
-                    return block(h, kv_len, r, losses if first else None)
-                return block(h, kv_len, r)
+                    return h, kv_len, r, losses if first else None
+                return h, kv_len, r
 
-            x = remat(run, x, rng) if rematerialise else run(x, rng)
+            x = (remat(block, args, x, rng) if rematerialise
+                 else block(*args(x, rng)))
         return layer_norm(self.norm, x, self.dtype)

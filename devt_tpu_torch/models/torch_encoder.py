@@ -191,8 +191,7 @@ class TorchTransformerEncoder(nn.Module):
             and torch.is_grad_enabled()
         for layer in self.layers:
             if rematerialise:
-                x = remat(lambda h, r, first, layer=layer: layer(h, r), x,
-                          rng)
+                x = remat(layer, lambda h, r, first: (h, r), x, rng)
             else:
                 x = layer(x, rng)
         return x

@@ -53,9 +53,10 @@
 // 224); for each 16 streamed rows it recomputes its 16 x 16 score and dp
 // tiles over the whole head dim (mma.sync m16n8k16, f32 accumulation), so
 // that its accumulators stay in registers at head dim 256 and past it.  A
-// block's warps are its strips times the head's chunks, at most 16: head
-// dims 224 and 448 (FrameTransformer's, 7 chunks) take R <= 32 rows, so
-// S <= 32, and 448's shared memory holds no more either.  The float route
+// block's warps are its strips times the head's chunks, at most 16, so at
+// head dims 224 and 448 (FrameTransformer's, 7 chunks) a block owns and
+// streams 32 rows at a time (bwd_rows): 14 warps, and at 448 175 KB of
+// shared memory; the other head dims take 64.  Every S fits.  The float route
 // (the tests' f32 runs and f32 training) has the same split on 32-row
 // tiles with the block-level FMA product, the scores in shared memory.
 
@@ -72,6 +73,15 @@ constexpr int kBwdMaxWarps = 16;
 // (16-row strip, chunk) pair): the kernel's and the launcher's count
 __host__ __device__ constexpr int bwd_chunks(int hd) {
   return hd / attn_out_cols(hd);
+}
+
+// rows a bfloat16 block owns and streams at head dim hd: 64, or as many
+// 16-row strips as leave a warp to each (strip, chunk) pair within
+// kBwdMaxWarps (32 at 224 and 448)
+__host__ __device__ constexpr int bwd_rows(int hd) {
+  return kBwdMaxWarps / bwd_chunks(hd) * 16 < kBwdRows
+             ? kBwdMaxWarps / bwd_chunks(hd) * 16
+             : kBwdRows;
 }
 
 // element strides of a (B, H, S, d) operand: row r of head h of sequence
@@ -218,7 +228,7 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps)
   constexpr int ld = HD + 8;
   constexpr int OC = attn_out_cols(HD);  // output columns of one warp
   constexpr int kChunks = bwd_chunks(HD);
-  const BwdGrid g = bwd_grid(sh, kBwdRows);
+  const BwdGrid g = bwd_grid(sh, bwd_rows(HD));
   const int R = g.R, Sq = sh.Sq, Skv = sh.Skv;
   const int bx = blockIdx.x + first;
   const bool keys = bx >= g.tq;  // dk and dv, else dq
@@ -394,11 +404,11 @@ template <int HD, bool kDrop, bool kMask, typename TO>
 cudaError_t launch_bwd_bf16(const BwdOperands<bf16, TO>& a, int B,
                             const BwdShape& sh, BwdPart part,
                             const Drop& drop, cudaStream_t stream) {
-  const BwdGrid g = bwd_grid(sh, kBwdRows);
+  const BwdGrid g = bwd_grid(sh, bwd_rows(HD));
   const size_t bytes = mha_bwd_smem_bf16(g.R, HD);
   if (bytes > kSmemPerBlock) return cudaErrorInvalidValue;
-  // one (strip, chunk) each: at head dims 224 and 448 (7 chunks) that
-  // bounds R, and so S, to 32
+  // one (strip, chunk) each: at head dims 224 and 448 (7 chunks) bwd_rows
+  // holds R to 32
   const int warps = (g.R / 16) * bwd_chunks(HD);
   if (warps > kBwdMaxWarps) return cudaErrorInvalidValue;
   int blocks, first;

@@ -23,8 +23,8 @@ cudaError_t block_attention_bf16(const bf16* qkv, bf16* att, float* lse,
                                  int B, int S, int H, int kv_len, int lanes,
                                  float scale, cudaStream_t stream) {
   if (!one_shot_on_wgmma(1, HD, kv_len))
-    return launch_attention_bf16<HD, false>(qkv, att, lse, B, S, H, kv_len,
-                                            lanes, scale, stream);
+    return launch_attention_bf16<HD>(qkv, att, lse, B, S, H, kv_len, lanes,
+                                     scale, stream);
   return launch_one_shot<false, true>(
       packed_qkv_heads(qkv, att, lse, S, H, HD, kv_len, lanes, scale), B, HD,
       stream);

@@ -35,7 +35,7 @@
 //              12's and 13's wgmma bodies (flash_bwd_sm90.cuh) with kBwdMha,
 //              the dq launch (delta into the scratch) then the dk/dv launch
 //   streamed   float, head dim 128 or 256 at S > 64, and head dims 224 and
-//              448 (FrameTransformer's, S <= 32): attention_bwd.cuh's
+//              448 (FrameTransformer's; 32-row blocks): attention_bwd.cuh's
 //              body, which flash_bwd.cu (kernel 10 and the float and wide
 //              kernels 12, 13) shares: FlashAttention-2's split, a launch
 //              that writes delta (B, S, H) f32, then blocks that own up to
@@ -87,10 +87,10 @@ cudaError_t streamed_bf16(const BwdOperands<bf16>& a, int B,
 // bodies' TMA maps need), lse (B, S, H) f32, delta (B, S, H) f32 scratch
 // that the first launch fills (unused by the packed body, which may be
 // given null); rate in [0, 1) and the forward's seed.  The bfloat16 kernels
-// are compiled for head dims 16, 32, 64, 128, 224, 256 and 448 (224 and 448
-// at S <= 32), the float kernel takes any multiple of 4; the streamed body's
-// shared memory holds up to 64 rows (float: 32) of a head at a time, with
-// their lse and delta.
+// are compiled for head dims 16, 32, 64, 128, 224, 256 and 448, the float
+// kernel takes any multiple of 4; the streamed body's shared memory holds up
+// to 64 rows (224 and 448: 32; float: 32) of a head at a time, with their
+// lse and delta.
 // devt_mha_bwd_route names the body a shape takes.  Returns the CUDA error
 // of the launches (0 on success, invalid value for a shape that is not
 // covered); they are asynchronous on `stream`.
@@ -130,7 +130,7 @@ extern "C" int devt_mha_bwd(int dtype, const void* qkv, const void* o,
                                   kv_len, scale, drop, s);
   }
   // the streamed body: head dim 128 or 256 past one 64-row tile, 224 and
-  // 448 (FrameTransformer's) at S <= 32
+  // 448 (FrameTransformer's) at every S
   const BwdOperands<bf16> a =
       packed<bf16>(qkv, dout, lse, delta, dqkv, S, H, d);
   DEVT_TRY(launch_delta<bf16>(o, dout, a.delta, pairs, d, s));

@@ -26,13 +26,15 @@
 //              strides; it rounds p * (1 / l), kernel 9's form, within the
 //              forward gate of the division
 //   streamed   the rest (dropout, float, head dim 128 or 256 at S > 64,
-//              head dims 224 and 448 at every S):
-//              attention_fwd.cuh's body, shared with the fused ViT block,
-//              a block per 64 queries of one (sequence, head), K and V (kv_len
-//              rounded up to 32 rows) in shared memory: 512 keys and more at
-//              head dim 64, 160 at 256.  Its dropout mask is Philox4x32-10
-//              of (seed; site kSiteAttn, flat index over (b, h, q, k)),
-//              which devt_mha_dropout_masks also writes out for the tests.
+//              head dims 224 and 448 at every S): in bfloat16
+//              attention_fwd.cuh's attention_bf16_tiled, a block per 64
+//              queries of one (sequence, head), K and V streamed in 32-key
+//              tiles and the row statistics from an online pass, so its
+//              shared memory does not depend on S (every S, at every head
+//              dim); in float attention_fwd.cuh's f32 body.  Their dropout
+//              mask is Philox4x32-10 of (seed; site kSiteAttn, flat index
+//              over (b, h, q, k)), which devt_mha_dropout_masks also writes
+//              out for the tests.
 //
 // Bound: at the PTN serving shape (256, 14, 6144), H = 8, d = 256,
 // kv_len 14 (the path runs S = 14 unpadded; the TPU wrapper pads to 16),
@@ -47,6 +49,8 @@
 
 namespace {
 
+// the streamed bfloat16 body: attention_fwd.cuh's, K and V streamed in key
+// tiles, which takes every S
 template <int HD>
 cudaError_t run_bf16(const void* qkv, void* o, void* lse, int B, int S, int H,
                      int kv_len, float scale, const Drop& drop,
@@ -55,10 +59,10 @@ cudaError_t run_bf16(const void* qkv, void* o, void* lse, int B, int S, int H,
   bf16* out = static_cast<bf16*>(o);
   float* l = static_cast<float*>(lse);
   if (drop.on)
-    return launch_attention_bf16<HD, true, true>(x, out, l, B, S, H, kv_len,
-                                                 H, scale, stream, drop);
-  return launch_attention_bf16<HD, true>(x, out, l, B, S, H, kv_len, H,
-                                         scale, stream);
+    return launch_attention_bf16_tiled<HD, true>(x, out, l, B, S, H, kv_len,
+                                                 scale, stream, drop);
+  return launch_attention_bf16_tiled<HD>(x, out, l, B, S, H, kv_len, scale,
+                                         stream);
 }
 
 __global__ void mha_masks_kernel(uint8_t* __restrict__ keep, int H, int S,
@@ -76,9 +80,8 @@ __global__ void mha_masks_kernel(uint8_t* __restrict__ keep, int H, int S,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  The bfloat16 kernel is compiled for
-// head dims 16, 32, 64, 128, 224, 256 and 448 (224 and 448 on the streamed
-// body, with K and V of kv_len rounded up to 32 rows in shared memory: up
-// to 192 keys at 224, 64 at 448); the float kernel takes any multiple of 4.
+// head dims 16, 32, 64, 128, 224, 256 and 448, its streamed body at every
+// S; the float kernel takes any multiple of 4.
 // rate in [0, 1): 0 is no dropout, and the seed is then unused.  qkv is
 // contiguous (bfloat16: 16-byte aligned, which the wgmma routes' TMA maps
 // need).  devt_mha_fwd_route names the body a shape takes.  Returns the

@@ -30,10 +30,12 @@ Q·Kᵀ and P·V on ``wgmma`` with p / l in registers
 (``mha_packed_tiling`` mirrors its tiling); at head dim 16, 32 or 64 with
 kv_len ≤ 256 kernel 9's one-shot ``wgmma`` instance on the head views of
 qkv.  Everything else (dropout, float, head dim 128 or 256 at S > 64,
-FrameTransformer's head dims 224 and 448) runs the streamed body of ``csrc/attention_fwd.cuh``, which it shares with the
-fused ViT block (a block per (64 queries, head, sequence), K and V in
-shared memory, ``mma.sync`` bf16 tiles, the scores recomputed per pass so
-that p is normalised and rounded where the TPU kernel does it).  The
+FrameTransformer's head dims 224 and 448) runs the streamed bodies of
+``csrc/attention_fwd.cuh``: in bfloat16 ``attention_bf16_tiled`` (a block
+per (64 queries, head, sequence), K and V streamed in 32-key tiles,
+``mma.sync`` bf16 tiles, the row statistics from an online pass, then
+the scores recomputed per pass of output columns so that p is normalised
+and rounded where the TPU kernel does it), in float the FMA body.  The
 backward is ``csrc/mha_bwd.cu`` on three bodies, by the rule
 ``mha_bwd_on_wgmma`` (the C entry's ``devt_mha_bwd_route``), at every
 dropout rate.  In bfloat16 at head dim 128 or 256 and S ≤ 64 (PTN
@@ -54,11 +56,12 @@ runs give the same bits); the dropout mask is drawn inside each.
 bfloat16 is compiled for head dims
 16, 32, 64, 128, 224, 256 and 448, float (FMA products) for any multiple of
 4; a shape whose rows do not fit a block's shared memory raises
-``ValueError`` with the byte count (the forward at head dim 448 holds
-kv_len ≤ 64, at 224 kv_len ≤ 192), and so does a backward at head dim 224
-or 448 past S = 32 (its blocks would need more than 16 warps: 7 output
-column chunks of ``attn_out_cols`` a 16-row strip), before the forward's
-work when the input needs a gradient.
+``ValueError`` with the byte count, before the forward's work when the
+input needs a gradient.  The bfloat16 forward takes every S (its shared
+memory does not depend on S).  At head dims 224 and 448
+(FrameTransformer's) the backward's blocks own and stream 32 rows at a
+time, a warp to each 16-row strip and ``attn_out_cols`` column chunk (14
+warps), so the backward takes every S there too.
 
 Dropout runs inside both kernels: Philox4x32-10 keyed by the call's seed,
 its counter (the attention site, flat index over (b, h, q, k)), so the
@@ -311,12 +314,12 @@ def attn_out_cols(d: int) -> int:
     return d if d <= 64 else 64 if d % 64 == 0 else 32
 
 
-def _bwd_warps(sp: int, d: int) -> int:
-    """Warps of a block of the streamed backward (csrc/attention_bwd.cuh
-    ``launch_bwd_bf16``) for sequences that round up to ``sp`` rows: one
-    per 16-row strip of the block's rows (at most 64) and output-column
-    chunk of the head."""
-    return (min(sp, 64) // 16) * (d // attn_out_cols(d))
+def _bwd_rows(d: int) -> int:
+    """Rows a block of the bfloat16 streamed backward owns and streams at
+    once (csrc/attention_bwd.cuh ``bwd_rows``): 64, or as many 16-row
+    strips as leave a warp to each (strip, chunk) pair within a block's
+    warps (32 at head dims 224 and 448, 7 chunks)."""
+    return min(64, _BWD_MAX_WARPS // (d // attn_out_cols(d)) * 16)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -330,11 +333,20 @@ def _align128(n: int) -> int:
 def _bwd_smem_bf16(sp: int, d: int) -> int:
     """Shared memory of a bfloat16 backward block (csrc/attention_bwd.cuh
     mha_bwd_smem_bf16) for sequences whose longer side rounds up to ``sp``
-    rows: own rows and two buffers of streamed rows (up to 64 rows, padded
-    by 8), two tensors each; lse and delta of two buffers of queries.  It
-    does not grow past 64 rows."""
-    r = min(sp, 64)
+    rows: own rows and two buffers of streamed rows (up to ``_bwd_rows``
+    rows, padded by 8), two tensors each; lse and delta of two buffers of
+    queries.  It does not grow past ``_bwd_rows`` rows."""
+    r = min(sp, _bwd_rows(d))
     return 6 * _align128(2 * r * (d + 8)) + 4 * _align128(4 * r)
+
+
+def _fwd_smem_tiled(d: int) -> int:
+    """Shared memory of a block of the streamed bfloat16 forward
+    (csrc/attention_fwd.cuh attn_tiled_smem_bf16): 64 queries,
+    two stages of a 32-key K tile and of V's ``attn_out_cols`` columns of
+    it, rows padded by 8.  It does not depend on S."""
+    return (_align128(2 * 64 * (d + 8)) + 2 * _align128(2 * 32 * (d + 8))
+            + 2 * _align128(2 * 32 * (attn_out_cols(d) + 8)))
 
 
 def _bwd_smem_f32(sp: int, d: int) -> int:
@@ -502,18 +514,9 @@ def _check_mha_args(qkv: torch.Tensor, heads: int, kv_len: int,
             body = mha_bwd_on_wgmma(qkv.dtype, d, s, kv_len, 0.0)
             need = _bwd_smem_bf16(sp, d) if body == "streamed" \
                 else _mha_bwd_wgmma_smem(body, d)
-            if body == "streamed" and _bwd_warps(sp, d) > _BWD_MAX_WARPS:
-                # head dims 224 and 448: 7 column chunks, so S <= 32
-                raise ValueError(
-                    f"the backward kernel gives a warp to each 16-row strip "
-                    f"and {attn_out_cols(d)}-column chunk of a head: {s} "
-                    f"tokens of head dim {d} need {_bwd_warps(sp, d)} "
-                    f"warps, a block has {_BWD_MAX_WARPS} (S <= 32 at head "
-                    f"dims 224 and 448)")
         else:
-            # 64 queries, and K and V of kv_len rounded up to 32 rows,
-            # rows padded by 8
-            need = (64 + 2 * _round_up(kv_len, 32)) * (d + 8) * 2
+            # K and V streamed in key tiles: any S
+            need = _fwd_smem_tiled(d)
     else:
         if d % 4:
             raise ValueError(f"the float32 kernel needs a head dim that is a "

@@ -239,6 +239,7 @@ class Trainer:
         resume_skip = global_step % epoch_steps
         timer = StepTimer()
         profiler: Trace | None = None
+        prefetch = None
         run_steps = 0      # train steps run in THIS call (a multi-step
                            # launch counts as ``unroll``): the profiled
                            # window does not move when resuming
@@ -252,11 +253,11 @@ class Trainer:
                             epoch, resume_skip if epoch == start_epoch else 0)
                 # batches are placed ``host_batch_prefetch`` steps ahead
                 # (paths and other host-only entries are dropped there)
-                placed_iter = device_prefetch(
+                prefetch = device_prefetch(
                     loader, device=dev,
                     depth=max(cfg.host_batch_prefetch, 1))
-                if multi_step is not None:
-                    placed_iter = _stacked(placed_iter, unroll)
+                placed_iter = prefetch if multi_step is None \
+                    else _stacked(prefetch, unroll)
                 for placed in _annotated(placed_iter):
                     # trace the steady state: start once ≥2 train steps
                     # ran (past the first calls), stop once ≥8 have
@@ -306,6 +307,8 @@ class Trainer:
                         timer.mark_step()
                     if 0 < cfg.max_steps <= global_step:
                         break
+                # its thread stops now, not when the generator is collected
+                prefetch.close()
 
                 if (epoch + 1) % cfg.eval_every_epochs == 0:
                     with annotate("train/validate"):
@@ -321,6 +324,8 @@ class Trainer:
 
             self._save(cfg.checkpoint_dir, state)
         finally:
+            if prefetch is not None:
+                prefetch.close()
             # always await the writer, even on the non-finite-loss abort
             if profiler is not None:
                 self.profile_path = profiler.stop()

@@ -558,13 +558,15 @@ def test_int8_matmul_kernel_rejects_unsupported_shapes(card):
         (3, 14, 2, 256, 14), (3, 16, 2, 256, 14), (4, 48, 2, 32, 37),
         (2, 208, 3, 64, 197), (2, 75, 2, 128, 75), (5, 3, 2, 256, 3),
         (3, 40, 4, 16, 33))
-] + [("bf16", 1, 512, 1, 64, 500), ("f32", 1, 304, 1, 64, 300)])
+] + [("bf16", 1, 512, 1, 64, 500), ("f32", 1, 304, 1, 64, 300),
+       ("bf16", 1, 512, 2, 256, 500)])
 def test_mha_kernel_matches_plain(card, kind, b, s, heads, d, kv_len):
     """o and lse of the packed-qkv attention against the plain version:
     f32 sums in other orders; bf16 one ulp of o where a probability or a
-    sum lands on the other side of a rounding boundary.  The last two are
-    the longest sequences a block's shared memory takes at head dim 64
-    (the float route keeps K, V and the score tile in f32)."""
+    sum lands on the other side of a rounding boundary.  (1, 304) is the
+    longest sequence a block's shared memory takes at head dim 64 in f32
+    (the float route keeps K, V and the score tile); the bf16 route
+    streams K and V, so it takes 512 at head dims 64 and 256."""
     rng = np.random.default_rng(s + d)
     qkv = torch.tensor(rng.standard_normal((b, s, 3 * heads * d))
                        .astype(np.float32)).to(DTYPE[kind]).cuda()
@@ -2413,9 +2415,14 @@ def test_mha_bwd_route_matches_the_c_rule(card):
 
 # FrameTransformer's encoders: distil_transformer's 2 heads of 448 over 14
 # tokens and scene_transformer's 4 heads of 224 over 15, at its training
-# batch (2) and serving bucket (8), kv_len S and below it
+# batch (2) and serving bucket (8), kv_len S and below it; and both head
+# dims at (2, 129, 2688), past the old limits (S 32 in the backward, kv_len
+# 64 and 192 in the forward), with a last key tile and a last 32-row block
+# of one row, and kv_len below S
 FT_MHA_SHAPES = [(b, 14, 2, 448, kv) for b in (2, 8) for kv in (14, 11)] \
-    + [(b, 15, 4, 224, kv) for b in (2, 8) for kv in (15, 12)]
+    + [(b, 15, 4, 224, kv) for b in (2, 8) for kv in (15, 12)] \
+    + [(2, 129, heads, 2688 // (3 * heads), kv) for heads in (2, 4)
+       for kv in (129, 97)]
 
 
 @pytest.mark.cuda
@@ -2465,27 +2472,30 @@ def test_mha_kernels_at_frame_transformer_head_dims(card, b, s, heads, d,
 @pytest.mark.cuda
 def test_mha_routes_and_limits_at_frame_transformer_head_dims(card):
     """The C rules send head dims 224 and 448 to the streamed bodies, as
-    the Python mirrors do; past S = 32 the backward refuses before the
-    forward launches, and past kv_len 64 the forward at 448 refuses."""
+    the Python mirrors do, at every S up to 512; the shapes the old bodies
+    refused (S 33 in the backward, kv_len 65 in the forward at 448, 193 at
+    224) launch both kernels once and give finite outputs."""
     fwd = _build.load("mha_fwd", tfa._declare_fwd)
     bwd = _build.load("mha_bwd", tfa._declare_bwd)
     for d in (224, 448):
-        for s in (1, 14, 15, 32, 64):
+        for s in (1, 14, 15, 32, 64, 129, 512):
             for rate in (0.0, 0.5):
                 assert tfa._MHA_BODIES[fwd.devt_mha_fwd_route(
                     1, d, s, s, ctypes.c_double(rate))] == "streamed"
                 assert tfa._MHA_BWD_BODIES[bwd.devt_mha_bwd_route(
                     1, d, s, s, ctypes.c_double(rate))] == "streamed"
-    for d, heads in ((448, 2), (224, 4)):
-        leaf = torch.zeros(1, 33, 3 * heads * d, dtype=torch.bfloat16,
-                           device="cuda", requires_grad=True)
-        before = tfa.fused_mha.launches
-        with pytest.raises(ValueError, match="backward kernel.*warps"):
-            tfa.fused_mha(leaf, heads=heads)
-        assert tfa.fused_mha.launches == before
-    with pytest.raises(ValueError, match="forward kernel.*bytes"):
-        tfa.fused_mha(torch.zeros(1, 65, 3 * 2 * 448, dtype=torch.bfloat16,
-                                  device="cuda"), heads=2)
+    for d, heads, s in ((448, 2, 33), (224, 4, 33), (448, 2, 65),
+                        (224, 4, 193)):
+        leaf = (torch.randn(1, s, 3 * heads * d, device="cuda") * 0.5).to(
+            torch.bfloat16).requires_grad_(True)
+        before = (tfa.fused_mha.launches, tfa.fused_mha.bwd_launches)
+        o = tfa.fused_mha(leaf, heads=heads)
+        o.float().sum().backward()
+        torch.cuda.synchronize()
+        assert (tfa.fused_mha.launches - before[0],
+                tfa.fused_mha.bwd_launches - before[1]) == (1, 1)
+        assert torch.isfinite(o.float()).all()
+        assert torch.isfinite(leaf.grad.float()).all()
 
 
 @pytest.mark.cuda

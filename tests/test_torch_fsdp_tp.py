@@ -41,6 +41,14 @@ and their tolerances:
     step's; the eval step against JAX's FSDP eval step;
     ``make_multi_step(2)`` against two steps; each matrix a quarter a rank
     at rest; the fused block reached on the FSDP route of a tiny ViViT;
+  * ``remat=True`` on both meshes: ViViT (``ViTTransformer``'s blocks)
+    and PTN (``TorchTransformerEncoder``'s layers) on the (2, 2) tensor-
+    parallel mesh, PTN and ViViT (its blocks unfused, as JAX's run on the
+    CPU) under FSDP on the data axis of 4; each
+    step's loss equal to the same step's without remat bit for bit, its
+    parameters within ``tests/test_torch_remat.py``'s rtol 1e-5 / atol
+    1e-7 of that step's, and the loss and parameters against JAX's remat
+    step on the same mesh within the bounds above;
   * ``main`` in the world of four: ``--dp_mode fsdp`` on a data axis of 4
     writes a checkpoint in the one-device format, and ``--dp 2 --mp 2``
     resumes from it (the state split again by the Megatron rules); both
@@ -102,11 +110,19 @@ CASES = {"fsdp": PTN_FSDP, "accum": dict(PTN_FSDP, accum_steps=2,
          "clip": dict(PTN_FSDP, grad_clip_norm=0.01),
          "adafactor": dict(PTN_WIDE, opt="adafactor", learning_rate=1e-2)}
 FSDP_VIVIT = dict(VIVIT, dp_mode="fsdp", batch_size=4)
+# the remat steps and the step without remat each is held to; the FSDP
+# ViViT on the unfused blocks (attention_impl "xla") on both sides, as
+# JAX's runs them on the CPU
+REMAT = {"vivit_remat": "vivit", "ptn_remat": "ptn", "fsdp_remat": "fsdp",
+         "fvivit_remat": "fvivit_xla"}
+BATCH_OF = {"vivit_remat": "vivit", "ptn_remat": "ptn", "fsdp_remat": "fsdp",
+            "fvivit_remat": "fvivit", "fvivit_xla": "fvivit"}
 TP_MAIN = ["--dp", "2", "--mp", "2", "--attention_impl", "auto"]
 FSDP_MAIN = ["--dp", "4", "--dp_mode", "fsdp"]
 SEED = 0
 
 BLOCK_FWD, BLOCK_BWD = dict(atol=2e-5, rtol=2e-4), dict(atol=5e-5, rtol=5e-4)
+REMAT_PARAMS = dict(rtol=1e-5, atol=1e-7)
 TP_LOSS, FSDP_LOSS = 2e-5, 1e-5
 PARAMS = dict(rtol=1e-5, atol=1e-6)
 
@@ -171,10 +187,10 @@ def _state(model, cfg) -> TrainState:
                              model_state=model_buffers(model))
 
 
-def _vivit(a: dict):
+def _vivit(a: dict, remat: bool = False, attention_impl: str = "auto"):
     from devt_tpu_torch.models.vivit import ViViT
 
-    model = ViViT(attention_impl="auto", **VIVIT_KW)
+    model = ViViT(attention_impl=attention_impl, remat=remat, **VIVIT_KW)
     model.load_state_dict(_sd(a, "vivit::w::"))
     return model
 
@@ -228,6 +244,17 @@ def _tp_steps(a: dict, mesh) -> dict:
                 out["vivit_eval::probs"] = aux["probs"].numpy()
     finally:
         ttp.fused_mha = real
+    for tag, cfg, model in (
+            ("vivit_remat", TConfig(**VIVIT, remat=True),
+             _vivit(a, remat=True)),
+            ("ptn_remat", TConfig(**PTN_TP, remat=True),
+             _ptn(a, "ptn::w::", TConfig(**PTN_TP, remat=True)))):
+        state = tsharding.shard_train_state(_state(model, cfg), mesh)
+        batch = tmesh.shard_batch(_batch(a, f"{BATCH_OF[tag]}::b::"), mesh)
+        state, metrics = tts.make_train_step(model, cfg, mesh=mesh,
+                                             device="cpu")(
+            state, batch, SEED)
+        _record(out, tag, state, mesh, metrics)
     return out
 
 
@@ -315,6 +342,19 @@ def _fsdp_steps(a: dict, mesh) -> dict:
     finally:
         layers.fused_vit_block = real
     out["fvivit::fused_calls"] = np.int64(len(calls))
+    for tag, cfg, model in (
+            ("fsdp_remat", TConfig(**PTN_FSDP, remat=True),
+             _ptn(a, "ptn::w::", TConfig(**PTN_FSDP, remat=True))),
+            ("fvivit_xla", TConfig(**FSDP_VIVIT),
+             _vivit(a, attention_impl="xla")),
+            ("fvivit_remat", TConfig(**FSDP_VIVIT, remat=True),
+             _vivit(a, remat=True, attention_impl="xla"))):
+        state = tfsdp.shard_train_state(_state(model, cfg), mesh)
+        state, metrics = tts.make_train_step(model, cfg, mesh=mesh,
+                                             device="cpu")(
+            state, tmesh.shard_batch(_batch(a, f"{BATCH_OF[tag]}::b::"),
+                                     mesh), SEED)
+        _record(out, tag, state, mesh, metrics)
     return out
 
 
@@ -568,7 +608,7 @@ def world(tmp_path_factory):
         the loss and the new parameters by the port's names."""
         state, metrics = jts.make_train_step(model, cfg, mesh=mesh)(
             place(_jstate(v["params"], cfg), mesh),
-            jmesh.shard_batch(batches[tag], mesh), key0)
+            jmesh.shard_batch(batches[BATCH_OF.get(tag, tag)], mesh), key0)
         want[tag] = (float(metrics["loss"]),
                      _flat("", {"params": state.params}))
 
@@ -584,6 +624,19 @@ def world(tmp_path_factory):
         model, v = (jwide, wide_v) if tag == "adafactor" else (jptn, ptn_v)
         step(tag, model, v, JConfig(**CASES[tag]), data,
              jfsdp.shard_train_state)
+    # JAX's remat steps (nn.remat replays inside the traced step) on the
+    # same meshes
+    for tag, model, v, kw, mesh, place in (
+            ("vivit_remat", JViViT(**VIVIT_KW, remat=True), vivit_v, VIVIT,
+             square, jsharding.shard_train_state),
+            ("ptn_remat", jbuild(JConfig(**PTN_TP, remat=True)), ptn_v,
+             PTN_TP, square, jsharding.shard_train_state),
+            ("fsdp_remat", jbuild(JConfig(**PTN_FSDP, remat=True)), ptn_v,
+             PTN_FSDP, data, jfsdp.shard_train_state),
+            ("fvivit_remat", JViViT(**VIVIT_KW, attention_impl="xla",
+                                    remat=True), vivit_v,
+             FSDP_VIVIT, data, jfsdp.shard_train_state)):
+        step(tag, model, v, JConfig(**kw, remat=True), mesh, place)
     cfg = JConfig(**VIVIT)
     want["vivit_eval"] = jts.make_eval_step(jvivit, cfg)(
         _jstate(vivit_v["params"], cfg), batches["vivit"])
@@ -840,6 +893,28 @@ def test_fsdp_eval_multi_step_and_fused_block(world):
                                    rtol=FSDP_LOSS)
         for k, v in one["fvivit"].items():
             _close(out[f"fvivit::p::{k}"], v, PARAMS, k)
+
+
+@pytest.mark.parametrize("tag", list(REMAT))
+def test_remat_steps_match_no_remat_and_jax(world, tag):
+    """``remat=True`` trains on the tensor-parallel (2, 2) mesh and under
+    FSDP on the data axis of 4 (the replay binds the tensors the forward
+    ran with: the rank's TP parts, its gathered FSDP weights): the loss
+    is the same step's without remat bit for bit, the parameters within
+    ``tests/test_torch_remat.py``'s bound of that step's, and both within
+    this file's bounds of JAX's remat step on the same mesh."""
+    want, _, outs, _ = world
+    base = REMAT[tag]
+    loss, params = want[tag]
+    tol = FSDP_LOSS if tag.startswith("f") else TP_LOSS
+    for out in outs:
+        assert out[f"{tag}::loss"] == out[f"{base}::loss"]
+        prefix = f"{base}::p::"
+        for k in (k[len(prefix):] for k in out if k.startswith(prefix)):
+            _close(out[f"{tag}::p::{k}"], out[prefix + k], REMAT_PARAMS,
+                   f"{tag} {k} against {base}")
+        np.testing.assert_allclose(out[f"{tag}::loss"], loss, rtol=tol)
+        _close_params(out, tag, params)
 
 
 def test_main_fsdp_checkpoint_resumes_on_a_tp_mesh(world, main_runs):

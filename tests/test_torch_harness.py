@@ -171,6 +171,26 @@ def _fit(cfg, variables, n=20, logger=None):
 
 
 @pytest.mark.parametrize("unroll", [1, 2])
+def test_fit_stopped_mid_epoch_leaves_no_prefetch_thread(tmp_path, unroll):
+    """``max_steps`` ends the epoch after 2 of its 5 steps: the batches'
+    prefetch thread has stopped when ``fit`` returns.  One left polling
+    keeps its source, and so a rank's process group, alive past the
+    process' exit."""
+    def prefetching():
+        return {t for t in threading.enumerate()
+                if t.name == "devt-device-prefetch" and t.is_alive()}
+
+    kw = dict(PTN, epochs=2, max_steps=2, unroll_steps=unroll,
+              host_batch_prefetch=1, seed=4)
+    _, variables = _jax_init(JConfig(**kw))
+    before = prefetching()
+    state = _fit(TConfig(checkpoint_dir=str(tmp_path / "ck"), **kw),
+                 variables)
+    assert state.step == 2
+    assert not prefetching() - before
+
+
+@pytest.mark.parametrize("unroll", [1, 2])
 def test_resumed_fit_equals_an_unbroken_one(tmp_path, unroll):
     """20 samples at batch 4: 5 steps an epoch, 4 with the 2-step unroll
     (the tail dropped).  Resume from an epoch's end and from mid epoch;

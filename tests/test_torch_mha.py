@@ -231,9 +231,13 @@ def test_cuda_argument_check_raises_on_unsupported_shapes():
     with pytest.raises(ValueError, match="head dims"):
         tfa._check_mha_args(torch.zeros(2, 16, 3 * 2 * 48,
                                         dtype=torch.bfloat16), 2, 16)
+    # the bfloat16 forward streams K and V in key tiles: any S; the float
+    # one keeps a head's K and V whole
+    assert tfa._check_mha_args(torch.zeros(1, 512, 3 * 256,
+                                           dtype=torch.bfloat16), 1, 512) \
+        == 256
     with pytest.raises(ValueError, match="shared memory"):
-        tfa._check_mha_args(torch.zeros(1, 512, 3 * 256,
-                                        dtype=torch.bfloat16), 1, 512)
+        tfa._check_mha_args(torch.zeros(1, 512, 3 * 256), 1, 512)
     with pytest.raises(ValueError, match="kv_len"):
         tfa._check_mha_args(ok, 2, 17)
     with pytest.raises(TypeError, match="float32 or bfloat16"):

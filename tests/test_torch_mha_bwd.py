@@ -274,13 +274,15 @@ def test_dropout_masks_follow_the_seed():
 def test_backward_argument_check_needs_no_card():
     """The backward kernel streams a head's rows through shared memory, so
     its bfloat16 route takes every single-kv-block length (512) at head
-    dim 256, past the forward's 160; the float route keeps 32 rows of six
-    tensors, so at head dim 384 it takes 16 tokens where the forward takes
-    32."""
+    dim 256, as the forward (K and V streamed in key tiles) does; the
+    float route keeps 32 rows of six tensors, so at head dim 384 it takes
+    16 tokens where the forward takes 32, and its forward keeps a head's
+    K and V whole."""
     longest = torch.zeros(1, 512, 3 * 256, dtype=torch.bfloat16)
     assert tfa._check_mha_args(longest, 1, 512, backward=True) == 256
+    assert tfa._check_mha_args(longest, 1, 512) == 256
     with pytest.raises(ValueError, match="forward kernel.*bytes"):
-        tfa._check_mha_args(longest, 1, 512)
+        tfa._check_mha_args(longest.float(), 1, 512)
     assert tfa._check_mha_args(torch.zeros(1, 512, 3 * 256), 1, 500,
                                backward=True) == 256
     assert tfa._check_mha_args(torch.zeros(2, 208, 3 * 3 * 64), 3, 197,
@@ -299,32 +301,29 @@ def test_backward_argument_check_needs_no_card():
 
 def test_argument_check_takes_frame_transformer_head_dims():
     """bfloat16 head dims 224 and 448 (FrameTransformer's encoders) pass
-    at their S of 14 and 15, forward and backward, and up to the limits of
-    the streamed bodies: the backward gives a warp to each 16-row strip
-    and output-column chunk (7 at either head dim, ``attn_out_cols`` 32
-    and 64), so S <= 32; the forward keeps K and V of kv_len rounded up to
-    32 rows in shared memory, so kv_len <= 64 at 448 and <= 192 at 224.
-    A head dim the kernels are not compiled for, such as 96, is refused."""
+    at their S of 14 and 15, forward and backward, and at every S the JAX
+    kernel takes (``_round_up(s, 128) <= 512``): the forward streams K and
+    V in 32-key tiles (its shared memory does not depend on S), and the
+    backward's blocks own and stream 32 rows at a time, a warp to each
+    16-row strip and output-column chunk (7 at either head dim,
+    ``attn_out_cols`` 32 and 64: 14 warps).  A head dim the kernels are
+    not compiled for, such as 96, is refused."""
     bf = torch.bfloat16
     for d, heads in ((448, 2), (224, 4)):
         assert tfa.attn_out_cols(d) * 7 == d
-        for s in (14, 15, 32):
+        # a warp to each (16-row strip, column chunk) of a block
+        assert tfa._bwd_rows(d) == 32
+        assert tfa._bwd_rows(d) // 16 * 7 <= tfa._BWD_MAX_WARPS
+        for s in (14, 15, 32, 33, 41, 64, 65, 129, 193, 512):
             qkv = torch.zeros(2, s, 3 * heads * d, dtype=bf)
-            assert tfa._check_mha_args(qkv, heads, s) == d
-            assert tfa._check_mha_args(qkv, heads, s, backward=True) == d
-        over = torch.zeros(1, 33, 3 * heads * d, dtype=bf)
-        assert tfa._check_mha_args(over, heads, 33) == d
-        with pytest.raises(ValueError, match="backward kernel.*warps"):
-            tfa._check_mha_args(over, heads, 33, backward=True)
-    assert tfa._check_mha_args(torch.zeros(1, 64, 3 * 2 * 448, dtype=bf), 2,
-                               64) == 448
-    with pytest.raises(ValueError, match="forward kernel.*bytes"):
-        tfa._check_mha_args(torch.zeros(1, 65, 3 * 2 * 448, dtype=bf), 2, 65)
-    assert tfa._check_mha_args(torch.zeros(1, 192, 3 * 4 * 224, dtype=bf),
-                               4, 192) == 224
-    with pytest.raises(ValueError, match="forward kernel.*bytes"):
-        tfa._check_mha_args(torch.zeros(1, 193, 3 * 4 * 224, dtype=bf), 4,
-                            193)
+            for kv in {s, max(1, s - 20)}:
+                assert tfa._check_mha_args(qkv, heads, kv) == d
+                assert tfa._check_mha_args(qkv, heads, kv,
+                                           backward=True) == d
+            assert tfa._bwd_smem_bf16(_round16(s), d) <= tfa._SMEM_PER_BLOCK
+        assert tfa._fwd_smem_tiled(d) <= tfa._SMEM_PER_BLOCK
+    # the other head dims keep their 64-row blocks and their limits
+    assert [tfa._bwd_rows(d) for d in (16, 32, 64, 128, 256)] == [64] * 5
     for backward in (False, True):
         with pytest.raises(ValueError, match="head dims"):
             tfa._check_mha_args(torch.zeros(2, 14, 3 * 2 * 96, dtype=bf), 2,
@@ -332,3 +331,40 @@ def test_argument_check_takes_frame_transformer_head_dims():
     # the streamed bodies' chunks end at the head's last column
     assert [tfa.attn_out_cols(d) for d in (16, 64, 128, 224, 256, 448)] \
         == [16, 64, 64, 32, 64, 64]
+
+
+def test_float_limits_at_frame_transformer_head_dims():
+    """float32 at head dims 448 and 224 keeps its shared-memory limits
+    (ROADMAP queue 3, Open 1): the forward keeps a head's K and V whole,
+    S <= 16 at 448 and <= 80 at 224; the backward keeps 32 rows of six
+    tensors, S <= 16 at 448 and every S at 224.  ``--seq_len 40`` (41
+    tokens) is refused in float at 448."""
+    for d, heads, fwd_max, bwd_max in ((448, 2, 16, 16), (224, 4, 80, 512)):
+        for backward, last in ((False, fwd_max), (True, bwd_max)):
+            ok = torch.zeros(2, last, 3 * heads * d)
+            assert tfa._check_mha_args(ok, heads, last,
+                                       backward=backward) == d
+            if last < 512:
+                with pytest.raises(ValueError, match="shared memory"):
+                    tfa._check_mha_args(torch.zeros(2, last + 1,
+                                                    3 * heads * d), heads,
+                                        last + 1, backward=backward)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfa._check_mha_args(torch.zeros(2, 41, 2688), 2, 41)
+
+
+def _round16(s: int) -> int:
+    return -(-s // 16) * 16
+
+
+@pytest.mark.parametrize("s", [41, 512])
+@pytest.mark.parametrize("heads", [2, 4])
+def test_argument_check_takes_frame_transformer_shapes_up_to_512(s, heads):
+    """(2, S, 2688) in bfloat16 at 2 heads of 448 and 4 of 224, S 41 (the
+    token count of ``--seq_len 40``) and 512 (the longest single kv block
+    of JAX's kernel): the forward and the backward take them."""
+    d = 2688 // (3 * heads)
+    qkv = torch.zeros(2, s, 2688, dtype=torch.bfloat16)
+    assert tfa.fits_single_block(s)
+    assert tfa._check_mha_args(qkv, heads, s) == d
+    assert tfa._check_mha_args(qkv, heads, s, backward=True) == d

@@ -225,17 +225,18 @@ def test_replay_on_another_thread_binds_the_forwards_scopes():
     thread here)."""
     seen = []
 
-    def fn(h, rng, first=True):
-        seen.append((collectives.bound_axes(), moe.active_moe_ep(),
-                     active_tp_mesh()))
-        return h.sin()
+    class Probe(torch.nn.Module):
+        def forward(self, h):
+            seen.append((collectives.bound_axes(), moe.active_moe_ep(),
+                         active_tp_mesh()))
+            return h.sin()
 
     x = torch.ones(3, requires_grad=True)
     axes = {"data": collectives.Axis(None, 1, 0)}
     mesh = object()
     with collectives.axis_scope(axes), moe.moe_ep_scope("data", 2), \
             tp_pallas_scope(mesh):
-        y = tl.remat(fn, x, None)
+        y = tl.remat(Probe(), lambda h, r, first: (h,), x, None)
     grads = []
     worker = threading.Thread(
         target=lambda: grads.append(torch.autograd.grad(y.sum(), x)[0]))
@@ -245,3 +246,38 @@ def test_replay_on_another_thread_binds_the_forwards_scopes():
     assert seen[0] == seen[1] == (axes, ("data", 2), mesh)
     torch.testing.assert_close(grads[0], torch.ones(3).cos())
     assert collectives.bound_axes() == {} and moe.active_moe_ep() is None
+
+
+def test_replay_runs_on_the_tensors_bound_at_the_forward():
+    """A step binds the tensors a block computes on (a rank's gathered
+    FSDP weights, its tensor-parallel parts) with ``functional_call`` and
+    takes the backward after the binding has put the module's own back:
+    the recompute runs on the forward's tensors, so the gradients are the
+    plain block's on those tensors, and the module's own get none."""
+    gen = torch.Generator().manual_seed(3)
+    block = tl.ViTBlock(dim=16, heads=2, dim_head=8, mlp_dim=32,
+                        attention_impl="xla").train()
+
+    class Outer(torch.nn.Module):
+        def __init__(self, rematerialise: bool):
+            super().__init__()
+            self.block, self.rematerialise = block, rematerialise
+
+        def forward(self, h):
+            if self.rematerialise:
+                return tl.remat(self.block, lambda h, r, first: (h, None, r),
+                                h, None)
+            return self.block(h)
+
+    bound = {f"block.{k}": (torch.randn(v.shape, generator=gen) * 0.2)
+             .requires_grad_(True) for k, v in block.named_parameters()}
+    x = torch.randn(2, 5, 16, generator=gen)
+    grads = []
+    for rematerialise in (False, True):
+        leaf = x.clone().requires_grad_(True)
+        y = torch.func.functional_call(Outer(rematerialise), bound, (leaf,))
+        grads.append(torch.autograd.grad(y.square().sum(),
+                                         [leaf, *bound.values()]))
+    assert all(p.grad is None for p in block.parameters())
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), **PARAM_TOL)
